@@ -1,0 +1,30 @@
+"""State carried across from the JAX package.
+
+``load_planes`` installs fragment planes — uint32 ``[rows, 32768]`` numpy
+arrays with ``plane[r]`` the words of row id ``r``, as the JAX package's
+fragments hold them — into this port's fragments: each fragment's
+device mirror is uploaded, its rank cache recounted through the fused
+popcount kernel, and its roaring file written.  A data directory the JAX
+``Server`` wrote and closed opens directly with ``Holder``/``Server``
+(same on-disk formats), so no conversion is needed for that.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from pilosa_tpu_torch.core.view import VIEW_STANDARD
+
+
+def load_planes(
+    holder, index: str, frame: str, view: str, planes: dict[int, np.ndarray]
+) -> None:
+    """Install ``{slice: plane}`` into ``index/frame/view``, creating the
+    index and frame when absent.  Only the standard view is supported."""
+    if view != VIEW_STANDARD:
+        raise ValueError(f"view {view!r} is not supported by this port yet")
+    idx = holder.create_index_if_not_exists(index)
+    f = idx.create_frame_if_not_exists(frame)
+    v = f.create_view_if_not_exists(view)
+    for slice_i, plane in sorted(planes.items()):
+        v.create_fragment_if_not_exists(int(slice_i)).install_plane(plane)

@@ -1,0 +1,96 @@
+"""RowBitmap — a query-result row spanning many slices.
+
+The reference's ``pilosa.Bitmap`` walks two sorted lists of per-slice
+roaring segments with a merge iterator (reference: bitmap.go:28-134,
+282-437).  Here a row result is a dict of ``slice -> int32[32768]``
+torch segments (bit-views of the uint32 words, on any device); counts
+go through the fused popcount kernel and are memoized per segment like
+the reference's cached ``n``.  ``bits()`` and the JSON form copy to the
+host.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from pilosa_tpu_torch.ops import bitplane as bp
+
+
+def _as_segment(words) -> torch.Tensor:
+    """A segment as an int32 bit-view tensor: tensors pass through,
+    uint32 numpy words wrap as a CPU tensor (a copy)."""
+    if isinstance(words, torch.Tensor):
+        return words
+    return bp.to_device(np.asarray(words, dtype=np.uint32), "cpu")
+
+
+class RowBitmap:
+    """Segmented row bitmap with per-segment cached counts and row
+    attributes (reference: bitmap.go:24-43)."""
+
+    __slots__ = ("segments", "_counts", "attrs")
+
+    def __init__(self):
+        self.segments: dict[int, torch.Tensor] = {}
+        self._counts: dict[int, int] = {}
+        self.attrs: dict[str, Any] = {}
+
+    # --- construction ---
+
+    @classmethod
+    def from_segment(cls, slice_i: int, words, count: int | None = None) -> "RowBitmap":
+        b = cls()
+        b.set_segment(slice_i, words, count)
+        return b
+
+    def set_segment(self, slice_i: int, words, count: int | None = None) -> None:
+        self.segments[slice_i] = _as_segment(words)
+        if count is not None:
+            self._counts[slice_i] = count
+        else:
+            self._counts.pop(slice_i, None)
+
+    # --- counts (reference: bitmap.go:159-217) ---
+
+    def segment_count(self, slice_i: int) -> int:
+        n = self._counts.get(slice_i)
+        if n is None:
+            n = bp.count(self.segments[slice_i])
+            self._counts[slice_i] = n
+        return n
+
+    def count(self) -> int:
+        return sum(self.segment_count(s) for s in self.segments)
+
+    def intersection_count(self, other: "RowBitmap") -> int:
+        """Count-only AND without materializing (reference:
+        bitmap.go:74-83 -> roaring.IntersectionCount)."""
+        total = 0
+        for s in self.segments.keys() & other.segments.keys():
+            total += bp.count_and(self.segments[s], other.segments[s])
+        return total
+
+    # --- materialization ---
+
+    def host_segment(self, slice_i: int) -> np.ndarray:
+        return bp.to_host(self.segments[slice_i])
+
+    def bits(self) -> list[int]:
+        """Sorted absolute column IDs (reference: Bitmap.Bits,
+        bitmap.go:236-242)."""
+        out: list[int] = []
+        for s in sorted(self.segments):
+            offs = bp.np_row_to_columns(self.host_segment(s))
+            base = s * bp.SLICE_WIDTH
+            out.extend(int(o) + base for o in offs)
+        return out
+
+    def to_json_dict(self) -> dict:
+        """{"attrs": ..., "bits": ...} (reference: bitmap.go:220-233)."""
+        return {"attrs": self.attrs or {}, "bits": self.bits()}
+
+    def __repr__(self) -> str:
+        return f"RowBitmap(n={self.count()}, slices={sorted(self.segments)})"

@@ -1,0 +1,229 @@
+"""Frame — a named row namespace inside an index.
+
+Reference behavior (reference: frame.go): row label (default "rowID"),
+TopN cache type and size, JSON ``.meta`` persistence with the same keys
+as ``pilosa_tpu.core.frame`` (so either package opens the other's data
+directory), a row AttrStore at ``<frame>/.data``, and views under
+``views/``.  Only the standard view is written and read here: inverse
+storage, time-quantum views and BSI integer fields are kept in the
+metadata as they were found, but not executed (not ported yet).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+
+import numpy as np
+import torch
+
+from pilosa_tpu_torch.core import cache as cache_mod
+from pilosa_tpu_torch.core import timequantum as tq
+from pilosa_tpu_torch.core.attr import AttrStore
+from pilosa_tpu_torch.core.names import ValidationError, validate_label, validate_name
+from pilosa_tpu_torch.core.view import VIEW_STANDARD, View, is_inverse_view, is_valid_view
+from pilosa_tpu_torch.ops.bitplane import SLICE_WIDTH, np_group_by
+
+# reference: frame.go:40-46
+DEFAULT_ROW_LABEL = "rowID"
+DEFAULT_CACHE_TYPE = cache_mod.TYPE_RANKED
+DEFAULT_CACHE_SIZE = cache_mod.DEFAULT_CACHE_SIZE
+
+
+class FrameError(RuntimeError):
+    pass
+
+
+class Frame:
+    def __init__(self, path: str, index: str, name: str, device: torch.device | str = "cpu"):
+        validate_name(name)
+        self.path = path
+        self.index = index
+        self.name = name
+        self.device = torch.device(device)
+        self._mu = threading.RLock()
+        self._views: dict[str, View] = {}
+        self.row_label = DEFAULT_ROW_LABEL
+        self.cache_type = DEFAULT_CACHE_TYPE
+        self.cache_size = DEFAULT_CACHE_SIZE
+        self.inverse_enabled = False
+        self.time_quantum = ""
+        self.range_enabled = False
+        self.retention_age_s = 0.0
+        self.retention_delete_s = 0.0
+        # BSI field declarations as read from .meta (not executed here).
+        self._fields: list[dict] = []
+        self.row_attr_store = AttrStore(os.path.join(path, ".data"))
+
+    # --- lifecycle (reference: frame.go:218-334) ---
+
+    @property
+    def meta_path(self) -> str:
+        return os.path.join(self.path, ".meta")
+
+    def open(self) -> None:
+        with self._mu:
+            os.makedirs(self.path, exist_ok=True)
+            self._load_meta()
+            self.row_attr_store.open()
+            views_path = os.path.join(self.path, "views")
+            os.makedirs(views_path, exist_ok=True)
+            for entry in sorted(os.listdir(views_path)):
+                view = self._new_view(entry)
+                view.open()
+                self._views[entry] = view
+
+    def close(self) -> None:
+        with self._mu:
+            self.row_attr_store.close()
+            for view in self._views.values():
+                view.close()
+            self._views.clear()
+
+    def _load_meta(self) -> None:
+        try:
+            with open(self.meta_path) as fh:
+                meta = json.load(fh)
+        except FileNotFoundError:
+            return
+        self.row_label = meta.get("rowLabel", DEFAULT_ROW_LABEL)
+        self.cache_type = meta.get("cacheType", DEFAULT_CACHE_TYPE)
+        self.cache_size = meta.get("cacheSize", DEFAULT_CACHE_SIZE)
+        self.inverse_enabled = meta.get("inverseEnabled", False)
+        self.time_quantum = meta.get("timeQuantum", "")
+        self.range_enabled = meta.get("rangeEnabled", False)
+        self.retention_age_s = float(meta.get("retentionAgeS", 0.0))
+        self.retention_delete_s = float(meta.get("retentionDeleteS", 0.0))
+        self._fields = list(meta.get("fields", []))
+
+    def _meta(self) -> dict:
+        return {
+            "rowLabel": self.row_label,
+            "cacheType": self.cache_type,
+            "cacheSize": self.cache_size,
+            "inverseEnabled": self.inverse_enabled,
+            "timeQuantum": self.time_quantum,
+            "rangeEnabled": self.range_enabled,
+            "retentionAgeS": self.retention_age_s,
+            "retentionDeleteS": self.retention_delete_s,
+            "fields": sorted(self._fields, key=lambda f: f["name"]),
+        }
+
+    def save_meta(self) -> None:
+        with self._mu:
+            os.makedirs(self.path, exist_ok=True)
+            tmp = self.meta_path + ".tmp"
+            with open(tmp, "w") as fh:
+                json.dump(self._meta(), fh)
+            os.replace(tmp, self.meta_path)
+
+    def set_options(
+        self,
+        row_label: str | None = None,
+        cache_type: str | None = None,
+        cache_size: int | None = None,
+        inverse_enabled: bool | None = None,
+        time_quantum: str | None = None,
+        range_enabled: bool | None = None,
+        retention_age_s: float | None = None,
+        retention_delete_s: float | None = None,
+    ) -> None:
+        with self._mu:
+            if row_label is not None:
+                validate_label(row_label)
+                self.row_label = row_label
+            if cache_type is not None:
+                if cache_type not in (cache_mod.TYPE_RANKED, cache_mod.TYPE_LRU):
+                    raise ValidationError(f"invalid cache type: {cache_type!r}")
+                self.cache_type = cache_type
+            if cache_size is not None:
+                self.cache_size = cache_size
+            if inverse_enabled is not None:
+                self.inverse_enabled = inverse_enabled
+            if time_quantum is not None:
+                self.time_quantum = tq.parse_time_quantum(time_quantum)
+            if range_enabled is not None:
+                self.range_enabled = range_enabled
+            if retention_age_s is not None:
+                if float(retention_age_s) < 0:
+                    raise ValidationError("retention age must be >= 0")
+                self.retention_age_s = float(retention_age_s)
+            if retention_delete_s is not None:
+                if float(retention_delete_s) < 0:
+                    raise ValidationError("retention delete must be >= 0")
+                self.retention_delete_s = float(retention_delete_s)
+            self.save_meta()
+
+    # --- views (reference: frame.go:336-395) ---
+
+    def _new_view(self, name: str) -> View:
+        return View(
+            os.path.join(self.path, "views", name),
+            self.index,
+            self.name,
+            name,
+            device=self.device,
+            cache_type=self.cache_type,
+            cache_size=self.cache_size,
+            row_attr_store=self.row_attr_store,
+        )
+
+    def view(self, name: str) -> View | None:
+        with self._mu:
+            return self._views.get(name)
+
+    def views(self) -> dict[str, View]:
+        with self._mu:
+            return dict(self._views)
+
+    def create_view_if_not_exists(self, name: str) -> View:
+        with self._mu:
+            v = self._views.get(name)
+            if v is None:
+                v = self._new_view(name)
+                v.open()
+                self._views[name] = v
+            return v
+
+    # --- slices ---
+
+    def max_slice(self) -> int:
+        """Max slice over non-inverse views (reference: frame.go:169-186)."""
+        with self._mu:
+            return max(
+                (v.max_slice() for n, v in self._views.items() if not is_inverse_view(n)),
+                default=0,
+            )
+
+    # --- writes (reference: frame.go:443-525) ---
+
+    def _writable_view(self, view_name: str) -> View:
+        if not is_valid_view(view_name):
+            raise FrameError(f"invalid view: {view_name!r}")
+        if view_name != VIEW_STANDARD:
+            raise FrameError(f"view {view_name!r} is not supported by this port yet")
+        return self.create_view_if_not_exists(view_name)
+
+    def set_bit(self, view_name: str, row_id: int, col_id: int) -> bool:
+        return self._writable_view(view_name).set_bit(row_id, col_id)
+
+    def clear_bit(self, view_name: str, row_id: int, col_id: int) -> bool:
+        """reference: frame.go:485-506 (standard view only)"""
+        return self._writable_view(view_name).clear_bit(row_id, col_id)
+
+    def import_bulk(self, row_ids, column_ids) -> None:
+        """Bulk import into the standard view, grouped by slice
+        (reference: frame.go:527-604)."""
+        if self.inverse_enabled:
+            raise FrameError("inverse views are not supported by this port yet")
+        rows = np.asarray(row_ids, dtype=np.int64)
+        cols = np.asarray(column_ids, dtype=np.int64)
+        view = self._writable_view(VIEW_STANDARD)
+        for s, (r_s, c_s) in np_group_by(cols // SLICE_WIDTH, rows, cols):
+            view.create_fragment_if_not_exists(s).import_bulk(r_s, c_s)
+
+    def schema_dict(self) -> dict:
+        with self._mu:
+            meta = self._meta()
+            return {"name": self.name, **meta}

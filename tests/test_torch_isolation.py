@@ -1,0 +1,129 @@
+"""Import hygiene and device rules of the port.
+
+* No module under ``pilosa_tpu_torch/`` imports ``jax``, ``pilosa_tpu``
+  or ``google.protobuf`` (AST scan, and a fresh interpreter that imports
+  every module and finds none of them in ``sys.modules``).
+* Entry points default to CUDA and raise when it is absent — no silent
+  CPU path.
+* Every kernel wrapper raises, rather than computing, for a tensor on a
+  device it cannot launch on.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import pilosa_tpu_torch  # noqa: E402
+from pilosa_tpu_torch import device as device_mod  # noqa: E402
+from pilosa_tpu_torch.ops import bitplane as tbp  # noqa: E402
+from pilosa_tpu_torch.ops import fused_popcount as fp  # noqa: E402
+
+PKG = os.path.dirname(pilosa_tpu_torch.__file__)
+FORBIDDEN = ("jax", "jaxlib", "pilosa_tpu", "google.protobuf")
+
+
+def _modules() -> list[str]:
+    out = []
+    for dirpath, _, files in os.walk(PKG):
+        for name in files:
+            if name.endswith(".py"):
+                out.append(os.path.join(dirpath, name))
+    return sorted(out)
+
+
+def _forbidden(mod: str) -> bool:
+    return any(mod == f or mod.startswith(f + ".") for f in FORBIDDEN)
+
+
+@pytest.mark.parametrize("path", _modules(), ids=lambda p: os.path.relpath(p, PKG))
+def test_module_imports_nothing_forbidden(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            if _forbidden(node.module):
+                bad.append(node.module)
+            if node.module == "google":
+                bad += [f"google.{a.name}" for a in node.names if a.name == "protobuf"]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_fresh_interpreter_loads_no_forbidden_module():
+    mods = [
+        "pilosa_tpu_torch." + os.path.relpath(p, PKG)[:-3].replace(os.sep, ".")
+        for p in _modules()
+        if not p.endswith("__main__.py")
+    ]
+    mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in mods]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = [m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r})]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(PKG)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.net.server import Server
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(device_mod.DeviceUnavailableError):
+        Server(str(tmp_path))
+    with pytest.raises(device_mod.DeviceUnavailableError):
+        Server(str(tmp_path), device="cuda")
+    with pytest.raises(device_mod.DeviceUnavailableError):
+        Holder(str(tmp_path))
+    assert Server(str(tmp_path), device="cpu").device == torch.device("cpu")
+
+
+def test_cli_defaults_to_cuda():
+    from pilosa_tpu_torch.cli.main import build_parser
+
+    args = build_parser().parse_args(["server", "--data-dir", "d", "--bind", "h:1"])
+    assert args.device == "cuda"
+
+
+def test_kernel_wrappers_raise_off_the_cpu():
+    """A tensor the kernel cannot launch on (here on the meta device)
+    raises in every wrapper instead of being computed another way."""
+    a = torch.empty(3, tbp.WORDS_PER_SLICE, dtype=torch.int32, device="meta")
+    before = fp.launches
+    for call in (
+        lambda: fp.row_popcounts(a),
+        lambda: fp.row_popcounts(a, a, "and"),
+        lambda: fp.row_popcounts(a, a[:1], "xor"),
+        lambda: fp.fused_count(a),
+        lambda: tbp.count(a),
+        lambda: tbp.count_and(a, a),
+        lambda: tbp.row_counts(a),
+        lambda: tbp.top_counts(a, a[0]),
+    ):
+        with pytest.raises(ValueError):
+            call()
+    assert fp.launches == before
+
+
+def test_kernel_build_refuses_without_nvcc(monkeypatch):
+    from pilosa_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
+    with pytest.raises(_build.KernelBuildError):
+        _build.nvcc_path()
