@@ -290,7 +290,15 @@ class Executor:
         tanimoto = _uint_arg(c, "tanimotoThreshold")[0]
         src_rows = None
         if len(c.children) == 1:
-            src_rows = self._src_rows(index, c.children[0], local)
+            # The src tree's row per slice, folded on the device like a
+            # Bitmap() call.  A slice without one is an empty src there,
+            # and an all-zero row scores nothing: both give no pairs.
+            expr, leaves = plan.decompose(c.children[0])
+            stacks, kept = self.leaf_stacks(index, leaves, local)
+            src_rows = {}
+            if kept:
+                rows = plan.eval_expr(expr, stacks)
+                src_rows = {s: rows[i] for i, s in enumerate(kept)}
         parts = []
         for s in local:
             frag = view.fragment(s)
@@ -322,26 +330,6 @@ class Executor:
                 )
             )
         return cache_mod.sort_pairs(merge_counts_by_id(parts))
-
-    def _src_rows(self, index: str, c: Call, slices: list[int]) -> dict[int, object]:
-        """The TopN src tree's row per slice on the device (None where
-        the tree is empty), with the same None rules as the JAX
-        package's host evaluation."""
-        expr, leaves = plan.decompose(c)
-        targets = [self._resolve_bitmap_leaf(index, leaf) for leaf in leaves]
-        device = self.holder.device
-        out = {}
-        for s in slices:
-            rows = []
-            for view, row_id in targets:
-                frag = view.fragment(s) if view is not None else None
-                rows.append(frag.device_row(row_id) if frag is not None else None)
-            out[s] = plan.eval_expr_rows(
-                expr,
-                rows,
-                lambda: torch.zeros(bp.WORDS_PER_SLICE, dtype=torch.int32, device=device),
-            )
-        return out
 
     # ------------------------------------------------------------------
     # writes (reference: executor.go:642-840)

@@ -117,15 +117,18 @@ def count_rows(expr: tuple, leaves: list[torch.Tensor]) -> torch.Tensor:
     )
 
 
-def eval_expr_rows(expr: tuple, leaf_rows: list, zeros):
-    """Evaluation of a decomposed tree over ONE slice's leaf rows where
-    ``leaf_rows[i]`` may be None (= the row is absent): the result is
-    None when the tree is empty on this slice.  ``zeros()`` makes an
-    all-zero row of the rows' kind (numpy or torch)."""
+def eval_expr_np(expr: tuple, leaf_rows, words: int):
+    """HOST (numpy) evaluation of a decomposed tree over one slice's
+    leaf rows (``leaf_rows[i]`` is uint32[words] or None = empty); the
+    result is None when the tree is empty on this slice."""
+    rows = [None if r is None else np.asarray(r, dtype=np.uint32) for r in leaf_rows]
+
+    def zeros():
+        return np.zeros(words, dtype=np.uint32)
 
     def rec(e):
         if e[0] == "leaf":
-            return leaf_rows[e[1]]
+            return rows[e[1]]
         name = e[0]
         children = [rec(c) for c in e[1:]]
         if name == "Union":
@@ -154,10 +157,3 @@ def eval_expr_rows(expr: tuple, leaf_rows: list, zeros):
         return acc
 
     return rec(expr)
-
-
-def eval_expr_np(expr: tuple, leaf_rows, words: int):
-    """HOST (numpy) evaluation of a decomposed tree over one slice's
-    leaf rows (``leaf_rows[i]`` is uint32[words] or None = empty)."""
-    rows = [None if r is None else np.asarray(r, dtype=np.uint32) for r in leaf_rows]
-    return eval_expr_rows(expr, rows, lambda: np.zeros(words, dtype=np.uint32))

@@ -88,16 +88,10 @@ def test_eval_with_absent_leaves_matches_eval_expr_np(pql):
         rows = [None if j == absent else batch[j] for j in range(len(leaves))]
         want = jplan.eval_expr_np(expr, rows, W)
         got = tplan.eval_expr_np(expr, rows, W)
-        got_t = tplan.eval_expr_rows(
-            expr,
-            [None if r is None else tbp.to_device(r, "cpu") for r in rows],
-            lambda: torch.zeros(W, dtype=torch.int32),
-        )
         if want is None:
-            assert got is None and got_t is None
+            assert got is None
         else:
             np.testing.assert_array_equal(got, want)
-            np.testing.assert_array_equal(tbp.to_host(got_t), want)
 
 
 @pytest.mark.parametrize("pql", ["Range(frame=f, rowID=1)", "Foo()", "Intersect()"])

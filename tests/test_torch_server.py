@@ -82,6 +82,9 @@ READS = [
     "TopN(frame=f, n=8, threshold=200)",
     f"TopN({B.format(5)}, frame=f, n=5, tanimotoThreshold=20)",
     "TopN(Bitmap(frame=g, rowID=1), frame=g, n=2)",
+    # A src tree that is empty on every slice, and one that leaves rows.
+    f"TopN(Intersect({B.format(2)}, Bitmap(frame=g, rowID=9)), frame=f, n=3)",
+    f"TopN(Difference(Bitmap(frame=g, rowID=1), {B.format(0)}), frame=f, n=3, tanimotoThreshold=10)",
     "TopN(frame=nope, n=2)",
     # Errors: same status and message.
     "Count(Bitmap(frame=nope, rowID=0))",

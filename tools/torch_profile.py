@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Where a served query's time goes on the CUDA card (pilosa_tpu_torch).
 
-    python3 tools/torch_profile.py [--slices 954] [--reps 5] [--out chiprun_out/torch_profile]
+    python3 tools/torch_profile.py [--out chiprun_out/torch_profile]
 
 Starts ``Server(device="cuda")`` with chip_smoke.py's index (954 slices x
 8 dense rows of seeded random words, 1B columns), warms each query, then
-records ``torch.profiler`` over ``--reps`` HTTP requests of each query
+records ``torch.profiler`` over ``REPS`` HTTP requests of each query
 class and prints, per class, one JSON line: the host wall time per
 request, the device busy time per request (the union of kernel, memcpy
 and memset intervals in the trace), the device idle share, and the
@@ -36,6 +36,7 @@ QUERIES = {
     "topn_src": "TopN(Bitmap(frame=f, rowID=0), frame=f, n=5)",
 }
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+REPS = 5
 
 
 def device_busy_us(trace_path: str) -> tuple[float, dict[str, list[float]]]:
@@ -71,43 +72,35 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--slices", type=int, default=954)
-    ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "torch_profile"))
-    ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    from chip_smoke import ROWS, SEED, card_line, http
+    from chip_smoke import N_SLICES, ROWS, SEED, card_line, http
     from pilosa_tpu_torch import convert
     from pilosa_tpu_torch.net.server import Server
 
-    on_card = args.device.startswith("cuda")
-    if on_card:
-        print(card_line(), flush=True)
+    print(card_line(), flush=True)
     os.makedirs(args.out, exist_ok=True)
     rng = np.random.default_rng(SEED)
     with tempfile.TemporaryDirectory(prefix="pilosa-torch-profile-") as data_dir:
-        srv = Server(data_dir, device=args.device)
+        srv = Server(data_dir, device="cuda")
         srv.open()
         try:
             for path in ("/index/i", "/index/i/frame/f"):
                 http(srv.host, "POST", path)
-            planes = rng.integers(0, 2**32, size=(args.slices, ROWS, 32768), dtype=np.uint32)
+            planes = rng.integers(0, 2**32, size=(N_SLICES, ROWS, 32768), dtype=np.uint32)
             convert.load_planes(
-                srv.holder, "i", "f", "standard", {s: planes[s] for s in range(args.slices)}
+                srv.holder, "i", "f", "standard", {s: planes[s] for s in range(N_SLICES)}
             )
             del planes
-            activities = [ProfilerActivity.CPU]
-            if on_card:
-                activities.append(ProfilerActivity.CUDA)
+            activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
             for name, pql in QUERIES.items():
                 for _ in range(2):  # warm-up
                     http(srv.host, "POST", "/index/i/query", pql.encode())
-                if on_card:
-                    torch.cuda.synchronize()
+                torch.cuda.synchronize()
                 walls = []
                 with profile(activities=activities) as prof:
-                    for _ in range(args.reps):
+                    for _ in range(REPS):
                         t0 = time.perf_counter()
                         status, _ = http(srv.host, "POST", "/index/i/query", pql.encode())
                         walls.append(time.perf_counter() - t0)
@@ -119,17 +112,17 @@ def main(argv=None) -> int:
                 wall_ms = 1e3 * sum(walls) / len(walls)
                 line = {
                     "query": name,
-                    "slices": args.slices,
-                    "reps": args.reps,
+                    "slices": N_SLICES,
+                    "reps": REPS,
                     "wall_ms_per_request": wall_ms,
                     "wall_ms_p50": 1e3 * float(np.median(walls)),
                 }
                 if busy_us > 0:
-                    busy_ms = busy_us / 1e3 / args.reps
+                    busy_ms = busy_us / 1e3 / REPS
                     line["device_busy_ms_per_request"] = busy_ms
                     line["device_idle_share"] = 1.0 - busy_ms / wall_ms
                     line["kernels"] = {
-                        k: {"us_per_request": v[0] / args.reps, "launches_per_request": v[1] / args.reps}
+                        k: {"us_per_request": v[0] / REPS, "launches_per_request": v[1] / REPS}
                         for k, v in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
                     }
                 else:
