@@ -10,17 +10,29 @@ without printing its final line:
 2. build every kernel from the sources in this checkout (one nvcc per
    source, started together);
 3. hold each kernel against its plain PyTorch version on the card, on
-   adversarial and seeded random planes, every op and shape listed —
-   the results must be exactly equal (integers);
-4. time each kernel at the main path's shape (CUDA events around runs
+   adversarial and seeded random inputs, every case listed — the
+   results must be exactly equal (integers);
+4. time each kernel at the main path's shapes (CUDA events around runs
    of back-to-back calls, median of 21 runs), beside its bound and its
-   plain version's time;
+   plain version's time; for the delta-scatter kernel also the time of
+   an empty kernel launch, the floor that bounds it; and each kernel's
+   own device time per launch from a torch.profiler trace;
 5. serve a 1B-column index — 954 slices x 8 dense rows, seeded random
    words, about 1 GiB on the card — with ``Server(device="cuda")`` and
    answer Count/Bitmap/TopN/SetBit over HTTP, every answer checked
    against a numpy oracle over the same planes, with the kernels'
    launch counts reset just before and read just after;
-6. print the ``kernels`` JSON line, then the final JSON line.
+6. a cluster on the one card: three ``Server(device="cuda")`` nodes of
+   an http cluster with 2 replicas; the schema created on one node
+   reaches the others by broadcast; each node loads the phase-5 planes
+   of the slices it owns (~2 GiB of mirrors); then a protobuf
+   ``/import`` of 2^20 seeded bits (~1,100 per fragment: the
+   delta-scatter path), Count/TopN queries to every node in protobuf
+   and JSON checked against the numpy oracle, a second import into new
+   rows (the counted fallback to a mirror re-upload), and the Counts
+   again with one node closed (replica failover); launch counts reset
+   just before and read just after;
+7. print the ``kernels`` JSON line, then the final JSON line.
 
 Exits non-zero when ``torch.cuda.is_available()`` is false, and when the
 port's package is not beside this file.
@@ -44,6 +56,13 @@ SEED = 7
 N_SLICES = 954  # ceil(1e9 / 2^20): 1B columns
 ROWS = 8
 REPS = 5
+# Phase 6: requests per (query, node, format), bits per import.
+CLUSTER_REPS = 3
+IMPORT_BITS = 1 << 20
+FALLBACK_IMPORT_BITS = 1 << 16
+# Phase 3/4: the delta-scatter entry counts held and timed.
+K7_NS = (1, 31, 1100, 4096, 8192)
+K7_TIMED_NS = (1100, 4096)
 
 # Peak rates used for the bound, from NVIDIA's data sheets: device memory
 # 3.35 TB/s on an H100 SXM (2.0 on the PCIe part, 3.9 on the NVL part,
@@ -109,6 +128,30 @@ def time_cuda(fn, runs: int = 21, per_run: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, kernel: str, launches: int = 50) -> float | None:
+    """Mean device time of the kernels named ``kernel`` over ``launches``
+    calls of ``fn()``, read from a torch.profiler trace of the card
+    (None when the trace holds no such kernel): the kernel's own time,
+    apart from the host's pace of launching it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as fh:
+            events = json.load(fh).get("traceEvents", [])
+    durs = [float(ev.get("dur", 0.0)) for ev in events
+            if ev.get("ph") == "X" and ev.get("cat") == "kernel" and kernel in ev.get("name", "")]
+    return sum(durs) / len(durs) / 1e3 if durs else None
+
+
 def adversarial_planes(rows: int) -> tuple[np.ndarray, np.ndarray]:
     """uint32 [rows, 32768] pairs cycling through all-zero, all-ones,
     sign-bit-only words and a single bit at word 32767."""
@@ -162,6 +205,111 @@ def check_k1(fp, bp, rng) -> float:
     log(f"phase 3: fused_popcount == plain on {n_checks} cases (max_abs_err {worst})")
     return float(worst)
 
+def k7_bound_ms(n: int, hbm: float) -> tuple[float, str]:
+    """Least time for n delta-scatter entries: each entry (16 bytes)
+    read once, each touched word (4 bytes) read once and written once;
+    two bitwise ops per entry, far below the byte time."""
+    t_bytes = n * (16 + 4 + 4) / hbm
+    t_ops = n * 2 / SCALAR_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def random_entries(rng, rows: int, n: int):
+    """n unique (slot, word) entries with random or/andnot masks."""
+    keys = rng.choice(rows * 32768, size=n, replace=False)
+    return (
+        (keys // 32768).astype(np.int32),
+        (keys % 32768).astype(np.int32),
+        rng.integers(0, 2**32, size=n, dtype=np.uint32),
+        rng.integers(0, 2**32, size=n, dtype=np.uint32),
+    )
+
+
+def k7_edge_queues(rows: int) -> dict:
+    """(slot, word, mask, op) queues for ingest.scatter.fold: bit 0 and
+    bit 31 of a word, word 32767, a set and a clear of one bit in one
+    queue (both orders), the last slot, and the empty queue."""
+    last = rows - 1
+    return {
+        "bit0_bit31": [(0, 5, 1, 1), (0, 6, 1 << 31, 1), (1, 5, 1, 0), (1, 6, 1 << 31, 0)],
+        "word32767": [(2, 32767, 1 << 31, 1), (3, 32767, 1, 0), (3, 32767, 1 << 30, 1)],
+        "set_clear_same_bit": [(0, 7, 1 << 9, 1), (0, 7, 1 << 9, 0),
+                               (1, 7, 1 << 9, 0), (1, 7, 1 << 9, 1)],
+        "last_slot": [(last, 0, 1, 1), (last, 32767, 1 << 31, 0), (last, 100, 0xF0, 1)],
+        "empty": [],
+    }
+
+
+def check_k7(ds, scatter, rng) -> float:
+    """Every edge queue and n in K7_NS random entries into [8, 32768]
+    and [16, 32768] mirrors: kernel == plain version == numpy, exactly.
+    Returns the largest absolute difference seen (0)."""
+    import torch
+
+    worst = 0
+    n_checks = 0
+    for rows in (8, 16):
+        base = rng.integers(0, 2**32, size=(rows, 32768), dtype=np.uint32)
+        base[0, :8] = (0, 0xFFFFFFFF, 0x80000000, 1, 0, 0xFFFFFFFF, 0, 0x7FFFFFFF)
+        cases = {name: scatter.fold(q) for name, q in k7_edge_queues(rows).items()}
+        for n in K7_NS:
+            cases[f"n={n}"] = random_entries(rng, rows, n)
+        for name, entries in cases.items():
+            n = len(entries[0])
+            kernel_plane = torch.from_numpy(base.view(np.int32).copy()).to("cuda")
+            plain_plane = kernel_plane.clone()
+            before = ds.launches
+            ds.delta_scatter(kernel_plane, *entries)
+            torch.cuda.synchronize()
+            if ds.launches != before + (1 if n else 0):
+                raise AssertionError(f"delta_scatter {name}: {ds.launches - before} launches")
+            ds.plain_delta_scatter(plain_plane, *entries)
+            torch.cuda.synchronize()
+            want = base.copy()
+            s, w, o, a = entries
+            want[s, w] = (want[s, w] & ~a) | o
+            diff = int((kernel_plane.long() - plain_plane.long()).abs().max())
+            worst = max(worst, diff)
+            n_checks += 1
+            if diff or not np.array_equal(plain_plane.cpu().numpy().view(np.uint32), want):
+                raise AssertionError(
+                    f"delta_scatter != plain/numpy: rows={rows} {name} diff={diff}")
+    log(f"phase 3: delta_scatter == plain == numpy on {n_checks} cases (max_abs_err {worst})")
+    return float(worst)
+
+
+def time_k7(ds, rng, hbm: float) -> dict:
+    """Per timed n: the kernel alone (entries already on the card), the
+    wrapper (host checks + upload + launch), the plain version, the
+    empty-launch floor and the byte bound, on a [8, 32768] mirror."""
+    import torch
+
+    dev = torch.device("cuda")
+    plane = torch.from_numpy(
+        rng.integers(0, 2**32, size=(ROWS, 32768), dtype=np.uint32).view(np.int32)
+    ).to(dev)
+    noop_ms = time_cuda(lambda: ds.noop_launch(dev))
+    noop_dev = device_ms(lambda: ds.noop_launch(dev), "noop_kernel")
+    out = {}
+    for n in K7_TIMED_NS:
+        entries = random_entries(rng, ROWS, n)
+        packed = np.stack([entries[0], entries[1], entries[2].view(np.int32),
+                           entries[3].view(np.int32)])
+        e = torch.from_numpy(packed).to(dev)
+        k_ms = time_cuda(lambda: ds.launch(plane, e))
+        wrap_ms = time_cuda(lambda: ds.delta_scatter(plane, *entries))
+        plain_ms = time_cuda(lambda: ds.plain_delta_scatter(plane, *entries))
+        k_dev = device_ms(lambda: ds.launch(plane, e), "delta_scatter_kernel")
+        bound_ms, bound_by = k7_bound_ms(n, hbm)
+        out[n] = {"ms": k_ms, "wrapper_ms": wrap_ms, "plain_ms": plain_ms,
+                  "noop_ms": noop_ms, "device_ms": k_dev, "noop_device_ms": noop_dev,
+                  "bound_ms": bound_ms, "bound_by": bound_by}
+        log(f"phase 4: delta_scatter n={n} into [{ROWS}, 32768]: kernel {k_ms:.4f} ms, "
+            f"wrapper (checks + upload + launch) {wrap_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"empty launch {noop_ms:.4f} ms, byte bound {bound_ms:.6f} ms; device time per "
+            f"launch from the profiler: kernel {k_dev} ms, empty kernel {noop_dev} ms")
+    return out
+
 
 def http(host: str, method: str, path: str, body: bytes = b"") -> tuple[int, object]:
     req = urllib.request.Request(
@@ -188,7 +336,7 @@ def topn_oracle(scores: np.ndarray, n: int) -> list[dict]:
     return [{"id": i, "count": c} for i, c in pairs[:n]]
 
 
-def serve_and_check(fp, bp, convert, Server, rng) -> dict:
+def serve_and_check(fp, ds, bp, convert, Server, rng) -> dict:
     import torch
 
     out: dict = {}
@@ -257,7 +405,7 @@ def serve_and_check(fp, bp, convert, Server, rng) -> dict:
                  topn_oracle(src_scores, 5), 2 * N_SLICES),
             ]
 
-            fp.launches = 0  # the main path starts here
+            fp.launches = ds.launches = 0  # the main path starts here
             expected_launches = 0
             latencies: dict[str, float] = {}
             for name, pql, want, per_query in queries:
@@ -286,15 +434,21 @@ def serve_and_check(fp, bp, convert, Server, rng) -> dict:
                 raise AssertionError(f"re-Count after SetBit: {status} {body}")
             expected_launches += 1
             launches = fp.launches  # the main path ends here
+            k7_launches = ds.launches
             if launches != expected_launches:
                 raise AssertionError(
                     f"fused_popcount launches {launches} != expected {expected_launches}"
                 )
+            # The SetBit queued its delta; the Count applied it with one K7.
+            if k7_launches != 1:
+                raise AssertionError(f"delta_scatter launches {k7_launches} != expected 1")
             out["launches"] = launches
+            out["k7_launches"] = k7_launches
             for name, ms in latencies.items():
                 log(f"phase 5: {name} p50 {ms:.3f} ms over {REPS} requests")
             log(f"phase 5: answers == numpy oracle; fused_popcount launches {launches} "
-                f"(expected {expected_launches})")
+                f"(expected {expected_launches}); delta_scatter launches {k7_launches} "
+                "(the SetBit's delta, applied by the next Count)")
 
             # Leaf-stack assembly apart from the kernel: the Count(Intersect)
             # leaves, stacked from the 954 fragments' mirrors.
@@ -315,8 +469,184 @@ def serve_and_check(fp, bp, convert, Server, rng) -> dict:
             log(f"phase 5: leaf-stack assembly for Count(Intersect) p50 "
                 f"{out['assembly_ms']:.3f} ms (2 leaves x {N_SLICES} slice-rows)")
             out["latencies_ms"] = latencies
+            out["planes"] = planes
         finally:
             srv.close()
+    return out
+
+
+def set_bits(truth: np.ndarray, rows: np.ndarray, cols: np.ndarray) -> None:
+    """OR (row, column) bits into the oracle planes [slices, rows, words]."""
+    offs = cols & 0xFFFFF
+    masks = (np.uint32(1) << (offs & 31).astype(np.uint32)).astype(np.uint32)
+    np.bitwise_or.at(truth, (cols >> 20, rows, offs >> 5), masks)
+
+
+def cluster_and_check(fp, ds, scatter, convert, Server, InternalClient, planes, rng) -> dict:
+    """Phase 6: three nodes, two replicas, import + queries + fallback +
+    failover, every answer against the numpy oracle."""
+    import torch
+
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="pilosa-torch-cluster-") as data_dir:
+        nodes = [
+            Server(f"{data_dir}/n{i}", host="127.0.0.1:0", device="cuda",
+                   cluster_type="http", replicas=2, internal_port=0)
+            for i in range(3)
+        ]
+        opened = []
+        try:
+            for srv in nodes:
+                srv.open()
+                opened.append(srv)
+            for srv in nodes:
+                for other in nodes:
+                    if other is not srv:
+                        srv.add_peer(other.host, other.internal_host)
+            h0 = nodes[0].host
+            for path in ("/index/i", "/index/i/frame/f"):
+                status, body = http(h0, "POST", path)
+                if status != 200:
+                    raise AssertionError(f"POST {path}: {status} {body}")
+            for srv in nodes:  # the broadcast is synchronous
+                if srv.holder.frame("i", "f") is None:
+                    raise AssertionError(f"schema did not reach {srv.host}")
+
+            cluster = nodes[0].cluster
+            owned: dict[str, dict] = {srv.host: {} for srv in nodes}
+            for sl in range(N_SLICES):
+                for owner in cluster.fragment_nodes("i", sl):
+                    owned[owner.host][sl] = planes[sl]
+            t0 = time.perf_counter()
+            for srv in nodes:
+                convert.load_planes(srv.holder, "i", "f", "standard", owned[srv.host])
+            torch.cuda.synchronize()
+            for srv in nodes:
+                srv.tick_max_slices()
+                if srv.holder.index("i").max_slice() != N_SLICES - 1:
+                    raise AssertionError(f"{srv.host} does not know the max slice")
+            log(f"phase 6: 3 nodes, 2 replicas: {sum(len(v) for v in owned.values())} "
+                f"fragments loaded in {time.perf_counter() - t0:.3f}s "
+                f"({', '.join(str(len(v)) for v in owned.values())} per node); device "
+                f"memory allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+
+            truth = planes.copy()
+            rows = rng.integers(0, ROWS, IMPORT_BITS)
+            cols = rng.integers(0, N_SLICES << 20, IMPORT_BITS)
+            set_bits(truth, rows, cols)
+            touched = 2 * len(np.unique(cols >> 20))  # fragment replicas
+
+            fp.launches = ds.launches = 0  # the main path starts here
+            fb0 = scatter.counters()["fallbackInvalidations"]
+            client = InternalClient(h0, timeout=600)
+            t0 = time.perf_counter()
+            client.import_bits("i", "f", rows, cols)
+            torch.cuda.synchronize()
+            import_s = time.perf_counter() - t0
+            k7_import = ds.launches
+            fb_import = scatter.counters()["fallbackInvalidations"] - fb0
+            if k7_import != touched or fb_import != 0:
+                raise AssertionError(
+                    f"import 1: delta_scatter launches {k7_import} (want {touched}), "
+                    f"fallbacks {fb_import} (want 0)")
+            log(f"phase 6: import of {IMPORT_BITS} bits ({IMPORT_BITS / N_SLICES:.0f} per "
+                f"slice) over protobuf /import in {import_s:.3f}s: delta_scatter launches "
+                f"{k7_import} (one per fragment replica), fallbacks {fb_import}")
+
+            def pc(x):
+                return int(np.bitwise_count(x).sum())
+
+            t_rows = [truth[:, r] for r in range(3)]
+            row_totals = np.bitwise_count(truth).sum(axis=-1, dtype=np.int64)
+            src_scores = np.bitwise_count(truth & truth[:, :1]).sum(axis=-1, dtype=np.int64)
+            b = "Bitmap(frame=f, rowID={})"
+            counts = [
+                ("count_bitmap", f"Count({b.format(0)})", pc(t_rows[0])),
+                ("count_intersect", f"Count(Intersect({b.format(0)}, {b.format(1)}))",
+                 pc(t_rows[0] & t_rows[1])),
+                ("count_union3", f"Count(Union({b.format(0)}, {b.format(1)}, {b.format(2)}))",
+                 pc(t_rows[0] | t_rows[1] | t_rows[2])),
+            ]
+            topns = [
+                ("topn", "TopN(frame=f, n=5)", topn_oracle(row_totals, 5)),
+                ("topn_src", f"TopN({b.format(0)}, frame=f, n=5)", topn_oracle(src_scores, 5)),
+            ]
+
+            def ask(host: str, fmt: str, pql: str):
+                if fmt == "json":
+                    status, body = http(host, "POST", "/index/i/query", pql.encode())
+                    if status != 200:
+                        raise AssertionError(f"{pql} at {host}: {status} {body}")
+                    return body["results"][0]
+                (res,) = InternalClient(host, timeout=600).execute_query("i", pql)
+                if isinstance(res, list):
+                    return [{"id": p.id, "count": p.count} for p in res]
+                return res
+
+            def run(queries, hosts, reps) -> dict[str, float]:
+                p50 = {}
+                for name, pql, want in queries:
+                    times = []
+                    for host in hosts:
+                        for fmt in ("protobuf", "json"):
+                            for _ in range(reps):
+                                q0 = time.perf_counter()
+                                got = ask(host, fmt, pql)
+                                times.append(time.perf_counter() - q0)
+                                if got != want:
+                                    raise AssertionError(
+                                        f"{name} at {host} ({fmt}): {str(got)[:300]} != {want}")
+                    p50[name] = statistics.median(times) * 1e3
+                return p50
+
+            hosts = [srv.host for srv in nodes]
+            latencies = run(counts + topns, hosts, CLUSTER_REPS)
+            for name, ms in latencies.items():
+                log(f"phase 6: {name} p50 {ms:.3f} ms over {3 * 2 * CLUSTER_REPS} requests "
+                    "(3 nodes x protobuf and JSON)")
+
+            # Bits in new rows: every touched plane grows past its padded
+            # rows, so each fragment replica drops its mirror (counted).
+            rows2 = rng.integers(ROWS, 2 * ROWS, FALLBACK_IMPORT_BITS)
+            cols2 = rng.integers(0, N_SLICES << 20, FALLBACK_IMPORT_BITS)
+            touched2 = 2 * len(np.unique(cols2 >> 20))
+            k7_before = ds.launches
+            t0 = time.perf_counter()
+            client.import_bits("i", "f", rows2, cols2)
+            torch.cuda.synchronize()
+            import2_s = time.perf_counter() - t0
+            fb2 = scatter.counters()["fallbackInvalidations"] - fb0
+            if fb2 != touched2 or ds.launches != k7_before:
+                raise AssertionError(
+                    f"import 2: fallbacks {fb2} (want {touched2}), delta_scatter launches "
+                    f"{ds.launches - k7_before} (want 0)")
+            log(f"phase 6: import of {FALLBACK_IMPORT_BITS} bits into new rows "
+                f"{ROWS}-{2 * ROWS - 1} in {import2_s:.3f}s: fallbacks {fb2} (one per "
+                "fragment replica), no delta_scatter launch")
+            new_r = np.unique(cols2[rows2 == ROWS])
+            in_r0 = (t_rows[0][new_r >> 20, (new_r & 0xFFFFF) >> 5] >> (new_r & 31)) & 1
+            counts.append((f"count_row{ROWS}", f"Count({b.format(ROWS)})", len(new_r)))
+            counts.append((
+                f"count_union_0_{ROWS}", f"Count(Union({b.format(0)}, {b.format(ROWS)}))",
+                pc(t_rows[0]) + len(new_r) - int(in_r0.sum())))
+            run(counts[-2:], hosts, 1)
+
+            # Failover: close one node; the others answer from the replicas.
+            nodes[2].close()
+            failover = run(counts, hosts[:2], 1)
+            for name, ms in failover.items():
+                log(f"phase 6: {name} with {hosts[2]} closed p50 {ms:.3f} ms "
+                    "(2 nodes x protobuf and JSON)")
+            out["launches"] = fp.launches  # the main path ends here
+            out["k7_launches"] = ds.launches
+            if not out["k7_launches"]:
+                raise AssertionError("phase 6 launched no delta_scatter")
+            log(f"phase 6: answers == numpy oracle; fused_popcount launches "
+                f"{out['launches']}, delta_scatter launches {out['k7_launches']}")
+            out["latencies_ms"] = latencies
+        finally:
+            for srv in opened:
+                srv.close()
     return out
 
 
@@ -328,9 +658,12 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from pilosa_tpu_torch import convert
+    from pilosa_tpu_torch.ingest import scatter
+    from pilosa_tpu_torch.net.client import InternalClient
     from pilosa_tpu_torch.net.server import Server
     from pilosa_tpu_torch.ops import _build
     from pilosa_tpu_torch.ops import bitplane as bp
+    from pilosa_tpu_torch.ops import delta_scatter as ds
     from pilosa_tpu_torch.ops import fused_popcount as fp
 
     card = card_line()
@@ -345,34 +678,67 @@ def main() -> int:
     log(f"phase 2: kernels built in {time.perf_counter() - t0:.3f}s {built}")
 
     rng = np.random.default_rng(SEED)
+    # The delta-scatter checks draw from their own stream, so the planes
+    # of phases 5-6 stay those of the seed.
+    rng7 = np.random.default_rng(SEED + 1)
     max_err = check_k1(fp, bp, rng)
+    k7_err = check_k7(ds, scatter, rng7)
 
     a = bp.to_device(rng.integers(0, 2**32, size=(N_SLICES, 32768), dtype=np.uint32), "cuda")
     b = bp.to_device(rng.integers(0, 2**32, size=(N_SLICES, 32768), dtype=np.uint32), "cuda")
     k_ms = time_cuda(lambda: fp.row_popcounts(a, b, "and"))
     plain_ms = time_cuda(lambda: fp.plain_row_popcounts(a, b, "and"))
+    k_dev = device_ms(lambda: fp.row_popcounts(a, b, "and"), "fused_popcount_kernel")
     bound_ms, bound_by = k1_bound_ms(N_SLICES, True, False, hbm)
     log(f"phase 4: fused_popcount [{N_SLICES}, 32768] and: {k_ms:.4f} ms "
         f"(bound {bound_ms:.4f} ms by {bound_by}, {bound_ms / k_ms:.1%} of it), "
-        f"plain {plain_ms:.4f} ms")
+        f"plain {plain_ms:.4f} ms; device time per launch from the profiler {k_dev} ms")
     del a, b
+    k7_times = time_k7(ds, rng7, hbm)
 
-    served = serve_and_check(fp, bp, convert, Server, rng)
+    served = serve_and_check(fp, ds, bp, convert, Server, rng)
+    clustered = cluster_and_check(
+        fp, ds, scatter, convert, Server, InternalClient, served.pop("planes"), rng
+    )
 
-    kernels = [{
-        "name": fp.NAME,
-        "route": "cuda",
-        "source": fp.SOURCE,
-        "replaces": fp.REPLACES,
-        "launches": served["launches"],
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-        "checked": max_err == 0.0,
-    }]
+    k7 = k7_times[K7_TIMED_NS[0]]  # ~1,100 entries: phase 6's import per fragment
+    kernels = [
+        {
+            "name": fp.NAME,
+            "route": "cuda",
+            "source": fp.SOURCE,
+            "replaces": fp.REPLACES,
+            "launches": served["launches"] + clustered["launches"],
+            "launches_by_phase": {"5": served["launches"], "6": clustered["launches"]},
+            "max_abs_err": max_err,
+            "ms": k_ms,
+            "device_ms": k_dev,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+            "checked": max_err == 0.0,
+        },
+        {
+            "name": ds.NAME,
+            "route": "cuda",
+            "source": ds.SOURCE,
+            "replaces": ds.REPLACES,
+            "launches": served["k7_launches"] + clustered["k7_launches"],
+            "launches_by_phase": {"5": served["k7_launches"], "6": clustered["k7_launches"]},
+            "max_abs_err": k7_err,
+            "ms": k7["ms"],
+            "device_ms": k7["device_ms"],
+            "plain_ms": k7["plain_ms"],
+            "bound_ms": k7["bound_ms"],
+            "bound_by": k7["bound_by"],
+            "library_ms": None,
+            "checked": k7_err == 0.0,
+            "entries": K7_TIMED_NS[0],
+            "empty_launch_ms": k7["noop_ms"],
+            "empty_kernel_device_ms": k7["noop_device_ms"],
+        },
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -10,7 +10,10 @@ module has one reference module it is checked against; it imports
 Plane words travel as int32 bit-views of the uint32 words (PyTorch's CPU
 build has neither ``~`` nor shifts for uint32, and no popcount at all);
 the last step of every count — bitwise op, popcount, reduce — is one
-launch of the hand-written CUDA kernel in ``ops/csrc/fused_popcount.cu``.
+launch of the hand-written CUDA kernel in ``ops/csrc/fused_popcount.cu``,
+and queued writes reach a fragment's device mirror through the
+delta-scatter kernel in ``ops/csrc/delta_scatter.cu``.  Nodes speak the
+reference's HTTP+protobuf wire and form a cluster with replicas.
 
 Entry points default to ``device="cuda"`` and raise when CUDA is absent;
 the CPU runs only when the caller passes ``device="cpu"``.

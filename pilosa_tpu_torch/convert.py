@@ -26,5 +26,7 @@ def load_planes(
     idx = holder.create_index_if_not_exists(index)
     f = idx.create_frame_if_not_exists(frame)
     v = f.create_view_if_not_exists(view)
-    for slice_i, plane in sorted(planes.items()):
+    # Highest slice first: the view grows its max slice once, so a
+    # cluster node broadcasts one CreateSlice message, not one per slice.
+    for slice_i, plane in sorted(planes.items(), reverse=True):
         v.create_fragment_if_not_exists(int(slice_i)).install_plane(plane)

@@ -7,6 +7,10 @@ torch segments (bit-views of the uint32 words, on any device); counts
 go through the fused popcount kernel and are memoized per segment like
 the reference's cached ``n``.  ``bits()`` and the JSON form copy to the
 host.
+
+Host words (a decoded remote result, a numpy row) are uploaded to the
+bitmap's device: the one its owner passes, else the CUDA default of
+``device.resolve`` — never silently the CPU.
 """
 
 from __future__ import annotations
@@ -16,42 +20,72 @@ from typing import Any
 import numpy as np
 import torch
 
+from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch.ops import bitplane as bp
-
-
-def _as_segment(words) -> torch.Tensor:
-    """A segment as an int32 bit-view tensor: tensors pass through,
-    uint32 numpy words wrap as a CPU tensor (a copy)."""
-    if isinstance(words, torch.Tensor):
-        return words
-    return bp.to_device(np.asarray(words, dtype=np.uint32), "cpu")
 
 
 class RowBitmap:
     """Segmented row bitmap with per-segment cached counts and row
-    attributes (reference: bitmap.go:24-43)."""
+    attributes (reference: bitmap.go:24-43).  ``device`` is where host
+    words are uploaded (resolved at first upload: CUDA unless asked)."""
 
-    __slots__ = ("segments", "_counts", "attrs")
+    __slots__ = ("segments", "_counts", "attrs", "device")
 
-    def __init__(self):
+    def __init__(self, device: torch.device | str | None = None):
         self.segments: dict[int, torch.Tensor] = {}
         self._counts: dict[int, int] = {}
         self.attrs: dict[str, Any] = {}
+        self.device = device
 
     # --- construction ---
 
     @classmethod
-    def from_segment(cls, slice_i: int, words, count: int | None = None) -> "RowBitmap":
-        b = cls()
+    def from_segment(
+        cls, slice_i: int, words, count: int | None = None, device=None
+    ) -> "RowBitmap":
+        b = cls(device)
         b.set_segment(slice_i, words, count)
         return b
 
+    @classmethod
+    def from_bits(cls, bits, device=None) -> "RowBitmap":
+        """Build from absolute column IDs (reference: bitmap.go:258-268,
+        decoding the protobuf flat bit list): one segment per slice that
+        holds a bit."""
+        b = cls(device)
+        cols = np.asarray(bits, dtype=np.uint64)
+        if len(cols):
+            slices = cols // np.uint64(bp.SLICE_WIDTH)
+            for s, (offs,) in bp.np_group_by(slices, cols % np.uint64(bp.SLICE_WIDTH)):
+                b.set_segment(int(s), bp.np_columns_to_row(offs))
+        return b
+
+    def _as_segment(self, words) -> torch.Tensor:
+        """A segment as an int32 bit-view tensor: tensors pass through,
+        uint32 host words are copied to the bitmap's device."""
+        if isinstance(words, torch.Tensor):
+            return words
+        self.device = device_mod.resolve(self.device)
+        return bp.to_device(np.asarray(words, dtype=np.uint32), self.device)
+
     def set_segment(self, slice_i: int, words, count: int | None = None) -> None:
-        self.segments[slice_i] = _as_segment(words)
+        self.segments[slice_i] = self._as_segment(words)
         if count is not None:
             self._counts[slice_i] = count
         else:
             self._counts.pop(slice_i, None)
+
+    def merge(self, other: "RowBitmap") -> None:
+        """In-place union used by the map/reduce combiner (reference:
+        Bitmap.Merge, bitmap.go:137-156)."""
+        for s, words in other.segments.items():
+            if s in self.segments:
+                self.segments[s] = self.segments[s] | words.to(self.segments[s].device)
+                self._counts.pop(s, None)
+            else:
+                self.segments[s] = words
+                if s in other._counts:
+                    self._counts[s] = other._counts[s]
 
     # --- counts (reference: bitmap.go:159-217) ---
 

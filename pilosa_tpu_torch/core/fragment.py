@@ -10,8 +10,24 @@ fragment.go).  Here, as in ``pilosa_tpu.core.fragment``:
   (cookie 12346 + op-log), so data directories interoperate with the JAX
   package and the reference's tools.
 * **Compute** runs on a device mirror of the plane: an int32 bit-view
-  tensor of the same shape on the fragment's device.  Point writes
-  update the mirror's one word in place; bulk changes re-upload it.
+  tensor of the same shape on the fragment's device.  Point writes and
+  imports of at most ``IMPORT_SCATTER_MAX`` bits queue their deltas
+  (``_queue_device_update`` / ``_queue_import_updates_locked``); the
+  next read, or ``apply_pending_scatter``, folds the queue into ONE
+  launch of the delta-scatter kernel K7 on the resident mirror
+  (``ingest/scatter.py``).  Structural changes — rows past the padded
+  plane, larger imports, a queue past ``_MAX_DEVICE_PENDING`` — drop
+  the mirror for a full re-upload, each counted by
+  ``scatter.note_fallback`` (the JAX package's designed behaviour,
+  ``pilosa_tpu/core/fragment.py:1602-1682``).
+* **The mirror is updated in place**, where the JAX package built a new
+  array per apply.  On the card a reader still sees each fragment old
+  or new, never half-applied: a queue is applied by one kernel launch,
+  enqueued while the fragment lock is held, and every reader's copy of
+  mirror rows is a later or an earlier kernel on the same stream (the
+  server's threads share PyTorch's default stream).  On the CPU (the
+  tests' device) the plain version runs under the fragment lock, and a
+  reader copying rows outside it in another thread may race it.
 * **Writes** go to the host plane and append 13-byte ops to the file;
   after ``max_op_n`` ops the fragment snapshots (full roaring
   serialization to ``<path>.snapshotting`` renamed over the data file,
@@ -39,9 +55,11 @@ from typing import Any
 import numpy as np
 import torch
 
+from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch.core import cache as cache_mod
 from pilosa_tpu_torch.core.bitmap import RowBitmap
 from pilosa_tpu_torch.core.cache import Pair
+from pilosa_tpu_torch.ingest import scatter
 from pilosa_tpu_torch.ops import bitplane as bp
 from pilosa_tpu_torch.ops import roaring
 
@@ -153,7 +171,7 @@ class Fragment:
         frame: str,
         view: str,
         slice_i: int,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
         cache_type: str = cache_mod.TYPE_RANKED,
         cache_size: int = cache_mod.DEFAULT_CACHE_SIZE,
         max_op_n: int = DEFAULT_FRAGMENT_MAX_OP_N,
@@ -163,7 +181,7 @@ class Fragment:
         self.frame = frame
         self.view = view
         self.slice = slice_i
-        self.device = torch.device(device)
+        self.device = device_mod.resolve(device)
         self.cache_type = cache_type
         self.cache_size = cache_size
         self.max_op_n = max_op_n
@@ -177,6 +195,10 @@ class Fragment:
         # int32 bit-view mirror of _plane on self.device; None = stale
         # (rebuilt by the next device_plane()).
         self._mirror: torch.Tensor | None = None
+        # Queued (slot, word, mask, op) deltas not yet in the mirror, as
+        # int64 [k, 4] chunks, and their total count.
+        self._pending: list[np.ndarray] = []
+        self._pending_n = 0
         self._file = None
         self.cache = cache_mod.new_cache(cache_type, cache_size)
 
@@ -231,7 +253,7 @@ class Fragment:
         self._plane = plane
         self._slot_of = slot_of
         self._count_of = {r: int(counts[s]) for r, s in slot_of.items()}
-        self._mirror = None
+        self._invalidate_device()
         self._op_n = op_n
 
     def close(self) -> None:
@@ -241,7 +263,7 @@ class Fragment:
                 fcntl.flock(self._file.fileno(), fcntl.LOCK_UN)
                 self._file.close()
                 self._file = None
-            self._mirror = None
+            self._invalidate_device()
 
     @property
     def cache_path(self) -> str:
@@ -306,12 +328,78 @@ class Fragment:
 
     def _reserve(self, n_slots: int) -> None:
         """Grow the plane to hold ``n_slots`` rows in one allocation; the
-        mirror no longer matches its shape and is dropped."""
+        mirror no longer matches its shape — a structural change the
+        delta-scatter cannot express — and is dropped."""
         needed = bp.pad_rows(max(n_slots, 1))
         if needed > self._plane.shape[0]:
             extra = bp.empty_plane(needed - self._plane.shape[0])
             self._plane = np.vstack([self._plane, extra])
-            self._mirror = None
+            if self._mirror is not None:
+                scatter.note_fallback()
+            self._invalidate_device()
+
+    # ------------------------------------------------------------------
+    # device mirror maintenance (JAX: fragment.py:1263,1602-1682)
+    # ------------------------------------------------------------------
+
+    # Above this many queued deltas a full re-upload beats the scatter.
+    _MAX_DEVICE_PENDING = 8192
+
+    def _invalidate_device(self) -> None:
+        """Drop the mirror and its queued deltas: the next read uploads
+        the host plane, which already holds every write."""
+        self._mirror = None
+        self._pending.clear()
+        self._pending_n = 0
+
+    def _queue_device_update(self, slot: int, offset: int, op: int) -> None:
+        """Queue one point write (op 1 set, 0 clear) for the mirror; a
+        full queue degrades to a re-upload on the next read."""
+        if self._mirror is None:
+            return
+        if self._pending_n >= self._MAX_DEVICE_PENDING:
+            scatter.note_fallback()
+            self._invalidate_device()
+            return
+        word, shift = divmod(offset, bp.WORD_BITS)
+        self._pending.append(np.array([[slot, word, 1 << shift, op]], dtype=np.int64))
+        self._pending_n += 1
+
+    def _queue_import_updates_locked(self, slots: np.ndarray, offsets: np.ndarray) -> None:
+        """Queue an import's set bits as deltas when the import is small
+        enough; otherwise drop the mirror (one re-upload beats thousands
+        of folded entries)."""
+        n = len(slots)
+        if (
+            self._mirror is None
+            or n == 0
+            or n > scatter.IMPORT_SCATTER_MAX
+            or self._pending_n + n > self._MAX_DEVICE_PENDING
+        ):
+            if self._mirror is not None:
+                scatter.note_fallback()
+            self._invalidate_device()
+            return
+        words, shifts = np.divmod(np.asarray(offsets, dtype=np.int64), bp.WORD_BITS)
+        chunk = np.empty((n, 4), dtype=np.int64)
+        chunk[:, 0] = slots
+        chunk[:, 1] = words
+        chunk[:, 2] = np.left_shift(1, shifts)
+        chunk[:, 3] = 1
+        self._pending.append(chunk)
+        self._pending_n += n
+
+    def apply_pending_scatter(self) -> bool:
+        """Fold the queued deltas into the resident mirror NOW, as one
+        delta-scatter launch, instead of at the next read.  Returns True
+        when a launch was made."""
+        with self._mu:
+            if self._mirror is None or not self._pending_n:
+                return False
+            scatter.apply(self._mirror, np.concatenate(self._pending))
+            self._pending.clear()
+            self._pending_n = 0
+            return True
 
     # ------------------------------------------------------------------
     # reads
@@ -319,10 +407,13 @@ class Fragment:
 
     def device_plane(self) -> torch.Tensor:
         """The int32 bit-view mirror of the plane on the fragment's
-        device, uploaded when stale."""
+        device: queued deltas applied first (one K7 launch), uploaded
+        when stale."""
         with self._mu:
             if self._mirror is None:
                 self._mirror = bp.to_device(self._plane, self.device)
+            else:
+                self.apply_pending_scatter()
             return self._mirror
 
     def device_row(self, row_id: int) -> torch.Tensor | None:
@@ -386,11 +477,7 @@ class Fragment:
                 changed = bp.np_clear_bit(self._plane, bit)
             if not changed:
                 return False
-            if self._mirror is not None:
-                # The mirror's one word follows the host word.
-                word = offset // bp.WORD_BITS
-                value = int(self._plane[slot, word : word + 1].view(np.int32)[0])
-                self._mirror[slot, word] = value
+            self._queue_device_update(slot, offset, 1 if typ == roaring.OP_ADD else 0)
             self._append_op(typ, pos)
             self._after_write(row_id, 1 if typ == roaring.OP_ADD else -1)
             return True
@@ -409,9 +496,11 @@ class Fragment:
             self._file.flush()
 
     def import_bulk(self, row_ids: Sequence[int], column_ids: Sequence[int]) -> None:
-        """Bulk load: vectorized scatter into the host plane, a fresh
-        mirror, the rank cache recounted through the fused popcount
-        kernel, then a snapshot (reference: fragment.go:936-1004)."""
+        """Bulk load: vectorized scatter into the host plane, the bits
+        queued as mirror deltas (or the mirror dropped, see
+        ``_queue_import_updates_locked``), the touched rows recounted
+        through the fused popcount kernel on the updated mirror, then a
+        snapshot (reference: fragment.go:936-1004)."""
         if len(row_ids) != len(column_ids):
             raise FragmentError("mismatch of row/column len")
         if len(row_ids) == 0:
@@ -433,8 +522,9 @@ class Fragment:
             slot_of = {int(r): self._ensure_slot(int(r)) for r in uniq}
             slot_table = np.asarray([slot_of[int(r)] for r in uniq], dtype=np.int64)
             slots = slot_table[np.searchsorted(uniq, rows)]
-            bp.np_set_bulk(self._plane, slots, cols % SLICE_WIDTH)
-            self._mirror = None
+            offs = cols % SLICE_WIDTH
+            bp.np_set_bulk(self._plane, slots, offs)
+            self._queue_import_updates_locked(slots, offs)
             self._recount(slot_of)
             self.snapshot()
 
@@ -457,13 +547,13 @@ class Fragment:
             self._slot_of = {r: i for i, r in enumerate(rows)}
             self._count_of = {}
             self.cache = cache_mod.new_cache(self.cache_type, self.cache_size)
-            self._mirror = None
+            self._invalidate_device()
             self._recount(self._slot_of)
             self.snapshot()
 
     def _recount(self, slot_of: dict[int, int]) -> None:
         """Exact counts of ``slot_of``'s rows from one row-popcount
-        launch over the (fresh) mirror; the rank cache follows."""
+        launch over the up-to-date mirror; the rank cache follows."""
         if slot_of:
             counts = bp.row_counts(self.device_plane()).cpu().numpy()
             for r, s in slot_of.items():

@@ -18,6 +18,7 @@ import threading
 import numpy as np
 import torch
 
+from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch.core import cache as cache_mod
 from pilosa_tpu_torch.core import timequantum as tq
 from pilosa_tpu_torch.core.attr import AttrStore
@@ -36,12 +37,14 @@ class FrameError(RuntimeError):
 
 
 class Frame:
-    def __init__(self, path: str, index: str, name: str, device: torch.device | str = "cpu"):
+    def __init__(
+        self, path: str, index: str, name: str, device: torch.device | str | None = None
+    ):
         validate_name(name)
         self.path = path
         self.index = index
         self.name = name
-        self.device = torch.device(device)
+        self.device = device_mod.resolve(device)
         self._mu = threading.RLock()
         self._views: dict[str, View] = {}
         self.row_label = DEFAULT_ROW_LABEL
@@ -54,6 +57,7 @@ class Frame:
         self.retention_delete_s = 0.0
         # BSI field declarations as read from .meta (not executed here).
         self._fields: list[dict] = []
+        self.on_create_slice = None  # wired by Index
         self.row_attr_store = AttrStore(os.path.join(path, ".data"))
 
     # --- lifecycle (reference: frame.go:218-334) ---
@@ -167,6 +171,7 @@ class Frame:
             cache_type=self.cache_type,
             cache_size=self.cache_size,
             row_attr_store=self.row_attr_store,
+            on_create_slice=self.on_create_slice,
         )
 
     def view(self, name: str) -> View | None:
@@ -212,9 +217,18 @@ class Frame:
         """reference: frame.go:485-506 (standard view only)"""
         return self._writable_view(view_name).clear_bit(row_id, col_id)
 
-    def import_bulk(self, row_ids, column_ids) -> None:
+    def import_bulk(self, row_ids, column_ids, timestamps=None) -> None:
         """Bulk import into the standard view, grouped by slice
-        (reference: frame.go:527-604)."""
+        (reference: frame.go:527-604; JAX ``frame.py:353-377``).
+        Timestamps on a frame without a time quantum are refused as in
+        the JAX package; the time-quantum and inverse views such an
+        import would also fill are not ported yet, and refuse the import
+        rather than drop its bits."""
+        has_ts = timestamps is not None and any(t is not None for t in timestamps)
+        if self.time_quantum == "" and has_ts:
+            raise FrameError("time quantum not set in either index or frame")
+        if has_ts:
+            raise FrameError("time-quantum views are not supported by this port yet")
         if self.inverse_enabled:
             raise FrameError("inverse views are not supported by this port yet")
         rows = np.asarray(row_ids, dtype=np.int64)

@@ -32,6 +32,7 @@ class Holder:
         self.device = device_mod.resolve(device)
         self._mu = threading.RLock()
         self._indexes: dict[str, Index] = {}
+        self.on_create_slice = None  # wired by the server before open()
 
     # --- lifecycle ---
 
@@ -59,7 +60,9 @@ class Holder:
     # --- indexes (reference: holder.go:175-257) ---
 
     def _new_index(self, name: str) -> Index:
-        return Index(os.path.join(self.path, name), name, device=self.device)
+        index = Index(os.path.join(self.path, name), name, device=self.device)
+        index.on_create_slice = self.on_create_slice
+        return index
 
     def index(self, name: str) -> Index | None:
         with self._mu:
@@ -113,6 +116,11 @@ class Holder:
     def fragment(self, index: str, frame: str, view: str, slice_i: int) -> Fragment | None:
         v = self.view(index, frame, view)
         return v.fragment(slice_i) if v else None
+
+    def max_slices(self) -> dict[str, int]:
+        """Per-index max slice (reference: holder.go:128-138)."""
+        with self._mu:
+            return {name: idx.max_slice() for name, idx in self._indexes.items()}
 
     # --- schema (reference: holder.go:151-169) ---
 

@@ -15,6 +15,7 @@ import threading
 
 import torch
 
+from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch.core import timequantum as tq
 from pilosa_tpu_torch.core.attr import AttrStore
 from pilosa_tpu_torch.core.frame import Frame
@@ -29,16 +30,22 @@ class IndexError_(RuntimeError):
 
 
 class Index:
-    def __init__(self, path: str, name: str, device: torch.device | str = "cpu"):
+    def __init__(self, path: str, name: str, device: torch.device | str | None = None):
         validate_name(name)
         self.path = path
         self.name = name
-        self.device = torch.device(device)
+        self.device = device_mod.resolve(device)
         self._mu = threading.RLock()
         self._frames: dict[str, Frame] = {}
         self.column_label = DEFAULT_COLUMN_LABEL
         self.time_quantum = ""
         self.column_attr_store = AttrStore(os.path.join(path, ".data"))
+        # Highest slice other nodes hold (broadcast or polled): a node
+        # answers for the whole index, not only the slices it owns.
+        self.remote_max_slice = 0
+        # Called as (index, view, slice) when a view grows a new max
+        # slice; wired by the server to its CreateSlice broadcast.
+        self.on_create_slice = None
 
     # --- lifecycle (reference: index.go:134-228) ---
 
@@ -103,7 +110,9 @@ class Index:
     # --- frames (reference: index.go:336-435) ---
 
     def _new_frame(self, name: str) -> Frame:
-        return Frame(os.path.join(self.path, name), self.name, name, device=self.device)
+        frame = Frame(os.path.join(self.path, name), self.name, name, device=self.device)
+        frame.on_create_slice = self.on_create_slice
+        return frame
 
     def frame(self, name: str) -> Frame | None:
         with self._mu:
@@ -158,7 +167,12 @@ class Index:
 
     def max_slice(self) -> int:
         with self._mu:
-            return max((f.max_slice() for f in self._frames.values()), default=0)
+            local = max((f.max_slice() for f in self._frames.values()), default=0)
+            return max(local, self.remote_max_slice)
+
+    def set_remote_max_slice(self, n: int) -> None:
+        with self._mu:
+            self.remote_max_slice = max(self.remote_max_slice, n)
 
     def schema_dict(self) -> dict:
         with self._mu:

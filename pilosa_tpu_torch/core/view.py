@@ -13,6 +13,7 @@ import threading
 
 import torch
 
+from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch.core import cache as cache_mod
 from pilosa_tpu_torch.core.fragment import Fragment
 from pilosa_tpu_torch.ops.bitplane import SLICE_WIDTH
@@ -39,19 +40,23 @@ class View:
         index: str,
         frame: str,
         name: str,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
         cache_type: str = cache_mod.TYPE_RANKED,
         cache_size: int = cache_mod.DEFAULT_CACHE_SIZE,
         row_attr_store=None,
+        on_create_slice=None,
     ):
         self.path = path
         self.index = index
         self.frame = frame
         self.name = name
-        self.device = torch.device(device)
+        self.device = device_mod.resolve(device)
         self.cache_type = cache_type
         self.cache_size = cache_size
         self.row_attr_store = row_attr_store
+        # Called as (index, view, slice) when this view grows a new max
+        # slice (reference: view.go:236-241), outside the view lock.
+        self.on_create_slice = on_create_slice
         self._mu = threading.RLock()
         self._fragments: dict[int, Fragment] = {}
 
@@ -109,11 +114,16 @@ class View:
         """reference: view.go:218-250"""
         with self._mu:
             frag = self._fragments.get(slice_i)
-            if frag is None:
-                frag = self._new_fragment(slice_i)
-                frag.open()
-                self._fragments[slice_i] = frag
-            return frag
+            if frag is not None:
+                return frag
+            notify = not self._fragments or slice_i > self.max_slice()
+            frag = self._new_fragment(slice_i)
+            frag.open()
+            self._fragments[slice_i] = frag
+        # Outside the view lock: the callback crosses into the network.
+        if notify and self.on_create_slice is not None:
+            self.on_create_slice(self.index, self.name, slice_i)
+        return frag
 
     # --- writes (reference: view.go:262-279) ---
 

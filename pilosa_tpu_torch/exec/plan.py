@@ -10,6 +10,9 @@ the stacks, and for a count the LAST fold step — the outer op, the
 popcount and the reduce — is one launch of the fused popcount kernel
 (``ops/fused_popcount.py``), so the outermost result row is never
 written to device memory.
+
+``scatter_apply`` applies folded write deltas to a fragment's mirror
+with one launch of the delta-scatter kernel (``ops/delta_scatter.py``).
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pilosa_tpu_torch.ops import fused_popcount
+from pilosa_tpu_torch.ops import delta_scatter, fused_popcount
 from pilosa_tpu_torch.pql.parser import Call
 
 # Calls that fetch rows (leaves of a bitmap expression).
@@ -115,6 +118,15 @@ def count_rows(expr: tuple, leaves: list[torch.Tensor]) -> torch.Tensor:
     return fused_popcount.row_popcounts(
         acc.contiguous(), last.contiguous(), FOLD_OPS[name]
     )
+
+
+def scatter_apply(plane: torch.Tensor, slots, words, or_m, andnot_m) -> torch.Tensor:
+    """Apply unique (slot, word, or-mask, andnot-mask) entries to the
+    int32 mirror ``plane`` IN PLACE and return it (the counterpart of
+    ``pilosa_tpu/exec/plan.py:840``, which returned a new array): one
+    K7 launch for a CUDA plane, the plain version for a CPU plane."""
+    delta_scatter.delta_scatter(plane, slots, words, or_m, andnot_m)
+    return plane
 
 
 def eval_expr_np(expr: tuple, leaf_rows, words: int):

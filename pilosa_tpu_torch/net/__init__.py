@@ -1,1 +1,1 @@
-"""HTTP front end (JSON only)."""
+"""HTTP front end (JSON and protobuf), the wire codecs and the internal client."""

@@ -1,16 +1,22 @@
-"""HTTP handler: routes, JSON bodies, and the query endpoint.
+"""HTTP handler: routes, JSON and protobuf bodies, the query endpoint.
 
-The JSON routes of ``pilosa_tpu.net.handler`` that serve the slice this
+The routes of ``pilosa_tpu.net.handler`` that serve the slices this
 port covers, with the same paths, status codes and response bodies
 (reference: handler.go):
 
-    GET    /version, /status, /schema, /index
+    GET    /version, /status, /schema, /index, /hosts, /slices/max
     GET    /index/<i>          POST /index/<i>          DELETE /index/<i>
     POST   /index/<i>/frame/<f>                         DELETE /index/<i>/frame/<f>
-    POST   /index/<i>/query
+    POST   /index/<i>/query    POST /import             GET /fragment/nodes
 
-The protobuf wire, ``/import``, cluster, replication and debug routes
-are not ported yet; a protobuf request answers 415.
+``POST /index/<i>/query`` reads a ``QueryRequest`` protobuf when the
+Content-Type is ``application/x-protobuf`` (its ``Slices``,
+``ColumnAttrs`` and ``Remote`` fields included) and answers a
+``QueryResponse`` protobuf when Accept names it; JSON otherwise.
+``POST /import`` takes an ``ImportRequest`` and answers an
+``ImportResponse``.  Index and frame creation and deletion are
+broadcast to the cluster.  Replication, resize and debug routes are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -25,16 +31,17 @@ from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
 
+import numpy as np
+
 from pilosa_tpu_torch import __version__
 from pilosa_tpu_torch.core.bitmap import RowBitmap
 from pilosa_tpu_torch.core.timequantum import parse_time_quantum
-from pilosa_tpu_torch.exec.executor import TooManyWritesError
+from pilosa_tpu_torch.exec.executor import ExecOptions, TooManyWritesError
+from pilosa_tpu_torch.net import codec, wire
 from pilosa_tpu_torch.pql.parser import parse_string
 
 PROTOBUF = "application/x-protobuf"
 JSON = "application/json"
-
-_U64_MASK = (1 << 64) - 1
 
 
 @dataclass
@@ -60,30 +67,12 @@ class Response:
         return cls(status=status, body=(json.dumps(obj) + "\n").encode())
 
     @classmethod
+    def proto(cls, msg, status: int = 200) -> "Response":
+        return cls(status=status, body=msg.encode(), content_type=PROTOBUF)
+
+    @classmethod
     def error(cls, message: str, status: int) -> "Response":
         return cls.json({"error": message}, status=status)
-
-
-def result_to_json(result: Any) -> Any:
-    """Polymorphic result encoding (reference: handler.go:216-280):
-    RowBitmap -> {"attrs", "bits"}; [Pair] -> [{"id", "count"}];
-    int -> N; bool -> changed; None -> null."""
-    if isinstance(result, RowBitmap):
-        return result.to_json_dict()
-    if isinstance(result, list):
-        return [{"id": p.id & _U64_MASK, "count": p.count & _U64_MASK} for p in result]
-    if isinstance(result, int) and not isinstance(result, bool):
-        return int(result)
-    return result
-
-
-def response_to_json(results: list[Any], column_attr_sets=None) -> dict:
-    out: dict[str, Any] = {"results": [result_to_json(r) for r in results or []]}
-    if column_attr_sets is not None:
-        out["columnAttrs"] = [
-            {"id": id_ & _U64_MASK, "attrs": attrs} for id_, attrs in column_attr_sets
-        ]
-    return out
 
 
 # JSON frame options -> Frame.set_options keywords (reference: handler.go).
@@ -100,16 +89,20 @@ _FRAME_OPTIONS = (
 
 
 class Handler:
-    """Routes requests to the holder and executor underneath."""
+    """Routes requests to the holder and executor underneath; schema
+    changes go to ``broadcaster`` (``send_sync``), ownership questions
+    to the executor's cluster."""
 
-    def __init__(self, holder, executor, host: str = ""):
+    def __init__(self, holder, executor, broadcaster=None):
         self.holder = holder
         self.executor = executor
-        self.host = host
+        self.broadcaster = broadcaster
         routes: list[tuple[str, str, Callable]] = [
             ("GET", r"/schema", self.handle_get_schema),
             ("GET", r"/status", self.handle_get_status),
+            ("GET", r"/hosts", self.handle_get_hosts),
             ("GET", r"/version", self.handle_get_version),
+            ("GET", r"/slices/max", self.handle_get_slice_max),
             ("GET", r"/index", self.handle_get_schema),
             ("GET", r"/index/(?P<index>[^/]+)", self.handle_get_index),
             ("POST", r"/index/(?P<index>[^/]+)", self.handle_post_index),
@@ -117,13 +110,13 @@ class Handler:
             ("POST", r"/index/(?P<index>[^/]+)/query", self.handle_post_query),
             ("POST", r"/index/(?P<index>[^/]+)/frame/(?P<frame>[^/]+)", self.handle_post_frame),
             ("DELETE", r"/index/(?P<index>[^/]+)/frame/(?P<frame>[^/]+)", self.handle_delete_frame),
+            ("POST", r"/import", self.handle_post_import),
+            ("GET", r"/fragment/nodes", self.handle_get_fragment_nodes),
         ]
         self._routes = [(m, re.compile("^" + p + "$"), fn) for m, p, fn in routes]
 
     def dispatch(self, req: Request) -> Response:
         try:
-            if PROTOBUF in (req.header("Content-Type"), req.header("Accept")):
-                return Response.error("protobuf is not supported by this port yet", 415)
             for method, pattern, fn in self._routes:
                 m = pattern.match(req.path.rstrip("/") or "/")
                 if m and method == req.method:
@@ -141,12 +134,57 @@ class Handler:
     def handle_get_schema(self, req: Request) -> Response:
         return Response.json({"indexes": self.holder.schema()})
 
+    @property
+    def cluster(self):
+        return self.executor.cluster
+
     def handle_get_status(self, req: Request) -> Response:
-        node = {"Host": self.host, "State": "UP", "Indexes": self.holder.schema()}
-        return Response.json({"status": {"Nodes": [node]}})
+        self.cluster.node_states()
+        nodes = [
+            {
+                "Host": n.host,
+                "State": n.state,
+                "Indexes": self.holder.schema() if n.host == self.executor.host else [],
+            }
+            for n in self.cluster.nodes
+        ]
+        return Response.json({"status": {"Nodes": nodes}})
+
+    def handle_get_hosts(self, req: Request) -> Response:
+        return Response.json([n.to_dict() for n in self.cluster.nodes])
 
     def handle_get_version(self, req: Request) -> Response:
         return Response.json({"version": __version__})
+
+    def handle_get_slice_max(self, req: Request) -> Response:
+        """Per-index max slice.  Inverse views are not ported, so a node
+        of the port holds no inverse slice: ``?inverse=true`` answers 0
+        for every index."""
+        ms = self.holder.max_slices()
+        if req.query.get("inverse") == "true":
+            ms = {k: 0 for k in ms}
+        if PROTOBUF in req.header("Accept"):
+            return Response.proto(wire.MaxSlicesResponse(MaxSlices=ms))
+        return Response.json({"maxSlices": ms})
+
+    def handle_get_fragment_nodes(self, req: Request) -> Response:
+        """Owners of a slice.  ``?write=true`` asks for the write owners,
+        which are the owners while no resize is in flight (resize is not
+        ported)."""
+        index = req.query.get("index", "")
+        try:
+            slice_i = int(req.query.get("slice", ""))
+        except ValueError:
+            return Response.error("invalid slice", 400)
+        nodes = self.cluster.fragment_nodes(index, slice_i)
+        return Response.json([n.to_dict() for n in nodes])
+
+    def _broadcast(self, msg) -> None:
+        if self.broadcaster is not None:
+            try:
+                self.broadcaster.send_sync(msg)
+            except RuntimeError as e:  # peers that missed it learn by polling
+                print(f"broadcast error: {e}", file=sys.stderr)
 
     # --- index CRUD ---
 
@@ -172,13 +210,20 @@ class Handler:
         if self.holder.index(index) is not None:
             return Response.error("index already exists", 409)
         try:
-            self.holder.create_index(index, **kwargs)
+            idx = self.holder.create_index(index, **kwargs)
         except ValueError as e:
             return Response.error(str(e), 400)
+        self._broadcast(
+            wire.CreateIndexMessage(
+                Index=index,
+                Meta=wire.IndexMeta(ColumnLabel=idx.column_label, TimeQuantum=idx.time_quantum),
+            )
+        )
         return Response.json({})
 
     def handle_delete_index(self, req: Request, index: str) -> Response:
         self.holder.delete_index(index)
+        self._broadcast(wire.DeleteIndexMessage(Index=index))
         return Response.json({})
 
     # --- frame CRUD ---
@@ -198,9 +243,22 @@ class Handler:
         if idx.frame(frame) is not None:
             return Response.error("frame already exists", 409)
         try:
-            idx.create_frame(frame, **kwargs)
+            f = idx.create_frame(frame, **kwargs)
         except (ValueError, RuntimeError) as e:
             return Response.error(str(e), 400)
+        self._broadcast(
+            wire.CreateFrameMessage(
+                Index=index,
+                Frame=frame,
+                Meta=wire.FrameMeta(
+                    RowLabel=f.row_label,
+                    InverseEnabled=f.inverse_enabled,
+                    CacheType=f.cache_type,
+                    CacheSize=f.cache_size,
+                    TimeQuantum=f.time_quantum,
+                ),
+            )
+        )
         return Response.json({})
 
     def handle_delete_frame(self, req: Request, index: str, frame: str) -> Response:
@@ -208,6 +266,7 @@ class Handler:
         if idx is None:
             return Response.error("index not found", 404)
         idx.delete_frame(frame)
+        self._broadcast(wire.DeleteFrameMessage(Index=index, Frame=frame))
         return Response.json({})
 
     # --- query (reference: handler.go:863-944) ---
@@ -216,17 +275,19 @@ class Handler:
         try:
             qreq = self._read_query_request(req)
         except ValueError as e:
-            return Response.error(str(e), 400)
+            return self._query_error(req, str(e), 400)
         try:
             q = parse_string(qreq["query"])
         except Exception as e:  # noqa: BLE001 — parser error
-            return Response.error(str(e), 400)
+            return self._query_error(req, str(e), 400)
         try:
-            results = self.executor.execute(index, q, qreq["slices"])
+            results = self.executor.execute(
+                index, q, qreq["slices"], ExecOptions(remote=qreq["remote"])
+            )
         except TooManyWritesError as e:
-            return Response.error(str(e), 413)
+            return self._query_error(req, str(e), 413)
         except Exception as e:  # noqa: BLE001 — executor boundary
-            return Response.error(str(e), 500)
+            return self._query_error(req, str(e), 500)
 
         column_attr_sets = None
         if qreq["column_attrs"]:
@@ -241,10 +302,26 @@ class Handler:
                     attrs = idx.column_attr_store.attrs(cid)
                     if attrs:
                         column_attr_sets.append((cid, attrs))
-        return Response.json(response_to_json(results, column_attr_sets))
+        if PROTOBUF in req.header("Accept"):
+            return Response.proto(codec.response_to_proto(results, column_attr_sets))
+        return Response.json(codec.response_to_json(results, column_attr_sets))
+
+    def _query_error(self, req: Request, message: str, status: int) -> Response:
+        if PROTOBUF in req.header("Accept"):
+            return Response.proto(wire.QueryResponse(Err=message), status=status)
+        return Response.error(message, status)
 
     def _read_query_request(self, req: Request) -> dict:
-        """reference: handler.go:863-944 (JSON/plain-text body)."""
+        """reference: handler.go:863-944 — a QueryRequest protobuf, or a
+        PQL body with URL parameters."""
+        if req.header("Content-Type") == PROTOBUF:
+            pb = wire.QueryRequest.decode(req.body)
+            return {
+                "query": pb.Query,
+                "slices": list(pb.Slices) or None,
+                "column_attrs": pb.ColumnAttrs,
+                "remote": pb.Remote,
+            }
         valid = {
             "slices",
             "columnAttrs",
@@ -271,7 +348,36 @@ class Handler:
             "query": req.body.decode(),
             "slices": slices,
             "column_attrs": req.query.get("columnAttrs") == "true",
+            "remote": False,
         }
+
+    # --- import (reference: handler.go:969-1046) ---
+
+    def handle_post_import(self, req: Request) -> Response:
+        try:
+            pb = wire.ImportRequest.decode(req.body)
+        except ValueError as e:
+            return Response.error(str(e), 400)
+        # Ownership guard (reference: handler.go:1004).
+        if not self.cluster.is_write_owner(self.executor.host, pb.Index, pb.Slice):
+            return Response.error(
+                f"host does not own slice {self.executor.host} slice={pb.Slice}", 412
+            )
+        f = self.holder.frame(pb.Index, pb.Frame)
+        if f is None:
+            return Response.error("frame not found", 404)
+        timestamps = (
+            [None if ts == 0 else ts for ts in pb.Timestamps] if pb.Timestamps else None
+        )
+        try:
+            f.import_bulk(
+                np.asarray(pb.RowIDs, dtype=np.int64),
+                np.asarray(pb.ColumnIDs, dtype=np.int64),
+                timestamps,
+            )
+        except Exception as e:  # noqa: BLE001 — import boundary
+            return Response.proto(wire.ImportResponse(Err=str(e)), status=500)
+        return Response.proto(wire.ImportResponse())
 
 
 def make_http_server(handler: Handler, host: str = "127.0.0.1", port: int = 0):

@@ -1,13 +1,30 @@
-"""Server — one node: holder + executor + HTTP front end.
+"""Server — one node: holder + executor + HTTP front end + cluster.
 
 ``Server(data_dir, host, device=...)`` opens the data directory (the
-layout of ``pilosa_tpu.net.server``'s), serves the JSON API of
+layout of ``pilosa_tpu.net.server``'s), serves the API of
 net/handler.py on a ThreadingHTTPServer, and keeps every fragment's
 device mirror on ``device`` — the CUDA card unless the caller passes
 ``device="cpu"``; asking for CUDA where there is none raises.
 
-Cluster membership, gossip, anti-entropy and the background loops of
-the JAX server are not ported yet: this is a single node.
+The cluster settings are those of the JAX package's ``[cluster]``
+section (``pilosa_tpu/cli/ctl.py:45-100``):
+
+* ``cluster_type`` ``"static"`` (a fixed node list, no messages) or
+  ``"http"`` (schema changes and new max slices are POSTed to every
+  peer's internal listener, bound at ``internal_port``); ``"gossip"``
+  is not ported yet and raises;
+* ``hosts``, the nodes' HTTP addresses, and ``internal_hosts``, their
+  internal listeners (by default each host's name with
+  ``internal_port``);
+* ``replicas``, the owners of each slice;
+* ``polling_interval``, seconds between polls of the peers' max slices
+  (``tick_max_slices``), so every node knows how far an index reaches,
+  also where it owns no slice.
+
+The node registers itself in the cluster on open.  Nodes that bind port
+0 learn each other after they are open: ``add_peer(host,
+internal_host)``.  Anti-entropy, replication quorums, resize and the
+other background loops of the JAX server are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,9 +34,20 @@ import threading
 import torch
 
 from pilosa_tpu_torch import device as device_mod
+from pilosa_tpu_torch.cluster import broadcast as bc
+from pilosa_tpu_torch.cluster.topology import Cluster
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.exec.executor import DEFAULT_MAX_WRITES_PER_REQUEST, Executor
+from pilosa_tpu_torch.net import wire
+from pilosa_tpu_torch.net.client import TRANSPORT_ERRORS, ClientError, InternalClient
 from pilosa_tpu_torch.net.handler import Handler, make_http_server
+
+CLUSTER_TYPES = ("static", "http")
+# reference: server.go / config.go defaults
+DEFAULT_POLLING_INTERVAL = 60.0
+DEFAULT_INTERNAL_PORT = 14000
+# Socket timeout of a map leg or a poll to a peer.
+REMOTE_TIMEOUT_S = 60.0
 
 
 class Server:
@@ -29,14 +57,60 @@ class Server:
         host: str = "127.0.0.1:0",
         device: torch.device | str | None = None,
         max_writes_per_request: int = DEFAULT_MAX_WRITES_PER_REQUEST,
+        cluster_type: str = "static",
+        hosts: list[str] | None = None,
+        internal_hosts: list[str] | None = None,
+        replicas: int = 1,
+        internal_port: int = DEFAULT_INTERNAL_PORT,
+        polling_interval: float = DEFAULT_POLLING_INTERVAL,
     ):
+        if cluster_type == "gossip":
+            raise ValueError("cluster type 'gossip' is not supported by this port yet")
+        if cluster_type not in CLUSTER_TYPES:
+            raise ValueError(f"unknown cluster type: {cluster_type!r}")
+        hosts = list(hosts or [])
+        if internal_hosts is None:
+            internal_hosts = [f"{h.rpartition(':')[0]}:{internal_port}" for h in hosts]
+        if len(internal_hosts) != len(hosts):
+            raise ValueError("internal_hosts must list one listener per host")
         self.device = device_mod.resolve(device)
         self.host = host
+        self.cluster_type = cluster_type
+        self.polling_interval = polling_interval
+        self.cluster = Cluster(replica_n=replicas)
+        for h, ih in zip(hosts, internal_hosts):
+            self.cluster.add_node(h, ih)
+        if cluster_type == "http":
+            bind_host = host.rpartition(":")[0] or "127.0.0.1"
+            self.broadcaster = bc.HTTPBroadcaster(timeout=REMOTE_TIMEOUT_S)
+            self.receiver = bc.HTTPBroadcastReceiver(bind_host, internal_port)
+        else:
+            self.broadcaster = bc.NopBroadcaster()
+            self.receiver = None
         self.holder = Holder(data_dir, device=self.device)
-        self.executor = Executor(self.holder, max_writes_per_request=max_writes_per_request)
-        self.handler = Handler(self.holder, self.executor, host=host)
+        self.holder.on_create_slice = self._on_create_slice
+        self.executor = Executor(
+            self.holder,
+            max_writes_per_request=max_writes_per_request,
+            cluster=self.cluster,
+            host=host,
+            client_factory=self._client,
+        )
+        self.handler = Handler(self.holder, self.executor, self.broadcaster)
         self._http = None
         self._http_thread: threading.Thread | None = None
+        self._closing = threading.Event()
+        self._poll_thread: threading.Thread | None = None
+
+    @property
+    def internal_host(self) -> str:
+        return self.receiver.bound_host if self.receiver is not None else ""
+
+    def _client(self, node) -> InternalClient:
+        host = node if isinstance(node, str) else node.host
+        return InternalClient(host, timeout=REMOTE_TIMEOUT_S, device=self.device)
+
+    # --- lifecycle (reference: server.go:99-198) ---
 
     def open(self) -> None:
         self.holder.open()
@@ -46,13 +120,47 @@ class Server:
         if port == 0:
             addr = self._http.server_address
             self.host = f"{bind_host or addr[0]}:{addr[1]}"
-        self.handler.host = self.host
+        self.executor.host = self.host
         self._http_thread = threading.Thread(
             target=self._http.serve_forever, daemon=True, name=f"http:{self.host}"
         )
         self._http_thread.start()
+        if self.receiver is not None:
+            self.receiver.start(self)
+        # Self-register (reference: server.go:117-125).  A configured ring
+        # that lacks this host would place slices without it: refuse.
+        if self.cluster.nodes and self.cluster.node_by_host(self.host) is None:
+            self.close()
+            raise ValueError(f"host {self.host} is not among the cluster hosts")
+        self.cluster.add_node(self.host, self.internal_host)
+        self._sync_broadcast_targets()
+        self._poll_thread = threading.Thread(
+            target=self._poll_loop, daemon=True, name=f"max-slices:{self.host}"
+        )
+        self._poll_thread.start()
+
+    def add_peer(self, host: str, internal_host: str = "") -> None:
+        """Add another node to the ring (nodes that bound port 0 learn
+        each other once all are open).  Every node must end with the same
+        node list: placement is a function of it."""
+        self.cluster.add_node(host, internal_host)
+        self._sync_broadcast_targets()
+
+    def _sync_broadcast_targets(self) -> None:
+        if isinstance(self.broadcaster, bc.HTTPBroadcaster):
+            self.broadcaster.internal_hosts = [
+                n.internal_host
+                for n in self.cluster.nodes
+                if n.host != self.host and n.internal_host
+            ]
 
     def close(self) -> None:
+        self._closing.set()
+        if self._poll_thread is not None:
+            self._poll_thread.join(timeout=10)
+            self._poll_thread = None
+        if self.receiver is not None:
+            self.receiver.close()
         if self._http is not None:
             self._http.shutdown()
             self._http.server_close()
@@ -60,6 +168,7 @@ class Server:
         if self._http_thread is not None:
             self._http_thread.join(timeout=10)
             self._http_thread = None
+        self.executor.close()
         self.holder.close()
 
     def __enter__(self):
@@ -68,3 +177,72 @@ class Server:
 
     def __exit__(self, *exc):
         self.close()
+
+    # --- background: max-slice polling (JAX server.py:822-847) ---
+
+    def _poll_loop(self) -> None:
+        while not self._closing.wait(self.polling_interval):
+            self.tick_max_slices()
+
+    def tick_max_slices(self) -> None:
+        """Poll every peer's max slices so that slices held only
+        elsewhere are queried too (reference: server.go:238-274).  A peer
+        that does not answer is skipped until the next tick."""
+        for node in list(self.cluster.nodes):
+            if node.host == self.host:
+                continue
+            try:
+                ms = InternalClient(node.host, timeout=REMOTE_TIMEOUT_S).max_slice_by_index()
+            except TRANSPORT_ERRORS + (ClientError, ValueError):
+                continue
+            for index_name, max_slice in ms.items():
+                idx = self.holder.index(index_name)
+                if idx is not None:
+                    idx.set_remote_max_slice(max_slice)
+
+    # --- broadcast (reference: server.go:277-325) ---
+
+    def _on_create_slice(self, index: str, view_name: str, slice_i: int) -> None:
+        self.broadcaster.send_async(wire.CreateSliceMessage(Index=index, Slice=slice_i))
+
+    def receive_message(self, msg) -> None:
+        """Apply a schema message from a peer."""
+        if isinstance(msg, wire.CreateSliceMessage):
+            idx = self.holder.index(msg.Index)
+            if idx is None:
+                raise RuntimeError("index not found")
+            if not msg.IsInverse:
+                idx.set_remote_max_slice(msg.Slice)
+        elif isinstance(msg, wire.CreateIndexMessage):
+            meta = msg.Meta or wire.IndexMeta()
+            opts = {}
+            if meta.ColumnLabel:
+                opts["column_label"] = meta.ColumnLabel
+            if meta.TimeQuantum:
+                opts["time_quantum"] = meta.TimeQuantum
+            self.holder.create_index_if_not_exists(msg.Index, **opts)
+        elif isinstance(msg, wire.DeleteIndexMessage):
+            self.holder.delete_index(msg.Index)
+        elif isinstance(msg, wire.CreateFrameMessage):
+            idx = self.holder.index(msg.Index)
+            if idx is None:
+                raise RuntimeError("index not found")
+            meta = msg.Meta or wire.FrameMeta()
+            opts = {}
+            if meta.RowLabel:
+                opts["row_label"] = meta.RowLabel
+            if meta.InverseEnabled:
+                opts["inverse_enabled"] = True
+            if meta.CacheType:
+                opts["cache_type"] = meta.CacheType
+            if meta.CacheSize:
+                opts["cache_size"] = meta.CacheSize
+            if meta.TimeQuantum:
+                opts["time_quantum"] = meta.TimeQuantum
+            idx.create_frame_if_not_exists(msg.Frame, **opts)
+        elif isinstance(msg, wire.DeleteFrameMessage):
+            idx = self.holder.index(msg.Index)
+            if idx is not None:
+                idx.delete_frame(msg.Frame)
+        else:
+            raise ValueError(f"unknown message type: {type(msg).__name__}")

@@ -28,6 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # Kernel name -> source file under csrc/.
 SOURCES = {
     "fused_popcount": "fused_popcount.cu",
+    "delta_scatter": "delta_scatter.cu",
 }
 
 NVCC_FLAGS = (

@@ -43,3 +43,67 @@ def test_fused_popcount_rejects_misaligned(cuda):
     a = torch.zeros(2 * tbp.WORDS_PER_SLICE + 1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         fp.row_popcounts(a[1:].reshape(2, tbp.WORDS_PER_SLICE))
+
+
+# --- K7: delta-scatter -------------------------------------------------------
+
+
+def k7_cases(rows: int, rng):
+    """Phase 3 of chip_smoke.py: edge queues folded as the fragment folds
+    them, then n unique random entries for each n."""
+    from pilosa_tpu_torch.ingest import scatter
+
+    last = rows - 1
+    queues = {
+        "bit0_bit31": [(0, 5, 1, 1), (0, 6, 1 << 31, 1), (1, 5, 1, 0), (1, 6, 1 << 31, 0)],
+        "word32767": [(2, 32767, 1 << 31, 1), (3, 32767, 1, 0)],
+        "set_clear_same_bit": [(0, 7, 1 << 9, 1), (0, 7, 1 << 9, 0),
+                               (1, 7, 1 << 9, 0), (1, 7, 1 << 9, 1)],
+        "last_slot": [(last, 0, 1, 1), (last, 32767, 1 << 31, 0)],
+        "empty": [],
+    }
+    cases = {name: scatter.fold(q) for name, q in queues.items()}
+    for n in (1, 31, 1100, 4096, 8192):
+        keys = rng.choice(rows * tbp.WORDS_PER_SLICE, size=n, replace=False)
+        cases[f"n={n}"] = (
+            (keys // tbp.WORDS_PER_SLICE).astype(np.int32),
+            (keys % tbp.WORDS_PER_SLICE).astype(np.int32),
+            rng.integers(0, 2**32, size=n, dtype=np.uint32),
+            rng.integers(0, 2**32, size=n, dtype=np.uint32),
+        )
+    return cases
+
+
+@pytest.mark.parametrize("rows", [8, 16])
+def test_delta_scatter_matches_plain(cuda, rows):
+    from pilosa_tpu_torch.ops import delta_scatter as ds
+
+    rng = np.random.default_rng(100 + rows)
+    base = rng.integers(0, 2**32, size=(rows, tbp.WORDS_PER_SLICE), dtype=np.uint32)
+    base[0, :8] = (0, 0xFFFFFFFF, 0x80000000, 1, 0, 0xFFFFFFFF, 0, 0x7FFFFFFF)
+    for name, entries in k7_cases(rows, rng).items():
+        got = tbp.to_device(base, cuda)
+        want = got.clone()
+        before = ds.launches
+        ds.delta_scatter(got, *entries)
+        torch.cuda.synchronize()
+        assert ds.launches == before + (1 if len(entries[0]) else 0), name
+        ds.plain_delta_scatter(want, *entries)
+        assert torch.equal(got, want), name
+
+
+def test_fragment_applies_queued_writes_with_one_launch(cuda, tmp_path):
+    from pilosa_tpu_torch.core.fragment import Fragment
+    from pilosa_tpu_torch.ops import delta_scatter as ds
+
+    frag = Fragment(str(tmp_path / "0"), "i", "f", "standard", 0, device=cuda)
+    frag.open()
+    frag.import_bulk([0, 1, 2], [5, 6, 7])
+    before = ds.launches
+    for c in (0, 31, 32767 * 32 + 31):
+        frag.set_bit(1, c)
+    frag.clear_bit(0, 5)
+    mirror = tbp.to_host(frag.device_plane())
+    assert ds.launches == before + 1
+    np.testing.assert_array_equal(mirror, frag._plane)
+    frag.close()

@@ -190,7 +190,7 @@ def test_row_bitmap_counts_match_jax():
     rng = np.random.default_rng(9)
     a = rng.integers(0, 2**32, size=(3, tbp.WORDS_PER_SLICE), dtype=np.uint32)
     b = rng.integers(0, 2**32, size=(3, tbp.WORDS_PER_SLICE), dtype=np.uint32)
-    ja, jb, ta, tb = JRowBitmap(), JRowBitmap(), TRowBitmap(), TRowBitmap()
+    ja, jb, ta, tb = JRowBitmap(), JRowBitmap(), TRowBitmap("cpu"), TRowBitmap("cpu")
     for s in range(3):
         ja.set_segment(s, a[s])
         ta.set_segment(s, a[s])

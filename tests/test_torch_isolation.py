@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 import pilosa_tpu_torch  # noqa: E402
 from pilosa_tpu_torch import device as device_mod  # noqa: E402
 from pilosa_tpu_torch.ops import bitplane as tbp  # noqa: E402
+from pilosa_tpu_torch.ops import delta_scatter as ds  # noqa: E402
 from pilosa_tpu_torch.ops import fused_popcount as fp  # noqa: E402
 
 PKG = os.path.dirname(pilosa_tpu_torch.__file__)
@@ -93,6 +94,43 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     assert Server(str(tmp_path), device="cpu").device == torch.device("cpu")
 
 
+def test_storage_constructors_default_to_cuda(monkeypatch, tmp_path):
+    """Index, Frame, View, Fragment and RowBitmap resolve their device
+    like the entry points: CUDA unless asked, never a silent CPU."""
+    import numpy as np
+
+    from pilosa_tpu_torch.core.bitmap import RowBitmap
+    from pilosa_tpu_torch.core.fragment import Fragment
+    from pilosa_tpu_torch.core.frame import Frame
+    from pilosa_tpu_torch.core.index import Index
+    from pilosa_tpu_torch.core.view import View
+    from pilosa_tpu_torch.net import codec, wire
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    p = str(tmp_path / "x")
+    for make in (
+        lambda: Index(p, "i"),
+        lambda: Frame(p, "i", "f"),
+        lambda: View(p, "i", "f", "standard"),
+        lambda: Fragment(p, "i", "f", "standard", 0),
+        lambda: RowBitmap.from_bits([1, 2]),
+        lambda: RowBitmap().set_segment(0, np.zeros(tbp.WORDS_PER_SLICE, np.uint32)),
+        lambda: codec.bitmap_from_proto(wire.Bitmap(Bits=[3])),
+    ):
+        with pytest.raises(device_mod.DeviceUnavailableError):
+            make()
+    # Asked for the CPU, the owner's device reaches everything below it.
+    cpu = torch.device("cpu")
+    idx = Index(str(tmp_path / "i"), "i", device="cpu")
+    idx.open()
+    frag = idx.create_frame("f").create_view_if_not_exists("standard")
+    frag = frag.create_fragment_if_not_exists(0)
+    assert frag.device == cpu and frag.device_plane().device == cpu
+    idx.close()
+    bm = codec.bitmap_from_proto(wire.Bitmap(Bits=[3, 1 << 20]), device="cpu")
+    assert {s.device for s in bm.segments.values()} == {cpu}
+
+
 def test_cli_defaults_to_cuda():
     from pilosa_tpu_torch.cli.main import build_parser
 
@@ -103,8 +141,10 @@ def test_cli_defaults_to_cuda():
 def test_kernel_wrappers_raise_off_the_cpu():
     """A tensor the kernel cannot launch on (here on the meta device)
     raises in every wrapper instead of being computed another way."""
+    import numpy as np
+
     a = torch.empty(3, tbp.WORDS_PER_SLICE, dtype=torch.int32, device="meta")
-    before = fp.launches
+    before, ds_before = fp.launches, ds.launches
     for call in (
         lambda: fp.row_popcounts(a),
         lambda: fp.row_popcounts(a, a, "and"),
@@ -114,10 +154,13 @@ def test_kernel_wrappers_raise_off_the_cpu():
         lambda: tbp.count_and(a, a),
         lambda: tbp.row_counts(a),
         lambda: tbp.top_counts(a, a[0]),
+        lambda: ds.delta_scatter(
+            a, *[np.zeros(1, t) for t in (np.int32, np.int32, np.uint32, np.uint32)]
+        ),
     ):
         with pytest.raises(ValueError):
             call()
-    assert fp.launches == before
+    assert fp.launches == before and ds.launches == ds_before
 
 
 def test_kernel_build_refuses_without_nvcc(monkeypatch):
