@@ -11,12 +11,17 @@ without printing its final line:
    source, started together);
 3. hold each kernel against its plain PyTorch version on the card, on
    adversarial and seeded random inputs, every case listed — the
-   results must be exactly equal (integers);
+   results must be exactly equal (integers); for the BSI ripple kernels
+   (K8) depths 1, 7, 8, 9, 31 and 62, 1, 3 and 954 slices, every
+   comparison at the window's edges, 0 and +-1, empty betweens, slices
+   with no value, one sign only, one value, absent planes and no
+   fragment, Sum/Min/Max with and without a filter;
 4. time each kernel at the main path's shapes (CUDA events around runs
    of back-to-back calls, median of 21 runs), beside its bound and its
    plain version's time; for the delta-scatter kernel also the time of
    an empty kernel launch, the floor that bounds it; and each kernel's
-   own device time per launch from a torch.profiler trace;
+   own device time per launch from a torch.profiler trace; K8 at [954
+   slices, depth 31];
 5. serve a 1B-column index — 954 slices x 8 dense rows, seeded random
    words, about 1 GiB on the card — with ``Server(device="cuda")`` and
    answer Count/Bitmap/TopN/SetBit over HTTP, every answer checked
@@ -28,11 +33,27 @@ without printing its final line:
    of the slices it owns (~2 GiB of mirrors); then a protobuf
    ``/import`` of 2^20 seeded bits (~1,100 per fragment: the
    delta-scatter path), Count/TopN queries to every node in protobuf
-   and JSON checked against the numpy oracle, a second import into new
-   rows (the counted fallback to a mirror re-upload), and the Counts
-   again with one node closed (replica failover); launch counts reset
-   just before and read just after;
-7. print the ``kernels`` JSON line, then the final JSON line.
+   and JSON checked against the numpy oracle; a BSI field created on one
+   node (its fan-out reaches the others), ``/import-value`` to every
+   owner of 64 slices, Count(Range)/Sum/Min/Max from every node; a
+   second import into new rows (the counted fallback to a mirror
+   re-upload), and the Counts and the BSI queries again with one node
+   closed (replica failover); launch counts reset just before and read
+   just after;
+7. on the phase-5 node, a signed 32-bit integer field over the 954
+   slices (~4.13 GB of planes, seeded word by word): Count(Range) for
+   every comparison and between, a Range inside Intersect, Sum/Min/Max
+   with and without a filter, checked against a numpy oracle that
+   decodes every column's value; then an ``/import-value`` of 2^16
+   values over every slice (the delta-scatter path with and-not
+   entries) and one past the scatter limit on one slice (the counted
+   fallback), the queries again after each;
+8. on the phase-5 node, a time-quantum frame (YMD) over 16 slices:
+   SetBits with timestamps and a protobuf ``/import`` of 2^16 bits over
+   40 days, then Range(start, end) counts inside a month, across the
+   month boundary and over the year, plain and inside Intersect,
+   against numpy over the written triples;
+9. print the ``kernels`` JSON line, then the final JSON line.
 
 Exits non-zero when ``torch.cuda.is_available()`` is false, and when the
 port's package is not beside this file.
@@ -49,6 +70,7 @@ import tempfile
 import time
 import urllib.error
 import urllib.request
+from datetime import datetime, timedelta, timezone
 
 import numpy as np
 
@@ -60,6 +82,18 @@ REPS = 5
 CLUSTER_REPS = 3
 IMPORT_BITS = 1 << 20
 FALLBACK_IMPORT_BITS = 1 << 16
+# Phase 6's BSI leg: values over the first slices.
+CLUSTER_BSI_SLICES = 64
+CLUSTER_BSI_VALUES = 1 << 14
+# Phase 7: the first /import-value (every slice, the K7 path with clears) and
+# the second (one slice past IMPORT_SCATTER_MAX entries: the counted fallback).
+BSI_IMPORT_VALUES = 1 << 16
+BSI_FALLBACK_VALUES = 200
+# Phase 8: the time-quantum frame.
+TIME_SLICES = 16
+TIME_ROWS = 4
+TIME_BITS = 1 << 16
+TIME_DAYS = 40
 # Phase 3/4: the delta-scatter entry counts held and timed.
 K7_NS = (1, 31, 1100, 4096, 8192)
 K7_TIMED_NS = (1100, 4096)
@@ -311,6 +345,202 @@ def time_k7(ds, rng, hbm: float) -> dict:
     return out
 
 
+# Phase 3/4: the ripple kernel K8.  (depth, slices) of the checked fields;
+# each small field runs once per group of slice kinds; the last is the main
+# path's size and is also timed.
+K8_FIELDS = ((1, 1), (1, 3), (7, 3), (8, 3), (9, 3), (31, 1), (31, 3), (62, 3))
+K8_KINDS = ("random", "no_exists", "positive", "negative", "all_equal", "absent_planes",
+            "no_fragment")
+K8_GROUPS = {1: [("random",), ("no_exists",), ("all_equal",)],
+             3: [("random", "no_exists", "positive"), ("negative", "all_equal", "absent_planes"),
+                 ("no_fragment", "random", "all_equal")]}
+K8_CMP_OPS = ("lt", "le", "eq", "ne", "ge", "gt")
+K8_DEPTH = 31  # a signed 32-bit field: 31 magnitude planes
+# Where k8_field makes its planes (a CPU rehearsal of phase 3 sets "cpu").
+DEVICE = "cuda"
+
+
+def k8_field(br, bsi, depth: int, kinds, seed: int):
+    """A seeded field on the card: ``(FieldPlanes, filter rows)``.  Each
+    slice's exists, sign and magnitude planes (values masked to exists,
+    zero stored with sign 0) live in its own mirror in a shuffled row
+    order with a spare row; ``absent_planes`` drops the sign row and
+    every third bit row (slot -1), ``no_fragment`` has no mirror."""
+    import torch
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    n = len(kinds)
+
+    def rnd(*shape):
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int32, device=dev, generator=g)
+
+    planes = rnd(n, 2 + depth, 32768)
+    rng = np.random.default_rng(seed)
+    for s, kind in enumerate(kinds):
+        if kind == "no_exists":
+            planes[s, 0] = 0
+        elif kind == "positive":
+            planes[s, 1] = 0
+        elif kind == "negative":
+            planes[s, 1] = -1
+        elif kind == "all_equal":
+            v = int(rng.integers(1, 1 << depth)) * (-1 if s % 2 else 1)
+            for k in range(depth):
+                planes[s, 2 + k] = -1 if (abs(v) >> k) & 1 else 0
+            planes[s, 1] = -1 if v < 0 else 0
+    ex = planes[:, 0:1]
+    planes[:, 2:] &= ex
+    nonzero = planes[:, 2]
+    for k in range(1, depth):
+        nonzero = nonzero | planes[:, 2 + k]
+    planes[:, 1] &= planes[:, 0] & nonzero
+    slots = np.stack([rng.permutation(3 + depth)[: 2 + depth] for _ in range(n)]).astype(np.int64)
+    store = torch.zeros(n, 3 + depth, 32768, dtype=torch.int32, device=dev)
+    store[torch.arange(n, device=dev)[:, None], torch.from_numpy(slots).to(dev)] = planes
+    del planes
+    mirrors = []
+    for s, kind in enumerate(kinds):
+        if kind == "absent_planes":
+            slots[s, [1] + list(range(2, 2 + depth, 3))] = -1
+        if kind == "no_fragment":
+            slots[s] = -1
+            mirrors.append(None)
+        else:
+            mirrors.append(store[s])
+    fp = br.FieldPlanes(mirrors, slots, bsi.pad_depth(depth), dev)
+    return fp, rnd(n, 32768)
+
+
+def k8_cases(bsi, depth: int, full: bool, rng):
+    """(kernel, args) pairs: every op at +-(2^depth - 1), 0, +-1 and both
+    out-of-range sides (clamped as the executor clamps them) and six
+    betweens, an empty one included, in row and count mode; Sum, Min and
+    Max with and without the filter.  ``full=False`` keeps 0, -1 and one
+    drawn value, and three betweens."""
+    hi = (1 << depth) - 1
+    drawn = int(rng.integers(-hi, hi + 1))
+    raw = [hi, -hi, 0, 1, -1, hi + 1, -hi - 1] if full else [0, -1, drawn]
+    pairs = [(-hi, hi), (-1, 1), (0, 0), (5, 2), (-hi - 9, hi + 9), (drawn, hi)]
+    if not full:
+        pairs = [(-1, 1), (5, 2), (drawn, hi)]
+    out = []
+    for count in (False, True):
+        for op0 in K8_CMP_OPS:
+            for v in raw:
+                op, pv = bsi.clamp_predicate(op0, v, depth)
+                out.append(("bsi_cmp", (op, pv, None, count)))
+        for a, b in pairs:
+            out.append(("bsi_cmp", ("between", *bsi.clamp_between(a, b, depth), count)))
+    for filtered in (False, True):
+        out.append(("bsi_sum", (filtered,)))
+        out.append(("bsi_minmax", ("min", filtered)))
+        out.append(("bsi_minmax", ("max", filtered)))
+    return out
+
+
+def run_k8(br, fp, filt, kernel: str, args, plain: bool):
+    if kernel == "bsi_cmp":
+        op, lo, hi, count = args
+        f = br.plain_bsi_cmp if plain else br.bsi_cmp
+        return f(fp, op, lo, hi, count)
+    if kernel == "bsi_sum":
+        f = br.plain_bsi_sum if plain else br.bsi_sum
+        return f(fp, filt if args[0] else None)
+    f = br.plain_bsi_minmax if plain else br.bsi_minmax
+    return f(fp, args[0], filt if args[1] else None)
+
+
+def check_k8(br, bsi, rng) -> dict:
+    """Every K8 kernel against its plain version on the card, on every
+    case of :func:`k8_cases` for each field of K8_FIELDS and slice-kind
+    group, then at the main path's size ([954 slices, depth 31], the slice
+    kinds cycled).  Exact: returns ``{kernel: max_abs_err}``."""
+    import torch
+
+    worst = dict.fromkeys(br.KERNELS, 0)
+    n_checks = dict.fromkeys(br.KERNELS, 0)
+    fields = [(d, kinds) for d, n in K8_FIELDS for kinds in K8_GROUPS[n]]
+    fields.append((K8_DEPTH, tuple(K8_KINDS[s % len(K8_KINDS)] for s in range(N_SLICES))))
+    for i, (depth, kinds) in enumerate(fields):
+        fp, filt = k8_field(br, bsi, depth, kinds, SEED + 10 + i)
+        full = len(kinds) <= 3
+        for kernel, args in k8_cases(bsi, depth, full, rng):
+            before = br.launches[kernel]
+            got = run_k8(br, fp, filt, kernel, args, plain=False)
+            torch.cuda.synchronize()
+            if br.launches[kernel] != before + 1:
+                raise AssertionError(f"{kernel} {args}: {br.launches[kernel] - before} launches")
+            want = run_k8(br, fp, filt, kernel, args, plain=True)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(
+                    f"{kernel} depth={depth} {args}: shape/dtype {tuple(got.shape)} "
+                    f"{got.dtype} != {tuple(want.shape)} {want.dtype}")
+            diff = int((got.long() - want.long()).abs().max())
+            worst[kernel] = max(worst[kernel], diff)
+            n_checks[kernel] += 1
+            if diff:
+                raise AssertionError(f"{kernel} != plain: depth={depth} slices={len(kinds)} "
+                                     f"kinds={kinds[:7]} {args} diff={diff}")
+        del fp, filt
+    for kernel in br.KERNELS:
+        log(f"phase 3: {kernel} == plain on {n_checks[kernel]} cases (max_abs_err "
+            f"{worst[kernel]}): depths {sorted({d for d, _ in fields})}, slices 1, 3 and "
+            f"{N_SLICES}, slice kinds {', '.join(K8_KINDS)}")
+    return {k: float(v) for k, v in worst.items()}
+
+
+def k8_bound_ms(present: int, bucket: int, slices: int, kernel: str, hbm: float,
+                row_mode: bool = False) -> tuple[float, str]:
+    """Least time for one K8 launch: each of the ``present`` plane rows
+    the field holds read once (absent rows cost nothing), the outputs
+    written once (a 128 KiB row per slice in row mode, else the small
+    vectors); about 5 integer operations per word and plane, far below
+    the byte time."""
+    row = 32768 * 4
+    out = {"bsi_cmp": slices * (row if row_mode else 4),
+           "bsi_sum": slices * 4 * (2 * bucket + 1),
+           "bsi_minmax": slices * 4 * (bucket + 2)}[kernel]
+    t_bytes = (present * row + out) / hbm
+    t_ops = present * 32768 * 5 / SCALAR_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_k8(br, bsi, hbm: float) -> dict:
+    """Each K8 kernel on a seeded field of the main path's shape, [954
+    slices, depth 31] with every plane present: CUDA events around runs
+    of back-to-back launches, device time per launch from the profiler,
+    the plain version's time, and the byte bound."""
+    fp, _ = k8_field(br, bsi, K8_DEPTH, ("random",) * N_SLICES, SEED + 5)
+    cases = {
+        "bsi_cmp": (lambda plain: (br.plain_bsi_cmp if plain else br.bsi_cmp)(
+            fp, "gt", 12345, None, True), "bsi_cmp_kernel", {}),
+        "bsi_cmp_row": (lambda plain: (br.plain_bsi_cmp if plain else br.bsi_cmp)(
+            fp, "between", -100000, 100000, False), "bsi_cmp_kernel", {"row_mode": True}),
+        "bsi_sum": (lambda plain: (br.plain_bsi_sum if plain else br.bsi_sum)(fp),
+                    "bsi_sum_kernel", {}),
+        "bsi_minmax": (lambda plain: (br.plain_bsi_minmax if plain else br.bsi_minmax)(
+            fp, "max"), "bsi_minmax_kernel", {}),
+    }
+    out = {}
+    for name, (fn, kname, extra) in cases.items():
+        kernel = "bsi_cmp" if name.startswith("bsi_cmp") else name
+        k_ms = time_cuda(lambda: fn(False), runs=11, per_run=10)
+        plain_ms = time_cuda(lambda: fn(True), runs=3, per_run=2, warmup=1)
+        k_dev = device_ms(lambda: fn(False), kname, launches=20)
+        bound_ms, bound_by = k8_bound_ms(int((fp.slots >= 0).sum()), fp.bucket, fp.n, kernel,
+                                         hbm, **extra)
+        out[name] = {"ms": k_ms, "device_ms": k_dev, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+        share = bound_ms / k_dev if k_dev else float("nan")
+        log(f"phase 4: {name} [{fp.n}, depth {fp.depth}]: {k_ms:.4f} ms back to back, device "
+            f"time per launch from the profiler {k_dev} ms ({share:.1%} of the bound), bound "
+            f"{bound_ms:.4f} ms by {bound_by}, plain {plain_ms:.4f} ms")
+    return out
+
+
 def http(host: str, method: str, path: str, body: bytes = b"") -> tuple[int, object]:
     req = urllib.request.Request(
         f"http://{host}{path}", data=body if method != "GET" else None, method=method
@@ -336,142 +566,138 @@ def topn_oracle(scores: np.ndarray, n: int) -> list[dict]:
     return [{"id": i, "count": c} for i, c in pairs[:n]]
 
 
-def serve_and_check(fp, ds, bp, convert, Server, rng) -> dict:
+def serve_and_check(fp, ds, bp, convert, srv, rng) -> dict:
+    """Phase 5 on ``srv``, an open one-node ``Server`` on the card, which
+    stays open for phases 7-8."""
     import torch
 
     out: dict = {}
-    with tempfile.TemporaryDirectory(prefix="pilosa-torch-smoke-") as data_dir:
-        srv = Server(data_dir, host="127.0.0.1:0", device="cuda")
-        srv.open()
-        try:
-            h = srv.host
-            for path in ("/index/i", "/index/i/frame/f", "/index/i/frame/g"):
-                status, body = http(h, "POST", path)
-                if status != 200:
-                    raise AssertionError(f"POST {path}: {status} {body}")
+    h = srv.host
+    for path in ("/index/i", "/index/i/frame/f", "/index/i/frame/g"):
+        status, body = http(h, "POST", path)
+        if status != 200:
+            raise AssertionError(f"POST {path}: {status} {body}")
 
-            t0 = time.perf_counter()
-            planes = rng.integers(0, 2**32, size=(N_SLICES, ROWS, 32768), dtype=np.uint32)
-            t1 = time.perf_counter()
-            convert.load_planes(
-                srv.holder, "i", "f", "standard", {s: planes[s] for s in range(N_SLICES)}
-            )
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            log(
-                f"phase 5: {N_SLICES} slices x {ROWS} rows generated in {t1 - t0:.3f}s, "
-                f"loaded (mirror upload + recount + snapshot) in {t2 - t1:.3f}s; "
-                f"device memory allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB"
-            )
+    t0 = time.perf_counter()
+    planes = rng.integers(0, 2**32, size=(N_SLICES, ROWS, 32768), dtype=np.uint32)
+    t1 = time.perf_counter()
+    convert.load_planes(
+        srv.holder, "i", "f", "standard", {s: planes[s] for s in range(N_SLICES)}
+    )
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    log(
+        f"phase 5: {N_SLICES} slices x {ROWS} rows generated in {t1 - t0:.3f}s, "
+        f"loaded (mirror upload + recount + snapshot) in {t2 - t1:.3f}s; "
+        f"device memory allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB"
+    )
 
-            # Sparse frame g, written point by point over HTTP.
-            g_bits = sorted(
-                {(int(r), int(c)) for r, c in zip(
-                    rng.integers(0, 4, 64), rng.integers(0, N_SLICES << 20, 64))}
-            )
-            for r, c in g_bits:
-                status, body = http(
-                    h, "POST", "/index/i/query",
-                    f"SetBit(frame=g, rowID={r}, columnID={c})".encode(),
-                )
-                if status != 200 or body["results"] != [True]:
-                    raise AssertionError(f"SetBit g {r} {c}: {status} {body}")
-            g_row1 = sorted(c for r, c in g_bits if r == 1)
+    # Sparse frame g, written point by point over HTTP.
+    g_bits = sorted(
+        {(int(r), int(c)) for r, c in zip(
+            rng.integers(0, 4, 64), rng.integers(0, N_SLICES << 20, 64))}
+    )
+    for r, c in g_bits:
+        status, body = http(
+            h, "POST", "/index/i/query",
+            f"SetBit(frame=g, rowID={r}, columnID={c})".encode(),
+        )
+        if status != 200 or body["results"] != [True]:
+            raise AssertionError(f"SetBit g {r} {c}: {status} {body}")
+    g_row1 = sorted(c for r, c in g_bits if r == 1)
 
-            def pc(x):
-                return int(np.bitwise_count(x).sum())
+    def pc(x):
+        return int(np.bitwise_count(x).sum())
 
-            p0, p1, p2, p3 = (planes[:, r] for r in range(4))
-            row_totals = np.bitwise_count(planes).sum(axis=-1, dtype=np.int64)
-            src_scores = np.bitwise_count(planes & planes[:, :1]).sum(axis=-1, dtype=np.int64)
-            queries = [
-                ("count_bitmap", "Count(Bitmap(frame=f, rowID=0))", pc(p0), 1),
-                ("count_intersect",
-                 "Count(Intersect(Bitmap(frame=f, rowID=0), Bitmap(frame=f, rowID=1)))",
-                 pc(p0 & p1), 1),
-                ("count_union3",
-                 "Count(Union(Bitmap(frame=f, rowID=0), Bitmap(frame=f, rowID=1), "
-                 "Bitmap(frame=f, rowID=2)))",
-                 pc(p0 | p1 | p2), 1),
-                ("count_difference",
-                 "Count(Difference(Bitmap(frame=f, rowID=2), Bitmap(frame=f, rowID=3)))",
-                 pc(p2 & ~p3), 1),
-                ("count_xor",
-                 "Count(Xor(Bitmap(frame=f, rowID=1), Bitmap(frame=f, rowID=3)))",
-                 pc(p1 ^ p3), 1),
-                ("bitmap_g", "Bitmap(frame=g, rowID=1)", {"attrs": {}, "bits": g_row1}, 0),
-                ("topn", "TopN(frame=f, n=5)", topn_oracle(row_totals, 5), 0),
-                ("topn_src", "TopN(Bitmap(frame=f, rowID=0), frame=f, n=5)",
-                 topn_oracle(src_scores, 5), 2 * N_SLICES),
-            ]
+    p0, p1, p2, p3 = (planes[:, r] for r in range(4))
+    row_totals = np.bitwise_count(planes).sum(axis=-1, dtype=np.int64)
+    src_scores = np.bitwise_count(planes & planes[:, :1]).sum(axis=-1, dtype=np.int64)
+    queries = [
+        ("count_bitmap", "Count(Bitmap(frame=f, rowID=0))", pc(p0), 1),
+        ("count_intersect",
+         "Count(Intersect(Bitmap(frame=f, rowID=0), Bitmap(frame=f, rowID=1)))",
+         pc(p0 & p1), 1),
+        ("count_union3",
+         "Count(Union(Bitmap(frame=f, rowID=0), Bitmap(frame=f, rowID=1), "
+         "Bitmap(frame=f, rowID=2)))",
+         pc(p0 | p1 | p2), 1),
+        ("count_difference",
+         "Count(Difference(Bitmap(frame=f, rowID=2), Bitmap(frame=f, rowID=3)))",
+         pc(p2 & ~p3), 1),
+        ("count_xor",
+         "Count(Xor(Bitmap(frame=f, rowID=1), Bitmap(frame=f, rowID=3)))",
+         pc(p1 ^ p3), 1),
+        ("bitmap_g", "Bitmap(frame=g, rowID=1)", {"attrs": {}, "bits": g_row1}, 0),
+        ("topn", "TopN(frame=f, n=5)", topn_oracle(row_totals, 5), 0),
+        ("topn_src", "TopN(Bitmap(frame=f, rowID=0), frame=f, n=5)",
+         topn_oracle(src_scores, 5), 2 * N_SLICES),
+    ]
 
-            fp.launches = ds.launches = 0  # the main path starts here
-            expected_launches = 0
-            latencies: dict[str, float] = {}
-            for name, pql, want, per_query in queries:
-                times = []
-                for _ in range(REPS):
-                    q0 = time.perf_counter()
-                    status, body = http(h, "POST", "/index/i/query", pql.encode())
-                    times.append(time.perf_counter() - q0)
-                    if status != 200 or body["results"] != [want]:
-                        raise AssertionError(f"{name}: {status} {str(body)[:300]} != {want}")
-                latencies[name] = statistics.median(times) * 1e3
-                expected_launches += REPS * per_query
+    fp.launches = ds.launches = 0  # the main path starts here
+    expected_launches = 0
+    latencies: dict[str, float] = {}
+    for name, pql, want, per_query in queries:
+        times = []
+        for _ in range(REPS):
+            q0 = time.perf_counter()
+            status, body = http(h, "POST", "/index/i/query", pql.encode())
+            times.append(time.perf_counter() - q0)
+            if status != 200 or body["results"] != [want]:
+                raise AssertionError(f"{name}: {status} {str(body)[:300]} != {want}")
+        latencies[name] = statistics.median(times) * 1e3
+        expected_launches += REPS * per_query
 
-            # A write, then the count that must see it.
-            col = next(c for c in range(N_SLICES << 20)
-                       if not (int(p0[c >> 20, (c & 0xFFFFF) >> 5]) >> (c & 31)) & 1)
-            status, body = http(
-                h, "POST", "/index/i/query", f"SetBit(frame=f, rowID=0, columnID={col})".encode()
-            )
-            if status != 200 or body["results"] != [True]:
-                raise AssertionError(f"SetBit f: {status} {body}")
-            status, body = http(
-                h, "POST", "/index/i/query", b"Count(Bitmap(frame=f, rowID=0))"
-            )
-            if status != 200 or body["results"] != [pc(p0) + 1]:
-                raise AssertionError(f"re-Count after SetBit: {status} {body}")
-            expected_launches += 1
-            launches = fp.launches  # the main path ends here
-            k7_launches = ds.launches
-            if launches != expected_launches:
-                raise AssertionError(
-                    f"fused_popcount launches {launches} != expected {expected_launches}"
-                )
-            # The SetBit queued its delta; the Count applied it with one K7.
-            if k7_launches != 1:
-                raise AssertionError(f"delta_scatter launches {k7_launches} != expected 1")
-            out["launches"] = launches
-            out["k7_launches"] = k7_launches
-            for name, ms in latencies.items():
-                log(f"phase 5: {name} p50 {ms:.3f} ms over {REPS} requests")
-            log(f"phase 5: answers == numpy oracle; fused_popcount launches {launches} "
-                f"(expected {expected_launches}); delta_scatter launches {k7_launches} "
-                "(the SetBit's delta, applied by the next Count)")
+    # A write, then the count that must see it.
+    col = next(c for c in range(N_SLICES << 20)
+               if not (int(p0[c >> 20, (c & 0xFFFFF) >> 5]) >> (c & 31)) & 1)
+    status, body = http(
+        h, "POST", "/index/i/query", f"SetBit(frame=f, rowID=0, columnID={col})".encode()
+    )
+    if status != 200 or body["results"] != [True]:
+        raise AssertionError(f"SetBit f: {status} {body}")
+    status, body = http(
+        h, "POST", "/index/i/query", b"Count(Bitmap(frame=f, rowID=0))"
+    )
+    if status != 200 or body["results"] != [pc(p0) + 1]:
+        raise AssertionError(f"re-Count after SetBit: {status} {body}")
+    expected_launches += 1
+    launches = fp.launches  # the main path ends here
+    k7_launches = ds.launches
+    if launches != expected_launches:
+        raise AssertionError(
+            f"fused_popcount launches {launches} != expected {expected_launches}"
+        )
+    # The SetBit queued its delta; the Count applied it with one K7.
+    if k7_launches != 1:
+        raise AssertionError(f"delta_scatter launches {k7_launches} != expected 1")
+    out["launches"] = launches
+    out["k7_launches"] = k7_launches
+    for name, ms in latencies.items():
+        log(f"phase 5: {name} p50 {ms:.3f} ms over {REPS} requests")
+    log(f"phase 5: answers == numpy oracle; fused_popcount launches {launches} "
+        f"(expected {expected_launches}); delta_scatter launches {k7_launches} "
+        "(the SetBit's delta, applied by the next Count)")
 
-            # Leaf-stack assembly apart from the kernel: the Count(Intersect)
-            # leaves, stacked from the 954 fragments' mirrors.
-            from pilosa_tpu_torch.exec import plan
-            from pilosa_tpu_torch.pql import parse_string
+    # Leaf-stack assembly apart from the kernel: the Count(Intersect)
+    # leaves, stacked from the 954 fragments' mirrors.
+    from pilosa_tpu_torch.exec import plan
+    from pilosa_tpu_torch.pql import parse_string
 
-            child = parse_string(queries[1][1]).calls[0].children[0]
-            _, leaves = plan.decompose(child)
-            slices = list(range(N_SLICES))
-            asm = []
-            for _ in range(REPS):
-                torch.cuda.synchronize()
-                a0 = time.perf_counter()
-                srv.executor.leaf_stacks("i", leaves, slices)
-                torch.cuda.synchronize()
-                asm.append((time.perf_counter() - a0) * 1e3)
-            out["assembly_ms"] = statistics.median(asm)
-            log(f"phase 5: leaf-stack assembly for Count(Intersect) p50 "
-                f"{out['assembly_ms']:.3f} ms (2 leaves x {N_SLICES} slice-rows)")
-            out["latencies_ms"] = latencies
-            out["planes"] = planes
-        finally:
-            srv.close()
+    child = parse_string(queries[1][1]).calls[0].children[0]
+    _, leaves = plan.decompose(child)
+    slices = list(range(N_SLICES))
+    asm = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        a0 = time.perf_counter()
+        srv.executor.leaf_stacks("i", leaves, slices)
+        torch.cuda.synchronize()
+        asm.append((time.perf_counter() - a0) * 1e3)
+    out["assembly_ms"] = statistics.median(asm)
+    log(f"phase 5: leaf-stack assembly for Count(Intersect) p50 "
+        f"{out['assembly_ms']:.3f} ms (2 leaves x {N_SLICES} slice-rows)")
+    out["latencies_ms"] = latencies
+    out["planes"] = planes
     return out
 
 
@@ -482,9 +708,11 @@ def set_bits(truth: np.ndarray, rows: np.ndarray, cols: np.ndarray) -> None:
     np.bitwise_or.at(truth, (cols >> 20, rows, offs >> 5), masks)
 
 
-def cluster_and_check(fp, ds, scatter, convert, Server, InternalClient, planes, rng) -> dict:
+def cluster_and_check(fp, ds, br, scatter, convert, Server, InternalClient, planes, rng) -> dict:
     """Phase 6: three nodes, two replicas, import + queries + fallback +
-    failover, every answer against the numpy oracle."""
+    failover, and the BSI leg (a field created on one node, values to
+    every owner, aggregates and comparisons from every node, again with a
+    node closed), every answer against the numpy oracle."""
     import torch
 
     out: dict = {}
@@ -537,6 +765,7 @@ def cluster_and_check(fp, ds, scatter, convert, Server, InternalClient, planes, 
             touched = 2 * len(np.unique(cols >> 20))  # fragment replicas
 
             fp.launches = ds.launches = 0  # the main path starts here
+            br.launches = dict.fromkeys(br.KERNELS, 0)
             fb0 = scatter.counters()["fallbackInvalidations"]
             client = InternalClient(h0, timeout=600)
             t0 = time.perf_counter()
@@ -579,6 +808,11 @@ def cluster_and_check(fp, ds, scatter, convert, Server, InternalClient, planes, 
                         raise AssertionError(f"{pql} at {host}: {status} {body}")
                     return body["results"][0]
                 (res,) = InternalClient(host, timeout=600).execute_query("i", pql)
+                if isinstance(res, list) and pql.startswith(("Sum(", "Min(", "Max(")):
+                    # A ValCount rides one Pair: the value u64-wrapped.
+                    (p,) = res
+                    return {"value": p.id - (1 << 64) if p.id >= 1 << 63 else p.id,
+                            "count": p.count}
                 if isinstance(res, list):
                     return [{"id": p.id, "count": p.count} for p in res]
                 return res
@@ -602,6 +836,53 @@ def cluster_and_check(fp, ds, scatter, convert, Server, InternalClient, planes, 
             hosts = [srv.host for srv in nodes]
             latencies = run(counts + topns, hosts, CLUSTER_REPS)
             for name, ms in latencies.items():
+                log(f"phase 6: {name} p50 {ms:.3f} ms over {3 * 2 * CLUSTER_REPS} requests "
+                    "(3 nodes x protobuf and JSON)")
+
+            # The BSI leg: a range-enabled frame and a field created on node
+            # 0 reach the others (the field by its HTTP fan-out); values go
+            # to every owner of the first CLUSTER_BSI_SLICES slices.
+            for path, body in (("/index/i/frame/n", b'{"options": {"rangeEnabled": true}}'),
+                               ("/index/i/frame/n/field/w", b'{"min": -1000, "max": 1000}')):
+                status, resp = http(h0, "POST", path, body)
+                if status != 200:
+                    raise AssertionError(f"POST {path}: {status} {resp}")
+            want_fields = [{"name": "w", "type": "int", "min": -1000, "max": 1000}]
+            for srv in nodes:
+                if InternalClient(srv.host, timeout=600).frame_fields("i", "n") != want_fields:
+                    raise AssertionError(f"field w did not reach {srv.host}")
+            wcols = rng.choice(CLUSTER_BSI_SLICES << 20, CLUSTER_BSI_VALUES, replace=False)
+            wvals = rng.integers(-1000, 1001, CLUSTER_BSI_VALUES)
+            wvals[:3] = -1000, 1000, 0
+            t0 = time.perf_counter()
+            sent = client.import_values("i", "n", "w", wcols, wvals)
+            wimport_s = time.perf_counter() - t0
+            if sent != list(range(CLUSTER_BSI_SLICES)):
+                raise AssertionError(f"/import-value sent slices {sent}")
+            log(f"phase 6: /import-value of {CLUSTER_BSI_VALUES} values over "
+                f"{CLUSTER_BSI_SLICES} slices to every owner in {wimport_s:.3f}s")
+            f1 = (t_rows[1][wcols >> 20, (wcols & 0xFFFFF) >> 5] >> (wcols & 31)) & 1 == 1
+
+            def vc(vals, pick):
+                v = int(pick(vals))
+                return {"value": v, "count": int((vals == v).sum())}
+
+            bsi_counts = [
+                ("count_range_gt", "Count(Range(frame=n, w > 17))", int((wvals > 17).sum())),
+                ("count_range_between", "Count(Range(frame=n, w >< [-250, 250]))",
+                 int(((wvals >= -250) & (wvals <= 250)).sum())),
+                ("count_intersect_range", f"Count(Intersect({b.format(1)}, Range(frame=n, w < 0)))",
+                 int((f1 & (wvals < 0)).sum())),
+            ]
+            bsi_aggs = [
+                ("sum", "Sum(frame=n, field=w)", {"value": int(wvals.sum()), "count": len(wvals)}),
+                ("min", "Min(frame=n, field=w)", vc(wvals, np.min)),
+                ("max", "Max(frame=n, field=w)", vc(wvals, np.max)),
+                ("max_filtered", f"Max({b.format(1)}, frame=n, field=w)", vc(wvals[f1], np.max)),
+            ]
+            bsi_lat = run(bsi_counts + bsi_aggs, hosts, CLUSTER_REPS)
+            latencies.update(bsi_lat)
+            for name, ms in bsi_lat.items():
                 log(f"phase 6: {name} p50 {ms:.3f} ms over {3 * 2 * CLUSTER_REPS} requests "
                     "(3 nodes x protobuf and JSON)")
 
@@ -633,21 +914,345 @@ def cluster_and_check(fp, ds, scatter, convert, Server, InternalClient, planes, 
 
             # Failover: close one node; the others answer from the replicas.
             nodes[2].close()
-            failover = run(counts, hosts[:2], 1)
+            failover = run(counts + bsi_counts + bsi_aggs, hosts[:2], 1)
             for name, ms in failover.items():
                 log(f"phase 6: {name} with {hosts[2]} closed p50 {ms:.3f} ms "
                     "(2 nodes x protobuf and JSON)")
             out["launches"] = fp.launches  # the main path ends here
             out["k7_launches"] = ds.launches
+            out["k8_launches"] = dict(br.launches)
             if not out["k7_launches"]:
                 raise AssertionError("phase 6 launched no delta_scatter")
+            if not all(out["k8_launches"].values()):
+                raise AssertionError(f"phase 6 left a K8 kernel unlaunched: {out['k8_launches']}")
             log(f"phase 6: answers == numpy oracle; fused_popcount launches "
-                f"{out['launches']}, delta_scatter launches {out['k7_launches']}")
+                f"{out['launches']}, delta_scatter launches {out['k7_launches']}, "
+                f"bsi_ripple launches {out['k8_launches']}")
             out["latencies_ms"] = latencies
         finally:
             for srv in opened:
                 srv.close()
     return out
+
+
+def bsi_planes(rng, n_slices: int) -> np.ndarray:
+    """uint32 [n_slices, 2 + 31, 32768] planes of a signed 32-bit field,
+    generated word by word: ~50% of columns valued, magnitudes masked to
+    exists, the sign cleared where the magnitude is zero."""
+    planes = rng.integers(0, 2**32, size=(n_slices, 2 + K8_DEPTH, 32768), dtype=np.uint32)
+    planes[:, 2:] &= planes[:, :1]
+    planes[:, 1] &= planes[:, 0] & np.bitwise_or.reduce(planes[:, 2:], axis=1)
+    return planes
+
+
+def unpack(words: np.ndarray) -> np.ndarray:
+    """uint32 words -> one bool per bit, column order."""
+    return np.unpackbits(words.view(np.uint8), bitorder="little").view(bool)
+
+
+def decode_values(planes_s: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """One slice's field planes -> (valued bool [2^20], values int64
+    [2^20]): each column's bits gathered byte by byte with numpy, no
+    ripple arithmetic."""
+    bits = np.unpackbits(planes_s.view(np.uint8), axis=1, bitorder="little")
+    depth = planes_s.shape[0] - 2
+    groups = []
+    for g in range(0, depth, 8):
+        acc = np.zeros(bits.shape[1], dtype=np.uint8)
+        for k in range(g, min(g + 8, depth)):
+            acc |= bits[2 + k] << np.uint8(k - g)
+        groups.append(acc)
+    while len(groups) < 4:
+        groups.append(np.zeros(bits.shape[1], dtype=np.uint8))
+    mag = np.stack(groups, axis=1).view(np.uint32).ravel().astype(np.int64)
+    return bits[0].view(bool), np.where(bits[1].view(bool), -mag, mag)
+
+
+class ValueOracle:
+    """Phase 7's numpy oracle: the truth planes of the field (updated with
+    every import), each slice decoded column by column, and per slice the
+    sorted values overall and under the two filter rows."""
+
+    def __init__(self, planes: np.ndarray, filters: dict):
+        self.planes = planes
+        self.filters = filters
+        self.parts: list = [None] * planes.shape[0]
+        self.refresh(range(planes.shape[0]))
+
+    def _slice(self, s: int) -> dict:
+        ex, v = decode_values(self.planes[s])
+        out = {"all": np.sort(v[ex])}
+        for name, rows in self.filters.items():
+            out[name] = np.sort(v[ex & unpack(rows[s])])
+        return out
+
+    def refresh(self, slices) -> None:
+        from concurrent.futures import ThreadPoolExecutor
+
+        slices = list(slices)
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            for s, part in zip(slices, pool.map(self._slice, slices)):
+                self.parts[s] = part
+
+    def set_values(self, cols: np.ndarray, vals: np.ndarray) -> list[int]:
+        """Write (unique) columns' values into the truth planes; returns
+        the touched slices."""
+        sl, off = cols >> 20, cols & 0xFFFFF
+        word, bit = off >> 5, (np.uint32(1) << (off & 31).astype(np.uint32)).astype(np.uint32)
+        mag = np.abs(vals)
+        rows = [np.ones(len(cols), bool), vals < 0] + [
+            ((mag >> k) & 1).astype(bool) for k in range(K8_DEPTH)]
+        for j, on in enumerate(rows):
+            np.bitwise_or.at(self.planes, (sl[on], j, word[on]), bit[on])
+            np.bitwise_and.at(self.planes, (sl[~on], j, word[~on]), ~bit[~on])
+        touched = sorted({int(x) for x in np.unique(sl)})
+        self.refresh(touched)
+        return touched
+
+    def count(self, op: str, p: int, part: str = "all") -> int:
+        n = 0
+        for sp in self.parts:
+            a = sp[part]
+            lo, hi = np.searchsorted(a, p, "left"), np.searchsorted(a, p, "right")
+            n += {"<": lo, "<=": hi, "==": hi - lo, "!=": len(a) - (hi - lo),
+                  ">=": len(a) - lo, ">": len(a) - hi}[op]
+        return int(n)
+
+    def between(self, a: int, b: int, part: str = "all") -> int:
+        if a > b:
+            return 0
+        return int(sum(np.searchsorted(sp[part], b, "right") - np.searchsorted(sp[part], a, "left")
+                       for sp in self.parts))
+
+    def agg(self, name: str, part: str = "all"):
+        arrs = [sp[part] for sp in self.parts if len(sp[part])]
+        if name == "Sum":
+            return {"value": int(sum(int(a.sum()) for a in arrs)),
+                    "count": int(sum(len(a) for a in arrs))}
+        if not arrs:
+            return None
+        v = min(int(a[0]) for a in arrs) if name == "Min" else max(int(a[-1]) for a in arrs)
+        return {"value": v, "count": int(sum(np.searchsorted(a, v, "right")
+                                             - np.searchsorted(a, v, "left") for a in arrs))}
+
+
+def bsi_and_check(fp, ds, br, scatter, convert, InternalClient, srv, f_planes, rng) -> dict:
+    """Phase 7 on the phase-5 server: a signed 32-bit field over 954
+    slices (~4.13 GB of planes), every comparison, composed counts and
+    Sum/Min/Max with and without a filter against the numpy oracle; then
+    an /import-value over every slice (the K7 path with and-not entries)
+    and one past IMPORT_SCATTER_MAX on one slice (the counted fallback),
+    the queries asked again after each."""
+    import torch
+
+    from pilosa_tpu_torch.exec import plan as plan_mod
+
+    out: dict = {"launches": {}, "latencies_ms": {}}
+    h = srv.host
+    for path, body in (("/index/i/frame/n", b'{"options": {"rangeEnabled": true}}'),
+                       ("/index/i/frame/n/field/v",
+                        b'{"min": -2147483647, "max": 2147483647}')):
+        status, resp = http(h, "POST", path, body)
+        if status != 200:
+            raise AssertionError(f"POST {path}: {status} {resp}")
+    t0 = time.perf_counter()
+    planes = bsi_planes(rng, N_SLICES)
+    t1 = time.perf_counter()
+    convert.load_planes(srv.holder, "i", "n", "field_v", {s: planes[s] for s in range(N_SLICES)})
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    oracle = ValueOracle(planes, {"f1": f_planes[:, 1], "f2": f_planes[:, 2]})
+    t3 = time.perf_counter()
+    log(f"phase 7: field v (depth {K8_DEPTH}) over {N_SLICES} slices: planes generated in "
+        f"{t1 - t0:.3f}s ({planes.nbytes / 1e9:.3f} GB), loaded in {t2 - t1:.3f}s, oracle "
+        f"decoded in {t3 - t2:.3f}s; device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+
+    hi = (1 << K8_DEPTH) - 1
+    drawn = [int(x) for x in rng.integers(-hi, hi + 1, 3)]
+    preds = [-hi, hi, 0, 1, -1, -hi - 1, hi + 1, drawn[0]]
+    pairs = [(-hi, hi), (-1, 1), (0, 0), (5, 2), (-(1 << 40), 1 << 40), tuple(sorted(drawn[1:]))]
+    ops = ("<", "<=", "==", "!=", ">=", ">")
+    a, b = sorted(drawn[1:])
+    f1, f2 = "Bitmap(frame=f, rowID=1)", "Bitmap(frame=f, rowID=2)"
+
+    def queries():
+        """(name, pql, expected, {kernel: launches}) from the oracle now."""
+        q = []
+        for op in ops:
+            for p in preds:
+                q.append((f"count v {op} {p}", f"Count(Range(frame=n, v {op} {p}))",
+                          oracle.count(op, p), {"bsi_cmp": 1}))
+        for lo, up in pairs:
+            q.append((f"count v >< [{lo}, {up}]", f"Count(Range(frame=n, v >< [{lo}, {up}]))",
+                      oracle.between(lo, up), {"bsi_cmp": 1}))
+        q.append(("count_intersect", f"Count(Intersect({f1}, Range(frame=n, v >< [{a}, {b}])))",
+                  oracle.between(a, b, "f1"), {"bsi_cmp": 1, "k1": 1}))
+        for agg in ("Sum", "Min", "Max"):
+            q.append((agg.lower(), f"{agg}(frame=n, field=v)", oracle.agg(agg),
+                      {"bsi_sum" if agg == "Sum" else "bsi_minmax": 1}))
+            q.append((f"{agg.lower()}_filtered", f"{agg}({f2}, frame=n, field=v)",
+                      oracle.agg(agg, "f2"), {"bsi_sum" if agg == "Sum" else "bsi_minmax": 1}))
+        return q
+
+    timed = {"count v > %d" % drawn[0], f"count v >< [{a}, {b}]", "count_intersect",
+             "sum", "min", "max", "sum_filtered"}
+
+    def ask_all(stage: str) -> None:
+        want_k = {"bsi_cmp": 0, "bsi_sum": 0, "bsi_minmax": 0, "k1": 0}
+        fp.launches = 0
+        br.launches = dict.fromkeys(br.KERNELS, 0)
+        for name, pql, want, launches in queries():
+            reps = REPS if name in timed and stage == "loaded" else 1
+            times = []
+            for _ in range(reps):
+                q0 = time.perf_counter()
+                status, body = http(h, "POST", "/index/i/query", pql.encode())
+                times.append(time.perf_counter() - q0)
+                if status != 200 or body["results"] != [want]:
+                    raise AssertionError(f"phase 7 {stage} {name}: {status} {str(body)[:300]} "
+                                         f"!= {want}")
+            for k, n in launches.items():
+                want_k[k] += n * reps
+            if reps > 1:
+                out["latencies_ms"][name] = statistics.median(times) * 1e3
+        got_k = dict(br.launches, k1=fp.launches)
+        if got_k != want_k:
+            raise AssertionError(f"phase 7 {stage}: launches {got_k} != expected {want_k}")
+        for k, n in br.launches.items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+        out["launches"]["k1"] = out["launches"].get("k1", 0) + fp.launches
+        log(f"phase 7 {stage}: {len(queries())} queries == numpy oracle; launches {got_k}")
+
+    ask_all("loaded")
+    for name, ms in out["latencies_ms"].items():
+        log(f"phase 7: {name} p50 {ms:.3f} ms over {REPS} requests")
+
+    # K7 with clears: a spy on the plan's scatter counts launches whose
+    # folded entries carry and-not masks.
+    real_apply = plan_mod.scatter_apply
+    andnot = [0]
+
+    def spy(plane, slots, words, or_m, andnot_m):
+        andnot[0] += bool(np.asarray(andnot_m).any())
+        return real_apply(plane, slots, words, or_m, andnot_m)
+
+    client = InternalClient(h, timeout=600)
+    plan_mod.scatter_apply = spy
+    try:
+        cols = rng.choice(N_SLICES << 20, BSI_IMPORT_VALUES, replace=False)
+        vals = rng.integers(-hi, hi + 1, BSI_IMPORT_VALUES)
+        vals[:256] = 0  # zero stores sign 0, over whatever was there
+        ds.launches = 0
+        fb0 = scatter.counters()["fallbackInvalidations"]
+        t0 = time.perf_counter()
+        client.import_values("i", "n", "v", cols, vals)
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        k7, k7_andnot = ds.launches, andnot[0]
+        fb = scatter.counters()["fallbackInvalidations"] - fb0
+        if k7 != N_SLICES or k7_andnot != N_SLICES or fb:
+            raise AssertionError(f"/import-value 1: delta_scatter launches {k7} (with and-not "
+                                 f"{k7_andnot}), fallbacks {fb}; want {N_SLICES}, {N_SLICES}, 0")
+        oracle.set_values(cols, vals)
+        log(f"phase 7: /import-value of {BSI_IMPORT_VALUES} values "
+            f"(~{BSI_IMPORT_VALUES * (2 + K8_DEPTH) // N_SLICES} entries per fragment) in "
+            f"{import_s:.3f}s: delta_scatter launches {k7}, {k7_andnot} of them with and-not "
+            f"entries, fallbacks {fb}")
+        ask_all("after import 1")
+
+        cols2 = rng.choice(1 << 20, BSI_FALLBACK_VALUES, replace=False)  # all in slice 0
+        vals2 = rng.integers(-hi, hi + 1, BSI_FALLBACK_VALUES)
+        vals2[:2] = -hi, hi
+        ds.launches = 0
+        fb0 = scatter.counters()["fallbackInvalidations"]
+        client.import_values("i", "n", "v", cols2, vals2)
+        torch.cuda.synchronize()
+        fb = scatter.counters()["fallbackInvalidations"] - fb0
+        if fb != 1 or ds.launches:
+            raise AssertionError(f"/import-value 2: fallbacks {fb} (want 1), delta_scatter "
+                                 f"launches {ds.launches} (want 0)")
+        oracle.set_values(cols2, vals2)
+        log(f"phase 7: /import-value of {BSI_FALLBACK_VALUES} values into slice 0 "
+            f"({BSI_FALLBACK_VALUES * (2 + K8_DEPTH)} entries > IMPORT_SCATTER_MAX): "
+            f"fallbacks {fb}, no delta_scatter launch")
+        ask_all("after import 2")
+    finally:
+        plan_mod.scatter_apply = real_apply
+    out["k7_launches"] = k7
+    out["import_s"] = import_s
+    return out
+
+
+def time_and_check(fp, InternalClient, srv, f_planes, rng) -> dict:
+    """Phase 8 on the phase-5 server: a frame with time quantum YMD over
+    TIME_SLICES slices x TIME_ROWS rows; SetBits with timestamps and a
+    protobuf /import of TIME_BITS bits spread over TIME_DAYS days across
+    two months; Range(start, end) counts, plain and inside Intersect,
+    against numpy over the written (row, column, time) triples."""
+    import torch
+
+    h = srv.host
+    status, resp = http(h, "POST", "/index/i/frame/t", b'{"options": {"timeQuantum": "YMD"}}')
+    if status != 200:
+        raise AssertionError(f"POST frame t: {status} {resp}")
+    base = datetime(2017, 2, 10)
+    rows = rng.integers(0, TIME_ROWS, TIME_BITS)
+    cols = rng.integers(0, TIME_SLICES << 20, TIME_BITS)
+    minutes = rng.integers(0, TIME_DAYS * 24 * 60, TIME_BITS)
+    for i in range(16):
+        ts = (base + timedelta(minutes=int(minutes[i]))).strftime("%Y-%m-%dT%H:%M")
+        pql = f'SetBit(frame=t, rowID={rows[i]}, columnID={cols[i]}, timestamp="{ts}")'
+        status, body = http(h, "POST", "/index/i/query", pql.encode())
+        if status != 200:
+            raise AssertionError(f"{pql}: {status} {body}")
+    epoch = int(base.replace(tzinfo=timezone.utc).timestamp())
+    ns = (epoch + minutes.astype(np.int64) * 60) * 1_000_000_000
+    t0 = time.perf_counter()
+    InternalClient(h, timeout=600).import_bits("i", "t", rows[16:], cols[16:], ns[16:])
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    views = srv.holder.frame("i", "t").views()
+    n_frags = sum(len(v.fragment_slices()) for v in views.values())
+    log(f"phase 8: {TIME_BITS} bits with timestamps over {TIME_DAYS} days imported in "
+        f"{import_s:.3f}s: {len(views)} views, {n_frags} fragments")
+
+    f1 = (f_planes[cols >> 20, 1, (cols & 0xFFFFF) >> 5] >> (cols & 31)) & 1 == 1
+    spans = [("2017-02-12T00:00", "2017-02-20T00:00"),  # inside one month
+             ("2017-02-25T00:00", "2017-03-06T00:00"),  # across the month boundary
+             ("2017-01-01T00:00", "2018-01-01T00:00")]  # the whole year
+    fp.launches = 0
+    n_queries = 0
+    latencies = {}
+    for a, b in spans:
+        lo = int((datetime.strptime(a, "%Y-%m-%dT%H:%M") - base).total_seconds() // 60)
+        up = int((datetime.strptime(b, "%Y-%m-%dT%H:%M") - base).total_seconds() // 60)
+        inside = (minutes >= lo) & (minutes < up)
+        for r in (0, TIME_ROWS - 1):
+            rt = f'Range(frame=t, rowID={r}, start="{a}", end="{b}")'
+            sel = inside & (rows == r)
+            for name, pql, want in (
+                (f"range {a[:10]}..{b[:10]} row {r}", f"Count({rt})",
+                 len(np.unique(cols[sel]))),
+                (f"range {a[:10]}..{b[:10]} row {r} & f1",
+                 f"Count(Intersect({rt}, Bitmap(frame=f, rowID=1)))",
+                 len(np.unique(cols[sel & f1]))),
+            ):
+                times = []
+                for _ in range(REPS):
+                    q0 = time.perf_counter()
+                    status, body = http(h, "POST", "/index/i/query", pql.encode())
+                    times.append(time.perf_counter() - q0)
+                    if status != 200 or body["results"] != [want]:
+                        raise AssertionError(f"phase 8 {name}: {status} {body} != {want}")
+                n_queries += REPS
+                latencies[name] = statistics.median(times) * 1e3
+    if fp.launches != n_queries:
+        raise AssertionError(f"phase 8: fused_popcount launches {fp.launches} != {n_queries}")
+    for name, ms in latencies.items():
+        log(f"phase 8: {name} p50 {ms:.3f} ms over {REPS} requests")
+    log(f"phase 8: answers == numpy oracle; fused_popcount launches {fp.launches}")
+    return {"launches": fp.launches, "import_s": import_s, "latencies_ms": latencies}
 
 
 def main() -> int:
@@ -657,12 +1262,13 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from pilosa_tpu_torch import convert
+    from pilosa_tpu_torch import bsi, convert
     from pilosa_tpu_torch.ingest import scatter
     from pilosa_tpu_torch.net.client import InternalClient
     from pilosa_tpu_torch.net.server import Server
     from pilosa_tpu_torch.ops import _build
     from pilosa_tpu_torch.ops import bitplane as bp
+    from pilosa_tpu_torch.ops import bsi_ripple as br
     from pilosa_tpu_torch.ops import delta_scatter as ds
     from pilosa_tpu_torch.ops import fused_popcount as fp
 
@@ -681,8 +1287,10 @@ def main() -> int:
     # The delta-scatter checks draw from their own stream, so the planes
     # of phases 5-6 stay those of the seed.
     rng7 = np.random.default_rng(SEED + 1)
+    rng8 = np.random.default_rng(SEED + 2)
     max_err = check_k1(fp, bp, rng)
     k7_err = check_k7(ds, scatter, rng7)
+    k8_err = check_k8(br, bsi, rng8)
 
     a = bp.to_device(rng.integers(0, 2**32, size=(N_SLICES, 32768), dtype=np.uint32), "cuda")
     b = bp.to_device(rng.integers(0, 2**32, size=(N_SLICES, 32768), dtype=np.uint32), "cuda")
@@ -695,11 +1303,21 @@ def main() -> int:
         f"plain {plain_ms:.4f} ms; device time per launch from the profiler {k_dev} ms")
     del a, b
     k7_times = time_k7(ds, rng7, hbm)
+    k8_times = time_k8(br, bsi, hbm)
 
-    served = serve_and_check(fp, ds, bp, convert, Server, rng)
-    clustered = cluster_and_check(
-        fp, ds, scatter, convert, Server, InternalClient, served.pop("planes"), rng
-    )
+    with tempfile.TemporaryDirectory(prefix="pilosa-torch-smoke-") as data_dir:
+        srv = Server(data_dir, host="127.0.0.1:0", device="cuda")
+        srv.open()
+        try:
+            served = serve_and_check(fp, ds, bp, convert, srv, rng)
+            planes = served.pop("planes")
+            clustered = cluster_and_check(
+                fp, ds, br, scatter, convert, Server, InternalClient, planes, rng
+            )
+            valued = bsi_and_check(fp, ds, br, scatter, convert, InternalClient, srv, planes, rng)
+            timed = time_and_check(fp, InternalClient, srv, planes, rng)
+        finally:
+            srv.close()
 
     k7 = k7_times[K7_TIMED_NS[0]]  # ~1,100 entries: phase 6's import per fragment
     kernels = [
@@ -708,8 +1326,10 @@ def main() -> int:
             "route": "cuda",
             "source": fp.SOURCE,
             "replaces": fp.REPLACES,
-            "launches": served["launches"] + clustered["launches"],
-            "launches_by_phase": {"5": served["launches"], "6": clustered["launches"]},
+            "launches": served["launches"] + clustered["launches"]
+            + valued["launches"]["k1"] + timed["launches"],
+            "launches_by_phase": {"5": served["launches"], "6": clustered["launches"],
+                                  "7": valued["launches"]["k1"], "8": timed["launches"]},
             "max_abs_err": max_err,
             "ms": k_ms,
             "device_ms": k_dev,
@@ -724,8 +1344,9 @@ def main() -> int:
             "route": "cuda",
             "source": ds.SOURCE,
             "replaces": ds.REPLACES,
-            "launches": served["k7_launches"] + clustered["k7_launches"],
-            "launches_by_phase": {"5": served["k7_launches"], "6": clustered["k7_launches"]},
+            "launches": served["k7_launches"] + clustered["k7_launches"] + valued["k7_launches"],
+            "launches_by_phase": {"5": served["k7_launches"], "6": clustered["k7_launches"],
+                                  "7": valued["k7_launches"]},
             "max_abs_err": k7_err,
             "ms": k7["ms"],
             "device_ms": k7["device_ms"],
@@ -739,6 +1360,29 @@ def main() -> int:
             "empty_kernel_device_ms": k7["noop_device_ms"],
         },
     ]
+    for kernel in br.KERNELS:
+        t = k8_times[kernel]
+        entry = {
+            "name": kernel,
+            "route": "cuda",
+            "source": br.SOURCE,
+            "replaces": br.REPLACES[kernel],
+            "launches": clustered["k8_launches"][kernel] + valued["launches"][kernel],
+            "launches_by_phase": {"6": clustered["k8_launches"][kernel],
+                                  "7": valued["launches"][kernel]},
+            "max_abs_err": k8_err[kernel],
+            "ms": t["ms"],
+            "device_ms": t["device_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": None,
+            "checked": k8_err[kernel] == 0.0,
+            "shape": [N_SLICES, K8_DEPTH],
+        }
+        if kernel == "bsi_cmp":  # count mode above; row mode (between) here
+            entry.update({f"row_mode_{k}": v for k, v in k8_times["bsi_cmp_row"].items()})
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

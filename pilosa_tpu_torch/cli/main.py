@@ -12,6 +12,9 @@ card; ``--device cpu`` runs on the CPU.
 reads ``row,col[,timestamp]`` records (timestamps as
 ``YYYY-MM-DDTHH:MM``, UTC) and sends them to the owners of each slice
 through ``/import`` (the counterpart of ``pilosa_tpu/cli/ctl.py:400-500``).
+With ``--field NAME`` the records are ``column,value`` (signed integers)
+for the frame's BSI field, sent through ``/import-value`` (the JAX CLI's
+``--value``, ``pilosa_tpu/cli/ctl.py:334-390``).
 """
 
 from __future__ import annotations
@@ -62,7 +65,11 @@ def build_parser() -> argparse.ArgumentParser:
     imp.add_argument("-f", "--frame", required=True)
     imp.add_argument(
         "-s", "--buffer-size", type=int, default=10_000_000,
-        help="bits to read before sending them",
+        help="records to read before sending them",
+    )
+    imp.add_argument(
+        "--field", default="",
+        help="import column,value records into this integer (BSI) field",
     )
     imp.add_argument("paths", nargs="+", help="CSV files ('-' = stdin)")
     return p
@@ -133,19 +140,46 @@ def _send(client, args, buf: list[tuple[int, int, int]]) -> None:
         print(f"imported slice: {s}", file=sys.stderr)
 
 
+def read_values(f):
+    """Yield ``(col, value)`` per CSV record of a field import."""
+    for rnum, record in enumerate(csv.reader(f), start=1):
+        if not record or record[0] == "":
+            continue
+        if len(record) < 2:
+            raise CommandError(f"bad column count on row {rnum}")
+        try:
+            col_id = int(record[0])
+        except ValueError:
+            raise CommandError(f"invalid column id on row {rnum}: {record[0]!r}") from None
+        try:
+            value = int(record[1])
+        except ValueError:
+            raise CommandError(f"invalid value on row {rnum}: {record[1]!r}") from None
+        yield col_id, value
+
+
+def _send_values(client, args, buf: list[tuple[int, int]]) -> None:
+    if not buf:
+        return
+    cols, vals = zip(*buf)
+    for s in client.import_values(args.index, args.frame, args.field, cols, vals):
+        print(f"imported values: slice={s}", file=sys.stderr)
+
+
 def run_import(args) -> int:
     from pilosa_tpu_torch.net.client import InternalClient
 
     client = InternalClient(args.host)
+    read, send = (read_values, _send_values) if args.field else (read_bits, _send)
     for path in args.paths:
         with (open(path, newline="") if path != "-" else sys.stdin) as f:
-            buf: list[tuple[int, int, int]] = []
-            for bit in read_bits(f):
-                buf.append(bit)
+            buf: list[tuple] = []
+            for record in read(f):
+                buf.append(record)
                 if len(buf) >= args.buffer_size:
-                    _send(client, args, buf)
+                    send(client, args, buf)
                     buf.clear()
-            _send(client, args, buf)
+            send(client, args, buf)
     return 0
 
 

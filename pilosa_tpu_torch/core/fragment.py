@@ -365,11 +365,15 @@ class Fragment:
         self._pending.append(np.array([[slot, word, 1 << shift, op]], dtype=np.int64))
         self._pending_n += 1
 
-    def _queue_import_updates_locked(self, slots: np.ndarray, offsets: np.ndarray) -> None:
-        """Queue an import's set bits as deltas when the import is small
-        enough; otherwise drop the mirror (one re-upload beats thousands
-        of folded entries)."""
-        n = len(slots)
+    def _queue_import_updates_locked(
+        self, set_slots, set_offs, clr_slots=None, clr_offs=None
+    ) -> None:
+        """Queue an import's set bits (op 1) and cleared bits (op 0) as
+        deltas when the import is small enough; otherwise drop the mirror
+        (one re-upload beats thousands of folded entries)."""
+        parts = [(a, b, op) for a, b, op in ((set_slots, set_offs, 1), (clr_slots, clr_offs, 0))
+                 if a is not None and len(a)]
+        n = sum(len(a) for a, _, _ in parts)
         if (
             self._mirror is None
             or n == 0
@@ -380,13 +384,14 @@ class Fragment:
                 scatter.note_fallback()
             self._invalidate_device()
             return
-        words, shifts = np.divmod(np.asarray(offsets, dtype=np.int64), bp.WORD_BITS)
-        chunk = np.empty((n, 4), dtype=np.int64)
-        chunk[:, 0] = slots
-        chunk[:, 1] = words
-        chunk[:, 2] = np.left_shift(1, shifts)
-        chunk[:, 3] = 1
-        self._pending.append(chunk)
+        for slots, offsets, op in parts:
+            words, shifts = np.divmod(np.asarray(offsets, dtype=np.int64), bp.WORD_BITS)
+            chunk = np.empty((len(slots), 4), dtype=np.int64)
+            chunk[:, 0] = slots
+            chunk[:, 1] = words
+            chunk[:, 2] = np.left_shift(1, shifts)
+            chunk[:, 3] = op
+            self._pending.append(chunk)
         self._pending_n += n
 
     def apply_pending_scatter(self) -> bool:
@@ -423,6 +428,14 @@ class Fragment:
             if slot is None:
                 return None
             return self.device_plane()[slot]
+
+    def device_slots(self, row_ids) -> tuple[torch.Tensor, list[int]]:
+        """The mirror (queued deltas applied) and the rows of ``row_ids``
+        in it, -1 for an absent row — read together under the lock, so
+        the slots name rows of this mirror."""
+        with self._mu:
+            plane = self.device_plane()
+            return plane, [self._slot_of.get(r, -1) for r in row_ids]
 
     def row_words_host(self, row_id: int) -> np.ndarray | None:
         """One row's uint32 words on the host (a copy), or None."""
@@ -495,15 +508,29 @@ class Fragment:
             self._file.write(roaring.encode_op(typ, pos))
             self._file.flush()
 
-    def import_bulk(self, row_ids: Sequence[int], column_ids: Sequence[int]) -> None:
+    def import_bulk(
+        self,
+        row_ids: Sequence[int],
+        column_ids: Sequence[int],
+        clear_row_ids: Sequence[int] | None = None,
+        clear_column_ids: Sequence[int] | None = None,
+    ) -> None:
         """Bulk load: vectorized scatter into the host plane, the bits
         queued as mirror deltas (or the mirror dropped, see
         ``_queue_import_updates_locked``), the touched rows recounted
         through the fused popcount kernel on the updated mirror, then a
-        snapshot (reference: fragment.go:936-1004)."""
-        if len(row_ids) != len(column_ids):
+        snapshot (reference: fragment.go:936-1004).
+
+        ``clear_row_ids``/``clear_column_ids`` clear bits in the same
+        pass (one snapshot, one recount) — the overwrite half of a BSI
+        value import (JAX ``fragment.py:1735``); they reach the mirror as
+        and-not deltas.  Clears never create rows: a clear on an absent
+        row does nothing.  A bit must not appear in both lists."""
+        clear_row_ids = [] if clear_row_ids is None else clear_row_ids
+        clear_column_ids = [] if clear_column_ids is None else clear_column_ids
+        if len(row_ids) != len(column_ids) or len(clear_row_ids) != len(clear_column_ids):
             raise FragmentError("mismatch of row/column len")
-        if len(row_ids) == 0:
+        if len(row_ids) == 0 and len(clear_row_ids) == 0:
             return
         with self._mu:
             rows = np.asarray(row_ids, dtype=np.int64)
@@ -524,7 +551,24 @@ class Fragment:
             slots = slot_table[np.searchsorted(uniq, rows)]
             offs = cols % SLICE_WIDTH
             bp.np_set_bulk(self._plane, slots, offs)
-            self._queue_import_updates_locked(slots, offs)
+            c_slots = c_offs = None
+            if len(clear_row_ids):
+                c_rows = np.asarray(clear_row_ids, dtype=np.int64)
+                c_cols = np.asarray(clear_column_ids, dtype=np.int64)
+                if ((c_cols < min_col) | (c_cols >= min_col + SLICE_WIDTH)).any():
+                    raise FragmentError("column out of bounds for slice")
+                c_uniq = np.unique(c_rows)
+                c_table = np.asarray(
+                    [self._slot_of.get(int(r), -1) for r in c_uniq], dtype=np.int64
+                )
+                c_slots = c_table[np.searchsorted(c_uniq, c_rows)]
+                keep = c_slots >= 0
+                c_slots, c_offs = c_slots[keep], (c_cols % SLICE_WIDTH)[keep]
+                bp.np_clear_bulk(self._plane, c_slots, c_offs)
+                for r, slot in zip(c_uniq, c_table):
+                    if slot >= 0:
+                        slot_of[int(r)] = int(slot)
+            self._queue_import_updates_locked(slots, offs, c_slots, c_offs)
             self._recount(slot_of)
             self.snapshot()
 

@@ -4,26 +4,38 @@ Reference behavior (reference: frame.go): row label (default "rowID"),
 TopN cache type and size, JSON ``.meta`` persistence with the same keys
 as ``pilosa_tpu.core.frame`` (so either package opens the other's data
 directory), a row AttrStore at ``<frame>/.data``, and views under
-``views/``.  Only the standard view is written and read here: inverse
-storage, time-quantum views and BSI integer fields are kept in the
-metadata as they were found, but not executed (not ported yet).
+``views/``: the standard view, one generated view per time-quantum unit
+(``set_bit`` with a time and ``import_bulk`` with timestamps write them,
+reference: frame.go:443-483,527-604), and a ``field_<name>`` view per
+BSI integer field of a range-enabled frame (``create_field``,
+``import_value``; JAX ``frame.py:196-267``).  Inverse storage is kept in
+the metadata as it was found, but not executed (not ported yet).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import threading
+from datetime import datetime
 
 import numpy as np
 import torch
 
+from pilosa_tpu_torch import bsi
 from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch.core import cache as cache_mod
 from pilosa_tpu_torch.core import timequantum as tq
 from pilosa_tpu_torch.core.attr import AttrStore
 from pilosa_tpu_torch.core.names import ValidationError, validate_label, validate_name
-from pilosa_tpu_torch.core.view import VIEW_STANDARD, View, is_inverse_view, is_valid_view
+from pilosa_tpu_torch.core.view import (
+    VIEW_INVERSE,
+    VIEW_STANDARD,
+    View,
+    is_inverse_view,
+    is_valid_view,
+)
 from pilosa_tpu_torch.ops.bitplane import SLICE_WIDTH, np_group_by
 
 # reference: frame.go:40-46
@@ -55,8 +67,8 @@ class Frame:
         self.range_enabled = False
         self.retention_age_s = 0.0
         self.retention_delete_s = 0.0
-        # BSI field declarations as read from .meta (not executed here).
-        self._fields: list[dict] = []
+        # BSI integer fields, each stored in its own field_<name> view.
+        self._fields: dict[str, bsi.BSIField] = {}
         self.on_create_slice = None  # wired by Index
         self.row_attr_store = AttrStore(os.path.join(path, ".data"))
 
@@ -99,7 +111,10 @@ class Frame:
         self.range_enabled = meta.get("rangeEnabled", False)
         self.retention_age_s = float(meta.get("retentionAgeS", 0.0))
         self.retention_delete_s = float(meta.get("retentionDeleteS", 0.0))
-        self._fields = list(meta.get("fields", []))
+        self._fields = {
+            f["name"]: bsi.BSIField(name=f["name"], min=int(f["min"]), max=int(f["max"]))
+            for f in meta.get("fields", [])
+        }
 
     def _meta(self) -> dict:
         return {
@@ -111,7 +126,7 @@ class Frame:
             "rangeEnabled": self.range_enabled,
             "retentionAgeS": self.retention_age_s,
             "retentionDeleteS": self.retention_delete_s,
-            "fields": sorted(self._fields, key=lambda f: f["name"]),
+            "fields": [self._fields[n].to_dict() for n in sorted(self._fields)],
         }
 
     def save_meta(self) -> None:
@@ -191,6 +206,74 @@ class Frame:
                 self._views[name] = v
             return v
 
+    def delete_view(self, name: str) -> None:
+        with self._mu:
+            v = self._views.pop(name, None)
+            if v is not None:
+                v.close()
+                shutil.rmtree(v.path, ignore_errors=True)
+
+    # --- BSI integer fields (JAX frame.py:196-267) ---
+
+    def bsi_field(self, name: str) -> bsi.BSIField | None:
+        with self._mu:
+            return self._fields.get(name)
+
+    def bsi_fields(self) -> list[bsi.BSIField]:
+        with self._mu:
+            return [self._fields[n] for n in sorted(self._fields)]
+
+    def create_field(self, name: str, min: int, max: int) -> bsi.BSIField:
+        """Declare an integer field.  Requires ``rangeEnabled``; the
+        ``field_<name>`` view and its fragments materialize on the first
+        value import."""
+        with self._mu:
+            if not self.range_enabled:
+                raise FrameError("frame does not support range queries")
+            if name in self._fields:
+                raise FrameError(f"field already exists: {name!r}")
+            bsi.validate_field(name, min, max)
+            fld = bsi.BSIField(name=name, min=int(min), max=int(max))
+            self._fields[name] = fld
+            self.save_meta()
+        return fld
+
+    def delete_field(self, name: str) -> None:
+        with self._mu:
+            fld = self._fields.pop(name, None)
+            if fld is None:
+                raise FrameError(f"field not found: {name!r}")
+            self.save_meta()
+        self.delete_view(bsi.field_view_name(name))
+
+    def import_value(self, field: str, column_ids, values) -> None:
+        """Columnar integer import: one value per column, grouped by
+        slice, each slice written as ONE set+clear pass over the field
+        view's planes (``Fragment.import_bulk``), so a re-imported
+        column's previous value is fully overwritten."""
+        with self._mu:
+            fld = self._fields.get(field)
+        if fld is None:
+            raise FrameError(f"field not found: {field!r}")
+        cols = np.asarray(column_ids, dtype=np.int64)
+        if len(cols) == 0:
+            return
+        set_r, set_c, clr_r, clr_c = bsi.value_bit_rows(fld, cols, values)
+        view = self.create_view_if_not_exists(fld.view)
+        # Both halves grouped by slice in one pass: set bits tagged 0,
+        # clear bits 1.
+        all_c = np.concatenate([set_c, clr_c])
+        all_r = np.concatenate([set_r, clr_r])
+        tags = np.concatenate([np.zeros(len(set_c), np.int64), np.ones(len(clr_c), np.int64)])
+        for s, (r_s, c_s, t_s) in np_group_by(all_c // SLICE_WIDTH, all_r, all_c, tags):
+            sm = t_s == 0
+            view.create_fragment_if_not_exists(s).import_bulk(
+                r_s[sm], c_s[sm], clear_row_ids=r_s[~sm], clear_column_ids=c_s[~sm]
+            )
+
+    def set_value(self, field: str, column_id: int, value: int) -> None:
+        self.import_value(field, [column_id], [value])
+
     # --- slices ---
 
     def max_slice(self) -> int:
@@ -206,34 +289,61 @@ class Frame:
     def _writable_view(self, view_name: str) -> View:
         if not is_valid_view(view_name):
             raise FrameError(f"invalid view: {view_name!r}")
-        if view_name != VIEW_STANDARD:
-            raise FrameError(f"view {view_name!r} is not supported by this port yet")
+        if view_name == VIEW_INVERSE:
+            raise FrameError("inverse views are not supported by this port yet")
         return self.create_view_if_not_exists(view_name)
 
-    def set_bit(self, view_name: str, row_id: int, col_id: int) -> bool:
-        return self._writable_view(view_name).set_bit(row_id, col_id)
+    def set_bit(
+        self, view_name: str, row_id: int, col_id: int, t: datetime | None = None
+    ) -> bool:
+        """Set the bit in ``view_name`` and, with a time ``t``, in each of
+        its time views (reference: frame.go:443-483)."""
+        changed = self._writable_view(view_name).set_bit(row_id, col_id)
+        if t is None:
+            return changed
+        for subname in tq.views_by_time(view_name, t, self.time_quantum):
+            if self.create_view_if_not_exists(subname).set_bit(row_id, col_id):
+                changed = True
+        return changed
 
     def clear_bit(self, view_name: str, row_id: int, col_id: int) -> bool:
-        """reference: frame.go:485-506 (standard view only)"""
+        """reference: frame.go:485-506 (standard view only; no time fan-out)"""
         return self._writable_view(view_name).clear_bit(row_id, col_id)
 
     def import_bulk(self, row_ids, column_ids, timestamps=None) -> None:
-        """Bulk import into the standard view, grouped by slice
-        (reference: frame.go:527-604; JAX ``frame.py:353-377``).
-        Timestamps on a frame without a time quantum are refused as in
-        the JAX package; the time-quantum and inverse views such an
-        import would also fill are not ported yet, and refuse the import
-        rather than drop its bits."""
+        """Bulk import grouped by (view, slice) (reference:
+        frame.go:527-604; JAX ``frame.py:353-404``): every bit goes to
+        the standard view, and a bit with a timestamp also to the time
+        views of the frame's quantum.  Timestamps on a frame without a
+        time quantum are refused as in the JAX package; a frame with
+        inverse storage refuses the import (inverse views are not
+        ported) rather than drop its bits."""
         has_ts = timestamps is not None and any(t is not None for t in timestamps)
         if self.time_quantum == "" and has_ts:
             raise FrameError("time quantum not set in either index or frame")
-        if has_ts:
-            raise FrameError("time-quantum views are not supported by this port yet")
         if self.inverse_enabled:
             raise FrameError("inverse views are not supported by this port yet")
         rows = np.asarray(row_ids, dtype=np.int64)
         cols = np.asarray(column_ids, dtype=np.int64)
-        view = self._writable_view(VIEW_STANDARD)
+        self._import_grouped(VIEW_STANDARD, rows, cols)
+        if not has_ts:
+            return
+        # Each distinct timestamp names its time views once; every view
+        # then takes its bits grouped by slice.
+        by_time: dict[datetime, list[int]] = {}
+        for i, t in enumerate(timestamps):
+            if t is not None:
+                by_time.setdefault(t, []).append(i)
+        by_view: dict[str, list[int]] = {}
+        for t, idx in by_time.items():
+            for name in tq.views_by_time(VIEW_STANDARD, t, self.time_quantum):
+                by_view.setdefault(name, []).extend(idx)
+        for name, idx in by_view.items():
+            sel = np.asarray(idx, dtype=np.int64)
+            self._import_grouped(name, rows[sel], cols[sel])
+
+    def _import_grouped(self, view_name: str, rows: np.ndarray, cols: np.ndarray) -> None:
+        view = self.create_view_if_not_exists(view_name)
         for s, (r_s, c_s) in np_group_by(cols // SLICE_WIDTH, rows, cols):
             view.create_fragment_if_not_exists(s).import_bulk(r_s, c_s)
 

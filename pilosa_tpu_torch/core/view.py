@@ -2,8 +2,10 @@
 
 Reference behavior (reference: view.go): a view directory holds one
 fragment file per slice under ``fragments/``; the standard view stores
-(row, column) as given.  The inverse view and the time-quantum views of
-``pilosa_tpu.core.view`` are not ported yet.
+(row, column) as given, and so do the views named after it — a
+time-quantum view (``standard_2017``, ``standard_201703``, ...) and a
+BSI field view (``field_<name>``), which open, list and count their
+slices like the standard one.  The inverse view is not ported yet.
 """
 
 from __future__ import annotations

@@ -1,18 +1,24 @@
 """Executor — PQL calls over one node's local slices.
 
 Behavior parity with ``pilosa_tpu.exec.executor`` (reference:
-executor.go) for the calls this port executes: ``Bitmap``, ``Union``,
-``Intersect``, ``Difference``, ``Xor``, ``Count``, ``SetBit``,
-``ClearBit`` and ``TopN`` (with or without a src bitmap, ``ids``,
-``threshold``, ``tanimotoThreshold``, attribute filters), with the same
-slice lists, the same two-phase TopN and the same error messages.
+executor.go) for the calls this port executes: ``Bitmap``, ``Range``
+(a time-quantum union, or a BSI comparison), ``Union``, ``Intersect``,
+``Difference``, ``Xor``, ``Count``, ``Sum``/``Min``/``Max``,
+``SetBit`` (with a timestamp too), ``ClearBit`` and ``TopN`` (with or
+without a src bitmap, ``ids``, ``threshold``, ``tanimotoThreshold``,
+attribute filters), with the same slice lists, the same two-phase TopN
+and the same error messages.
 
-Execution on the device: a bitmap tree's leaves are stacked per leaf
-from the fragments' device mirrors (int32 ``[n_slices, 32768]``, only
-slices where some leaf row exists), the tree folds with torch bitwise
-ops, and a count's last fold step is one fused popcount launch
-(exec/plan.py).  TopN scores each fragment's candidates with one fused
-popcount launch against the src row (core/fragment.py).
+Execution on the device: a bitmap tree's row leaves are stacked per
+leaf from the fragments' device mirrors (int32 ``[n_slices, 32768]``,
+only slices where some leaf row exists; a time-quantum ``Range`` is the
+union of its time views' rows), the tree folds with torch bitwise ops,
+and a count's last fold step is one fused popcount launch
+(exec/plan.py).  A BSI ``Range`` comparison and ``Sum``/``Min``/``Max``
+are rewritten as in the JAX package (``_rewrite_bsi``) into nodes over
+the field's plane leaves, which the ripple kernel K8 reads in place from
+the field fragments' mirrors.  TopN scores each fragment's candidates
+with one fused popcount launch against the src row (core/fragment.py).
 
 Across a cluster (JAX ``executor.py:3203-3500``): a read maps the
 slice list over the owning nodes — local slices run here, the others
@@ -23,9 +29,8 @@ node).  A node whose leg fails with a transport error or a 5xx has its
 slices placed again on the remaining replicas.  ``SetBit``/``ClearBit``
 reach every owner of the slice.
 
-Replication quorums, BSI/Range, time-quantum and inverse views,
-attribute writes and the coalescer of the JAX executor are not ported
-yet.
+Replication quorums, inverse views, attribute writes and the coalescer
+of the JAX executor are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,12 +39,16 @@ import threading
 from collections import OrderedDict
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 from dataclasses import dataclass, field
+from datetime import datetime
 
 import numpy as np
 import torch
 
+from pilosa_tpu_torch import bsi
+from pilosa_tpu_torch.bsi import ripple
 from pilosa_tpu_torch.cluster.topology import Cluster, Node
 from pilosa_tpu_torch.core import cache as cache_mod
+from pilosa_tpu_torch.core import timequantum as tq
 from pilosa_tpu_torch.core.bitmap import RowBitmap
 from pilosa_tpu_torch.core.cache import Pair
 from pilosa_tpu_torch.core.fragment import TopOptions
@@ -47,7 +56,7 @@ from pilosa_tpu_torch.core.view import VIEW_INVERSE, VIEW_STANDARD
 from pilosa_tpu_torch.exec import plan
 from pilosa_tpu_torch.net.client import is_node_failure
 from pilosa_tpu_torch.ops import bitplane as bp
-from pilosa_tpu_torch.pql.parser import Call, Query
+from pilosa_tpu_torch.pql.parser import TIME_FORMAT, Call, Query
 
 # reference: executor.go:33-40
 DEFAULT_FRAME = "general"
@@ -210,6 +219,8 @@ class Executor:
             return self._execute_count(index, c, slices, opt)
         if name == "TopN":
             return self._execute_topn(index, c, slices, opt)
+        if name in ("Sum", "Min", "Max"):
+            return self._execute_bsi_agg(index, c, slices, opt)
         return self._execute_bitmap_call(index, c, slices, opt)
 
     # ------------------------------------------------------------------
@@ -246,6 +257,57 @@ class Executor:
             raise ExecutorError("inverse views are not supported by this port yet")
         return f.view(VIEW_STANDARD), row_id
 
+    def _resolve_range(self, index: str, c: Call) -> tuple[list, int]:
+        """A time-quantum Range() leaf (reference: executor.go:507-589;
+        JAX ``executor.py:751-792``): ``(time views, row_id)``, the views
+        covering [start, end) under the frame's quantum that exist."""
+        idx = self.holder.index(index)
+        if idx is None:
+            raise IndexNotFoundError()
+        f = idx.frame(c.args.get("frame") or DEFAULT_FRAME)
+        if f is None:
+            raise FrameNotFoundError()
+        column_label, row_label = idx.column_label, f.row_label
+        col_id, col_ok = _uint_arg(c, column_label)
+        row_id, row_ok = _uint_arg(c, row_label)
+        if col_ok and row_ok:
+            raise ExecutorError(
+                f'Range() cannot contain both "{column_label}" and "{row_label}"'
+            )
+        if not col_ok and not row_ok:
+            raise ExecutorError(
+                f'Range() must specify either "{column_label}" or "{row_label}"'
+            )
+        start, end = _time_arg(c, "start"), _time_arg(c, "end")
+        if col_ok:
+            raise ExecutorError("inverse views are not supported by this port yet")
+        if not f.time_quantum:
+            return [], row_id
+        names = tq.views_by_time_range(VIEW_STANDARD, start, end, f.time_quantum)
+        return [v for v in (f.view(n) for n in names) if v is not None], row_id
+
+    def _resolve_leaf(self, index: str, c: Call) -> tuple:
+        """What a leaf reads in each slice: ``("row", views, row_id)`` —
+        the union of the row over ``views`` — for Bitmap and time Range
+        leaves, ``("plane", view, row)`` for a BSI plane, ``("pred", v)``
+        and ``("zero",)`` for the slice-invariant BSI leaves."""
+        if c.name == "Bitmap":
+            view, row_id = self._resolve_bitmap_leaf(index, c)
+            return ("row", [] if view is None else [view], row_id)
+        if c.name == "Range":
+            views, row_id = self._resolve_range(index, c)
+            return ("row", views, row_id)
+        if c.name == "BsiPlane":
+            view = self.holder.view(
+                index, c.args["frame"], bsi.field_view_name(c.args["field"])
+            )
+            return ("plane", view, c.args["row"])
+        if c.name == "BsiPred":
+            return ("pred", c.args["v"])
+        if c.name == "BsiZero":
+            return ("zero",)
+        raise plan.PlanError(f"unknown call: {c.name}")
+
     def _zero_row(self, device: torch.device) -> torch.Tensor:
         with self._zero_mu:
             z = self._zero_rows.get(device)
@@ -254,42 +316,183 @@ class Executor:
                 self._zero_rows[device] = z
             return z
 
+    @staticmethod
+    def _union_row(views: list, row_id: int, slice_i: int) -> torch.Tensor | None:
+        acc = None
+        for view in views:
+            frag = view.fragment(slice_i)
+            row = frag.device_row(row_id) if frag is not None else None
+            if row is not None:
+                acc = row if acc is None else acc | row
+        return acc
+
     def leaf_stacks(
         self, index: str, leaves: list[Call], slices: list[int]
-    ) -> tuple[list[torch.Tensor], list[int]]:
-        """Stack every leaf's rows from the fragments' device mirrors:
-        ``(stacks, kept)`` with ``stacks[j]`` int32 [len(kept), 32768]
-        for leaf j, over the slices where at least one leaf row exists
-        (elsewhere every tree is empty).  An absent row is a zero row."""
-        targets = [self._resolve_bitmap_leaf(index, leaf) for leaf in leaves]
-        per_leaf: list[list[torch.Tensor]] = [[] for _ in leaves]
+    ) -> tuple[list, list[int]]:
+        """The plan's inputs for every leaf over the slices where at least
+        one leaf row exists (elsewhere every tree is empty): ``(inputs,
+        kept)``.  A row leaf becomes an int32 [len(kept), 32768] stack of
+        mirror rows (an absent row is a zero row); a BSI plane leaf a
+        ``plan.PlaneLeaf`` — the field fragments' mirrors and the leaf's
+        row in each, read in place by the ripple kernel; a predicate a
+        ``plan.PredLeaf``; a pad plane None."""
+        targets = [self._resolve_leaf(index, leaf) for leaf in leaves]
+        # The plane leaves of one field read one fragment per slice.
+        fields: dict[int, tuple] = {}
+        for j, t in enumerate(targets):
+            if t[0] == "plane":
+                fields.setdefault(id(t[1]), (t[1], []))[1].append(j)
+        rows: dict[int, list] = {j: [] for j, t in enumerate(targets) if t[0] == "row"}
+        mirrors: dict[int, list] = {key: [] for key in fields}
+        slots: dict[int, list] = {j: [] for _, js in fields.values() for j in js}
         kept: list[int] = []
         zero = self._zero_row(self.holder.device)
         for s in slices:
-            rows = []
-            for view, row_id in targets:
+            got = {j: self._union_row(targets[j][1], targets[j][2], s) for j in rows}
+            any_set = any(r is not None for r in got.values())
+            planes = {}
+            for key, (view, js) in fields.items():
                 frag = view.fragment(s) if view is not None else None
-                rows.append(frag.device_row(row_id) if frag is not None else None)
-            if all(r is None for r in rows):
+                if frag is None:
+                    planes[key] = (None, [-1] * len(js))
+                    continue
+                planes[key] = frag.device_slots([targets[j][2] for j in js])
+                any_set = any_set or any(x >= 0 for x in planes[key][1])
+            if not any_set:
                 continue
             kept.append(s)
-            for j, r in enumerate(rows):
-                per_leaf[j].append(zero if r is None else r)
+            for j, r in got.items():
+                rows[j].append(zero if r is None else r)
+            for key, (mirror, sl) in planes.items():
+                mirrors[key].append(mirror)
+                for j, x in zip(fields[key][1], sl):
+                    slots[j].append(x)
         if not kept:
             return [], kept
-        return [torch.stack(rows) for rows in per_leaf], kept
+        inputs: list = []
+        for j, t in enumerate(targets):
+            if t[0] == "row":
+                inputs.append(torch.stack(rows[j]))
+            elif t[0] == "plane":
+                inputs.append(plan.PlaneLeaf(
+                    mirrors[id(t[1])], np.asarray(slots[j], dtype=np.int64), self.holder.device
+                ))
+            elif t[0] == "pred":
+                inputs.append(plan.PredLeaf(t[1]))
+            else:
+                inputs.append(None)
+        return inputs, kept
+
+    # ------------------------------------------------------------------
+    # BSI rewrite — Range(field > x) / Sum / Min / Max expansion
+    # (JAX executor.py:797-905)
+    # ------------------------------------------------------------------
+
+    def _bsi_resolve_field(self, index: str, c: Call):
+        """(frame name, Frame) for a BSI call — schema errors surface
+        here, before any leaf machinery runs."""
+        frame = c.args.get("frame") or DEFAULT_FRAME
+        f = self.holder.frame(index, frame)
+        if f is None:
+            raise FrameNotFoundError()
+        if not f.range_enabled:
+            raise ExecutorError(f"frame {frame!r} does not support range queries")
+        return frame, f
+
+    def _bsi_field_leaves(self, frame: str, fld) -> tuple[list[Call], int]:
+        """The plane leaves of one field, padded to its depth bucket:
+        exists, sign, ``depth`` magnitude planes, then all-zero pads."""
+        depth = fld.bit_depth
+        bucket = bsi.pad_depth(depth)
+        leaves = [
+            Call("BsiPlane", {"frame": frame, "field": fld.name, "row": r})
+            for r in (bsi.ROW_EXISTS, bsi.ROW_SIGN)
+        ]
+        leaves += [
+            Call("BsiPlane", {"frame": frame, "field": fld.name, "row": bsi.ROW_BIT_BASE + k})
+            for k in range(depth)
+        ]
+        leaves += [Call("BsiZero") for _ in range(bucket - depth)]
+        return leaves, bucket
+
+    def _rewrite_bsi(self, index: str, c: Call) -> Call:
+        """Expand BSI Range calls (a comparison arg present) anywhere in a
+        call tree into synthetic ``BsiCmp`` nodes over plane/predicate
+        leaves; returns the ORIGINAL object when nothing changed.  Remote
+        forwarding ships the un-rewritten PQL text, and each node
+        re-expands against its own schema."""
+        if c.name == "Range" and c.conditions():
+            return self._rewrite_bsi_range(index, c)
+        new_children = [self._rewrite_bsi(index, ch) for ch in c.children]
+        if all(nc is oc for nc, oc in zip(new_children, c.children)):
+            return c
+        return Call(name=c.name, args=dict(c.args), children=new_children)
+
+    def _rewrite_bsi_range(self, index: str, c: Call) -> Call:
+        conds = c.conditions()
+        if len(conds) != 1:
+            raise ExecutorError(
+                "Range() supports exactly one field comparison (use >< for between)"
+            )
+        ((field_name, cond),) = conds.items()
+        frame, f = self._bsi_resolve_field(index, c)
+        fld = f.bsi_field(field_name)
+        if fld is None:
+            raise ExecutorError(f"unknown field: {field_name!r}")
+        op = bsi.OPS.get(cond.op)
+        if op is None:
+            raise ExecutorError(f"unknown comparison: {cond.op!r}")
+        depth = fld.bit_depth
+        leaves, bucket = self._bsi_field_leaves(frame, fld)
+        v = cond.value
+        if op == "between":
+            if (
+                not isinstance(v, list)
+                or len(v) != 2
+                or any(isinstance(x, bool) or not isinstance(x, int) for x in v)
+            ):
+                raise ExecutorError("between (><) requires a two-int list")
+            lo, hi = bsi.clamp_between(v[0], v[1], depth)
+            leaves.append(Call("BsiPred", {"v": lo, "d": bucket}))
+            leaves.append(Call("BsiPred", {"v": hi, "d": bucket}))
+        else:
+            if isinstance(v, bool) or not isinstance(v, int):
+                raise ExecutorError(
+                    f"Range() comparison value must be an integer, got {v!r}"
+                )
+            op, v = bsi.clamp_predicate(op, v, depth)
+            leaves.append(Call("BsiPred", {"v": v, "d": bucket}))
+        return Call("BsiCmp", {"op": op}, children=leaves)
+
+    def _rewrite_bsi_agg(self, index: str, c: Call) -> Call:
+        """Expand Sum/Min/Max(frame=, field=, [filter child]) into the
+        synthetic aggregate node of the plan."""
+        if len(c.children) > 1:
+            raise ExecutorError(f"{c.name}() can only have one input bitmap")
+        field_name = c.args.get("field")
+        if not isinstance(field_name, str):
+            raise ExecutorError(f"{c.name}() field required")
+        frame, f = self._bsi_resolve_field(index, c)
+        fld = f.bsi_field(field_name)
+        if fld is None:
+            raise ExecutorError(f"unknown field: {field_name!r}")
+        leaves, bucket = self._bsi_field_leaves(frame, fld)
+        has_filter = bool(c.children)
+        if has_filter:
+            leaves.append(self._rewrite_bsi(index, c.children[0]))
+        return Call("Bsi" + c.name, {"filter": has_filter, "nplanes": bucket}, children=leaves)
 
     def _execute_bitmap_call(
         self, index: str, c: Call, slices: list[int], opt: ExecOptions
     ) -> RowBitmap:
         """reference: executor.go:203-261"""
-        expr, leaves = plan.decompose(c)
+        expr, leaves = plan.decompose(self._rewrite_bsi(index, c))
 
         def map_fn(local_slices: list[int]) -> RowBitmap:
             out = RowBitmap(self.holder.device)
-            stacks, kept = self.leaf_stacks(index, leaves, local_slices)
+            inputs, kept = self.leaf_stacks(index, leaves, local_slices)
             if kept:
-                rows = plan.eval_expr(expr, stacks)
+                rows = plan.eval_expr(expr, inputs)
                 for i, s in enumerate(kept):
                     out.set_segment(s, rows[i])
             return out
@@ -327,18 +530,104 @@ class Executor:
             raise ExecutorError("Count() requires an input bitmap")
         if len(c.children) > 1:
             raise ExecutorError("Count() only accepts a single bitmap input")
-        expr, leaves = plan.decompose(c.children[0])
+        expr, leaves = plan.decompose(self._rewrite_bsi(index, c.children[0]))
 
         def map_fn(local_slices: list[int]) -> int:
-            stacks, kept = self.leaf_stacks(index, leaves, local_slices)
+            inputs, kept = self.leaf_stacks(index, leaves, local_slices)
             if not kept:
                 return 0
-            return int(plan.count_rows(expr, stacks).sum(dtype=torch.int64))
+            return int(plan.count_rows(expr, inputs).sum(dtype=torch.int64))
 
         n = self._map_reduce(
             index, slices, c, opt, map_fn, lambda prev, v: (prev or 0) + v
         )
         return int(n or 0)
+
+    # ------------------------------------------------------------------
+    # BSI aggregates — Sum / Min / Max (JAX executor.py:2094-2225)
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _normalize_valcount(v):
+        """Map a local (ValCount | None) or remote-decoded ([Pair] | 0)
+        partial to ValCount | None.  A remote node with no valued
+        columns answers an empty result that decodes to 0; legitimate
+        partials are always Pair lists, so bare ints mean "no data"."""
+        if isinstance(v, bsi.ValCount):
+            return v
+        if isinstance(v, list) and v:
+            p = v[0]
+            val = int(p.id) & 0xFFFFFFFFFFFFFFFF
+            if val >= 1 << 63:  # sign-extend the u64 wire wrap
+                val -= 1 << 64
+            return bsi.ValCount(value=val, count=int(p.count))
+        return None
+
+    def _execute_bsi_agg(self, index: str, c: Call, slices: list[int], opt: ExecOptions):
+        """Sum/Min/Max(…, frame=f, field=q): per-slice partial vectors
+        from ONE ripple-kernel launch over the field's planes (plus an
+        optional filter tree), combined in Python ints, reduced across
+        nodes through the ordinary map/reduce.  Cross-node partials ride
+        the Pairs wire shape (value u64-wrapped, count)."""
+        name = c.name
+        rc = self._rewrite_bsi_agg(index, c)
+        bucket = int(rc.args["nplanes"])
+        expr, leaves = plan.decompose(rc)
+
+        def map_fn(local_slices: list[int]):
+            inputs, kept = self.leaf_stacks(index, leaves, local_slices)
+            if not kept:
+                return None
+            vecs = plan.agg_vectors(expr, inputs).cpu().numpy()
+            return self._decode_agg_parts(c, bucket, vecs)
+
+        def reduce_fn(prev, v):
+            v = self._normalize_valcount(v)
+            if v is None:
+                return prev
+            prev = self._normalize_valcount(prev)
+            if prev is None:
+                return v
+            if name == "Sum":
+                return bsi.ValCount(prev.value + v.value, prev.count + v.count)
+            if v.value == prev.value:
+                return bsi.ValCount(prev.value, prev.count + v.count)
+            if name == "Min":
+                return v if v.value < prev.value else prev
+            return v if v.value > prev.value else prev
+
+        res = self._normalize_valcount(
+            self._map_reduce(index, slices, c, opt, map_fn, reduce_fn)
+        )
+        if res is None and name == "Sum":
+            res = bsi.ValCount(0, 0)
+        return res
+
+    @staticmethod
+    def _decode_agg_parts(c: Call, bucket: int, vecs):
+        """Reduce per-slice aggregate partial vectors into one ValCount
+        (None when no slice holds a valued column)."""
+        if c.name == "Sum":
+            total = 0
+            count = 0
+            for vec in vecs:
+                part, n = ripple.decode_sum(vec, bucket)
+                total += part
+                count += n
+            return bsi.ValCount(total, count) if count else None
+        best = None
+        for vec in vecs:
+            decoded = ripple.decode_minmax(vec, bucket)
+            if decoded is None:
+                continue
+            val, n = decoded
+            if best is None:
+                best = (val, n)
+            elif val == best[0]:
+                best = (val, best[1] + n)
+            elif (c.name == "Min") == (val < best[0]):
+                best = (val, n)
+        return bsi.ValCount(*best) if best is not None else None
 
     # ------------------------------------------------------------------
     # TopN (reference: executor.go:281-415) — two-phase
@@ -409,11 +698,11 @@ class Executor:
             # The src tree's row per slice, folded on the device like a
             # Bitmap() call.  A slice without one is an empty src there,
             # and an all-zero row scores nothing: both give no pairs.
-            expr, leaves = plan.decompose(c.children[0])
-            stacks, kept = self.leaf_stacks(index, leaves, local)
+            expr, leaves = plan.decompose(self._rewrite_bsi(index, c.children[0]))
+            inputs, kept = self.leaf_stacks(index, leaves, local)
             src_rows = {}
             if kept:
-                rows = plan.eval_expr(expr, stacks)
+                rows = plan.eval_expr(expr, inputs)
                 src_rows = {s: rows[i] for i, s in enumerate(kept)}
         parts = []
         for s in local:
@@ -494,10 +783,19 @@ class Executor:
         return ret
 
     def _execute_set_bit(self, index: str, c: Call, opt: ExecOptions) -> bool:
-        if isinstance(c.args.get("timestamp"), str):
-            raise ExecutorError("time-quantum views are not supported by this port yet")
+        """A SetBit; with ``timestamp`` the bit also goes to the frame's
+        time views (JAX ``executor.py:3037-3055``)."""
+        self._resolve_write(index, c, "SetBit")
+        timestamp = None
+        ts = c.args.get("timestamp")
+        if isinstance(ts, str):
+            try:
+                timestamp = datetime.strptime(ts, TIME_FORMAT)
+            except ValueError:
+                raise ExecutorError(f"invalid date: {ts}") from None
         return self._write(
-            index, c, "SetBit", lambda f, r, col: f.set_bit(VIEW_STANDARD, r, col), opt
+            index, c, "SetBit",
+            lambda f, r, col: f.set_bit(VIEW_STANDARD, r, col, timestamp), opt,
         )
 
     def _execute_clear_bit(self, index: str, c: Call, opt: ExecOptions) -> bool:
@@ -638,3 +936,13 @@ def _uint_slice_arg(c: Call, key: str) -> list[int] | None:
         return c.uint_slice_arg(key)
     except TypeError as e:
         raise ExecutorError(str(e)) from e
+
+
+def _time_arg(c: Call, key: str) -> datetime:
+    v = c.args.get(key)
+    if not isinstance(v, str):
+        raise ExecutorError(f"Range() {key} time required")
+    try:
+        return datetime.strptime(v, TIME_FORMAT)
+    except ValueError:
+        raise ExecutorError(f"cannot parse Range() {key} time") from None

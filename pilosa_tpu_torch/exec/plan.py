@@ -2,14 +2,24 @@
 
 A bitmap call tree decomposes into a hashable expression over its leaf
 calls (``("leaf", i)`` or ``(op, child_exprs...)``), as in
-``pilosa_tpu.exec.plan``.  Each leaf becomes a stack of slice-rows,
-int32 ``[n_slices, 32768]``; the interior folds
-(``Intersect``/``Union``/``Difference``/``Xor``, left-fold, reference:
-executor.go:418-434,486-505,621-637) run as plain torch bitwise ops over
-the stacks, and for a count the LAST fold step — the outer op, the
-popcount and the reduce — is one launch of the fused popcount kernel
-(``ops/fused_popcount.py``), so the outermost result row is never
-written to device memory.
+``pilosa_tpu.exec.plan``.  Each row leaf (``Bitmap``, a time-quantum
+``Range``) becomes a stack of slice-rows, int32 ``[n_slices, 32768]``;
+the interior folds (``Intersect``/``Union``/``Difference``/``Xor``,
+left-fold, reference: executor.go:418-434,486-505,621-637) run as plain
+torch bitwise ops over the stacks, and for a count the LAST fold step —
+the outer op, the popcount and the reduce — is one launch of the fused
+popcount kernel (``ops/fused_popcount.py``), so the outermost result row
+is never written to device memory.
+
+The BSI nodes the executor's rewrite produces (``BsiCmp`` over
+``BsiPlane``/``BsiZero``/``BsiPred`` leaves, and ``BsiSum``/``BsiMin``/
+``BsiMax`` with an optional filter subtree) decompose as in the JAX
+package.  Their plane leaves are not stacked: the executor hands each as
+a :class:`PlaneLeaf` (the field fragments' mirrors and the leaf's row in
+each), and the node runs on the ripple kernel K8
+(``ops/bsi_ripple.py``), which reads the planes in place — in count mode
+when the comparison is the root of a Count, in row mode inside a fold,
+and :func:`agg_vectors` for the aggregates.
 
 ``scatter_apply`` applies folded write deltas to a fragment's mirror
 with one launch of the delta-scatter kernel (``ops/delta_scatter.py``).
@@ -17,30 +27,62 @@ with one launch of the delta-scatter kernel (``ops/delta_scatter.py``).
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
-from pilosa_tpu_torch.ops import delta_scatter, fused_popcount
+from pilosa_tpu_torch.bsi import ripple
+from pilosa_tpu_torch.ops import bsi_ripple, delta_scatter, fused_popcount
+from pilosa_tpu_torch.ops.bitplane import WORDS_PER_SLICE
 from pilosa_tpu_torch.pql.parser import Call
 
-# Calls that fetch rows (leaves of a bitmap expression).
-LEAF_CALLS = frozenset({"Bitmap"})
+# Calls that fetch rows (leaves of a bitmap expression).  The Bsi*
+# leaves are synthetic calls of the executor's BSI rewrite: BsiPlane is
+# one field-view plane row, BsiPred a predicate, BsiZero an all-zero pad
+# plane (the depth bucket).
+LEAF_CALLS = frozenset({"Bitmap", "Range", "BsiPlane", "BsiPred", "BsiZero"})
 # Interior set-algebra calls and the fused kernel op of each.
 FOLD_OPS = {"Intersect": "and", "Union": "or", "Difference": "andnot", "Xor": "xor"}
 FOLD_CALLS = frozenset(FOLD_OPS)
-# Leaf calls of the JAX package that this port does not execute yet.
-UNPORTED_CALLS = frozenset({"Range"})
+# Synthetic BSI interior calls: BsiCmp produces a result row; the
+# aggregates produce per-slice int32 partial vectors.
+BSI_CALLS = frozenset({"BsiCmp", "BsiSum", "BsiMin", "BsiMax"})
+# Leaves that carry slice-invariant data rather than fragment content:
+# they never make a slice non-empty on their own.
+NEUTRAL_LEAVES = frozenset({"BsiPred", "BsiZero"})
 
 
 class PlanError(ValueError):
     pass
 
 
+@dataclass
+class PlaneLeaf:
+    """A ``BsiPlane`` leaf over the kept slices: ``mirrors[s]`` is the
+    field fragment's mirror in slice s (or None), shared by every plane
+    leaf of the field, and ``slots[s]`` the leaf's row in it (-1:
+    absent)."""
+
+    mirrors: list
+    slots: np.ndarray
+    device: torch.device
+
+
+@dataclass
+class PredLeaf:
+    """A ``BsiPred`` leaf: the (clamped) predicate value."""
+
+    value: int
+
+
 def decompose(call: Call) -> tuple[tuple, list[Call]]:
     """Flatten a bitmap call tree into a hashable structure + leaf calls.
 
     Returns ``(expr, leaves)`` where ``expr`` is a nested tuple —
-    ``("leaf", i)`` referencing ``leaves[i]``, or ``(op, child_exprs...)``.
+    ``("leaf", i)`` referencing ``leaves[i]``, or ``(op, child_exprs...)``;
+    a BSI node is ``("bsiCmp", op, children...)`` or ``("bsiSum" |
+    "bsiMin" | "bsiMax", has_filter, children...)``, as in the JAX package.
     """
     leaves: list[Call] = []
 
@@ -49,8 +91,13 @@ def decompose(call: Call) -> tuple[tuple, list[Call]]:
             idx = len(leaves)
             leaves.append(c)
             return ("leaf", idx)
-        if c.name in UNPORTED_CALLS:
-            raise PlanError(f"{c.name}() is not supported by this port yet")
+        if c.name in BSI_CALLS:
+            if c.name == "BsiCmp":
+                head = ("bsiCmp", c.args["op"])
+            else:
+                tag = {"BsiSum": "bsiSum", "BsiMin": "bsiMin", "BsiMax": "bsiMax"}
+                head = (tag[c.name], bool(c.args.get("filter")))
+            return head + tuple(rec(ch) for ch in c.children)
         if c.name not in FOLD_CALLS:
             raise PlanError(f"unknown call: {c.name}")
         if c.name in ("Intersect", "Difference") and not c.children:
@@ -84,40 +131,119 @@ def _fold(name: str, acc, nxt):
     return acc ^ nxt
 
 
-def eval_expr(expr: tuple, leaves: list[torch.Tensor]) -> torch.Tensor:
-    """The result rows of a decomposed tree over leaf stacks
-    (``leaves[i]`` is int32 [n, words]): torch bitwise ops throughout."""
+def _rows_shape(inputs) -> tuple[int, torch.device]:
+    """(slices, device) of a leaf-input list."""
+    for x in inputs:
+        if isinstance(x, torch.Tensor):
+            return x.shape[0], x.device
+        if isinstance(x, PlaneLeaf):
+            return len(x.slots), x.device
+    raise PlanError("a tree without row or plane leaves has no rows")
+
+
+def _field(kids: tuple, inputs) -> tuple[bsi_ripple.FieldPlanes, list[int]]:
+    """A BSI node's plane/pad/predicate leaves as the kernel's input:
+    (FieldPlanes over exists, sign and the real magnitude planes, with the
+    pads setting the bucket; the predicate values)."""
+    planes, preds, pads = [], [], 0
+    for e in kids:
+        if e[0] != "leaf":
+            raise PlanError("a BSI node's planes must be leaves")
+        x = inputs[e[1]]
+        if isinstance(x, PlaneLeaf):
+            planes.append(x)
+        elif isinstance(x, PredLeaf):
+            preds.append(x.value)
+        elif x is None:
+            pads += 1
+        else:
+            raise PlanError("a BSI node takes plane, pad and predicate leaves")
+    if len(planes) < 3:
+        raise PlanError("a BSI node needs exists, sign and at least one bit plane")
+    fp = bsi_ripple.FieldPlanes(
+        planes[0].mirrors,
+        np.stack([p.slots for p in planes], axis=1).astype(np.int64),
+        len(planes) - 2 + pads,
+        planes[0].device,
+    )
+    return fp, preds
+
+
+def _cmp(expr: tuple, inputs, count: bool) -> torch.Tensor:
+    op = expr[1]
+    fp, preds = _field(expr[2:], inputs)
+    if len(preds) != (2 if op == "between" else 1):
+        raise PlanError(f"bsiCmp {op} with {len(preds)} predicates")
+    return bsi_ripple.bsi_cmp(fp, op, preds[0], preds[1] if op == "between" else None, count)
+
+
+def eval_expr(expr: tuple, inputs: list) -> torch.Tensor:
+    """The result rows of a decomposed tree (int32 [n, words]) over the
+    leaf inputs: ``inputs[i]`` is an int32 [n, words] stack for a row
+    leaf, a :class:`PlaneLeaf`, a :class:`PredLeaf`, or None (a pad).
+    Folds are torch bitwise ops; a comparison is one K8 launch (row
+    mode)."""
     if expr[0] == "leaf":
-        return leaves[expr[1]]
+        x = inputs[expr[1]]
+        if not isinstance(x, torch.Tensor):
+            raise PlanError("a BSI leaf outside a BSI node")
+        return x
     name = expr[0]
-    children = [eval_expr(e, leaves) for e in expr[1:]]
+    if name == "bsiCmp":
+        return _cmp(expr, inputs, count=False)
+    if name not in FOLD_CALLS:
+        raise PlanError(f"{name} does not produce a row")
+    children = [eval_expr(e, inputs) for e in expr[1:]]
     if not children:  # Union()
-        return torch.zeros_like(leaves[0])
+        n, device = _rows_shape(inputs)
+        return torch.zeros(n, WORDS_PER_SLICE, dtype=torch.int32, device=device)
     acc = children[0]
     for nxt in children[1:]:
         acc = _fold(name, acc, nxt)
     return acc
 
 
-def count_rows(expr: tuple, leaves: list[torch.Tensor]) -> torch.Tensor:
+def count_rows(expr: tuple, inputs: list) -> torch.Tensor:
     """int32[n] popcounts of the tree's result rows: the inner folds as
     torch ops, the outer op + popcount + reduce as ONE fused popcount
-    launch."""
+    launch; a comparison at the root is one K8 launch in count mode."""
     if expr[0] == "leaf":
-        return fused_popcount.row_popcounts(leaves[expr[1]])
+        return fused_popcount.row_popcounts(eval_expr(expr, inputs))
     name = expr[0]
+    if name == "bsiCmp":
+        return _cmp(expr, inputs, count=True)
     kids = expr[1:]
     if not kids:  # Union(): nothing is set
-        return torch.zeros(leaves[0].shape[0], dtype=torch.int32, device=leaves[0].device)
+        n, device = _rows_shape(inputs)
+        return torch.zeros(n, dtype=torch.int32, device=device)
     if len(kids) == 1:
-        return count_rows(kids[0], leaves)
-    acc = eval_expr(kids[0], leaves)
+        return count_rows(kids[0], inputs)
+    acc = eval_expr(kids[0], inputs)
     for e in kids[1:-1]:
-        acc = _fold(name, acc, eval_expr(e, leaves))
-    last = eval_expr(kids[-1], leaves)
+        acc = _fold(name, acc, eval_expr(e, inputs))
+    last = eval_expr(kids[-1], inputs)
     return fused_popcount.row_popcounts(
         acc.contiguous(), last.contiguous(), FOLD_OPS[name]
     )
+
+
+def agg_vectors(expr: tuple, inputs: list) -> torch.Tensor:
+    """The per-slice partial vectors of a ``bsiSum``/``bsiMin``/``bsiMax``
+    node — int32 [n, 2 * bucket + 1] or [n, bucket + 2], in the JAX
+    package's layout — from one K8 launch; a filter subtree folds first
+    (its comparisons in K8's row mode)."""
+    name, has_filter = expr[0], expr[1]
+    if name not in ("bsiSum", "bsiMin", "bsiMax"):
+        raise PlanError(f"{name} is not an aggregate")
+    kids = expr[2:]
+    filt = None
+    if has_filter:
+        filt = eval_expr(kids[-1], inputs).contiguous()
+        kids = kids[:-1]
+    fp, _ = _field(kids, inputs)
+    if name == "bsiSum":
+        return bsi_ripple.bsi_sum(fp, filt)
+    return bsi_ripple.bsi_minmax(fp, "min" if name == "bsiMin" else "max", filt)
 
 
 def scatter_apply(plane: torch.Tensor, slots, words, or_m, andnot_m) -> torch.Tensor:
@@ -129,10 +255,34 @@ def scatter_apply(plane: torch.Tensor, slots, words, or_m, andnot_m) -> torch.Te
     return plane
 
 
+def _bsi_np(e: tuple, rows: list):
+    """A BSI node over one slice's numpy rows, through the torch ripple
+    (one implementation for the host and the plain device path)."""
+    t = [torch.from_numpy(np.ascontiguousarray(r).view(np.int32)) for r in rows]
+    name = e[0]
+    if name == "bsiCmp":
+        op = e[1]
+        npred = 2 if op == "between" else 1
+        exists, sign, planes, preds = t[0], t[1], t[2 : len(t) - npred], t[len(t) - npred :]
+        if op == "between":
+            out = ripple.between_row(exists, sign, planes, preds[0], preds[1])
+        else:
+            out = ripple.signed_cmp(op, exists, sign, planes, preds[0])
+        return out.numpy().view(np.uint32)
+    has_filter = e[1]
+    body = t[:-1] if has_filter else t
+    filt = t[-1] if has_filter else None
+    if name == "bsiSum":
+        return ripple.sum_vec(body[0], body[1], body[2:], filt).numpy()
+    which = "min" if name == "bsiMin" else "max"
+    return ripple.minmax_vec(which, body[0], body[1], body[2:], filt).numpy()
+
+
 def eval_expr_np(expr: tuple, leaf_rows, words: int):
     """HOST (numpy) evaluation of a decomposed tree over one slice's
     leaf rows (``leaf_rows[i]`` is uint32[words] or None = empty); the
-    result is None when the tree is empty on this slice."""
+    result is None when the tree is empty on this slice.  A BSI node
+    reads absent rows as zeros and returns its row or partial vector."""
     rows = [None if r is None else np.asarray(r, dtype=np.uint32) for r in leaf_rows]
 
     def zeros():
@@ -142,6 +292,9 @@ def eval_expr_np(expr: tuple, leaf_rows, words: int):
         if e[0] == "leaf":
             return rows[e[1]]
         name = e[0]
+        if name in ("bsiCmp", "bsiSum", "bsiMin", "bsiMax"):
+            kids = [rec(c) for c in e[2:]]
+            return _bsi_np(e, [zeros() if r is None else r for r in kids])
         children = [rec(c) for c in e[1:]]
         if name == "Union":
             live = [c for c in children if c is not None]

@@ -2,9 +2,10 @@
 
 The part of ``pilosa_tpu.net.client.InternalClient`` that the port's
 cluster needs: protobuf queries (the map legs of a fan-out), schema
-calls, max slices, slice owners, and the slice-targeted bulk import
-that POSTs each slice's bits to every owner (reference:
-client.go:39-476).  Every request carries a socket timeout and is made
+calls (BSI fields included), max slices, slice owners, and the
+slice-targeted bulk imports that POST each slice's bits — or each
+slice's field values — to every owner (reference: client.go:39-476;
+JAX ``client.py:422-560``).  Every request carries a socket timeout and is made
 once: a dead peer surfaces as an error at once, for the executor's
 replica failover to act on; no retry loop hides it.
 """
@@ -136,6 +137,20 @@ class InternalClient:
         status, data = self._request("POST", f"/index/{index}/frame/{frame}", body=body)
         self._check(status, data)
 
+    def create_field(self, index: str, frame: str, field: str, min: int, max: int) -> None:
+        body = json.dumps({"min": int(min), "max": int(max)}).encode()
+        path = f"/index/{index}/frame/{frame}/field/{field}"
+        status, data = self._request("POST", path, body=body)
+        self._check(status, data)
+
+    def delete_field(self, index: str, frame: str, field: str) -> None:
+        status, data = self._request("DELETE", f"/index/{index}/frame/{frame}/field/{field}")
+        self._check(status, data)
+
+    def frame_fields(self, index: str, frame: str) -> list[dict]:
+        status, data = self._request("GET", f"/index/{index}/frame/{frame}/fields")
+        return json.loads(self._check(status, data))["fields"]
+
     def fragment_nodes(self, index: str, slice_i: int) -> list[dict]:
         """Owners of a slice, as ``[{"host", "internalHost"}]``."""
         status, data = self._request(
@@ -159,7 +174,32 @@ class InternalClient:
             ColumnIDs=np.asarray(cols, dtype=np.uint64),
             Timestamps=[] if timestamps is None else np.asarray(timestamps, dtype=np.int64),
         )
-        payload = pb.encode()
+        self._post_to_owners(
+            index, slice_i, "/import", pb.encode(),
+            {"Content-Type": PROTOBUF, "Accept": PROTOBUF}, protobuf=True,
+        )
+
+    def import_value(
+        self, index: str, frame: str, field: str, slice_i: int, columns, values
+    ) -> None:
+        """POST one slice's field values (``/import-value``) to every
+        owner of the slice, as :meth:`import_slice` does with bits."""
+        payload = json.dumps(
+            {
+                "index": index,
+                "frame": frame,
+                "field": field,
+                "slice": int(slice_i),
+                "columnIDs": np.asarray(columns, dtype=np.int64).tolist(),
+                "values": np.asarray(values, dtype=np.int64).tolist(),
+            }
+        ).encode()
+        self._post_to_owners(index, slice_i, "/import-value", payload, {}, protobuf=False)
+
+    def _post_to_owners(
+        self, index: str, slice_i: int, path: str, payload: bytes, headers: dict,
+        protobuf: bool,
+    ) -> None:
         nodes = self.fragment_nodes(index, slice_i)
         if not nodes:
             raise ClientError(500, f"no nodes for slice {slice_i}")
@@ -167,15 +207,12 @@ class InternalClient:
         for node in nodes:
             peer = self._peer(node["host"])
             try:
-                status, data = peer._request(
-                    "POST",
-                    "/import",
-                    body=payload,
-                    headers={"Content-Type": PROTOBUF, "Accept": PROTOBUF},
-                )
-                resp = wire.ImportResponse.decode(peer._check(status, data))
-                if resp.Err:
-                    raise ClientError(500, resp.Err)
+                status, data = peer._request("POST", path, body=payload, headers=headers)
+                body = peer._check(status, data)
+                if protobuf:
+                    resp = wire.ImportResponse.decode(body)
+                    if resp.Err:
+                        raise ClientError(500, resp.Err)
             except TRANSPORT_ERRORS + (ClientError, ValueError) as e:
                 errors.append(f"{node['host']}: {e}")
         if errors:
@@ -194,5 +231,18 @@ class InternalClient:
         sent = []
         for s, parts in np_group_by(cols // np.uint64(SLICE_WIDTH), *arrays):
             self.import_slice(index, frame, s, *parts)
+            sent.append(s)
+        return sent
+
+    def import_values(self, index: str, frame: str, field: str, cols, values) -> list[int]:
+        """Group (column, value) pairs by slice and send each slice's
+        values to all its owners; returns the slices sent."""
+        cols = np.asarray(cols, dtype=np.int64)
+        values = np.asarray(values, dtype=np.int64)
+        if len(cols) != len(values):
+            raise ValueError("columns and values differ in length")
+        sent = []
+        for s, (c_s, v_s) in np_group_by(cols // SLICE_WIDTH, cols, values):
+            self.import_value(index, frame, field, s, c_s, v_s)
             sent.append(s)
         return sent

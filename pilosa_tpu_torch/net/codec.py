@@ -14,6 +14,7 @@ from typing import Any
 
 import numpy as np
 
+from pilosa_tpu_torch.bsi import ValCount
 from pilosa_tpu_torch.core.bitmap import RowBitmap
 from pilosa_tpu_torch.core.cache import Pair
 from pilosa_tpu_torch.net import wire
@@ -95,11 +96,16 @@ def bitmap_from_proto(pb: wire.Bitmap, device=None) -> RowBitmap:
 
 def result_to_proto(result: Any) -> wire.QueryResult:
     """Polymorphic result encode (reference: handler.go:1444-1470):
-    RowBitmap -> Bitmap; [Pair] -> Pairs; int -> N; bool -> Changed;
-    None -> empty result."""
+    RowBitmap -> Bitmap; ValCount -> one Pair; [Pair] -> Pairs; int ->
+    N; bool -> Changed; None -> empty result."""
     pb = wire.QueryResult()
     if isinstance(result, RowBitmap):
         pb.Bitmap = bitmap_to_proto(result)
+    elif isinstance(result, ValCount):
+        # A BSI aggregate (Sum/Min/Max) rides the Pairs message: the value
+        # u64-wrapped in Key (negatives sign-extend on decode, in the
+        # executor's reduce), the count in Count (JAX codec.py:128-135).
+        pb.Pairs = [wire.Pair(Key=_u64(result.value), Count=_u64(result.count))]
     elif isinstance(result, bool):
         pb.Changed = result
     elif isinstance(result, (int, np.integer)):
@@ -126,9 +132,12 @@ def result_from_proto(pb: wire.QueryResult, device=None) -> Any:
 
 def result_to_json(result: Any) -> Any:
     """reference: handler.go:216-280: RowBitmap -> {"attrs", "bits"};
-    [Pair] -> [{"id", "count"}]; int -> N; bool -> changed; None -> null."""
+    ValCount -> {"value", "count"}; [Pair] -> [{"id", "count"}]; int ->
+    N; bool -> changed; None -> null."""
     if isinstance(result, RowBitmap):
         return result.to_json_dict()
+    if isinstance(result, ValCount):
+        return {"value": int(result.value), "count": int(result.count)}
     if isinstance(result, list):
         return [{"id": _u64(p.id), "count": _u64(p.count)} for p in result]
     if isinstance(result, (int, np.integer)) and not isinstance(result, bool):

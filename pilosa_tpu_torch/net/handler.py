@@ -7,16 +7,22 @@ port covers, with the same paths, status codes and response bodies
     GET    /version, /status, /schema, /index, /hosts, /slices/max
     GET    /index/<i>          POST /index/<i>          DELETE /index/<i>
     POST   /index/<i>/frame/<f>                         DELETE /index/<i>/frame/<f>
-    POST   /index/<i>/query    POST /import             GET /fragment/nodes
+    GET    /index/<i>/frame/<f>/fields
+    POST   /index/<i>/frame/<f>/field/<fld>             DELETE (same path)
+    POST   /index/<i>/query    POST /import             POST /import-value
+    GET    /fragment/nodes
 
 ``POST /index/<i>/query`` reads a ``QueryRequest`` protobuf when the
 Content-Type is ``application/x-protobuf`` (its ``Slices``,
 ``ColumnAttrs`` and ``Remote`` fields included) and answers a
 ``QueryResponse`` protobuf when Accept names it; JSON otherwise.
-``POST /import`` takes an ``ImportRequest`` and answers an
-``ImportResponse``.  Index and frame creation and deletion are
-broadcast to the cluster.  Replication, resize and debug routes are
-not ported yet.
+``POST /import`` takes an ``ImportRequest`` (timestamps included: unix
+nanoseconds, written to the frame's time views) and answers an
+``ImportResponse``; ``POST /import-value`` takes one slice's BSI field
+values as JSON.  Index and frame creation and deletion are broadcast to
+the cluster; a field's creation and deletion go to every peer as the
+same HTTP request with ``?remote=true``, as in the JAX package.
+Replication, resize and debug routes are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,12 +34,13 @@ import traceback
 import urllib.parse
 from collections.abc import Callable
 from dataclasses import dataclass, field
+from datetime import datetime, timezone
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
 
 import numpy as np
 
-from pilosa_tpu_torch import __version__
+from pilosa_tpu_torch import __version__, bsi
 from pilosa_tpu_torch.core.bitmap import RowBitmap
 from pilosa_tpu_torch.core.timequantum import parse_time_quantum
 from pilosa_tpu_torch.exec.executor import ExecOptions, TooManyWritesError
@@ -110,7 +117,14 @@ class Handler:
             ("POST", r"/index/(?P<index>[^/]+)/query", self.handle_post_query),
             ("POST", r"/index/(?P<index>[^/]+)/frame/(?P<frame>[^/]+)", self.handle_post_frame),
             ("DELETE", r"/index/(?P<index>[^/]+)/frame/(?P<frame>[^/]+)", self.handle_delete_frame),
+            ("GET", r"/index/(?P<index>[^/]+)/frame/(?P<frame>[^/]+)/fields",
+             self.handle_get_frame_fields),
+            ("POST", r"/index/(?P<index>[^/]+)/frame/(?P<frame>[^/]+)/field/(?P<fld>[^/]+)",
+             self.handle_post_frame_field),
+            ("DELETE", r"/index/(?P<index>[^/]+)/frame/(?P<frame>[^/]+)/field/(?P<fld>[^/]+)",
+             self.handle_delete_frame_field),
             ("POST", r"/import", self.handle_post_import),
+            ("POST", r"/import-value", self.handle_post_import_value),
             ("GET", r"/fragment/nodes", self.handle_get_fragment_nodes),
         ]
         self._routes = [(m, re.compile("^" + p + "$"), fn) for m, p, fn in routes]
@@ -269,6 +283,113 @@ class Handler:
         self._broadcast(wire.DeleteFrameMessage(Index=index, Frame=frame))
         return Response.json({})
 
+    # --- BSI fields (JAX handler.py:686-765) ---
+    #
+    # The protobuf FrameMeta broadcast predates BSI, so a field's creation
+    # and deletion go to every peer as the same HTTP request with
+    # ``?remote=true``; each node keeps the field in its frame's .meta.
+
+    def handle_get_frame_fields(self, req: Request, index: str, frame: str) -> Response:
+        f = self.holder.frame(index, frame)
+        if f is None:
+            return Response.error("frame not found", 404)
+        return Response.json({"fields": [fld.to_dict() for fld in f.bsi_fields()]})
+
+    def handle_post_frame_field(self, req: Request, index: str, frame: str, fld: str) -> Response:
+        f = self.holder.frame(index, frame)
+        if f is None:
+            return Response.error("frame not found", 404)
+        try:
+            payload = json.loads(req.body) if req.body else {}
+        except json.JSONDecodeError as e:
+            return Response.error(str(e), 400)
+        try:
+            lo = int(payload.get("min", 0))
+            hi = int(payload.get("max", 0))
+        except (TypeError, ValueError):
+            return Response.error("min/max must be integers", 400)
+        remote = req.query.get("remote") == "true"
+        if remote and not f.range_enabled:
+            # The relayed leg implies range support: the coordinator
+            # validated the schema rules.
+            f.set_options(range_enabled=True)
+        try:
+            f.create_field(fld, lo, hi)
+        except bsi.BSIError as e:
+            return Response.error(str(e), 400)
+        except Exception as e:  # noqa: BLE001 — duplicate / not range-enabled
+            return Response.error(str(e), 409)
+        if not remote:
+            self._fanout_field(
+                "POST",
+                f"/index/{index}/frame/{frame}/field/{fld}",
+                json.dumps({"min": lo, "max": hi}).encode(),
+            )
+        return Response.json({})
+
+    def handle_delete_frame_field(self, req: Request, index: str, frame: str, fld: str) -> Response:
+        f = self.holder.frame(index, frame)
+        if f is None:
+            return Response.error("frame not found", 404)
+        try:
+            f.delete_field(fld)
+        except Exception as e:  # noqa: BLE001 — unknown field
+            return Response.error(str(e), 404)
+        if req.query.get("remote") != "true":
+            self._fanout_field("DELETE", f"/index/{index}/frame/{frame}/field/{fld}", b"")
+        return Response.json({})
+
+    def _fanout_field(self, method: str, path: str, body: bytes) -> None:
+        """Relay a field schema change to every other node.  Errors are
+        collected and raised as one AFTER every reachable peer got the
+        change."""
+        factory = self.executor.client_factory
+        if factory is None:
+            return
+        errs = []
+        for node in self.cluster.nodes:
+            if node.host == self.executor.host:
+                continue
+            try:
+                client = factory(node.host)
+                status, data = client._request(method, path, query={"remote": "true"}, body=body)
+                client._check(status, data)
+            except Exception as e:  # noqa: BLE001 — collect per host
+                errs.append(f"{node.host}: {e}")
+        if errs:
+            raise RuntimeError("field fanout: " + "; ".join(errs))
+
+    def handle_post_import_value(self, req: Request) -> Response:
+        """Columnar integer import (JAX handler.py:769-815):
+        ``{"index","frame","field","slice","columnIDs":[],"values":[]}``
+        — one value per column, written as set+clear passes over the
+        field's planes (``Frame.import_value``).  Ownership-guarded like
+        /import; the client sends a slice's values to every owner."""
+        try:
+            payload = json.loads(req.body)
+        except json.JSONDecodeError as e:
+            return Response.error(str(e), 400)
+        index = payload.get("index", "")
+        frame = payload.get("frame", "")
+        field_name = payload.get("field", "")
+        slice_i = payload.get("slice", 0)
+        cols = payload.get("columnIDs", [])
+        vals = payload.get("values", [])
+        if not isinstance(cols, list) or not isinstance(vals, list) or len(cols) != len(vals):
+            return Response.error("columnIDs/values must be equal-length lists", 400)
+        if not self.cluster.is_write_owner(self.executor.host, index, slice_i):
+            return Response.error(
+                f"host does not own slice {self.executor.host} slice={slice_i}", 412
+            )
+        f = self.holder.frame(index, frame)
+        if f is None:
+            return Response.error("frame not found", 404)
+        try:
+            f.import_value(field_name, cols, vals)
+        except Exception as e:  # noqa: BLE001 — unknown field / out of range
+            return Response.error(str(e), 400)
+        return Response.json({})
+
     # --- query (reference: handler.go:863-944) ---
 
     def handle_post_query(self, req: Request, index: str) -> Response:
@@ -367,7 +488,9 @@ class Handler:
         if f is None:
             return Response.error("frame not found", 404)
         timestamps = (
-            [None if ts == 0 else ts for ts in pb.Timestamps] if pb.Timestamps else None
+            [None if ts == 0 else _dt_from_unix(ts) for ts in pb.Timestamps]
+            if pb.Timestamps
+            else None
         )
         try:
             f.import_bulk(
@@ -378,6 +501,11 @@ class Handler:
         except Exception as e:  # noqa: BLE001 — import boundary
             return Response.proto(wire.ImportResponse(Err=str(e)), status=500)
         return Response.proto(wire.ImportResponse())
+
+
+def _dt_from_unix(ts: int) -> datetime:
+    """Unix nanoseconds -> naive UTC datetime (JAX handler.py:2302)."""
+    return datetime.fromtimestamp(ts / 1e9, tz=timezone.utc).replace(tzinfo=None)
 
 
 def make_http_server(handler: Handler, host: str = "127.0.0.1", port: int = 0):

@@ -29,6 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = {
     "fused_popcount": "fused_popcount.cu",
     "delta_scatter": "delta_scatter.cu",
+    "bsi_ripple": "bsi_ripple.cu",
 }
 
 NVCC_FLAGS = (

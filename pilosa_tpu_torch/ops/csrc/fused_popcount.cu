@@ -1,6 +1,6 @@
 // Fused bitwise op + popcount + per-row reduce over slice-row bit-planes.
 //
-// Replaces the TPU kernel _fused_count_pallas (pilosa_tpu/ops/bitplane.py:614,
+// Replaces the TPU kernel _fused_count_pallas (pilosa_tpu/ops/bitplane.py:615,
 // body _pallas_count_kernel at :597): sum(popcount(a OP b)), OP in
 // {and, or, xor, andnot}.  Here the output is one popcount per row
 // (out[r] = popcount(a[r] OP b[r])), which the caller sums in int64; a

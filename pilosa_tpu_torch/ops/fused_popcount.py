@@ -1,7 +1,7 @@
 """K1: fused bitwise op + popcount + reduce, per row.
 
 The port's counterpart of the TPU kernel ``_fused_count_pallas``
-(``pilosa_tpu/ops/bitplane.py:614``).  PyTorch has no popcount op, and
+(``pilosa_tpu/ops/bitplane.py:615``).  PyTorch has no popcount op, and
 the last step of every Count tree, every TopN score and every rank-cache
 recount is "apply the outer bitwise op, popcount, reduce" — this kernel.
 
@@ -31,7 +31,7 @@ OPS = {"none": 0, "and": 1, "or": 2, "xor": 3, "andnot": 4}
 
 NAME = "fused_popcount"
 SOURCE = "pilosa_tpu_torch/ops/csrc/fused_popcount.cu"
-REPLACES = "pilosa_tpu/ops/bitplane.py:614"
+REPLACES = "pilosa_tpu/ops/bitplane.py:615"
 
 # Kernel launches since the last reset (a plain integer: chip_smoke.py
 # sets it to 0 before it drives the server and reads it after).
@@ -89,7 +89,7 @@ def _check(a: torch.Tensor, b: torch.Tensor | None, op: str) -> None:
         raise ValueError("b must be contiguous")
 
 
-def _popcount_bytes(x: torch.Tensor) -> torch.Tensor:
+def popcount_words(x: torch.Tensor) -> torch.Tensor:
     """Per-row popcount of an int32 [R, W] tensor: SWAR on its uint8
     view, where shifts are logical, so sign bits need no masking."""
     v = x.view(torch.uint8)
@@ -115,7 +115,7 @@ def plain_row_popcounts(
         x = a ^ b
     else:
         x = a & ~b
-    return _popcount_bytes(x.contiguous())
+    return popcount_words(x.contiguous())
 
 
 def row_popcounts(

@@ -93,28 +93,28 @@ def test_broadcast_envelope_matches_jax():
 # --- HTTP helpers ------------------------------------------------------------
 
 
-def http(host: str, method: str, path: str, body: bytes = b"", headers=None):
+def http(host: str, method: str, path: str, body: bytes = b"", headers=None, timeout=5):
     req = urllib.request.Request(
         f"http://{host}{path}", data=body if method != "GET" else None,
         method=method, headers=headers or {},
     )
     try:
-        with urllib.request.urlopen(req, timeout=5) as resp:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
             return resp.status, resp.read()
     except urllib.error.HTTPError as e:
         return e.code, e.read()
 
 
-def ask_json(host: str, pql: str):
-    status, data = http(host, "POST", "/index/i/query", pql.encode())
+def ask_json(host: str, pql: str, timeout=5):
+    status, data = http(host, "POST", "/index/i/query", pql.encode(), timeout=timeout)
     return status, json.loads(data)
 
 
-def ask_protobuf(host: str, pql: str):
+def ask_protobuf(host: str, pql: str, timeout=5):
     """The raw QueryResponse bytes: the two packages must agree byte for byte."""
     body = pb.QueryRequest(Query=pql).SerializeToString()
     return http(host, "POST", "/index/i/query", body,
-                {"Content-Type": PROTOBUF, "Accept": PROTOBUF})
+                {"Content-Type": PROTOBUF, "Accept": PROTOBUF}, timeout=timeout)
 
 
 def jax_server(path: str, cluster=None) -> JServer:
@@ -184,12 +184,12 @@ def load_reference(j: JServer) -> None:
     j.holder.frame("i", "f").import_bulk(rows, cols)
 
 
-def assert_same_answers(hosts: list[str], ref: str, queries=READS) -> None:
+def assert_same_answers(hosts: list[str], ref: str, queries=READS, timeout=5) -> None:
     for q in queries:
-        want_json, want_pb = ask_json(ref, q), ask_protobuf(ref, q)
+        want_json, want_pb = ask_json(ref, q, timeout), ask_protobuf(ref, q, timeout)
         for h in hosts:
-            assert ask_json(h, q) == want_json, (h, q)
-            assert ask_protobuf(h, q) == want_pb, (h, q)
+            assert ask_json(h, q, timeout) == want_json, (h, q)
+            assert ask_protobuf(h, q, timeout) == want_pb, (h, q)
 
 
 @pytest.fixture
@@ -360,3 +360,129 @@ def test_gossip_and_unknown_cluster_types_raise(tmp_path):
         TServer(str(tmp_path), device="cpu", cluster_type="gossip")
     with pytest.raises(ValueError):
         TServer(str(tmp_path), device="cpu", cluster_type="nope")
+
+
+# --- BSI fields over the cluster ---------------------------------------------
+
+# The JAX node compiles a program per BSI query shape inside the request.
+BSI_TIMEOUT = 120
+RANGE_FRAME = b'{"options": {"rangeEnabled": true}}'
+FIELD_V = b'{"min": -1000, "max": 1000}'
+BSI_READS = [
+    "Count(Range(frame=r, v > 17))",
+    "Count(Range(frame=r, v <= -3))",
+    "Count(Range(frame=r, v == 0))",
+    "Count(Range(frame=r, v != 5))",
+    "Count(Range(frame=r, v >< [-100, 250]))",
+    "Sum(frame=r, field=v)",
+    "Min(frame=r, field=v)",
+    "Max(frame=r, field=v)",
+    "Sum(Bitmap(frame=r, rowID=1), frame=r, field=v)",
+    "Min(Range(frame=r, v > 0), frame=r, field=v)",
+    "Max(Bitmap(frame=r, rowID=9), frame=r, field=v)",
+    "Count(Intersect(Bitmap(frame=r, rowID=0), Range(frame=r, v >< [-500, 500])))",
+    "Range(frame=r, v > 900)",
+]
+
+
+def seeded_values(seed: int = 2):
+    """Columns over every slice with values in [-1000, 1000], the bounds
+    and 0 among them; bitmap rows 0-1 over the same slices."""
+    rng = np.random.default_rng(seed)
+    cols = rng.choice(N_SLICES * SW, size=600, replace=False)
+    vals = rng.integers(-1000, 1001, size=600)
+    vals[:3] = -1000, 1000, 0
+    return cols, vals, rng.integers(0, 2, 2000), rng.integers(0, N_SLICES * SW, 2000)
+
+
+def load_bsi_reference(j: JServer) -> None:
+    cols, vals, rows, bcols = seeded_values()
+    assert http(j.host, "POST", "/index/i")[0] == 200
+    assert http(j.host, "POST", "/index/i/frame/r", RANGE_FRAME)[0] == 200
+    assert http(j.host, "POST", "/index/i/frame/r/field/v", FIELD_V)[0] == 200
+    f = j.holder.frame("i", "r")
+    f.import_value("v", cols, vals)
+    f.import_bulk(rows, bcols)
+
+
+def test_port_cluster_bsi_answers_as_one_jax_node(tmp_path):
+    """Field creation on one node reaches the others; /import-value
+    through the client reaches every owner; Sum/Min/Max/Count(Range)
+    answer from every node as one JAX node does, in JSON and protobuf."""
+    j = jax_server(str(tmp_path / "ref"))
+    j.open()
+    nodes = port_cluster(tmp_path, "http")
+    try:
+        load_bsi_reference(j)
+        h0 = nodes[0].host
+        assert http(h0, "POST", "/index/i")[0] == 200
+        assert http(h0, "POST", "/index/i/frame/r", RANGE_FRAME)[0] == 200
+        assert http(h0, "POST", "/index/i/frame/r/field/v", FIELD_V)[0] == 200
+        assert http(h0, "POST", "/index/i/frame/r/field/w", b'{"min": 0, "max": 3}')[0] == 200
+        dup = http(nodes[1].host, "POST", "/index/i/frame/r/field/w", b'{"min": 0, "max": 3}')
+        assert dup[0] == 409
+        assert http(nodes[2].host, "DELETE", "/index/i/frame/r/field/w")[0] == 200
+        for s in nodes:
+            assert TClient(s.host, timeout=60).frame_fields("i", "r") == [
+                {"name": "v", "type": "int", "min": -1000, "max": 1000}]
+            assert s.holder.frame("i", "r").view("field_w") is None
+        cols, vals, rows, bcols = seeded_values()
+        client = TClient(nodes[1].host, timeout=60)
+        assert client.import_values("i", "r", "v", cols, vals) == list(range(N_SLICES))
+        client.import_bits("i", "r", rows, bcols)
+        for sl in range(N_SLICES):
+            owners = {n.host for n in nodes[0].cluster.fragment_nodes("i", sl)}
+            holding = {s.host for s in nodes if s.holder.fragment("i", "r", "field_v", sl)}
+            assert holding == owners
+        for s in nodes:
+            s.tick_max_slices()
+        hosts = [s.host for s in nodes]
+        assert_same_answers(hosts, j.host, BSI_READS, BSI_TIMEOUT)
+        # An overwrite through the cluster, then the answers again.
+        client.import_values("i", "r", "v", cols[:50], -vals[:50])
+        j.holder.frame("i", "r").import_value("v", cols[:50], -vals[:50])
+        assert_same_answers(hosts, j.host, BSI_READS[5:9], BSI_TIMEOUT)
+        with pytest.raises(Exception):
+            client.import_values("i", "r", "v", [1], [1001])  # out of range on every owner
+        nodes[2].close()
+        assert_same_answers(hosts[:2], j.host, BSI_READS[5:8], BSI_TIMEOUT)
+    finally:
+        for s in nodes:
+            s.close()
+        j.close()
+
+
+def test_mixed_cluster_sums_negative_values(tmp_path):
+    """One JAX node and one port node (static, replicas=1): the field
+    created on the JAX node reaches the port node; values imported to
+    each slice's owner; Sum/Min/Max with negative values reduce equally
+    whichever node coordinates."""
+    ref = jax_server(str(tmp_path / "ref"))
+    j = jax_server(str(tmp_path / "jax"), cluster=jtopo.Cluster(replica_n=1))
+    t = TServer(str(tmp_path / "torch"), device="cpu", polling_interval=3600)
+    for s in (ref, j, t):
+        s.open()
+    try:
+        load_bsi_reference(ref)
+        j.cluster.add_node(t.host)
+        t.add_peer(j.host)
+        for s in (j, t):
+            assert http(s.host, "POST", "/index/i")[0] == 200
+            assert http(s.host, "POST", "/index/i/frame/r", RANGE_FRAME)[0] == 200
+        assert http(j.host, "POST", "/index/i/frame/r/field/v", FIELD_V)[0] == 200
+        assert TClient(t.host, timeout=60).frame_fields("i", "r") == [
+            {"name": "v", "type": "int", "min": -1000, "max": 1000}]
+        cols, vals, rows, bcols = seeded_values()
+        TClient(t.host, timeout=60).import_values("i", "r", "v", cols, vals)
+        TClient(t.host, timeout=60).import_bits("i", "r", rows, bcols)
+        owners = {s: j.cluster.fragment_nodes("i", s)[0].host for s in range(N_SLICES)}
+        assert set(owners.values()) == {j.host, t.host}
+        j._tick_max_slices()
+        t.tick_max_slices()
+        sums = [q for q in BSI_READS if q.startswith(("Sum", "Min", "Max"))]
+        assert_same_answers([t.host, j.host], ref.host, sums, BSI_TIMEOUT)
+        status, data = ask_json(t.host, "Sum(frame=r, field=v)", BSI_TIMEOUT)
+        assert status == 200 and data["results"][0]["value"] == int(vals.sum())
+    finally:
+        for s in (t, j, ref):
+            s.close()

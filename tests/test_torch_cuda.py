@@ -107,3 +107,68 @@ def test_fragment_applies_queued_writes_with_one_launch(cuda, tmp_path):
     assert ds.launches == before + 1
     np.testing.assert_array_equal(mirror, frag._plane)
     frag.close()
+
+
+# --- K8: the BSI ripple --------------------------------------------------------
+
+
+def k8_field(depth: int, kinds, seed: int, device):
+    """A seeded field over len(kinds) slices, each slice's planes in its
+    own mirror in shuffled rows: random values, no valued column,
+    non-negative only, negative only, every value equal, or absent
+    planes (slot -1)."""
+    from pilosa_tpu_torch import bsi
+    from pilosa_tpu_torch.ops import bsi_ripple as br
+
+    rng = np.random.default_rng(seed)
+    W = tbp.WORDS_PER_SLICE
+    mirrors, slots = [], np.empty((len(kinds), 2 + depth), dtype=np.int64)
+    for s, kind in enumerate(kinds):
+        p = rng.integers(0, 2**32, size=(2 + depth, W), dtype=np.uint32)
+        if kind == "no_exists":
+            p[0] = 0
+        elif kind == "positive":
+            p[1] = 0
+        elif kind == "negative":
+            p[1] = 0xFFFFFFFF
+        elif kind == "all_equal":
+            v = int(rng.integers(1, 1 << depth))
+            p[2:] = [[0xFFFFFFFF if (v >> k) & 1 else 0] for k in range(depth)]
+        p[2:] &= p[0]
+        p[1] &= p[0] & np.bitwise_or.reduce(p[2:], axis=0)
+        order = rng.permutation(3 + depth)
+        mirror = np.zeros((3 + depth, W), dtype=np.uint32)
+        mirror[order[: 2 + depth]] = p
+        slots[s] = order[: 2 + depth]
+        if kind == "absent_planes":
+            slots[s, [1] + list(range(2, 2 + depth, 3))] = -1
+        mirrors.append(tbp.to_device(mirror, device))
+    filt = tbp.to_device(rng.integers(0, 2**32, size=(len(kinds), W), dtype=np.uint32), device)
+    return br.FieldPlanes(mirrors, slots, bsi.pad_depth(depth), device), filt
+
+
+@pytest.mark.parametrize("depth", [1, 7, 8, 9, 31, 62])
+def test_bsi_ripple_matches_plain(cuda, depth):
+    from pilosa_tpu_torch import bsi
+    from pilosa_tpu_torch.ops import bsi_ripple as br
+
+    kinds = ("random", "no_exists", "positive", "negative", "all_equal", "absent_planes")
+    fp_, filt = k8_field(depth, kinds, depth, cuda)
+    hi = (1 << depth) - 1
+    for count in (False, True):
+        for op0 in ("lt", "le", "eq", "ne", "ge", "gt"):
+            for v in (hi, -hi, 0, 1, -1, hi + 1, -hi - 1):
+                op, pv = bsi.clamp_predicate(op0, v, depth)
+                before = br.launches["bsi_cmp"]
+                got = br.bsi_cmp(fp_, op, pv, None, count)
+                torch.cuda.synchronize()
+                assert br.launches["bsi_cmp"] == before + 1
+                assert torch.equal(got, br.plain_bsi_cmp(fp_, op, pv, None, count)), (op, pv)
+        for a, b in ((-hi, hi), (-1, 1), (5, 2), (hi, -hi)):
+            lo, up = bsi.clamp_between(a, b, depth)
+            assert torch.equal(br.bsi_cmp(fp_, "between", lo, up, count),
+                               br.plain_bsi_cmp(fp_, "between", lo, up, count)), (a, b)
+    for f in (None, filt):
+        assert torch.equal(br.bsi_sum(fp_, f), br.plain_bsi_sum(fp_, f))
+        for which in ("min", "max"):
+            assert torch.equal(br.bsi_minmax(fp_, which, f), br.plain_bsi_minmax(fp_, which, f))

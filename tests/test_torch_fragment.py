@@ -201,3 +201,37 @@ def test_row_bitmap_counts_match_jax():
     assert ta.intersection_count(tb) == ja.intersection_count(jb)
     assert ta.bits()[:50] == ja.bits()[:50]
     assert ta.to_json_dict()["bits"] == ja.to_json_dict()["bits"]
+
+
+@pytest.mark.parametrize("n_clears", [40, 3000])
+def test_import_with_clears_matches_jax(tmp_path, n_clears):
+    """import_bulk with clears (the overwrite half of a BSI value import):
+    the same rows and counts as the JAX package, clears on absent rows
+    doing nothing, and the mirror equal to the host plane — through
+    and-not K7 entries for a small import, through the counted fallback
+    past IMPORT_SCATTER_MAX."""
+    from pilosa_tpu_torch.ingest import scatter
+
+    j, t = pair(tmp_path)
+    seeded_writes(j, t)
+    t.device_plane()  # a resident mirror, so the import queues or falls back
+    rng = np.random.default_rng(n_clears)
+    set_rows = rng.integers(0, 12, 200)
+    set_cols = SLICE * SW + rng.integers(0, SW, 200)
+    clr_rows = rng.integers(0, 20, n_clears)  # rows 14-19 do not exist
+    clr_cols = SLICE * SW + rng.integers(0, SW, n_clears)
+    both = np.isin(clr_cols, set_cols)  # a bit must not be in both lists
+    clr_rows, clr_cols = clr_rows[~both], clr_cols[~both]
+    before = scatter.counters()
+    j.import_bulk(set_rows, set_cols, clr_rows, clr_cols)
+    t.import_bulk(set_rows, set_cols, clr_rows, clr_cols)
+    after = scatter.counters()
+    if n_clears < scatter.IMPORT_SCATTER_MAX:
+        assert after["launches"] == before["launches"] + 1
+        assert after["fallbackInvalidations"] == before["fallbackInvalidations"]
+    else:
+        assert after["fallbackInvalidations"] == before["fallbackInvalidations"] + 1
+    assert_same_rows(j, t, range(20))
+    assert not any(t.has_row(r) for r in range(14, 20))
+    j.close()
+    t.close()

@@ -324,3 +324,42 @@ def test_cli_import_matches_jax(import_servers, tmp_path):
         path.write_text(text)
         for main, host in ((jax_main, j.host), (port_main, t.host)):
             assert main(["import", "--host", host, "-i", "i", "-f", "f", str(path)]) == 1, name
+
+
+def test_cli_import_field_matches_jax(import_servers, tmp_path):
+    """``import --field`` loads ``column,value`` records into a BSI field
+    as the JAX CLI's ``--value`` does, and fails where it fails."""
+    from pilosa_tpu.cli.main import main as jax_main
+    from pilosa_tpu_torch.cli.main import main as port_main
+
+    j, t = import_servers
+    for s in (j, t):
+        f = s.holder.frame("i", "f")
+        f.set_options(range_enabled=True)
+        f.create_field("v", -500, 500)
+    rng = np.random.default_rng(6)
+    cols = rng.choice(3 * SW, size=1500, replace=False)
+    vals = rng.integers(-500, 501, size=1500)
+    good = tmp_path / "values.csv"
+    good.write_text("\n".join(f"{c},{v}" for c, v in zip(cols, vals)) + "\n\n")
+    assert jax_main(["import", "--host", j.host, "-i", "i", "-f", "f", "--value", "v",
+                     "-s", "400", str(good)]) == 0
+    assert port_main(["import", "--host", t.host, "-i", "i", "-f", "f", "--field", "v",
+                      "-s", "400", str(good)]) == 0
+    q = (b"Sum(frame=f, field=v) Min(frame=f, field=v) Max(frame=f, field=v) "
+         b"Count(Range(frame=f, v > 7))")
+    answers = []
+    for s in (j, t):
+        req = urllib.request.Request(f"http://{s.host}/index/i/query", data=q, method="POST")
+        with urllib.request.urlopen(req, timeout=120) as resp:  # JAX compiles
+            answers.append(json.loads(resp.read()))
+    assert answers[1] == answers[0]
+    assert answers[0]["results"][0] == {"value": int(vals.sum()), "count": 1500}
+    bad = (("bad-col", "x,5\n"), ("short", "5\n"), ("bad-value", "1,y\n"),
+           ("out-of-range", "1,501\n"))
+    for name, text in bad:
+        path = tmp_path / f"{name}.csv"
+        path.write_text(text)
+        args = ["import", "-i", "i", "-f", "f", str(path)]
+        assert jax_main(args[:1] + ["--host", j.host, "--value", "v"] + args[1:]) == 1
+        assert port_main(args[:1] + ["--host", t.host, "--field", "v"] + args[1:]) == 1

@@ -170,3 +170,43 @@ def test_kernel_build_refuses_without_nvcc(monkeypatch):
     monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
     with pytest.raises(_build.KernelBuildError):
         _build.nvcc_path()
+
+
+def test_ripple_kernel_raises_without_its_library(monkeypatch):
+    """Where the planes are on the card, a missing K8 library raises out
+    of every wrapper: no path computes the plain version instead."""
+    import numpy as np
+
+    from pilosa_tpu_torch.ops import _build
+    from pilosa_tpu_torch.ops import bsi_ripple as br
+
+    mirror = torch.zeros(5, tbp.WORDS_PER_SLICE, dtype=torch.int32)
+    fp_ = br.FieldPlanes([mirror], np.array([[0, 1, 2, 3]], dtype=np.int64), 8, "cpu")
+
+    def no_library(name):
+        raise _build.KernelBuildError("nvcc not found: the CUDA kernels cannot be built")
+
+    monkeypatch.setattr(_build, "library", no_library)
+    monkeypatch.setattr(br, "_fns", {})
+    monkeypatch.setattr(br, "_on_cuda", lambda *a: True)  # as for planes on the card
+    before = dict(br.launches)
+    for call in (lambda: br.bsi_cmp(fp_, "gt", 1), lambda: br.bsi_cmp(fp_, "between", -1, 1, True),
+                 lambda: br.bsi_sum(fp_), lambda: br.bsi_minmax(fp_, "min")):
+        with pytest.raises(_build.KernelBuildError):
+            call()
+    assert br.launches == before
+
+
+def test_ripple_wrappers_raise_off_the_cpu():
+    import numpy as np
+
+    from pilosa_tpu_torch.ops import bsi_ripple as br
+
+    meta = torch.empty(4, tbp.WORDS_PER_SLICE, dtype=torch.int32, device="meta")
+    fp_ = br.FieldPlanes([meta], np.array([[0, 1, 2, 3]], dtype=np.int64), 8, "meta")
+    before = dict(br.launches)
+    for call in (lambda: br.bsi_cmp(fp_, "lt", 0), lambda: br.bsi_sum(fp_),
+                 lambda: br.bsi_minmax(fp_, "max")):
+        with pytest.raises(ValueError):
+            call()
+    assert br.launches == before

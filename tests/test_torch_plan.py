@@ -94,7 +94,7 @@ def test_eval_with_absent_leaves_matches_eval_expr_np(pql):
             np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("pql", ["Range(frame=f, rowID=1)", "Foo()", "Intersect()"])
+@pytest.mark.parametrize("pql", ["Sum(frame=f, field=v)", "Foo()", "Intersect()"])
 def test_unsupported_trees_raise(pql):
     with pytest.raises(tplan.PlanError):
         tplan.decompose(tparse(pql).calls[0])

@@ -231,3 +231,26 @@ def test_negative_in_unsigned_field_raises():
         wire.Pair(Key=-1).encode()
     with pytest.raises(ValueError):
         wire.Bitmap(Bits=[1, -1]).encode()
+
+
+@given(value=st.integers(-(1 << 63), (1 << 63) - 1), count=st.integers(0, 1 << 40))
+@settings(max_examples=80, deadline=None)
+def test_valcount_rides_pairs_as_jax(value, count):
+    """A Sum/Min/Max result travels as one Pair (value u64-wrapped, then
+    sign-extended by the reduce): the same bytes as the JAX codec's, the
+    same JSON, and the executor's decode gives the value back."""
+    from pilosa_tpu import bsi as jbsi
+    from pilosa_tpu.net import codec as jcodec
+    from pilosa_tpu_torch import bsi as tbsi
+    from pilosa_tpu_torch.exec.executor import Executor
+    from pilosa_tpu_torch.net import codec as tcodec
+
+    ours = tcodec.result_to_proto(tbsi.ValCount(value, count)).encode()
+    theirs = jcodec.result_to_proto(jbsi.ValCount(value, count)).SerializeToString()
+    assert ours == theirs
+    resp = tcodec.response_to_proto([tbsi.ValCount(value, count), None]).encode()
+    assert resp == jcodec.response_to_proto([jbsi.ValCount(value, count), None]).SerializeToString()
+    assert tcodec.result_to_json(tbsi.ValCount(value, count)) == jcodec.result_to_json(
+        jbsi.ValCount(value, count))
+    back = tcodec.result_from_proto(wire.QueryResult.decode(theirs))
+    assert Executor._normalize_valcount(back) == tbsi.ValCount(value, count)
