@@ -356,8 +356,6 @@ K8_GROUPS = {1: [("random",), ("no_exists",), ("all_equal",)],
                  ("no_fragment", "random", "all_equal")]}
 K8_CMP_OPS = ("lt", "le", "eq", "ne", "ge", "gt")
 K8_DEPTH = 31  # a signed 32-bit field: 31 magnitude planes
-# Where k8_field makes its planes (a CPU rehearsal of phase 3 sets "cpu").
-DEVICE = "cuda"
 
 
 def k8_field(br, bsi, depth: int, kinds, seed: int):
@@ -368,7 +366,7 @@ def k8_field(br, bsi, depth: int, kinds, seed: int):
     every third bit row (slot -1), ``no_fragment`` has no mirror."""
     import torch
 
-    dev = torch.device(DEVICE)
+    dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     n = len(kinds)

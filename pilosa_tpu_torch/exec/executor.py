@@ -56,6 +56,7 @@ from pilosa_tpu_torch.core.view import VIEW_INVERSE, VIEW_STANDARD
 from pilosa_tpu_torch.exec import plan
 from pilosa_tpu_torch.net.client import is_node_failure
 from pilosa_tpu_torch.ops import bitplane as bp
+from pilosa_tpu_torch.ops import bsi_ripple
 from pilosa_tpu_torch.pql.parser import TIME_FORMAT, Call, Query
 
 # reference: executor.go:33-40
@@ -332,31 +333,39 @@ class Executor:
         """The plan's inputs for every leaf over the slices where at least
         one leaf row exists (elsewhere every tree is empty): ``(inputs,
         kept)``.  A row leaf becomes an int32 [len(kept), 32768] stack of
-        mirror rows (an absent row is a zero row); a BSI plane leaf a
-        ``plan.PlaneLeaf`` — the field fragments' mirrors and the leaf's
-        row in each, read in place by the ripple kernel; a predicate a
+        mirror rows (an absent row is a zero row); every BSI plane leaf of
+        a field the field's one ``bsi_ripple.FieldPlanes`` — its fragments'
+        mirrors and the rows of exists, sign and each magnitude bit in
+        them, read in place by the ripple kernel; a predicate a
         ``plan.PredLeaf``; a pad plane None."""
         targets = [self._resolve_leaf(index, leaf) for leaf in leaves]
-        # The plane leaves of one field read one fragment per slice.
+        # The plane leaves of one field read one fragment per slice, at
+        # the field's rows 0 .. 1 + depth, in that order in each BSI node.
         fields: dict[int, tuple] = {}
         for j, t in enumerate(targets):
             if t[0] == "plane":
-                fields.setdefault(id(t[1]), (t[1], []))[1].append(j)
+                fields.setdefault(id(t[1]), (t[1], []))[1].append(t[2])
+        for _, prows in fields.values():
+            nrows = max(prows) + 1
+            if nrows < 3 or prows != list(range(nrows)) * (len(prows) // nrows):
+                raise plan.PlanError(
+                    "a field's plane leaves must list exists, sign and every bit in order")
+            del prows[nrows:]
         rows: dict[int, list] = {j: [] for j, t in enumerate(targets) if t[0] == "row"}
         mirrors: dict[int, list] = {key: [] for key in fields}
-        slots: dict[int, list] = {j: [] for _, js in fields.values() for j in js}
+        slots: dict[int, list] = {key: [] for key in fields}
         kept: list[int] = []
         zero = self._zero_row(self.holder.device)
         for s in slices:
             got = {j: self._union_row(targets[j][1], targets[j][2], s) for j in rows}
             any_set = any(r is not None for r in got.values())
             planes = {}
-            for key, (view, js) in fields.items():
+            for key, (view, prows) in fields.items():
                 frag = view.fragment(s) if view is not None else None
                 if frag is None:
-                    planes[key] = (None, [-1] * len(js))
+                    planes[key] = (None, [-1] * len(prows))
                     continue
-                planes[key] = frag.device_slots([targets[j][2] for j in js])
+                planes[key] = frag.device_slots(prows)
                 any_set = any_set or any(x >= 0 for x in planes[key][1])
             if not any_set:
                 continue
@@ -365,18 +374,22 @@ class Executor:
                 rows[j].append(zero if r is None else r)
             for key, (mirror, sl) in planes.items():
                 mirrors[key].append(mirror)
-                for j, x in zip(fields[key][1], sl):
-                    slots[j].append(x)
+                slots[key].append(sl)
         if not kept:
             return [], kept
+        field_planes = {
+            key: bsi_ripple.FieldPlanes(
+                mirrors[key], np.asarray(slots[key], dtype=np.int64),
+                bsi.pad_depth(len(prows) - 2), self.holder.device,
+            )
+            for key, (_, prows) in fields.items()
+        }
         inputs: list = []
         for j, t in enumerate(targets):
             if t[0] == "row":
                 inputs.append(torch.stack(rows[j]))
             elif t[0] == "plane":
-                inputs.append(plan.PlaneLeaf(
-                    mirrors[id(t[1])], np.asarray(slots[j], dtype=np.int64), self.holder.device
-                ))
+                inputs.append(field_planes[id(t[1])])
             elif t[0] == "pred":
                 inputs.append(plan.PredLeaf(t[1]))
             else:

@@ -14,9 +14,11 @@ is never written to device memory.
 The BSI nodes the executor's rewrite produces (``BsiCmp`` over
 ``BsiPlane``/``BsiZero``/``BsiPred`` leaves, and ``BsiSum``/``BsiMin``/
 ``BsiMax`` with an optional filter subtree) decompose as in the JAX
-package.  Their plane leaves are not stacked: the executor hands each as
-a :class:`PlaneLeaf` (the field fragments' mirrors and the leaf's row in
-each), and the node runs on the ripple kernel K8
+package.  Their plane leaves are not stacked: the executor hands every
+plane leaf of a field the field's one :class:`~pilosa_tpu_torch.ops.
+bsi_ripple.FieldPlanes` (its fragments' mirrors and the rows of exists,
+sign and each magnitude bit in them), and the node runs on the ripple
+kernel K8
 (``ops/bsi_ripple.py``), which reads the planes in place — in count mode
 when the comparison is the root of a Count, in row mode inside a fold,
 and :func:`agg_vectors` for the aggregates.
@@ -55,18 +57,6 @@ NEUTRAL_LEAVES = frozenset({"BsiPred", "BsiZero"})
 
 class PlanError(ValueError):
     pass
-
-
-@dataclass
-class PlaneLeaf:
-    """A ``BsiPlane`` leaf over the kept slices: ``mirrors[s]`` is the
-    field fragment's mirror in slice s (or None), shared by every plane
-    leaf of the field, and ``slots[s]`` the leaf's row in it (-1:
-    absent)."""
-
-    mirrors: list
-    slots: np.ndarray
-    device: torch.device
 
 
 @dataclass
@@ -136,21 +126,22 @@ def _rows_shape(inputs) -> tuple[int, torch.device]:
     for x in inputs:
         if isinstance(x, torch.Tensor):
             return x.shape[0], x.device
-        if isinstance(x, PlaneLeaf):
-            return len(x.slots), x.device
+        if isinstance(x, bsi_ripple.FieldPlanes):
+            return x.n, x.device
     raise PlanError("a tree without row or plane leaves has no rows")
 
 
 def _field(kids: tuple, inputs) -> tuple[bsi_ripple.FieldPlanes, list[int]]:
     """A BSI node's plane/pad/predicate leaves as the kernel's input:
-    (FieldPlanes over exists, sign and the real magnitude planes, with the
-    pads setting the bucket; the predicate values)."""
+    (the field's FieldPlanes, which every plane leaf of the node holds;
+    the predicate values).  The node must read each of the field's
+    planes once and pad them to its bucket."""
     planes, preds, pads = [], [], 0
     for e in kids:
         if e[0] != "leaf":
             raise PlanError("a BSI node's planes must be leaves")
         x = inputs[e[1]]
-        if isinstance(x, PlaneLeaf):
+        if isinstance(x, bsi_ripple.FieldPlanes):
             planes.append(x)
         elif isinstance(x, PredLeaf):
             preds.append(x.value)
@@ -158,14 +149,10 @@ def _field(kids: tuple, inputs) -> tuple[bsi_ripple.FieldPlanes, list[int]]:
             pads += 1
         else:
             raise PlanError("a BSI node takes plane, pad and predicate leaves")
-    if len(planes) < 3:
-        raise PlanError("a BSI node needs exists, sign and at least one bit plane")
-    fp = bsi_ripple.FieldPlanes(
-        planes[0].mirrors,
-        np.stack([p.slots for p in planes], axis=1).astype(np.int64),
-        len(planes) - 2 + pads,
-        planes[0].device,
-    )
+    fp = planes[0] if planes else None
+    if (fp is None or any(p is not fp for p in planes) or len(planes) != 2 + fp.depth
+            or pads != fp.bucket - fp.depth):
+        raise PlanError("a BSI node must read every plane of one field, padded to its bucket")
     return fp, preds
 
 
@@ -180,7 +167,8 @@ def _cmp(expr: tuple, inputs, count: bool) -> torch.Tensor:
 def eval_expr(expr: tuple, inputs: list) -> torch.Tensor:
     """The result rows of a decomposed tree (int32 [n, words]) over the
     leaf inputs: ``inputs[i]`` is an int32 [n, words] stack for a row
-    leaf, a :class:`PlaneLeaf`, a :class:`PredLeaf`, or None (a pad).
+    leaf, a BSI plane leaf's FieldPlanes, a :class:`PredLeaf`, or None
+    (a pad).
     Folds are torch bitwise ops; a comparison is one K8 launch (row
     mode)."""
     if expr[0] == "leaf":

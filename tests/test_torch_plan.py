@@ -98,3 +98,41 @@ def test_eval_with_absent_leaves_matches_eval_expr_np(pql):
 def test_unsupported_trees_raise(pql):
     with pytest.raises(tplan.PlanError):
         tplan.decompose(tparse(pql).calls[0])
+
+
+def _bsi_node_inputs(case: str):
+    """A depth-1 field's ``bsiCmp eq 1`` node over one CPU slice (exists,
+    sign, bit 0, seven pads to the bucket of 8, the predicate), bent per
+    ``case``."""
+    from pilosa_tpu_torch.ops import bsi_ripple as br
+
+    mirror = tbp.to_device(leaf_batch(1, 3, seed=5)[0], "cpu")
+
+    def field():
+        return br.FieldPlanes([mirror], np.array([[0, 1, 2]], dtype=np.int64), 8, "cpu")
+
+    fp_ = field()
+    inputs = [fp_, fp_, fp_] + [None] * 7 + [tplan.PredLeaf(1)]
+    if case == "two_fields":
+        inputs[1] = field()
+    elif case == "missing_pad":
+        inputs = inputs[:9] + inputs[10:]
+    elif case == "missing_plane":
+        inputs = inputs[:2] + inputs[3:]
+    expr = ("bsiCmp", "eq") + tuple(("leaf", j) for j in range(len(inputs)))
+    return expr, inputs, mirror
+
+
+def test_bsi_node_reads_one_whole_field():
+    expr, inputs, mirror = _bsi_node_inputs("whole")
+    rows = tbp.to_host(mirror)
+    want = rows[0] & ~rows[1] & rows[2]  # valued, not negative, bit 0: v == 1
+    np.testing.assert_array_equal(tbp.to_host(tplan.eval_expr(expr, inputs))[0], want)
+    assert int(tplan.count_rows(expr, inputs)[0]) == int(np.unpackbits(want.view(np.uint8)).sum())
+
+
+@pytest.mark.parametrize("case", ["two_fields", "missing_pad", "missing_plane"])
+def test_bsi_node_over_part_of_a_field_raises(case):
+    expr, inputs, _ = _bsi_node_inputs(case)
+    with pytest.raises(tplan.PlanError):
+        tplan.eval_expr(expr, inputs)
