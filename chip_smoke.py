@@ -15,25 +15,32 @@ without printing its final line:
    (K8) depths 1, 7, 8, 9, 31 and 62, 1, 3 and 954 slices, every
    comparison at the window's edges, 0 and +-1, empty betweens, slices
    with no value, one sign only, one value, absent planes and no
-   fragment, Sum/Min/Max with and without a filter;
+   fragment, Sum/Min/Max with and without a filter; for the TopN scorer
+   (K4) 1, 3 and 954 fragments with mirrors of 1, 8, 64 and 65 rows mixed
+   in one launch, candidate lists of 1 to every row with -1 pads,
+   self-src and row-src, all-zero and all-ones src rows;
 4. time each kernel at the main path's shapes (CUDA events around runs
    of back-to-back calls, median of 21 runs), beside its bound and its
    plain version's time; for the delta-scatter kernel also the time of
    an empty kernel launch, the floor that bounds it; and each kernel's
    own device time per launch from a torch.profiler trace; K8 at [954
-   slices, depth 31];
+   slices, depth 31]; K4 at [954 fragments, 8 candidates] and [954, 64],
+   and K1 at the per-fragment TopN shape it served before K4 ([8, 32768]
+   and [64, 32768] against a broadcast src row);
 5. serve a 1B-column index — 954 slices x 8 dense rows, seeded random
    words, about 1 GiB on the card — with ``Server(device="cuda")`` and
    answer Count/Bitmap/TopN/SetBit over HTTP, every answer checked
    against a numpy oracle over the same planes, with the kernels'
-   launch counts reset just before and read just after;
+   launch counts reset just before and read just after (TopN(src): one
+   K4 launch per request, no K1);
 6. a cluster on the one card: three ``Server(device="cuda")`` nodes of
    an http cluster with 2 replicas; the schema created on one node
    reaches the others by broadcast; each node loads the phase-5 planes
    of the slices it owns (~2 GiB of mirrors); then a protobuf
    ``/import`` of 2^20 seeded bits (~1,100 per fragment: the
    delta-scatter path), Count/TopN queries to every node in protobuf
-   and JSON checked against the numpy oracle; a BSI field created on one
+   and JSON checked against the numpy oracle (TopN(src): one K4 launch
+   per node leg and round); a BSI field created on one
    node (its fan-out reaches the others), ``/import-value`` to every
    owner of 64 slices, Count(Range)/Sum/Min/Max from every node; a
    second import into new rows (the counted fallback to a mirror
@@ -53,7 +60,12 @@ without printing its final line:
    40 days, then Range(start, end) counts inside a month, across the
    month boundary and over the year, plain and inside Intersect,
    against numpy over the written triples;
-9. print the ``kernels`` JSON line, then the final JSON line.
+9. on the phase-5 node, a TopN frame of 64 rows per fragment over the 954
+   slices (1B columns, 8 GiB of mirrors), row k at density
+   0.5 * 2^(-k/8), generated on the card slice by slice: TopN without a
+   src, self-src, row-src (a tree over phase 5's frame), with threshold,
+   tanimotoThreshold and ids, against a numpy oracle of per-slice scores;
+10. print the ``kernels`` JSON line, then the final JSON line.
 
 Exits non-zero when ``torch.cuda.is_available()`` is false, and when the
 port's package is not beside this file.
@@ -70,6 +82,7 @@ import tempfile
 import time
 import urllib.error
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from datetime import datetime, timedelta, timezone
 
 import numpy as np
@@ -94,6 +107,13 @@ TIME_SLICES = 16
 TIME_ROWS = 4
 TIME_BITS = 1 << 16
 TIME_DAYS = 40
+# Phase 9: the TopN frame: rows per fragment over all slices, n, the row-src
+# threshold and the explicit ids.
+TOPN_ROWS = 64
+TOPN_N = 10
+TOPN_THRESHOLD = 2000
+TOPN_IDS = (0, 5, 17, 33, 63, 99)
+LOAD_THREADS = 6
 # Phase 3/4: the delta-scatter entry counts held and timed.
 K7_NS = (1, 31, 1100, 4096, 8192)
 K7_TIMED_NS = (1100, 4096)
@@ -539,6 +559,155 @@ def time_k8(br, bsi, hbm: float) -> dict:
     return out
 
 
+# Phase 3/4: the cross-fragment TopN scorer K4.  Mirror row counts checked
+# (cycled over the fragments of a launch) and the shapes timed: phase 5's
+# TopN(src) ([954 fragments, 8 candidates]) and phase 9's ([954, 64]).
+K4_ROWS = (1, 8, 64, 65)
+K4_TIMED = (8, TOPN_ROWS)
+
+
+def k4_mirrors(rows: list[int], seed: int) -> list:
+    """Seeded mirrors on the card, fragment f with ``rows[f]`` rows of
+    random words, row 1 all-zero and row 2 all-ones where they exist."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    out = []
+    for r in rows:
+        p = torch.randint(-2**31, 2**31, (r, 32768), dtype=torch.int32,
+                          device="cuda", generator=g)
+        if p.shape[0] > 1:
+            p[1] = 0
+        if p.shape[0] > 2:
+            p[2] = -1
+        out.append(p)
+    return out
+
+
+def k4_slot_tables(rows: list[int], rng) -> dict:
+    """Candidate slot tables (int64 [F, R], -1 pads): one candidate each,
+    every row, ragged lists of 1, 13 and 17 rows (past a tile of 8, not a
+    multiple of it) and every row, and every row with pads past every list."""
+    n, width = len(rows), max(rows)
+    one = np.array([[rng.integers(0, r)] for r in rows], dtype=np.int64)
+    every = np.full((n, width), -1, np.int64)
+    ragged = np.full((n, width), -1, np.int64)
+    for f, r in enumerate(rows):
+        every[f, :r] = rng.permutation(r)
+        k = min((1, 13, 17, r)[f % 4], r)
+        ragged[f, :k] = rng.choice(r, size=k, replace=False)
+    padded = np.concatenate([every, np.full((n, 5), -1, np.int64)], axis=1)
+    return {"one": one, "every": every, "ragged": ragged, "padded": padded}
+
+
+def k4_srcs(mirrors: list, rng) -> dict:
+    """Src rows: a row of each fragment's own mirror (self-src, the
+    all-ones row where there is one too), and rows of a separate tensor —
+    random, all-zero and all-ones."""
+    import torch
+
+    n = len(mirrors)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(int(rng.integers(0, 2**31)))
+    rnd = torch.randint(-2**31, 2**31, (n, 32768), dtype=torch.int32, device="cuda", generator=g)
+    zero = torch.zeros(n, 32768, dtype=torch.int32, device="cuda")
+    ones = torch.full((n, 32768), -1, dtype=torch.int32, device="cuda")
+    return {
+        "self": [m[int(rng.integers(0, m.shape[0]))] for m in mirrors],
+        "self_ones": [m[min(2, m.shape[0] - 1)] for m in mirrors],
+        "row": list(rnd), "row_zero": list(zero), "row_ones": list(ones),
+    }
+
+
+def check_k4(sp, rng) -> float:
+    """K4 against its plain version on the card, exactly: 1, 3 and 954
+    fragments; mirrors of 1, 8, 64 and 65 rows, unequal in one launch;
+    every slot table of :func:`k4_slot_tables` and every src of
+    :func:`k4_srcs`.  Returns the largest absolute difference (0)."""
+    import torch
+
+    groups = [(r,) for r in K4_ROWS] + [(8, 64, 65), (65, 1, 8)]
+    groups.append(tuple(K4_ROWS[f % len(K4_ROWS)] for f in range(N_SLICES)))
+    worst, n_checks = 0, 0
+    for gi, rows in enumerate(groups):
+        mirrors = k4_mirrors(list(rows), SEED + 20 + gi)
+        srcs = k4_srcs(mirrors, rng)
+        for tname, slots in k4_slot_tables(list(rows), rng).items():
+            for sname, src in srcs.items():
+                before = sp.launches
+                got = sp.score_planes(mirrors, slots, src)
+                torch.cuda.synchronize()
+                if sp.launches != before + 1:
+                    raise AssertionError(f"score_planes {tname}/{sname}: "
+                                         f"{sp.launches - before} launches")
+                want = sp.plain_score_planes(mirrors, slots, src)
+                torch.cuda.synchronize()
+                if got.shape != want.shape or got.dtype != want.dtype:
+                    raise AssertionError(f"score_planes shape/dtype {tuple(got.shape)} {got.dtype}")
+                diff = int((got.long() - want.long()).abs().max())
+                worst = max(worst, diff)
+                n_checks += 1
+                if diff:
+                    raise AssertionError(f"score_planes != plain: fragments={len(rows)} "
+                                         f"rows={rows[:4]} slots={tname} src={sname} diff={diff}")
+        del mirrors, srcs
+    log(f"phase 3: score_planes == plain on {n_checks} cases (max_abs_err {worst}): 1, 3 and "
+        f"{N_SLICES} fragments, mirror rows {K4_ROWS} mixed in one launch, candidate lists "
+        "1, 13, 17 and every row with -1 pads, self-src and row-src, all-zero and all-ones src")
+    return float(worst)
+
+
+def k4_bound_ms(n: int, cands: int, src_in_cands: bool, hbm: float) -> tuple[float, str]:
+    """Least time for one K4 launch over n fragments of ``cands`` real
+    candidates: each distinct row read once, 128 KiB apiece — the
+    candidates, and the src row unless it is one of them (self-src on a
+    candidate row) — the table of addresses and slots read once, 4 bytes
+    written per score; 3 int ops per word."""
+    rows = n * (cands + (0 if src_in_cands else 1))
+    nbytes = rows * 32768 * 4 + n * (2 + cands) * 8 + n * cands * 4
+    t_bytes = nbytes / hbm
+    t_ops = n * cands * 32768 * 3 / SCALAR_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_k4(sp, fp, hbm: float) -> dict:
+    """K4 at [954 fragments, R candidates] for R in K4_TIMED — every row of
+    R-row mirrors against each mirror's row 0 (self-src, as in
+    TopN(Bitmap(frame=f, rowID=0), frame=f)) — back to back, by profiler
+    device time, its plain version and its bound; and K1 at the shape it
+    had on TopN until now, one launch per fragment ([R, 32768] against a
+    broadcast src row)."""
+    out = {}
+    for cands in K4_TIMED:
+        mirrors = k4_mirrors([cands] * N_SLICES, SEED + 30 + cands)
+        slots = np.tile(np.arange(cands, dtype=np.int64), (N_SLICES, 1))
+        srcs = [m[0] for m in mirrors]
+        k_ms = time_cuda(lambda: sp.score_planes(mirrors, slots, srcs), runs=11, per_run=10)
+        k_dev = device_ms(lambda: sp.score_planes(mirrors, slots, srcs), "score_planes_kernel",
+                          launches=20)
+        plain_ms = time_cuda(lambda: sp.plain_score_planes(mirrors, slots, srcs), runs=3,
+                             per_run=2, warmup=1)
+        bound_ms, bound_by = k4_bound_ms(N_SLICES, cands, True, hbm)  # src = candidate 0
+        m0 = mirrors[0]
+        k1_ms = time_cuda(lambda: fp.row_popcounts(m0, m0[:1], "and"))
+        k1_dev = device_ms(lambda: fp.row_popcounts(m0, m0[:1], "and"), "fused_popcount_kernel")
+        k1_bound, k1_by = k1_bound_ms(cands, True, True, hbm)
+        out[cands] = {"ms": k_ms, "device_ms": k_dev, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "k1_ms": k1_ms, "k1_device_ms": k1_dev, "k1_bound_ms": k1_bound,
+                      "k1_bound_by": k1_by}
+        share = bound_ms / k_dev if k_dev else float("nan")
+        log(f"phase 4: score_planes [{N_SLICES}, {cands}] self-src: {k_ms:.4f} ms back to back, "
+            f"device time per launch from the profiler {k_dev} ms ({share:.1%} of the bound), "
+            f"bound {bound_ms:.4f} ms by {bound_by}, plain {plain_ms:.4f} ms")
+        log(f"phase 4: fused_popcount at the per-fragment TopN shape [{cands}, 32768] against a "
+            f"broadcast src: {k1_ms:.4f} ms back to back, device {k1_dev} ms, bound "
+            f"{k1_bound:.6f} ms by {k1_by} (x {N_SLICES} launches and host syncs per phase)")
+        del mirrors, srcs
+    return out
+
+
 def http(host: str, method: str, path: str, body: bytes = b"") -> tuple[int, object]:
     req = urllib.request.Request(
         f"http://{host}{path}", data=body if method != "GET" else None, method=method
@@ -550,21 +719,42 @@ def http(host: str, method: str, path: str, body: bytes = b"") -> tuple[int, obj
         return e.code, json.loads(e.read())
 
 
-def topn_oracle(scores: np.ndarray, n: int) -> list[dict]:
-    """The two-phase TopN protocol over per-slice scores [slices, rows]:
-    per-slice winners (count desc, id asc, count > 0, first n), their
-    union, exact summed counts, sorted and trimmed to n."""
-    winners = set()
-    for row in scores:
-        ids = [r for r in np.lexsort((np.arange(len(row)), -row)) if row[r] > 0]
-        winners.update(int(r) for r in ids[:n])
-    pairs = [(int(r), int(scores[:, r].sum())) for r in sorted(winners)]
+def topn_oracle(scores: np.ndarray, n: int, totals: np.ndarray | None = None,
+                threshold: int = 1, tanimoto: int = 0, src_counts: np.ndarray | None = None,
+                ids=None) -> list[dict]:
+    """The TopN protocol over per-slice scores [slices, rows] (``totals``:
+    each row's count, the ranked cache's; the scores themselves without
+    a src): a (slice, row) is eligible where the row's count passes the
+    candidate filter (>= threshold, or inside the tanimoto window of the
+    slice's src count) and its score does (> 0 and >= threshold, or a
+    tanimoto score above the threshold); each slice's winners are its n
+    best eligible rows (count desc, id asc); a winner's count is the sum
+    of its eligible scores, sorted and trimmed to n.  With ``ids`` the
+    winners are those ids, untrimmed."""
+    totals = scores if totals is None else totals
+    if tanimoto:
+        sc = src_counts.astype(np.int64)[:, None]
+        cand = ((totals > 0) & (totals > sc * tanimoto / 100)
+                & (totals < sc * 100 / tanimoto))
+        with np.errstate(divide="ignore", invalid="ignore"):
+            tan = np.ceil(scores * 100.0 / (totals + sc - scores))
+        keep = cand & (scores > 0) & (tan > tanimoto)
+    else:
+        keep = (totals > 0) & (totals >= threshold) & (scores > 0) & (scores >= threshold)
+    if ids is not None:
+        winners = {int(r) for r in ids if r < scores.shape[1]}
+    else:
+        winners = set()
+        for row, ok in zip(scores, keep):
+            order = [r for r in np.lexsort((np.arange(len(row)), -row)) if ok[r]]
+            winners.update(int(r) for r in order[:n])
+    pairs = [(r, int(scores[keep[:, r], r].sum())) for r in sorted(winners)]
     pairs = [p for p in pairs if p[1] > 0]
     pairs.sort(key=lambda p: (-p[1], p[0]))
-    return [{"id": i, "count": c} for i, c in pairs[:n]]
+    return [{"id": i, "count": c} for i, c in (pairs if ids is not None else pairs[:n])]
 
 
-def serve_and_check(fp, ds, bp, convert, srv, rng) -> dict:
+def serve_and_check(fp, ds, sp, bp, convert, srv, rng) -> dict:
     """Phase 5 on ``srv``, an open one-node ``Server`` on the card, which
     stays open for phases 7-8."""
     import torch
@@ -627,12 +817,14 @@ def serve_and_check(fp, ds, bp, convert, srv, rng) -> dict:
          pc(p1 ^ p3), 1),
         ("bitmap_g", "Bitmap(frame=g, rowID=1)", {"attrs": {}, "bits": g_row1}, 0),
         ("topn", "TopN(frame=f, n=5)", topn_oracle(row_totals, 5), 0),
+        # The folded TopN: one K4 launch scores every fragment, no K1.
         ("topn_src", "TopN(Bitmap(frame=f, rowID=0), frame=f, n=5)",
-         topn_oracle(src_scores, 5), 2 * N_SLICES),
+         topn_oracle(src_scores, 5), 0),
     ]
+    k4_per_query = {"topn_src": 1}
 
-    fp.launches = ds.launches = 0  # the main path starts here
-    expected_launches = 0
+    fp.launches = ds.launches = sp.launches = 0  # the main path starts here
+    expected_launches = expected_k4 = 0
     latencies: dict[str, float] = {}
     for name, pql, want, per_query in queries:
         times = []
@@ -644,6 +836,7 @@ def serve_and_check(fp, ds, bp, convert, srv, rng) -> dict:
                 raise AssertionError(f"{name}: {status} {str(body)[:300]} != {want}")
         latencies[name] = statistics.median(times) * 1e3
         expected_launches += REPS * per_query
+        expected_k4 += REPS * k4_per_query.get(name, 0)
 
     # A write, then the count that must see it.
     col = next(c for c in range(N_SLICES << 20)
@@ -661,6 +854,9 @@ def serve_and_check(fp, ds, bp, convert, srv, rng) -> dict:
     expected_launches += 1
     launches = fp.launches  # the main path ends here
     k7_launches = ds.launches
+    k4_launches = sp.launches
+    if k4_launches != expected_k4:
+        raise AssertionError(f"score_planes launches {k4_launches} != expected {expected_k4}")
     if launches != expected_launches:
         raise AssertionError(
             f"fused_popcount launches {launches} != expected {expected_launches}"
@@ -670,11 +866,13 @@ def serve_and_check(fp, ds, bp, convert, srv, rng) -> dict:
         raise AssertionError(f"delta_scatter launches {k7_launches} != expected 1")
     out["launches"] = launches
     out["k7_launches"] = k7_launches
+    out["k4_launches"] = k4_launches
     for name, ms in latencies.items():
         log(f"phase 5: {name} p50 {ms:.3f} ms over {REPS} requests")
     log(f"phase 5: answers == numpy oracle; fused_popcount launches {launches} "
         f"(expected {expected_launches}); delta_scatter launches {k7_launches} "
-        "(the SetBit's delta, applied by the next Count)")
+        "(the SetBit's delta, applied by the next Count); score_planes launches "
+        f"{k4_launches} (one per TopN(src) request)")
 
     # Leaf-stack assembly apart from the kernel: the Count(Intersect)
     # leaves, stacked from the 954 fragments' mirrors.
@@ -706,7 +904,8 @@ def set_bits(truth: np.ndarray, rows: np.ndarray, cols: np.ndarray) -> None:
     np.bitwise_or.at(truth, (cols >> 20, rows, offs >> 5), masks)
 
 
-def cluster_and_check(fp, ds, br, scatter, convert, Server, InternalClient, planes, rng) -> dict:
+def cluster_and_check(fp, ds, br, sp, scatter, convert, Server, InternalClient, planes,
+                      rng) -> dict:
     """Phase 6: three nodes, two replicas, import + queries + fallback +
     failover, and the BSI leg (a field created on one node, values to
     every owner, aggregates and comparisons from every node, again with a
@@ -762,7 +961,7 @@ def cluster_and_check(fp, ds, br, scatter, convert, Server, InternalClient, plan
             set_bits(truth, rows, cols)
             touched = 2 * len(np.unique(cols >> 20))  # fragment replicas
 
-            fp.launches = ds.launches = 0  # the main path starts here
+            fp.launches = ds.launches = sp.launches = 0  # the main path starts here
             br.launches = dict.fromkeys(br.KERNELS, 0)
             fb0 = scatter.counters()["fallbackInvalidations"]
             client = InternalClient(h0, timeout=600)
@@ -832,7 +1031,18 @@ def cluster_and_check(fp, ds, br, scatter, convert, Server, InternalClient, plan
                 return p50
 
             hosts = [srv.host for srv in nodes]
+            k4_before = sp.launches
             latencies = run(counts + topns, hosts, CLUSTER_REPS)
+            # TopN(src) from any node: the two rounds of the map/reduce, each
+            # leg one K4 launch over the node's fragments.
+            legs = len(nodes[0].executor._slices_by_node(cluster.nodes, "i",
+                                                          list(range(N_SLICES))))
+            want_k4 = 3 * 2 * CLUSTER_REPS * 2 * legs
+            if sp.launches - k4_before != want_k4:
+                raise AssertionError(f"phase 6 TopN(src): score_planes launches "
+                                     f"{sp.launches - k4_before} != {want_k4} (2 rounds x "
+                                     f"{legs} node legs x {3 * 2 * CLUSTER_REPS} requests)")
+            out["k4_legs"] = legs
             for name, ms in latencies.items():
                 log(f"phase 6: {name} p50 {ms:.3f} ms over {3 * 2 * CLUSTER_REPS} requests "
                     "(3 nodes x protobuf and JSON)")
@@ -919,13 +1129,18 @@ def cluster_and_check(fp, ds, br, scatter, convert, Server, InternalClient, plan
             out["launches"] = fp.launches  # the main path ends here
             out["k7_launches"] = ds.launches
             out["k8_launches"] = dict(br.launches)
+            out["k4_launches"] = sp.launches
+            if out["k4_launches"] != want_k4:
+                raise AssertionError(f"phase 6: score_planes launches {out['k4_launches']} "
+                                     f"!= {want_k4}")
             if not out["k7_launches"]:
                 raise AssertionError("phase 6 launched no delta_scatter")
             if not all(out["k8_launches"].values()):
                 raise AssertionError(f"phase 6 left a K8 kernel unlaunched: {out['k8_launches']}")
             log(f"phase 6: answers == numpy oracle; fused_popcount launches "
                 f"{out['launches']}, delta_scatter launches {out['k7_launches']}, "
-                f"bsi_ripple launches {out['k8_launches']}")
+                f"bsi_ripple launches {out['k8_launches']}, score_planes launches "
+                f"{out['k4_launches']} (one per node leg and round: {legs} legs)")
             out["latencies_ms"] = latencies
         finally:
             for srv in opened:
@@ -985,8 +1200,6 @@ class ValueOracle:
         return out
 
     def refresh(self, slices) -> None:
-        from concurrent.futures import ThreadPoolExecutor
-
         slices = list(slices)
         with ThreadPoolExecutor(max_workers=8) as pool:
             for s, part in zip(slices, pool.map(self._slice, slices)):
@@ -1253,6 +1466,109 @@ def time_and_check(fp, InternalClient, srv, f_planes, rng) -> dict:
     return {"launches": fp.launches, "import_s": import_s, "latencies_ms": latencies}
 
 
+def topn_and_check(sp, fp, convert, srv, f_planes) -> dict:
+    """Phase 9 on the phase-5 server: frame r with TOPN_ROWS rows per
+    fragment over all 954 slices (1B columns, 8 GiB of mirrors), row k at
+    density 0.5 * 2^(-k/8), generated on the card slice by slice from the
+    seed and loaded one slice at a time; the numpy oracle keeps the
+    per-slice scores (int64 [954, 64]) of every src asked.  TopN without
+    a src, with a src row of the same frame (self-src), with a src tree
+    over frame f (row-src), with threshold, tanimotoThreshold and ids —
+    every answer against the oracle, p50 over REPS requests, launches
+    counted."""
+    import torch
+
+    h = srv.host
+    status, body = http(h, "POST", "/index/i/frame/r")
+    if status != 200:
+        raise AssertionError(f"POST frame r: {status} {body}")
+    dev = srv.holder.device  # the card: the planes are made where they are served
+    dens = torch.tensor([0.5 * 2 ** (-k / 8) for k in range(TOPN_ROWS)], device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 9)
+    shifts = torch.arange(32, dtype=torch.int64, device=dev)
+    totals = np.empty((N_SLICES, TOPN_ROWS), np.int64)
+    self_sc = np.empty_like(totals)
+    row_sc = np.empty_like(totals)
+    row_src_n = np.empty(N_SLICES, np.int64)
+    t_gen = t_oracle = 0.0
+    t_start = time.perf_counter()
+    # Each slice is loaded by a worker thread (the fragments are independent
+    # and their snapshots mostly wait on the disk) while the next is made.
+    with ThreadPoolExecutor(max_workers=LOAD_THREADS) as pool:
+        pending = []
+        for s in range(N_SLICES):
+            t0 = time.perf_counter()
+            bits = torch.rand((TOPN_ROWS, 1 << 20), device=dev, generator=g) < dens[:, None]
+            words = (bits.view(TOPN_ROWS, 32768, 32).to(torch.int64) << shifts).sum(-1)
+            plane = words.cpu().numpy().astype(np.uint32)
+            t1 = time.perf_counter()
+            src = f_planes[s, 1] & f_planes[s, 2]
+            totals[s] = np.bitwise_count(plane).sum(axis=1)
+            self_sc[s] = np.bitwise_count(plane & plane[0]).sum(axis=1)
+            row_sc[s] = np.bitwise_count(plane & src).sum(axis=1)
+            row_src_n[s] = np.bitwise_count(src).sum()
+            t_gen, t_oracle = t_gen + t1 - t0, t_oracle + time.perf_counter() - t1
+            pending.append(pool.submit(convert.load_planes, srv.holder, "i", "r", "standard",
+                                       {s: plane}))
+            if len(pending) >= 2 * LOAD_THREADS:
+                pending.pop(0).result()
+        for fut in pending:
+            fut.result()
+    torch.cuda.synchronize()
+    del bits, words
+    log(f"phase 9: frame r, {TOPN_ROWS} rows x {N_SLICES} slices made and loaded (mirror "
+        f"upload + recount + snapshot, {LOAD_THREADS} loader threads) in "
+        f"{time.perf_counter() - t_start:.3f}s: generated on the card and fetched in "
+        f"{t_gen:.3f}s, oracle scores in {t_oracle:.3f}s; device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+
+    n = TOPN_N
+    r0 = "Bitmap(frame=r, rowID=0)"
+    rsrc = "Intersect(Bitmap(frame=f, rowID=1), Bitmap(frame=f, rowID=2))"
+    ids = ", ".join(str(i) for i in TOPN_IDS)
+    # (name, pql, expected, K4 launches, K1 launches) per request
+    queries = [
+        ("topn", f"TopN(frame=r, n={n})", topn_oracle(totals, n), 0, 0),
+        ("topn_self_src", f"TopN({r0}, frame=r, n={n})", topn_oracle(self_sc, n, totals), 1, 0),
+        ("topn_row_src", f"TopN({rsrc}, frame=r, n={n})", topn_oracle(row_sc, n, totals), 1, 0),
+        ("topn_row_src_threshold", f"TopN({rsrc}, frame=r, n={n}, threshold={TOPN_THRESHOLD})",
+         topn_oracle(row_sc, n, totals, threshold=TOPN_THRESHOLD), 1, 0),
+        # A tanimoto window needs each slice's src count: one K1 launch.
+        ("topn_row_src_tanimoto", f"TopN({rsrc}, frame=r, n={n}, tanimotoThreshold=50)",
+         topn_oracle(row_sc, n, totals, tanimoto=50, src_counts=row_src_n), 1, 1),
+        ("topn_self_src_tanimoto", f"TopN({r0}, frame=r, n={n}, tanimotoThreshold=50)",
+         topn_oracle(self_sc, n, totals, tanimoto=50, src_counts=totals[:, 0]), 1, 1),
+        ("topn_row_src_ids", f"TopN({rsrc}, frame=r, n={n}, ids=[{ids}])",
+         topn_oracle(row_sc, n, totals, ids=TOPN_IDS), 1, 0),
+    ]
+    out: dict = {"latencies_ms": {}, "answers": {}}
+    fp.launches = sp.launches = 0  # the main path starts here
+    want_k4 = want_k1 = 0
+    for name, pql, want, k4, k1 in queries:
+        times = []
+        for _ in range(REPS):
+            q0 = time.perf_counter()
+            status, body = http(h, "POST", "/index/i/query", pql.encode())
+            times.append(time.perf_counter() - q0)
+            if status != 200 or body["results"] != [want]:
+                raise AssertionError(f"phase 9 {name}: {status} {str(body)[:300]} != {want}")
+        want_k4 += REPS * k4
+        want_k1 += REPS * k1
+        out["latencies_ms"][name] = statistics.median(times) * 1e3
+        out["answers"][name] = len(want)
+    out["k4_launches"], out["launches"] = sp.launches, fp.launches  # the main path ends here
+    if (out["k4_launches"], out["launches"]) != (want_k4, want_k1):
+        raise AssertionError(f"phase 9: score_planes / fused_popcount launches "
+                             f"{out['k4_launches']} / {out['launches']} != {want_k4} / {want_k1}")
+    for name, ms in out["latencies_ms"].items():
+        log(f"phase 9: {name} p50 {ms:.3f} ms over {REPS} requests "
+            f"({out['answers'][name]} pairs)")
+    log(f"phase 9: answers == numpy oracle; score_planes launches {out['k4_launches']}, "
+        f"fused_popcount launches {out['launches']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1269,6 +1585,7 @@ def main() -> int:
     from pilosa_tpu_torch.ops import bsi_ripple as br
     from pilosa_tpu_torch.ops import delta_scatter as ds
     from pilosa_tpu_torch.ops import fused_popcount as fp
+    from pilosa_tpu_torch.ops import score_planes as sp
 
     card = card_line()
     log(card)
@@ -1286,9 +1603,11 @@ def main() -> int:
     # of phases 5-6 stay those of the seed.
     rng7 = np.random.default_rng(SEED + 1)
     rng8 = np.random.default_rng(SEED + 2)
+    rng4 = np.random.default_rng(SEED + 3)
     max_err = check_k1(fp, bp, rng)
     k7_err = check_k7(ds, scatter, rng7)
     k8_err = check_k8(br, bsi, rng8)
+    k4_err = check_k4(sp, rng4)
 
     a = bp.to_device(rng.integers(0, 2**32, size=(N_SLICES, 32768), dtype=np.uint32), "cuda")
     b = bp.to_device(rng.integers(0, 2**32, size=(N_SLICES, 32768), dtype=np.uint32), "cuda")
@@ -1302,18 +1621,20 @@ def main() -> int:
     del a, b
     k7_times = time_k7(ds, rng7, hbm)
     k8_times = time_k8(br, bsi, hbm)
+    k4_times = time_k4(sp, fp, hbm)
 
     with tempfile.TemporaryDirectory(prefix="pilosa-torch-smoke-") as data_dir:
         srv = Server(data_dir, host="127.0.0.1:0", device="cuda")
         srv.open()
         try:
-            served = serve_and_check(fp, ds, bp, convert, srv, rng)
+            served = serve_and_check(fp, ds, sp, bp, convert, srv, rng)
             planes = served.pop("planes")
             clustered = cluster_and_check(
-                fp, ds, br, scatter, convert, Server, InternalClient, planes, rng
+                fp, ds, br, sp, scatter, convert, Server, InternalClient, planes, rng
             )
             valued = bsi_and_check(fp, ds, br, scatter, convert, InternalClient, srv, planes, rng)
             timed = time_and_check(fp, InternalClient, srv, planes, rng)
+            ranked = topn_and_check(sp, fp, convert, srv, planes)
         finally:
             srv.close()
 
@@ -1325,9 +1646,10 @@ def main() -> int:
             "source": fp.SOURCE,
             "replaces": fp.REPLACES,
             "launches": served["launches"] + clustered["launches"]
-            + valued["launches"]["k1"] + timed["launches"],
+            + valued["launches"]["k1"] + timed["launches"] + ranked["launches"],
             "launches_by_phase": {"5": served["launches"], "6": clustered["launches"],
-                                  "7": valued["launches"]["k1"], "8": timed["launches"]},
+                                  "7": valued["launches"]["k1"], "8": timed["launches"],
+                                  "9": ranked["launches"]},
             "max_abs_err": max_err,
             "ms": k_ms,
             "device_ms": k_dev,
@@ -1336,6 +1658,8 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": None,
             "checked": max_err == 0.0,
+            "topn_shape": {str(r): {k[3:]: v for k, v in k4_times[r].items()
+                                    if k.startswith("k1_")} for r in K4_TIMED},
         },
         {
             "name": ds.NAME,
@@ -1381,6 +1705,27 @@ def main() -> int:
         if kernel == "bsi_cmp":  # count mode above; row mode (between) here
             entry.update({f"row_mode_{k}": v for k, v in k8_times["bsi_cmp_row"].items()})
         kernels.append(entry)
+    k4 = k4_times[K4_TIMED[0]]  # phase 5's TopN(src) shape
+    kernels.append({
+        "name": sp.NAME,
+        "route": "cuda",
+        "source": sp.SOURCE,
+        "replaces": sp.REPLACES,
+        "launches": served["k4_launches"] + clustered["k4_launches"] + ranked["k4_launches"],
+        "launches_by_phase": {"5": served["k4_launches"], "6": clustered["k4_launches"],
+                              "9": ranked["k4_launches"]},
+        "max_abs_err": k4_err,
+        "ms": k4["ms"],
+        "device_ms": k4["device_ms"],
+        "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"],
+        "bound_by": k4["bound_by"],
+        "library_ms": None,
+        "checked": k4_err == 0.0,
+        "shape": [N_SLICES, K4_TIMED[0]],
+        f"at_{N_SLICES}x{K4_TIMED[1]}": {k: v for k, v in k4_times[K4_TIMED[1]].items()
+                                         if not k.startswith("k1_")},
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

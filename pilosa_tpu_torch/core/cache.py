@@ -11,9 +11,9 @@ Reference behavior being reproduced (reference: cache.go):
   (reference: cache.go:301-423).
 
 The ranked cache is host-side control metadata: it chooses *candidate*
-rows; the actual scoring runs as one fused popcount launch per fragment
-(ops.fused_popcount) instead of the reference's per-row sequential
-loop with threshold pruning.
+rows; the actual scoring runs as one launch of the cross-fragment scorer
+over every fragment of a node (ops.score_planes) instead of the
+reference's per-row sequential loop with threshold pruning.
 """
 
 from __future__ import annotations

@@ -32,9 +32,14 @@ fragment.go).  Here, as in ``pilosa_tpu.core.fragment``:
   after ``max_op_n`` ops the fragment snapshots (full roaring
   serialization to ``<path>.snapshotting`` renamed over the data file,
   reference: fragment.go:1006-1074).
-* **TopN** keeps the reference's ranked-cache candidate selection; the
-  candidates' scores against a src row come from one launch of the fused
-  popcount kernel over the mirror.
+* **TopN** keeps the reference's ranked-cache candidate selection and
+  splits the scoring as the JAX package does: ``top_prepare_parts`` /
+  ``top_prepare_union_parts`` capture the mirror and the candidates'
+  slots in it (a :class:`SubRef`), the executor scores every fragment
+  of a node in one launch of the cross-fragment scorer K4
+  (``ops/score_planes.py``), and ``top_score_arrays`` / ``top_finish``
+  select from the fetched scores.  ``top`` is the three for one
+  fragment.
 
 This is the dense tier only: every row lives in the plane, up to
 ``DENSE_ROW_BUDGET`` rows, and a row beyond the budget raises.  The JAX
@@ -61,7 +66,7 @@ from pilosa_tpu_torch.core.bitmap import RowBitmap
 from pilosa_tpu_torch.core.cache import Pair
 from pilosa_tpu_torch.ingest import scatter
 from pilosa_tpu_torch.ops import bitplane as bp
-from pilosa_tpu_torch.ops import roaring
+from pilosa_tpu_torch.ops import roaring, score_planes
 
 SLICE_WIDTH = bp.SLICE_WIDTH
 
@@ -88,6 +93,51 @@ class TopOptions:
     filter_field: str = ""
     filter_values: list[Any] | None = None
     tanimoto_threshold: int = 0
+
+
+@dataclass
+class TopState:
+    """One fragment's TopN pass between the prepare and the selection
+    (JAX ``core/fragment.py:255``), array-native: candidate ids and
+    cached counts are int64 arrays in candidate (count-descending)
+    order, and ``dense_pos`` are the positions among them that the
+    scorer scores.  ``done_ids``/``done_cnts`` short-circuit the
+    src-less and empty cases with a final (filtered, sorted, trimmed)
+    result; otherwise the scorer fills ``counts``, one score per dense
+    position.  Dense tier only: the JAX package's sparse-tier positions
+    join when the port has a sparse tier."""
+
+    done_ids: np.ndarray | None = None
+    done_cnts: np.ndarray | None = None
+    cand_ids: np.ndarray | None = None
+    cand_cached: np.ndarray | None = None
+    dense_pos: np.ndarray | None = None
+    n: int = 0
+    tanimoto: int = 0
+    src_count: int = 0
+    min_threshold: int = 0
+    counts: np.ndarray | None = None
+
+
+@dataclass
+class SubRef:
+    """One fragment's scorer inputs (JAX ``core/fragment.py:282``): the
+    mirror tensor and the candidates' slots in it, captured together
+    under the fragment lock after the queued deltas were applied.
+
+    Unlike the JAX package's immutable array, the mirror is patched in
+    place by K7, so the capture is a reference, not a snapshot.  What a
+    concurrent write can change in a score: the scorer runs on the
+    stream the writes' K7 launches run on, so it sees each queued write
+    wholly or not at all — a queue applied (by a later read) before the
+    scorer launch is in the score, one applied after is not.  What it
+    cannot change: the slot map.  A structural write (a row past the
+    padded plane, a large import) drops the mirror for a new tensor and
+    leaves this one — and so ``slots`` — as it was; the reference kept
+    here holds its memory until the scorer launch is enqueued."""
+
+    plane: torch.Tensor
+    slots: np.ndarray  # int64 candidate slots in ``plane``
 
 
 def encode_cache_ids(ids: list[int]) -> bytes:
@@ -437,6 +487,16 @@ class Fragment:
             plane = self.device_plane()
             return plane, [self._slot_of.get(r, -1) for r in row_ids]
 
+    def slot_in(self, row_id: int, plane: torch.Tensor) -> int | None:
+        """The row's slot while ``plane`` is still this fragment's mirror
+        (queued deltas applied), else None: a slot names a row only of
+        the mirror it was read with."""
+        with self._mu:
+            slot = self._slot_of.get(row_id)
+            if slot is None or self.device_plane() is not plane:
+                return None
+            return slot
+
     def row_words_host(self, row_id: int) -> np.ndarray | None:
         """One row's uint32 words on the host (a copy), or None."""
         with self._mu:
@@ -643,43 +703,153 @@ class Fragment:
 
     def top(self, opt: TopOptions | None = None) -> list[Pair]:
         """Ranked-cache candidates, filtered; with a src, every
-        candidate scored by one fused popcount launch over the mirror
-        against the src segment; then the threshold/tanimoto selection
-        in (count desc, id asc) order, trimmed to n.  With explicit
-        ``row_ids`` every scored row returns (n applies only to cache
-        candidates, reference: fragment.go:516)."""
+        candidate scored by one launch of the cross-fragment scorer
+        over this fragment's mirror; then the threshold/tanimoto
+        selection in (count desc, id asc) order, trimmed to n.  With
+        explicit ``row_ids`` every scored row returns (n applies only to
+        cache candidates, reference: fragment.go:516)."""
+        st, sub, src = self.top_prepare_parts(opt)
+        if sub is not None:
+            scores = score_planes.score_planes([sub.plane], sub.slots[None, :], [src])
+            st.counts = scores.cpu().numpy()[0]
+        return self.top_finish(st)
+
+    def top_prepare_parts(self, opt: TopOptions | None = None):
+        """The scoring pass up to the scorer launch (JAX
+        ``core/fragment.py:1951``): ``(TopState, SubRef or None, src
+        row or None)``, so the executor can score many fragments in one
+        launch."""
         opt = opt or TopOptions()
-        n = 0 if opt.row_ids else opt.n
         with self._mu:
-            ids, cached = self._top_candidates_arrays(opt.row_ids)
-        ids, cached, tanimoto, src_count = self._filter_arrays(ids, cached, opt)
-        if opt.src is None:
-            if n and n < len(ids):
-                ids, cached = ids[:n], cached[:n]
-            return [Pair(int(i), int(c)) for i, c in zip(ids, cached)]
-        src = opt.src.segments.get(self.slice)
-        if not len(ids) or src is None:
-            return []
+            ids, cnts = self._top_candidates_arrays(opt.row_ids)
+        return self._top_score_parts(ids, cnts, opt, bool(opt.row_ids))
+
+    def top_finish(self, st: TopState) -> list[Pair]:
+        """The final selection of a scored pass (JAX
+        ``core/fragment.py:1961``), over ``top_score_arrays``."""
+        ids, cnts, keep, short = self.top_score_arrays(st)
+        if not short:
+            ids, cnts = ids[keep], cnts[keep]
+            order = np.lexsort((ids, -cnts))  # sort_pairs' (-count, id)
+            if st.n:
+                order = order[: st.n]
+            ids, cnts = ids[order], cnts[order]
+        return [Pair(int(i), int(c)) for i, c in zip(ids, cnts)]
+
+    def top_candidates_arrays(
+        self, opt: TopOptions | None = None
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """(ids, cached counts) of the filtered candidate listing a
+        scoring pass would use — host-only: the folded TopN forms the
+        cross-slice union from these before any scoring."""
+        opt = opt or TopOptions()
         with self._mu:
-            present = np.asarray([int(i) in self._slot_of for i in ids], dtype=bool)
-            ids, cached = ids[present], cached[present]
-            if not len(ids):
-                return []
-            slots = np.asarray([self._slot_of[int(i)] for i in ids], dtype=np.int64)
-            scores = bp.top_counts(self.device_plane(), src.to(self.device))
-        cnts = scores.cpu().numpy().astype(np.int64)[slots]
-        if tanimoto > 0:
-            denom = cached + src_count - cnts
-            with np.errstate(divide="ignore", invalid="ignore"):
-                score = np.ceil(cnts * 100.0 / denom)
-            keep = (cnts > 0) & (score > tanimoto)
-        else:
-            keep = (cnts > 0) & (cnts >= opt.min_threshold)
-        ids, cnts = ids[keep], cnts[keep]
-        order = np.lexsort((ids, -cnts))  # sort_pairs' (-count, id)
+            ids, cnts = self._top_candidates_arrays(opt.row_ids)
+        ids, cnts, _, _ = self._filter_arrays(ids, cnts, opt)
+        return ids, cnts
+
+    @staticmethod
+    def select_winners(
+        ids: np.ndarray, cnts: np.ndarray, keep: np.ndarray, cand_mask: np.ndarray, n: int
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Phase-1 winner selection over a scored union restricted to the
+        slice's own candidates (``cand_mask``): filter mask, (-count, id)
+        sort, trim to ``n``."""
+        m = keep & cand_mask
+        sel_ids, sel_cnts = ids[m], cnts[m]
+        order = np.lexsort((sel_ids, -sel_cnts))
         if n:
             order = order[:n]
-        return [Pair(int(ids[k]), int(cnts[k])) for k in order]
+        return sel_ids[order], sel_cnts[order]
+
+    _EMPTY_I64 = np.empty(0, np.int64)
+
+    def _top_score_parts(
+        self,
+        ids: np.ndarray,
+        cached: np.ndarray,
+        opt: TopOptions,
+        row_ids_mode: bool,
+    ):
+        """A scoring pass without the scorer launch (JAX
+        ``core/fragment.py:2074``): ``(TopState, SubRef or None, src row
+        or None)``.  ``ids``/``cached`` are the unfiltered candidates in
+        count-descending order; ``row_ids_mode`` returns every scored
+        row (n applies only to cache candidates, reference:
+        fragment.go:516)."""
+        n = 0 if row_ids_mode else opt.n
+        ids, cached, tanimoto, src_count = self._filter_arrays(ids, cached, opt)
+        empty = TopState(done_ids=self._EMPTY_I64, done_cnts=self._EMPTY_I64)
+        if opt.src is None:
+            # No intersection: cached counts are final, already
+            # count-descending; take the first n.
+            if n and n < len(ids):
+                ids, cached = ids[:n], cached[:n]
+            return TopState(done_ids=ids, done_cnts=cached), None, None
+        src = opt.src.segments.get(self.slice)
+        if not len(ids) or src is None:
+            return empty, None, None
+        plane, slots = self.device_slots(ids)
+        slots = np.asarray(slots, dtype=np.int64)
+        dense_pos = np.flatnonzero(slots >= 0)
+        if not len(dense_pos):
+            return empty, None, None
+        sub = SubRef(plane=plane, slots=slots[dense_pos])
+        st = TopState(
+            cand_ids=ids,
+            cand_cached=cached,
+            dense_pos=dense_pos,
+            n=n,
+            tanimoto=tanimoto,
+            src_count=src_count,
+            min_threshold=opt.min_threshold,
+        )
+        return st, sub, src.to(plane.device).contiguous()
+
+    def top_score_arrays(
+        self, st: TopState
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray, bool]:
+        """``(ids, counts, keep, done)`` over the candidates in candidate
+        order (JAX ``core/fragment.py:2192``): ``keep`` is the
+        threshold/tanimoto mask ``top_finish`` applies; ``done`` means
+        the pass short-circuited and ``ids``/``counts`` are its final
+        list."""
+        if st.done_ids is not None:
+            return st.done_ids, st.done_cnts, np.ones(len(st.done_ids), dtype=bool), True
+        ids, cached = st.cand_ids, st.cand_cached
+        cnts = np.zeros(len(ids), np.int64)
+        cnts[st.dense_pos] = np.asarray(st.counts[: len(st.dense_pos)], dtype=np.int64)
+        if st.tanimoto > 0:
+            denom = cached + st.src_count - cnts
+            with np.errstate(divide="ignore", invalid="ignore"):
+                score = np.ceil(cnts * 100.0 / denom)
+            keep = (cnts > 0) & (score > st.tanimoto)
+        else:
+            keep = (cnts > 0) & (cnts >= st.min_threshold)
+        return ids, cnts, keep, False
+
+    def top_prepare_union_parts(
+        self,
+        union_ids: np.ndarray,
+        cand_ids: np.ndarray,
+        cand_cnts: np.ndarray,
+        opt: TopOptions,
+    ):
+        """The folded TopN's union scoring pass without the scorer
+        launch (JAX ``core/fragment.py:2268``): as
+        ``top_prepare_parts(replace(opt, row_ids=union))``, reusing the
+        already-listed candidates and resolving counts only for the
+        union ids this slice did not list.  ``union_ids`` is unique."""
+        with self._mu:
+            foreign = np.setdiff1d(union_ids, cand_ids, assume_unique=True)
+            f_cnts = np.fromiter(
+                (self._row_count_locked(int(r)) for r in foreign), np.int64, len(foreign)
+            )
+        fm = f_cnts > 0
+        all_ids = np.concatenate([cand_ids, foreign[fm]])
+        all_cnts = np.concatenate([cand_cnts, f_cnts[fm]])
+        order = np.lexsort((all_ids, -all_cnts))
+        return self._top_score_parts(all_ids[order], all_cnts[order], opt, row_ids_mode=True)
 
     def _filter_arrays(
         self, ids: np.ndarray, cnts: np.ndarray, opt: TopOptions

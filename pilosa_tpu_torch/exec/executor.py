@@ -17,8 +17,11 @@ and a count's last fold step is one fused popcount launch
 (exec/plan.py).  A BSI ``Range`` comparison and ``Sum``/``Min``/``Max``
 are rewritten as in the JAX package (``_rewrite_bsi``) into nodes over
 the field's plane leaves, which the ripple kernel K8 reads in place from
-the field fragments' mirrors.  TopN scores each fragment's candidates
-with one fused popcount launch against the src row (core/fragment.py).
+the field fragments' mirrors.  TopN prepares every local fragment's
+candidates first and scores them all in one launch of the
+cross-fragment scorer K4 (``ops/score_planes.py``) with one fetch per
+node and phase; on one node both phases come from one scoring pass (the
+folded TopN, JAX ``executor.py:2611-2851``).
 
 Across a cluster (JAX ``executor.py:3203-3500``): a read maps the
 slice list over the owning nodes — local slices run here, the others
@@ -38,7 +41,7 @@ from __future__ import annotations
 import threading
 from collections import OrderedDict
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from datetime import datetime
 
 import numpy as np
@@ -56,7 +59,7 @@ from pilosa_tpu_torch.core.view import VIEW_INVERSE, VIEW_STANDARD
 from pilosa_tpu_torch.exec import plan
 from pilosa_tpu_torch.net.client import is_node_failure
 from pilosa_tpu_torch.ops import bitplane as bp
-from pilosa_tpu_torch.ops import bsi_ripple
+from pilosa_tpu_torch.ops import bsi_ripple, score_planes
 from pilosa_tpu_torch.pql.parser import TIME_FORMAT, Call, Query
 
 # reference: executor.go:33-40
@@ -126,16 +129,27 @@ def needs_slices(calls: list[Call]) -> bool:
     return any(c.name not in WRITE_CALLS for c in calls)
 
 
-def merge_counts_by_id(parts) -> list[Pair]:
+def isin_sorted(values: np.ndarray, sorted_ref: np.ndarray) -> np.ndarray:
+    """Membership of ``values`` in sorted-unique ``sorted_ref`` by one
+    binary search."""
+    if not len(sorted_ref):
+        return np.zeros(len(values), dtype=bool)
+    idx = np.searchsorted(sorted_ref, values)
+    idx[idx == len(sorted_ref)] = len(sorted_ref) - 1
+    return sorted_ref[idx] == values
+
+
+def merge_counts_by_id(parts):
     """Sum (ids, counts) array pairs by id — Pairs.Add semantics
-    (reference: cache.go:312-334) — into Pairs in ascending id order."""
+    (reference: cache.go:312-334): ``(ids ascending, sums)``, or None
+    when every part is empty."""
     parts = [p for p in parts if len(p[0])]
     if not parts:
-        return []
+        return None
     uids, inv = np.unique(np.concatenate([i for i, _ in parts]), return_inverse=True)
     sums = np.zeros(len(uids), np.int64)
     np.add.at(sums, inv, np.concatenate([c for _, c in parts]))
-    return [Pair(int(i), int(c)) for i, c in zip(uids, sums)]
+    return uids, sums
 
 
 class Executor:
@@ -643,7 +657,7 @@ class Executor:
         return bsi.ValCount(*best) if best is not None else None
 
     # ------------------------------------------------------------------
-    # TopN (reference: executor.go:281-415) — two-phase
+    # TopN (reference: executor.go:281-415; JAX executor.py:2227-3020)
     # ------------------------------------------------------------------
 
     def _execute_topn(
@@ -651,6 +665,12 @@ class Executor:
     ) -> list[Pair]:
         ids_arg = _uint_slice_arg(c, "ids")
         n = _uint_arg(c, "n")[0]
+        # Folded single-round-trip path: when this node owns every slice,
+        # both phases come from ONE union scoring pass with one launch
+        # and one fetch; the answers equal the two-phase protocol's.
+        if not ids_arg and not opt.remote and len(slices) > 1:
+            if self._all_slices_local(index, slices):
+                return self._execute_topn_folded(index, c, slices, opt)
         pairs = self._execute_topn_slices(index, c, slices, opt)
         # Phase 2 runs on the coordinating node only (reference:
         # executor.go:301-321).
@@ -659,8 +679,23 @@ class Executor:
         # With one slice the phase-1 scores are already exact.
         if len(slices) <= 1:
             return pairs[:n] if n and n < len(pairs) else pairs
-        # Phase 2: exact counts for the phase-1 winner union (reference:
-        # executor.go:301-321).
+        return self._topn_refetch(index, c, slices, opt, n, pairs)
+
+    def _execute_topn_two_phase(
+        self, index: str, c: Call, slices: list[int], opt: ExecOptions, n: int
+    ) -> list[Pair]:
+        """The reference's two rounds, when the folded path's union
+        guard trips."""
+        pairs = self._execute_topn_slices(index, c, slices, opt)
+        if not pairs:
+            return pairs
+        return self._topn_refetch(index, c, slices, opt, n, pairs)
+
+    def _topn_refetch(
+        self, index: str, c: Call, slices: list[int], opt: ExecOptions, n: int,
+        pairs: list[Pair],
+    ) -> list[Pair]:
+        """Phase 2: exact counts for the phase-1 winner union."""
         other = c.clone()
         other.args["ids"] = sorted({p.id for p in pairs})
         trimmed = self._execute_topn_slices(index, other, slices, opt)
@@ -668,86 +703,290 @@ class Executor:
             trimmed = trimmed[:n]
         return trimmed
 
+    def _all_slices_local(self, index: str, slices: list[int]) -> bool:
+        try:
+            groups = self._slices_by_node(list(self.cluster.nodes), index, slices)
+        except SliceUnavailableError:
+            return False
+        return set(groups) == {self.host}
+
     def _execute_topn_slices(
         self, index: str, c: Call, slices: list[int], opt: ExecOptions
     ) -> list[Pair]:
+        def map_fn(local_slices: list[int]) -> list[Pair]:
+            # Two passes: prepare every local fragment, then score them
+            # all in one launch with one fetch (a round trip per node and
+            # phase, however many slices it owns), then merge.
+            local_slices = self._existing_topn_slices(index, c, local_slices)
+            if len(c.children) > 1:
+                raise ExecutorError("TopN() can only have one input bitmap")
+            srcs = self._topn_srcs(index, c, local_slices) if c.children else None
+            view, template = self._topn_view(index, c), self._topn_template(c)
+            self_src = self._topn_self_src(index, c)
+            states = []
+            for s in local_slices:
+                prep = self._topn_options_for_slice(view, s, template, srcs)
+                if prep is None:
+                    continue
+                frag, topt = prep
+                states.append((frag, frag.top_prepare_parts(topt)))
+            self._score_topn_parts(
+                [self._attach_dev_src(frag, part, self_src) for frag, part in states]
+            )
+            parts = []
+            for frag, (st, _, _) in states:
+                ids, cnts, keep, short = frag.top_score_arrays(st)
+                if not short:
+                    ids, cnts = ids[keep], cnts[keep]
+                    if st.n and st.n < len(ids):
+                        order = np.lexsort((ids, -cnts))[: st.n]
+                        ids, cnts = ids[order], cnts[order]
+                parts.append((ids, cnts))
+            merged = merge_counts_by_id(parts)
+            if merged is None:
+                return []
+            return [Pair(int(i), int(cnt)) for i, cnt in zip(*merged)]
+
         pairs = self._map_reduce(
-            index,
-            slices,
-            c,
-            opt,
-            lambda local: self._topn_local(index, c, local),
+            index, slices, c, opt, map_fn,
             # A remote leg without pairs arrives as an empty QueryResult,
             # which decodes as 0: it adds no pairs.
             lambda prev, v: cache_mod.add_pairs(prev or [], v or []),
         )
         return cache_mod.sort_pairs(pairs or [])
 
-    def _topn_local(self, index: str, c: Call, slices: list[int]) -> list[Pair]:
-        """TopN over this node's fragments among ``slices``: per-fragment
-        candidates, summed by id (ascending id order)."""
-        if len(c.children) > 1:
-            raise ExecutorError("TopN() can only have one input bitmap")
-        frame = c.args.get("frame") or DEFAULT_FRAME
+    def _score_topn_parts(self, parts) -> None:
+        """Score the parts — ``(TopState, SubRef or None, src row, src
+        slot or None)`` — of every fragment with a SubRef in ONE launch
+        of the cross-fragment scorer and fetch the scores in one copy,
+        filling each ``TopState.counts`` (JAX ``executor.py:2281``).
+        The candidate and src rows are read in place: a fragment's src
+        is its own mirror's row when ``src slot`` is set, else the row
+        its src tree was evaluated into.  Only the slot lists are
+        ragged; they pad with -1."""
+        live = [p for p in parts if p[1] is not None]
+        for lo in range(0, len(live), score_planes.MAX_FRAGMENTS):
+            group = live[lo : lo + score_planes.MAX_FRAGMENTS]
+            slots = np.full((len(group), max(len(p[1].slots) for p in group)), -1, np.int64)
+            for i, (_, sub, _, _) in enumerate(group):
+                slots[i, : len(sub.slots)] = sub.slots
+            srcs = [src if slot is None else sub.plane[slot] for _, sub, src, slot in group]
+            scores = score_planes.score_planes(
+                [sub.plane for _, sub, _, _ in group], slots, srcs
+            ).cpu().numpy()
+            for (st, sub, _, _), row in zip(group, scores):
+                st.counts = row[: len(sub.slots)]
+
+    def _topn_self_src(self, index: str, c: Call):
+        """``(view, row_id)`` when the src tree is one Bitmap leaf, whose
+        row the scorer may read from a fragment's own mirror (the
+        ``TopN(Bitmap(frame=f), frame=f)`` shape), else None."""
+        if len(c.children) != 1:
+            return None
+        leaf = c.children[0]
+        if leaf.name != "Bitmap" or leaf.children:
+            return None
+        return self._resolve_bitmap_leaf(index, leaf)
+
+    @staticmethod
+    def _attach_dev_src(frag, part, self_src):
+        """Extend a fragment's ``(st, SubRef, src row)`` part with the
+        src row's slot in the fragment's captured mirror (JAX
+        ``executor.py:2429``), where the src is a Bitmap leaf of this
+        same fragment and the mirror is still the one the prepare
+        captured — a structural write since then may have moved the
+        rows.  Otherwise the slot is None and the scorer reads the
+        evaluated src row."""
+        st, sub, src = part
+        slot = None
+        if sub is not None and self_src is not None:
+            view, row_id = self_src
+            if view is not None and view.fragment(frag.slice) is frag:
+                slot = frag.slot_in(row_id, sub.plane)
+        return st, sub, src, slot
+
+    def _topn_srcs(self, index: str, c: Call, slices: list[int]) -> dict[int, RowBitmap]:
+        """The src tree's row per slice as one-segment RowBitmaps, folded
+        on the device like a Bitmap() call; slices without a row are
+        absent (an empty src there).  A tanimoto selection needs each
+        row's count: all of them come from one row-popcount launch."""
+        expr, leaves = plan.decompose(self._rewrite_bsi(index, c.children[0]))
+        inputs, kept = self.leaf_stacks(index, leaves, slices)
+        if not kept:
+            return {}
+        rows = plan.eval_expr(expr, inputs)
+        counts = [None] * len(kept)
+        if _uint_arg(c, "tanimotoThreshold")[0] > 0:
+            counts = [int(x) for x in bp.row_counts(rows).cpu().numpy()]
+        return {
+            s: RowBitmap.from_segment(s, rows[i], counts[i], device=self.holder.device)
+            for i, s in enumerate(kept)
+        }
+
+    def _topn_view(self, index: str, c: Call):
+        """The view a TopN call reads (its frame's standard view), or
+        None."""
         if bool(c.args.get("inverse", False)):
             raise ExecutorError("inverse views are not supported by this port yet")
-        idx = self.holder.index(index)
-        f = idx.frame(frame) if idx is not None else None
-        view = f.view(VIEW_STANDARD) if f is not None else None
+        f = self.holder.frame(index, c.args.get("frame") or DEFAULT_FRAME)
+        return f.view(VIEW_STANDARD) if f is not None else None
+
+    def _existing_topn_slices(self, index: str, c: Call, slices: list[int]) -> list[int]:
+        """The slices among ``slices`` where the TopN frame has a
+        fragment (no other slice contributes)."""
+        view = self._topn_view(index, c)
         if view is None:
             return []
         have = view.fragment_slices()
-        local = [s for s in slices if s in have]
-        n = _uint_arg(c, "n")[0]
-        fld = c.args.get("field", "") or ""
-        row_ids = _uint_slice_arg(c, "ids")
+        return [s for s in slices if s in have]
+
+    @staticmethod
+    def _topn_template(c: Call) -> TopOptions:
+        """The slice-invariant TopN options (reference:
+        executor.go:346-415), parsed once per query."""
         min_threshold = _uint_arg(c, "threshold")[0]
-        if min_threshold <= 0:
-            min_threshold = MIN_THRESHOLD
+        row_ids = _uint_slice_arg(c, "ids")
         filters = c.args.get("filters")
-        tanimoto = _uint_arg(c, "tanimotoThreshold")[0]
-        src_rows = None
-        if len(c.children) == 1:
-            # The src tree's row per slice, folded on the device like a
-            # Bitmap() call.  A slice without one is an empty src there,
-            # and an all-zero row scores nothing: both give no pairs.
-            expr, leaves = plan.decompose(self._rewrite_bsi(index, c.children[0]))
-            inputs, kept = self.leaf_stacks(index, leaves, local)
-            src_rows = {}
-            if kept:
-                rows = plan.eval_expr(expr, inputs)
-                src_rows = {s: rows[i] for i, s in enumerate(kept)}
+        return TopOptions(
+            n=_uint_arg(c, "n")[0],
+            row_ids=list(row_ids) if row_ids else None,
+            filter_field=c.args.get("field", "") or "",
+            filter_values=list(filters) if filters else None,
+            min_threshold=min_threshold if min_threshold > 0 else MIN_THRESHOLD,
+            tanimoto_threshold=_uint_arg(c, "tanimotoThreshold")[0],
+        )
+
+    def _topn_options_for_slice(self, view, slice_i: int, template: TopOptions, srcs=None):
+        """``(fragment, TopOptions)`` of one slice of the TopN ``view``,
+        or None where the fragment does not exist; ``srcs`` the src rows
+        by slice, None for a TopN without a src tree."""
+        frag = view.fragment(slice_i) if view is not None else None
+        if frag is None:
+            return None
+        # Validated after the fragment-existence check, matching the
+        # reference's ordering (executor.go:346-415).
+        if template.tanimoto_threshold > 100:
+            raise ExecutorError("Tanimoto Threshold is from 1 to 100 only")
+        src = None
+        if srcs is not None:
+            src = srcs.get(slice_i) or RowBitmap(self.holder.device)
+        return frag, replace(template, src=src)
+
+    def _topn_folded_build(self, index: str, c: Call, slices: list[int]):
+        """The folded TopN's prep (JAX ``executor.py:2611``): None when
+        nothing can score, ``"two_phase"`` when the union guard trips,
+        else ``[(frag, topt, cand_ids, cand_mask, (st, sub, src)),
+        ...]``, the union scoring pass of every slice, not yet
+        scored."""
+        slices = self._existing_topn_slices(index, c, slices)
+        view, template = self._topn_view(index, c), self._topn_template(c)
+        # Pass 1 (host only): each slice's candidates without the src —
+        # a src only narrows them (the tanimoto window), so their union
+        # is a conservative estimate for the guard below.
+        per = []
+        for s in slices:
+            prep = self._topn_options_for_slice(view, s, template)
+            if prep is not None:
+                frag, topt = prep
+                per.append((frag, topt) + frag.top_candidates_arrays(topt))
+        if not per:
+            return None
+        union = np.unique(np.concatenate([ids for _, _, ids, _ in per]))
+        if not len(union):
+            return None
+        # Every slice scores the WHOLE union: when the union dwarfs the
+        # largest candidate list, two rounds cost less device work.
+        max_cand = max(len(ids) for _, _, ids, _ in per)
+        if len(union) > max(2 * max_cand, 512):
+            return "two_phase"
+        if c.children:
+            srcs = self._topn_srcs(index, c, slices)
+            if template.tanimoto_threshold > 0:
+                # The tanimoto window depends on the src count: derive
+                # the candidates (and the union) again with the src.
+                per = []
+                for s in slices:
+                    prep = self._topn_options_for_slice(view, s, template, srcs)
+                    if prep is not None:
+                        frag, topt = prep
+                        per.append((frag, topt) + frag.top_candidates_arrays(topt))
+                if not per:
+                    return None
+                union = np.unique(np.concatenate([ids for _, _, ids, _ in per]))
+            else:
+                # Without tanimoto only the scorer reads the src.
+                per = [
+                    (frag, replace(topt, src=srcs.get(frag.slice) or RowBitmap(self.holder.device)),
+                     ids, cnts)
+                    for frag, topt, ids, cnts in per
+                ]
+        if not len(union):
+            return None
+        self_src = self._topn_self_src(index, c)
         parts = []
-        for s in local:
-            frag = view.fragment(s)
-            # Validated after the fragment-existence check, matching the
-            # reference's ordering (executor.go:346-415).
-            if tanimoto > 100:
-                raise ExecutorError("Tanimoto Threshold is from 1 to 100 only")
-            src = None
-            if src_rows is not None:
-                src = RowBitmap(self.holder.device)
-                row = src_rows.get(s)
-                if row is not None:
-                    src.set_segment(s, row)
-            pairs = frag.top(
-                TopOptions(
-                    n=n,
-                    src=src,
-                    row_ids=list(row_ids) if row_ids else None,
-                    filter_field=fld,
-                    filter_values=list(filters) if filters else None,
-                    min_threshold=min_threshold,
-                    tanimoto_threshold=tanimoto,
-                )
+        for frag, topt, cand_ids, cand_cnts in per:
+            part = frag.top_prepare_union_parts(union, cand_ids, cand_cnts, topt)
+            st = part[0]
+            cand_mask = (
+                np.isin(st.cand_ids, cand_ids, assume_unique=True)
+                if st.cand_ids is not None
+                else None
             )
-            parts.append(
-                (
-                    np.fromiter((p.id for p in pairs), np.int64, len(pairs)),
-                    np.fromiter((p.count for p in pairs), np.int64, len(pairs)),
-                )
-            )
-        return merge_counts_by_id(parts)
+            parts.append((frag, topt, cand_ids, cand_mask,
+                          self._attach_dev_src(frag, part, self_src)))
+        return parts
+
+    def _execute_topn_folded(
+        self, index: str, c: Call, slices: list[int], opt: ExecOptions
+    ) -> list[Pair]:
+        """Both TopN phases from one scoring pass (JAX
+        ``executor.py:2715``; reference protocol executor.go:281-321):
+        the cross-slice candidate union is known after a host-only cache
+        walk, so every slice scores the whole union once — one launch,
+        one fetch — and the phase-1 winner selection and the phase-2
+        exact counts both read those scores."""
+        n = _uint_arg(c, "n")[0]
+        if len(c.children) > 1:
+            raise ExecutorError("TopN() can only have one input bitmap")
+        parts = self._topn_folded_build(index, c, slices)
+        if parts is None:
+            return []
+        if parts == "two_phase":
+            return self._execute_topn_two_phase(index, c, slices, opt, n)
+        self._score_topn_parts([p[4] for p in parts])
+        # Phase-1 winners per slice, from the scores the first round
+        # would have given the slice's own candidates (a subset of the
+        # union).
+        winner_ids, fulls = [], []
+        for frag, topt, cand_ids, cand_mask, (st, _, _, _) in parts:
+            ids, cnts, keep, short = frag.top_score_arrays(st)
+            fulls.append((ids[keep], cnts[keep]))
+            if topt.src is None:
+                winner_ids.append(cand_ids[: topt.n] if topt.n else cand_ids)
+            elif short:
+                # Scoring short-circuited (no src segment here): the
+                # subset selection would too.
+                winner_ids.append(ids)
+            else:
+                sel_ids, _ = frag.select_winners(ids, cnts, keep, cand_mask, topt.n)
+                winner_ids.append(sel_ids)
+        ids2 = np.unique(np.concatenate(winner_ids)) if winner_ids else np.empty(0, np.int64)
+        if not len(ids2):
+            return []
+        # Phase 2's exact counts for the winner union, already in hand;
+        # counts sum across slices (reference: Pairs.Add, cache.go:312-334).
+        kept = []
+        for i, cts in fulls:
+            m = isin_sorted(i, ids2)
+            kept.append((i[m], cts[m]))
+        merged = merge_counts_by_id(kept)
+        if merged is None:
+            return []
+        uids, sums = merged
+        order = np.lexsort((uids, -sums))
+        if n and n < len(order):
+            order = order[:n]
+        return [Pair(int(uids[k]), int(sums[k])) for k in order]
 
     # ------------------------------------------------------------------
     # writes (reference: executor.go:642-840)

@@ -30,6 +30,7 @@ SOURCES = {
     "fused_popcount": "fused_popcount.cu",
     "delta_scatter": "delta_scatter.cu",
     "bsi_ripple": "bsi_ripple.cu",
+    "score_planes": "score_planes.cu",
 }
 
 NVCC_FLAGS = (

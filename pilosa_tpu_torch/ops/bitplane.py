@@ -238,14 +238,6 @@ def row_counts(plane: torch.Tensor) -> torch.Tensor:
     return fused_popcount.row_popcounts(plane.contiguous())
 
 
-def top_counts(plane: torch.Tensor, src_row: torch.Tensor) -> torch.Tensor:
-    """Per-row |row AND src| -> int32[rows]: the TopN(Src=...) scorer,
-    src read by every row (the kernel's broadcast form)."""
-    return fused_popcount.row_popcounts(
-        plane.contiguous(), src_row.reshape(1, -1).contiguous(), "and"
-    )
-
-
 # ---------------------------------------------------------------------------
 # Materializing set algebra (reference: roaring/roaring.go:345-474) — one
 # elementwise op on the int32 bit-views.

@@ -2,14 +2,15 @@
 
 The port's counterpart of the TPU kernel ``_fused_count_pallas``
 (``pilosa_tpu/ops/bitplane.py:615``).  PyTorch has no popcount op, and
-the last step of every Count tree, every TopN score and every rank-cache
-recount is "apply the outer bitwise op, popcount, reduce" — this kernel.
+the last step of every Count tree, every tanimoto src count and every
+rank-cache recount is "apply the outer bitwise op, popcount, reduce" —
+this kernel.  (TopN scores come from the cross-fragment scorer,
+``ops/score_planes.py``.)
 
 ``row_popcounts(a, b, op)`` returns int32[R] with
 ``out[r] = popcount(a[r] OP b[r])`` over int32 bit-views of the plane
 words; ``b`` is ``None`` (op ``"none"``), a tensor of ``a``'s shape, or
-one row ``[1, W]`` that every row of ``a`` reads (the TopN src
-broadcast).  ``fused_count`` sums it in int64.
+one row ``[1, W]`` that every row of ``a`` reads (a broadcast src).  ``fused_count`` sums it in int64.
 
 On a CPU tensor the wrapper runs :func:`plain_row_popcounts`, the plain
 PyTorch version.  On a CUDA tensor it launches the CUDA kernel

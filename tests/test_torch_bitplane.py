@@ -13,6 +13,7 @@ import jax.numpy as jnp  # noqa: E402
 from pilosa_tpu.ops import bitplane as jbp  # noqa: E402
 from pilosa_tpu_torch.ops import bitplane as tbp  # noqa: E402
 from pilosa_tpu_torch.ops import fused_popcount as fp  # noqa: E402
+from pilosa_tpu_torch.ops import score_planes  # noqa: E402
 
 W = tbp.WORDS_PER_SLICE
 ROWS = [1, 3, 8, 13]
@@ -72,10 +73,12 @@ def test_row_and_top_counts_match_jax(rows, kind):
     a, b = planes(rows, kind)
     got = tbp.row_counts(t(a)).numpy()
     np.testing.assert_array_equal(got, np.asarray(jbp.row_counts(jnp.asarray(a))))
+    # The TopN scores of every row against a src: the port's scorer
+    # (ops/score_planes.py) over the one plane.
     src = b[rows // 2]
-    got = tbp.top_counts(t(a), t(src)).numpy()
+    got = score_planes.score_planes([t(a)], np.arange(rows, dtype=np.int64)[None], [t(src)])
     want = np.asarray(jbp.top_counts(jnp.asarray(a), jnp.asarray(src)))
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got.numpy()[0], want)
 
 
 @pytest.mark.parametrize("rows", ROWS)

@@ -172,3 +172,44 @@ def test_bsi_ripple_matches_plain(cuda, depth):
         assert torch.equal(br.bsi_sum(fp_, f), br.plain_bsi_sum(fp_, f))
         for which in ("min", "max"):
             assert torch.equal(br.bsi_minmax(fp_, which, f), br.plain_bsi_minmax(fp_, which, f))
+
+
+# --- K4: the cross-fragment TopN scorer ------------------------------------------
+
+
+@pytest.mark.parametrize("rows_per_frag", [(1,), (8, 64, 65), (1, 8, 9) * 318])
+def test_score_planes_matches_plain(cuda, rows_per_frag):
+    """Ragged mirrors and candidate lists (1 to every row, pads of -1),
+    self-src and row-src, an all-zero and an all-ones src."""
+    from pilosa_tpu_torch.ops import score_planes as sp
+
+    rng = np.random.default_rng(len(rows_per_frag))
+    n = len(rows_per_frag)
+    planes = [tbp.to_device(rng.integers(0, 2**32, size=(r, tbp.WORDS_PER_SLICE),
+                                         dtype=np.uint32), cuda) for r in rows_per_frag]
+    width = max(rows_per_frag) + 3
+    slots = np.full((n, width), -1, np.int64)
+    for f, r in enumerate(rows_per_frag):
+        k = 1 + f % (r + 1) if f else r  # fragment 0 scores every row
+        slots[f, :k] = rng.choice(r, size=k, replace=k > r)
+    srcs_np = rng.integers(0, 2**32, size=(n, tbp.WORDS_PER_SLICE), dtype=np.uint32)
+    srcs_np[0] = 0xFFFFFFFF
+    if n > 1:
+        srcs_np[1] = 0
+    src_rows = tbp.to_device(srcs_np, cuda)
+    for srcs in ([src_rows[f] for f in range(n)],
+                 [p[int(rng.integers(0, p.shape[0]))] for p in planes]):
+        before = sp.launches
+        got = sp.score_planes(planes, slots, srcs)
+        torch.cuda.synchronize()
+        assert sp.launches == before + 1
+        assert torch.equal(got, sp.plain_score_planes(planes, slots, srcs))
+
+
+def test_score_planes_rejects_misaligned(cuda):
+    from pilosa_tpu_torch.ops import score_planes as sp
+
+    flat = torch.zeros(2 * tbp.WORDS_PER_SLICE + 4, dtype=torch.int32, device=cuda)
+    plane = flat[1 : 1 + 2 * tbp.WORDS_PER_SLICE].view(2, tbp.WORDS_PER_SLICE)
+    with pytest.raises(ValueError):
+        sp.score_planes([plane], np.array([[0]], np.int64), [plane[1]])

@@ -23,6 +23,7 @@ from pilosa_tpu_torch import device as device_mod  # noqa: E402
 from pilosa_tpu_torch.ops import bitplane as tbp  # noqa: E402
 from pilosa_tpu_torch.ops import delta_scatter as ds  # noqa: E402
 from pilosa_tpu_torch.ops import fused_popcount as fp  # noqa: E402
+from pilosa_tpu_torch.ops import score_planes  # noqa: E402
 
 PKG = os.path.dirname(pilosa_tpu_torch.__file__)
 FORBIDDEN = ("jax", "jaxlib", "pilosa_tpu", "google.protobuf")
@@ -144,7 +145,7 @@ def test_kernel_wrappers_raise_off_the_cpu():
     import numpy as np
 
     a = torch.empty(3, tbp.WORDS_PER_SLICE, dtype=torch.int32, device="meta")
-    before, ds_before = fp.launches, ds.launches
+    before, ds_before, sp_before = fp.launches, ds.launches, score_planes.launches
     for call in (
         lambda: fp.row_popcounts(a),
         lambda: fp.row_popcounts(a, a, "and"),
@@ -153,7 +154,7 @@ def test_kernel_wrappers_raise_off_the_cpu():
         lambda: tbp.count(a),
         lambda: tbp.count_and(a, a),
         lambda: tbp.row_counts(a),
-        lambda: tbp.top_counts(a, a[0]),
+        lambda: score_planes.score_planes([a], np.zeros((1, 1), np.int64), [a[0]]),
         lambda: ds.delta_scatter(
             a, *[np.zeros(1, t) for t in (np.int32, np.int32, np.uint32, np.uint32)]
         ),
@@ -161,6 +162,7 @@ def test_kernel_wrappers_raise_off_the_cpu():
         with pytest.raises(ValueError):
             call()
     assert fp.launches == before and ds.launches == ds_before
+    assert score_planes.launches == sp_before
 
 
 def test_kernel_build_refuses_without_nvcc(monkeypatch):
