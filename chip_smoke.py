@@ -18,7 +18,12 @@ without printing its final line:
    fragment, Sum/Min/Max with and without a filter; for the TopN scorer
    (K4) 1, 3 and 954 fragments with mirrors of 1, 8, 64 and 65 rows mixed
    in one launch, candidate lists of 1 to every row with -1 pads,
-   self-src and row-src, all-zero and all-ones src rows;
+   self-src and row-src, all-zero and all-ones src rows; for the payload
+   expansion (K6) 1, 7 and 954 rows of mixed formats and 954 of each
+   format in one launch, also against numpy; for the anchored count (K5)
+   1, 7 and 954 slices x 4 leaves of every format and absent rows in one
+   launch, anchors of 32,768, 1 and 0 positions and up to 2^20 - 1, five
+   trees;
 4. time each kernel at the main path's shapes (CUDA events around runs
    of back-to-back calls, median of 21 runs), beside its bound and its
    plain version's time; for the delta-scatter kernel also the time of
@@ -26,7 +31,10 @@ without printing its final line:
    own device time per launch from a torch.profiler trace; K8 at [954
    slices, depth 31]; K4 at [954 fragments, 8 candidates] and [954, 64],
    and K1 at the per-fragment TopN shape it served before K4 ([8, 32768]
-   and [64, 32768] against a broadcast src row);
+   and [64, 32768] against a broadcast src row); K6 over 954 payloads of
+   each format (with ``Tensor.scatter_add_`` as the library yardstick of
+   the positions form); K5 at [954 slices, 32,768-position anchors, a
+   dense, a sparse and an RLE leaf];
 5. serve a 1B-column index — 954 slices x 8 dense rows, seeded random
    words, about 1 GiB on the card — with ``Server(device="cuda")`` and
    answer Count/Bitmap/TopN/SetBit over HTTP, every answer checked
@@ -65,7 +73,20 @@ without printing its final line:
    0.5 * 2^(-k/8), generated on the card slice by slice: TopN without a
    src, self-src, row-src (a tree over phase 5's frame), with threshold,
    tanimotoThreshold and ids, against a numpy oracle of per-slice scores;
-10. print the ``kernels`` JSON line, then the final JSON line.
+10. on a node of its own at the JAX package's defaults (dense budget
+    65,536, plane-format auto, 64 KiB caps), the two tutorials of
+    docs/tutorials.md loaded through ``/import``: the star trace (index
+    ``repository``, 2^18 stargazers in a random permutation, Zipf stars,
+    1% of them starring a run of repositories, 2 slices: two tall
+    fragments with 8 GiB plane tiers; 64 languages) and the chemical
+    similarity (index ``mole``, 2^18 molecules x 1,024 positions, ~48
+    bits each, frame ``fingerprint`` with inverse storage: a tall inverse
+    fragment); Counts through K5, Union/Bitmap/TopN srcs through K6, TopN
+    over both tiers, a SetBit into a sparse row, ``Bitmap(molecule_id=m)``
+    and the tanimoto TopN on the inverse view, every answer against a
+    numpy oracle over the written pairs, the launches of K1, K4, K5 and
+    K6 counted around each query class;
+11. print the ``kernels`` JSON line, then the final JSON line.
 
 Exits non-zero when ``torch.cuda.is_available()`` is false, and when the
 port's package is not beside this file.
@@ -73,6 +94,7 @@ port's package is not beside this file.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -706,6 +728,268 @@ def time_k4(sp, fp, hbm: float) -> dict:
             f"{k1_bound:.6f} ms by {k1_by} (x {N_SLICES} launches and host syncs per phase)")
         del mirrors, srcs
     return out
+
+
+# --- K5 and K6: the anchored count and the payload expansion -------------------
+
+K56_SLICES = (1, 7, N_SLICES)
+# Phase 4's K6 payloads: 954 rows of each format at these sizes.
+K6_SPARSE_POSITIONS = 4096
+K6_RLE_RUNS = 1024
+# Phase 4's K5: an anchor of 32,768 positions (a dense-format leaf's bits), a
+# sparse leaf of 16,384 positions and an RLE leaf of 8,192 runs per slice.
+K5_ANCHOR = 32768
+K5_SPARSE = 16384
+K5_RUNS = 8192
+
+
+def k56_row(bp, rng, kind: int) -> np.ndarray:
+    """Sorted in-slice positions of one test row; ``kind`` cycles through
+    scattered (positions format), clustered runs (RLE), a row past the
+    sparse cap (dense format), the edges 0 / 31 / 32 / 2^20 - 1, a run
+    ending at 2^20, one position, and the empty row."""
+    sw = bp.SLICE_WIDTH
+    k = kind % 7
+    if k == 0:
+        offs = rng.choice(sw, size=int(rng.integers(1, 4000)), replace=False)
+    elif k == 1:
+        starts = np.sort(rng.choice(sw // 64, size=int(rng.integers(1, 900)), replace=False)) * 64
+        offs = (starts[:, None] + np.arange(int(rng.integers(1, 60)))[None, :]).ravel()
+    elif k == 2:
+        offs = rng.choice(sw, size=40_000, replace=False)
+    elif k == 3:
+        offs = np.array([0, 31, 32, sw - 1])
+    elif k == 4:
+        offs = np.arange(sw - int(rng.integers(1, 3000)), sw)
+    elif k == 5:
+        offs = np.array([int(rng.integers(0, sw))])
+    else:
+        offs = np.array([], np.int64)
+    return np.unique(offs).astype(np.uint32)
+
+
+def k56_payload(bp, offs: np.ndarray, fmt: int | None = None):
+    """(fmt, int32 device payload of real entries) of a row, in its
+    encode_row format or in ``fmt``."""
+    if fmt is None:
+        fmt, payload, _ = bp.encode_row(offs)
+        real = bp.payload_entries(fmt, payload)
+    elif fmt == bp.FMT_SPARSE:
+        real = offs
+    elif fmt == bp.FMT_RLE:
+        real = bp.np_positions_to_runs(offs)
+    else:
+        real = bp.np_columns_to_row(offs)
+    return fmt, bp.to_device(np.ascontiguousarray(real, dtype=np.uint32), "cuda")
+
+
+def check_k6(ep, bp, rng) -> float:
+    """K6 against its plain version on the card, exactly: 1, 7 and 954
+    rows and 954 rows of each format in one launch, every kind of
+    :func:`k56_row` (the edges, a run ending at 2^20, empty payloads),
+    each row also forced into the other two formats; and the dense rows
+    equal to numpy's.  Returns the largest absolute difference (0)."""
+    import torch
+
+    worst, n_checks = 0, 0
+    groups = [[(k, None) for k in range(n)] for n in K56_SLICES]
+    groups += [[(k, f) for k in range(N_SLICES)] for f in (bp.FMT_DENSE, bp.FMT_SPARSE, bp.FMT_RLE)]
+    for group in groups:
+        offs = [k56_row(bp, rng, k) for k, _ in group]
+        jobs_in = [k56_payload(bp, o, f) for o, (_, f) in zip(offs, group)]
+        got = torch.full((len(group), 32768), -1, dtype=torch.int32, device="cuda")
+        want = torch.full_like(got, 5)
+        before = ep.launches
+        ep.expand_payloads([(f, p, got[i]) for i, (f, p) in enumerate(jobs_in)])
+        torch.cuda.synchronize()
+        if ep.launches != before + 1:
+            raise AssertionError(f"expand_payload: {ep.launches - before} launches for one call")
+        ep.plain_expand([(f, p, want[i]) for i, (f, p) in enumerate(jobs_in)])
+        torch.cuda.synchronize()
+        diff = int((got.long() - want.long()).abs().max())
+        worst = max(worst, diff)
+        host = bp.to_host(got)
+        for i, o in enumerate(offs):
+            if not np.array_equal(host[i], bp.np_columns_to_row(o)):
+                raise AssertionError(f"expand_payload row {i} != numpy ({len(o)} positions)")
+        n_checks += 1
+        if diff:
+            raise AssertionError(f"expand_payload != plain: {len(group)} rows, diff {diff}")
+    log(f"phase 3: expand_payload == plain and numpy on {n_checks} launches (max_abs_err "
+        f"{worst}): 1, 7 and {N_SLICES} rows of mixed formats, {N_SLICES} rows of each format; "
+        "edges 0/31/32/2^20-1, runs ending at 2^20, empty payloads")
+    return float(worst)
+
+
+K5_TREES = (
+    ("Intersect", ("leaf", 0), ("leaf", 1), ("leaf", 2)),
+    ("Difference", ("leaf", 0), ("Union", ("leaf", 1), ("leaf", 2), ("leaf", 3))),
+    ("Intersect", ("leaf", 0), ("Xor", ("leaf", 1), ("leaf", 3))),
+    ("Intersect", ("leaf", 2), ("Union",)),
+    ("Difference", ("leaf", 3)),
+)
+
+
+def check_k5(ac, bp, plan, rng) -> float:
+    """K5 against its plain version on the card, exactly: 1, 7 and 954
+    slices; 4 leaves a slice drawn from every kind of :func:`k56_row` in
+    its own format (dense words, positions, runs; the edges; empty
+    payloads) and absent rows, so every format mix meets in one launch;
+    anchors of 32,768 positions, 1 position, none, and the last 300
+    positions up to 2^20 - 1; five trees.  Returns the largest absolute
+    difference (0)."""
+    import torch
+
+    sw = bp.SLICE_WIDTH
+    worst, n_checks = 0, 0
+    for n in K56_SLICES:
+        leaves, anchors = [], []
+        for s in range(n):
+            row = []
+            for i in range(4):
+                k = int(rng.integers(0, 8))
+                row.append(None if k == 7 else k56_payload(bp, k56_row(bp, rng, k)))
+            leaves.append(row)
+            a = s % 4
+            anchors.append(np.sort(rng.choice(sw, size=K5_ANCHOR, replace=False)) if a == 0
+                           else np.array([sw - 1]) if a == 1 else np.array([], np.int64)
+                           if a == 2 else np.arange(sw - 300, sw))
+        offsets = np.zeros(n + 1, dtype=np.int64)
+        offsets[1:] = np.cumsum([len(a) for a in anchors])
+        positions = np.concatenate(anchors).astype(np.uint32)
+        if not len(positions):  # one slice, empty anchor: give it one position
+            positions, offsets[-1] = np.array([0], np.uint32), 1
+        for expr in K5_TREES:
+            before = ac.launches
+            got = plan.anchored_count(expr, positions, offsets, leaves, "cuda")
+            torch.cuda.synchronize()
+            if ac.launches != before + 1:
+                raise AssertionError(f"anchored_count: {ac.launches - before} launches")
+            want = ac.plain_anchored_count(plan.compile_program(expr), positions, offsets,
+                                           leaves, "cuda")
+            torch.cuda.synchronize()
+            diff = int((got.long() - want.long()).abs().max())
+            worst = max(worst, diff)
+            n_checks += 1
+            if diff:
+                raise AssertionError(f"anchored_count != plain: {n} slices, {expr}, diff {diff}")
+    log(f"phase 3: anchored_count == plain on {n_checks} launches (max_abs_err {worst}): 1, 7 "
+        f"and {N_SLICES} slices x 4 leaves of every format and absent rows mixed in one launch, "
+        "anchors of 32,768, 1 and 0 positions and up to 2^20 - 1, five trees")
+    return float(worst)
+
+
+def k6_bound_ms(payload_bytes: int, rows: int, hbm: float) -> tuple[float, str]:
+    """Least time for one K6 launch: the payloads and the table read once,
+    128 KiB written per row."""
+    nbytes = payload_bytes + rows * 32 + rows * 32768 * 4
+    return nbytes / hbm * 1e3, "bytes"
+
+
+def k5_bound_ms(positions: int, leaf_bytes: int, slices: int, leaves: int,
+                hbm: float) -> tuple[float, str]:
+    """Least time for one K5 launch, as the JAX package's eff_bytes counts
+    it: the anchor (4 B a position) and every leaf's encoded bytes read
+    once, plus the table, 4 B out per slice."""
+    nbytes = 4 * positions + leaf_bytes + slices * (8 + 24 * leaves) + 4 * slices
+    return nbytes / hbm * 1e3, "bytes"
+
+
+def time_k6(ep, bp, rng, hbm: float) -> dict:
+    """K6 over 954 payloads of each format — positions (K6_SPARSE_POSITIONS
+    each), runs (K6_RLE_RUNS each) and dense words — back to back, by
+    profiler device time, its plain version, its bound, and for the
+    positions format the library call ``Tensor.scatter_add_`` of the
+    one-bit masks into a zero plane."""
+    import torch
+
+    sw = bp.SLICE_WIDTH
+    forms = {}
+    sp = np.sort(np.stack([rng.choice(sw, size=K6_SPARSE_POSITIONS, replace=False)
+                           for _ in range(N_SLICES)]), axis=1).astype(np.uint32)
+    forms["sparse"] = [(bp.FMT_SPARSE, bp.to_device(sp[i], "cuda")) for i in range(N_SLICES)]
+    runs = []
+    for _ in range(N_SLICES):
+        starts = np.sort(rng.choice(sw // 512, size=K6_RLE_RUNS, replace=False)) * 512
+        ends = starts + rng.integers(1, 500, K6_RLE_RUNS)
+        runs.append(np.stack([starts, ends], 1).astype(np.uint32))
+    forms["rle"] = [(bp.FMT_RLE, bp.to_device(r, "cuda")) for r in runs]
+    dense = bp.to_device(rng.integers(0, 2**32, size=(N_SLICES, 32768), dtype=np.uint32), "cuda")
+    forms["dense"] = [(bp.FMT_DENSE, dense[i]) for i in range(N_SLICES)]
+    out_rows = torch.empty(N_SLICES, 32768, dtype=torch.int32, device="cuda")
+    out = {}
+    for name, items in forms.items():
+        jobs = [(f, p, out_rows[i]) for i, (f, p) in enumerate(items)]
+        k_ms = time_cuda(lambda: ep.expand_payloads(jobs), runs=11, per_run=10)
+        k_dev = device_ms(lambda: ep.expand_payloads(jobs), "expand_payload_kernel", launches=20)
+        plain_ms = time_cuda(lambda: ep.plain_expand(jobs), runs=3, per_run=2, warmup=1)
+        nbytes = sum(p.numel() * 4 for _, p in items)
+        bound_ms, bound_by = k6_bound_ms(nbytes, N_SLICES, hbm)
+        lib_ms = None
+        if name == "sparse":
+            flat = torch.from_numpy((np.arange(N_SLICES)[:, None] * 32768
+                                     + (sp >> 5)).ravel().astype(np.int64)).cuda()
+            masks = torch.from_numpy((np.int64(1) << (sp & 31).astype(np.int64)).ravel()).cuda()
+            zero = torch.zeros(N_SLICES * 32768, dtype=torch.int64, device="cuda")
+            lib_ms = time_cuda(lambda: zero.clone().scatter_add_(0, flat, masks), runs=11,
+                               per_run=10)
+        out[name] = {"ms": k_ms, "device_ms": k_dev, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms, "payload_bytes": nbytes}
+        share = bound_ms / k_dev if k_dev else float("nan")
+        log(f"phase 4: expand_payload {N_SLICES} x {name}: {k_ms:.4f} ms back to back, device "
+            f"{k_dev} ms ({share:.1%} of the bound), bound {bound_ms:.4f} ms by {bound_by} "
+            f"({nbytes} payload bytes in, {N_SLICES} x 128 KiB out), plain {plain_ms:.4f} ms"
+            + (f", scatter_add_ {lib_ms:.4f} ms" if lib_ms is not None else ""))
+    return out
+
+
+def time_k5(ac, bp, plan, rng, hbm: float) -> dict:
+    """K5 at [954 slices, 32,768-position anchors, three leaves: dense,
+    sparse, RLE]: the dense leaf a row of a 954-row mirror (read in
+    place, as a plane row is), whose 32,768 bits are the anchor; a
+    K5_SPARSE-position leaf and a K5_RUNS-run leaf; back to back, device
+    time, plain version, bound."""
+    import torch
+
+    sw = bp.SLICE_WIDTH
+    anchors = np.sort(np.stack([rng.choice(sw, size=K5_ANCHOR, replace=False)
+                                for _ in range(N_SLICES)]), axis=1).astype(np.uint32)
+    mirror = np.zeros((N_SLICES, 32768), np.uint32)
+    for s in range(N_SLICES):
+        np.bitwise_or.at(mirror[s], anchors[s] >> 5,
+                         (np.uint32(1) << (anchors[s] & 31)).astype(np.uint32))
+    dev_mirror = bp.to_device(mirror, "cuda")
+    sparse = np.sort(np.stack([rng.choice(sw, size=K5_SPARSE, replace=False)
+                               for _ in range(N_SLICES)]), axis=1).astype(np.uint32)
+    leaves = []
+    for s in range(N_SLICES):
+        starts = np.sort(rng.choice(sw // 128, size=K5_RUNS, replace=False)) * 128
+        runs = np.stack([starts, starts + rng.integers(1, 100, K5_RUNS)], 1).astype(np.uint32)
+        leaves.append([(bp.FMT_DENSE, dev_mirror[s]),
+                       (bp.FMT_SPARSE, bp.to_device(sparse[s], "cuda")),
+                       (bp.FMT_RLE, bp.to_device(runs, "cuda"))])
+    offsets = np.arange(N_SLICES + 1, dtype=np.int64) * K5_ANCHOR
+    positions = anchors.ravel()
+    expr = K5_TREES[0]
+    program = plan.compile_program(expr)
+    k_ms = time_cuda(lambda: ac.anchored_count(program, positions, offsets, leaves, "cuda"),
+                     runs=11, per_run=5)
+    k_dev = device_ms(lambda: ac.anchored_count(program, positions, offsets, leaves, "cuda"),
+                      "anchored_count_kernel", launches=20)
+    plain_ms = time_cuda(lambda: ac.plain_anchored_count(program, positions, offsets, leaves,
+                                                         "cuda"), runs=3, per_run=1, warmup=1)
+    # Encoded bytes as the JAX package's eff_bytes counts them: a dense row
+    # 128 KiB, positions and runs at their bucketed payload sizes.
+    leaf_bytes = N_SLICES * (32768 * 4 + 4 * bp.payload_bucket(K5_SPARSE)
+                             + 8 * bp.payload_bucket(K5_RUNS))
+    bound_ms, bound_by = k5_bound_ms(len(positions), leaf_bytes, N_SLICES, 3, hbm)
+    share = bound_ms / k_dev if k_dev else float("nan")
+    log(f"phase 4: anchored_count [{N_SLICES} slices, {K5_ANCHOR}-position anchors, leaves "
+        f"dense / {K5_SPARSE} positions / {K5_RUNS} runs]: {k_ms:.4f} ms back to back, device "
+        f"{k_dev} ms ({share:.1%} of the bound), bound {bound_ms:.4f} ms by {bound_by}, "
+        f"plain {plain_ms:.4f} ms")
+    return {"ms": k_ms, "device_ms": k_dev, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def http(host: str, method: str, path: str, body: bytes = b"") -> tuple[int, object]:
@@ -1569,6 +1853,289 @@ def topn_and_check(sp, fp, convert, srv, f_planes) -> dict:
     return out
 
 
+# --- Phase 10: the two tutorials (docs/tutorials.md) at the JAX defaults -------
+
+# Star trace (tutorials.md section 1): 2^18 stargazer ids in a random
+# permutation, Zipf stars per user, 1% of users starring a contiguous run of
+# repository ids, over 2 slices of repositories; 64 languages, one per
+# repository.
+STAR_USERS = 1 << 18
+STAR_SLICES = 2
+STAR_ZIPF = 2.0
+STAR_MAX = 50_000
+STAR_RUN_SHARE = 0.01
+STAR_RUN_LEN = (100, 5000)
+STAR_LANGUAGES = 64
+# Chemical similarity (section 2): molecules x fingerprint positions, about
+# FP_BITS bits each; FP_NEIGHBORS near-copies of molecule FP_QUERY (half
+# with ids inside the dense budget, half past it) with up to FP_FLIPS bits
+# changed, so the tanimoto query has answers on both tiers.
+MOLECULES = 1 << 18
+FP_POSITIONS = 1024
+FP_BITS = 48
+FP_QUERY = 42
+FP_QUERY_BITS = 120
+FP_NEIGHBORS = 64
+FP_FLIPS = 30
+P10_CACHE = 50_000  # the ranked cache's size: each slice's TopN candidates
+
+
+def star_data(rng):
+    """(stargazer ids, repository ids) of every star, unique, sorted by
+    (stargazer, repository); and each repository's language."""
+    n_repos = STAR_SLICES << 20
+    perm = rng.permutation(STAR_USERS)
+    k = np.minimum(rng.zipf(STAR_ZIPF, STAR_USERS), STAR_MAX)
+    users = np.repeat(np.arange(STAR_USERS), k)
+    repos = rng.integers(0, n_repos, len(users))
+    run_users = rng.choice(STAR_USERS, size=int(STAR_USERS * STAR_RUN_SHARE), replace=False)
+    lens = rng.integers(*STAR_RUN_LEN, len(run_users))
+    starts = rng.integers(0, n_repos - lens)
+    users = np.concatenate([users, np.repeat(run_users, lens)])
+    within = np.arange(int(lens.sum())) - np.repeat(np.cumsum(lens) - lens, lens)
+    repos = np.concatenate([repos, np.repeat(starts, lens) + within])
+    key = np.unique(perm[users].astype(np.int64) * n_repos + repos)
+    lang = rng.integers(0, STAR_LANGUAGES, n_repos)
+    return key // n_repos, key % n_repos, lang
+
+
+def fingerprint_data(rng, budget: int):
+    """(molecule ids, positions) of every fingerprint bit, unique, sorted by
+    (molecule, position); the near-copies of FP_QUERY have ids on both
+    sides of the dense ``budget``."""
+    k = rng.binomial(FP_POSITIONS, FP_BITS / FP_POSITIONS, MOLECULES)
+    mols = np.repeat(np.arange(MOLECULES), k)
+    pos = rng.integers(0, FP_POSITIONS, len(mols))
+    query = np.sort(rng.choice(FP_POSITIONS, size=FP_QUERY_BITS, replace=False))
+    near = np.concatenate([
+        rng.choice(np.arange(FP_QUERY + 1, budget), FP_NEIGHBORS // 2, replace=False),
+        rng.choice(np.arange(budget, MOLECULES), FP_NEIGHBORS // 2, replace=False)])
+    extra_m, extra_p = [np.full(FP_QUERY_BITS, FP_QUERY)], [query]
+    for m in near:
+        drop = rng.integers(0, FP_FLIPS + 1)
+        keep = rng.choice(query, size=FP_QUERY_BITS - drop, replace=False)
+        add = rng.choice(FP_POSITIONS, size=int(rng.integers(0, FP_FLIPS + 1)))
+        p = np.union1d(keep, add)
+        extra_m.append(np.full(len(p), m))
+        extra_p.append(p)
+    planted = np.isin(mols, np.concatenate([[FP_QUERY], near]))
+    mols = np.concatenate([mols[~planted]] + extra_m)
+    pos = np.concatenate([pos[~planted]] + extra_p)
+    key = np.unique(mols.astype(np.int64) * FP_POSITIONS + pos)
+    return key // FP_POSITIONS, key % FP_POSITIONS
+
+
+def row_of(ids: np.ndarray, vals: np.ndarray, i: int) -> np.ndarray:
+    """The sorted values of id ``i`` in arrays sorted by (id, value)."""
+    lo, hi = np.searchsorted(ids, [i, i + 1])
+    return vals[lo:hi]
+
+
+def tutorial_topn(scores: np.ndarray, totals: np.ndarray, n: int) -> list[dict]:
+    """The TopN protocol over per-slice scores [slices, rows]: each slice's
+    candidates are its P10_CACHE rows of highest count (``totals``; count
+    desc, id asc — the ranked cache); its winners the n best candidates by
+    score (> 0); a winner's count is its score summed over the slices
+    where it has bits; sorted (count desc, id asc) and trimmed to n."""
+    winners = set()
+    for sc, tot in zip(scores, totals):
+        ids = np.arange(len(tot))
+        cand = np.lexsort((ids, -tot))[:P10_CACHE]
+        cand = cand[tot[cand] > 0]
+        cand = cand[sc[cand] > 0]
+        order = cand[np.lexsort((cand, -sc[cand]))]
+        winners.update(int(r) for r in order[:n])
+    pairs = [(r, int(scores[totals[:, r] > 0, r].sum())) for r in sorted(winners)]
+    pairs.sort(key=lambda p: (-p[1], p[0]))
+    return [{"id": i, "count": c} for i, c in pairs[:n] if c > 0]
+
+
+def tutorials_and_check(ac, ep, fp, sp, bp, InternalClient, srv, rng) -> dict:
+    """Phase 10 on ``srv``, a fresh one-node ``Server`` on the card at the
+    JAX package's defaults (dense budget 65,536, plane-format auto, 64 KiB
+    caps): the star trace and the chemical-similarity tutorials loaded
+    through ``/import``, then every query class of the slice, each
+    answer against a numpy oracle over the written pairs, the launches of
+    K1, K4, K5 and K6 counted around each class."""
+    import torch
+
+    from pilosa_tpu_torch.core import fragment as fragment_mod
+
+    h = srv.host
+    client = InternalClient(h, timeout=600)
+    for path, opts in (
+        ("/index/repository", {"columnLabel": "repo_id"}),
+        ("/index/repository/frame/stargazer", {"rowLabel": "stargazer_id"}),
+        ("/index/repository/frame/language", {"rowLabel": "language_id"}),
+        ("/index/mole", {"columnLabel": "molecule_id"}),
+        ("/index/mole/frame/fingerprint", {"rowLabel": "position", "inverseEnabled": True}),
+    ):
+        status, body = http(h, "POST", path, json.dumps({"options": opts}).encode())
+        if status != 200:
+            raise AssertionError(f"POST {path}: {status} {body}")
+    budget = fragment_mod.DENSE_ROW_BUDGET
+    t0 = time.perf_counter()
+    users, repos, lang = star_data(rng)
+    mols, fpos = fingerprint_data(rng, budget)
+    t1 = time.perf_counter()
+    client.import_bits("repository", "stargazer", users, repos)
+    t2 = time.perf_counter()
+    client.import_bits("repository", "language", lang, np.arange(len(lang)))
+    t3 = time.perf_counter()
+    client.import_bits("mole", "fingerprint", fpos, mols)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    stars = [srv.holder.fragment("repository", "stargazer", "standard", s)
+             for s in range(STAR_SLICES)]
+    inv = srv.holder.fragment("mole", "fingerprint", "inverse", 0)
+    tiers = {f"stargazer/{s}": (len(f._slot_of), len(f._sparse)) for s, f in enumerate(stars)}
+    tiers["fingerprint/inverse/0"] = (len(inv._slot_of), len(inv._sparse))
+    log(f"phase 10: star trace {len(users)} stars of {STAR_USERS} stargazers over "
+        f"{STAR_SLICES} slices and {STAR_LANGUAGES} languages, fingerprints {len(mols)} bits of "
+        f"{MOLECULES} molecules, made in {t1 - t0:.3f}s; /import of the stars {t2 - t1:.3f}s, "
+        f"languages {t3 - t2:.3f}s, fingerprints (with the inverse view) {t4 - t3:.3f}s; "
+        f"(plane rows, sparse rows) per tall fragment {tiers} at a dense budget of {budget}; "
+        f"device memory allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    for name, (dense, sparse) in tiers.items():
+        if dense != budget or sparse == 0:
+            raise AssertionError(f"phase 10: {name} is not tall: {dense} plane rows, "
+                                 f"{sparse} sparse rows")
+
+    # The oracle: per-slice counts and each row's repositories.
+    slice_of = repos >> 20
+    counts = np.stack([np.bincount(users[slice_of == s], minlength=STAR_USERS)
+                       for s in range(STAR_SLICES)])
+    total = counts.sum(0)
+
+    def fmt_in(frag, u):
+        hp = frag.host_payload(int(u))
+        return None if hp is None else hp[0]
+
+    def pick(pred, k=1):
+        """The k stargazers of most stars that satisfy ``pred`` in every slice."""
+        out = []
+        for u in np.argsort(-total, kind="stable"):
+            if all(pred(f, int(u), counts[s, u]) for s, f in enumerate(stars)):
+                out.append(int(u))
+                if len(out) == k:
+                    return out
+        raise AssertionError("phase 10: no stargazer fits")
+
+    def sparse_fmt(f, u, n):
+        return u in f._sparse and n > 0 and fmt_in(f, u) == bp.FMT_SPARSE
+
+    a, b, c = pick(sparse_fmt, 3)
+    d = pick(lambda f, u, n: u in f._slot_of and n > 0)[0]
+    # A run's stargazer: RLE where its run lies, never a plane row.
+    r = next(int(u) for u in np.argsort(-total, kind="stable")
+             if all(int(u) not in f._slot_of for f in stars)
+             and any(fmt_in(f, u) == bp.FMT_RLE for f in stars))
+    ra, rb, rc, rd, rr = (row_of(users, repos, u) for u in (a, b, c, d, r))
+    L3 = np.flatnonzero(lang == 3)
+    lang_counts = np.stack([np.bincount(lang[s << 20:(s + 1) << 20], minlength=STAR_LANGUAGES)
+                            for s in range(STAR_SLICES)])
+    a_lang = np.stack([np.bincount(lang[ra[(ra >> 20) == s]], minlength=STAR_LANGUAGES)
+                       for s in range(STAR_SLICES)])
+    in_l3 = lang[repos] == 3
+    l3_scores = np.stack([np.bincount(users[(slice_of == s) & in_l3], minlength=STAR_USERS)
+                          for s in range(STAR_SLICES)])
+    # The write: a repository of b's that a has not starred.
+    x = int(np.setdiff1d(rb, ra)[0])
+
+    fp_q = row_of(mols, fpos, FP_QUERY)
+    fp_counts = np.bincount(mols, minlength=MOLECULES)
+    src_n = len(fp_q)
+    lo_t, hi_t = float(src_n * 70) / 100, float(src_n * 100) / 70
+    window = np.flatnonzero((fp_counts > lo_t) & (fp_counts < hi_t))
+    tani = []
+    for m in window:
+        sc = len(np.intersect1d(row_of(mols, fpos, m), fp_q))
+        if sc > 0 and np.ceil(sc * 100.0 / (fp_counts[m] + src_n - sc)) > 70:
+            tani.append((int(m), sc))
+    tani.sort(key=lambda p: (-p[1], p[0]))
+    tani_want = [{"id": m, "count": sc} for m, sc in tani[:100]]
+    if not any(m < budget for m, _ in tani) or not any(m >= budget for m, _ in tani):
+        raise AssertionError(f"phase 10: the tanimoto answer misses a tier: {tani[:5]}")
+    # Two molecules of the sparse tier near the query: they share bits.
+    m1, m2 = [m for m, _ in tani if int(m) in inv._sparse][:2]
+    fm1, fm2 = row_of(mols, fpos, m1), row_of(mols, fpos, m2)
+    inv_rows = {"q": FP_QUERY, "m1": m1, "m2": m2}
+
+    B = "Bitmap(frame=stargazer, stargazer_id={})"
+    M = "Bitmap(frame=fingerprint, molecule_id={})"
+    # (name, index, pql, expected, launches per request by kernel)
+    queries = [
+        ("count_sparse_sparse", "repository", f"Count(Intersect({B.format(a)}, {B.format(b)}))",
+         len(np.intersect1d(ra, rb)), {"k5": 1}),
+        ("count_sparse_dense", "repository", f"Count(Intersect({B.format(a)}, {B.format(d)}))",
+         len(np.intersect1d(ra, rd)), {"k5": 1}),
+        ("count_rle_difference", "repository",
+         f"Count(Difference({B.format(r)}, {B.format(a)}))", len(np.setdiff1d(rr, ra)),
+         {"k5": 1}),
+        ("count_nested", "repository",
+         f"Count(Intersect({B.format(r)}, Union({B.format(a)}, {B.format(b)})))",
+         len(np.intersect1d(rr, np.union1d(ra, rb))), {"k5": 1}),
+        ("count_union_sparse", "repository",
+         f"Count(Union({B.format(a)}, {B.format(b)}, {B.format(c)}))",
+         len(np.union1d(np.union1d(ra, rb), rc)), {"k6": 1, "k1": 1}),
+        ("bitmap_sparse", "repository", B.format(a),
+         {"attrs": {}, "bits": [int(v) for v in ra]}, {"k6": 1}),
+        ("topn_language", "repository", f"TopN({B.format(a)}, frame=language, n=5)",
+         tutorial_topn(a_lang, lang_counts, 5), {"k6": 1, "k4": 1}),
+        ("topn_stargazer", "repository", "TopN(frame=stargazer, n=10)",
+         tutorial_topn(counts, counts, 10), {}),
+        ("topn_stargazer_src", "repository",
+         "TopN(Bitmap(frame=language, language_id=3), frame=stargazer, n=10)",
+         tutorial_topn(l3_scores, counts, 10), {"k4": 1}),
+        ("bitmap_molecule", "mole", M.format(m1), {"attrs": {}, "bits": [int(v) for v in fm1]},
+         {"k6": 1}),
+        ("count_molecules", "mole", f"Count(Intersect({M.format(m1)}, {M.format(m2)}))",
+         len(np.intersect1d(fm1, fm2)), {"k5": 1}),
+        ("topn_tanimoto", "mole",
+         f"TopN({M.format(FP_QUERY)}, frame=fingerprint, inverse=true, n=100, "
+         "tanimotoThreshold=70)", tani_want, {"k1": 1, "k4": 1}),
+    ]
+    kernels = {"k1": fp, "k4": sp, "k5": ac, "k6": ep}
+    out: dict = {"latencies_ms": {}, "launches": {}, "rows": {"a": a, "b": b, "c": c, "d": d,
+                                                             "r": r, **inv_rows}}
+
+    def run(name, index, pql, want, per_request, reps=REPS):
+        for k in kernels.values():
+            k.launches = 0  # the main path starts here
+        times = []
+        for _ in range(reps):
+            q0 = time.perf_counter()
+            status, body = http(h, "POST", f"/index/{index}/query", pql.encode())
+            times.append(time.perf_counter() - q0)
+            if status != 200 or body["results"] != [want]:
+                raise AssertionError(f"phase 10 {name}: {status} {str(body)[:300]} != "
+                                     f"{str(want)[:300]}")
+        got = {k: m.launches for k, m in kernels.items()}  # the main path ends here
+        expect = {k: reps * per_request.get(k, 0) for k in kernels}
+        if got != expect:
+            raise AssertionError(f"phase 10 {name}: launches {got} != {expect}")
+        out["latencies_ms"][name] = statistics.median(times) * 1e3
+        out["launches"][name] = got
+
+    for q in queries:
+        run(*q)
+    # A write into a sparse row, then the Count that must see it.
+    status, body = http(h, "POST", "/index/repository/query",
+                        f"SetBit(frame=stargazer, stargazer_id={a}, repo_id={x})".encode())
+    if status != 200 or body["results"] != [True]:
+        raise AssertionError(f"phase 10 SetBit: {status} {body}")
+    if a not in stars[x >> 20]._sparse:
+        raise AssertionError("phase 10: the written row left the sparse tier")
+    run("count_after_setbit", "repository", queries[0][2], queries[0][3] + 1, {"k5": 1})
+    for name, ms in out["latencies_ms"].items():
+        log(f"phase 10: {name} p50 {ms:.3f} ms over {REPS} requests, launches "
+            f"{out['launches'][name]}")
+    totals = {k: sum(v[k] for v in out["launches"].values()) for k in kernels}
+    out["totals"] = totals
+    log(f"phase 10: answers == numpy oracle; launches by kernel {totals} (rows {out['rows']})")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1577,13 +2144,16 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from pilosa_tpu_torch import bsi, convert
+    from pilosa_tpu_torch.exec import plan as tplan
     from pilosa_tpu_torch.ingest import scatter
     from pilosa_tpu_torch.net.client import InternalClient
     from pilosa_tpu_torch.net.server import Server
     from pilosa_tpu_torch.ops import _build
+    from pilosa_tpu_torch.ops import anchored_count as ac
     from pilosa_tpu_torch.ops import bitplane as bp
     from pilosa_tpu_torch.ops import bsi_ripple as br
     from pilosa_tpu_torch.ops import delta_scatter as ds
+    from pilosa_tpu_torch.ops import expand_payload as ep
     from pilosa_tpu_torch.ops import fused_popcount as fp
     from pilosa_tpu_torch.ops import score_planes as sp
 
@@ -1608,6 +2178,9 @@ def main() -> int:
     k7_err = check_k7(ds, scatter, rng7)
     k8_err = check_k8(br, bsi, rng8)
     k4_err = check_k4(sp, rng4)
+    rng56 = np.random.default_rng(SEED + 4)
+    k6_err = check_k6(ep, bp, rng56)
+    k5_err = check_k5(ac, bp, tplan, rng56)
 
     a = bp.to_device(rng.integers(0, 2**32, size=(N_SLICES, 32768), dtype=np.uint32), "cuda")
     b = bp.to_device(rng.integers(0, 2**32, size=(N_SLICES, 32768), dtype=np.uint32), "cuda")
@@ -1622,6 +2195,8 @@ def main() -> int:
     k7_times = time_k7(ds, rng7, hbm)
     k8_times = time_k8(br, bsi, hbm)
     k4_times = time_k4(sp, fp, hbm)
+    k6_times = time_k6(ep, bp, rng56, hbm)
+    k5_times = time_k5(ac, bp, tplan, rng56, hbm)
 
     with tempfile.TemporaryDirectory(prefix="pilosa-torch-smoke-") as data_dir:
         srv = Server(data_dir, host="127.0.0.1:0", device="cuda")
@@ -1637,6 +2212,18 @@ def main() -> int:
             ranked = topn_and_check(sp, fp, convert, srv, planes)
         finally:
             srv.close()
+    # Phase 10 serves on a node of its own: the memory of phases 5-9 is freed.
+    del srv, planes
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="pilosa-torch-tutorials-") as data_dir:
+        srv = Server(data_dir, host="127.0.0.1:0", device="cuda", plane_format="auto")
+        srv.open()
+        try:
+            tutorials = tutorials_and_check(ac, ep, fp, sp, bp, InternalClient, srv,
+                                            np.random.default_rng(SEED + 10))
+        finally:
+            srv.close()
 
     k7 = k7_times[K7_TIMED_NS[0]]  # ~1,100 entries: phase 6's import per fragment
     kernels = [
@@ -1646,10 +2233,11 @@ def main() -> int:
             "source": fp.SOURCE,
             "replaces": fp.REPLACES,
             "launches": served["launches"] + clustered["launches"]
-            + valued["launches"]["k1"] + timed["launches"] + ranked["launches"],
+            + valued["launches"]["k1"] + timed["launches"] + ranked["launches"]
+            + tutorials["totals"]["k1"],
             "launches_by_phase": {"5": served["launches"], "6": clustered["launches"],
                                   "7": valued["launches"]["k1"], "8": timed["launches"],
-                                  "9": ranked["launches"]},
+                                  "9": ranked["launches"], "10": tutorials["totals"]["k1"]},
             "max_abs_err": max_err,
             "ms": k_ms,
             "device_ms": k_dev,
@@ -1711,9 +2299,10 @@ def main() -> int:
         "route": "cuda",
         "source": sp.SOURCE,
         "replaces": sp.REPLACES,
-        "launches": served["k4_launches"] + clustered["k4_launches"] + ranked["k4_launches"],
+        "launches": served["k4_launches"] + clustered["k4_launches"] + ranked["k4_launches"]
+        + tutorials["totals"]["k4"],
         "launches_by_phase": {"5": served["k4_launches"], "6": clustered["k4_launches"],
-                              "9": ranked["k4_launches"]},
+                              "9": ranked["k4_launches"], "10": tutorials["totals"]["k4"]},
         "max_abs_err": k4_err,
         "ms": k4["ms"],
         "device_ms": k4["device_ms"],
@@ -1725,6 +2314,43 @@ def main() -> int:
         "shape": [N_SLICES, K4_TIMED[0]],
         f"at_{N_SLICES}x{K4_TIMED[1]}": {k: v for k, v in k4_times[K4_TIMED[1]].items()
                                          if not k.startswith("k1_")},
+    })
+    kernels.append({
+        "name": ac.NAME,
+        "route": "cuda",
+        "source": ac.SOURCE,
+        "replaces": ac.REPLACES,
+        "launches": tutorials["totals"]["k5"],
+        "launches_by_phase": {"10": tutorials["totals"]["k5"]},
+        "max_abs_err": k5_err,
+        "ms": k5_times["ms"],
+        "device_ms": k5_times["device_ms"],
+        "plain_ms": k5_times["plain_ms"],
+        "bound_ms": k5_times["bound_ms"],
+        "bound_by": k5_times["bound_by"],
+        "library_ms": None,
+        "checked": k5_err == 0.0,
+        "shape": [N_SLICES, K5_ANCHOR, "dense", K5_SPARSE, K5_RUNS],
+    })
+    k6 = k6_times["sparse"]
+    kernels.append({
+        "name": ep.NAME,
+        "route": "cuda",
+        "source": ep.SOURCE,
+        "replaces": ep.REPLACES,
+        "launches": tutorials["totals"]["k6"],
+        "launches_by_phase": {"10": tutorials["totals"]["k6"]},
+        "max_abs_err": k6_err,
+        "ms": k6["ms"],
+        "device_ms": k6["device_ms"],
+        "plain_ms": k6["plain_ms"],
+        "bound_ms": k6["bound_ms"],
+        "bound_by": k6["bound_by"],
+        "library_ms": k6["library_ms"],
+        "checked": k6_err == 0.0,
+        "shape": [N_SLICES, "sparse", K6_SPARSE_POSITIONS],
+        "rle": {k: v for k, v in k6_times["rle"].items() if k != "library_ms"},
+        "dense": {k: v for k, v in k6_times["dense"].items() if k != "library_ms"},
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -86,6 +86,10 @@ class LRUCache:
 
     bulk_add = add
 
+    def bulk_update(self, items) -> None:
+        for row_id, n in items:
+            self.add(row_id, n)
+
     def get(self, row_id: int) -> int:
         if row_id in self._od:
             self._od.move_to_end(row_id)
@@ -159,6 +163,23 @@ class RankCache:
 
     bulk_add = add
 
+    def bulk_update(self, items) -> None:
+        """``add`` of every ``(row_id, n)`` with the prune deferred to the
+        end: one sort instead of one per ``max_entries / 10`` rows.  The
+        rankings come out as from ``add`` in any order — the top
+        ``max_entries`` by (count desc, id asc) — only the rows kept past
+        them and the threshold may differ."""
+        for row_id, n in items:
+            if self.threshold_value and n < self.threshold_value and row_id not in self.entries:
+                continue
+            if n == 0:
+                self.entries.pop(row_id, None)
+            else:
+                self.entries[row_id] = n
+        self._stale = True
+        if len(self.entries) > self.max_entries * THRESHOLD_FACTOR:
+            self._prune()
+
     def get(self, row_id: int) -> int:
         return self.entries.get(row_id, 0)
 
@@ -205,20 +226,25 @@ class RankCache:
             now - self._updated_at < RECALCULATE_INTERVAL_S
         ):
             return
-        self._rankings = sort_pairs(
-            Pair(i, c) for i, c in self.entries.items()
-        )[: self.max_entries]
-        self._arrays = None
+        import numpy as np
+
+        ids = np.fromiter(self.entries.keys(), np.int64, len(self.entries))
+        cnts = np.fromiter(self.entries.values(), np.int64, len(self.entries))
+        order = np.lexsort((ids, -cnts))[: self.max_entries]  # sort_pairs' order
+        self._arrays = (ids[order], cnts[order])
+        self._rankings = [Pair(i, c) for i, c in zip(*(a.tolist() for a in self._arrays))]
         self._updated_at = now
         self._stale = False
 
     def _prune(self) -> None:
-        keep = sort_pairs(Pair(i, c) for i, c in self.entries.items())[
-            : self.max_entries
-        ]
-        self.entries = {p.id: p.count for p in keep}
-        if len(keep) == self.max_entries and keep:
-            self.threshold_value = keep[-1].count
+        import numpy as np
+
+        ids = np.fromiter(self.entries.keys(), np.int64, len(self.entries))
+        cnts = np.fromiter(self.entries.values(), np.int64, len(self.entries))
+        keep = np.lexsort((ids, -cnts))[: self.max_entries]  # sort_pairs' order
+        self.entries = dict(zip(ids[keep].tolist(), cnts[keep].tolist()))
+        if len(keep) == self.max_entries and len(keep):
+            self.threshold_value = int(cnts[keep[-1]])
         self._stale = True
 
 

@@ -41,10 +41,23 @@ fragment.go).  Here, as in ``pilosa_tpu.core.fragment``:
   select from the fetched scores.  ``top`` is the three for one
   fragment.
 
-This is the dense tier only: every row lives in the plane, up to
-``DENSE_ROW_BUDGET`` rows, and a row beyond the budget raises.  The JAX
-package's sparse tier, WAL, tiering, residency pool and prefetch are not
-ported yet.
+* **Two tiers**, as in the JAX package (``pilosa_tpu/core/fragment.py:
+  63-76``): up to ``dense_row_budget`` rows live in the plane (first
+  touch on writes; the densest rows first on open); every further row is
+  a sorted uint32 array of in-slice offsets (``_sparse``), paying per set
+  bit.  A sparse row's device form is its compressed container payload
+  (``bitplane.encode_row``: positions, runs, or dense words, whichever
+  is smallest), paged to the device on demand into a small LRU
+  (``SPARSE_DEVICE_CACHE``).  Queries read it through its format: the
+  anchored Count K5 (``ops/anchored_count.py``) searches it in place,
+  and the payload expansion K6 (``ops/expand_payload.py``) writes its
+  dense row wherever a whole row must be stacked.  A sparse row past
+  ``PROMOTE_BITS`` moves to the plane while budget remains.  Answers,
+  counts, the ranked cache and the snapshot bytes do not depend on the
+  tier a row sits in.
+
+The JAX package's WAL, block checksums, residency pool and prefetch are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -53,6 +66,7 @@ import fcntl
 import json
 import os
 import threading
+from collections import OrderedDict
 from collections.abc import Sequence
 from dataclasses import dataclass
 from typing import Any
@@ -66,14 +80,22 @@ from pilosa_tpu_torch.core.bitmap import RowBitmap
 from pilosa_tpu_torch.core.cache import Pair
 from pilosa_tpu_torch.ingest import scatter
 from pilosa_tpu_torch.ops import bitplane as bp
-from pilosa_tpu_torch.ops import roaring, score_planes
+from pilosa_tpu_torch.ops import expand_payload, roaring, score_planes
 
 SLICE_WIDTH = bp.SLICE_WIDTH
 
 # reference: fragment.go:58-65
 DEFAULT_FRAGMENT_MAX_OP_N = 2000
-# Dense-tier budget: rows a fragment's plane may hold (128 KiB each).
+# Dense-tier budget: rows a fragment's plane may hold (128 KiB each);
+# rows beyond it live in the sparse tier.
 DENSE_ROW_BUDGET = 1 << 16
+# A sparse row past this many bits moves to the plane while budget remains
+# (past it, offsets at 4 B a bit cost more than the 128 KiB plane row).
+PROMOTE_BITS = 32 * 1024
+# Sparse rows whose compressed payload is kept on the device (LRU).
+SPARSE_DEVICE_CACHE = 64
+# Bytes of one plane row.
+ROW_NBYTES = bp.WORDS_PER_SLICE * 4
 # Largest legal row id: op-log positions are u64 and pos = row*2^20+off.
 MAX_ROW_ID = 1 << 44
 
@@ -100,18 +122,23 @@ class TopState:
     """One fragment's TopN pass between the prepare and the selection
     (JAX ``core/fragment.py:255``), array-native: candidate ids and
     cached counts are int64 arrays in candidate (count-descending)
-    order, and ``dense_pos`` are the positions among them that the
-    scorer scores.  ``done_ids``/``done_cnts`` short-circuit the
-    src-less and empty cases with a final (filtered, sorted, trimmed)
-    result; otherwise the scorer fills ``counts``, one score per dense
-    position.  Dense tier only: the JAX package's sparse-tier positions
-    join when the port has a sparse tier."""
+    order; ``dense_pos`` are the positions among them that the scorer
+    scores, ``sparse_pos`` those in the sparse tier, scored on the host
+    from their offsets (``sparse_offs``, captured under the lock) against
+    the src row's words (``Fragment.score_sparse``).
+    ``done_ids``/``done_cnts`` short-circuit the src-less and empty cases
+    with a final (filtered, sorted, trimmed) result; otherwise the scorer
+    fills ``counts``, one score per dense position, and ``sparse_cnt``
+    one per sparse position."""
 
     done_ids: np.ndarray | None = None
     done_cnts: np.ndarray | None = None
     cand_ids: np.ndarray | None = None
     cand_cached: np.ndarray | None = None
     dense_pos: np.ndarray | None = None
+    sparse_pos: np.ndarray | None = None
+    sparse_offs: list | None = None
+    sparse_cnt: np.ndarray | None = None
     n: int = 0
     tanimoto: int = 0
     src_count: int = 0
@@ -212,7 +239,8 @@ def _read_varint(buf: bytes, pos: int) -> tuple[int, int]:
 
 
 class Fragment:
-    """One frame-view x slice bit-plane with its device mirror and caches."""
+    """One frame-view x slice bit-plane with its device mirror, its
+    sparse tier and caches."""
 
     def __init__(
         self,
@@ -225,6 +253,7 @@ class Fragment:
         cache_type: str = cache_mod.TYPE_RANKED,
         cache_size: int = cache_mod.DEFAULT_CACHE_SIZE,
         max_op_n: int = DEFAULT_FRAGMENT_MAX_OP_N,
+        dense_row_budget: int | None = None,
     ):
         self.path = path
         self.index = index
@@ -235,11 +264,24 @@ class Fragment:
         self.cache_type = cache_type
         self.cache_size = cache_size
         self.max_op_n = max_op_n
+        self.dense_row_budget = DENSE_ROW_BUDGET if dense_row_budget is None else dense_row_budget
         self.row_attr_store = None  # wired by View
 
         self._mu = threading.RLock()
         self._plane = bp.empty_plane(bp.ROW_BLOCK)
         self._slot_of: dict[int, int] = {}
+        # Sparse tier: row id -> sorted uint32 in-slice offsets.  A write
+        # replaces a row's array (never mutates it), so an array captured
+        # under the lock stays a snapshot.
+        self._sparse: dict[int, np.ndarray] = {}
+        # Sparse rows' encoded payloads, (fmt, padded payload, nbytes) as
+        # bitplane.encode_row gives them, dropped when the row is written
+        # (the next read re-selects the format at the row's new density).
+        self._payload_cache: dict[int, tuple] = {}
+        # Sparse rows paged to the device: row id -> (fmt, int32 tensor of
+        # the payload's real entries, encoded nbytes), LRU.  The tensors
+        # are never written in place.
+        self._sparse_dev: OrderedDict[int, tuple] = OrderedDict()
         self._count_of: dict[int, int] = {}
         self._op_n = 0
         # int32 bit-view mirror of _plane on self.device; None = stale
@@ -286,25 +328,54 @@ class Fragment:
             self._file.write(roaring.encode({}))
             self._file.flush()
             return
-        containers, op_n = roaring.decode_with_ops(data)
-        rows = sorted({int(k) // bp.CONTAINERS_PER_SLICE for k in containers})
-        if len(rows) > DENSE_ROW_BUDGET:
-            raise FragmentError(
-                f"{self.path}: {len(rows)} rows exceed the dense row budget "
-                f"{DENSE_ROW_BUDGET}"
-            )
-        slot_of = {r: i for i, r in enumerate(rows)}
-        plane = bp.empty_plane(bp.pad_rows(len(rows)))
+        words, arrays, op_n = roaring.decode_tiered(data)
+        self._load_tiered(words, arrays)
+        self._op_n = op_n
+
+    def _load_tiered(self, words: dict[int, np.ndarray], arrays: dict[int, np.ndarray]) -> None:
+        """Fill both tiers from decoded containers (JAX ``_load_tiered``,
+        ``core/fragment.py:1062``): the densest rows, up to the budget,
+        go to the plane; every other row becomes an offset array."""
+        cps = bp.CONTAINERS_PER_SLICE
+        cbits = roaring.CONTAINER_BITS
         wpc = bp.WORDS_PER_CONTAINER
-        for key, words in containers.items():
-            row, cidx = divmod(int(key), bp.CONTAINERS_PER_SLICE)
-            plane[slot_of[row], cidx * wpc : (cidx + 1) * wpc] = words.view("<u4")
-        counts = bp.np_row_counts(plane)
+        counts: dict[int, int] = {}
+        for key, w in words.items():
+            r = int(key) // cps
+            counts[r] = counts.get(r, 0) + bp.np_count(w)
+        for key, vals in arrays.items():
+            r = int(key) // cps
+            counts[r] = counts.get(r, 0) + len(vals)
+        by_density = sorted(counts, key=lambda r: (-counts[r], r))
+        dense_rows = sorted(by_density[: self.dense_row_budget])
+        slot_of = {r: i for i, r in enumerate(dense_rows)}
+        plane = bp.empty_plane(bp.pad_rows(len(dense_rows)))
+        segs: dict[int, list[np.ndarray]] = {r: [] for r in by_density[self.dense_row_budget:]}
+        for key in sorted(set(words) | set(arrays)):
+            r, cidx = divmod(int(key), cps)
+            slot = slot_of.get(r)
+            if key in words:
+                if slot is not None:
+                    plane[slot, cidx * wpc : (cidx + 1) * wpc] = words[key].view("<u4")
+                    continue
+                vals = roaring.words_to_values(words[key])
+            else:
+                vals = arrays[key]
+                if slot is not None:
+                    offs = vals.astype(np.int64) + cidx * cbits
+                    bp.np_set_bulk(plane, np.full(len(offs), slot, np.int64), offs)
+                    continue
+            segs[r].append(vals.astype(np.uint32) + np.uint32(cidx * cbits))
         self._plane = plane
         self._slot_of = slot_of
-        self._count_of = {r: int(counts[s]) for r, s in slot_of.items()}
+        self._sparse = {
+            r: np.concatenate(parts) if parts else np.empty(0, np.uint32)
+            for r, parts in segs.items()
+        }
+        self._count_of = counts
+        self._payload_cache.clear()
+        self._sparse_dev.clear()
         self._invalidate_device()
-        self._op_n = op_n
 
     def close(self) -> None:
         with self._mu:
@@ -314,6 +385,7 @@ class Fragment:
                 self._file.close()
                 self._file = None
             self._invalidate_device()
+            self._sparse_dev.clear()
 
     @property
     def cache_path(self) -> str:
@@ -332,7 +404,7 @@ class Fragment:
         if ids is None:
             return
         for row_id in ids:
-            if isinstance(row_id, int) and row_id in self._slot_of:
+            if isinstance(row_id, int) and self._has_row_locked(row_id):
                 self.cache.bulk_add(row_id, self._count_of.get(row_id, 0))
         self.cache.invalidate()
 
@@ -345,7 +417,7 @@ class Fragment:
             os.replace(tmp, self.cache_path)
 
     # ------------------------------------------------------------------
-    # geometry
+    # geometry and tiers
     # ------------------------------------------------------------------
 
     def pos(self, row_id: int, column_id: int) -> int:
@@ -357,22 +429,26 @@ class Fragment:
             )
         return row_id * SLICE_WIDTH + (column_id % SLICE_WIDTH)
 
-    def _ensure_slot(self, row_id: int) -> int:
-        """The row's plane slot, allocated on first touch."""
+    def _has_row_locked(self, row_id: int) -> bool:
+        return row_id in self._slot_of or row_id in self._sparse
+
+    def _ensure_slot(self, row_id: int) -> int | None:
+        """The row's plane slot, allocated on first touch while the dense
+        budget lasts; None for a row in (or new to) the sparse tier
+        (JAX ``core/fragment.py:714``)."""
         slot = self._slot_of.get(row_id)
         if slot is not None:
             return slot
+        if row_id in self._sparse:
+            return None
         if row_id >= MAX_ROW_ID:
             raise FragmentError(f"row id out of range: {row_id}")
-        if len(self._slot_of) >= DENSE_ROW_BUDGET:
-            raise FragmentError(
-                f"row {row_id} exceeds the dense row budget "
-                f"{DENSE_ROW_BUDGET} of {self.path} (the sparse tier "
-                "is not ported)"
-            )
+        self._count_of[row_id] = 0
+        if len(self._slot_of) >= self.dense_row_budget:
+            self._sparse[row_id] = np.empty(0, dtype=np.uint32)
+            return None
         slot = len(self._slot_of)
         self._slot_of[row_id] = slot
-        self._count_of[row_id] = 0
         self._reserve(slot + 1)
         return slot
 
@@ -387,6 +463,25 @@ class Fragment:
             if self._mirror is not None:
                 scatter.note_fallback()
             self._invalidate_device()
+
+    def _maybe_promote(self, row_id: int) -> None:
+        """A sparse row past PROMOTE_BITS moves to the plane while budget
+        remains (JAX ``core/fragment.py:766``); answers never depend on
+        it.  Rewriting a whole plane row is structural: the mirror is
+        dropped."""
+        offs = self._sparse.get(row_id)
+        if offs is None or len(offs) <= PROMOTE_BITS or len(self._slot_of) >= self.dense_row_budget:
+            return
+        del self._sparse[row_id]
+        self._payload_cache.pop(row_id, None)
+        self._sparse_dev.pop(row_id, None)
+        slot = len(self._slot_of)
+        self._slot_of[row_id] = slot
+        self._reserve(slot + 1)
+        self._plane[slot] = bp.np_columns_to_row(offs)
+        if self._mirror is not None:
+            scatter.note_fallback()
+        self._invalidate_device()
 
     # ------------------------------------------------------------------
     # device mirror maintenance (JAX: fragment.py:1263,1602-1682)
@@ -418,15 +513,17 @@ class Fragment:
     def _queue_import_updates_locked(
         self, set_slots, set_offs, clr_slots=None, clr_offs=None
     ) -> None:
-        """Queue an import's set bits (op 1) and cleared bits (op 0) as
-        deltas when the import is small enough; otherwise drop the mirror
-        (one re-upload beats thousands of folded entries)."""
+        """Queue an import's plane bits — set (op 1) and cleared (op 0) —
+        as deltas when the import is small enough; otherwise drop the
+        mirror (one re-upload beats thousands of folded entries).  An
+        import that touched no plane row leaves the mirror as it is."""
         parts = [(a, b, op) for a, b, op in ((set_slots, set_offs, 1), (clr_slots, clr_offs, 0))
                  if a is not None and len(a)]
         n = sum(len(a) for a, _, _ in parts)
+        if n == 0:
+            return
         if (
             self._mirror is None
-            or n == 0
             or n > scatter.IMPORT_SCATTER_MAX
             or self._pending_n + n > self._MAX_DEVICE_PENDING
         ):
@@ -472,17 +569,87 @@ class Fragment:
             return self._mirror
 
     def device_row(self, row_id: int) -> torch.Tensor | None:
-        """One row of the mirror (a view), or None when the row is absent."""
+        """One row on the device, or None when the row is absent: a view
+        of the mirror for a plane row; for a sparse row a new dense row,
+        its payload expanded by one K6 launch."""
+        with self._mu:
+            leaf = self.device_leaf(row_id)
+            if leaf is None:
+                return None
+            fmt, t = leaf
+            if self._slot_of.get(row_id) is not None:
+                return t
+            row = torch.empty(bp.WORDS_PER_SLICE, dtype=torch.int32, device=self.device)
+        expand_payload.expand_payloads([(fmt, t, row)])
+        return row
+
+    def device_leaf(self, row_id: int) -> tuple[int, torch.Tensor] | None:
+        """The row as the K5/K6 kernels read it, or None when absent:
+        ``(FMT_DENSE, mirror row view)`` for a plane row (queued deltas
+        applied), ``(fmt, payload)`` for a sparse row — its compressed
+        payload's real entries on the device, paged in on a miss."""
         with self._mu:
             slot = self._slot_of.get(row_id)
-            if slot is None:
+            if slot is not None:
+                return bp.FMT_DENSE, self.device_plane()[slot]
+            ent = self._sparse_dev_entry_locked(row_id)
+            return None if ent is None else ent[:2]
+
+    def _sparse_dev_entry_locked(self, row_id: int):
+        """``(fmt, device payload, encoded nbytes)`` of a sparse row, paged
+        in on a miss into the LRU (JAX ``core/fragment.py:1444``); None
+        for an absent row."""
+        offs = self._sparse.get(row_id)
+        if offs is None:
+            return None
+        ent = self._sparse_dev.get(row_id)
+        if ent is not None:
+            self._sparse_dev.move_to_end(row_id)
+            return ent
+        fmt, payload, nbytes = self._host_payload_locked(row_id, offs)
+        real = bp.payload_entries(fmt, payload)
+        dev = bp.to_device(real, self.device)
+        ent = self._sparse_dev[row_id] = (fmt, dev, nbytes)
+        while len(self._sparse_dev) > SPARSE_DEVICE_CACHE:
+            self._sparse_dev.popitem(last=False)
+        return ent
+
+    def _host_payload_locked(self, row_id: int, offs) -> tuple:
+        ent = self._payload_cache.get(row_id)
+        if ent is None:
+            ent = self._payload_cache[row_id] = bp.encode_row(offs)
+        return ent
+
+    def host_payload(self, row_id: int):
+        """Host container view of any present row (JAX
+        ``core/fragment.py:1486``): ``(fmt, payload, encoded_nbytes,
+        cardinality)`` — a plane row as FMT_DENSE words (a view: callers
+        copy, never mutate), a sparse row as its memoized encoding; None
+        when absent."""
+        with self._mu:
+            slot = self._slot_of.get(row_id)
+            if slot is not None:
+                return bp.FMT_DENSE, self._plane[slot], ROW_NBYTES, self._count_of.get(row_id, 0)
+            offs = self._sparse.get(row_id)
+            if offs is None:
                 return None
-            return self.device_plane()[slot]
+            fmt, payload, nbytes = self._host_payload_locked(row_id, offs)
+            return fmt, payload, nbytes, len(offs)
+
+    def row_positions(self, row_id: int) -> np.ndarray | None:
+        """Sorted uint32 in-slice positions of a present row (the anchored
+        count's anchor), or None."""
+        with self._mu:
+            slot = self._slot_of.get(row_id)
+            if slot is not None:
+                return bp.np_row_to_columns(self._plane[slot]).astype(np.uint32)
+            offs = self._sparse.get(row_id)
+            return None if offs is None else np.asarray(offs, dtype=np.uint32)
 
     def device_slots(self, row_ids) -> tuple[torch.Tensor, list[int]]:
         """The mirror (queued deltas applied) and the rows of ``row_ids``
-        in it, -1 for an absent row — read together under the lock, so
-        the slots name rows of this mirror."""
+        in it, -1 for a row not in the plane — read together under the
+        lock, so the slots name rows of this mirror."""
         with self._mu:
             plane = self.device_plane()
             return plane, [self._slot_of.get(r, -1) for r in row_ids]
@@ -501,7 +668,10 @@ class Fragment:
         """One row's uint32 words on the host (a copy), or None."""
         with self._mu:
             slot = self._slot_of.get(row_id)
-            return None if slot is None else self._plane[slot].copy()
+            if slot is not None:
+                return self._plane[slot].copy()
+            offs = self._sparse.get(row_id)
+            return None if offs is None else bp.np_columns_to_row(offs)
 
     def row(self, row_id: int) -> RowBitmap:
         """One row as a RowBitmap segment on the fragment's device
@@ -510,11 +680,25 @@ class Fragment:
             seg = self.device_row(row_id)
             if seg is None:
                 seg = torch.zeros(bp.WORDS_PER_SLICE, dtype=torch.int32, device=self.device)
-            return RowBitmap.from_segment(self.slice, seg.clone())
+            elif self._slot_of.get(row_id) is not None:
+                seg = seg.clone()
+            return RowBitmap.from_segment(self.slice, seg)
+
+    def contains(self, row_id: int, column_id: int) -> bool:
+        with self._mu:
+            offset = self.pos(row_id, column_id) % SLICE_WIDTH
+            slot = self._slot_of.get(row_id)
+            if slot is not None:
+                return bp.np_contains(self._plane, slot * SLICE_WIDTH + offset)
+            offs = self._sparse.get(row_id)
+            if offs is None:
+                return False
+            i = int(np.searchsorted(offs, offset))
+            return i < len(offs) and int(offs[i]) == offset
 
     def has_row(self, row_id: int) -> bool:
         with self._mu:
-            return row_id in self._slot_of
+            return self._has_row_locked(row_id)
 
     def row_count(self, row_id: int) -> int:
         with self._mu:
@@ -525,7 +709,7 @@ class Fragment:
             return sum(self._count_of.values())
 
     # ------------------------------------------------------------------
-    # writes (reference: fragment.go:379-473)
+    # writes (reference: fragment.go:379-473; JAX fragment.py:1535-1600)
     # ------------------------------------------------------------------
 
     def set_bit(self, row_id: int, column_id: int) -> bool:
@@ -533,7 +717,7 @@ class Fragment:
 
     def clear_bit(self, row_id: int, column_id: int) -> bool:
         with self._mu:
-            if row_id not in self._slot_of:
+            if not self._has_row_locked(row_id):
                 self.pos(row_id, column_id)
                 return False
         return self._point_write(row_id, column_id, roaring.OP_REMOVE)
@@ -543,19 +727,39 @@ class Fragment:
             pos = self.pos(row_id, column_id)
             offset = pos % SLICE_WIDTH
             slot = self._ensure_slot(row_id)
-            bit = slot * SLICE_WIDTH + offset
-            if typ == roaring.OP_ADD:
-                changed = bp.np_set_bit(self._plane, bit)
+            add = typ == roaring.OP_ADD
+            if slot is not None:
+                bit = slot * SLICE_WIDTH + offset
+                write = bp.np_set_bit if add else bp.np_clear_bit
+                changed = write(self._plane, bit)
+                if changed:
+                    self._queue_device_update(slot, offset, 1 if add else 0)
             else:
-                changed = bp.np_clear_bit(self._plane, bit)
+                changed = self._sparse_write(row_id, offset, add)
             if not changed:
                 return False
-            self._queue_device_update(slot, offset, 1 if typ == roaring.OP_ADD else 0)
             self._append_op(typ, pos)
-            self._after_write(row_id, 1 if typ == roaring.OP_ADD else -1)
+            self._after_write(row_id, 1 if add else -1)
+            if add:
+                self._maybe_promote(row_id)
             return True
 
+    def _sparse_write(self, row_id: int, offset: int, add: bool) -> bool:
+        offs = self._sparse[row_id]
+        i = int(np.searchsorted(offs, offset))
+        present = i < len(offs) and int(offs[i]) == offset
+        if add == present:
+            return False
+        self._sparse[row_id] = (
+            np.insert(offs, i, np.uint32(offset)) if add else np.delete(offs, i)
+        )
+        return True
+
     def _after_write(self, row_id: int, delta: int) -> None:
+        # Dropping the encoded payload is the format re-selection: the
+        # next read encodes the row at its new density.
+        self._payload_cache.pop(row_id, None)
+        self._sparse_dev.pop(row_id, None)
         n = self._count_of[row_id] = self._count_of.get(row_id, 0) + delta
         self.cache.add(row_id, n)
         self._op_n += 1
@@ -575,17 +779,17 @@ class Fragment:
         clear_row_ids: Sequence[int] | None = None,
         clear_column_ids: Sequence[int] | None = None,
     ) -> None:
-        """Bulk load: vectorized scatter into the host plane, the bits
-        queued as mirror deltas (or the mirror dropped, see
-        ``_queue_import_updates_locked``), the touched rows recounted
-        through the fused popcount kernel on the updated mirror, then a
-        snapshot (reference: fragment.go:936-1004).
+        """Bulk load (reference: fragment.go:936-1004; JAX
+        ``core/fragment.py:1735``): plane rows take a vectorized scatter
+        (queued as mirror deltas, or the mirror dropped, see
+        ``_queue_import_updates_locked``) and are recounted through the
+        fused popcount kernel; sparse rows merge their sorted offsets;
+        then rows past PROMOTE_BITS move to the plane, and a snapshot.
 
         ``clear_row_ids``/``clear_column_ids`` clear bits in the same
-        pass (one snapshot, one recount) — the overwrite half of a BSI
-        value import (JAX ``fragment.py:1735``); they reach the mirror as
-        and-not deltas.  Clears never create rows: a clear on an absent
-        row does nothing.  A bit must not appear in both lists."""
+        pass — the overwrite half of a BSI value import.  Clears never
+        create rows: a clear on an absent row does nothing.  A bit must
+        not appear in both lists."""
         clear_row_ids = [] if clear_row_ids is None else clear_row_ids
         clear_column_ids = [] if clear_column_ids is None else clear_column_ids
         if len(row_ids) != len(column_ids) or len(clear_row_ids) != len(clear_column_ids):
@@ -598,72 +802,134 @@ class Fragment:
             min_col = self.slice * SLICE_WIDTH
             if ((cols < min_col) | (cols >= min_col + SLICE_WIDTH)).any():
                 raise FragmentError("column out of bounds for slice")
-            uniq = np.unique(rows)
-            new = [int(r) for r in uniq if int(r) not in self._slot_of]
-            if len(self._slot_of) + len(new) > DENSE_ROW_BUDGET:
-                raise FragmentError(
-                    f"import exceeds the dense row budget {DENSE_ROW_BUDGET} "
-                    f"of {self.path}"
-                )
-            self._reserve(len(self._slot_of) + len(new))
-            slot_of = {int(r): self._ensure_slot(int(r)) for r in uniq}
-            slot_table = np.asarray([slot_of[int(r)] for r in uniq], dtype=np.int64)
-            slots = slot_table[np.searchsorted(uniq, rows)]
+            if len(rows) and int(rows.max()) >= MAX_ROW_ID:
+                raise FragmentError(f"row id out of range: {int(rows.max())}")
             offs = cols % SLICE_WIDTH
-            bp.np_set_bulk(self._plane, slots, offs)
+            uniq = np.unique(rows)
+            # Size the plane once for every row this import can add.
+            n_new = sum(1 for r in uniq if not self._has_row_locked(int(r)))
+            self._reserve(min(len(self._slot_of) + n_new, self.dense_row_budget))
+            slot_of = {int(r): self._ensure_slot(int(r)) for r in uniq}
+            slot_table = np.asarray(
+                [-1 if slot_of[int(r)] is None else slot_of[int(r)] for r in uniq], dtype=np.int64
+            )
+            slots = slot_table[np.searchsorted(uniq, rows)] if len(rows) else np.empty(0, np.int64)
+            dm = slots >= 0
+            set_slots, set_offs = slots[dm], offs[dm]
+            bp.np_set_bulk(self._plane, set_slots, set_offs)
+            if not dm.all():
+                s_rows = rows[~dm]
+                s_offs = offs[~dm].astype(np.uint32)
+                order = np.lexsort((s_offs, s_rows))
+                s_rows, s_offs = s_rows[order], s_offs[order]
+                first = np.ones(len(s_rows), dtype=bool)
+                first[1:] = (s_rows[1:] != s_rows[:-1]) | (s_offs[1:] != s_offs[:-1])
+                s_rows, s_offs = s_rows[first], s_offs[first]
+                u_s, starts = np.unique(s_rows, return_index=True)
+                bounds = np.append(starts, len(s_rows))
+                for i, r in enumerate(u_s.tolist()):
+                    seg = s_offs[bounds[i] : bounds[i + 1]]
+                    cur = self._sparse[r]
+                    if len(cur):
+                        seg = np.union1d(cur, seg).astype(np.uint32)
+                    self._sparse[r] = seg
             c_slots = c_offs = None
             if len(clear_row_ids):
                 c_rows = np.asarray(clear_row_ids, dtype=np.int64)
                 c_cols = np.asarray(clear_column_ids, dtype=np.int64)
                 if ((c_cols < min_col) | (c_cols >= min_col + SLICE_WIDTH)).any():
                     raise FragmentError("column out of bounds for slice")
+                c_all = c_cols % SLICE_WIDTH
                 c_uniq = np.unique(c_rows)
                 c_table = np.asarray(
                     [self._slot_of.get(int(r), -1) for r in c_uniq], dtype=np.int64
                 )
-                c_slots = c_table[np.searchsorted(c_uniq, c_rows)]
-                keep = c_slots >= 0
-                c_slots, c_offs = c_slots[keep], (c_cols % SLICE_WIDTH)[keep]
+                c_all_slots = c_table[np.searchsorted(c_uniq, c_rows)]
+                keep = c_all_slots >= 0
+                c_slots, c_offs = c_all_slots[keep], c_all[keep]
                 bp.np_clear_bulk(self._plane, c_slots, c_offs)
                 for r, slot in zip(c_uniq, c_table):
+                    r = int(r)
                     if slot >= 0:
-                        slot_of[int(r)] = int(slot)
-            self._queue_import_updates_locked(slots, offs, c_slots, c_offs)
+                        slot_of[r] = int(slot)
+                    elif r in self._sparse:
+                        self._sparse[r] = np.setdiff1d(
+                            self._sparse[r], c_all[c_rows == r].astype(np.uint32)
+                        ).astype(np.uint32)
+                        slot_of[r] = None
+            self._queue_import_updates_locked(set_slots, set_offs, c_slots, c_offs)
+            for r, slot in slot_of.items():
+                if slot is None:
+                    self._payload_cache.pop(r, None)
+                    self._sparse_dev.pop(r, None)
             self._recount(slot_of)
+            for r in slot_of:
+                self._maybe_promote(r)
             self.snapshot()
 
     def install_plane(self, plane: np.ndarray) -> None:
         """Replace the fragment's content with ``plane`` (uint32
-        [rows, 32768], plane[r] = row id r; all-zero rows stay absent),
-        upload the mirror, recount the rank cache through the fused
-        popcount kernel and snapshot."""
+        [rows, 32768], plane[r] = row id r; all-zero rows stay absent);
+        see :meth:`install_rows`."""
         plane = np.asarray(plane, dtype=np.uint32)
         if plane.ndim != 2 or plane.shape[1] != bp.WORDS_PER_SLICE:
             raise FragmentError(f"plane must be [rows, {bp.WORDS_PER_SLICE}] uint32")
-        rows = [int(r) for r in np.flatnonzero(plane.any(axis=1))]
-        if len(rows) > DENSE_ROW_BUDGET:
-            raise FragmentError(
-                f"{len(rows)} rows exceed the dense row budget {DENSE_ROW_BUDGET}"
-            )
+        rows = np.flatnonzero(plane.any(axis=1))
+        self.install_rows(rows, plane[rows])
+
+    def install_rows(self, row_ids, words: np.ndarray, sparse: dict | None = None) -> None:
+        """Replace the fragment's content with rows ``row_ids`` (words
+        ``words[i]``, uint32 [n, 32768]) and ``sparse`` ({row id: sorted
+        in-slice offsets}, the JAX package's sparse tier) — the densest
+        rows up to the budget in the plane, the rest sparse, as on open;
+        empty rows stay absent.  Then the mirror uploads, the rank cache
+        is recounted through the fused popcount kernel and the fragment
+        snapshots."""
+        words = np.asarray(words, dtype=np.uint32).reshape(-1, bp.WORDS_PER_SLICE)
+        row_ids = np.asarray(row_ids, dtype=np.int64)
+        if len(row_ids) != len(words):
+            raise FragmentError("row_ids and words differ in length")
+        sparse = {int(r): np.asarray(o, dtype=np.uint32) for r, o in (sparse or {}).items()}
+        counts = {int(r): int(c) for r, c in zip(row_ids, bp.np_row_counts(words))}
+        if set(counts) & set(sparse):
+            raise FragmentError("a row is given in both tiers")
+        counts.update((r, len(o)) for r, o in sparse.items())
+        counts = {r: c for r, c in counts.items() if c > 0}
+        if counts and max(counts) >= MAX_ROW_ID:
+            raise FragmentError(f"row id out of range: {max(counts)}")
+        by_density = sorted(counts, key=lambda r: (-counts[r], r))
+        dense_rows = sorted(by_density[: self.dense_row_budget])
+        where = {int(r): i for i, r in enumerate(row_ids)}
         with self._mu:
-            self._plane = bp.empty_plane(bp.pad_rows(len(rows)))
-            self._plane[: len(rows)] = plane[rows]
-            self._slot_of = {r: i for i, r in enumerate(rows)}
+            self._plane = bp.empty_plane(bp.pad_rows(len(dense_rows)))
+            self._slot_of = {r: i for i, r in enumerate(dense_rows)}
+            for r, slot in self._slot_of.items():
+                i = where.get(r)
+                self._plane[slot] = words[i] if i is not None else bp.np_columns_to_row(sparse[r])
+            self._sparse = {}
+            for r in by_density[self.dense_row_budget :]:
+                i = where.get(r)
+                self._sparse[r] = (
+                    bp.np_row_to_columns(words[i]).astype(np.uint32) if i is not None else sparse[r]
+                )
             self._count_of = {}
+            self._payload_cache.clear()
+            self._sparse_dev.clear()
             self.cache = cache_mod.new_cache(self.cache_type, self.cache_size)
             self._invalidate_device()
-            self._recount(self._slot_of)
+            self._recount({**self._slot_of, **{r: None for r in self._sparse}})
             self.snapshot()
 
-    def _recount(self, slot_of: dict[int, int]) -> None:
-        """Exact counts of ``slot_of``'s rows from one row-popcount
-        launch over the up-to-date mirror; the rank cache follows."""
-        if slot_of:
+    def _recount(self, slot_of: dict[int, int | None]) -> None:
+        """Exact counts of ``slot_of``'s rows — plane rows (a slot) from
+        one row-popcount launch over the up-to-date mirror, sparse rows
+        (None) from their offsets; the rank cache follows."""
+        counts = None
+        if any(s is not None for s in slot_of.values()):
             counts = bp.row_counts(self.device_plane()).cpu().numpy()
-            for r, s in slot_of.items():
-                n = int(counts[s])
-                self._count_of[r] = n
-                self.cache.bulk_add(r, n)
+        for r, s in slot_of.items():
+            self._count_of[r] = len(self._sparse[r]) if s is None else int(counts[s])
+        self.cache.bulk_update((r, self._count_of[r]) for r in slot_of)
         self.cache.invalidate()
         self.cache.recalculate()
 
@@ -671,7 +937,7 @@ class Fragment:
         """Full roaring serialization atomically renamed over the data
         file; resets the op count (reference: fragment.go:1032-1074)."""
         with self._mu:
-            data = roaring.encode_tiered(self._containers(), {})
+            data = roaring.encode_tiered(*self._containers())
             tmp = self.path + ".snapshotting"
             with open(tmp, "wb") as fh:
                 fh.write(data)
@@ -685,17 +951,53 @@ class Fragment:
             fcntl.flock(self._file.fileno(), fcntl.LOCK_EX | fcntl.LOCK_NB)
             self._op_n = 0
 
-    def _containers(self) -> dict[int, np.ndarray]:
-        """The plane as {container key: uint64[1024] words}, non-empty
-        containers only."""
+    def _containers(self) -> tuple[dict[int, np.ndarray], dict[int, np.ndarray]]:
+        """Both tiers as roaring containers (JAX ``_containers_packed``,
+        ``core/fragment.py:1116``): plane rows as {key: uint64[1024]
+        words}, non-empty containers only; sparse rows as {key: sorted
+        uint32 in-container values}, never through a plane row.  The
+        encoder picks each container's form by its count, so the bytes
+        do not depend on the tier."""
         cps = bp.CONTAINERS_PER_SLICE
         wpc = bp.WORDS_PER_CONTAINER
-        out: dict[int, np.ndarray] = {}
-        for r, s in sorted(self._slot_of.items()):
-            chunks = self._plane[s].reshape(cps, wpc)
-            for cidx in np.flatnonzero(chunks.any(axis=1)):
-                out[r * cps + int(cidx)] = chunks[cidx].view(np.uint64)
-        return out
+        cbits = roaring.CONTAINER_BITS
+        words: dict[int, np.ndarray] = {}
+        arrays: dict[int, np.ndarray] = {}
+        items = sorted(self._slot_of.items())
+        # Plane rows in blocks of 256 (32 MiB): a container the encoder
+        # writes as an array is read as values from its nonzero words, so
+        # a tall plane of mostly-empty rows costs its set bits, not a
+        # 64K-bit unpack per container.
+        for b in range(0, len(items), 256):
+            rids = np.asarray([r for r, _ in items[b : b + 256]], dtype=np.int64)
+            blk = self._plane[[s for _, s in items[b : b + 256]]].reshape(-1, wpc)
+            keys = (rids[:, None] * cps + np.arange(cps)).ravel()
+            n = bp.np_row_counts(blk)
+            for i in np.flatnonzero(n > roaring.ARRAY_MAX_SIZE):
+                words[int(keys[i])] = blk[i].view(np.uint64)
+            small = np.flatnonzero((n > 0) & (n <= roaring.ARRAY_MAX_SIZE))
+            if not len(small):
+                continue
+            ci, wi = np.nonzero(blk[small])
+            w = blk[small[ci], wi]
+            mi, bi = np.nonzero(np.unpackbits(w.view(np.uint8).reshape(-1, 4), axis=1,
+                                              bitorder="little"))
+            vals = (wi[mi] * bp.WORD_BITS + bi).astype(np.uint32)
+            bounds = np.searchsorted(ci[mi], np.arange(len(small) + 1))
+            for j, i in enumerate(small.tolist()):
+                arrays[int(keys[i])] = vals[bounds[j] : bounds[j + 1]]
+        sp_rows = sorted(r for r, o in self._sparse.items() if len(o))
+        if sp_rows:
+            lens = np.asarray([len(self._sparse[r]) for r in sp_rows])
+            rows_rep = np.repeat(np.asarray(sp_rows, dtype=np.int64), lens)
+            offs_all = np.concatenate([self._sparse[r] for r in sp_rows]).astype(np.int64)
+            keys_all = rows_rep * cps + offs_all // cbits
+            vals_all = (offs_all % cbits).astype(np.uint32)
+            uniq_keys, starts = np.unique(keys_all, return_index=True)
+            bounds = np.append(starts, len(vals_all))
+            for j, k in enumerate(uniq_keys):
+                arrays[int(k)] = vals_all[bounds[j] : bounds[j + 1]]
+        return words, arrays
 
     # ------------------------------------------------------------------
     # TopN (reference: fragment.go:505-673)
@@ -712,6 +1014,8 @@ class Fragment:
         if sub is not None:
             scores = score_planes.score_planes([sub.plane], sub.slots[None, :], [src])
             st.counts = scores.cpu().numpy()[0]
+        if st.sparse_pos is not None and len(st.sparse_pos):
+            self.score_sparse(st, bp.to_host(src))
         return self.top_finish(st)
 
     def top_prepare_parts(self, opt: TopOptions | None = None):
@@ -789,22 +1093,48 @@ class Fragment:
         src = opt.src.segments.get(self.slice)
         if not len(ids) or src is None:
             return empty, None, None
-        plane, slots = self.device_slots(ids)
-        slots = np.asarray(slots, dtype=np.int64)
-        dense_pos = np.flatnonzero(slots >= 0)
-        if not len(dense_pos):
+        with self._mu:
+            plane, slots = self.device_slots(ids)
+            slots = np.asarray(slots, dtype=np.int64)
+            dense_pos = np.flatnonzero(slots >= 0)
+            # Sparse candidates (the low-count tail) are scored on the host
+            # from their offsets (JAX ``core/fragment.py:2152-2160``); the
+            # arrays captured here are snapshots (writes replace them).
+            sparse_pos = np.asarray(
+                [k for k in np.flatnonzero(slots < 0) if int(ids[k]) in self._sparse], np.int64
+            )
+            sparse_offs = [self._sparse[int(ids[k])] for k in sparse_pos]
+        if not len(dense_pos) and not len(sparse_pos):
             return empty, None, None
-        sub = SubRef(plane=plane, slots=slots[dense_pos])
+        sub = SubRef(plane=plane, slots=slots[dense_pos]) if len(dense_pos) else None
         st = TopState(
             cand_ids=ids,
             cand_cached=cached,
             dense_pos=dense_pos,
+            sparse_pos=sparse_pos,
+            sparse_offs=sparse_offs,
             n=n,
             tanimoto=tanimoto,
             src_count=src_count,
             min_threshold=opt.min_threshold,
         )
         return st, sub, src.to(plane.device).contiguous()
+
+    @staticmethod
+    def score_sparse(st: TopState, src_words: np.ndarray) -> None:
+        """Fill ``st.sparse_cnt``: each sparse candidate's count of its
+        offsets set in ``src_words`` (the src row's uint32 words on the
+        host)."""
+        offs = st.sparse_offs
+        lens = np.fromiter((len(o) for o in offs), np.int64, len(offs))
+        if not lens.sum():
+            st.sparse_cnt = np.zeros(len(offs), np.int64)
+            return
+        allo = np.concatenate(offs).astype(np.int64)
+        bits = (src_words[allo >> 5].astype(np.int64) >> (allo & 31)) & 1
+        csum = np.concatenate(([0], np.cumsum(bits)))
+        ends = np.cumsum(lens)
+        st.sparse_cnt = csum[ends] - csum[ends - lens]
 
     def top_score_arrays(
         self, st: TopState
@@ -818,7 +1148,10 @@ class Fragment:
             return st.done_ids, st.done_cnts, np.ones(len(st.done_ids), dtype=bool), True
         ids, cached = st.cand_ids, st.cand_cached
         cnts = np.zeros(len(ids), np.int64)
-        cnts[st.dense_pos] = np.asarray(st.counts[: len(st.dense_pos)], dtype=np.int64)
+        if len(st.dense_pos):
+            cnts[st.dense_pos] = np.asarray(st.counts[: len(st.dense_pos)], dtype=np.int64)
+        if st.sparse_pos is not None and len(st.sparse_pos):
+            cnts[st.sparse_pos] = st.sparse_cnt
         if st.tanimoto > 0:
             denom = cached + st.src_count - cnts
             with np.errstate(divide="ignore", invalid="ignore"):
@@ -908,12 +1241,12 @@ class Fragment:
     def _row_count_locked(self, row_id: int) -> int:
         """Cached ranking first, then the maintained count."""
         n = self.cache.get(row_id)
-        if n <= 0 and row_id in self._slot_of:
+        if n <= 0 and self._has_row_locked(row_id):
             n = self._count_of.get(row_id, 0)
         return n
 
     def __repr__(self) -> str:
         return (
             f"Fragment({self.index}/{self.frame}/{self.view}/{self.slice}, "
-            f"rows={len(self._slot_of)}, device={self.device})"
+            f"rows={len(self._slot_of)}+{len(self._sparse)}, device={self.device})"
         )

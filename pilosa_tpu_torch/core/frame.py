@@ -8,8 +8,11 @@ directory), a row AttrStore at ``<frame>/.data``, and views under
 (``set_bit`` with a time and ``import_bulk`` with timestamps write them,
 reference: frame.go:443-483,527-604), and a ``field_<name>`` view per
 BSI integer field of a range-enabled frame (``create_field``,
-``import_value``; JAX ``frame.py:196-267``).  Inverse storage is kept in
-the metadata as it was found, but not executed (not ported yet).
+``import_value``; JAX ``frame.py:196-267``), and with ``inverseEnabled``
+the inverse view: every bit (row, column) is also stored transposed, as
+(column, row) in inverse slice ``row // SLICE_WIDTH`` (``set_bit`` /
+``clear_bit`` on the inverse view, and the fan-out of ``import_bulk``;
+JAX ``frame.py:322, 360-405``).
 """
 
 from __future__ import annotations
@@ -284,13 +287,19 @@ class Frame:
                 default=0,
             )
 
+    def max_inverse_slice(self) -> int:
+        """Max slice over the inverse views (JAX ``frame.py:322``)."""
+        with self._mu:
+            return max(
+                (v.max_slice() for n, v in self._views.items() if is_inverse_view(n)),
+                default=0,
+            )
+
     # --- writes (reference: frame.go:443-525) ---
 
     def _writable_view(self, view_name: str) -> View:
         if not is_valid_view(view_name):
             raise FrameError(f"invalid view: {view_name!r}")
-        if view_name == VIEW_INVERSE:
-            raise FrameError("inverse views are not supported by this port yet")
         return self.create_view_if_not_exists(view_name)
 
     def set_bit(
@@ -312,35 +321,64 @@ class Frame:
 
     def import_bulk(self, row_ids, column_ids, timestamps=None) -> None:
         """Bulk import grouped by (view, slice) (reference:
-        frame.go:527-604; JAX ``frame.py:353-404``): every bit goes to
-        the standard view, and a bit with a timestamp also to the time
-        views of the frame's quantum.  Timestamps on a frame without a
-        time quantum are refused as in the JAX package; a frame with
-        inverse storage refuses the import (inverse views are not
-        ported) rather than drop its bits."""
+        frame.go:527-604; JAX ``frame.py:353-404``): every bit goes to the
+        standard view, a bit with a timestamp also to the time views of
+        the frame's quantum, and with inverse storage the transposed bits
+        to the inverse side (:meth:`import_inverse`).  Timestamps on a
+        frame without a time quantum are refused as in the JAX
+        package."""
+        self.import_standard(row_ids, column_ids, timestamps)
+        if self.inverse_enabled:
+            self.import_inverse(row_ids, column_ids, timestamps)
+
+    def _check_timestamps(self, timestamps) -> bool:
         has_ts = timestamps is not None and any(t is not None for t in timestamps)
         if self.time_quantum == "" and has_ts:
             raise FrameError("time quantum not set in either index or frame")
-        if self.inverse_enabled:
-            raise FrameError("inverse views are not supported by this port yet")
+        return has_ts
+
+    def import_standard(self, row_ids, column_ids, timestamps=None) -> None:
+        """The standard half of :meth:`import_bulk`: the standard view
+        and its time views, grouped by column slice."""
+        has_ts = self._check_timestamps(timestamps)
         rows = np.asarray(row_ids, dtype=np.int64)
         cols = np.asarray(column_ids, dtype=np.int64)
         self._import_grouped(VIEW_STANDARD, rows, cols)
+        if has_ts:
+            for name, sel in self._time_view_groups(VIEW_STANDARD, timestamps):
+                self._import_grouped(name, rows[sel], cols[sel])
+
+    def import_inverse(self, row_ids, column_ids, timestamps=None) -> None:
+        """The inverse half of :meth:`import_bulk`: (column, row) grouped
+        by inverse slice ``row // SLICE_WIDTH``.  As in the JAX package
+        (``frame.py:378-398``), a bit without a timestamp goes to the
+        inverse view and a bit with one to the inverse time views only."""
+        if not self.inverse_enabled:
+            raise FrameError("inverse storage is not enabled on this frame")
+        has_ts = self._check_timestamps(timestamps)
+        rows = np.asarray(row_ids, dtype=np.int64)
+        cols = np.asarray(column_ids, dtype=np.int64)
         if not has_ts:
+            self._import_grouped(VIEW_INVERSE, cols, rows)
             return
-        # Each distinct timestamp names its time views once; every view
-        # then takes its bits grouped by slice.
+        plain = np.asarray([t is None for t in timestamps], dtype=bool)
+        if plain.any():
+            self._import_grouped(VIEW_INVERSE, cols[plain], rows[plain])
+        for name, sel in self._time_view_groups(VIEW_INVERSE, timestamps):
+            self._import_grouped(name, cols[sel], rows[sel])
+
+    def _time_view_groups(self, view_name: str, timestamps):
+        """``(time view, int64 indexes of its bits)`` for the bits with a
+        timestamp: each distinct timestamp names its views once."""
         by_time: dict[datetime, list[int]] = {}
         for i, t in enumerate(timestamps):
             if t is not None:
                 by_time.setdefault(t, []).append(i)
         by_view: dict[str, list[int]] = {}
         for t, idx in by_time.items():
-            for name in tq.views_by_time(VIEW_STANDARD, t, self.time_quantum):
+            for name in tq.views_by_time(view_name, t, self.time_quantum):
                 by_view.setdefault(name, []).extend(idx)
-        for name, idx in by_view.items():
-            sel = np.asarray(idx, dtype=np.int64)
-            self._import_grouped(name, rows[sel], cols[sel])
+        return [(name, np.asarray(idx, dtype=np.int64)) for name, idx in by_view.items()]
 
     def _import_grouped(self, view_name: str, rows: np.ndarray, cols: np.ndarray) -> None:
         view = self.create_view_if_not_exists(view_name)

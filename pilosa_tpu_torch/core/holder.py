@@ -122,6 +122,11 @@ class Holder:
         with self._mu:
             return {name: idx.max_slice() for name, idx in self._indexes.items()}
 
+    def max_inverse_slices(self) -> dict[str, int]:
+        """Per-index max inverse slice (JAX ``holder.py:150``)."""
+        with self._mu:
+            return {name: idx.max_inverse_slice() for name, idx in self._indexes.items()}
+
     # --- schema (reference: holder.go:151-169) ---
 
     def schema(self) -> list[dict]:

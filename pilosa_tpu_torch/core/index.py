@@ -43,6 +43,7 @@ class Index:
         # Highest slice other nodes hold (broadcast or polled): a node
         # answers for the whole index, not only the slices it owns.
         self.remote_max_slice = 0
+        self.remote_max_inverse_slice = 0
         # Called as (index, view, slice) when a view grows a new max
         # slice; wired by the server to its CreateSlice broadcast.
         self.on_create_slice = None
@@ -173,6 +174,17 @@ class Index:
     def set_remote_max_slice(self, n: int) -> None:
         with self._mu:
             self.remote_max_slice = max(self.remote_max_slice, n)
+
+    def max_inverse_slice(self) -> int:
+        """Max inverse slice, local or learned from peers (JAX
+        ``index.py:184-197``)."""
+        with self._mu:
+            local = max((f.max_inverse_slice() for f in self._frames.values()), default=0)
+            return max(local, self.remote_max_inverse_slice)
+
+    def set_remote_max_inverse_slice(self, n: int) -> None:
+        with self._mu:
+            self.remote_max_inverse_slice = max(self.remote_max_inverse_slice, n)
 
     def schema_dict(self) -> dict:
         with self._mu:

@@ -5,7 +5,10 @@ fragment file per slice under ``fragments/``; the standard view stores
 (row, column) as given, and so do the views named after it — a
 time-quantum view (``standard_2017``, ``standard_201703``, ...) and a
 BSI field view (``field_<name>``), which open, list and count their
-slices like the standard one.  The inverse view is not ported yet.
+slices like the standard one.  The inverse view (and its time views)
+stores (column, row) in slice ``row // SLICE_WIDTH``; its fragments are
+typically tall — one row per column of the standard view — and live
+mostly in the fragment's sparse tier.
 """
 
 from __future__ import annotations
@@ -15,8 +18,10 @@ import threading
 
 import torch
 
+from pilosa_tpu_torch import bsi
 from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch.core import cache as cache_mod
+from pilosa_tpu_torch.core import fragment as fragment_mod
 from pilosa_tpu_torch.core.fragment import Fragment
 from pilosa_tpu_torch.ops.bitplane import SLICE_WIDTH
 
@@ -85,6 +90,12 @@ class View:
             self._fragments.clear()
 
     def _new_fragment(self, slice_i: int) -> Fragment:
+        # A BSI field's fragment holds at most 2 + MAX_DEPTH rows, which
+        # the ripple kernel K8 reads in place from the plane: they always
+        # get plane slots, whatever the dense budget.
+        budget = None
+        if bsi.is_field_view(self.name):
+            budget = max(fragment_mod.DENSE_ROW_BUDGET, bsi.ROW_BIT_BASE + bsi.MAX_DEPTH)
         frag = Fragment(
             os.path.join(self.fragments_path, str(slice_i)),
             self.index,
@@ -94,6 +105,7 @@ class View:
             device=self.device,
             cache_type=self.cache_type,
             cache_size=self.cache_size,
+            dense_row_budget=budget,
         )
         frag.row_attr_store = self.row_attr_store
         return frag

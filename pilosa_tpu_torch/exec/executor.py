@@ -10,11 +10,17 @@ attribute filters), with the same slice lists, the same two-phase TopN
 and the same error messages.
 
 Execution on the device: a bitmap tree's row leaves are stacked per
-leaf from the fragments' device mirrors (int32 ``[n_slices, 32768]``,
-only slices where some leaf row exists; a time-quantum ``Range`` is the
-union of its time views' rows), the tree folds with torch bitwise ops,
-and a count's last fold step is one fused popcount launch
-(exec/plan.py).  A BSI ``Range`` comparison and ``Sum``/``Min``/``Max``
+leaf (int32 ``[n_slices, 32768]``, only slices where some leaf row
+exists; a time-quantum ``Range`` is the union of its time views' rows)
+from the fragments' device mirrors, and a sparse-tier row's compressed
+payload is written into its place by the payload expansion K6 — one
+launch per stacking; the tree folds with torch bitwise ops, and a
+count's last fold step is one fused popcount launch (exec/plan.py).  A
+Count over Bitmap leaves whose tree has an anchor (a leaf that bounds
+the result) and a compressed leaf runs first in the position domain:
+one launch of the anchored count K5 over every local slice (JAX
+``executor.py:1634-1830``, same routing rules).  A BSI ``Range``
+comparison and ``Sum``/``Min``/``Max``
 are rewritten as in the JAX package (``_rewrite_bsi``) into nodes over
 the field's plane leaves, which the ripple kernel K8 reads in place from
 the field fragments' mirrors.  TopN prepares every local fragment's
@@ -32,8 +38,16 @@ node).  A node whose leg fails with a transport error or a 5xx has its
 slices placed again on the remaining replicas.  ``SetBit``/``ClearBit``
 reach every owner of the slice.
 
-Replication quorums, inverse views, attribute writes and the coalescer
-of the JAX executor are not ported yet.
+Inverse views (JAX ``executor.py:496-571``): ``Bitmap(<columnLabel>=c)``,
+``Range`` with a column id and ``TopN(inverse=true)`` read the frame's
+inverse view over the index's inverse slices, swapped in only when this
+node computed the slice lists itself (a remote leg's list is used as
+it is); ``SetBit``/``ClearBit`` without a view also write the inverse
+view of an inverse-enabled frame, on the owners of slice
+``row // SLICE_WIDTH``.
+
+Replication quorums, attribute writes and the coalescer of the JAX
+executor are not ported yet.
 """
 
 from __future__ import annotations
@@ -54,12 +68,12 @@ from pilosa_tpu_torch.core import cache as cache_mod
 from pilosa_tpu_torch.core import timequantum as tq
 from pilosa_tpu_torch.core.bitmap import RowBitmap
 from pilosa_tpu_torch.core.cache import Pair
-from pilosa_tpu_torch.core.fragment import TopOptions
+from pilosa_tpu_torch.core.fragment import Fragment, TopOptions
 from pilosa_tpu_torch.core.view import VIEW_INVERSE, VIEW_STANDARD
 from pilosa_tpu_torch.exec import plan
 from pilosa_tpu_torch.net.client import is_node_failure
 from pilosa_tpu_torch.ops import bitplane as bp
-from pilosa_tpu_torch.ops import bsi_ripple, score_planes
+from pilosa_tpu_torch.ops import bsi_ripple, expand_payload, score_planes
 from pilosa_tpu_torch.pql.parser import TIME_FORMAT, Call, Query
 
 # reference: executor.go:33-40
@@ -196,6 +210,7 @@ class Executor:
         ):
             raise TooManyWritesError()
         slices = list(slices) if slices else []
+        inverse_slices: list[int] = []
         computed_lists = False
         column_label = ""
         if not slices and needs_slices(q.calls):
@@ -203,19 +218,22 @@ class Executor:
             if idx is None:
                 raise IndexNotFoundError()
             slices = list(range(idx.max_slice() + 1))
+            inverse_slices = list(range(idx.max_inverse_slice() + 1))
             column_label = idx.column_label
             computed_lists = True
         results = []
         for call in q.calls:
+            call_slices = slices
             if call.supports_inverse() and computed_lists:
-                # Orientation check on the node's own slice lists
-                # (reference: executor.go:93-117).
+                # Orientation on the node's own slice lists (reference:
+                # executor.go:93-117); a coordinator's list for a remote
+                # leg already has the right orientation.
                 f = self.holder.frame(index, call.args.get("frame") or DEFAULT_FRAME)
                 if f is None:
                     raise FrameNotFoundError()
                 if call.is_inverse(f.row_label, column_label):
-                    raise ExecutorError("inverse views are not supported by this port yet")
-            results.append(self._execute_call(index, call, slices, opt))
+                    call_slices = inverse_slices
+            results.append(self._execute_call(index, call, call_slices, opt))
         return results
 
     # ------------------------------------------------------------------
@@ -269,7 +287,7 @@ class Executor:
                 raise ExecutorError(
                     "Bitmap() cannot retrieve columns unless inverse storage enabled"
                 )
-            raise ExecutorError("inverse views are not supported by this port yet")
+            return f.view(VIEW_INVERSE), col_id
         return f.view(VIEW_STANDARD), row_id
 
     def _resolve_range(self, index: str, c: Call) -> tuple[list, int]:
@@ -293,13 +311,12 @@ class Executor:
             raise ExecutorError(
                 f'Range() must specify either "{column_label}" or "{row_label}"'
             )
+        view_name, id_ = (VIEW_INVERSE, col_id) if col_ok else (VIEW_STANDARD, row_id)
         start, end = _time_arg(c, "start"), _time_arg(c, "end")
-        if col_ok:
-            raise ExecutorError("inverse views are not supported by this port yet")
         if not f.time_quantum:
-            return [], row_id
-        names = tq.views_by_time_range(VIEW_STANDARD, start, end, f.time_quantum)
-        return [v for v in (f.view(n) for n in names) if v is not None], row_id
+            return [], id_
+        names = tq.views_by_time_range(view_name, start, end, f.time_quantum)
+        return [v for v in (f.view(n) for n in names) if v is not None], id_
 
     def _resolve_leaf(self, index: str, c: Call) -> tuple:
         """What a leaf reads in each slice: ``("row", views, row_id)`` —
@@ -332,14 +349,50 @@ class Executor:
             return z
 
     @staticmethod
-    def _union_row(views: list, row_id: int, slice_i: int) -> torch.Tensor | None:
-        acc = None
+    def _row_sources(views: list, row_id: int, slice_i: int) -> list:
+        """The row's device forms in ``views`` at one slice, as
+        ``Fragment.device_leaf`` gives them (a mirror row, or a sparse
+        row's compressed payload); their union is the leaf's row."""
+        out = []
         for view in views:
             frag = view.fragment(slice_i)
-            row = frag.device_row(row_id) if frag is not None else None
-            if row is not None:
-                acc = row if acc is None else acc | row
-        return acc
+            leaf = frag.device_leaf(row_id) if frag is not None else None
+            if leaf is not None:
+                out.append(leaf)
+        return out
+
+    def _stack_rows(self, sources: list[list]) -> tuple[torch.Tensor, list, list]:
+        """One row leaf's int32 [n, 32768] stack over the kept slices
+        from each slice's row sources: plane rows copied in one stack,
+        every compressed row returned as a K6 job writing its stack row
+        (or, in a union of several views, a scratch row OR-ed in after
+        the launch — ``(stack, i, rows)`` in the second list)."""
+        device = self.holder.device
+        zero = self._zero_row(device)
+        plain = [len(p) == 1 and p[0][0] == bp.FMT_DENSE for p in sources]
+        if any(plain):
+            out = torch.stack([p[0][1] if ok else zero for p, ok in zip(sources, plain)])
+        else:
+            out = torch.empty(len(sources), bp.WORDS_PER_SLICE, dtype=torch.int32, device=device)
+        jobs, unions = [], []
+        for i, (p, ok) in enumerate(zip(sources, plain)):
+            if ok:
+                continue
+            if not p:
+                out[i].zero_()
+            elif len(p) == 1:
+                jobs.append((p[0][0], p[0][1], out[i]))
+            else:
+                rows = []
+                for fmt, t in p:
+                    if fmt == bp.FMT_DENSE:
+                        rows.append(t)
+                    else:
+                        tmp = torch.empty(bp.WORDS_PER_SLICE, dtype=torch.int32, device=device)
+                        jobs.append((fmt, t, tmp))
+                        rows.append(tmp)
+                unions.append((out, i, rows))
+        return out, jobs, unions
 
     def leaf_stacks(
         self, index: str, leaves: list[Call], slices: list[int]
@@ -347,7 +400,8 @@ class Executor:
         """The plan's inputs for every leaf over the slices where at least
         one leaf row exists (elsewhere every tree is empty): ``(inputs,
         kept)``.  A row leaf becomes an int32 [len(kept), 32768] stack of
-        mirror rows (an absent row is a zero row); every BSI plane leaf of
+        mirror rows (an absent row is a zero row), its sparse-tier rows
+        expanded in place by one K6 launch for the whole call; every BSI plane leaf of
         a field the field's one ``bsi_ripple.FieldPlanes`` — its fragments'
         mirrors and the rows of exists, sign and each magnitude bit in
         them, read in place by the ripple kernel; a predicate a
@@ -369,10 +423,9 @@ class Executor:
         mirrors: dict[int, list] = {key: [] for key in fields}
         slots: dict[int, list] = {key: [] for key in fields}
         kept: list[int] = []
-        zero = self._zero_row(self.holder.device)
         for s in slices:
-            got = {j: self._union_row(targets[j][1], targets[j][2], s) for j in rows}
-            any_set = any(r is not None for r in got.values())
+            got = {j: self._row_sources(targets[j][1], targets[j][2], s) for j in rows}
+            any_set = any(got.values())
             planes = {}
             for key, (view, prows) in fields.items():
                 frag = view.fragment(s) if view is not None else None
@@ -385,7 +438,7 @@ class Executor:
                 continue
             kept.append(s)
             for j, r in got.items():
-                rows[j].append(zero if r is None else r)
+                rows[j].append(r)
             for key, (mirror, sl) in planes.items():
                 mirrors[key].append(mirror)
                 slots[key].append(sl)
@@ -398,10 +451,22 @@ class Executor:
             )
             for key, (_, prows) in fields.items()
         }
+        stacks, jobs, unions = {}, [], []
+        for j, srcs in rows.items():
+            stacks[j], leaf_jobs, leaf_unions = self._stack_rows(srcs)
+            jobs += leaf_jobs
+            unions += leaf_unions
+        if jobs:
+            expand_payload.expand_payloads(jobs)
+        for out, i, parts in unions:
+            acc = parts[0]
+            for r in parts[1:]:
+                acc = acc | r
+            out[i] = acc
         inputs: list = []
         for j, t in enumerate(targets):
             if t[0] == "row":
-                inputs.append(torch.stack(rows[j]))
+                inputs.append(stacks[j])
             elif t[0] == "plane":
                 inputs.append(field_planes[id(t[1])])
             elif t[0] == "pred":
@@ -560,6 +625,9 @@ class Executor:
         expr, leaves = plan.decompose(self._rewrite_bsi(index, c.children[0]))
 
         def map_fn(local_slices: list[int]) -> int:
+            anchored = self._try_anchored_count(index, expr, leaves, local_slices)
+            if anchored is not None:
+                return anchored
             inputs, kept = self.leaf_stacks(index, leaves, local_slices)
             if not kept:
                 return 0
@@ -569,6 +637,94 @@ class Executor:
             index, slices, c, opt, map_fn, lambda prev, v: (prev or 0) + v
         )
         return int(n or 0)
+
+    # ------------------------------------------------------------------
+    # anchored position-domain Count (JAX executor.py:1627-1802)
+    # ------------------------------------------------------------------
+
+    # Anchor-cardinality ceiling: past one dense row's worth of words the
+    # position-domain searches cost more than streaming the dense words.
+    ANCHORED_MAX_POSITIONS = bp.WORDS_PER_SLICE
+
+    @staticmethod
+    def _expr_fold_only(expr: tuple) -> bool:
+        """True when the tree is set algebra over leaves (membership masks
+        compose pointwise only for the folds)."""
+        if expr[0] == "leaf":
+            return True
+        if expr[0] not in plan.FOLD_CALLS:
+            return False
+        return all(Executor._expr_fold_only(ch) for ch in expr[1:])
+
+    @staticmethod
+    def _anchor_candidates(expr: tuple) -> set:
+        """Leaves whose rows are supersets of the result: every child of
+        an Intersect and the first child of a Difference bound it, so a
+        leaf reached from the root through only those edges bounds it."""
+        if expr[0] == "leaf":
+            return {expr[1]}
+        if expr[0] == "Intersect":
+            out: set = set()
+            for ch in expr[1:]:
+                out |= Executor._anchor_candidates(ch)
+            return out
+        if expr[0] == "Difference" and len(expr) > 1:
+            return Executor._anchor_candidates(expr[1])
+        return set()
+
+    def _try_anchored_count(self, index: str, expr: tuple, leaves: list[Call],
+                            slices: list[int]) -> int | None:
+        """Count(tree) over ``slices`` in the position domain, or None
+        where the JAX package's route declines (``executor.py:1665``):
+        the plane format is "dense", a leaf is not a Bitmap, the tree is
+        not fold-only, it has no anchor candidate, some slice's smallest
+        anchor passes ANCHORED_MAX_POSITIONS, or no leaf is compressed.
+        In each slice the candidate with the fewest bits (the first on a
+        tie) is the anchor; an empty anchor bounds the slice at 0.  The
+        count is ONE launch of K5 (``plan.anchored_count``) over every
+        remaining slice, any mix of formats; a failure raises."""
+        if bp.PLANE_FORMAT == "dense":
+            return None
+        if not leaves or any(leaf.name != "Bitmap" for leaf in leaves):
+            return None
+        if not self._expr_fold_only(expr):
+            return None
+        cands = sorted(self._anchor_candidates(expr))
+        if not cands:
+            return None
+        resolved = [self._resolve_bitmap_leaf(index, leaf) for leaf in leaves]
+        picked = []
+        any_compressed = False
+        for s in slices:
+            frags = [view.fragment(s) if view is not None else None for view, _ in resolved]
+            card, ai = min(
+                ((frags[i].row_count(resolved[i][1]) if frags[i] is not None else 0), i)
+                for i in cands
+            )
+            if card == 0:
+                continue
+            if card > self.ANCHORED_MAX_POSITIONS:
+                return None
+            anchor = frags[ai].row_positions(resolved[ai][1])
+            if anchor is None or len(anchor) == 0:
+                continue
+            for frag, (_, rid) in zip(frags, resolved):
+                hp = frag.host_payload(rid) if frag is not None else None
+                if hp is not None and hp[0] != bp.FMT_DENSE:
+                    any_compressed = True
+            picked.append((anchor, frags))
+        if not any_compressed:
+            return None
+        offsets = np.zeros(len(picked) + 1, dtype=np.int64)
+        offsets[1:] = np.cumsum([len(a) for a, _ in picked])
+        positions = np.concatenate([a for a, _ in picked])
+        dev_leaves = [
+            [frag.device_leaf(rid) if frag is not None else None
+             for frag, (_, rid) in zip(frags, resolved)]
+            for _, frags in picked
+        ]
+        counts = plan.anchored_count(expr, positions, offsets, dev_leaves, self.holder.device)
+        return int(counts.sum(dtype=torch.int64))
 
     # ------------------------------------------------------------------
     # BSI aggregates — Sum / Min / Max (JAX executor.py:2094-2225)
@@ -730,9 +886,9 @@ class Executor:
                     continue
                 frag, topt = prep
                 states.append((frag, frag.top_prepare_parts(topt)))
-            self._score_topn_parts(
-                [self._attach_dev_src(frag, part, self_src) for frag, part in states]
-            )
+            scored = [self._attach_dev_src(frag, part, self_src) for frag, part in states]
+            self._score_topn_parts(scored)
+            self._score_topn_sparse(scored)
             parts = []
             for frag, (st, _, _) in states:
                 ids, cnts, keep, short = frag.top_score_arrays(st)
@@ -776,6 +932,19 @@ class Executor:
             ).cpu().numpy()
             for (st, sub, _, _), row in zip(group, scores):
                 st.counts = row[: len(sub.slots)]
+
+    @staticmethod
+    def _score_topn_sparse(parts) -> None:
+        """Score the sparse-tier candidates of every part on the host
+        against its src row's words (JAX ``core/fragment.py:2152``): the
+        src rows of every part that has such candidates come to the host
+        in ONE copy per node and phase, not one per fragment."""
+        live = [p for p in parts if p[0].sparse_pos is not None and len(p[0].sparse_pos)]
+        if not live:
+            return
+        words = bp.to_host(torch.stack([src for _, _, src, _ in live]))
+        for (st, _, _, _), w in zip(live, words):
+            Fragment.score_sparse(st, w)
 
     def _topn_self_src(self, index: str, c: Call):
         """``(view, row_id)`` when the src tree is one Bitmap leaf, whose
@@ -824,12 +993,12 @@ class Executor:
         }
 
     def _topn_view(self, index: str, c: Call):
-        """The view a TopN call reads (its frame's standard view), or
-        None."""
-        if bool(c.args.get("inverse", False)):
-            raise ExecutorError("inverse views are not supported by this port yet")
+        """The view a TopN call reads — its frame's inverse view with
+        ``inverse=true``, else the standard view — or None."""
         f = self.holder.frame(index, c.args.get("frame") or DEFAULT_FRAME)
-        return f.view(VIEW_STANDARD) if f is not None else None
+        if f is None:
+            return None
+        return f.view(VIEW_INVERSE if bool(c.args.get("inverse", False)) else VIEW_STANDARD)
 
     def _existing_topn_slices(self, index: str, c: Call, slices: list[int]) -> list[int]:
         """The slices among ``slices`` where the TopN frame has a
@@ -954,6 +1123,7 @@ class Executor:
         if parts == "two_phase":
             return self._execute_topn_two_phase(index, c, slices, opt, n)
         self._score_topn_parts([p[4] for p in parts])
+        self._score_topn_sparse([p[4] for p in parts])
         # Phase-1 winners per slice, from the scores the first round
         # would have given the slice's own candidates (a subset of the
         # union).
@@ -1013,22 +1183,37 @@ class Executor:
         return f, row_id, col_id
 
     def _write(self, index: str, c: Call, verb: str, write_fn, opt: ExecOptions) -> bool:
-        """Standard-view writes on every owner of the slice (reference:
-        executor.go:679-734,783-840): the local write here when this
-        node owns it, a remote leg to each other owner unless this is
-        itself a remote leg."""
+        """Writes to the standard and/or inverse view (reference:
+        executor.go:679-734,783-840; JAX ``executor.py:3080-3098``): the
+        named view, or with no view the standard one and, for an
+        inverse-enabled frame, the inverse one too.  The inverse view
+        stores (column, row) in slice ``row // SLICE_WIDTH``."""
         view = c.args.get("view", "") or ""
         f, row_id, col_id = self._resolve_write(index, c, verb)
-        if view == VIEW_INVERSE or (view == "" and f.inverse_enabled):
-            raise ExecutorError("inverse views are not supported by this port yet")
-        if view not in ("", VIEW_STANDARD):
-            raise ExecutorError(f"invalid view: {view}")
+        if view == VIEW_STANDARD:
+            return self._write_one_view(index, c, f, VIEW_STANDARD, row_id, col_id, write_fn, opt)
+        if view == VIEW_INVERSE:
+            return self._write_one_view(index, c, f, VIEW_INVERSE, col_id, row_id, write_fn, opt)
+        if view == "":
+            ret = self._write_one_view(index, c, f, VIEW_STANDARD, row_id, col_id, write_fn, opt)
+            if f.inverse_enabled and self._write_one_view(
+                index, c, f, VIEW_INVERSE, col_id, row_id, write_fn, opt
+            ):
+                ret = True
+            return ret
+        raise ExecutorError(f"invalid view: {view}")
+
+    def _write_one_view(self, index: str, c: Call, f, view: str, row_id: int, col_id: int,
+                        write_fn, opt: ExecOptions) -> bool:
+        """One view's write on every owner of its slice: the local write
+        here when this node owns it, the whole call as a remote leg to
+        each other owner unless this is itself a remote leg."""
         slice_i = col_id // bp.SLICE_WIDTH
         targets = self.cluster.fragment_nodes(index, slice_i) or [Node(host=self.host)]
         ret = False
         for node in targets:
             if node.host == self.host:
-                ret = write_fn(f, row_id, col_id) or ret
+                ret = write_fn(f, view, row_id, col_id) or ret
             elif not opt.remote:
                 res = self._exec_remote(node, index, Query(calls=[c]), None)
                 ret = bool(res and res[0]) or ret
@@ -1047,12 +1232,12 @@ class Executor:
                 raise ExecutorError(f"invalid date: {ts}") from None
         return self._write(
             index, c, "SetBit",
-            lambda f, r, col: f.set_bit(VIEW_STANDARD, r, col, timestamp), opt,
+            lambda f, view, r, col: f.set_bit(view, r, col, timestamp), opt,
         )
 
     def _execute_clear_bit(self, index: str, c: Call, opt: ExecOptions) -> bool:
         return self._write(
-            index, c, "ClearBit", lambda f, r, col: f.clear_bit(VIEW_STANDARD, r, col), opt
+            index, c, "ClearBit", lambda f, view, r, col: f.clear_bit(view, r, col), opt
         )
 
     # ------------------------------------------------------------------

@@ -23,6 +23,14 @@ kernel K8
 when the comparison is the root of a Count, in row mode inside a fold,
 and :func:`agg_vectors` for the aggregates.
 
+``anchored_count`` counts a fold-only tree in the position domain: the
+tree becomes a postfix program (``compile_program``) and every slice of
+the node goes through one launch of the anchored count K5
+(``ops/anchored_count.py``), each leaf read through its own container
+format — the counterpart of ``compiled_anchored_count`` /
+``anchored_count_exec`` (``pilosa_tpu/exec/plan.py:855-934``), which
+compiled one program per format signature.
+
 ``scatter_apply`` applies folded write deltas to a fragment's mirror
 with one launch of the delta-scatter kernel (``ops/delta_scatter.py``).
 """
@@ -35,6 +43,7 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.bsi import ripple
+from pilosa_tpu_torch.ops import anchored_count as ac
 from pilosa_tpu_torch.ops import bsi_ripple, delta_scatter, fused_popcount
 from pilosa_tpu_torch.ops.bitplane import WORDS_PER_SLICE
 from pilosa_tpu_torch.pql.parser import Call
@@ -232,6 +241,37 @@ def agg_vectors(expr: tuple, inputs: list) -> torch.Tensor:
     if name == "bsiSum":
         return bsi_ripple.bsi_sum(fp, filt)
     return bsi_ripple.bsi_minmax(fp, "min" if name == "bsiMin" else "max", filt)
+
+
+_PROGRAM_OPS = {"Intersect": ac.OP_AND, "Union": ac.OP_OR,
+                "Difference": ac.OP_ANDNOT, "Xor": ac.OP_XOR}
+
+
+def compile_program(expr: tuple) -> list[int]:
+    """A fold-only tree as K5's postfix program: a leaf pushes its
+    membership, an n-ary fold left-folds its children (the JAX
+    package's ``_build_anchored`` order), an empty Union pushes 0."""
+    if expr[0] == "leaf":
+        return [expr[1]]
+    if expr[0] not in _PROGRAM_OPS:
+        raise PlanError(f"{expr[0]} is not a fold")
+    kids = expr[1:]
+    if not kids:
+        return [ac.OP_ZERO]
+    out = compile_program(kids[0])
+    for e in kids[1:]:
+        out += compile_program(e) + [_PROGRAM_OPS[expr[0]]]
+    return out
+
+
+def anchored_count(expr: tuple, positions: np.ndarray, offsets: np.ndarray, leaves,
+                   device) -> torch.Tensor:
+    """int32 [S] position-domain counts of a fold-only tree: slice s
+    counts the anchor positions ``positions[offsets[s]:offsets[s + 1]]``
+    where the tree holds over ``leaves[s]`` (each ``(fmt, device
+    payload)`` or None for an absent row) — one K5 launch on CUDA, the
+    plain version on the CPU."""
+    return ac.anchored_count(compile_program(expr), positions, offsets, leaves, device)
 
 
 def scatter_apply(plane: torch.Tensor, slots, words, or_m, andnot_m) -> torch.Tensor:

@@ -123,8 +123,10 @@ class InternalClient:
         status, data = self._request("GET", "/schema")
         return json.loads(self._check(status, data))["indexes"]
 
-    def max_slice_by_index(self) -> dict[str, int]:
-        status, data = self._request("GET", "/slices/max")
+    def max_slice_by_index(self, inverse: bool = False) -> dict[str, int]:
+        """Per-index max slice of the host, or max inverse slice."""
+        query = {"inverse": "true"} if inverse else None
+        status, data = self._request("GET", "/slices/max", query=query)
         return json.loads(self._check(status, data))["maxSlices"]
 
     def create_index(self, index: str, options: dict | None = None) -> None:
@@ -161,11 +163,15 @@ class InternalClient:
     # --- import (reference: client.go:314-401) ---
 
     def import_slice(
-        self, index: str, frame: str, slice_i: int, rows, cols, timestamps=None
+        self, index: str, frame: str, slice_i: int, rows, cols, timestamps=None,
+        view: str = "", host: str | None = None,
     ) -> None:
-        """POST one slice's bits to every owner of the slice.  Every owner
-        must accept them: a failure raises naming each host that failed,
-        after the others have received the bits."""
+        """POST one slice's bits to every owner of the slice, or to
+        ``host`` alone.  Every owner must accept them: a failure raises
+        naming each host that failed, after the others have received the
+        bits.  ``view="inverse"`` sends the inverse half of an import:
+        ``slice_i`` is then the inverse slice (``row // SLICE_WIDTH``) and
+        the bits are imported into the frame's inverse views only."""
         pb = wire.ImportRequest(
             Index=index,
             Frame=frame,
@@ -174,9 +180,10 @@ class InternalClient:
             ColumnIDs=np.asarray(cols, dtype=np.uint64),
             Timestamps=[] if timestamps is None else np.asarray(timestamps, dtype=np.int64),
         )
+        path = "/import?view=inverse" if view == "inverse" else "/import"
         self._post_to_owners(
-            index, slice_i, "/import", pb.encode(),
-            {"Content-Type": PROTOBUF, "Accept": PROTOBUF}, protobuf=True,
+            index, slice_i, path, pb.encode(),
+            {"Content-Type": PROTOBUF, "Accept": PROTOBUF}, protobuf=True, host=host,
         )
 
     def import_value(
@@ -198,9 +205,9 @@ class InternalClient:
 
     def _post_to_owners(
         self, index: str, slice_i: int, path: str, payload: bytes, headers: dict,
-        protobuf: bool,
+        protobuf: bool, host: str | None = None,
     ) -> None:
-        nodes = self.fragment_nodes(index, slice_i)
+        nodes = [{"host": host}] if host is not None else self.fragment_nodes(index, slice_i)
         if not nodes:
             raise ClientError(500, f"no nodes for slice {slice_i}")
         errors = []

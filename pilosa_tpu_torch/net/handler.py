@@ -18,7 +18,12 @@ Content-Type is ``application/x-protobuf`` (its ``Slices``,
 ``QueryResponse`` protobuf when Accept names it; JSON otherwise.
 ``POST /import`` takes an ``ImportRequest`` (timestamps included: unix
 nanoseconds, written to the frame's time views) and answers an
-``ImportResponse``; ``POST /import-value`` takes one slice's BSI field
+``ImportResponse``; into an inverse-enabled frame the node imports the
+standard half and sends the transposed half of each inverse slice to
+that slice's owners as ``POST /import?view=inverse`` (itself where it
+owns it), so the inverse view lives where queries look for it;
+``GET /slices/max?inverse=true`` answers the inverse slices;
+``POST /import-value`` takes one slice's BSI field
 values as JSON.  Index and frame creation and deletion are broadcast to
 the cluster; a field's creation and deletion go to every peer as the
 same HTTP request with ``?remote=true``, as in the JAX package.
@@ -45,6 +50,7 @@ from pilosa_tpu_torch.core.bitmap import RowBitmap
 from pilosa_tpu_torch.core.timequantum import parse_time_quantum
 from pilosa_tpu_torch.exec.executor import ExecOptions, TooManyWritesError
 from pilosa_tpu_torch.net import codec, wire
+from pilosa_tpu_torch.ops import bitplane as bp
 from pilosa_tpu_torch.pql.parser import parse_string
 
 PROTOBUF = "application/x-protobuf"
@@ -171,12 +177,12 @@ class Handler:
         return Response.json({"version": __version__})
 
     def handle_get_slice_max(self, req: Request) -> Response:
-        """Per-index max slice.  Inverse views are not ported, so a node
-        of the port holds no inverse slice: ``?inverse=true`` answers 0
-        for every index."""
-        ms = self.holder.max_slices()
+        """Per-index max slice, or max inverse slice with
+        ``?inverse=true`` (JAX ``handler.py:481-485``)."""
         if req.query.get("inverse") == "true":
-            ms = {k: 0 for k in ms}
+            ms = self.holder.max_inverse_slices()
+        else:
+            ms = self.holder.max_slices()
         if PROTOBUF in req.header("Accept"):
             return Response.proto(wire.MaxSlicesResponse(MaxSlices=ms))
         return Response.json({"maxSlices": ms})
@@ -475,6 +481,9 @@ class Handler:
     # --- import (reference: handler.go:969-1046) ---
 
     def handle_post_import(self, req: Request) -> Response:
+        view = req.query.get("view", "")
+        if view not in ("", "inverse"):
+            return Response.error(f"invalid view: {view}", 400)
         try:
             pb = wire.ImportRequest.decode(req.body)
         except ValueError as e:
@@ -492,15 +501,48 @@ class Handler:
             if pb.Timestamps
             else None
         )
+        rows = np.asarray(pb.RowIDs, dtype=np.int64)
+        cols = np.asarray(pb.ColumnIDs, dtype=np.int64)
         try:
-            f.import_bulk(
-                np.asarray(pb.RowIDs, dtype=np.int64),
-                np.asarray(pb.ColumnIDs, dtype=np.int64),
-                timestamps,
-            )
+            if view == "inverse":
+                # The inverse half another node sent: pb.Slice is the
+                # inverse slice, which the guard above checked.
+                f.import_inverse(rows, cols, timestamps)
+            elif not f.inverse_enabled:
+                f.import_bulk(rows, cols, timestamps)
+            else:
+                f.import_standard(rows, cols, timestamps)
+                self._import_inverse_by_owner(pb.Index, pb.Frame, f, rows, cols, timestamps)
         except Exception as e:  # noqa: BLE001 — import boundary
             return Response.proto(wire.ImportResponse(Err=str(e)), status=500)
         return Response.proto(wire.ImportResponse())
+
+    def _import_inverse_by_owner(self, index: str, frame: str, f, rows, cols, timestamps) -> None:
+        """The inverse half of an import, grouped by inverse slice (``row
+        // SLICE_WIDTH``): imported here where this node owns the slice,
+        sent to every other owner as ``/import?view=inverse``.  A node
+        outside any cluster owns every slice."""
+        me = self.executor.host
+        idx = np.arange(len(rows), dtype=np.int64)
+        for s, (r_s, c_s, i_s) in bp.np_group_by(rows // bp.SLICE_WIDTH, rows, cols, idx):
+            ts = None if timestamps is None else [timestamps[i] for i in i_s]
+            owners = [n.host for n in self.cluster.fragment_nodes(index, s)] or [me]
+            for host in owners:
+                if host == me:
+                    f.import_inverse(r_s, c_s, ts)
+                else:
+                    self.executor.client_factory(host).import_slice(
+                        index, frame, s, r_s, c_s,
+                        None if ts is None else [_unix_ns(t) for t in ts],
+                        view="inverse", host=host,
+                    )
+
+
+def _unix_ns(t: datetime | None) -> int:
+    """Inverse of :func:`_dt_from_unix` (0 for no timestamp)."""
+    if t is None:
+        return 0
+    return int(round(t.replace(tzinfo=timezone.utc).timestamp() * 1e9))
 
 
 def _dt_from_unix(ts: int) -> datetime:

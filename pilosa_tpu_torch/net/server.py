@@ -18,8 +18,13 @@ section (``pilosa_tpu/cli/ctl.py:45-100``):
   ``internal_port``);
 * ``replicas``, the owners of each slice;
 * ``polling_interval``, seconds between polls of the peers' max slices
-  (``tick_max_slices``), so every node knows how far an index reaches,
-  also where it owns no slice.
+  and max inverse slices (``tick_max_slices``), so every node knows how
+  far an index reaches, also where it owns no slice.
+
+``plane_format`` (``"auto"`` or ``"dense"``) sets the sparse tier's
+container policy (``bitplane.configure_plane_format``, process-wide as
+in the JAX package's ``[device] plane-format``; the per-row byte caps
+keep their 64 KiB defaults).
 
 The node registers itself in the cluster on open.  Nodes that bind port
 0 learn each other after they are open: ``add_peer(host,
@@ -37,10 +42,12 @@ from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch.cluster import broadcast as bc
 from pilosa_tpu_torch.cluster.topology import Cluster
 from pilosa_tpu_torch.core.holder import Holder
+from pilosa_tpu_torch.core.view import is_inverse_view
 from pilosa_tpu_torch.exec.executor import DEFAULT_MAX_WRITES_PER_REQUEST, Executor
 from pilosa_tpu_torch.net import wire
 from pilosa_tpu_torch.net.client import TRANSPORT_ERRORS, ClientError, InternalClient
 from pilosa_tpu_torch.net.handler import Handler, make_http_server
+from pilosa_tpu_torch.ops import bitplane as bp
 
 CLUSTER_TYPES = ("static", "http")
 # reference: server.go / config.go defaults
@@ -63,6 +70,7 @@ class Server:
         replicas: int = 1,
         internal_port: int = DEFAULT_INTERNAL_PORT,
         polling_interval: float = DEFAULT_POLLING_INTERVAL,
+        plane_format: str = "auto",
     ):
         if cluster_type == "gossip":
             raise ValueError("cluster type 'gossip' is not supported by this port yet")
@@ -73,8 +81,13 @@ class Server:
             internal_hosts = [f"{h.rpartition(':')[0]}:{internal_port}" for h in hosts]
         if len(internal_hosts) != len(hosts):
             raise ValueError("internal_hosts must list one listener per host")
+        if plane_format not in ("auto", "dense"):
+            raise ValueError(f"unknown plane-format {plane_format!r}")
         self.device = device_mod.resolve(device)
         self.host = host
+        # The sparse tier's container policy (bitplane.encode_row):
+        # process-wide, as in the JAX package, applied at open().
+        self.plane_format = plane_format
         self.cluster_type = cluster_type
         self.polling_interval = polling_interval
         self.cluster = Cluster(replica_n=replicas)
@@ -113,6 +126,7 @@ class Server:
     # --- lifecycle (reference: server.go:99-198) ---
 
     def open(self) -> None:
+        bp.configure_plane_format(mode=self.plane_format)
         self.holder.open()
         bind_host, _, bind_port = self.host.rpartition(":")
         port = int(bind_port or 0)
@@ -191,19 +205,29 @@ class Server:
         for node in list(self.cluster.nodes):
             if node.host == self.host:
                 continue
+            client = InternalClient(node.host, timeout=REMOTE_TIMEOUT_S)
             try:
-                ms = InternalClient(node.host, timeout=REMOTE_TIMEOUT_S).max_slice_by_index()
+                ms = client.max_slice_by_index()
+                inv = client.max_slice_by_index(inverse=True)
             except TRANSPORT_ERRORS + (ClientError, ValueError):
                 continue
             for index_name, max_slice in ms.items():
                 idx = self.holder.index(index_name)
                 if idx is not None:
                     idx.set_remote_max_slice(max_slice)
+            for index_name, max_slice in inv.items():
+                idx = self.holder.index(index_name)
+                if idx is not None:
+                    idx.set_remote_max_inverse_slice(max_slice)
 
     # --- broadcast (reference: server.go:277-325) ---
 
     def _on_create_slice(self, index: str, view_name: str, slice_i: int) -> None:
-        self.broadcaster.send_async(wire.CreateSliceMessage(Index=index, Slice=slice_i))
+        self.broadcaster.send_async(
+            wire.CreateSliceMessage(
+                Index=index, Slice=slice_i, IsInverse=is_inverse_view(view_name)
+            )
+        )
 
     def receive_message(self, msg) -> None:
         """Apply a schema message from a peer."""
@@ -211,7 +235,9 @@ class Server:
             idx = self.holder.index(msg.Index)
             if idx is None:
                 raise RuntimeError("index not found")
-            if not msg.IsInverse:
+            if msg.IsInverse:
+                idx.set_remote_max_inverse_slice(msg.Slice)
+            else:
                 idx.set_remote_max_slice(msg.Slice)
         elif isinstance(msg, wire.CreateIndexMessage):
             meta = msg.Meta or wire.IndexMeta()

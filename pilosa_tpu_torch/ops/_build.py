@@ -31,6 +31,8 @@ SOURCES = {
     "delta_scatter": "delta_scatter.cu",
     "bsi_ripple": "bsi_ripple.cu",
     "score_planes": "score_planes.cu",
+    "anchored_count": "anchored_count.cu",
+    "expand_payload": "expand_payload.cu",
 }
 
 NVCC_FLAGS = (

@@ -289,6 +289,240 @@ def count_range(words: torch.Tensor, start: int, end: int) -> int:
     )
 
 
+# ---------------------------------------------------------------------------
+# Compressed row containers (the sparse tier's device payloads), copied from
+# ``pilosa_tpu/ops/bitplane.py:302-426``:
+#
+#   FMT_DENSE   uint32[WORDS_PER_SLICE] words           128 KiB always
+#   FMT_SPARSE  sorted uint32 positions                 4 B / position
+#   FMT_RLE     sorted (start, end) uint32 runs         8 B / run
+#
+# ``encode_row`` chooses the format by BUCKETED bytes, as the JAX package
+# does, and returns the JAX package's sentinel-padded payload, so both pick
+# the same format for every row.  The port's kernels search over the real
+# length, so the fragment keeps only the real entries on the device
+# (``payload_entries``): no sentinel (0xFFFFFFFF, which is -1 in an int32
+# view and would sort first) ever reaches a kernel.
+# ---------------------------------------------------------------------------
+
+FMT_DENSE = 0
+FMT_SPARSE = 1
+FMT_RLE = 2
+FMT_NAMES = {FMT_DENSE: "dense", FMT_SPARSE: "sparse", FMT_RLE: "rle"}
+
+# Padding sentinel of the JAX package's payloads: > any slice position.
+FMT_SENTINEL = 0xFFFFFFFF
+
+# Floor of the payload pow2 bucket grid (64 positions = 256 B, 64 runs =
+# 512 B), which the format choice compares.
+PAYLOAD_BUCKET_FLOOR = 64
+
+# ``Server(plane_format=...)``: "auto" selects per row by encoded bytes,
+# "dense" disables compression.  Module-level, as in the JAX package, so
+# fragments see it without per-fragment plumbing.
+PLANE_FORMAT = "auto"
+
+# Per-row encoded-size caps: a format is eligible only while its BUCKETED
+# payload fits the cap (default half a dense row).
+SPARSE_MAX_BYTES = 65536
+RLE_MAX_BYTES = 65536
+
+
+def configure_plane_format(
+    mode: str | None = None,
+    sparse_max_bytes: int | None = None,
+    rle_max_bytes: int | None = None,
+) -> None:
+    """Apply the plane-format policy process-wide (``Server.open``).
+    Selection is write-time only: already-encoded payloads keep their
+    format until the row is written again."""
+    global PLANE_FORMAT, SPARSE_MAX_BYTES, RLE_MAX_BYTES
+    if mode is not None:
+        if mode not in ("auto", "dense"):
+            raise ValueError(f"unknown plane-format {mode!r}")
+        PLANE_FORMAT = mode
+    if sparse_max_bytes is not None:
+        SPARSE_MAX_BYTES = max(0, int(sparse_max_bytes))
+    if rle_max_bytes is not None:
+        RLE_MAX_BYTES = max(0, int(rle_max_bytes))
+
+
+def payload_bucket(n: int) -> int:
+    """Pow2 payload-length bucket (entries, not bytes) with the shared
+    floor."""
+    return pow2_bucket(n, PAYLOAD_BUCKET_FLOOR)
+
+
+def np_positions_to_runs(offsets: np.ndarray) -> np.ndarray:
+    """Sorted positions -> (R, 2) uint32 half-open maximal runs."""
+    o = np.asarray(offsets, dtype=np.uint32)
+    if len(o) == 0:
+        return np.zeros((0, 2), dtype=np.uint32)
+    brk = np.nonzero(np.diff(o) != 1)[0]
+    starts = o[np.concatenate(([0], brk + 1))]
+    ends = o[np.concatenate((brk, [len(o) - 1]))].astype(np.uint64) + 1
+    return np.stack([starts, ends.astype(np.uint32)], axis=1)
+
+
+def encode_row(offsets: np.ndarray) -> tuple[int, np.ndarray, int]:
+    """Write-time format selection for one sparse-tier row: ``(fmt,
+    payload, encoded_nbytes)``, the payload sentinel-padded to its
+    bucket.  Minimum bucketed bytes wins, ties broken toward the lower
+    format tag (dense < sparse < rle)."""
+    offs = np.asarray(offsets, dtype=np.uint32)
+    card = len(offs)
+    dense_b = WORDS_PER_SLICE * 4
+    cands = [(dense_b, FMT_DENSE)]
+    if PLANE_FORMAT != "dense":
+        sparse_b = 4 * payload_bucket(card)
+        if sparse_b < dense_b and sparse_b <= SPARSE_MAX_BYTES:
+            cands.append((sparse_b, FMT_SPARSE))
+        runs = np_positions_to_runs(offs)
+        rle_b = 8 * payload_bucket(len(runs))
+        if rle_b < dense_b and rle_b <= RLE_MAX_BYTES:
+            cands.append((rle_b, FMT_RLE))
+    nbytes, fmt = min(cands)
+    if fmt == FMT_SPARSE:
+        payload = np.full(payload_bucket(card), FMT_SENTINEL, dtype=np.uint32)
+        payload[:card] = offs
+    elif fmt == FMT_RLE:
+        runs = np_positions_to_runs(offs)
+        payload = np.full((payload_bucket(len(runs)), 2), FMT_SENTINEL, dtype=np.uint32)
+        payload[: len(runs)] = runs
+    else:
+        payload = np_columns_to_row(offs)
+    return fmt, payload, nbytes
+
+
+def decode_payload(fmt: int, payload: np.ndarray) -> np.ndarray:
+    """Host inverse of encode_row: any container payload (padded or
+    not) -> dense row words."""
+    if fmt == FMT_DENSE:
+        return np.asarray(payload, dtype=np.uint32)
+    if fmt == FMT_SPARSE:
+        p = np.asarray(payload, dtype=np.uint32)
+        return np_columns_to_row(p[p != np.uint32(FMT_SENTINEL)])
+    if fmt == FMT_RLE:
+        p = np.asarray(payload, dtype=np.uint32).reshape(-1, 2)
+        real = p[p[:, 0] != np.uint32(FMT_SENTINEL)]
+        if len(real) == 0:
+            return empty_row()
+        pos = np.concatenate([np.arange(s, e, dtype=np.uint32) for s, e in real])
+        return np_columns_to_row(pos)
+    raise ValueError(f"unknown container format {fmt!r}")
+
+
+def payload_entries(fmt: int, payload: np.ndarray) -> np.ndarray:
+    """The real entries of an ``encode_row`` payload, sentinels dropped:
+    uint32 [n] positions, [R, 2] runs, or the [32768] dense words."""
+    p = np.asarray(payload, dtype=np.uint32)
+    if fmt == FMT_SPARSE:
+        return p[p != np.uint32(FMT_SENTINEL)]
+    if fmt == FMT_RLE:
+        p = p.reshape(-1, 2)
+        return p[p[:, 0] != np.uint32(FMT_SENTINEL)]
+    if fmt == FMT_DENSE:
+        return p
+    raise ValueError(f"unknown container format {fmt!r}")
+
+
+# --- plain membership (K5's plain version, ``bitplane.py:429-453``) -------
+# Each takes one row's payload as an int32 tensor of its REAL entries (the
+# values are < 2^31, so the int32 view orders them as uint32 would) and
+# int64 positions, and answers "is position p set?" per position.
+
+
+def _i32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values of 32-bit words -> their int32 bit-view."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def membership_dense(row: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    w = torch.clamp(pos >> 5, max=WORDS_PER_SLICE - 1)
+    return ((row[w].to(torch.int64) >> (pos & 31)) & 1).to(torch.bool)
+
+
+def membership_sparse(payload: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    if payload.numel() == 0:
+        return torch.zeros(pos.shape, dtype=torch.bool, device=pos.device)
+    vals = payload.to(torch.int64)
+    i = torch.clamp(torch.searchsorted(vals, pos), max=vals.numel() - 1)
+    return vals[i] == pos
+
+
+def membership_rle(payload: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    if payload.numel() == 0:
+        return torch.zeros(pos.shape, dtype=torch.bool, device=pos.device)
+    runs = payload.reshape(-1, 2).to(torch.int64)
+    i = torch.searchsorted(runs[:, 0].contiguous(), pos, right=True) - 1
+    return (i >= 0) & (pos < runs[torch.clamp(i, min=0), 1])
+
+
+def membership(fmt: int, payload: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    if fmt == FMT_DENSE:
+        return membership_dense(payload, pos)
+    if fmt == FMT_SPARSE:
+        return membership_sparse(payload, pos)
+    if fmt == FMT_RLE:
+        return membership_rle(payload, pos)
+    raise ValueError(f"unknown container format {fmt!r}")
+
+
+# --- plain expansion (K6's plain version, ``bitplane.py:457-519``) --------
+
+
+def expand_sparse(payload: torch.Tensor) -> torch.Tensor:
+    """Positions -> int32 [32768] row: scatter-add of one-bit masks
+    (positions are unique, so add is or)."""
+    p = payload.to(torch.int64)
+    row = torch.zeros(WORDS_PER_SLICE, dtype=torch.int64, device=payload.device)
+    row.index_add_(0, p >> 5, torch.ones_like(p) << (p & 31))
+    return _i32_bits(row)
+
+
+def _lowmask(n: torch.Tensor) -> torch.Tensor:
+    """int64 mask of the low ``n`` bits, n in [0, 32]."""
+    return (torch.ones_like(n) << n) - 1
+
+
+def expand_rle(payload: torch.Tensor) -> torch.Tensor:
+    """Runs -> int32 [32768] row: boundary-word masks (runs are disjoint
+    and maximal, so masks in a shared word have disjoint bits) plus an
+    interior cover from a +1/-1 difference array over word index."""
+    runs = payload.reshape(-1, 2).to(torch.int64)
+    device = payload.device
+    row = torch.zeros(WORDS_PER_SLICE, dtype=torch.int64, device=device)
+    if runs.shape[0] == 0:
+        return _i32_bits(row)
+    s, e = runs[:, 0], runs[:, 1]
+    w0, wl = s >> 5, (e - 1) >> 5
+    b0, bl = s & 31, (e - 1) & 31
+    same = w0 == wl
+    m0 = _lowmask(torch.where(same, bl + 1, torch.full_like(bl, 32))) & ~_lowmask(b0)
+    ml = torch.where(same, torch.zeros_like(bl), _lowmask(bl + 1))
+    row.index_add_(0, w0, m0)
+    row.index_add_(0, wl, ml)
+    interior = (wl > w0 + 1).to(torch.int64)
+    d = torch.zeros(WORDS_PER_SLICE + 1, dtype=torch.int64, device=device)
+    d.index_add_(0, w0 + 1, interior)
+    d.index_add_(0, wl, -interior)
+    cover = torch.cumsum(d, 0)[:WORDS_PER_SLICE] > 0
+    row = row | torch.where(cover, 0xFFFFFFFF, 0)
+    return _i32_bits(row)
+
+
+def expand_payload(fmt: int, payload: torch.Tensor) -> torch.Tensor:
+    """Dense int32 [32768] row of a compressed payload (a new tensor; a
+    FMT_DENSE payload is copied)."""
+    if fmt == FMT_DENSE:
+        return payload.clone()
+    if fmt == FMT_SPARSE:
+        return expand_sparse(payload)
+    if fmt == FMT_RLE:
+        return expand_rle(payload)
+    raise ValueError(f"unknown container format {fmt!r}")
+
+
 def top_k(counts: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k (count, index) by count descending, ties broken by the
     smaller index first — the reference's Pair order (reference:

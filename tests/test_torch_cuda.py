@@ -213,3 +213,85 @@ def test_score_planes_rejects_misaligned(cuda):
     plane = flat[1 : 1 + 2 * tbp.WORDS_PER_SLICE].view(2, tbp.WORDS_PER_SLICE)
     with pytest.raises(ValueError):
         sp.score_planes([plane], np.array([[0]], np.int64), [plane[1]])
+
+
+# --- K5 and K6: the anchored count and the payload expansion -------------------
+
+
+def _mixed_rows(rng, n, cuda):
+    """n rows' device forms, every format and the edges: (fmt, payload,
+    sorted positions), with absent rows (None)."""
+    sw = tbp.SLICE_WIDTH
+    out = []
+    for k in range(n):
+        kind = k % 6
+        if kind == 0:
+            offs = np.sort(rng.choice(sw, size=int(rng.integers(1, 3000)), replace=False))
+        elif kind == 1:
+            start = int(rng.integers(0, sw - 5000))
+            offs = np.arange(start, start + int(rng.integers(1, 5000)))
+        elif kind == 2:
+            offs = np.sort(rng.choice(sw, size=40_000, replace=False))  # dense format
+        elif kind == 3:
+            offs = np.array([0, 31, 32, sw - 1])
+        elif kind == 4:
+            offs = np.arange(sw - 100, sw)  # a run ending at 2^20
+        else:
+            out.append(None)
+            continue
+        offs = offs.astype(np.uint32)
+        fmt, payload, _ = tbp.encode_row(offs)
+        out.append((fmt, tbp.to_device(tbp.payload_entries(fmt, payload), cuda), offs))
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 6, 954])
+def test_expand_payload_matches_plain(cuda, n):
+    from pilosa_tpu_torch.ops import expand_payload as ep
+
+    rows = [r for r in _mixed_rows(np.random.default_rng(n), n + 1, cuda) if r is not None][:n]
+    got = torch.full((len(rows), tbp.WORDS_PER_SLICE), -1, dtype=torch.int32, device=cuda)
+    want = torch.full_like(got, 7)
+    before = ep.launches
+    ep.expand_payloads([(f, p, got[i]) for i, (f, p, _) in enumerate(rows)])
+    torch.cuda.synchronize()
+    assert ep.launches == before + 1
+    ep.plain_expand([(f, p, want[i]) for i, (f, p, _) in enumerate(rows)])
+    assert torch.equal(got, want)
+    for i, (_, _, offs) in enumerate(rows):
+        np.testing.assert_array_equal(tbp.to_host(got[i]), tbp.np_columns_to_row(offs))
+
+
+@pytest.mark.parametrize("n", [1, 7, 954])
+def test_anchored_count_matches_plain(cuda, n):
+    """Every format mix in one launch, absent rows, anchors of 1 and
+    32,768 positions, empty anchors, the sentinel edges."""
+    from pilosa_tpu_torch.exec import plan as tplan
+    from pilosa_tpu_torch.ops import anchored_count as ac
+
+    rng = np.random.default_rng(n)
+    sw = tbp.SLICE_WIDTH
+    leaves, anchors = [], []
+    for s in range(n):
+        leaves.append([(r[0], r[1]) if r is not None else None
+                       for r in _mixed_rows(rng, 3, cuda)[::-1] + _mixed_rows(rng, 1, cuda)][:3])
+        k = s % 4
+        anchors.append(np.sort(rng.choice(sw, size=32768, replace=False)) if k == 0 else
+                       np.array([sw - 1]) if k == 1 else np.array([], np.int64) if k == 2 else
+                       np.arange(sw - 300, sw))
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    offsets[1:] = np.cumsum([len(a) for a in anchors])
+    positions = np.concatenate(anchors).astype(np.uint32)
+    if not len(positions):
+        positions = np.array([0], np.uint32)
+        offsets[-1] = 1
+    for expr in (("Intersect", ("leaf", 0), ("leaf", 1), ("leaf", 2)),
+                 ("Difference", ("leaf", 0), ("Union", ("leaf", 1), ("leaf", 2))),
+                 ("Xor", ("leaf", 2), ("Intersect", ("leaf", 0)), ("Union",))):
+        before = ac.launches
+        got = tplan.anchored_count(expr, positions, offsets, leaves, cuda)
+        torch.cuda.synchronize()
+        assert ac.launches == before + 1
+        want = ac.plain_anchored_count(tplan.compile_program(expr), positions, offsets, leaves,
+                                       cuda)
+        assert torch.equal(got, want), expr

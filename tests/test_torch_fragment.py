@@ -178,11 +178,13 @@ def test_row_beyond_dense_budget_raises(tmp_path, monkeypatch):
     t = TFragment(str(tmp_path / "0"), "i", "f", "standard", 0, device="cpu")
     t.open()
     assert t.set_bit(5, 1) and t.set_bit(9, 1)
-    with pytest.raises(fragment_mod.FragmentError):
-        t.set_bit(7, 1)
-    with pytest.raises(fragment_mod.FragmentError):
-        t.import_bulk([1, 2], [3, 4])
-    assert t.row_count(5) == t.row_count(9) == 1 and not t.has_row(7)
+    # Rows past the dense budget no longer raise: they land in the sparse
+    # tier and answer like plane rows.
+    assert t.set_bit(7, 1)
+    t.import_bulk([1, 2], [3, 4])
+    assert sorted(t._slot_of) == [5, 9] and sorted(t._sparse) == [1, 2, 7]
+    assert t.row_count(5) == t.row_count(9) == t.row_count(7) == 1 and t.has_row(7)
+    assert t.row(2).bits() == [4] and t.contains(1, 3)
     t.close()
 
 
