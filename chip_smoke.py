@@ -22,8 +22,8 @@ without printing its final line:
    expansion (K6) 1, 7 and 954 rows of mixed formats and 954 of each
    format in one launch, also against numpy; for the anchored count (K5)
    1, 7 and 954 slices x 4 leaves of every format and absent rows in one
-   launch, anchors of 32,768, 1 and 0 positions and up to 2^20 - 1, five
-   trees;
+   launch, anchors of 32,768, 1 and 0 positions and up to 2^20 - 1, six
+   trees (one nested 11 masks deep);
 4. time each kernel at the main path's shapes (CUDA events around runs
    of back-to-back calls, median of 21 runs), beside its bound and its
    plain version's time; for the delta-scatter kernel also the time of
@@ -821,12 +821,23 @@ def check_k6(ep, bp, rng) -> float:
     return float(worst)
 
 
+def k5_deep_tree(levels: int) -> tuple:
+    """Union(l0, Intersect(l1, Xor(l2, Difference(l3, Union(l0, ...))))):
+    each level keeps one more mask on K5's stack."""
+    ops = ("Union", "Intersect", "Xor", "Difference")
+    expr = ("leaf", levels % 4)
+    for k in reversed(range(levels)):
+        expr = (ops[k % 4], ("leaf", k % 4), expr)
+    return expr
+
+
 K5_TREES = (
     ("Intersect", ("leaf", 0), ("leaf", 1), ("leaf", 2)),
     ("Difference", ("leaf", 0), ("Union", ("leaf", 1), ("leaf", 2), ("leaf", 3))),
     ("Intersect", ("leaf", 0), ("Xor", ("leaf", 1), ("leaf", 3))),
     ("Intersect", ("leaf", 2), ("Union",)),
     ("Difference", ("leaf", 3)),
+    ("Intersect", ("leaf", 1), k5_deep_tree(9)),  # 11 masks deep
 )
 
 
@@ -836,8 +847,8 @@ def check_k5(ac, bp, plan, rng) -> float:
     its own format (dense words, positions, runs; the edges; empty
     payloads) and absent rows, so every format mix meets in one launch;
     anchors of 32,768 positions, 1 position, none, and the last 300
-    positions up to 2^20 - 1; five trees.  Returns the largest absolute
-    difference (0)."""
+    positions up to 2^20 - 1; six trees, one 11 masks deep.  Returns the
+    largest absolute difference (0)."""
     import torch
 
     sw = bp.SLICE_WIDTH
@@ -875,7 +886,7 @@ def check_k5(ac, bp, plan, rng) -> float:
                 raise AssertionError(f"anchored_count != plain: {n} slices, {expr}, diff {diff}")
     log(f"phase 3: anchored_count == plain on {n_checks} launches (max_abs_err {worst}): 1, 7 "
         f"and {N_SLICES} slices x 4 leaves of every format and absent rows mixed in one launch, "
-        "anchors of 32,768, 1 and 0 positions and up to 2^20 - 1, five trees")
+        "anchors of 32,768, 1 and 0 positions and up to 2^20 - 1, six trees (one 11 deep)")
     return float(worst)
 
 

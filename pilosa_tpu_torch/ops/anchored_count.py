@@ -118,7 +118,8 @@ def _check(program, positions, offsets, leaves, device) -> None:
             if leaf is None:
                 continue
             fmt, t = leaf
-            entries(fmt, t)
+            if entries(fmt, t) > bp.SLICE_WIDTH:
+                raise ValueError("a leaf holds more entries than a slice has positions")
             if t.device != device:
                 raise ValueError(f"leaves must lie on {device}")
 

@@ -37,17 +37,19 @@
 // bytes once, as the JAX package's eff_bytes does.
 //
 // Design: one thread per 16 consecutive anchor positions of a slice, 256
-// threads a block: grid (ceil(max |P_s| / 4096), S).  A thread computes
-// each leaf's membership for its positions as one bit mask: the positions
-// ascend, so after one binary search for the first position it walks the
-// leaf's entries forward (galloping when they are far apart), and a
-// compressed leaf costs about one read per position instead of one binary
-// search per position.  The program then runs on the masks — 16 positions
-// per bitwise op — on a stack of masks in local memory, and the popcount of
-// the result (valid lanes only) goes into a warp sum; lane 0 adds it to
-// out[s] with one integer atomicAdd: integer addition is order-free, so the
-// result is deterministic.  The kernel allocates nothing and launches on
-// the caller's stream; the launcher returns cudaGetLastError().
+// threads a block: grid (ceil(max |P_s| / 4096), S).  The block brings its
+// 4,096 positions in with coalesced loads through shared memory.  A
+// thread computes each leaf's membership for its positions as one 16-bit
+// mask: the positions ascend, so after one warp-wide search for the warp's
+// first position (32 lanes probe at once, a ballot keeps the right part)
+// a lane walks the leaf's entries forward, galloping where they are far
+// apart — about one read per position instead of one binary search per
+// position.  The program then runs on the masks, 16 positions per bitwise
+// op, on a stack in local memory; the popcount of the result (valid lanes
+// only) goes into a warp sum, and lane 0 adds it to out[s] with one integer
+// atomicAdd: integer addition is order-free, so the result is
+// deterministic.  The kernel allocates nothing and launches on the
+// caller's stream; the launcher returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,12 +61,15 @@ constexpr int kLane = 16;  // positions per thread
 constexpr int kPerBlock = kThreads * kLane;
 constexpr int kMaxDepth = 64;
 
+// Entry indices are 32-bit: a leaf holds at most 2^20 positions, 2^19
+// runs or 32,768 words.
+
 // First index in [i, n) whose key src[stride * j + off] >= x (n if none),
 // given that every key before i is < x: gallop from i, then bisect.
-__device__ __forceinline__ long long seek(const uint32_t* src, long long i, long long n,
-                                          int stride, int off, uint32_t x) {
+__device__ __forceinline__ uint32_t seek(const uint32_t* src, uint32_t i, uint32_t n,
+                                         int stride, int off, uint32_t x) {
   if (i >= n || src[stride * i + off] >= x) return i;
-  long long lo = i + 1, step = 1, hi = lo;
+  uint32_t lo = i + 1, step = 1, hi = lo;
   while (hi < n && src[stride * hi + off] < x) {
     lo = hi + 1;
     step <<= 1;
@@ -72,7 +77,7 @@ __device__ __forceinline__ long long seek(const uint32_t* src, long long i, long
   }
   if (hi > n) hi = n;
   while (lo < hi) {  // answer in [lo, hi]
-    const long long m = (lo + hi) >> 1;
+    const uint32_t m = (lo + hi) >> 1;
     if (src[stride * m + off] < x) lo = m + 1; else hi = m;
   }
   return lo;
@@ -82,16 +87,16 @@ __device__ __forceinline__ long long seek(const uint32_t* src, long long i, long
 // src[stride * i + off] ascending, found by one whole warp: each round its
 // 32 lanes probe 32 points that cut the range into 33 parts, and a ballot
 // keeps the part holding the answer.  Every lane returns the answer.
-__device__ __forceinline__ long long warp_lower_bound(const uint32_t* src, long long n,
-                                                      int stride, int off, uint32_t x) {
-  const int lane = threadIdx.x & 31;
-  long long lo = 0, hi = n;  // the answer is in [lo, hi]
+__device__ __forceinline__ uint32_t warp_lower_bound(const uint32_t* src, uint32_t n,
+                                                     int stride, int off, uint32_t x) {
+  const uint32_t lane = threadIdx.x & 31u;
+  uint32_t lo = 0, hi = n;  // the answer is in [lo, hi]
   while (lo < hi) {
-    const long long len = hi - lo;
-    const long long idx = lo + ((long long)(lane + 1) * len) / 33;  // < hi
-    const int c = __popc(__ballot_sync(0xffffffffu, src[stride * idx + off] < x));
-    const long long nlo = c == 0 ? lo : lo + ((long long)c * len) / 33 + 1;
-    hi = c == 32 ? hi : lo + ((long long)(c + 1) * len) / 33;
+    const uint32_t len = hi - lo;
+    const uint32_t idx = lo + (lane + 1u) * len / 33u;  // < hi
+    const uint32_t c = __popc(__ballot_sync(0xffffffffu, src[stride * idx + off] < x));
+    const uint32_t nlo = c == 0 ? lo : lo + c * len / 33u + 1u;
+    hi = c == 32 ? hi : lo + (c + 1u) * len / 33u;
     lo = nlo;
   }
   return lo;
@@ -101,29 +106,38 @@ __device__ __forceinline__ long long warp_lower_bound(const uint32_t* src, long 
 // p[0..cnt), ascending: bit j for p[j].  Called by the whole warp, whose
 // first position is p0 (<= every lane's positions): one warp search finds
 // p0's place, and each lane gallops on from there.
-__device__ __forceinline__ uint32_t leaf_mask(const long long* leaf, const uint32_t* p, int cnt,
-                                              uint32_t p0) {
-  const long long n = leaf[2];
-  if (n <= 0) return 0u;
+__device__ __forceinline__ uint32_t leaf_mask(const long long* leaf, const uint32_t (&p)[kLane],
+                                              int cnt, uint32_t p0) {
+  const uint32_t n = (uint32_t)leaf[2];
+  if (n == 0) return 0u;
   const int fmt = (int)leaf[0];
   const uint32_t* src = reinterpret_cast<const uint32_t*>(leaf[1]);
   uint32_t m = 0u;
   if (fmt == 0) {
-    for (int j = 0; j < cnt; ++j) m |= ((src[p[j] >> 5] >> (p[j] & 31u)) & 1u) << j;
-    return m;
-  }
-  if (fmt == 1) {  // sorted positions: the first >= p[j]
-    long long i = warp_lower_bound(src, n, 1, 0, p0);
-    for (int j = 0; j < cnt; ++j) {
-      i = seek(src, i, n, 1, 0, p[j]);
-      if (i < n && src[i] == p[j]) m |= 1u << j;
+#pragma unroll
+    for (int j = 0; j < kLane; ++j) {
+      if (j < cnt) m |= ((src[p[j] >> 5] >> (p[j] & 31u)) & 1u) << j;
     }
     return m;
   }
-  long long i = warp_lower_bound(src, n, 2, 1, p0 + 1u);
-  for (int j = 0; j < cnt; ++j) {  // runs: the first whose end > p[j]
-    i = seek(src, i, n, 2, 1, p[j] + 1u);
-    if (i < n && src[2 * i] <= p[j]) m |= 1u << j;
+  if (fmt == 1) {  // sorted positions: the first >= p[j]
+    uint32_t i = warp_lower_bound(src, n, 1, 0, p0);
+#pragma unroll
+    for (int j = 0; j < kLane; ++j) {
+      if (j < cnt) {
+        i = seek(src, i, n, 1, 0, p[j]);
+        if (i < n && src[i] == p[j]) m |= 1u << j;
+      }
+    }
+    return m;
+  }
+  uint32_t i = warp_lower_bound(src, n, 2, 1, p0 + 1u);
+#pragma unroll
+  for (int j = 0; j < kLane; ++j) {  // runs: the first whose end > p[j]
+    if (j < cnt) {
+      i = seek(src, i, n, 2, 1, p[j] + 1u);
+      if (i < n && src[2 * i] <= p[j]) m |= 1u << j;
+    }
   }
   return m;
 }
@@ -135,12 +149,24 @@ anchored_count_kernel(const long long* __restrict__ meta, int n_slices, int n_le
   const int s = blockIdx.y;
   const long long lo = meta[s];
   const long long hi = meta[s + 1];
-  const long long first = lo + (long long)blockIdx.x * kPerBlock + (long long)threadIdx.x * kLane;
-  int cnt = 0;
+  const long long block_first = lo + (long long)blockIdx.x * kPerBlock;
+  if (block_first >= hi) return;  // block-uniform
+  // The block's positions come in with coalesced loads through shared
+  // memory; each thread then takes its 16 as four 16-byte reads.
+  __shared__ __align__(16) uint32_t staged[kPerBlock];
+  const int block_cnt = (int)min((long long)kPerBlock, hi - block_first);
+  for (int k = threadIdx.x; k < block_cnt; k += kThreads) staged[k] = positions[block_first + k];
+  __syncthreads();
+  const int cnt = max(0, min(kLane, block_cnt - (int)threadIdx.x * kLane));
   uint32_t p[kLane];
-  if (first < hi) {
-    cnt = (int)min((long long)kLane, hi - first);
-    for (int j = 0; j < cnt; ++j) p[j] = positions[first + j];
+  const uint4* mine = reinterpret_cast<const uint4*>(staged) + threadIdx.x * (kLane / 4);
+#pragma unroll
+  for (int q = 0; q < kLane / 4; ++q) {
+    const uint4 v = mine[q];
+    p[4 * q] = v.x;
+    p[4 * q + 1] = v.y;
+    p[4 * q + 2] = v.z;
+    p[4 * q + 3] = v.w;
   }
   // Lanes hold ascending positions, so lane 0's first is the warp's least;
   // a warp whose lane 0 has none has none at all (warp-uniform branch).
@@ -163,7 +189,7 @@ anchored_count_kernel(const long long* __restrict__ meta, int n_slices, int n_le
         stack[sp - 1] = op == -1 ? (a & b) : op == -2 ? (a | b) : op == -3 ? (a & ~b) : (a ^ b);
       }
     }
-    const uint32_t valid = cnt == kLane ? 0xFFFFFFFFu : ((1u << cnt) - 1u);
+    const uint32_t valid = cnt == kLane ? 0xFFFFu : ((1u << cnt) - 1u);
     total = __popc(stack[0] & valid);
   }
   for (int off = 16; off > 0; off >>= 1) total += __shfl_down_sync(0xffffffffu, total, off);

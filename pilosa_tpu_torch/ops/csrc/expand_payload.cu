@@ -18,18 +18,18 @@
 // 8 B a run, 128 KiB for a dense payload) and write 128 KiB.  At 954 rows
 // the writes alone are 125 MB: 0.037 ms at the 3.35 TB/s of an H100 SXM.
 //
-// Design: one block of 256 threads per (row, tile of 1,024 words = 32,768
-// positions): grid (32, N).  Two warps find, by a 32-way search, the
-// payload entries that touch the tile; the block ORs them into a 4 KiB
+// Design: one block of 256 threads per (row, tile of 4,096 words = 131,072
+// positions): grid (8, N).  Two warps find, by a 32-way search, the
+// payload entries that touch the tile; the block ORs them into a 16 KiB
 // tile in shared memory (each position one shared atomicOr; a run sets its
 // boundary words with atomicOr and stores its interior words, which no
-// other run touches: runs are disjoint); then the tile goes out with one
-// 16-byte store a thread.  Every payload entry is read once (a run
-// spanning tiles once per tile) and every output word written once; OR is
-// commutative, so the result does not depend on the order of the shared
-// atomics.  A dense payload is copied with 16-byte loads.  The kernel
-// allocates nothing and launches on the caller's stream; the launcher
-// returns cudaGetLastError().
+// other run touches: runs are disjoint); then the tile goes out in 16-byte
+// stores; a tile this large pays the searches' latency 8 times a row.
+// Every payload entry is read once (a run spanning tiles once per tile)
+// and every output word written once; OR is commutative, so the result
+// does not depend on the order of the shared atomics.  A dense payload is
+// copied with 16-byte loads.  The kernel allocates nothing and launches
+// on the caller's stream; the launcher returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,7 +37,8 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileWords = 1024;
+constexpr int kTileWords = 4096;
+constexpr int kVecsPerThread = kTileWords / 4 / kThreads;
 constexpr uint32_t kTileBits = kTileWords * 32;
 constexpr int kTiles = 32768 / kTileWords;
 
@@ -78,13 +79,20 @@ expand_payload_kernel(const long long* __restrict__ table) {
                                          (long long)blockIdx.x * kTileWords);
   if (fmt == 0 && n > 0) {
     const uint4* s = reinterpret_cast<const uint4*>(src + (long long)blockIdx.x * kTileWords);
-    dest[threadIdx.x] = s[threadIdx.x];
+#pragma unroll
+    for (int k = 0; k < kVecsPerThread; ++k) {
+      dest[threadIdx.x + k * kThreads] = s[threadIdx.x + k * kThreads];
+    }
     return;
   }
-  __shared__ uint32_t tile[kTileWords];
+  __shared__ __align__(16) uint32_t tile[kTileWords];
   __shared__ long long span[2];
   const uint32_t base = blockIdx.x * kTileBits;
-  reinterpret_cast<uint4*>(tile)[threadIdx.x] = make_uint4(0u, 0u, 0u, 0u);
+  uint4* vtile = reinterpret_cast<uint4*>(tile);
+#pragma unroll
+  for (int k = 0; k < kVecsPerThread; ++k) {
+    vtile[threadIdx.x + k * kThreads] = make_uint4(0u, 0u, 0u, 0u);
+  }
   const int warp = threadIdx.x >> 5;
   if (warp < 2) {
     // Warp 0 finds the first entry of the tile, warp 1 the first past it:
@@ -121,7 +129,10 @@ expand_payload_kernel(const long long* __restrict__ table) {
     }
   }
   __syncthreads();
-  dest[threadIdx.x] = reinterpret_cast<const uint4*>(tile)[threadIdx.x];
+#pragma unroll
+  for (int k = 0; k < kVecsPerThread; ++k) {
+    dest[threadIdx.x + k * kThreads] = vtile[threadIdx.x + k * kThreads];
+  }
 }
 
 }  // namespace

@@ -285,9 +285,13 @@ def test_anchored_count_matches_plain(cuda, n):
     if not len(positions):
         positions = np.array([0], np.uint32)
         offsets[-1] = 1
+    deep = ("leaf", 2)  # nested 9 masks deep: past the kernel's register-held top four
+    for k in range(8):
+        deep = (("Union", "Intersect", "Xor", "Difference")[k % 4], ("leaf", k % 3), deep)
     for expr in (("Intersect", ("leaf", 0), ("leaf", 1), ("leaf", 2)),
                  ("Difference", ("leaf", 0), ("Union", ("leaf", 1), ("leaf", 2))),
-                 ("Xor", ("leaf", 2), ("Intersect", ("leaf", 0)), ("Union",))):
+                 ("Xor", ("leaf", 2), ("Intersect", ("leaf", 0)), ("Union",)),
+                 ("Intersect", ("leaf", 1), deep)):
         before = ac.launches
         got = tplan.anchored_count(expr, positions, offsets, leaves, cuda)
         torch.cuda.synchronize()
