@@ -23,11 +23,17 @@ without printing its final line:
    format in one launch, also against numpy; for the anchored count (K5)
    1, 7 and 954 slices x 4 leaves of every format and absent rows in one
    launch, anchors of 32,768, 1 and 0 positions and up to 2^20 - 1, six
-   trees (one nested 11 masks deep);
+   trees (one nested 11 masks deep); for the delta-scatter (K7) the
+   one-plane interface on edge queues and 1 to 8,192 entries, and
+   batches of one launch each: one bit set and cleared within and across
+   queues, mirrors of 8, 16 and 65,536 rows in one launch, empty queues,
+   one mirror twice, and 954 mirrors at once;
 4. time each kernel at the main path's shapes (CUDA events around runs
    of back-to-back calls, median of 21 runs), beside its bound and its
-   plain version's time; for the delta-scatter kernel also the time of
-   an empty kernel launch, the floor that bounds it; and each kernel's
+   plain version's time; for the delta-scatter kernel (K7) one, 954 and
+   1,908 mirrors in one launch, with the time of an empty kernel launch,
+   the floor that bounds the small batch, the host's part of the batched
+   apply, and the two rates that set a queue's limit; and each kernel's
    own device time per launch from a torch.profiler trace; K8 at [954
    slices, depth 31]; K4 at [954 fragments, 8 candidates] and [954, 64],
    and K1 at the per-fragment TopN shape it served before K4 ([8, 32768]
@@ -45,8 +51,11 @@ without printing its final line:
    an http cluster with 2 replicas; the schema created on one node
    reaches the others by broadcast; each node loads the phase-5 planes
    of the slices it owns (~2 GiB of mirrors); then a protobuf
-   ``/import`` of 2^20 seeded bits (~1,100 per fragment: the
-   delta-scatter path), Count/TopN queries to every node in protobuf
+   ``/import`` of 2^20 seeded bits (~1,100 per fragment), which must
+   launch nothing on the card (the bits queue on the host), and the
+   first Count after it, which applies the queues of every fragment a
+   node reads with one delta-scatter launch per node leg;
+   Count/TopN queries to every node in protobuf
    and JSON checked against the numpy oracle (TopN(src): one K4 launch
    per node leg and round); a BSI field created on one
    node (its fan-out reaches the others), ``/import-value`` to every
@@ -60,9 +69,10 @@ without printing its final line:
    every comparison and between, a Range inside Intersect, Sum/Min/Max
    with and without a filter, checked against a numpy oracle that
    decodes every column's value; then an ``/import-value`` of 2^16
-   values over every slice (the delta-scatter path with and-not
-   entries) and one past the scatter limit on one slice (the counted
-   fallback), the queries again after each;
+   values over every slice, which launches nothing, and the first read
+   after it, which applies all 954 queues (with and-not entries) in ONE
+   delta-scatter launch; one import past a queue's limit on one slice
+   (the counted fallback); the queries again after each;
 8. on the phase-5 node, a time-quantum frame (YMD) over 16 slices:
    SetBits with timestamps and a protobuf ``/import`` of 2^16 bits over
    40 days, then Range(start, end) counts inside a month, across the
@@ -86,7 +96,11 @@ without printing its final line:
     and the tanimoto TopN on the inverse view, every answer against a
     numpy oracle over the written pairs, the launches of K1, K4, K5 and
     K6 counted around each query class;
-11. print the ``kernels`` JSON line, then the final JSON line.
+11. recovery on the card: a port node's data directory with a torn
+    op-log tail and a WAL segment of a JAX node's (written with the
+    port's encoder) reopens with the oracle's answers, applies a later
+    write with one delta-scatter launch, and replays nothing twice;
+12. print the ``kernels`` JSON line, then the final JSON line.
 
 Exits non-zero when ``torch.cuda.is_available()`` is false, and when the
 port's package is not beside this file.
@@ -120,10 +134,9 @@ FALLBACK_IMPORT_BITS = 1 << 16
 # Phase 6's BSI leg: values over the first slices.
 CLUSTER_BSI_SLICES = 64
 CLUSTER_BSI_VALUES = 1 << 14
-# Phase 7: the first /import-value (every slice, the K7 path with clears) and
-# the second (one slice past IMPORT_SCATTER_MAX entries: the counted fallback).
+# Phase 7: the first /import-value (every slice, the K7 path with clears); the
+# second goes past its queue's limit on one slice (the counted fallback).
 BSI_IMPORT_VALUES = 1 << 16
-BSI_FALLBACK_VALUES = 200
 # Phase 8: the time-quantum frame.
 TIME_SLICES = 16
 TIME_ROWS = 4
@@ -136,9 +149,8 @@ TOPN_N = 10
 TOPN_THRESHOLD = 2000
 TOPN_IDS = (0, 5, 17, 33, 63, 99)
 LOAD_THREADS = 6
-# Phase 3/4: the delta-scatter entry counts held and timed.
+# Phase 3: the delta-scatter entry counts held through the one-plane interface.
 K7_NS = (1, 31, 1100, 4096, 8192)
-K7_TIMED_NS = (1100, 4096)
 
 # Peak rates used for the bound, from NVIDIA's data sheets: device memory
 # 3.35 TB/s on an H100 SXM (2.0 on the PCIe part, 3.9 on the NVL part,
@@ -281,11 +293,13 @@ def check_k1(fp, bp, rng) -> float:
     log(f"phase 3: fused_popcount == plain on {n_checks} cases (max_abs_err {worst})")
     return float(worst)
 
-def k7_bound_ms(n: int, hbm: float) -> tuple[float, str]:
-    """Least time for n delta-scatter entries: each entry (16 bytes)
-    read once, each touched word (4 bytes) read once and written once;
-    two bitwise ops per entry, far below the byte time."""
-    t_bytes = n * (16 + 4 + 4) / hbm
+def k7_bound_ms(jobs: int, n: int, hbm: float) -> tuple[float, str]:
+    """Least time for a batch of n delta-scatter records over ``jobs``
+    planes: each record (16 bytes) and each plane's address (8 bytes)
+    read once, and per touched word one 32-byte sector read and one
+    written (the card moves sectors, not words); two bitwise ops per
+    record, far below the byte time."""
+    t_bytes = (jobs * 8 + n * (16 + 32 + 32)) / hbm
     t_ops = n * 2 / SCALAR_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -316,10 +330,63 @@ def k7_edge_queues(rows: int) -> dict:
     }
 
 
+def k7_codes(scatter, rng, rows: int, n: int, words: int = 0) -> np.ndarray:
+    """n queue codes (scatter.codes) into ``rows`` rows, sets and clears
+    in turn; with ``words`` they crowd onto that many words of each row
+    (bits set and cleared again), else they spread over the row."""
+    offs = (rng.integers(0, words, n) * 32 + rng.integers(0, 32, n) if words
+            else rng.integers(0, 1 << 20, n))
+    return scatter.codes(rng.integers(0, rows, n), offs, 0) | rng.integers(0, 2, n)
+
+
+def k7_batches(scatter, rng) -> dict:
+    """Phase 3's batches: {name: (mirror rows per job, queue per job)}.
+    Mixed sets and clears of one bit within a queue and across queues,
+    jobs of 8, 16 and 65,536 rows in one launch (the last word of the
+    tall mirror's last row), empty queues among full ones, one mirror
+    twice (merged in order), and every slice's queue at once."""
+    one_bit = scatter.codes([1], [(1 << 20) - 1], 0)
+    tall_last = scatter.codes([(1 << 16) - 1], [(1 << 20) - 1], 0)
+    return {
+        "one_bit_across_queues": (
+            [8, 8, 16],
+            [np.concatenate([k7_codes(scatter, rng, 8, 300, 4), one_bit | 1, one_bit]),
+             np.concatenate([one_bit, k7_codes(scatter, rng, 8, 300, 4), one_bit | 1]),
+             np.concatenate([one_bit | 1, one_bit, one_bit | 1])]),
+        "rows_8_16_65536": (
+            [8, 1 << 16, 16, 1 << 16],
+            [k7_codes(scatter, rng, 8, 1100),
+             np.concatenate([k7_codes(scatter, rng, 1 << 16, 20000), tall_last | 1]),
+             k7_codes(scatter, rng, 16, 4096, 64),
+             np.concatenate([tall_last | 1, tall_last, k7_codes(scatter, rng, 1 << 16, 3000)])]),
+        "empty_queues": (
+            [8, 8, 8, 8],
+            [np.empty(0, np.int64), k7_codes(scatter, rng, 8, 31), np.empty(0, np.int64),
+             k7_codes(scatter, rng, 8, 1)]),
+        "same_mirror_twice": ([8, "same"], [k7_codes(scatter, rng, 8, 900, 16),
+                                             k7_codes(scatter, rng, 8, 900, 16)]),
+        f"{N_SLICES}_jobs_1100": ([8] * N_SLICES, [k7_codes(scatter, rng, 8, 1100)
+                                                  for _ in range(N_SLICES)]),
+    }
+
+
+def k7_diff(a, b) -> int:
+    """The largest absolute difference of two int32 tensors, without an
+    int64 copy of an 8 GiB mirror where they are equal."""
+    if a.equal(b):
+        return 0
+    ne = a != b
+    return int((a[ne].long() - b[ne].long()).abs().max())
+
+
 def check_k7(ds, scatter, rng) -> float:
-    """Every edge queue and n in K7_NS random entries into [8, 32768]
-    and [16, 32768] mirrors: kernel == plain version == numpy, exactly.
-    Returns the largest absolute difference seen (0)."""
+    """K7 against its plain version, exactly: every edge queue and n in
+    K7_NS random entries into [8, 32768] and [16, 32768] mirrors through
+    the one-plane interface (the one-job case of the kernel), also
+    against numpy; then every batch of ``k7_batches`` through
+    ``scatter.apply_many`` — ONE launch a batch — against the plain
+    version on the same folded entries.  Returns the largest absolute
+    difference seen (0)."""
     import torch
 
     worst = 0
@@ -350,40 +417,135 @@ def check_k7(ds, scatter, rng) -> float:
             if diff or not np.array_equal(plain_plane.cpu().numpy().view(np.uint32), want):
                 raise AssertionError(
                     f"delta_scatter != plain/numpy: rows={rows} {name} diff={diff}")
-    log(f"phase 3: delta_scatter == plain == numpy on {n_checks} cases (max_abs_err {worst})")
+    n_numpy = n_checks
+    for name, (shapes, queues) in k7_batches(scatter, rng).items():
+        mirrors = []
+        for r in shapes:
+            mirrors.append(mirrors[-1] if r == "same" else torch.randint(
+                -2**31, 2**31 - 1, (r, 32768), dtype=torch.int32, device="cuda"))
+        plain = {id(m): m.clone() for m in mirrors}
+        before = ds.launches
+        scatter.apply_many(list(zip(mirrors, queues)))
+        torch.cuda.synchronize()
+        if ds.launches != before + 1:
+            raise AssertionError(f"delta_scatter batch {name}: {ds.launches - before} launches")
+        # The plain version on the fold of the same batch (one mirror
+        # twice is one job with both queues, in order).
+        merged: dict = {}
+        for m, q in zip(mirrors, queues):
+            merged.setdefault(id(m), []).append(q)
+        ds.plain_delta_scatter_many(list(plain.values()), *scatter.fold_many(
+            [np.concatenate(merged[k]) for k in plain]))
+        torch.cuda.synchronize()
+        diff = max(k7_diff(m, plain[id(m)]) for m in mirrors)
+        worst = max(worst, diff)
+        n_checks += 1
+        if diff:
+            raise AssertionError(f"delta_scatter batch {name} != plain: diff={diff}")
+        del mirrors, plain
+    torch.cuda.empty_cache()
+    log(f"phase 3: delta_scatter == plain on {n_checks} cases ({n_numpy} through the "
+        f"one-plane interface, also == numpy; {n_checks - n_numpy} batches of one launch "
+        f"each) (max_abs_err {worst})")
     return float(worst)
 
 
-def time_k7(ds, rng, hbm: float) -> dict:
-    """Per timed n: the kernel alone (entries already on the card), the
-    wrapper (host checks + upload + launch), the plain version, the
-    empty-launch floor and the byte bound, on a [8, 32768] mirror."""
+# Phase 4: K7's timed shapes, (jobs, records a job) into [8, 32768] mirrors:
+# one fragment's import, phase 7's flush of every slice, phase 6's flush of
+# both replicas of every slice at half the records.
+K7_SHAPES = ((1, 1100), (N_SLICES, 1100), (2 * N_SLICES, 550))
+
+
+def time_k7(ds, scatter, bp, rng, hbm: float) -> dict:
+    """Per shape of K7_SHAPES: the kernel alone (its buffer already on
+    the card) back to back and by device time, the empty-launch floor,
+    the bound and the share of it, the plain version, and the host's
+    part of ``scatter.apply_many`` — fold, check and upload — beside
+    the whole call.  Then the two rates behind the queue limit
+    (``scatter.ENTRY_COST_BYTES``): a mirror's re-upload in bytes per
+    second, and ``apply_many``'s host seconds per record at N_SLICES
+    jobs."""
     import torch
 
     dev = torch.device("cuda")
-    plane = torch.from_numpy(
-        rng.integers(0, 2**32, size=(ROWS, 32768), dtype=np.uint32).view(np.int32)
-    ).to(dev)
     noop_ms = time_cuda(lambda: ds.noop_launch(dev))
     noop_dev = device_ms(lambda: ds.noop_launch(dev), "noop_kernel")
-    out = {}
-    for n in K7_TIMED_NS:
-        entries = random_entries(rng, ROWS, n)
-        packed = np.stack([entries[0], entries[1], entries[2].view(np.int32),
-                           entries[3].view(np.int32)])
-        e = torch.from_numpy(packed).to(dev)
-        k_ms = time_cuda(lambda: ds.launch(plane, e))
-        wrap_ms = time_cuda(lambda: ds.delta_scatter(plane, *entries))
-        plain_ms = time_cuda(lambda: ds.plain_delta_scatter(plane, *entries))
-        k_dev = device_ms(lambda: ds.launch(plane, e), "delta_scatter_kernel")
-        bound_ms, bound_by = k7_bound_ms(n, hbm)
-        out[n] = {"ms": k_ms, "wrapper_ms": wrap_ms, "plain_ms": plain_ms,
-                  "noop_ms": noop_ms, "device_ms": k_dev, "noop_device_ms": noop_dev,
-                  "bound_ms": bound_ms, "bound_by": bound_by}
-        log(f"phase 4: delta_scatter n={n} into [{ROWS}, 32768]: kernel {k_ms:.4f} ms, "
-            f"wrapper (checks + upload + launch) {wrap_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"empty launch {noop_ms:.4f} ms, byte bound {bound_ms:.6f} ms; device time per "
-            f"launch from the profiler: kernel {k_dev} ms, empty kernel {noop_dev} ms")
+    out: dict = {}
+    for jobs, per in K7_SHAPES:
+        planes = [torch.randint(-2**31, 2**31 - 1, (ROWS, 32768), dtype=torch.int32, device=dev)
+                  for _ in range(jobs)]
+        queues = [k7_codes(scatter, rng, ROWS, per) for _ in range(jobs)]
+        folded = scatter.fold_many(queues)
+        n = len(folded[0])
+        buf = ds.upload(ds.pack(planes, *folded), dev)
+        k_ms = time_cuda(lambda: ds.launch_many(buf, jobs, n))
+        k_dev = device_ms(lambda: ds.launch_many(buf, jobs, n), "delta_scatter_kernel")
+        plain_ms = time_cuda(lambda: ds.plain_delta_scatter_many(planes, *folded),
+                             runs=3, per_run=1, warmup=1)
+        host: dict = {"fold": [], "check_upload": [], "apply_many": []}
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f = scatter.fold_many(queues)
+            t1 = time.perf_counter()
+            ds.upload(ds.pack(planes, *f), dev)
+            t2 = time.perf_counter()
+            scatter.apply_many(list(zip(planes, queues)))
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            host["fold"].append((t1 - t0) * 1e3)
+            host["check_upload"].append((t2 - t1) * 1e3)
+            host["apply_many"].append((t3 - t2) * 1e3)
+        host = {k: statistics.median(v) for k, v in host.items()}
+        bound_ms, bound_by = k7_bound_ms(jobs, n, hbm)
+        share = bound_ms / k_dev if k_dev else None
+        out[(jobs, per)] = {
+            "jobs": jobs, "records": n, "ms": k_ms, "device_ms": k_dev, "plain_ms": plain_ms,
+            "noop_ms": noop_ms, "noop_device_ms": noop_dev, "bound_ms": bound_ms,
+            "bound_by": bound_by, "share_of_bound": share, "host_fold_ms": host["fold"],
+            "host_check_upload_ms": host["check_upload"], "apply_many_ms": host["apply_many"]}
+        log(f"phase 4: delta_scatter {jobs} jobs x {per} records ({n} after the fold) into "
+            f"[{ROWS}, 32768] mirrors: kernel {k_ms:.4f} ms back to back, {k_dev} ms device "
+            f"time per launch (empty kernel {noop_dev} ms, empty launch {noop_ms:.4f} ms); "
+            f"bound {bound_ms:.6f} ms by {bound_by}"
+            + (f", {share:.1%} of it" if share else "")
+            + f"; plain {plain_ms:.4f} ms; apply_many on the host: fold {host['fold']:.3f} ms, "
+            f"check + upload {host['check_upload']:.3f} ms; the whole call with its launch "
+            f"and a sync {host['apply_many']:.3f} ms")
+        del planes, buf
+    # The two costs the queue limit weighs: a re-upload, fit as a fixed
+    # cost plus bytes over a rate from mirrors of 8 and 64 rows; one
+    # record of apply_many at the largest batch, in bytes of that rate.
+    took = {}
+    for rows in (8, 64):
+        plane = rng.integers(0, 2**32, size=(rows, 32768), dtype=np.uint32)
+        times = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = bp.to_device(plane, dev)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del m
+        took[rows] = statistics.median(times)
+    rate = 56 * 32768 * 4 / (took[64] - took[8])
+    fixed_s = took[8] - 8 * 32768 * 4 / rate
+    big = out[K7_SHAPES[1]]
+    per_record_s = big["apply_many_ms"] / 1e3 / big["records"]
+    limits = {r: scatter.pending_limit(r) for r in (8, 64, 1 << 16)}
+    out["limit"] = {"upload_s_8_rows": took[8], "upload_s_64_rows": took[64],
+                    "upload_bytes_per_s": rate, "upload_fixed_bytes": fixed_s * rate,
+                    "apply_many_s_per_record": per_record_s,
+                    "entry_cost_bytes": per_record_s * rate,
+                    "in_use": {"ENTRY_COST_BYTES": scatter.ENTRY_COST_BYTES,
+                               "UPLOAD_FIXED_BYTES": scatter.UPLOAD_FIXED_BYTES,
+                               "pending_limit": limits}}
+    log(f"phase 4: a mirror re-upload takes {took[8] * 1e3:.4f} ms at 8 rows, "
+        f"{took[64] * 1e3:.4f} ms at 64 rows: {rate / 1e9:.3f} GB/s after a fixed "
+        f"{fixed_s * 1e6:.1f} us ({fixed_s * rate:.0f} bytes); apply_many takes "
+        f"{per_record_s * 1e9:.1f} ns a record at {big['jobs']} jobs ({per_record_s * rate:.0f} "
+        f"bytes); in use: ENTRY_COST_BYTES {scatter.ENTRY_COST_BYTES}, UPLOAD_FIXED_BYTES "
+        f"{scatter.UPLOAD_FIXED_BYTES}, pending_limit {limits}")
     return out
 
 
@@ -1264,15 +1426,22 @@ def cluster_and_check(fp, ds, br, sp, scatter, convert, Server, InternalClient, 
             client.import_bits("i", "f", rows, cols)
             torch.cuda.synchronize()
             import_s = time.perf_counter() - t0
-            k7_import = ds.launches
+            k7_import, k1_import = ds.launches, fp.launches
             fb_import = scatter.counters()["fallbackInvalidations"] - fb0
-            if k7_import != touched or fb_import != 0:
+            pending = sum(1 for srv in nodes for sl in range(N_SLICES)
+                          if (fr := srv.holder.fragment("i", "f", "standard", sl)) is not None
+                          and fr._pending_n)
+            # The write path stays off the card: the bits queue on the host.
+            if k7_import or k1_import or fb_import or pending != touched:
                 raise AssertionError(
-                    f"import 1: delta_scatter launches {k7_import} (want {touched}), "
-                    f"fallbacks {fb_import} (want 0)")
+                    f"import 1: delta_scatter launches {k7_import}, fused_popcount launches "
+                    f"{k1_import}, fallbacks {fb_import} (want 0, 0, 0); {pending} fragment "
+                    f"replicas with queued bits (want {touched})")
+            out["import_s"] = import_s
             log(f"phase 6: import of {IMPORT_BITS} bits ({IMPORT_BITS / N_SLICES:.0f} per "
                 f"slice) over protobuf /import in {import_s:.3f}s: delta_scatter launches "
-                f"{k7_import} (one per fragment replica), fallbacks {fb_import}")
+                f"{k7_import}, fused_popcount launches {k1_import}, fallbacks {fb_import}; "
+                f"{pending} fragment replicas queued their bits")
 
             def pc(x):
                 return int(np.bitwise_count(x).sum())
@@ -1326,12 +1495,22 @@ def cluster_and_check(fp, ds, br, sp, scatter, convert, Server, InternalClient, 
                 return p50
 
             hosts = [srv.host for srv in nodes]
+            # The first read after the import: each node's leg applies the
+            # queues of the fragments it reads in one K7 launch.
+            legs = len(nodes[0].executor._slices_by_node(cluster.nodes, "i",
+                                                          list(range(N_SLICES))))
+            t0 = time.perf_counter()
+            got = ask(h0, "json", counts[0][1])
+            out["first_count_ms"] = (time.perf_counter() - t0) * 1e3
+            if got != counts[0][2] or not 1 <= ds.launches <= legs:
+                raise AssertionError(f"first Count after import 1: {got} (want {counts[0][2]}), "
+                                     f"delta_scatter launches {ds.launches} (want 1..{legs})")
+            log(f"phase 6: the first Count after the import {out['first_count_ms']:.3f} ms: "
+                f"delta_scatter launches {ds.launches} (at most one per node leg: {legs} legs)")
             k4_before = sp.launches
             latencies = run(counts + topns, hosts, CLUSTER_REPS)
             # TopN(src) from any node: the two rounds of the map/reduce, each
             # leg one K4 launch over the node's fragments.
-            legs = len(nodes[0].executor._slices_by_node(cluster.nodes, "i",
-                                                          list(range(N_SLICES))))
             want_k4 = 3 * 2 * CLUSTER_REPS * 2 * legs
             if sp.launches - k4_before != want_k4:
                 raise AssertionError(f"phase 6 TopN(src): score_planes launches "
@@ -1547,7 +1726,7 @@ def bsi_and_check(fp, ds, br, scatter, convert, InternalClient, srv, f_planes, r
     slices (~4.13 GB of planes), every comparison, composed counts and
     Sum/Min/Max with and without a filter against the numpy oracle; then
     an /import-value over every slice (the K7 path with and-not entries)
-    and one past IMPORT_SCATTER_MAX on one slice (the counted fallback),
+    and one past its queue's limit on one slice (the counted fallback),
     the queries asked again after each."""
     import torch
 
@@ -1634,41 +1813,68 @@ def bsi_and_check(fp, ds, br, scatter, convert, InternalClient, srv, f_planes, r
     for name, ms in out["latencies_ms"].items():
         log(f"phase 7: {name} p50 {ms:.3f} ms over {REPS} requests")
 
-    # K7 with clears: a spy on the plan's scatter counts launches whose
-    # folded entries carry and-not masks.
-    real_apply = plan_mod.scatter_apply
-    andnot = [0]
+    # K7 with clears: a spy on the plan's batched scatter counts, per
+    # launch, the jobs whose folded entries carry and-not masks.
+    real_apply = plan_mod.scatter_apply_many
+    andnot_jobs: list[int] = []
 
-    def spy(plane, slots, words, or_m, andnot_m):
-        andnot[0] += bool(np.asarray(andnot_m).any())
-        return real_apply(plane, slots, words, or_m, andnot_m)
+    def spy(planes, job, word, or_m, andnot_m):
+        andnot_jobs.append(len(np.unique(np.asarray(job)[np.asarray(andnot_m) != 0])))
+        return real_apply(planes, job, word, or_m, andnot_m)
 
     client = InternalClient(h, timeout=600)
-    plan_mod.scatter_apply = spy
+    plan_mod.scatter_apply_many = spy
     try:
         cols = rng.choice(N_SLICES << 20, BSI_IMPORT_VALUES, replace=False)
         vals = rng.integers(-hi, hi + 1, BSI_IMPORT_VALUES)
         vals[:256] = 0  # zero stores sign 0, over whatever was there
-        ds.launches = 0
+        ds.launches = fp.launches = 0
         fb0 = scatter.counters()["fallbackInvalidations"]
         t0 = time.perf_counter()
         client.import_values("i", "n", "v", cols, vals)
         torch.cuda.synchronize()
         import_s = time.perf_counter() - t0
-        k7, k7_andnot = ds.launches, andnot[0]
         fb = scatter.counters()["fallbackInvalidations"] - fb0
-        if k7 != N_SLICES or k7_andnot != N_SLICES or fb:
-            raise AssertionError(f"/import-value 1: delta_scatter launches {k7} (with and-not "
-                                 f"{k7_andnot}), fallbacks {fb}; want {N_SLICES}, {N_SLICES}, 0")
+        frags = [srv.holder.fragment("i", "n", "field_v", sl) for sl in range(N_SLICES)]
+        pending = sum(1 for fr in frags if fr._pending_n)
+        # The write path stays off the card: every slice's bits queue.
+        if ds.launches or fp.launches or fb or pending != N_SLICES:
+            raise AssertionError(f"/import-value 1: delta_scatter launches {ds.launches}, "
+                                 f"fused_popcount launches {fp.launches}, fallbacks {fb} (want "
+                                 f"0, 0, 0); {pending} fragments queued (want {N_SLICES})")
         oracle.set_values(cols, vals)
         log(f"phase 7: /import-value of {BSI_IMPORT_VALUES} values "
             f"(~{BSI_IMPORT_VALUES * (2 + K8_DEPTH) // N_SLICES} entries per fragment) in "
-            f"{import_s:.3f}s: delta_scatter launches {k7}, {k7_andnot} of them with and-not "
-            f"entries, fallbacks {fb}")
+            f"{import_s:.3f}s: no delta_scatter or fused_popcount launch, fallbacks {fb}; "
+            f"{pending} fragments queued their bits")
+        # The first read after it applies all of them in one launch.
+        first = queries()[0]
+        br.launches = dict.fromkeys(br.KERNELS, 0)
+        t0 = time.perf_counter()
+        status, body = http(h, "POST", "/index/i/query", first[1].encode())
+        out["first_count_ms"] = (time.perf_counter() - t0) * 1e3
+        k7, k7_andnot = ds.launches, sum(andnot_jobs)
+        if status != 200 or body["results"] != [first[2]]:
+            raise AssertionError(f"phase 7 first read after import 1: {status} {body}")
+        if k7 != 1 or andnot_jobs != [N_SLICES] or any(fr._pending_n for fr in frags):
+            raise AssertionError(f"phase 7 first read after import 1: delta_scatter launches "
+                                 f"{k7} (want 1), jobs with and-not entries {andnot_jobs} "
+                                 f"(want [{N_SLICES}])")
+        for k, n in br.launches.items():
+            out["launches"][k] += n
+        log(f"phase 7: the first Count after the import {out['first_count_ms']:.3f} ms: "
+            f"delta_scatter launches {k7}, one batch of {N_SLICES} jobs, {k7_andnot} of them "
+            "with and-not entries")
         ask_all("after import 1")
+        if ds.launches != k7:
+            raise AssertionError(f"phase 7: delta_scatter launches {ds.launches - k7} after "
+                                 "the first read (want 0)")
 
-        cols2 = rng.choice(1 << 20, BSI_FALLBACK_VALUES, replace=False)  # all in slice 0
-        vals2 = rng.integers(-hi, hi + 1, BSI_FALLBACK_VALUES)
+        # One slice past its queue's limit: the mirror is dropped instead.
+        mirror_rows = frags[0]._mirror.shape[0]
+        n2 = scatter.pending_limit(mirror_rows) // (2 + K8_DEPTH) + 1
+        cols2 = rng.choice(1 << 20, n2, replace=False)  # all in slice 0
+        vals2 = rng.integers(-hi, hi + 1, n2)
         vals2[:2] = -hi, hi
         ds.launches = 0
         fb0 = scatter.counters()["fallbackInvalidations"]
@@ -1679,12 +1885,12 @@ def bsi_and_check(fp, ds, br, scatter, convert, InternalClient, srv, f_planes, r
             raise AssertionError(f"/import-value 2: fallbacks {fb} (want 1), delta_scatter "
                                  f"launches {ds.launches} (want 0)")
         oracle.set_values(cols2, vals2)
-        log(f"phase 7: /import-value of {BSI_FALLBACK_VALUES} values into slice 0 "
-            f"({BSI_FALLBACK_VALUES * (2 + K8_DEPTH)} entries > IMPORT_SCATTER_MAX): "
-            f"fallbacks {fb}, no delta_scatter launch")
+        log(f"phase 7: /import-value of {n2} values into slice 0 ({n2 * (2 + K8_DEPTH)} "
+            f"entries > scatter.pending_limit({mirror_rows}) = "
+            f"{scatter.pending_limit(mirror_rows)}): fallbacks {fb}, no delta_scatter launch")
         ask_all("after import 2")
     finally:
-        plan_mod.scatter_apply = real_apply
+        plan_mod.scatter_apply_many = real_apply
     out["k7_launches"] = k7
     out["import_s"] = import_s
     return out
@@ -2147,6 +2353,96 @@ def tutorials_and_check(ac, ep, fp, sp, bp, InternalClient, srv, rng) -> dict:
     return out
 
 
+def recovery_and_check(Server, ds) -> dict:
+    """Phase 11, recovery on the card: a port node writes three bits and
+    closes; a JAX node's WAL segment for the fragment is written with
+    the port's own encoder (its first ops those of the op-log, then two
+    acknowledged writes the op-log lacks); the op-log's last record is
+    torn (3 bytes cut); the node reopens on the card and must answer the
+    oracle — the op-log's whole records plus the WAL's later ops —
+    count one repair and two replayed ops, remove the segment, apply a
+    later write with one K7 launch, and answer the same after a second
+    reopen (no op replayed twice)."""
+    from pilosa_tpu_torch.core import fragment as fragment_mod
+    from pilosa_tpu_torch.ingest import wal
+    from pilosa_tpu_torch.ops import roaring
+
+    sw = 1 << 20
+    with tempfile.TemporaryDirectory(prefix="pilosa-torch-recovery-") as data_dir:
+        srv = Server(data_dir, host="127.0.0.1:0", device="cuda")
+        srv.open()
+        try:
+            for path in ("/index/r", "/index/r/frame/f"):
+                status, body = http(srv.host, "POST", path)
+                if status != 200:
+                    raise AssertionError(f"POST {path}: {status} {body}")
+            for c in (3, 4, 5):
+                status, body = http(srv.host, "POST", "/index/r/query",
+                                    f"SetBit(frame=f, rowID=1, columnID={c})".encode())
+                if status != 200 or body["results"] != [True]:
+                    raise AssertionError(f"phase 11 SetBit {c}: {status} {body}")
+            path = srv.holder.fragment("r", "f", "standard", 0).path
+        finally:
+            srv.close()
+        if os.path.getsize(path) != 8 + 3 * roaring.OP_SIZE:
+            raise AssertionError(f"phase 11: fragment file of {os.path.getsize(path)} bytes")
+        ops = [roaring.encode_op(roaring.OP_ADD, p) for p in (sw + 3, sw + 4, sw + 9, 2 * sw + 7)]
+        with open(wal.wal_path(path), "wb") as fh:
+            fh.write(wal.encode_header(0, 8) + wal.encode_frame(b"".join(ops[:2]), 2, 2)
+                     + wal.encode_frame(b"".join(ops[2:]), 2, 4))
+        with open(path, "r+b") as fh:
+            fh.truncate(8 + 3 * roaring.OP_SIZE - 3)
+        queries = [
+            ("count_row1", "Count(Bitmap(frame=f, rowID=1))", 3),
+            ("count_row2", "Count(Bitmap(frame=f, rowID=2))", 1),
+            ("bitmap_row1", "Bitmap(frame=f, rowID=1)", {"attrs": {}, "bits": [3, 4, 9]}),
+            ("count_union", "Count(Union(Bitmap(frame=f, rowID=1), Bitmap(frame=f, rowID=2)))",
+             4),
+        ]
+
+        def check(stage: str, srv) -> None:
+            for name, pql, want in queries:
+                status, body = http(srv.host, "POST", "/index/r/query", pql.encode())
+                if status != 200 or body["results"] != [want]:
+                    raise AssertionError(f"phase 11 {stage} {name}: {status} {body} != {want}")
+
+        c0 = fragment_mod.counters()
+        srv = Server(data_dir, host="127.0.0.1:0", device="cuda")
+        srv.open()
+        try:
+            c1 = fragment_mod.counters()
+            repaired = c1["oplogRepair"] - c0["oplogRepair"]
+            replayed = c1["walReplayedOps"] - c0["walReplayedOps"]
+            if (repaired, replayed) != (1, 2) or os.path.exists(wal.wal_path(path)):
+                raise AssertionError(f"phase 11: repairs {repaired}, replayed ops {replayed} "
+                                     "(want 1, 2), or the segment is left behind")
+            check("reopened", srv)
+            ds.launches = 0
+            status, body = http(srv.host, "POST", "/index/r/query",
+                                b"SetBit(frame=f, rowID=2, columnID=11)")
+            if status != 200 or body["results"] != [True]:
+                raise AssertionError(f"phase 11 SetBit after recovery: {status} {body}")
+            queries[1] = ("count_row2", queries[1][1], 2)
+            queries[3] = ("count_union", queries[3][1], 5)
+            check("after a write", srv)
+            if ds.launches != 1:
+                raise AssertionError(f"phase 11: delta_scatter launches {ds.launches} (want 1)")
+        finally:
+            srv.close()
+        srv = Server(data_dir, host="127.0.0.1:0", device="cuda")
+        srv.open()
+        try:
+            check("reopened again", srv)
+            if fragment_mod.counters()["walReplayedOps"] != c1["walReplayedOps"]:
+                raise AssertionError("phase 11: ops replayed a second time")
+        finally:
+            srv.close()
+    log("phase 11: a torn op-log tail repaired and 2 WAL ops replayed on the card; answers == "
+        "oracle after reopening, after a write (1 delta_scatter launch) and after a second "
+        "reopen (nothing replayed twice)")
+    return {"repaired": repaired, "replayed": replayed, "k7_launches": 1}
+
+
 def main() -> int:
     import torch
 
@@ -2203,7 +2499,7 @@ def main() -> int:
         f"(bound {bound_ms:.4f} ms by {bound_by}, {bound_ms / k_ms:.1%} of it), "
         f"plain {plain_ms:.4f} ms; device time per launch from the profiler {k_dev} ms")
     del a, b
-    k7_times = time_k7(ds, rng7, hbm)
+    k7_times = time_k7(ds, scatter, bp, rng7, hbm)
     k8_times = time_k8(br, bsi, hbm)
     k4_times = time_k4(sp, fp, hbm)
     k6_times = time_k6(ep, bp, rng56, hbm)
@@ -2235,8 +2531,9 @@ def main() -> int:
                                             np.random.default_rng(SEED + 10))
         finally:
             srv.close()
+    recovery_and_check(Server, ds)
 
-    k7 = k7_times[K7_TIMED_NS[0]]  # ~1,100 entries: phase 6's import per fragment
+    k7 = k7_times[K7_SHAPES[1]]  # every slice's queue in one launch, as phase 7 flushes
     kernels = [
         {
             "name": fp.NAME,
@@ -2276,9 +2573,12 @@ def main() -> int:
             "bound_by": k7["bound_by"],
             "library_ms": None,
             "checked": k7_err == 0.0,
-            "entries": K7_TIMED_NS[0],
+            "shape": [k7["jobs"], k7["records"]],
             "empty_launch_ms": k7["noop_ms"],
             "empty_kernel_device_ms": k7["noop_device_ms"],
+            "shapes": {f"{j}x{r}": {k: v for k, v in k7_times[(j, r)].items()
+                                    if not k.startswith("noop")} for j, r in K7_SHAPES},
+            "queue_limit": k7_times["limit"],
         },
     ]
     for kernel in br.KERNELS:

@@ -10,24 +10,29 @@ fragment.go).  Here, as in ``pilosa_tpu.core.fragment``:
   (cookie 12346 + op-log), so data directories interoperate with the JAX
   package and the reference's tools.
 * **Compute** runs on a device mirror of the plane: an int32 bit-view
-  tensor of the same shape on the fragment's device.  Point writes and
-  imports of at most ``IMPORT_SCATTER_MAX`` bits queue their deltas
-  (``_queue_device_update`` / ``_queue_import_updates_locked``); the
-  next read, or ``apply_pending_scatter``, folds the queue into ONE
-  launch of the delta-scatter kernel K7 on the resident mirror
-  (``ingest/scatter.py``).  Structural changes — rows past the padded
-  plane, larger imports, a queue past ``_MAX_DEVICE_PENDING`` — drop
-  the mirror for a full re-upload, each counted by
-  ``scatter.note_fallback`` (the JAX package's designed behaviour,
-  ``pilosa_tpu/core/fragment.py:1602-1682``).
+  tensor of the same shape on the fragment's device, uploaded by the
+  first read.  Writes never touch the device: point writes and imports
+  queue the plane bits they change (``_queue_device_update`` /
+  ``_queue_import_updates_locked``), and row counts come from the host
+  plane (``_plane_write``).  A read applies the queues of every
+  fragment it reads with ONE launch of the delta-scatter kernel K7 per
+  device (:func:`apply_pending_many`, ``ingest/scatter.py``); a read of
+  one fragment, or ``apply_pending_scatter``, applies its queue alone.
+  Structural changes — rows past the padded plane, a queue past
+  ``scatter.pending_limit`` of its mirror — drop the mirror for a full
+  re-upload, each counted by ``scatter.note_fallback`` (the JAX
+  package's designed behaviour, ``pilosa_tpu/core/fragment.py:
+  1602-1682``).
 * **The mirror is updated in place**, where the JAX package built a new
   array per apply.  On the card a reader still sees each fragment old
-  or new, never half-applied: a queue is applied by one kernel launch,
-  enqueued while the fragment lock is held, and every reader's copy of
-  mirror rows is a later or an earlier kernel on the same stream (the
-  server's threads share PyTorch's default stream).  On the CPU (the
-  tests' device) the plain version runs under the fragment lock, and a
-  reader copying rows outside it in another thread may race it.
+  or new, never half-applied, and sees every write acknowledged before
+  it began: a queue is taken and its launch enqueued while the
+  fragment's lock is held (a batch holds every lock of the batch,
+  taken in one global order), and every reader's copy of mirror rows is
+  a later or an earlier kernel on the same stream (the server's threads
+  share PyTorch's default stream).  On the CPU (the tests' device) the
+  plain version runs under the locks, and a reader copying rows outside
+  them in another thread may race it.
 * **Writes** go to the host plane and append 13-byte ops to the file;
   after ``max_op_n`` ops the fragment snapshots (full roaring
   serialization to ``<path>.snapshotting`` renamed over the data file,
@@ -56,15 +61,25 @@ fragment.go).  Here, as in ``pilosa_tpu.core.fragment``:
   counts, the ranked cache and the snapshot bytes do not depend on the
   tier a row sits in.
 
-The JAX package's WAL, block checksums, residency pool and prefetch are
-not ported yet.
+* **Recovery on open**, as in the JAX package: an op-log whose tail was
+  torn by a crash mid-append is cut back to its last whole record (only
+  inside the last flush window, and only once the prefix is shown to
+  decode); a JAX node's WAL segment (``<path>.wal``, ``ingest/wal.py``)
+  has its ops past the op-log replayed (``ingest/recovery.py``), then
+  the fragment snapshots and the segment is removed, so that no op is
+  replayed twice over later writes.
+
+The JAX package's WAL writer, block checksums, residency pool and
+prefetch are not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import fcntl
 import json
 import os
+import sys
 import threading
 from collections import OrderedDict
 from collections.abc import Sequence
@@ -78,7 +93,7 @@ from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch.core import cache as cache_mod
 from pilosa_tpu_torch.core.bitmap import RowBitmap
 from pilosa_tpu_torch.core.cache import Pair
-from pilosa_tpu_torch.ingest import scatter
+from pilosa_tpu_torch.ingest import recovery, scatter, wal
 from pilosa_tpu_torch.ops import bitplane as bp
 from pilosa_tpu_torch.ops import expand_payload, roaring, score_planes
 
@@ -102,6 +117,26 @@ MAX_ROW_ID = 1 << 44
 
 class FragmentError(RuntimeError):
     pass
+
+
+_counters_mu = threading.Lock()
+_counters = {"oplogRepair": 0, "walReplayedOps": 0}
+
+
+def _count(name: str, n: int = 1) -> None:
+    with _counters_mu:
+        _counters[name] += n
+
+
+def counters() -> dict:
+    """Recovery counts of this process: op-logs cut back to their last
+    whole record, and WAL ops replayed."""
+    with _counters_mu:
+        return dict(_counters)
+
+
+def _log(msg: str) -> None:
+    print(f"fragment: {msg}", file=sys.stderr)
 
 
 @dataclass
@@ -287,11 +322,14 @@ class Fragment:
         # int32 bit-view mirror of _plane on self.device; None = stale
         # (rebuilt by the next device_plane()).
         self._mirror: torch.Tensor | None = None
-        # Queued (slot, word, mask, op) deltas not yet in the mirror, as
-        # int64 [k, 4] chunks, and their total count.
+        # Plane bits changed since the mirror was last brought up to
+        # date, as int64 chunks of scatter.codes, and their total count.
         self._pending: list[np.ndarray] = []
         self._pending_n = 0
         self._file = None
+        # Set while a WAL replay writes: ops stay out of the op-log and
+        # the auto-snapshot waits for the replay's end.
+        self._replaying = False
         self.cache = cache_mod.new_cache(cache_type, cache_size)
 
     # ------------------------------------------------------------------
@@ -313,6 +351,7 @@ class Fragment:
             try:
                 self._open_storage()
                 self._open_cache()
+                self._recover_wal()
             except BaseException:
                 fcntl.flock(self._file.fileno(), fcntl.LOCK_UN)
                 self._file.close()
@@ -328,9 +367,69 @@ class Fragment:
             self._file.write(roaring.encode({}))
             self._file.flush()
             return
-        words, arrays, op_n = roaring.decode_tiered(data)
+        try:
+            words, arrays, op_n = roaring.decode_tiered(data)
+        except roaring.CorruptError as e:
+            words, arrays, op_n = self._repair_torn_tail(data, e)
         self._load_tiered(words, arrays)
         self._op_n = op_n
+
+    def _repair_torn_tail(self, data: bytes, err: roaring.CorruptError):
+        """Cut an op-log torn by a crash mid-append back to its last whole
+        record (JAX ``core/fragment.py:474-530``) and return the decoded
+        prefix; re-raise ``err`` for damage that is not such a tail.  The
+        window is the JAX package's group-commit flush plus two records:
+        a data file a JAX node wrote may end in that much.  The prefix
+        must decode before the file is touched."""
+        try:
+            torn = roaring.scan_torn_tail(data, max_tail=roaring.MAX_TORN_TAIL)
+        except roaring.CorruptError:
+            torn = None
+        if torn is None:
+            raise err
+        valid_end, reason = torn
+        try:
+            decoded = roaring.decode_tiered(data[:valid_end])
+        except roaring.CorruptError:
+            raise err from None
+        self._file.truncate(valid_end)
+        self._file.flush()
+        os.fsync(self._file.fileno())
+        _count("oplogRepair")
+        _log(f"{self.path}: repaired torn op-log tail ({reason}); dropped "
+             f"{len(data) - valid_end} uncommitted bytes")
+        return decoded
+
+    def _recover_wal(self) -> None:
+        """Replay a JAX node's WAL segment (the reader branches of JAX
+        ``IngestManager.attach``, ``ingest/wal.py:455-505``): a segment
+        cut against another snapshot (stale) or whose ops do not extend
+        the op-log (diverged) is discarded; otherwise its ops past the
+        op-log are replayed and the fragment snapshots.  The segment is
+        then removed: the port logs no ops to it, so a segment left
+        behind would be replayed again after the snapshot reset the op
+        count, over whatever was written since.  A JAX node opening the
+        directory later starts a fresh segment."""
+        path = wal.wal_path(self.path)
+        seg = wal.load_segment(path)
+        if seg is None:
+            return
+        snap_size, data_ops = wal._data_state(self)
+        if seg.snap_size != snap_size:
+            _log(f"discarding stale wal segment {path} "
+                 f"(snap_size {seg.snap_size} != {snap_size})")
+        elif not b"".join(p for _, _, p in seg.frames).startswith(data_ops):
+            _log(f"discarding diverged wal segment {path} (data op-log is not a prefix "
+                 f"of the logged ops; {len(seg.frames)} frames forfeited)")
+        else:
+            replayed = recovery.replay(self, seg)
+            if replayed:
+                _count("walReplayedOps", replayed)
+                self.snapshot()
+                _log(f"{self.path}: replayed {replayed} wal ops"
+                     + (f" (torn tail: {seg.problem})" if seg.torn else ""))
+        os.remove(path)
+        wal._fsync_dir(path)
 
     def _load_tiered(self, words: dict[int, np.ndarray], arrays: dict[int, np.ndarray]) -> None:
         """Fill both tiers from decoded containers (JAX ``_load_tiered``,
@@ -487,8 +586,8 @@ class Fragment:
     # device mirror maintenance (JAX: fragment.py:1263,1602-1682)
     # ------------------------------------------------------------------
 
-    # Above this many queued deltas a full re-upload beats the scatter.
-    _MAX_DEVICE_PENDING = 8192
+    # A queue's cap, under the mirror-size rule of scatter.pending_limit.
+    _MAX_DEVICE_PENDING = scatter.MAX_PENDING
 
     def _invalidate_device(self) -> None:
         """Drop the mirror and its queued deltas: the next read uploads
@@ -497,59 +596,45 @@ class Fragment:
         self._pending.clear()
         self._pending_n = 0
 
-    def _queue_device_update(self, slot: int, offset: int, op: int) -> None:
-        """Queue one point write (op 1 set, 0 clear) for the mirror; a
-        full queue degrades to a re-upload on the next read."""
-        if self._mirror is None:
+    def _queue_locked(self, chunks: list[np.ndarray]) -> None:
+        """Queue code chunks for the resident mirror; a queue that would
+        pass its limit drops the mirror instead (the next read uploads
+        the host plane, which already holds every write).  Without a
+        mirror there is nothing to queue."""
+        n = sum(len(c) for c in chunks)
+        if self._mirror is None or n == 0:
             return
-        if self._pending_n >= self._MAX_DEVICE_PENDING:
+        limit = min(self._MAX_DEVICE_PENDING, scatter.pending_limit(self._mirror.shape[0]))
+        if self._pending_n + n > limit:
             scatter.note_fallback()
             self._invalidate_device()
             return
-        word, shift = divmod(offset, bp.WORD_BITS)
-        self._pending.append(np.array([[slot, word, 1 << shift, op]], dtype=np.int64))
-        self._pending_n += 1
+        self._pending.extend(c for c in chunks if len(c))
+        self._pending_n += n
+
+    def _queue_device_update(self, slot: int, offset: int, op: int) -> None:
+        """Queue one point write's bit (op 1 set, 0 clear)."""
+        self._queue_locked([scatter.codes([slot], [offset], op)])
 
     def _queue_import_updates_locked(
         self, set_slots, set_offs, clr_slots=None, clr_offs=None
     ) -> None:
-        """Queue an import's plane bits — set (op 1) and cleared (op 0) —
-        as deltas when the import is small enough; otherwise drop the
-        mirror (one re-upload beats thousands of folded entries).  An
-        import that touched no plane row leaves the mirror as it is."""
-        parts = [(a, b, op) for a, b, op in ((set_slots, set_offs, 1), (clr_slots, clr_offs, 0))
-                 if a is not None and len(a)]
-        n = sum(len(a) for a, _, _ in parts)
-        if n == 0:
-            return
-        if (
-            self._mirror is None
-            or n > scatter.IMPORT_SCATTER_MAX
-            or self._pending_n + n > self._MAX_DEVICE_PENDING
-        ):
-            if self._mirror is not None:
-                scatter.note_fallback()
-            self._invalidate_device()
-            return
-        for slots, offsets, op in parts:
-            words, shifts = np.divmod(np.asarray(offsets, dtype=np.int64), bp.WORD_BITS)
-            chunk = np.empty((len(slots), 4), dtype=np.int64)
-            chunk[:, 0] = slots
-            chunk[:, 1] = words
-            chunk[:, 2] = np.left_shift(1, shifts)
-            chunk[:, 3] = op
-            self._pending.append(chunk)
-        self._pending_n += n
+        """Queue an import's plane bits, set (op 1) and cleared (op 0)."""
+        self._queue_locked([
+            scatter.codes(slots, offs, op)
+            for slots, offs, op in ((set_slots, set_offs, 1), (clr_slots, clr_offs, 0))
+            if slots is not None
+        ])
 
     def apply_pending_scatter(self) -> bool:
-        """Fold the queued deltas into the resident mirror NOW, as one
+        """Apply this fragment's queue to its resident mirror NOW, as one
         delta-scatter launch, instead of at the next read.  Returns True
         when a launch was made."""
         with self._mu:
             if self._mirror is None or not self._pending_n:
                 return False
-            scatter.apply(self._mirror, np.concatenate(self._pending))
-            self._pending.clear()
+            scatter.apply_many([(self._mirror, self._pending)])
+            self._pending = []
             self._pending_n = 0
             return True
 
@@ -559,8 +644,8 @@ class Fragment:
 
     def device_plane(self) -> torch.Tensor:
         """The int32 bit-view mirror of the plane on the fragment's
-        device: queued deltas applied first (one K7 launch), uploaded
-        when stale."""
+        device: its queue applied first (one K7 launch of its own, where
+        no batched flush took it), uploaded when stale."""
         with self._mu:
             if self._mirror is None:
                 self._mirror = bp.to_device(self._plane, self.device)
@@ -763,11 +848,11 @@ class Fragment:
         n = self._count_of[row_id] = self._count_of.get(row_id, 0) + delta
         self.cache.add(row_id, n)
         self._op_n += 1
-        if self._op_n >= self.max_op_n:
+        if self._op_n >= self.max_op_n and not self._replaying:
             self.snapshot()
 
     def _append_op(self, typ: int, pos: int) -> None:
-        if self._file is not None:
+        if self._file is not None and not self._replaying:
             self._file.seek(0, os.SEEK_END)
             self._file.write(roaring.encode_op(typ, pos))
             self._file.flush()
@@ -781,10 +866,11 @@ class Fragment:
     ) -> None:
         """Bulk load (reference: fragment.go:936-1004; JAX
         ``core/fragment.py:1735``): plane rows take a vectorized scatter
-        (queued as mirror deltas, or the mirror dropped, see
-        ``_queue_import_updates_locked``) and are recounted through the
-        fused popcount kernel; sparse rows merge their sorted offsets;
-        then rows past PROMOTE_BITS move to the plane, and a snapshot.
+        on the host, their counts moved by the popcount change of the
+        words it wrote, and the bits are queued for the mirror (see
+        ``_queue_import_updates_locked``); sparse rows merge their sorted
+        offsets; then rows past PROMOTE_BITS move to the plane, and a
+        snapshot.  Nothing here touches the device.
 
         ``clear_row_ids``/``clear_column_ids`` clear bits in the same
         pass — the overwrite half of a BSI value import.  Clears never
@@ -816,7 +902,6 @@ class Fragment:
             slots = slot_table[np.searchsorted(uniq, rows)] if len(rows) else np.empty(0, np.int64)
             dm = slots >= 0
             set_slots, set_offs = slots[dm], offs[dm]
-            bp.np_set_bulk(self._plane, set_slots, set_offs)
             if not dm.all():
                 s_rows = rows[~dm]
                 s_offs = offs[~dm].astype(np.uint32)
@@ -847,7 +932,6 @@ class Fragment:
                 c_all_slots = c_table[np.searchsorted(c_uniq, c_rows)]
                 keep = c_all_slots >= 0
                 c_slots, c_offs = c_all_slots[keep], c_all[keep]
-                bp.np_clear_bulk(self._plane, c_slots, c_offs)
                 for r, slot in zip(c_uniq, c_table):
                     r = int(r)
                     if slot >= 0:
@@ -857,12 +941,13 @@ class Fragment:
                             self._sparse[r], c_all[c_rows == r].astype(np.uint32)
                         ).astype(np.uint32)
                         slot_of[r] = None
+            deltas = self._plane_write(set_slots, set_offs, c_slots, c_offs)
             self._queue_import_updates_locked(set_slots, set_offs, c_slots, c_offs)
             for r, slot in slot_of.items():
                 if slot is None:
                     self._payload_cache.pop(r, None)
                     self._sparse_dev.pop(r, None)
-            self._recount(slot_of)
+            self._recount(slot_of, deltas)
             for r in slot_of:
                 self._maybe_promote(r)
             self.snapshot()
@@ -882,9 +967,8 @@ class Fragment:
         ``words[i]``, uint32 [n, 32768]) and ``sparse`` ({row id: sorted
         in-slice offsets}, the JAX package's sparse tier) — the densest
         rows up to the budget in the plane, the rest sparse, as on open;
-        empty rows stay absent.  Then the mirror uploads, the rank cache
-        is recounted through the fused popcount kernel and the fragment
-        snapshots."""
+        empty rows stay absent.  Then the rank cache is recounted from the
+        host, the mirror uploads and the fragment snapshots."""
         words = np.asarray(words, dtype=np.uint32).reshape(-1, bp.WORDS_PER_SLICE)
         row_ids = np.asarray(row_ids, dtype=np.int64)
         if len(row_ids) != len(words):
@@ -917,18 +1001,44 @@ class Fragment:
             self._sparse_dev.clear()
             self.cache = cache_mod.new_cache(self.cache_type, self.cache_size)
             self._invalidate_device()
-            self._recount({**self._slot_of, **{r: None for r in self._sparse}})
+            self._recount({**self._slot_of, **{r: None for r in self._sparse}},
+                          {s: counts[r] for r, s in self._slot_of.items()})
+            self._mirror = bp.to_device(self._plane, self.device)
             self.snapshot()
 
-    def _recount(self, slot_of: dict[int, int | None]) -> None:
-        """Exact counts of ``slot_of``'s rows — plane rows (a slot) from
-        one row-popcount launch over the up-to-date mirror, sparse rows
-        (None) from their offsets; the rank cache follows."""
-        counts = None
-        if any(s is not None for s in slot_of.values()):
-            counts = bp.row_counts(self.device_plane()).cpu().numpy()
+    def _plane_write(self, set_slots, set_offs, clr_slots=None, clr_offs=None) -> dict:
+        """Set and clear plane bits (a bit is never in both lists) and
+        return ``{slot: change in the row's count}``, from the popcounts
+        of the words written, before and after: the cost is the bits'
+        words, not the rows'."""
+        parts = [(a, o) for a, o in ((set_slots, set_offs), (clr_slots, clr_offs))
+                 if a is not None and len(a)]
+        if not parts:
+            return {}
+        width = bp.WORDS_PER_SLICE
+        keys = np.unique(np.concatenate(
+            [np.asarray(a, np.int64) * width + np.asarray(o, np.int64) // bp.WORD_BITS
+             for a, o in parts]))
+        flat = self._plane.reshape(-1)
+        before = bp.np_popcounts(flat[keys])
+        if set_slots is not None and len(set_slots):
+            bp.np_set_bulk(self._plane, set_slots, set_offs)
+        if clr_slots is not None and len(clr_slots):
+            bp.np_clear_bulk(self._plane, clr_slots, clr_offs)
+        delta = bp.np_popcounts(flat[keys]) - before
+        slots, inv = np.unique(keys // width, return_inverse=True)
+        sums = np.zeros(len(slots), np.int64)
+        np.add.at(sums, inv, delta)
+        return dict(zip(slots.tolist(), sums.tolist()))
+
+    def _recount(self, slot_of: dict[int, int | None], deltas: dict) -> None:
+        """Exact counts of ``slot_of``'s rows from the host — a plane row
+        (a slot) moves by ``deltas[slot]``, a sparse row (None) counts
+        its offsets — and the rank cache follows.  Nothing here reads
+        the device."""
         for r, s in slot_of.items():
-            self._count_of[r] = len(self._sparse[r]) if s is None else int(counts[s])
+            self._count_of[r] = (len(self._sparse[r]) if s is None
+                                 else self._count_of.get(r, 0) + deltas.get(s, 0))
         self.cache.bulk_update((r, self._count_of[r]) for r in slot_of)
         self.cache.invalidate()
         self.cache.recalculate()
@@ -1250,3 +1360,39 @@ class Fragment:
             f"Fragment({self.index}/{self.frame}/{self.view}/{self.slice}, "
             f"rows={len(self._slot_of)}+{len(self._sparse)}, device={self.device})"
         )
+
+
+def _lock_order(frag: Fragment) -> tuple:
+    return (frag.index, frag.frame, frag.view, frag.slice, frag.path)
+
+
+def apply_pending_many(frags) -> int:
+    """Bring the mirrors of ``frags`` (None entries and repeats allowed)
+    up to date with ONE delta-scatter launch per device, however many
+    of them have queues (``scatter.apply_many``); returns the fragments
+    applied.  A fragment without a mirror has no queue: its first read
+    uploads it.
+
+    Every fragment of the batch stays locked from the taking of its
+    queue until the launch is enqueued, so no reader can find a queue
+    empty while its deltas are not yet on the stream.  The locks are
+    taken in one global order, (index, frame, view, slice, path), so two
+    flushes cannot deadlock; a writer that queues meanwhile waits for
+    the lock and lands in the next batch.  The queue counts are first
+    read without the locks: a write acknowledged before this read began
+    has its count set already, and one that races it is applied by the
+    fragment's own next read."""
+    todo = sorted({id(f): f for f in frags if f is not None and f._pending_n}.values(),
+                  key=_lock_order)
+    if not todo:
+        return 0
+    with contextlib.ExitStack() as locks:
+        for f in todo:
+            locks.enter_context(f._mu)
+        live = [f for f in todo if f._mirror is not None and f._pending_n]
+        if live:
+            scatter.apply_many([(f._mirror, f._pending) for f in live])
+            for f in live:
+                f._pending = []
+                f._pending_n = 0
+    return len(live)

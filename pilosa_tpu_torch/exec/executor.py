@@ -9,7 +9,11 @@ without a src bitmap, ``ids``, ``threshold``, ``tanimotoThreshold``,
 attribute filters), with the same slice lists, the same two-phase TopN
 and the same error messages.
 
-Execution on the device: a bitmap tree's row leaves are stacked per
+Execution on the device: every read site first brings the mirrors it
+reads up to date with one launch of the delta-scatter K7 per device for
+all the fragments with queued writes (``apply_pending_many``: the leaf
+stacks, the anchored Count, the TopN prepares).  A bitmap tree's row
+leaves are stacked per
 leaf (int32 ``[n_slices, 32768]``, only slices where some leaf row
 exists; a time-quantum ``Range`` is the union of its time views' rows)
 from the fragments' device mirrors, and a sparse-tier row's compressed
@@ -68,7 +72,7 @@ from pilosa_tpu_torch.core import cache as cache_mod
 from pilosa_tpu_torch.core import timequantum as tq
 from pilosa_tpu_torch.core.bitmap import RowBitmap
 from pilosa_tpu_torch.core.cache import Pair
-from pilosa_tpu_torch.core.fragment import Fragment, TopOptions
+from pilosa_tpu_torch.core.fragment import Fragment, TopOptions, apply_pending_many
 from pilosa_tpu_torch.core.view import VIEW_INVERSE, VIEW_STANDARD
 from pilosa_tpu_torch.exec import plan
 from pilosa_tpu_torch.net.client import is_node_failure
@@ -407,6 +411,11 @@ class Executor:
         them, read in place by the ripple kernel; a predicate a
         ``plan.PredLeaf``; a pad plane None."""
         targets = [self._resolve_leaf(index, leaf) for leaf in leaves]
+        # Every fragment a leaf reads is brought up to date first, in one
+        # K7 launch for all of them.
+        views = [v for t in targets if t[0] in ("row", "plane")
+                 for v in (t[1] if t[0] == "row" else [t[1]]) if v is not None]
+        apply_pending_many(v.fragment(s) for v in views for s in slices)
         # The plane leaves of one field read one fragment per slice, at
         # the field's rows 0 .. 1 + depth, in that order in each BSI node.
         fields: dict[int, tuple] = {}
@@ -715,6 +724,7 @@ class Executor:
             picked.append((anchor, frags))
         if not any_compressed:
             return None
+        apply_pending_many(f for _, frags in picked for f in frags)
         offsets = np.zeros(len(picked) + 1, dtype=np.int64)
         offsets[1:] = np.cumsum([len(a) for a, _ in picked])
         positions = np.concatenate([a for a, _ in picked])
@@ -879,6 +889,8 @@ class Executor:
             srcs = self._topn_srcs(index, c, local_slices) if c.children else None
             view, template = self._topn_view(index, c), self._topn_template(c)
             self_src = self._topn_self_src(index, c)
+            if view is not None:
+                apply_pending_many(view.fragment(s) for s in local_slices)
             states = []
             for s in local_slices:
                 prep = self._topn_options_for_slice(view, s, template, srcs)
@@ -1092,6 +1104,7 @@ class Executor:
         if not len(union):
             return None
         self_src = self._topn_self_src(index, c)
+        apply_pending_many(frag for frag, *_ in per)
         parts = []
         for frag, topt, cand_ids, cand_cnts in per:
             part = frag.top_prepare_union_parts(union, cand_ids, cand_cnts, topt)

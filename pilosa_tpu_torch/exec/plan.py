@@ -31,8 +31,10 @@ format — the counterpart of ``compiled_anchored_count`` /
 ``anchored_count_exec`` (``pilosa_tpu/exec/plan.py:855-934``), which
 compiled one program per format signature.
 
-``scatter_apply`` applies folded write deltas to a fragment's mirror
-with one launch of the delta-scatter kernel (``ops/delta_scatter.py``).
+``scatter_apply_many`` applies folded write deltas to any number of
+fragments' mirrors with one launch of the delta-scatter kernel
+(``ops/delta_scatter.py``); ``scatter_apply`` is its one-mirror
+interface.
 """
 
 from __future__ import annotations
@@ -281,6 +283,15 @@ def scatter_apply(plane: torch.Tensor, slots, words, or_m, andnot_m) -> torch.Te
     K7 launch for a CUDA plane, the plain version for a CPU plane."""
     delta_scatter.delta_scatter(plane, slots, words, or_m, andnot_m)
     return plane
+
+
+def scatter_apply_many(planes: list, job, word, or_m, andnot_m) -> None:
+    """Apply a batch's folded entries (``ingest.scatter.fold_many``:
+    ``(job, word, or, andnot)`` sorted by ``(job, word)``) to the int32
+    mirrors ``planes`` IN PLACE: one K7 launch for CUDA planes however
+    many there are (the JAX package ran one program per mirror), the
+    plain version for CPU planes."""
+    delta_scatter.delta_scatter_many(planes, job, word, or_m, andnot_m)
 
 
 def _bsi_np(e: tuple, rows: list):

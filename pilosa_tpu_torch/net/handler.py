@@ -266,19 +266,17 @@ class Handler:
             f = idx.create_frame(frame, **kwargs)
         except (ValueError, RuntimeError) as e:
             return Response.error(str(e), 400)
-        self._broadcast(
-            wire.CreateFrameMessage(
-                Index=index,
-                Frame=frame,
-                Meta=wire.FrameMeta(
-                    RowLabel=f.row_label,
-                    InverseEnabled=f.inverse_enabled,
-                    CacheType=f.cache_type,
-                    CacheSize=f.cache_size,
-                    TimeQuantum=f.time_quantum,
-                ),
-            )
+        # The frame exists and its .meta is written; options the wire
+        # cannot carry fail here, on every node, as the JAX package's
+        # generated message does (500 through the dispatcher).
+        meta = wire.FrameMeta(
+            RowLabel=f.row_label,
+            InverseEnabled=f.inverse_enabled,
+            CacheType=f.cache_type,
+            CacheSize=f.cache_size,
+            TimeQuantum=f.time_quantum,
         )
+        self._broadcast(wire.CreateFrameMessage(Index=index, Frame=frame, Meta=meta))
         return Response.json({})
 
     def handle_delete_frame(self, req: Request, index: str, frame: str) -> Response:
@@ -401,6 +399,8 @@ class Handler:
     def handle_post_query(self, req: Request, index: str) -> Response:
         try:
             qreq = self._read_query_request(req)
+        except _ParseError as e:  # the JAX package's dispatcher answers it
+            return Response.error(str(e), 500)
         except ValueError as e:
             return self._query_error(req, str(e), 400)
         try:
@@ -442,7 +442,7 @@ class Handler:
         """reference: handler.go:863-944 — a QueryRequest protobuf, or a
         PQL body with URL parameters."""
         if req.header("Content-Type") == PROTOBUF:
-            pb = wire.QueryRequest.decode(req.body)
+            pb = _decode(wire.QueryRequest, req.body)
             return {
                 "query": pb.Query,
                 "slices": list(pb.Slices) or None,
@@ -485,8 +485,8 @@ class Handler:
         if view not in ("", "inverse"):
             return Response.error(f"invalid view: {view}", 400)
         try:
-            pb = wire.ImportRequest.decode(req.body)
-        except ValueError as e:
+            pb = _decode(wire.ImportRequest, req.body)
+        except _ParseError as e:
             return Response.error(str(e), 400)
         # Ownership guard (reference: handler.go:1004).
         if not self.cluster.is_write_owner(self.executor.host, pb.Index, pb.Slice):
@@ -501,9 +501,9 @@ class Handler:
             if pb.Timestamps
             else None
         )
-        rows = np.asarray(pb.RowIDs, dtype=np.int64)
-        cols = np.asarray(pb.ColumnIDs, dtype=np.int64)
         try:
+            rows = np.asarray(pb.RowIDs, dtype=np.int64)
+            cols = np.asarray(pb.ColumnIDs, dtype=np.int64)
             if view == "inverse":
                 # The inverse half another node sent: pb.Slice is the
                 # inverse slice, which the guard above checked.
@@ -536,6 +536,21 @@ class Handler:
                         None if ts is None else [_unix_ns(t) for t in ts],
                         view="inverse", host=host,
                     )
+
+
+class _ParseError(ValueError):
+    """A protobuf body that does not decode."""
+
+
+def _decode(cls, body: bytes):
+    """``cls.decode(body)``; any failure raises the text the JAX
+    package's generated parser gives (the hand-written decoder's own
+    texts differ from it)."""
+    try:
+        return cls.decode(body)
+    except Exception:  # noqa: BLE001 — every decode failure is one answer
+        raise _ParseError(
+            f"Error parsing message with type 'pilosa_tpu.wire.{cls.__name__}'") from None
 
 
 def _unix_ns(t: datetime | None) -> int:

@@ -25,6 +25,7 @@ body carries a million row and column ids.
 
 from __future__ import annotations
 
+import operator
 import struct
 from dataclasses import dataclass, field, fields
 
@@ -309,6 +310,32 @@ class Message:
         return f"{type(self).__name__}({', '.join(parts)})"
 
 
+def check_scalars(msg: Message) -> None:
+    """Raise what the generated ``wire_pb2`` constructor raises for a
+    singular scalar it cannot hold, with its exception type and text,
+    checking the fields in field-number order: a string field takes
+    ``str``/``bytes``; an integer or bool field takes what
+    ``operator.index`` takes, a uint32 in 0..2^32-1, a bool a C long.
+    ``None`` leaves a field unset."""
+    for _, name, kind, repeated, _ in msg._FIELDS:
+        v = getattr(msg, name)
+        if repeated or v is None or kind not in (STR, *_VARINT_KINDS):
+            continue
+        if kind == STR:
+            if not isinstance(v, (str, bytes)):
+                raise TypeError("bad argument type for built-in operation")
+            continue
+        try:
+            i = operator.index(v)
+        except TypeError:
+            raise TypeError(
+                f"'{type(v).__name__}' object cannot be interpreted as an integer") from None
+        if kind == BOOL and not -(1 << 63) <= i < 1 << 63:
+            raise OverflowError("Python int too large to convert to C long")
+        if kind == U32 and not 0 <= i <= 0xFFFFFFFF:
+            raise ValueError(f"Value out of range: {i}")
+
+
 def _spec(cls, *specs):
     cls._FIELDS = tuple(sorted(specs))
     return cls
@@ -468,11 +495,17 @@ _spec(IndexMeta, (1, "ColumnLabel", STR, False, None), (2, "TimeQuantum", STR, F
 
 @dataclass(repr=False)
 class FrameMeta(Message):
+    """Checked at construction, as the generated message is: a frame's
+    options that the wire cannot carry fail the request that made them."""
+
     RowLabel: str = ""
     InverseEnabled: bool = False
     CacheType: str = ""
     CacheSize: int = 0
     TimeQuantum: str = ""
+
+    def __post_init__(self):
+        check_scalars(self)
 
 
 _spec(

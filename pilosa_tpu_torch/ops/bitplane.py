@@ -145,6 +145,10 @@ if hasattr(np, "bitwise_count"):  # numpy >= 2.0
         """Host per-row popcounts (cache maintenance without a device trip)."""
         return np.bitwise_count(plane).sum(axis=-1, dtype=np.int64)
 
+    def np_popcounts(words: np.ndarray) -> np.ndarray:
+        """Host popcount of each uint32 word, int64."""
+        return np.bitwise_count(words).astype(np.int64)
+
 else:  # pragma: no cover - numpy 1.x fallback
 
     def np_count(words: np.ndarray) -> int:
@@ -155,6 +159,10 @@ else:  # pragma: no cover - numpy 1.x fallback
             np.unpackbits(np.ascontiguousarray(plane).view(np.uint8), axis=-1)
             .sum(axis=-1, dtype=np.int64)
         )
+
+    def np_popcounts(words: np.ndarray) -> np.ndarray:
+        bits = np.unpackbits(np.ascontiguousarray(words, dtype=np.uint32).view(np.uint8))
+        return bits.reshape(-1, 32).sum(axis=1, dtype=np.int64)
 
 
 def np_group_by(keys: np.ndarray, *arrays: np.ndarray):

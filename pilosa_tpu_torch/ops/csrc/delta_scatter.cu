@@ -1,31 +1,43 @@
-// Delta-scatter: apply folded point-write deltas to a resident plane.
+// Delta-scatter: apply folded write deltas to resident planes, any number
+// of planes in one launch.
 //
 // Replaces the jitted XLA program plan._build_scatter
-// (pilosa_tpu/exec/plan.py:814, driven by pilosa_tpu/ingest/scatter.py:104):
-// for every entry i,
+// (pilosa_tpu/exec/plan.py:814, driven by pilosa_tpu/ingest/scatter.py:104),
+// which the JAX package runs once per fragment: for every entry i,
 //
-//     plane[slots[i], words[i]] = (plane[slots[i], words[i]] & ~andnot[i]) | or[i]
+//     plane[job[i]][word[i]] = (plane[job[i]][word[i]] & ~andnot[i]) | or[i]
 //
-// over int32 bit-views of the uint32 plane words ([rows, words_per_row],
-// contiguous).  Entries come from ingest.scatter.fold, which leaves one
-// entry per (slot, word), so no two threads touch the same word and no
-// atomics are needed; the kernel still assumes no order between entries.
-// The plane is updated IN PLACE (the JAX program returned a new array);
-// the fragment lock, one launch per applied queue and one stream keep
-// readers on old-or-new (see core/fragment.py).
+// over int32 bit-views of the uint32 plane words (each plane a contiguous
+// [rows, 32768] tensor, word[i] = slot * 32768 + word within the row).
+// The planes are updated IN PLACE (the JAX program returned a new array);
+// the fragment locks, held until this launch is enqueued, and one stream
+// keep readers on old-or-new (see core/fragment.py).
 //
-// Bound: at ~1,100 entries per fragment (an /import of 2^20 bits over 954
-// slices) the work is 1,100 x (16 B of entry + a 32 B sector read + a 32 B
-// sector write) ~= 88 KB, about 0.03 us at the 3.35 TB/s of an H100 SXM;
-// one kernel launch costs far more, so the kernel is bound by launch
-// latency, not by bytes or operations.  Making it fast (one launch for
-// every fragment an import touches) is later work.
+// Launch buffer (int64, one host-to-device copy per launch):
+//     [0, n_addr)          the planes' addresses, n_addr = n_jobs rounded up to even
+//     [n_addr, n_addr+2n)  n records of four 32-bit fields: job, word, or, andnot
+// The records come from ingest.scatter.fold_many sorted by (job, word), one
+// per pair, and were checked on the host: job < n_jobs, word inside its
+// plane, no (job, word) twice and no two planes sharing memory.  So no two
+// threads touch one word and no atomics are needed.
 //
-// Design: one thread per entry, 256 threads per block; each thread reads
-// its entry's four 4-byte fields (coalesced across the warp), reads the
-// word, applies the masks on unsigned words and writes it back.  The
-// kernel allocates nothing and launches on the caller's stream; the
-// launcher returns cudaGetLastError().
+// Design: one thread per record, 256 a block, one grid over every record of
+// the batch.  A record is one 16-byte load (neighbouring threads read
+// neighbouring records, so a warp reads 512 contiguous bytes); the plane's
+// address is the job's entry of the address table, read through the
+// read-only cache — the records are sorted by job, so a warp nearly always
+// reads one address, broadcast.  A per-record job index was chosen over a
+// search of a job-offset table: it costs no bytes (slot and word share one
+// 32-bit field, which the search would need too), no dependent loads, and
+// no shared-memory limit on the number of planes a batch holds.  Records
+// sorted by word make neighbouring threads touch neighbouring words, so a
+// 32-byte sector of a plane serves up to eight records.
+//
+// Bound: records 16 B each + the address table 8 B a plane + one 32-byte
+// sector read and one written per touched word.  A launch for one plane
+// of ~1,100 records is bound by the launch, not the bytes (PERF.md's
+// kernel table), which is why the flush batches every pending plane of
+// a read into one launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,38 +47,31 @@ namespace {
 constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
-delta_scatter_kernel(unsigned* __restrict__ plane, long long words_per_row,
-                     const int* __restrict__ slots, const int* __restrict__ words,
-                     const unsigned* __restrict__ or_m,
-                     const unsigned* __restrict__ andnot_m, long long n) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+delta_scatter_kernel(const long long* __restrict__ addrs, const int4* __restrict__ recs,
+                     int n) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  unsigned* w = plane + (long long)slots[i] * words_per_row + words[i];
-  *w = (*w & ~andnot_m[i]) | or_m[i];
+  const int4 r = __ldg(recs + i);
+  unsigned* w = reinterpret_cast<unsigned*>(__ldg(addrs + r.x)) + (unsigned)r.y;
+  *w = (*w & ~(unsigned)r.w) | (unsigned)r.z;
 }
 
 __global__ void noop_kernel() {}
 
 }  // namespace
 
-// Apply n entries to plane [rows, words_per_row].  The caller has checked
-// 0 <= slots[i] < rows and 0 <= words[i] < words_per_row, and that the
-// (slot, word) pairs are unique.  n == 0 launches nothing.  Returns the
+// Apply the n records of the launch buffer `buf` (layout above) to the
+// n_jobs planes it addresses.  n == 0 launches nothing.  Returns the
 // cudaError_t of the launch (0 on success).
-extern "C" int pilosa_delta_scatter(void* plane, long long rows,
-                                    long long words_per_row, const void* slots,
-                                    const void* words, const void* or_m,
-                                    const void* andnot_m, long long n,
-                                    void* stream) {
-  if (rows <= 0 || words_per_row <= 0 || n < 0 || n >= (1LL << 31)) {
-    return (int)cudaErrorInvalidValue;
-  }
+extern "C" int pilosa_delta_scatter_many(const void* buf, long long n_jobs, long long n,
+                                         void* stream) {
+  if (n_jobs <= 0 || n < 0 || n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
+  const long long* addrs = static_cast<const long long*>(buf);
+  const int4* recs = reinterpret_cast<const int4*>(addrs + ((n_jobs + 1) & ~1LL));
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   delta_scatter_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<unsigned*>(plane), words_per_row, static_cast<const int*>(slots),
-      static_cast<const int*>(words), static_cast<const unsigned*>(or_m),
-      static_cast<const unsigned*>(andnot_m), n);
+      addrs, recs, (int)n);
   return (int)cudaGetLastError();
 }
 

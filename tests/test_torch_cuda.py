@@ -92,6 +92,86 @@ def test_delta_scatter_matches_plain(cuda, rows):
         assert torch.equal(got, want), name
 
 
+def k7_batch(name: str, rng):
+    """Phase 3's K7 batches of chip_smoke.py: (mirror rows per job, or
+    "same" for the previous job's mirror, and a code queue per job)."""
+    from pilosa_tpu_torch.ingest import scatter
+
+    def codes(rows, n, words=0):
+        offs = (rng.integers(0, words, n) * 32 + rng.integers(0, 32, n) if words
+                else rng.integers(0, 1 << 20, n))
+        return scatter.codes(rng.integers(0, rows, n), offs, 0) | rng.integers(0, 2, n)
+
+    one_bit = scatter.codes([1], [(1 << 20) - 1], 0)
+    tall_last = scatter.codes([(1 << 16) - 1], [(1 << 20) - 1], 0)
+    return {
+        "one_bit_across_queues": (
+            [8, 8, 16],
+            [np.concatenate([codes(8, 300, 4), one_bit | 1, one_bit]),
+             np.concatenate([one_bit, codes(8, 300, 4), one_bit | 1]),
+             np.concatenate([one_bit | 1, one_bit, one_bit | 1])]),
+        "rows_8_16_65536": (
+            [8, 1 << 16, 16],
+            [codes(8, 1100), np.concatenate([codes(1 << 16, 20000), tall_last | 1]),
+             codes(16, 4096, 64)]),
+        "empty_queues": ([8, 8, 8], [np.empty(0, np.int64), codes(8, 31),
+                                     np.empty(0, np.int64)]),
+        "same_mirror_twice": ([8, "same"], [codes(8, 900, 16), codes(8, 900, 16)]),
+        "954_jobs": ([8] * 954, [codes(8, 1100) for _ in range(954)]),
+    }[name]
+
+
+@pytest.mark.parametrize("name", ["one_bit_across_queues", "rows_8_16_65536", "empty_queues",
+                                  "same_mirror_twice", "954_jobs"])
+def test_batched_delta_scatter_matches_plain(cuda, name):
+    """One launch applies every queue of a batch, equal to the plain
+    version on the same folded entries."""
+    from pilosa_tpu_torch.ingest import scatter
+    from pilosa_tpu_torch.ops import delta_scatter as ds
+
+    shapes, queues = k7_batch(name, np.random.default_rng(7))
+    mirrors = []
+    for r in shapes:
+        mirrors.append(mirrors[-1] if r == "same" else torch.randint(
+            -2**31, 2**31 - 1, (r, tbp.WORDS_PER_SLICE), dtype=torch.int32, device=cuda))
+    plain = {id(m): m.clone() for m in mirrors}
+    before = ds.launches
+    assert scatter.apply_many(list(zip(mirrors, queues))) == 1
+    torch.cuda.synchronize()
+    assert ds.launches == before + 1
+    merged = {}
+    for m, q in zip(mirrors, queues):
+        merged.setdefault(id(m), []).append(q)
+    ds.plain_delta_scatter_many(list(plain.values()),
+                                *scatter.fold_many([np.concatenate(merged[k]) for k in plain]))
+    for m in mirrors:
+        assert torch.equal(m, plain[id(m)]), name
+
+
+def test_read_applies_every_fragment_with_one_launch(cuda, tmp_path):
+    from pilosa_tpu_torch.core.fragment import Fragment, apply_pending_many
+    from pilosa_tpu_torch.ops import delta_scatter as ds
+
+    frags = []
+    for s in range(5):
+        f = Fragment(str(tmp_path / str(s)), "i", "f", "standard", s, device=cuda)
+        f.open()
+        f.import_bulk([0, 1, 2], [s << 20 | 5, s << 20 | 6, s << 20 | 7])
+        f.device_plane()
+        frags.append(f)
+    before = ds.launches
+    for s, f in enumerate(frags):
+        f.import_bulk([1] * 40, [(s << 20) + 64 * c for c in range(40)])
+        f.clear_bit(0, s << 20 | 5)
+    assert ds.launches == before  # writes only queue
+    assert apply_pending_many(frags + [None, frags[0]]) == 5
+    assert ds.launches == before + 1
+    for f in frags:
+        np.testing.assert_array_equal(tbp.to_host(f.device_plane()), f._plane)
+        f.close()
+    assert ds.launches == before + 1
+
+
 def test_fragment_applies_queued_writes_with_one_launch(cuda, tmp_path):
     from pilosa_tpu_torch.core.fragment import Fragment
     from pilosa_tpu_torch.ops import delta_scatter as ds
@@ -99,6 +179,7 @@ def test_fragment_applies_queued_writes_with_one_launch(cuda, tmp_path):
     frag = Fragment(str(tmp_path / "0"), "i", "f", "standard", 0, device=cuda)
     frag.open()
     frag.import_bulk([0, 1, 2], [5, 6, 7])
+    frag.device_plane()  # a read uploads the mirror; the writes below queue for it
     before = ds.launches
     for c in (0, 31, 32767 * 32 + 31):
         frag.set_bit(1, c)

@@ -205,18 +205,21 @@ def test_row_bitmap_counts_match_jax():
     assert ta.to_json_dict()["bits"] == ja.to_json_dict()["bits"]
 
 
-@pytest.mark.parametrize("n_clears", [40, 3000])
+@pytest.mark.parametrize("n_clears", [40, 3000, None])
 def test_import_with_clears_matches_jax(tmp_path, n_clears):
     """import_bulk with clears (the overwrite half of a BSI value import):
     the same rows and counts as the JAX package, clears on absent rows
     doing nothing, and the mirror equal to the host plane — through
-    and-not K7 entries for a small import, through the counted fallback
-    past IMPORT_SCATTER_MAX."""
+    and-not K7 entries that the next read applies for a small import,
+    through the counted fallback past the queue's limit (None: twice
+    the limit in clears)."""
     from pilosa_tpu_torch.ingest import scatter
 
     j, t = pair(tmp_path)
     seeded_writes(j, t)
     t.device_plane()  # a resident mirror, so the import queues or falls back
+    limit = scatter.pending_limit(t._mirror.shape[0])
+    n_clears = 2 * limit if n_clears is None else n_clears
     rng = np.random.default_rng(n_clears)
     set_rows = rng.integers(0, 12, 200)
     set_cols = SLICE * SW + rng.integers(0, SW, 200)
@@ -224,15 +227,18 @@ def test_import_with_clears_matches_jax(tmp_path, n_clears):
     clr_cols = SLICE * SW + rng.integers(0, SW, n_clears)
     both = np.isin(clr_cols, set_cols)  # a bit must not be in both lists
     clr_rows, clr_cols = clr_rows[~both], clr_cols[~both]
+    queued = len(set_rows) + int(np.isin(clr_rows, list(t._slot_of)).sum())  # plane bits
     before = scatter.counters()
     j.import_bulk(set_rows, set_cols, clr_rows, clr_cols)
     t.import_bulk(set_rows, set_cols, clr_rows, clr_cols)
     after = scatter.counters()
-    if n_clears < scatter.IMPORT_SCATTER_MAX:
-        assert after["launches"] == before["launches"] + 1
+    assert after["launches"] == before["launches"]  # an import never launches
+    if queued <= limit:
         assert after["fallbackInvalidations"] == before["fallbackInvalidations"]
+        assert t._pending_n > 0
     else:
         assert after["fallbackInvalidations"] == before["fallbackInvalidations"] + 1
+        assert t._mirror is None
     assert_same_rows(j, t, range(20))
     assert not any(t.has_row(r) for r in range(14, 20))
     j.close()

@@ -217,3 +217,74 @@ def test_port_written_data_dir_opens_in_jax(tmp_path):
         assert got == want
     finally:
         j2.close()
+
+
+def raw(host: str, method: str, path: str, body: bytes = b"", headers=None) -> tuple:
+    req = urllib.request.Request(f"http://{host}{path}", data=body if method != "GET" else None,
+                                 method=method, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, resp.headers["Content-Type"], resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers["Content-Type"], e.read()
+
+
+def test_malformed_protobuf_query_answers_as_jax(servers):
+    """ROADMAP fault 3: a QueryRequest that does not parse is a 500 in
+    JSON with the generated parser's text, whatever Accept says."""
+    j, t = servers
+    proto = {"Content-Type": "application/x-protobuf", "Accept": "application/x-protobuf"}
+    for s in (j, t):
+        assert http(s.host, "POST", "/index/i")[0] == 200
+    for body in (b"\x08", b"\x0a\x05ab", b"\x0a\x02\xff\xfe"):
+        got = [raw(s.host, "POST", "/index/i/query", body, proto) for s in (j, t)]
+        assert got[1] == got[0]
+        assert got[0][0] == 500
+
+
+FRAME_OPTIONS = [
+    {"cacheSize": -1}, {"cacheSize": 4294967296}, {"cacheSize": "a"}, {"cacheSize": 1.5},
+    {"inverseEnabled": "yes"}, {"inverseEnabled": 1.5},
+    {"cacheSize": True}, {"inverseEnabled": 1}, {"cacheSize": 4294967295},
+    {"inverseEnabled": "yes", "cacheSize": -1},
+]
+
+
+@pytest.mark.parametrize("options", FRAME_OPTIONS, ids=[json.dumps(o) for o in FRAME_OPTIONS])
+def test_frame_options_the_wire_cannot_carry(servers, options):
+    """ROADMAP fault 6: options that the protobuf FrameMeta cannot hold
+    fail after the frame is made, with the generated message's text;
+    the schema stays equal."""
+    j, t = servers
+    body = json.dumps({"options": options}).encode()
+    for s in (j, t):
+        assert http(s.host, "POST", "/index/i")[0] == 200
+    got = [raw(s.host, "POST", "/index/i/frame/f", body) for s in (j, t)]
+    assert got[1] == got[0]
+    schema = [http(s.host, "GET", "/schema") for s in (j, t)]
+    assert schema[1] == schema[0]
+
+
+def test_frame_options_fail_alike_in_a_cluster(tmp_path):
+    """The same options on a node of a port cluster answer what one JAX
+    node answers: the meta is checked before the broadcast."""
+    j = jax_server(str(tmp_path / "jax"))
+    nodes = [TServer(str(tmp_path / f"n{i}"), device="cpu", cluster_type="http", replicas=2,
+                     internal_port=0) for i in range(2)]
+    j.open()
+    for n in nodes:
+        n.open()
+    try:
+        nodes[0].add_peer(nodes[1].host, nodes[1].internal_host)
+        nodes[1].add_peer(nodes[0].host, nodes[0].internal_host)
+        for s in (j, nodes[0]):
+            assert http(s.host, "POST", "/index/i")[0] == 200
+        for options in FRAME_OPTIONS[:5]:
+            body = json.dumps({"options": options}).encode()
+            name = f"f{FRAME_OPTIONS.index(options)}"
+            want = raw(j.host, "POST", f"/index/i/frame/{name}", body)
+            assert raw(nodes[0].host, "POST", f"/index/i/frame/{name}", body) == want
+    finally:
+        for n in nodes:
+            n.close()
+        j.close()
