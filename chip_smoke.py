@@ -46,7 +46,8 @@ without printing its final line:
    answer Count/Bitmap/TopN/SetBit over HTTP, every answer checked
    against a numpy oracle over the same planes, with the kernels'
    launch counts reset just before and read just after (TopN(src): one
-   K4 launch per request, no K1);
+   K4 launch per request, no K1); the SetBits' p50, each answered after
+   its WAL group commit;
 6. a cluster on the one card: three ``Server(device="cuda")`` nodes of
    an http cluster with 2 replicas; the schema created on one node
    reaches the others by broadcast; each node loads the phase-5 planes
@@ -98,9 +99,27 @@ without printing its final line:
     K6 counted around each query class;
 11. recovery on the card: a port node's data directory with a torn
     op-log tail and a WAL segment of a JAX node's (written with the
-    port's encoder) reopens with the oracle's answers, applies a later
-    write with one delta-scatter launch, and replays nothing twice;
-12. print the ``kernels`` JSON line, then the final JSON line.
+    port's encoder) reopens with the oracle's answers, restarts the
+    segment at its checkpoint snapshot, applies a later write with one
+    delta-scatter launch, and replays nothing twice;
+12. residency under a budget: every other node closed, phase 10's
+    directory reopens with ``hbm_budget_bytes`` of 12 GiB (three 8 GiB
+    plane tiers; staging from its ``.residency.json`` in the
+    background), and phase 10's query classes alternate between the two
+    indexes, each answer against the oracle; after every query the
+    pool's resident and high-water bytes, evictions, skipped evictions,
+    over-budget admissions, restaged bytes and the allocator's
+    ``memory_allocated()`` / ``memory_reserved()`` are printed and
+    checked (within the budget outside pinned saturation; evictions > 0;
+    a query pinning both 8 GiB star mirrors saturates and answers
+    right); the time to the first answer, the staging job's end and one
+    eviction-driven 8 GiB re-upload are timed;
+13. durability: on a node of its own with the WAL on, 8 threads send 500
+    SetBits each over HTTP across 16 slices; the data directory copied
+    while the node is open opens in a second node with every
+    acknowledged bit; ``/debug/ingest`` shows fewer fsyncs than appends;
+    serial SetBit p50 / p99 with the WAL on and off, in turns;
+14. print the ``kernels`` JSON line, then the final JSON line.
 
 Exits non-zero when ``torch.cuda.is_available()`` is false, and when the
 port's package is not beside this file.
@@ -115,6 +134,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -1242,14 +1262,20 @@ def serve_and_check(fp, ds, sp, bp, convert, srv, rng) -> dict:
         {(int(r), int(c)) for r, c in zip(
             rng.integers(0, 4, 64), rng.integers(0, N_SLICES << 20, 64))}
     )
+    set_times = []
     for r, c in g_bits:
+        q0 = time.perf_counter()
         status, body = http(
             h, "POST", "/index/i/query",
             f"SetBit(frame=g, rowID={r}, columnID={c})".encode(),
         )
+        set_times.append(time.perf_counter() - q0)
         if status != 200 or body["results"] != [True]:
             raise AssertionError(f"SetBit g {r} {c}: {status} {body}")
     g_row1 = sorted(c for r, c in g_bits if r == 1)
+    out["setbit_p50_ms"] = statistics.median(set_times) * 1e3
+    log(f"phase 5: SetBit p50 {out['setbit_p50_ms']:.3f} ms over {len(g_bits)} requests, each "
+        "answered after its WAL group commit (2 ms window); PR 6 wrote no WAL and timed none")
 
     def pc(x):
         return int(np.bitwise_count(x).sum())
@@ -2095,6 +2121,20 @@ FP_QUERY_BITS = 120
 FP_NEIGHBORS = 64
 FP_FLIPS = 30
 P10_CACHE = 50_000  # the ranked cache's size: each slice's TopN candidates
+# Phase 12: the residency pool's budget over phase 10's directory (three
+# 8 GiB plane tiers), the rounds of its alternating queries, and the slack
+# over the budget that memory_allocated() may show outside saturation (the
+# queries' own outputs are below 1 MiB).
+RESIDENCY_BUDGET = 12 << 30
+RESIDENCY_ROUNDS = 1
+RESIDENCY_SLACK = 256 << 20
+# Phase 13: writer threads x SetBits each over slices, and the serial
+# SetBits of each WAL setting, in turns.
+DURABLE_THREADS = 8
+DURABLE_WRITES = 500
+DURABLE_SLICES = 16
+DURABLE_ROWS = 8
+SERIAL_WRITES = 100
 
 
 def star_data(rng):
@@ -2167,6 +2207,58 @@ def tutorial_topn(scores: np.ndarray, totals: np.ndarray, n: int) -> list[dict]:
     return [{"id": i, "count": c} for i, c in pairs[:n] if c > 0]
 
 
+def tutorial_queries(users, repos, lang, rows: dict, mole: dict) -> list:
+    """Phase 10's query classes with their oracle answers over the stars
+    ``(users, repos)`` (sorted by (user, repo)) and the fingerprint rows
+    in ``mole``: ``(name, index, pql, expected, launches per request by
+    kernel)``."""
+    a, b, c, d, r = (rows[k] for k in "abcdr")
+    slice_of = repos >> 20
+    counts = np.stack([np.bincount(users[slice_of == s], minlength=STAR_USERS)
+                       for s in range(STAR_SLICES)])
+    ra, rb, rc, rd, rr = (row_of(users, repos, u) for u in (a, b, c, d, r))
+    lang_counts = np.stack([np.bincount(lang[s << 20:(s + 1) << 20], minlength=STAR_LANGUAGES)
+                            for s in range(STAR_SLICES)])
+    a_lang = np.stack([np.bincount(lang[ra[(ra >> 20) == s]], minlength=STAR_LANGUAGES)
+                       for s in range(STAR_SLICES)])
+    in_l3 = lang[repos] == 3
+    l3_scores = np.stack([np.bincount(users[(slice_of == s) & in_l3], minlength=STAR_USERS)
+                          for s in range(STAR_SLICES)])
+    fm1, fm2 = mole["fm1"], mole["fm2"]
+    B = "Bitmap(frame=stargazer, stargazer_id={})"
+    return [
+        ("count_sparse_sparse", "repository", f"Count(Intersect({B.format(a)}, {B.format(b)}))",
+         len(np.intersect1d(ra, rb)), {"k5": 1}),
+        ("count_sparse_dense", "repository", f"Count(Intersect({B.format(a)}, {B.format(d)}))",
+         len(np.intersect1d(ra, rd)), {"k5": 1}),
+        ("count_rle_difference", "repository",
+         f"Count(Difference({B.format(r)}, {B.format(a)}))", len(np.setdiff1d(rr, ra)),
+         {"k5": 1}),
+        ("count_nested", "repository",
+         f"Count(Intersect({B.format(r)}, Union({B.format(a)}, {B.format(b)})))",
+         len(np.intersect1d(rr, np.union1d(ra, rb))), {"k5": 1}),
+        ("count_union_sparse", "repository",
+         f"Count(Union({B.format(a)}, {B.format(b)}, {B.format(c)}))",
+         len(np.union1d(np.union1d(ra, rb), rc)), {"k6": 1, "k1": 1}),
+        ("bitmap_sparse", "repository", B.format(a),
+         {"attrs": {}, "bits": [int(v) for v in ra]}, {"k6": 1}),
+        ("topn_language", "repository", f"TopN({B.format(a)}, frame=language, n=5)",
+         tutorial_topn(a_lang, lang_counts, 5), {"k6": 1, "k4": 1}),
+        ("topn_stargazer", "repository", "TopN(frame=stargazer, n=10)",
+         tutorial_topn(counts, counts, 10), {}),
+        ("topn_stargazer_src", "repository",
+         "TopN(Bitmap(frame=language, language_id=3), frame=stargazer, n=10)",
+         tutorial_topn(l3_scores, counts, 10), {"k4": 1}),
+        ("bitmap_molecule", "mole", mole["pql_m1"],
+         {"attrs": {}, "bits": [int(v) for v in fm1]}, {"k6": 1}),
+        ("count_molecules", "mole", f"Count(Intersect({mole['pql_m1']}, {mole['pql_m2']}))",
+         len(np.intersect1d(fm1, fm2)), {"k5": 1}),
+        ("topn_tanimoto", "mole",
+         f"TopN(Bitmap(frame=fingerprint, molecule_id={FP_QUERY}), frame=fingerprint, "
+         "inverse=true, n=100, tanimotoThreshold=70)", mole["tani_want"], {"k1": 1, "k4": 1}),
+    ]
+
+
 def tutorials_and_check(ac, ep, fp, sp, bp, InternalClient, srv, rng) -> dict:
     """Phase 10 on ``srv``, a fresh one-node ``Server`` on the card at the
     JAX package's defaults (dense budget 65,536, plane-format auto, 64 KiB
@@ -2191,6 +2283,7 @@ def tutorials_and_check(ac, ep, fp, sp, bp, InternalClient, srv, rng) -> dict:
         if status != 200:
             raise AssertionError(f"POST {path}: {status} {body}")
     budget = fragment_mod.DENSE_ROW_BUDGET
+    M = "Bitmap(frame=fingerprint, molecule_id={})"
     t0 = time.perf_counter()
     users, repos, lang = star_data(rng)
     mols, fpos = fingerprint_data(rng, budget)
@@ -2218,7 +2311,7 @@ def tutorials_and_check(ac, ep, fp, sp, bp, InternalClient, srv, rng) -> dict:
             raise AssertionError(f"phase 10: {name} is not tall: {dense} plane rows, "
                                  f"{sparse} sparse rows")
 
-    # The oracle: per-slice counts and each row's repositories.
+    # The rows asked about, picked by tier.
     slice_of = repos >> 20
     counts = np.stack([np.bincount(users[slice_of == s], minlength=STAR_USERS)
                        for s in range(STAR_SLICES)])
@@ -2247,17 +2340,8 @@ def tutorials_and_check(ac, ep, fp, sp, bp, InternalClient, srv, rng) -> dict:
     r = next(int(u) for u in np.argsort(-total, kind="stable")
              if all(int(u) not in f._slot_of for f in stars)
              and any(fmt_in(f, u) == bp.FMT_RLE for f in stars))
-    ra, rb, rc, rd, rr = (row_of(users, repos, u) for u in (a, b, c, d, r))
-    L3 = np.flatnonzero(lang == 3)
-    lang_counts = np.stack([np.bincount(lang[s << 20:(s + 1) << 20], minlength=STAR_LANGUAGES)
-                            for s in range(STAR_SLICES)])
-    a_lang = np.stack([np.bincount(lang[ra[(ra >> 20) == s]], minlength=STAR_LANGUAGES)
-                       for s in range(STAR_SLICES)])
-    in_l3 = lang[repos] == 3
-    l3_scores = np.stack([np.bincount(users[(slice_of == s) & in_l3], minlength=STAR_USERS)
-                          for s in range(STAR_SLICES)])
     # The write: a repository of b's that a has not starred.
-    x = int(np.setdiff1d(rb, ra)[0])
+    x = int(np.setdiff1d(row_of(users, repos, b), row_of(users, repos, a))[0])
 
     fp_q = row_of(mols, fpos, FP_QUERY)
     fp_counts = np.bincount(mols, minlength=MOLECULES)
@@ -2270,48 +2354,16 @@ def tutorials_and_check(ac, ep, fp, sp, bp, InternalClient, srv, rng) -> dict:
         if sc > 0 and np.ceil(sc * 100.0 / (fp_counts[m] + src_n - sc)) > 70:
             tani.append((int(m), sc))
     tani.sort(key=lambda p: (-p[1], p[0]))
-    tani_want = [{"id": m, "count": sc} for m, sc in tani[:100]]
     if not any(m < budget for m, _ in tani) or not any(m >= budget for m, _ in tani):
         raise AssertionError(f"phase 10: the tanimoto answer misses a tier: {tani[:5]}")
     # Two molecules of the sparse tier near the query: they share bits.
     m1, m2 = [m for m, _ in tani if int(m) in inv._sparse][:2]
-    fm1, fm2 = row_of(mols, fpos, m1), row_of(mols, fpos, m2)
+    rows = {"a": a, "b": b, "c": c, "d": d, "r": r}
+    mole = {"m1": m1, "fm1": row_of(mols, fpos, m1), "fm2": row_of(mols, fpos, m2),
+            "tani_want": [{"id": m, "count": sc} for m, sc in tani[:100]],
+            "pql_m1": M.format(m1), "pql_m2": M.format(m2)}
     inv_rows = {"q": FP_QUERY, "m1": m1, "m2": m2}
-
-    B = "Bitmap(frame=stargazer, stargazer_id={})"
-    M = "Bitmap(frame=fingerprint, molecule_id={})"
-    # (name, index, pql, expected, launches per request by kernel)
-    queries = [
-        ("count_sparse_sparse", "repository", f"Count(Intersect({B.format(a)}, {B.format(b)}))",
-         len(np.intersect1d(ra, rb)), {"k5": 1}),
-        ("count_sparse_dense", "repository", f"Count(Intersect({B.format(a)}, {B.format(d)}))",
-         len(np.intersect1d(ra, rd)), {"k5": 1}),
-        ("count_rle_difference", "repository",
-         f"Count(Difference({B.format(r)}, {B.format(a)}))", len(np.setdiff1d(rr, ra)),
-         {"k5": 1}),
-        ("count_nested", "repository",
-         f"Count(Intersect({B.format(r)}, Union({B.format(a)}, {B.format(b)})))",
-         len(np.intersect1d(rr, np.union1d(ra, rb))), {"k5": 1}),
-        ("count_union_sparse", "repository",
-         f"Count(Union({B.format(a)}, {B.format(b)}, {B.format(c)}))",
-         len(np.union1d(np.union1d(ra, rb), rc)), {"k6": 1, "k1": 1}),
-        ("bitmap_sparse", "repository", B.format(a),
-         {"attrs": {}, "bits": [int(v) for v in ra]}, {"k6": 1}),
-        ("topn_language", "repository", f"TopN({B.format(a)}, frame=language, n=5)",
-         tutorial_topn(a_lang, lang_counts, 5), {"k6": 1, "k4": 1}),
-        ("topn_stargazer", "repository", "TopN(frame=stargazer, n=10)",
-         tutorial_topn(counts, counts, 10), {}),
-        ("topn_stargazer_src", "repository",
-         "TopN(Bitmap(frame=language, language_id=3), frame=stargazer, n=10)",
-         tutorial_topn(l3_scores, counts, 10), {"k4": 1}),
-        ("bitmap_molecule", "mole", M.format(m1), {"attrs": {}, "bits": [int(v) for v in fm1]},
-         {"k6": 1}),
-        ("count_molecules", "mole", f"Count(Intersect({M.format(m1)}, {M.format(m2)}))",
-         len(np.intersect1d(fm1, fm2)), {"k5": 1}),
-        ("topn_tanimoto", "mole",
-         f"TopN({M.format(FP_QUERY)}, frame=fingerprint, inverse=true, n=100, "
-         "tanimotoThreshold=70)", tani_want, {"k1": 1, "k4": 1}),
-    ]
+    queries = tutorial_queries(users, repos, lang, rows, mole)
     kernels = {"k1": fp, "k4": sp, "k5": ac, "k6": ep}
     out: dict = {"latencies_ms": {}, "launches": {}, "rows": {"a": a, "b": b, "c": c, "d": d,
                                                              "r": r, **inv_rows}}
@@ -2344,6 +2396,11 @@ def tutorials_and_check(ac, ep, fp, sp, bp, InternalClient, srv, rng) -> dict:
     if a not in stars[x >> 20]._sparse:
         raise AssertionError("phase 10: the written row left the sparse tier")
     run("count_after_setbit", "repository", queries[0][2], queries[0][3] + 1, {"k5": 1})
+    # The oracle with the written star, for phase 12 on this directory.
+    n_repos = STAR_SLICES << 20
+    key = np.union1d(users * n_repos + repos, [a * n_repos + x])
+    out["stars"] = (key // n_repos, key % n_repos)
+    out["queries"] = tutorial_queries(*out["stars"], lang, rows, mole)
     for name, ms in out["latencies_ms"].items():
         log(f"phase 10: {name} p50 {ms:.3f} ms over {REPS} requests, launches "
             f"{out['launches'][name]}")
@@ -2360,9 +2417,10 @@ def recovery_and_check(Server, ds) -> dict:
     acknowledged writes the op-log lacks); the op-log's last record is
     torn (3 bytes cut); the node reopens on the card and must answer the
     oracle — the op-log's whole records plus the WAL's later ops —
-    count one repair and two replayed ops, remove the segment, apply a
-    later write with one K7 launch, and answer the same after a second
-    reopen (no op replayed twice)."""
+    count one repair and two replayed ops, restart the segment at its
+    checkpoint snapshot (the JAX package's behaviour), apply a later write
+    with one K7 launch, and answer the same after a second reopen (no op
+    replayed twice)."""
     from pilosa_tpu_torch.core import fragment as fragment_mod
     from pilosa_tpu_torch.ingest import wal
     from pilosa_tpu_torch.ops import roaring
@@ -2413,9 +2471,12 @@ def recovery_and_check(Server, ds) -> dict:
             c1 = fragment_mod.counters()
             repaired = c1["oplogRepair"] - c0["oplogRepair"]
             replayed = c1["walReplayedOps"] - c0["walReplayedOps"]
-            if (repaired, replayed) != (1, 2) or os.path.exists(wal.wal_path(path)):
+            seg = wal.load_segment(wal.wal_path(path))
+            if (repaired, replayed) != (1, 2) or seg is None or seg.n_ops != 0 \
+                    or seg.snap_size != os.path.getsize(path):
                 raise AssertionError(f"phase 11: repairs {repaired}, replayed ops {replayed} "
-                                     "(want 1, 2), or the segment is left behind")
+                                     "(want 1, 2), or the segment was not restarted at the "
+                                     "checkpoint snapshot")
             check("reopened", srv)
             ds.launches = 0
             status, body = http(srv.host, "POST", "/index/r/query",
@@ -2441,6 +2502,284 @@ def recovery_and_check(Server, ds) -> dict:
         "oracle after reopening, after a write (1 delta_scatter launch) and after a second "
         "reopen (nothing replayed twice)")
     return {"repaired": repaired, "replayed": replayed, "k7_launches": 1}
+
+
+def sparse_after_reopen(srv, users, repos) -> list:
+    """Two queries over the two stargazers of most stars whose rows are
+    compressed positions in both star fragments of ``srv`` (phase 10's
+    rows a and b may be plane rows after a reopen, which puts each
+    fragment's densest rows in the plane): their Count(Intersect) (K5)
+    and the first one's Bitmap (K6), with the oracle of ``(users,
+    repos)``."""
+    from pilosa_tpu_torch.ops import bitplane as bp
+
+    stars = [srv.holder.fragment("repository", "stargazer", "standard", s)
+             for s in range(STAR_SLICES)]
+    counts = np.stack([np.bincount(users[(repos >> 20) == s], minlength=STAR_USERS)
+                       for s in range(STAR_SLICES)])
+    picked = []
+    for u in np.argsort(-counts.sum(0), kind="stable"):
+        u = int(u)
+        if all(counts[s, u] > 0 and u in f._sparse and f.host_payload(u)[0] == bp.FMT_SPARSE
+               for s, f in enumerate(stars)):
+            picked.append(u)
+            if len(picked) == 2:
+                break
+    u, v = picked
+    ru, rv = row_of(users, repos, u), row_of(users, repos, v)
+    B = "Bitmap(frame=stargazer, stargazer_id={})"
+    return [
+        ("count_sparse_after_reopen", "repository",
+         f"Count(Intersect({B.format(u)}, {B.format(v)}))", len(np.intersect1d(ru, rv)),
+         {"k5": 1}),
+        ("bitmap_sparse_after_reopen", "repository", B.format(u),
+         {"attrs": {}, "bits": [int(x) for x in ru]}, {"k6": 1}),
+    ]
+
+
+def residency_and_check(Server, data_dir: str, tutorials: dict, kernels: dict) -> dict:
+    """Phase 12, residency under a budget: every other node is closed;
+    phase 10's directory reopens with ``hbm_budget_bytes`` =
+    RESIDENCY_BUDGET, restarting from its ``.residency.json`` (staging
+    runs in the background); phase 10's query classes alternate between
+    ``repository`` and ``mole``, each answer against the oracle with the
+    written star, and after every query the pool's and the allocator's
+    numbers are printed and checked: resident bytes within the budget
+    outside pinned saturation, ``memory_allocated()`` within the budget
+    plus RESIDENCY_SLACK, once the query is answered and the prefetcher
+    idle (a saturation ends with the lease or upload that caused it);
+    evictions > 0; a query that pins both 8 GiB star mirrors saturates
+    (``overBudget`` grows) and still answers right.
+    Then one eviction-driven re-upload of an 8 GiB mirror is timed."""
+    import torch
+
+    from pilosa_tpu_torch import device as device_mod
+
+    pool = device_mod.pool()
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    c0 = pool.counters()
+    for k in kernels.values():
+        k.launches = 0  # the main path starts here
+    t0 = time.perf_counter()
+    srv = Server(data_dir, host="127.0.0.1:0", device="cuda", hbm_budget_bytes=RESIDENCY_BUDGET)
+    srv.open()
+    t_open = time.perf_counter() - t0
+    out: dict = {"open_s": t_open, "queries": []}
+    try:
+        job = srv.staging_job
+        staged_at = {}
+
+        def watch():
+            job.wait()
+            staged_at["s"] = time.perf_counter() - t0
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        queries = tutorials["queries"] + sparse_after_reopen(srv, *tutorials["stars"])
+        repo_q = [q for q in queries if q[1] == "repository"]
+        mole_q = [q for q in queries if q[1] == "mole"]
+        order = []
+        for _ in range(RESIDENCY_ROUNDS):
+            for i, q in enumerate(repo_q):
+                order += [q, mole_q[i % len(mole_q)]]
+        dev = srv.device
+        saturated_both = []
+        for n, (name, index, pql, want, _) in enumerate(order):
+            cb = pool.counters()
+            q0 = time.perf_counter()
+            status, body = http(srv.host, "POST", f"/index/{index}/query", pql.encode())
+            q1 = time.perf_counter()
+            if status != 200 or body["results"] != [want]:
+                raise AssertionError(f"phase 12 {name}: {status} {str(body)[:300]} != "
+                                     f"{str(want)[:300]}")
+            if n == 0:
+                out["first_answer_s"] = q1 - t0
+            srv.executor.prefetcher.wait_idle(600)
+            torch.cuda.synchronize()
+            c = pool.counters()
+            resident, high = pool.resident_bytes(dev), pool.max_resident_bytes(dev)
+            alloc = torch.cuda.memory_allocated() - base
+            reserved = torch.cuda.memory_reserved()
+            saturated = c["overBudget"] > cb["overBudget"]
+            row = {"name": name, "ms": (q1 - q0) * 1e3, "resident": resident, "high": high,
+                   "alloc": alloc, "reserved": reserved, "saturated": saturated,
+                   **{k: c[k] - c0[k] for k in ("evictions", "evictSkipped", "overBudget",
+                                                "restageBytes")}}
+            out["queries"].append(row)
+            log(f"phase 12: {name} on {index} {row['ms']:.3f} ms; resident "
+                f"{resident / 2**30:.3f} GiB (high {high / 2**30:.3f}), evictions "
+                f"{row['evictions']}, skipped {row['evictSkipped']}, over budget "
+                f"{row['overBudget']}, restaged {row['restageBytes'] / 2**30:.3f} GiB; "
+                f"memory_allocated {alloc / 2**30:.3f} GiB over the base, reserved "
+                f"{reserved / 2**30:.3f} GiB")
+            if saturated and index == "repository":
+                saturated_both.append(name)
+            # Between queries nothing is pinned or uploading: the pool has
+            # evicted back to the budget, and the allocator holds no more.
+            if resident > RESIDENCY_BUDGET:
+                raise AssertionError(f"phase 12 {name}: {resident} bytes resident over the "
+                                     f"budget {RESIDENCY_BUDGET} after the query")
+            if alloc > RESIDENCY_BUDGET + RESIDENCY_SLACK:
+                raise AssertionError(f"phase 12 {name}: {alloc} bytes allocated over the "
+                                     f"budget {RESIDENCY_BUDGET}")
+        c = pool.counters()
+        out.update({k: c[k] - c0[k] for k in c})
+        out["launches"] = {k: m.launches for k, m in kernels.items()}  # the main path ends here
+        if out["evictions"] <= 0:
+            raise AssertionError("phase 12: nothing was evicted under the budget")
+        if not saturated_both:
+            raise AssertionError("phase 12: no query pinned both star mirrors into saturation")
+        missing = [k for k, v in out["launches"].items() if v == 0]
+        if missing:
+            raise AssertionError(f"phase 12 launched no {missing}")
+        if not job.wait(600):
+            raise AssertionError("phase 12: staging did not finish")
+        watcher.join(10)
+        out["staged_s"] = staged_at.get("s")
+        out["staging"] = job.snapshot()
+        # One eviction-driven re-upload: a mole query evicted the star
+        # mirrors; the upload's admission evicts the mole mirror.
+        star = srv.holder.fragment("repository", "stargazer", "standard", 0)
+        status, _ = http(srv.host, "POST", "/index/mole/query", mole_q[-1][2].encode())
+        srv.executor.prefetcher.wait_idle(600)
+        ev = pool.counters()["evictions"]
+        if star._mirror is not None or status != 200:
+            raise AssertionError("phase 12: the star mirror stayed resident after a mole query")
+        torch.cuda.synchronize()
+        u0 = time.perf_counter()
+        star.device_plane()
+        torch.cuda.synchronize()
+        out["reupload_s"] = time.perf_counter() - u0
+        out["reupload_bytes"] = star.plane_nbytes
+        out["reupload_evictions"] = pool.counters()["evictions"] - ev
+    finally:
+        srv.close()
+    log(f"phase 12: opened in {out['open_s']:.3f} s; first answer {out['first_answer_s']:.3f} s "
+        f"after open began; staging {out['staging']} done {out['staged_s']:.3f} s after; "
+        f"evictions {out['evictions']}, skipped {out['evictSkipped']}, over budget "
+        f"{out['overBudget']} (saturating queries {saturated_both}), restaged "
+        f"{out['restageBytes'] / 2**30:.3f} GiB in {out['restageUploads']} uploads; "
+        f"prefetch hits {out['prefetchHit']}, misses {out['prefetchMiss']}; launches "
+        f"{out['launches']}")
+    log(f"phase 12: an eviction-driven re-upload of {out['reupload_bytes'] / 2**30:.3f} GiB took "
+        f"{out['reupload_s']:.3f} s ({out['reupload_bytes'] / out['reupload_s'] / 1e9:.2f} GB/s; "
+        f"{out['reupload_evictions']} eviction(s) made its room); PR 6 measured re-uploads at "
+        "10.4 GB/s, which predicts ~0.8 s")
+    return out
+
+
+def durability_and_check(Server, kernels: dict) -> dict:
+    """Phase 13, durability: on a node of its own with the WAL on (the
+    default), DURABLE_THREADS threads each send DURABLE_WRITES SetBits
+    over HTTP across DURABLE_SLICES slices; the data directory is copied
+    while the node is open and a second port node opens the copy, which
+    must hold every acknowledged bit; ``/debug/ingest`` must show fewer
+    fsyncs than appends (the group commit); then serial SetBit p50/p99
+    with the WAL on and off, in turns on the same card."""
+    import shutil
+
+    rng = np.random.default_rng(SEED + 13)
+    out: dict = {}
+    for k in kernels.values():
+        k.launches = 0  # the main path starts here
+    with tempfile.TemporaryDirectory(prefix="pilosa-torch-durable-") as root:
+        live, copy = os.path.join(root, "live"), os.path.join(root, "copy")
+        srv = Server(live, host="127.0.0.1:0", device="cuda")
+        srv.open()
+        try:
+            for path in ("/index/d", "/index/d/frame/f"):
+                status, body = http(srv.host, "POST", path)
+                if status != 200:
+                    raise AssertionError(f"POST {path}: {status} {body}")
+            n = DURABLE_THREADS * DURABLE_WRITES
+            rows = rng.integers(0, DURABLE_ROWS, n)
+            cols = rng.integers(0, DURABLE_SLICES << 20, n)
+            acked = [[] for _ in range(DURABLE_THREADS)]
+            times = [[] for _ in range(DURABLE_THREADS)]
+
+            def writer(t):
+                for i in range(t * DURABLE_WRITES, (t + 1) * DURABLE_WRITES):
+                    q0 = time.perf_counter()
+                    status, body = http(srv.host, "POST", "/index/d/query",
+                                        f"SetBit(frame=f, rowID={rows[i]}, "
+                                        f"columnID={cols[i]})".encode())
+                    times[t].append(time.perf_counter() - q0)
+                    if status != 200:
+                        raise AssertionError(f"phase 13 SetBit: {status} {body}")
+                    acked[t].append(i)
+
+            w0 = time.perf_counter()
+            with ThreadPoolExecutor(DURABLE_THREADS) as ex:
+                for f in [ex.submit(writer, t) for t in range(DURABLE_THREADS)]:
+                    f.result()
+            out["write_s"] = time.perf_counter() - w0
+            lat = sorted(x for ts in times for x in ts)
+            out["concurrent_p50_ms"] = lat[len(lat) // 2] * 1e3
+            out["concurrent_p99_ms"] = lat[int(len(lat) * 0.99)] * 1e3
+            status, ing = http(srv.host, "GET", "/debug/ingest")
+            wal = ing["wal"]
+            out["appends"], out["fsyncs"] = wal["totalAppends"], wal["totalFsyncs"]
+            if status != 200 or not out["fsyncs"] < out["appends"]:
+                raise AssertionError(f"phase 13: fsyncs {out['fsyncs']} not below appends "
+                                     f"{out['appends']}")
+            shutil.copytree(live, copy)  # while the node is open
+        finally:
+            srv.close()
+        idx = np.concatenate([np.asarray(a, np.int64) for a in acked])
+        want = {r: sorted({int(c) for c in cols[idx][rows[idx] == r]}) for r in range(DURABLE_ROWS)}
+        if sum(len(v) for v in want.values()) != out["appends"]:
+            raise AssertionError(f"phase 13: {out['appends']} appends for "
+                                 f"{sum(len(v) for v in want.values())} distinct bits")
+        other = Server(copy, host="127.0.0.1:0", device="cuda")
+        other.open()
+        try:
+            for r in range(DURABLE_ROWS):
+                for pql, expect in ((f"Bitmap(frame=f, rowID={r})", {"attrs": {}, "bits": want[r]}),
+                                    (f"Count(Bitmap(frame=f, rowID={r}))", len(want[r]))):
+                    status, body = http(other.host, "POST", "/index/d/query", pql.encode())
+                    if status != 200 or body["results"] != [expect]:
+                        raise AssertionError(f"phase 13: the copy answers {pql} with {status} "
+                                             f"{str(body)[:200]}")
+            out["replayed"] = http(other.host, "GET", "/debug/ingest")[1]["wal"]["replayedOps"]
+        finally:
+            other.close()
+        out["launches"] = {k: m.launches for k, m in kernels.items()}  # the main path ends here
+        if out["launches"]["k1"] == 0:
+            raise AssertionError("phase 13 launched no fused_popcount")
+        # Serial SetBits, the WAL on and off in turns (on, off, off, on).
+        serial: dict = {True: [], False: []}
+        for turn, wal_on in enumerate((True, False, False, True)):
+            d = os.path.join(root, f"serial{turn}")
+            s2 = Server(d, host="127.0.0.1:0", device="cuda", ingest_wal=wal_on)
+            s2.open()
+            try:
+                for path in ("/index/d", "/index/d/frame/f"):
+                    http(s2.host, "POST", path)
+                for i in range(SERIAL_WRITES):
+                    q0 = time.perf_counter()
+                    status, body = http(s2.host, "POST", "/index/d/query",
+                                        f"SetBit(frame=f, rowID=1, columnID={i * 7919})".encode())
+                    serial[wal_on].append(time.perf_counter() - q0)
+                    if status != 200:
+                        raise AssertionError(f"phase 13 serial SetBit: {status} {body}")
+            finally:
+                s2.close()
+        for wal_on, ts in serial.items():
+            ts.sort()
+            key = "wal_on" if wal_on else "wal_off"
+            out[f"serial_{key}_p50_ms"] = ts[len(ts) // 2] * 1e3
+            out[f"serial_{key}_p99_ms"] = ts[int(len(ts) * 0.99)] * 1e3
+    log(f"phase 13: {n} SetBits from {DURABLE_THREADS} threads over {DURABLE_SLICES} slices in "
+        f"{out['write_s']:.3f} s (p50 {out['concurrent_p50_ms']:.3f} ms, p99 "
+        f"{out['concurrent_p99_ms']:.3f} ms); WAL appends {out['appends']}, fsyncs "
+        f"{out['fsyncs']}; the copy made while open holds every acknowledged bit "
+        f"({out['replayed']} ops replayed from its segments); launches {out['launches']}")
+    log(f"phase 13: serial SetBit p50 / p99 with the WAL {out['serial_wal_on_p50_ms']:.3f} / "
+        f"{out['serial_wal_on_p99_ms']:.3f} ms, without {out['serial_wal_off_p50_ms']:.3f} / "
+        f"{out['serial_wal_off_p99_ms']:.3f} ms ({2 * SERIAL_WRITES} requests each, in turns)")
+    return out
 
 
 def main() -> int:
@@ -2531,7 +2870,14 @@ def main() -> int:
                                             np.random.default_rng(SEED + 10))
         finally:
             srv.close()
-    recovery_and_check(Server, ds)
+        recovery_and_check(Server, ds)
+        # Phase 12 reopens phase 10's directory under a budget, every
+        # other node closed.
+        del srv
+        gc.collect()
+        resident = residency_and_check(Server, data_dir, tutorials,
+                                       {"k1": fp, "k4": sp, "k5": ac, "k6": ep})
+    durable = durability_and_check(Server, {"k1": fp})
 
     k7 = k7_times[K7_SHAPES[1]]  # every slice's queue in one launch, as phase 7 flushes
     kernels = [
@@ -2542,10 +2888,13 @@ def main() -> int:
             "replaces": fp.REPLACES,
             "launches": served["launches"] + clustered["launches"]
             + valued["launches"]["k1"] + timed["launches"] + ranked["launches"]
-            + tutorials["totals"]["k1"],
+            + tutorials["totals"]["k1"] + resident["launches"]["k1"]
+            + durable["launches"]["k1"],
             "launches_by_phase": {"5": served["launches"], "6": clustered["launches"],
                                   "7": valued["launches"]["k1"], "8": timed["launches"],
-                                  "9": ranked["launches"], "10": tutorials["totals"]["k1"]},
+                                  "9": ranked["launches"], "10": tutorials["totals"]["k1"],
+                                  "12": resident["launches"]["k1"],
+                                  "13": durable["launches"]["k1"]},
             "max_abs_err": max_err,
             "ms": k_ms,
             "device_ms": k_dev,
@@ -2611,9 +2960,10 @@ def main() -> int:
         "source": sp.SOURCE,
         "replaces": sp.REPLACES,
         "launches": served["k4_launches"] + clustered["k4_launches"] + ranked["k4_launches"]
-        + tutorials["totals"]["k4"],
+        + tutorials["totals"]["k4"] + resident["launches"]["k4"],
         "launches_by_phase": {"5": served["k4_launches"], "6": clustered["k4_launches"],
-                              "9": ranked["k4_launches"], "10": tutorials["totals"]["k4"]},
+                              "9": ranked["k4_launches"], "10": tutorials["totals"]["k4"],
+                              "12": resident["launches"]["k4"]},
         "max_abs_err": k4_err,
         "ms": k4["ms"],
         "device_ms": k4["device_ms"],
@@ -2631,8 +2981,8 @@ def main() -> int:
         "route": "cuda",
         "source": ac.SOURCE,
         "replaces": ac.REPLACES,
-        "launches": tutorials["totals"]["k5"],
-        "launches_by_phase": {"10": tutorials["totals"]["k5"]},
+        "launches": tutorials["totals"]["k5"] + resident["launches"]["k5"],
+        "launches_by_phase": {"10": tutorials["totals"]["k5"], "12": resident["launches"]["k5"]},
         "max_abs_err": k5_err,
         "ms": k5_times["ms"],
         "device_ms": k5_times["device_ms"],
@@ -2649,8 +2999,8 @@ def main() -> int:
         "route": "cuda",
         "source": ep.SOURCE,
         "replaces": ep.REPLACES,
-        "launches": tutorials["totals"]["k6"],
-        "launches_by_phase": {"10": tutorials["totals"]["k6"]},
+        "launches": tutorials["totals"]["k6"] + resident["launches"]["k6"],
+        "launches_by_phase": {"10": tutorials["totals"]["k6"], "12": resident["launches"]["k6"]},
         "max_abs_err": k6_err,
         "ms": k6["ms"],
         "device_ms": k6["device_ms"],

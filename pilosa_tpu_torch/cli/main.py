@@ -3,9 +3,15 @@
     python -m pilosa_tpu_torch.cli server --data-dir D --bind H:P [--device cuda]
         [--cluster-type static|http --hosts H1:P1,H2:P2 [--internal-hosts ...]
          --replicas N --internal-port P --polling-interval S]
+        [--plane-format auto|dense] [--hbm-budget-bytes N] [--prefetch true|false]
+        [--wal true|false --group-commit-ms MS --group-commit-max N
+         --wal-segment-bytes N]
 
 runs one node until SIGINT/SIGTERM.  The device defaults to the CUDA
-card; ``--device cpu`` runs on the CPU.
+card; ``--device cpu`` runs on the CPU.  The last flags name the JAX
+package's ``[device]`` and ``[ingest]`` keys (``plane-format``,
+``hbm-budget-bytes``, ``prefetch``, ``wal``, ``group-commit-ms``,
+``group-commit-max``, ``wal-segment-bytes``) with their defaults.
 
     python -m pilosa_tpu_torch.cli import --host H:P -i INDEX -f FRAME FILE.csv ...
 
@@ -41,6 +47,15 @@ def _hosts(value: str) -> list[str]:
     return [h.strip() for h in value.split(",") if h.strip()]
 
 
+def _bool(value: str) -> bool:
+    v = value.strip().lower()
+    if v in ("true", "1", "yes", "on"):
+        return True
+    if v in ("false", "0", "no", "off"):
+        return False
+    raise argparse.ArgumentTypeError(f"not a boolean: {value!r}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pilosa_tpu_torch")
     p.add_argument("--version", action="version", version=__version__)
@@ -59,6 +74,18 @@ def build_parser() -> argparse.ArgumentParser:
     srv.add_argument("--replicas", type=int, default=1)
     srv.add_argument("--internal-port", type=int, default=14000)
     srv.add_argument("--polling-interval", type=float, default=60.0)
+    srv.add_argument("--plane-format", default="auto", choices=("auto", "dense"),
+                     help="the sparse tier's container policy")
+    srv.add_argument("--hbm-budget-bytes", type=int, default=0,
+                     help="device-memory budget of the residency pool (0: "
+                     "$PILOSA_DEVICE_HBM_BUDGET_BYTES, else 0.8 of the card)")
+    srv.add_argument("--prefetch", type=_bool, default=True,
+                     help="upload a query's cold mirrors in the background")
+    srv.add_argument("--wal", type=_bool, default=True,
+                     help="answer writes after their WAL fsync")
+    srv.add_argument("--group-commit-ms", type=float, default=2.0)
+    srv.add_argument("--group-commit-max", type=int, default=128)
+    srv.add_argument("--wal-segment-bytes", type=int, default=4 << 20)
     imp = sub.add_parser("import", help="bulk-import CSV bits (row,col[,timestamp])")
     imp.add_argument("--host", default="localhost:10101", help="host:port of a node")
     imp.add_argument("-i", "--index", required=True)
@@ -88,6 +115,13 @@ def run_server(args) -> int:
         replicas=args.replicas,
         internal_port=args.internal_port,
         polling_interval=args.polling_interval,
+        plane_format=args.plane_format,
+        hbm_budget_bytes=args.hbm_budget_bytes,
+        device_prefetch=args.prefetch,
+        ingest_wal=args.wal,
+        ingest_group_commit_ms=args.group_commit_ms,
+        ingest_group_commit_max=args.group_commit_max,
+        ingest_wal_segment_bytes=args.wal_segment_bytes,
     )
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):

@@ -36,7 +36,22 @@ fragment.go).  Here, as in ``pilosa_tpu.core.fragment``:
 * **Writes** go to the host plane and append 13-byte ops to the file;
   after ``max_op_n`` ops the fragment snapshots (full roaring
   serialization to ``<path>.snapshotting`` renamed over the data file,
-  reference: fragment.go:1006-1074).
+  reference: fragment.go:1006-1074).  With a WAL writer attached (a
+  ``Server`` with its WAL on, ``ingest/wal.py``) the op-log is buffered
+  as in the JAX package (``_op_buf``, flushed at 64 KiB, at a snapshot
+  and at close) and every op also goes to the fragment's WAL segment,
+  whose group-commit fsync the acknowledgement waits for; each snapshot
+  restarts the segment.  Without one, each op is written to the file as
+  it happens.
+* **Residency** goes through the process-wide pool
+  (``device/pool.py``): the mirror is admitted at its plane's bytes
+  before each upload, and the paged sparse payloads are one entry at
+  their compressed bytes.  Under a budget the pool evicts unpinned
+  entries in LRU order through ``_evict_mirror`` /
+  ``_evict_sparse_rows``, which take the fragment lock only if it is
+  free; an evicted mirror's queue is dropped with it (the host plane
+  already holds every write), so the next read uploads the current
+  plane.
 * **TopN** keeps the reference's ranked-cache candidate selection and
   splits the scoring as the JAX package does: ``top_prepare_parts`` /
   ``top_prepare_union_parts`` capture the mirror and the candidates'
@@ -64,19 +79,21 @@ fragment.go).  Here, as in ``pilosa_tpu.core.fragment``:
 * **Recovery on open**, as in the JAX package: an op-log whose tail was
   torn by a crash mid-append is cut back to its last whole record (only
   inside the last flush window, and only once the prefix is shown to
-  decode); a JAX node's WAL segment (``<path>.wal``, ``ingest/wal.py``)
-  has its ops past the op-log replayed (``ingest/recovery.py``), then
-  the fragment snapshots and the segment is removed, so that no op is
-  replayed twice over later writes.
+  decode); the WAL segment (``<path>.wal``) has its ops past the op-log
+  replayed (``ingest/recovery.py``) and the fragment checkpoints with a
+  snapshot, then keeps writing the segment (``IngestManager.attach``).
+  With the WAL off the segment is replayed the same way and then
+  removed, since nothing would log to it and a later open would replay
+  it again over newer writes.
 
-The JAX package's WAL writer, block checksums, residency pool and
-prefetch are not ported yet.
+The JAX package's block checksums are not ported yet.
 """
 
 from __future__ import annotations
 
 import contextlib
 import fcntl
+import itertools
 import json
 import os
 import sys
@@ -137,6 +154,11 @@ def counters() -> dict:
 
 def _log(msg: str) -> None:
     print(f"fragment: {msg}", file=sys.stderr)
+
+
+# Process-unique fragment identities for the residency pool's keys: unlike
+# id(), a serial is never reused by a later fragment.
+_fragment_serials = itertools.count(1)
 
 
 @dataclass
@@ -301,6 +323,11 @@ class Fragment:
         self.max_op_n = max_op_n
         self.dense_row_budget = DENSE_ROW_BUDGET if dense_row_budget is None else dense_row_budget
         self.row_attr_store = None  # wired by View
+        # Residency-pool keys (device/pool.py): the plane mirror and the
+        # paged sparse payloads are accounted apart.
+        self._serial = next(_fragment_serials)
+        self._pool_key = ("frag", self._serial, "mirror")
+        self._sparse_pool_key = ("frag", self._serial, "sparse")
 
         self._mu = threading.RLock()
         self._plane = bp.empty_plane(bp.ROW_BLOCK)
@@ -314,9 +341,11 @@ class Fragment:
         # (the next read re-selects the format at the row's new density).
         self._payload_cache: dict[int, tuple] = {}
         # Sparse rows paged to the device: row id -> (fmt, int32 tensor of
-        # the payload's real entries, encoded nbytes), LRU.  The tensors
-        # are never written in place.
+        # the payload's real entries, encoded nbytes), LRU, and the sum of
+        # their encoded bytes (the pool entry's size).  The tensors are
+        # never written in place.
         self._sparse_dev: OrderedDict[int, tuple] = OrderedDict()
+        self._sparse_dev_nbytes = 0
         self._count_of: dict[int, int] = {}
         self._op_n = 0
         # int32 bit-view mirror of _plane on self.device; None = stale
@@ -327,8 +356,13 @@ class Fragment:
         self._pending: list[np.ndarray] = []
         self._pending_n = 0
         self._file = None
+        # Op-log records not yet written to the file (only while a WAL
+        # writer is attached; see _append_op).
+        self._op_buf = bytearray()
+        # The WAL writer attached at open (ingest/wal.py), or None.
+        self._wal = None
         # Set while a WAL replay writes: ops stay out of the op-log and
-        # the auto-snapshot waits for the replay's end.
+        # the WAL, and the auto-snapshot waits for the replay's end.
         self._replaying = False
         self.cache = cache_mod.new_cache(cache_type, cache_size)
 
@@ -401,15 +435,16 @@ class Fragment:
         return decoded
 
     def _recover_wal(self) -> None:
-        """Replay a JAX node's WAL segment (the reader branches of JAX
-        ``IngestManager.attach``, ``ingest/wal.py:455-505``): a segment
+        """Attach the fragment to the WAL manager that owns its path,
+        which replays its segment and keeps a writer
+        (``IngestManager.attach``).  Where none does (the WAL is off), a
+        segment found here is replayed by the same rules — a segment
         cut against another snapshot (stale) or whose ops do not extend
-        the op-log (diverged) is discarded; otherwise its ops past the
-        op-log are replayed and the fragment snapshots.  The segment is
-        then removed: the port logs no ops to it, so a segment left
-        behind would be replayed again after the snapshot reset the op
-        count, over whatever was written since.  A JAX node opening the
-        directory later starts a fresh segment."""
+        the op-log (diverged) is discarded — and then removed: nothing
+        logs to it, so it would be replayed again after the snapshot
+        reset the op count, over whatever was written since."""
+        if wal.attach_fragment(self):
+            return
         path = wal.wal_path(self.path)
         seg = wal.load_segment(path)
         if seg is None:
@@ -422,9 +457,8 @@ class Fragment:
             _log(f"discarding diverged wal segment {path} (data op-log is not a prefix "
                  f"of the logged ops; {len(seg.frames)} frames forfeited)")
         else:
-            replayed = recovery.replay(self, seg)
+            replayed = recovery.replay(self, seg)["replayed"]
             if replayed:
-                _count("walReplayedOps", replayed)
                 self.snapshot()
                 _log(f"{self.path}: replayed {replayed} wal ops"
                      + (f" (torn tail: {seg.problem})" if seg.torn else ""))
@@ -474,17 +508,26 @@ class Fragment:
         self._count_of = counts
         self._payload_cache.clear()
         self._sparse_dev.clear()
+        self._sync_sparse_pool_locked()
         self._invalidate_device()
 
     def close(self) -> None:
         with self._mu:
+            if self._wal is not None:
+                # The final group commit; waiters resolve durable (or
+                # fail with WalClosed when the commit fails).
+                writer, self._wal = self._wal, None
+                writer._manager.detach(writer)
             if self._file is not None:
+                self._flush_ops_locked()
                 self.flush_cache()
                 fcntl.flock(self._file.fileno(), fcntl.LOCK_UN)
                 self._file.close()
                 self._file = None
+            # Device memory goes back now, with both pool entries.
             self._invalidate_device()
             self._sparse_dev.clear()
+            self._sync_sparse_pool_locked()
 
     @property
     def cache_path(self) -> str:
@@ -573,7 +616,8 @@ class Fragment:
             return
         del self._sparse[row_id]
         self._payload_cache.pop(row_id, None)
-        self._sparse_dev.pop(row_id, None)
+        if self._sparse_dev.pop(row_id, None) is not None:
+            self._sync_sparse_pool_locked()
         slot = len(self._slot_of)
         self._slot_of[row_id] = slot
         self._reserve(slot + 1)
@@ -591,10 +635,70 @@ class Fragment:
 
     def _invalidate_device(self) -> None:
         """Drop the mirror and its queued deltas: the next read uploads
-        the host plane, which already holds every write."""
+        the host plane, which already holds every write.  The pool
+        drops the mirror's entry with it."""
         self._mirror = None
         self._pending.clear()
         self._pending_n = 0
+        device_mod.pool().remove(self._pool_key)
+
+    def _pool_info(self) -> dict:
+        return {"fragment": f"{self.index}/{self.frame}/{self.view}/{self.slice}",
+                "slice": self.slice}
+
+    def _evict_mirror(self) -> bool:
+        """The pool's eviction hook for the mirror (JAX
+        ``core/fragment.py:1279``): drop it and its queue together,
+        under the fragment lock — the queued deltas describe the dropped
+        tensor, and the next upload of the host plane already holds
+        them.  Non-blocking: a fragment whose lock is taken is in use,
+        and the pool skips it."""
+        if not self._mu.acquire(blocking=False):
+            return False
+        try:
+            self._mirror = None
+            self._pending.clear()
+            self._pending_n = 0
+            return True
+        finally:
+            self._mu.release()
+
+    def _evict_sparse_rows(self) -> bool:
+        """The pool's eviction hook for the paged sparse payloads: page
+        them all out (they page in again from the host offsets)."""
+        if not self._mu.acquire(blocking=False):
+            return False
+        try:
+            self._sparse_dev.clear()
+            self._sparse_dev_nbytes = 0
+            return True
+        finally:
+            self._mu.release()
+
+    def _sync_sparse_pool_locked(self) -> None:
+        """Account the paged sparse payloads again after they changed
+        (page-in, a write, a promotion, a bulk load, close): their
+        encoded bytes, with the dense bytes they stand for and their
+        format mix as the entry's annotations (JAX
+        ``core/fragment.py:1313``)."""
+        self._sparse_dev_nbytes = sum(e[2] for e in self._sparse_dev.values())
+        pool = device_mod.pool()
+        if not self._sparse_dev:
+            pool.remove(self._sparse_pool_key)
+            return
+        mix: dict[str, int] = {}
+        for fmt, _dev, _nb in self._sparse_dev.values():
+            name = bp.FMT_NAMES.get(fmt, str(fmt))
+            mix[name] = mix.get(name, 0) + 1
+        info = dict(self._pool_info(), logical_bytes=len(self._sparse_dev) * ROW_NBYTES,
+                    formats=mix)
+        pool.resize(self._sparse_pool_key, {self.device: self._sparse_dev_nbytes}, info=info)
+
+    @property
+    def plane_nbytes(self) -> int:
+        """The host plane's bytes: what its mirror costs on the device,
+        and what restart staging orders and accounts by."""
+        return int(self._plane.nbytes)
 
     def _queue_locked(self, chunks: list[np.ndarray]) -> None:
         """Queue code chunks for the resident mirror; a queue that would
@@ -633,7 +737,12 @@ class Fragment:
         with self._mu:
             if self._mirror is None or not self._pending_n:
                 return False
-            scatter.apply_many([(self._mirror, self._pending)])
+            pool = device_mod.pool()
+            held = pool.pin_many([self._pool_key])
+            try:
+                scatter.apply_many([(self._mirror, self._pending)])
+            finally:
+                pool.unpin_many(held)
             self._pending = []
             self._pending_n = 0
             return True
@@ -645,13 +754,44 @@ class Fragment:
     def device_plane(self) -> torch.Tensor:
         """The int32 bit-view mirror of the plane on the fragment's
         device: its queue applied first (one K7 launch of its own, where
-        no batched flush took it), uploaded when stale."""
+        no batched flush took it), uploaded when stale.  The upload is
+        admitted through the residency pool first, so LRU mirrors are
+        evicted to make room (JAX ``core/fragment.py:1347``); a failed
+        upload leaves no entry and raises."""
         with self._mu:
             if self._mirror is None:
-                self._mirror = bp.to_device(self._plane, self.device)
+                self._upload_locked()
             else:
+                device_mod.pool().touch(self._pool_key)
                 self.apply_pending_scatter()
             return self._mirror
+
+    def _upload_locked(self) -> None:
+        pool = device_mod.pool()
+        nbytes = self.plane_nbytes
+        pool.admit(self._pool_key, {self.device: nbytes}, self._evict_mirror,
+                   category="mirror", info=self._pool_info())
+        try:
+            self._mirror = bp.to_device(self._plane, self.device)
+        except BaseException:
+            pool.remove(self._pool_key)
+            raise
+        pool.count_restage(nbytes)
+        self._pending.clear()
+        self._pending_n = 0
+        # Other owners that were busy while this one was admitted may be
+        # free now: back to the budget, this mirror spared.
+        pool.reclaim(exclude_key=self._pool_key)
+
+    def stage_mirror(self) -> bool:
+        """Upload the mirror if it is cold (the prefetcher's and restart
+        staging's call); True when this call uploaded it.  An open
+        fragment only."""
+        with self._mu:
+            if self._mirror is not None or self._file is None:
+                return False
+            self.device_plane()
+            return True
 
     def device_row(self, row_id: int) -> torch.Tensor | None:
         """One row on the device, or None when the row is absent: a view
@@ -687,16 +827,25 @@ class Fragment:
         offs = self._sparse.get(row_id)
         if offs is None:
             return None
+        pool = device_mod.pool()
         ent = self._sparse_dev.get(row_id)
         if ent is not None:
             self._sparse_dev.move_to_end(row_id)
+            pool.touch(self._sparse_pool_key)
             return ent
         fmt, payload, nbytes = self._host_payload_locked(row_id, offs)
-        real = bp.payload_entries(fmt, payload)
-        dev = bp.to_device(real, self.device)
+        # Admitted at the compressed bytes before the upload.
+        pool.admit(self._sparse_pool_key, {self.device: self._sparse_dev_nbytes + nbytes},
+                   self._evict_sparse_rows, category="sparse", info=self._pool_info())
+        try:
+            dev = bp.to_device(bp.payload_entries(fmt, payload), self.device)
+        except BaseException:
+            self._sync_sparse_pool_locked()
+            raise
         ent = self._sparse_dev[row_id] = (fmt, dev, nbytes)
         while len(self._sparse_dev) > SPARSE_DEVICE_CACHE:
             self._sparse_dev.popitem(last=False)
+        self._sync_sparse_pool_locked()
         return ent
 
     def _host_payload_locked(self, row_id: int, offs) -> tuple:
@@ -844,18 +993,47 @@ class Fragment:
         # Dropping the encoded payload is the format re-selection: the
         # next read encodes the row at its new density.
         self._payload_cache.pop(row_id, None)
-        self._sparse_dev.pop(row_id, None)
+        if self._sparse_dev.pop(row_id, None) is not None:
+            self._sync_sparse_pool_locked()
         n = self._count_of[row_id] = self._count_of.get(row_id, 0) + delta
         self.cache.add(row_id, n)
         self._op_n += 1
         if self._op_n >= self.max_op_n and not self._replaying:
             self.snapshot()
 
+    # The op buffer is written out once it holds this many bytes (~5k ops).
+    _OP_FLUSH_BYTES = roaring.OP_FLUSH_BYTES
+
     def _append_op(self, typ: int, pos: int) -> None:
-        if self._file is not None and not self._replaying:
+        """Record a changed op (not while a replay writes: its ops are
+        already logged).  With a WAL writer the record is buffered for
+        the op-log and logged to the WAL, whose fsync the acknowledgement
+        waits for (JAX ``core/fragment.py:1707``): the op-log stays a
+        prefix of the WAL's ops, which recovery requires.  Without one
+        it is written to the file at once."""
+        if self._file is None or self._replaying:
+            return
+        op = roaring.encode_op(typ, pos)
+        if self._wal is None:
             self._file.seek(0, os.SEEK_END)
-            self._file.write(roaring.encode_op(typ, pos))
+            self._file.write(op)
             self._file.flush()
+            return
+        self._op_buf += op
+        if len(self._op_buf) >= self._OP_FLUSH_BYTES:
+            self._flush_ops_locked()
+        try:
+            self._wal.log(typ, pos)
+        except wal.WalClosed:
+            # A shutdown race: the writer closed under us.
+            pass
+
+    def _flush_ops_locked(self) -> None:
+        if self._op_buf and self._file is not None:
+            self._file.seek(0, os.SEEK_END)
+            self._file.write(self._op_buf)
+            self._file.flush()
+        self._op_buf.clear()
 
     def import_bulk(
         self,
@@ -947,6 +1125,7 @@ class Fragment:
                 if slot is None:
                     self._payload_cache.pop(r, None)
                     self._sparse_dev.pop(r, None)
+            self._sync_sparse_pool_locked()
             self._recount(slot_of, deltas)
             for r in slot_of:
                 self._maybe_promote(r)
@@ -999,11 +1178,12 @@ class Fragment:
             self._count_of = {}
             self._payload_cache.clear()
             self._sparse_dev.clear()
+            self._sync_sparse_pool_locked()
             self.cache = cache_mod.new_cache(self.cache_type, self.cache_size)
             self._invalidate_device()
             self._recount({**self._slot_of, **{r: None for r in self._sparse}},
                           {s: counts[r] for r, s in self._slot_of.items()})
-            self._mirror = bp.to_device(self._plane, self.device)
+            self._upload_locked()
             self.snapshot()
 
     def _plane_write(self, set_slots, set_offs, clr_slots=None, clr_offs=None) -> dict:
@@ -1045,8 +1225,11 @@ class Fragment:
 
     def snapshot(self) -> None:
         """Full roaring serialization atomically renamed over the data
-        file; resets the op count (reference: fragment.go:1032-1074)."""
+        file; resets the op count (reference: fragment.go:1032-1074) and
+        restarts the WAL segment (JAX ``core/fragment.py:1891``)."""
         with self._mu:
+            # Buffered ops are in the serialized state below.
+            self._op_buf.clear()
             data = roaring.encode_tiered(*self._containers())
             tmp = self.path + ".snapshotting"
             with open(tmp, "wb") as fh:
@@ -1057,9 +1240,16 @@ class Fragment:
                 fcntl.flock(self._file.fileno(), fcntl.LOCK_UN)
                 self._file.close()
             os.replace(tmp, self.path)
+            # The rename is durable once its directory entry is: only
+            # then may the segment be truncated.
+            wal._fsync_dir(self.path)
             self._file = open(self.path, "a+b")
             fcntl.flock(self._file.fileno(), fcntl.LOCK_EX | fcntl.LOCK_NB)
             self._op_n = 0
+            if self._wal is not None:
+                # The snapshot holds every op the segment covers; its
+                # size names the snapshot the new segment is cut against.
+                self._wal.truncate_segment(len(data))
 
     def _containers(self) -> tuple[dict[int, np.ndarray], dict[int, np.ndarray]]:
         """Both tiers as roaring containers (JAX ``_containers_packed``,
@@ -1391,7 +1581,14 @@ def apply_pending_many(frags) -> int:
             locks.enter_context(f._mu)
         live = [f for f in todo if f._mirror is not None and f._pending_n]
         if live:
-            scatter.apply_many([(f._mirror, f._pending) for f in live])
+            # Pinned from the taking of the queues until the launch is
+            # enqueued (the held locks already make the pool skip them).
+            pool = device_mod.pool()
+            held = pool.pin_many([f._pool_key for f in live])
+            try:
+                scatter.apply_many([(f._mirror, f._pending) for f in live])
+            finally:
+                pool.unpin_many(held)
             for f in live:
                 f._pending = []
                 f._pending_n = 0

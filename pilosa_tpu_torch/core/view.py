@@ -116,6 +116,11 @@ class View:
         with self._mu:
             return self._fragments.get(slice_i)
 
+    def fragments(self) -> list[Fragment]:
+        """The view's fragments in the order they were opened or made."""
+        with self._mu:
+            return list(self._fragments.values())
+
     def fragment_slices(self) -> set[int]:
         with self._mu:
             return set(self._fragments)

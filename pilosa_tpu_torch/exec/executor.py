@@ -50,6 +50,16 @@ it is); ``SetBit``/``ClearBit`` without a view also write the inverse
 view of an inverse-enabled frame, on the owners of slice
 ``row // SLICE_WIDTH``.
 
+Residency and durability (JAX ``executor.py:577``, ``:3068``): a query
+first asks the prefetcher to upload the cold mirrors of its leaf
+fragments in the background (``_prefetch_query``); every local map leg,
+and the folded TopN, runs inside a pin lease of the residency pool, so
+every mirror and sparse payload it finds or uploads stays pinned until
+its launches are enqueued and their results fetched.  ``SetBit`` and
+``ClearBit`` answer only after the WAL's group commit made this
+thread's writes durable (``_wait_durable``), outside every fragment
+lock; a remote leg waits on its own node before it answers.
+
 Replication quorums, attribute writes and the coalescer of the JAX
 executor are not ported yet.
 """
@@ -66,6 +76,7 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch import bsi
+from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch.bsi import ripple
 from pilosa_tpu_torch.cluster.topology import Cluster, Node
 from pilosa_tpu_torch.core import cache as cache_mod
@@ -182,8 +193,15 @@ class Executor:
         cluster: Cluster | None = None,
         host: str = "",
         client_factory=None,
+        prefetcher=None,
+        ingest=None,
     ):
         self.holder = holder
+        # Background uploads of a query's cold mirrors (device/prefetch.py),
+        # and the WAL manager whose group commit a write's answer waits
+        # for (ingest/wal.py); None turns either off.
+        self.prefetcher = prefetcher
+        self.ingest = ingest
         self.max_writes_per_request = max_writes_per_request
         self.cluster = cluster if cluster is not None else Cluster()
         self.host = host
@@ -225,6 +243,8 @@ class Executor:
             inverse_slices = list(range(idx.max_inverse_slice() + 1))
             column_label = idx.column_label
             computed_lists = True
+        if self.prefetcher is not None and slices:
+            self._prefetch_query(index, q.calls, slices)
         results = []
         for call in q.calls:
             call_slices = slices
@@ -239,6 +259,62 @@ class Executor:
                     call_slices = inverse_slices
             results.append(self._execute_call(index, call, call_slices, opt))
         return results
+
+    def _prefetch_query(self, index: str, calls, slices: list[int]) -> None:
+        """Schedule background uploads of the cold mirrors of the query's
+        leaf fragments — its Bitmap leaves' views, a BSI Range's or
+        aggregate's field view, a TopN's frame view — over ``slices``
+        (JAX ``executor.py:577``).  Best-effort: an error resolving them
+        is swallowed, since the call itself raises the error that
+        counts."""
+        frags: list = []
+        seen: set[int] = set()
+
+        def add_view(view) -> None:
+            if view is None:
+                return
+            have = view.fragment_slices()
+            for s in slices:
+                frag = view.fragment(s) if s in have else None
+                # Advisory (no lock): the worker checks again under it.
+                if frag is not None and frag._mirror is None and id(frag) not in seen:
+                    seen.add(id(frag))
+                    frags.append(frag)
+
+        def leaves(c: Call):
+            if c.name in ("Bitmap", "Range"):
+                yield c
+                return
+            for ch in c.children:
+                yield from leaves(ch)
+
+        try:
+            idx = self.holder.index(index)
+            if idx is None:
+                return
+            for call in calls:
+                if call.name in WRITE_CALLS:
+                    continue
+                for leaf in leaves(call):
+                    f = idx.frame(leaf.args.get("frame") or DEFAULT_FRAME)
+                    if f is None:
+                        continue
+                    if leaf.name == "Range":
+                        for field_name in leaf.conditions():
+                            add_view(f.view(bsi.field_view_name(field_name)))
+                        continue
+                    _, col_ok = _uint_arg(leaf, idx.column_label)
+                    add_view(f.view(VIEW_INVERSE if col_ok else VIEW_STANDARD))
+                if call.name == "TopN":
+                    add_view(self._topn_view(index, call))
+                if call.name in ("Sum", "Min", "Max") and isinstance(call.args.get("field"), str):
+                    f = idx.frame(call.args.get("frame") or DEFAULT_FRAME)
+                    if f is not None:
+                        add_view(f.view(bsi.field_view_name(call.args["field"])))
+        except Exception:  # noqa: BLE001 — a prefetch must never fail a query
+            return
+        if frags:
+            self.prefetcher.prefetch(frags)
 
     # ------------------------------------------------------------------
     # dispatch (reference: executor.go:156-182)
@@ -1130,13 +1206,16 @@ class Executor:
         n = _uint_arg(c, "n")[0]
         if len(c.children) > 1:
             raise ExecutorError("TopN() can only have one input bitmap")
-        parts = self._topn_folded_build(index, c, slices)
-        if parts is None:
-            return []
-        if parts == "two_phase":
-            return self._execute_topn_two_phase(index, c, slices, opt, n)
-        self._score_topn_parts([p[4] for p in parts])
-        self._score_topn_sparse([p[4] for p in parts])
+        # The mirrors the prep finds stay pinned until the scores are
+        # fetched.
+        with device_mod.pool().pinned():
+            parts = self._topn_folded_build(index, c, slices)
+            if parts is None:
+                return []
+            if parts == "two_phase":
+                return self._execute_topn_two_phase(index, c, slices, opt, n)
+            self._score_topn_parts([p[4] for p in parts])
+            self._score_topn_sparse([p[4] for p in parts])
         # Phase-1 winners per slice, from the scores the first round
         # would have given the slice's own candidates (a subset of the
         # union).
@@ -1243,15 +1322,27 @@ class Executor:
                 timestamp = datetime.strptime(ts, TIME_FORMAT)
             except ValueError:
                 raise ExecutorError(f"invalid date: {ts}") from None
-        return self._write(
+        ret = self._write(
             index, c, "SetBit",
             lambda f, view, r, col: f.set_bit(view, r, col, timestamp), opt,
         )
+        self._wait_durable()
+        return ret
 
     def _execute_clear_bit(self, index: str, c: Call, opt: ExecOptions) -> bool:
-        return self._write(
+        ret = self._write(
             index, c, "ClearBit", lambda f, view, r, col: f.clear_bit(view, r, col), opt
         )
+        self._wait_durable()
+        return ret
+
+    def _wait_durable(self) -> None:
+        """Log before the answer: wait until every WAL append this thread
+        made while applying the write is fsynced by the group commit.
+        Outside every fragment lock: a slow fsync holds back only this
+        writer's answer, never a reader."""
+        if self.ingest is not None:
+            self.ingest.wait_durable()
 
     # ------------------------------------------------------------------
     # map/reduce over the cluster (reference: executor.go:1131-1283;
@@ -1355,7 +1446,11 @@ class Executor:
         resp = _MapResponse(node=node, slices=node_slices)
         try:
             if node.host == self.host:
-                resp.result = map_fn(node_slices)
+                # Every mirror and sparse payload the leg finds or uploads
+                # stays pinned until its launches are enqueued and their
+                # results fetched.
+                with device_mod.pool().pinned():
+                    resp.result = map_fn(node_slices)
             else:
                 results = self._exec_remote(node, index, Query(calls=[c]), node_slices)
                 resp.result = results[0] if results else None

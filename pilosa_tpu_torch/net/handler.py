@@ -11,6 +11,7 @@ port covers, with the same paths, status codes and response bodies
     POST   /index/<i>/frame/<f>/field/<fld>             DELETE (same path)
     POST   /index/<i>/query    POST /import             POST /import-value
     GET    /fragment/nodes
+    GET    /debug/hbm          GET /debug/ingest
 
 ``POST /index/<i>/query`` reads a ``QueryRequest`` protobuf when the
 Content-Type is ``application/x-protobuf`` (its ``Slices``,
@@ -27,7 +28,10 @@ owns it), so the inverse view lives where queries look for it;
 values as JSON.  Index and frame creation and deletion are broadcast to
 the cluster; a field's creation and deletion go to every peer as the
 same HTTP request with ``?remote=true``, as in the JAX package.
-Replication, resize and debug routes are not ported yet.
+``GET /debug/hbm`` answers the residency pool's snapshot and ``GET
+/debug/ingest`` the WAL manager's and the delta-scatter's counters, with
+the JAX package's keys.  Replication, resize and the other debug routes
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -46,9 +50,11 @@ from typing import Any
 import numpy as np
 
 from pilosa_tpu_torch import __version__, bsi
+from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch.core.bitmap import RowBitmap
 from pilosa_tpu_torch.core.timequantum import parse_time_quantum
 from pilosa_tpu_torch.exec.executor import ExecOptions, TooManyWritesError
+from pilosa_tpu_torch.ingest import scatter
 from pilosa_tpu_torch.net import codec, wire
 from pilosa_tpu_torch.ops import bitplane as bp
 from pilosa_tpu_torch.pql.parser import parse_string
@@ -110,6 +116,9 @@ class Handler:
         self.holder = holder
         self.executor = executor
         self.broadcaster = broadcaster
+        # The WAL manager (wired by the server), for /debug/ingest; None
+        # when the WAL is off.
+        self.ingest = None
         routes: list[tuple[str, str, Callable]] = [
             ("GET", r"/schema", self.handle_get_schema),
             ("GET", r"/status", self.handle_get_status),
@@ -132,6 +141,8 @@ class Handler:
             ("POST", r"/import", self.handle_post_import),
             ("POST", r"/import-value", self.handle_post_import_value),
             ("GET", r"/fragment/nodes", self.handle_get_fragment_nodes),
+            ("GET", r"/debug/hbm", self.handle_get_hbm),
+            ("GET", r"/debug/ingest", self.handle_get_ingest),
         ]
         self._routes = [(m, re.compile("^" + p + "$"), fn) for m, p, fn in routes]
 
@@ -186,6 +197,23 @@ class Handler:
         if PROTOBUF in req.header("Accept"):
             return Response.proto(wire.MaxSlicesResponse(MaxSlices=ms))
         return Response.json({"maxSlices": ms})
+
+    def handle_get_hbm(self, req: Request) -> Response:
+        """Device residency (device/pool.py): per-device budget, resident,
+        pinned and high-water bytes with each device's entries in LRU
+        order, the per-fragment table, and the counters."""
+        return Response.json(device_mod.pool().snapshot())
+
+    def handle_get_ingest(self, req: Request) -> Response:
+        """The WAL's group-commit state (per-fragment segment sizes,
+        buffered ops, last fsync and group size, appends and fsyncs),
+        its replays, and the delta-scatter counters."""
+        doc = {"scatter": scatter.counters(), "scatterEnabled": True}
+        if self.ingest is None:
+            doc["wal"] = {"walEnabled": False, "note": "ingest WAL not configured"}
+        else:
+            doc["wal"] = self.ingest.snapshot()
+        return Response.json(doc)
 
     def handle_get_fragment_nodes(self, req: Request) -> Response:
         """Owners of a slice.  ``?write=true`` asks for the write owners,

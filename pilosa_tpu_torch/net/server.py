@@ -26,6 +26,29 @@ container policy (``bitplane.configure_plane_format``, process-wide as
 in the JAX package's ``[device] plane-format``; the per-row byte caps
 keep their 64 KiB defaults).
 
+Residency and durability, with the JAX package's names and defaults
+(``pilosa_tpu/net/server.py:58-111``, ``[device]`` and ``[ingest]``):
+
+* ``hbm_budget_bytes`` — the device-memory budget of the process-wide
+  residency pool (``device/pool.py``), 0 for the default: the
+  ``PILOSA_DEVICE_HBM_BUDGET_BYTES`` environment variable, else 0.8 of
+  the card's memory, unbounded on the CPU.  Every ``Server`` of a
+  process shares the one pool, and the last one opened sets its budget;
+* ``device_prefetch`` — upload a query's cold mirrors in the background
+  (``device/prefetch.py``);
+* ``ingest_wal`` — log every changed bit to its fragment's WAL and
+  answer a ``SetBit``/``ClearBit`` only after its fsync
+  (``ingest/wal.py``), with ``ingest_group_commit_ms`` /
+  ``ingest_group_commit_max`` the group-commit window and
+  ``ingest_wal_segment_bytes`` the size past which a segment rolls over
+  into a snapshot.  ``ingest_wal=False`` writes each op to the data file
+  without an fsync, as the port did before.
+
+At open the node stages, in the background, the mirrors of its previous
+run (``.residency.json``, written at close), then the largest that fit
+the budget, and answers meanwhile (``staging_job``).  ``GET /debug/hbm``
+and ``GET /debug/ingest`` report the pool and the WAL.
+
 The node registers itself in the cluster on open.  Nodes that bind port
 0 learn each other after they are open: ``add_peer(host,
 internal_host)``.  Anti-entropy, replication quorums, resize and the
@@ -34,6 +57,7 @@ other background loops of the JAX server are not ported yet.
 
 from __future__ import annotations
 
+import sys
 import threading
 
 import torch
@@ -44,6 +68,7 @@ from pilosa_tpu_torch.cluster.topology import Cluster
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.view import is_inverse_view
 from pilosa_tpu_torch.exec.executor import DEFAULT_MAX_WRITES_PER_REQUEST, Executor
+from pilosa_tpu_torch.ingest import wal
 from pilosa_tpu_torch.net import wire
 from pilosa_tpu_torch.net.client import TRANSPORT_ERRORS, ClientError, InternalClient
 from pilosa_tpu_torch.net.handler import Handler, make_http_server
@@ -71,6 +96,12 @@ class Server:
         internal_port: int = DEFAULT_INTERNAL_PORT,
         polling_interval: float = DEFAULT_POLLING_INTERVAL,
         plane_format: str = "auto",
+        hbm_budget_bytes: int = 0,
+        device_prefetch: bool = True,
+        ingest_wal: bool = True,
+        ingest_group_commit_ms: float = 2.0,
+        ingest_group_commit_max: int = 128,
+        ingest_wal_segment_bytes: int = 4 << 20,
     ):
         if cluster_type == "gossip":
             raise ValueError("cluster type 'gossip' is not supported by this port yet")
@@ -88,6 +119,15 @@ class Server:
         # The sparse tier's container policy (bitplane.encode_row):
         # process-wide, as in the JAX package, applied at open().
         self.plane_format = plane_format
+        self.hbm_budget_bytes = hbm_budget_bytes
+        self.device_prefetch = device_prefetch
+        self.staging_job = None
+        self.ingest_wal = ingest_wal
+        self.ingest_group_commit_ms = ingest_group_commit_ms
+        self.ingest_group_commit_max = ingest_group_commit_max
+        self.ingest_wal_segment_bytes = ingest_wal_segment_bytes
+        self.ingest: wal.IngestManager | None = None
+        self.data_dir = data_dir
         self.cluster_type = cluster_type
         self.polling_interval = polling_interval
         self.cluster = Cluster(replica_n=replicas)
@@ -127,7 +167,27 @@ class Server:
 
     def open(self) -> None:
         bp.configure_plane_format(mode=self.plane_format)
+        # The pool's budget and the WAL manager before any fragment
+        # opens: mirrors register at their first upload, and fragments
+        # replay their segments and attach writers as they open.
+        device_mod.pool().configure(budget_bytes=self.hbm_budget_bytes)
+        if self.ingest_wal:
+            self.ingest = wal.IngestManager(
+                self.data_dir,
+                group_commit_ms=self.ingest_group_commit_ms,
+                group_commit_max=self.ingest_group_commit_max,
+                wal_segment_bytes=self.ingest_wal_segment_bytes,
+                logger=lambda m: print(m, file=sys.stderr),
+            )
+            wal.register_manager(self.ingest)
         self.holder.open()
+        self.executor.prefetcher = device_mod.prefetcher() if self.device_prefetch else None
+        self.executor.ingest = self.ingest
+        self.handler.ingest = self.ingest
+        # Serving starts now; the mirrors of the previous run (its
+        # .residency.json, then the largest that fit the budget) stream in
+        # behind it, and a query's own prefetch jumps them.
+        self.staging_job = self.holder.stage_device_mirrors(device_mod.prefetcher())
         bind_host, _, bind_port = self.host.rpartition(":")
         port = int(bind_port or 0)
         self._http = make_http_server(self.handler, bind_host or "127.0.0.1", port)
@@ -184,6 +244,13 @@ class Server:
             self._http_thread = None
         self.executor.close()
         self.holder.close()
+        # After the holder: each fragment's close made its final commit;
+        # now the committer stops, and a later server on this directory
+        # attaches afresh.
+        if self.ingest is not None:
+            wal.unregister_manager(self.ingest)
+            self.ingest.close()
+            self.ingest = None
 
     def __enter__(self):
         self.open()

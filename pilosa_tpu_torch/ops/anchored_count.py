@@ -169,6 +169,11 @@ def anchored_count(program: Sequence[int], positions: np.ndarray, offsets: np.nd
     if device.type != "cuda":
         raise ValueError(f"{NAME} runs on cuda or cpu tensors, not {device}")
     device = _device(device)
+    # The wrapper's own references to every leaf tensor whose address it
+    # tabulates, held until the launch is enqueued: a caller's list may
+    # change, and an evicted mirror's memory is freed with its last
+    # reference.
+    leaves = tuple(tuple(row) for row in leaves)
     _check(program, positions, offsets, leaves, device)
     n, n_leaves = len(leaves), len(leaves[0])
     if n > MAX_SLICES:
@@ -186,9 +191,9 @@ def anchored_count(program: Sequence[int], positions: np.ndarray, offsets: np.nd
                 table[s, i] = (fmt, t.data_ptr(), entries(fmt, t))
     meta[n + 1 + 3 * n * n_leaves :] = program
     fn = _kernel()
-    # The leaf tensors stay referenced by ``leaves`` until the launch is
-    # enqueued; later frees (and K7's later patches of a mirror) are ordered
-    # after it on the stream.
+    # ``leaves`` holds the leaf tensors until the launch is enqueued;
+    # later frees (and K7's later patches of a mirror) are ordered after it
+    # on the stream.
     with torch.cuda.device(device):
         dev_meta = torch.from_numpy(meta).to(device)
         dev_pos = torch.from_numpy(np.ascontiguousarray(positions).view(np.int32)).to(device)

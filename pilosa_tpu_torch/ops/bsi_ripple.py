@@ -126,13 +126,16 @@ class FieldPlanes:
 
     def table(self) -> torch.Tensor:
         """int64 [S, 3 + depth] on the card: each slice's mirror address,
-        then its slots.  The FieldPlanes holds the mirrors (and so their
-        memory) for as long as it holds the table."""
+        then its slots.  The FieldPlanes keeps its own references to the
+        tabulated mirrors (and so their memory) for as long as it holds
+        the table, whatever becomes of the caller's list."""
         if self._table is None:
+            held = tuple(self.mirrors)
             t = np.empty((self.n, 3 + self.depth), dtype=np.int64)
-            t[:, 0] = [0 if m is None else m.data_ptr() for m in self.mirrors]
+            t[:, 0] = [0 if m is None else m.data_ptr() for m in held]
             t[:, 1:] = self.slots
             self._table = torch.from_numpy(t).to(self.device)
+            self._held = held
         return self._table
 
 

@@ -157,6 +157,10 @@ def delta_scatter_many(planes, job, word, or_m, andnot_m) -> None:
     """Apply a batch's entries to its planes in place: ONE kernel launch
     on CUDA planes, the plain version on CPU planes; raises for any
     other device."""
+    # The wrapper's own references to the planes whose addresses it packs,
+    # held until the launch is enqueued: a caller's list may change, and an
+    # evicted mirror's memory is freed with its last reference.
+    planes = tuple(planes)
     device = _check_planes(planes)
     if device.type == "cpu":
         plain_delta_scatter_many(planes, job, word, or_m, andnot_m)

@@ -99,6 +99,9 @@ def expand_payloads(jobs: Sequence[tuple[int, torch.Tensor, torch.Tensor]]) -> N
     ``dest`` — the kernel on CUDA (one launch per 65,535 rows), the
     plain version on the CPU; raises for any other device."""
     global launches
+    # The wrapper's own references to the payloads and destinations whose
+    # addresses it tabulates, held until the launches are enqueued.
+    jobs = tuple(jobs)
     device = _check(jobs)
     if device.type == "cpu":
         plain_expand(jobs)
@@ -113,8 +116,8 @@ def expand_payloads(jobs: Sequence[tuple[int, torch.Tensor, torch.Tensor]]) -> N
     if (aligned % 16).any():
         raise ValueError(f"{NAME} needs 16-byte aligned destinations and dense payloads")
     fn = _kernel()
-    # The payloads and destinations stay referenced by ``jobs`` until the
-    # launches are enqueued; later frees are ordered after them on the stream.
+    # ``jobs`` holds the payloads and destinations until the launches are
+    # enqueued; later frees are ordered after them on the stream.
     with torch.cuda.device(device):
         dev_table = torch.from_numpy(table).to(device)
         stream = torch.cuda.current_stream(device).cuda_stream

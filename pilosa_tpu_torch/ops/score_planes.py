@@ -121,6 +121,11 @@ def score_planes(planes: Sequence[torch.Tensor], slots: np.ndarray,
     (0 for a pad slot) — the kernel on CUDA, the plain version on the
     CPU; raises for any other device."""
     global launches
+    # The wrapper's own references to the tensors whose addresses it
+    # tabulates, held until the launch is enqueued: a caller's list may
+    # change, and an evicted mirror's memory is freed with its last
+    # reference.
+    planes, srcs = tuple(planes), tuple(srcs)
     device = _check(planes, slots, srcs)
     if device.type == "cpu":
         return plain_score_planes(planes, slots, srcs)
@@ -136,8 +141,8 @@ def score_planes(planes: Sequence[torch.Tensor], slots: np.ndarray,
     if (table[:, :2] % 16).any():
         raise ValueError(f"{NAME} needs 16-byte aligned planes and src rows")
     fn = _kernel()
-    # The planes and srcs stay referenced by the caller's arguments until
-    # the launch is enqueued; later frees are ordered after it on the stream.
+    # ``planes`` and ``srcs`` hold the tensors until the launch is
+    # enqueued; later frees are ordered after it on the stream.
     with torch.cuda.device(device):
         dev_table = torch.from_numpy(table).to(device)
         out = torch.empty(n, rows, dtype=torch.int32, device=device)

@@ -380,3 +380,59 @@ def test_anchored_count_matches_plain(cuda, n):
         want = ac.plain_anchored_count(tplan.compile_program(expr), positions, offsets, leaves,
                                        cuda)
         assert torch.equal(got, want), expr
+
+
+# --- the residency pool on the card ------------------------------------------
+
+
+def test_pool_budget_is_a_share_of_the_card(cuda, monkeypatch):
+    from pilosa_tpu_torch.device.pool import DEFAULT_BUDGET_FRACTION, ENV_BUDGET, PlanePool
+
+    monkeypatch.delenv(ENV_BUDGET, raising=False)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    want = int(torch.cuda.mem_get_info(dev)[1] * DEFAULT_BUDGET_FRACTION)
+    assert PlanePool().budget_bytes(dev) == want == PlanePool().budget_bytes()
+
+
+def test_eviction_returns_the_mirror_memory(cuda, tmp_path):
+    """Mirrors admitted under a budget of one plane: the second upload
+    evicts the first, and memory_allocated() follows the pool's
+    accounting (no reference outlives the eviction); a pin lease holds
+    both through saturation, counted."""
+    import gc
+
+    from pilosa_tpu_torch import device as device_mod
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.device.pool import PlanePool
+
+    pool = PlanePool()
+    prev = device_mod._set_pool(pool)
+    h = Holder(str(tmp_path / "d"), device="cuda")
+    h.open()
+    try:
+        view = h.create_index("i").create_frame("f").create_view_if_not_exists("standard")
+        frags = [view.create_fragment_if_not_exists(s) for s in range(2)]
+        for s, f in enumerate(frags):
+            f.import_bulk(list(range(64)), [s * tbp.SLICE_WIDTH + 5] * 64)
+        plane = frags[0].plane_nbytes
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        pool.configure(budget_bytes=plane)
+        frags[0].device_plane()
+        frags[1].device_plane()
+        torch.cuda.synchronize()
+        assert frags[0]._mirror is None and pool.evictions == 1
+        assert torch.cuda.memory_allocated() - base == pool.resident_bytes() == plane
+        with pool.pinned():
+            a = frags[0].device_plane()
+            b = frags[1].device_plane()
+            assert pool.counters()["overBudget"] == 1
+            assert torch.cuda.memory_allocated() - base == pool.resident_bytes() == 2 * plane
+            assert int(a[3].sum()) != 0 and int(b[3].sum()) != 0
+        del a, b
+    finally:
+        h.close()
+        device_mod._set_pool(prev)
+    gc.collect()
+    assert pool.resident_bytes() == 0
