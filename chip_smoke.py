@@ -27,7 +27,14 @@ without printing its final line:
    one-plane interface on edge queues and 1 to 8,192 entries, and
    batches of one launch each: one bit set and cleared within and across
    queues, mirrors of 8, 16 and 65,536 rows in one launch, empty queues,
-   one mirror twice, and 954 mirrors at once;
+   one mirror twice, and 954 mirrors at once; for the fused tree eval (K2)
+   1, 3 and 954 slices of 1 to 8 leaves, every fold, nested trees, a
+   single leaf, Union(), Difference and Xor chains and a tree past its
+   stack (which must run on K3), with absent, scratch and mirror rows of
+   8, 64 and 65,536 rows in one table, count / row / total; for the
+   interpreter (K3) FuseEmitter tables of 1, 2 and 16 programs with shared
+   subtrees, MASKW over predicate rows of depth 1, 31 and 62, a full
+   256-op table over 64 leaves, count / row / total;
 4. time each kernel at the main path's shapes (CUDA events around runs
    of back-to-back calls, median of 21 runs), beside its bound and its
    plain version's time; for the delta-scatter kernel (K7) one, 954 and
@@ -40,14 +47,18 @@ without printing its final line:
    and [64, 32768] against a broadcast src row); K6 over 954 payloads of
    each format (with ``Tensor.scatter_add_`` as the library yardstick of
    the positions form); K5 at [954 slices, 32,768-position anchors, a
-   dense, a sparse and an RLE leaf];
+   dense, a sparse and an RLE leaf]; K2 count and row at [954 slices, 2
+   leaves] and K3 count with 16 programs over 8 union leaves at 954
+   slices, every leaf a row of one of 954 8-row mirrors;
 5. serve a 1B-column index — 954 slices x 8 dense rows, seeded random
    words, about 1 GiB on the card — with ``Server(device="cuda")`` and
    answer Count/Bitmap/TopN/SetBit over HTTP, every answer checked
    against a numpy oracle over the same planes, with the kernels'
-   launch counts reset just before and read just after (TopN(src): one
-   K4 launch per request, no K1); the SetBits' p50, each answered after
-   its WAL group commit;
+   launch counts reset just before and read just after (each Count and
+   Bitmap over a tree: one K2 launch through the coalescer, no K1;
+   TopN(src): one K4 launch per request); the SetBits' p50, each answered
+   after its WAL group commit; a batch build and a cache hit timed;
+   then phase 14 on the same node;
 6. a cluster on the one card: three ``Server(device="cuda")`` nodes of
    an http cluster with 2 replicas; the schema created on one node
    reaches the others by broadcast; each node loads the phase-5 planes
@@ -57,8 +68,9 @@ without printing its final line:
    first Count after it, which applies the queues of every fragment a
    node reads with one delta-scatter launch per node leg;
    Count/TopN queries to every node in protobuf
-   and JSON checked against the numpy oracle (TopN(src): one K4 launch
-   per node leg and round); a BSI field created on one
+   and JSON checked against the numpy oracle (each Count: one K2 launch
+   per node leg, no K1; TopN(src): one K4 launch per node leg and round);
+   a BSI field created on one
    node (its fan-out reaches the others), ``/import-value`` to every
    owner of 64 slices, Count(Range)/Sum/Min/Max from every node; a
    second import into new rows (the counted fallback to a mirror
@@ -78,7 +90,8 @@ without printing its final line:
    SetBits with timestamps and a protobuf ``/import`` of 2^16 bits over
    40 days, then Range(start, end) counts inside a month, across the
    month boundary and over the year, plain and inside Intersect,
-   against numpy over the written triples;
+   against numpy over the written triples (one K2 launch a request, the
+   time views' union a scratch row of the cached batch);
 9. on the phase-5 node, a TopN frame of 64 rows per fragment over the 954
    slices (1B columns, 8 GiB of mirrors), row k at density
    0.5 * 2^(-k/8), generated on the card slice by slice: TopN without a
@@ -95,8 +108,9 @@ without printing its final line:
     fragment); Counts through K5, Union/Bitmap/TopN srcs through K6, TopN
     over both tiers, a SetBit into a sparse row, ``Bitmap(molecule_id=m)``
     and the tanimoto TopN on the inverse view, every answer against a
-    numpy oracle over the written pairs, the launches of K1, K4, K5 and
-    K6 counted around each query class;
+    numpy oracle over the written pairs, the launches of K1, K2, K4, K5
+    and K6 counted around each query class (a cached batch expands its
+    sparse rows with K6 once, at its build);
 11. recovery on the card: a port node's data directory with a torn
     op-log tail and a WAL segment of a JAX node's (written with the
     port's encoder) reopens with the oracle's answers, restarts the
@@ -108,8 +122,8 @@ without printing its final line:
     background), and phase 10's query classes alternate between the two
     indexes, each answer against the oracle; after every query the
     pool's resident and high-water bytes, evictions, skipped evictions,
-    over-budget admissions, restaged bytes and the allocator's
-    ``memory_allocated()`` / ``memory_reserved()`` are printed and
+    over-budget admissions, restaged bytes, the batch cache's bytes and the
+    allocator's ``memory_allocated()`` / ``memory_reserved()`` are printed and
     checked (within the budget outside pinned saturation; evictions > 0;
     a query pinning both 8 GiB star mirrors saturates and answers
     right); the time to the first answer, the staging job's end and one
@@ -119,7 +133,18 @@ without printing its final line:
     while the node is open opens in a second node with every
     acknowledged bit; ``/debug/ingest`` shows fewer fsyncs than appends;
     serial SetBit p50 / p99 with the WAL on and off, in turns;
-14. print the ``kernels`` JSON line, then the final JSON line.
+14. the coalesced query path, on the phase-5 node right after phase 5:
+    serial Count(Intersect(Bitmap(0), Bitmap(1))) — the first request a
+    cache miss (after a SetBit), the rest hits, then a SetBit and the
+    Count again (a rebuild, the answer one more), one K2 launch a request
+    and no K1; then a storm of 64 client threads x 20 requests drawn from
+    16 distinct trees over the 8 rows, as Count over every slice and as
+    Bitmap (the tree intersected with a row of frame g, over 16 slices),
+    every answer against numpy, in turns with coalescing on, off, off, on
+    (off: the scheduler closed, the direct K2 path serves): requests/s,
+    p50 / p99, the scheduler's snapshot; coalesced turns launch fewer
+    times than they answer and fuse (K3);
+15. print the ``kernels`` JSON line (K1-K8), then the final JSON line.
 
 Exits non-zero when ``torch.cuda.is_available()`` is false, and when the
 port's package is not beside this file.
@@ -1185,6 +1210,282 @@ def time_k5(ac, bp, plan, rng, hbm: float) -> dict:
             "bound_by": bound_by, "library_ms": None}
 
 
+# --- K2 and K3: the fused tree eval and the multi-query interpreter -----------
+
+K23_SLICES = (1, 3, N_SLICES)
+# Mirror heights mixed in one K2 table: 8 (phase 5's fragments), 64 and a
+# full dense tier (65,536 rows, 8 GiB: row addresses past 2^32 bytes).
+K2_MIRROR_ROWS = (8, 64, 65536)
+
+
+def k2_chain(depth: int) -> tuple:
+    """A right-nested tree that keeps ``depth`` + 1 rows on K2's stack."""
+    ops = ("Intersect", "Union", "Xor", "Difference")
+    expr = ("leaf", depth % 8)
+    for k in reversed(range(depth)):
+        expr = (ops[k % 4], ("leaf", k % 8), expr)
+    return expr
+
+
+def k2_trees() -> list:
+    """Every fold, nested trees, a single leaf, Union(), Difference and
+    Xor chains, a tree 11 deep and one past K2's stack (it runs on K3)."""
+    leaf = [("leaf", i) for i in range(8)]
+    return [
+        leaf[0],
+        ("Intersect", leaf[0], leaf[1]),
+        ("Union", leaf[0], leaf[1], leaf[2]),
+        ("Difference", leaf[0], leaf[1], leaf[2], leaf[3]),
+        ("Xor", leaf[0], leaf[1], leaf[2], leaf[3], leaf[4]),
+        ("Union",),
+        ("Intersect", leaf[2], ("Union",)),
+        ("Difference", ("Union", *leaf[:3]), ("Intersect", leaf[3], leaf[4]),
+         ("Xor", leaf[5], leaf[6], leaf[7])),
+        ("Xor", ("Difference", leaf[7], leaf[0]), ("Intersect", leaf[1], leaf[2], leaf[3])),
+        ("Intersect", leaf[1], k5_deep_tree(9)),
+        k2_chain(20),
+    ]
+
+
+def n_leaves(expr) -> int:
+    if expr[0] == "leaf":
+        return expr[1] + 1
+    return max([n_leaves(e) for e in expr[1:]], default=1)
+
+
+def k2_bases(rng):
+    """The bases of phase 3's K2 tables: a zero row, 16 scratch rows, and
+    one mirror of each of K2_MIRROR_ROWS rows, all of random words
+    (generated on the card)."""
+    import torch
+
+    def rand(rows):
+        return torch.randint(-2**31, 2**31, (rows, 32768), dtype=torch.int32, device="cuda",
+                             generator=gen)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(int(rng.integers(0, 2**31)))
+    zero = torch.zeros(1, 32768, dtype=torch.int32, device="cuda")
+    return [zero, rand(16)] + [rand(r) for r in K2_MIRROR_ROWS]
+
+
+def k2_table(te, bases, n: int, n_cols: int, rng):
+    """A row table of ``n`` slices x ``n_cols`` leaves whose rows are drawn
+    from every base: absent (zero), scratch and mirror rows, the last row
+    of the 65,536-row mirror included."""
+    rows = [b.shape[0] for b in bases]
+    idx = np.zeros((n, n_cols, 2), dtype=np.int64)
+    idx[..., 0] = rng.integers(0, len(bases), size=(n, n_cols))
+    idx[..., 1] = rng.integers(0, 2**31, size=(n, n_cols)) % np.asarray(rows)[idx[..., 0]]
+    idx[0, 0] = (len(bases) - 1, rows[-1] - 1)
+    return te.RowTable(bases, idx)
+
+
+def check_k2(te, it, plan, rng) -> float:
+    """K2 against its plain version on the card, exactly: 1, 3 and 954
+    slices; 1 to 8 leaves; every tree of :func:`k2_trees` (the one past
+    the stack cap through ``plan.tree_eval``, which must launch K3 and not
+    K2); absent, scratch and mirror rows of 8, 64 and 65,536 rows in one
+    table; count, row and total.  Returns the largest absolute
+    difference (0)."""
+    import torch
+
+    bases = k2_bases(rng)
+    worst, n_checks = 0, 0
+    for n in K23_SLICES:
+        for expr in k2_trees():
+            table = k2_table(te, bases, n, n_leaves(expr), rng)
+            program = plan.compile_program(expr)
+            deep = te.program_depth(program, table.shape[1]) > te.MAX_DEPTH
+            for reduce in ("count", "row", "total"):
+                k2, k3 = te.launches, it.launches
+                got = plan.tree_eval(expr, reduce, table)
+                torch.cuda.synchronize()
+                if (te.launches - k2, it.launches - k3) != ((0, 1) if deep else (1, 0)):
+                    raise AssertionError(f"tree_eval {expr}: {te.launches - k2} K2 and "
+                                         f"{it.launches - k3} K3 launches")
+                want = te.plain_tree_eval(table, program, reduce)
+                torch.cuda.synchronize()
+                diff = int((got.long() - want.long()).abs().max())
+                worst = max(worst, diff)
+                n_checks += 1
+                if diff or got.shape != want.shape:
+                    raise AssertionError(f"tree_eval != plain: {n} slices, {expr}, {reduce}, "
+                                         f"diff {diff}")
+    del bases
+    log(f"phase 3: tree_eval == plain on {n_checks} launches (max_abs_err {worst}): 1, 3 and "
+        f"{N_SLICES} slices, 1 to 8 leaves, every fold, nested trees, a single leaf, Union(), "
+        "Difference and Xor chains, absent / scratch / mirror rows of 8, 64 and 65,536 rows "
+        "in one table, count / row / total; a tree past the stack cap ran on interp")
+    return float(worst)
+
+
+def storm_exprs() -> list:
+    """16 distinct trees over 8 leaves (the phase-14 storm's trees), with
+    shared subtrees."""
+    leaf = [("leaf", i) for i in range(8)]
+    return [
+        ("Intersect", leaf[0], leaf[1]),
+        ("Union", leaf[2], leaf[3]),
+        ("Difference", leaf[4], leaf[5]),
+        ("Xor", leaf[6], leaf[7]),
+        ("Intersect", leaf[0], leaf[1], leaf[2]),
+        ("Union", ("Intersect", leaf[0], leaf[3]), leaf[5]),
+        ("Difference", ("Union", leaf[1], leaf[2]), leaf[7]),
+        ("Xor", ("Intersect", leaf[2], leaf[4]), ("Intersect", leaf[3], leaf[5])),
+        ("Intersect", ("Union", leaf[0], leaf[1]), ("Union", leaf[6], leaf[7])),
+        ("Difference", leaf[6], leaf[0], leaf[1], leaf[2]),
+        ("Union", leaf[4], leaf[5], leaf[6], leaf[7]),
+        ("Intersect", ("Xor", leaf[0], leaf[2]), ("Difference", leaf[3], leaf[1])),
+        leaf[5],
+        ("Intersect", leaf[1], leaf[7]),
+        ("Union", ("Difference", leaf[0], leaf[4]), ("Xor", leaf[5], leaf[6])),
+        ("Difference", ("Intersect", leaf[2], leaf[3], leaf[4]), leaf[0]),
+    ]
+
+
+def k3_programs(plan, exprs, n_leaves_: int):
+    """``exprs`` lowered into one table over ``n_leaves_`` leaves: (table,
+    out_idx)."""
+    em = plan.FuseEmitter(n_leaves_)
+    regs = [plan.lower_expr(e, 0, em) for e in exprs]
+    return em.table(), np.asarray(list(dict.fromkeys(regs)), dtype=np.int32)
+
+
+def k3_bsi_case(bsi, plan, depth: int, rng):
+    """A BSI field's leaves — exists, sign, ``depth`` planes, two
+    predicate rows — and every comparison plus a between lowered into one
+    table (the MASKW path): (leaf rows uint32 [n_leaves, 32768], table,
+    out_idx)."""
+    n = 2 + depth + 2
+    words = rng.integers(0, 2**32, size=(n, 32768), dtype=np.uint32)
+    words[2 + depth] = bsi.pred_row(int(rng.integers(-(2**depth) + 1, 2**depth)), depth)
+    words[3 + depth] = bsi.pred_row(int(rng.integers(0, 2**depth)), depth)
+    # Past the coalescer's op budget at depth 31 and 62: the kernel sizes
+    # its tile from the table (128, 64 and 32 words here).
+    em = plan.FuseEmitter(n, max_ops=4096)
+    planes = list(range(2, 2 + depth))
+    regs = [plan.ripple.lower_signed_cmp(em, op, 0, 1, planes, 2 + depth)
+            for op in ("lt", "le", "eq", "ne", "ge", "gt")]
+    regs.append(plan.ripple.lower_between(em, 0, 1, planes, 2 + depth, 3 + depth))
+    return words, em.table(), np.asarray(regs, dtype=np.int32)
+
+
+def k3_full_table(rng):
+    """A full 256-op table over 64 leaves: random folds of earlier
+    registers and MASKW over leaves, every op's result selected."""
+    ops = np.zeros((256, 4), dtype=np.int32)
+    for i in range(256):
+        if i % 16 == 15:
+            a = int(rng.integers(0, 64))
+            ops[i] = (4, a, a, int(rng.integers(0, 32768)))
+        else:
+            ops[i] = (int(rng.integers(0, 4)), int(rng.integers(0, 64 + i)),
+                      int(rng.integers(0, 64 + i)), 0)
+    return ops, np.arange(64, 64 + 256, dtype=np.int32)
+
+
+def check_k3(te, it, plan, bsi, rng) -> float:
+    """K3 against its plain version on the card, exactly: tables from
+    FuseEmitter holding 1, 2 and 16 programs with shared subtrees over 8
+    leaves (1, 3 and 954 slices); MASKW over predicate rows of depth 1,
+    31 and 62 (every comparison and a between, from lower_signed_cmp /
+    lower_between; 1 and 3 slices); a full 256-op table over 64 leaves
+    (1 and 3 slices); count, row and total.  Returns the largest
+    absolute difference (0)."""
+    import torch
+
+    def one(table, prog, out_idx, what):
+        nonlocal worst, n_checks
+        for reduce in ("count", "row", "total"):
+            before = it.launches
+            got = plan.interp_exec(reduce, table, prog, out_idx)
+            torch.cuda.synchronize()
+            if it.launches != before + 1:
+                raise AssertionError(f"interp: {it.launches - before} launches")
+            want = it.plain_interp(reduce, table, prog, out_idx)
+            torch.cuda.synchronize()
+            diff = int((got.long() - want.long()).abs().max())
+            worst = max(worst, diff)
+            n_checks += 1
+            if diff or got.shape != want.shape:
+                raise AssertionError(f"interp != plain: {what}, {reduce}, diff {diff}")
+
+    worst, n_checks = 0, 0
+    bases = k2_bases(rng)
+    exprs = storm_exprs()
+    for n in K23_SLICES:
+        table = k2_table(te, bases, n, 8, rng)
+        for k in (1, 2, 16):
+            prog, out_idx = k3_programs(plan, exprs[:k], 8)
+            one(table, prog, out_idx, f"{k} programs, {n} slices")
+    del bases
+    for depth in (1, 31, 62):
+        for n in K23_SLICES[:2]:
+            words, prog, out_idx = k3_bsi_case(bsi, plan, depth, rng)
+            rows = torch.from_numpy(words.view(np.int32)).cuda()
+            idx = np.zeros((n, len(words), 2), dtype=np.int64)
+            idx[..., 1] = np.arange(len(words))
+            one(te.RowTable([rows], idx), prog, out_idx, f"BSI depth {depth}, {n} slices")
+    prog, out_idx = k3_full_table(rng)
+    leaves = torch.randint(-2**31, 2**31, (64, 32768), dtype=torch.int32, device="cuda")
+    for n in K23_SLICES[:2]:
+        idx = np.zeros((n, 64, 2), dtype=np.int64)
+        idx[..., 1] = rng.permutation(64)
+        one(te.RowTable([leaves], idx), prog, out_idx, f"256 ops over 64 leaves, {n} slices")
+    log(f"phase 3: interp == plain on {n_checks} launches (max_abs_err {worst}): FuseEmitter "
+        "tables of 1, 2 and 16 programs with shared subtrees over 8 leaves at 1, 3 and "
+        f"{N_SLICES} slices; MASKW over predicate rows of depth 1, 31 and 62 (every "
+        "comparison and a between); a full 256-op table over 64 leaves; count / row / total")
+    return float(worst)
+
+
+def time_k2k3(te, it, plan, hbm: float) -> dict:
+    """K2 count and row at [954 slices, 2 leaves] and K3 count with the 16
+    storm programs over 8 union leaves at 954 slices, every leaf a row of
+    one of 954 mirrors of 8 rows (phase 5's layout, read in place): back
+    to back, device time, plain version, bound."""
+    import torch
+
+    mirrors = [torch.randint(-2**31, 2**31, (8, 32768), dtype=torch.int32, device="cuda")
+               for _ in range(N_SLICES)]
+    idx = np.zeros((N_SLICES, 8, 2), dtype=np.int64)
+    idx[..., 0] = np.arange(N_SLICES)[:, None]
+    idx[..., 1] = np.arange(8)[None, :]
+    table8 = te.RowTable(mirrors, idx)
+    table2 = te.RowTable(mirrors, idx[:, :2].copy())
+    expr = ("Intersect", ("leaf", 0), ("leaf", 1))
+    program = plan.compile_program(expr)
+    prog, out_idx = k3_programs(plan, storm_exprs(), 8)
+    row_bytes = 32768 * 4
+    out = {}
+    for name, fn, plain, kernel, nbytes in (
+        ("tree_eval_count", lambda: te.tree_eval(table2, program, "count"),
+         lambda: te.plain_tree_eval(table2, program, "count"), "tree_eval_kernel",
+         N_SLICES * (2 * row_bytes + 2 * 8 + 4)),
+        ("tree_eval_row", lambda: te.tree_eval(table2, program, "row"),
+         lambda: te.plain_tree_eval(table2, program, "row"), "tree_eval_kernel",
+         N_SLICES * (3 * row_bytes + 2 * 8)),
+        ("interp_count", lambda: it.interp("count", table8, prog, out_idx),
+         lambda: it.plain_interp("count", table8, prog, out_idx), "interp_kernel",
+         N_SLICES * (8 * row_bytes + 8 * 8 + len(out_idx) * 4)),
+    ):
+        k_ms = time_cuda(fn)
+        k_dev = device_ms(fn, kernel)
+        plain_ms = time_cuda(plain, runs=3, per_run=1, warmup=1)
+        bound_ms = nbytes / hbm * 1e3
+        share = bound_ms / k_dev if k_dev else float("nan")
+        out[name] = {"ms": k_ms, "device_ms": k_dev, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": "bytes", "library_ms": None}
+        leaves = 8 if kernel == "interp_kernel" else 2
+        log(f"phase 4: {name} [{N_SLICES} slices, {leaves} leaves]: {k_ms:.4f} ms back to back, "
+            f"device {k_dev} ms ({share:.1%} of the bound), bound {bound_ms:.4f} ms by bytes ({nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms; "
+            "library: none (PyTorch has no popcount op)")
+    out["interp_count"]["programs"] = len(storm_exprs())
+    out["interp_count"]["ops"] = len(prog)
+    return out
+
+
 def http(host: str, method: str, path: str, body: bytes = b"") -> tuple[int, object]:
     req = urllib.request.Request(
         f"http://{host}{path}", data=body if method != "GET" else None, method=method
@@ -1231,9 +1532,10 @@ def topn_oracle(scores: np.ndarray, n: int, totals: np.ndarray | None = None,
     return [{"id": i, "count": c} for i, c in (pairs if ids is not None else pairs[:n])]
 
 
-def serve_and_check(fp, ds, sp, bp, convert, srv, rng) -> dict:
+def serve_and_check(fp, ds, sp, te, bp, convert, srv, rng) -> dict:
     """Phase 5 on ``srv``, an open one-node ``Server`` on the card, which
-    stays open for phases 7-8."""
+    stays open for phases 14 and 7-9.  Every Count and Bitmap over a
+    bitmap tree is one K2 launch (through the coalescer), no K1."""
     import torch
 
     out: dict = {}
@@ -1298,7 +1600,7 @@ def serve_and_check(fp, ds, sp, bp, convert, srv, rng) -> dict:
         ("count_xor",
          "Count(Xor(Bitmap(frame=f, rowID=1), Bitmap(frame=f, rowID=3)))",
          pc(p1 ^ p3), 1),
-        ("bitmap_g", "Bitmap(frame=g, rowID=1)", {"attrs": {}, "bits": g_row1}, 0),
+        ("bitmap_g", "Bitmap(frame=g, rowID=1)", {"attrs": {}, "bits": g_row1}, 1),
         ("topn", "TopN(frame=f, n=5)", topn_oracle(row_totals, 5), 0),
         # The folded TopN: one K4 launch scores every fragment, no K1.
         ("topn_src", "TopN(Bitmap(frame=f, rowID=0), frame=f, n=5)",
@@ -1306,7 +1608,7 @@ def serve_and_check(fp, ds, sp, bp, convert, srv, rng) -> dict:
     ]
     k4_per_query = {"topn_src": 1}
 
-    fp.launches = ds.launches = sp.launches = 0  # the main path starts here
+    fp.launches = ds.launches = sp.launches = te.launches = 0  # the main path starts here
     expected_launches = expected_k4 = 0
     latencies: dict[str, float] = {}
     for name, pql, want, per_query in queries:
@@ -1335,48 +1637,249 @@ def serve_and_check(fp, ds, sp, bp, convert, srv, rng) -> dict:
     if status != 200 or body["results"] != [pc(p0) + 1]:
         raise AssertionError(f"re-Count after SetBit: {status} {body}")
     expected_launches += 1
-    launches = fp.launches  # the main path ends here
+    launches = te.launches  # the main path ends here
+    k1_launches = fp.launches
     k7_launches = ds.launches
     k4_launches = sp.launches
     if k4_launches != expected_k4:
         raise AssertionError(f"score_planes launches {k4_launches} != expected {expected_k4}")
-    if launches != expected_launches:
-        raise AssertionError(
-            f"fused_popcount launches {launches} != expected {expected_launches}"
-        )
+    if (launches, k1_launches) != (expected_launches, 0):
+        raise AssertionError(f"tree_eval / fused_popcount launches {launches} / {k1_launches} "
+                             f"!= expected {expected_launches} / 0")
     # The SetBit queued its delta; the Count applied it with one K7.
     if k7_launches != 1:
         raise AssertionError(f"delta_scatter launches {k7_launches} != expected 1")
-    out["launches"] = launches
+    out["launches"] = k1_launches
+    out["k2_launches"] = launches
     out["k7_launches"] = k7_launches
     out["k4_launches"] = k4_launches
+    out["setbit_col"] = col
     for name, ms in latencies.items():
         log(f"phase 5: {name} p50 {ms:.3f} ms over {REPS} requests")
-    log(f"phase 5: answers == numpy oracle; fused_popcount launches {launches} "
-        f"(expected {expected_launches}); delta_scatter launches {k7_launches} "
-        "(the SetBit's delta, applied by the next Count); score_planes launches "
-        f"{k4_launches} (one per TopN(src) request)")
+    log(f"phase 5: answers == numpy oracle; tree_eval launches {launches} (expected "
+        f"{expected_launches}: one per Count and Bitmap request), fused_popcount launches "
+        f"{k1_launches}; delta_scatter launches {k7_launches} (the SetBit's delta, applied "
+        f"by the next Count); score_planes launches {k4_launches} (one per TopN(src) request)")
 
-    # Leaf-stack assembly apart from the kernel: the Count(Intersect)
-    # leaves, stacked from the 954 fragments' mirrors.
+    # The batch cache apart from the kernel: a build of the Count(Intersect)
+    # batch (one table over the 954 fragments' mirrors) and a hit's check.
     from pilosa_tpu_torch.exec import plan
     from pilosa_tpu_torch.pql import parse_string
 
     child = parse_string(queries[1][1]).calls[0].children[0]
-    _, leaves = plan.decompose(child)
+    expr, leaves = plan.decompose(child)
     slices = list(range(N_SLICES))
-    asm = []
+    ex = srv.executor
+    builds, hits = [], []
     for _ in range(REPS):
         torch.cuda.synchronize()
         a0 = time.perf_counter()
-        srv.executor.leaf_stacks("i", leaves, slices)
+        ex._cached_batch_build("i", ("timing",), expr, leaves, slices)
         torch.cuda.synchronize()
-        asm.append((time.perf_counter() - a0) * 1e3)
-    out["assembly_ms"] = statistics.median(asm)
-    log(f"phase 5: leaf-stack assembly for Count(Intersect) p50 "
-        f"{out['assembly_ms']:.3f} ms (2 leaves x {N_SLICES} slice-rows)")
+        a1 = time.perf_counter()
+        ex._cached_batch("i", child, expr, leaves, slices)
+        hits.append((time.perf_counter() - a1) * 1e3)
+        builds.append((a1 - a0) * 1e3)
+    out["build_ms"], out["hit_ms"] = statistics.median(builds), statistics.median(hits)
+    log(f"phase 5: the batch cache for Count(Intersect): a build p50 {out['build_ms']:.3f} ms, "
+        f"a hit p50 {out['hit_ms']:.3f} ms (2 leaves x {N_SLICES} slice-rows, no row copied)")
     out["latencies_ms"] = latencies
     out["planes"] = planes
+    return out
+
+
+# Phase 14: serial Counts after the miss, and the storm: threads x requests,
+# the Bitmap requests' slices, the g-frame bits they intersect.
+SERIAL_REPS = 20
+STORM_THREADS = 64
+STORM_REQUESTS = 20
+STORM_SLICES = 16
+STORM_G_BITS = 256
+
+
+def expr_pql(expr: tuple) -> str:
+    """A tree over ("leaf", i) as PQL over Bitmap(frame=f, rowID=i)."""
+    if expr[0] == "leaf":
+        return f"Bitmap(frame=f, rowID={expr[1]})"
+    return f"{expr[0]}({', '.join(expr_pql(e) for e in expr[1:])})"
+
+
+def expr_np(expr: tuple, rows: np.ndarray) -> np.ndarray:
+    """uint32 [S, W] result rows of ``expr`` over ``rows`` [S, L, W]."""
+    if expr[0] == "leaf":
+        return rows[:, expr[1]]
+    kids = [expr_np(e, rows) for e in expr[1:]]
+    acc = kids[0]
+    for k in kids[1:]:
+        acc = {"Intersect": np.bitwise_and, "Union": np.bitwise_or, "Xor": np.bitwise_xor,
+               "Difference": lambda a, b: a & ~b}[expr[0]](acc, k)
+    return acc
+
+
+def coalesce_and_check(fp, te, it, srv, truth: np.ndarray, rng) -> dict:
+    """Phase 14 on the phase-5 node (``truth`` its frame-f planes): the
+    coalesced query path.
+
+    Serial Count(Intersect(Bitmap(0), Bitmap(1))): a SetBit, then the
+    first Count (the entry rebuilds: a cache miss), SERIAL_REPS more (hits),
+    another SetBit and the Count again (a rebuild, the answer one more) —
+    one K2 launch a request, no K1.  Then the storm: STORM_THREADS client
+    threads x STORM_REQUESTS requests drawn from 16 distinct trees over the
+    8 rows, as Count over every slice and as Bitmap of the tree intersected
+    with a row of frame g over the first STORM_SLICES slices, every answer
+    against numpy (each query sent once before, serially, to build its
+    batch); in turns with coalescing on, off, off, on (off: the
+    scheduler closed, so the direct K2 path serves).  Coalesced turns must
+    launch fewer times than they answer, and fuse (K3)."""
+    from pilosa_tpu_torch.exec.coalesce import CoalesceScheduler
+
+    out: dict = {}
+    h = srv.host
+    ex = srv.executor
+    builds = {"n": 0}
+    build = ex._cached_batch_build
+
+    def counted(*a, **kw):
+        builds["n"] += 1
+        return build(*a, **kw)
+
+    def setbit(row: int, col: int) -> None:
+        status, body = http(h, "POST", "/index/i/query",
+                            f"SetBit(frame=f, rowID={row}, columnID={col})".encode())
+        if status != 200 or body["results"] != [True]:
+            raise AssertionError(f"phase 14 SetBit {row} {col}: {status} {body}")
+        truth[col >> 20, row, (col & 0xFFFFF) >> 5] |= np.uint32(1 << (col & 31))
+
+    def bit(row: int, col: int) -> int:
+        return int(truth[col >> 20, row, (col & 0xFFFFF) >> 5] >> (col & 31)) & 1
+
+    q = "Count(Intersect(Bitmap(frame=f, rowID=0), Bitmap(frame=f, rowID=1)))"
+    fresh: list[int] = []  # two columns in row 1 and not in row 0
+    while len(fresh) < 2:
+        c = int(rng.integers(0, N_SLICES << 20))
+        if bit(1, c) and not bit(0, c) and c not in fresh:
+            fresh.append(c)
+    ex._cached_batch_build = counted
+    try:
+        fp.launches = te.launches = it.launches = 0  # the main path starts here
+        setbit(0, fresh[0])
+        want = int(np.bitwise_count(truth[:, 0] & truth[:, 1]).sum())
+        times = []
+        for n in range(1 + SERIAL_REPS):
+            q0 = time.perf_counter()
+            status, body = http(h, "POST", "/index/i/query", q.encode())
+            times.append((time.perf_counter() - q0) * 1e3)
+            if status != 200 or body["results"] != [want]:
+                raise AssertionError(f"phase 14 serial Count {n}: {status} {body} != {want}")
+        if builds["n"] != 1:
+            raise AssertionError(f"phase 14: {builds['n']} batch builds over the serial Counts "
+                                 "(want 1: the first after the SetBit)")
+        setbit(0, fresh[1])
+        status, body = http(h, "POST", "/index/i/query", q.encode())
+        if status != 200 or body["results"] != [want + 1] or builds["n"] != 2:
+            raise AssertionError(f"phase 14 Count after a SetBit: {status} {body} (want "
+                                 f"{want + 1}), {builds['n']} builds (want 2)")
+        serial = (te.launches, fp.launches, it.launches)  # the main path ends here
+        if serial != (SERIAL_REPS + 2, 0, 0):
+            raise AssertionError(f"phase 14 serial: tree_eval / fused_popcount / interp launches "
+                                 f"{serial} != {(SERIAL_REPS + 2, 0, 0)}")
+    finally:
+        del ex._cached_batch_build
+    out["serial_miss_ms"] = times[0]
+    out["serial_hit_p50_ms"] = statistics.median(times[1:])
+    log(f"phase 14: serial {q}: first request (the entry rebuilt after a SetBit) "
+        f"{times[0]:.3f} ms, then {SERIAL_REPS} hits p50 {out['serial_hit_p50_ms']:.3f} ms; a "
+        f"SetBit made the next Count rebuild and answer {want + 1}; launches tree_eval "
+        f"{serial[0]}, fused_popcount {serial[1]}, interp {serial[2]}")
+
+    # The storm's Bitmap trees meet rows 4-7 of frame g (bits of our own
+    # in the first STORM_SLICES slices): small answers over a few slices.
+    g_cols = rng.choice(STORM_SLICES << 20, STORM_G_BITS, replace=False)
+    g_rows = 4 + rng.integers(0, 4, STORM_G_BITS)
+    calls = " ".join(f"SetBit(frame=g, rowID={r}, columnID={c})" for r, c in zip(g_rows, g_cols))
+    status, _ = http(h, "POST", "/index/i/query", calls.encode())
+    if status != 200:
+        raise AssertionError(f"phase 14 g bits: {status}")
+    exprs = storm_exprs()
+    slices = ",".join(str(i) for i in range(STORM_SLICES))
+    queries = []
+    for k, e in enumerate(exprs):
+        res = expr_np(e, truth)
+        queries.append(("/index/i/query", f"Count({expr_pql(e)})",
+                        int(np.bitwise_count(res).sum())))
+        g = 4 + k % 4
+        sel = np.sort(g_cols[g_rows == g])
+        hit = (res[sel >> 20, (sel & 0xFFFFF) >> 5] >> (sel & 31)) & 1 == 1
+        queries.append((f"/index/i/query?slices={slices}",
+                        f"Intersect(Bitmap(frame=g, rowID={g}), {expr_pql(e)})",
+                        {"attrs": {}, "bits": [int(c) for c in sel[hit]]}))
+    plan_reqs = [[queries[int(i)] for i in rng.integers(0, len(queries), STORM_REQUESTS)]
+                 for _ in range(STORM_THREADS)]
+    # Each query once, serially: the turns below compare served batches,
+    # not builds.
+    w0 = time.perf_counter()
+    for path, pql, want in queries:
+        status, body = http(h, "POST", path, pql.encode())
+        if status != 200 or body["results"] != [want]:
+            raise AssertionError(f"phase 14 warm {pql}: {status} {str(body)[:200]}")
+    log(f"phase 14: {len(queries)} storm queries built their batches in "
+        f"{time.perf_counter() - w0:.3f} s, serially")
+    n_req = STORM_THREADS * STORM_REQUESTS
+
+    def storm(on: bool) -> dict:
+        if on and ex.coalescer is None:
+            srv.coalescer = ex.coalescer = CoalesceScheduler()
+        if not on and ex.coalescer is not None:
+            srv.coalescer.close()
+            srv.coalescer = ex.coalescer = None
+        snap0 = ex.coalescer.snapshot() if on else None
+        k0 = (te.launches, it.launches, fp.launches)
+        start = threading.Barrier(STORM_THREADS)
+
+        def client(reqs):
+            start.wait(timeout=600)
+            lat = []
+            for path, pql, want in reqs:
+                q0 = time.perf_counter()
+                status, body = http(h, "POST", path, pql.encode())
+                lat.append((time.perf_counter() - q0) * 1e3)
+                if status != 200 or body["results"] != [want]:
+                    raise AssertionError(f"phase 14 storm {pql}: {status} {str(body)[:200]} "
+                                         f"!= {str(want)[:200]}")
+            return lat
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(STORM_THREADS) as pool:
+            lats = [x for f in [pool.submit(client, r) for r in plan_reqs]
+                    for x in f.result(timeout=1200)]
+        wall = time.perf_counter() - t0
+        lats.sort()
+        row = {"coalesce": on, "requests": n_req, "rps": n_req / wall,
+               "p50_ms": lats[len(lats) // 2], "p99_ms": lats[int(len(lats) * 0.99)],
+               "k2": te.launches - k0[0], "k3": it.launches - k0[1], "k1": fp.launches - k0[2]}
+        if on:
+            snap = ex.coalescer.snapshot()
+            row.update({k: snap[k] - snap0[k] for k in ("launches", "queries", "fused_launches",
+                                                         "fused_queries", "fuse_fallbacks")})
+            row["mean_occupancy"] = row["queries"] / row["launches"] if row["launches"] else None
+            if not row["launches"] < row["queries"] == n_req or not row["fused_launches"]:
+                raise AssertionError(f"phase 14 storm (coalesce on): {row}")
+            if row["k2"] + row["k3"] != row["launches"] or row["k1"]:
+                raise AssertionError(f"phase 14 storm: launches {row} do not match the scheduler")
+        elif (row["k2"], row["k3"], row["k1"]) != (n_req, 0, 0):
+            raise AssertionError(f"phase 14 storm (coalesce off): {row}")
+        log(f"phase 14: storm, coalescing {'on' if on else 'off'}: {n_req} requests "
+            f"({STORM_THREADS} threads, {len(exprs)} trees x Count / Bitmap) == numpy oracle; "
+            f"{row['rps']:.1f} requests/s, p50 {row['p50_ms']:.3f} ms, p99 "
+            f"{row['p99_ms']:.3f} ms; launches tree_eval {row['k2']}, interp {row['k3']}, "
+            f"fused_popcount {row['k1']}"
+            + (f"; scheduler {json.dumps(snap)}" if on else ""))
+        return row
+
+    out["storm"] = [storm(on) for on in (True, False, False, True)]
+    out["k2_launches"] = te.launches
+    out["k3_launches"] = it.launches
+    out["launches"] = fp.launches
     return out
 
 
@@ -1387,7 +1890,7 @@ def set_bits(truth: np.ndarray, rows: np.ndarray, cols: np.ndarray) -> None:
     np.bitwise_or.at(truth, (cols >> 20, rows, offs >> 5), masks)
 
 
-def cluster_and_check(fp, ds, br, sp, scatter, convert, Server, InternalClient, planes,
+def cluster_and_check(fp, ds, br, sp, te, scatter, convert, Server, InternalClient, planes,
                       rng) -> dict:
     """Phase 6: three nodes, two replicas, import + queries + fallback +
     failover, and the BSI leg (a field created on one node, values to
@@ -1444,7 +1947,7 @@ def cluster_and_check(fp, ds, br, sp, scatter, convert, Server, InternalClient, 
             set_bits(truth, rows, cols)
             touched = 2 * len(np.unique(cols >> 20))  # fragment replicas
 
-            fp.launches = ds.launches = sp.launches = 0  # the main path starts here
+            fp.launches = ds.launches = sp.launches = te.launches = 0  # the main path starts here
             br.launches = dict.fromkeys(br.KERNELS, 0)
             fb0 = scatter.counters()["fallbackInvalidations"]
             client = InternalClient(h0, timeout=600)
@@ -1528,20 +2031,29 @@ def cluster_and_check(fp, ds, br, sp, scatter, convert, Server, InternalClient, 
             t0 = time.perf_counter()
             got = ask(h0, "json", counts[0][1])
             out["first_count_ms"] = (time.perf_counter() - t0) * 1e3
-            if got != counts[0][2] or not 1 <= ds.launches <= legs:
+            if got != counts[0][2] or not 1 <= ds.launches <= legs or te.launches != legs:
                 raise AssertionError(f"first Count after import 1: {got} (want {counts[0][2]}), "
-                                     f"delta_scatter launches {ds.launches} (want 1..{legs})")
+                                     f"delta_scatter launches {ds.launches} (want 1..{legs}), "
+                                     f"tree_eval launches {te.launches} (want {legs})")
             log(f"phase 6: the first Count after the import {out['first_count_ms']:.3f} ms: "
-                f"delta_scatter launches {ds.launches} (at most one per node leg: {legs} legs)")
-            k4_before = sp.launches
+                f"delta_scatter launches {ds.launches} (at most one per node leg: {legs} legs), "
+                f"tree_eval launches {te.launches} (one per node leg)")
+            k4_before, k2_before, k1_before = sp.launches, te.launches, fp.launches
             latencies = run(counts + topns, hosts, CLUSTER_REPS)
             # TopN(src) from any node: the two rounds of the map/reduce, each
-            # leg one K4 launch over the node's fragments.
+            # leg one K4 launch over the node's fragments.  Each Count: one
+            # K2 launch per node leg, no K1.
             want_k4 = 3 * 2 * CLUSTER_REPS * 2 * legs
+            want_k2 = 3 * 2 * CLUSTER_REPS * len(counts) * legs
             if sp.launches - k4_before != want_k4:
                 raise AssertionError(f"phase 6 TopN(src): score_planes launches "
                                      f"{sp.launches - k4_before} != {want_k4} (2 rounds x "
                                      f"{legs} node legs x {3 * 2 * CLUSTER_REPS} requests)")
+            if (te.launches - k2_before, fp.launches - k1_before) != (want_k2, 0):
+                raise AssertionError(f"phase 6 Counts: tree_eval / fused_popcount launches "
+                                     f"{te.launches - k2_before} / {fp.launches - k1_before} != "
+                                     f"{want_k2} / 0 (one K2 per node leg)")
+            out["k2_counts"] = te.launches - k2_before
             out["k4_legs"] = legs
             for name, ms in latencies.items():
                 log(f"phase 6: {name} p50 {ms:.3f} ms over {3 * 2 * CLUSTER_REPS} requests "
@@ -1627,6 +2139,7 @@ def cluster_and_check(fp, ds, br, sp, scatter, convert, Server, InternalClient, 
                 log(f"phase 6: {name} with {hosts[2]} closed p50 {ms:.3f} ms "
                     "(2 nodes x protobuf and JSON)")
             out["launches"] = fp.launches  # the main path ends here
+            out["k2_launches"] = te.launches
             out["k7_launches"] = ds.launches
             out["k8_launches"] = dict(br.launches)
             out["k4_launches"] = sp.launches
@@ -1637,8 +2150,9 @@ def cluster_and_check(fp, ds, br, sp, scatter, convert, Server, InternalClient, 
                 raise AssertionError("phase 6 launched no delta_scatter")
             if not all(out["k8_launches"].values()):
                 raise AssertionError(f"phase 6 left a K8 kernel unlaunched: {out['k8_launches']}")
-            log(f"phase 6: answers == numpy oracle; fused_popcount launches "
-                f"{out['launches']}, delta_scatter launches {out['k7_launches']}, "
+            log(f"phase 6: answers == numpy oracle; tree_eval launches {out['k2_launches']}, "
+                f"fused_popcount launches {out['launches']} (the BSI Intersect's), "
+                f"delta_scatter launches {out['k7_launches']}, "
                 f"bsi_ripple launches {out['k8_launches']}, score_planes launches "
                 f"{out['k4_launches']} (one per node leg and round: {legs} legs)")
             out["latencies_ms"] = latencies
@@ -1922,7 +2436,7 @@ def bsi_and_check(fp, ds, br, scatter, convert, InternalClient, srv, f_planes, r
     return out
 
 
-def time_and_check(fp, InternalClient, srv, f_planes, rng) -> dict:
+def time_and_check(fp, te, InternalClient, srv, f_planes, rng) -> dict:
     """Phase 8 on the phase-5 server: a frame with time quantum YMD over
     TIME_SLICES slices x TIME_ROWS rows; SetBits with timestamps and a
     protobuf /import of TIME_BITS bits spread over TIME_DAYS days across
@@ -1959,7 +2473,7 @@ def time_and_check(fp, InternalClient, srv, f_planes, rng) -> dict:
     spans = [("2017-02-12T00:00", "2017-02-20T00:00"),  # inside one month
              ("2017-02-25T00:00", "2017-03-06T00:00"),  # across the month boundary
              ("2017-01-01T00:00", "2018-01-01T00:00")]  # the whole year
-    fp.launches = 0
+    fp.launches = te.launches = 0
     n_queries = 0
     latencies = {}
     for a, b in spans:
@@ -1985,12 +2499,17 @@ def time_and_check(fp, InternalClient, srv, f_planes, rng) -> dict:
                         raise AssertionError(f"phase 8 {name}: {status} {body} != {want}")
                 n_queries += REPS
                 latencies[name] = statistics.median(times) * 1e3
-    if fp.launches != n_queries:
-        raise AssertionError(f"phase 8: fused_popcount launches {fp.launches} != {n_queries}")
+    # A Range leaf is a scratch row of the cached batch (the union of its
+    # time views' rows): one K2 launch per request, no K1.
+    if (te.launches, fp.launches) != (n_queries, 0):
+        raise AssertionError(f"phase 8: tree_eval / fused_popcount launches {te.launches} / "
+                             f"{fp.launches} != {n_queries} / 0")
     for name, ms in latencies.items():
         log(f"phase 8: {name} p50 {ms:.3f} ms over {REPS} requests")
-    log(f"phase 8: answers == numpy oracle; fused_popcount launches {fp.launches}")
-    return {"launches": fp.launches, "import_s": import_s, "latencies_ms": latencies}
+    log(f"phase 8: answers == numpy oracle; tree_eval launches {te.launches}, fused_popcount "
+        f"launches {fp.launches}")
+    return {"launches": fp.launches, "k2_launches": te.launches, "import_s": import_s,
+            "latencies_ms": latencies}
 
 
 def topn_and_check(sp, fp, convert, srv, f_planes) -> dict:
@@ -2239,9 +2758,9 @@ def tutorial_queries(users, repos, lang, rows: dict, mole: dict) -> list:
          len(np.intersect1d(rr, np.union1d(ra, rb))), {"k5": 1}),
         ("count_union_sparse", "repository",
          f"Count(Union({B.format(a)}, {B.format(b)}, {B.format(c)}))",
-         len(np.union1d(np.union1d(ra, rb), rc)), {"k6": 1, "k1": 1}),
+         len(np.union1d(np.union1d(ra, rb), rc)), {"k6": (1, 0), "k2": 1}),
         ("bitmap_sparse", "repository", B.format(a),
-         {"attrs": {}, "bits": [int(v) for v in ra]}, {"k6": 1}),
+         {"attrs": {}, "bits": [int(v) for v in ra]}, {"k6": (1, 0), "k2": 1}),
         ("topn_language", "repository", f"TopN({B.format(a)}, frame=language, n=5)",
          tutorial_topn(a_lang, lang_counts, 5), {"k6": 1, "k4": 1}),
         ("topn_stargazer", "repository", "TopN(frame=stargazer, n=10)",
@@ -2250,7 +2769,7 @@ def tutorial_queries(users, repos, lang, rows: dict, mole: dict) -> list:
          "TopN(Bitmap(frame=language, language_id=3), frame=stargazer, n=10)",
          tutorial_topn(l3_scores, counts, 10), {"k4": 1}),
         ("bitmap_molecule", "mole", mole["pql_m1"],
-         {"attrs": {}, "bits": [int(v) for v in fm1]}, {"k6": 1}),
+         {"attrs": {}, "bits": [int(v) for v in fm1]}, {"k6": (1, 0), "k2": 1}),
         ("count_molecules", "mole", f"Count(Intersect({mole['pql_m1']}, {mole['pql_m2']}))",
          len(np.intersect1d(fm1, fm2)), {"k5": 1}),
         ("topn_tanimoto", "mole",
@@ -2259,13 +2778,13 @@ def tutorial_queries(users, repos, lang, rows: dict, mole: dict) -> list:
     ]
 
 
-def tutorials_and_check(ac, ep, fp, sp, bp, InternalClient, srv, rng) -> dict:
+def tutorials_and_check(ac, ep, fp, sp, te, bp, InternalClient, srv, rng) -> dict:
     """Phase 10 on ``srv``, a fresh one-node ``Server`` on the card at the
     JAX package's defaults (dense budget 65,536, plane-format auto, 64 KiB
     caps): the star trace and the chemical-similarity tutorials loaded
     through ``/import``, then every query class of the slice, each
     answer against a numpy oracle over the written pairs, the launches of
-    K1, K4, K5 and K6 counted around each class."""
+    K1, K2, K4, K5 and K6 counted around each class."""
     import torch
 
     from pilosa_tpu_torch.core import fragment as fragment_mod
@@ -2364,7 +2883,7 @@ def tutorials_and_check(ac, ep, fp, sp, bp, InternalClient, srv, rng) -> dict:
             "pql_m1": M.format(m1), "pql_m2": M.format(m2)}
     inv_rows = {"q": FP_QUERY, "m1": m1, "m2": m2}
     queries = tutorial_queries(users, repos, lang, rows, mole)
-    kernels = {"k1": fp, "k4": sp, "k5": ac, "k6": ep}
+    kernels = {"k1": fp, "k2": te, "k4": sp, "k5": ac, "k6": ep}
     out: dict = {"latencies_ms": {}, "launches": {}, "rows": {"a": a, "b": b, "c": c, "d": d,
                                                              "r": r, **inv_rows}}
 
@@ -2380,7 +2899,14 @@ def tutorials_and_check(ac, ep, fp, sp, bp, InternalClient, srv, rng) -> dict:
                 raise AssertionError(f"phase 10 {name}: {status} {str(body)[:300]} != "
                                      f"{str(want)[:300]}")
         got = {k: m.launches for k, m in kernels.items()}  # the main path ends here
-        expect = {k: reps * per_request.get(k, 0) for k in kernels}
+        # An int is launches per request; (first, later): the first request
+        # builds the cached batch (its K6 expansions), the later ones hit.
+        expect = {}
+        for k in kernels:
+            first, later = per_request.get(k, 0), None
+            if isinstance(first, tuple):
+                first, later = first
+            expect[k] = first + (reps - 1) * (first if later is None else later)
         if got != expect:
             raise AssertionError(f"phase 10 {name}: launches {got} != {expect}")
         out["latencies_ms"][name] = statistics.median(times) * 1e3
@@ -2603,16 +3129,18 @@ def residency_and_check(Server, data_dir: str, tutorials: dict, kernels: dict) -
             alloc = torch.cuda.memory_allocated() - base
             reserved = torch.cuda.memory_reserved()
             saturated = c["overBudget"] > cb["overBudget"]
+            cache = pool.snapshot()["cache_bytes"]
             row = {"name": name, "ms": (q1 - q0) * 1e3, "resident": resident, "high": high,
-                   "alloc": alloc, "reserved": reserved, "saturated": saturated,
+                   "alloc": alloc, "reserved": reserved, "saturated": saturated, "cache": cache,
                    **{k: c[k] - c0[k] for k in ("evictions", "evictSkipped", "overBudget",
                                                 "restageBytes")}}
             out["queries"].append(row)
             log(f"phase 12: {name} on {index} {row['ms']:.3f} ms; resident "
                 f"{resident / 2**30:.3f} GiB (high {high / 2**30:.3f}), evictions "
                 f"{row['evictions']}, skipped {row['evictSkipped']}, over budget "
-                f"{row['overBudget']}, restaged {row['restageBytes'] / 2**30:.3f} GiB; "
-                f"memory_allocated {alloc / 2**30:.3f} GiB over the base, reserved "
+                f"{row['overBudget']}, restaged {row['restageBytes'] / 2**30:.3f} GiB, cache "
+                f"{cache / 2**20:.3f} MiB; memory_allocated {alloc / 2**30:.3f} GiB over the "
+                f"base, reserved "
                 f"{reserved / 2**30:.3f} GiB")
             if saturated and index == "repository":
                 saturated_both.append(name)
@@ -2746,8 +3274,8 @@ def durability_and_check(Server, kernels: dict) -> dict:
         finally:
             other.close()
         out["launches"] = {k: m.launches for k, m in kernels.items()}  # the main path ends here
-        if out["launches"]["k1"] == 0:
-            raise AssertionError("phase 13 launched no fused_popcount")
+        if out["launches"]["k2"] == 0:
+            raise AssertionError("phase 13 launched no tree_eval")
         # Serial SetBits, the WAL on and off in turns (on, off, off, on).
         serial: dict = {True: [], False: []}
         for turn, wal_on in enumerate((True, False, False, True)):
@@ -2801,7 +3329,9 @@ def main() -> int:
     from pilosa_tpu_torch.ops import delta_scatter as ds
     from pilosa_tpu_torch.ops import expand_payload as ep
     from pilosa_tpu_torch.ops import fused_popcount as fp
+    from pilosa_tpu_torch.ops import interp as it
     from pilosa_tpu_torch.ops import score_planes as sp
+    from pilosa_tpu_torch.ops import tree_eval as te
 
     card = card_line()
     log(card)
@@ -2827,6 +3357,9 @@ def main() -> int:
     rng56 = np.random.default_rng(SEED + 4)
     k6_err = check_k6(ep, bp, rng56)
     k5_err = check_k5(ac, bp, tplan, rng56)
+    rng23 = np.random.default_rng(SEED + 5)
+    k2_err = check_k2(te, it, tplan, rng23)
+    k3_err = check_k3(te, it, tplan, bsi, rng23)
 
     a = bp.to_device(rng.integers(0, 2**32, size=(N_SLICES, 32768), dtype=np.uint32), "cuda")
     b = bp.to_device(rng.integers(0, 2**32, size=(N_SLICES, 32768), dtype=np.uint32), "cuda")
@@ -2843,18 +3376,24 @@ def main() -> int:
     k4_times = time_k4(sp, fp, hbm)
     k6_times = time_k6(ep, bp, rng56, hbm)
     k5_times = time_k5(ac, bp, tplan, rng56, hbm)
+    k23_times = time_k2k3(te, it, tplan, hbm)
 
     with tempfile.TemporaryDirectory(prefix="pilosa-torch-smoke-") as data_dir:
         srv = Server(data_dir, host="127.0.0.1:0", device="cuda")
         srv.open()
         try:
-            served = serve_and_check(fp, ds, sp, bp, convert, srv, rng)
+            served = serve_and_check(fp, ds, sp, te, bp, convert, srv, rng)
             planes = served.pop("planes")
+            truth = planes.copy()  # with phase 5's SetBit, and phase 14's own writes
+            col = served["setbit_col"]
+            truth[col >> 20, 0, (col & 0xFFFFF) >> 5] |= np.uint32(1 << (col & 31))
+            coalesced = coalesce_and_check(fp, te, it, srv, truth, np.random.default_rng(SEED + 14))
+            del truth
             clustered = cluster_and_check(
-                fp, ds, br, sp, scatter, convert, Server, InternalClient, planes, rng
+                fp, ds, br, sp, te, scatter, convert, Server, InternalClient, planes, rng
             )
             valued = bsi_and_check(fp, ds, br, scatter, convert, InternalClient, srv, planes, rng)
-            timed = time_and_check(fp, InternalClient, srv, planes, rng)
+            timed = time_and_check(fp, te, InternalClient, srv, planes, rng)
             ranked = topn_and_check(sp, fp, convert, srv, planes)
         finally:
             srv.close()
@@ -2866,7 +3405,7 @@ def main() -> int:
         srv = Server(data_dir, host="127.0.0.1:0", device="cuda", plane_format="auto")
         srv.open()
         try:
-            tutorials = tutorials_and_check(ac, ep, fp, sp, bp, InternalClient, srv,
+            tutorials = tutorials_and_check(ac, ep, fp, sp, te, bp, InternalClient, srv,
                                             np.random.default_rng(SEED + 10))
         finally:
             srv.close()
@@ -2876,8 +3415,8 @@ def main() -> int:
         del srv
         gc.collect()
         resident = residency_and_check(Server, data_dir, tutorials,
-                                       {"k1": fp, "k4": sp, "k5": ac, "k6": ep})
-    durable = durability_and_check(Server, {"k1": fp})
+                                       {"k1": fp, "k2": te, "k4": sp, "k5": ac, "k6": ep})
+    durable = durability_and_check(Server, {"k2": te})
 
     k7 = k7_times[K7_SHAPES[1]]  # every slice's queue in one launch, as phase 7 flushes
     kernels = [
@@ -2886,15 +3425,14 @@ def main() -> int:
             "route": "cuda",
             "source": fp.SOURCE,
             "replaces": fp.REPLACES,
-            "launches": served["launches"] + clustered["launches"]
+            "launches": served["launches"] + coalesced["launches"] + clustered["launches"]
             + valued["launches"]["k1"] + timed["launches"] + ranked["launches"]
-            + tutorials["totals"]["k1"] + resident["launches"]["k1"]
-            + durable["launches"]["k1"],
-            "launches_by_phase": {"5": served["launches"], "6": clustered["launches"],
+            + tutorials["totals"]["k1"] + resident["launches"]["k1"],
+            "launches_by_phase": {"5": served["launches"], "14": coalesced["launches"],
+                                  "6": clustered["launches"],
                                   "7": valued["launches"]["k1"], "8": timed["launches"],
                                   "9": ranked["launches"], "10": tutorials["totals"]["k1"],
-                                  "12": resident["launches"]["k1"],
-                                  "13": durable["launches"]["k1"]},
+                                  "12": resident["launches"]["k1"]},
             "max_abs_err": max_err,
             "ms": k_ms,
             "device_ms": k_dev,
@@ -2993,6 +3531,31 @@ def main() -> int:
         "checked": k5_err == 0.0,
         "shape": [N_SLICES, K5_ANCHOR, "dense", K5_SPARSE, K5_RUNS],
     })
+    k2_by_phase = {"5": served["k2_launches"], "14": coalesced["k2_launches"],
+                   "6": clustered["k2_launches"], "8": timed["k2_launches"],
+                   "10": tutorials["totals"]["k2"], "12": resident["launches"]["k2"],
+                   "13": durable["launches"]["k2"]}
+    for kernel, err, times, by_phase, shape in (
+        (te, k2_err, k23_times["tree_eval_count"], k2_by_phase, [N_SLICES, 2, "count"]),
+        (it, k3_err, k23_times["interp_count"], {"14": coalesced["k3_launches"]},
+         [N_SLICES, 8, "count", len(storm_exprs()), "programs"]),
+    ):
+        entry = {
+            "name": kernel.NAME,
+            "route": "cuda",
+            "source": kernel.SOURCE,
+            "replaces": kernel.REPLACES,
+            "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase,
+            "max_abs_err": err,
+            "checked": err == 0.0,
+            "shape": shape,
+            **{k: times[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")},
+        }
+        if kernel is te:
+            entry["row_reduce"] = k23_times["tree_eval_row"]
+        kernels.append(entry)
     k6 = k6_times["sparse"]
     kernels.append({
         "name": ep.NAME,

@@ -9,8 +9,9 @@ holds them against ``plan.compiled_batched`` and ``plan.eval_expr_np``).
 Rows may carry leading batch dimensions (``[S, W]`` for S slices): every
 popcount reduces the last axis only, and per-slice decisions broadcast
 over it.  Predicates arrive as packed rows (:func:`pilosa_tpu_torch.bsi.pred_row`
-as int32).  The coalescer's interpreter emitters
-(``pilosa_tpu/bsi/ripple.py:158-224``) are not part of the port.
+as int32).  ``lower_magnitude_cmp`` / ``lower_signed_cmp`` /
+``lower_between`` emit the same cascade as interpreter instructions for
+the coalescer's fused launches (``pilosa_tpu/bsi/ripple.py:158-224``).
 """
 
 from __future__ import annotations
@@ -142,6 +143,84 @@ def minmax_vec(which, exists, sign, planes, filt):
         bits[k] = choose1.to(torch.int32)
     negative = (use_prefer if which == "min" else ~use_prefer).to(torch.int32)
     return torch.stack(bits + [negative, popcount(cand)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# ripple as interpreter ops (exec/plan.py fused multi-query programs)
+# ---------------------------------------------------------------------------
+#
+# ``em`` is an opcode emitter (plan.FuseEmitter) and every operation above
+# becomes one instruction row, in the same order and with the same
+# andnot/xor factoring, so a fused interpreter launch is byte-identical to
+# the ripple above.  The emitter's value numbering shares subterms
+# (pos/neg/ripple state) across the two ripples of a ``between`` and
+# across the queries lowered into one table.
+
+
+def lower_magnitude_cmp(em, exists, planes, pred):
+    """Emit :func:`magnitude_cmp` as interpreter ops; ``exists`` /
+    ``planes[k]`` / ``pred`` are register ids, the return is the
+    ``(lt, eq, gt)`` register triple.  ``m_k`` is the MASKW op (broadcast
+    of predicate word ``k``), so the predicate stays data."""
+    eq = exists
+    lt = gt = None
+    for k in reversed(range(len(planes))):
+        b = planes[k]
+        m = em.maskw(pred, k)
+        lt_term = em.and_(em.andnot(eq, b), m)
+        lt = lt_term if lt is None else em.or_(lt, lt_term)
+        gt_term = em.andnot(em.and_(eq, b), m)
+        gt = gt_term if gt is None else em.or_(gt, gt_term)
+        # eq & (b ^ ~m)  ==  eq & ~(b ^ m)
+        eq = em.andnot(eq, em.xor(b, m))
+    # BSI depths bucket to multiples of 8 (bsi.pad_depth): planes is never
+    # empty, so lt and gt are always set.
+    return lt, eq, gt
+
+
+def lower_signed_cmp(em, op, exists, sign, planes, pred):
+    """Emit :func:`signed_cmp` as interpreter ops; returns the result
+    row's register id.  The predicate's sign mask (word ``depth``)
+    selects between the positive- and negative-predicate cases as data."""
+    depth = len(planes)
+    lt, eq, gt = lower_magnitude_cmp(em, exists, planes, pred)
+    nm = em.maskw(pred, depth)
+    pos = em.andnot(exists, sign)
+    neg = em.and_(exists, sign)
+
+    eq_row = em.or_(
+        em.andnot(em.and_(pos, eq), nm), em.and_(em.and_(neg, eq), nm)
+    )
+    if op == "eq":
+        return eq_row
+    if op == "ne":
+        return em.andnot(exists, eq_row)
+    lt_row = em.or_(
+        em.andnot(em.or_(neg, em.and_(pos, lt)), nm),
+        em.and_(em.and_(neg, gt), nm),
+    )
+    if op == "lt":
+        return lt_row
+    if op == "le":
+        return em.or_(lt_row, eq_row)
+    gt_row = em.or_(
+        em.andnot(em.and_(pos, gt), nm),
+        em.and_(em.or_(pos, em.and_(neg, lt)), nm),
+    )
+    if op == "gt":
+        return gt_row
+    if op == "ge":
+        return em.or_(gt_row, eq_row)
+    raise ValueError(f"unknown BSI comparison op {op!r}")
+
+
+def lower_between(em, exists, sign, planes, pred_lo, pred_hi):
+    """``lo <= v <= hi`` as two lowered ripples; the emitter's value
+    numbering shares the pos/neg sign-group rows between them."""
+    return em.and_(
+        lower_signed_cmp(em, "ge", exists, sign, planes, pred_lo),
+        lower_signed_cmp(em, "le", exists, sign, planes, pred_hi),
+    )
 
 
 def decode_minmax(vec, depth: int) -> tuple[int, int] | None:

@@ -6,12 +6,17 @@
         [--plane-format auto|dense] [--hbm-budget-bytes N] [--prefetch true|false]
         [--wal true|false --group-commit-ms MS --group-commit-max N
          --wal-segment-bytes N]
+        [--coalesce true|false --coalesce-max-batch N --coalesce-max-wait-us US
+         --fuse true|false --fuse-max-programs N] [--prewarm true|false]
 
 runs one node until SIGINT/SIGTERM.  The device defaults to the CUDA
 card; ``--device cpu`` runs on the CPU.  The last flags name the JAX
-package's ``[device]`` and ``[ingest]`` keys (``plane-format``,
-``hbm-budget-bytes``, ``prefetch``, ``wal``, ``group-commit-ms``,
-``group-commit-max``, ``wal-segment-bytes``) with their defaults.
+package's ``[device]``, ``[ingest]`` and ``[exec]`` keys
+(``plane-format``, ``hbm-budget-bytes``, ``prefetch``, ``wal``,
+``group-commit-ms``, ``group-commit-max``, ``wal-segment-bytes``,
+``coalesce``, ``coalesce-max-batch``, ``coalesce-max-wait-us``,
+``fuse``, ``fuse-max-programs``) and ``[tpu] prewarm``, with their
+defaults.
 
     python -m pilosa_tpu_torch.cli import --host H:P -i INDEX -f FRAME FILE.csv ...
 
@@ -86,6 +91,19 @@ def build_parser() -> argparse.ArgumentParser:
     srv.add_argument("--group-commit-ms", type=float, default=2.0)
     srv.add_argument("--group-commit-max", type=int, default=128)
     srv.add_argument("--wal-segment-bytes", type=int, default=4 << 20)
+    # The JAX package's [exec] settings and [tpu] prewarm.
+    srv.add_argument("--coalesce", type=_bool, default=True,
+                     help="give concurrent Count/Bitmap queries one launch")
+    srv.add_argument("--coalesce-max-batch", type=int, default=64,
+                     help="queries at most in one coalesced launch")
+    srv.add_argument("--coalesce-max-wait-us", type=int, default=0,
+                     help="wait at most this long for company before a launch")
+    srv.add_argument("--fuse", type=_bool, default=True,
+                     help="run a mix of distinct trees in one interpreter launch")
+    srv.add_argument("--fuse-max-programs", type=int, default=16,
+                     help="distinct trees at most in one interpreter launch")
+    srv.add_argument("--prewarm", type=_bool, default=False,
+                     help="build every kernel and launch each once at open")
     imp = sub.add_parser("import", help="bulk-import CSV bits (row,col[,timestamp])")
     imp.add_argument("--host", default="localhost:10101", help="host:port of a node")
     imp.add_argument("-i", "--index", required=True)
@@ -122,6 +140,12 @@ def run_server(args) -> int:
         ingest_group_commit_ms=args.group_commit_ms,
         ingest_group_commit_max=args.group_commit_max,
         ingest_wal_segment_bytes=args.wal_segment_bytes,
+        coalesce=args.coalesce,
+        coalesce_max_batch=args.coalesce_max_batch,
+        coalesce_max_wait_us=args.coalesce_max_wait_us,
+        fuse=args.fuse,
+        fuse_max_programs=args.fuse_max_programs,
+        prewarm=args.prewarm,
     )
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):

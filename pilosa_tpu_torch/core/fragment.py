@@ -160,6 +160,40 @@ def _log(msg: str) -> None:
 # id(), a serial is never reused by a later fragment.
 _fragment_serials = itertools.count(1)
 
+# Process-wide epochs the executor's batch cache validates against in O(1)
+# (JAX ``core/fragment.py:82-96``): the write epoch moves at every content
+# change of any fragment (a write, an import, a queued delta, a replay, a
+# load, a close) and at a frame's quantum change; the mirror epoch (no JAX
+# counterpart) moves whenever any fragment's mirror or sparse payloads are
+# replaced, evicted or uploaded again, which changes the addresses a cached
+# row table holds without changing a version.  Only when one moved does
+# the cache compare each fragment's ``(serial, version, mirror generation)``.
+# Bumped under a lock: a lost increment could leave an epoch unchanged
+# across a write.
+_epoch_mu = threading.Lock()
+_write_epoch = 0
+_mirror_epoch = 0
+
+
+def bump_write_epoch() -> None:
+    global _write_epoch
+    with _epoch_mu:
+        _write_epoch += 1
+
+
+def _bump_mirror_epoch() -> None:
+    global _mirror_epoch
+    with _epoch_mu:
+        _mirror_epoch += 1
+
+
+def write_epoch() -> int:
+    return _write_epoch
+
+
+def mirror_epoch() -> int:
+    return _mirror_epoch
+
 
 @dataclass
 class TopOptions:
@@ -328,6 +362,12 @@ class Fragment:
         self._serial = next(_fragment_serials)
         self._pool_key = ("frag", self._serial, "mirror")
         self._sparse_pool_key = ("frag", self._serial, "sparse")
+        # Content version, bumped at every change of the fragment's bits
+        # (JAX ``core/fragment.py:369``), and the mirror generation, bumped
+        # whenever the mirror or a sparse payload on the device is
+        # replaced, evicted or uploaded again.
+        self._version = 0
+        self._mirror_gen = 0
 
         self._mu = threading.RLock()
         self._plane = bp.empty_plane(bp.ROW_BLOCK)
@@ -510,6 +550,7 @@ class Fragment:
         self._sparse_dev.clear()
         self._sync_sparse_pool_locked()
         self._invalidate_device()
+        self._changed_locked()
 
     def close(self) -> None:
         with self._mu:
@@ -528,6 +569,9 @@ class Fragment:
             self._invalidate_device()
             self._sparse_dev.clear()
             self._sync_sparse_pool_locked()
+            # A fragment leaving service (shutdown, or a view, frame or
+            # index deleted) invalidates the epoch-validated read caches.
+            bump_write_epoch()
 
     @property
     def cache_path(self) -> str:
@@ -633,6 +677,28 @@ class Fragment:
     # A queue's cap, under the mirror-size rule of scatter.pending_limit.
     _MAX_DEVICE_PENDING = scatter.MAX_PENDING
 
+    def _changed_locked(self) -> None:
+        """The fragment's bits changed: a new version, and the write
+        epoch moves."""
+        self._version += 1
+        bump_write_epoch()
+
+    def _mirror_changed_locked(self) -> None:
+        """The mirror was replaced, evicted or uploaded, or device payloads
+        were evicted or replaced by a write: a new mirror generation, and
+        the mirror epoch moves.  (A payload's page-in, or its page-out from
+        the small LRU, changes no address a row table holds: tables name
+        the rows K6 expanded into their scratch.)"""
+        self._mirror_gen += 1
+        _bump_mirror_epoch()
+
+    def cache_state(self, row_id: int) -> tuple:
+        """What a cached row table naming this fragment's row is valid for:
+        ``(serial, version, mirror generation)`` for a plane row (the table
+        holds its address in the mirror), the generation None for a sparse
+        or absent row (the table holds a scratch copy, or the zero row)."""
+        return self._serial, self._version, (self._mirror_gen if row_id in self._slot_of else None)
+
     def _invalidate_device(self) -> None:
         """Drop the mirror and its queued deltas: the next read uploads
         the host plane, which already holds every write.  The pool
@@ -640,6 +706,7 @@ class Fragment:
         self._mirror = None
         self._pending.clear()
         self._pending_n = 0
+        self._mirror_changed_locked()
         device_mod.pool().remove(self._pool_key)
 
     def _pool_info(self) -> dict:
@@ -659,6 +726,7 @@ class Fragment:
             self._mirror = None
             self._pending.clear()
             self._pending_n = 0
+            self._mirror_changed_locked()
             return True
         finally:
             self._mu.release()
@@ -671,6 +739,7 @@ class Fragment:
         try:
             self._sparse_dev.clear()
             self._sparse_dev_nbytes = 0
+            self._mirror_changed_locked()
             return True
         finally:
             self._mu.release()
@@ -706,6 +775,10 @@ class Fragment:
         the host plane, which already holds every write).  Without a
         mirror there is nothing to queue."""
         n = sum(len(c) for c in chunks)
+        if n:
+            # A queued delta is a change a cached row table must not
+            # outlive, even before a read applies it.
+            self._changed_locked()
         if self._mirror is None or n == 0:
             return
         limit = min(self._MAX_DEVICE_PENDING, scatter.pending_limit(self._mirror.shape[0]))
@@ -779,6 +852,7 @@ class Fragment:
         pool.count_restage(nbytes)
         self._pending.clear()
         self._pending_n = 0
+        self._mirror_changed_locked()
         # Other owners that were busy while this one was admitted may be
         # free now: back to the budget, this mirror spared.
         pool.reclaim(exclude_key=self._pool_key)
@@ -819,6 +893,21 @@ class Fragment:
                 return bp.FMT_DENSE, self.device_plane()[slot]
             ent = self._sparse_dev_entry_locked(row_id)
             return None if ent is None else ent[:2]
+
+    def device_row_ref(self, row_id: int) -> tuple[tuple | None, tuple]:
+        """The row as a cached row table names it, and the state that
+        name is valid for, read together under the lock: ``(("plane",
+        mirror, slot) | ("payload", fmt, payload) | None, cache_state(row_id))``
+        — a plane row of the mirror (queued deltas applied), a sparse
+        row's device payload (paged in on a miss), or None when absent."""
+        with self._mu:
+            slot = self._slot_of.get(row_id)
+            if slot is not None:
+                ref = ("plane", self.device_plane(), slot)
+            else:
+                ent = self._sparse_dev_entry_locked(row_id)
+                ref = None if ent is None else ("payload", ent[0], ent[1])
+            return ref, self.cache_state(row_id)
 
     def _sparse_dev_entry_locked(self, row_id: int):
         """``(fmt, device payload, encoded nbytes)`` of a sparse row, paged
@@ -994,7 +1083,9 @@ class Fragment:
         # next read encodes the row at its new density.
         self._payload_cache.pop(row_id, None)
         if self._sparse_dev.pop(row_id, None) is not None:
+            self._mirror_changed_locked()
             self._sync_sparse_pool_locked()
+        self._changed_locked()
         n = self._count_of[row_id] = self._count_of.get(row_id, 0) + delta
         self.cache.add(row_id, n)
         self._op_n += 1
@@ -1124,9 +1215,11 @@ class Fragment:
             for r, slot in slot_of.items():
                 if slot is None:
                     self._payload_cache.pop(r, None)
-                    self._sparse_dev.pop(r, None)
+                    if self._sparse_dev.pop(r, None) is not None:
+                        self._mirror_changed_locked()
             self._sync_sparse_pool_locked()
             self._recount(slot_of, deltas)
+            self._changed_locked()
             for r in slot_of:
                 self._maybe_promote(r)
             self.snapshot()
@@ -1183,6 +1276,7 @@ class Fragment:
             self._invalidate_device()
             self._recount({**self._slot_of, **{r: None for r in self._sparse}},
                           {s: counts[r] for r, s in self._slot_of.items()})
+            self._changed_locked()
             self._upload_locked()
             self.snapshot()
 

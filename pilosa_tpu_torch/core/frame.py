@@ -29,6 +29,7 @@ import torch
 from pilosa_tpu_torch import bsi
 from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch.core import cache as cache_mod
+from pilosa_tpu_torch.core import fragment as fragment_mod
 from pilosa_tpu_torch.core import timequantum as tq
 from pilosa_tpu_torch.core.attr import AttrStore
 from pilosa_tpu_torch.core.names import ValidationError, validate_label, validate_name
@@ -165,6 +166,9 @@ class Frame:
                 self.inverse_enabled = inverse_enabled
             if time_quantum is not None:
                 self.time_quantum = tq.parse_time_quantum(time_quantum)
+                # The quantum decides which time views a Range() reads:
+                # epoch-validated read caches must notice.
+                fragment_mod.bump_write_epoch()
             if range_enabled is not None:
                 self.range_enabled = range_enabled
             if retention_age_s is not None:

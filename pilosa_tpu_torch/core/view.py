@@ -116,6 +116,11 @@ class View:
         with self._mu:
             return self._fragments.get(slice_i)
 
+    def fragment_map(self) -> dict[int, Fragment]:
+        """A copy of the view's fragments by slice, taken under one lock."""
+        with self._mu:
+            return dict(self._fragments)
+
     def fragments(self) -> list[Fragment]:
         """The view's fragments in the order they were opened or made."""
         with self._mu:

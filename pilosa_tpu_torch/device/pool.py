@@ -1,9 +1,11 @@
 """PlanePool — the device-memory residency manager.
 
 The counterpart of ``pilosa_tpu/device/pool.py``.  Every device tensor
-the port keeps alive across queries registers here: fragment plane
-mirrors (``Fragment.device_plane``) and each fragment's paged sparse-row
-payloads.  The pool keeps per-device byte accounting against a budget
+the port keeps alive across queries registers here, in three categories:
+fragment plane mirrors (``Fragment.device_plane``, ``"mirror"``), each
+fragment's paged sparse-row payloads (``"sparse"``), and the executor's
+cached batches (``"cache"``: each entry's row-address table and the
+scratch rows it owns; the dense rows it names stay the mirrors').  The pool keeps per-device byte accounting against a budget
 (``[device] hbm-budget-bytes``, ``Server(hbm_budget_bytes=...)``) and
 reclaims by LRU eviction of unpinned entries whenever an admission
 would pass it.  Eviction is free of correctness cost because the host
@@ -83,7 +85,7 @@ class _Entry:
     key: tuple
     bytes_by_device: dict
     evict: Callable[[], bool]
-    category: str  # "mirror" | "sparse"
+    category: str  # "mirror" | "sparse" | "cache"
     info: dict = field(default_factory=dict)
     pins: int = 0
 

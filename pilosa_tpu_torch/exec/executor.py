@@ -11,27 +11,38 @@ and the same error messages.
 
 Execution on the device: every read site first brings the mirrors it
 reads up to date with one launch of the delta-scatter K7 per device for
-all the fragments with queued writes (``apply_pending_many``: the leaf
-stacks, the anchored Count, the TopN prepares).  A bitmap tree's row
-leaves are stacked per
-leaf (int32 ``[n_slices, 32768]``, only slices where some leaf row
-exists; a time-quantum ``Range`` is the union of its time views' rows)
-from the fragments' device mirrors, and a sparse-tier row's compressed
-payload is written into its place by the payload expansion K6 — one
-launch per stacking; the tree folds with torch bitwise ops, and a
-count's last fold step is one fused popcount launch (exec/plan.py).  A
-Count over Bitmap leaves whose tree has an anchor (a leaf that bounds
-the result) and a compressed leaf runs first in the position domain:
-one launch of the anchored count K5 over every local slice (JAX
-``executor.py:1634-1830``, same routing rules).  A BSI ``Range``
-comparison and ``Sum``/``Min``/``Max``
-are rewritten as in the JAX package (``_rewrite_bsi``) into nodes over
-the field's plane leaves, which the ripple kernel K8 reads in place from
-the field fragments' mirrors.  TopN prepares every local fragment's
+all the fragments with queued writes (``apply_pending_many``: the batch
+build, the leaf stacks, the anchored Count, the TopN prepares).
+
+A Count or Bitmap over a bitmap tree (Bitmap and time-quantum ``Range``
+leaves under Intersect/Union/Difference/Xor) runs as in a JAX node
+(``executor.py:1030-1160,1439-1609,1804-1974``): a Count whose tree has
+an anchor (a leaf that bounds the result) and a compressed leaf counts
+first in the position domain, one launch of the anchored count K5 over
+every local slice; otherwise the tree's cached batch — a row-address
+table over the slices where some leaf row exists (``_cached_batch``):
+each leaf row a row of its fragment's mirror read in place, a sparse-tier
+row or a union of time views a scratch row the entry owns (filled by one
+payload-expansion K6 launch and ORs at build), an absent row one shared
+zero row — goes to the coalescer (``exec/coalesce.py``), which launches
+the fused tree eval K2 for it and for every concurrent query of its
+tree, or the interpreter K3 for a mix of trees; without a coalescer, one
+K2 launch.  An entry is checked in O(1) against the write and mirror
+epochs, and after any change against every fragment's (serial, version,
+mirror generation); entries are residency-pool tenants (``"cache"``).
+
+A tree with a BSI node keeps the eager route: BSI ``Range`` comparisons
+and ``Sum``/``Min``/``Max`` are rewritten as in the JAX package
+(``_rewrite_bsi``) into nodes over the field's plane leaves, which the
+ripple kernel K8 reads in place from the field fragments' mirrors; the
+row leaves beside them are stacked per leaf (``leaf_stacks``) and fold
+with torch ops, and a Count's last fold step is one fused popcount K1
+launch (exec/plan.py).  TopN prepares every local fragment's
 candidates first and scores them all in one launch of the
 cross-fragment scorer K4 (``ops/score_planes.py``) with one fetch per
-node and phase; on one node both phases come from one scoring pass (the
-folded TopN, JAX ``executor.py:2611-2851``).
+node and phase, through the coalescer's fetch lane (``_shared_fetch``);
+on one node both phases come from one scoring pass (the folded TopN, JAX
+``executor.py:2611-2851``).
 
 Across a cluster (JAX ``executor.py:3203-3500``): a read maps the
 slice list over the owning nodes — local slices run here, the others
@@ -60,15 +71,18 @@ its launches are enqueued and their results fetched.  ``SetBit`` and
 thread's writes durable (``_wait_durable``), outside every fragment
 lock; a remote leg waits on its own node before it answers.
 
-Replication quorums, attribute writes and the coalescer of the JAX
-executor are not ported yet.
+Replication quorums, attribute writes and the folded-TopN prep cache of
+the JAX executor are not ported yet.
 """
 
 from __future__ import annotations
 
+import functools
 import threading
+import weakref
 from collections import OrderedDict
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
+from concurrent.futures import TimeoutError as FuturesTimeoutError
 from dataclasses import dataclass, field, replace
 from datetime import datetime
 
@@ -81,14 +95,17 @@ from pilosa_tpu_torch.bsi import ripple
 from pilosa_tpu_torch.cluster.topology import Cluster, Node
 from pilosa_tpu_torch.core import cache as cache_mod
 from pilosa_tpu_torch.core import timequantum as tq
+from pilosa_tpu_torch.core import fragment as fragment_mod
 from pilosa_tpu_torch.core.bitmap import RowBitmap
 from pilosa_tpu_torch.core.cache import Pair
 from pilosa_tpu_torch.core.fragment import Fragment, TopOptions, apply_pending_many
 from pilosa_tpu_torch.core.view import VIEW_INVERSE, VIEW_STANDARD
+from pilosa_tpu_torch.exec import coalesce as coalesce_mod
 from pilosa_tpu_torch.exec import plan
 from pilosa_tpu_torch.net.client import is_node_failure
 from pilosa_tpu_torch.ops import bitplane as bp
 from pilosa_tpu_torch.ops import bsi_ripple, expand_payload, score_planes
+from pilosa_tpu_torch.ops.tree_eval import RowTable
 from pilosa_tpu_torch.pql.parser import TIME_FORMAT, Call, Query
 
 # reference: executor.go:33-40
@@ -144,6 +161,47 @@ class ExecOptions:
 
 
 @dataclass
+class _BatchEntry:
+    """A cached batch: a bitmap tree's row-address table over the slices
+    ``kept`` (where some leaf row exists; ``empties`` are the others).
+    ``refs[b]`` is base ``b`` of the table — the executor's zero row and
+    the entry's scratch rows held, each mirror by a weak reference, so
+    that an evicted mirror is freed and the entry found stale.  ``index``
+    (int64 ``[len(kept), L, 2]``) and ``addrs`` (the row addresses on the
+    card, None on the CPU) are ``RowTable``'s.  Valid while the write and
+    mirror epochs are ``epoch`` / ``mirror_epoch``, or while
+    ``_leaf_versions`` still gives ``versions``."""
+
+    expr: tuple
+    kept: list
+    empties: list
+    refs: list
+    index: np.ndarray
+    addrs: torch.Tensor | None
+    epoch: int
+    mirror_epoch: int
+    versions: tuple
+    # Per-column row identities (the columns' row addresses) for the
+    # coalescer's union-leaf sharing.
+    leaf_keys: tuple
+    # The fragments' mirror pool keys and the entry's own: pinned for every
+    # launch that reads the table.
+    pin_keys: tuple
+    nbytes: int = 0
+
+    def table(self) -> RowTable | None:
+        """The table with strong references to its bases, or None when a
+        mirror it names was freed (the entry is stale)."""
+        bases = []
+        for r in self.refs:
+            t = r() if isinstance(r, weakref.ref) else r
+            if t is None:
+                return None
+            bases.append(t)
+        return RowTable(bases, self.index, self.addrs, checked=True)
+
+
+@dataclass
 class _MapResponse:
     node: Node
     slices: list[int] = field(default_factory=list)
@@ -195,8 +253,12 @@ class Executor:
         client_factory=None,
         prefetcher=None,
         ingest=None,
+        coalescer=None,
     ):
         self.holder = holder
+        # The cross-query scheduler (exec/coalesce.py) the Count and Bitmap
+        # routes and the TopN score fetch go through; None launches directly.
+        self.coalescer = coalescer
         # Background uploads of a query's cold mirrors (device/prefetch.py),
         # and the WAL manager whose group commit a write's answer waits
         # for (ingest/wal.py); None turns either off.
@@ -212,9 +274,19 @@ class Executor:
         self._pool = ThreadPoolExecutor(max_workers=16, thread_name_prefix="map")
         self._slice_groups: OrderedDict = OrderedDict()
         self._groups_mu = threading.Lock()
+        # Cached batches per (index, call, slice list); see _cached_batch.
+        self._batch_cache: OrderedDict[tuple, _BatchEntry] = OrderedDict()
+        self._batch_mu = threading.Lock()
 
     def close(self) -> None:
         self._pool.shutdown(wait=False, cancel_futures=True)
+        # A closed executor's entries stop counting as resident.
+        with self._batch_mu:
+            keys = list(self._batch_cache)
+            self._batch_cache.clear()
+        pool = device_mod.pool()
+        for k in keys:
+            pool.remove(self._batch_pool_key(k))
 
     def execute(
         self,
@@ -273,9 +345,9 @@ class Executor:
         def add_view(view) -> None:
             if view is None:
                 return
-            have = view.fragment_slices()
+            have = view.fragment_map()
             for s in slices:
-                frag = view.fragment(s) if s in have else None
+                frag = have.get(s)
                 # Advisory (no lock): the worker checks again under it.
                 if frag is not None and frag._mirror is None and id(frag) not in seen:
                     seen.add(id(frag))
@@ -663,15 +735,18 @@ class Executor:
         self, index: str, c: Call, slices: list[int], opt: ExecOptions
     ) -> RowBitmap:
         """reference: executor.go:203-261"""
-        expr, leaves = plan.decompose(self._rewrite_bsi(index, c))
+        rc = self._rewrite_bsi(index, c)
+        expr, leaves = plan.decompose(rc)
 
         def map_fn(local_slices: list[int]) -> RowBitmap:
             out = RowBitmap(self.holder.device)
-            inputs, kept = self.leaf_stacks(index, leaves, local_slices)
-            if kept:
-                rows = plan.eval_expr(expr, inputs)
-                for i, s in enumerate(kept):
-                    out.set_segment(s, rows[i])
+            if plan.expr_has_bsi(expr):
+                inputs, kept = self.leaf_stacks(index, leaves, local_slices)
+                rows = plan.eval_expr(expr, inputs) if kept else None
+            else:
+                kept, rows = self._eval_tree_slices(index, rc, expr, leaves, local_slices, "row")
+            for i, s in enumerate(kept):
+                out.set_segment(s, rows[i])
             return out
 
         def reduce_fn(prev, v):
@@ -707,21 +782,310 @@ class Executor:
             raise ExecutorError("Count() requires an input bitmap")
         if len(c.children) > 1:
             raise ExecutorError("Count() only accepts a single bitmap input")
-        expr, leaves = plan.decompose(self._rewrite_bsi(index, c.children[0]))
+        child = self._rewrite_bsi(index, c.children[0])
+        expr, leaves = plan.decompose(child)
 
         def map_fn(local_slices: list[int]) -> int:
-            anchored = self._try_anchored_count(index, expr, leaves, local_slices)
-            if anchored is not None:
-                return anchored
-            inputs, kept = self.leaf_stacks(index, leaves, local_slices)
-            if not kept:
-                return 0
-            return int(plan.count_rows(expr, inputs).sum(dtype=torch.int64))
+            if plan.expr_has_bsi(expr):
+                inputs, kept = self.leaf_stacks(index, leaves, local_slices)
+                if not kept:
+                    return 0
+                return int(plan.count_rows(expr, inputs).sum(dtype=torch.int64))
+            return self._count_slices_total(index, child, expr, leaves, local_slices)
 
         n = self._map_reduce(
             index, slices, c, opt, map_fn, lambda prev, v: (prev or 0) + v
         )
         return int(n or 0)
+
+    def _count_slices_total(self, index: str, c: Call, expr: tuple, leaves: list[Call],
+                            slices: list[int]) -> int:
+        """Count(tree) over local slices, in the JAX order
+        (``executor.py:1804``): the anchored K5 Count first, then the
+        cached batch through the coalescer ("count" partials, summed
+        here in int64), else one direct K2 launch with the "total"
+        reduce."""
+        if not slices or not leaves:
+            return 0
+        anchored = self._try_anchored_count(index, expr, leaves, slices)
+        if anchored is not None:
+            return anchored
+        ent, table = self._cached_batch(index, c, expr, leaves, slices)
+        if table is None:
+            return 0
+        with device_mod.pool().pinned(*ent.pin_keys):
+            if self.coalescer is not None:
+                res = self._coalesce_eval(ent, table, "count")
+                if res is not None:
+                    return int(np.asarray(res).sum(dtype=np.int64))
+            return int(plan.tree_eval(expr, "total", table).cpu()[0])
+
+    def _eval_tree_slices(self, index: str, c: Call, expr: tuple, leaves: list[Call],
+                          slices: list[int], reduce: str):
+        """``(kept, results)``: a bitmap tree's reduce over the local
+        slices where some leaf row exists (JAX ``executor.py:1521``) —
+        the cached batch through the coalescer, else one direct K2
+        launch; ``results[i]`` is slice ``kept[i]``'s."""
+        if not slices or not leaves:
+            return [], None
+        ent, table = self._cached_batch(index, c, expr, leaves, slices)
+        if table is None:
+            return [], None
+        with device_mod.pool().pinned(*ent.pin_keys):
+            if self.coalescer is not None:
+                res = self._coalesce_eval(ent, table, reduce)
+                if res is not None:
+                    return ent.kept, res
+            return ent.kept, plan.tree_eval(expr, reduce, table)
+
+    def _coalesce_eval(self, ent: _BatchEntry, table: RowTable, reduce: str):
+        """One cached batch through the coalescing scheduler (JAX
+        ``executor.py:1439``): this entry's part of the shared launch, or
+        None when the scheduler is closed (the caller launches directly).
+        The caller's pin lease stays open until the future resolves.  A
+        waiter that times out detaches; the launch still serves the
+        others."""
+        try:
+            fut = self.coalescer.submit(ent.expr, reduce, table, leaf_keys=ent.leaf_keys)
+        except coalesce_mod.CoalesceClosed:
+            return None
+        try:
+            res, _info = fut.result(timeout=coalesce_mod.RESULT_TIMEOUT_S)
+        except FuturesTimeoutError:
+            fut.add_done_callback(coalesce_mod.consume_abandoned())
+            raise
+        return res
+
+    def _shared_fetch(self, arrays: list) -> list:
+        """Device tensors to host numpy arrays, the blocking copy shared
+        with other queries' concurrent fetches through the coalescer's
+        fetch lane (JAX ``executor.py:2391``); a direct copy without a
+        coalescer or when it is closed."""
+        co = self.coalescer
+        if co is not None:
+            try:
+                fut = co.submit_fetch(arrays)
+            except coalesce_mod.CoalesceClosed:
+                fut = None
+            if fut is not None:
+                try:
+                    res, _info = fut.result(timeout=coalesce_mod.RESULT_TIMEOUT_S)
+                except FuturesTimeoutError:
+                    fut.add_done_callback(coalesce_mod.consume_abandoned())
+                    raise
+                return res
+        return [a.cpu().numpy() for a in arrays]
+
+    # ------------------------------------------------------------------
+    # the batch cache (JAX executor.py:1022-1309)
+    # ------------------------------------------------------------------
+
+    # Cached batches, most recent last.  An entry names mirror rows in place
+    # and owns only its scratch rows and its table, so many fit; under a
+    # budget the residency pool's LRU evicts them like any tenant.
+    _BATCH_CACHE_CAP = 64
+
+    def _batch_pool_key(self, key: tuple) -> tuple:
+        return ("exec", id(self), "batch", key)
+
+    def _evict_batch_key(self, key: tuple) -> bool:
+        """The pool's eviction hook for an entry.  Non-blocking: the pool
+        calls it under its own lock while request threads may hold
+        ``_batch_mu``; a busy cache is skipped."""
+        if not self._batch_mu.acquire(blocking=False):
+            return False
+        try:
+            self._batch_cache.pop(key, None)
+            return True
+        finally:
+            self._batch_mu.release()
+
+    def _cached_batch(self, index: str, c: Call, expr: tuple, leaves: list[Call],
+                      slices: list[int]) -> tuple[_BatchEntry, RowTable | None]:
+        """The tree's batch over ``slices`` and a table of it holding its
+        rows (None when no slice has a leaf row), cached across queries
+        per (index, call, slice list).  A hit costs O(1) while no
+        fragment changed and no mirror moved anywhere; otherwise every
+        fragment's (serial, version, mirror generation) must still be the
+        entry's.  A build applies every queued write first (one K7)."""
+        key = (index, str(c), tuple(slices))
+        with self._batch_mu:
+            ent = self._batch_cache.get(key)
+        if ent is not None:
+            epoch, mepoch = fragment_mod.write_epoch(), fragment_mod.mirror_epoch()
+            table = ent.table() if ent.kept else None
+            fresh = ent.epoch == epoch and ent.mirror_epoch == mepoch
+            if not fresh and ent.versions == self._leaf_versions(index, leaves, slices):
+                ent.epoch, ent.mirror_epoch = epoch, mepoch
+                fresh = True
+            if fresh and (table is not None or not ent.kept):
+                with self._batch_mu:
+                    if key in self._batch_cache:
+                        self._batch_cache.move_to_end(key)
+                device_mod.pool().touch(self._batch_pool_key(key))
+                return ent, table
+        ent, table = self._cached_batch_build(index, key, expr, leaves, slices)
+        displaced = []
+        with self._batch_mu:
+            self._batch_cache[key] = ent
+            while len(self._batch_cache) > self._BATCH_CACHE_CAP:
+                displaced.append(self._batch_cache.popitem(last=False)[0])
+        # Pool tenancy outside _batch_mu: an admission may evict other
+        # tenants, whose callbacks take _batch_mu non-blocking.
+        pool = device_mod.pool()
+        for k in displaced:
+            pool.remove(self._batch_pool_key(k))
+        if ent.nbytes:
+            pool.admit(self._batch_pool_key(key), {self.holder.device: ent.nbytes},
+                       functools.partial(self._evict_batch_key, key), category="cache",
+                       info={"cache": "batch", "index": index, "query": str(c)})
+        return ent, table
+
+    def _leaf_targets(self, index: str, leaves: list[Call]) -> list[tuple]:
+        """Each leaf's ``(views, row_id)``, and the context its validity
+        depends on: the views' names and, for a time Range, the frame's
+        quantum (it decides the views)."""
+        out = []
+        for leaf in leaves:
+            kind, views, row_id = self._resolve_leaf(index, leaf)
+            if kind != "row":
+                raise plan.PlanError(f"{leaf.name} is not a row leaf")
+            ctx = tuple(v.name for v in views)
+            if leaf.name == "Range":
+                f = self.holder.frame(index, leaf.args.get("frame") or DEFAULT_FRAME)
+                ctx += (f.time_quantum if f is not None else "",)
+            out.append((views, row_id, ctx))
+        return out
+
+    def _leaf_versions(self, index: str, leaves: list[Call], slices: list[int]) -> tuple:
+        """The validity vector of a batch (JAX ``executor.py:1253``):
+        each leaf's context, then per slice and leaf each view's fragment
+        state (``Fragment.cache_state``) or None.  Dict lookups only."""
+        targets = self._leaf_targets(index, leaves)
+        maps = {id(v): v.fragment_map() for views, _, _ in targets for v in views}
+        states = []
+        for s in slices:
+            for views, row_id, _ in targets:
+                vstates = []
+                for v in views:
+                    frag = maps[id(v)].get(s)
+                    vstates.append(None if frag is None else frag.cache_state(row_id))
+                states.append(tuple(vstates))
+        return tuple(t[2] for t in targets), tuple(states)
+
+    def _cached_batch_build(self, index: str, key: tuple, expr: tuple, leaves: list[Call],
+                            slices: list[int]) -> tuple[_BatchEntry, RowTable | None]:
+        # The epochs before anything is read: a change during the build
+        # leaves the entry conservatively stale.  Each fragment's state is
+        # read under its lock with the row it names.
+        epoch, mepoch = fragment_mod.write_epoch(), fragment_mod.mirror_epoch()
+        targets = self._leaf_targets(index, leaves)
+        apply_pending_many(v.fragment(s) for views, _, _ in targets for v in views
+                           for s in slices)
+        device = self.holder.device
+        bases: list = [self._zero_row(device).view(1, bp.WORDS_PER_SLICE)]
+        base_of: dict[int, int] = {}
+        pin_keys: dict = {self._batch_pool_key(key): None}
+        scratch_srcs: list[list] = []
+        rows: list[list] = []
+        kept: list[int] = []
+        empties: list[int] = []
+        states = []
+        for s in slices:
+            row, any_set = [], False
+            for views, row_id, _ in targets:
+                srcs, vstates = [], []
+                for view in views:
+                    frag = view.fragment(s)
+                    if frag is None:
+                        vstates.append(None)
+                        continue
+                    ref, state = frag.device_row_ref(row_id)
+                    vstates.append(state)
+                    if ref is not None:
+                        srcs.append((frag, ref))
+                states.append(tuple(vstates))
+                if not srcs:
+                    row.append((0, 0))
+                    continue
+                any_set = True
+                if len(srcs) == 1 and srcs[0][1][0] == "plane":
+                    frag, (_, mirror, slot) = srcs[0]
+                    b = base_of.get(id(mirror))
+                    if b is None:
+                        b = base_of[id(mirror)] = len(bases)
+                        bases.append(mirror)
+                    pin_keys[frag._pool_key] = None
+                    row.append((b, slot))
+                else:
+                    # A sparse row, or the union of several views' rows.
+                    row.append((-1, len(scratch_srcs)))
+                    scratch_srcs.append([ref for _, ref in srcs])
+            if any_set:
+                kept.append(s)
+                rows.append(row)
+            else:
+                empties.append(s)
+        versions = (tuple(t[2] for t in targets), tuple(states))
+        nbytes = 0
+        idx = np.asarray(rows, dtype=np.int64).reshape(len(kept), len(leaves), 2)
+        if scratch_srcs:
+            scratch = self._fill_scratch(scratch_srcs, device)
+            idx[idx[..., 0] == -1, 0] = len(bases)
+            bases.append(scratch)
+            nbytes += scratch.nbytes
+        table = RowTable(bases, idx) if kept else None
+        addrs = None
+        leaf_keys: tuple = ()
+        if table is not None:
+            ptrs = np.asarray([b.data_ptr() for b in bases], dtype=np.int64)
+            flat = ptrs[idx[..., 0]] + idx[..., 1] * bp.WORDS_PER_SLICE * 4
+            # Equal row addresses are equal rows ("same address, same
+            # register" in a fused launch).
+            leaf_keys = tuple(("rows", flat[:, j].tobytes()) for j in range(len(leaves)))
+            if device.type == "cuda":
+                addrs = table.addresses()
+                nbytes += addrs.nbytes
+        refs = [bases[0]] + [weakref.ref(b) for b in bases[1 : len(base_of) + 1]]
+        refs += bases[len(base_of) + 1 :]
+        ent = _BatchEntry(
+            expr=expr, kept=kept, empties=empties, refs=refs, index=idx, addrs=addrs,
+            epoch=epoch, mirror_epoch=mepoch, versions=versions, leaf_keys=leaf_keys,
+            pin_keys=tuple(pin_keys), nbytes=nbytes,
+        )
+        if table is not None:
+            table = RowTable(table.bases, idx, addrs)
+        return ent, table
+
+    @staticmethod
+    def _fill_scratch(srcs: list[list], device: torch.device) -> torch.Tensor:
+        """The scratch rows of a batch: row i the union of ``srcs[i]``'s
+        rows (plane rows, device payloads), every payload expanded by ONE
+        K6 launch and the unions ORed after it."""
+        scratch = torch.empty(len(srcs), bp.WORDS_PER_SLICE, dtype=torch.int32, device=device)
+        jobs, unions = [], []
+        for i, refs in enumerate(srcs):
+            if len(refs) == 1:
+                _, fmt, payload = refs[0]  # a lone plane row never needs scratch
+                jobs.append((fmt, payload, scratch[i]))
+                continue
+            parts = []
+            for ref in refs:
+                if ref[0] == "plane":
+                    parts.append(ref[1][ref[2]])
+                else:
+                    tmp = torch.empty(bp.WORDS_PER_SLICE, dtype=torch.int32, device=device)
+                    jobs.append((ref[1], ref[2], tmp))
+                    parts.append(tmp)
+            unions.append((i, parts))
+        if jobs:
+            expand_payload.expand_payloads(jobs)
+        for i, parts in unions:
+            acc = parts[0]
+            for r in parts[1:]:
+                acc = acc | r
+            scratch[i] = acc
+        return scratch
 
     # ------------------------------------------------------------------
     # anchored position-domain Count (JAX executor.py:1627-1802)
@@ -1015,9 +1379,9 @@ class Executor:
             for i, (_, sub, _, _) in enumerate(group):
                 slots[i, : len(sub.slots)] = sub.slots
             srcs = [src if slot is None else sub.plane[slot] for _, sub, src, slot in group]
-            scores = score_planes.score_planes(
+            (scores,) = self._shared_fetch([score_planes.score_planes(
                 [sub.plane for _, sub, _, _ in group], slots, srcs
-            ).cpu().numpy()
+            )])
             for (st, sub, _, _), row in zip(group, scores):
                 st.counts = row[: len(sub.slots)]
 

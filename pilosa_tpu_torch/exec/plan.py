@@ -1,15 +1,31 @@
-"""Query planning: PQL call trees -> leaf stacks and one fused count.
+"""Query planning: PQL call trees -> fused launches over leaf rows.
 
 A bitmap call tree decomposes into a hashable expression over its leaf
 calls (``("leaf", i)`` or ``(op, child_exprs...)``), as in
-``pilosa_tpu.exec.plan``.  Each row leaf (``Bitmap``, a time-quantum
-``Range``) becomes a stack of slice-rows, int32 ``[n_slices, 32768]``;
-the interior folds (``Intersect``/``Union``/``Difference``/``Xor``,
-left-fold, reference: executor.go:418-434,486-505,621-637) run as plain
-torch bitwise ops over the stacks, and for a count the LAST fold step —
-the outer op, the popcount and the reduce — is one launch of the fused
-popcount kernel (``ops/fused_popcount.py``), so the outermost result row
-is never written to device memory.
+``pilosa_tpu.exec.plan``.  The interior folds (``Intersect``/``Union``/
+``Difference``/``Xor``, left-fold, reference:
+executor.go:418-434,486-505,621-637) of a tree over row leaves
+(``Bitmap``, a time-quantum ``Range``) run in ONE launch of the fused
+tree eval K2 (``ops/tree_eval.py``, :func:`tree_eval`): the tree becomes a
+postfix program and the kernel reads every leaf row in place through a
+row-address table (the executor's cached batch), with a ``count``,
+``row`` or ``total`` reduce; no inner result row is written to memory.  A
+tree deeper than K2's operand stack runs as one program of the
+interpreter K3.
+
+The interpreter (``ops/interp.py``, :func:`interp_exec`) is the
+coalescer's launch for a mix of distinct trees: ``FuseEmitter`` and
+:func:`lower_expr` (``pilosa_tpu/exec/plan.py:438-568``) lower any number
+of trees into one ``int32[n_ops, 4]`` opcode table over a union leaf set
+— value numbering shares identical instructions, so subtrees shared by
+queries evaluate once — and one launch reduces every selected register.
+The tables are byte-equal to the JAX emitter's.
+
+The other row producers keep the eager route: each row leaf becomes a
+stack of slice-rows, int32 ``[n_slices, 32768]``, the folds run as torch
+bitwise ops (:func:`eval_expr`), and for a count the last fold step is
+one launch of the fused popcount K1 (:func:`count_rows`) — trees with a
+BSI node, and a TopN's src tree.
 
 The BSI nodes the executor's rewrite produces (``BsiCmp`` over
 ``BsiPlane``/``BsiZero``/``BsiPred`` leaves, and ``BsiSum``/``BsiMin``/
@@ -47,7 +63,10 @@ import torch
 from pilosa_tpu_torch.bsi import ripple
 from pilosa_tpu_torch.ops import anchored_count as ac
 from pilosa_tpu_torch.ops import bsi_ripple, delta_scatter, fused_popcount
+from pilosa_tpu_torch.ops import interp as interp_mod
+from pilosa_tpu_torch.ops import tree_eval as tree_eval_mod
 from pilosa_tpu_torch.ops.bitplane import WORDS_PER_SLICE
+from pilosa_tpu_torch.ops.tree_eval import RowTable
 from pilosa_tpu_torch.pql.parser import Call
 
 # Calls that fetch rows (leaves of a bitmap expression).  The Bsi*
@@ -274,6 +293,189 @@ def anchored_count(expr: tuple, positions: np.ndarray, offsets: np.ndarray, leav
     payload)`` or None for an absent row) — one K5 launch on CUDA, the
     plain version on the CPU."""
     return ac.anchored_count(compile_program(expr), positions, offsets, leaves, device)
+
+
+def expr_has_bsi(expr: tuple) -> bool:
+    """Whether a decomposed tree holds a BSI node (JAX
+    ``exec/plan.py:397``)."""
+    if expr[0] == "leaf":
+        return False
+    if expr[0] in ("bsiCmp", "bsiSum", "bsiMin", "bsiMax"):
+        return True
+    return any(expr_has_bsi(e) for e in expr[1:])
+
+
+def recombine_count_limbs(limbs):
+    """(hi, lo) int32 limbs -> exact totals (JAX ``exec/plan.py:383``):
+    a limb pair (shape [2]) -> Python int, vector limbs ([2, n]) -> int64
+    ndarray.  The port's kernels sum in 64 bits and return no limbs; this
+    reads the JAX package's."""
+    limbs = np.asarray(limbs, dtype=np.int64)
+    hi, lo = limbs[0], limbs[1]
+    total = (hi << 16) + lo
+    return int(total) if total.ndim == 0 else total
+
+
+def tree_eval(expr: tuple, reduce: str, table: RowTable) -> torch.Tensor:
+    """A fold-only tree over the rows of ``table`` (int64 ``[S, L]`` row
+    addresses; leaf ``i`` of the tree is column ``i``) with ``reduce``
+    ``"count"`` (int32 ``[S]``), ``"row"`` (int32 ``[S, 32768]``) or
+    ``"total"`` (int64 ``[1]``): one launch of K2 — the counterpart of
+    ``compiled_batched`` / ``compiled_total_count``
+    (``pilosa_tpu/exec/plan.py:314,339``) — or, for a tree deeper than
+    K2's stack, one K3 launch of the tree lowered alone."""
+    program = compile_program(expr)
+    if tree_eval_mod.program_depth(program, table.shape[1]) <= tree_eval_mod.MAX_DEPTH:
+        return tree_eval_mod.tree_eval(table, program, reduce)
+    em = FuseEmitter(table.shape[1])
+    try:
+        reg = lower_expr(expr, 0, em)
+    except FuseUnsupported as e:
+        raise PlanError(f"tree too large for one launch: {e}") from None
+    out = interp_exec(reduce, table, em.table(), np.asarray([reg], dtype=np.int32))
+    return out if reduce == "total" else out[:, 0]
+
+
+def interp_exec(reduce: str, table: RowTable, prog: np.ndarray, out_idx: np.ndarray):
+    """One fused interpreter launch (JAX ``exec/plan.py:667``): the
+    registers ``out_idx`` of the opcode table ``prog`` over ``table``'s
+    union leaves, reduced by ``reduce`` — int32 ``[S, k]`` counts, int32
+    ``[S, k, 32768]`` rows, or int64 ``[k]`` totals (K3)."""
+    return interp_mod.interp(reduce, table, prog, out_idx)
+
+
+# ---------------------------------------------------------------------------
+# expression-as-data interpreter (plane-major multi-query fusion)
+# ---------------------------------------------------------------------------
+#
+# Register file per slice: slots [0, n_leaves) are the leaf rows, slot
+# n_leaves + i is instruction i's output.  Instruction row: (opcode, a, b,
+# aux).  The opcodes are K3's (ops/interp.py).
+
+OP_AND = interp_mod.OP_AND
+OP_OR = interp_mod.OP_OR
+OP_ANDNOT = interp_mod.OP_ANDNOT
+OP_XOR = interp_mod.OP_XOR
+# Broadcast of predicate word ``aux`` of register ``a``: all-ones iff bit 0
+# of that word is set — the BSI ripple's per-plane predicate mask
+# (ripple.lower_magnitude_cmp), reading the packed predicate leaf.
+OP_MASKW = interp_mod.OP_MASKW
+
+# Opcode-table budget for one fused launch: a lowered tree past it falls
+# back to its own launch.  The JAX package pads tables to pow2 buckets of
+# at least FUSE_OPS_FLOOR rows for XLA's compile cache; K3 takes any
+# length, and the warm-up launch uses the floor's size.
+FUSE_MAX_OPS = 256
+FUSE_OPS_FLOOR = 8
+
+
+class FuseUnsupported(PlanError):
+    """The expression cannot lower to the interpreter's opcode table (BSI
+    aggregates reduce inside the expression; oversized trees blow the op
+    budget): callers fall back to the per-compile-key path."""
+
+
+class FuseEmitter:
+    """Value-numbering opcode emitter (JAX ``exec/plan.py:461``):
+    identical instructions (with commutative operand order normalized)
+    share one register, so shared subtrees within a fused batch evaluate
+    once.  ``rollback`` restores a checkpoint when a tree fails to lower
+    mid-way, keeping the shared table clean for the batch's other
+    queries."""
+
+    def __init__(self, n_leaves: int, max_ops: int = FUSE_MAX_OPS):
+        self.n_leaves = int(n_leaves)
+        self.max_ops = int(max_ops)
+        self.rows: list[tuple[int, int, int, int]] = []
+        self._memo: dict[tuple, int] = {}
+        self.dedup_hits = 0
+
+    def _emit(self, op: int, a: int, b: int, aux: int = 0) -> int:
+        if op in (OP_AND, OP_OR, OP_XOR) and b < a:
+            a, b = b, a
+        key = (op, a, b, aux)
+        reg = self._memo.get(key)
+        if reg is not None:
+            self.dedup_hits += 1
+            return reg
+        if len(self.rows) >= self.max_ops:
+            raise FuseUnsupported(f"opcode table full ({self.max_ops} instructions)")
+        reg = self.n_leaves + len(self.rows)
+        self.rows.append((int(op), int(a), int(b), int(aux)))
+        self._memo[key] = reg
+        return reg
+
+    def and_(self, a: int, b: int) -> int:
+        return self._emit(OP_AND, a, b)
+
+    def or_(self, a: int, b: int) -> int:
+        return self._emit(OP_OR, a, b)
+
+    def andnot(self, a: int, b: int) -> int:
+        return self._emit(OP_ANDNOT, a, b)
+
+    def xor(self, a: int, b: int) -> int:
+        return self._emit(OP_XOR, a, b)
+
+    def maskw(self, a: int, word: int) -> int:
+        return self._emit(OP_MASKW, a, a, word)
+
+    def checkpoint(self) -> tuple:
+        return len(self.rows), dict(self._memo), self.dedup_hits
+
+    def rollback(self, cp: tuple) -> None:
+        n, memo, hits = cp
+        del self.rows[n:]
+        self._memo = memo
+        self.dedup_hits = hits
+
+    def table(self) -> np.ndarray:
+        """The emitted instructions as K3's int32 ``[n_ops, 4]`` table."""
+        return np.asarray(self.rows, dtype=np.int32).reshape(-1, 4)
+
+
+_FOLD_EMIT = {"Intersect": "and_", "Union": "or_", "Difference": "andnot", "Xor": "xor"}
+
+
+def _leaf_reg(leaf_map, i: int) -> int:
+    return leaf_map + i if isinstance(leaf_map, int) else leaf_map[i]
+
+
+def lower_expr(expr: tuple, leaf_map, em: FuseEmitter) -> int:
+    """Lower one decomposed tree into ``em``'s opcode table (JAX
+    ``exec/plan.py:529``); returns the result row's register.
+    ``leaf_map`` places the tree's leaves in the combined register file:
+    an int means leaves sit contiguously at ``base + i``; a sequence maps
+    leaf ``i`` to its register (the fused union-leaf layout, where a leaf
+    shared between queries is one register, so value numbering dedups
+    whole subtrees across queries).  The emitted stream mirrors the
+    fold, and the BSI ripple (``bsi/ripple.py`` ``lower_*``), operation
+    for operation.  Raises :class:`FuseUnsupported` for BSI aggregates
+    and when the op budget runs out."""
+    if expr[0] == "leaf":
+        return _leaf_reg(leaf_map, expr[1])
+    name = expr[0]
+    if name == "bsiCmp":
+        op = expr[1]
+        regs = [lower_expr(e, leaf_map, em) for e in expr[2:]]
+        npred = 2 if op == "between" else 1
+        body, preds = regs[: len(regs) - npred], regs[len(regs) - npred :]
+        exists, sign, planes = body[0], body[1], body[2:]
+        if op == "between":
+            return ripple.lower_between(em, exists, sign, planes, preds[0], preds[1])
+        return ripple.lower_signed_cmp(em, op, exists, sign, planes, preds[0])
+    if name in ("bsiSum", "bsiMin", "bsiMax"):
+        raise FuseUnsupported(f"{name} reduces inside the expression")
+    children = [lower_expr(e, leaf_map, em) for e in expr[1:]]
+    if not children:
+        # Empty Union: the canonical all-zero row (x ^ x).
+        zero = _leaf_reg(leaf_map, 0)
+        return em.xor(zero, zero)
+    emit = getattr(em, _FOLD_EMIT[name])
+    acc = children[0]
+    for nxt in children[1:]:
+        acc = emit(acc, nxt)
+    return acc
 
 
 def scatter_apply(plane: torch.Tensor, slots, words, or_m, andnot_m) -> torch.Tensor:

@@ -623,6 +623,11 @@ def make_http_server(handler: Handler, host: str = "127.0.0.1", port: int = 0):
         def log_message(self, format, *args):  # noqa: A002 — stdlib signature
             pass
 
-    srv = ThreadingHTTPServer((host, port), _Adapter)
+    class _Server(ThreadingHTTPServer):
+        # socketserver listens with a backlog of 5: a burst of concurrent
+        # clients (the coalescer's workload) would be refused.
+        request_queue_size = 128
+
+    srv = _Server((host, port), _Adapter)
     srv.daemon_threads = True
     return srv

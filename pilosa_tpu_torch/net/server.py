@@ -44,6 +44,20 @@ Residency and durability, with the JAX package's names and defaults
   into a snapshot.  ``ingest_wal=False`` writes each op to the data file
   without an fsync, as the port did before.
 
+Query execution, with the JAX package's names and defaults
+(``pilosa_tpu/net/server.py:53,69-73``, ``[exec]``):
+
+* ``coalesce`` — Count and Bitmap trees go through the cross-query
+  scheduler (``exec/coalesce.py``), which gives concurrent queries one
+  launch; ``coalesce_max_batch`` queries at most per launch,
+  ``coalesce_max_wait_us`` an optional wait for company (0: none);
+* ``fuse`` — a drain of distinct trees runs as one interpreter launch
+  (K3), at most ``fuse_max_programs`` programs;
+* ``prewarm`` — build every kernel and launch each once at open, in the
+  background (``exec/warmup.py``).
+
+The scheduler starts at open and closes before the holder.
+
 At open the node stages, in the background, the mirrors of its previous
 run (``.residency.json``, written at close), then the largest that fit
 the budget, and answers meanwhile (``staging_job``).  ``GET /debug/hbm``
@@ -67,6 +81,8 @@ from pilosa_tpu_torch.cluster import broadcast as bc
 from pilosa_tpu_torch.cluster.topology import Cluster
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.view import is_inverse_view
+from pilosa_tpu_torch.exec import coalesce as coalesce_mod
+from pilosa_tpu_torch.exec import warmup
 from pilosa_tpu_torch.exec.executor import DEFAULT_MAX_WRITES_PER_REQUEST, Executor
 from pilosa_tpu_torch.ingest import wal
 from pilosa_tpu_torch.net import wire
@@ -102,6 +118,12 @@ class Server:
         ingest_group_commit_ms: float = 2.0,
         ingest_group_commit_max: int = 128,
         ingest_wal_segment_bytes: int = 4 << 20,
+        coalesce: bool = True,
+        coalesce_max_batch: int = coalesce_mod.DEFAULT_MAX_BATCH,
+        coalesce_max_wait_us: int = coalesce_mod.DEFAULT_MAX_WAIT_US,
+        fuse: bool = True,
+        fuse_max_programs: int = coalesce_mod.DEFAULT_FUSE_MAX_PROGRAMS,
+        prewarm: bool = False,
     ):
         if cluster_type == "gossip":
             raise ValueError("cluster type 'gossip' is not supported by this port yet")
@@ -127,6 +149,13 @@ class Server:
         self.ingest_group_commit_max = ingest_group_commit_max
         self.ingest_wal_segment_bytes = ingest_wal_segment_bytes
         self.ingest: wal.IngestManager | None = None
+        self.coalesce = coalesce
+        self.coalesce_max_batch = coalesce_max_batch
+        self.coalesce_max_wait_us = coalesce_max_wait_us
+        self.fuse = fuse
+        self.fuse_max_programs = fuse_max_programs
+        self.coalescer: coalesce_mod.CoalesceScheduler | None = None
+        self.prewarm = prewarm
         self.data_dir = data_dir
         self.cluster_type = cluster_type
         self.polling_interval = polling_interval
@@ -181,6 +210,16 @@ class Server:
             )
             wal.register_manager(self.ingest)
         self.holder.open()
+        if self.coalesce:
+            self.coalescer = coalesce_mod.CoalesceScheduler(
+                max_batch=self.coalesce_max_batch,
+                max_wait_us=self.coalesce_max_wait_us,
+                fuse=self.fuse,
+                fuse_max_programs=self.fuse_max_programs,
+            )
+        self.executor.coalescer = self.coalescer
+        if self.prewarm:
+            warmup.prewarm_async(self.device, logger=lambda m: print(m, file=sys.stderr))
         self.executor.prefetcher = device_mod.prefetcher() if self.device_prefetch else None
         self.executor.ingest = self.ingest
         self.handler.ingest = self.ingest
@@ -243,6 +282,11 @@ class Server:
             self._http_thread.join(timeout=10)
             self._http_thread = None
         self.executor.close()
+        if self.coalescer is not None:
+            # After the executor, before the holder: a query still in
+            # flight launches directly when submit() raises CoalesceClosed.
+            self.coalescer.close()
+            self.executor.coalescer = self.coalescer = None
         self.holder.close()
         # After the holder: each fragment's close made its final commit;
         # now the committer stops, and a later server on this directory

@@ -33,6 +33,8 @@ SOURCES = {
     "score_planes": "score_planes.cu",
     "anchored_count": "anchored_count.cu",
     "expand_payload": "expand_payload.cu",
+    "tree_eval": "tree_eval.cu",
+    "interp": "interp.cu",
 }
 
 NVCC_FLAGS = (

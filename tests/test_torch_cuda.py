@@ -436,3 +436,101 @@ def test_eviction_returns_the_mirror_memory(cuda, tmp_path):
         device_mod._set_pool(prev)
     gc.collect()
     assert pool.resident_bytes() == 0
+
+
+# --- K2 and K3: the fused tree eval and the interpreter ---------------------
+
+
+def k23_table(te, cuda, n, n_cols, rng):
+    """A row table of ``n`` slices x ``n_cols`` leaves drawn from a zero
+    row, scratch rows and mirrors of 8 and 64 rows."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(int(rng.integers(0, 2**31)))
+    bases = [torch.zeros(1, tbp.WORDS_PER_SLICE, dtype=torch.int32, device=cuda)]
+    bases += [torch.randint(-2**31, 2**31, (r, tbp.WORDS_PER_SLICE), dtype=torch.int32,
+                            device=cuda, generator=gen) for r in (16, 8, 64)]
+    rows = np.asarray([b.shape[0] for b in bases])
+    idx = np.zeros((n, n_cols, 2), dtype=np.int64)
+    idx[..., 0] = rng.integers(0, len(bases), size=(n, n_cols))
+    idx[..., 1] = rng.integers(0, 2**31, size=(n, n_cols)) % rows[idx[..., 0]]
+    return te.RowTable(bases, idx)
+
+
+def k2_trees():
+    leaf = [("leaf", i) for i in range(6)]
+    deep = leaf[5]
+    for k in range(12):  # past K2's stack: runs on K3
+        deep = (("Intersect", "Union", "Xor", "Difference")[k % 4], leaf[k % 6], deep)
+    return [leaf[0], ("Intersect", leaf[0], leaf[1]), ("Union", *leaf[:4]),
+            ("Difference", leaf[4], leaf[1], leaf[2]), ("Xor", leaf[3], leaf[0], leaf[5]),
+            ("Union",), ("Intersect", leaf[2], ("Union",)),
+            ("Difference", ("Union", leaf[0], leaf[1]), ("Xor", leaf[2], ("Intersect", *leaf[3:]))),
+            deep]
+
+
+@pytest.mark.parametrize("n", [1, 3, 954])
+def test_tree_eval_matches_plain(cuda, n):
+    from pilosa_tpu_torch.exec import plan
+    from pilosa_tpu_torch.ops import interp as it
+    from pilosa_tpu_torch.ops import tree_eval as te
+
+    rng = np.random.default_rng(n)
+    table = k23_table(te, cuda, n, 6, rng)
+    for expr in k2_trees():
+        program = plan.compile_program(expr)
+        deep = te.program_depth(program, 6) > te.MAX_DEPTH
+        for reduce in ("count", "row", "total"):
+            k2, k3 = te.launches, it.launches
+            got = plan.tree_eval(expr, reduce, table)
+            torch.cuda.synchronize()
+            assert (te.launches - k2, it.launches - k3) == ((0, 1) if deep else (1, 0))
+            want = te.plain_tree_eval(table, program, reduce)
+            assert torch.equal(got, want), (expr, reduce)
+
+
+def test_interp_matches_plain(cuda):
+    from pilosa_tpu_torch import bsi
+    from pilosa_tpu_torch.bsi import ripple
+    from pilosa_tpu_torch.exec import plan
+    from pilosa_tpu_torch.ops import interp as it
+    from pilosa_tpu_torch.ops import tree_eval as te
+
+    rng = np.random.default_rng(3)
+    cases = []
+    em = plan.FuseEmitter(6)
+    regs = [plan.lower_expr(e, 0, em) for e in k2_trees()[:8]]
+    for n in (1, 3, 954):
+        cases.append((k23_table(te, cuda, n, 6, rng), em.table(),
+                       np.asarray(list(dict.fromkeys(regs + [2])), np.int32)))
+    for depth in (1, 31, 62):
+        n_leaves = depth + 4
+        words = rng.integers(0, 2**32, size=(n_leaves, tbp.WORDS_PER_SLICE), dtype=np.uint32)
+        words[depth + 2] = bsi.pred_row(-5, depth)
+        words[depth + 3] = bsi.pred_row(2**depth - 3, depth)
+        em = plan.FuseEmitter(n_leaves, max_ops=4096)
+        planes = list(range(2, 2 + depth))
+        regs = [ripple.lower_signed_cmp(em, op, 0, 1, planes, depth + 2)
+                for op in ("lt", "le", "eq", "ne", "ge", "gt")]
+        regs.append(ripple.lower_between(em, 0, 1, planes, depth + 2, depth + 3))
+        idx = np.zeros((3, n_leaves, 2), dtype=np.int64)
+        idx[..., 1] = np.arange(n_leaves)
+        cases.append((te.RowTable([tbp.to_device(words, cuda)], idx), em.table(),
+                      np.asarray(regs + regs[:2], np.int32)))
+    for table, prog, out_idx in cases:
+        for reduce in ("count", "row", "total"):
+            before = it.launches
+            got = it.interp(reduce, table, prog, out_idx)
+            torch.cuda.synchronize()
+            assert it.launches == before + 1
+            want = it.plain_interp(reduce, table, prog, out_idx)
+            assert torch.equal(got, want), (table.shape, len(prog), reduce)
+
+
+def test_interp_rejects_maskw_of_a_non_leaf(cuda):
+    from pilosa_tpu_torch.ops import interp as it
+    from pilosa_tpu_torch.ops import tree_eval as te
+
+    table = k23_table(te, cuda, 1, 2, np.random.default_rng(0))
+    prog = np.asarray([[0, 0, 1, 0], [4, 2, 2, 0]], np.int32)
+    with pytest.raises(ValueError):
+        it.interp("count", table, prog, np.asarray([3], np.int32))

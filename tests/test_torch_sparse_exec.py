@@ -218,7 +218,8 @@ def test_anchored_route_declines_where_jax_declines(node_pair, monkeypatch, name
                                                     budget):
     """Where the JAX route declines, the port's declines too (no K5
     call) and the word-domain path answers the same: a Union of
-    compressed rows is stacked by ONE K6 call per request."""
+    compressed rows is expanded by ONE K6 call, at the build of the
+    cached batch (the protobuf request after the JSON one hits it)."""
     set_budget(monkeypatch, budget)
     oracle = corpus()
     # Rows 6 and 7: past ANCHORED_MAX_POSITIONS in slice 0.
@@ -233,7 +234,7 @@ def test_anchored_route_declines_where_jax_declines(node_pair, monkeypatch, name
     assert got == ask(j.host, q), q
     assert seen["jax_anchored"] == 0 and seen["k5"] == 0, (q, seen)
     if name in ("union_no_anchor", "xor_root"):
-        assert seen["k6"] == 2, seen  # JSON and protobuf: one K6 call each
+        assert seen["k6"] == 1, seen  # the build's; protobuf hits the cache
 
 
 def storm(host, n_rows):
@@ -461,7 +462,8 @@ def test_time_range_over_sparse_rows_matches_jax(node_pair, monkeypatch):
     """A time-quantum Range unions a row over several time views; with a
     dense budget of 0 every view's row is a compressed payload, expanded
     into scratch rows by the same single K6 call and OR-ed — answers
-    equal the JAX node's."""
+    equal the JAX node's.  The scratch rows belong to the cached batch:
+    the second request of a query (protobuf after JSON) reuses them."""
     set_budget(monkeypatch, 0)
     j, t = node_pair(corpus(n_rows=2, slices=2, card=300))
     rng = np.random.default_rng(12)
@@ -482,4 +484,4 @@ def test_time_range_over_sparse_rows_matches_jax(node_pair, monkeypatch):
               'end="2017-03-01T00:00"), Bitmap(frame=f, rowID=1)))'):
         before = seen["k6"]
         assert ask(t.host, q) == ask(j.host, q), q
-        assert seen["k6"] - before == 2, q  # one call each for JSON and protobuf
+        assert seen["k6"] - before == 1, q  # the build's; protobuf hits the cache
