@@ -1385,41 +1385,115 @@ def k3_full_table(rng):
     return ops, np.arange(64, 64 + 256, dtype=np.int32)
 
 
+K3_SLICES = (1, 3, 16, N_SLICES)
+
+
+def k3_edge_tables(n_leaves: int = 8) -> list:
+    """K3 tables at the edges of its design, over ``n_leaves`` leaves, as
+    (name, table, out_idx): a chain that forwards every operand after the
+    first, a table that forwards none, ``x ^ x`` and and-nots of the
+    previous result (forwarded as the first operand after a swap), and
+    maskw of leaves 2 and 3's first and last words beside an odd number of
+    leaf outputs."""
+    last = 32767
+    chain = [(0, 0, 1, 0)] + [(i % 4, n_leaves + i - 1, i % n_leaves, 0) for i in range(1, 40)]
+    none = [(i % 4, i % n_leaves, (i + 1) % n_leaves, 0) for i in range(n_leaves)]
+    swaps = [(0, 0, 1, 0), (3, n_leaves, n_leaves, 0), (2, 2, n_leaves + 1, 0),
+             (2, 3, n_leaves + 2, 0), (1, n_leaves + 3, n_leaves, 0)]
+    masks = [(4, 2, 2, 0), (4, 2, 2, last), (4, 3, 3, 0), (4, 3, 3, last),
+             (0, n_leaves, 0, 0), (1, n_leaves + 1, n_leaves + 2, 0),
+             (3, n_leaves + 3, n_leaves + 5, 0), (2, 1, n_leaves + 4, 0)]
+    return [
+        ("forward-all", np.asarray(chain, np.int32),
+         np.asarray([n_leaves + 39, n_leaves + 20], np.int32)),
+        ("forward-none", np.asarray(none, np.int32),
+         np.arange(n_leaves, 2 * n_leaves, dtype=np.int32)),
+        ("swaps", np.asarray(swaps, np.int32),
+         np.asarray([n_leaves + 1, n_leaves + 2, n_leaves + 3, n_leaves + 4], np.int32)),
+        ("maskw-first-last", np.asarray(masks, np.int32),
+         np.asarray([n_leaves + j for j in range(8)] + [5], np.int32)),
+    ]
+
+
+def k3_mask_rows(table) -> None:
+    """Bit 0 of word 0 set and of the last word clear in leaf 2 of every
+    slice of ``table``, the other way in leaf 3 (written in place)."""
+    for s in range(table.shape[0]):
+        for leaf, (w0, w1) in ((2, (1, 0)), (3, (0, 1))):
+            b, r = table.index[s, leaf]
+            row = table.bases[int(b)][int(r)]
+            row[0] = (row[0] & ~1) | w0
+            row[-1] = (row[-1] & ~1) | w1
+
+
 def check_k3(te, it, plan, bsi, rng) -> float:
     """K3 against its plain version on the card, exactly: tables from
     FuseEmitter holding 1, 2 and 16 programs with shared subtrees over 8
-    leaves (1, 3 and 954 slices); MASKW over predicate rows of depth 1,
-    31 and 62 (every comparison and a between, from lower_signed_cmp /
-    lower_between; 1 and 3 slices); a full 256-op table over 64 leaves
-    (1 and 3 slices); count, row and total.  Returns the largest
-    absolute difference (0)."""
+    leaves and the edge tables of :func:`k3_edge_tables` (forward every
+    operand, forward none, swapped and-nots, maskw of the first and last
+    words beside an odd number of leaf outputs) at 1, 3, 16 and 954
+    slices; MASKW over predicate rows of depth 1, 31 and 62 (every
+    comparison and a between, from lower_signed_cmp / lower_between; 1 and
+    3 slices); a full 256-op table over 64 leaves (1 and 3 slices: the
+    largest leaf buffer); every block shape in both variants on the edge
+    tables, with the kernel's shared-memory figure against smem_bytes;
+    count, row and total.  Returns the largest absolute
+    difference (0)."""
     import torch
 
-    def one(table, prog, out_idx, what):
+    def diff_of(got, want, what):
         nonlocal worst, n_checks
+        torch.cuda.synchronize()
+        diff = int((got.long() - want.long()).abs().max())
+        worst = max(worst, diff)
+        n_checks += 1
+        if diff or got.shape != want.shape:
+            raise AssertionError(f"interp != plain: {what}, diff {diff}")
+
+    def one(table, prog, out_idx, what):
         for reduce in ("count", "row", "total"):
             before = it.launches
             got = plan.interp_exec(reduce, table, prog, out_idx)
             torch.cuda.synchronize()
             if it.launches != before + 1:
                 raise AssertionError(f"interp: {it.launches - before} launches")
-            want = it.plain_interp(reduce, table, prog, out_idx)
-            torch.cuda.synchronize()
-            diff = int((got.long() - want.long()).abs().max())
-            worst = max(worst, diff)
-            n_checks += 1
-            if diff or got.shape != want.shape:
-                raise AssertionError(f"interp != plain: {what}, {reduce}, diff {diff}")
+            diff_of(got, it.plain_interp(reduce, table, prog, out_idx), f"{what}, {reduce}")
 
     worst, n_checks = 0, 0
     bases = k2_bases(rng)
     exprs = storm_exprs()
-    for n in K23_SLICES:
+    edges = k3_edge_tables()
+    for n in K3_SLICES:
         table = k2_table(te, bases, n, 8, rng)
+        k3_mask_rows(table)
         for k in (1, 2, 16):
             prog, out_idx = k3_programs(plan, exprs[:k], 8)
             one(table, prog, out_idx, f"{k} programs, {n} slices")
-    del bases
+        for name, prog, out_idx in edges:
+            one(table, prog, out_idx, f"{name}, {n} slices")
+    table = k2_table(te, bases, 3, 8, rng)
+    k3_mask_rows(table)
+    n_shapes = 0
+    for name, prog, out_idx in edges:
+        alloc = it.check_program(prog, out_idx, 8)
+        k = len(set(out_idx.tolist()))
+        sizes = (8, len(alloc.ins), alloc.n_phys, len(alloc.masks), len(alloc.lout), k)
+        for reduce in ("count", "row", "total"):
+            want = it.plain_interp(reduce, table, prog, out_idx)
+            for warps in it.WARPS:
+                for vec in it.VECS:
+                    smem = it.smem_bytes(*sizes, reduce, warps, vec)
+                    ksmem = it.kernel_smem_bytes(*sizes, reduce, warps, vec)
+                    if ksmem != smem:
+                        raise AssertionError(f"interp smem {ksmem} != smem_bytes {smem}")
+                    if smem > it.SMEM_BYTES:
+                        continue
+                    for variant in (0, it.BRANCH_FREE):
+                        shape = it.Shape(warps, vec, variant, smem)
+                        got = it.interp(reduce, table, prog, out_idx, shape=shape)
+                        diff_of(got, want, f"{name}, {reduce}, {shape}")
+                        n_shapes += 1
+    del bases, table
     for depth in (1, 31, 62):
         for n in K23_SLICES[:2]:
             words, prog, out_idx = k3_bsi_case(bsi, plan, depth, rng)
@@ -1433,18 +1507,99 @@ def check_k3(te, it, plan, bsi, rng) -> float:
         idx = np.zeros((n, 64, 2), dtype=np.int64)
         idx[..., 1] = rng.permutation(64)
         one(te.RowTable([leaves], idx), prog, out_idx, f"256 ops over 64 leaves, {n} slices")
+    full = it.launch_plan(it.check_program(prog, out_idx, 64), 64, 256, "count")
     log(f"phase 3: interp == plain on {n_checks} launches (max_abs_err {worst}): FuseEmitter "
-        "tables of 1, 2 and 16 programs with shared subtrees over 8 leaves at 1, 3 and "
-        f"{N_SLICES} slices; MASKW over predicate rows of depth 1, 31 and 62 (every "
-        "comparison and a between); a full 256-op table over 64 leaves; count / row / total")
+        "tables of 1, 2 and 16 programs with shared subtrees over 8 leaves and the edge tables "
+        "(every operand forwarded, none, swapped and-nots, maskw of the first and last words "
+        f"beside an odd number of leaf outputs) at {', '.join(map(str, K3_SLICES))} slices; "
+        f"{n_shapes} of them in every block shape and both variants (the kernel's shared memory "
+        "== smem_bytes); MASKW over predicate rows of depth 1, 31 and 62 (every comparison and "
+        f"a between); a full 256-op table over 64 leaves (planner: {full.warps} warps x "
+        f"{full.vec} words, variant {full.variant}); count / row / total")
     return float(worst)
 
 
-def time_k2k3(te, it, plan, hbm: float) -> dict:
-    """K2 count and row at [954 slices, 2 leaves] and K3 count with the 16
-    storm programs over 8 union leaves at 954 slices, every leaf a row of
-    one of 954 mirrors of 8 rows (phase 5's layout, read in place): back
-    to back, device time, plain version, bound."""
+# The plain version of shapes (d) and (e) at 954 slices would hold 78 and
+# 72 GB of registers on the card: it is timed over this many slices.
+K3_PLAIN_SLICES = 16
+
+
+def k3_needed_bytes(it, prog, out_idx, table, reduce: str) -> int:
+    """Bytes a K3 launch must move: every leaf row that a live logic
+    instruction or an output reads, once; one 4-byte word for each maskw
+    (leaf, word) pair whose row is not read whole; the row addresses; the
+    reduce's output."""
+    n, n_leaves, words = table.shape
+    alloc = it.allocate(prog, np.asarray(list(dict.fromkeys(out_idx.tolist())), np.int32),
+                        n_leaves)
+    logic = alloc.ins[(alloc.ins[:, 0] & 7) != it.OP_MASKW]
+    used = {int(r) for r in logic[:, 1:3].reshape(-1) if 0 <= r < n_leaves}
+    used |= {int(r) for r in alloc.lout[:, 0]}
+    pairs = {(int(a), int(w)) for a, w in alloc.masks.tolist() if a not in used}
+    k = len(set(out_idx.tolist()))
+    out = {"count": n * k * 4, "total": k * 8, "row": n * k * words * 4}[reduce]
+    return n * (len(used) * words * 4 + len(pairs) * 4 + n_leaves * 8) + out
+
+
+def k3_stacks(te, rows: int, n: int, seed: int, pred=None):
+    """A row table of ``n`` slices, each reading its ``rows`` leaves from a
+    stack of its own of random words (generated on the card); ``pred``
+    (uint32 [m, 32768]) replaces the last m rows of every stack."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    stacks = []
+    for _ in range(n):
+        st = torch.randint(-2**31, 2**31, (rows, 32768), dtype=torch.int32, device="cuda",
+                           generator=gen)
+        if pred is not None:
+            st[rows - len(pred):] = torch.from_numpy(pred.view(np.int32)).cuda()
+        stacks.append(st)
+    idx = np.zeros((n, rows, 2), dtype=np.int64)
+    idx[..., 0] = np.arange(n)[:, None]
+    idx[..., 1] = np.arange(rows)[None, :]
+    return te.RowTable(stacks, idx)
+
+
+def k3_timed_shapes(te, plan, bsi, table8, rng) -> list:
+    """Phase 4's K3 shapes, as (name, reduce, table, prog, out_idx, plain
+    table): (a) the 16 storm programs, count over 954 slices; (b) 4 storm
+    programs, total over 954 slices (the coalesced Count's mean
+    occupancy); (c) those 4, row over 16 slices (the Bitmap storm); (d)
+    every BSI comparison and a between at depth 31, count over 954 slices,
+    each slice reading one plane stack of its own; (e) the full 256-op
+    table over 64 leaves, count over 954 slices.  The storm shapes read
+    ``table8`` (phase 5's layout: a mirror of 8 rows a slice)."""
+    exprs = storm_exprs()
+    prog16, out16 = k3_programs(plan, exprs, 8)
+    prog4, out4 = k3_programs(plan, exprs[:4], 8)
+    words, prog_d, out_d = k3_bsi_case(bsi, plan, 31, rng)
+    table_d = k3_stacks(te, len(words), N_SLICES, int(rng.integers(0, 2**31)), words[-2:])
+    prog_e, out_e = k3_full_table(rng)
+    table_e = k3_stacks(te, 64, N_SLICES, int(rng.integers(0, 2**31)))
+    table16 = te.RowTable(table8.bases[:16], table8.index[:16].copy())
+
+    def head(t):
+        return te.RowTable(t.bases[:K3_PLAIN_SLICES], t.index[:K3_PLAIN_SLICES].copy())
+
+    return [
+        ("a_storm16_count", "count", table8, prog16, out16, table8),
+        ("b_storm4_total", "total", table8, prog4, out4, table8),
+        ("c_storm4_row_16", "row", table16, prog4, out4, table16),
+        ("d_bsi31_count", "count", table_d, prog_d, out_d, head(table_d)),
+        ("e_full256_count", "count", table_e, prog_e, out_e, head(table_e)),
+    ]
+
+
+def time_k2k3(te, it, plan, bsi, hbm: float, rng) -> dict:
+    """K2 count and row at [954 slices, 2 leaves], and K3 at the shapes of
+    :func:`k3_timed_shapes`, every storm leaf a row of one of 954 mirrors
+    of 8 rows (phase 5's layout, read in place): back to back, device
+    time, plain version, bound.  K3's device time is also taken with the
+    L2 flushed before each launch (a 128 MiB write, 2.5 times the L2): the
+    time set against the bound by bytes of device memory, which a shape
+    whose data fits in L2 (c) would otherwise beat from the L2."""
     import torch
 
     mirrors = [torch.randint(-2**31, 2**31, (8, 32768), dtype=torch.int32, device="cuda")
@@ -1456,33 +1611,61 @@ def time_k2k3(te, it, plan, hbm: float) -> dict:
     table2 = te.RowTable(mirrors, idx[:, :2].copy())
     expr = ("Intersect", ("leaf", 0), ("leaf", 1))
     program = plan.compile_program(expr)
-    prog, out_idx = k3_programs(plan, storm_exprs(), 8)
     row_bytes = 32768 * 4
     out = {}
-    for name, fn, plain, kernel, nbytes in (
+    for name, fn, plain, nbytes in (
         ("tree_eval_count", lambda: te.tree_eval(table2, program, "count"),
-         lambda: te.plain_tree_eval(table2, program, "count"), "tree_eval_kernel",
+         lambda: te.plain_tree_eval(table2, program, "count"),
          N_SLICES * (2 * row_bytes + 2 * 8 + 4)),
         ("tree_eval_row", lambda: te.tree_eval(table2, program, "row"),
-         lambda: te.plain_tree_eval(table2, program, "row"), "tree_eval_kernel",
+         lambda: te.plain_tree_eval(table2, program, "row"),
          N_SLICES * (3 * row_bytes + 2 * 8)),
-        ("interp_count", lambda: it.interp("count", table8, prog, out_idx),
-         lambda: it.plain_interp("count", table8, prog, out_idx), "interp_kernel",
-         N_SLICES * (8 * row_bytes + 8 * 8 + len(out_idx) * 4)),
     ):
         k_ms = time_cuda(fn)
-        k_dev = device_ms(fn, kernel)
+        k_dev = device_ms(fn, "tree_eval_kernel")
         plain_ms = time_cuda(plain, runs=3, per_run=1, warmup=1)
         bound_ms = nbytes / hbm * 1e3
         share = bound_ms / k_dev if k_dev else float("nan")
         out[name] = {"ms": k_ms, "device_ms": k_dev, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": "bytes", "library_ms": None}
-        leaves = 8 if kernel == "interp_kernel" else 2
-        log(f"phase 4: {name} [{N_SLICES} slices, {leaves} leaves]: {k_ms:.4f} ms back to back, "
-            f"device {k_dev} ms ({share:.1%} of the bound), bound {bound_ms:.4f} ms by bytes ({nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms; "
+        log(f"phase 4: {name} [{N_SLICES} slices, 2 leaves]: {k_ms:.4f} ms back to back, "
+            f"device {k_dev} ms ({share:.1%} of the bound), bound {bound_ms:.4f} ms by bytes "
+            f"({nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms; "
             "library: none (PyTorch has no popcount op)")
+    shapes = {}
+    l2_flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    for name, reduce, table, prog, out_idx, plain_table in k3_timed_shapes(te, plan, bsi, table8,
+                                                                           rng):
+        n, n_leaves, _ = table.shape
+        alloc = it.check_program(prog, out_idx, n_leaves)
+        k = len(set(out_idx.tolist()))
+        shape = it.launch_plan(alloc, n_leaves, k, reduce)
+        nbytes = k3_needed_bytes(it, prog, out_idx, table, reduce)
+        fn = lambda: it.interp(reduce, table, prog, out_idx)  # noqa: E731
+        k_ms = time_cuda(fn, runs=11, per_run=5)
+        k_dev = device_ms(fn, "interp_kernel", launches=20)
+        k_cold = device_ms(lambda: (l2_flush.fill_(1), fn()), "interp_kernel", launches=20)
+        plain_ms = time_cuda(lambda: it.plain_interp(reduce, plain_table, prog, out_idx),
+                             runs=3, per_run=1, warmup=1)
+        torch.cuda.empty_cache()
+        bound_ms = nbytes / hbm * 1e3
+        shapes[name] = {
+            "slices": n, "leaves": n_leaves, "ops": len(prog), "outputs": k, "reduce": reduce,
+            "block": [shape.warps, shape.vec, shape.variant], "smem": shape.smem,
+            "ms": k_ms, "device_ms": k_dev, "device_cold_ms": k_cold, "plain_ms": plain_ms,
+            "plain_slices": plain_table.shape[0], "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None,
+        }
+        share = bound_ms / k_cold if k_cold else float("nan")
+        log(f"phase 4: interp {name} [{n} slices, {n_leaves} leaves, {len(prog)} ops, {k} "
+            f"outputs, {reduce}; block {shape.warps} warps x {shape.vec} words, variant "
+            f"{shape.variant}, {shape.smem} B]: {k_ms:.4f} ms back to back, device {k_dev} ms, "
+            f"{k_cold} ms with the L2 flushed ({share:.1%} of the bound), bound "
+            f"{bound_ms:.4f} ms by bytes ({nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms over "
+            f"{plain_table.shape[0]} slices; library: none (PyTorch has no popcount op)")
+    out["interp_count"] = dict(shapes["a_storm16_count"])
     out["interp_count"]["programs"] = len(storm_exprs())
-    out["interp_count"]["ops"] = len(prog)
+    out["interp_shapes"] = shapes
     return out
 
 
@@ -3376,7 +3559,7 @@ def main() -> int:
     k4_times = time_k4(sp, fp, hbm)
     k6_times = time_k6(ep, bp, rng56, hbm)
     k5_times = time_k5(ac, bp, tplan, rng56, hbm)
-    k23_times = time_k2k3(te, it, tplan, hbm)
+    k23_times = time_k2k3(te, it, tplan, bsi, hbm, np.random.default_rng(SEED + 6))
 
     with tempfile.TemporaryDirectory(prefix="pilosa-torch-smoke-") as data_dir:
         srv = Server(data_dir, host="127.0.0.1:0", device="cuda")
@@ -3555,6 +3738,8 @@ def main() -> int:
         }
         if kernel is te:
             entry["row_reduce"] = k23_times["tree_eval_row"]
+        else:
+            entry["shapes"] = k23_times["interp_shapes"]
         kernels.append(entry)
     k6 = k6_times["sparse"]
     kernels.append({

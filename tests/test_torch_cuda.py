@@ -534,3 +534,112 @@ def test_interp_rejects_maskw_of_a_non_leaf(cuda):
     prog = np.asarray([[0, 0, 1, 0], [4, 2, 2, 0]], np.int32)
     with pytest.raises(ValueError):
         it.interp("count", table, prog, np.asarray([3], np.int32))
+
+
+def k3_edge_tables(n_leaves: int = 6):
+    """K3 tables at the edges of its design, over ``n_leaves`` leaves, as
+    (name, table, out_idx): a chain that forwards every operand after the
+    first, a table that forwards none, ``x ^ x`` and an and-not of the
+    previous result (forwarded as its first operand after a swap), and
+    maskw of two leaves' first and last words beside an odd number of leaf
+    outputs."""
+    last = tbp.WORDS_PER_SLICE - 1
+    chain = [(0, 0, 1, 0)] + [(i % 4, n_leaves + i - 1, i % n_leaves, 0) for i in range(1, 40)]
+    none = [(i % 4, i % n_leaves, (i + 1) % n_leaves, 0) for i in range(n_leaves)]
+    swaps = [(0, 0, 1, 0), (3, n_leaves, n_leaves, 0), (2, 2, n_leaves + 1, 0),
+             (2, 3, n_leaves + 2, 0), (1, n_leaves + 3, n_leaves, 0)]
+    masks = [(4, 2, 2, 0), (4, 2, 2, last), (4, 3, 3, 0), (4, 3, 3, last),
+             (0, n_leaves, 0, 0), (1, n_leaves + 1, n_leaves + 2, 0),
+             (3, n_leaves + 3, n_leaves + 5, 0), (2, 1, n_leaves + 4, 0)]
+    return [
+        ("forward-all", np.asarray(chain, np.int32),
+         np.asarray([n_leaves + 39, n_leaves + 20], np.int32)),
+        ("forward-none", np.asarray(none, np.int32),
+         np.arange(n_leaves, 2 * n_leaves, dtype=np.int32)),
+        ("swaps", np.asarray(swaps, np.int32),
+         np.asarray([n_leaves + 1, n_leaves + 2, n_leaves + 3, n_leaves + 4], np.int32)),
+        ("maskw-first-last", np.asarray(masks, np.int32),
+         np.asarray([n_leaves + j for j in range(8)] + [5], np.int32)),
+    ]
+
+
+def k3_mask_leaves(table, cuda):
+    """Leaves 2 and 3 of every slice's rows of ``table``: bit 0 of word 0
+    set and of the last word clear in leaf 2, the other way in leaf 3."""
+    for s in range(table.shape[0]):
+        for leaf, (w0, w1) in ((2, (1, 0)), (3, (0, 1))):
+            b, r = table.index[s, leaf]
+            row = table.bases[int(b)][int(r)]
+            row[0] = (row[0] & ~1) | w0
+            row[-1] = (row[-1] & ~1) | w1
+
+
+@pytest.mark.parametrize("n", [1, 3, 16, 954])
+def test_interp_edges_match_plain(cuda, n):
+    """Every edge table at 1, 3, 16 and 954 slices (count, row, total), and
+    the 16 phase-14 storm programs beside a leaf output: equal to the plain
+    version, one launch each."""
+    from pilosa_tpu_torch.exec import plan
+    from pilosa_tpu_torch.ops import interp as it
+    from pilosa_tpu_torch.ops import tree_eval as te
+
+    rng = np.random.default_rng(50 + n)
+    table = k23_table(te, cuda, n, 6, rng)
+    k3_mask_leaves(table, cuda)
+    cases = k3_edge_tables()
+    em = plan.FuseEmitter(6)
+    regs = [plan.lower_expr(e, 0, em) for e in k2_trees()]
+    cases.append(("trees", em.table(), np.asarray(list(dict.fromkeys(regs + [4])), np.int32)))
+    for name, prog, out_idx in cases:
+        for reduce in ("count", "row", "total"):
+            before = it.launches
+            got = it.interp(reduce, table, prog, out_idx)
+            torch.cuda.synchronize()
+            assert it.launches == before + 1
+            want = it.plain_interp(reduce, table, prog, out_idx)
+            assert torch.equal(got, want), (name, n, reduce)
+
+
+def test_interp_every_block_shape_matches_plain(cuda):
+    """Every block shape and both variants (one to eight warps, one to
+    eight words a lane) on the edge tables over 3 slices equal the plain
+    version, and the kernel's shared-memory figure is smem_bytes'; the full
+    256-op / 64-leaf table too (the largest leaf buffer), whose planned
+    shape fits a block."""
+    from pilosa_tpu_torch.ops import interp as it
+    from pilosa_tpu_torch.ops import tree_eval as te
+
+    rng = np.random.default_rng(8)
+    table = k23_table(te, cuda, 3, 6, rng)
+    k3_mask_leaves(table, cuda)
+    cases = [(name, prog, out_idx, table) for name, prog, out_idx in k3_edge_tables()]
+    full = np.zeros((256, 4), np.int32)
+    for i in range(256):
+        a = int(rng.integers(0, 64))
+        full[i] = ((4, a, a, int(rng.integers(0, tbp.WORDS_PER_SLICE))) if i % 16 == 15 else
+                   (int(rng.integers(0, 4)), int(rng.integers(0, 64 + i)),
+                    int(rng.integers(0, 64 + i)), 0))
+    leaves = torch.randint(-2**31, 2**31, (64, tbp.WORDS_PER_SLICE), dtype=torch.int32,
+                           device=cuda)
+    idx = np.zeros((3, 64, 2), dtype=np.int64)
+    idx[..., 1] = rng.permutation(64)
+    cases.append(("full", full, np.arange(64, 320, dtype=np.int32), te.RowTable([leaves], idx)))
+    for name, prog, out_idx, tab in cases:
+        n_leaves = tab.shape[1]
+        alloc = it.check_program(prog, out_idx, n_leaves)
+        k = len(set(out_idx.tolist()))
+        sizes = (n_leaves, len(alloc.ins), alloc.n_phys, len(alloc.masks), len(alloc.lout), k)
+        for reduce in ("count", "row", "total"):
+            want = it.plain_interp(reduce, tab, prog, out_idx)
+            for warps in it.WARPS:
+                for vec in it.VECS:
+                    smem = it.smem_bytes(*sizes, reduce, warps, vec)
+                    assert it.kernel_smem_bytes(*sizes, reduce, warps, vec) == smem
+                    if smem > it.SMEM_BYTES:
+                        continue
+                    for variant in (0, it.BRANCH_FREE):
+                        shape = it.Shape(warps, vec, variant, smem)
+                        got = it.interp(reduce, tab, prog, out_idx, shape=shape)
+                        assert torch.equal(got, want), (name, reduce, shape)
+        if name == "full":
+            assert it.launch_plan(alloc, n_leaves, k, "count").smem <= it.SMEM_BYTES

@@ -248,27 +248,46 @@ def test_tree_eval_reads_rows_in_place_through_the_table():
         te.program_depth([0, 1], 2)  # leaves two rows
 
 
-def run_allocated(ins, dest, lout, leaves: list, k: int) -> list:
+def run_allocated(alloc: tinterp.Allocation, leaves: list, k: int) -> list:
     """The kernel's walk of an allocated table (``interp.allocate``), in
-    numpy: physical registers reused, outputs taken where computed."""
+    numpy: a forwarded first operand is the previous instruction's result
+    (its field -1), the second operand is always a leaf or a stored
+    register; a result reaches a register only when STORE is set (into a
+    register no later reader still needs); a maskw reads its (leaf, word)
+    pair from ``masks``; ``OP_NOTAND`` is ``~a & b``; outputs are taken
+    where computed, leaf outputs after."""
     n_leaves = len(leaves)
     regs: dict[int, np.ndarray] = {}
     outs = [None] * k
+    prev = None
 
     def read(r):
+        assert 0 <= r < n_leaves or r in regs
         return leaves[r] if r < n_leaves else regs[r]
 
-    for (op, a, b, aux), (d, e) in zip(ins.tolist(), dest.tolist()):
-        assert d >= n_leaves
+    for code, a, b, d in alloc.ins.tolist():
+        op = code & 7
         if op == tinterp.OP_MASKW:
-            v = np.full_like(leaves[0], 0xFFFFFFFF if leaves[a][aux] & 1 else 0)
+            leaf, word = alloc.masks[b]
+            assert code & tinterp.FWD == 0 and a == leaf
+            v = np.full_like(leaves[0], 0xFFFFFFFF if leaves[leaf][word] & 1 else 0)
         else:
-            x, y = read(a), read(b)
-            v = {0: x & y, 1: x | y, 2: x & ~y, 3: x ^ y}[op]
-        regs[d] = v
-        if e >= 0:
-            outs[e] = v
-    for r, j in lout.tolist():
+            if code & tinterp.FWD:
+                assert a == -1 and prev is not None
+                x = prev
+            else:
+                x = read(a)
+            y = read(b)
+            v = {0: x & y, 1: x | y, 2: x & ~y, 3: x ^ y, tinterp.OP_NOTAND: ~x & y}[op]
+        if code & tinterp.STORE:
+            assert n_leaves <= d < n_leaves + alloc.n_phys
+            regs[d] = v
+        else:
+            assert d == -1
+        if code >> tinterp.EMIT_SHIFT:
+            outs[(code >> tinterp.EMIT_SHIFT) - 1] = v
+        prev = v
+    for r, j in alloc.lout.tolist():
         outs[j] = leaves[r]
     return outs
 
@@ -311,8 +330,197 @@ def test_register_allocation_walks_like_the_table(case):
         words[0, n - 2] = jbsi.pred_row(-1234, 31)
         words[0, n - 1] = jbsi.pred_row(99999, 31)
     want = u32(tinterp.plain_interp("row", table_of(words), prog, out_idx))[0]
-    ins, dest, lout, n_phys = tinterp.allocate(prog, out_idx, n)
-    assert n_phys < len(prog)
-    got = run_allocated(ins, dest, lout, list(words[0]), len(out_idx))
+    alloc = tinterp.allocate(prog, out_idx, n)
+    assert alloc.n_phys < len(prog)
+    got = run_allocated(alloc, list(words[0]), len(out_idx))
     for j in range(len(out_idx)):
         np.testing.assert_array_equal(got[j], want[j], err_msg=str(j))
+
+
+# --- K3's host side: the allocated table, the planner, the domain -----------
+
+
+def random_full_table(rng, n_leaves: int = 64, n_ops: int = 256) -> np.ndarray:
+    """Random folds of earlier registers, every 16th op a MASKW of a leaf."""
+    prog = np.zeros((n_ops, 4), dtype=np.int32)
+    for i in range(n_ops):
+        if i % 16 == 15:
+            a = int(rng.integers(0, n_leaves))
+            prog[i] = (tinterp.OP_MASKW, a, a, int(rng.integers(0, W)))
+        else:
+            prog[i] = (int(rng.integers(0, 4)), int(rng.integers(0, n_leaves + i)),
+                       int(rng.integers(0, n_leaves + i)), 0)
+    return prog
+
+
+def bsi_table(depth: int):
+    """Every BSI comparison and a between at ``depth``, lowered into one
+    table over exists, sign, the planes and two predicate rows: (table,
+    out_idx, n_leaves)."""
+    n = depth + 4
+    em = tplan.FuseEmitter(n, max_ops=4096)
+    planes = list(range(2, 2 + depth))
+    regs = [tplan.ripple.lower_signed_cmp(em, op, 0, 1, planes, n - 2)
+            for op in ("lt", "le", "eq", "ne", "ge", "gt")]
+    regs.append(tplan.ripple.lower_between(em, 0, 1, planes, n - 2, n - 1))
+    return em.table(), np.asarray(list(dict.fromkeys(regs)), np.int32), n
+
+
+def k3_case(case: str):
+    """(table, out_idx, uint32 leaf words [1, L, W]) of one host-side case."""
+    rng = np.random.default_rng(int(case[5:]) if case.startswith("trees") else 0)
+    if case.startswith("trees"):
+        n = int(rng.integers(2, 13))
+        em = tplan.FuseEmitter(n)
+        regs = [tplan.lower_expr(random_tree(rng, n, 4), 0, em) for _ in range(12)]
+        regs.append(int(rng.integers(n)))  # a leaf output
+        prog, out_idx = em.table(), np.asarray(list(dict.fromkeys(regs)), np.int32)
+    elif case.startswith("bsi"):
+        prog, out_idx, n = bsi_table(int(case[3:]))
+    else:
+        n = 64
+        prog = random_full_table(np.random.default_rng(77))
+        out_idx = np.arange(n, n + 256, dtype=np.int32)
+    words = np.random.default_rng(9).integers(0, 2**32, size=(1, n, W), dtype=np.uint32)
+    if case.startswith("bsi"):
+        depth = n - 4
+        words[0, n - 2] = jbsi.pred_row(-(2**depth) // 3, depth)
+        words[0, n - 1] = jbsi.pred_row((2**depth) // 5, depth)
+    elif case == "full":
+        words[0, :, 0] |= 1  # MASKW reads bit 0 of the words it names: both values
+        words[0, ::2, 0] ^= 1
+    return prog, out_idx, words
+
+
+K3_HOST_CASES = [f"trees{s}" for s in range(4)] + ["bsi1", "bsi31", "bsi62", "full"]
+
+
+@pytest.mark.parametrize("case", K3_HOST_CASES)
+def test_allocated_table_equals_jax_interp_exec(case):
+    """The table as the kernel runs it (dead ops dropped, the first operand
+    forwarded, stores elided, registers reused, maskw values listed),
+    walked in numpy, equals JAX's ``interp_exec`` and the plain version on
+    random FuseEmitter trees, every BSI comparison at depth 1, 31 and 62,
+    and a random 256-op / 64-leaf table."""
+    prog, out_idx, words = k3_case(case)
+    n = words.shape[1]
+    want = np.asarray(jplan.interp_exec("row", words, prog, out_idx))[0]
+    plain = u32(tinterp.plain_interp("row", table_of(words), prog, out_idx))[0]
+    np.testing.assert_array_equal(plain, want)
+    alloc = tinterp.check_program(prog, out_idx, n)
+    got = run_allocated(alloc, list(words[0]), len(out_idx))
+    for j in range(len(out_idx)):
+        np.testing.assert_array_equal(got[j], want[j], err_msg=f"{case} output {j}")
+    code = alloc.ins[:, 0] if len(alloc.ins) else np.zeros(0, np.int32)
+    if case.startswith("bsi"):
+        assert (code & tinterp.FWD).any() and len(alloc.masks) > 0
+    assert ((code & tinterp.STORE) != 0).sum() < len(alloc.ins)  # some stores elided
+
+
+def test_allocation_forwards_the_first_operand_only():
+    """A chain forwards every operand after the first op and stores
+    nothing; a second operand that is the previous result is read from its
+    register; an and-not whose right operand is forwarded swaps into
+    not-and; an op no output needs is dropped."""
+    chain = np.asarray([(0, 0, 1, 0), (1, 2, 4, 0), (2, 3, 5, 0), (3, 6, 0, 0)], np.int32)
+    alloc = tinterp.allocate(chain, np.asarray([7], np.int32), 4)
+    assert [c & (tinterp.FWD | tinterp.STORE) for c in alloc.ins[:, 0]] == [
+        0, tinterp.FWD, tinterp.FWD, tinterp.FWD]
+    assert alloc.n_phys == 0
+    right = np.asarray([(0, 0, 1, 0), (2, 2, 4, 0)], np.int32)  # 2 & ~r4: r4 forwarded
+    alloc = tinterp.allocate(right, np.asarray([5], np.int32), 4)
+    assert alloc.ins[1, 0] & 7 == tinterp.OP_NOTAND and alloc.ins[1, 1:3].tolist() == [-1, 2]
+    same = np.asarray([(0, 0, 1, 0), (3, 4, 4, 0)], np.int32)  # r4 ^ r4
+    alloc = tinterp.allocate(same, np.asarray([5], np.int32), 4)
+    assert alloc.ins[0, 0] & tinterp.STORE and alloc.ins[1, 0] & tinterp.FWD
+    assert alloc.ins[1, 2] == alloc.ins[0, 3] == 4
+    dead = np.asarray([(0, 0, 1, 0), (1, 0, 1, 0)], np.int32)
+    assert len(tinterp.allocate(dead, np.asarray([5], np.int32), 4).ins) == 1
+
+
+def chain_of_live(m: int) -> tuple:
+    """m ops over 2 leaves that all stay live until a fold reads them back
+    (m registers stored at once), and its out_idx."""
+    rows = [(i % 4, i % 2, 1 - i % 2, 0) for i in range(m)]
+    acc = 2
+    for i in range(1, m):
+        rows.append((3, acc if i > 1 else 2, 2 + i, 0))
+        acc = 2 + len(rows) - 1
+    return np.asarray(rows, np.int32), np.asarray([2 + len(rows) - 1], np.int32)
+
+
+def narrowest(prog, out_idx, n_leaves):
+    alloc = tinterp.allocate(prog, np.asarray(list(dict.fromkeys(out_idx.tolist())), np.int32),
+                             n_leaves)
+    k = len(set(out_idx.tolist()))
+    sizes = (n_leaves, len(alloc.ins), alloc.n_phys, len(alloc.masks), len(alloc.lout), k)
+    return tinterp.smem_bytes(*sizes, "count", *tinterp.NARROWEST)
+
+
+@pytest.mark.parametrize("kind", ["leaves", "registers"])
+def test_check_program_accepts_and_rejects_at_the_planner_boundary(kind):
+    """check_program accepts a table just inside a block's shared memory in
+    the narrowest shape and rejects one just past it; the boundary is
+    smem_bytes' own."""
+    if kind == "leaves":
+        def table(x):
+            return np.zeros((0, 4), np.int32), np.asarray([0], np.int32), x
+    else:
+        def table(x):
+            return (*chain_of_live(x), 2)
+    x = 1
+    while narrowest(*table(x * 2)) <= tinterp.SMEM_BYTES:
+        x *= 2
+    lo, hi = x, x * 2  # lo fits, hi does not
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if narrowest(*table(mid)) <= tinterp.SMEM_BYTES else (lo, mid)
+    inside, past = table(lo), table(hi)
+    assert narrowest(*inside) <= tinterp.SMEM_BYTES < narrowest(*past)
+    alloc = tinterp.check_program(*inside)
+    if kind == "registers":
+        assert alloc.n_phys > 100
+    with pytest.raises(ValueError, match="shared memory"):
+        tinterp.check_program(*past)
+
+
+def old_smem_rule(n_leaves: int, n_ops: int, k: int) -> bool:
+    """The shared-memory test check_program made before the kernel's
+    redesign (one warp, one word a lane, every op its own register)."""
+    regs = (n_ops * 24 + k * 8 + n_leaves * 8 + k * 32 * 4 + 15) // 16 * 16
+    return regs + (2 * n_leaves + n_ops) * 32 * 4 <= tinterp.SMEM_BYTES
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_check_program_accepts_every_table_the_old_rule_did(seed):
+    """Tables at the edge of the old rule (many leaves, many ops, many
+    outputs, MASKW, leaf outputs) all still pass check_program."""
+    rng = np.random.default_rng(100 + seed)
+    for _ in range(12):
+        n_leaves = int(rng.integers(1, 800))
+        n_ops = int(rng.integers(0, 1400))
+        while n_ops and not old_smem_rule(n_leaves, n_ops, min(n_ops + n_leaves, 64)):
+            n_ops //= 2
+        prog = random_full_table(rng, n_leaves, n_ops) if n_ops else np.zeros((0, 4), np.int32)
+        k = min(n_ops + n_leaves, 64)
+        out_idx = rng.choice(n_leaves + n_ops, size=k, replace=False).astype(np.int32)
+        if not old_smem_rule(n_leaves, n_ops, k):
+            continue
+        tinterp.check_program(prog, out_idx, n_leaves)
+
+
+@pytest.mark.parametrize("case", K3_HOST_CASES)
+@pytest.mark.parametrize("reduce", ["count", "row", "total"])
+def test_launch_plan_figure_is_smem_bytes(case, reduce):
+    """The planner's shape fits a block, its shared-memory figure is
+    smem_bytes of that shape, and its tile divides the row."""
+    prog, out_idx, words = k3_case(case)
+    n = words.shape[1]
+    alloc = tinterp.check_program(prog, out_idx, n)
+    k = len(set(out_idx.tolist()))
+    shape = tinterp.launch_plan(alloc, n, k, reduce)
+    sizes = (n, len(alloc.ins), alloc.n_phys, len(alloc.masks), len(alloc.lout), k)
+    assert shape.smem == tinterp.smem_bytes(*sizes, reduce, shape.warps, shape.vec)
+    assert shape.smem <= tinterp.SMEM_BYTES
+    assert shape.variant in (0, tinterp.BRANCH_FREE)
+    assert tinterp.WORDS_PER_SLICE % (shape.warps * 32 * shape.vec) == 0
