@@ -34,7 +34,9 @@ without printing its final line:
    8, 64 and 65,536 rows in one table, count / row / total; for the
    interpreter (K3) FuseEmitter tables of 1, 2 and 16 programs with shared
    subtrees, MASKW over predicate rows of depth 1, 31 and 62, a full
-   256-op table over 64 leaves, count / row / total;
+   256-op table over 64 leaves, count / row / total; for the stream-floor
+   read-sum (K11) 1, 7, 1,023 and 2^20 + 7 words and the probe's own size,
+   each all zeros, all ones, all 0xFFFFFFFF and seeded random words;
 4. time each kernel at the main path's shapes (CUDA events around runs
    of back-to-back calls, median of 21 runs), beside its bound and its
    plain version's time; for the delta-scatter kernel (K7) one, 954 and
@@ -49,7 +51,10 @@ without printing its final line:
    the positions form); K5 at [954 slices, 32,768-position anchors, a
    dense, a sparse and an RLE leaf]; K2 count and row at [954 slices, 2
    leaves] and K3 count with 16 programs over 8 union leaves at 954
-   slices, every leaf a row of one of 954 8-row mirrors;
+   slices, every leaf a row of one of 954 8-row mirrors; K11 at the
+   probe's size (at least 8x the L2) with ``torch.sum`` of int32 beside
+   it, and the probe's GB/s at that size and at the JAX package's 32 MiB,
+   which the L2 holds;
 5. serve a 1B-column index — 954 slices x 8 dense rows, seeded random
    words, about 1 GiB on the card — with ``Server(device="cuda")`` and
    answer Count/Bitmap/TopN/SetBit over HTTP, every answer checked
@@ -57,7 +62,8 @@ without printing its final line:
    launch counts reset just before and read just after (each Count and
    Bitmap over a tree: one K2 launch through the coalescer, no K1;
    TopN(src): one K4 launch per request); the SetBits' p50, each answered
-   after its WAL group commit; a batch build and a cache hit timed;
+   after its WAL group commit; a batch build and a cache hit timed; the
+   node's open runs the stream-floor probe (K11, once per process);
    then phase 14 on the same node;
 6. a cluster on the one card: three ``Server(device="cuda")`` nodes of
    an http cluster with 2 replicas; the schema created on one node
@@ -137,14 +143,29 @@ without printing its final line:
     serial Count(Intersect(Bitmap(0), Bitmap(1))) — the first request a
     cache miss (after a SetBit), the rest hits, then a SetBit and the
     Count again (a rebuild, the answer one more), one K2 launch a request
-    and no K1; then a storm of 64 client threads x 20 requests drawn from
+    and no K1; then a storm of 64 client threads x 12 requests drawn from
     16 distinct trees over the 8 rows, as Count over every slice and as
     Bitmap (the tree intersected with a row of frame g, over 16 slices),
     every answer against numpy, in turns with coalescing on, off, off, on
     (off: the scheduler closed, the direct K2 path serves): requests/s,
     p50 / p99, the scheduler's snapshot; coalesced turns launch fewer
     times than they answer and fuse (K3);
-15. print the ``kernels`` JSON line (K1-K8), then the final JSON line.
+15. print the ``kernels`` JSON line (K1-K8, K11), then the final JSON line;
+16. observability, on the phase-5 node right after phase 14 (run before
+    phase 6) and on phase 6's cluster: ``/debug/perf``'s stream floor
+    (above 0, at most 105% of the data-sheet rate, so the probe read
+    device memory) and every site's ``floorPct`` (at most 105%); in a
+    window with every kernel counter and the site table at 0, serial
+    Counts, TopN(src) and a short storm with coalescing on and off, after
+    which the per-site launches equal the kernels' own counters
+    (``direct`` + ``total`` + ``coalesce`` = K2, ``interp`` = K3, ``topn``
+    = K4, ``anchored`` = K5); ``/metrics`` parsed line by line and
+    carrying the JAX package's counters; the p50 per-stage breakdown of
+    20 serial Count(Intersect) hits from ``/debug/traces`` (the HTTP
+    layer's own time beside it); a ``/debug/profile?seconds=2`` under a
+    storm and the card's idle share from its trace; Count p50 with the
+    telemetry (launch records and traces) on and off in 4 turns of 20; and
+    on phase 6's cluster one TopN trace that covers all three nodes.
 
 Exits non-zero when ``torch.cuda.is_available()`` is false, and when the
 port's package is not beside this file.
@@ -173,7 +194,7 @@ N_SLICES = 954  # ceil(1e9 / 2^20): 1B columns
 ROWS = 8
 REPS = 5
 # Phase 6: requests per (query, node, format), bits per import.
-CLUSTER_REPS = 3
+CLUSTER_REPS = 2
 IMPORT_BITS = 1 << 20
 FALLBACK_IMPORT_BITS = 1 << 16
 # Phase 6's BSI leg: values over the first slices.
@@ -206,8 +227,13 @@ HBM_BYTES_PER_S = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12, "H2
 SCALAR_OPS_PER_S = 67e12
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the run's record, with the seconds since the script
+    started (where the run's time limit goes)."""
+    print(f"{msg}  [t+{time.perf_counter() - _T0:.1f}s]", flush=True)
 
 
 def card_line() -> str:
@@ -1669,6 +1695,362 @@ def time_k2k3(te, it, plan, bsi, hbm: float, rng) -> dict:
     return out
 
 
+# --- K11: the stream-floor read-sum ------------------------------------------
+
+K11_SIZES = (1, 7, 1023, (1 << 20) + 7)
+K11_PATTERNS = ("zeros", "ones", "max", "random")
+# The JAX package's probe size, which an H100's 50 MiB L2 holds.
+K11_JAX_BYTES = 32 << 20
+
+
+def k11_words(torch, n: int, pattern: str, dev):
+    """n int32 words on the card: all zeros, all ones, all 0xFFFFFFFF, or
+    seeded random words (their sum wraps many times)."""
+    if pattern == "random":
+        g = torch.Generator(device=dev).manual_seed(SEED + n)
+        return torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32, device=dev, generator=g)
+    fill = {"zeros": 0, "ones": 1, "max": -1}[pattern]
+    return torch.full((n,), fill, dtype=torch.int32, device=dev)
+
+
+def check_k11(ss, floorprobe) -> float:
+    """Phase 3: K11 against its plain version, exactly, on every size and
+    pattern, the probe's own size included."""
+    import torch
+
+    dev = torch.device("cuda")
+    probe_words = floorprobe.probe_bytes(dev) // 4
+    worst, n_checks = 0, 0
+    for n in K11_SIZES + (probe_words,):
+        for pattern in K11_PATTERNS:
+            x = k11_words(torch, n, pattern, dev)
+            got = int(ss.stream_sum(x))
+            want = int(ss.plain_stream_sum(x))
+            worst = max(worst, abs(got - want))
+            n_checks += 1
+            del x
+    if worst:
+        raise AssertionError(f"phase 3: stream_sum differs from plain by {worst}")
+    log(f"phase 3: stream_sum == plain on {n_checks} cases (max_abs_err {worst}): "
+        f"{', '.join(str(n) for n in K11_SIZES)} and {probe_words} words (the probe's size) x "
+        f"{', '.join(K11_PATTERNS)}")
+    return float(worst)
+
+
+def time_k11(ss, floorprobe, hbm: float) -> dict:
+    """Phase 4: K11 at the probe's size — back to back, device time from
+    the profiler, its bound, the plain version and PyTorch's own int32
+    sum — and the probe's GB/s at that size and at the JAX package's
+    32 MiB (which the L2 holds)."""
+    import torch
+
+    dev = torch.device("cuda")
+    n_bytes = floorprobe.probe_bytes(dev)
+    x = k11_words(torch, n_bytes // 4, "random", dev)
+    k_ms = time_cuda(lambda: ss.stream_sum(x))
+    k_dev = device_ms(lambda: ss.stream_sum(x), "stream_sum_kernel", launches=20)
+    plain_ms = time_cuda(lambda: ss.plain_stream_sum(x), runs=5, per_run=2)
+    lib_ms = time_cuda(lambda: ss.library_stream_sum(x))
+    del x
+    t_bytes = (n_bytes + 4) / hbm
+    t_ops = (n_bytes // 4) / SCALAR_OPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    gbps_probe = floorprobe.measure_device(dev, n_bytes)
+    gbps_jax = floorprobe.measure_device(dev, K11_JAX_BYTES)
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    log(f"phase 4: stream_sum [{n_bytes // 4} words, {n_bytes >> 20} MiB = "
+        f"{n_bytes / l2:.1f}x the {l2 >> 20} MiB L2]: {k_ms:.4f} ms back to back, device "
+        f"{k_dev} ms, bound {bound_ms:.4f} ms by {bound_by} ({bound_ms / k_ms:.1%} of it), "
+        f"plain {plain_ms:.4f} ms, torch.sum(int32) {lib_ms:.4f} ms; the probe reads "
+        f"{gbps_probe:.1f} GB/s at {n_bytes >> 20} MiB and {gbps_jax:.1f} GB/s at the JAX "
+        f"package's {K11_JAX_BYTES >> 20} MiB (data sheet {hbm / 1e9:.0f} GB/s)")
+    return {"ms": k_ms, "device_ms": k_dev, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms, "probe_bytes": n_bytes,
+            "probe_gbps": gbps_probe, "jax_size_gbps": gbps_jax, "l2_bytes": l2}
+
+
+# --- phase 16: observability -------------------------------------------------
+
+OBS_SERIAL = 20
+OBS_TURN = 20
+OBS_PROFILE_S = 2.0
+OBS_STORM_THREADS = 16
+OBS_STORM_REQUESTS = 10
+# Counters phase 16 requires on /metrics (the phase-5 node's Expvar client
+# and the scrape-time gauges).
+OBS_FAMILIES = (
+    "pilosa_exec_coalesce_launches_total", "pilosa_exec_coalesce_coalescedQueries_total",
+    "pilosa_exec_interp_launches_total", "pilosa_exec_interp_fusedQueries_total",
+    "pilosa_setBit_total", "pilosa_ingest_wal_appends_total", "pilosa_ingest_wal_fsyncs_total",
+    "pilosa_ingest_wal_groupSize", "pilosa_device_residentBytes", "pilosa_Count_total",
+    "pilosa_device_streamFloorGbps", "pilosa_exec_launch_launches",
+    "pilosa_exec_launch_floorPct", "pilosa_query_latency_ms", "pilosa_http_latency_ms",
+)
+
+
+def http_raw(host: str, path: str) -> tuple[int, bytes]:
+    try:
+        with urllib.request.urlopen(f"http://{host}{path}", timeout=600) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def parse_exposition(text: str) -> dict[str, str]:
+    """Prometheus text format, checked line by line: family -> type."""
+    import re
+
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{([a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*"'
+                        r'(,[a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*")*)\})? (\S+)$')
+    fams: dict[str, str] = {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, typ = line.split(" ")
+            fams[name] = typ
+            continue
+        m = sample.match(line)
+        if m is None:
+            raise AssertionError(f"phase 16: /metrics line does not parse: {line!r}")
+        float(m.group(7))
+        name = m.group(1)
+        base = name.rsplit("_", 1)[0] if name.endswith(("_bucket", "_sum", "_count")) else name
+        if name not in fams and base not in fams:
+            raise AssertionError(f"phase 16: /metrics sample of an undeclared family: {line!r}")
+    return fams
+
+
+def check_perf_doc(doc: dict, hbm: float, where: str) -> None:
+    floor = doc["floor_gbps"]
+    if not 0 < floor <= 1.05 * hbm / 1e9:
+        raise AssertionError(f"phase 16 {where}: stream floor {floor} GB/s outside "
+                             f"(0, {1.05 * hbm / 1e9:.0f}]")
+    for site, row in doc["sites"].items():
+        if row.get("floor_pct", 0.0) > 105.0:
+            raise AssertionError(f"phase 16 {where}: site {site} at {row['floor_pct']}% of the "
+                                 f"floor: {row}")
+
+
+def stage_p50(traces: list, pql: str, n: int) -> dict:
+    """Per-stage p50 (ms) over the last ``n`` traces of ``pql``, the root
+    span as ``query``."""
+    from pilosa_tpu_torch.obs.trace import stage_breakdown
+
+    recs = [t for t in traces if t["spans"][0]["tags"].get("query") == pql][-n:]
+    stages: dict[str, list] = {}
+    for r in recs:
+        stages.setdefault("query", []).append(r["duration_ms"])
+        for k, v in stage_breakdown(r).items():
+            stages.setdefault(k, []).append(v)
+    return {k: statistics.median(v) for k, v in sorted(stages.items()) if len(v) == len(recs)}
+
+
+def profile_idle_share(tar_path: str, seconds: float) -> dict:
+    """From a /debug/profile tarball: the card's busy time (the union of
+    kernel, copy and set intervals) over the trace's window, and the
+    kernels' own time."""
+    import tarfile
+
+    with tarfile.open(tar_path) as tf:
+        member = next(m for m in tf.getmembers() if m.name.endswith("trace.json"))
+        events = json.load(tf.extractfile(member)).get("traceEvents", [])
+    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)), e.get("cat", ""))
+                 for e in events if e.get("ph") == "X"
+                 and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, cur_lo, cur_hi = 0.0, None, None
+    for lo, hi, _ in dev:
+        if cur_hi is None or lo > cur_hi:
+            if cur_hi is not None:
+                busy += cur_hi - cur_lo
+            cur_lo, cur_hi = lo, hi
+        else:
+            cur_hi = max(cur_hi, hi)
+    if cur_hi is not None:
+        busy += cur_hi - cur_lo
+    window_us = seconds * 1e6
+    kernel_us = sum(hi - lo for lo, hi, cat in dev if cat == "kernel")
+    return {"window_ms": window_us / 1e3, "busy_ms": busy / 1e3, "kernel_ms": kernel_us / 1e3,
+            "device_events": len(dev), "idle_share": 1.0 - busy / window_us}
+
+
+def cluster_trace(coordinator, hosts: list) -> dict:
+    """Phase 16's cluster check, on phase 6's nodes: the coordinator's
+    last own TopN trace holds every node's leg — a ``query`` root per
+    node, each remote one under an ``rpc.execute`` span of this trace."""
+    recs = [t for t in coordinator.tracer.traces()
+            if t["spans"][0]["tags"].get("query", "").startswith("TopN(")
+            and not t["spans"][0]["tags"].get("remote")]
+    if not recs:
+        raise AssertionError("phase 16: no coordinator TopN trace on phase 6's node 0")
+    rec = recs[-1]
+    ids = {s["span_id"] for s in rec["spans"]}
+    roots = [s for s in rec["spans"] if s["name"] == "query"]
+    nodes_seen = {s["tags"].get("node") for s in roots}
+    rpcs = {s["span_id"] for s in rec["spans"] if s["name"] == "rpc.execute"}
+    if nodes_seen != set(hosts) or any(s["parent_id"] not in ids for s in rec["spans"][1:]) \
+            or any(r["parent_id"] not in rpcs for r in roots[1:]):
+        raise AssertionError(f"phase 16: the cluster TopN trace covers {sorted(nodes_seen)}, "
+                             f"not {sorted(hosts)}: {json.dumps(rec)[:2000]}")
+    out = {"trace_id": rec["trace_id"], "spans": len(rec["spans"]), "nodes": len(nodes_seen),
+           "ms": rec["duration_ms"],
+           "rpc_ms": sorted(s["duration_ms"] for s in rec["spans"] if s["name"] == "rpc.execute"),
+           "remote_query_ms": sorted(r["duration_ms"] for r in roots[1:])}
+    log(f"phase 16: one trace of a cluster TopN on phase 6's nodes covers all {len(nodes_seen)} "
+        f"nodes: {out}")
+    return out
+
+
+def observe_and_check(srv, kernels: dict, storm_queries: list, hbm: float, rng) -> dict:
+    """Phase 16 on the phase-5 node, after phase 14: /debug/perf's floor
+    and per-site table against the kernels' own counters, /metrics,
+    the per-stage breakdown of serial Count hits from /debug/traces, a
+    /debug/profile under a storm and the card's idle share from it, and
+    Count p50 with telemetry on and off."""
+    from pilosa_tpu_torch.exec.coalesce import CoalesceScheduler
+    from pilosa_tpu_torch.obs import perf as perf_mod
+    from pilosa_tpu_torch.obs import trace as trace_mod
+
+    out: dict = {}
+    h, ex = srv.host, srv.executor
+    t_start = time.perf_counter()
+    # Phases 5 and 14 as the node recorded them.
+    doc = json.loads(http_raw(h, "/debug/perf")[1])
+    check_perf_doc(doc, hbm, "after phase 14")
+    out["after_14"] = {k: {c: v.get(c) for c in ("launches", "gbps", "eff_gbps", "floor_pct",
+                                                  "p50_ms", "p99_ms", "occupancy")}
+                       for k, v in doc["sites"].items()}
+    log(f"phase 16: /debug/perf after phases 5 and 14: floor {doc['floor_gbps']} GB/s; "
+        f"sites {json.dumps(out['after_14'])}")
+
+    if ex.coalescer is None:
+        srv.coalescer = ex.coalescer = CoalesceScheduler(stats=srv.stats)
+    q = "Count(Intersect(Bitmap(frame=f, rowID=0), Bitmap(frame=f, rowID=1)))"
+    topn = "TopN(Bitmap(frame=f, rowID=2), frame=f, n=5)"
+    status, body = http(h, "POST", "/index/i/query", q.encode())
+    if status != 200:
+        raise AssertionError(f"phase 16 {q}: {status} {body}")
+    want = body["results"]
+    # The window the site table is held to: every counter at 0 together.
+    perf_mod.registry().reset()
+    for mod in kernels.values():
+        mod.launches = 0
+    wall = []
+    for _ in range(OBS_SERIAL):
+        q0 = time.perf_counter()
+        status, body = http(h, "POST", "/index/i/query", q.encode())
+        wall.append((time.perf_counter() - q0) * 1e3)
+        if status != 200 or body["results"] != want:
+            raise AssertionError(f"phase 16 {q}: {status} {body} != {want}")
+    traces = json.loads(http_raw(h, "/debug/traces")[1])["traces"]
+    stages = stage_p50(traces, q, OBS_SERIAL)
+    stages["client"] = statistics.median(wall)
+    stages["outside_handler"] = stages["client"] - stages["query"]
+    out["stages_p50_ms"] = stages
+    log(f"phase 16: p50 stage breakdown of {OBS_SERIAL} serial {q} hits (ms; 'query' is the "
+        f"handler's root span, 'client' the HTTP round trip, 'outside_handler' their "
+        f"difference): {json.dumps({k: round(v, 4) for k, v in stages.items()})}")
+    for _ in range(3):
+        status, _ = http(h, "POST", "/index/i/query", topn.encode())
+        if status != 200:
+            raise AssertionError(f"phase 16 {topn}: {status}")
+
+    # A short storm in turns, coalescing on then off (the direct paths).
+    def storm(n_threads: int, n_req: int, stop=None) -> int:
+        reqs = [[storm_queries[int(i)] for i in rng.integers(0, len(storm_queries), n_req)]
+                for _ in range(n_threads)]
+
+        def client(rs):
+            done = 0
+            while True:
+                for path, pql, w in rs:
+                    status, body = http(h, "POST", path, pql.encode())
+                    if status != 200 or body["results"] != [w]:
+                        raise AssertionError(f"phase 16 storm {pql}: {status}")
+                    done += 1
+                if stop is None or stop.is_set():
+                    return done
+
+        with ThreadPoolExecutor(n_threads) as pool:
+            return sum(f.result(timeout=600) for f in [pool.submit(client, r) for r in reqs])
+
+    storm(OBS_STORM_THREADS, OBS_STORM_REQUESTS)
+    srv.coalescer.close()
+    srv.coalescer = ex.coalescer = None
+    storm(OBS_STORM_THREADS, OBS_STORM_REQUESTS)
+    srv.coalescer = ex.coalescer = CoalesceScheduler(stats=srv.stats)
+    counters = {name: mod.launches for name, mod in kernels.items()}
+    doc = json.loads(http_raw(h, "/debug/perf")[1])
+    check_perf_doc(doc, hbm, "phase 16 window")
+    sites = {k: v["launches"] for k, v in doc["sites"].items()}
+    k2_sites = sum(sites.get(k, 0) for k in ("direct", "total", "coalesce"))
+    pairs = {"k2": (k2_sites, counters["k2"]), "k3": (sites.get("interp", 0), counters["k3"]),
+             "k4": (sites.get("topn", 0), counters["k4"]),
+             "k5": (sites.get("anchored", 0), counters["k5"])}
+    if any(a != b for a, b in pairs.values()) or not {"total", "direct", "coalesce", "interp",
+                                                        "topn"} <= set(sites):
+        raise AssertionError(f"phase 16: /debug/perf sites {sites} against the kernels' "
+                             f"counters {counters}")
+    out["sites"] = {k: {c: v.get(c) for c in ("launches", "bytes", "eff_bytes", "gbps",
+                                               "floor_pct", "dispatch_ms", "device_ms",
+                                               "p50_ms", "p99_ms", "occupancy")}
+                    for k, v in doc["sites"].items()}
+    out["floor_gbps"] = doc["floor_gbps"]
+    log(f"phase 16: /debug/perf floor {doc['floor_gbps']} GB/s ({doc['floor_gbps'] * 1e9 / hbm:.1%} "
+        f"of the data sheet); site launches equal the kernels' counters ({pairs}); every "
+        f"floorPct <= 105%: {json.dumps(out['sites'])}")
+
+    # /metrics: parses, and carries the counters.
+    status, body = http_raw(h, "/metrics")
+    fams = parse_exposition(body.decode())
+    missing = [f for f in OBS_FAMILIES if f not in fams]
+    if status != 200 or missing:
+        raise AssertionError(f"phase 16: /metrics {status}, missing {missing}")
+    out["metrics_families"] = len(fams)
+    log(f"phase 16: /metrics parses: {len(fams)} families, {len(body)} bytes, every required "
+        "counter present")
+
+    # A profile under a storm: the card's idle share.
+    stop = threading.Event()
+    with ThreadPoolExecutor(1) as bg:
+        fut = bg.submit(storm, OBS_STORM_THREADS, OBS_STORM_REQUESTS, stop)
+        time.sleep(0.5)
+        status, body = http(h, "GET", f"/debug/profile?seconds={OBS_PROFILE_S}")
+        stop.set()
+        served = fut.result(timeout=600)
+    if status != 200:
+        raise AssertionError(f"phase 16: /debug/profile {status} {body}")
+    idle = profile_idle_share(body["trace"], OBS_PROFILE_S)
+    if not idle["device_events"]:
+        raise AssertionError(f"phase 16: the profile holds no device activity: {idle}")
+    out["profile"] = {**idle, "trace_bytes": body["bytes"], "storm_requests": served}
+    log(f"phase 16: /debug/profile?seconds={OBS_PROFILE_S} under a {OBS_STORM_THREADS}-thread "
+        f"storm ({served} requests): {json.dumps(out['profile'])}; device idle share "
+        f"{idle['idle_share']:.2%}")
+
+    # Telemetry on and off (launch records and traces), in turns.
+    tracer = srv.tracer
+    turns = []
+    for on in (True, False, False, True):
+        perf_mod.registry().configure(enabled=on)
+        srv.handler.tracer = ex.tracer = tracer if on else trace_mod.NOP_TRACER
+        lat = []
+        for _ in range(OBS_TURN):
+            q0 = time.perf_counter()
+            status, body = http(h, "POST", "/index/i/query", q.encode())
+            lat.append((time.perf_counter() - q0) * 1e3)
+            if status != 200 or body["results"] != want:
+                raise AssertionError(f"phase 16 telemetry turn: {status} {body}")
+        turns.append({"telemetry": on, "p50_ms": statistics.median(lat)})
+    perf_mod.registry().configure(enabled=True)
+    srv.handler.tracer = ex.tracer = tracer
+    out["telemetry_turns"] = turns
+    out["seconds"] = time.perf_counter() - t_start
+    p50s = " / ".join(f"{t['p50_ms']:.3f}" for t in turns)
+    log(f"phase 16: Count p50 with telemetry on / off / off / on over {OBS_TURN} requests each: "
+        f"{p50s} ms; phase 16 took {out['seconds']:.1f} s")
+    return out
+
+
 def http(host: str, method: str, path: str, body: bytes = b"") -> tuple[int, object]:
     req = urllib.request.Request(
         f"http://{host}{path}", data=body if method != "GET" else None, method=method
@@ -1875,7 +2257,7 @@ def serve_and_check(fp, ds, sp, te, bp, convert, srv, rng) -> dict:
 # the Bitmap requests' slices, the g-frame bits they intersect.
 SERIAL_REPS = 20
 STORM_THREADS = 64
-STORM_REQUESTS = 20
+STORM_REQUESTS = 12
 STORM_SLICES = 16
 STORM_G_BITS = 256
 
@@ -2060,6 +2442,7 @@ def coalesce_and_check(fp, te, it, srv, truth: np.ndarray, rng) -> dict:
         return row
 
     out["storm"] = [storm(on) for on in (True, False, False, True)]
+    out["queries"] = queries
     out["k2_launches"] = te.launches
     out["k3_launches"] = it.launches
     out["launches"] = fp.launches
@@ -2238,6 +2621,7 @@ def cluster_and_check(fp, ds, br, sp, te, scatter, convert, Server, InternalClie
                                      f"{want_k2} / 0 (one K2 per node leg)")
             out["k2_counts"] = te.launches - k2_before
             out["k4_legs"] = legs
+            out["trace"] = cluster_trace(nodes[0], hosts)
             for name, ms in latencies.items():
                 log(f"phase 6: {name} p50 {ms:.3f} ms over {3 * 2 * CLUSTER_REPS} requests "
                     "(3 nodes x protobuf and JSON)")
@@ -3515,9 +3899,12 @@ def main() -> int:
     from pilosa_tpu_torch.ops import interp as it
     from pilosa_tpu_torch.ops import score_planes as sp
     from pilosa_tpu_torch.ops import tree_eval as te
+    from pilosa_tpu_torch.ops import stream_sum as ss
+    from pilosa_tpu_torch.device import floorprobe
+    from pilosa_tpu_torch.obs.stats import ExpvarStatsClient
 
     card = card_line()
-    log(card)
+    print(card, flush=True)
     name = torch.cuda.get_device_name(0)
     hbm = hbm_rate(name)
     log(f"phase 1: {name}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3543,6 +3930,7 @@ def main() -> int:
     rng23 = np.random.default_rng(SEED + 5)
     k2_err = check_k2(te, it, tplan, rng23)
     k3_err = check_k3(te, it, tplan, bsi, rng23)
+    k11_err = check_k11(ss, floorprobe)
 
     a = bp.to_device(rng.integers(0, 2**32, size=(N_SLICES, 32768), dtype=np.uint32), "cuda")
     b = bp.to_device(rng.integers(0, 2**32, size=(N_SLICES, 32768), dtype=np.uint32), "cuda")
@@ -3560,10 +3948,21 @@ def main() -> int:
     k6_times = time_k6(ep, bp, rng56, hbm)
     k5_times = time_k5(ac, bp, tplan, rng56, hbm)
     k23_times = time_k2k3(te, it, tplan, bsi, hbm, np.random.default_rng(SEED + 6))
+    k11_times = time_k11(ss, floorprobe, hbm)
 
     with tempfile.TemporaryDirectory(prefix="pilosa-torch-smoke-") as data_dir:
-        srv = Server(data_dir, host="127.0.0.1:0", device="cuda")
+        # The stream-floor probe (K11) runs once in this process, at this
+        # node's open: its main path.
+        srv = Server(data_dir, host="127.0.0.1:0", device="cuda", stats=ExpvarStatsClient())
+        ss.launches = 0
         srv.open()
+        k11_launches = ss.launches
+        if k11_launches != floorprobe.WARMUP_ITERS + floorprobe.TIMED_ITERS:
+            raise AssertionError(f"phase 5: the floor probe launched stream_sum {k11_launches} "
+                                 f"times at open (want {floorprobe.WARMUP_ITERS} + "
+                                 f"{floorprobe.TIMED_ITERS})")
+        log(f"phase 5: the node's open probed the stream floor with {k11_launches} stream_sum "
+            f"launches: {json.dumps(floorprobe.probe(device='cuda'))}")
         try:
             served = serve_and_check(fp, ds, sp, te, bp, convert, srv, rng)
             planes = served.pop("planes")
@@ -3572,6 +3971,9 @@ def main() -> int:
             truth[col >> 20, 0, (col & 0xFFFFF) >> 5] |= np.uint32(1 << (col & 31))
             coalesced = coalesce_and_check(fp, te, it, srv, truth, np.random.default_rng(SEED + 14))
             del truth
+            observed = observe_and_check(srv, {"k2": te, "k3": it, "k4": sp, "k5": ac},
+                                         coalesced.pop("queries"), hbm,
+                                         np.random.default_rng(SEED + 16))
             clustered = cluster_and_check(
                 fp, ds, br, sp, te, scatter, convert, Server, InternalClient, planes, rng
             )
@@ -3761,6 +4163,21 @@ def main() -> int:
         "rle": {k: v for k, v in k6_times["rle"].items() if k != "library_ms"},
         "dense": {k: v for k, v in k6_times["dense"].items() if k != "library_ms"},
     })
+    kernels.append({
+        "name": ss.NAME,
+        "route": "cuda",
+        "source": ss.SOURCE,
+        "replaces": ss.REPLACES,
+        "launches": k11_launches,
+        "launches_by_phase": {"5": k11_launches},
+        "max_abs_err": k11_err,
+        "checked": k11_err == 0.0,
+        "shape": [k11_times["probe_bytes"] // 4],
+        **{k: k11_times[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "probe_gbps", "jax_size_gbps")},
+    })
+    log(f"phase 16 (summary): {json.dumps({k: v for k, v in observed.items() if k != 'sites'})}; "
+        f"cluster trace {json.dumps(clustered['trace'])}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -8,6 +8,9 @@
          --wal-segment-bytes N]
         [--coalesce true|false --coalesce-max-batch N --coalesce-max-wait-us US
          --fuse true|false --fuse-max-programs N] [--prewarm true|false]
+        [--metrics-service nop|expvar|statsd --metrics-host H:P]
+        [--slow-query-ms MS --trace-ring N --latency-buckets-ms 1,5,10
+         --slo-ms MS --slo-objective F --floor-probe true|false]
 
 runs one node until SIGINT/SIGTERM.  The device defaults to the CUDA
 card; ``--device cpu`` runs on the CPU.  The last flags name the JAX
@@ -15,8 +18,12 @@ package's ``[device]``, ``[ingest]`` and ``[exec]`` keys
 (``plane-format``, ``hbm-budget-bytes``, ``prefetch``, ``wal``,
 ``group-commit-ms``, ``group-commit-max``, ``wal-segment-bytes``,
 ``coalesce``, ``coalesce-max-batch``, ``coalesce-max-wait-us``,
-``fuse``, ``fuse-max-programs``) and ``[tpu] prewarm``, with their
-defaults.
+``fuse``, ``fuse-max-programs``), ``[tpu] prewarm``, ``[metrics]
+service`` / ``host`` and the ``[obs]`` keys (``slow-query-ms``,
+``trace-ring``, ``latency-buckets-ms``, ``slo-ms``, ``slo-objective``,
+``floor-probe``), with their defaults.  ``--metrics-service expvar``
+fills ``/debug/vars`` and ``/metrics``; ``statsd`` sends dogstatsd
+datagrams to ``--metrics-host`` (default 127.0.0.1:8125).
 
     python -m pilosa_tpu_torch.cli import --host H:P -i INDEX -f FRAME FILE.csv ...
 
@@ -59,6 +66,10 @@ def _bool(value: str) -> bool:
     if v in ("false", "0", "no", "off"):
         return False
     raise argparse.ArgumentTypeError(f"not a boolean: {value!r}")
+
+
+def _floats(value: str) -> list[float]:
+    return [float(v) for v in value.split(",") if v.strip()]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -104,6 +115,21 @@ def build_parser() -> argparse.ArgumentParser:
                      help="distinct trees at most in one interpreter launch")
     srv.add_argument("--prewarm", type=_bool, default=False,
                      help="build every kernel and launch each once at open")
+    # The JAX package's [metrics] and [obs] settings.
+    srv.add_argument("--metrics-service", default="nop", choices=("nop", "expvar", "statsd"),
+                     help="stats client: nop (default), expvar, statsd")
+    srv.add_argument("--metrics-host", default="", help="statsd host:port")
+    srv.add_argument("--slow-query-ms", type=float, default=0.0,
+                     help="log one structured line per query slower than this (0: off)")
+    srv.add_argument("--trace-ring", type=int, default=64,
+                     help="finished query traces kept for /debug/traces")
+    srv.add_argument("--latency-buckets-ms", type=_floats, default=None,
+                     help="upper bounds of the /metrics latency histograms, ms")
+    srv.add_argument("--slo-ms", type=float, default=0.0,
+                     help="query-latency SLO; > 0 adds the SLO burn gauges")
+    srv.add_argument("--slo-objective", type=float, default=0.999)
+    srv.add_argument("--floor-probe", type=_bool, default=True,
+                     help="measure the stream floor of /debug/perf at open")
     imp = sub.add_parser("import", help="bulk-import CSV bits (row,col[,timestamp])")
     imp.add_argument("--host", default="localhost:10101", help="host:port of a node")
     imp.add_argument("-i", "--index", required=True)
@@ -122,6 +148,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def run_server(args) -> int:
     from pilosa_tpu_torch.net.server import Server
+    from pilosa_tpu_torch.obs.stats import new_stats_client
 
     srv = Server(
         args.data_dir,
@@ -146,6 +173,13 @@ def run_server(args) -> int:
         fuse=args.fuse,
         fuse_max_programs=args.fuse_max_programs,
         prewarm=args.prewarm,
+        stats=new_stats_client(args.metrics_service, args.metrics_host),
+        slow_query_ms=args.slow_query_ms,
+        trace_ring=args.trace_ring,
+        latency_buckets_ms=args.latency_buckets_ms,
+        slo_ms=args.slo_ms,
+        slo_objective=args.slo_objective,
+        floor_probe=args.floor_probe,
     )
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):

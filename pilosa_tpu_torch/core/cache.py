@@ -24,6 +24,8 @@ from dataclasses import dataclass
 from collections.abc import Iterable
 from typing import Protocol
 
+from pilosa_tpu_torch.obs.stats import NopStatsClient
+
 # reference: cache.go:29-32
 DEFAULT_CACHE_SIZE = 50000
 THRESHOLD_FACTOR = 1.1
@@ -77,12 +79,15 @@ class LRUCache:
     def __init__(self, max_entries: int = DEFAULT_CACHE_SIZE):
         self.max_entries = max_entries or DEFAULT_CACHE_SIZE
         self._od: OrderedDict[int, int] = OrderedDict()
+        # Re-tagged by the owning fragment (index:/frame:/view:/slice:).
+        self.stats = NopStatsClient()
 
     def add(self, row_id: int, n: int) -> None:
         self._od[row_id] = n
         self._od.move_to_end(row_id)
         while len(self._od) > self.max_entries:
             self._od.popitem(last=False)
+            self.stats.count("cacheEvict")
 
     bulk_add = add
 
@@ -93,7 +98,9 @@ class LRUCache:
     def get(self, row_id: int) -> int:
         if row_id in self._od:
             self._od.move_to_end(row_id)
+            self.stats.count("cacheHit")
             return self._od[row_id]
+        self.stats.count("cacheMiss")
         return 0
 
     def len(self) -> int:
@@ -143,6 +150,8 @@ class RankCache:
         self._updated_at = 0.0
         self._stale = True
         self.threshold_value = 0
+        # Re-tagged by the owning fragment (index:/frame:/view:/slice:).
+        self.stats = NopStatsClient()
 
     def add(self, row_id: int, n: int) -> None:
         # Reject values below the established floor unless already present
@@ -181,7 +190,12 @@ class RankCache:
             self._prune()
 
     def get(self, row_id: int) -> int:
-        return self.entries.get(row_id, 0)
+        n = self.entries.get(row_id)
+        if n is None:
+            self.stats.count("cacheMiss")
+            return 0
+        self.stats.count("cacheHit")
+        return n
 
     def len(self) -> int:
         return len(self.entries)
@@ -242,7 +256,10 @@ class RankCache:
         ids = np.fromiter(self.entries.keys(), np.int64, len(self.entries))
         cnts = np.fromiter(self.entries.values(), np.int64, len(self.entries))
         keep = np.lexsort((ids, -cnts))[: self.max_entries]  # sort_pairs' order
+        dropped = len(ids) - len(keep)
         self.entries = dict(zip(ids[keep].tolist(), cnts[keep].tolist()))
+        if dropped > 0:
+            self.stats.count("cacheEvict", dropped)
         if len(keep) == self.max_entries and len(keep):
             self.threshold_value = int(cnts[keep[-1]])
         self._stale = True

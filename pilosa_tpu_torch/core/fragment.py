@@ -98,6 +98,7 @@ import json
 import os
 import sys
 import threading
+import time
 from collections import OrderedDict
 from collections.abc import Sequence
 from dataclasses import dataclass
@@ -111,6 +112,7 @@ from pilosa_tpu_torch.core import cache as cache_mod
 from pilosa_tpu_torch.core.bitmap import RowBitmap
 from pilosa_tpu_torch.core.cache import Pair
 from pilosa_tpu_torch.ingest import recovery, scatter, wal
+from pilosa_tpu_torch.obs.stats import NopStatsClient
 from pilosa_tpu_torch.ops import bitplane as bp
 from pilosa_tpu_torch.ops import expand_payload, roaring, score_planes
 
@@ -357,6 +359,10 @@ class Fragment:
         self.max_op_n = max_op_n
         self.dense_row_budget = DENSE_ROW_BUDGET if dense_row_budget is None else dense_row_budget
         self.row_attr_store = None  # wired by View
+        # Tagged by View._new_fragment (index, frame, view, slice); the
+        # JAX package's counter names (reference: fragment.go:418-969).
+        self.stats = NopStatsClient()
+        self._max_row_id: int | None = None  # for the "rows" gauge, lazily
         # Residency-pool keys (device/pool.py): the plane mirror and the
         # paged sparse payloads are accounted apart.
         self._serial = next(_fragment_serials)
@@ -470,6 +476,7 @@ class Fragment:
         self._file.flush()
         os.fsync(self._file.fileno())
         _count("oplogRepair")
+        self.stats.count("oplogRepair")
         _log(f"{self.path}: repaired torn op-log tail ({reason}); dropped "
              f"{len(data) - valid_end} uncommitted bytes")
         return decoded
@@ -1064,7 +1071,16 @@ class Fragment:
             self._append_op(typ, pos)
             self._after_write(row_id, 1 if add else -1)
             if add:
+                self.stats.count("setBit")  # reference: fragment.go:418
+                if self._max_row_id is None:
+                    self._max_row_id = max(self._count_of, default=-1)
+                if row_id > self._max_row_id:
+                    # reference: fragment.go:421-423
+                    self._max_row_id = row_id
+                    self.stats.gauge("rows", float(row_id))
                 self._maybe_promote(row_id)
+            else:
+                self.stats.count("clearBit")  # reference: fragment.go:470
             return True
 
     def _sparse_write(self, row_id: int, offset: int, add: bool) -> bool:
@@ -1222,6 +1238,7 @@ class Fragment:
             self._changed_locked()
             for r in slot_of:
                 self._maybe_promote(r)
+            self.stats.count("ImportBit", len(row_ids))  # reference: fragment.go:969
             self.snapshot()
 
     def install_plane(self, plane: np.ndarray) -> None:
@@ -1273,6 +1290,7 @@ class Fragment:
             self._sparse_dev.clear()
             self._sync_sparse_pool_locked()
             self.cache = cache_mod.new_cache(self.cache_type, self.cache_size)
+            self.cache.stats = self.stats
             self._invalidate_device()
             self._recount({**self._slot_of, **{r: None for r in self._sparse}},
                           {s: counts[r] for r, s in self._slot_of.items()})
@@ -1322,6 +1340,7 @@ class Fragment:
         file; resets the op count (reference: fragment.go:1032-1074) and
         restarts the WAL segment (JAX ``core/fragment.py:1891``)."""
         with self._mu:
+            t0 = time.perf_counter()
             # Buffered ops are in the serialized state below.
             self._op_buf.clear()
             data = roaring.encode_tiered(*self._containers())
@@ -1344,6 +1363,8 @@ class Fragment:
                 # The snapshot holds every op the segment covers; its
                 # size names the snapshot the new segment is cut against.
                 self._wal.truncate_segment(len(data))
+            # reference: fragment.go:1026-1030
+            self.stats.histogram("snapshot", time.perf_counter() - t0)
 
     def _containers(self) -> tuple[dict[int, np.ndarray], dict[int, np.ndarray]]:
         """Both tiers as roaring containers (JAX ``_containers_packed``,

@@ -40,6 +40,7 @@ from pilosa_tpu_torch.core.view import (
     is_inverse_view,
     is_valid_view,
 )
+from pilosa_tpu_torch.obs.stats import NopStatsClient
 from pilosa_tpu_torch.ops.bitplane import SLICE_WIDTH, np_group_by
 
 # reference: frame.go:40-46
@@ -61,6 +62,7 @@ class Frame:
         self.index = index
         self.name = name
         self.device = device_mod.resolve(device)
+        self.stats = NopStatsClient()  # re-tagged by its parent
         self._mu = threading.RLock()
         self._views: dict[str, View] = {}
         self.row_label = DEFAULT_ROW_LABEL
@@ -184,7 +186,7 @@ class Frame:
     # --- views (reference: frame.go:336-395) ---
 
     def _new_view(self, name: str) -> View:
-        return View(
+        view = View(
             os.path.join(self.path, "views", name),
             self.index,
             self.name,
@@ -195,6 +197,8 @@ class Frame:
             row_attr_store=self.row_attr_store,
             on_create_slice=self.on_create_slice,
         )
+        view.stats = self.stats.with_tags(f"view:{name}")
+        return view
 
     def view(self, name: str) -> View | None:
         with self._mu:

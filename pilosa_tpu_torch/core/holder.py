@@ -31,6 +31,7 @@ from pilosa_tpu_torch.core.frame import Frame
 from pilosa_tpu_torch.core.index import Index
 from pilosa_tpu_torch.core.names import ValidationError
 from pilosa_tpu_torch.core.view import View
+from pilosa_tpu_torch.obs.stats import NopStatsClient
 
 
 class Holder:
@@ -40,6 +41,10 @@ class Holder:
         self._mu = threading.RLock()
         self._indexes: dict[str, Index] = {}
         self.on_create_slice = None  # wired by the server before open()
+        # Tag-qualified stats chain down the storage hierarchy (JAX
+        # ``holder.py:34-39``): index:<n>, frame:<n>, view:<n>, slice:<n>.
+        # The server sets its client here before open().
+        self.stats = NopStatsClient()
 
     # --- lifecycle ---
 
@@ -75,6 +80,7 @@ class Holder:
     def _new_index(self, name: str) -> Index:
         index = Index(os.path.join(self.path, name), name, device=self.device)
         index.on_create_slice = self.on_create_slice
+        index.stats = self.stats.with_tags(f"index:{name}")
         return index
 
     def index(self, name: str) -> Index | None:
@@ -226,16 +232,30 @@ class Holder:
         except (OSError, ValueError):
             return []
 
-    def stage_device_mirrors(self, prefetcher, budget_bytes: int | None = None):
+    def stage_device_mirrors(self, prefetcher, budget_bytes: int | None = None, tracer=None):
         """Stage fragment mirrors in the BACKGROUND and return the
         prefetcher's ``StageJob`` at once: the node serves meanwhile, and
         a query's own prefetch jumps this backlog.  Order: the previous
         run's residency table, most recently used first, then every
         other fragment that fits the budget, largest planes first.  (The
         JAX package puts the slices its gossip peers report hot first;
-        the port has no gossip.)"""
+        the port has no gossip.)  With a ``tracer``, a root ``staging``
+        trace spans the whole drain and is finalized, with the job's
+        outcome, when it completes (JAX ``holder.py:319``)."""
         frags = self._budgeted_fragments(budget_bytes)
         by_key = {self.fragment_key(f): f for f in frags}
         prev = [k for k in reversed(self.load_residency()) if k in by_key]
         ordered = [by_key[k] for k in dict.fromkeys(prev + list(by_key))]
-        return prefetcher.stage(ordered)
+        job = prefetcher.stage(ordered)
+        if tracer is not None:
+            root = tracer.start_trace(
+                "staging", fragments=len(ordered), hot=0, from_residency_table=len(prev)
+            )
+
+            def _finish():
+                job.wait()
+                root.annotate(**job.snapshot())
+                tracer.finish_root(root)
+
+            threading.Thread(target=_finish, daemon=True, name="staging-trace").start()
+        return job

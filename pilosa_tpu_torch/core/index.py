@@ -20,6 +20,7 @@ from pilosa_tpu_torch.core import timequantum as tq
 from pilosa_tpu_torch.core.attr import AttrStore
 from pilosa_tpu_torch.core.frame import Frame
 from pilosa_tpu_torch.core.names import ValidationError, validate_label, validate_name
+from pilosa_tpu_torch.obs.stats import NopStatsClient
 
 # reference: index.go:33-35
 DEFAULT_COLUMN_LABEL = "columnID"
@@ -35,6 +36,7 @@ class Index:
         self.path = path
         self.name = name
         self.device = device_mod.resolve(device)
+        self.stats = NopStatsClient()  # re-tagged by its parent
         self._mu = threading.RLock()
         self._frames: dict[str, Frame] = {}
         self.column_label = DEFAULT_COLUMN_LABEL
@@ -113,6 +115,7 @@ class Index:
     def _new_frame(self, name: str) -> Frame:
         frame = Frame(os.path.join(self.path, name), self.name, name, device=self.device)
         frame.on_create_slice = self.on_create_slice
+        frame.stats = self.stats.with_tags(f"frame:{name}")
         return frame
 
     def frame(self, name: str) -> Frame | None:
@@ -169,7 +172,9 @@ class Index:
     def max_slice(self) -> int:
         with self._mu:
             local = max((f.max_slice() for f in self._frames.values()), default=0)
-            return max(local, self.remote_max_slice)
+            m = max(local, self.remote_max_slice)
+            self.stats.gauge("maxSlice", float(m))  # reference: index.go:264
+            return m
 
     def set_remote_max_slice(self, n: int) -> None:
         with self._mu:

@@ -23,6 +23,7 @@ from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch.core import cache as cache_mod
 from pilosa_tpu_torch.core import fragment as fragment_mod
 from pilosa_tpu_torch.core.fragment import Fragment
+from pilosa_tpu_torch.obs.stats import NopStatsClient
 from pilosa_tpu_torch.ops.bitplane import SLICE_WIDTH
 
 VIEW_STANDARD = "standard"
@@ -58,6 +59,7 @@ class View:
         self.frame = frame
         self.name = name
         self.device = device_mod.resolve(device)
+        self.stats = NopStatsClient()  # re-tagged by its parent
         self.cache_type = cache_type
         self.cache_size = cache_size
         self.row_attr_store = row_attr_store
@@ -108,6 +110,8 @@ class View:
             dense_row_budget=budget,
         )
         frag.row_attr_store = self.row_attr_store
+        frag.stats = self.stats.with_tags(f"slice:{slice_i}")
+        frag.cache.stats = frag.stats  # hit/miss/evict counters
         return frag
 
     # --- accessors ---

@@ -52,8 +52,13 @@ Budget, per device: an explicit positive ``configure`` value, else the
 (``torch.cuda.mem_get_info``), else unbounded — which is what a CPU
 device gets, so tests never evict unless they set a budget.
 
-The JAX package's stats client and tracer are not ported: the counters
-live in the pool and :meth:`snapshot` reports them (``GET /debug/hbm``).
+The counters live in the pool and :meth:`snapshot` reports them (``GET
+/debug/hbm``); with a stats client and a tracer (``configure``, as the
+server does) the pool also emits the JAX package's ``device.evictions``,
+``device.evictSkipped``, ``device.overBudget``, ``device.prefetch.*``,
+``device.stage.*`` and ``device.pool.restageBytes`` counters and the
+``device.residentBytes`` / ``device.cacheBytes`` gauges, always after its
+lock is released, and an ``evict`` span around an admission's evictions.
 """
 
 from __future__ import annotations
@@ -65,6 +70,9 @@ from collections.abc import Callable
 from dataclasses import dataclass, field
 
 import torch
+
+from pilosa_tpu_torch.obs import trace
+from pilosa_tpu_torch.obs.stats import NopStatsClient
 
 # Detected budget = this fraction of the device's memory: headroom for
 # launch outputs, scratch and the caching allocator's rounding, none of
@@ -99,7 +107,7 @@ class PlanePool:
     tensors.  Thread-safe; one instance serves the process
     (``pilosa_tpu_torch.device.pool()``)."""
 
-    def __init__(self, budget_bytes: int = 0):
+    def __init__(self, budget_bytes: int = 0, stats=None, tracer=None):
         # Reentrant: evict callbacks may call remove()/resize() back into
         # the pool from under _mu.
         self._mu = threading.RLock()
@@ -129,16 +137,25 @@ class PlanePool:
         self._detected: dict = {}
         # The open pin leases of each thread, outermost first.
         self._leases = threading.local()
+        self.stats = stats or NopStatsClient()
+        self.tracer = tracer or trace.NOP_TRACER
+        self._dev_stats: dict = {}  # device -> tagged stats child
 
     # ------------------------------------------------------------------
     # configuration / budget
     # ------------------------------------------------------------------
 
-    def configure(self, budget_bytes: int | None = None) -> None:
-        """Server wiring: the budget from its settings (0 = auto)."""
+    def configure(self, budget_bytes: int | None = None, stats=None, tracer=None) -> None:
+        """Server wiring: the budget from its settings (0 = auto), and the
+        stats client and tracer (None keeps the current ones)."""
         with self._mu:
             if budget_bytes is not None:
                 self._budget = int(budget_bytes)
+            if stats is not None:
+                self.stats = stats
+                self._dev_stats = {}
+            if tracer is not None:
+                self.tracer = tracer
 
     def budget_bytes(self, dev=None) -> int:
         """The effective budget of device ``dev`` (the current CUDA
@@ -186,6 +203,10 @@ class PlanePool:
         failed upload call :meth:`remove`.  Re-admission keeps pins."""
         need = {d: int(n) for d, n in bytes_by_device.items() if n}
         budgets = {d: self.budget_bytes(d) for d in need}
+        # Stats go out after the critical section: a stats backend must
+        # never lengthen the pool lock's hold.
+        n_ev = n_skip = 0
+        over_budget = False
         with self._mu:
             # A re-admitted entry keeps its identity (and so its pins and
             # the leases that hold them); it moves to the MRU end.
@@ -193,7 +214,9 @@ class PlanePool:
             if ent is not None:
                 self._debit(ent)
             if any(b and self._resident.get(d, 0) + need[d] > b for d, b in budgets.items()):
-                n_ev, _ = self._evict_for_locked(need, budgets, key)
+                with self.tracer.span("evict", trigger=category) as sp:
+                    n_ev, n_skip = self._evict_for_locked(need, budgets, key)
+                    sp.annotate(evicted=n_ev)
                 self._evictions += n_ev
             if ent is None:
                 ent = _Entry(key=key, bytes_by_device=need, evict=evict, category=category,
@@ -211,6 +234,38 @@ class PlanePool:
                 # owner busy): correctness before the budget, but the
                 # breach is counted.
                 self._over_budget += 1
+                over_budget = True
+            gauges = self._gauges_locked(need)
+        self._emit_evictions(n_ev, n_skip, over_budget)
+        self._publish(gauges)
+
+    def _emit_evictions(self, n_ev: int, n_skip: int, over_budget: bool = False) -> None:
+        if n_ev:
+            self.stats.count("device.evictions", n_ev)
+        if n_skip:
+            self.stats.count("device.evictSkipped", n_skip)
+        if over_budget:
+            self.stats.count("device.overBudget")
+
+    def _dev_stat(self, dev):
+        # Outside _mu; a racing create stores two equal children — benign.
+        c = self._dev_stats.get(dev)
+        if c is None:
+            c = self.stats.with_tags(f"device:{_device_label(dev)}")
+            self._dev_stats[dev] = c
+        return c
+
+    def _gauges_locked(self, devices) -> list:
+        """The gauge values for ``devices``, read under ``_mu`` and
+        published by :meth:`_publish` after it is released."""
+        out = [(d, "device.residentBytes", float(self._resident.get(d, 0))) for d in devices]
+        out.append((None, "device.cacheBytes", float(self._cat_bytes.get("cache", 0))))
+        return out
+
+    def _publish(self, gauges) -> None:
+        for dev, name, value in gauges:
+            client = self.stats if dev is None else self._dev_stat(dev)
+            client.gauge(name, value)
 
     def touch(self, key: tuple) -> None:
         with self._mu:
@@ -368,12 +423,15 @@ class PlanePool:
         with self._mu:
             devs = list(self._resident)
         budgets = {d: self.budget_bytes(d) for d in devs}
-        n = 0
+        n = skipped = 0
         with self._mu:
             for d, b in budgets.items():
                 if b and self._resident.get(d, 0) > b:
-                    n += self._evict_for_locked({d: 0}, {d: b}, exclude_key)[0]
+                    ev, sk = self._evict_for_locked({d: 0}, {d: b}, exclude_key)
+                    n += ev
+                    skipped += sk
             self._evictions += n
+        self._emit_evictions(n, skipped)
         return n
 
     # ------------------------------------------------------------------
@@ -440,6 +498,10 @@ class PlanePool:
         with self._mu:
             self._prefetch_hits += hit
             self._prefetch_misses += miss
+        if hit:
+            self.stats.count("device.prefetch.hit", hit)
+        if miss:
+            self.stats.count("device.prefetch.miss", miss)
 
     def count_stage(self, scheduled: int = 0, done: int = 0, errors: int = 0,
                     nbytes: int = 0, last_error: str | None = None) -> None:
@@ -450,12 +512,18 @@ class PlanePool:
             self._stage_bytes += nbytes
             if last_error is not None:
                 self._stage_last_error = str(last_error)
+        for name, n in (("scheduled", scheduled), ("done", done), ("errors", errors),
+                        ("bytes", nbytes)):
+            if n:
+                self.stats.count(f"device.stage.{name}", n)
 
     def count_restage(self, nbytes: int) -> None:
         """One full plane upload through ``Fragment.device_plane``."""
         with self._mu:
             self._restage_uploads += 1
             self._restage_bytes += int(nbytes)
+        if nbytes:
+            self.stats.count("device.pool.restageBytes", int(nbytes))
 
     # ------------------------------------------------------------------
     # introspection

@@ -42,9 +42,14 @@ Batch construction, per drained key:
 The waiter keeps its pin lease of the residency pool open until its
 future resolves (``Executor._coalesce_eval``), so every mirror a table
 names stays pinned through the launch; the table itself holds the
-tensors whose rows it names.  The JAX scheduler's stats client, perf
-records, health watchdog and sharded-batch rules are not ported (one
-card, no mesh): ``snapshot()`` carries its counters.
+tensors whose rows it names.  ``snapshot()`` carries the scheduler's
+counters; a stats client gets the JAX package's ``exec.coalesce.*`` and
+``exec.interp.*`` counts, and every launch records into the launch
+telemetry (``obs/perf.py``) as ``total``, ``coalesce``, ``interp`` or
+``fetch``, with the trace id its first waiter had at submit time (the
+dispatcher thread runs outside the queries' contexts).  The JAX
+scheduler's health watchdog and sharded-batch rules are not ported (one
+card, no mesh).
 """
 
 from __future__ import annotations
@@ -59,6 +64,9 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.exec import plan
+from pilosa_tpu_torch.obs import perf as perf_mod
+from pilosa_tpu_torch.obs.stats import NopStatsClient
+from pilosa_tpu_torch.ops.bitplane import WORDS_PER_SLICE
 from pilosa_tpu_torch.ops.tree_eval import RowTable
 
 DEFAULT_MAX_BATCH = 64
@@ -109,6 +117,9 @@ class _Item:
     # One per table column: equal keys <=> the same rows (the same
     # addresses).  None: no identities known (columns stay unique).
     leaf_keys: "tuple | None" = None
+    # The submitting query's trace id (the launch telemetry's slowest-
+    # launch attribution).
+    trace_id: str = ""
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -130,7 +141,9 @@ class CoalesceScheduler:
         max_wait_us: int = DEFAULT_MAX_WAIT_US,
         fuse: bool = True,
         fuse_max_programs: int = DEFAULT_FUSE_MAX_PROGRAMS,
+        stats=None,
     ):
+        self.stats = stats or NopStatsClient()
         self.max_batch = max(1, int(max_batch))
         self.max_wait_us = max(0, int(max_wait_us))
         self.fuse = bool(fuse) and int(fuse_max_programs) >= 2
@@ -169,7 +182,8 @@ class CoalesceScheduler:
         key = (expr, reduce, tuple(batch.shape[1:]), str(batch.device))
         if leaf_keys is not None and len(leaf_keys) != batch.shape[1]:
             leaf_keys = None
-        item = _Item(batch=batch, future=Future(), leaf_keys=leaf_keys)
+        item = _Item(batch=batch, future=Future(), leaf_keys=leaf_keys,
+                     trace_id=perf_mod.current_trace_id())
         self._enqueue(key, item)
         return item.future
 
@@ -177,7 +191,7 @@ class CoalesceScheduler:
         """Enqueue a device-to-host fetch of ``arrays`` (tensors); resolves
         to ``(host numpy arrays, info)``.  Every fetch pending at a drain
         shares one stream synchronisation."""
-        item = _Item(batch=list(arrays), future=Future())
+        item = _Item(batch=list(arrays), future=Future(), trace_id=perf_mod.current_trace_id())
         self._enqueue(_FETCH_KEY, item)
         return item.future
 
@@ -353,16 +367,42 @@ class CoalesceScheduler:
             self._queries += n_queries
             self._launched_rows += rows
             self._max_occupancy = max(self._max_occupancy, n_queries)
-            return self._launches
+            n = self._launches
+        self.stats.count("exec.coalesce.launches")
+        self.stats.count("exec.coalesce.coalescedQueries", n_queries)
+        self.stats.histogram("exec.coalesce.batchOccupancy", float(n_queries))
+        return n
+
+    @staticmethod
+    def _record(site: str, reduce: str, items: list, rows: int, leaves: int,
+                t0: float, t_disp: float, t1: float) -> None:
+        """Launch telemetry: ``rows`` slices x ``leaves`` rows of plane
+        bytes; ``t1`` is ``t0`` where the result stays on the card (the
+        launch's time is not observed without a synchronize)."""
+        if perf_mod.enabled():
+            perf_mod.record_launch(
+                site,
+                reduce=reduce,
+                queries=len(items),
+                rows=rows,
+                n_bytes=perf_mod.plane_bytes(rows, leaves * WORDS_PER_SLICE),
+                dispatch_ms=(t_disp - t0) * 1e3,
+                total_ms=(t1 - t0) * 1e3,
+                trace_id=items[0].trace_id if items else "",
+            )
 
     def _launch_total(self, expr, items: list) -> None:
         """One identity-deduped table through K2's "total" reduce: every
         waiter receives the same int."""
         table = items[0].batch
         t0 = time.monotonic()
-        res = int(_to_host(plan.tree_eval(expr, "total", table))[0])
-        launch_ms = (time.monotonic() - t0) * 1e3
+        out = plan.tree_eval(expr, "total", table)
+        t_disp = time.monotonic()
+        res = int(_to_host(out)[0])
+        t1 = time.monotonic()
+        launch_ms = (t1 - t0) * 1e3
         rows = table.shape[0]
+        self._record("total", "total", items, rows, table.shape[1], t0, t_disp, t1)
         info = {
             "launch": self._count(len(items), rows),
             "total": True,
@@ -404,9 +444,13 @@ class CoalesceScheduler:
         table = segs[0] if len(segs) == 1 else RowTable.concat_slices(segs)
         t0 = time.monotonic()
         out = plan.tree_eval(expr, reduce, table)
+        t_disp = time.monotonic()
         res = _to_host(out) if reduce == "count" else out
-        launch_ms = (time.monotonic() - t0) * 1e3
+        t1 = time.monotonic()
+        launch_ms = (t1 - t0) * 1e3
         total = sum(n_rows)
+        self._record("coalesce", reduce, items, total, table.shape[1], t0, t_disp,
+                     t1 if reduce == "count" else t0)
         info = {
             "launch": self._count(len(items), total),
             "batch_queries": len(items),
@@ -444,6 +488,7 @@ class CoalesceScheduler:
         for key, its in fallback.items():
             with self._mu:
                 self._fuse_fallbacks += len(its)
+            self.stats.count("exec.interp.fallbacks", len(its))
             self._fallback_launch(key, its)
 
     def _launch_interp(self, reduce, n_rows: int, pairs: list) -> None:
@@ -539,8 +584,13 @@ class CoalesceScheduler:
             pos_of_reg = {r: i for i, r in enumerate(out_regs)}
             t0 = time.monotonic()
             out = plan.interp_exec(reduce, combined, prog, np.asarray(out_regs, dtype=np.int32))
+            t_disp = time.monotonic()
             res = out if reduce == "row" else _to_host(out)
-            launch_ms = (time.monotonic() - t0) * 1e3
+            t1 = time.monotonic()
+            launch_ms = (t1 - t0) * 1e3
+            # Logical bytes: the deduped union leaf set, streamed once.
+            self._record("interp", reduce, [it for _k, it, _r in fused], n_rows, l_union,
+                         t0, t_disp, t0 if reduce == "row" else t1)
             launch_n = self._count(len(fused), n_rows)
             with self._mu:
                 self._fused_launches += 1
@@ -549,6 +599,11 @@ class CoalesceScheduler:
                 self._fused_ops += len(prog)
                 self._fuse_dedup_hits += em.dedup_hits
                 self._fuse_shared_leaves += l_tot - l_union
+            self.stats.count("exec.interp.launches")
+            self.stats.count("exec.interp.fusedQueries", len(fused))
+            self.stats.histogram("exec.interp.opsPerLaunch", float(len(prog)))
+            if l_tot > l_union:
+                self.stats.count("exec.interp.sharedLeaves", l_tot - l_union)
             info = {
                 "launch": launch_n,
                 "fused": True,
@@ -583,10 +638,18 @@ class CoalesceScheduler:
             torch.cuda.current_stream(dev).synchronize()
         fetched = [o.numpy() for o in outs]
         fetch_ms = (time.monotonic() - t0) * 1e3
+        if perf_mod.enabled():
+            perf_mod.record_launch(
+                "fetch", reduce="fetch", queries=len(items),
+                n_bytes=sum(int(a.nbytes) for a in fetched), total_ms=fetch_ms,
+                trace_id=items[0].trace_id,
+            )
         with self._mu:
             self._fetch_launches += 1
             self._fetch_arrays += len(arrays)
             n = self._fetch_launches
+        self.stats.count("exec.interp.fetchLaunches")
+        self.stats.count("exec.interp.fetchedArrays", len(arrays))
         info = {
             "fetch_launch": n,
             "fetch_items": len(items),

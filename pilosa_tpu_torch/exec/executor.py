@@ -71,14 +71,34 @@ its launches are enqueued and their results fetched.  ``SetBit`` and
 thread's writes durable (``_wait_durable``), outside every fragment
 lock; a remote leg waits on its own node before it answers.
 
-Replication quorums, attribute writes and the folded-TopN prep cache of
-the JAX executor are not ported yet.
+Attribute writes (JAX ``executor.py:3139-3218``): ``SetRowAttrs`` and
+``SetColumnAttrs`` write the frame's row or the index's column attribute
+store and then reach every other node as the same query with ``Remote``
+set; a query made only of ``SetRowAttrs`` writes each frame's rows in one
+bulk call.
+
+Observability (JAX ``executor.py:543-3446``): with a tracer, a query's
+trace gets ``call.<name>``, ``prefetch``, ``plan``, ``exec.device``,
+``coalesce`` (and ``fuse``), ``topn.*``, ``ingest`` and ``rpc.execute``
+spans (the rpc span's ids travel to the peer, whose spans come back into
+this trace); every kernel launch site records into the launch telemetry
+(``obs/perf.py``) under the JAX site names — ``direct``, ``total``,
+``topn``, ``anchored`` here, ``coalesce``, ``interp`` and ``fetch`` in the
+coalescer — timed from before the launch to the end of the host copy that
+already waits for its result; no site adds a synchronize.  Map legs run on
+the executor's pool inside a copy of the submitting context, so their
+spans join the query's trace.
+
+Replication quorums and the folded-TopN prep cache of the JAX executor
+are not ported yet.
 """
 
 from __future__ import annotations
 
+import contextvars
 import functools
 import threading
+import time
 import weakref
 from collections import OrderedDict
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
@@ -103,6 +123,8 @@ from pilosa_tpu_torch.core.view import VIEW_INVERSE, VIEW_STANDARD
 from pilosa_tpu_torch.exec import coalesce as coalesce_mod
 from pilosa_tpu_torch.exec import plan
 from pilosa_tpu_torch.net.client import is_node_failure
+from pilosa_tpu_torch.obs import perf as perf_mod
+from pilosa_tpu_torch.obs import trace
 from pilosa_tpu_torch.ops import bitplane as bp
 from pilosa_tpu_torch.ops import bsi_ripple, expand_payload, score_planes
 from pilosa_tpu_torch.ops.tree_eval import RowTable
@@ -254,8 +276,11 @@ class Executor:
         prefetcher=None,
         ingest=None,
         coalescer=None,
+        tracer=None,
     ):
         self.holder = holder
+        # Query-path spans (obs/trace.py); the server wires its tracer.
+        self.tracer = tracer or trace.NOP_TRACER
         # The cross-query scheduler (exec/coalesce.py) the Count and Bitmap
         # routes and the TopN score fetch go through; None launches directly.
         self.coalescer = coalescer
@@ -303,6 +328,13 @@ class Executor:
             and q.write_call_n() > self.max_writes_per_request
         ):
             raise TooManyWritesError()
+        # The cost-class mix the executor saw (JAX executor.py:517).
+        self.holder.stats.count_with_custom_tags(
+            "exec.class", 1, [f"class:{plan.cost_class(q.calls)}"]
+        )
+        # Bulk attribute-insert path (reference: executor.go:119-122).
+        if q.calls and all(c.name == "SetRowAttrs" for c in q.calls):
+            return self._execute_bulk_set_row_attrs(index, q.calls, opt)
         slices = list(slices) if slices else []
         inverse_slices: list[int] = []
         computed_lists = False
@@ -329,7 +361,8 @@ class Executor:
                     raise FrameNotFoundError()
                 if call.is_inverse(f.row_label, column_label):
                     call_slices = inverse_slices
-            results.append(self._execute_call(index, call, call_slices, opt))
+            with self.tracer.span(f"call.{call.name}", index=index):
+                results.append(self._execute_call(index, call, call_slices, opt))
         return results
 
     def _prefetch_query(self, index: str, calls, slices: list[int]) -> None:
@@ -386,7 +419,8 @@ class Executor:
         except Exception:  # noqa: BLE001 — a prefetch must never fail a query
             return
         if frags:
-            self.prefetcher.prefetch(frags)
+            with self.tracer.span("prefetch", fragments=len(frags)):
+                self.prefetcher.prefetch(frags)
 
     # ------------------------------------------------------------------
     # dispatch (reference: executor.go:156-182)
@@ -398,8 +432,15 @@ class Executor:
             return self._execute_clear_bit(index, c, opt)
         if name == "SetBit":
             return self._execute_set_bit(index, c, opt)
-        if name in ("SetRowAttrs", "SetColumnAttrs"):
-            raise ExecutorError(f"{name}() is not supported by this port yet")
+        if name == "SetRowAttrs":
+            self._execute_set_row_attrs(index, c, opt)
+            return None
+        if name == "SetColumnAttrs":
+            self._execute_set_column_attrs(index, c, opt)
+            return None
+        # Read calls count per call name with the index tag (reference:
+        # executor.go:163-181).
+        self.holder.stats.count_with_custom_tags(name, 1, [f"index:{index}"])
         if name == "Count":
             return self._execute_count(index, c, slices, opt)
         if name == "TopN":
@@ -818,7 +859,13 @@ class Executor:
                 res = self._coalesce_eval(ent, table, "count")
                 if res is not None:
                     return int(np.asarray(res).sum(dtype=np.int64))
-            return int(plan.tree_eval(expr, "total", table).cpu()[0])
+            with self._device_span("total"):
+                t0 = time.monotonic()
+                out = plan.tree_eval(expr, "total", table)
+                t_disp = time.monotonic()
+                n = int(out.cpu()[0])
+                self._record_direct_launch(table, "total", t0, t_disp, time.monotonic(), "total")
+            return n
 
     def _eval_tree_slices(self, index: str, c: Call, expr: tuple, leaves: list[Call],
                           slices: list[int], reduce: str):
@@ -836,7 +883,37 @@ class Executor:
                 res = self._coalesce_eval(ent, table, reduce)
                 if res is not None:
                     return ent.kept, res
-            return ent.kept, plan.tree_eval(expr, reduce, table)
+            with self._device_span(reduce):
+                t0 = time.monotonic()
+                out = plan.tree_eval(expr, reduce, table)
+                # The result rows stay on the card: nothing waits for the
+                # launch here, so its time is not observed (total_ms 0).
+                self._record_direct_launch(table, reduce, t0, time.monotonic(), t0)
+            return ent.kept, out
+
+    def _device_span(self, reduce: str):
+        """The ``exec.device`` span of a direct launch (JAX
+        ``executor.py:1402``).  The port builds each kernel once per
+        process, so every launch is warm."""
+        return self.tracer.span("exec.device", reduce=reduce, warm=True)
+
+    @staticmethod
+    def _record_direct_launch(table: RowTable, reduce: str, t0, t_disp, t1,
+                              site: str = "direct") -> None:
+        """Launch telemetry of an uncoalesced K2 launch (JAX
+        ``executor.py:1408``): the table's slices x leaves x words."""
+        if not perf_mod.enabled():
+            return
+        rows, leaves, words = table.shape
+        perf_mod.record_launch(
+            site,
+            reduce=reduce,
+            rows=rows,
+            n_bytes=perf_mod.plane_bytes(rows, leaves * words),
+            dispatch_ms=(t_disp - t0) * 1e3,
+            total_ms=(t1 - t0) * 1e3,
+            trace_id=perf_mod.current_trace_id(),
+        )
 
     def _coalesce_eval(self, ent: _BatchEntry, table: RowTable, reduce: str):
         """One cached batch through the coalescing scheduler (JAX
@@ -845,15 +922,25 @@ class Executor:
         The caller's pin lease stays open until the future resolves.  A
         waiter that times out detaches; the launch still serves the
         others."""
-        try:
-            fut = self.coalescer.submit(ent.expr, reduce, table, leaf_keys=ent.leaf_keys)
-        except coalesce_mod.CoalesceClosed:
-            return None
-        try:
-            res, _info = fut.result(timeout=coalesce_mod.RESULT_TIMEOUT_S)
-        except FuturesTimeoutError:
-            fut.add_done_callback(coalesce_mod.consume_abandoned())
-            raise
+        with self.tracer.span("coalesce", reduce=reduce, warm=True) as sp:
+            try:
+                fut = self.coalescer.submit(ent.expr, reduce, table, leaf_keys=ent.leaf_keys)
+            except coalesce_mod.CoalesceClosed:
+                sp.annotate(fallback="closed")
+                return None
+            try:
+                res, info = fut.result(timeout=coalesce_mod.RESULT_TIMEOUT_S)
+            except FuturesTimeoutError:
+                fut.add_done_callback(coalesce_mod.consume_abandoned(self.holder.stats))
+                raise
+            sp.annotate(**info)
+            if info.get("fused"):
+                # This query rode a multi-query interpreter launch: its
+                # composition lands in the trace (JAX executor.py:1503).
+                keys = ("batch_queries", "programs", "ops", "dedup_hits", "batch_rows",
+                        "pad_leaves")
+                with self.tracer.span("fuse", **{k: info[k] for k in keys if k in info}):
+                    pass
         return res
 
     def _shared_fetch(self, arrays: list) -> list:
@@ -871,7 +958,7 @@ class Executor:
                 try:
                     res, _info = fut.result(timeout=coalesce_mod.RESULT_TIMEOUT_S)
                 except FuturesTimeoutError:
-                    fut.add_done_callback(coalesce_mod.consume_abandoned())
+                    fut.add_done_callback(coalesce_mod.consume_abandoned(self.holder.stats))
                     raise
                 return res
         return [a.cpu().numpy() for a in arrays]
@@ -908,6 +995,10 @@ class Executor:
         fragment changed and no mirror moved anywhere; otherwise every
         fragment's (serial, version, mirror generation) must still be the
         entry's.  A build applies every queued write first (one K7)."""
+        with self.tracer.span("plan", slices=len(slices)) as sp:
+            return self._cached_batch_lookup(index, c, expr, leaves, slices, sp)
+
+    def _cached_batch_lookup(self, index, c, expr, leaves, slices, sp):
         key = (index, str(c), tuple(slices))
         with self._batch_mu:
             ent = self._batch_cache.get(key)
@@ -923,7 +1014,9 @@ class Executor:
                     if key in self._batch_cache:
                         self._batch_cache.move_to_end(key)
                 device_mod.pool().touch(self._batch_pool_key(key))
+                sp.annotate(batch_cache="hit")
                 return ent, table
+        sp.annotate(batch_cache="miss")
         ent, table = self._cached_batch_build(index, key, expr, leaves, slices)
         displaced = []
         with self._batch_mu:
@@ -1173,8 +1266,29 @@ class Executor:
              for frag, (_, rid) in zip(frags, resolved)]
             for _, frags in picked
         ]
+        t0 = time.monotonic()
         counts = plan.anchored_count(expr, positions, offsets, dev_leaves, self.holder.device)
-        return int(counts.sum(dtype=torch.int64))
+        t_disp = time.monotonic()
+        n = int(counts.sum(dtype=torch.int64))
+        if perf_mod.enabled():
+            # Logical: every leaf's dense row in every anchored slice;
+            # effective: the anchors and the encoded leaves read once
+            # (JAX executor.py:1792).
+            eff = positions.nbytes + sum(
+                int(lf[1].numel() * lf[1].element_size())
+                for row in dev_leaves for lf in row if lf is not None
+            )
+            perf_mod.record_launch(
+                "anchored",
+                reduce="count",
+                rows=len(picked) * len(leaves),
+                n_bytes=perf_mod.plane_bytes(len(picked) * len(leaves), bp.WORDS_PER_SLICE),
+                eff_bytes=eff,
+                dispatch_ms=(t_disp - t0) * 1e3,
+                total_ms=(time.monotonic() - t0) * 1e3,
+                trace_id=perf_mod.current_trace_id(),
+            )
+        return n
 
     # ------------------------------------------------------------------
     # BSI aggregates — Sum / Min / Max (JAX executor.py:2094-2225)
@@ -1375,15 +1489,34 @@ class Executor:
         live = [p for p in parts if p[1] is not None]
         for lo in range(0, len(live), score_planes.MAX_FRAGMENTS):
             group = live[lo : lo + score_planes.MAX_FRAGMENTS]
-            slots = np.full((len(group), max(len(p[1].slots) for p in group)), -1, np.int64)
-            for i, (_, sub, _, _) in enumerate(group):
-                slots[i, : len(sub.slots)] = sub.slots
-            srcs = [src if slot is None else sub.plane[slot] for _, sub, src, slot in group]
-            (scores,) = self._shared_fetch([score_planes.score_planes(
-                [sub.plane for _, sub, _, _ in group], slots, srcs
-            )])
+            t0 = time.monotonic()
+            with self.tracer.span("topn.dispatch", groups=1):
+                slots = np.full((len(group), max(len(p[1].slots) for p in group)), -1, np.int64)
+                for i, (_, sub, _, _) in enumerate(group):
+                    slots[i, : len(sub.slots)] = sub.slots
+                srcs = [src if slot is None else sub.plane[slot] for _, sub, src, slot in group]
+                out = score_planes.score_planes([sub.plane for _, sub, _, _ in group], slots, srcs)
+            t_disp = time.monotonic()
+            with self.tracer.span("topn.fetch", arrays=1):
+                (scores,) = self._shared_fetch([out])
             for (st, sub, _, _), row in zip(group, scores):
                 st.counts = row[: len(sub.slots)]
+            if perf_mod.enabled():
+                # Logical: each fragment's whole plane snapshot, as the
+                # JAX scorer streams it (executor.py:2367); effective: the
+                # candidate rows and the src row K4 reads, once each.
+                row_bytes = bp.WORDS_PER_SLICE * 4
+                perf_mod.record_launch(
+                    "topn",
+                    reduce="topn",
+                    rows=sum(int(sub.plane.shape[0]) for _, sub, _, _ in group),
+                    n_bytes=sum(perf_mod.plane_bytes(int(sub.plane.shape[0]), bp.WORDS_PER_SLICE)
+                                for _, sub, _, _ in group),
+                    eff_bytes=sum((len(sub.slots) + 1) * row_bytes for _, sub, _, _ in group),
+                    dispatch_ms=(t_disp - t0) * 1e3,
+                    total_ms=(time.monotonic() - t0) * 1e3,
+                    trace_id=perf_mod.current_trace_id(),
+                )
 
     @staticmethod
     def _score_topn_sparse(parts) -> None:
@@ -1573,13 +1706,20 @@ class Executor:
         # The mirrors the prep finds stay pinned until the scores are
         # fetched.
         with device_mod.pool().pinned():
-            parts = self._topn_folded_build(index, c, slices)
+            with self.tracer.span("topn.prep", slices=len(slices)):
+                parts = self._topn_folded_build(index, c, slices)
             if parts is None:
                 return []
             if parts == "two_phase":
                 return self._execute_topn_two_phase(index, c, slices, opt, n)
-            self._score_topn_parts([p[4] for p in parts])
-            self._score_topn_sparse([p[4] for p in parts])
+            with self.tracer.span("topn.score", parts=len(parts)):
+                self._score_topn_parts([p[4] for p in parts])
+                self._score_topn_sparse([p[4] for p in parts])
+        with self.tracer.span("topn.select", parts=len(parts)):
+            return self._topn_folded_select(parts, n)
+
+    @staticmethod
+    def _topn_folded_select(parts, n: int) -> list[Pair]:
         # Phase-1 winners per slice, from the scores the first round
         # would have given the slice's own candidates (a subset of the
         # union).
@@ -1706,7 +1846,81 @@ class Executor:
         Outside every fragment lock: a slow fsync holds back only this
         writer's answer, never a reader."""
         if self.ingest is not None:
-            self.ingest.wait_durable()
+            with self.tracer.span("ingest"):
+                self.ingest.wait_durable()
+
+    # ------------------------------------------------------------------
+    # attribute writes (reference: executor.go:843-1040; JAX
+    # executor.py:3139-3218)
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _row_attrs_of(c: Call, f, verb: str = "SetRowAttrs()") -> tuple[int, dict]:
+        row_id, ok = _uint_arg(c, f.row_label)
+        if not ok:
+            raise ExecutorError(f"{verb} row field '{f.row_label}' required")
+        attrs = dict(c.args)
+        attrs.pop("frame", None)
+        attrs.pop(f.row_label, None)
+        return row_id, attrs
+
+    def _attr_frame(self, index: str, c: Call):
+        frame_name = c.args.get("frame")
+        if not isinstance(frame_name, str):
+            raise ExecutorError("SetRowAttrs() frame required")
+        f = self.holder.frame(index, frame_name)
+        if f is None:
+            raise FrameNotFoundError()
+        return f
+
+    def _execute_set_row_attrs(self, index: str, c: Call, opt: ExecOptions) -> None:
+        f = self._attr_frame(index, c)
+        row_id, attrs = self._row_attrs_of(c, f)
+        f.row_attr_store.set_attrs(row_id, attrs)
+        if not opt.remote:
+            self._broadcast_query(index, Query(calls=[c]))
+
+    def _execute_bulk_set_row_attrs(self, index: str, calls: list[Call],
+                                    opt: ExecOptions) -> list:
+        """Every frame's rows in one bulk write (reference:
+        executor.go:905-985), then one broadcast of the whole query."""
+        by_frame: dict[str, tuple] = {}
+        for c in calls:
+            f = self._attr_frame(index, c)
+            # The bulk path's own message (JAX executor.py:3172).
+            row_id, attrs = self._row_attrs_of(c, f, verb="SetRowAttrs")
+            by_frame.setdefault(f.name, (f, {}))[1].setdefault(row_id, {}).update(attrs)
+        for f, attr_sets in by_frame.values():
+            f.row_attr_store.set_bulk_attrs(attr_sets)
+        if not opt.remote:
+            self._broadcast_query(index, Query(calls=calls))
+        return [None] * len(calls)
+
+    def _execute_set_column_attrs(self, index: str, c: Call, opt: ExecOptions) -> None:
+        """By ``id`` or by the index's column label."""
+        idx = self.holder.index(index)
+        if idx is None:
+            raise IndexNotFoundError()
+        col_name = "id"
+        id_, ok = _uint_arg(c, col_name)
+        if not ok:
+            col_name = idx.column_label
+            id_, ok = _uint_arg(c, col_name)
+            if not ok:
+                raise ExecutorError("SetColumnAttrs() id required")
+        attrs = dict(c.args)
+        attrs.pop(col_name, None)
+        idx.column_attr_store.set_attrs(id_, attrs)
+        if not opt.remote:
+            self._broadcast_query(index, Query(calls=[c]))
+
+    def _broadcast_query(self, index: str, q: Query) -> None:
+        """The query to every other node as a remote leg, in parallel;
+        the first error wins (reference: executor.go:966-985)."""
+        others = [n for n in self.cluster.nodes if n.host != self.host]
+        futures = [self._submit(self._exec_remote, n, index, q, None) for n in others]
+        for fut in futures:
+            fut.result()
 
     # ------------------------------------------------------------------
     # map/reduce over the cluster (reference: executor.go:1131-1283;
@@ -1769,7 +1983,7 @@ class Executor:
 
         def submit(avail: list[Node], want: list[int]) -> None:
             for node, node_slices in self._slices_by_node(avail, index, want).values():
-                fut = self._pool.submit(self._map_node, node, node_slices, index, c, map_fn)
+                fut = self._submit(self._map_node, node, node_slices, index, c, map_fn)
                 inflight[fut] = avail
 
         def failover(resp: _MapResponse, avail: list[Node]) -> None:
@@ -1813,8 +2027,9 @@ class Executor:
                 # Every mirror and sparse payload the leg finds or uploads
                 # stays pinned until its launches are enqueued and their
                 # results fetched.
-                with device_mod.pool().pinned():
-                    resp.result = map_fn(node_slices)
+                with self.tracer.span("map.local", node=node.host, slices=len(node_slices)):
+                    with device_mod.pool().pinned():
+                        resp.result = map_fn(node_slices)
             else:
                 results = self._exec_remote(node, index, Query(calls=[c]), node_slices)
                 resp.result = results[0] if results else None
@@ -1822,12 +2037,29 @@ class Executor:
             resp.error = e
         return resp
 
+    def _submit(self, fn, *args):
+        """``fn(*args)`` on the map pool, inside a copy of the caller's
+        context: the query's current span crosses into the worker (JAX
+        ``executor.py:254``)."""
+        return self._pool.submit(contextvars.copy_context().run, fn, *args)
+
     def _exec_remote(self, node: Node, index: str, q: Query, slices) -> list:
         """Forward a query to a peer as a remote leg (reference:
-        executor.go:1045-1129)."""
+        executor.go:1045-1129).  The rpc span's ids travel as
+        ``X-Trace-Id`` / ``X-Span-Id``; the peer continues the trace under
+        them and sends its spans back, which the client absorbs into this
+        node's trace (JAX ``executor.py:3429``)."""
         if self.client_factory is None:
             raise ExecutorError(f"no client for remote node {node.host}")
-        return self.client_factory(node).execute_query(index, str(q), slices, remote=True)
+        client = self.client_factory(node)
+        with self.tracer.span(
+            "rpc.execute", node=node.host, slices=len(slices) if slices else 0
+        ) as sp:
+            headers = self.tracer.remote_headers(sp)
+            if headers:
+                return client.execute_query(index, str(q), slices, remote=True,
+                                            trace_headers=headers, tracer=self.tracer)
+            return client.execute_query(index, str(q), slices, remote=True)
 
 
 def _uint_arg(c: Call, key: str) -> tuple[int, bool]:

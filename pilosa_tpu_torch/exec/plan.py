@@ -77,6 +77,30 @@ LEAF_CALLS = frozenset({"Bitmap", "Range", "BsiPlane", "BsiPred", "BsiZero"})
 # Interior set-algebra calls and the fused kernel op of each.
 FOLD_OPS = {"Intersect": "and", "Union": "or", "Difference": "andnot", "Xor": "xor"}
 FOLD_CALLS = frozenset(FOLD_OPS)
+# The cost class of a query (JAX exec/plan.py:116-144): the label of its
+# latency histogram series on /metrics.
+COST_POINT = "point"
+COST_HEAVY = "heavy"
+COST_WRITE = "write"
+COST_INTERNAL = "internal"  # a remote leg of another node's query
+_HEAVY_CALLS = frozenset({"TopN", "Sum", "Min", "Max", "Range"})
+_WRITE_CALLS = frozenset({"SetBit", "ClearBit", "SetRowAttrs", "SetColumnAttrs"})
+
+
+def cost_class(calls: "list[Call]") -> str:
+    """``write`` when any call mutates, else ``heavy`` when any call (at
+    any depth) is a TopN, an aggregate or a Range, else ``point``."""
+
+    def heavy(c: Call) -> bool:
+        return c.name in _HEAVY_CALLS or any(heavy(ch) for ch in c.children)
+
+    if any(c.name in _WRITE_CALLS for c in calls):
+        return COST_WRITE
+    if any(heavy(c) for c in calls):
+        return COST_HEAVY
+    return COST_POINT
+
+
 # Synthetic BSI interior calls: BsiCmp produces a result row; the
 # aggregates produce per-slice int32 partial vectors.
 BSI_CALLS = frozenset({"BsiCmp", "BsiSum", "BsiMin", "BsiMax"})

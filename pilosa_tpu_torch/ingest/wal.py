@@ -57,6 +57,7 @@ import time
 from concurrent.futures import Future
 
 from pilosa_tpu_torch.ops import roaring
+from pilosa_tpu_torch.obs.stats import NopStatsClient
 
 MAGIC = b"PWAL"
 FORMAT_VERSION = 1
@@ -218,6 +219,7 @@ class WalWriter:
         self.frag = frag
         self.path = path
         self._manager = manager
+        self.stats = manager.stats
         # Lock order: frag._mu -> _io_mu -> _mu.  _mu guards the buffered
         # (not yet durable) state; _io_mu serializes writes, fsyncs and
         # truncations, so a commit never holds _mu across I/O.
@@ -258,6 +260,7 @@ class WalWriter:
             if self._pending is None:
                 self._pending = Future()
             fut = self._pending
+        self.stats.count("ingest.wal.appends")
         _note_pending(self, fut)
         self._manager._poke(self)
         return fut
@@ -293,6 +296,8 @@ class WalWriter:
             self._last_group = n_ops
             self._fsyncs += 1
             self._bytes_written += len(frame)
+        self.stats.count("ingest.wal.fsyncs")
+        self.stats.histogram("ingest.wal.groupSize", float(n_ops))
         if fut is not None and not fut.done():
             fut.set_result(None)
         return n_ops
@@ -316,6 +321,7 @@ class WalWriter:
                 self._snap_size = snap_size
             self._file.close()
             self._rewrite_locked_io(base, snap_size)
+        self.stats.count("ingest.wal.truncations")
         if fut is not None and not fut.done():
             fut.set_result(None)
 
@@ -395,8 +401,10 @@ class IngestManager:
     prefix: several servers in one process stay apart."""
 
     def __init__(self, data_dir: str, *, group_commit_ms: float = 2.0,
-                 group_commit_max: int = 128, wal_segment_bytes: int = 4 << 20, logger=None):
+                 group_commit_max: int = 128, wal_segment_bytes: int = 4 << 20, logger=None,
+                 stats=None):
         self.data_dir = os.path.realpath(data_dir)
+        self.stats = stats if stats is not None else NopStatsClient()
         self.group_commit_ms = float(group_commit_ms)
         self.group_commit_max = int(group_commit_max)
         self.wal_segment_bytes = int(wal_segment_bytes)

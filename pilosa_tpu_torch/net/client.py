@@ -74,13 +74,26 @@ class InternalClient:
         body: bytes = b"",
         headers: dict[str, str] | None = None,
     ) -> tuple[int, bytes]:
+        status, data, _ = self._request_meta(method, path, query, body, headers)
+        return status, data
+
+    def _request_meta(
+        self,
+        method: str,
+        path: str,
+        query: dict[str, Any] | None = None,
+        body: bytes = b"",
+        headers: dict[str, str] | None = None,
+    ) -> tuple[int, bytes, dict[str, str]]:
+        """``(status, body, response headers with lower-case names)``."""
         if query:
             path = f"{path}?{urllib.parse.urlencode(query)}"
         conn = http.client.HTTPConnection(self.host, timeout=self.timeout)
         try:
             conn.request(method, path, body=body, headers=headers or {})
             resp = conn.getresponse()
-            return resp.status, resp.read()
+            data = resp.read()
+            return resp.status, data, {k.lower(): v for k, v in resp.getheaders()}
         finally:
             conn.close()
 
@@ -97,14 +110,24 @@ class InternalClient:
         query: str,
         slices: list[int] | None = None,
         remote: bool = False,
+        trace_headers: dict[str, str] | None = None,
+        tracer=None,
     ) -> list:
+        """Run ``query`` on the host.  ``trace_headers`` (the caller's rpc
+        span, ``Tracer.remote_headers``) continue the caller's trace
+        there; the spans the host sends back in ``X-Trace-Spans`` go into
+        ``tracer`` (JAX ``net/client.py:365``)."""
         pb = wire.QueryRequest(Query=query, Slices=list(slices or []), Remote=remote)
-        status, data = self._request(
-            "POST",
-            f"/index/{index}/query",
-            body=pb.encode(),
-            headers={"Content-Type": PROTOBUF, "Accept": PROTOBUF},
+        headers = {"Content-Type": PROTOBUF, "Accept": PROTOBUF}
+        if trace_headers:
+            headers.update(trace_headers)
+        status, data, resp_headers = self._request_meta(
+            "POST", f"/index/{index}/query", body=pb.encode(), headers=headers
         )
+        if tracer is not None:
+            payload = resp_headers.get("x-trace-spans")
+            if payload:
+                tracer.absorb(payload)
         if status >= 400:
             # A query error comes back as a QueryResponse with Err.
             try:

@@ -12,6 +12,9 @@ port covers, with the same paths, status codes and response bodies
     POST   /index/<i>/query    POST /import             POST /import-value
     GET    /fragment/nodes
     GET    /debug/hbm          GET /debug/ingest
+    GET    /metrics            GET /debug/vars          GET /debug/perf
+    GET    /debug/traces       GET /debug/stacks        GET /debug/profile
+    GET    /debug/pprof[/goroutine|/profile|/heap]
 
 ``POST /index/<i>/query`` reads a ``QueryRequest`` protobuf when the
 Content-Type is ``application/x-protobuf`` (its ``Slices``,
@@ -30,15 +33,40 @@ the cluster; a field's creation and deletion go to every peer as the
 same HTTP request with ``?remote=true``, as in the JAX package.
 ``GET /debug/hbm`` answers the residency pool's snapshot and ``GET
 /debug/ingest`` the WAL manager's and the delta-scatter's counters, with
-the JAX package's keys.  Replication, resize and the other debug routes
-are not ported yet.
+the JAX package's keys.
+
+Observability (JAX ``handler.py:823-898,1849-2143``): every query opens a
+root span (continuing a propagated trace on a remote leg, whose spans go
+back in ``X-Trace-Spans``) with ``parse`` and ``execute`` children; the
+tracer's ring is ``GET /debug/traces``, and a query slower than
+``slow_query_ms`` logs one structured line with its per-stage breakdown.
+``GET /debug/vars`` is the stats client's snapshot, ``GET /metrics`` its
+Prometheus rendering plus the launch telemetry's gauges and the native
+latency histograms (per query class and per route), ``GET /debug/perf``
+the per-site roofline table against the probed stream floor, ``GET
+/debug/profile?seconds=N`` a ``torch.profiler`` trace (CPU and CUDA
+activity) tarred under the data dir, one at a time (409 otherwise),
+``GET /debug/stacks`` and ``/debug/pprof`` thread stacks, a sampled CPU
+profile and tracemalloc.  ``/metrics`` leaves out the JAX node's
+``exec.programCache.*`` gauges (XLA jit caches: the port builds each
+kernel once) and its admission, device-health and subscription gauges
+(those modules are not ported).
+
+Replication, resize and the other debug routes are not ported yet.
 """
 
 from __future__ import annotations
 
+import io
 import json
+import os
 import re
+import shutil
 import sys
+import tarfile
+import tempfile
+import threading
+import time
 import traceback
 import urllib.parse
 from collections.abc import Callable
@@ -53,14 +81,31 @@ from pilosa_tpu_torch import __version__, bsi
 from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch.core.bitmap import RowBitmap
 from pilosa_tpu_torch.core.timequantum import parse_time_quantum
+from pilosa_tpu_torch.exec import plan as plan_mod
 from pilosa_tpu_torch.exec.executor import ExecOptions, TooManyWritesError
 from pilosa_tpu_torch.ingest import scatter
 from pilosa_tpu_torch.net import codec, wire
+from pilosa_tpu_torch.obs import perf as perf_mod
+from pilosa_tpu_torch.obs import prom, trace
 from pilosa_tpu_torch.ops import bitplane as bp
 from pilosa_tpu_torch.pql.parser import parse_string
 
 PROTOBUF = "application/x-protobuf"
 JSON = "application/json"
+
+# Families a JAX node renders on /metrics that the port leaves out, by
+# name prefix, and why.
+METRICS_LEFT_OUT = {
+    "pilosa_exec_programCache_": "XLA jit caches; the port builds each kernel once",
+    "pilosa_net_admission_": "admission control is not ported",
+    "pilosa_device_health_": "the device-health state machine is not ported",
+    "pilosa_device_watchdogTrips": "the launch watchdog is not ported",
+    "pilosa_exec_subscribe_": "standing queries are not ported",
+    "pilosa_cluster_replication_": "quorum replication is not ported",
+    "pilosa_tenant_": "tenant QoS is not ported",
+    "pilosa_exec_pool_": "map legs run on the standard library's thread pool",
+    "pilosa_stream_": "request and response bodies are not streamed",
+}
 
 
 @dataclass
@@ -75,11 +120,20 @@ class Request:
         return self.headers.get(key.lower(), "")
 
 
+def _route_template(pattern: str) -> str:
+    """Route regex -> bounded metric label: named groups become
+    ``{name}`` placeholders (``/index/{index}/query``)."""
+    tmpl = re.sub(r"\(\?P<(\w+)>[^)]*\)", r"{\1}", pattern)
+    return tmpl.replace("?", "") or "/"
+
+
 @dataclass
 class Response:
     status: int = 200
     body: bytes = b""
     content_type: str = JSON
+    # Extra response headers (the trace span export).
+    headers: dict[str, str] = field(default_factory=dict)
 
     @classmethod
     def json(cls, obj: Any, status: int = 200) -> "Response":
@@ -112,10 +166,25 @@ class Handler:
     changes go to ``broadcaster`` (``send_sync``), ownership questions
     to the executor's cluster."""
 
-    def __init__(self, holder, executor, broadcaster=None):
+    def __init__(self, holder, executor, broadcaster=None, stats=None, tracer=None,
+                 slow_query_ms: float = 0.0, latency_buckets_ms=None, slo_ms: float = 0.0,
+                 slo_objective: float = 0.999, logger=None):
         self.holder = holder
         self.executor = executor
         self.broadcaster = broadcaster
+        self.logger = logger or (lambda msg: print(msg, file=sys.stderr))
+        self.stats = stats
+        # Every query is traced when a Tracer is wired (the server does).
+        self.tracer = tracer or trace.NOP_TRACER
+        self.slow_query_ms = slow_query_ms
+        self.latency = perf_mod.LatencyHistograms(
+            buckets_ms=latency_buckets_ms, slo_ms=slo_ms, slo_objective=slo_objective
+        )
+        # Base dir of /debug/profile's tarballs (the server's data dir);
+        # one profile at a time.
+        self.profile_dir = None
+        self._profile_mu = threading.Lock()
+        self._start_time = time.time()
         # The WAL manager (wired by the server), for /debug/ingest; None
         # when the WAL is off.
         self.ingest = None
@@ -143,22 +212,44 @@ class Handler:
             ("GET", r"/fragment/nodes", self.handle_get_fragment_nodes),
             ("GET", r"/debug/hbm", self.handle_get_hbm),
             ("GET", r"/debug/ingest", self.handle_get_ingest),
+            ("GET", r"/debug/vars", self.handle_get_vars),
+            ("GET", r"/debug/perf", self.handle_get_perf),
+            ("GET", r"/debug/profile", self.handle_get_profile),
+            ("GET", r"/debug/stacks", self.handle_get_stacks),
+            ("GET", r"/debug/traces", self.handle_get_traces),
+            ("GET", r"/metrics", self.handle_get_metrics),
+            ("GET", r"/debug/pprof(?P<rest>/.*)?", self.handle_get_pprof),
         ]
-        self._routes = [(m, re.compile("^" + p + "$"), fn) for m, p, fn in routes]
+        self._routes = [(m, re.compile("^" + p + "$"), fn, _route_template(p))
+                        for m, p, fn in routes]
 
     def dispatch(self, req: Request) -> Response:
+        t0 = time.monotonic()
+        route = None  # the matched route's template (a bounded label)
         try:
-            for method, pattern, fn in self._routes:
+            for method, pattern, fn, tmpl in self._routes:
                 m = pattern.match(req.path.rstrip("/") or "/")
                 if m and method == req.method:
-                    return fn(req, **m.groupdict())
-            return Response.error("not found", 404)
+                    route = tmpl
+                    resp = fn(req, **m.groupdict())
+                    break
+            else:
+                resp = Response.error("not found", 404)
         except Exception as e:  # noqa: BLE001 — API boundary
-            print(
-                f"handler error {req.method} {req.path}: {e}\n" + traceback.format_exc(),
-                file=sys.stderr,
-            )
-            return Response.error(str(e), 500)
+            self.logger(f"handler error {req.method} {req.path}: {e}\n" + traceback.format_exc())
+            resp = Response.error(str(e), 500)
+        try:
+            self._observe_stats(req, (time.monotonic() - t0) * 1e3, route)
+        except Exception:  # noqa: BLE001 — metrics never drop a response
+            pass
+        return resp
+
+    def _observe_stats(self, req: Request, ms: float, route: str | None) -> None:
+        if self.stats is not None:
+            # Per-endpoint latency (reference: handler.go:140-167).
+            self.stats.histogram(f"http.{req.method}.{req.path.split('?')[0]}", ms)
+        if route is not None:
+            self.latency.observe_http(req.method, route, ms)
 
     # --- introspection ---
 
@@ -214,6 +305,150 @@ class Handler:
         else:
             doc["wal"] = self.ingest.snapshot()
         return Response.json(doc)
+
+    # --- observability (JAX handler.py:1849-2143) ---
+
+    def handle_get_vars(self, req: Request) -> Response:
+        """expvar equivalent (reference: handler.go:1360-1374)."""
+        payload: dict[str, Any] = {
+            "uptime_seconds": time.time() - self._start_time,
+            "version": __version__,
+            "threads": threading.active_count(),
+        }
+        if self.stats is not None and hasattr(self.stats, "snapshot"):
+            payload["stats"] = self.stats.snapshot()
+        return Response.json(payload)
+
+    def handle_get_traces(self, req: Request) -> Response:
+        """The retained query traces; ``?min_ms=`` filters on the root
+        span's duration."""
+        try:
+            min_ms = float(req.query.get("min_ms", "0"))
+        except ValueError:
+            return Response.error("invalid min_ms", 400)
+        return Response.json({"traces": self.tracer.traces(min_ms=min_ms)})
+
+    def handle_get_metrics(self, req: Request) -> Response:
+        """Prometheus text exposition of the stats snapshot, the launch
+        telemetry's scrape-time gauges, process gauges and the native
+        latency histograms."""
+        snap: dict = {}
+        if self.stats is not None and hasattr(self.stats, "snapshot"):
+            try:
+                snap = self.stats.snapshot()
+            except Exception:  # noqa: BLE001 — stats must not fail the scrape
+                snap = {}
+        try:
+            snap.setdefault("gauges", {}).update(perf_mod.registry().gauges())
+        except Exception:  # noqa: BLE001 — stats must not fail the scrape
+            pass
+        body = prom.render(
+            snap,
+            extra_gauges={
+                "uptime_seconds": time.time() - self._start_time,
+                "threads": threading.active_count(),
+            },
+        )
+        try:
+            body += self.latency.render()
+        except Exception:  # noqa: BLE001 — stats must not fail the scrape
+            pass
+        return Response(body=body.encode(), content_type=prom.CONTENT_TYPE)
+
+    def handle_get_perf(self, req: Request) -> Response:
+        """The per-site roofline table (obs/perf.py): launches, logical and
+        effective bytes, GB/s, % of the probed stream floor, p50/p99
+        launch ms, occupancy, and the slowest recent launches with their
+        trace ids.  ``compile_ms`` stays empty: the port builds each
+        kernel once, at its first use."""
+        snap = perf_mod.registry().snapshot()
+        snap["compile_ms"] = {}
+        return Response.json(snap)
+
+    def handle_get_stacks(self, req: Request) -> Response:
+        """Every thread's stack (``sys._current_frames``)."""
+        frames = sys._current_frames()
+        out = io.StringIO()
+        out.write(f"{len(frames)} threads\n\n")
+        for t in threading.enumerate():
+            out.write(f"thread {t.name} id={t.ident} (daemon={t.daemon})\n")
+            fr = frames.get(t.ident)
+            if fr is not None:
+                out.write("".join(traceback.format_stack(fr)))
+            out.write("\n")
+        return Response(body=out.getvalue().encode(), content_type="text/plain")
+
+    def handle_get_profile(self, req: Request) -> Response:
+        """On-demand profile: ``torch.profiler`` with CPU and (on a card)
+        CUDA activity for ``?seconds=N`` (clamped to [0.05, 60]), its
+        Chrome trace tarred under the data dir; the answer names the
+        tarball.  One at a time: a concurrent request answers 409."""
+        try:
+            seconds = max(0.05, min(float(req.query.get("seconds", "3")), 60.0))
+        except ValueError:
+            return Response.error("invalid seconds", 400)
+        if not self._profile_mu.acquire(blocking=False):
+            return Response.error("profile already in flight", 409)
+        try:
+            base = self.profile_dir or tempfile.mkdtemp(prefix="pilosa-profile-")
+            trace_dir = os.path.join(base, "profiles", time.strftime("trace-%Y%m%d-%H%M%S"))
+            os.makedirs(trace_dir, exist_ok=True)
+            try:
+                _profile_into(trace_dir, seconds)
+            except Exception as e:  # noqa: BLE001 — a runtime without a profiler
+                shutil.rmtree(trace_dir, ignore_errors=True)
+                return Response.error(f"torch profiler unavailable: {e}", 501)
+            tar_path = trace_dir + ".tar.gz"
+            with tarfile.open(tar_path, "w:gz") as tf:
+                tf.add(trace_dir, arcname=os.path.basename(trace_dir))
+            shutil.rmtree(trace_dir, ignore_errors=True)
+            return Response.json(
+                {"seconds": seconds, "trace": tar_path, "bytes": os.path.getsize(tar_path)}
+            )
+        finally:
+            self._profile_mu.release()
+
+    def handle_get_pprof(self, req: Request, rest: str | None = None) -> Response:
+        """The reference's net/http/pprof mount, in Python (reference:
+        handler.go:111-112): ``/debug/pprof`` or ``/goroutine`` thread
+        stacks; ``/profile?seconds=N`` (default 5, at most 60) every
+        thread's stack sampled at ~100 Hz, folded ("f1;f2;f3 count");
+        ``/heap`` tracemalloc's top allocations (``?start=1`` /
+        ``?stop=1``)."""
+        kind = (rest or "/").strip("/") or "goroutine"
+        if kind == "goroutine":
+            frames = sys._current_frames()
+            out = io.StringIO()
+            for t in threading.enumerate():
+                out.write(f"thread {t.name} (daemon={t.daemon})\n")
+                fr = frames.get(t.ident)
+                if fr is not None:
+                    out.write("".join(traceback.format_stack(fr)))
+                out.write("\n")
+            return Response(body=out.getvalue().encode(), content_type="text/plain")
+        if kind == "profile":
+            try:
+                seconds = min(float(req.query.get("seconds", "5")), 60.0)
+            except ValueError:
+                return Response.error("invalid seconds", 400)
+            return Response(body=_sample_cpu_profile(seconds).encode(), content_type="text/plain")
+        if kind == "heap":
+            import tracemalloc
+
+            if req.query.get("start"):
+                tracemalloc.start(16)
+                return Response(body=b"tracemalloc started\n", content_type="text/plain")
+            if req.query.get("stop"):
+                tracemalloc.stop()
+                return Response(body=b"tracemalloc stopped\n", content_type="text/plain")
+            if not tracemalloc.is_tracing():
+                return Response(body=b"tracemalloc not tracing; GET ?start=1 first\n",
+                                content_type="text/plain")
+            out = io.StringIO()
+            for stat in tracemalloc.take_snapshot().statistics("lineno")[:50]:
+                out.write(f"{stat}\n")
+            return Response(body=out.getvalue().encode(), content_type="text/plain")
+        return Response.error(f"unknown profile: {kind}", 404)
 
     def handle_get_fragment_nodes(self, req: Request) -> Response:
         """Owners of a slice.  ``?write=true`` asks for the write owners,
@@ -425,20 +660,85 @@ class Handler:
     # --- query (reference: handler.go:863-944) ---
 
     def handle_post_query(self, req: Request, index: str) -> Response:
+        """The traced query entry (JAX ``handler.py:823``): the root span
+        opens here, continuing a propagated trace on a remote leg; the
+        finished trace goes to the ring, back to the coordinator in
+        ``X-Trace-Spans`` (a remote leg), or to the slow-query log."""
+        in_trace = req.header(trace.TRACE_HEADER)
+        root = self.tracer.start_trace(
+            "query",
+            trace_id=in_trace or None,
+            parent_span_id=req.header(trace.SPAN_HEADER) or None,
+            index=index,
+            node=getattr(self.executor, "host", ""),
+        )
+        token = root.activate()
+        t0 = time.monotonic()
+        try:
+            resp = self._handle_post_query(req, index, root)
+        finally:
+            root.deactivate(token)
+            record = self.tracer.finish_root(root)
+            try:
+                self.latency.observe_query(
+                    str(root.tags.get("cost_class") or "unclassified"),
+                    (time.monotonic() - t0) * 1e3,
+                )
+            except Exception:  # noqa: BLE001 — metrics never drop a response
+                pass
+        if record is not None:
+            if in_trace:
+                resp.headers[trace.SPANS_HEADER] = self.tracer.export_payload(record)
+            elif self.slow_query_ms > 0 and record["duration_ms"] >= self.slow_query_ms:
+                try:
+                    self._log_slow_query(index, root, record)
+                except Exception:  # noqa: BLE001 — logging never drops a response
+                    pass
+        return resp
+
+    def _log_slow_query(self, index: str, root, record: dict) -> None:
+        """One structured line per slow coordinator query."""
+        line = {
+            "ms": record["duration_ms"],
+            "index": index,
+            "query": root.tags.get("query", ""),
+            "slices": root.tags.get("slices", "all"),
+            "trace_id": record["trace_id"],
+            "stages": trace.stage_breakdown(record),
+        }
+        co = _coalesce_batch_stats(record)
+        if co is not None:
+            line["coalesce"] = co
+        fu = _fuse_batch_stats(record)
+        if fu is not None:
+            line["fuse"] = fu
+        self.logger("slow query " + json.dumps(line, sort_keys=True))
+
+    def _handle_post_query(self, req: Request, index: str, root) -> Response:
         try:
             qreq = self._read_query_request(req)
         except _ParseError as e:  # the JAX package's dispatcher answers it
             return Response.error(str(e), 500)
         except ValueError as e:
             return self._query_error(req, str(e), 400)
+        root.annotate(
+            query=qreq["query"][:512],
+            slices=qreq["slices"] if qreq["slices"] is not None else "all",
+            remote=qreq["remote"],
+        )
         try:
-            q = parse_string(qreq["query"])
+            with self.tracer.span("parse"):
+                q = parse_string(qreq["query"])
         except Exception as e:  # noqa: BLE001 — parser error
             return self._query_error(req, str(e), 400)
+        root.annotate(
+            cost_class=plan_mod.COST_INTERNAL if qreq["remote"] else plan_mod.cost_class(q.calls)
+        )
         try:
-            results = self.executor.execute(
-                index, q, qreq["slices"], ExecOptions(remote=qreq["remote"])
-            )
+            with self.tracer.span("execute"):
+                results = self.executor.execute(
+                    index, q, qreq["slices"], ExecOptions(remote=qreq["remote"])
+                )
         except TooManyWritesError as e:
             return self._query_error(req, str(e), 413)
         except Exception as e:  # noqa: BLE001 — executor boundary
@@ -570,6 +870,78 @@ class _ParseError(ValueError):
     """A protobuf body that does not decode."""
 
 
+def _profile_into(trace_dir: str, seconds: float) -> None:
+    """Run ``torch.profiler`` over every thread for ``seconds`` and write
+    its Chrome trace (``trace.json``) into ``trace_dir``: CPU activity,
+    and CUDA activity where a card is present (every kernel of the
+    process, the port's own included)."""
+    import torch
+    import torch.profiler as tp
+
+    acts = [tp.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(tp.ProfilerActivity.CUDA)
+    with tp.profile(activities=acts) as prof:
+        time.sleep(seconds)
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+
+
+def _coalesce_batch_stats(record: dict) -> dict | None:
+    """The coalescer's batch stats from a trace's ``coalesce`` spans (the
+    slow-query line's evidence of a shared launch); None when the query
+    never reached the coalescer."""
+    spans = [s for s in record.get("spans", ()) if s.get("name") == "coalesce"]
+    if not spans:
+        return None
+    occ = [s["tags"]["batch_queries"] for s in spans
+           if isinstance(s.get("tags", {}).get("batch_queries"), (int, float))]
+    out: dict = {"launches": len(spans)}
+    if occ:
+        out["mean_occupancy"] = round(sum(occ) / len(occ), 2)
+        out["max_occupancy"] = max(occ)
+    return out
+
+
+def _fuse_batch_stats(record: dict) -> dict | None:
+    """The composition of the interpreter launches a query rode, from its
+    ``fuse`` spans; None when it fused with none."""
+    spans = [s for s in record.get("spans", ()) if s.get("name") == "fuse"]
+    if not spans:
+        return None
+    out: dict = {"launches": len(spans)}
+    for tag, label in (("batch_queries", "mean_fused_queries"), ("programs", "mean_programs"),
+                       ("ops", "mean_ops"), ("dedup_hits", "mean_dedup_hits")):
+        vals = [s["tags"][tag] for s in spans
+                if isinstance(s.get("tags", {}).get(tag), (int, float))]
+        if vals:
+            out[label] = round(sum(vals) / len(vals), 2)
+    return out
+
+
+def _sample_cpu_profile(seconds: float, hz: float = 100.0) -> str:
+    """Sample every other thread's stack at ``hz`` for ``seconds`` and
+    fold identical stacks into "frame1;frame2;... count" lines, most
+    sampled first (the flamegraph-collapsed form)."""
+    counts: dict[str, int] = {}
+    me = threading.get_ident()
+    deadline = time.monotonic() + seconds
+    while time.monotonic() < deadline:
+        for tid, frame in sys._current_frames().items():
+            if tid == me:
+                continue
+            parts = []
+            f = frame
+            while f is not None:
+                code = f.f_code
+                parts.append(f"{code.co_name} ({code.co_filename}:{f.f_lineno})")
+                f = f.f_back
+            stack = ";".join(reversed(parts)) or "<idle>"
+            counts[stack] = counts.get(stack, 0) + 1
+        time.sleep(1.0 / hz)
+    lines = [f"{st} {n}" for st, n in sorted(counts.items(), key=lambda kv: -kv[1])]
+    return "\n".join(lines) + ("\n" if lines else "")
+
+
 def _decode(cls, body: bytes):
     """``cls.decode(body)``; any failure raises the text the JAX
     package's generated parser gives (the hand-written decoder's own
@@ -614,6 +986,8 @@ def make_http_server(handler: Handler, host: str = "127.0.0.1", port: int = 0):
             resp = handler.dispatch(req)
             self.send_response(resp.status)
             self.send_header("Content-Type", resp.content_type)
+            for k, v in resp.headers.items():
+                self.send_header(k, v)
             self.send_header("Content-Length", str(len(resp.body)))
             self.end_headers()
             self.wfile.write(resp.body)

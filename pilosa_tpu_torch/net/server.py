@@ -58,6 +58,23 @@ Query execution, with the JAX package's names and defaults
 
 The scheduler starts at open and closes before the holder.
 
+Observability, with the JAX package's names and defaults
+(``pilosa_tpu/net/server.py:51-121``, ``[metrics]`` and ``[obs]``):
+
+* ``stats`` — a stats client (``obs/stats.py``: Nop, Expvar, StatsD,
+  Multi), the root of the holder's tag chain, shared with the pool, the
+  WAL and the coalescer; None emits nothing (``/debug/vars`` and
+  ``/metrics`` then carry only the scrape-time gauges);
+* ``trace_ring`` — finished query traces kept for ``GET /debug/traces``
+  (every query is traced, Dapper style), ``slow_query_ms`` the threshold
+  of the structured slow-query log (0: off);
+* ``latency_buckets_ms``, ``slo_ms``, ``slo_objective`` — the native
+  latency histograms and SLO burn gauges of ``/metrics``;
+* ``floor_probe`` — at open, measure the card's stream floor with K11
+  (``device/floorprobe.py``, cached in ``floorprobe.json`` under the data
+  dir) as the denominator of ``/debug/perf``'s ``floorPct``.  A probe
+  that cannot build or launch K11 raises here.
+
 At open the node stages, in the background, the mirrors of its previous
 run (``.residency.json``, written at close), then the largest that fit
 the budget, and answers meanwhile (``staging_job``).  ``GET /debug/hbm``
@@ -88,6 +105,8 @@ from pilosa_tpu_torch.ingest import wal
 from pilosa_tpu_torch.net import wire
 from pilosa_tpu_torch.net.client import TRANSPORT_ERRORS, ClientError, InternalClient
 from pilosa_tpu_torch.net.handler import Handler, make_http_server
+from pilosa_tpu_torch.obs import perf as perf_mod
+from pilosa_tpu_torch.obs.trace import Tracer
 from pilosa_tpu_torch.ops import bitplane as bp
 
 CLUSTER_TYPES = ("static", "http")
@@ -124,6 +143,13 @@ class Server:
         fuse: bool = True,
         fuse_max_programs: int = coalesce_mod.DEFAULT_FUSE_MAX_PROGRAMS,
         prewarm: bool = False,
+        stats=None,
+        slow_query_ms: float = 0.0,
+        trace_ring: int = 64,
+        latency_buckets_ms=None,
+        slo_ms: float = 0.0,
+        slo_objective: float = 0.999,
+        floor_probe: bool = True,
     ):
         if cluster_type == "gossip":
             raise ValueError("cluster type 'gossip' is not supported by this port yet")
@@ -169,16 +195,34 @@ class Server:
         else:
             self.broadcaster = bc.NopBroadcaster()
             self.receiver = None
+        self.stats = stats
+        self.tracer = Tracer(capacity=trace_ring)
+        self.floor_probe = floor_probe
         self.holder = Holder(data_dir, device=self.device)
         self.holder.on_create_slice = self._on_create_slice
+        if stats is not None:
+            # Root of the tag chain: indexes opened from disk, and all
+            # their frames, views and fragments, get tagged children.
+            self.holder.stats = stats
         self.executor = Executor(
             self.holder,
             max_writes_per_request=max_writes_per_request,
             cluster=self.cluster,
             host=host,
             client_factory=self._client,
+            tracer=self.tracer,
         )
-        self.handler = Handler(self.holder, self.executor, self.broadcaster)
+        self.handler = Handler(
+            self.holder, self.executor, self.broadcaster,
+            stats=stats,
+            tracer=self.tracer,
+            slow_query_ms=slow_query_ms,
+            latency_buckets_ms=latency_buckets_ms,
+            slo_ms=slo_ms,
+            slo_objective=slo_objective,
+        )
+        # /debug/profile tars its traces under the data dir.
+        self.handler.profile_dir = data_dir
         self._http = None
         self._http_thread: threading.Thread | None = None
         self._closing = threading.Event()
@@ -199,7 +243,22 @@ class Server:
         # The pool's budget and the WAL manager before any fragment
         # opens: mirrors register at their first upload, and fragments
         # replay their segments and attach writers as they open.
-        device_mod.pool().configure(budget_bytes=self.hbm_budget_bytes)
+        device_mod.pool().configure(
+            budget_bytes=self.hbm_budget_bytes, stats=self.stats, tracer=self.tracer
+        )
+        # The stream floor of /debug/perf (JAX server.py:405-422): cached
+        # per process and under the data dir; a K11 build or launch
+        # failure raises here rather than leave the floor at 0.
+        if self.floor_probe:
+            from pilosa_tpu_torch.device import floorprobe
+
+            fp = floorprobe.probe(
+                artifact_dir=self.data_dir,
+                stats=self.stats,
+                logger=lambda m: print(m, file=sys.stderr),
+                device=self.device,
+            )
+            perf_mod.registry().set_floor(fp["mean_gbps"])
         if self.ingest_wal:
             self.ingest = wal.IngestManager(
                 self.data_dir,
@@ -207,6 +266,7 @@ class Server:
                 group_commit_max=self.ingest_group_commit_max,
                 wal_segment_bytes=self.ingest_wal_segment_bytes,
                 logger=lambda m: print(m, file=sys.stderr),
+                stats=self.stats,
             )
             wal.register_manager(self.ingest)
         self.holder.open()
@@ -216,6 +276,7 @@ class Server:
                 max_wait_us=self.coalesce_max_wait_us,
                 fuse=self.fuse,
                 fuse_max_programs=self.fuse_max_programs,
+                stats=self.stats,
             )
         self.executor.coalescer = self.coalescer
         if self.prewarm:
@@ -226,7 +287,9 @@ class Server:
         # Serving starts now; the mirrors of the previous run (its
         # .residency.json, then the largest that fit the budget) stream in
         # behind it, and a query's own prefetch jumps them.
-        self.staging_job = self.holder.stage_device_mirrors(device_mod.prefetcher())
+        self.staging_job = self.holder.stage_device_mirrors(
+            device_mod.prefetcher(), tracer=self.tracer
+        )
         bind_host, _, bind_port = self.host.rpartition(":")
         port = int(bind_port or 0)
         self._http = make_http_server(self.handler, bind_host or "127.0.0.1", port)
@@ -295,6 +358,11 @@ class Server:
             wal.unregister_manager(self.ingest)
             self.ingest.close()
             self.ingest = None
+        # Stats transports (the StatsD socket) last: the close path above
+        # may still emit.
+        close = getattr(self.stats, "close", None)
+        if close is not None:
+            close()
 
     def __enter__(self):
         self.open()

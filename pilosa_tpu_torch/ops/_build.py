@@ -35,6 +35,7 @@ SOURCES = {
     "expand_payload": "expand_payload.cu",
     "tree_eval": "tree_eval.cu",
     "interp": "interp.cu",
+    "stream_sum": "stream_sum.cu",
 }
 
 NVCC_FLAGS = (

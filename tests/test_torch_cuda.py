@@ -643,3 +643,45 @@ def test_interp_every_block_shape_matches_plain(cuda):
                         assert torch.equal(got, want), (name, reduce, shape)
         if name == "full":
             assert it.launch_plan(alloc, n_leaves, k, "count").smem <= it.SMEM_BYTES
+
+
+# --- K11: the stream-floor read-sum -----------------------------------------
+
+
+@pytest.mark.parametrize("pattern", ["zeros", "ones", "max", "random"])
+@pytest.mark.parametrize("n", [1, 7, 1023, (1 << 20) + 7, (1 << 27) + 3])
+def test_stream_sum_matches_plain(cuda, n, pattern):
+    from pilosa_tpu_torch.ops import stream_sum as ss
+
+    if pattern == "random":
+        x = torch.randint(-(2**31), 2**31 - 1, (n,), dtype=torch.int32, device=cuda,
+                          generator=torch.Generator(cuda).manual_seed(n))
+    else:
+        fill = {"zeros": 0, "ones": 1, "max": -1}[pattern]
+        x = torch.full((n,), fill, dtype=torch.int32, device=cuda)
+    before = ss.launches
+    got = ss.stream_sum(x)
+    assert ss.launches == before + 1
+    assert got.device == x.device and got.dtype == torch.int32
+    assert int(got) == int(ss.plain_stream_sum(x))
+    assert int(ss.stream_sum(x.view(torch.uint32))) == int(got)
+
+
+def test_stream_sum_rejects_misaligned(cuda):
+    from pilosa_tpu_torch.ops import stream_sum as ss
+
+    x = torch.zeros(64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        ss.stream_sum(x[1:])
+
+
+def test_floor_probe_reads_device_memory(cuda, tmp_path):
+    """The probe's buffer is at least 8x the L2 and its floor lies under
+    the card's data-sheet memory rate (3.35 TB/s on an H100 SXM)."""
+    from pilosa_tpu_torch.device import floorprobe
+
+    floorprobe.reset_cache()
+    fp_ = floorprobe.probe(artifact_dir=str(tmp_path), device=cuda)
+    l2 = torch.cuda.get_device_properties(cuda).L2_cache_size
+    assert fp_["probe_bytes"] >= 8 * l2
+    assert 0 < fp_["mean_gbps"] <= 1.05 * 3350

@@ -165,6 +165,16 @@ def test_kernel_wrappers_raise_off_the_cpu():
     assert score_planes.launches == sp_before
 
 
+def test_stream_sum_raises_off_the_cpu():
+    """K11 too: a meta tensor raises and launches nothing."""
+    from pilosa_tpu_torch.ops import stream_sum as ss
+
+    before = ss.launches
+    with pytest.raises(ValueError):
+        ss.stream_sum(torch.empty(64, dtype=torch.int32, device="meta"))
+    assert ss.launches == before
+
+
 def test_kernel_build_refuses_without_nvcc(monkeypatch):
     from pilosa_tpu_torch.ops import _build
 
