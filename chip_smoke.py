@@ -21,9 +21,11 @@ without printing its final line:
    self-src and row-src, all-zero and all-ones src rows; for the payload
    expansion (K6) 1, 7 and 954 rows of mixed formats and 954 of each
    format in one launch, also against numpy; for the anchored count (K5)
-   1, 7 and 954 slices x 4 leaves of every format and absent rows in one
-   launch, anchors of 32,768, 1 and 0 positions and up to 2^20 - 1, six
-   trees (one nested 11 masks deep); for the delta-scatter (K7) the
+   1, 7 and 954 slices x 7 leaves of every format and absent rows in one
+   launch, rows on the windows' edges and a run over many windows, the
+   anchor a leaf of every format (32,768, 1 and 0 positions, up to 2^20 -
+   1, the edges, the long run) read by the tree or not, or none (-1),
+   eight trees (one nested 11 sets deep, one 64); for the delta-scatter (K7) the
    one-plane interface on edge queues and 1 to 8,192 entries, and
    batches of one launch each: one bit set and cleared within and across
    queues, mirrors of 8, 16 and 65,536 rows in one launch, empty queues,
@@ -49,8 +51,10 @@ without printing its final line:
    and [64, 32768] against a broadcast src row); K6 over 954 payloads of
    each format (with ``Tensor.scatter_add_`` as the library yardstick of
    the positions form); K5 at [954 slices, 32,768-position anchors, a
-   dense, a sparse and an RLE leaf]; K2 count and row at [954 slices, 2
-   leaves] and K3 count with 16 programs over 8 union leaves at 954
+   dense, a sparse and an RLE leaf], against the bound with the anchor
+   read as a leaf of the tree and the one with the anchor uploaded; K2
+   count and row at [954 slices, 2 leaves] (the row mode beside
+   ``torch.bitwise_and``) and K3 count with 16 programs over 8 union leaves at 954
    slices, every leaf a row of one of 954 8-row mirrors; K11 at the
    probe's size (at least 8x the L2) with ``torch.sum`` of int32 beside
    it, and the probe's GB/s at that size and at the JAX package's 32 MiB,
@@ -1070,47 +1074,64 @@ K5_TREES = (
     ("Intersect", ("leaf", 0), ("Xor", ("leaf", 1), ("leaf", 3))),
     ("Intersect", ("leaf", 2), ("Union",)),
     ("Difference", ("leaf", 3)),
-    ("Intersect", ("leaf", 1), k5_deep_tree(9)),  # 11 masks deep
+    ("Intersect", ("leaf", 1), k5_deep_tree(9)),  # 11 sets deep
+    ("Union", ("Intersect", ("leaf", 5), ("leaf", 6)), ("Difference", ("leaf", 6), ("leaf", 0))),
+    ("Intersect", ("leaf", 5), ("Union", ("leaf", 6), k5_deep_tree(61))),  # 64 deep
 )
+# K5's windows: 1,024 words (32,768 positions) a block, 512 for the
+# deepest programs.
+K5_EDGES = (0, 16383, 16384, 32767, 32768, 65535, 65536, (1 << 20) - 32769, (1 << 20) - 32768,
+            (1 << 20) - 1)
+
+
+def k5_extra_rows(bp, s: int) -> list:
+    """Leaves 5 and 6 of slice s: positions and short runs on the windows'
+    edges, and one run over many windows, each in the format s picks."""
+    edges = np.array(K5_EDGES, np.int64)
+    near = np.concatenate([np.arange(e - 2, e + 3) for e in edges[1:-1]])
+    on_edges = np.unique(np.concatenate([edges, near[:: 1 + s % 3]])).astype(np.uint32)
+    long_run = np.arange(1000 + s, 200_000 + 7 * s, dtype=np.uint32)
+    return [k56_payload(bp, on_edges, s % 3), k56_payload(bp, long_run, (s + 1) % 3)]
 
 
 def check_k5(ac, bp, plan, rng) -> float:
     """K5 against its plain version on the card, exactly: 1, 7 and 954
-    slices; 4 leaves a slice drawn from every kind of :func:`k56_row` in
-    its own format (dense words, positions, runs; the edges; empty
-    payloads) and absent rows, so every format mix meets in one launch;
-    anchors of 32,768 positions, 1 position, none, and the last 300
-    positions up to 2^20 - 1; six trees, one 11 masks deep.  Returns the
+    slices; 7 leaves a slice: 4 drawn from every kind of :func:`k56_row`
+    in its own format (dense words, positions, runs; the edges; empty
+    payloads) and absent rows, so every format mix meets in one launch,
+    leaf 4 an anchor set (32,768, 1 and 0 positions, the last 300 up to
+    2^20 - 1) that no tree reads, and :func:`k5_extra_rows`; the anchor
+    leaf 4, 5 (the edges), 6 (the long run), 0 (a leaf the trees read) or
+    none (-1), slice by slice; eight trees, one 11 sets deep and one 64.
+    A ``torch.cuda.synchronize()`` after each launch.  Returns the
     largest absolute difference (0)."""
     import torch
 
     sw = bp.SLICE_WIDTH
     worst, n_checks = 0, 0
     for n in K56_SLICES:
-        leaves, anchors = [], []
+        leaves, anchor_leaf = [], []
         for s in range(n):
             row = []
             for i in range(4):
                 k = int(rng.integers(0, 8))
                 row.append(None if k == 7 else k56_payload(bp, k56_row(bp, rng, k)))
-            leaves.append(row)
             a = s % 4
-            anchors.append(np.sort(rng.choice(sw, size=K5_ANCHOR, replace=False)) if a == 0
-                           else np.array([sw - 1]) if a == 1 else np.array([], np.int64)
-                           if a == 2 else np.arange(sw - 300, sw))
-        offsets = np.zeros(n + 1, dtype=np.int64)
-        offsets[1:] = np.cumsum([len(a) for a in anchors])
-        positions = np.concatenate(anchors).astype(np.uint32)
-        if not len(positions):  # one slice, empty anchor: give it one position
-            positions, offsets[-1] = np.array([0], np.uint32), 1
+            anchor = (np.sort(rng.choice(sw, size=K5_ANCHOR, replace=False)) if a == 0
+                      else np.array([sw - 1]) if a == 1 else np.array([], np.int64)
+                      if a == 2 else np.arange(sw - 300, sw))
+            row.append(k56_payload(bp, anchor.astype(np.uint32)) if len(anchor) else None)
+            leaves.append(row + k5_extra_rows(bp, s))
+            anchor_leaf.append((4, 5, 6, 0, -1)[s % 5])
+        anchor_leaf = np.array(anchor_leaf, np.int32)
         for expr in K5_TREES:
             before = ac.launches
-            got = plan.anchored_count(expr, positions, offsets, leaves, "cuda")
+            got = plan.anchored_count(expr, anchor_leaf, leaves, "cuda")
             torch.cuda.synchronize()
             if ac.launches != before + 1:
                 raise AssertionError(f"anchored_count: {ac.launches - before} launches")
-            want = ac.plain_anchored_count(plan.compile_program(expr), positions, offsets,
-                                           leaves, "cuda")
+            want = ac.plain_anchored_count(plan.compile_program(expr), anchor_leaf, leaves,
+                                           "cuda")
             torch.cuda.synchronize()
             diff = int((got.long() - want.long()).abs().max())
             worst = max(worst, diff)
@@ -1118,8 +1139,10 @@ def check_k5(ac, bp, plan, rng) -> float:
             if diff:
                 raise AssertionError(f"anchored_count != plain: {n} slices, {expr}, diff {diff}")
     log(f"phase 3: anchored_count == plain on {n_checks} launches (max_abs_err {worst}): 1, 7 "
-        f"and {N_SLICES} slices x 4 leaves of every format and absent rows mixed in one launch, "
-        "anchors of 32,768, 1 and 0 positions and up to 2^20 - 1, six trees (one 11 deep)")
+        f"and {N_SLICES} slices x 7 leaves of every format and absent rows mixed in one launch, "
+        "rows on the windows' edges and a run over many windows; anchors of every format "
+        "(32,768, 1 and 0 positions, up to 2^20 - 1, the edges, the long run) read by the tree "
+        "or not, or none; eight trees (one 11 deep, one 64)")
     return float(worst)
 
 
@@ -1130,12 +1153,15 @@ def k6_bound_ms(payload_bytes: int, rows: int, hbm: float) -> tuple[float, str]:
     return nbytes / hbm * 1e3, "bytes"
 
 
-def k5_bound_ms(positions: int, leaf_bytes: int, slices: int, leaves: int,
-                hbm: float) -> tuple[float, str]:
-    """Least time for one K5 launch, as the JAX package's eff_bytes counts
-    it: the anchor (4 B a position) and every leaf's encoded bytes read
-    once, plus the table, 4 B out per slice."""
-    nbytes = 4 * positions + leaf_bytes + slices * (8 + 24 * leaves) + 4 * slices
+def k5_bound_ms(positions: int, anchor_in_tree: bool, leaf_bytes: int, slices: int,
+                leaves: int, hbm: float) -> tuple[float, str]:
+    """Least time for one K5 launch: every leaf's encoded bytes read once,
+    the anchor's too (4 B a position, as the JAX package's eff_bytes
+    counts it) where it is not a leaf the tree reads, and the table (an
+    anchor index and 3 int64 a leaf per slice) and 4 B out per slice."""
+    nbytes = leaf_bytes + slices * (8 + 24 * leaves) + 4 * slices
+    if not anchor_in_tree:
+        nbytes += 4 * positions
     return nbytes / hbm * 1e3, "bytes"
 
 
@@ -1187,14 +1213,12 @@ def time_k6(ep, bp, rng, hbm: float) -> dict:
     return out
 
 
-def time_k5(ac, bp, plan, rng, hbm: float) -> dict:
-    """K5 at [954 slices, 32,768-position anchors, three leaves: dense,
-    sparse, RLE]: the dense leaf a row of a 954-row mirror (read in
-    place, as a plane row is), whose 32,768 bits are the anchor; a
-    K5_SPARSE-position leaf and a K5_RUNS-run leaf; back to back, device
-    time, plain version, bound."""
-    import torch
-
+def k5_phase4_case(bp, rng) -> dict:
+    """Phase 4's K5 inputs: 954 slices, three leaves — leaf 0 a row of a
+    954-row mirror (read in place, as a plane row is) whose 32,768 bits
+    are the anchor, a K5_SPARSE-position leaf and a K5_RUNS-run leaf —
+    and the anchor's host positions (uint32 [954, 32,768], which an
+    uploaded-anchor design reads)."""
     sw = bp.SLICE_WIDTH
     anchors = np.sort(np.stack([rng.choice(sw, size=K5_ANCHOR, replace=False)
                                 for _ in range(N_SLICES)]), axis=1).astype(np.uint32)
@@ -1212,28 +1236,41 @@ def time_k5(ac, bp, plan, rng, hbm: float) -> dict:
         leaves.append([(bp.FMT_DENSE, dev_mirror[s]),
                        (bp.FMT_SPARSE, bp.to_device(sparse[s], "cuda")),
                        (bp.FMT_RLE, bp.to_device(runs, "cuda"))])
-    offsets = np.arange(N_SLICES + 1, dtype=np.int64) * K5_ANCHOR
-    positions = anchors.ravel()
-    expr = K5_TREES[0]
-    program = plan.compile_program(expr)
-    k_ms = time_cuda(lambda: ac.anchored_count(program, positions, offsets, leaves, "cuda"),
+    return {"leaves": leaves, "anchor_leaf": np.zeros(N_SLICES, np.int32), "anchors": anchors,
+            "expr": K5_TREES[0]}
+
+
+def time_k5(ac, bp, plan, rng, hbm: float) -> dict:
+    """K5 at :func:`k5_phase4_case`'s shape, the anchor leaf 0: back to
+    back, device time, plain version, and two bounds: the anchor read as
+    the tree's own leaf (this design) and the anchor uploaded besides (4 B
+    a position, the JAX package's eff_bytes)."""
+    case = k5_phase4_case(bp, rng)
+    leaves, anchor_leaf = case["leaves"], case["anchor_leaf"]
+    program = plan.compile_program(case["expr"])
+    k_ms = time_cuda(lambda: ac.anchored_count(program, anchor_leaf, leaves, "cuda"),
                      runs=11, per_run=5)
-    k_dev = device_ms(lambda: ac.anchored_count(program, positions, offsets, leaves, "cuda"),
+    k_dev = device_ms(lambda: ac.anchored_count(program, anchor_leaf, leaves, "cuda"),
                       "anchored_count_kernel", launches=20)
-    plain_ms = time_cuda(lambda: ac.plain_anchored_count(program, positions, offsets, leaves,
-                                                         "cuda"), runs=3, per_run=1, warmup=1)
+    plain_ms = time_cuda(lambda: ac.plain_anchored_count(program, anchor_leaf, leaves, "cuda"),
+                         runs=3, per_run=1, warmup=1)
     # Encoded bytes as the JAX package's eff_bytes counts them: a dense row
     # 128 KiB, positions and runs at their bucketed payload sizes.
     leaf_bytes = N_SLICES * (32768 * 4 + 4 * bp.payload_bucket(K5_SPARSE)
                              + 8 * bp.payload_bucket(K5_RUNS))
-    bound_ms, bound_by = k5_bound_ms(len(positions), leaf_bytes, N_SLICES, 3, hbm)
+    positions = case["anchors"].size
+    bound_ms, bound_by = k5_bound_ms(positions, True, leaf_bytes, N_SLICES, 3, hbm)
+    upload_bound_ms, _ = k5_bound_ms(positions, False, leaf_bytes, N_SLICES, 3, hbm)
     share = bound_ms / k_dev if k_dev else float("nan")
     log(f"phase 4: anchored_count [{N_SLICES} slices, {K5_ANCHOR}-position anchors, leaves "
-        f"dense / {K5_SPARSE} positions / {K5_RUNS} runs]: {k_ms:.4f} ms back to back, device "
-        f"{k_dev} ms ({share:.1%} of the bound), bound {bound_ms:.4f} ms by {bound_by}, "
+        f"dense (the anchor) / {K5_SPARSE} positions / {K5_RUNS} runs]: {k_ms:.4f} ms back to "
+        f"back, device {k_dev} ms ({share:.1%} of the bound), bound {bound_ms:.4f} ms by "
+        f"{bound_by} (the anchor a leaf of the tree; {upload_bound_ms:.4f} ms with the anchor "
+        f"uploaded, {upload_bound_ms / k_dev if k_dev else float('nan'):.1%}), "
+        f"table {N_SLICES * (8 + 24 * 3) + 8 * len(program)} B up a call, "
         f"plain {plain_ms:.4f} ms")
     return {"ms": k_ms, "device_ms": k_dev, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "upload_bound_ms": upload_bound_ms, "library_ms": None}
 
 
 # --- K2 and K3: the fused tree eval and the multi-query interpreter -----------
@@ -1652,12 +1689,21 @@ def time_k2k3(te, it, plan, bsi, hbm: float, rng) -> dict:
         plain_ms = time_cuda(plain, runs=3, per_run=1, warmup=1)
         bound_ms = nbytes / hbm * 1e3
         share = bound_ms / k_dev if k_dev else float("nan")
+        lib_ms, lib = None, "none (PyTorch has no popcount op)"
+        if name == "tree_eval_row":
+            # The row mode has no popcount: one PyTorch call computes the
+            # same and of two [954, 32768] rows.
+            a = torch.randint(-2**31, 2**31, (N_SLICES, 32768), dtype=torch.int32, device="cuda")
+            b = torch.randint(-2**31, 2**31, (N_SLICES, 32768), dtype=torch.int32, device="cuda")
+            c = torch.empty_like(a)
+            lib_ms = time_cuda(lambda: torch.bitwise_and(a, b, out=c))
+            lib = f"torch.bitwise_and(out=) {lib_ms:.4f} ms"
+            del a, b, c
         out[name] = {"ms": k_ms, "device_ms": k_dev, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": "bytes", "library_ms": None}
+                     "bound_by": "bytes", "library_ms": lib_ms}
         log(f"phase 4: {name} [{N_SLICES} slices, 2 leaves]: {k_ms:.4f} ms back to back, "
             f"device {k_dev} ms ({share:.1%} of the bound), bound {bound_ms:.4f} ms by bytes "
-            f"({nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms; "
-            "library: none (PyTorch has no popcount op)")
+            f"({nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms; library: {lib}")
     shapes = {}
     l2_flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     for name, reduce, table, prog, out_idx, plain_table in k3_timed_shapes(te, plan, bsi, table8,
@@ -4112,6 +4158,7 @@ def main() -> int:
         "plain_ms": k5_times["plain_ms"],
         "bound_ms": k5_times["bound_ms"],
         "bound_by": k5_times["bound_by"],
+        "upload_bound_ms": k5_times["upload_bound_ms"],
         "library_ms": None,
         "checked": k5_err == 0.0,
         "shape": [N_SLICES, K5_ANCHOR, "dense", K5_SPARSE, K5_RUNS],

@@ -69,7 +69,7 @@ fragment.go).  Here, as in ``pilosa_tpu.core.fragment``:
   (``bitplane.encode_row``: positions, runs, or dense words, whichever
   is smallest), paged to the device on demand into a small LRU
   (``SPARSE_DEVICE_CACHE``).  Queries read it through its format: the
-  anchored Count K5 (``ops/anchored_count.py``) searches it in place,
+  anchored Count K5 (``ops/anchored_count.py``) reads it in place,
   and the payload expansion K6 (``ops/expand_payload.py``) writes its
   dense row wherever a whole row must be stacked.  A sparse row past
   ``PROMOTE_BITS`` moves to the plane while budget remains.  Answers,

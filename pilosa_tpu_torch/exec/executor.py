@@ -1222,9 +1222,12 @@ class Executor:
         not fold-only, it has no anchor candidate, some slice's smallest
         anchor passes ANCHORED_MAX_POSITIONS, or no leaf is compressed.
         In each slice the candidate with the fewest bits (the first on a
-        tie) is the anchor; an empty anchor bounds the slice at 0.  The
-        count is ONE launch of K5 (``plan.anchored_count``) over every
-        remaining slice, any mix of formats; a failure raises."""
+        tie, by ``row_count``) is the anchor; an empty anchor bounds the
+        slice at 0.  The anchor goes to the card as the index of its leaf,
+        read there from its device form like every other leaf: nothing
+        is expanded on the host.  The count is ONE launch of K5
+        (``plan.anchored_count``) over every remaining slice, any mix of
+        formats; a failure raises."""
         if bp.PLANE_FORMAT == "dense":
             return None
         if not leaves or any(leaf.name != "Bitmap" for leaf in leaves):
@@ -1247,34 +1250,29 @@ class Executor:
                 continue
             if card > self.ANCHORED_MAX_POSITIONS:
                 return None
-            anchor = frags[ai].row_positions(resolved[ai][1])
-            if anchor is None or len(anchor) == 0:
-                continue
             for frag, (_, rid) in zip(frags, resolved):
                 hp = frag.host_payload(rid) if frag is not None else None
                 if hp is not None and hp[0] != bp.FMT_DENSE:
                     any_compressed = True
-            picked.append((anchor, frags))
+            picked.append((ai, card, frags))
         if not any_compressed:
             return None
-        apply_pending_many(f for _, frags in picked for f in frags)
-        offsets = np.zeros(len(picked) + 1, dtype=np.int64)
-        offsets[1:] = np.cumsum([len(a) for a, _ in picked])
-        positions = np.concatenate([a for a, _ in picked])
+        apply_pending_many(f for _, _, frags in picked for f in frags)
+        anchor_leaf = np.array([ai for ai, _, _ in picked], dtype=np.int32)
         dev_leaves = [
             [frag.device_leaf(rid) if frag is not None else None
              for frag, (_, rid) in zip(frags, resolved)]
-            for _, frags in picked
+            for _, _, frags in picked
         ]
         t0 = time.monotonic()
-        counts = plan.anchored_count(expr, positions, offsets, dev_leaves, self.holder.device)
+        counts = plan.anchored_count(expr, anchor_leaf, dev_leaves, self.holder.device)
         t_disp = time.monotonic()
         n = int(counts.sum(dtype=torch.int64))
         if perf_mod.enabled():
             # Logical: every leaf's dense row in every anchored slice;
-            # effective: the anchors and the encoded leaves read once
-            # (JAX executor.py:1792).
-            eff = positions.nbytes + sum(
+            # effective: 4 B a position of the anchors and the encoded
+            # leaves read once (JAX executor.py:1792).
+            eff = 4 * sum(card for _, card, _ in picked) + sum(
                 int(lf[1].numel() * lf[1].element_size())
                 for row in dev_leaves for lf in row if lf is not None
             )

@@ -309,14 +309,13 @@ def compile_program(expr: tuple) -> list[int]:
     return out
 
 
-def anchored_count(expr: tuple, positions: np.ndarray, offsets: np.ndarray, leaves,
-                   device) -> torch.Tensor:
+def anchored_count(expr: tuple, anchor_leaf, leaves, device) -> torch.Tensor:
     """int32 [S] position-domain counts of a fold-only tree: slice s
-    counts the anchor positions ``positions[offsets[s]:offsets[s + 1]]``
-    where the tree holds over ``leaves[s]`` (each ``(fmt, device
-    payload)`` or None for an absent row) — one K5 launch on CUDA, the
-    plain version on the CPU."""
-    return ac.anchored_count(compile_program(expr), positions, offsets, leaves, device)
+    counts the positions of its leaf ``anchor_leaf[s]`` (-1: none) where
+    the tree holds over ``leaves[s]`` (each ``(fmt, device payload)`` or
+    None for an absent row) — one K5 launch on CUDA, the plain version on
+    the CPU."""
+    return ac.anchored_count(compile_program(expr), anchor_leaf, leaves, device)
 
 
 def expr_has_bsi(expr: tuple) -> bool:

@@ -5,26 +5,28 @@ The port's counterpart of ``_build_anchored`` / ``anchored_count_exec``
 ``membership_sparse`` / ``membership_rle``
 (``pilosa_tpu/ops/bitplane.py:429-453``)::
 
-    out[s] = #{p in anchor_s : tree(member(leaf_0, p), ..., member(leaf_L-1, p))}
+    out[s] = #{p in A_s : tree(member(leaf_0, p), ..., member(leaf_L-1, p))}
 
-The anchors are host arrays — ``positions`` (uint32, each slice's
-anchor ascending) and CSR ``offsets`` (int64 ``[S + 1]``).  ``leaves[s]
-[i]`` is leaf i's row in slice s: ``(fmt, tensor)`` with an int32 bit-view
-tensor of the real entries (a dense row — typically a view of a
-fragment's mirror, read in place —, sorted positions, or ``[R, 2]`` runs),
-or None for an absent row, which is never a member.  ``program`` is the
-tree in postfix (:func:`compile_program` in ``exec/plan.py`` builds it):
-an index ``>= 0`` pushes that leaf's membership, ``OP_AND`` / ``OP_OR`` /
-``OP_ANDNOT`` / ``OP_XOR`` pop two and push one, ``OP_ZERO`` pushes an
-empty set.  Formats are values, not compile keys: any mix of formats and
-lengths goes in one launch.
+``leaves[s][i]`` is leaf i's row in slice s: ``(fmt, tensor)`` with an
+int32 bit-view tensor of the real entries (a dense row — typically a view
+of a fragment's mirror, read in place —, sorted positions, or ``[R, 2]``
+runs), or None for an absent row, which is never a member.  The anchor
+``A_s`` is one of them: ``anchor_leaf`` (int32 ``[S]``) names, for each
+slice, the leaf whose set it is, or -1 for a slice that counts 0; it may
+be a leaf the program does not read.  ``program`` is the tree in postfix
+(:func:`compile_program` in ``exec/plan.py`` builds it): an index ``>= 0``
+pushes that leaf's membership, ``OP_AND`` / ``OP_OR`` / ``OP_ANDNOT`` /
+``OP_XOR`` pop two and push one, ``OP_ZERO`` pushes an empty set.
+Formats are values, not compile keys: any mix of formats and lengths goes
+in one launch.  Nothing but the table goes up per call: ``S x L x 3``
+int64 leaf entries, the anchor indices and the program.
 
 On the CPU the wrapper runs :func:`plain_anchored_count` (the plain
 PyTorch version over ``bitplane.membership``).  On CUDA it launches the
 kernel (``csrc/anchored_count.cu``, built at first use by ``_build``)
 or raises — on a build failure, on a launch whose ``cudaGetLastError``
-is not 0, on a malformed program or leaf: there is no fallback to the
-plain version.  ``launches`` counts kernel launches, and nothing else.
+is not 0, on a malformed program, anchor or leaf: there is no fallback to
+the plain version.  ``launches`` counts kernel launches, and nothing else.
 """
 
 from __future__ import annotations
@@ -44,10 +46,13 @@ NAME = "anchored_count"
 SOURCE = "pilosa_tpu_torch/ops/csrc/anchored_count.cu"
 REPLACES = "pilosa_tpu/exec/plan.py:855"
 OP_AND, OP_OR, OP_ANDNOT, OP_XOR, OP_ZERO = -1, -2, -3, -4, -5
-# The kernel's stack of membership masks holds 64.
+# The kernel's stack of window bitmaps holds 64.
 MAX_DEPTH = 64
 # Slices are the grid's y dimension.
 MAX_SLICES = 65535
+# A block's window of words, the largest whose stack fits in shared memory.
+WINDOW_WORDS = (1024, 512)
+MAX_SMEM = 232448
 
 launches = 0
 _launch_mu = threading.Lock()
@@ -64,8 +69,8 @@ def _kernel():
             ctypes.c_int,  # slices
             ctypes.c_int,  # leaves
             ctypes.c_int,  # program length
-            ctypes.c_int,  # largest anchor
-            ctypes.c_void_p,  # positions
+            ctypes.c_int,  # stack depth
+            ctypes.c_int,  # window words
             ctypes.c_void_p,  # out
             ctypes.c_void_p,  # cudaStream_t
         ]
@@ -74,10 +79,10 @@ def _kernel():
     return _fn
 
 
-def check_program(program: Sequence[int], n_leaves: int) -> None:
+def check_program(program: Sequence[int], n_leaves: int) -> int:
     """Raise unless ``program`` is a well-formed postfix tree over
-    ``n_leaves`` leaves that fits the kernel's stack."""
-    depth = 0
+    ``n_leaves`` leaves that fits the kernel's stack; returns its depth."""
+    depth = deepest = 0
     for op in program:
         if op >= 0:
             if op >= n_leaves:
@@ -93,35 +98,66 @@ def check_program(program: Sequence[int], n_leaves: int) -> None:
             raise ValueError(f"unknown program op {op}")
         if depth > MAX_DEPTH:
             raise ValueError(f"program deeper than {MAX_DEPTH}")
+        deepest = max(deepest, depth)
     if depth != 1:
         raise ValueError("program must leave exactly one set")
+    return deepest
 
 
-def _check(program, positions, offsets, leaves, device) -> None:
-    if not isinstance(offsets, np.ndarray) or offsets.dtype != np.int64 or offsets.ndim != 1:
-        raise ValueError("offsets must be an int64 [slices + 1] array")
-    n = len(offsets) - 1
-    if n < 1 or len(leaves) != n:
-        raise ValueError(f"{len(leaves)} leaf lists for {n} slices")
-    if not isinstance(positions, np.ndarray) or positions.dtype != np.uint32:
-        raise ValueError("positions must be a uint32 array")
-    if offsets[0] != 0 or offsets[-1] != len(positions) or (np.diff(offsets) < 0).any():
-        raise ValueError("offsets must run from 0 to len(positions), ascending")
-    if len(positions) and int(positions.max()) >= bp.SLICE_WIDTH:
-        raise ValueError("anchor position outside the slice")
+def smem_bytes(window_words: int, n_leaves: int, n_prog: int, depth: int) -> int:
+    """A block's shared memory (``csrc/anchored_count.cu``: smem_bytes):
+    barriers and long runs, the slice's leaf table and ranges, the program, the
+    anchor's window, a ring of three staging buffers of half a window and
+    16 bytes, and ``depth`` window bitmaps."""
+    def align16(x):
+        return (x + 15) // 16 * 16
+
+    return (320 + align16(24 * n_leaves) + align16(8 * n_leaves) + align16(4 * n_prog)
+            + 4 * window_words + 3 * (2 * window_words + 16) + 4 * window_words * depth)
+
+
+def window_words(n_leaves: int, n_prog: int, depth: int) -> int:
+    """The largest window whose block fits in shared memory."""
+    for w in WINDOW_WORDS:
+        if smem_bytes(w, n_leaves, n_prog, depth) <= MAX_SMEM:
+            return w
+    raise ValueError(f"{n_leaves} leaves and {n_prog} ops at depth {depth} do not fit a "
+                     "block's shared memory")
+
+
+def _table(program, anchor_leaf, leaves, device) -> tuple[np.ndarray, list[int], int]:
+    """Check every argument in one pass over the leaves; returns the
+    anchors (int64 [S]), the flat leaf table ``[(fmt, address, entries)
+    per slice and leaf]`` and the program's depth."""
+    anchor = np.asarray(anchor_leaf)
+    n = len(leaves)
+    if anchor.ndim != 1 or len(anchor) != n or (n and anchor.dtype.kind not in "iu"):
+        raise ValueError(f"anchor_leaf must be an int array of one index per slice ({n})")
+    if n < 1:
+        raise ValueError("no slices")
     n_leaves = len(leaves[0])
-    if n_leaves < 1 or any(len(row) != n_leaves for row in leaves):
+    if n_leaves < 1:
         raise ValueError("every slice must list the same leaves")
-    check_program(program, n_leaves)
+    anchor = anchor.astype(np.int64)
+    if int(anchor.min()) < -1 or int(anchor.max()) >= n_leaves:
+        raise ValueError(f"an anchor names no leaf of {n_leaves}")
+    depth = check_program(program, n_leaves)
+    flat: list[int] = []
     for row in leaves:
+        if len(row) != n_leaves:
+            raise ValueError("every slice must list the same leaves")
         for leaf in row:
             if leaf is None:
+                flat.extend((0, 0, 0))
                 continue
             fmt, t = leaf
-            if entries(fmt, t) > bp.SLICE_WIDTH:
+            k = entries(fmt, t)
+            if k > bp.SLICE_WIDTH:
                 raise ValueError("a leaf holds more entries than a slice has positions")
             if t.device != device:
                 raise ValueError(f"leaves must lie on {device}")
+            flat.extend((fmt, t.data_ptr(), k))
+    return anchor, flat, depth
 
 
 def _device(device) -> torch.device:
@@ -131,17 +167,23 @@ def _device(device) -> torch.device:
     return device
 
 
-def plain_anchored_count(program: Sequence[int], positions: np.ndarray, offsets: np.ndarray,
-                         leaves, device: torch.device | str) -> torch.Tensor:
-    """The plain PyTorch version of :func:`anchored_count`."""
+def plain_anchored_count(program: Sequence[int], anchor_leaf, leaves,
+                         device: torch.device | str) -> torch.Tensor:
+    """The plain PyTorch version of :func:`anchored_count`: each slice's
+    anchor expanded to positions on the host, each leaf's membership by
+    ``bitplane.membership``."""
     device = _device(device)
-    _check(program, positions, offsets, leaves, device)
+    anchor, _, _ = _table(program, anchor_leaf, leaves, device)
     out = torch.zeros(len(leaves), dtype=torch.int32, device=device)
     for s, row in enumerate(leaves):
-        lo, hi = int(offsets[s]), int(offsets[s + 1])
-        if lo == hi:
+        a = int(anchor[s])
+        if a < 0 or row[a] is None:
             continue
-        pos = torch.from_numpy(positions[lo:hi].astype(np.int64)).to(device)
+        fmt, t = row[a]
+        pos = bp.np_row_to_columns(bp.decode_payload(fmt, bp.to_host(t)))
+        if not len(pos):
+            continue
+        pos = torch.from_numpy(pos.astype(np.int64)).to(device)
         stack: list[torch.Tensor] = []
         for op in program:
             if op >= 0:
@@ -158,14 +200,14 @@ def plain_anchored_count(program: Sequence[int], positions: np.ndarray, offsets:
     return out
 
 
-def anchored_count(program: Sequence[int], positions: np.ndarray, offsets: np.ndarray,
-                   leaves, device: torch.device | str) -> torch.Tensor:
+def anchored_count(program: Sequence[int], anchor_leaf, leaves,
+                   device: torch.device | str) -> torch.Tensor:
     """int32 [S] anchored counts — the kernel on CUDA (one launch), the
     plain version on the CPU; raises for any other device."""
     global launches
     device = torch.device(device)
     if device.type == "cpu":
-        return plain_anchored_count(program, positions, offsets, leaves, device)
+        return plain_anchored_count(program, anchor_leaf, leaves, device)
     if device.type != "cuda":
         raise ValueError(f"{NAME} runs on cuda or cpu tensors, not {device}")
     device = _device(device)
@@ -174,32 +216,27 @@ def anchored_count(program: Sequence[int], positions: np.ndarray, offsets: np.nd
     # change, and an evicted mirror's memory is freed with its last
     # reference.
     leaves = tuple(tuple(row) for row in leaves)
-    _check(program, positions, offsets, leaves, device)
+    anchor, flat, depth = _table(program, anchor_leaf, leaves, device)
     n, n_leaves = len(leaves), len(leaves[0])
     if n > MAX_SLICES:
         raise ValueError(f"{NAME} takes at most {MAX_SLICES} slices per launch")
-    widest = int(np.diff(offsets).max())
-    if widest < 1:
-        raise ValueError(f"{NAME} needs at least one anchor position")
-    meta = np.zeros(n + 1 + 3 * n * n_leaves + len(program), dtype=np.int64)
-    meta[: n + 1] = offsets
-    table = meta[n + 1 : n + 1 + 3 * n * n_leaves].reshape(n, n_leaves, 3)
-    for s, row in enumerate(leaves):
-        for i, leaf in enumerate(row):
-            if leaf is not None:
-                fmt, t = leaf
-                table[s, i] = (fmt, t.data_ptr(), entries(fmt, t))
-    meta[n + 1 + 3 * n * n_leaves :] = program
+    words = window_words(n_leaves, len(program), depth)
     fn = _kernel()
     # ``leaves`` holds the leaf tensors until the launch is enqueued;
     # later frees (and K7's later patches of a mirror) are ordered after it
     # on the stream.
     with torch.cuda.device(device):
-        dev_meta = torch.from_numpy(meta).to(device)
-        dev_pos = torch.from_numpy(np.ascontiguousarray(positions).view(np.int32)).to(device)
+        # Pinned, so the upload is queued on the stream and the host goes
+        # on; the caching host allocator keeps the buffer until it is read.
+        meta = torch.empty(n + len(flat) + len(program), dtype=torch.int64, pin_memory=True)
+        m = meta.numpy()
+        m[:n] = anchor
+        m[n : n + len(flat)] = flat
+        m[n + len(flat) :] = program
+        dev_meta = meta.to(device, non_blocking=True)
         out = torch.zeros(n, dtype=torch.int32, device=device)
-        rc = fn(dev_meta.data_ptr(), n, n_leaves, len(program), widest, dev_pos.data_ptr(),
-                out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+        rc = fn(dev_meta.data_ptr(), n, n_leaves, len(program), depth, words, out.data_ptr(),
+                torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{NAME} launch failed: cudaError {rc}")
     with _launch_mu:

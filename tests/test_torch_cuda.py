@@ -345,40 +345,40 @@ def test_expand_payload_matches_plain(cuda, n):
 
 @pytest.mark.parametrize("n", [1, 7, 954])
 def test_anchored_count_matches_plain(cuda, n):
-    """Every format mix in one launch, absent rows, anchors of 1 and
-    32,768 positions, empty anchors, the sentinel edges."""
+    """Every format mix in one launch, absent rows, anchors of every format
+    as a fourth leaf (32,768 positions, 1, none, a run up to 2^20) or as
+    the tree's own leaf, the window edges, a program 64 deep."""
     from pilosa_tpu_torch.exec import plan as tplan
     from pilosa_tpu_torch.ops import anchored_count as ac
 
     rng = np.random.default_rng(n)
     sw = tbp.SLICE_WIDTH
-    leaves, anchors = [], []
+    leaves, anchor_leaf = [], []
     for s in range(n):
-        leaves.append([(r[0], r[1]) if r is not None else None
-                       for r in _mixed_rows(rng, 3, cuda)[::-1] + _mixed_rows(rng, 1, cuda)][:3])
-        k = s % 4
-        anchors.append(np.sort(rng.choice(sw, size=32768, replace=False)) if k == 0 else
-                       np.array([sw - 1]) if k == 1 else np.array([], np.int64) if k == 2 else
-                       np.arange(sw - 300, sw))
-    offsets = np.zeros(n + 1, dtype=np.int64)
-    offsets[1:] = np.cumsum([len(a) for a in anchors])
-    positions = np.concatenate(anchors).astype(np.uint32)
-    if not len(positions):
-        positions = np.array([0], np.uint32)
-        offsets[-1] = 1
-    deep = ("leaf", 2)  # nested 9 masks deep: past the kernel's register-held top four
-    for k in range(8):
+        row = [(r[0], r[1]) if r is not None else None
+               for r in _mixed_rows(rng, 3, cuda)[::-1] + _mixed_rows(rng, 1, cuda)][:3]
+        k = s % 5
+        offs = (np.sort(rng.choice(sw, size=32768, replace=False)) if k == 0 else
+                np.array([sw - 1]) if k == 1 else np.array([], np.int64) if k == 2 else
+                np.arange(sw - 300, sw) if k == 3 else
+                np.array([0, 16383, 16384, 32767, 32768, sw - 32768, sw - 1]))
+        fmt, payload, _ = tbp.encode_row(offs.astype(np.uint32))
+        row.append((fmt, tbp.to_device(tbp.payload_entries(fmt, payload), cuda)))
+        leaves.append(row)
+        anchor_leaf.append(-1 if k == 2 else 0 if (s % 3 == 2 and row[0] is not None) else 3)
+    anchor_leaf = np.array(anchor_leaf, np.int32)
+    deep = ("leaf", 2)
+    for k in range(62):  # 64 sets deep inside the Intersect
         deep = (("Union", "Intersect", "Xor", "Difference")[k % 4], ("leaf", k % 3), deep)
     for expr in (("Intersect", ("leaf", 0), ("leaf", 1), ("leaf", 2)),
                  ("Difference", ("leaf", 0), ("Union", ("leaf", 1), ("leaf", 2))),
                  ("Xor", ("leaf", 2), ("Intersect", ("leaf", 0)), ("Union",)),
                  ("Intersect", ("leaf", 1), deep)):
         before = ac.launches
-        got = tplan.anchored_count(expr, positions, offsets, leaves, cuda)
+        got = tplan.anchored_count(expr, anchor_leaf, leaves, cuda)
         torch.cuda.synchronize()
         assert ac.launches == before + 1
-        want = ac.plain_anchored_count(tplan.compile_program(expr), positions, offsets, leaves,
-                                       cuda)
+        want = ac.plain_anchored_count(tplan.compile_program(expr), anchor_leaf, leaves, cuda)
         assert torch.equal(got, want), expr
 
 

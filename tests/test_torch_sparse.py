@@ -200,50 +200,153 @@ TREES = [
     ("Intersect", ("leaf", 0), ("Union",)),
     ("Difference", ("leaf", 0)),
 ]
+# K5's windows: 1,024 words (32,768 positions) a block, 512 words for the
+# deepest programs.
+EDGES = np.array([0, 16383, 16384, 32767, 32768, 65535, 65536, SW - 32769, SW - 32768,
+                  SW - 1], dtype=np.uint32)
 
 
-@pytest.mark.parametrize("expr", TREES, ids=range(len(TREES)))
-def test_anchored_count_matches_jax(expr):
-    """Plain K5 over a mix of formats, absent rows and anchor sizes (1
-    position, 0, many) in one call equals the JAX package's anchored
-    program run per format signature on padded payloads."""
+def _deep(levels):
+    """Union(l0, Intersect(l1, Xor(l2, Difference(l3, ...)))): each level
+    keeps one more set on the stack, levels + 1 deep."""
+    ops = ("Union", "Intersect", "Xor", "Difference")
+    expr = ("leaf", levels % 4)
+    for k in reversed(range(levels)):
+        expr = (ops[k % 4], ("leaf", k % 4), expr)
+    return expr
+
+
+def _forced(fmt, offs):
+    """A row's real entries in format ``fmt`` (None: ``encode_row``'s
+    choice) as ``(fmt, payload)``."""
+    offs = np.unique(np.asarray(offs, dtype=np.int64)).astype(np.uint32)
+    if fmt is None:
+        fmt, payload, _ = tbp.encode_row(offs)
+        return fmt, tbp.payload_entries(fmt, payload)
+    if fmt == tbp.FMT_DENSE:
+        return fmt, tbp.np_columns_to_row(offs)
+    if fmt == tbp.FMT_SPARSE:
+        return fmt, offs
+    return fmt, tbp.np_positions_to_runs(offs)
+
+
+def _jax_anchored(expr, anchor_offs, rows):
+    """The JAX package's anchored program on one slice, the anchor as
+    sentinel-padded positions, each leaf ``(fmt, real entries)`` or None
+    in its own format, padded."""
+    if not len(anchor_offs):
+        return 0
+    fmts, pays = [], []
+    for r in rows:
+        if r is None:
+            fmts.append(jbp.FMT_SPARSE)
+            pays.append(np.full((1, jbp.PAYLOAD_BUCKET_FLOOR), jbp.FMT_SENTINEL, np.uint32))
+        elif r[0] == jbp.FMT_DENSE:
+            fmts.append(r[0])
+            pays.append(r[1][None])
+        else:
+            fmts.append(r[0])
+            pays.append(_padded(r[0], r[1], len(r[1]))[None])
+    a = _padded(jbp.FMT_SPARSE, np.asarray(anchor_offs, np.uint32),
+                jbp.payload_bucket(len(anchor_offs)))[None]
+    return int(np.asarray(jplan.anchored_count_exec(
+        expr, tuple(fmts), jnp.asarray(a), [jnp.asarray(p) for p in pays]))[0])
+
+
+def _k5_case(case):
+    """(expr, [(anchor leaf index or -1, [leaf offsets or None], [format or
+    None])] per slice) of a named case."""
     rng = np.random.default_rng(11)
-    makers = [
-        lambda: _scattered(rng, 500),
-        lambda: _clustered(rng, 4000),
-        lambda: _scattered(rng, 30_000),  # dense format
-        lambda: None,  # absent row
-    ]
-    slices = []
-    for s in range(6):
-        anchor = [_scattered(rng, 700), np.array([SW - 1], np.uint32), np.array([], np.uint32),
-                  _clustered(rng, 3000), np.arange(SW - 64, SW, dtype=np.uint32),
-                  _scattered(rng, 32768)][s]
-        rows = [makers[(s + i) % 4]() for i in range(3)]
-        slices.append((anchor, rows))
-    offsets = np.zeros(len(slices) + 1, dtype=np.int64)
-    offsets[1:] = np.cumsum([len(a) for a, _ in slices])
-    positions = np.concatenate([a for a, _ in slices]).astype(np.uint32)
+    fmts3 = (tbp.FMT_DENSE, tbp.FMT_SPARSE, tbp.FMT_RLE)
+    if isinstance(case, int):
+        # Arbitrary anchors (1 position, none, many, every format) as a
+        # fourth leaf the program does not read; rows of every format
+        # and absent rows.
+        makers = [
+            lambda: _scattered(rng, 500),
+            lambda: _clustered(rng, 4000),
+            lambda: _scattered(rng, 30_000),  # dense format
+            lambda: None,  # absent row
+        ]
+        slices = []
+        for s in range(6):
+            anchor = [_scattered(rng, 700), np.array([SW - 1], np.uint32),
+                      np.array([], np.uint32), _clustered(rng, 3000),
+                      np.arange(SW - 64, SW, dtype=np.uint32), _scattered(rng, 32768)][s]
+            rows = [makers[(s + i) % 4]() for i in range(3)]
+            slices.append((3 if len(anchor) else -1, rows + [anchor], [None] * 4))
+        return TREES[case], slices
+    if case == "anchor_formats":
+        # The same anchor set in each format, as a leaf outside the
+        # program and as the tree's own first leaf; an absent anchor row.
+        expr = ("Intersect", ("leaf", 0), ("Union", ("leaf", 1), ("leaf", 2)))
+        anchor = np.union1d(_clustered(rng, 6000), _scattered(rng, 900))
+        rows = [np.union1d(anchor[::2], _scattered(rng, 2000)), _scattered(rng, 20_000),
+                _clustered(rng, 9000)]
+        slices = []
+        for f in fmts3:
+            slices.append((3, rows + [anchor], [None, None, None, f]))
+            slices.append((0, [anchor] + rows[1:] + [None], [f, f, None, None]))
+        slices.append((3, rows + [None], [None] * 4))
+        slices.append((-1, rows + [anchor], [None] * 4))
+        return expr, slices
+    if case == "window_edges":
+        # Positions and runs on the windows' edges, in every format, as
+        # leaves and as anchors.
+        runs = np.concatenate([np.arange(e - 3, e + 3) for e in EDGES[1:-1]] +
+                              [np.arange(0, 5), np.arange(SW - 5, SW)])
+        expr = ("Difference", ("leaf", 0), ("Xor", ("leaf", 1), ("leaf", 2)))
+        slices = []
+        for f in fmts3:
+            for g in fmts3:
+                slices.append((0, [EDGES, runs[::3], runs, None], [f, g, tbp.FMT_RLE, None]))
+                slices.append((3, [runs, EDGES[::2], EDGES, runs], [g, f, g, f]))
+        return expr, slices
+    if case == "run_across_windows":
+        # One run over many windows, against rows that end and start
+        # inside it.
+        long_run = np.arange(1000, 200_000)
+        expr = ("Intersect", ("leaf", 0), ("Difference", ("leaf", 1), ("leaf", 2)))
+        inner = _scattered(rng, 5000)
+        slices = []
+        for f in fmts3:
+            slices.append((0, [long_run, np.arange(30_000, 70_000), inner], [f, tbp.FMT_RLE, None]))
+            slices.append((1, [inner, long_run, np.arange(150_000, 260_000)],
+                           [None, f, tbp.FMT_RLE]))
+        return expr, slices
+    if case == "deep64":
+        # A program 64 sets deep: the kernel's largest stack.
+        expr = ("Intersect", ("leaf", 1), _deep(62))
+        assert tac.check_program(tplan.compile_program(expr), 4) == tac.MAX_DEPTH
+        slices = []
+        for s, f in enumerate(fmts3):
+            rows = [_scattered(rng, 3000 + 1000 * s), _clustered(rng, 12_000),
+                    np.union1d(_scattered(rng, 8000), EDGES), _clustered(rng, 5000, runs=64)]
+            slices.append((1, rows, [f, None, None, tbp.FMT_RLE]))
+        return expr, slices
+    raise KeyError(case)
+
+
+K5_CASES = list(range(len(TREES))) + ["anchor_formats", "window_edges", "run_across_windows",
+                                       "deep64"]
+
+
+@pytest.mark.parametrize("case", K5_CASES, ids=[str(c) for c in K5_CASES])
+def test_anchored_count_matches_jax(case):
+    """Plain K5 over a mix of formats, absent rows and anchors — a leaf
+    of the slice, in any format, read by the program or not, or none —
+    in one call equals the JAX package's anchored program run per format
+    signature on padded payloads, with the anchor as padded positions."""
+    expr, slices = _k5_case(case)
+    anchor_leaf = np.array([a for a, _, _ in slices], dtype=np.int32)
     leaves, want = [], []
-    for anchor, rows in slices:
-        enc = [None if r is None else tbp.encode_row(r) for r in rows]
-        leaves.append([None if e is None else (e[0], _device_payload(e[0], e[1])) for e in enc])
-        if not len(anchor):
-            want.append(0)
-            continue
-        fmts = tuple(jbp.FMT_SPARSE if e is None else e[0] for e in enc)
-        pays = []
-        for e in enc:
-            if e is None:
-                p = np.full((1, jbp.PAYLOAD_BUCKET_FLOOR), jbp.FMT_SENTINEL, np.uint32)
-            elif e[0] == jbp.FMT_DENSE:
-                p = e[1][None]
-            else:
-                p = _padded(e[0], e[1], len(e[1]))[None]
-            pays.append(jnp.asarray(p))
-        a = _padded(jbp.FMT_SPARSE, anchor, jbp.payload_bucket(len(anchor)))[None]
-        want.append(int(np.asarray(jplan.anchored_count_exec(expr, fmts, jnp.asarray(a), pays))[0]))
-    got = tplan.anchored_count(expr, positions, offsets, leaves, "cpu").numpy()
+    for a, rows, fmts in slices:
+        forms = [None if r is None else _forced(f, r) for r, f in zip(rows, fmts)]
+        leaves.append([None if x is None else (x[0], tbp.to_device(x[1], "cpu")) for x in forms])
+        anchor = (np.array([], np.uint32) if a < 0 or rows[a] is None
+                  else np.unique(np.asarray(rows[a], np.int64)).astype(np.uint32))
+        want.append(_jax_anchored(expr, anchor, forms))
+    got = tplan.anchored_count(expr, anchor_leaf, leaves, "cpu").numpy()
     np.testing.assert_array_equal(got, want)
 
 
@@ -262,9 +365,19 @@ def test_compile_program_and_checks():
     deep = [0] * 65 + [tac.OP_OR] * 64
     with pytest.raises(ValueError):
         tac.check_program(deep, 1)
+    assert tac.check_program([0, 1, tac.OP_AND, tac.OP_ZERO, tac.OP_OR], 2) == 2
     row = [(tbp.FMT_SPARSE, torch.zeros(0, dtype=torch.int32))]
+    for anchor in ([1], [-2], [0, 0], [0.0]):
+        with pytest.raises(ValueError):
+            tac.anchored_count([0], np.array(anchor), [row], "cpu")
     with pytest.raises(ValueError):
-        tac.anchored_count([0], np.array([SW], np.uint32), np.array([0, 1], np.int64), [row], "cpu")
+        tac.anchored_count([0], np.array([0]), [[(tbp.FMT_RLE, torch.zeros(3, dtype=torch.int32))]],
+                           "cpu")
+    # The window: 1,024 words, halved where the stack would not fit.
+    assert tac.window_words(3, 5, 2) == 1024
+    assert tac.window_words(4, 127, tac.MAX_DEPTH) == 512
+    assert all(tac.smem_bytes(tac.window_words(n, k, d), n, k, d) <= tac.MAX_SMEM
+               for n in (1, 64, 1024) for k in (1, 8191) for d in (1, 8, 64))
     with pytest.raises(ValueError):
         tep.expand_payloads([(tbp.FMT_RLE, torch.zeros(3, dtype=torch.int32),
                               torch.zeros(tbp.WORDS_PER_SLICE, dtype=torch.int32))])
@@ -281,8 +394,7 @@ def test_k5_k6_raise_off_the_cpu_and_without_their_library(monkeypatch):
     with pytest.raises(ValueError):
         tep.expand_payloads([(tbp.FMT_DENSE, meta, meta)])
     with pytest.raises(ValueError):
-        tac.anchored_count([0], np.array([5], np.uint32), np.array([0, 1], np.int64),
-                           [[(tbp.FMT_DENSE, meta)]], "meta")
+        tac.anchored_count([0], np.array([0], np.int32), [[(tbp.FMT_DENSE, meta)]], "meta")
 
     def no_library(name):
         raise _build.KernelBuildError("nvcc not found: the CUDA kernels cannot be built")
@@ -297,8 +409,7 @@ def test_k5_k6_raise_off_the_cpu_and_without_their_library(monkeypatch):
     pos = torch.tensor([1, 9], dtype=torch.int32)
     with pytest.raises(_build.KernelBuildError):
         tep.expand_payloads([(tbp.FMT_SPARSE, pos, row)])
-    monkeypatch.setattr(tac, "_check", lambda *a: None)
+    monkeypatch.setattr(tac, "_table", lambda *a: (np.zeros(1, np.int64), [1, 0, 2], 1))
     with pytest.raises(_build.KernelBuildError):
-        tac.anchored_count([0], np.array([5], np.uint32), np.array([0, 1], np.int64),
-                           [[(tbp.FMT_SPARSE, pos)]], "cuda")
+        tac.anchored_count([0], np.array([0], np.int32), [[(tbp.FMT_SPARSE, pos)]], "cuda")
     assert (tac.launches, tep.launches) == before

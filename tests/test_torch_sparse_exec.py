@@ -202,6 +202,32 @@ def test_anchored_route_engages_and_matches_jax(node_pair, monkeypatch):
     assert seen["k5"] >= 2 * 6
 
 
+def test_anchored_route_reads_the_anchor_on_the_card(node_pair, monkeypatch):
+    """The anchor goes to K5 as the index of its leaf, read from its device
+    form like the other leaves: with the port's ``Fragment.row_positions``
+    raising, every anchored Count answers as the JAX node does, with one
+    K5 call a request."""
+    set_budget(monkeypatch, 0)
+    oracle = corpus()
+    j, t = node_pair(oracle)
+
+    def refuse(self, row_id):
+        raise AssertionError("the anchored route expanded an anchor on the host")
+
+    monkeypatch.setattr(tfr.Fragment, "row_positions", refuse)
+    seen = spy(monkeypatch)
+    engaged_any = False
+    for q, want in ANCHORED:
+        before = dict(seen)
+        got = ask(t.host, q)
+        assert got == ask(j.host, q), q
+        assert got[0][1]["results"][0] == want(oracle), q
+        engaged = seen["jax_anchored"] > before["jax_anchored"]
+        engaged_any |= engaged
+        assert seen["k5"] - before["k5"] == (2 if engaged else 0), q  # JSON and protobuf
+    assert engaged_any
+
+
 DECLINES = [
     # (name, query, plane format, dense budget): each declines on one rule
     ("dense_format", f"Count(Intersect({bm(0)}, {bm(1)}))", "dense", 0),
