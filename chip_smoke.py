@@ -177,6 +177,7 @@ port's package is not beside this file.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -1276,6 +1277,9 @@ def time_k5(ac, bp, plan, rng, hbm: float) -> dict:
 # --- K2 and K3: the fused tree eval and the multi-query interpreter -----------
 
 K23_SLICES = (1, 3, N_SLICES)
+# Phase 3's K2 slice counts: the coalescer's Bitmap storm (16) and four
+# node tables concatenated (under coalesce.MAX_CONCAT_ROWS) besides.
+K2_SLICES = (1, 3, 16, N_SLICES, 4 * N_SLICES)
 # Mirror heights mixed in one K2 table: 8 (phase 5's fragments), 64 and a
 # full dense tier (65,536 rows, 8 GiB: row addresses past 2^32 bytes).
 K2_MIRROR_ROWS = (8, 64, 65536)
@@ -1292,8 +1296,10 @@ def k2_chain(depth: int) -> tuple:
 
 def k2_trees() -> list:
     """Every fold, nested trees, a single leaf, Union(), Difference and
-    Xor chains, a tree 11 deep and one past K2's stack (it runs on K3)."""
-    leaf = [("leaf", i) for i in range(8)]
+    Xor chains, a tree 11 deep and one past K2's stack (it runs on K3);
+    9 and 16 leaves and a depth-8 tree of 11 pushes (the kernel's general
+    variant), a depth-8 chain of 8 pushes (its fast variant's widest)."""
+    leaf = [("leaf", i) for i in range(16)]
     return [
         leaf[0],
         ("Intersect", leaf[0], leaf[1]),
@@ -1307,6 +1313,11 @@ def k2_trees() -> list:
         ("Xor", ("Difference", leaf[7], leaf[0]), ("Intersect", leaf[1], leaf[2], leaf[3])),
         ("Intersect", leaf[1], k5_deep_tree(9)),
         k2_chain(20),
+        ("Union", *leaf[:9]),
+        ("Xor", ("Intersect", *leaf[:4]), ("Union", *leaf[4:8]), ("Difference", *leaf[8:12]),
+         ("Xor", *leaf[12:16])),
+        k2_chain(7),
+        ("Difference", ("Intersect", *leaf[8:12]), k2_chain(6)),
     ]
 
 
@@ -1345,21 +1356,31 @@ def k2_table(te, bases, n: int, n_cols: int, rng):
 
 
 def check_k2(te, it, plan, rng) -> float:
-    """K2 against its plain version on the card, exactly: 1, 3 and 954
-    slices; 1 to 8 leaves; every tree of :func:`k2_trees` (the one past
-    the stack cap through ``plan.tree_eval``, which must launch K3 and not
-    K2); absent, scratch and mirror rows of 8, 64 and 65,536 rows in one
-    table; count, row and total.  Returns the largest absolute
-    difference (0)."""
+    """K2 against its plain version on the card, exactly: 1, 3, 16 and 954
+    slices, and 3,816 (four checked 954-slice tables concatenated, as the
+    coalescer concatenates, under its 4,096-slice cap); 1 to 16 leaves;
+    every tree of :func:`k2_trees` (the one past the stack cap through
+    ``plan.tree_eval``, which must launch K3 and not K2); absent, scratch
+    and mirror rows of 8, 64 and 65,536 rows in one table; count, row and
+    total.  Returns the largest absolute difference (0)."""
     import torch
 
     bases = k2_bases(rng)
-    worst, n_checks = 0, 0
-    for n in K23_SLICES:
+    worst, n_checks, variants = 0, 0, {}
+    for n in K2_SLICES:
         for expr in k2_trees():
-            table = k2_table(te, bases, n, n_leaves(expr), rng)
+            if n > N_SLICES:
+                parts = [k2_table(te, bases, N_SLICES, n_leaves(expr), rng)
+                         for _ in range(n // N_SLICES)]
+                for t in parts:
+                    t.check()
+                table = te.RowTable.concat_slices(parts)
+                assert table.checked
+            else:
+                table = k2_table(te, bases, n, n_leaves(expr), rng)
             program = plan.compile_program(expr)
             deep = te.program_depth(program, table.shape[1]) > te.MAX_DEPTH
+            variant = "k3" if deep else ("fast" if te.resolve(program) is not None else "general")
             for reduce in ("count", "row", "total"):
                 k2, k3 = te.launches, it.launches
                 got = plan.tree_eval(expr, reduce, table)
@@ -1375,11 +1396,16 @@ def check_k2(te, it, plan, rng) -> float:
                 if diff or got.shape != want.shape:
                     raise AssertionError(f"tree_eval != plain: {n} slices, {expr}, {reduce}, "
                                          f"diff {diff}")
+                variants[variant] = variants.get(variant, 0) + 1
+            del table, want, got
     del bases
-    log(f"phase 3: tree_eval == plain on {n_checks} launches (max_abs_err {worst}): 1, 3 and "
-        f"{N_SLICES} slices, 1 to 8 leaves, every fold, nested trees, a single leaf, Union(), "
-        "Difference and Xor chains, absent / scratch / mirror rows of 8, 64 and 65,536 rows "
-        "in one table, count / row / total; a tree past the stack cap ran on interp")
+    torch.cuda.empty_cache()
+    log(f"phase 3: tree_eval == plain on {n_checks} launches (max_abs_err {worst}; by variant "
+        f"{json.dumps(variants)}): {', '.join(map(str, K2_SLICES))} slices (the last four "
+        f"checked {N_SLICES}-slice tables concatenated), 1 to 16 leaves, every fold, nested "
+        "trees, a single leaf, Union(), Difference and Xor chains, depth 8 in both variants, "
+        "absent / scratch / mirror rows of 8, 64 and 65,536 rows in one table, count / row / "
+        "total; a tree past the stack cap ran on interp")
     return float(worst)
 
 
@@ -1656,11 +1682,15 @@ def k3_timed_shapes(te, plan, bsi, table8, rng) -> list:
 
 
 def time_k2k3(te, it, plan, bsi, hbm: float, rng) -> dict:
-    """K2 count and row at [954 slices, 2 leaves], and K3 at the shapes of
-    :func:`k3_timed_shapes`, every storm leaf a row of one of 954 mirrors
-    of 8 rows (phase 5's layout, read in place): back to back, device
-    time, plain version, bound.  K3's device time is also taken with the
-    L2 flushed before each launch (a 128 MiB write, 2.5 times the L2): the
+    """K2 at [954 slices, 2 leaves] in count, total and row, and row at
+    [16, 2] (the coalescer's Bitmap storm), every leaf a row of one of 954
+    mirrors of 8 rows (phase 5's layout, read in place), then K3 at the
+    shapes of :func:`k3_timed_shapes`: back to back, device time, plain
+    version, bound.  The row mode's library call, ``torch.bitwise_and(a,
+    b, out=c)`` on two [954, 32768] int32 tensors, is timed the same two
+    ways, and K2's row mode over a table naming those same rows (the
+    call's own inputs).  K3's device time is also taken with the L2
+    flushed before each launch (a 128 MiB write, 2.5 times the L2): the
     time set against the bound by bytes of device memory, which a shape
     whose data fits in L2 (c) would otherwise beat from the L2."""
     import torch
@@ -1672,36 +1702,54 @@ def time_k2k3(te, it, plan, bsi, hbm: float, rng) -> dict:
     idx[..., 1] = np.arange(8)[None, :]
     table8 = te.RowTable(mirrors, idx)
     table2 = te.RowTable(mirrors, idx[:, :2].copy())
+    table2_16 = te.RowTable(mirrors[:16], idx[:16, :2].copy())
     expr = ("Intersect", ("leaf", 0), ("leaf", 1))
     program = plan.compile_program(expr)
     row_bytes = 32768 * 4
+    a = torch.randint(-2**31, 2**31, (N_SLICES, 32768), dtype=torch.int32, device="cuda")
+    b = torch.randint(-2**31, 2**31, (N_SLICES, 32768), dtype=torch.int32, device="cuda")
+    c = torch.empty_like(a)
+    same = np.zeros((N_SLICES, 2, 2), dtype=np.int64)
+    same[:, 1, 0] = 1
+    same[..., 1] = np.arange(N_SLICES)[:, None]
+    table_ab = te.RowTable([a, b], same)
+    lib_fn = lambda: torch.bitwise_and(a, b, out=c)  # noqa: E731
+    lib_ms = time_cuda(lib_fn)
+    lib_dev = device_ms(lib_fn, "elementwise")
+    same_ms = time_cuda(lambda: te.tree_eval(table_ab, program, "row"))
+    same_dev = device_ms(lambda: te.tree_eval(table_ab, program, "row"), "tree_eval_")
+    if not torch.equal(te.tree_eval(table_ab, program, "row"), torch.bitwise_and(a, b)):
+        raise AssertionError("phase 4: tree_eval row != torch.bitwise_and on the same rows")
+    log(f"phase 4: torch.bitwise_and(out=) [{N_SLICES}, 32768] int32: {lib_ms:.4f} ms back to "
+        f"back, device {lib_dev} ms; tree_eval row over a table naming the same two tensors' "
+        f"rows: {same_ms:.4f} ms back to back, device {same_dev} ms")
+    del a, b, c, table_ab
     out = {}
-    for name, fn, plain, nbytes in (
-        ("tree_eval_count", lambda: te.tree_eval(table2, program, "count"),
-         lambda: te.plain_tree_eval(table2, program, "count"),
-         N_SLICES * (2 * row_bytes + 2 * 8 + 4)),
-        ("tree_eval_row", lambda: te.tree_eval(table2, program, "row"),
-         lambda: te.plain_tree_eval(table2, program, "row"),
-         N_SLICES * (3 * row_bytes + 2 * 8)),
+    for name, table, reduce, nbytes in (
+        ("tree_eval_count", table2, "count", N_SLICES * (2 * row_bytes + 2 * 8 + 4)),
+        ("tree_eval_total", table2, "total", N_SLICES * (2 * row_bytes + 2 * 8) + 8),
+        ("tree_eval_row", table2, "row", N_SLICES * (3 * row_bytes + 2 * 8)),
+        ("tree_eval_row_16", table2_16, "row", 16 * (3 * row_bytes + 2 * 8)),
     ):
+        fn = lambda: te.tree_eval(table, program, reduce)  # noqa: E731
         k_ms = time_cuda(fn)
-        k_dev = device_ms(fn, "tree_eval_kernel")
-        plain_ms = time_cuda(plain, runs=3, per_run=1, warmup=1)
+        k_dev = device_ms(fn, "tree_eval_")
+        plain_ms = time_cuda(lambda: te.plain_tree_eval(table, program, reduce), runs=3,
+                             per_run=1, warmup=1)
         bound_ms = nbytes / hbm * 1e3
         share = bound_ms / k_dev if k_dev else float("nan")
-        lib_ms, lib = None, "none (PyTorch has no popcount op)"
+        n = table.shape[0]
+        lib = "none (PyTorch has no popcount op)"
+        row = {"ms": k_ms, "device_ms": k_dev, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": "bytes", "library_ms": None, "slices": n, "leaves": 2}
         if name == "tree_eval_row":
             # The row mode has no popcount: one PyTorch call computes the
             # same and of two [954, 32768] rows.
-            a = torch.randint(-2**31, 2**31, (N_SLICES, 32768), dtype=torch.int32, device="cuda")
-            b = torch.randint(-2**31, 2**31, (N_SLICES, 32768), dtype=torch.int32, device="cuda")
-            c = torch.empty_like(a)
-            lib_ms = time_cuda(lambda: torch.bitwise_and(a, b, out=c))
-            lib = f"torch.bitwise_and(out=) {lib_ms:.4f} ms"
-            del a, b, c
-        out[name] = {"ms": k_ms, "device_ms": k_dev, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": "bytes", "library_ms": lib_ms}
-        log(f"phase 4: {name} [{N_SLICES} slices, 2 leaves]: {k_ms:.4f} ms back to back, "
+            row.update(library_ms=lib_ms, library_device_ms=lib_dev, same_inputs_ms=same_ms,
+                       same_inputs_device_ms=same_dev)
+            lib = f"torch.bitwise_and(out=) {lib_ms:.4f} ms, device {lib_dev} ms"
+        out[name] = row
+        log(f"phase 4: {name} [{n} slices, 2 leaves]: {k_ms:.4f} ms back to back, "
             f"device {k_dev} ms ({share:.1%} of the bound), bound {bound_ms:.4f} ms by bytes "
             f"({nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms; library: {lib}")
     shapes = {}
@@ -2327,6 +2375,25 @@ def expr_np(expr: tuple, rows: np.ndarray) -> np.ndarray:
     return acc
 
 
+@contextlib.contextmanager
+def k2_shape_spy(te):
+    """Count each K2 call's (slices x leaves: reduce) in the dict it
+    yields, while the block runs."""
+    shapes: dict = {}
+    tree_eval = te.tree_eval
+
+    def spied(table, program, reduce):
+        key = f"{table.shape[0]}x{table.shape[1]}:{reduce}"
+        shapes[key] = shapes.get(key, 0) + 1
+        return tree_eval(table, program, reduce)
+
+    te.tree_eval = spied
+    try:
+        yield shapes
+    finally:
+        te.tree_eval = tree_eval
+
+
 def coalesce_and_check(fp, te, it, srv, truth: np.ndarray, rng) -> dict:
     """Phase 14 on the phase-5 node (``truth`` its frame-f planes): the
     coalesced query path.
@@ -2341,7 +2408,14 @@ def coalesce_and_check(fp, te, it, srv, truth: np.ndarray, rng) -> dict:
     against numpy (each query sent once before, serially, to build its
     batch); in turns with coalescing on, off, off, on (off: the
     scheduler closed, so the direct K2 path serves).  Coalesced turns must
-    launch fewer times than they answer, and fuse (K3)."""
+    launch fewer times than they answer, and fuse (K3).  Every K2 launch's
+    (slices, leaves, reduce) is counted and logged a turn: the shapes the
+    coalescer sends."""
+    with k2_shape_spy(te) as k2_shapes:
+        return _coalesce_and_check(fp, te, it, srv, truth, rng, k2_shapes)
+
+
+def _coalesce_and_check(fp, te, it, srv, truth, rng, k2_shapes: dict) -> dict:
     from pilosa_tpu_torch.exec.coalesce import CoalesceScheduler
 
     out: dict = {}
@@ -2445,6 +2519,7 @@ def coalesce_and_check(fp, te, it, srv, truth: np.ndarray, rng) -> dict:
             srv.coalescer = ex.coalescer = None
         snap0 = ex.coalescer.snapshot() if on else None
         k0 = (te.launches, it.launches, fp.launches)
+        k2_shapes.clear()
         start = threading.Barrier(STORM_THREADS)
 
         def client(reqs):
@@ -2467,7 +2542,8 @@ def coalesce_and_check(fp, te, it, srv, truth: np.ndarray, rng) -> dict:
         lats.sort()
         row = {"coalesce": on, "requests": n_req, "rps": n_req / wall,
                "p50_ms": lats[len(lats) // 2], "p99_ms": lats[int(len(lats) * 0.99)],
-               "k2": te.launches - k0[0], "k3": it.launches - k0[1], "k1": fp.launches - k0[2]}
+               "k2": te.launches - k0[0], "k3": it.launches - k0[1], "k1": fp.launches - k0[2],
+               "k2_shapes": dict(sorted(k2_shapes.items()))}
         if on:
             snap = ex.coalescer.snapshot()
             row.update({k: snap[k] - snap0[k] for k in ("launches", "queries", "fused_launches",
@@ -2483,7 +2559,8 @@ def coalesce_and_check(fp, te, it, srv, truth: np.ndarray, rng) -> dict:
             f"({STORM_THREADS} threads, {len(exprs)} trees x Count / Bitmap) == numpy oracle; "
             f"{row['rps']:.1f} requests/s, p50 {row['p50_ms']:.3f} ms, p99 "
             f"{row['p99_ms']:.3f} ms; launches tree_eval {row['k2']}, interp {row['k3']}, "
-            f"fused_popcount {row['k1']}"
+            f"fused_popcount {row['k1']}; tree_eval (slices x leaves: reduce) "
+            f"{json.dumps(row['k2_shapes'])}"
             + (f"; scheduler {json.dumps(snap)}" if on else ""))
         return row
 
@@ -4186,7 +4263,9 @@ def main() -> int:
                                      "library_ms")},
         }
         if kernel is te:
+            entry["total_reduce"] = k23_times["tree_eval_total"]
             entry["row_reduce"] = k23_times["tree_eval_row"]
+            entry["row_reduce_16"] = k23_times["tree_eval_row_16"]
         else:
             entry["shapes"] = k23_times["interp_shapes"]
         kernels.append(entry)

@@ -213,7 +213,8 @@ class _BatchEntry:
 
     def table(self) -> RowTable | None:
         """The table with strong references to its bases, or None when a
-        mirror it names was freed (the entry is stale)."""
+        mirror it names was freed (the entry is stale).  Checked: the
+        build checked the entry's bases and index once."""
         bases = []
         for r in self.refs:
             t = r() if isinstance(r, weakref.ref) else r
@@ -1131,6 +1132,9 @@ class Executor:
         addrs = None
         leaf_keys: tuple = ()
         if table is not None:
+            # The one full check of the entry's table: every table its
+            # hits make is checked by construction.
+            table.check()
             ptrs = np.asarray([b.data_ptr() for b in bases], dtype=np.int64)
             flat = ptrs[idx[..., 0]] + idx[..., 1] * bp.WORDS_PER_SLICE * 4
             # Equal row addresses are equal rows ("same address, same
@@ -1147,7 +1151,7 @@ class Executor:
             pin_keys=tuple(pin_keys), nbytes=nbytes,
         )
         if table is not None:
-            table = RowTable(table.bases, idx, addrs)
+            table = RowTable(table.bases, idx, addrs, checked=True)
         return ent, table
 
     @staticmethod

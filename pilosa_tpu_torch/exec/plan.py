@@ -55,6 +55,7 @@ interface.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -309,6 +310,13 @@ def compile_program(expr: tuple) -> list[int]:
     return out
 
 
+@functools.lru_cache(maxsize=1024)
+def _tree_program(expr: tuple) -> tuple:
+    """:func:`compile_program` of a served tree, kept: a repeated query
+    compiles once."""
+    return tuple(compile_program(expr))
+
+
 def anchored_count(expr: tuple, anchor_leaf, leaves, device) -> torch.Tensor:
     """int32 [S] position-domain counts of a fold-only tree: slice s
     counts the positions of its leaf ``anchor_leaf[s]`` (-1: none) where
@@ -347,7 +355,7 @@ def tree_eval(expr: tuple, reduce: str, table: RowTable) -> torch.Tensor:
     ``compiled_batched`` / ``compiled_total_count``
     (``pilosa_tpu/exec/plan.py:314,339``) — or, for a tree deeper than
     K2's stack, one K3 launch of the tree lowered alone."""
-    program = compile_program(expr)
+    program = _tree_program(expr)
     if tree_eval_mod.program_depth(program, table.shape[1]) <= tree_eval_mod.MAX_DEPTH:
         return tree_eval_mod.tree_eval(table, program, reduce)
     em = FuseEmitter(table.shape[1])

@@ -36,6 +36,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
@@ -357,6 +358,31 @@ def plain_interp(reduce: str, table: RowTable, prog: np.ndarray,
     return counts.sum(dim=0, dtype=torch.int64)
 
 
+_metas: OrderedDict = OrderedDict()
+_metas_mu = threading.Lock()
+
+
+def _device_meta(alloc: Allocation, device: torch.device) -> torch.Tensor:
+    """The allocation's instructions, maskw pairs and leaf outputs as one
+    int32 tensor on ``device``, uploaded once per (allocation, device) and
+    kept in a small LRU: a pageable upload at every launch would wait for
+    the stream, so no launch could queue behind another."""
+    key = (id(alloc), device)
+    with _metas_mu:
+        hit = _metas.get(key)
+        if hit is not None:
+            _metas.move_to_end(key)
+            return hit[1]
+    meta = torch.from_numpy(np.concatenate(
+        [alloc.ins.reshape(-1), alloc.masks.reshape(-1), alloc.lout.reshape(-1)])).to(device)
+    with _metas_mu:
+        # The entry holds the allocation, so its id names it while cached.
+        _metas[key] = (alloc, meta)
+        while len(_metas) > 512:
+            _metas.popitem(last=False)
+    return meta
+
+
 def interp(reduce: str, table: RowTable, prog: np.ndarray, out_idx: np.ndarray,
            shape: Shape | None = None) -> torch.Tensor:
     """The selected registers' reduce over every slice of ``table`` — the
@@ -386,8 +412,7 @@ def interp(reduce: str, table: RowTable, prog: np.ndarray, out_idx: np.ndarray,
     # enqueued; later frees are ordered after it on the stream.
     with torch.cuda.device(device):
         addrs = table.addresses()
-        meta = torch.from_numpy(np.concatenate(
-            [alloc.ins.reshape(-1), alloc.masks.reshape(-1), alloc.lout.reshape(-1)])).to(device)
+        meta = _device_meta(alloc, device)
         if reduce == "row":
             out = torch.empty(n, k, words, dtype=torch.int32, device=device)
         elif reduce == "count":

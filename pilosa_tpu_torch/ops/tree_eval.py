@@ -25,16 +25,21 @@ On CUDA it launches the kernel (``csrc/tree_eval.cu``, built at first use
 by ``_build``) or raises — on a build failure, a launch whose
 ``cudaGetLastError`` is not 0, a program deeper than the kernel's stack
 (``MAX_DEPTH``; ``exec/plan.py`` sends such trees to K3): there is no
-fallback to the plain version.  ``launches`` counts kernel launches, and
+fallback to the plain version.  A program of at most ``MAX_PUSH`` leaf
+pushes runs in the kernel's fast variant, resolved once on the host into
+fixed register slots (:func:`resolve`); a longer one in its general
+variant, from device memory.  ``launches`` counts kernel launches, and
 nothing else.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from collections import OrderedDict
 from collections.abc import Sequence
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -48,10 +53,16 @@ NAME = "tree_eval"
 SOURCE = "pilosa_tpu_torch/ops/csrc/tree_eval.cu"
 REPLACES = "pilosa_tpu/exec/plan.py:179"
 REDUCES = {"count": 0, "row": 1, "total": 2}
-# The kernel's operand stack (in shared memory) holds this many rows.
+# The kernel's operand stack holds this many rows.
 MAX_DEPTH = 8
-# Slices are the grid's y dimension.
+# Leaf pushes of the kernel's fast variant (one register slot each).
+MAX_PUSH = 8
+# Slices per launch (K3 shares the limit).
 MAX_SLICES = 65535
+# The resolved program (``resolve``): P, leaf[8], then op, a and b [7] each
+# from these offsets (the layout ``pilosa_tree_eval`` reads).
+_OPS, _AS, _BS = 1 + MAX_PUSH, MAX_PUSH * 2, MAX_PUSH * 3 - 1
+_SLOTS_LEN = 1 + MAX_PUSH + 3 * (MAX_PUSH - 1)
 ROW_BYTES = WORDS_PER_SLICE * 4
 
 launches = 0
@@ -68,7 +79,8 @@ def _kernel():
             ctypes.c_void_p,  # table (int64 [S, L] row addresses)
             ctypes.c_int,  # slices
             ctypes.c_int,  # leaves
-            ctypes.c_void_p,  # program (int32, device)
+            ctypes.c_void_p,  # slots (int32, host: the fast variant) or None
+            ctypes.c_void_p,  # program (int32, device: the general variant) or None
             ctypes.c_int,  # program length
             ctypes.c_int,  # words per row
             ctypes.c_int,  # reduce
@@ -89,8 +101,16 @@ class RowTable:
     host.  ``addrs`` is the table the kernels read — int64 ``[S, L]`` row
     addresses on the card — computed at first use and kept; ``ident``
     names the row set for identity dedup (tables made from one cached
-    entry share it).  ``checked`` vouches that the bases already passed
-    :meth:`check` (a cached entry's, whose tensors cannot change shape)."""
+    entry share it).
+
+    ``checked`` is True once the table passed the full :meth:`check` —
+    its bases and its index — or when its maker vouches for both: a
+    batch entry's table (checked when the entry was built; its tensors
+    cannot change shape) and a concatenation of checked tables (their
+    own indices, shifted by construction).  :meth:`check` returns at once
+    on a checked table, so K2's and K3's wrappers walk no base of one.  A
+    table made unchecked is checked in full when a wrapper first takes
+    it: an index past its base would be a wild read on the card."""
 
     __slots__ = ("bases", "index", "addrs", "ident", "checked")
 
@@ -111,7 +131,10 @@ class RowTable:
         return self.bases[0].device
 
     def check(self) -> None:
-        """Raise unless the table names real rows of its bases."""
+        """Raise unless the table names real rows of its bases (nothing to
+        do on a checked table)."""
+        if self.checked:
+            return
         if not self.bases:
             raise ValueError("a row table needs at least one base")
         idx = self.index
@@ -119,7 +142,7 @@ class RowTable:
                 or idx.shape[2] != 2 or idx.shape[0] < 1 or idx.shape[1] < 1:
             raise ValueError("index must be an int64 [S >= 1, L >= 1, 2] array")
         dev = self.device
-        for b in ([] if self.checked else self.bases):
+        for b in self.bases:
             if b.dtype != torch.int32 or b.dim() != 2 or b.shape[1] != WORDS_PER_SLICE \
                     or not b.is_contiguous():
                 raise ValueError(f"bases must be contiguous int32 [rows, {WORDS_PER_SLICE}]")
@@ -159,29 +182,43 @@ class RowTable:
 
     @staticmethod
     def concat_slices(tables: Sequence["RowTable"]) -> "RowTable":
-        """One table over every slice of ``tables`` in turn (same leaves)."""
+        """One table over every slice of ``tables`` in turn (same leaves);
+        checked when every part is."""
         bases, parts = RowTable._merged(tables)
         addrs = None
         if all(t.addrs is not None for t in tables):
             addrs = torch.cat([t.addrs for t in tables])
-        return RowTable(bases, np.concatenate(parts), addrs)
+        return RowTable(bases, np.concatenate(parts), addrs,
+                        checked=all(t.checked for t in tables))
 
     @staticmethod
     def concat_leaves(tables: Sequence["RowTable"], cols: Sequence[Sequence[int]]) -> "RowTable":
         """One table over the same slices whose leaves are columns
-        ``cols[i]`` of ``tables[i]``, in turn."""
+        ``cols[i]`` of ``tables[i]``, in turn; checked when every part is."""
         bases, parts = RowTable._merged(tables)
         index = np.concatenate([p[:, list(c)] for p, c in zip(parts, cols)], axis=1)
         addrs = None
         if all(t.addrs is not None for t in tables):
             addrs = torch.cat([t.addrs[:, list(c)] for t, c in zip(tables, cols)], dim=1)
             addrs = addrs.contiguous()
-        return RowTable(bases, index, addrs)
+        return RowTable(bases, index, addrs, checked=all(t.checked for t in tables))
+
+
+class Program(NamedTuple):
+    """A checked postfix program as the kernel takes it (:func:`resolve`)."""
+
+    depth: int  # the deepest stack it needs
+    slots: object  # the fast variant's ctypes int array, or None (general)
 
 
 def program_depth(program: Sequence[int], n_leaves: int) -> int:
     """The deepest stack a well-formed postfix ``program`` over
     ``n_leaves`` leaves needs; raises for a malformed one."""
+    return _program(tuple(int(op) for op in program), int(n_leaves)).depth
+
+
+@functools.lru_cache(maxsize=1024)
+def _program(program: tuple, n_leaves: int) -> Program:
     depth = deepest = 0
     for op in program:
         if op >= 0:
@@ -199,14 +236,45 @@ def program_depth(program: Sequence[int], n_leaves: int) -> int:
         deepest = max(deepest, depth)
     if depth != 1:
         raise ValueError("program must leave exactly one row")
-    return deepest
+    resolved = resolve(program)
+    slots = None
+    if resolved is not None:
+        slots = (ctypes.c_int * len(resolved))(*resolved.tolist())
+    return Program(deepest, slots)
 
 
-def _check(table: RowTable, program: Sequence[int], reduce: str) -> int:
+def resolve(program: Sequence[int]) -> np.ndarray | None:
+    """The fast variant's form of a well-formed postfix program, or None
+    past ``MAX_PUSH`` pushes: push ``k`` (a leaf, or -1 for the empty row)
+    fills register slot ``k``, and step ``j`` sets slot ``a[j]`` to
+    ``slot a[j] op[j] slot b[j]`` — the value under the top of the stack
+    lives in the slot of its first push, so ``a < b`` and the result is
+    slot 0.  int32 ``[P, leaf[8], op[7], a[7], b[7]]``, unused entries 0."""
+    pushes: list[int] = []
+    steps: list[tuple[int, int, int]] = []
+    stack: list[int] = []
+    for op in program:
+        if op >= 0 or op == OP_ZERO:
+            stack.append(len(pushes))
+            pushes.append(op if op >= 0 else -1)
+        else:
+            b = stack.pop()
+            steps.append((op, stack[-1], b))
+    if len(pushes) > MAX_PUSH:
+        return None
+    out = np.zeros(_SLOTS_LEN, dtype=np.int32)
+    out[0] = len(pushes)
+    out[1 : 1 + len(pushes)] = pushes
+    for j, (op, a, b) in enumerate(steps):
+        out[_OPS + j], out[_AS + j], out[_BS + j] = op, a, b
+    return out
+
+
+def _check(table: RowTable, program: tuple, reduce: str) -> Program:
     if reduce not in REDUCES:
         raise ValueError(f"unknown reduce {reduce!r}")
     table.check()
-    return program_depth(program, table.shape[1])
+    return _program(program, table.shape[1])
 
 
 def _fold(op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -222,7 +290,7 @@ def _fold(op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def plain_tree_eval(table: RowTable, program: Sequence[int], reduce: str) -> torch.Tensor:
     """The plain PyTorch version of :func:`tree_eval` (same domain, same
     result): the leaf rows stacked, folded by torch bitwise ops."""
-    _check(table, program, reduce)
+    _check(table, tuple(int(op) for op in program), reduce)
     n = table.shape[0]
     rows: dict[int, torch.Tensor] = {}
     stack: list[torch.Tensor] = []
@@ -249,16 +317,17 @@ _programs: OrderedDict = OrderedDict()
 _programs_mu = threading.Lock()
 
 
-def _device_program(program: Sequence[int], device: torch.device) -> torch.Tensor:
-    """The program as an int32 tensor on ``device``, uploaded once per
-    (program, device) and kept in a small LRU."""
-    key = (tuple(int(op) for op in program), device)
+def _device_program(program: tuple, device: torch.device) -> torch.Tensor:
+    """The program as an int32 tensor on ``device`` (the general variant
+    reads it there), uploaded once per (program, device) and kept in a
+    small LRU."""
+    key = (program, device)
     with _programs_mu:
         t = _programs.get(key)
         if t is not None:
             _programs.move_to_end(key)
             return t
-    t = torch.tensor(key[0], dtype=torch.int32).to(device)
+    t = torch.tensor(program, dtype=torch.int32).to(device)
     with _programs_mu:
         _programs[key] = t
         while len(_programs) > 1024:
@@ -276,9 +345,11 @@ def tree_eval(table: RowTable, program: Sequence[int], reduce: str) -> torch.Ten
         return plain_tree_eval(table, program, reduce)
     if device.type != "cuda":
         raise ValueError(f"{NAME} runs on cuda or cpu tensors, not {device}")
-    depth = _check(table, program, reduce)
-    if depth > MAX_DEPTH:
-        raise ValueError(f"{NAME}: program needs a stack of {depth} > {MAX_DEPTH}")
+    if not isinstance(program, tuple):
+        program = tuple(int(op) for op in program)
+    prog = _check(table, program, reduce)
+    if prog.depth > MAX_DEPTH:
+        raise ValueError(f"{NAME}: program needs a stack of {prog.depth} > {MAX_DEPTH}")
     n, n_leaves, words = table.shape
     if n > MAX_SLICES:
         raise ValueError(f"{NAME} takes at most {MAX_SLICES} slices per launch")
@@ -287,14 +358,16 @@ def tree_eval(table: RowTable, program: Sequence[int], reduce: str) -> torch.Ten
     # enqueued; later frees are ordered after it on the stream.
     with torch.cuda.device(device):
         addrs = table.addresses()
-        prog = _device_program(program, device)
+        dev_prog = None if prog.slots is not None else _device_program(program, device)
         if reduce == "row":
             out = torch.empty(n, words, dtype=torch.int32, device=device)
-        elif reduce == "count":
-            out = torch.zeros(n, dtype=torch.int32, device=device)
-        else:
-            out = torch.zeros(1, dtype=torch.int64, device=device)
-        rc = fn(addrs.data_ptr(), n, n_leaves, prog.data_ptr(), len(program), words,
+        else:  # the launcher zeroes it on the stream
+            out = torch.empty(n if reduce == "count" else 1,
+                              dtype=torch.int32 if reduce == "count" else torch.int64,
+                              device=device)
+        rc = fn(addrs.data_ptr(), n, n_leaves,
+                None if prog.slots is None else ctypes.addressof(prog.slots),
+                None if dev_prog is None else dev_prog.data_ptr(), len(program), words,
                 REDUCES[reduce], out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{NAME} launch failed: cudaError {rc}")

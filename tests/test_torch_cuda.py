@@ -456,29 +456,57 @@ def k23_table(te, cuda, n, n_cols, rng):
     return te.RowTable(bases, idx)
 
 
+def chain(depth: int, leaves: int = 6) -> tuple:
+    """A right-nested tree that keeps ``depth`` + 1 rows on K2's stack."""
+    expr = ("leaf", depth % leaves)
+    for k in reversed(range(depth)):
+        expr = (("Intersect", "Union", "Xor", "Difference")[k % 4], ("leaf", k % leaves), expr)
+    return expr
+
+
 def k2_trees():
-    leaf = [("leaf", i) for i in range(6)]
+    """Every fold, nested trees, a single leaf, Union() and a tree past
+    K2's stack (it runs on K3); 9 and 16 leaves and a depth-8 tree of 11
+    pushes (the kernel's general variant), a depth-8 chain of 8 pushes
+    (its fast variant's widest)."""
+    leaf = [("leaf", i) for i in range(16)]
     deep = leaf[5]
     for k in range(12):  # past K2's stack: runs on K3
         deep = (("Intersect", "Union", "Xor", "Difference")[k % 4], leaf[k % 6], deep)
     return [leaf[0], ("Intersect", leaf[0], leaf[1]), ("Union", *leaf[:4]),
             ("Difference", leaf[4], leaf[1], leaf[2]), ("Xor", leaf[3], leaf[0], leaf[5]),
             ("Union",), ("Intersect", leaf[2], ("Union",)),
-            ("Difference", ("Union", leaf[0], leaf[1]), ("Xor", leaf[2], ("Intersect", *leaf[3:]))),
-            deep]
+            ("Difference", ("Union", leaf[0], leaf[1]),
+             ("Xor", leaf[2], ("Intersect", *leaf[3:6]))),
+            deep,
+            ("Union", *leaf[:9]),
+            ("Xor", ("Intersect", *leaf[:4]), ("Union", *leaf[4:8]), ("Difference", *leaf[8:12]),
+             ("Xor", *leaf[12:16])),
+            chain(7),
+            ("Difference", ("Intersect", *leaf[8:12]), chain(6))]
 
 
-@pytest.mark.parametrize("n", [1, 3, 954])
+@pytest.mark.parametrize("n", [1, 3, 16, 954, 3816])
 def test_tree_eval_matches_plain(cuda, n):
+    """Every reduce of every tree of :func:`k2_trees` over 16 leaf
+    columns; 3,816 slices are four checked 954-slice tables concatenated,
+    as the coalescer concatenates."""
     from pilosa_tpu_torch.exec import plan
     from pilosa_tpu_torch.ops import interp as it
     from pilosa_tpu_torch.ops import tree_eval as te
 
     rng = np.random.default_rng(n)
-    table = k23_table(te, cuda, n, 6, rng)
+    if n > 954:
+        parts = [k23_table(te, cuda, 954, 16, rng) for _ in range(n // 954)]
+        for t in parts:
+            t.check()
+        table = te.RowTable.concat_slices(parts)
+        assert table.checked
+    else:
+        table = k23_table(te, cuda, n, 16, rng)
     for expr in k2_trees():
         program = plan.compile_program(expr)
-        deep = te.program_depth(program, 6) > te.MAX_DEPTH
+        deep = te.program_depth(program, 16) > te.MAX_DEPTH
         for reduce in ("count", "row", "total"):
             k2, k3 = te.launches, it.launches
             got = plan.tree_eval(expr, reduce, table)

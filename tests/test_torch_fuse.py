@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 from pilosa_tpu import bsi as jbsi  # noqa: E402
 from pilosa_tpu.exec import plan as jplan  # noqa: E402
 from pilosa_tpu_torch.exec import plan as tplan  # noqa: E402
+from pilosa_tpu_torch.ops import anchored_count as ac  # noqa: E402
 from pilosa_tpu_torch.ops import interp as tinterp  # noqa: E402
 from pilosa_tpu_torch.ops import tree_eval as te  # noqa: E402
 
@@ -210,14 +211,41 @@ def chain(depth: int) -> tuple:
     return expr
 
 
-@pytest.mark.parametrize("expr", TREES + [chain(te.MAX_DEPTH + 2)], ids=str)
+def leaves_of(expr) -> int:
+    if expr[0] == "leaf":
+        return expr[1] + 1
+    return max([leaves_of(e) for e in expr[1:]], default=1)
+
+
+LEAF = [("leaf", i) for i in range(16)]
+# A table of one leaf column (the others have at least 4).
+ONE_LEAF = ("Intersect", LEAF[0])
+# Past the kernel's fast variant (more than MAX_PUSH leaf pushes), its
+# widest (depth 8 over 8 pushes), depth 8 in the general variant, an
+# empty Union deep inside a tree, one leaf.
+WIDE_TREES = [
+    ("Union", *LEAF[:9]),
+    ("Xor", ("Intersect", *LEAF[:4]), ("Union", *LEAF[4:8]), ("Difference", *LEAF[8:12]),
+     ("Xor", *LEAF[12:16])),
+    chain(te.MAX_DEPTH - 1),
+    ("Difference", ("Intersect", *LEAF[8:12]), chain(te.MAX_DEPTH - 2)),
+    ("Union", LEAF[5], ("Intersect", LEAF[1], ("Xor", LEAF[2], ("Difference", LEAF[3],
+                                                                 ("Union",), LEAF[0])))),
+    ONE_LEAF,
+]
+
+
+@pytest.mark.parametrize("expr", TREES + [chain(te.MAX_DEPTH + 2)] + WIDE_TREES, ids=str)
 def test_plain_tree_eval_equals_jax_compiled(expr):
     """count, row and total of every fold, nested trees, a single leaf,
-    Union() and a tree past K2's stack, over 3 slices of 4 random leaves:
-    equal to ``compiled_batched`` / ``compiled_total_count``."""
+    Union(), a tree past K2's stack, 9 and 16 leaves, depth 8 and an
+    empty Union inside a deep tree, over 3 slices of 4 random leaves (as
+    many as the tree reads, and 1 for ``ONE_LEAF``): equal to
+    ``compiled_batched`` / ``compiled_total_count``."""
     rng = np.random.default_rng(len(str(expr)))
-    words = rng.integers(0, 2**32, size=(3, 4, W), dtype=np.uint32)
-    words[1, 2] = 0
+    cols = 1 if expr == ONE_LEAF else max(4, leaves_of(expr))
+    words = rng.integers(0, 2**32, size=(3, cols, W), dtype=np.uint32)
+    words[1, cols // 2] = 0
     table = table_of(words)
     np.testing.assert_array_equal(
         tplan.tree_eval(expr, "count", table).numpy(),
@@ -227,6 +255,46 @@ def test_plain_tree_eval_equals_jax_compiled(expr):
         np.asarray(jplan.compiled_batched(expr, "row")(words)))
     assert int(tplan.tree_eval(expr, "total", table)[0]) == jplan.recombine_count_limbs(
         jplan.compiled_total_count(expr)(words))
+
+
+def run_resolved(slots: np.ndarray, rows: list) -> np.ndarray:
+    """The kernel's fast variant over a resolved program, in numpy: push
+    k fills slot k (a leaf's row, or zero), step j sets slot a = slot a
+    op slot b with a < b, the result is slot 0."""
+    n = int(slots[0])
+    pushes = slots[1 : 1 + n].tolist()
+    ops, a, b = (slots[o : o + n - 1].tolist() for o in (te._OPS, te._AS, te._BS))
+    st = [np.zeros_like(rows[0]) if lf < 0 else rows[lf].copy() for lf in pushes]
+    for op, x, y in zip(ops, a, b):
+        assert 0 <= x < y < n
+        st[x] = {ac.OP_AND: st[x] & st[y], ac.OP_OR: st[x] | st[y],
+                 ac.OP_ANDNOT: st[x] & ~st[y], ac.OP_XOR: st[x] ^ st[y]}[op]
+    return st[0]
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_resolved_slots_compute_the_program(seed):
+    """The host's resolution of a postfix program into register slots
+    (``tree_eval.resolve``, what the kernel's fast variant runs) gives the
+    plain fold's row for random trees up to ``MAX_PUSH`` pushes, and
+    declines past it (the general variant)."""
+    rng = np.random.default_rng(100 + seed)
+    words = rng.integers(0, 2**32, size=(8, 64), dtype=np.uint32)
+    table = te.RowTable([torch.from_numpy(np.pad(words, ((0, 0), (0, W - 64))).view(np.int32))],
+                        np.stack([np.zeros(8, np.int64), np.arange(8)], -1)[None])
+    seen = 0
+    for _ in range(40):
+        expr = random_tree(rng, 8, 4)
+        program = tplan.compile_program(expr)
+        slots = te.resolve(program)
+        pushes = sum(1 for op in program if op >= 0 or op == ac.OP_ZERO)
+        if pushes > te.MAX_PUSH:
+            assert slots is None
+            continue
+        seen += 1
+        want = u32(te.plain_tree_eval(table, program, "row"))[0, :64]
+        np.testing.assert_array_equal(run_resolved(slots, list(words)), want)
+    assert seen >= 10
 
 
 def test_tree_eval_reads_rows_in_place_through_the_table():
