@@ -73,7 +73,7 @@ without printing its final line:
    an http cluster with 2 replicas; the schema created on one node
    reaches the others by broadcast; each node loads the phase-5 planes
    of the slices it owns (~2 GiB of mirrors); then a protobuf
-   ``/import`` of 2^20 seeded bits (~1,100 per fragment), which must
+   ``/import`` of 2^19 seeded bits (~550 per fragment), which must
    launch nothing on the card (the bits queue on the host), and the
    first Count after it, which applies the queues of every fragment a
    node reads with one delta-scatter launch per node leg;
@@ -83,15 +83,15 @@ without printing its final line:
    a BSI field created on one
    node (its fan-out reaches the others), ``/import-value`` to every
    owner of 64 slices, Count(Range)/Sum/Min/Max from every node; a
-   second import into new rows (the counted fallback to a mirror
-   re-upload), and the Counts and the BSI queries again with one node
+   second import into new rows over the first 64 slices (the counted
+   fallback to a mirror re-upload), and the Counts and the BSI queries again with one node
    closed (replica failover); launch counts reset just before and read
    just after;
 7. on the phase-5 node, a signed 32-bit integer field over the 954
    slices (~4.13 GB of planes, seeded word by word): Count(Range) for
    every comparison and between, a Range inside Intersect, Sum/Min/Max
    with and without a filter, checked against a numpy oracle that
-   decodes every column's value; then an ``/import-value`` of 2^16
+   decodes every column's value; then an ``/import-value`` of 2^15
    values over every slice, which launches nothing, and the first read
    after it, which applies all 954 queues (with and-not entries) in ONE
    delta-scatter launch; one import past a queue's limit on one slice
@@ -129,8 +129,10 @@ without printing its final line:
 12. residency under a budget: every other node closed, phase 10's
     directory reopens with ``hbm_budget_bytes`` of 12 GiB (three 8 GiB
     plane tiers; staging from its ``.residency.json`` in the
-    background), and phase 10's query classes alternate between the two
-    indexes, each answer against the oracle; after every query the
+    background), and four of phase 10's query classes on repository
+    (``RESIDENCY_QUERIES``: a saturating Count and one query for each of
+    K4, K5 and K6) alternate with its mole queries (K1, K2), each answer
+    against the oracle; after every query the
     pool's resident and high-water bytes, evictions, skipped evictions,
     over-budget admissions, restaged bytes, the batch cache's bytes and the
     allocator's ``memory_allocated()`` / ``memory_reserved()`` are printed and
@@ -138,7 +140,7 @@ without printing its final line:
     a query pinning both 8 GiB star mirrors saturates and answers
     right); the time to the first answer, the staging job's end and one
     eviction-driven 8 GiB re-upload are timed;
-13. durability: on a node of its own with the WAL on, 8 threads send 500
+13. durability: on a node of its own with the WAL on, 8 threads send 250
     SetBits each over HTTP across 16 slices; the data directory copied
     while the node is open opens in a second node with every
     acknowledged bit; ``/debug/ingest`` shows fewer fsyncs than appends;
@@ -147,14 +149,15 @@ without printing its final line:
     serial Count(Intersect(Bitmap(0), Bitmap(1))) — the first request a
     cache miss (after a SetBit), the rest hits, then a SetBit and the
     Count again (a rebuild, the answer one more), one K2 launch a request
-    and no K1; then a storm of 64 client threads x 12 requests drawn from
+    and no K1; then a storm of 64 client threads x 6 requests drawn from
     16 distinct trees over the 8 rows, as Count over every slice and as
     Bitmap (the tree intersected with a row of frame g, over 16 slices),
     every answer against numpy, in turns with coalescing on, off, off, on
     (off: the scheduler closed, the direct K2 path serves): requests/s,
     p50 / p99, the scheduler's snapshot; coalesced turns launch fewer
     times than they answer and fuse (K3);
-15. print the ``kernels`` JSON line (K1-K8, K11), then the final JSON line;
+15. print the ``kernels`` JSON line (K1-K8, K11), then the final JSON line
+    (last of all, after phase 17);
 16. observability, on the phase-5 node right after phase 14 (run before
     phase 6) and on phase 6's cluster: ``/debug/perf``'s stream floor
     (above 0, at most 105% of the data-sheet rate, so the probe read
@@ -169,7 +172,25 @@ without printing its final line:
     layer's own time beside it); a ``/debug/profile?seconds=2`` under a
     storm and the card's idle share from its trace; Count p50 with the
     telemetry (launch records and traces) on and off in 4 turns of 20; and
-    on phase 6's cluster one TopN trace that covers all three nodes.
+    on phase 6's cluster one TopN trace that covers all three nodes;
+17. backup, restore and repair, on the phase-5 node after phase 9: the
+    CLI's ``backup`` of frames f (954 fragments, ~1 GB) and g to files
+    (bytes, seconds, GB/s); a second ``Server(device="cuda")`` with the
+    schema and the CLI's ``restore`` (seconds, GB/s); phase 5's Count
+    trees, Bitmap, TopN and TopN(src) there, equal to the source node's
+    answers and to numpy over the archives' planes decoded on the host,
+    K2 and K4 launched (the first Count, which uploads the mirrors, and
+    the p50 timed); ``/fragment/blocks`` equal on both nodes for every
+    fragment, then a few hundred bits set and cleared on the source in
+    four fragments make exactly their block differ, the differences read
+    through ``/fragment/block/data`` and pushed with
+    ``/fragment/import-view``, the next Count applying them in one K7
+    launch and equal to the source, the blocks equal again; a restore in
+    place of a fragment with a resident mirror and a cached batch entry
+    (the next Count equals numpy of the new contents) and a torn archive
+    refused with 422 (no answer changes); one slice's ``/export`` (~4.2M
+    bits, ~55 MB of CSV — a cut: the index's whole export would be ~55
+    GB) equal to numpy's formatting byte for byte.
 
 Exits non-zero when ``torch.cuda.is_available()`` is false, and when the
 port's package is not beside this file.
@@ -199,15 +220,18 @@ N_SLICES = 954  # ceil(1e9 / 2^20): 1B columns
 ROWS = 8
 REPS = 5
 # Phase 6: requests per (query, node, format), bits per import.
-CLUSTER_REPS = 2
-IMPORT_BITS = 1 << 20
-FALLBACK_IMPORT_BITS = 1 << 16
+CLUSTER_REPS = 1
+IMPORT_BITS = 1 << 19
+# The second import (bits in new rows, the counted fallback) over the first
+# slices only: each touched fragment replica re-snapshots and re-uploads.
+FALLBACK_SLICES = 64
+FALLBACK_IMPORT_BITS = 1 << 12
 # Phase 6's BSI leg: values over the first slices.
 CLUSTER_BSI_SLICES = 64
 CLUSTER_BSI_VALUES = 1 << 14
 # Phase 7: the first /import-value (every slice, the K7 path with clears); the
 # second goes past its queue's limit on one slice (the counted fallback).
-BSI_IMPORT_VALUES = 1 << 16
+BSI_IMPORT_VALUES = 1 << 15
 # Phase 8: the time-quantum frame.
 TIME_SLICES = 16
 TIME_ROWS = 4
@@ -1103,7 +1127,8 @@ def check_k5(ac, bp, plan, rng) -> float:
     leaf 4 an anchor set (32,768, 1 and 0 positions, the last 300 up to
     2^20 - 1) that no tree reads, and :func:`k5_extra_rows`; the anchor
     leaf 4, 5 (the edges), 6 (the long run), 0 (a leaf the trees read) or
-    none (-1), slice by slice; eight trees, one 11 sets deep and one 64.
+    none (-1), slice by slice; eight trees, one 11 sets deep and one 64
+    (at full width every other tree, the deep ones among them).
     A ``torch.cuda.synchronize()`` after each launch.  Returns the
     largest absolute difference (0)."""
     import torch
@@ -1125,7 +1150,9 @@ def check_k5(ac, bp, plan, rng) -> float:
             leaves.append(row + k5_extra_rows(bp, s))
             anchor_leaf.append((4, 5, 6, 0, -1)[s % 5])
         anchor_leaf = np.array(anchor_leaf, np.int32)
-        for expr in K5_TREES:
+        # At full width every other tree (both deep ones among them): the
+        # plain version takes seconds a call there.
+        for expr in K5_TREES if n < N_SLICES else K5_TREES[1::2]:
             before = ac.launches
             got = plan.anchored_count(expr, anchor_leaf, leaves, "cuda")
             torch.cuda.synchronize()
@@ -1143,7 +1170,7 @@ def check_k5(ac, bp, plan, rng) -> float:
         f"and {N_SLICES} slices x 7 leaves of every format and absent rows mixed in one launch, "
         "rows on the windows' edges and a run over many windows; anchors of every format "
         "(32,768, 1 and 0 positions, up to 2^20 - 1, the edges, the long run) read by the tree "
-        "or not, or none; eight trees (one 11 deep, one 64)")
+        f"or not, or none; eight trees (one 11 deep, one 64), four of them at {N_SLICES}")
     return float(worst)
 
 
@@ -1253,8 +1280,9 @@ def time_k5(ac, bp, plan, rng, hbm: float) -> dict:
                      runs=11, per_run=5)
     k_dev = device_ms(lambda: ac.anchored_count(program, anchor_leaf, leaves, "cuda"),
                       "anchored_count_kernel", launches=20)
+    # The plain version takes seconds a call: timed once.
     plain_ms = time_cuda(lambda: ac.plain_anchored_count(program, anchor_leaf, leaves, "cuda"),
-                         runs=3, per_run=1, warmup=1)
+                         runs=1, per_run=1, warmup=0)
     # Encoded bytes as the JAX package's eff_bytes counts them: a dense row
     # 128 KiB, positions and runs at their bucketed payload sizes.
     leaf_bytes = N_SLICES * (32768 * 4 + 4 * bp.payload_bucket(K5_SPARSE)
@@ -2207,14 +2235,14 @@ def serve_and_check(fp, ds, sp, te, bp, convert, srv, rng) -> dict:
     t0 = time.perf_counter()
     planes = rng.integers(0, 2**32, size=(N_SLICES, ROWS, 32768), dtype=np.uint32)
     t1 = time.perf_counter()
-    convert.load_planes(
-        srv.holder, "i", "f", "standard", {s: planes[s] for s in range(N_SLICES)}
-    )
+    load_in_threads(convert, [(srv.holder, "i", "f", "standard", {s: planes[s]})
+                              for s in range(N_SLICES)])
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     log(
         f"phase 5: {N_SLICES} slices x {ROWS} rows generated in {t1 - t0:.3f}s, "
-        f"loaded (mirror upload + recount + snapshot) in {t2 - t1:.3f}s; "
+        f"loaded (mirror upload + recount + snapshot, {LOAD_THREADS} loader threads) in "
+        f"{t2 - t1:.3f}s; "
         f"device memory allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB"
     )
 
@@ -2351,7 +2379,7 @@ def serve_and_check(fp, ds, sp, te, bp, convert, srv, rng) -> dict:
 # the Bitmap requests' slices, the g-frame bits they intersect.
 SERIAL_REPS = 20
 STORM_THREADS = 64
-STORM_REQUESTS = 12
+STORM_REQUESTS = 6
 STORM_SLICES = 16
 STORM_G_BITS = 256
 
@@ -2618,8 +2646,8 @@ def cluster_and_check(fp, ds, br, sp, te, scatter, convert, Server, InternalClie
                 for owner in cluster.fragment_nodes("i", sl):
                     owned[owner.host][sl] = planes[sl]
             t0 = time.perf_counter()
-            for srv in nodes:
-                convert.load_planes(srv.holder, "i", "f", "standard", owned[srv.host])
+            load_in_threads(convert, [(srv.holder, "i", "f", "standard", {sl: plane})
+                                      for srv in nodes for sl, plane in owned[srv.host].items()])
             torch.cuda.synchronize()
             for srv in nodes:
                 srv.tick_max_slices()
@@ -2799,7 +2827,7 @@ def cluster_and_check(fp, ds, br, sp, te, scatter, convert, Server, InternalClie
             # Bits in new rows: every touched plane grows past its padded
             # rows, so each fragment replica drops its mirror (counted).
             rows2 = rng.integers(ROWS, 2 * ROWS, FALLBACK_IMPORT_BITS)
-            cols2 = rng.integers(0, N_SLICES << 20, FALLBACK_IMPORT_BITS)
+            cols2 = rng.integers(0, FALLBACK_SLICES << 20, FALLBACK_IMPORT_BITS)
             touched2 = 2 * len(np.unique(cols2 >> 20))
             k7_before = ds.launches
             t0 = time.perf_counter()
@@ -2850,6 +2878,15 @@ def cluster_and_check(fp, ds, br, sp, te, scatter, convert, Server, InternalClie
             for srv in opened:
                 srv.close()
     return out
+
+
+def load_in_threads(convert, jobs) -> None:
+    """``convert.load_planes(holder, index, frame, view, {slice: plane})``
+    of every job on LOAD_THREADS worker threads: the fragments are
+    independent and their snapshots mostly wait on the disk."""
+    with ThreadPoolExecutor(max_workers=LOAD_THREADS) as pool:
+        for fut in [pool.submit(convert.load_planes, *job) for job in jobs]:
+            fut.result()
 
 
 def bsi_planes(rng, n_slices: int) -> np.ndarray:
@@ -2973,7 +3010,8 @@ def bsi_and_check(fp, ds, br, scatter, convert, InternalClient, srv, f_planes, r
     t0 = time.perf_counter()
     planes = bsi_planes(rng, N_SLICES)
     t1 = time.perf_counter()
-    convert.load_planes(srv.holder, "i", "n", "field_v", {s: planes[s] for s in range(N_SLICES)})
+    load_in_threads(convert, [(srv.holder, "i", "n", "field_v", {s: planes[s]})
+                              for s in range(N_SLICES)])
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     oracle = ValueOracle(planes, {"f1": f_planes[:, 1], "f2": f_planes[:, 2]})
@@ -3336,14 +3374,19 @@ P10_CACHE = 50_000  # the ranked cache's size: each slice's TopN candidates
 # queries' own outputs are below 1 MiB).
 RESIDENCY_BUDGET = 12 << 30
 RESIDENCY_ROUNDS = 1
+# Phase 12's repository queries, each followed by a mole query: one saturating
+# Count over both star mirrors and a query for each of K4, K5 and K6 (the
+# mole queries launch K1 and K2).
+RESIDENCY_QUERIES = ("count_sparse_sparse", "topn_language", "count_sparse_after_reopen",
+                     "bitmap_sparse_after_reopen")
 RESIDENCY_SLACK = 256 << 20
 # Phase 13: writer threads x SetBits each over slices, and the serial
 # SetBits of each WAL setting, in turns.
 DURABLE_THREADS = 8
-DURABLE_WRITES = 500
+DURABLE_WRITES = 250
 DURABLE_SLICES = 16
 DURABLE_ROWS = 8
-SERIAL_WRITES = 100
+SERIAL_WRITES = 50
 
 
 def star_data(rng):
@@ -3794,7 +3837,7 @@ def residency_and_check(Server, data_dir: str, tutorials: dict, kernels: dict) -
         watcher = threading.Thread(target=watch, daemon=True)
         watcher.start()
         queries = tutorials["queries"] + sparse_after_reopen(srv, *tutorials["stars"])
-        repo_q = [q for q in queries if q[1] == "repository"]
+        repo_q = [q for q in queries if q[1] == "repository" and q[0] in RESIDENCY_QUERIES]
         mole_q = [q for q in queries if q[1] == "mole"]
         order = []
         for _ in range(RESIDENCY_ROUNDS):
@@ -4000,6 +4043,388 @@ def durability_and_check(Server, kernels: dict) -> dict:
     return out
 
 
+# --- phase 17: backup, restore and repair -------------------------------------
+
+# Client threads of the block-checksum walks (the node serves each request
+# on a thread of its own; the checksum's SHA1 releases the GIL).
+BLOCK_THREADS = 8
+# Fragments the source changes before the repair, and bits set and cleared
+# in each.
+REPAIR_SLICES = 2
+REPAIR_SETS = 100
+REPAIR_CLEARS = 50
+
+
+def archive_members(path: str) -> dict[int, bytes]:
+    """A view backup (a tar of per-slice fragment archives): slice ->
+    archive."""
+    import io
+    import tarfile
+
+    out = {}
+    with tarfile.open(path) as tr:
+        for m in tr:
+            out[int(m.name)] = tr.extractfile(m).read()
+    return out
+
+
+def archive_bits(archive: bytes) -> dict[int, np.ndarray]:
+    """One fragment archive's rows, decoded on the host from its "data"
+    entry (the roaring file): row -> uint32 [32768] words."""
+    import io
+    import tarfile
+
+    from pilosa_tpu_torch.ops import roaring
+
+    with tarfile.open(fileobj=io.BytesIO(archive)) as tr:
+        data = tr.extractfile("data").read()
+    rows: dict[int, np.ndarray] = {}
+    for key, words in roaring.decode(data).items():
+        r, c = divmod(int(key), 16)
+        row = rows.setdefault(r, np.zeros(32768, np.uint32))
+        row[c * 2048:(c + 1) * 2048] = words.view(np.uint32)
+    return rows
+
+
+def torn_archive(archive: bytes) -> bytes:
+    """The archive with one byte of its "data" entry flipped."""
+    import io
+    import tarfile
+
+    with tarfile.open(fileobj=io.BytesIO(archive)) as tr:
+        entries = {m.name: tr.extractfile(m).read() for m in tr}
+    data = bytearray(entries["data"])
+    data[len(data) // 2] ^= 0x55
+    entries["data"] = bytes(data)
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w") as tw:
+        for name, payload in entries.items():
+            info = tarfile.TarInfo(name)
+            info.size = len(payload)
+            tw.addfile(info, io.BytesIO(payload))
+    return buf.getvalue()
+
+
+def csv_oracle(planes_s: np.ndarray, slice_i: int) -> bytes:
+    """``row,col`` lines of one slice's rows, formatted in Python (not
+    the node's numpy formatter)."""
+    base = slice_i << 20
+    out = []
+    for r, words in enumerate(planes_s):
+        cols = np.flatnonzero(np.unpackbits(words.view(np.uint8), bitorder="little")) + base
+        if len(cols):
+            out.append(f"{r}," + f"\n{r},".join(map(str, cols.tolist())) + "\n")
+    return "".join(out).encode()
+
+
+def raw_get(host: str, path: str, headers=None) -> tuple[int, bytes]:
+    import http.client
+
+    conn = http.client.HTTPConnection(host, timeout=600)
+    try:
+        conn.request("GET", path, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def raw_post(host: str, path: str, body: bytes) -> tuple[int, bytes]:
+    import http.client
+
+    conn = http.client.HTTPConnection(host, timeout=600)
+    try:
+        conn.request("POST", path, body=body)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def block_positions(host: str, slice_i: int, block: int) -> np.ndarray:
+    """A block's bits of frame f's standard view read through
+    ``/fragment/block/data`` (the protobuf of ``InternalClient.block_data``,
+    decoded to arrays): sorted ``row << 20 | offset``, int64."""
+    import http.client
+
+    from pilosa_tpu_torch.net import wire
+
+    req = wire.BlockDataRequest(Index="i", Frame="f", View="standard", Slice=slice_i,
+                                Block=block)
+    conn = http.client.HTTPConnection(host, timeout=600)
+    try:
+        conn.request("GET", "/fragment/block/data", body=req.encode(),
+                     headers={"Content-Type": "application/x-protobuf",
+                              "Accept": "application/x-protobuf"})
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    if resp.status != 200:
+        raise AssertionError(f"phase 17 /fragment/block/data {slice_i}/{block} on {host}: "
+                             f"{resp.status} {data[:200]}")
+    msg = wire.BlockDataResponse.decode(data)
+    return (np.asarray(msg.RowIDs, np.int64) << 20) | np.asarray(msg.ColumnIDs, np.int64)
+
+
+def every_block(InternalClient, hosts: list, slices) -> dict:
+    """``{(host, slice): [(block, sha1)]}`` of frame f's standard view,
+    BLOCK_THREADS requests in flight."""
+    keys = [(h, s) for h in hosts for s in slices]
+    with ThreadPoolExecutor(BLOCK_THREADS) as ex:
+        got = list(ex.map(lambda k: InternalClient(k[0], timeout=600).fragment_blocks(
+            "i", "f", "standard", k[1]), keys))
+    return dict(zip(keys, got))
+
+
+def backup_and_check(fp, te, ds, sp, Server, InternalClient, srv, rng) -> dict:
+    """Phase 17 on the phase-5 node ``srv``: (a) the CLI's backup of frames
+    f and g; (b) a second node on the card, the schema, the CLI's
+    restore; (c) phase 5's queries there against the source and numpy
+    over the archives' planes, K2 and K4 launched; (d) every fragment's
+    blocks equal on both nodes, then set and clear bits on the source,
+    find the blocks that differ, read them and push the difference with
+    ``/fragment/import-view`` — one K7 launch at the next Count, blocks
+    equal again; (e) a restore in place over a resident mirror and a
+    cached batch entry, and a torn archive refused; (f) one slice's CSV
+    export byte for byte."""
+    from pilosa_tpu_torch.cli.main import main as cli
+
+    out: dict = {"launches": {}}
+    h = srv.host
+    fp.launches = te.launches = ds.launches = sp.launches = 0  # the main path starts here
+    with tempfile.TemporaryDirectory(prefix="pilosa-torch-backup-") as work:
+        files = {}
+        for frame in ("f", "g"):
+            files[frame] = os.path.join(work, f"{frame}.tar")
+            t0 = time.perf_counter()
+            code = cli(["backup", "--host", h, "-i", "i", "-f", frame, "-o", files[frame]])
+            took = time.perf_counter() - t0
+            if code != 0:
+                raise AssertionError(f"phase 17 backup of frame {frame}: exit {code}")
+            nbytes = os.path.getsize(files[frame])
+            out[f"backup_{frame}"] = {"bytes": nbytes, "s": took, "gbps": nbytes / took / 1e9}
+            log(f"phase 17 (a): CLI backup of frame {frame}: {nbytes} bytes in {took:.3f} s "
+                f"({nbytes / took / 1e9:.3f} GB/s)")
+        members = {frame: archive_members(path) for frame, path in files.items()}
+        if sorted(members["f"]) != list(range(N_SLICES)):
+            raise AssertionError(f"phase 17: the backup of f holds {len(members['f'])} slices")
+        truth = np.zeros((N_SLICES, ROWS, 32768), np.uint32)
+        for s, archive in members["f"].items():
+            for r, words in archive_bits(archive).items():
+                if r >= ROWS:
+                    raise AssertionError(f"phase 17: row {r} in slice {s} of frame f")
+                truth[s, r] = words
+        g_row1 = sorted(
+            (s << 20) + int(c)
+            for s, archive in members["g"].items()
+            for c in np.flatnonzero(np.unpackbits(
+                archive_bits(archive).get(1, np.zeros(32768, np.uint32)).view(np.uint8),
+                bitorder="little"))
+        )
+
+        dst_dir = os.path.join(work, "restored")
+        dst = Server(dst_dir, host="127.0.0.1:0", device=srv.device)
+        dst.open()
+        try:
+            for path in ("/index/i", "/index/i/frame/f", "/index/i/frame/g"):
+                status, body = http(dst.host, "POST", path)
+                if status != 200:
+                    raise AssertionError(f"phase 17 POST {path}: {status} {body}")
+            for frame in ("f", "g"):
+                t0 = time.perf_counter()
+                code = cli(["restore", "--host", dst.host, "-i", "i", "-f", frame, "-d",
+                            files[frame]])
+                took = time.perf_counter() - t0
+                if code != 0:
+                    raise AssertionError(f"phase 17 restore of frame {frame}: exit {code}")
+                nbytes = out[f"backup_{frame}"]["bytes"]
+                out[f"restore_{frame}"] = {"s": took, "gbps": nbytes / took / 1e9}
+                log(f"phase 17 (b): CLI restore of frame {frame} into a second node: "
+                    f"{len(members[frame])} fragments in {took:.3f} s ({nbytes / took / 1e9:.3f} GB/s)")
+
+            # (c) phase 5's queries on the restored node.
+            def pc(x):
+                return int(np.bitwise_count(x).sum())
+
+            def queries(planes):
+                p0, p1, p2, p3 = (planes[:, r] for r in range(4))
+                totals = np.bitwise_count(planes).sum(axis=-1, dtype=np.int64)
+                src = np.bitwise_count(planes & planes[:, :1]).sum(axis=-1, dtype=np.int64)
+                return [
+                    ("count_bitmap", "Count(Bitmap(frame=f, rowID=0))", pc(p0)),
+                    ("count_intersect",
+                     "Count(Intersect(Bitmap(frame=f, rowID=0), Bitmap(frame=f, rowID=1)))",
+                     pc(p0 & p1)),
+                    ("count_union3", "Count(Union(Bitmap(frame=f, rowID=0), Bitmap(frame=f, "
+                     "rowID=1), Bitmap(frame=f, rowID=2)))", pc(p0 | p1 | p2)),
+                    ("count_difference",
+                     "Count(Difference(Bitmap(frame=f, rowID=2), Bitmap(frame=f, rowID=3)))",
+                     pc(p2 & ~p3)),
+                    ("count_xor", "Count(Xor(Bitmap(frame=f, rowID=1), Bitmap(frame=f, rowID=3)))",
+                     pc(p1 ^ p3)),
+                    ("bitmap_g", "Bitmap(frame=g, rowID=1)", {"attrs": {}, "bits": g_row1}),
+                    ("topn", "TopN(frame=f, n=5)", topn_oracle(totals, 5)),
+                    ("topn_src", "TopN(Bitmap(frame=f, rowID=0), frame=f, n=5)",
+                     topn_oracle(src, 5)),
+                ]
+
+            out["p50_ms"] = {}
+            for i, (name, pql, want) in enumerate(queries(truth)):
+                times = []
+                for _ in range(REPS + (1 if i == 0 else 0)):
+                    q0 = time.perf_counter()
+                    status, body = http(dst.host, "POST", "/index/i/query", pql.encode())
+                    times.append(time.perf_counter() - q0)
+                    if status != 200 or body["results"] != [want]:
+                        raise AssertionError(f"phase 17 (c) {name} on the restored node: {status} "
+                                             f"{str(body)[:300]} != {want}")
+                if i == 0:
+                    out["first_count_ms"] = times.pop(0) * 1e3
+                src_status, src_body = http(h, "POST", "/index/i/query", pql.encode())
+                if (src_status, src_body) != (status, body):
+                    raise AssertionError(f"phase 17 (c) {name}: the source answers {src_status} "
+                                         f"{str(src_body)[:300]}")
+                out["p50_ms"][name] = statistics.median(times) * 1e3
+            if te.launches == 0 or sp.launches == 0:
+                raise AssertionError(f"phase 17 (c): tree_eval / score_planes launches "
+                                     f"{te.launches} / {sp.launches}")
+            log(f"phase 17 (c): the restored node answers phase 5's queries as the source and "
+                f"numpy over the archives' planes; the first Count ({N_SLICES} mirrors uploaded) "
+                f"{out['first_count_ms']:.3f} ms, p50 over {REPS}: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in out["p50_ms"].items())
+                + f" ms; tree_eval launches {te.launches}, score_planes {sp.launches}")
+
+            # (d) block sync: equal, then a repair of the blocks that differ.
+            hosts = [h, dst.host]
+            t0 = time.perf_counter()
+            blocks = every_block(InternalClient, hosts, range(N_SLICES))
+            out["blocks_s"] = time.perf_counter() - t0
+            unequal = [s for s in range(N_SLICES) if blocks[(h, s)] != blocks[(dst.host, s)]]
+            if unequal or any(not blocks[(h, s)] for s in range(N_SLICES)):
+                raise AssertionError(f"phase 17 (d): blocks differ after the restore: {unequal[:10]}")
+            touched = sorted(int(s) for s in rng.choice(N_SLICES, REPAIR_SLICES, replace=False))
+            n_changed = 0
+            t0 = time.perf_counter()
+            for s in touched:
+                calls = []
+                for want_set, n in ((True, REPAIR_SETS), (False, REPAIR_CLEARS)):
+                    picked: set = set()
+                    while len(picked) < n:
+                        r, off = int(rng.integers(0, ROWS)), int(rng.integers(0, 1 << 20))
+                        bit = (int(truth[s, r, off >> 5]) >> (off & 31)) & 1
+                        if bit != want_set and (r, off) not in picked:
+                            picked.add((r, off))
+                    for r, off in sorted(picked):
+                        op = "SetBit" if want_set else "ClearBit"
+                        calls.append(f"{op}(frame=f, rowID={r}, columnID={(s << 20) + off})")
+                        if want_set:
+                            truth[s, r, off >> 5] |= np.uint32(1 << (off & 31))
+                        else:
+                            truth[s, r, off >> 5] &= np.uint32(~(1 << (off & 31)) & 0xFFFFFFFF)
+                status, body = http(h, "POST", "/index/i/query", " ".join(calls).encode())
+                if status != 200 or body["results"] != [True] * len(calls):
+                    raise AssertionError(f"phase 17 (d) writes to slice {s}: {status} {str(body)[:200]}")
+                n_changed += len(calls)
+            out["writes_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            blocks = every_block(InternalClient, hosts, range(N_SLICES))
+            out["blocks_again_s"] = time.perf_counter() - t0
+            diff = sorted((s, b) for s in range(N_SLICES)
+                          for b in {bid for bid, _ in blocks[(h, s)] + blocks[(dst.host, s)]}
+                          if dict(blocks[(h, s)]).get(b) != dict(blocks[(dst.host, s)]).get(b))
+            if diff != [(s, 0) for s in touched]:
+                raise AssertionError(f"phase 17 (d): blocks {diff} differ, the writes touched "
+                                     f"block 0 of slices {touched}")
+            dst_c = InternalClient(dst.host, timeout=600)
+            pushed = 0
+            t0 = time.perf_counter()
+            for s, b in diff:
+                have, held = (block_positions(host, s, b) for host in hosts)
+                sets, clears = np.setdiff1d(have, held), np.setdiff1d(held, have)
+                dst_c.import_view_bits("i", "f", "standard", s,
+                                       (sets >> 20, (s << 20) + (sets & 0xFFFFF)),
+                                       (clears >> 20, (s << 20) + (clears & 0xFFFFF)))
+                pushed += len(sets) + len(clears)
+            out["repair_s"] = time.perf_counter() - t0
+            if pushed != n_changed:
+                raise AssertionError(f"phase 17 (d): pushed {pushed} bits, changed {n_changed}")
+            k7 = ds.launches
+            want = pc(truth[:, 0])
+            for host in (dst.host, h):
+                status, body = http(host, "POST", "/index/i/query", b"Count(Bitmap(frame=f, rowID=0))")
+                if status != 200 or body["results"] != [want]:
+                    raise AssertionError(f"phase 17 (d) Count after the repair on {host}: "
+                                         f"{status} {body} != {want}")
+                if host == dst.host and ds.launches - k7 != 1:
+                    raise AssertionError(f"phase 17 (d): the repaired node's Count launched "
+                                         f"delta_scatter {ds.launches - k7} times (want 1)")
+            blocks = every_block(InternalClient, hosts, range(N_SLICES))
+            unequal = [s for s in range(N_SLICES) if blocks[(h, s)] != blocks[(dst.host, s)]]
+            if unequal:
+                raise AssertionError(f"phase 17 (d): blocks differ after the repair: {unequal}")
+            log(f"phase 17 (d): /fragment/blocks equal on both nodes for all {N_SLICES} fragments "
+                f"({out['blocks_s']:.3f} s for 2 x {N_SLICES} requests, {BLOCK_THREADS} in flight; "
+                f"{out['blocks_again_s']:.3f} s with the checksums cached); {n_changed} bits set "
+                f"and cleared on the source in slices {touched} ({out['writes_s']:.3f} s) made exactly "
+                f"their block 0 differ; read through /fragment/block/data on both nodes and {pushed} "
+                f"bits pushed through /fragment/import-view in {out['repair_s']:.3f} s; the next "
+                f"Count applied them "
+                f"with one delta_scatter launch, blocks equal again")
+        finally:
+            dst.close()
+
+        # (e) restore in place over a resident mirror and a cached batch entry.
+        s_dst, s_src = (int(x) for x in rng.choice(N_SLICES, 2, replace=False))
+        q = "Count(Intersect(Bitmap(frame=f, rowID=0), Bitmap(frame=f, rowID=1)))"
+        for _ in range(2):
+            status, body = http(h, "POST", "/index/i/query", q.encode())
+        frag = srv.holder.fragment("i", "f", "standard", s_dst)
+        if frag._mirror is None or not srv.executor._batch_cache:
+            raise AssertionError("phase 17 (e): no resident mirror or batch entry before the restore")
+        path = f"/fragment/data?index=i&frame=f&view=standard&slice={s_dst}"
+        status, body = raw_post(h, path, torn_archive(members["f"][s_src]))
+        if status != 422:
+            raise AssertionError(f"phase 17 (e): a torn archive answered {status} {body[:200]}")
+        want_torn = pc(truth[:, 0] & truth[:, 1])
+        status, body = http(h, "POST", "/index/i/query", q.encode())
+        if status != 200 or body["results"] != [want_torn]:
+            raise AssertionError(f"phase 17 (e) after the torn archive: {status} {body} != {want_torn}")
+        t0 = time.perf_counter()
+        status, body = raw_post(h, path, members["f"][s_src])
+        out["restore_in_place_ms"] = (time.perf_counter() - t0) * 1e3
+        if status != 200:
+            raise AssertionError(f"phase 17 (e) restore: {status} {body[:200]}")
+        for r, words in archive_bits(members["f"][s_src]).items():
+            truth[s_dst, r] = words
+        want = pc(truth[:, 0] & truth[:, 1])
+        status, body = http(h, "POST", "/index/i/query", q.encode())
+        if status != 200 or body["results"] != [want]:
+            raise AssertionError(f"phase 17 (e) after the restore: {status} {body} != {want}")
+        log(f"phase 17 (e): slice {s_dst} restored in place from slice {s_src}'s archive "
+            f"({out['restore_in_place_ms']:.3f} ms) over its resident mirror and a cached batch "
+            f"entry: the next Count equals numpy ({want}, was {want_torn}); a torn archive got 422 "
+            f"and changed no answer")
+
+        # (f) one slice's CSV export.
+        s_exp = int(rng.integers(0, N_SLICES))
+        t0 = time.perf_counter()
+        status, csv = raw_get(h, f"/export?index=i&frame=f&view=standard&slice={s_exp}",
+                              {"Accept": "text/csv"})
+        took = time.perf_counter() - t0
+        want_csv = csv_oracle(truth[s_exp], s_exp)
+        if status != 200 or csv != want_csv:
+            raise AssertionError(f"phase 17 (f): /export of slice {s_exp}: {status}, {len(csv)} "
+                                 f"bytes, numpy {len(want_csv)}")
+        out["export"] = {"slice": s_exp, "bytes": len(csv), "bits": csv.count(b"\n"), "s": took}
+        log(f"phase 17 (f): /export of slice {s_exp}: {out['export']['bits']} bits, {len(csv)} bytes of "
+            f"CSV in {took:.3f} s ({len(csv) / took / 1e6:.1f} MB/s), equal to numpy's formatting "
+            f"byte for byte")
+    out["launches"] = {"k1": fp.launches, "k2": te.launches, "k4": sp.launches, "k7": ds.launches}
+    log(f"phase 17: launches {out['launches']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4103,6 +4528,8 @@ def main() -> int:
             valued = bsi_and_check(fp, ds, br, scatter, convert, InternalClient, srv, planes, rng)
             timed = time_and_check(fp, te, InternalClient, srv, planes, rng)
             ranked = topn_and_check(sp, fp, convert, srv, planes)
+            backed = backup_and_check(fp, te, ds, sp, Server, InternalClient, srv,
+                                      np.random.default_rng(SEED + 17))
         finally:
             srv.close()
     # Phase 10 serves on a node of its own: the memory of phases 5-9 is freed.
@@ -4135,12 +4562,13 @@ def main() -> int:
             "replaces": fp.REPLACES,
             "launches": served["launches"] + coalesced["launches"] + clustered["launches"]
             + valued["launches"]["k1"] + timed["launches"] + ranked["launches"]
-            + tutorials["totals"]["k1"] + resident["launches"]["k1"],
+            + tutorials["totals"]["k1"] + resident["launches"]["k1"] + backed["launches"]["k1"],
             "launches_by_phase": {"5": served["launches"], "14": coalesced["launches"],
                                   "6": clustered["launches"],
                                   "7": valued["launches"]["k1"], "8": timed["launches"],
                                   "9": ranked["launches"], "10": tutorials["totals"]["k1"],
-                                  "12": resident["launches"]["k1"]},
+                                  "12": resident["launches"]["k1"],
+                                  "17": backed["launches"]["k1"]},
             "max_abs_err": max_err,
             "ms": k_ms,
             "device_ms": k_dev,
@@ -4157,9 +4585,10 @@ def main() -> int:
             "route": "cuda",
             "source": ds.SOURCE,
             "replaces": ds.REPLACES,
-            "launches": served["k7_launches"] + clustered["k7_launches"] + valued["k7_launches"],
+            "launches": served["k7_launches"] + clustered["k7_launches"] + valued["k7_launches"]
+            + backed["launches"]["k7"],
             "launches_by_phase": {"5": served["k7_launches"], "6": clustered["k7_launches"],
-                                  "7": valued["k7_launches"]},
+                                  "7": valued["k7_launches"], "17": backed["launches"]["k7"]},
             "max_abs_err": k7_err,
             "ms": k7["ms"],
             "device_ms": k7["device_ms"],
@@ -4206,10 +4635,11 @@ def main() -> int:
         "source": sp.SOURCE,
         "replaces": sp.REPLACES,
         "launches": served["k4_launches"] + clustered["k4_launches"] + ranked["k4_launches"]
-        + tutorials["totals"]["k4"] + resident["launches"]["k4"],
+        + tutorials["totals"]["k4"] + resident["launches"]["k4"] + backed["launches"]["k4"],
         "launches_by_phase": {"5": served["k4_launches"], "6": clustered["k4_launches"],
                               "9": ranked["k4_launches"], "10": tutorials["totals"]["k4"],
-                              "12": resident["launches"]["k4"]},
+                              "12": resident["launches"]["k4"],
+                              "17": backed["launches"]["k4"]},
         "max_abs_err": k4_err,
         "ms": k4["ms"],
         "device_ms": k4["device_ms"],
@@ -4243,7 +4673,7 @@ def main() -> int:
     k2_by_phase = {"5": served["k2_launches"], "14": coalesced["k2_launches"],
                    "6": clustered["k2_launches"], "8": timed["k2_launches"],
                    "10": tutorials["totals"]["k2"], "12": resident["launches"]["k2"],
-                   "13": durable["launches"]["k2"]}
+                   "13": durable["launches"]["k2"], "17": backed["launches"]["k2"]}
     for kernel, err, times, by_phase, shape in (
         (te, k2_err, k23_times["tree_eval_count"], k2_by_phase, [N_SLICES, 2, "count"]),
         (it, k3_err, k23_times["interp_count"], {"14": coalesced["k3_launches"]},
@@ -4304,6 +4734,7 @@ def main() -> int:
     })
     log(f"phase 16 (summary): {json.dumps({k: v for k, v in observed.items() if k != 'sites'})}; "
         f"cluster trace {json.dumps(clustered['trace'])}")
+    log(f"phase 17 (summary): {json.dumps(backed)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

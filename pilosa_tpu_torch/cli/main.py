@@ -33,6 +33,24 @@ through ``/import`` (the counterpart of ``pilosa_tpu/cli/ctl.py:400-500``).
 With ``--field NAME`` the records are ``column,value`` (signed integers)
 for the frame's BSI field, sent through ``/import-value`` (the JAX CLI's
 ``--value``, ``pilosa_tpu/cli/ctl.py:334-390``).
+
+The operator commands of the JAX CLI (``pilosa_tpu/cli/ctl.py:526-841``),
+with its flags, output and exit codes:
+
+    export  --host H:P -i INDEX -f FRAME [-v VIEW] [-o FILE]
+    backup  --host H:P -i INDEX -f FRAME [-v VIEW] [-o FILE]
+    restore --host H:P -i INDEX -f FRAME [-v VIEW] -d FILE
+    check PATH...      inspect PATH...      sort PATH
+    bench   --host H:P -i INDEX -f FRAME [-o set-bit|intersect-count|topn] [-n N]
+
+``export`` writes every slice's CSV (each from an owner of the slice);
+``backup`` writes a view as a tar of per-slice fragment archives and
+``restore`` posts each back; ``check`` and ``inspect`` read data files
+offline; ``sort`` orders a CSV by slice for import.  An error prints
+``error: ...`` and exits 1.  Not ported yet: ``backup --store`` and
+``restore --store`` (they wait for ``tier/*``), ``resize`` (for
+``rebalance/*``), ``warm``, ``config`` and ``generate-config`` (for
+``config.py``).
 """
 
 from __future__ import annotations
@@ -40,14 +58,18 @@ from __future__ import annotations
 import argparse
 import csv
 import os
+import random
 import signal
 import sys
 import threading
+import time
 from datetime import datetime, timezone
 
 import numpy as np
 
 from pilosa_tpu_torch import __version__
+from pilosa_tpu_torch.ops import roaring
+from pilosa_tpu_torch.ops.bitplane import SLICE_WIDTH
 from pilosa_tpu_torch.pql.parser import TIME_FORMAT
 
 
@@ -130,6 +152,8 @@ def build_parser() -> argparse.ArgumentParser:
     srv.add_argument("--slo-objective", type=float, default=0.999)
     srv.add_argument("--floor-probe", type=_bool, default=True,
                      help="measure the stream floor of /debug/perf at open")
+    srv.add_argument("--stream-chunk-bytes", type=int, default=0,
+                     help="write size of streamed bodies (0: 64 KiB)")
     imp = sub.add_parser("import", help="bulk-import CSV bits (row,col[,timestamp])")
     imp.add_argument("--host", default="localhost:10101", help="host:port of a node")
     imp.add_argument("-i", "--index", required=True)
@@ -143,6 +167,46 @@ def build_parser() -> argparse.ArgumentParser:
         help="import column,value records into this integer (BSI) field",
     )
     imp.add_argument("paths", nargs="+", help="CSV files ('-' = stdin)")
+
+    def host(sp):
+        sp.add_argument("--host", default="localhost:10101", help="host:port of the server")
+
+    sp = sub.add_parser("export", help="export a frame as CSV")
+    host(sp)
+    sp.add_argument("-i", "--index", required=True)
+    sp.add_argument("-f", "--frame", required=True)
+    sp.add_argument("-v", "--view", default="standard")
+    sp.add_argument("-o", "--output-file", default="", help="default stdout")
+    sp = sub.add_parser("backup", help="backup a view to a tar archive")
+    host(sp)
+    sp.add_argument("-i", "--index", required=True)
+    sp.add_argument("-f", "--frame", default="", help="frame to back up")
+    sp.add_argument("-v", "--view", default="standard", help="view to back up")
+    sp.add_argument("-o", "--output-file", default="", help="default stdout")
+    sp = sub.add_parser("restore", help="restore a view from a tar archive")
+    host(sp)
+    sp.add_argument("-i", "--index", required=True)
+    sp.add_argument("-f", "--frame", default="", help="frame to restore")
+    sp.add_argument("-v", "--view", default="standard", help="view to restore")
+    sp.add_argument("-d", "--input-file", default="")
+    sp = sub.add_parser("check", help="offline consistency check of data files")
+    sp.add_argument("paths", nargs="+")
+    sp = sub.add_parser("inspect", help="dump container stats of a data file")
+    sp.add_argument("paths", nargs="+")
+    sp = sub.add_parser("sort", help="sort a CSV file by slice for import")
+    sp.add_argument("path", help="CSV file ('-' = stdin)")
+    sp = sub.add_parser("bench", help="benchmark operations against a server")
+    host(sp)
+    sp.add_argument("-i", "--index", required=True)
+    sp.add_argument("-f", "--frame", required=True)
+    sp.add_argument("-o", "--operation", default="set-bit",
+                    choices=["set-bit", "intersect-count", "topn"],
+                    help="set-bit: random writes; intersect-count / topn: one read "
+                    "query against existing data")
+    sp.add_argument("-n", "--num", type=int, default=0, help="operations to run")
+    sp.add_argument("--row1", type=int, default=1, help="intersect-count row A")
+    sp.add_argument("--row2", type=int, default=2, help="intersect-count row B")
+    sp.add_argument("--topn-n", type=int, default=100, help="topn result size")
     return p
 
 
@@ -180,6 +244,7 @@ def run_server(args) -> int:
         slo_ms=args.slo_ms,
         slo_objective=args.slo_objective,
         floor_probe=args.floor_probe,
+        stream_chunk_bytes=args.stream_chunk_bytes,
     )
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
@@ -275,16 +340,200 @@ def run_import(args) -> int:
     return 0
 
 
+# --- export, backup, restore (JAX ctl.py:526-644; reference: ctl/export.go,
+# backup.go, restore.go) ---
+
+
+def _client(host: str):
+    from pilosa_tpu_torch.net.client import InternalClient
+
+    return InternalClient(host, timeout=60.0)
+
+
+def _out(args):
+    path = args.output_file or ""
+    return open(path, "wb") if path else sys.stdout.buffer
+
+
+def run_export(args) -> int:
+    client = _client(args.host)
+    w = _out(args)
+    try:
+        max_slices = client.max_slice_by_index()
+        for slice_i in range(max_slices.get(args.index, 0) + 1):
+            client.export_to(w, args.index, args.frame, args.view, slice_i)
+    finally:
+        if w is not sys.stdout.buffer:
+            w.close()
+    return 0
+
+
+def run_backup(args) -> int:
+    client = _client(args.host)
+    if not args.frame:
+        raise CommandError("--frame required")
+    w = _out(args)
+    try:
+        client.backup_to(w, args.index, args.frame, args.view)
+    finally:
+        if w is not sys.stdout.buffer:
+            w.close()
+    return 0
+
+
+def run_restore(args) -> int:
+    client = _client(args.host)
+    if not args.input_file:
+        raise CommandError("--input-file required")
+    if not args.frame:
+        raise CommandError("--frame required")
+    with open(args.input_file, "rb") as r:
+        client.restore_from(r, args.index, args.frame, args.view)
+    return 0
+
+
+# --- check, inspect, sort (JAX ctl.py:646-695, 806-824) ---
+
+
+def _map_or_read(f):
+    """The data file mapped read-only (an empty file, which cannot be
+    mapped, read)."""
+    import mmap
+
+    try:
+        return mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+    except (ValueError, OSError):
+        return f.read()
+
+
+def run_check(args) -> int:
+    """Offline consistency check of roaring data files; ``.cache`` and
+    ``.snapshotting`` files are skipped, as the reference does."""
+    ok = True
+    for path in args.paths:
+        if path.endswith(".cache") or path.endswith(".snapshotting"):
+            print(f"skipping: {path}", file=sys.stderr)
+            continue
+        with open(path, "rb") as f:
+            data = _map_or_read(f)
+        try:
+            problems = roaring.check(data)
+        except roaring.CorruptError as e:
+            problems = [str(e)]
+        if problems:
+            ok = False
+            for p in problems:
+                print(f"{path}: {p}")
+        else:
+            print(f"{path}: ok", file=sys.stderr)
+    return 0 if ok else 1
+
+
+def run_inspect(args) -> int:
+    for path in args.paths:
+        with open(path, "rb") as f:
+            data = _map_or_read(f)
+        bi = roaring.info(data)
+        print(f"{path}:")
+        print(f"  containers: {len(bi.containers)}")
+        print(f"  bits: {sum(c.n for c in bi.containers)}")
+        print(f"  ops: {bi.ops}")
+        for c in bi.containers:
+            print(f"  container key={c.key} type={c.type} n={c.n}")
+    return 0
+
+
+def run_sort(args) -> int:
+    if args.path == "-":
+        rows = list(csv.reader(sys.stdin))
+    else:
+        with open(args.path, newline="") as f:
+            rows = list(csv.reader(f))
+    rows = [r for r in rows if r and r[0] != ""]
+    try:
+        rows.sort(key=lambda r: (int(r[1]) // SLICE_WIDTH, int(r[0]), int(r[1])))
+    except (ValueError, IndexError) as e:
+        raise CommandError(f"bad csv row: {e}") from e
+    csv.writer(sys.stdout).writerows(rows)
+    return 0
+
+
+# --- bench (JAX ctl.py:697-762; reference: ctl/bench.go:52-102) ---
+
+
+def run_bench(args) -> int:
+    client = _client(args.host)
+    if args.operation == "set-bit":
+        n = args.num
+        if n <= 0:
+            raise CommandError("--num must be > 0")
+        # The reference's random writes: rows in [0, 1000), columns in
+        # [0, 100000), 1,000 a request.
+        t0 = time.monotonic()
+        batch = []
+        for _ in range(n):
+            row, col = random.randrange(1000), random.randrange(100000)
+            batch.append(f'SetBit(frame="{args.frame}", rowID={row}, columnID={col})')
+            if len(batch) == 1000:
+                client.execute_query(args.index, "\n".join(batch))
+                batch.clear()
+        if batch:
+            client.execute_query(args.index, "\n".join(batch))
+        elapsed = time.monotonic() - t0
+        print(f"executed {n} operations in {elapsed:.3f}s ({n / elapsed:.0f} op/sec)")
+        return 0
+    if args.operation == "intersect-count":
+        pql = (f'Count(Intersect(Bitmap(frame="{args.frame}", rowID={args.row1}),'
+               f' Bitmap(frame="{args.frame}", rowID={args.row2})))')
+    else:
+        pql = f'TopN(frame="{args.frame}", n={args.topn_n})'
+    iters = args.num if args.num > 0 else 20
+    result = _first_result(client, args.index, pql)  # warms the caches
+    lat = []
+    for _ in range(iters):
+        t0 = time.monotonic()
+        result = _first_result(client, args.index, pql)
+        lat.append(time.monotonic() - t0)
+    lat.sort()
+    p50 = lat[len(lat) // 2]
+    p95 = lat[min(len(lat) - 1, int(len(lat) * 0.95))]
+    shown = result if isinstance(result, int) else f"{len(result)} pairs"
+    print(f"{args.operation}: {iters} queries, p50 {p50 * 1e3:.2f} ms,"
+          f" p95 {p95 * 1e3:.2f} ms (result: {shown})")
+    return 0
+
+
+def _first_result(client, index: str, pql: str):
+    from pilosa_tpu_torch.net.client import ClientError
+
+    results = client.execute_query(index, pql)
+    if not results:
+        raise ClientError(200, "empty response")
+    return results[0]
+
+
+COMMANDS = {
+    "import": run_import,
+    "export": run_export,
+    "backup": run_backup,
+    "restore": run_restore,
+    "check": run_check,
+    "inspect": run_inspect,
+    "sort": run_sort,
+    "bench": run_bench,
+}
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     if args.cmd == "server":
         return run_server(args)
-    if args.cmd == "import":
-        from pilosa_tpu_torch.net.client import ClientError
+    from pilosa_tpu_torch.net.client import ClientError
 
-        try:
-            return run_import(args)
-        except (CommandError, ClientError, OSError) as e:
-            print(f"error: {e}", file=sys.stderr)
-            return 1
-    return 2
+    try:
+        return COMMANDS[args.cmd](args)
+    except (CommandError, ClientError, OSError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    except KeyboardInterrupt:
+        return 130

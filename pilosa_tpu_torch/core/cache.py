@@ -91,10 +91,6 @@ class LRUCache:
 
     bulk_add = add
 
-    def bulk_update(self, items) -> None:
-        for row_id, n in items:
-            self.add(row_id, n)
-
     def get(self, row_id: int) -> int:
         if row_id in self._od:
             self._od.move_to_end(row_id)
@@ -171,23 +167,6 @@ class RankCache:
             self._prune()
 
     bulk_add = add
-
-    def bulk_update(self, items) -> None:
-        """``add`` of every ``(row_id, n)`` with the prune deferred to the
-        end: one sort instead of one per ``max_entries / 10`` rows.  The
-        rankings come out as from ``add`` in any order — the top
-        ``max_entries`` by (count desc, id asc) — only the rows kept past
-        them and the threshold may differ."""
-        for row_id, n in items:
-            if self.threshold_value and n < self.threshold_value and row_id not in self.entries:
-                continue
-            if n == 0:
-                self.entries.pop(row_id, None)
-            else:
-                self.entries[row_id] = n
-        self._stale = True
-        if len(self.entries) > self.max_entries * THRESHOLD_FACTOR:
-            self._prune()
 
     def get(self, row_id: int) -> int:
         n = self.entries.get(row_id)

@@ -86,22 +86,34 @@ fragment.go).  Here, as in ``pilosa_tpu.core.fragment``:
   removed, since nothing would log to it and a later open would replay
   it again over newer writes.
 
-The JAX package's block checksums are not ported yet.
+* **Block checksums, archives and export** (JAX ``core/fragment.py:
+  2301-2665``): ``blocks`` hashes each block of ``HASH_BLOCK_SIZE`` rows
+  over its sorted bit positions, cached per block and recomputed where a
+  write marked the block dirty (every write path marks the blocks of the
+  rows it touched; a wholesale load clears the cache); ``merge_block``
+  is the replicas' majority vote; ``write_to`` / ``tar_chunks`` write the
+  self-verifying tar ("checksum", "data", "cache") and ``read_from``
+  verifies it before it replaces the fragment's contents, the mirror and
+  its queue dropped with them; ``csv_chunks`` formats the export a row
+  block at a time.
 """
 
 from __future__ import annotations
 
 import contextlib
 import fcntl
+import hashlib
+import io
 import itertools
 import json
 import os
 import sys
+import tarfile
 import threading
 import time
 from collections import OrderedDict
-from collections.abc import Sequence
-from dataclasses import dataclass
+from collections.abc import Iterable, Sequence
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
@@ -132,10 +144,27 @@ SPARSE_DEVICE_CACHE = 64
 ROW_NBYTES = bp.WORDS_PER_SLICE * 4
 # Largest legal row id: op-log positions are u64 and pos = row*2^20+off.
 MAX_ROW_ID = 1 << 44
+# Rows per checksummed block of the block sync (reference: fragment.go:58).
+HASH_BLOCK_SIZE = 100
 
 
 class FragmentError(RuntimeError):
     pass
+
+
+class ArchiveChecksumError(FragmentError):
+    """A fragment tar whose payload does not match the checksum recorded
+    in its "checksum" entry: restore rejects it before anything is
+    applied (JAX ``core/fragment.py:225``)."""
+
+
+@dataclass
+class PairSet:
+    """Parallel row and column-offset lists of one block's bits
+    (reference: fragment.go:1509-1512)."""
+
+    row_ids: list[int] = field(default_factory=list)
+    column_ids: list[int] = field(default_factory=list)
 
 
 _counters_mu = threading.Lock()
@@ -411,6 +440,10 @@ class Fragment:
         # the WAL, and the auto-snapshot waits for the replay's end.
         self._replaying = False
         self.cache = cache_mod.new_cache(cache_type, cache_size)
+        # Block checksums of blocks(), and the blocks a write has touched
+        # since their checksum was taken (None: the block was empty).
+        self._block_sums: dict[int, bytes | None] = {}
+        self._dirty_blocks: set[int] = set()
 
     # ------------------------------------------------------------------
     # lifecycle (reference: fragment.go:154-338)
@@ -553,9 +586,12 @@ class Fragment:
             for r, parts in segs.items()
         }
         self._count_of = counts
+        self._max_row_id = None
         self._payload_cache.clear()
         self._sparse_dev.clear()
         self._sync_sparse_pool_locked()
+        self._block_sums.clear()
+        self._dirty_blocks.clear()
         self._invalidate_device()
         self._changed_locked()
 
@@ -1102,6 +1138,7 @@ class Fragment:
             self._mirror_changed_locked()
             self._sync_sparse_pool_locked()
         self._changed_locked()
+        self._dirty_blocks.add(row_id // HASH_BLOCK_SIZE)
         n = self._count_of[row_id] = self._count_of.get(row_id, 0) + delta
         self.cache.add(row_id, n)
         self._op_n += 1
@@ -1236,6 +1273,7 @@ class Fragment:
             self._sync_sparse_pool_locked()
             self._recount(slot_of, deltas)
             self._changed_locked()
+            self._dirty_blocks.update(r // HASH_BLOCK_SIZE for r in slot_of)
             for r in slot_of:
                 self._maybe_promote(r)
             self.stats.count("ImportBit", len(row_ids))  # reference: fragment.go:969
@@ -1286,9 +1324,12 @@ class Fragment:
                     bp.np_row_to_columns(words[i]).astype(np.uint32) if i is not None else sparse[r]
                 )
             self._count_of = {}
+            self._max_row_id = None
             self._payload_cache.clear()
             self._sparse_dev.clear()
             self._sync_sparse_pool_locked()
+            self._block_sums.clear()
+            self._dirty_blocks.clear()
             self.cache = cache_mod.new_cache(self.cache_type, self.cache_size)
             self.cache.stats = self.stats
             self._invalidate_device()
@@ -1326,12 +1367,19 @@ class Fragment:
     def _recount(self, slot_of: dict[int, int | None], deltas: dict) -> None:
         """Exact counts of ``slot_of``'s rows from the host — a plane row
         (a slot) moves by ``deltas[slot]``, a sparse row (None) counts
-        its offsets — and the rank cache follows.  Nothing here reads
-        the device."""
+        its offsets — and the rank cache follows, plane rows first and
+        then sparse rows, each in ``slot_of``'s order, as the JAX
+        package adds them (``core/fragment.py:1867-1879``): a ranked
+        cache prunes as it goes, so the order decides which rows past its
+        size it keeps, and so the bytes of its ``.cache`` file and of an
+        archive.  Nothing here reads the device."""
         for r, s in slot_of.items():
             self._count_of[r] = (len(self._sparse[r]) if s is None
                                  else self._count_of.get(r, 0) + deltas.get(s, 0))
-        self.cache.bulk_update((r, self._count_of[r]) for r in slot_of)
+        for dense in (True, False):
+            for r, s in slot_of.items():
+                if (s is not None) == dense:
+                    self.cache.bulk_add(r, self._count_of[r])
         self.cache.invalidate()
         self.cache.recalculate()
 
@@ -1413,6 +1461,322 @@ class Fragment:
             for j, k in enumerate(uniq_keys):
                 arrays[int(k)] = vals_all[bounds[j] : bounds[j + 1]]
         return words, arrays
+
+    # ------------------------------------------------------------------
+    # block checksums and sync (reference: fragment.go:694-934; JAX
+    # core/fragment.py:2301-2455)
+    # ------------------------------------------------------------------
+
+    def checksum(self) -> bytes:
+        """SHA1 over the block checksums (reference: fragment.go:694-701)."""
+        h = hashlib.sha1()
+        for _, chk in self.blocks():
+            h.update(chk)
+        return h.digest()
+
+    def blocks(self) -> list[tuple[int, bytes]]:
+        """``[(block id, sha1)]`` per ``HASH_BLOCK_SIZE`` rows, empty blocks
+        left out (reference: fragment.go:717-796).  A block's checksum is
+        the SHA1 of its bits' row ids then their column offsets, each a
+        little-endian uint64 in (row, offset) order — the JAX package's
+        bytes, so checksums agree across packages, tiers and replicas.  A
+        checksum is kept until a write marks its block dirty."""
+        with self._mu:
+            by_block: dict[int, list[int]] = {}
+            for r in itertools.chain(self._slot_of, self._sparse):
+                by_block.setdefault(r // HASH_BLOCK_SIZE, []).append(r)
+            out = []
+            for block_id in sorted(by_block):
+                if block_id in self._block_sums and block_id not in self._dirty_blocks:
+                    chk = self._block_sums[block_id]
+                else:
+                    chk = self._block_sum_locked(sorted(by_block[block_id]))
+                    self._block_sums[block_id] = chk
+                    self._dirty_blocks.discard(block_id)
+                if chk is not None:
+                    out.append((block_id, chk))
+            return out
+
+    def _block_sum_locked(self, rows: list[int]) -> bytes | None:
+        """One block's checksum from its rows (ascending), hashed a row at
+        a time: the row-id half first, then the offsets; None when the
+        block holds no bit."""
+        segs = [(r, self._row_offsets_locked(r)) for r in rows]
+        segs = [(r, offs) for r, offs in segs if len(offs)]
+        if not segs:
+            return None
+        h = hashlib.sha1()
+        for r, offs in segs:
+            h.update(np.full(len(offs), r, dtype="<u8"))
+        for _, offs in segs:
+            # Plane rows' int64 offsets are their own little-endian bytes.
+            h.update(offs.view("<u8") if offs.dtype == np.int64 else offs.astype("<u8"))
+        return h.digest()
+
+    def _row_offsets_locked(self, row_id: int) -> np.ndarray:
+        """Sorted in-slice offsets of a row in either tier (empty when
+        absent): int64 for a plane row (its unpacked bits, read as bools),
+        the uint32 array of a sparse row."""
+        slot = self._slot_of.get(row_id)
+        if slot is not None:
+            bits = np.unpackbits(self._plane[slot].view(np.uint8), bitorder="little")
+            return np.flatnonzero(bits.view(bool))
+        offs = self._sparse.get(row_id)
+        return np.empty(0, np.int64) if offs is None else offs
+
+    def _block_positions(self, block_id: int) -> tuple[np.ndarray, np.ndarray]:
+        """Sorted (rows, column offsets), int64, of every bit of a block,
+        from both tiers."""
+        lo = block_id * HASH_BLOCK_SIZE
+        hi = lo + HASH_BLOCK_SIZE
+        rows = sorted(r for r in itertools.chain(self._slot_of, self._sparse) if lo <= r < hi)
+        segs = [(r, self._row_offsets_locked(r).astype(np.int64, copy=False)) for r in rows]
+        segs = [(r, offs) for r, offs in segs if len(offs)]
+        if not segs:
+            return np.empty(0, np.int64), np.empty(0, np.int64)
+        lens = [len(offs) for _, offs in segs]
+        rws = np.repeat(np.asarray([r for r, _ in segs], dtype=np.int64), lens)
+        return rws, np.concatenate([offs for _, offs in segs])
+
+    def block_arrays(self, block_id: int) -> tuple[np.ndarray, np.ndarray]:
+        """Every bit of a block as (rows, column offsets), int64 arrays in
+        (row, offset) order: what ``/fragment/block/data`` encodes."""
+        with self._mu:
+            return self._block_positions(block_id)
+
+    def block_data(self, block_id: int) -> PairSet:
+        """Every (row, column offset) bit of a block (reference:
+        fragment.go:798-808)."""
+        rws, cls = self.block_arrays(block_id)
+        return PairSet(row_ids=rws.tolist(), column_ids=cls.tolist())
+
+    def merge_block(self, block_id: int, data: list[PairSet]) -> tuple[list[PairSet], list[PairSet]]:
+        """Majority merge of the replicas' data of a block (reference:
+        fragment.go:810-934): a bit is set where at least (n + 2) // 2 of
+        the n + 1 participants (this fragment first) have it.  The local
+        difference is applied here; returns (sets, clears) for each
+        remote participant.  The clears are computed from the clear
+        positions, as in the JAX package, not from the sets as the
+        reference's fragment.go:913 does."""
+        for i, ps in enumerate(data):
+            if len(ps.row_ids) != len(ps.column_ids):
+                raise FragmentError(
+                    f"pair set mismatch(idx={i}): {len(ps.row_ids)} != {len(ps.column_ids)}"
+                )
+        with self._mu:
+            lo_row = block_id * HASH_BLOCK_SIZE
+            hi_row = lo_row + HASH_BLOCK_SIZE
+            participants = [self.block_data(block_id)] + list(data)
+
+            def to_pos(ps: PairSet) -> np.ndarray:
+                if not ps.row_ids:
+                    return np.empty(0, dtype=np.int64)
+                r = np.asarray(ps.row_ids, dtype=np.int64)
+                c = np.asarray(ps.column_ids, dtype=np.int64)
+                keep = (r >= lo_row) & (r < hi_row) & (c >= 0) & (c < SLICE_WIDTH)
+                return np.unique(r[keep] * SLICE_WIDTH + c[keep])
+
+            pos_sets = [to_pos(ps) for ps in participants]
+            all_pos = np.concatenate(pos_sets)
+            if all_pos.size == 0:
+                return [PairSet() for _ in data], [PairSet() for _ in data]
+            uniq, votes = np.unique(all_pos, return_counts=True)
+            consensus = votes >= (len(participants) + 1) // 2
+
+            def pairs(pos: np.ndarray) -> PairSet:
+                return PairSet(row_ids=(pos // SLICE_WIDTH).tolist(),
+                               column_ids=(pos % SLICE_WIDTH).tolist())
+
+            sets_out, clears_out = [], []
+            for pos in pos_sets:
+                has = np.isin(uniq, pos)
+                sets_out.append(pairs(uniq[consensus & ~has]))
+                clears_out.append(pairs(uniq[~consensus & has]))
+            base = self.slice * SLICE_WIDTH
+            for r, c in zip(sets_out[0].row_ids, sets_out[0].column_ids):
+                self.set_bit(r, base + c)
+            for r, c in zip(clears_out[0].row_ids, clears_out[0].column_ids):
+                self.clear_bit(r, base + c)
+            return sets_out[1:], clears_out[1:]
+
+    # ------------------------------------------------------------------
+    # archive backup and restore (reference: fragment.go:1112-1283; JAX
+    # core/fragment.py:2457-2600)
+    # ------------------------------------------------------------------
+
+    def _archive_payloads(self) -> list[tuple[str, bytes]]:
+        """The archive's entries from one consistent snapshot taken under
+        the lock (the tar is written outside it): "checksum" (the sha256
+        of every other entry, JSON), "data" (the roaring file, no
+        op-log) and "cache" (the ranked cache's row ids)."""
+        with self._mu:
+            data = roaring.encode_tiered(*self._containers())
+            cache_data = encode_cache_ids(self.cache.ids())
+        sums = json.dumps(
+            {
+                "algo": "sha256",
+                "entries": {
+                    "data": hashlib.sha256(data).hexdigest(),
+                    "cache": hashlib.sha256(cache_data).hexdigest(),
+                },
+            },
+            separators=(",", ":"),
+        ).encode()
+        return [("checksum", sums), ("data", data), ("cache", cache_data)]
+
+    @staticmethod
+    def _write_archive(entries: list[tuple[str, bytes]], w) -> None:
+        tw = tarfile.open(fileobj=w, mode="w|")
+        for name, payload in entries:
+            info = tarfile.TarInfo(name)
+            info.size = len(payload)
+            info.mtime = int(time.time())
+            tw.addfile(info, io.BytesIO(payload))
+        tw.close()
+
+    def write_to(self, w) -> None:
+        """Write the archive, a tar of "checksum", "data" and "cache"."""
+        self._write_archive(self._archive_payloads(), w)
+
+    def tar_chunks(self, chunk_bytes: int = 0) -> Iterable[bytes]:
+        """The archive as a generator of bounded chunks: the tar writer
+        runs on a producer thread against a ChunkPipe, so the HTTP layer
+        pulls chunks with backpressure and the tar is never held whole."""
+        from pilosa_tpu_torch import stream as stream_mod
+
+        entries = self._archive_payloads()
+        return stream_mod.generate_from_writer(
+            lambda w: self._write_archive(entries, w), chunk_bytes=chunk_bytes
+        )
+
+    @staticmethod
+    def _verify_archive_payloads(payloads: dict[str, bytes]) -> None:
+        """Check every entry against the archive's "checksum" entry (an
+        archive without one installs unverified, as the reference's do);
+        raises :class:`ArchiveChecksumError` before anything is applied."""
+        chk = payloads.pop("checksum", None)
+        if chk is None:
+            return
+        try:
+            entries = json.loads(chk).get("entries", {})
+        except (ValueError, AttributeError) as e:
+            raise ArchiveChecksumError(
+                f"fragment archive has an unreadable checksum entry: {e}"
+            ) from e
+        for name, want in entries.items():
+            payload = payloads.get(name)
+            if payload is None:
+                continue
+            got = hashlib.sha256(payload).hexdigest()
+            if got != want:
+                raise ArchiveChecksumError(
+                    f"fragment archive entry {name!r} is torn: sha256 "
+                    f"{got[:12]}… != recorded {str(want)[:12]}…"
+                )
+
+    def read_from(self, r) -> None:
+        """Restore from an archive of :meth:`write_to`: every entry is read
+        and verified first (a rejected archive changes nothing), then the
+        data replaces both tiers — the mirror, its queued deltas and the
+        device payloads dropped with them, a new version and both epochs
+        moved, so no cached batch outlives it — and is made durable as a
+        snapshot is (fsynced ``.snapshotting`` file, rename, directory
+        fsync, the lock taken again, the WAL segment restarted); then the
+        ranked cache is rebuilt from the "cache" entry."""
+        with self._mu:
+            tr = tarfile.open(fileobj=r, mode="r|")
+            payloads: dict[str, bytes] = {}
+            for member in tr:
+                payloads[member.name] = tr.extractfile(member).read()
+            tr.close()
+            self._verify_archive_payloads(payloads)
+            payload = payloads.get("data")
+            if payload is not None:
+                words, arrays, _ = roaring.decode_tiered(payload)
+                self._load_tiered(words, arrays)
+                self._op_n = 0
+                self._op_buf.clear()
+                tmp = self.path + ".snapshotting"
+                with open(tmp, "wb") as fh:
+                    fh.write(payload)
+                    fh.flush()
+                    os.fsync(fh.fileno())
+                if self._file is not None:
+                    fcntl.flock(self._file.fileno(), fcntl.LOCK_UN)
+                    self._file.close()
+                os.replace(tmp, self.path)
+                wal._fsync_dir(self.path)
+                self._file = open(self.path, "a+b")
+                fcntl.flock(self._file.fileno(), fcntl.LOCK_EX | fcntl.LOCK_NB)
+                if self._wal is not None:
+                    # The restored contents replace all the segment
+                    # described: it restarts against the new file.
+                    self._wal.truncate_segment(len(payload))
+            cache_payload = payloads.get("cache")
+            if cache_payload is not None:
+                ids = decode_cache_ids(cache_payload)
+                if ids is not None:
+                    self.cache = cache_mod.new_cache(self.cache_type, self.cache_size)
+                    self.cache.stats = self.stats
+                    for row_id in ids:
+                        if isinstance(row_id, int) and self._has_row_locked(row_id):
+                            self.cache.bulk_add(row_id, self._count_of.get(row_id, 0))
+                    self.cache.invalidate()
+                    # A new ranked cache changes TopN's candidates without a
+                    # write: a cache-only archive moves the epoch too.
+                    bump_write_epoch()
+
+    # ------------------------------------------------------------------
+    # export (reference: fragment.go:487-502; JAX core/fragment.py:2602-2665)
+    # ------------------------------------------------------------------
+
+    def _iter_row_offsets(self) -> Iterable[tuple[int, np.ndarray]]:
+        """``(row id, sorted uint64 in-slice offsets)`` of every non-empty
+        row, ascending, the lock taken a row at a time: one row is
+        unpacked at once, never the plane."""
+        with self._mu:
+            rows = sorted(set(self._slot_of) | set(self._sparse))
+        for r in rows:
+            with self._mu:
+                if not self._has_row_locked(r):
+                    continue
+                offs = self._row_offsets_locked(r)
+            if len(offs):
+                yield r, offs
+
+    def for_each_bit(self) -> Iterable[tuple[int, int]]:
+        """Yield (row id, absolute column id) for every set bit."""
+        base = self.slice * SLICE_WIDTH
+        for r, offs in self._iter_row_offsets():
+            for c in offs:
+                yield r, base + int(c)
+
+    def csv_chunks(self, chunk_pairs: int = 1 << 20) -> Iterable[bytes]:
+        """The CSV export: ``row,col\\n`` records, rows ascending, in chunks
+        of up to ``chunk_pairs`` records formatted a row block at a time."""
+        base = self.slice * SLICE_WIDTH
+        pend_r: list[np.ndarray] = []
+        pend_c: list[np.ndarray] = []
+        pending = 0
+        for r, offs in self._iter_row_offsets():
+            pend_r.append(np.full(len(offs), r, dtype=np.uint64))
+            pend_c.append(offs.astype(np.uint64) + np.uint64(base))
+            pending += len(offs)
+            if pending >= chunk_pairs:
+                yield self._format_pairs(np.concatenate(pend_r), np.concatenate(pend_c))
+                pend_r, pend_c, pending = [], [], 0
+        if pending:
+            yield self._format_pairs(np.concatenate(pend_r), np.concatenate(pend_c))
+
+    @staticmethod
+    def _format_pairs(rws: np.ndarray, cls: np.ndarray) -> bytes:
+        """``row,col\\n`` records of two uint64 arrays: the JAX package's
+        numpy path (its native formatter writes the same bytes)."""
+        out = np.char.add(
+            np.char.add(rws.astype("S20"), b","),
+            np.char.add(cls.astype("S20"), b"\n"),
+        )
+        return b"".join(out.tolist())
 
     # ------------------------------------------------------------------
     # TopN (reference: fragment.go:505-673)

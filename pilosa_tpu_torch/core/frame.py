@@ -183,6 +183,16 @@ class Frame:
                 self.retention_delete_s = float(retention_delete_s)
             self.save_meta()
 
+    def set_time_quantum(self, q: str) -> None:
+        """reference: frame.go:397-414 (JAX ``core/frame.py:186``).  The
+        quantum decides which time views a ``Range()`` reads, so the write
+        epoch moves: a batch built before the change is not served after
+        it."""
+        with self._mu:
+            self.time_quantum = tq.parse_time_quantum(q)
+            self.save_meta()
+        fragment_mod.bump_write_epoch()
+
     # --- views (reference: frame.go:336-395) ---
 
     def _new_view(self, name: str) -> View:

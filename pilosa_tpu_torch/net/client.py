@@ -8,21 +8,44 @@ slice's field values — to every owner (reference: client.go:39-476;
 JAX ``client.py:422-560``).  Every request carries a socket timeout and is made
 once: a dead peer surfaces as an error at once, for the executor's
 replica failover to act on; no retry loop hides it.
+
+The data plane of backup, restore, export and block sync (reference:
+client.go:403-1010; JAX ``client.py:214-1000``): CSV export with a
+redirect to an owner on 412, one fragment's archive as a body stream
+and its restore as a chunked POST, the tar of tars of a whole view
+(each slice spooled, so memory stays at chunk scale), a frame pulled
+from another node, block checksums, block data, view-scoped repair
+pushes and attribute diffs.  Only the opening of a streamed GET retries
+(``stream/client.py``); a stream that breaks midway raises.
 """
 
 from __future__ import annotations
 
+import base64
 import http.client
+import io
 import json
+import shutil
+import tarfile
+import tempfile
+import time
 import urllib.parse
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
 import numpy as np
 
+from pilosa_tpu_torch import stream as stream_mod
 from pilosa_tpu_torch.net import codec, wire
 from pilosa_tpu_torch.ops.bitplane import SLICE_WIDTH, np_group_by
 
 PROTOBUF = "application/x-protobuf"
+
+# Fragment archives in flight at once in a whole-view backup or restore:
+# the node's work per fragment (an encode, or a restore's six fsyncs)
+# overlaps across requests, and the tar keeps slice order.
+VIEW_ARCHIVES_IN_FLIGHT = 16
 
 # Failures of the transport itself: the peer is down or unreachable.
 TRANSPORT_ERRORS = (OSError, http.client.HTTPException)
@@ -34,6 +57,13 @@ class ClientError(RuntimeError):
         self.status = status
 
 
+class PreconditionFailedError(ClientError):
+    """412: the node does not own the slice."""
+
+    def __init__(self, message: str = "precondition failed"):
+        super().__init__(412, message)
+
+
 def is_node_failure(exc: BaseException) -> bool:
     """Whether an error from a remote leg indicts the NODE — a transport
     failure or a 5xx answer, eligible for replica failover — rather
@@ -43,6 +73,19 @@ def is_node_failure(exc: BaseException) -> bool:
         return True
     status = getattr(exc, "status", None)
     return isinstance(status, int) and status >= 500
+
+
+def _drop(futures) -> None:
+    """Cancel the futures not yet started; close what the others made."""
+    for fut in futures:
+        if fut.cancel():
+            continue
+        try:
+            made = fut.result()
+        except BaseException:  # noqa: BLE001 — the first failure is already raised
+            continue
+        if made is not None:
+            made.close()
 
 
 def _err_text(data: bytes) -> str:
@@ -60,6 +103,11 @@ class InternalClient:
         self.host = host
         self.timeout = timeout
         self.device = device
+        # Attempts and first backoff of a streamed GET's opening, and the
+        # chunk size of streamed bodies.
+        self.stream_retries = 3
+        self.stream_backoff = 0.1
+        self.chunk_bytes = stream_mod.DEFAULT_CHUNK_BYTES
 
     def _peer(self, host: str) -> "InternalClient":
         return self if host == self.host else InternalClient(host, self.timeout, self.device)
@@ -97,7 +145,64 @@ class InternalClient:
         finally:
             conn.close()
 
+    def _request_chunked(
+        self, method: str, path: str, reader, query: dict[str, Any] | None = None,
+        headers: dict[str, str] | None = None,
+    ) -> tuple[int, bytes]:
+        """A request whose body streams off ``reader`` with chunked
+        transfer encoding, in writes of ``chunk_bytes``; made once (the
+        reader cannot be rewound)."""
+        if query:
+            path = f"{path}?{urllib.parse.urlencode(query)}"
+
+        def chunks():
+            while True:
+                data = reader.read(self.chunk_bytes)
+                if not data:
+                    return
+                yield data
+
+        conn = http.client.HTTPConnection(self.host, timeout=self.timeout)
+        try:
+            conn.request(method, path, body=chunks(),
+                         headers={**(headers or {}), "Transfer-Encoding": "chunked"},
+                         encode_chunked=True)
+            resp = conn.getresponse()
+            return resp.status, resp.read()
+        finally:
+            conn.close()
+
+    def _open_stream(
+        self, method: str, path: str, query: dict[str, Any] | None = None,
+        headers: dict[str, str] | None = None,
+    ) -> stream_mod.HTTPBodyStream:
+        """An error-checked response body stream; its opening (the dial and
+        the status line) retries with backoff, the stream itself does not.
+        The caller closes it."""
+        if query:
+            path = f"{path}?{urllib.parse.urlencode(query)}"
+
+        def _open():
+            conn = http.client.HTTPConnection(self.host, timeout=self.timeout)
+            try:
+                conn.request(method, path, headers=headers or {})
+                resp = conn.getresponse()
+            except BaseException:
+                conn.close()
+                raise
+            return stream_mod.HTTPBodyStream(resp, conn, self.chunk_bytes)
+
+        s = stream_mod.open_with_retry(_open, attempts=self.stream_retries,
+                                       backoff=self.stream_backoff)
+        if s.status >= 400:
+            with s:
+                data = s.read()
+            self._check(s.status, data)
+        return s
+
     def _check(self, status: int, data: bytes) -> bytes:
+        if status == 412:
+            raise PreconditionFailedError(_err_text(data))
         if status >= 400:
             raise ClientError(status, _err_text(data))
         return data
@@ -175,6 +280,10 @@ class InternalClient:
     def frame_fields(self, index: str, frame: str) -> list[dict]:
         status, data = self._request("GET", f"/index/{index}/frame/{frame}/fields")
         return json.loads(self._check(status, data))["fields"]
+
+    def frame_views(self, index: str, frame: str) -> list[str]:
+        status, data = self._request("GET", f"/index/{index}/frame/{frame}/views")
+        return json.loads(self._check(status, data))["views"]
 
     def fragment_nodes(self, index: str, slice_i: int) -> list[dict]:
         """Owners of a slice, as ``[{"host", "internalHost"}]``."""
@@ -276,3 +385,221 @@ class InternalClient:
             self.import_value(index, frame, field, s, c_s, v_s)
             sent.append(s)
         return sent
+
+    # --- export (reference: client.go:403-476) ---
+
+    def export_csv(self, index: str, frame: str, view: str, slice_i: int) -> str:
+        """One fragment's CSV, whole."""
+        buf = io.BytesIO()
+        self.export_to(buf, index, frame, view, slice_i)
+        return buf.getvalue().decode()
+
+    def export_to(self, w, index: str, frame: str, view: str, slice_i: int) -> None:
+        """Stream one fragment's CSV into ``w``, from another owner of the
+        slice when this node answers 412 (decided on the status line,
+        before any body moves)."""
+        try:
+            src = self._export_stream(index, frame, view, slice_i)
+        except PreconditionFailedError:
+            src = None
+            for node in self.fragment_nodes(index, slice_i):
+                if node["host"] == self.host:
+                    continue
+                try:
+                    src = self._peer(node["host"])._export_stream(index, frame, view, slice_i)
+                    break
+                except PreconditionFailedError:
+                    continue
+            if src is None:
+                raise
+        with src:
+            for chunk in src:
+                w.write(chunk)
+
+    def _export_stream(self, index: str, frame: str, view: str, slice_i: int):
+        return self._open_stream(
+            "GET", "/export",
+            query={"index": index, "frame": frame, "view": view, "slice": slice_i},
+            headers={"Accept": "text/csv"},
+        )
+
+    # --- backup and restore (reference: client.go:478-738) ---
+
+    def stream_backup_slice(self, index: str, frame: str, view: str, slice_i: int):
+        """One fragment's archive as a body stream (the caller closes it),
+        or None when the node has no such fragment."""
+        try:
+            return self._open_stream(
+                "GET", "/fragment/data",
+                query={"index": index, "frame": frame, "view": view, "slice": slice_i},
+            )
+        except ClientError as e:
+            if e.status == 404:
+                return None
+            raise
+
+    def backup_slice(self, index: str, frame: str, view: str, slice_i: int) -> bytes | None:
+        src = self.stream_backup_slice(index, frame, view, slice_i)
+        if src is None:
+            return None
+        with src:
+            return src.read()
+
+    def restore_slice_from(self, index: str, frame: str, view: str, slice_i: int, reader,
+                           stage: bool = False) -> None:
+        """POST one fragment archive off ``reader`` as a chunked body;
+        ``stage=True`` asks the node to stage the fragment's mirror."""
+        query: dict = {"index": index, "frame": frame, "view": view, "slice": slice_i}
+        if stage:
+            query["stage"] = "true"
+        status, data = self._request_chunked("POST", "/fragment/data", reader, query=query)
+        self._check(status, data)
+
+    def restore_slice(self, index: str, frame: str, view: str, slice_i: int,
+                      payload: bytes) -> None:
+        self.restore_slice_from(index, frame, view, slice_i, io.BytesIO(payload))
+
+    def backup_to(self, w, index: str, frame: str, view: str) -> None:
+        """Write every slice's archive of a view into one tar whose members
+        are named by slice, in slice order (reference: client.go:478-560).
+        A tar header needs its member's size first and a chunked body has
+        none, so each archive spools through a SpooledTemporaryFile (on
+        disk past a few chunks): memory stays at chunk scale.  Up to
+        ``VIEW_ARCHIVES_IN_FLIGHT`` archives are fetched at once."""
+        from pilosa_tpu_torch.core.view import VIEW_INVERSE, is_valid_view
+
+        # A whole-frame backup takes the standard or the inverse view
+        # (reference: client.go:491-497); time views move by frame restore.
+        if not is_valid_view(view):
+            raise ClientError(400, "invalid view")
+        max_slices = self.max_slice_by_index(inverse=view == VIEW_INVERSE)
+
+        def fetch(slice_i: int):
+            src = self.stream_backup_slice(index, frame, view, slice_i)
+            if src is None:
+                return None
+            spool = tempfile.SpooledTemporaryFile(max_size=4 * self.chunk_bytes)
+            try:
+                with src:
+                    for chunk in src:
+                        spool.write(chunk)
+            except BaseException:
+                spool.close()
+                raise
+            return spool
+
+        def add(slice_i: int, fut) -> None:
+            spool = fut.result()
+            if spool is None:
+                return
+            with spool:
+                info = tarfile.TarInfo(str(slice_i))
+                info.size = spool.tell()
+                info.mtime = int(time.time())
+                spool.seek(0)
+                tw.addfile(info, spool)
+
+        tw = tarfile.open(fileobj=w, mode="w|")
+        with ThreadPoolExecutor(VIEW_ARCHIVES_IN_FLIGHT) as ex:
+            pending: deque = deque()
+            try:
+                for slice_i in range(max_slices.get(index, 0) + 1):
+                    pending.append((slice_i, ex.submit(fetch, slice_i)))
+                    if len(pending) >= VIEW_ARCHIVES_IN_FLIGHT:
+                        add(*pending.popleft())
+                while pending:
+                    add(*pending.popleft())
+            finally:
+                _drop(fut for _, fut in pending)
+        tw.close()
+
+    def restore_from(self, r, index: str, frame: str, view: str) -> None:
+        """Restore a tar of :meth:`backup_to` (reference:
+        client.go:562-588): each member spooled (on disk past a few chunks)
+        and posted as a chunked body, up to ``VIEW_ARCHIVES_IN_FLIGHT`` at
+        once; the first failure raises once the posts in flight end."""
+
+        def post(slice_i: int, spool) -> None:
+            with spool:
+                self.restore_slice_from(index, frame, view, slice_i, spool)
+
+        tr = tarfile.open(fileobj=r, mode="r|")
+        with ThreadPoolExecutor(VIEW_ARCHIVES_IN_FLIGHT) as ex:
+            pending: deque = deque()
+            try:
+                for member in tr:
+                    spool = tempfile.SpooledTemporaryFile(max_size=4 * self.chunk_bytes)
+                    shutil.copyfileobj(tr.extractfile(member), spool, self.chunk_bytes)
+                    spool.seek(0)
+                    pending.append(ex.submit(post, int(member.name), spool))
+                    if len(pending) >= VIEW_ARCHIVES_IN_FLIGHT:
+                        pending.popleft().result()
+                while pending:
+                    pending.popleft().result()
+            finally:
+                _drop(pending)
+        tr.close()
+
+    def restore_frame(self, host: str, index: str, frame: str) -> None:
+        """Ask the node to pull a frame from ``host`` (reference:
+        client.go:704-738)."""
+        status, data = self._request("POST", f"/index/{index}/frame/{frame}/restore",
+                                     query={"host": host})
+        self._check(status, data)
+
+    # --- block sync (reference: client.go:828-1010) ---
+
+    def fragment_blocks(self, index: str, frame: str, view: str,
+                        slice_i: int) -> list[tuple[int, bytes]]:
+        status, data = self._request(
+            "GET", "/fragment/blocks",
+            query={"index": index, "frame": frame, "view": view, "slice": slice_i},
+        )
+        blocks = json.loads(self._check(status, data))["blocks"]
+        return [(b["id"], base64.b64decode(b["checksum"])) for b in blocks]
+
+    def block_data(self, index: str, frame: str, view: str, slice_i: int,
+                   block: int) -> tuple[list[int], list[int]]:
+        pb = wire.BlockDataRequest(Index=index, Frame=frame, View=view, Slice=slice_i,
+                                   Block=block)
+        status, data = self._request(
+            "GET", "/fragment/block/data", body=pb.encode(),
+            headers={"Content-Type": PROTOBUF, "Accept": PROTOBUF},
+        )
+        resp = wire.BlockDataResponse.decode(self._check(status, data))
+        return (np.asarray(resp.RowIDs, dtype=np.uint64).tolist(),
+                np.asarray(resp.ColumnIDs, dtype=np.uint64).tolist())
+
+    def import_view_bits(self, index: str, frame: str, view: str, slice_i: int,
+                         sets: tuple, clears: tuple) -> None:
+        """Sets and clears, ``(row ids, absolute column ids)`` each, in one
+        view of a slice on this node."""
+        pb = wire.ImportViewRequest(
+            Index=index, Frame=frame, View=view, Slice=slice_i,
+            RowIDs=[int(r) for r in sets[0]], ColumnIDs=[int(c) for c in sets[1]],
+            ClearRowIDs=[int(r) for r in clears[0]],
+            ClearColumnIDs=[int(c) for c in clears[1]],
+        )
+        status, data = self._request(
+            "POST", "/fragment/import-view", body=pb.encode(),
+            headers={"Content-Type": PROTOBUF, "Accept": PROTOBUF},
+        )
+        resp = wire.ImportResponse.decode(self._check(status, data))
+        if resp.Err:
+            raise ClientError(500, resp.Err)
+
+    def column_attr_diff(self, index: str, blocks: list[tuple[int, bytes]]) -> dict[int, dict]:
+        return self._attr_diff(f"/index/{index}/attr/diff", blocks)
+
+    def row_attr_diff(self, index: str, frame: str,
+                      blocks: list[tuple[int, bytes]]) -> dict[int, dict]:
+        return self._attr_diff(f"/index/{index}/frame/{frame}/attr/diff", blocks)
+
+    def _attr_diff(self, path: str, blocks: list[tuple[int, bytes]]) -> dict[int, dict]:
+        body = json.dumps({"blocks": [{"id": bid, "checksum": base64.b64encode(chk).decode()}
+                                      for bid, chk in blocks]}).encode()
+        status, data = self._request("POST", path, body=body)
+        if status == 404:
+            raise ClientError(404, "frame not found")
+        attrs = json.loads(self._check(status, data))["attrs"]
+        return {int(k): v for k, v in attrs.items()}

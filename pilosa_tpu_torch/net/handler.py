@@ -5,12 +5,19 @@ port covers, with the same paths, status codes and response bodies
 (reference: handler.go):
 
     GET    /version, /status, /schema, /index, /hosts, /slices/max
+    GET    /state (404 until gossip is ported, as on a JAX node without it)
     GET    /index/<i>          POST /index/<i>          DELETE /index/<i>
+    POST   /index/<i>/query    PATCH /index/<i>/time-quantum
+    POST   /index/<i>/attr/diff
     POST   /index/<i>/frame/<f>                         DELETE /index/<i>/frame/<f>
+    PATCH  /index/<i>/frame/<f>/time-quantum            GET /index/<i>/frame/<f>/views
+    POST   /index/<i>/frame/<f>/attr/diff               POST /index/<i>/frame/<f>/restore?host=
     GET    /index/<i>/frame/<f>/fields
     POST   /index/<i>/frame/<f>/field/<fld>             DELETE (same path)
-    POST   /index/<i>/query    POST /import             POST /import-value
-    GET    /fragment/nodes
+    POST   /import             POST /import-value       GET /export
+    GET    /fragment/nodes     GET /fragment/data       POST /fragment/data
+    GET    /fragment/blocks    POST /fragment/import-view
+    GET    /fragment/block/data
     GET    /debug/hbm          GET /debug/ingest
     GET    /metrics            GET /debug/vars          GET /debug/perf
     GET    /debug/traces       GET /debug/stacks        GET /debug/profile
@@ -28,7 +35,28 @@ that slice's owners as ``POST /import?view=inverse`` (itself where it
 owns it), so the inverse view lives where queries look for it;
 ``GET /slices/max?inverse=true`` answers the inverse slices;
 ``POST /import-value`` takes one slice's BSI field
-values as JSON.  Index and frame creation and deletion are broadcast to
+values as JSON.
+
+The data plane of backup, restore, export and block sync (JAX
+``handler.py:1247-1435``): ``GET /export`` streams one fragment's CSV
+(406 without ``Accept: text/csv``, 412 on a node that does not own the
+slice); ``GET /fragment/data`` streams its self-verifying tar and
+``POST /fragment/data`` restores one from the request body as it
+arrives (422 for a torn archive, which changes nothing; ``?stage=true``
+hands the fragment to the prefetcher's staging lane);
+``GET /fragment/blocks`` answers its block checksums,
+``GET /fragment/block/data`` a block's bits (protobuf in and out) and
+``POST /fragment/import-view`` sets and clears bits in one view of a
+slice this node owns.  Bodies stream both ways: a chunked or
+length-bounded request body reaches a ``stream_body`` route as a reader,
+and an iterator response goes out with ``Transfer-Encoding: chunked`` in
+writes of ``stream_chunk_bytes`` (64 KiB), counted as
+``stream.bytesReceived`` / ``stream.bytesSent``.  The JAX node admits
+``/fragment/data`` and ``/fragment/import-view`` on its internal
+admission lane; admission (``net/admission.py``) is not ported, so the
+port serves them directly.
+
+Index and frame creation and deletion are broadcast to
 the cluster; a field's creation and deletion go to every peer as the
 same HTTP request with ``?remote=true``, as in the JAX package.
 ``GET /debug/hbm`` answers the residency pool's snapshot and ``GET
@@ -57,6 +85,7 @@ Replication, resize and the other debug routes are not ported yet.
 
 from __future__ import annotations
 
+import base64
 import io
 import json
 import os
@@ -69,7 +98,7 @@ import threading
 import time
 import traceback
 import urllib.parse
-from collections.abc import Callable
+from collections.abc import Callable, Iterable
 from dataclasses import dataclass, field
 from datetime import datetime, timezone
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -79,8 +108,12 @@ import numpy as np
 
 from pilosa_tpu_torch import __version__, bsi
 from pilosa_tpu_torch import device as device_mod
+from pilosa_tpu_torch import stream as stream_mod
+from pilosa_tpu_torch.core import attr as attr_mod
 from pilosa_tpu_torch.core.bitmap import RowBitmap
+from pilosa_tpu_torch.core.fragment import ArchiveChecksumError
 from pilosa_tpu_torch.core.timequantum import parse_time_quantum
+from pilosa_tpu_torch.core.view import is_inverse_view
 from pilosa_tpu_torch.exec import plan as plan_mod
 from pilosa_tpu_torch.exec.executor import ExecOptions, TooManyWritesError
 from pilosa_tpu_torch.ingest import scatter
@@ -104,7 +137,6 @@ METRICS_LEFT_OUT = {
     "pilosa_cluster_replication_": "quorum replication is not ported",
     "pilosa_tenant_": "tenant QoS is not ported",
     "pilosa_exec_pool_": "map legs run on the standard library's thread pool",
-    "pilosa_stream_": "request and response bodies are not streamed",
 }
 
 
@@ -115,9 +147,31 @@ class Request:
     query: dict[str, str] = field(default_factory=dict)
     headers: dict[str, str] = field(default_factory=dict)
     body: bytes = b""
+    # The body still on the socket (a file-like with read(n)), set by the
+    # HTTP adapter: a ``stream_body`` route reads it itself, any other
+    # route gets ``body`` read whole by dispatch.
+    stream: Any = None
 
     def header(self, key: str) -> str:
         return self.headers.get(key.lower(), "")
+
+    def body_reader(self):
+        """The body as a file object: the pending stream, else the bytes."""
+        return self.stream if self.stream is not None else io.BytesIO(self.body)
+
+    def read_body(self) -> bytes:
+        """Read the body whole (once) and keep it."""
+        if self.stream is not None:
+            self.body = self.stream.read()
+            self.stream = None
+        return self.body
+
+
+def stream_body(fn):
+    """Mark a route as reading ``Request.stream`` itself: dispatch does not
+    read the body first."""
+    fn.streams_body = True
+    return fn
 
 
 def _route_template(pattern: str) -> str:
@@ -132,8 +186,16 @@ class Response:
     status: int = 200
     body: bytes = b""
     content_type: str = JSON
+    # An iterator body: the HTTP adapter sends it with chunked transfer
+    # encoding in writes of constant size instead of ``body``.
+    body_iter: Iterable[bytes] | None = None
     # Extra response headers (the trace span export).
     headers: dict[str, str] = field(default_factory=dict)
+
+    @classmethod
+    def stream(cls, chunks: Iterable[bytes], content_type: str, chunk_bytes: int = 0) -> "Response":
+        return cls(body_iter=stream_mod.IterBody(chunks, chunk_bytes=chunk_bytes),
+                   content_type=content_type)
 
     @classmethod
     def json(cls, obj: Any, status: int = 200) -> "Response":
@@ -168,10 +230,15 @@ class Handler:
 
     def __init__(self, holder, executor, broadcaster=None, stats=None, tracer=None,
                  slow_query_ms: float = 0.0, latency_buckets_ms=None, slo_ms: float = 0.0,
-                 slo_objective: float = 0.999, logger=None):
+                 slo_objective: float = 0.999, logger=None, stream_chunk_bytes: int = 0):
         self.holder = holder
         self.executor = executor
         self.broadcaster = broadcaster
+        # The write size of streamed bodies (CSV export, archives).
+        self.stream_chunk_bytes = stream_chunk_bytes or stream_mod.DEFAULT_CHUNK_BYTES
+        # The prefetcher (wired by the server): ``POST /fragment/data
+        # ?stage=true`` stages the restored fragment's mirror through it.
+        self.prefetcher = None
         self.logger = logger or (lambda msg: print(msg, file=sys.stderr))
         self.stats = stats
         # Every query is traced when a Tracer is wired (the server does).
@@ -191,6 +258,7 @@ class Handler:
         routes: list[tuple[str, str, Callable]] = [
             ("GET", r"/schema", self.handle_get_schema),
             ("GET", r"/status", self.handle_get_status),
+            ("GET", r"/state", self.handle_get_state),
             ("GET", r"/hosts", self.handle_get_hosts),
             ("GET", r"/version", self.handle_get_version),
             ("GET", r"/slices/max", self.handle_get_slice_max),
@@ -199,8 +267,19 @@ class Handler:
             ("POST", r"/index/(?P<index>[^/]+)", self.handle_post_index),
             ("DELETE", r"/index/(?P<index>[^/]+)", self.handle_delete_index),
             ("POST", r"/index/(?P<index>[^/]+)/query", self.handle_post_query),
+            ("PATCH", r"/index/(?P<index>[^/]+)/time-quantum",
+             self.handle_patch_index_time_quantum),
+            ("POST", r"/index/(?P<index>[^/]+)/attr/diff", self.handle_post_index_attr_diff),
             ("POST", r"/index/(?P<index>[^/]+)/frame/(?P<frame>[^/]+)", self.handle_post_frame),
             ("DELETE", r"/index/(?P<index>[^/]+)/frame/(?P<frame>[^/]+)", self.handle_delete_frame),
+            ("PATCH", r"/index/(?P<index>[^/]+)/frame/(?P<frame>[^/]+)/time-quantum",
+             self.handle_patch_frame_time_quantum),
+            ("GET", r"/index/(?P<index>[^/]+)/frame/(?P<frame>[^/]+)/views",
+             self.handle_get_frame_views),
+            ("POST", r"/index/(?P<index>[^/]+)/frame/(?P<frame>[^/]+)/attr/diff",
+             self.handle_post_frame_attr_diff),
+            ("POST", r"/index/(?P<index>[^/]+)/frame/(?P<frame>[^/]+)/restore",
+             self.handle_post_frame_restore),
             ("GET", r"/index/(?P<index>[^/]+)/frame/(?P<frame>[^/]+)/fields",
              self.handle_get_frame_fields),
             ("POST", r"/index/(?P<index>[^/]+)/frame/(?P<frame>[^/]+)/field/(?P<fld>[^/]+)",
@@ -209,7 +288,13 @@ class Handler:
              self.handle_delete_frame_field),
             ("POST", r"/import", self.handle_post_import),
             ("POST", r"/import-value", self.handle_post_import_value),
+            ("GET", r"/export", self.handle_get_export),
             ("GET", r"/fragment/nodes", self.handle_get_fragment_nodes),
+            ("GET", r"/fragment/data", self.handle_get_fragment_data),
+            ("POST", r"/fragment/data", self.handle_post_fragment_data),
+            ("GET", r"/fragment/blocks", self.handle_get_fragment_blocks),
+            ("POST", r"/fragment/import-view", self.handle_post_import_view),
+            ("GET", r"/fragment/block/data", self.handle_get_fragment_block_data),
             ("GET", r"/debug/hbm", self.handle_get_hbm),
             ("GET", r"/debug/ingest", self.handle_get_ingest),
             ("GET", r"/debug/vars", self.handle_get_vars),
@@ -231,6 +316,8 @@ class Handler:
                 m = pattern.match(req.path.rstrip("/") or "/")
                 if m and method == req.method:
                     route = tmpl
+                    if req.stream is not None and not getattr(fn, "streams_body", False):
+                        req.read_body()
                     resp = fn(req, **m.groupdict())
                     break
             else:
@@ -271,6 +358,12 @@ class Handler:
             for n in self.cluster.nodes
         ]
         return Response.json({"status": {"Nodes": nodes}})
+
+    def handle_get_state(self, req: Request) -> Response:
+        """The node's serialized state, which the gossip transport's
+        stream fallback pulls; gossip is not ported, so the route answers
+        as a JAX node without a state provider."""
+        return Response.error("state provider not configured", 404)
 
     def handle_get_hosts(self, req: Request) -> Response:
         return Response.json([n.to_dict() for n in self.cluster.nodes])
@@ -450,6 +543,113 @@ class Handler:
             return Response(body=out.getvalue().encode(), content_type="text/plain")
         return Response.error(f"unknown profile: {kind}", 404)
 
+    # --- the data plane of backup, restore, export and block sync (JAX
+    # handler.py:1247-1435) ---
+
+    def handle_get_export(self, req: Request) -> Response:
+        """One fragment's CSV, streamed (reference: handler.go:1049-1098)."""
+        if "text/csv" not in req.header("Accept"):
+            return Response.error("not acceptable", 406)
+        index = req.query.get("index", "")
+        frame = req.query.get("frame", "")
+        view = req.query.get("view", "")
+        try:
+            slice_i = int(req.query.get("slice", ""))
+        except ValueError:
+            return Response.error("invalid slice", 400)
+        owners = {n.host for n in self.cluster.fragment_nodes(index, slice_i)}
+        if self.executor.host not in owners:
+            return Response.error("host does not own slice", 412)
+        frag = self.holder.fragment(index, frame, view, slice_i)
+        if frag is None:
+            return Response.error("fragment not found", 404)
+        return Response.stream(frag.csv_chunks(), "text/csv", chunk_bytes=self.stream_chunk_bytes)
+
+    def _fragment_from_query(self, req: Request):
+        slice_s = req.query.get("slice", "")
+        if not slice_s.isdigit():
+            return None, Response.error("slice required", 400)
+        frag = self.holder.fragment(req.query.get("index", ""), req.query.get("frame", ""),
+                                    req.query.get("view", ""), int(slice_s))
+        if frag is None:
+            return None, Response.error("fragment not found", 404)
+        return frag, None
+
+    def handle_get_fragment_data(self, req: Request) -> Response:
+        """One fragment's archive, streamed (reference: handler.go:1102-1123)."""
+        frag, err = self._fragment_from_query(req)
+        if err:
+            return err
+        return Response.stream(frag.tar_chunks(chunk_bytes=self.stream_chunk_bytes),
+                               "application/octet-stream", chunk_bytes=self.stream_chunk_bytes)
+
+    @stream_body
+    def handle_post_fragment_data(self, req: Request) -> Response:
+        """Restore one fragment from the archive in the body, read as it
+        arrives and verified before anything is applied (422 for a torn
+        one); ``?stage=true`` stages the fragment's mirror afterwards."""
+        slice_s = req.query.get("slice", "")
+        if not slice_s.isdigit():
+            return Response.error("slice required", 400)
+        f = self.holder.frame(req.query.get("index", ""), req.query.get("frame", ""))
+        if f is None:
+            return Response.error("frame not found", 404)
+        frag = f.create_view_if_not_exists(req.query.get("view", "")).create_fragment_if_not_exists(
+            int(slice_s))
+        try:
+            frag.read_from(req.body_reader())
+        except ArchiveChecksumError as e:
+            return Response.error(str(e), 422)
+        if req.query.get("stage") == "true" and self.prefetcher is not None:
+            self.prefetcher.stage([frag])
+        return Response.json({})
+
+    def handle_get_fragment_blocks(self, req: Request) -> Response:
+        frag, err = self._fragment_from_query(req)
+        if err:
+            return err
+        blocks = [{"id": bid, "checksum": base64.b64encode(chk).decode()}
+                  for bid, chk in frag.blocks()]
+        return Response.json({"blocks": blocks})
+
+    def handle_get_fragment_block_data(self, req: Request) -> Response:
+        """A block's bits, protobuf in and out (reference: handler.go:1213-1246)."""
+        try:
+            pb = _decode(wire.BlockDataRequest, req.body)
+        except _ParseError as e:
+            return Response.error(str(e), 400)
+        frag = self.holder.fragment(pb.Index, pb.Frame, pb.View, pb.Slice)
+        if frag is None:
+            return Response.error("fragment not found", 404)
+        rows, cols = frag.block_arrays(pb.Block)
+        return Response.proto(wire.BlockDataResponse(RowIDs=rows, ColumnIDs=cols))
+
+    def handle_post_import_view(self, req: Request) -> Response:
+        """Sets and clears in one view of one slice — the repair push of
+        block sync for any view, time and inverse views included."""
+        try:
+            pb = _decode(wire.ImportViewRequest, req.body)
+        except _ParseError as e:
+            return Response.error(str(e), 400)
+        if not self.cluster.is_write_owner(self.executor.host, pb.Index, pb.Slice):
+            return Response.error(
+                f"host does not own slice {self.executor.host} slice={pb.Slice}", 412
+            )
+        f = self.holder.frame(pb.Index, pb.Frame)
+        if f is None:
+            return Response.error("frame not found", 404)
+        if len(pb.RowIDs) != len(pb.ColumnIDs) or len(pb.ClearRowIDs) != len(pb.ClearColumnIDs):
+            return Response.error("row/column id length mismatch", 400)
+        try:
+            frag = f.create_view_if_not_exists(pb.View).create_fragment_if_not_exists(pb.Slice)
+            for r, c in zip(pb.RowIDs, pb.ColumnIDs):
+                frag.set_bit(int(r), int(c))
+            for r, c in zip(pb.ClearRowIDs, pb.ClearColumnIDs):
+                frag.clear_bit(int(r), int(c))
+        except Exception as e:  # noqa: BLE001 — write boundary
+            return Response.proto(wire.ImportResponse(Err=str(e)), status=500)
+        return Response.proto(wire.ImportResponse())
+
     def handle_get_fragment_nodes(self, req: Request) -> Response:
         """Owners of a slice.  ``?write=true`` asks for the write owners,
         which are the owners while no resize is in flight (resize is not
@@ -509,6 +709,41 @@ class Handler:
         self._broadcast(wire.DeleteIndexMessage(Index=index))
         return Response.json({})
 
+    def handle_patch_index_time_quantum(self, req: Request, index: str) -> Response:
+        try:
+            payload = json.loads(req.body)
+        except json.JSONDecodeError as e:
+            return Response.error(str(e), 400)
+        try:
+            q = parse_time_quantum(payload.get("timeQuantum", ""))
+        except ValueError:
+            return Response.error("invalid time quantum", 400)
+        idx = self.holder.index(index)
+        if idx is None:
+            return Response.error("index not found", 404)
+        idx.set_time_quantum(q)
+        return Response.json({})
+
+    def handle_post_index_attr_diff(self, req: Request, index: str) -> Response:
+        idx = self.holder.index(index)
+        if idx is None:
+            return Response.error("index not found", 404)
+        return self._attr_diff(req, idx.column_attr_store)
+
+    def _attr_diff(self, req: Request, store) -> Response:
+        """The attributes of every block whose checksum differs from the
+        caller's (reference: handler.go:514-570, 782-838)."""
+        try:
+            payload = json.loads(req.body)
+        except json.JSONDecodeError as e:
+            return Response.error(str(e), 400)
+        remote = [(b["id"], base64.b64decode(b["checksum"])) for b in payload.get("blocks", [])]
+        attrs: dict[str, dict] = {}
+        for bid in attr_mod.diff_blocks(store.blocks(), remote):
+            for id_, a in store.block_data(bid).items():
+                attrs[str(id_)] = a
+        return Response.json({"attrs": attrs})
+
     # --- frame CRUD ---
 
     def handle_post_frame(self, req: Request, index: str, frame: str) -> Response:
@@ -548,6 +783,60 @@ class Handler:
             return Response.error("index not found", 404)
         idx.delete_frame(frame)
         self._broadcast(wire.DeleteFrameMessage(Index=index, Frame=frame))
+        return Response.json({})
+
+    def handle_patch_frame_time_quantum(self, req: Request, index: str, frame: str) -> Response:
+        try:
+            payload = json.loads(req.body)
+        except json.JSONDecodeError as e:
+            return Response.error(str(e), 400)
+        try:
+            q = parse_time_quantum(payload.get("timeQuantum", ""))
+        except ValueError:
+            return Response.error("invalid time quantum", 400)
+        f = self.holder.frame(index, frame)
+        if f is None:
+            return Response.error("frame not found", 404)
+        f.set_time_quantum(q)
+        return Response.json({})
+
+    def handle_get_frame_views(self, req: Request, index: str, frame: str) -> Response:
+        f = self.holder.frame(index, frame)
+        if f is None:
+            return Response.error("frame not found", 404)
+        return Response.json({"views": sorted(f.views().keys())})
+
+    def handle_post_frame_attr_diff(self, req: Request, index: str, frame: str) -> Response:
+        f = self.holder.frame(index, frame)
+        if f is None:
+            return Response.error("frame not found", 404)
+        return self._attr_diff(req, f.row_attr_store)
+
+    def handle_post_frame_restore(self, req: Request, index: str, frame: str) -> Response:
+        """Pull every view and slice of a frame from the node ``?host=``
+        (reference: handler.go:1253-1341), each archive read into its
+        fragment as it arrives."""
+        host = req.query.get("host")
+        if not host:
+            return Response.error("host required", 400)
+        f = self.holder.frame(index, frame)
+        if f is None:
+            return Response.error("frame not found", 404)
+        if self.executor.client_factory is None:
+            return Response.error("no client", 500)
+        client = self.executor.client_factory(host)
+        max_slices = client.max_slice_by_index()
+        max_inverse = client.max_slice_by_index(inverse=True)
+        for view_name in client.frame_views(index, frame):
+            src_max = max_inverse if is_inverse_view(view_name) else max_slices
+            for slice_i in range(src_max.get(index, 0) + 1):
+                view = f.create_view_if_not_exists(view_name)
+                frag = view.create_fragment_if_not_exists(slice_i)
+                src = client.stream_backup_slice(index, frame, view_name, slice_i)
+                if src is None:
+                    continue
+                with src:
+                    frag.read_from(src)
         return Response.json({})
 
     # --- BSI fields (JAX handler.py:686-765) ---
@@ -968,22 +1257,40 @@ def _dt_from_unix(ts: int) -> datetime:
 def make_http_server(handler: Handler, host: str = "127.0.0.1", port: int = 0):
     """Mount a Handler on a ThreadingHTTPServer; returns the server (call
     ``serve_forever()`` in a thread; ``server_address`` has the bound
-    port when port=0)."""
+    port when port=0).  Bodies stream both ways (JAX ``handler.py:
+    2310-2406``): a chunked or Content-Length request body reaches the
+    handler as a reader, and an iterator response goes out with chunked
+    transfer encoding in writes of constant size."""
 
     class _Adapter(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
         def _run(self):
             parsed = urllib.parse.urlsplit(self.path)
-            length = int(self.headers.get("Content-Length") or 0)
+            if "chunked" in (self.headers.get("Transfer-Encoding") or "").lower():
+                body = stream_mod.ChunkedBodyReader(self.rfile)
+            else:
+                body = stream_mod.LengthBodyReader(
+                    self.rfile, int(self.headers.get("Content-Length") or 0))
             req = Request(
                 method=self.command,
                 path=parsed.path,
                 query=dict(urllib.parse.parse_qsl(parsed.query)),
                 headers={k.lower(): v for k, v in self.headers.items()},
-                body=self.rfile.read(length) if length else b"",
+                stream=body,
             )
             resp = handler.dispatch(req)
+            # The unread rest of the body leaves the socket before the
+            # answer, or the connection closes when it is too long.
+            try:
+                if not body.drain():
+                    self.close_connection = True
+            except (OSError, ValueError):
+                self.close_connection = True
+            self._count("stream.bytesReceived", body.bytes_read)
+            if resp.body_iter is not None:
+                self._send_stream(resp)
+                return
             self.send_response(resp.status)
             self.send_header("Content-Type", resp.content_type)
             for k, v in resp.headers.items():
@@ -991,6 +1298,41 @@ def make_http_server(handler: Handler, host: str = "127.0.0.1", port: int = 0):
             self.send_header("Content-Length", str(len(resp.body)))
             self.end_headers()
             self.wfile.write(resp.body)
+
+        def _count(self, name: str, n: int) -> None:
+            if handler.stats is None or n <= 0:
+                return
+            try:
+                handler.stats.count(name, n)
+            except Exception:  # noqa: BLE001 — stats never break the transport
+                pass
+
+        def _send_stream(self, resp: Response) -> None:
+            self.send_response(resp.status)
+            self.send_header("Content-Type", resp.content_type)
+            for k, v in resp.headers.items():
+                self.send_header(k, v)
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+            sent = 0
+            try:
+                for chunk in resp.body_iter:
+                    if chunk:
+                        self.wfile.write(stream_mod.encode_chunk(chunk))
+                        sent += len(chunk)
+                self.wfile.write(stream_mod.CHUNK_TERMINATOR)
+            except (BrokenPipeError, ConnectionResetError):
+                self.close_connection = True
+            except Exception as e:  # noqa: BLE001 — the producer failed mid-stream
+                # The headers are gone: the body ends without its
+                # terminator, which the client sees as an error.
+                handler.logger(f"stream error {self.path}: {e}")
+                self.close_connection = True
+            finally:
+                self._count("stream.bytesSent", sent)
+                close = getattr(resp.body_iter, "close", None)
+                if close is not None:
+                    close()
 
         do_GET = do_POST = do_DELETE = do_PATCH = _run
 

@@ -75,6 +75,10 @@ Observability, with the JAX package's names and defaults
   dir) as the denominator of ``/debug/perf``'s ``floorPct``.  A probe
   that cannot build or launch K11 raises here.
 
+``stream_chunk_bytes`` (the JAX package's ``[net] stream-chunk-bytes``, 0
+for its 64 KiB default) is the write size of the streamed bodies: CSV
+exports and fragment archives.
+
 At open the node stages, in the background, the mirrors of its previous
 run (``.residency.json``, written at close), then the largest that fit
 the budget, and answers meanwhile (``staging_job``).  ``GET /debug/hbm``
@@ -150,6 +154,7 @@ class Server:
         slo_ms: float = 0.0,
         slo_objective: float = 0.999,
         floor_probe: bool = True,
+        stream_chunk_bytes: int = 0,
     ):
         if cluster_type == "gossip":
             raise ValueError("cluster type 'gossip' is not supported by this port yet")
@@ -220,6 +225,7 @@ class Server:
             latency_buckets_ms=latency_buckets_ms,
             slo_ms=slo_ms,
             slo_objective=slo_objective,
+            stream_chunk_bytes=stream_chunk_bytes,
         )
         # /debug/profile tars its traces under the data dir.
         self.handler.profile_dir = data_dir
@@ -284,6 +290,7 @@ class Server:
         self.executor.prefetcher = device_mod.prefetcher() if self.device_prefetch else None
         self.executor.ingest = self.ingest
         self.handler.ingest = self.ingest
+        self.handler.prefetcher = device_mod.prefetcher()
         # Serving starts now; the mirrors of the previous run (its
         # .residency.json, then the largest that fit the budget) stream in
         # behind it, and a query's own prefetch jumps them.

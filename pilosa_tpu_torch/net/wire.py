@@ -93,44 +93,58 @@ def _as_u64_array(values, kind: int) -> np.ndarray:
 
 
 def _varints(v: np.ndarray) -> bytes:
-    """Packed varint bytes of a uint64 array, vectorized."""
+    """Packed varint bytes of a uint64 array, vectorized: a value's k-th
+    byte in column k of a [values, bytes of the largest] grid (in uint32
+    arithmetic where the values fit), the grid read row by row up to each
+    value's own length."""
     if not len(v):
         return b""
-    n = np.ones(len(v), dtype=np.int64)
-    for k in range(1, 10):
-        n += v >= np.uint64(1 << (7 * k))
-    ends = np.cumsum(n)
-    starts = ends - n
-    out = np.empty(int(ends[-1]), dtype=np.uint8)
-    for k in range(10):
-        sel = n > k
-        if not sel.any():
-            break
-        byte = ((v[sel] >> np.uint64(7 * k)) & np.uint64(0x7F)).astype(np.uint8)
-        byte |= np.where(n[sel] > k + 1, 0x80, 0).astype(np.uint8)
-        out[starts[sel] + k] = byte
-    return out.tobytes()
+    nmax = max(1, (int(v.max()).bit_length() + 6) // 7)
+    if nmax == 1:
+        return v.astype(np.uint8).tobytes()
+    w = v.astype(np.uint32) if nmax <= 4 else v
+    one = w.dtype.type
+    n = np.ones(len(v), dtype=np.uint8)
+    for k in range(1, nmax):
+        n += w >= one(1 << (7 * k))
+    cols = []
+    for k in range(nmax):
+        byte = ((w >> one(7 * k)) & one(0x7F)).astype(np.uint8)
+        if k < nmax - 1:
+            byte |= (n > k + 1).view(np.uint8) << 7
+        cols.append(byte)
+    grid = np.stack(cols, axis=1)
+    if (n == nmax).all():
+        return grid.tobytes()
+    return grid[np.arange(nmax, dtype=np.uint8)[None, :] < n[:, None]].tobytes()
 
 
 def _read_varints(buf: bytes) -> np.ndarray:
-    """uint64 values of a packed varint run, vectorized."""
+    """uint64 values of a packed varint run, vectorized (in uint32
+    arithmetic where every value has at most 4 bytes)."""
     b = np.frombuffer(buf, dtype=np.uint8)
     if not len(b):
         return np.zeros(0, dtype=np.uint64)
     ends = np.flatnonzero(b < 0x80)
     if not len(ends) or ends[-1] != len(b) - 1:
         raise DecodeError("truncated packed varint run")
+    if len(ends) == len(b):  # every value one byte
+        return b.astype(np.uint64)
     starts = np.empty_like(ends)
     starts[0] = 0
     starts[1:] = ends[:-1] + 1
     n = ends - starts + 1
-    if n.max() > 10:
+    nmax = int(n.max())
+    if nmax > 10:
         raise DecodeError("overlong varint")
-    v = np.zeros(len(ends), dtype=np.uint64)
-    for k in range(int(n.max())):
-        sel = n > k
-        v[sel] |= (b[starts[sel] + k] & 0x7F).astype(np.uint64) << np.uint64(7 * k)
-    return v
+    acc = np.uint32 if nmax <= 4 else np.uint64
+    v = (b[starts] & 0x7F).astype(acc)
+    last = len(b) - 1
+    for k in range(1, nmax):
+        byte = b[np.minimum(starts + k, last)] & 0x7F
+        byte[n <= k] = 0
+        v |= byte.astype(acc) << acc(7 * k)
+    return v.astype(np.uint64, copy=False)
 
 
 def _from_u64(v: int, kind: int):
@@ -580,3 +594,61 @@ class DeleteFrameMessage(Message):
 
 
 _spec(DeleteFrameMessage, (1, "Index", STR, False, None), (2, "Frame", STR, False, None))
+
+
+# ---- block sync and view-scoped repair (reference: internal/private.proto) ----
+
+
+@dataclass(repr=False)
+class BlockDataRequest(Message):
+    Index: str = ""
+    Frame: str = ""
+    View: str = ""
+    Slice: int = 0
+    Block: int = 0
+
+
+# The field numbers of the reference: View (5) goes after Slice (4), so
+# it is encoded last.
+_spec(
+    BlockDataRequest,
+    (1, "Index", STR, False, None),
+    (2, "Frame", STR, False, None),
+    (3, "Block", U64, False, None),
+    (4, "Slice", U64, False, None),
+    (5, "View", STR, False, None),
+)
+
+
+@dataclass(repr=False)
+class BlockDataResponse(Message):
+    RowIDs: list = field(default_factory=list)
+    ColumnIDs: list = field(default_factory=list)
+
+
+_spec(BlockDataResponse, (1, "RowIDs", U64, True, None), (2, "ColumnIDs", U64, True, None))
+
+
+@dataclass(repr=False)
+class ImportViewRequest(Message):
+    Index: str = ""
+    Frame: str = ""
+    View: str = ""
+    Slice: int = 0
+    RowIDs: list = field(default_factory=list)
+    ColumnIDs: list = field(default_factory=list)
+    ClearRowIDs: list = field(default_factory=list)
+    ClearColumnIDs: list = field(default_factory=list)
+
+
+_spec(
+    ImportViewRequest,
+    (1, "Index", STR, False, None),
+    (2, "Frame", STR, False, None),
+    (3, "View", STR, False, None),
+    (4, "Slice", U64, False, None),
+    (5, "RowIDs", U64, True, None),
+    (6, "ColumnIDs", U64, True, None),
+    (7, "ClearRowIDs", U64, True, None),
+    (8, "ClearColumnIDs", U64, True, None),
+)

@@ -33,6 +33,9 @@ MESSAGES = [
     wire.DeleteFrameMessage,
     wire.IndexMeta,
     wire.FrameMeta,
+    wire.BlockDataRequest,
+    wire.BlockDataResponse,
+    wire.ImportViewRequest,
 ]
 
 U64_MAX = (1 << 64) - 1
@@ -200,6 +203,29 @@ def test_uint64_above_2_63(value):
     ):
         assert_same_wire(msg)
     assert wire.Pair.decode(wire.Pair(Key=value).encode()).Key == value
+
+
+@pytest.mark.parametrize(
+    "value", [0, 1, (1 << 32) + 7, 1 << 63, U64_MAX - 1, U64_MAX], ids=lambda v: hex(v)
+)
+def test_block_sync_messages_carry_every_uint64(value):
+    """The three messages of block sync and view-scoped repair, with ids
+    up to 2^64 - 1, encode as wire_pb2 does; ``BlockDataRequest`` writes
+    View (field 5) after Slice (4) and Block (3), by field number."""
+    ids = np.asarray([value, 0, value, 1], dtype=np.uint64)
+    for msg in (
+        wire.BlockDataRequest(Index="i", Frame="f", View="standard", Slice=value, Block=value),
+        wire.BlockDataResponse(RowIDs=ids, ColumnIDs=ids[::-1].copy()),
+        wire.ImportViewRequest(Index="i", Frame="f", View="inverse", Slice=value, RowIDs=ids,
+                               ColumnIDs=ids, ClearRowIDs=ids[:2], ClearColumnIDs=ids[2:]),
+        wire.ImportViewRequest(ClearRowIDs=[value], ClearColumnIDs=[value]),
+    ):
+        assert_same_wire(msg)
+    got = wire.ImportViewRequest.decode(
+        pb.ImportViewRequest(RowIDs=[value], ColumnIDs=[value]).SerializeToString())
+    assert [int(v) for v in got.RowIDs] == [int(v) for v in got.ColumnIDs] == [value]
+    enc = wire.BlockDataRequest(View="v", Slice=2, Block=1).encode()
+    assert enc == b"\x18\x01\x20\x02\x2a\x01v"
 
 
 def test_map_with_many_entries():
