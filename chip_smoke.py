@@ -65,10 +65,13 @@ without printing its final line:
    against a numpy oracle over the same planes, with the kernels'
    launch counts reset just before and read just after (each Count and
    Bitmap over a tree: one K2 launch through the coalescer, no K1;
-   TopN(src): one K4 launch per request); the SetBits' p50, each answered
-   after its WAL group commit; a batch build and a cache hit timed; the
-   node's open runs the stream-floor probe (K11, once per process);
-   then phase 14 on the same node;
+   TopN(src): one K4 launch at the first request, none at the repeats,
+   which reuse the cached prep and its scores); the TopN prep cache
+   (repeats build nothing, a SetBit between two TopN(src)s makes one
+   build and one K4, 8 threads asking at once make one of each); the
+   SetBits' p50, each answered after its WAL group commit; a batch build
+   and a cache hit timed; the node's open runs the stream-floor probe
+   (K11, once per process); then phase 14 on the same node;
 6. a cluster on the one card: three ``Server(device="cuda")`` nodes of
    an http cluster with 2 replicas; the schema created on one node
    reaches the others by broadcast; each node loads the phase-5 planes
@@ -91,7 +94,12 @@ without printing its final line:
    slices (~4.13 GB of planes, seeded word by word): Count(Range) for
    every comparison and between, a Range inside Intersect, Sum/Min/Max
    with and without a filter, checked against a numpy oracle that
-   decodes every column's value; then an ``/import-value`` of 2^15
+   decodes every column's value; a BSI Count, Sum and Bitmap asked twice,
+   the second from the batch cache (``batch_cache=hit``); a shallow
+   field w (depth 8) beside it, and a storm of 3 BSI trees over w, 1 over
+   v and 4 row trees through the coalescer; w's comparisons that fit the
+   coalescer's op budget as one fused K3 launch timed against their K8
+   launches; then an ``/import-value`` of 2^15
    values over every slice, which launches nothing, and the first read
    after it, which applies all 954 queues (with and-not entries) in ONE
    delta-scatter launch; one import past a queue's limit on one slice
@@ -2293,7 +2301,11 @@ def serve_and_check(fp, ds, sp, te, bp, convert, srv, rng) -> dict:
         ("topn_src", "TopN(Bitmap(frame=f, rowID=0), frame=f, n=5)",
          topn_oracle(src_scores, 5), 0),
     ]
-    k4_per_query = {"topn_src": 1}
+    # The folded TopN(src) scores once per prep entry: the first request
+    # builds it and launches K4, the repeats reuse the entry and its scores
+    # (topn_route: the builds each request's trace shows, and that the
+    # entry's lifetime allows).
+    k4_per_build = {"topn_src": 1}
 
     fp.launches = ds.launches = sp.launches = te.launches = 0  # the main path starts here
     expected_launches = expected_k4 = 0
@@ -2307,8 +2319,17 @@ def serve_and_check(fp, ds, sp, te, bp, convert, srv, rng) -> dict:
             if status != 200 or body["results"] != [want]:
                 raise AssertionError(f"{name}: {status} {str(body)[:300]} != {want}")
         latencies[name] = statistics.median(times) * 1e3
+        if name.startswith("topn"):
+            latencies[name + "_first"] = times[0] * 1e3
+            latencies[name + "_repeats"] = statistics.median(times[1:]) * 1e3
+            route = topn_route(srv, pql, REPS)
+            expected_k4 += k4_per_build.get(name, 0) * (route["builds"] + route["two_round"])
         expected_launches += REPS * per_query
-        expected_k4 += REPS * k4_per_query.get(name, 0)
+    # The TopN prep cache on the served path: repeats build nothing and
+    # launch nothing; a SetBit between two TopN(src)s invalidates the entry
+    # (one build, one K4, the answer with the bit); 8 threads asking one
+    # TopN(src) at once make one build and one K4 launch.
+    cached = topn_cache_and_check(srv, sp, ds, planes, queries[6:8], src_scores)
 
     # A write, then the count that must see it.
     col = next(c for c in range(N_SLICES << 20)
@@ -2326,8 +2347,8 @@ def serve_and_check(fp, ds, sp, te, bp, convert, srv, rng) -> dict:
     expected_launches += 1
     launches = te.launches  # the main path ends here
     k1_launches = fp.launches
-    k7_launches = ds.launches
-    k4_launches = sp.launches
+    k7_launches = ds.launches - cached["k7_launches"]
+    k4_launches = sp.launches - cached["k4_launches"]
     if k4_launches != expected_k4:
         raise AssertionError(f"score_planes launches {k4_launches} != expected {expected_k4}")
     if (launches, k1_launches) != (expected_launches, 0):
@@ -2336,17 +2357,21 @@ def serve_and_check(fp, ds, sp, te, bp, convert, srv, rng) -> dict:
     # The SetBit queued its delta; the Count applied it with one K7.
     if k7_launches != 1:
         raise AssertionError(f"delta_scatter launches {k7_launches} != expected 1")
+    out["topn_cache"] = cached
     out["launches"] = k1_launches
     out["k2_launches"] = launches
-    out["k7_launches"] = k7_launches
-    out["k4_launches"] = k4_launches
+    out["k7_launches"] = k7_launches + cached["k7_launches"]
+    out["k4_launches"] = k4_launches + cached["k4_launches"]
     out["setbit_col"] = col
     for name, ms in latencies.items():
-        log(f"phase 5: {name} p50 {ms:.3f} ms over {REPS} requests")
+        over = ("the first request" if name.endswith("_first") else
+                f"the {REPS - 1} repeats" if name.endswith("_repeats") else f"{REPS} requests")
+        log(f"phase 5: {name} p50 {ms:.3f} ms over {over}")
     log(f"phase 5: answers == numpy oracle; tree_eval launches {launches} (expected "
         f"{expected_launches}: one per Count and Bitmap request), fused_popcount launches "
         f"{k1_launches}; delta_scatter launches {k7_launches} (the SetBit's delta, applied "
-        f"by the next Count); score_planes launches {k4_launches} (one per TopN(src) request)")
+        f"by the next Count); score_planes launches {k4_launches} (one per TopN(src) prep "
+        f"build; the repeats reuse its scores)")
 
     # The batch cache apart from the kernel: a build of the Count(Intersect)
     # batch (one table over the 954 fragments' mirrors) and a hit's check.
@@ -2372,6 +2397,146 @@ def serve_and_check(fp, ds, sp, te, bp, convert, srv, rng) -> dict:
         f"a hit p50 {out['hit_ms']:.3f} ms (2 leaves x {N_SLICES} slice-rows, no row copied)")
     out["latencies_ms"] = latencies
     out["planes"] = planes
+    return out
+
+
+def perf_site_launches(host: str, site: str) -> int:
+    """Launches of one site of ``/debug/perf`` (the launch telemetry)."""
+    doc = json.loads(http_raw(host, "/debug/perf")[1])
+    return int(doc["sites"].get(site, {}).get("launches", 0))
+
+
+def stat_counts(srv, *names: str) -> dict[str, int]:
+    """The node's counts of ``names`` (its stats client, /debug/vars)."""
+    counts = srv.holder.stats.snapshot()["counts"]
+    return {n: int(counts.get(n, 0)) for n in names}
+
+
+def topn_route(srv, pql: str, n: int) -> dict:
+    """How the last ``n`` requests of TopN ``pql`` were served, from their
+    traces: ``folded`` (a ``topn.prep`` span) or ``two_round`` (none: the
+    request prepares and scores every time); of the folded ones, the prep
+    ``builds`` (``prep_cache=miss``) and the ``scored`` ones
+    (``score_cache=computed``), which must be the builds; ``prep``, each
+    request's ``prep_cache`` in order (None for the two rounds).  An entry lives
+    ``cache.RECALCULATE_INTERVAL_S`` from its build, so a repeat may build
+    again only if it ended that long after the request that last built it
+    began (the entry is younger than that request, and the repeat looks
+    it up before it ends): on a slower host the expected counts follow
+    the builds that expiry allows, not the clock."""
+    from pilosa_tpu_torch.core import cache as cache_mod
+
+    recs = [t for t in srv.tracer.traces() if t["spans"][0]["tags"].get("query") == pql][-n:]
+    if len(recs) != n:
+        raise AssertionError(f"TopN route of {pql}: {len(recs)} traces (want {n})")
+    out = {"folded": 0, "two_round": 0, "builds": 0, "scored": 0, "prep": []}
+    built_at = None
+    for t in sorted(recs, key=lambda t: t["start"]):
+        tags = {sp["name"]: sp["tags"] for sp in t["spans"]}
+        out["prep"].append(tags.get("topn.prep", {}).get("prep_cache"))
+        if "topn.prep" not in tags:
+            out["two_round"] += 1
+            continue
+        out["folded"] += 1
+        if tags["topn.prep"].get("prep_cache") == "miss":
+            age = None if built_at is None else t["start"] + t["duration_ms"] / 1e3 - built_at
+            if age is not None and age < cache_mod.RECALCULATE_INTERVAL_S:
+                raise AssertionError(f"TopN {pql}: a repeat within {age:.1f}s of the last "
+                                     "build built its prep again")
+            out["builds"] += 1
+            built_at = t["start"]
+        out["scored"] += tags.get("topn.score", {}).get("score_cache") == "computed"
+    if out["scored"] != out["builds"]:
+        raise AssertionError(f"TopN {pql}: {out['scored']} scorings for {out['builds']} builds")
+    return out
+
+
+TOPN_THREADS = 8
+
+
+PREP_STATS = ("exec.topn.prepBuild", "exec.topn.prepHit", "exec.topn.scoreShared")
+
+
+def topn_cache_and_check(srv, sp, ds, planes, topns, src_scores) -> dict:
+    """Phase 5's TopN prep cache checks on the served path, after phase
+    5's REPS requests of each TopN: builds, hits and shared scorings from
+    the node's stats, each request's route from its trace
+    (``topn_route``), and K4's launches both from its counter and from
+    ``/debug/perf``'s ``topn`` site."""
+    h = srv.host
+    out: dict = {}
+    k4_0, k7_0, site_0 = sp.launches, ds.launches, perf_site_launches(h, "topn")
+    c0 = stat_counts(srv, *PREP_STATS)
+    rebuilt = want_k4 = 0
+    for name, pql, want, _ in topns:
+        for _ in range(3):
+            status, body = http(h, "POST", "/index/i/query", pql.encode())
+            if status != 200 or body["results"] != [want]:
+                raise AssertionError(f"phase 5 {name} repeat: {status} {str(body)[:300]}")
+        # Repeats build only where the entry of phase 5's first request
+        # expired (none within its lifetime).
+        n = topn_route(srv, pql, REPS + 3)["prep"][REPS:].count("miss")
+        rebuilt += n
+        want_k4 += n if "Bitmap" in pql else 0
+    c1 = stat_counts(srv, *PREP_STATS)
+    builds = c1["exec.topn.prepBuild"] - c0["exec.topn.prepBuild"]
+    hits = c1["exec.topn.prepHit"] - c0["exec.topn.prepHit"]
+    if (builds, hits, sp.launches - k4_0) != (rebuilt, 6 - rebuilt, want_k4) \
+            or perf_site_launches(h, "topn") - site_0 != want_k4:
+        raise AssertionError(f"phase 5: repeated TopNs: stats {c0} -> {c1}, score_planes "
+                             f"launches {sp.launches - k4_0} (want {rebuilt} builds, "
+                             f"{6 - rebuilt} hits, {want_k4} launches)")
+    out["repeat"] = {"builds": builds, "hits": hits, "k4": sp.launches - k4_0}
+    # A bit of row 7 where row 0 (the src) is set and row 7 is not: row
+    # 7's src score rises by one, then falls back with the ClearBit.
+    p0, p7 = planes[:, 0], planes[:, 7]
+    col = next(c for c in range(N_SLICES << 20)
+               if (int(p0[c >> 20, (c & 0xFFFFF) >> 5]) >> (c & 31)) & 1
+               and not (int(p7[c >> 20, (c & 0xFFFFF) >> 5]) >> (c & 31)) & 1)
+    name, pql, _, _ = topns[1]
+    scores = src_scores.copy()
+    scores[col >> 20, 7] += 1
+    for verb, want in (("SetBit", topn_oracle(scores, 5)), ("ClearBit", topn_oracle(src_scores, 5))):
+        status, body = http(h, "POST", "/index/i/query",
+                            f"{verb}(frame=f, rowID=7, columnID={col})".encode())
+        if status != 200 or body["results"] != [True]:
+            raise AssertionError(f"phase 5 {verb}: {status} {body}")
+        c2, k4_2 = stat_counts(srv, *PREP_STATS), sp.launches
+        if verb == "SetBit":
+            status, body = http(h, "POST", "/index/i/query", pql.encode())
+            if status != 200 or body["results"] != [want]:
+                raise AssertionError(f"phase 5 TopN(src) after SetBit: {status} {str(body)[:300]}")
+            got = [body["results"][0]]
+        else:
+            got = []
+            barrier = threading.Barrier(TOPN_THREADS)
+
+            def one():
+                barrier.wait(timeout=60)
+                return http(h, "POST", "/index/i/query", pql.encode())
+
+            with ThreadPoolExecutor(TOPN_THREADS) as pool:
+                for st_, body in [f.result(timeout=600)
+                                  for f in [pool.submit(one) for _ in range(TOPN_THREADS)]]:
+                    if st_ != 200 or body["results"] != [want]:
+                        raise AssertionError(f"phase 5 TopN(src) x {TOPN_THREADS} threads: {st_}")
+                    got.append(body["results"][0])
+        c3 = stat_counts(srv, *PREP_STATS)
+        builds, k4 = c3["exec.topn.prepBuild"] - c2["exec.topn.prepBuild"], sp.launches - k4_2
+        if (builds, k4) != (1, 1):
+            raise AssertionError(f"phase 5 TopN(src) after {verb}: {builds} builds and {k4} "
+                                 f"score_planes launches (want 1 and 1)")
+        out[verb] = {"requests": len(got), "builds": builds, "k4": k4,
+                     "shared": c3["exec.topn.scoreShared"] - c2["exec.topn.scoreShared"]}
+    out["k4_launches"] = sp.launches - k4_0
+    out["k7_launches"] = ds.launches - k7_0
+    if perf_site_launches(h, "topn") - site_0 != out["k4_launches"]:
+        raise AssertionError("phase 5: /debug/perf's topn launches differ from score_planes'")
+    log(f"phase 5: TopN prep cache: 3 repeats of TopN and TopN(src): {out['repeat']} (builds "
+        f"only past an entry's lifetime); a SetBit between two TopN(src)s: "
+        f"{out['SetBit']}; after a ClearBit, {TOPN_THREADS} threads at once: {out['ClearBit']} "
+        f"(score_planes launches {out['k4_launches']} = /debug/perf topn launches, "
+        f"delta_scatter {out['k7_launches']}); answers == numpy oracle")
     return out
 
 
@@ -2889,11 +3054,12 @@ def load_in_threads(convert, jobs) -> None:
             fut.result()
 
 
-def bsi_planes(rng, n_slices: int) -> np.ndarray:
-    """uint32 [n_slices, 2 + 31, 32768] planes of a signed 32-bit field,
-    generated word by word: ~50% of columns valued, magnitudes masked to
-    exists, the sign cleared where the magnitude is zero."""
-    planes = rng.integers(0, 2**32, size=(n_slices, 2 + K8_DEPTH, 32768), dtype=np.uint32)
+def bsi_planes(rng, n_slices: int, depth: int = K8_DEPTH) -> np.ndarray:
+    """uint32 [n_slices, 2 + depth, 32768] planes of a signed field (31
+    magnitude bits: 32-bit), generated word by word: ~50% of columns
+    valued, magnitudes masked to exists, the sign cleared where the
+    magnitude is zero."""
+    planes = rng.integers(0, 2**32, size=(n_slices, 2 + depth, 32768), dtype=np.uint32)
     planes[:, 2:] &= planes[:, :1]
     planes[:, 1] &= planes[:, 0] & np.bitwise_or.reduce(planes[:, 2:], axis=1)
     return planes
@@ -2988,7 +3154,8 @@ class ValueOracle:
                                              - np.searchsorted(a, v, "left") for a in arrs))}
 
 
-def bsi_and_check(fp, ds, br, scatter, convert, InternalClient, srv, f_planes, rng) -> dict:
+def bsi_and_check(fp, ds, br, te, it, scatter, convert, InternalClient, srv, f_planes,
+                  rng) -> dict:
     """Phase 7 on the phase-5 server: a signed 32-bit field over 954
     slices (~4.13 GB of planes), every comparison, composed counts and
     Sum/Min/Max with and without a filter against the numpy oracle; then
@@ -3001,6 +3168,7 @@ def bsi_and_check(fp, ds, br, scatter, convert, InternalClient, srv, f_planes, r
 
     out: dict = {"launches": {}, "latencies_ms": {}}
     h = srv.host
+    te0, it0 = te.launches, it.launches  # K2 (a row leaf's rows) and K3 (the storm)
     for path, body in (("/index/i/frame/n", b'{"options": {"rangeEnabled": true}}'),
                        ("/index/i/frame/n/field/v",
                         b'{"min": -2147483647, "max": 2147483647}')):
@@ -3080,6 +3248,19 @@ def bsi_and_check(fp, ds, br, scatter, convert, InternalClient, srv, f_planes, r
     ask_all("loaded")
     for name, ms in out["latencies_ms"].items():
         log(f"phase 7: {name} p50 {ms:.3f} ms over {REPS} requests")
+    # BSI trees on the main route: repeats from the batch cache, a storm of
+    # BSI and row trees through the coalescer, fused K3 against K8.
+    cache_q = [(f"Count(Range(frame=n, v > {drawn[0]}))", oracle.count(">", drawn[0])),
+               (f"Sum({f2}, frame=n, field=v)", oracle.agg("Sum", "f2"))]
+    out["cache"] = bsi_cache_and_check(srv, br, planes, cache_q, oracle, "loaded")
+    w_planes, w_oracle = shallow_field(srv, convert, np.random.default_rng(SEED + 71))
+    trees = bsi_storm_trees(oracle, w_oracle, f_planes, drawn)
+    out["storm"] = bsi_storm_and_check(srv, br, it, te, fp, trees)
+    for k, n in out["storm"]["k8"].items():
+        out["launches"][k] += n
+    out["launches"]["k1"] += out["storm"]["k1"]
+    out["fused_vs_k8"] = bsi_fused_vs_k8(srv, br, it, te, fp, trees[:3])
+    del w_planes, w_oracle
 
     # K7 with clears: a spy on the plan's batched scatter counts, per
     # launch, the jobs whose folded entries carry and-not masks.
@@ -3133,6 +3314,11 @@ def bsi_and_check(fp, ds, br, scatter, convert, InternalClient, srv, f_planes, r
         log(f"phase 7: the first Count after the import {out['first_count_ms']:.3f} ms: "
             f"delta_scatter launches {k7}, one batch of {N_SLICES} jobs, {k7_andnot} of them "
             "with and-not entries")
+        # The import moved every field fragment's version: each entry built
+        # before it rebuilds once, then hits.
+        out["cache_after_import"] = bsi_cache_and_check(srv, br, planes, [
+            (f"Count(Range(frame=n, v > {drawn[0]}))", oracle.count(">", drawn[0])),
+            (f"Sum({f2}, frame=n, field=v)", oracle.agg("Sum", "f2"))], oracle, "after import 1")
         ask_all("after import 1")
         if ds.launches != k7:
             raise AssertionError(f"phase 7: delta_scatter launches {ds.launches - k7} after "
@@ -3161,6 +3347,238 @@ def bsi_and_check(fp, ds, br, scatter, convert, InternalClient, srv, f_planes, r
         plan_mod.scatter_apply_many = real_apply
     out["k7_launches"] = k7
     out["import_s"] = import_s
+    out["k2_launches"], out["k3_launches"] = te.launches - te0, it.launches - it0
+    return out
+
+
+def plan_cache_tags(srv, pql: str, n: int) -> list:
+    """The ``batch_cache`` annotation of the ``plan`` span in each of the
+    last ``n`` traces of ``pql``, oldest first."""
+    recs = [t for t in srv.tracer.traces() if t["spans"][0]["tags"].get("query") == pql][-n:]
+    return [next((sp["tags"].get("batch_cache") for sp in t["spans"] if sp["name"] == "plan"),
+                 None) for t in recs]
+
+
+def bsi_cache_and_check(srv, br, planes, queries, oracle, stage: str) -> dict:
+    """Phase 7: BSI Count, Bitmap and Sum asked twice each; the second is a
+    batch-cache hit (``batch_cache=hit`` in its trace) that builds nothing
+    (the node's ``exec.batch.build`` count).  After the load the Count and Sum were
+    asked before (two hits); the Bitmap, and after an /import-value every
+    query, build once (a miss, then a hit).  The Bitmap is ``Range(v == x)``
+    for the value x of slice 0's first valued column, each of its bits
+    checked against its slice's decoded values."""
+    h = srv.host
+    valued, values = decode_values(planes[0])
+    x = int(values[np.flatnonzero(valued)[0]])
+    rng_pql = f"Range(frame=n, v == {x})"
+    out: dict = {}
+    for pql, want in queries + [(rng_pql, None)]:
+        c0 = stat_counts(srv, "exec.batch.build")["exec.batch.build"]
+        times = []
+        for _ in range(2):
+            q0 = time.perf_counter()
+            status, body = http(h, "POST", "/index/i/query", pql.encode())
+            times.append((time.perf_counter() - q0) * 1e3)
+            if status != 200:
+                raise AssertionError(f"phase 7 {stage} {pql}: {status} {str(body)[:300]}")
+            got = body["results"][0]
+            if want is None:
+                bits = np.asarray(got["bits"], dtype=np.int64)
+                ok = len(bits) == oracle.count("==", x)
+                for s_ in np.unique(bits >> 20):
+                    vd, vs = decode_values(planes[s_])
+                    off = bits[(bits >> 20) == s_] & 0xFFFFF
+                    ok = ok and bool(vd[off].all() and (vs[off] == x).all())
+                if not ok:
+                    raise AssertionError(f"phase 7 {stage} {rng_pql}: {len(bits)} bits")
+            elif got != want:
+                raise AssertionError(f"phase 7 {stage} {pql}: {got} != {want}")
+        builds = stat_counts(srv, "exec.batch.build")["exec.batch.build"] - c0
+        tags = plan_cache_tags(srv, pql, 2)
+        rebuilt = stage != "loaded" or want is None
+        if tags != (["miss", "hit"] if rebuilt else ["hit", "hit"]) or builds != int(rebuilt):
+            raise AssertionError(f"phase 7 {stage} {pql}: plan spans {tags}, builds {builds}")
+        out[pql] = {"batch_cache": tags, "builds": builds, "ms": [round(t, 3) for t in times]}
+    log(f"phase 7 {stage}: BSI Count, Sum and Bitmap asked twice: the second from the batch "
+        f"cache: {json.dumps(out)}")
+    return out
+
+
+# Phase 7's shallow field w: a depth whose comparisons lower within the
+# coalescer's op budget (about nine instructions per magnitude bit), where
+# a fused K3 launch and K8's per-key launches are both open to the
+# coalescer; v's depth-31 ones do not fit.
+W_DEPTH = 8
+
+
+def shallow_field(srv, convert, rng) -> tuple:
+    """Phase 7's field w (depth W_DEPTH) beside v, over every slice:
+    (planes, oracle)."""
+    import torch
+
+    hi = (1 << W_DEPTH) - 1
+    status, resp = http(srv.host, "POST", "/index/i/frame/n/field/w",
+                        json.dumps({"min": -hi, "max": hi}).encode())
+    if status != 200:
+        raise AssertionError(f"POST field w: {status} {resp}")
+    t0 = time.perf_counter()
+    planes = bsi_planes(rng, N_SLICES, W_DEPTH)
+    load_in_threads(convert, [(srv.holder, "i", "n", "field_w", {s: planes[s]})
+                              for s in range(N_SLICES)])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    oracle = ValueOracle(planes, {})
+    log(f"phase 7: field w (depth {W_DEPTH}) over {N_SLICES} slices made and loaded in "
+        f"{t1 - t0:.3f}s ({planes.nbytes / 1e9:.3f} GB), oracle decoded in "
+        f"{time.perf_counter() - t1:.3f}s")
+    return planes, oracle
+
+
+def bsi_storm_trees(oracle, w_oracle, f_planes, drawn) -> list:
+    """(pql, expected) of phase 7's storm: three BSI Counts over the
+    shallow field w (within the op budget), one over v (past it), and four
+    row Counts over frame f's rows 1-3 (phase 5 wrote a bit into row 0)."""
+    f = [f_planes[:, r] for r in range(4)]
+    w = [int(x) % (1 << W_DEPTH) for x in drawn]
+
+    def pc(x):
+        return int(np.bitwise_count(x).sum())
+
+    B = "Bitmap(frame=f, rowID={})"
+    return [
+        (f"Count(Range(frame=n, w > {w[0]}))", w_oracle.count(">", w[0])),
+        (f"Count(Range(frame=n, w <= {-w[1]}))", w_oracle.count("<=", -w[1])),
+        (f"Count(Range(frame=n, w == {w[2]}))", w_oracle.count("==", w[2])),
+        (f"Count(Range(frame=n, v > {drawn[0]}))", oracle.count(">", drawn[0])),
+        (f"Count(Intersect({B.format(1)}, {B.format(3)}))", pc(f[1] & f[3])),
+        (f"Count(Union({B.format(1)}, {B.format(3)}))", pc(f[1] | f[3])),
+        (f"Count(Difference({B.format(3)}, {B.format(2)}))", pc(f[3] & ~f[2])),
+        (f"Count(Xor({B.format(1)}, {B.format(2)}))", pc(f[1] ^ f[2])),
+    ]
+
+
+BSI_STORM_THREADS = 8
+BSI_STORM_REQUESTS = 4
+
+
+def bsi_storm_and_check(srv, br, it, te, fp, trees) -> dict:
+    """Phase 7: a short storm of distinct BSI and row trees through the
+    coalescer (each tree built once before), every answer against the
+    oracle; the launches by kernel and the coalescer's fused and fallback
+    counts: the row trees fuse into K3 launches, and each BSI tree takes
+    its K8 launch (``bsi_fused_vs_k8`` times the other route)."""
+    h, co = srv.host, srv.coalescer
+    for pql, want in trees:
+        status, body = http(h, "POST", "/index/i/query", pql.encode())
+        if status != 200 or body["results"] != [want]:
+            raise AssertionError(f"phase 7 storm {pql}: {status} {str(body)[:200]}")
+    rng = np.random.default_rng(SEED + 70)
+    reqs = [[trees[int(i)] for i in rng.permutation(len(trees))[:BSI_STORM_REQUESTS]]
+            for _ in range(BSI_STORM_THREADS)]
+    k0 = (dict(br.launches), it.launches, te.launches, fp.launches)
+    snap0 = co.snapshot()
+
+    def client(rs):
+        for pql, want in rs:
+            status, body = http(h, "POST", "/index/i/query", pql.encode())
+            if status != 200 or body["results"] != [want]:
+                raise AssertionError(f"phase 7 storm {pql}: {status}")
+        return len(rs)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(BSI_STORM_THREADS) as pool:
+        n = sum(f.result(timeout=600) for f in [pool.submit(client, r) for r in reqs])
+    wall = time.perf_counter() - t0
+    snap = co.snapshot()
+    out = {
+        "requests": n, "s": round(wall, 3), "rps": round(n / wall, 1),
+        "k8": {k: br.launches[k] - k0[0][k] for k in br.KERNELS},
+        "k3": it.launches - k0[1], "k2": te.launches - k0[2], "k1": fp.launches - k0[3],
+        "launches": snap["launches"] - snap0["launches"],
+        "fused_launches": snap["fused_launches"] - snap0["fused_launches"],
+        "fused_queries": snap["fused_queries"] - snap0["fused_queries"],
+        "fuse_fallbacks": snap["fuse_fallbacks"] - snap0["fuse_fallbacks"],
+    }
+    n_row = sum("Range" not in pql for rs in reqs for pql, _ in rs)
+    if not out["k8"]["bsi_cmp"] or out["fused_queries"] > n_row:
+        raise AssertionError(f"phase 7 storm: BSI trees launched no K8, or fused "
+                             f"({n_row} row-tree requests): {out}")
+    log(f"phase 7: a storm of {len(trees)} distinct trees (3 over w, 1 over v, 4 row), "
+        f"{BSI_STORM_THREADS} threads x {BSI_STORM_REQUESTS} requests: {json.dumps(out)}; "
+        "answers == numpy oracle")
+    return out
+
+
+def bsi_fused_vs_k8(srv, br, it, te, fp, trees) -> dict:
+    """Phase 7's BSI Count trees over the shallow field w on the card two
+    ways, each over the batch entries the executor cached: one fused
+    interpreter launch (K3) of every program that fits the coalescer's op
+    budget (``plan.FUSE_MAX_OPS``) over their union leaves, lowered as the
+    coalescer lowers a drain, and the per-key K8 count launches of the same
+    trees.  CUDA-event times, the L2 warm."""
+    import torch
+
+    from pilosa_tpu_torch.exec import plan
+    from pilosa_tpu_torch.ops.tree_eval import RowTable
+    from pilosa_tpu_torch.pql import parse_string
+
+    ex = srv.executor
+    # Launches made to compare are not the main path's: the counts are
+    # put back as they were.
+    saved = (dict(br.launches), it.launches, te.launches, fp.launches)
+    slices = list(range(N_SLICES))
+    ents = []
+    for pql, _ in trees:
+        child = ex._rewrite_bsi("i", parse_string(pql).calls[0].children[0])
+        expr, leaves = plan.decompose(child)
+        ents.append(ex._cached_batch("i", child, expr, leaves, slices))
+    union: dict = {}
+    src_of, maps = [], []
+    for i, (ent, _) in enumerate(ents):
+        lmap = []
+        for j, k in enumerate(ent.leaf_keys):
+            if k not in union:
+                union[k] = len(src_of)
+                src_of.append((i, j))
+            lmap.append(union[k])
+        maps.append(lmap)
+    em = plan.FuseEmitter(len(src_of), plan.FUSE_MAX_OPS)
+    regs, fit = [], []
+    for i, ((ent, _), lmap) in enumerate(zip(ents, maps)):
+        cp = em.checkpoint()
+        try:
+            regs.append(plan.lower_expr(ent.expr, lmap, em))
+            fit.append(i)
+        except plan.FuseUnsupported:
+            em.rollback(cp)
+    if len(fit) < 2:
+        raise AssertionError(f"phase 7: {len(fit)} of w's trees fit the op budget")
+    cols: dict = {}
+    for i, j in src_of:
+        cols.setdefault(i, []).append(j)
+    combined = RowTable.concat_leaves([ents[i][1] for i in sorted(cols)],
+                                      [cols[i] for i in sorted(cols)])
+    prog = em.table()
+    out_idx = np.asarray(regs, dtype=np.int32)
+    fused = plan.interp_exec("total", combined, prog, out_idx).cpu().numpy()
+    per_key = [ex._direct_eval(*ents[i], "total").cpu().numpy() for i in fit]
+    want = [trees[i][1] for i in fit]
+    if [int(x) for x in fused] != want or [int(x[0]) for x in per_key] != want:
+        raise AssertionError(f"phase 7: fused {fused}, per-key {per_key} != oracle {want}")
+    out = {"trees": len(trees), "fit": len(fit), "ops": int(len(prog)),
+           "leaves": len(src_of), "dedup_hits": em.dedup_hits,
+           "fused_ms": time_cuda(lambda: plan.interp_exec("total", combined, prog, out_idx),
+                                 runs=5, per_run=3, warmup=1)}
+    out["k8_ms"] = time_cuda(lambda: [ex._direct_eval(*ents[i], "total") for i in fit],
+                             runs=5, per_run=3, warmup=1)
+    out["faster"] = "k3_fused" if out["fused_ms"] < out["k8_ms"] else "k8_per_key"
+    torch.cuda.synchronize()
+    br.launches, it.launches, te.launches, fp.launches = saved
+    log(f"phase 7: {len(fit)} of {len(trees)} BSI Count trees over w (depth {W_DEPTH}, "
+        f"{N_SLICES} slices) fit the coalescer's op budget of {plan.FUSE_MAX_OPS}: one fused K3 "
+        f"launch ({out['ops']} ops, {out['leaves']} union leaves) {out['fused_ms']:.3f} ms "
+        f"against their {len(fit)} per-key K8 count launches {out['k8_ms']:.3f} ms (CUDA events, "
+        f"L2 warm): {out['faster']} is faster")
     return out
 
 
@@ -3316,9 +3734,10 @@ def topn_and_check(sp, fp, convert, srv, f_planes) -> dict:
         ("topn_row_src_ids", f"TopN({rsrc}, frame=r, n={n}, ids=[{ids}])",
          topn_oracle(row_sc, n, totals, ids=TOPN_IDS), 1, 0),
     ]
-    out: dict = {"latencies_ms": {}, "answers": {}}
+    out: dict = {"latencies_ms": {}, "first_ms": {}, "answers": {}, "routes": {}}
+    c0 = stat_counts(srv, *PREP_STATS)
     fp.launches = sp.launches = 0  # the main path starts here
-    want_k4 = want_k1 = 0
+    want_k4 = want_k1 = want_builds = 0
     for name, pql, want, k4, k1 in queries:
         times = []
         for _ in range(REPS):
@@ -3327,17 +3746,32 @@ def topn_and_check(sp, fp, convert, srv, f_planes) -> dict:
             times.append(time.perf_counter() - q0)
             if status != 200 or body["results"] != [want]:
                 raise AssertionError(f"phase 9 {name}: {status} {str(body)[:300]} != {want}")
-        want_k4 += REPS * k4
-        want_k1 += REPS * k1
-        out["latencies_ms"][name] = statistics.median(times) * 1e3
+        # A folded TopN builds its prep and scores at the first request and
+        # reuses both while the entry lives; the two rounds (ids) prepare
+        # and score at every request.
+        route = topn_route(srv, pql, REPS)
+        per = route["builds"] + route["two_round"]
+        want_k4 += per * k4
+        want_k1 += per * k1
+        want_builds += route["builds"]
+        out["routes"][name] = {k: route[k] for k in ("folded", "two_round", "builds")}
+        out["latencies_ms"][name] = statistics.median(times[1:]) * 1e3
+        out["first_ms"][name] = times[0] * 1e3
         out["answers"][name] = len(want)
     out["k4_launches"], out["launches"] = sp.launches, fp.launches  # the main path ends here
-    if (out["k4_launches"], out["launches"]) != (want_k4, want_k1):
-        raise AssertionError(f"phase 9: score_planes / fused_popcount launches "
-                             f"{out['k4_launches']} / {out['launches']} != {want_k4} / {want_k1}")
+    c1 = stat_counts(srv, *PREP_STATS)
+    out["prep_builds"] = c1["exec.topn.prepBuild"] - c0["exec.topn.prepBuild"]
+    out["prep_hits"] = c1["exec.topn.prepHit"] - c0["exec.topn.prepHit"]
+    if (out["k4_launches"], out["launches"], out["prep_builds"]) != (want_k4, want_k1,
+                                                                      want_builds):
+        raise AssertionError(f"phase 9: score_planes / fused_popcount launches / prep builds "
+                             f"{out['k4_launches']} / {out['launches']} / {out['prep_builds']} "
+                             f"!= {want_k4} / {want_k1} / {want_builds}")
     for name, ms in out["latencies_ms"].items():
-        log(f"phase 9: {name} p50 {ms:.3f} ms over {REPS} requests "
-            f"({out['answers'][name]} pairs)")
+        log(f"phase 9: {name} first {out['first_ms'][name]:.3f} ms, then p50 {ms:.3f} ms over "
+            f"{REPS - 1} requests ({out['answers'][name]} pairs)")
+    log(f"phase 9: TopN prep entries built {out['prep_builds']}, hits {out['prep_hits']}; "
+        f"routes from the traces {json.dumps(out['routes'])}")
     log(f"phase 9: answers == numpy oracle; score_planes launches {out['k4_launches']}, "
         f"fused_popcount launches {out['launches']}")
     return out
@@ -3495,12 +3929,12 @@ def tutorial_queries(users, repos, lang, rows: dict, mole: dict) -> list:
         ("bitmap_sparse", "repository", B.format(a),
          {"attrs": {}, "bits": [int(v) for v in ra]}, {"k6": (1, 0), "k2": 1}),
         ("topn_language", "repository", f"TopN({B.format(a)}, frame=language, n=5)",
-         tutorial_topn(a_lang, lang_counts, 5), {"k6": 1, "k4": 1}),
+         tutorial_topn(a_lang, lang_counts, 5), {"k6": (1, 0), "k4": (1, 0)}),
         ("topn_stargazer", "repository", "TopN(frame=stargazer, n=10)",
          tutorial_topn(counts, counts, 10), {}),
         ("topn_stargazer_src", "repository",
          "TopN(Bitmap(frame=language, language_id=3), frame=stargazer, n=10)",
-         tutorial_topn(l3_scores, counts, 10), {"k4": 1}),
+         tutorial_topn(l3_scores, counts, 10), {"k4": (1, 0)}),
         ("bitmap_molecule", "mole", mole["pql_m1"],
          {"attrs": {}, "bits": [int(v) for v in fm1]}, {"k6": (1, 0), "k2": 1}),
         ("count_molecules", "mole", f"Count(Intersect({mole['pql_m1']}, {mole['pql_m2']}))",
@@ -3633,13 +4067,19 @@ def tutorials_and_check(ac, ep, fp, sp, te, bp, InternalClient, srv, rng) -> dic
                                      f"{str(want)[:300]}")
         got = {k: m.launches for k, m in kernels.items()}  # the main path ends here
         # An int is launches per request; (first, later): the first request
-        # builds the cached batch (its K6 expansions), the later ones hit.
+        # builds the cached batch (its K6 expansions) or the folded TopN's
+        # prep and scores, the later ones hit — a TopN's while its entry
+        # lives (topn_route: the requests that built, from their traces).
+        built = 1
+        if pql.startswith("TopN("):
+            route = topn_route(srv, pql, reps)
+            built = route["builds"] + route["two_round"]
         expect = {}
         for k in kernels:
             first, later = per_request.get(k, 0), None
             if isinstance(first, tuple):
                 first, later = first
-            expect[k] = first + (reps - 1) * (first if later is None else later)
+            expect[k] = first * reps if later is None else first * built + later * (reps - built)
         if got != expect:
             raise AssertionError(f"phase 10 {name}: launches {got} != {expect}")
         out["latencies_ms"][name] = statistics.median(times) * 1e3
@@ -4425,6 +4865,51 @@ def backup_and_check(fp, te, ds, sp, Server, InternalClient, srv, rng) -> dict:
     return out
 
 
+# The phase functions of ``main``, by phase number: each one's wall-clock
+# seconds go into the run's ``phase seconds`` line.
+PHASES = {
+    "serve_and_check": "5",
+    "coalesce_and_check": "14",
+    "observe_and_check": "16",
+    "cluster_and_check": "6",
+    "bsi_and_check": "7",
+    "time_and_check": "8",
+    "topn_and_check": "9",
+    "backup_and_check": "17",
+    "tutorials_and_check": "10",
+    "recovery_and_check": "11",
+    "residency_and_check": "12",
+    "durability_and_check": "13",
+}
+
+
+def time_phases(module, seconds: dict) -> None:
+    """Wrap each PHASES function of ``module`` (this script, or another
+    tree's ``chip_smoke.py`` loaded as a module, whose phases have the
+    same names) so that its wall-clock seconds land in ``seconds`` under
+    its phase number.  A parent tree is timed the same way as this one:
+
+        python3 -c "import importlib.util as u, sys; import chip_smoke as c; \
+            s = u.spec_from_file_location('parent', 'DIR/chip_smoke.py'); \
+            m = u.module_from_spec(s); s.loader.exec_module(m); t = {}; \
+            c.time_phases(m, t); rc = m.main(); print(t); sys.exit(rc)"
+    """
+    import functools
+
+    for name, phase in PHASES.items():
+        fn = getattr(module, name)
+
+        @functools.wraps(fn)
+        def timed(*args, _fn=fn, _phase=phase):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args)
+            finally:
+                seconds[_phase] = round(time.perf_counter() - t0, 1)
+
+        setattr(module, name, timed)
+
+
 def main() -> int:
     import torch
 
@@ -4453,14 +4938,26 @@ def main() -> int:
 
     card = card_line()
     print(card, flush=True)
+    phase_s: dict[str, float] = {}
+    time_phases(sys.modules[__name__], phase_s)
     name = torch.cuda.get_device_name(0)
     hbm = hbm_rate(name)
     log(f"phase 1: {name}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"memory rate for the bound {hbm / 1e12:.2f} TB/s")
 
     t0 = time.perf_counter()
+    # The native roaring codec (g++) builds beside the kernels (nvcc); the
+    # run asserts it loaded, so no Python fallback hides here.
+    from pilosa_tpu_torch import native
+
+    native_build = threading.Thread(target=native.available)
+    native_build.start()
     built = _build.build_all()
-    log(f"phase 2: kernels built in {time.perf_counter() - t0:.3f}s {built}")
+    native_build.join()
+    if not native.available():
+        raise AssertionError("phase 2: the native roaring codec did not build or load")
+    log(f"phase 2: kernels built in {time.perf_counter() - t0:.3f}s {built}; native roaring "
+        f"codec {native.loaded_path()}")
 
     rng = np.random.default_rng(SEED)
     # The delta-scatter checks draw from their own stream, so the planes
@@ -4517,15 +5014,16 @@ def main() -> int:
             truth = planes.copy()  # with phase 5's SetBit, and phase 14's own writes
             col = served["setbit_col"]
             truth[col >> 20, 0, (col & 0xFFFFF) >> 5] |= np.uint32(1 << (col & 31))
-            coalesced = coalesce_and_check(fp, te, it, srv, truth, np.random.default_rng(SEED + 14))
+            coalesced = coalesce_and_check(fp, te, it, srv, truth,
+                                           np.random.default_rng(SEED + 14))
             del truth
             observed = observe_and_check(srv, {"k2": te, "k3": it, "k4": sp, "k5": ac},
                                          coalesced.pop("queries"), hbm,
                                          np.random.default_rng(SEED + 16))
-            clustered = cluster_and_check(
-                fp, ds, br, sp, te, scatter, convert, Server, InternalClient, planes, rng
-            )
-            valued = bsi_and_check(fp, ds, br, scatter, convert, InternalClient, srv, planes, rng)
+            clustered = cluster_and_check(fp, ds, br, sp, te, scatter, convert, Server,
+                                          InternalClient, planes, rng)
+            valued = bsi_and_check(fp, ds, br, te, it, scatter, convert, InternalClient, srv,
+                                   planes, rng)
             timed = time_and_check(fp, te, InternalClient, srv, planes, rng)
             ranked = topn_and_check(sp, fp, convert, srv, planes)
             backed = backup_and_check(fp, te, ds, sp, Server, InternalClient, srv,
@@ -4552,6 +5050,7 @@ def main() -> int:
         resident = residency_and_check(Server, data_dir, tutorials,
                                        {"k1": fp, "k2": te, "k4": sp, "k5": ac, "k6": ep})
     durable = durability_and_check(Server, {"k2": te})
+    log(f"phase seconds (native roaring codec loaded): {json.dumps(phase_s)}")
 
     k7 = k7_times[K7_SHAPES[1]]  # every slice's queue in one launch, as phase 7 flushes
     kernels = [
@@ -4671,12 +5170,14 @@ def main() -> int:
         "shape": [N_SLICES, K5_ANCHOR, "dense", K5_SPARSE, K5_RUNS],
     })
     k2_by_phase = {"5": served["k2_launches"], "14": coalesced["k2_launches"],
-                   "6": clustered["k2_launches"], "8": timed["k2_launches"],
+                   "6": clustered["k2_launches"], "7": valued["k2_launches"],
+                   "8": timed["k2_launches"],
                    "10": tutorials["totals"]["k2"], "12": resident["launches"]["k2"],
                    "13": durable["launches"]["k2"], "17": backed["launches"]["k2"]}
     for kernel, err, times, by_phase, shape in (
         (te, k2_err, k23_times["tree_eval_count"], k2_by_phase, [N_SLICES, 2, "count"]),
-        (it, k3_err, k23_times["interp_count"], {"14": coalesced["k3_launches"]},
+        (it, k3_err, k23_times["interp_count"],
+         {"14": coalesced["k3_launches"], "7": valued["k3_launches"]},
          [N_SLICES, 8, "count", len(storm_exprs()), "programs"]),
     ):
         entry = {

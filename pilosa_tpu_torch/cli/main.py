@@ -323,12 +323,63 @@ def _send_values(client, args, buf: list[tuple[int, int]]) -> None:
         print(f"imported values: slice={s}", file=sys.stderr)
 
 
+# The native CSV path reads a file in blocks of this many bytes, so memory
+# stays bounded whatever the file's size (JAX cli/ctl.py:396).
+_CSV_BLOCK = 64 << 20
+
+
+def _import_native(client, args, path: str) -> bool:
+    """Import a plain ``row,col`` file through the native parser, a block
+    at a time (split at its last newline), sending ``buffer_size`` records
+    at a time as the Python path does; False when the parser is missing
+    or refuses a block (timestamps, quoting, anything malformed), and the
+    caller reads the file with Python's csv.  Starting over after a part
+    was sent is safe: an import sets bits, and setting one twice is a
+    no-op (JAX ``cli/ctl.py:404-444``)."""
+    from pilosa_tpu_torch import native
+
+    if args.field or path == "-" or not native.available():
+        return False
+    with open(path, "rb") as fb:
+        carry = b""
+        while True:
+            block = fb.read(_CSV_BLOCK)
+            if not block:
+                break
+            block = carry + block
+            cut = block.rfind(b"\n") + 1
+            carry, block = (b"", block) if cut == 0 else (block[cut:], block[:cut])
+            if not _import_block(client, args, block):
+                return False
+        if carry and not _import_block(client, args, carry):
+            return False
+    return True
+
+
+def _import_block(client, args, block: bytes) -> bool:
+    from pilosa_tpu_torch import native
+
+    if not block:
+        return True
+    parsed = native.parse_csv(block)
+    if parsed is None:
+        return False
+    rows, cols = parsed
+    for lo in range(0, len(rows), args.buffer_size):
+        hi = lo + args.buffer_size
+        for s in client.import_bits(args.index, args.frame, rows[lo:hi], cols[lo:hi]):
+            print(f"imported slice: {s}", file=sys.stderr)
+    return True
+
+
 def run_import(args) -> int:
     from pilosa_tpu_torch.net.client import InternalClient
 
     client = InternalClient(args.host)
     read, send = (read_values, _send_values) if args.field else (read_bits, _send)
     for path in args.paths:
+        if _import_native(client, args, path):
+            continue
         with (open(path, newline="") if path != "-" else sys.stdin) as f:
             buf: list[tuple] = []
             for record in read(f):

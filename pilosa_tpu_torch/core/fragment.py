@@ -111,6 +111,7 @@ import sys
 import tarfile
 import threading
 import time
+import weakref
 from collections import OrderedDict
 from collections.abc import Iterable, Sequence
 from dataclasses import dataclass, field
@@ -220,6 +221,39 @@ def _bump_mirror_epoch() -> None:
 
 def write_epoch() -> int:
     return _write_epoch
+
+
+# Close listeners (JAX ``core/fragment.py:100-136``): bound methods, held
+# weakly (an executor never closed is still collected), called with a
+# fragment when it leaves service — a shutdown, or its view, frame or
+# index deleted.  Read caches that hold a fragment's prepared state (the
+# executor's TopN prep) drop its entries here instead of at displacement.
+_close_listeners: list = []
+_close_listeners_mu = threading.Lock()
+
+
+def register_close_listener(method) -> None:
+    with _close_listeners_mu:
+        _close_listeners.append(weakref.WeakMethod(method))
+
+
+def unregister_close_listener(method) -> None:
+    with _close_listeners_mu:
+        _close_listeners[:] = [wm for wm in _close_listeners if wm() not in (None, method)]
+
+
+def _notify_close(frag) -> None:
+    with _close_listeners_mu:
+        listeners = [wm() for wm in _close_listeners]
+        if None in listeners:
+            _close_listeners[:] = [wm for wm in _close_listeners if wm() is not None]
+    for fn in listeners:
+        if fn is None:
+            continue
+        try:
+            fn(frag)
+        except Exception:  # noqa: BLE001 — a listener must not break a close
+            pass
 
 
 def mirror_epoch() -> int:
@@ -615,6 +649,8 @@ class Fragment:
             # A fragment leaving service (shutdown, or a view, frame or
             # index deleted) invalidates the epoch-validated read caches.
             bump_write_epoch()
+        # Outside the lock: listeners take their own locks.
+        _notify_close(self)
 
     @property
     def cache_path(self) -> str:
@@ -1019,6 +1055,15 @@ class Fragment:
         with self._mu:
             plane = self.device_plane()
             return plane, [self._slot_of.get(r, -1) for r in row_ids]
+
+    def device_field_ref(self, row_ids) -> tuple[torch.Tensor, list[int], list[tuple]]:
+        """:meth:`device_slots` with each row's :meth:`cache_state`, all
+        read under one lock hold: a cached batch's plane rows of a BSI
+        field and the state they are valid for."""
+        with self._mu:
+            plane = self.device_plane()
+            return (plane, [self._slot_of.get(r, -1) for r in row_ids],
+                    [self.cache_state(r) for r in row_ids])
 
     def slot_in(self, row_id: int, plane: torch.Tensor) -> int | None:
         """The row's slot while ``plane`` is still this fragment's mirror
@@ -1770,8 +1815,14 @@ class Fragment:
 
     @staticmethod
     def _format_pairs(rws: np.ndarray, cls: np.ndarray) -> bytes:
-        """``row,col\\n`` records of two uint64 arrays: the JAX package's
-        numpy path (its native formatter writes the same bytes)."""
+        """``row,col\\n`` records of two uint64 arrays through the native
+        formatter (JAX ``core/fragment.py:2652``), else the numpy path,
+        which writes the same bytes."""
+        from pilosa_tpu_torch import native
+
+        blob = native.format_csv(rws, cls)
+        if blob is not None:
+            return blob
         out = np.char.add(
             np.char.add(rws.astype("S20"), b","),
             np.char.add(cls.astype("S20"), b"\n"),

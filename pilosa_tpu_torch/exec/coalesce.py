@@ -35,6 +35,16 @@ Batch construction, per drained key:
   the emitter's value numbering dedups shared subtrees across queries.  A
   tree that cannot lower (the op budget) falls back to its own launch;
   fused results equal the per-tree ones byte for byte.
+* **BSI trees.**  A tree with a BSI node comes with its per-key launch
+  (``submit(direct=...)``, the ripple route of ``Executor._direct_eval``)
+  and takes it, one launch per distinct table (such tables never
+  concatenate), as aggregates do in the JAX package: it never joins a
+  fused interpreter launch.  K8 reads each magnitude plane once where K3
+  runs about nine instructions per plane: three depth-8 comparisons
+  (245 ops, within the op budget) took 2.51 ms fused against 2.07 ms
+  for their three K8 launches at 954 slices on an H100 80GB HBM3 at
+  700 W, and a depth-31 one (~290 ops) does not fit the budget
+  (chip_smoke.py phase 7).
 * **Shared fetches.**  ``submit_fetch`` batches concurrent blocking
   device-to-host copies (the folded TopN's scores) into one stream
   synchronisation per drain.
@@ -120,6 +130,9 @@ class _Item:
     # The submitting query's trace id (the launch telemetry's slowest-
     # launch attribution).
     trace_id: str = ""
+    # A tree with a BSI node: its launch, ``direct(reduce)`` — the ripple
+    # route over the waiter's cached batch (``Executor._direct_eval``).
+    direct: object = None
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -175,15 +188,20 @@ class CoalesceScheduler:
     # producer side
     # ------------------------------------------------------------------
 
-    def submit(self, expr: tuple, reduce: str, batch: RowTable, leaf_keys=None) -> Future:
+    def submit(self, expr: tuple, reduce: str, batch: RowTable, leaf_keys=None,
+               direct=None) -> Future:
         """Enqueue one row table for a coalesced launch of ``expr`` with
         ``reduce``; ``leaf_keys`` (optional) are per-column row identities
-        for union-leaf sharing in fused launches."""
+        for union-leaf sharing in fused launches.  A tree with a BSI node
+        comes with ``direct``, its per-key launch (``direct(reduce)`` ->
+        the table's result on the device)."""
+        if plan.expr_has_bsi(expr) and direct is None:
+            raise ValueError("a tree with a BSI node needs its per-key launch")
         key = (expr, reduce, tuple(batch.shape[1:]), str(batch.device))
         if leaf_keys is not None and len(leaf_keys) != batch.shape[1]:
             leaf_keys = None
         item = _Item(batch=batch, future=Future(), leaf_keys=leaf_keys,
-                     trace_id=perf_mod.current_trace_id())
+                     trace_id=perf_mod.current_trace_id(), direct=direct)
         self._enqueue(key, item)
         return item.future
 
@@ -327,8 +345,8 @@ class CoalesceScheduler:
         device); None = not fusable (fusion off, the fetch lane)."""
         if not self.fuse or key == _FETCH_KEY:
             return None
-        _expr, reduce, tail, device = key
-        if reduce not in _FUSABLE_REDUCES:
+        expr, reduce, tail, device = key
+        if reduce not in _FUSABLE_REDUCES or plan.expr_has_bsi(expr):
             return None
         return (reduce, tail[-1], device)
 
@@ -336,7 +354,10 @@ class CoalesceScheduler:
         if key == _FETCH_KEY:
             self._launch_fetch(items)
             return
-        _expr, reduce, _tail, _device = key
+        expr, reduce, _tail, _device = key
+        if items[0].direct is not None:
+            self._launch_direct(expr, reduce, items)
+            return
         if extra:
             self._launch_fused(reduce, [(key, items)] + list(extra))
             return
@@ -414,6 +435,38 @@ class CoalesceScheduler:
         }
         for it in items:
             it.future.set_result((res, info))
+
+    def _launch_direct(self, expr, reduce, items: list) -> None:
+        """Trees with a BSI node, per key: one ripple launch (K8, with the
+        folds around it) per distinct table, shared by its waiters; tables
+        are not concatenated (each holds its own field planes)."""
+        groups: "OrderedDict[object, list]" = OrderedDict()
+        for it in items:
+            groups.setdefault(it.batch.ident, []).append(it)
+        for grp in groups.values():
+            table = grp[0].batch
+            t0 = time.monotonic()
+            out = grp[0].direct(reduce)
+            t_disp = time.monotonic()
+            if reduce == "total":
+                res = int(_to_host(out)[0])
+            else:
+                res = _to_host(out) if reduce == "count" else out
+            t1 = time.monotonic()
+            rows = table.shape[0]
+            self._record("coalesce", reduce, grp, rows, table.shape[1], t0, t_disp,
+                         t0 if reduce == "row" else t1)
+            info = {
+                "launch": self._count(len(grp), rows),
+                "direct": True,
+                "batch_queries": len(grp),
+                "batch_segments": 1,
+                "batch_rows": rows,
+                "pad_rows": 0,
+                "launch_ms": round((t1 - t0) * 1e3, 3),
+            }
+            for it in grp:
+                it.future.set_result((res, info))
 
     def _launch_concat(self, expr, reduce, items: list) -> None:
         # Identity dedup: one segment per distinct table.

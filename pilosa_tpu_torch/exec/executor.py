@@ -31,18 +31,26 @@ K2 launch.  An entry is checked in O(1) against the write and mirror
 epochs, and after any change against every fragment's (serial, version,
 mirror generation); entries are residency-pool tenants (``"cache"``).
 
-A tree with a BSI node keeps the eager route: BSI ``Range`` comparisons
-and ``Sum``/``Min``/``Max`` are rewritten as in the JAX package
-(``_rewrite_bsi``) into nodes over the field's plane leaves, which the
-ripple kernel K8 reads in place from the field fragments' mirrors; the
-row leaves beside them are stacked per leaf (``leaf_stacks``) and fold
-with torch ops, and a Count's last fold step is one fused popcount K1
-launch (exec/plan.py).  TopN prepares every local fragment's
-candidates first and scores them all in one launch of the
-cross-fragment scorer K4 (``ops/score_planes.py``) with one fetch per
-node and phase, through the coalescer's fetch lane (``_shared_fetch``);
-on one node both phases come from one scoring pass (the folded TopN, JAX
-``executor.py:2611-2851``).
+A tree with a BSI node takes the same route (JAX
+``executor.py:1037-1060``): BSI ``Range`` comparisons and
+``Sum``/``Min``/``Max`` are rewritten as in the JAX package
+(``_rewrite_bsi``) into nodes over the field's plane leaves, and the
+tree's cached batch holds the planes as rows of the field fragments'
+mirrors, each predicate as a packed row, and the field's
+``bsi_ripple.FieldPlanes`` (its address table checked and uploaded once),
+so a repeated query builds nothing on the host.  The coalescer launches
+a BSI tree per key, never in a fused K3 launch (``coalesce.py``): the
+ripple kernel K8 over the cached FieldPlanes, a row leaf's rows copied
+out of the table by one K2 launch, the folds as torch ops and a Count's
+last fold one fused popcount K1 launch (exec/plan.py).  TopN prepares every local fragment's candidates first and scores
+them all in one launch of the cross-fragment scorer K4
+(``ops/score_planes.py``) with one fetch per node and phase, through the
+coalescer's fetch lane (``_shared_fetch``); on one node both phases come
+from one scoring pass (the folded TopN, JAX ``executor.py:2611-2851``),
+whose prep is cached per query and slice list and checked like a batch
+entry, its scores fetched once per entry by one leader while identical
+concurrent TopNs wait (``_topn_folded_entry``).  A TopN's src tree keeps
+the eager route (``leaf_stacks``): it is evaluated once per prep entry.
 
 Across a cluster (JAX ``executor.py:3203-3500``): a read maps the
 slice list over the owning nodes — local slices run here, the others
@@ -89,8 +97,7 @@ already waits for its result; no site adds a synchronize.  Map legs run on
 the executor's pool inside a copy of the submitting context, so their
 spans join the query's trace.
 
-Replication quorums and the folded-TopN prep cache of the JAX executor
-are not ported yet.
+Replication quorums of the JAX executor are not ported yet.
 """
 
 from __future__ import annotations
@@ -118,7 +125,7 @@ from pilosa_tpu_torch.core import timequantum as tq
 from pilosa_tpu_torch.core import fragment as fragment_mod
 from pilosa_tpu_torch.core.bitmap import RowBitmap
 from pilosa_tpu_torch.core.cache import Pair
-from pilosa_tpu_torch.core.fragment import Fragment, TopOptions, apply_pending_many
+from pilosa_tpu_torch.core.fragment import Fragment, SubRef, TopOptions, apply_pending_many
 from pilosa_tpu_torch.core.view import VIEW_INVERSE, VIEW_STANDARD
 from pilosa_tpu_torch.exec import coalesce as coalesce_mod
 from pilosa_tpu_torch.exec import plan
@@ -210,6 +217,13 @@ class _BatchEntry:
     # launch that reads the table.
     pin_keys: tuple
     nbytes: int = 0
+    # A tree with a BSI node: each leaf's input to the ripple route —
+    # ("row",), ("plane", field), ("pred", value) or ("zero",) — and per
+    # field the base of its mirror in each kept slice (-1: no fragment),
+    # its slots (int64 [kept, 2 + depth]), its bucket and the kernel's
+    # address table, checked and uploaded once at the build.
+    leaf_inputs: tuple = ()
+    fields: tuple = ()
 
     def table(self) -> RowTable | None:
         """The table with strong references to its bases, or None when a
@@ -222,6 +236,64 @@ class _BatchEntry:
                 return None
             bases.append(t)
         return RowTable(bases, self.index, self.addrs, checked=True)
+
+
+@dataclass
+class _TopnEntry:
+    """A cached folded-TopN prep (JAX ``executor.py:2515-2610``): ``kind``
+    is ``"empty"``, ``"two_phase"`` or ``"parts"``; ``parts`` are ``(frag,
+    topt, cand_ids, cand_mask, (state, plane ref, slots, src, src slot))``
+    per fragment, ``state`` the unscored ``TopState`` every query copies
+    and the plane (the fragment's mirror the candidate slots index) held
+    by a weak reference, so that an evicted mirror is freed and the entry
+    found stale.  ``nbytes`` are the device bytes the entry owns (the
+    evaluated src rows).  ``scores`` memoize each part's fetched scores
+    (dense, sparse) for as long as the entry holds; ``score_event`` is the
+    single flight of the first scoring."""
+
+    key: tuple
+    kind: str
+    parts: list
+    epoch: int
+    mirror_epoch: int
+    versions: tuple | None
+    built_at: float
+    nbytes: int = 0
+    scores: list | None = None
+    score_event: threading.Event | None = None
+
+    @classmethod
+    def of(cls, built, key: tuple, epoch: int, mepoch: int, versions) -> "_TopnEntry":
+        """The entry of one ``Executor._topn_folded_build`` result."""
+        kind = "empty" if built is None else "two_phase" if built == "two_phase" else "parts"
+        parts, storages = [], {}
+        for frag, topt, cand_ids, cand_mask, (st, sub, src, slot) in (
+                built if kind == "parts" else ()):
+            ref = None if sub is None else weakref.ref(sub.plane)
+            if src is not None:
+                st_ = src.untyped_storage()
+                storages[st_.data_ptr()] = st_.nbytes()
+            parts.append((frag, topt, cand_ids, cand_mask,
+                          (st, ref, None if sub is None else sub.slots, src, slot)))
+        return cls(key=key, kind=kind, parts=parts, epoch=epoch, mirror_epoch=mepoch,
+                   versions=versions, built_at=time.monotonic(), nbytes=sum(storages.values()))
+
+    def query_parts(self) -> list | None:
+        """One query's parts — ``(frag, topt, cand_ids, cand_mask, (state,
+        SubRef or None, src, src slot))``, each state a fresh copy — or
+        None when a mirror the entry names was freed (the entry is
+        stale)."""
+        out = []
+        for frag, topt, cand_ids, cand_mask, (st, ref, slots, src, slot) in self.parts:
+            sub = None
+            if ref is not None:
+                plane = ref()
+                if plane is None:
+                    return None
+                sub = SubRef(plane, slots)
+            out.append((frag, topt, cand_ids, cand_mask,
+                        (replace(st, counts=None, sparse_cnt=None), sub, src, slot)))
+        return out
 
 
 @dataclass
@@ -296,6 +368,8 @@ class Executor:
         self.client_factory = client_factory
         self._zero_rows: dict[torch.device, torch.Tensor] = {}
         self._zero_mu = threading.Lock()
+        # (value, bucket, device) -> a packed BSI predicate row on the device.
+        self._pred_rows: dict = {}
         # Map legs to peers; threads start at the first submit.
         self._pool = ThreadPoolExecutor(max_workers=16, thread_name_prefix="map")
         self._slice_groups: OrderedDict = OrderedDict()
@@ -303,16 +377,28 @@ class Executor:
         # Cached batches per (index, call, slice list); see _cached_batch.
         self._batch_cache: OrderedDict[tuple, _BatchEntry] = OrderedDict()
         self._batch_mu = threading.Lock()
+        # Folded-TopN prep entries per (index, canonical call, slice list);
+        # see _topn_folded_entry.  Guarded by _batch_mu.
+        self._topn_cache: OrderedDict[tuple, _TopnEntry] = OrderedDict()
+        # Keys being built, each with the event its other queries wait on.
+        self._topn_building: dict[tuple, threading.Event] = {}
+        # A fragment leaving service drops the TopN entries that hold it
+        # now, not at displacement (JAX executor.py:390-393).
+        fragment_mod.register_close_listener(self._drop_closed_fragment)
 
     def close(self) -> None:
+        fragment_mod.unregister_close_listener(self._drop_closed_fragment)
         self._pool.shutdown(wait=False, cancel_futures=True)
         # A closed executor's entries stop counting as resident.
         with self._batch_mu:
             keys = list(self._batch_cache)
             self._batch_cache.clear()
+            topn_keys = list(self._topn_cache)
+            self._topn_cache.clear()
         pool = device_mod.pool()
         for k in keys:
             pool.remove(self._batch_pool_key(k))
+        self._drop_topn_keys(topn_keys)
 
     def execute(
         self,
@@ -782,11 +868,7 @@ class Executor:
 
         def map_fn(local_slices: list[int]) -> RowBitmap:
             out = RowBitmap(self.holder.device)
-            if plan.expr_has_bsi(expr):
-                inputs, kept = self.leaf_stacks(index, leaves, local_slices)
-                rows = plan.eval_expr(expr, inputs) if kept else None
-            else:
-                kept, rows = self._eval_tree_slices(index, rc, expr, leaves, local_slices, "row")
+            kept, rows = self._eval_tree_slices(index, rc, expr, leaves, local_slices, "row")
             for i, s in enumerate(kept):
                 out.set_segment(s, rows[i])
             return out
@@ -828,11 +910,6 @@ class Executor:
         expr, leaves = plan.decompose(child)
 
         def map_fn(local_slices: list[int]) -> int:
-            if plan.expr_has_bsi(expr):
-                inputs, kept = self.leaf_stacks(index, leaves, local_slices)
-                if not kept:
-                    return 0
-                return int(plan.count_rows(expr, inputs).sum(dtype=torch.int64))
             return self._count_slices_total(index, child, expr, leaves, local_slices)
 
         n = self._map_reduce(
@@ -862,7 +939,7 @@ class Executor:
                     return int(np.asarray(res).sum(dtype=np.int64))
             with self._device_span("total"):
                 t0 = time.monotonic()
-                out = plan.tree_eval(expr, "total", table)
+                out = self._direct_eval(ent, table, "total")
                 t_disp = time.monotonic()
                 n = int(out.cpu()[0])
                 self._record_direct_launch(table, "total", t0, t_disp, time.monotonic(), "total")
@@ -886,7 +963,7 @@ class Executor:
                     return ent.kept, res
             with self._device_span(reduce):
                 t0 = time.monotonic()
-                out = plan.tree_eval(expr, reduce, table)
+                out = self._direct_eval(ent, table, reduce)
                 # The result rows stay on the card: nothing waits for the
                 # launch here, so its time is not observed (total_ms 0).
                 self._record_direct_launch(table, reduce, t0, time.monotonic(), t0)
@@ -925,7 +1002,10 @@ class Executor:
         others."""
         with self.tracer.span("coalesce", reduce=reduce, warm=True) as sp:
             try:
-                fut = self.coalescer.submit(ent.expr, reduce, table, leaf_keys=ent.leaf_keys)
+                fut = self.coalescer.submit(
+                    ent.expr, reduce, table, leaf_keys=ent.leaf_keys,
+                    direct=functools.partial(self._direct_eval, ent, table)
+                    if ent.leaf_inputs else None)
             except coalesce_mod.CoalesceClosed:
                 sp.annotate(fallback="closed")
                 return None
@@ -1016,8 +1096,10 @@ class Executor:
                         self._batch_cache.move_to_end(key)
                 device_mod.pool().touch(self._batch_pool_key(key))
                 sp.annotate(batch_cache="hit")
+                self.holder.stats.count("exec.batch.hit")
                 return ent, table
         sp.annotate(batch_cache="miss")
+        self.holder.stats.count("exec.batch.build")
         ent, table = self._cached_batch_build(index, key, expr, leaves, slices)
         displaced = []
         with self._batch_mu:
@@ -1036,36 +1118,81 @@ class Executor:
         return ent, table
 
     def _leaf_targets(self, index: str, leaves: list[Call]) -> list[tuple]:
-        """Each leaf's ``(views, row_id)``, and the context its validity
-        depends on: the views' names and, for a time Range, the frame's
-        quantum (it decides the views)."""
+        """Each leaf's ``(kind, views, row_id, ctx)``: ``"row"`` for a Bitmap
+        or time Range leaf (the union of the row over ``views``),
+        ``"plane"`` for a BSI plane (its row of the field's view),
+        ``"pred"`` (``row_id`` the value) and ``"zero"`` for the
+        slice-invariant BSI leaves; ``ctx`` is what the leaf's validity
+        depends on besides its fragments — the views' names and, for a time
+        Range, the frame's quantum (it decides the views); a predicate's
+        value and bucket."""
         out = []
         for leaf in leaves:
-            kind, views, row_id = self._resolve_leaf(index, leaf)
-            if kind != "row":
-                raise plan.PlanError(f"{leaf.name} is not a row leaf")
+            if leaf.name == "BsiPred":
+                v, d = leaf.args["v"], leaf.args["d"]
+                out.append(("pred", [], v, ("pred", v, d)))
+                continue
+            if leaf.name == "BsiZero":
+                out.append(("zero", [], 0, ("zero",)))
+                continue
+            kind, target, row_id = self._resolve_leaf(index, leaf)
+            views = target if kind == "row" else [] if target is None else [target]
             ctx = tuple(v.name for v in views)
             if leaf.name == "Range":
                 f = self.holder.frame(index, leaf.args.get("frame") or DEFAULT_FRAME)
                 ctx += (f.time_quantum if f is not None else "",)
-            out.append((views, row_id, ctx))
+            out.append((kind, views, row_id, ctx))
         return out
 
     def _leaf_versions(self, index: str, leaves: list[Call], slices: list[int]) -> tuple:
         """The validity vector of a batch (JAX ``executor.py:1253``):
         each leaf's context, then per slice and leaf each view's fragment
-        state (``Fragment.cache_state``) or None.  Dict lookups only."""
+        state (``Fragment.cache_state``) or None — nothing for the
+        slice-invariant BSI leaves.  Dict lookups only."""
         targets = self._leaf_targets(index, leaves)
-        maps = {id(v): v.fragment_map() for views, _, _ in targets for v in views}
+        maps = {id(v): v.fragment_map() for _, views, _, _ in targets for v in views}
         states = []
         for s in slices:
-            for views, row_id, _ in targets:
+            for _, views, row_id, _ in targets:
                 vstates = []
                 for v in views:
                     frag = maps[id(v)].get(s)
                     vstates.append(None if frag is None else frag.cache_state(row_id))
                 states.append(tuple(vstates))
-        return tuple(t[2] for t in targets), tuple(states)
+        return tuple(t[3] for t in targets), tuple(states)
+
+    def _pred_row(self, value: int, bucket: int, device: torch.device) -> torch.Tensor:
+        """A packed predicate row (``bsi.pred_row``) as a one-row base,
+        kept per (value, bucket, device): predicates repeat across slices
+        and queries, so each uploads once (JAX ``executor.py:702``), and
+        equal predicates are one address in a fused launch."""
+        key = (value, bucket, device)
+        with self._zero_mu:
+            row = self._pred_rows.get(key)
+            if row is None:
+                host = bsi.pred_row(value, bucket).view(np.int32)[None, :]
+                row = torch.from_numpy(np.ascontiguousarray(host)).to(device)
+                if len(self._pred_rows) >= 256:
+                    self._pred_rows.clear()
+                self._pred_rows[key] = row
+            return row
+
+    @staticmethod
+    def _field_leaves(leaves: list[Call], targets: list[tuple]) -> dict[tuple, list[int]]:
+        """The plane leaves of each BSI field, in leaf order: exists, sign
+        and every magnitude bit, once for each BSI node of the field."""
+        fields: dict[tuple, list[int]] = {}
+        for j, (kind, _, _, _) in enumerate(targets):
+            if kind == "plane":
+                fk = (leaves[j].args["frame"], leaves[j].args["field"])
+                fields.setdefault(fk, []).append(j)
+        for js in fields.values():
+            prows = [targets[j][2] for j in js]
+            nrows = max(prows) + 1
+            if nrows < 3 or prows != list(range(nrows)) * (len(prows) // nrows):
+                raise plan.PlanError(
+                    "a field's plane leaves must list exists, sign and every bit in order")
+        return fields
 
     def _cached_batch_build(self, index: str, key: tuple, expr: tuple, leaves: list[Call],
                             slices: list[int]) -> tuple[_BatchEntry, RowTable | None]:
@@ -1074,20 +1201,65 @@ class Executor:
         # read under its lock with the row it names.
         epoch, mepoch = fragment_mod.write_epoch(), fragment_mod.mirror_epoch()
         targets = self._leaf_targets(index, leaves)
-        apply_pending_many(v.fragment(s) for views, _, _ in targets for v in views
+        apply_pending_many(v.fragment(s) for _, views, _, _ in targets for v in views
                            for s in slices)
         device = self.holder.device
+        fields = self._field_leaves(leaves, targets)
+        # Bases: the zero row, the mirrors (held weakly), the predicate rows
+        # and the scratch rows (held by the entry).
         bases: list = [self._zero_row(device).view(1, bp.WORDS_PER_SLICE)]
+        weak: list[bool] = [False]
         base_of: dict[int, int] = {}
+        pred_base: dict[int, int] = {}
+        for j, (kind, _, value, ctx) in enumerate(targets):
+            if kind == "pred":
+                pred_base[j] = len(bases)
+                bases.append(self._pred_row(value, ctx[2], device))
+                weak.append(False)
+
+        def mirror_base(mirror) -> int:
+            b = base_of.get(id(mirror))
+            if b is None:
+                b = base_of[id(mirror)] = len(bases)
+                bases.append(mirror)
+                weak.append(True)
+            return b
+
         pin_keys: dict = {self._batch_pool_key(key): None}
         scratch_srcs: list[list] = []
         rows: list[list] = []
+        field_rows: dict[int, list] = {fk: [] for fk in fields}
         kept: list[int] = []
         empties: list[int] = []
         states = []
+        n_leaves = len(leaves)
         for s in slices:
-            row, any_set = [], False
-            for views, row_id, _ in targets:
+            row: list = [(0, 0)] * n_leaves
+            sstates: list = [()] * n_leaves
+            any_set = False
+            slice_fields = {}
+            for fk, js in fields.items():
+                views = targets[js[0]][1]
+                frag = views[0].fragment(s) if views else None
+                if frag is None:
+                    for j in js:
+                        sstates[j] = (None,) if views else ()
+                    slice_fields[fk] = (-1, [-1] * len(js))
+                    continue
+                mirror, slots, fstates = frag.device_field_ref([targets[j][2] for j in js])
+                b = mirror_base(mirror)
+                pin_keys[frag._pool_key] = None
+                for j, slot, st in zip(js, slots, fstates):
+                    sstates[j] = (st,)
+                    if slot >= 0:
+                        row[j] = (b, slot)
+                        any_set = True
+                slice_fields[fk] = (b, slots)
+            for j, (kind, views, row_id, _) in enumerate(targets):
+                if kind == "pred":
+                    row[j] = (pred_base[j], 0)
+                if kind != "row":
+                    continue
                 srcs, vstates = [], []
                 for view in views:
                     frag = view.fragment(s)
@@ -1098,39 +1270,40 @@ class Executor:
                     vstates.append(state)
                     if ref is not None:
                         srcs.append((frag, ref))
-                states.append(tuple(vstates))
+                sstates[j] = tuple(vstates)
                 if not srcs:
-                    row.append((0, 0))
                     continue
                 any_set = True
                 if len(srcs) == 1 and srcs[0][1][0] == "plane":
                     frag, (_, mirror, slot) = srcs[0]
-                    b = base_of.get(id(mirror))
-                    if b is None:
-                        b = base_of[id(mirror)] = len(bases)
-                        bases.append(mirror)
                     pin_keys[frag._pool_key] = None
-                    row.append((b, slot))
+                    row[j] = (mirror_base(mirror), slot)
                 else:
                     # A sparse row, or the union of several views' rows.
-                    row.append((-1, len(scratch_srcs)))
+                    row[j] = (-1, len(scratch_srcs))
                     scratch_srcs.append([ref for _, ref in srcs])
+            states.extend(sstates)
             if any_set:
                 kept.append(s)
                 rows.append(row)
+                for fk in fields:
+                    field_rows[fk].append(slice_fields[fk])
             else:
                 empties.append(s)
-        versions = (tuple(t[2] for t in targets), tuple(states))
+        versions = (tuple(t[3] for t in targets), tuple(states))
         nbytes = 0
-        idx = np.asarray(rows, dtype=np.int64).reshape(len(kept), len(leaves), 2)
+        idx = np.asarray(rows, dtype=np.int64).reshape(len(kept), n_leaves, 2)
         if scratch_srcs:
             scratch = self._fill_scratch(scratch_srcs, device)
             idx[idx[..., 0] == -1, 0] = len(bases)
             bases.append(scratch)
+            weak.append(False)
             nbytes += scratch.nbytes
         table = RowTable(bases, idx) if kept else None
         addrs = None
         leaf_keys: tuple = ()
+        leaf_inputs: tuple = ()
+        field_data: tuple = ()
         if table is not None:
             # The one full check of the entry's table: every table its
             # hits make is checked by construction.
@@ -1139,20 +1312,91 @@ class Executor:
             flat = ptrs[idx[..., 0]] + idx[..., 1] * bp.WORDS_PER_SLICE * 4
             # Equal row addresses are equal rows ("same address, same
             # register" in a fused launch).
-            leaf_keys = tuple(("rows", flat[:, j].tobytes()) for j in range(len(leaves)))
+            leaf_keys = tuple(("rows", flat[:, j].tobytes()) for j in range(n_leaves))
             if device.type == "cuda":
                 addrs = table.addresses()
                 nbytes += addrs.nbytes
-        refs = [bases[0]] + [weakref.ref(b) for b in bases[1 : len(base_of) + 1]]
-        refs += bases[len(base_of) + 1 :]
+            if plan.expr_has_bsi(expr):
+                field_data, leaf_inputs = self._field_inputs(targets, fields, field_rows,
+                                                             bases, device)
+                nbytes += sum(f[3].nbytes for f in field_data)
+        refs = [weakref.ref(b) if w else b for b, w in zip(bases, weak)]
         ent = _BatchEntry(
             expr=expr, kept=kept, empties=empties, refs=refs, index=idx, addrs=addrs,
             epoch=epoch, mirror_epoch=mepoch, versions=versions, leaf_keys=leaf_keys,
-            pin_keys=tuple(pin_keys), nbytes=nbytes,
+            pin_keys=tuple(pin_keys), nbytes=nbytes, leaf_inputs=leaf_inputs,
+            fields=field_data,
         )
         if table is not None:
             table = RowTable(table.bases, idx, addrs, checked=True)
         return ent, table
+
+    @staticmethod
+    def _field_inputs(targets, fields, field_rows, bases, device) -> tuple[tuple, tuple]:
+        """A BSI tree's ripple inputs over a batch: per field its mirror
+        bases, slots, bucket and the K8 address table of a FieldPlanes
+        checked once; per leaf its input kind."""
+        field_data, field_of = [], {}
+        for fi, (fk, js) in enumerate(fields.items()):
+            nrows = max(targets[j][2] for j in js) + 1
+            base_idx = np.asarray([b for b, _ in field_rows[fk]], dtype=np.int64)
+            slots = np.asarray([sl[:nrows] for _, sl in field_rows[fk]],
+                               dtype=np.int64).reshape(len(base_idx), nrows)
+            bucket = bsi.pad_depth(nrows - 2)
+            fp = bsi_ripple.FieldPlanes([bases[b] if b >= 0 else None for b in base_idx],
+                                        slots, bucket, device)
+            field_data.append((base_idx, slots, bucket, fp.table()))
+            for j in js:
+                field_of[j] = fi
+        leaf_inputs = []
+        for j, (kind, _, value, _) in enumerate(targets):
+            if kind == "plane":
+                leaf_inputs.append(("plane", field_of[j]))
+            elif kind == "pred":
+                leaf_inputs.append(("pred", value))
+            else:
+                leaf_inputs.append((kind,))
+        return tuple(field_data), tuple(leaf_inputs)
+
+    def _entry_inputs(self, ent: _BatchEntry, table: RowTable) -> list:
+        """A BSI tree's leaf inputs for the ripple route (``plan.eval_expr``,
+        ``count_rows``, ``agg_vectors``) from its cached batch: each field's
+        FieldPlanes over the mirrors the table holds (its address table
+        built once), a predicate's value, None for a pad plane, and a row
+        leaf's rows copied out of the table by one K2 launch."""
+        device = self.holder.device
+        fps = [
+            bsi_ripple.FieldPlanes([table.bases[b] if b >= 0 else None for b in base_idx],
+                                   slots, bucket, device, addrs=addrs)
+            for base_idx, slots, bucket, addrs in ent.fields
+        ]
+        inputs: list = []
+        for j, li in enumerate(ent.leaf_inputs):
+            if li[0] == "plane":
+                inputs.append(fps[li[1]])
+            elif li[0] == "pred":
+                inputs.append(plan.PredLeaf(li[1]))
+            elif li[0] == "zero":
+                inputs.append(None)
+            else:
+                inputs.append(plan.tree_eval(("leaf", 0), "row",
+                                             RowTable.concat_leaves([table], [[j]])))
+        return inputs
+
+    def _direct_eval(self, ent: _BatchEntry, table: RowTable, reduce: str) -> torch.Tensor:
+        """A cached batch's per-key launch: K2 (``plan.tree_eval``) for a
+        bitmap tree; for a tree with a BSI node the ripple route — K8 over
+        the cached FieldPlanes, the folds around it as torch ops and a
+        Count's last fold one K1 launch."""
+        if not ent.leaf_inputs:
+            return plan.tree_eval(ent.expr, reduce, table)
+        inputs = self._entry_inputs(ent, table)
+        if reduce == "row":
+            return plan.eval_expr(ent.expr, inputs).contiguous()
+        counts = plan.count_rows(ent.expr, inputs)
+        if reduce == "count":
+            return counts
+        return counts.sum(dtype=torch.int64).reshape(1)
 
     @staticmethod
     def _fill_scratch(srcs: list[list], device: torch.device) -> torch.Tensor:
@@ -1324,10 +1568,17 @@ class Executor:
         expr, leaves = plan.decompose(rc)
 
         def map_fn(local_slices: list[int]):
-            inputs, kept = self.leaf_stacks(index, leaves, local_slices)
-            if not kept:
+            # The cached batch (JAX executor.py:1037): a repeated aggregate
+            # builds nothing; its launch stays per key (K8), off the
+            # coalescer.
+            if not local_slices:
                 return None
-            vecs = plan.agg_vectors(expr, inputs).cpu().numpy()
+            ent, table = self._cached_batch(index, rc, expr, leaves, local_slices)
+            if table is None:
+                return None
+            with device_mod.pool().pinned(*ent.pin_keys):
+                with self._device_span("agg"):
+                    vecs = plan.agg_vectors(expr, self._entry_inputs(ent, table)).cpu().numpy()
             return self._decode_agg_parts(c, bucket, vecs)
 
         def reduce_fn(prev, v):
@@ -1693,6 +1944,174 @@ class Executor:
                           self._attach_dev_src(frag, part, self_src)))
         return parts
 
+    # Folded-TopN prep entries kept per (index, canonical query, slice
+    # list): a dashboard's working set is a handful of repeated queries
+    # (JAX executor.py:2489).
+    _TOPN_CACHE_CAP = 8
+
+    def _topn_pool_key(self, key: tuple) -> tuple:
+        return ("exec", id(self), "topn", key)
+
+    def _evict_topn_key(self, key: tuple) -> bool:
+        """The pool's eviction hook for a TopN prep entry; non-blocking,
+        as for batch entries."""
+        if not self._batch_mu.acquire(blocking=False):
+            return False
+        try:
+            self._topn_cache.pop(key, None)
+            return True
+        finally:
+            self._batch_mu.release()
+
+    def _drop_topn_keys(self, keys) -> None:
+        pool = device_mod.pool()
+        for k in keys:
+            pool.remove(self._topn_pool_key(k))
+
+    def _drop_closed_fragment(self, frag) -> None:
+        """A fragment left service: every TopN entry holding it goes now
+        (JAX ``executor.py:411``), with its pool bytes."""
+        with self._batch_mu:
+            stale = [k for k, e in self._topn_cache.items()
+                     if any(p[0] is frag for p in e.parts)]
+            for k in stale:
+                del self._topn_cache[k]
+        self._drop_topn_keys(stale)
+
+    def _topn_versions(self, index: str, c: Call, slices: list[int]) -> tuple:
+        """The validity vector of a TopN prep entry (JAX
+        ``executor.py:2492``): each slice's TopN fragment as ``(serial,
+        version)`` over the ORIGINAL slice list (a fragment springing into
+        existence invalidates), then, with a src tree, its leaves'
+        fragments' over the same slices (the src rows were evaluated at the
+        build).  Mirror moves do not invalidate: the scorer's planes are
+        held weakly (an evicted one makes the entry stale by itself), and
+        the src rows are the entry's own."""
+        view = self._topn_view(index, c)
+        have = view.fragment_map() if view is not None else {}
+        out: list = []
+        for s in slices:
+            frag = have.get(s)
+            out.append(None if frag is None else (frag._serial, frag._version))
+        if len(c.children) == 1:
+            try:
+                _, leaves = plan.decompose(self._rewrite_bsi(index, c.children[0]))
+                targets = self._leaf_targets(index, leaves)
+            except (plan.PlanError, ExecutorError):
+                targets = []
+            maps = [[v.fragment_map() for v in t[1]] for t in targets]
+            out.append(tuple(
+                tuple(None if f is None else (f._serial, f._version)
+                      for f in (m.get(s) for m in vmaps))
+                for s in slices for vmaps in maps))
+        return tuple(out)
+
+    def _topn_folded_entry(self, index: str, c: Call, slices: list[int], sp) -> tuple:
+        """The folded TopN's prep, cached per (index, canonical query, slice
+        list) and checked like a batch entry (JAX ``executor.py:2515``): in
+        O(1) against the write and mirror epochs, else against the version
+        vector.  A hit skips the candidate walks, the union, the src
+        evaluation and the gather prep; with scores already fetched for the
+        entry it skips the scorer too.  Entries expire with the rank
+        caches' re-sort throttle (``cache.RECALCULATE_INTERVAL_S``), whose
+        re-sort happens inside the walk a hit skips.  Concurrent misses of
+        one key make one build: the others wait for it and look again.  An
+        attribute-filtered TopN (``field=``) is not cached: the attribute
+        store has no version to check.  Annotates ``sp`` with
+        ``prep_cache=hit|miss``.  Returns ``(entry, this query's
+        parts)``."""
+        key = (index, str(c), tuple(slices))
+        if c.args.get("field"):
+            return self._topn_build_entry(index, c, slices, key, False, sp)
+        hit = self._topn_lookup(index, c, slices, key, sp)
+        if hit is not None:
+            return hit
+        with self._batch_mu:
+            ev = self._topn_building.get(key)
+            leader = ev is None
+            if leader:
+                ev = self._topn_building[key] = threading.Event()
+        if not leader:
+            ev.wait(timeout=coalesce_mod.RESULT_TIMEOUT_S)
+            hit = self._topn_lookup(index, c, slices, key, sp)
+            if hit is not None:
+                return hit
+            # The leader failed, or a write came after its build.
+            return self._topn_build_entry(index, c, slices, key, True, sp)
+        try:
+            return self._topn_build_entry(index, c, slices, key, True, sp)
+        finally:
+            with self._batch_mu:
+                self._topn_building.pop(key, None)
+            ev.set()
+
+    def _topn_lookup(self, index: str, c: Call, slices: list[int], key: tuple, sp):
+        """``(entry, parts)`` of the cached entry of ``key`` while it holds,
+        else None; a stale one is dropped before the rebuild, so that a
+        failing build cannot leave it behind."""
+        now = time.monotonic()
+        with self._batch_mu:
+            expired = [k for k, e in self._topn_cache.items()
+                       if now - e.built_at >= cache_mod.RECALCULATE_INTERVAL_S]
+            for k in expired:
+                del self._topn_cache[k]
+            ent = self._topn_cache.get(key)
+        self._drop_topn_keys(expired)
+        if ent is None:
+            return None
+        epoch, mepoch = fragment_mod.write_epoch(), fragment_mod.mirror_epoch()
+        fresh = ent.epoch == epoch and ent.mirror_epoch == mepoch
+        if not fresh:
+            fresh = ent.versions is not None and \
+                ent.versions == self._topn_versions(index, c, slices)
+        parts = ent.query_parts() if fresh else None
+        if parts is not None:
+            ent.epoch, ent.mirror_epoch = epoch, mepoch
+            with self._batch_mu:
+                if key in self._topn_cache:
+                    self._topn_cache.move_to_end(key)
+            device_mod.pool().touch(self._topn_pool_key(key))
+            self.holder.stats.count("exec.topn.prepHit")
+            sp.annotate(prep_cache="hit")
+            return ent, parts
+        with self._batch_mu:
+            if self._topn_cache.get(key) is ent:
+                del self._topn_cache[key]
+        self._drop_topn_keys([key])
+        return None
+
+    def _topn_build_entry(self, index: str, c: Call, slices: list[int], key: tuple,
+                          cacheable: bool, sp) -> tuple:
+        # The epochs before the build; the version vector after it, kept
+        # only when no write came anywhere from the build's start to the
+        # vector's end (else the entry never validates: conservatively
+        # stale).
+        epoch, mepoch = fragment_mod.write_epoch(), fragment_mod.mirror_epoch()
+        built = self._topn_folded_build(index, c, slices)
+        self.holder.stats.count("exec.topn.prepBuild")
+        sp.annotate(prep_cache="miss")
+        versions = None
+        if cacheable:
+            versions = self._topn_versions(index, c, slices)
+            if fragment_mod.write_epoch() != epoch:
+                versions = None
+        ent = _TopnEntry.of(built, key, epoch, mepoch, versions)
+        # While ``built`` holds the planes, the weak references live.
+        parts = ent.query_parts()
+        if cacheable:
+            displaced = []
+            with self._batch_mu:
+                self._topn_cache[key] = ent
+                while len(self._topn_cache) > self._TOPN_CACHE_CAP:
+                    displaced.append(self._topn_cache.popitem(last=False)[0])
+            self._drop_topn_keys(displaced)
+            if ent.nbytes:
+                device_mod.pool().admit(
+                    self._topn_pool_key(key), {self.holder.device: ent.nbytes},
+                    functools.partial(self._evict_topn_key, key), category="cache",
+                    info={"cache": "topn", "index": index, "query": str(c)})
+        return ent, parts
+
     def _execute_topn_folded(
         self, index: str, c: Call, slices: list[int], opt: ExecOptions
     ) -> list[Pair]:
@@ -1701,24 +2120,68 @@ class Executor:
         the cross-slice candidate union is known after a host-only cache
         walk, so every slice scores the whole union once — one launch,
         one fetch — and the phase-1 winner selection and the phase-2
-        exact counts both read those scores."""
+        exact counts both read those scores.  The prep comes from the
+        cache (``_topn_folded_entry``), and the scores are fetched once
+        per entry: concurrent queries of one entry wait for one leader's
+        launch and fetch (single flight), later ones reuse its scores
+        while the entry holds."""
         n = _uint_arg(c, "n")[0]
         if len(c.children) > 1:
             raise ExecutorError("TopN() can only have one input bitmap")
+        # The key is the canonical tree: src trees that differ only in the
+        # order of commuting children share an entry, bit for bit.
+        c = plan.canonicalize_call(c)
         # The mirrors the prep finds stay pinned until the scores are
         # fetched.
         with device_mod.pool().pinned():
-            with self.tracer.span("topn.prep", slices=len(slices)):
-                parts = self._topn_folded_build(index, c, slices)
-            if parts is None:
+            with self.tracer.span("topn.prep", slices=len(slices)) as sp:
+                ent, parts = self._topn_folded_entry(index, c, slices, sp)
+            if ent.kind == "empty":
                 return []
-            if parts == "two_phase":
+            if ent.kind == "two_phase":
                 return self._execute_topn_two_phase(index, c, slices, opt, n)
-            with self.tracer.span("topn.score", parts=len(parts)):
-                self._score_topn_parts([p[4] for p in parts])
-                self._score_topn_sparse([p[4] for p in parts])
+            with self.tracer.span("topn.score", parts=len(parts)) as sp:
+                self._score_topn_entry(ent, parts, sp)
         with self.tracer.span("topn.select", parts=len(parts)):
             return self._topn_folded_select(parts, n)
+
+    def _score_topn_entry(self, ent: _TopnEntry, parts: list, sp) -> None:
+        """Fill every part's scores: from the entry's memo, else as the
+        leader of one launch and fetch (K4 and the sparse tier on the
+        host) that every concurrent query of the entry waits for — on an
+        event, never a lock (JAX ``executor.py:2760``).  A leader that
+        fails leaves no scores, and a waiter then scores on its own."""
+        leader = False
+        with self._batch_mu:
+            scores = ent.scores
+            ev = None
+            if scores is None:
+                ev = ent.score_event
+                if ev is None:
+                    ev = ent.score_event = threading.Event()
+                    leader = True
+        if scores is None and not leader:
+            ev.wait(timeout=coalesce_mod.RESULT_TIMEOUT_S)
+            with self._batch_mu:
+                scores = ent.scores
+        if scores is not None:
+            for part, (cnt, sparse) in zip(parts, scores):
+                part[4][0].counts, part[4][0].sparse_cnt = cnt, sparse
+            sp.annotate(score_cache="shared")
+            self.holder.stats.count("exec.topn.scoreShared")
+            return
+        try:
+            scored = [p[4] for p in parts]
+            pin_keys = [self._topn_pool_key(ent.key)] + [p[0]._pool_key for p in parts]
+            with device_mod.pool().pinned(*pin_keys):
+                self._score_topn_parts(scored)
+                self._score_topn_sparse(scored)
+            with self._batch_mu:
+                ent.scores = [(st.counts, st.sparse_cnt) for st, *_ in scored]
+            sp.annotate(score_cache="computed")
+        finally:
+            if leader:
+                ev.set()
 
     @staticmethod
     def _topn_folded_select(parts, n: int) -> list[Pair]:

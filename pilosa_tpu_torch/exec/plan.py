@@ -21,11 +21,11 @@ of trees into one ``int32[n_ops, 4]`` opcode table over a union leaf set
 queries evaluate once — and one launch reduces every selected register.
 The tables are byte-equal to the JAX emitter's.
 
-The other row producers keep the eager route: each row leaf becomes a
-stack of slice-rows, int32 ``[n_slices, 32768]``, the folds run as torch
-bitwise ops (:func:`eval_expr`), and for a count the last fold step is
-one launch of the fused popcount K1 (:func:`count_rows`) — trees with a
-BSI node, and a TopN's src tree.
+The ripple route of a tree with a BSI node, and a TopN's src tree, are
+eager: each row leaf is a stack of slice-rows, int32 ``[n_slices,
+32768]``, the folds run as torch bitwise ops (:func:`eval_expr`), and for
+a count the last fold step is one launch of the fused popcount K1
+(:func:`count_rows`).
 
 The BSI nodes the executor's rewrite produces (``BsiCmp`` over
 ``BsiPlane``/``BsiZero``/``BsiPred`` leaves, and ``BsiSum``/``BsiMin``/

@@ -78,18 +78,27 @@ class FieldPlanes:
     (read as zero).  ``bucket`` (>= depth) sets the layout of the
     aggregate vectors; ``device`` is where the planes live.  Checked
     once, when made; the kernels' table of mirror addresses is built
-    on the card at the first launch and kept (:meth:`table`)."""
+    on the card at the first launch and kept (:meth:`table`).
+
+    A cached batch makes its FieldPlanes anew for every query from the
+    mirrors it still holds: ``addrs`` passes the table it built (and
+    checked) once, so that such a FieldPlanes is neither walked nor
+    uploaded again."""
 
     mirrors: list
     slots: np.ndarray
     bucket: int
     device: torch.device
+    addrs: torch.Tensor | None = None
 
     def __post_init__(self) -> None:
         self.device = torch.device(self.device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
-        self._table = None
+        self._table = self.addrs
+        if self._table is not None:
+            self._held = tuple(self.mirrors)
+            return
         slots = self.slots
         if not isinstance(slots, np.ndarray) or slots.ndim != 2 or slots.dtype != np.int64:
             raise ValueError("slots must be an int64 [S, 2 + depth] array")

@@ -82,14 +82,27 @@ def decode(data: bytes) -> dict[int, np.ndarray]:
     """Decode a roaring file into {container_key: uint64[1024] words},
     applying the trailing op-log (reference: roaring/roaring.go:567-646).
 
-    The pure-numpy codec; the C++ codec of the JAX package is not ported
-    yet."""
+    Dispatches to the port's C++ codec (``pilosa_tpu_torch/native``) when
+    it is available; the Python path is the fallback and parity oracle."""
     return decode_with_ops(data)[0]
 
 
 def decode_with_ops(data: bytes) -> tuple[dict[int, np.ndarray], int]:
     """decode() plus the replayed op count — one parse serves both the
     containers and Fragment.open's op-counter bookkeeping."""
+    from pilosa_tpu_torch import native
+
+    try:
+        res = native.decode(data)
+    except native.NativeCorruptError as e:
+        raise CorruptError(str(e)) from e
+    if res is not None:
+        return res
+    return decode_with_ops_py(data)
+
+
+def decode_with_ops_py(data: bytes) -> tuple[dict[int, np.ndarray], int]:
+    """The Python path of :func:`decode_with_ops`."""
     containers, ops_offset, _ = _decode_containers(data)
     op_n = _apply_ops(containers, data, ops_offset)
     return containers, op_n
@@ -112,7 +125,25 @@ def decode_tiered(
     copy, so the buffer can be closed immediately after (reference
     analog: zero-copy container attach straight out of the mmap,
     roaring/roaring.go:567-620 — here tiers are materialized instead,
-    but the FILE bytes are never duplicated in memory)."""
+    but the FILE bytes are never duplicated in memory).
+
+    Dispatches to the C++ tiered decoder when available; the Python path
+    (:func:`decode_tiered_py`) is the fallback and parity oracle."""
+    from pilosa_tpu_torch import native
+
+    try:
+        res = native.decode_tiered(data)
+    except native.NativeCorruptError as e:
+        raise CorruptError(str(e)) from e
+    if res is not None:
+        return res
+    return decode_tiered_py(data)
+
+
+def decode_tiered_py(
+    data,
+) -> tuple[dict[int, np.ndarray], dict[int, np.ndarray], int]:
+    """The Python path of :func:`decode_tiered`."""
     words, arrays, ops_offset, _ = _decode_containers_tiered(data)
     op_n = _apply_ops_tiered(words, arrays, data, ops_offset)
     return words, arrays, op_n
@@ -419,7 +450,15 @@ def encode_packed(
 ) -> bytes:
     """Serialize a PACKED dense tier — ``keys`` ascending container
     keys, ``words2d[i]`` the 1024-u64 payload of ``keys[i]`` — plus an
-    optional sparse-arrays tier."""
+    optional sparse-arrays tier.  The all-dense case hands the buffers
+    straight to the C++ codec with no per-container Python; mixed or
+    native-less cases take the general dict path."""
+    from pilosa_tpu_torch import native
+
+    if not arrays:
+        res = native.encode_packed(keys, words2d)
+        if res is not None:
+            return res
     words = {int(k): words2d[i] for i, k in enumerate(keys)}
     return encode_tiered(words, arrays or {})
 
@@ -430,7 +469,21 @@ def encode_tiered(
     """Serialize tiered containers (see decode_tiered) to the reference
     file format, choosing array vs bitmap payload form by the SAME
     n <= 4096 rule regardless of the in-memory form; empty containers
-    are dropped.  Peak transient memory is one container."""
+    are dropped.  Peak transient memory is one container.  All-words
+    inputs (the dense-fragment case) dispatch to the C++ codec."""
+    from pilosa_tpu_torch import native
+
+    if not arrays:
+        res = native.encode(words)
+        if res is not None:
+            return res
+    return encode_tiered_py(words, arrays)
+
+
+def encode_tiered_py(
+    words: dict[int, np.ndarray], arrays: dict[int, np.ndarray]
+) -> bytes:
+    """The Python path of :func:`encode_tiered`."""
     entries: list[tuple[int, int, object, bool]] = []  # key, n, src, is_vals
     for key, vals in arrays.items():
         if key in words:

@@ -278,11 +278,18 @@ def test_debug_routes_carry_the_jax_keys(tmp_path):
     t.open()
     try:
         docs = []
-        for s in (j, t):
+        for s, dev in ((j, jdevice), (t, tdevice)):
             for path in ("/index/i", "/index/i/frame/f"):
                 assert http(s.host, "POST", path)[0] == 200
-            for q in (b"SetBit(frame=f, rowID=1, columnID=3)", b"Count(Bitmap(frame=f, rowID=1))"):
-                assert http(s.host, "POST", "/index/i/query", q)[0] == 200
+            q = b"SetBit(frame=f, rowID=1, columnID=3)"
+            assert http(s.host, "POST", "/index/i/query", q)[0] == 200
+            # The Count's prefetch would upload the mirror on a worker
+            # thread while the query admits its batch entry, so the pool's
+            # LRU order (read by _keys through the first entry) would
+            # depend on thread timing: the mirror is staged first.
+            dev.prefetcher().prefetch([s.holder.fragment("i", "f", "standard", 0)], wait=True)
+            q = b"Count(Bitmap(frame=f, rowID=1))"
+            assert http(s.host, "POST", "/index/i/query", q)[0] == 200
             docs.append([json.loads(http(s.host, "GET", p)[1])
                          for p in ("/debug/hbm", "/debug/ingest")])
         (jh, ji), (th, ti) = docs

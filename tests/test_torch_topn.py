@@ -429,11 +429,13 @@ def test_folded_topn_matches_jax(node_pair, monkeypatch):
         got, calls = ask_counting(seen, t.host, q)
         assert got == want, q
         # One scoring pass answers both phases: one scorer call for each
-        # of JSON and protobuf where a src reaches a candidate, none
-        # without a src.
-        assert calls <= 2 and (calls == 0 or has_src(q)), (q, calls)
+        # asking where a src reaches a candidate, none without a src.  The
+        # second asking (protobuf) reuses the cached prep entry's scores,
+        # but for an attribute-filtered TopN, which is not cached.
+        per = 2 if 'field="' in q else 1
+        assert calls <= per and (calls == 0 or has_src(q)), (q, calls)
         if has_src(q) and want[0][0] == 200 and want[0][1]["results"][0]:
-            assert calls == 2, (q, calls)
+            assert calls == per, (q, calls)
     assert seen["folded"] == 2 * len(FOLDED) and seen["two_phase"] == 0
     for q in IDS:  # ids=: the two-phase map, without the refetch
         assert ask(t.host, q) == ask(j.host, q), q
