@@ -118,10 +118,10 @@ without printing its final line:
 10. on a node of its own at the JAX package's defaults (dense budget
     65,536, plane-format auto, 64 KiB caps), the two tutorials of
     docs/tutorials.md loaded through ``/import``: the star trace (index
-    ``repository``, 2^18 stargazers in a random permutation, Zipf stars,
+    ``repository``, 2^17 stargazers in a random permutation, Zipf stars,
     1% of them starring a run of repositories, 2 slices: two tall
     fragments with 8 GiB plane tiers; 64 languages) and the chemical
-    similarity (index ``mole``, 2^18 molecules x 1,024 positions, ~48
+    similarity (index ``mole``, 2^17 molecules x 1,024 positions, ~48
     bits each, frame ``fingerprint`` with inverse storage: a tall inverse
     fragment); Counts through K5, Union/Bitmap/TopN srcs through K6, TopN
     over both tiers, a SetBit into a sparse row, ``Bitmap(molecule_id=m)``
@@ -198,7 +198,29 @@ without printing its final line:
     (the next Count equals numpy of the new contents) and a torn archive
     refused with 422 (no answer changes); one slice's ``/export`` (~4.2M
     bits, ~55 MB of CSV — a cut: the index's whole export would be ~55
-    GB) equal to numpy's formatting byte for byte.
+    GB) equal to numpy's formatting byte for byte;
+18. device health and the host fallback, on the phase-5 node right after
+    phase 16 (run before phase 6; the node opened with a 300 ms
+    quarantine window), driven by ``testing/faults.py``: (a) one injected
+    launch error — the Count retried once and answered by K2, the path
+    healthy; (b) an error on every attempt — three Counts take the path
+    suspect, suspect, quarantined, each answered from the host planes
+    with no kernel launched; (c) while quarantined, Count, Bitmap, TopN,
+    TopN(src) and a BSI comparison and Sum on a small field (depth 8, 64
+    slices) each equal to the oracle with no K2-K8 launch at all (a
+    TopN(src)'s src, prep and scores all come from the host), the host's
+    p50 against the
+    card's for Count(Intersect) and TopN(src) at 954 slices, SetBits that
+    queue on the host, ``/debug/health`` quarantined and
+    ``pilosa_device_health_*`` on ``/metrics``; (d) the plan cleared and
+    the window past, the next Count is the probe — one K2 and one K7
+    launch (the SetBits applied), healed, a staging job started; (e) an
+    injected OOM on the scorer — no retry, counted, the host's scores;
+    (f) a real ``torch.OutOfMemoryError`` (an allocation past the card's
+    memory) classified ``oom``, and a kernel's illegal-address error no
+    device fault (built, not raised); and (g) after every other phase no device
+    fault was classified and no host answer given anywhere in the
+    process, and the phase-5 node's ``/debug/health`` reads healthy.
 
 Exits non-zero when ``torch.cuda.is_available()`` is false, and when the
 port's package is not beside this file.
@@ -3779,11 +3801,13 @@ def topn_and_check(sp, fp, convert, srv, f_planes) -> dict:
 
 # --- Phase 10: the two tutorials (docs/tutorials.md) at the JAX defaults -------
 
-# Star trace (tutorials.md section 1): 2^18 stargazer ids in a random
+# Star trace (tutorials.md section 1): 2^17 stargazer ids in a random
 # permutation, Zipf stars per user, 1% of users starring a contiguous run of
 # repository ids, over 2 slices of repositories; 64 languages, one per
-# repository.
-STAR_USERS = 1 << 18
+# repository.  2^17 stargazers and molecules (a cut for the run's time)
+# must keep ids on both sides of the dense budget of 65,536 rows, so that
+# every tall fragment has its 8 GiB plane tier.
+STAR_USERS = 1 << 17
 STAR_SLICES = 2
 STAR_ZIPF = 2.0
 STAR_MAX = 50_000
@@ -3794,7 +3818,7 @@ STAR_LANGUAGES = 64
 # FP_BITS bits each; FP_NEIGHBORS near-copies of molecule FP_QUERY (half
 # with ids inside the dense budget, half past it) with up to FP_FLIPS bits
 # changed, so the tanimoto query has answers on both tiers.
-MOLECULES = 1 << 18
+MOLECULES = 1 << 17
 FP_POSITIONS = 1024
 FP_BITS = 48
 FP_QUERY = 42
@@ -4865,6 +4889,338 @@ def backup_and_check(fp, te, ds, sp, Server, InternalClient, srv, rng) -> dict:
     return out
 
 
+# Phase 18: device health and the host fallback.
+HEALTH_OPEN_MS = 300.0  # the phase-5 node's quarantine window
+HEALTH_THRESHOLD = 3
+HEALTH_BSI_SLICES = 64  # the small field q (a cut: the index has 954 slices)
+HEALTH_BSI_DEPTH = 8
+HEALTH_QUARANTINE_QUERIES = 3
+
+
+class FallbackWatch:
+    """Every device fault classified and every host answer in this
+    process, counted through ``health.classify`` and the host evaluator's
+    counter: a phase that ends with either count moved was served, in
+    part, by the host."""
+
+    def __init__(self):
+        from pilosa_tpu_torch.device import health
+        from pilosa_tpu_torch.exec import hosteval
+
+        self.faults = self.host = 0
+        classify, count = health.classify, hosteval.HostEvaluator._count
+
+        def watched_classify(exc):
+            kind = classify(exc)
+            self.faults += kind is not None
+            return kind
+
+        def watched_count(ev, what, n=1):
+            self.host += n
+            return count(ev, what, n)
+
+        health.classify = watched_classify
+        hosteval.HostEvaluator._count = watched_count
+        self.mark = (0, 0)
+        self.node_mark: dict[str, int] = {}
+
+    def node_counts(self, srv) -> dict[str, int]:
+        counts = srv.holder.stats.snapshot()["counts"]
+        return {k: int(v) for k, v in counts.items()
+                if k.startswith(("exec.hostEval.queries", "device.launch.retries"))}
+
+    def check(self, phase: str, srv=None) -> None:
+        """(g): nothing fell back in ``phase``; with ``srv`` (the phase-5
+        node, still open) its counters are unmoved and /debug/health reads
+        healthy."""
+        if (self.faults, self.host) != self.mark:
+            raise AssertionError(f"phase {phase}: {self.faults - self.mark[0]} device faults "
+                                 f"classified, {self.host - self.mark[1]} host answers")
+        if srv is None:
+            return
+        if self.node_counts(srv) != self.node_mark:
+            raise AssertionError(f"phase {phase}: the node's fallback counters moved: "
+                                 f"{self.node_counts(srv)} != {self.node_mark}")
+        status, body = http(srv.host, "GET", "/debug/health")
+        dev = body["device"]
+        if status != 200 or dev["degraded"] or any(
+                p["state"] != "healthy" for p in dev["paths"].values()):
+            raise AssertionError(f"phase {phase}: /debug/health {status} {body}")
+
+    def rebase(self, srv) -> None:
+        self.mark = (self.faults, self.host)
+        self.node_mark = self.node_counts(srv)
+
+
+def kernel_counts(kernels: dict, br) -> dict[str, int]:
+    out = {k: m.launches for k, m in kernels.items()}
+    out["k8"] = sum(br.launches.values())
+    return out
+
+
+def counts_delta(before: dict, after: dict) -> dict[str, int]:
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def health_and_check(kernels: dict, br, convert, srv, truth: np.ndarray, rng) -> dict:
+    """Phase 18 on the phase-5 node (``truth`` its frame-f planes): the
+    launch breaker and the host fallback, driven by the fault-injection
+    layer.  (a) one injected error: the Count is answered by K2 after one
+    retry; (b) a fault on every attempt: three Counts walk the card to
+    quarantined, each answered from the host (no K2); (c) while
+    quarantined, Count, Bitmap, TopN, TopN(src) and a BSI comparison and
+    Sum on a small field each equal the oracle with no kernel launched,
+    host p50 against
+    the card's, SetBits that queue on the host, /debug/health and
+    /metrics; (d) the plan cleared and the window past, the next Count is
+    the probe: one K2 launch, one K7 applying (c)'s SetBits, healed,
+    mirrors staged again; (e) an injected OOM on the scorer: no retry,
+    counted; (f) a real ``torch.OutOfMemoryError`` classifies as
+    ``oom``, and a kernel's own fault on the card as none."""
+    import torch
+
+    from pilosa_tpu_torch.device import health as hm
+    from pilosa_tpu_torch.testing import faults
+
+    out: dict = {}
+    h, dh = srv.host, srv.device_health
+    t_start = time.perf_counter()
+    k_start, br_start = kernel_counts(kernels, br), dict(br.launches)
+    if (dh.quarantine_threshold, dh.open_s) != (HEALTH_THRESHOLD, HEALTH_OPEN_MS / 1e3):
+        raise AssertionError(f"phase 18: the node's breaker is {dh.snapshot()}")
+    te, sp, ds = kernels["k2"], kernels["k4"], kernels["k7"]
+
+    def state() -> str:
+        return dh.snapshot()["paths"].get("device:0", {}).get("state", "healthy")
+
+    def host_counts() -> dict[str, int]:
+        return stat_counts(srv, "device.launch.retries", "device.health.heals",
+                           "exec.hostEval.queries[kind:count]", "exec.hostEval.queries[kind:row]",
+                           "exec.hostEval.queries[kind:agg]", "exec.hostEval.queries[kind:topn]",
+                           "device.health.failures[kind:oom]")
+
+    def ask(pql: str, want, what: str):
+        q0 = time.perf_counter()
+        status, body = http(h, "POST", "/index/i/query", pql.encode())
+        took = (time.perf_counter() - q0) * 1e3
+        if status != 200 or body["results"] != [want]:
+            raise AssertionError(f"phase 18 {what}: {pql}: {status} {str(body)[:300]} != "
+                                 f"{str(want)[:300]}")
+        return took
+
+    # The small BSI field q (depth 8) over the first HEALTH_BSI_SLICES slices.
+    for path, body in (("/index/i/frame/hq", b'{"options": {"rangeEnabled": true}}'),
+                       ("/index/i/frame/hq/field/q",
+                        json.dumps({"min": -255, "max": 255}).encode())):
+        status, resp = http(h, "POST", path, body)
+        if status != 200:
+            raise AssertionError(f"phase 18: POST {path}: {status} {resp}")
+    q_planes = bsi_planes(rng, HEALTH_BSI_SLICES, HEALTH_BSI_DEPTH)
+    load_in_threads(convert, [(srv.holder, "i", "hq", "field_q", {s: q_planes[s]})
+                              for s in range(HEALTH_BSI_SLICES)])
+    q_oracle = ValueOracle(q_planes, {})
+
+    def pc(x) -> int:
+        return int(np.bitwise_count(x).sum())
+
+    count_q = "Count(Intersect(Bitmap(frame=f, rowID=0), Bitmap(frame=f, rowID=1)))"
+
+    def count_want() -> int:
+        return pc(truth[:, 0] & truth[:, 1])
+
+    def src_scores():
+        return np.bitwise_count(truth & truth[:, :1]).sum(axis=-1, dtype=np.int64)
+
+    def topn_src(n: int) -> tuple[str, list]:
+        return (f"TopN(Bitmap(frame=f, rowID=0), frame=f, n={n})",
+                topn_oracle(src_scores(), n))
+
+    # Frame g's row 1 (phases 5 and 14 wrote it) from the card, the tree's
+    # frame-f part from numpy.
+    status, body = http(h, "POST", "/index/i/query", b"Bitmap(frame=g, rowID=1)")
+    g_row1 = body["results"][0]["bits"]
+    bitmap_q = "Intersect(Bitmap(frame=g, rowID=1), Bitmap(frame=f, rowID=2))"
+    bitmap_want = {"attrs": {}, "bits": [
+        c for c in g_row1 if (int(truth[c >> 20, 2, (c & 0xFFFFF) >> 5]) >> (c & 31)) & 1]}
+    topn_want = topn_oracle(np.bitwise_count(truth).sum(axis=-1, dtype=np.int64), 5)
+    classes = [
+        ("count", count_q, count_want()),
+        ("bitmap", bitmap_q, bitmap_want),
+        ("topn", "TopN(frame=f, n=5)", topn_want),
+        ("topn_src",) + topn_src(5),
+        ("bsi_count", "Count(Range(frame=hq, q > 17))", q_oracle.count(">", 17)),
+        ("bsi_sum", "Sum(frame=hq, field=q)", q_oracle.agg("Sum")),
+    ]
+    # The card's answers first (each batch and prep built: what a probe
+    # finds cached), and its p50s.  A ranked cache re-sorts at most every
+    # RECALCULATE_INTERVAL_S, so a TopN within that of a write may carry
+    # a count from before it, as in the reference: then ask again later.
+    from pilosa_tpu_torch.core import cache as cache_mod
+
+    status, body = http(h, "POST", "/index/i/query", classes[2][1].encode())
+    if body["results"] != [topn_want]:
+        time.sleep(cache_mod.RECALCULATE_INTERVAL_S)
+    for name, pql, want in classes:
+        ask(pql, want, f"card {name}")
+    card_count = [ask(count_q, count_want(), "card count p50") for _ in range(REPS)]
+    card_topn = [ask(*topn_src(n), "card topn_src p50") for n in range(6, 6 + REPS)]
+    if state() != "healthy" or host_counts()["device.launch.retries"]:
+        raise AssertionError(f"phase 18: not healthy before any fault: {dh.snapshot()}")
+
+    # (a) One injected error: one retry, then K2.
+    base, k0 = host_counts(), kernel_counts(kernels, br)
+    faults.install("device.launch:kind=error,times=1")
+    ask(count_q, count_want(), "(a)")
+    faults.clear()
+    made, c = counts_delta(k0, kernel_counts(kernels, br)), host_counts()
+    if (c["device.launch.retries"] - base["device.launch.retries"], made, state()) != (
+            1, {"k2": 1}, "healthy"):
+        raise AssertionError(f"phase 18 (a): retries {c}, launches {made}, {dh.snapshot()}")
+    out["a"] = {"retries": 1, "launches": made, "state": state()}
+    log(f"phase 18 (a): device.launch:kind=error,times=1 — Count answered by K2 after one "
+        f"retry (launches {made}), path {state()}")
+
+    # (b) Every attempt fails: suspect, suspect, quarantined, all from the host.
+    faults.install("device.launch:kind=error")
+    states = []
+    for i in range(HEALTH_QUARANTINE_QUERIES):
+        before, k0 = host_counts(), kernel_counts(kernels, br)
+        ask(count_q, count_want(), f"(b) {i}")
+        made = counts_delta(k0, kernel_counts(kernels, br))
+        rose = (host_counts()["exec.hostEval.queries[kind:count]"]
+                - before["exec.hostEval.queries[kind:count]"])
+        if made or rose != 1:
+            raise AssertionError(f"phase 18 (b) {i}: launches {made}, host answers {rose}")
+        states.append(state())
+    if states != ["suspect", "suspect", "quarantined"]:
+        raise AssertionError(f"phase 18 (b): states {states}")
+    out["b"] = {"states": states}
+    log(f"phase 18 (b): device.launch:kind=error on every attempt — states {states}, each "
+        "answer the oracle's from the host, no kernel launched")
+
+    # (c) Every class while quarantined (the plan stays: a probe past the
+    # window fails and re-arms the clock).
+    made_by = {}
+    host_ms = {}
+    # A TopN(src) the card never scored: its prep and scores are new.
+    for name, pql, want in classes[:3] + [("topn_src",) + topn_src(3)] + classes[4:]:
+        k0 = kernel_counts(kernels, br)
+        host_ms[name] = ask(pql, want, f"(c) {name}")
+        made_by[name] = counts_delta(k0, kernel_counts(kernels, br))
+        if made_by[name]:
+            raise AssertionError(f"phase 18 (c) {name}: launches {made_by[name]}")
+    host_count = [ask(count_q, count_want(), "host count p50") for _ in range(REPS)]
+    k0 = kernel_counts(kernels, br)
+    host_topn = [ask(*topn_src(n), "host topn_src p50") for n in range(6 + REPS, 6 + 2 * REPS)]
+    made_by["topn_src_p50"] = counts_delta(k0, kernel_counts(kernels, br))
+    if made_by["topn_src_p50"]:
+        raise AssertionError(f"phase 18 (c) TopN(src) p50: launches {made_by['topn_src_p50']}")
+    # SetBits queue on the host: into row 0 where row 1 is set (rows 1-3
+    # stay phase 5's, which later phases read).
+    def bit(row: int, c: int) -> int:
+        return (int(truth[c >> 20, row, (c & 0xFFFFF) >> 5]) >> (c & 31)) & 1
+
+    cols: list[int] = []
+    while len(cols) < 4:
+        c = int(rng.integers(0, N_SLICES << 20))
+        if bit(1, c) and not bit(0, c) and c not in cols:
+            cols.append(c)
+    k0 = kernel_counts(kernels, br)
+    for c in cols:
+        status, body = http(h, "POST", "/index/i/query",
+                            f"SetBit(frame=f, rowID=0, columnID={c})".encode())
+        if status != 200 or body["results"] != [True]:
+            raise AssertionError(f"phase 18 (c) SetBit: {status} {body}")
+    set_bits(truth, np.zeros(len(cols), dtype=np.int64), np.asarray(cols, dtype=np.int64))
+    if counts_delta(k0, kernel_counts(kernels, br)):
+        raise AssertionError("phase 18 (c): a SetBit launched a kernel")
+    status, body = http(h, "GET", "/debug/health")
+    if status != 200 or not body["device"]["degraded"] or \
+            body["device"]["paths"]["device:0"]["state"] != "quarantined":
+        raise AssertionError(f"phase 18 (c): /debug/health {status} {body}")
+    fams = parse_exposition(http_raw(h, "/metrics")[1].decode())
+    metrics = http_raw(h, "/metrics")[1].decode()
+    if not {"pilosa_device_health_state", "pilosa_device_health_degraded",
+            "pilosa_device_watchdogTrips"} <= set(fams) or \
+            'pilosa_device_health_state{path="device:0"} 2' not in metrics:
+        raise AssertionError("phase 18 (c): /metrics lacks the device-health gauges")
+    out["c"] = {"host_ms": host_ms, "launches": made_by, "setbits": len(cols),
+                "health": body["device"]}
+    out["p50_ms"] = {
+        "count_intersect": {"card": statistics.median(card_count),
+                            "host": statistics.median(host_count)},
+        "topn_src": {"card": statistics.median(card_topn), "host": statistics.median(host_topn)},
+    }
+    log(f"phase 18 (c): quarantined — every class equal to the oracle from the host; launches "
+        f"by class {json.dumps(made_by)}; first host answers ms {json.dumps(host_ms)}; "
+        f"p50 of {REPS} at {N_SLICES} "
+        f"slices, card against host: {json.dumps(out['p50_ms'])} ({card_line()}); "
+        f"{len(cols)} SetBits queued on the host, no launch; /debug/health quarantined, "
+        "/metrics carries pilosa_device_health_*")
+
+    # (d) The heal: the next Count after the window is the probe.
+    faults.clear()
+    time.sleep(HEALTH_OPEN_MS / 1e3 + 0.05)
+    job, base, k0 = srv.staging_job, host_counts(), kernel_counts(kernels, br)
+    ask(count_q, count_want(), "(d) probe")
+    made, c = counts_delta(k0, kernel_counts(kernels, br)), host_counts()
+    if (made, state(), c["device.health.heals"] - base["device.health.heals"]) != (
+            {"k2": 1, "k7": 1}, "healthy", 1) or srv.staging_job is job \
+            or srv.cluster.node_by_host(h).degraded:
+        raise AssertionError(f"phase 18 (d): launches {made}, {dh.snapshot()}, counts {c}")
+    out["d"] = {"launches": made, "staged": srv.staging_job.snapshot()}
+    log(f"phase 18 (d): the probe healed the path — launches {made} (K7 applied the "
+        f"{len(cols)} queued SetBits), heals 1, staging again "
+        f"{json.dumps(out['d']['staged'])}")
+
+    # (e) An OOM on the scorer: no retry, one failure, the host's scores.
+    base, k0 = host_counts(), kernel_counts(kernels, br)
+    faults.install("device.launch:kind=oom,path=topn")
+    ask(*topn_src(4), "(e)")
+    faults.clear()
+    made, c = counts_delta(k0, kernel_counts(kernels, br)), host_counts()
+    diff = {k: c[k] - base[k] for k in c if c[k] != base[k]}
+    if state() != "suspect" or "k4" in made or diff != {
+            "device.health.failures[kind:oom]": 1, "exec.hostEval.queries[kind:topn]": 1}:
+        raise AssertionError(f"phase 18 (e): {diff}, launches {made}, {dh.snapshot()}")
+    ask(count_q, count_want(), "(e) after")
+    if state() != "healthy":
+        raise AssertionError(f"phase 18 (e): not healthy after a success: {dh.snapshot()}")
+    out["e"] = {"counts": diff, "launches": made}
+    log(f"phase 18 (e): kind=oom,path=topn — TopN(src) from the host, counts {diff}, no "
+        "retry, path suspect, then healthy after the next Count")
+
+    # (f) A real allocation past the card's free memory.
+    free, total = torch.cuda.mem_get_info()
+    try:
+        torch.empty(total + (1 << 30), dtype=torch.uint8, device="cuda")
+    except Exception as e:  # noqa: BLE001 — classified below
+        kind, err = hm.classify(e), type(e).__name__
+    else:
+        raise AssertionError("phase 18 (f): an allocation past free memory succeeded")
+    torch.cuda.empty_cache()
+    if kind != hm.KIND_OOM:
+        raise AssertionError(f"phase 18 (f): {err} classified as {kind}")
+    # A kernel's own fault leaves the context unusable: never a device
+    # fault, so its query fails instead of moving to the host.  Built
+    # here, not raised by the card, which would poison the run.
+    accel = getattr(torch, "AcceleratorError", RuntimeError)
+    sticky = hm.classify(accel("CUDA error: an illegal memory access was encountered"))
+    if sticky is not None:
+        raise AssertionError(f"phase 18 (f): {accel.__name__} classified as {sticky}")
+    ask(count_q, count_want(), "(f) after")
+    out["f"] = {"error": err, "kind": kind, "asked_bytes": total + (1 << 30), "free": free}
+    log(f"phase 18 (f): torch.empty({total + (1 << 30)} B, the card's memory and 1 GiB) "
+        f"raised {err}, classified {kind!r}; an illegal-address {accel.__name__} classified "
+        "None; the card answers after it")
+    out["launches"] = counts_delta(k_start, kernel_counts(kernels, br))
+    out["k8_launches"] = {k: br.launches[k] - br_start[k] for k in br.launches}
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"phase 18: launches {json.dumps(out['launches'])}, K8 {json.dumps(out['k8_launches'])}; "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
 # The phase functions of ``main``, by phase number: each one's wall-clock
 # seconds go into the run's ``phase seconds`` line.
 PHASES = {
@@ -4880,6 +5236,7 @@ PHASES = {
     "recovery_and_check": "11",
     "residency_and_check": "12",
     "durability_and_check": "13",
+    "health_and_check": "18",
 }
 
 
@@ -4994,11 +5351,18 @@ def main() -> int:
     k5_times = time_k5(ac, bp, tplan, rng56, hbm)
     k23_times = time_k2k3(te, it, tplan, bsi, hbm, np.random.default_rng(SEED + 6))
     k11_times = time_k11(ss, floorprobe, hbm)
+    # From here on, a device fault classified or a host answer anywhere in
+    # the process fails the phase it came in (phase 18 excepted).
+    watch = FallbackWatch()
+    all_kernels = {"k1": fp, "k2": te, "k3": it, "k4": sp, "k5": ac, "k6": ep, "k7": ds}
 
     with tempfile.TemporaryDirectory(prefix="pilosa-torch-smoke-") as data_dir:
         # The stream-floor probe (K11) runs once in this process, at this
         # node's open: its main path.
-        srv = Server(data_dir, host="127.0.0.1:0", device="cuda", stats=ExpvarStatsClient())
+        # A short quarantine window for phase 18: nothing changes while no
+        # fault fires.
+        srv = Server(data_dir, host="127.0.0.1:0", device="cuda", stats=ExpvarStatsClient(),
+                     quarantine_open_ms=HEALTH_OPEN_MS, quarantine_threshold=HEALTH_THRESHOLD)
         ss.launches = 0
         srv.open()
         k11_launches = ss.launches
@@ -5010,24 +5374,36 @@ def main() -> int:
             f"launches: {json.dumps(floorprobe.probe(device='cuda'))}")
         try:
             served = serve_and_check(fp, ds, sp, te, bp, convert, srv, rng)
+            watch.check("5", srv)
             planes = served.pop("planes")
-            truth = planes.copy()  # with phase 5's SetBit, and phase 14's own writes
+            truth = planes.copy()  # with phase 5's SetBit, and phases 14's and 18's writes
             col = served["setbit_col"]
             truth[col >> 20, 0, (col & 0xFFFFF) >> 5] |= np.uint32(1 << (col & 31))
             coalesced = coalesce_and_check(fp, te, it, srv, truth,
                                            np.random.default_rng(SEED + 14))
-            del truth
+            watch.check("14", srv)
             observed = observe_and_check(srv, {"k2": te, "k3": it, "k4": sp, "k5": ac},
                                          coalesced.pop("queries"), hbm,
                                          np.random.default_rng(SEED + 16))
+            watch.check("16", srv)
+            healed = health_and_check(all_kernels, br, convert, srv, truth,
+                                      np.random.default_rng(SEED + 18))
+            del truth
+            watch.rebase(srv)
+            watch.check("18", srv)
             clustered = cluster_and_check(fp, ds, br, sp, te, scatter, convert, Server,
                                           InternalClient, planes, rng)
+            watch.check("6", srv)
             valued = bsi_and_check(fp, ds, br, te, it, scatter, convert, InternalClient, srv,
                                    planes, rng)
+            watch.check("7", srv)
             timed = time_and_check(fp, te, InternalClient, srv, planes, rng)
+            watch.check("8", srv)
             ranked = topn_and_check(sp, fp, convert, srv, planes)
+            watch.check("9", srv)
             backed = backup_and_check(fp, te, ds, sp, Server, InternalClient, srv,
                                       np.random.default_rng(SEED + 17))
+            watch.check("17", srv)
         finally:
             srv.close()
     # Phase 10 serves on a node of its own: the memory of phases 5-9 is freed.
@@ -5042,14 +5418,18 @@ def main() -> int:
                                             np.random.default_rng(SEED + 10))
         finally:
             srv.close()
+        watch.check("10")
         recovery_and_check(Server, ds)
+        watch.check("11")
         # Phase 12 reopens phase 10's directory under a budget, every
         # other node closed.
         del srv
         gc.collect()
         resident = residency_and_check(Server, data_dir, tutorials,
                                        {"k1": fp, "k2": te, "k4": sp, "k5": ac, "k6": ep})
+        watch.check("12")
     durable = durability_and_check(Server, {"k2": te})
+    watch.check("13")
     log(f"phase seconds (native roaring codec loaded): {json.dumps(phase_s)}")
 
     k7 = k7_times[K7_SHAPES[1]]  # every slice's queue in one launch, as phase 7 flushes
@@ -5085,9 +5465,10 @@ def main() -> int:
             "source": ds.SOURCE,
             "replaces": ds.REPLACES,
             "launches": served["k7_launches"] + clustered["k7_launches"] + valued["k7_launches"]
-            + backed["launches"]["k7"],
+            + backed["launches"]["k7"] + healed["launches"].get("k7", 0),
             "launches_by_phase": {"5": served["k7_launches"], "6": clustered["k7_launches"],
-                                  "7": valued["k7_launches"], "17": backed["launches"]["k7"]},
+                                  "7": valued["k7_launches"], "17": backed["launches"]["k7"],
+                                  "18": healed["launches"].get("k7", 0)},
             "max_abs_err": k7_err,
             "ms": k7["ms"],
             "device_ms": k7["device_ms"],
@@ -5111,9 +5492,11 @@ def main() -> int:
             "route": "cuda",
             "source": br.SOURCE,
             "replaces": br.REPLACES[kernel],
-            "launches": clustered["k8_launches"][kernel] + valued["launches"][kernel],
+            "launches": clustered["k8_launches"][kernel] + valued["launches"][kernel]
+            + healed["k8_launches"][kernel],
             "launches_by_phase": {"6": clustered["k8_launches"][kernel],
-                                  "7": valued["launches"][kernel]},
+                                  "7": valued["launches"][kernel],
+                                  "18": healed["k8_launches"][kernel]},
             "max_abs_err": k8_err[kernel],
             "ms": t["ms"],
             "device_ms": t["device_ms"],
@@ -5134,11 +5517,13 @@ def main() -> int:
         "source": sp.SOURCE,
         "replaces": sp.REPLACES,
         "launches": served["k4_launches"] + clustered["k4_launches"] + ranked["k4_launches"]
-        + tutorials["totals"]["k4"] + resident["launches"]["k4"] + backed["launches"]["k4"],
+        + tutorials["totals"]["k4"] + resident["launches"]["k4"] + backed["launches"]["k4"]
+        + healed["launches"].get("k4", 0),
         "launches_by_phase": {"5": served["k4_launches"], "6": clustered["k4_launches"],
                               "9": ranked["k4_launches"], "10": tutorials["totals"]["k4"],
                               "12": resident["launches"]["k4"],
-                              "17": backed["launches"]["k4"]},
+                              "17": backed["launches"]["k4"],
+                              "18": healed["launches"].get("k4", 0)},
         "max_abs_err": k4_err,
         "ms": k4["ms"],
         "device_ms": k4["device_ms"],
@@ -5173,7 +5558,8 @@ def main() -> int:
                    "6": clustered["k2_launches"], "7": valued["k2_launches"],
                    "8": timed["k2_launches"],
                    "10": tutorials["totals"]["k2"], "12": resident["launches"]["k2"],
-                   "13": durable["launches"]["k2"], "17": backed["launches"]["k2"]}
+                   "13": durable["launches"]["k2"], "17": backed["launches"]["k2"],
+                   "18": healed["launches"].get("k2", 0)}
     for kernel, err, times, by_phase, shape in (
         (te, k2_err, k23_times["tree_eval_count"], k2_by_phase, [N_SLICES, 2, "count"]),
         (it, k3_err, k23_times["interp_count"],
@@ -5236,6 +5622,7 @@ def main() -> int:
     log(f"phase 16 (summary): {json.dumps({k: v for k, v in observed.items() if k != 'sites'})}; "
         f"cluster trace {json.dumps(clustered['trace'])}")
     log(f"phase 17 (summary): {json.dumps(backed)}")
+    log(f"phase 18 (summary): {json.dumps(healed)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

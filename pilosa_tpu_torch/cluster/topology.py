@@ -10,7 +10,9 @@ places every slice on the same owners:
   partition id over the sorted node list; replicas are the next
   ``ReplicaN - 1`` nodes around the ring.
 
-The node list is fixed once the cluster is configured.  The versioned
+The node list is fixed once the cluster is configured.  Each node
+carries a ``degraded`` flag (its card quarantined), versioned by
+``health_version`` so routing caches see it flip.  The versioned
 topology of the JAX package (epochs, rebalance transitions, the
 write ring of a resize) is not ported yet: the write owners of a slice
 are its read owners.
@@ -63,6 +65,10 @@ class Node:
     host: str
     internal_host: str = ""
     state: str = NODE_STATE_DOWN
+    # The node is up but its card is quarantined (device/health.py): it
+    # answers correctly from its host planes, slower.  Coordinators
+    # prefer a replica that is not degraded (executor._slices_by_node).
+    degraded: bool = False
 
     def to_dict(self) -> dict:
         return {"host": self.host, "internalHost": self.internal_host}
@@ -81,6 +87,7 @@ class Cluster:
         self.partition_n = partition_n
         self.replica_n = replica_n
         self._mu = threading.Lock()
+        self._health_version = 0
 
     # --- membership ---
 
@@ -115,6 +122,26 @@ class Cluster:
 
     def hosts(self) -> list[str]:
         return [n.host for n in self.nodes]
+
+    @property
+    def health_version(self) -> int:
+        """Replica-health version: bumped whenever a node's degraded flag
+        flips — a key of the slice->node routing cache (JAX
+        ``topology.py:160``)."""
+        return self._health_version
+
+    def note_degraded(self, host: str, degraded: bool) -> bool:
+        """Record a node's degraded flag (from its health manager's state
+        changes; the JAX package's gossip piggyback is not ported).  True
+        when the flag flipped and the health version bumped; an unknown
+        host is ignored."""
+        node = self.node_by_host(host)
+        if node is None or node.degraded == bool(degraded):
+            return False
+        with self._mu:
+            node.degraded = bool(degraded)
+            self._health_version += 1
+        return True
 
     # --- placement (reference: cluster.go:200-258) ---
 

@@ -319,7 +319,7 @@ class SubRef:
     leaves this one — and so ``slots`` — as it was; the reference kept
     here holds its memory until the scorer launch is enqueued."""
 
-    plane: torch.Tensor
+    plane: torch.Tensor | None  # None: prepared for the host scorer
     slots: np.ndarray  # int64 candidate slots in ``plane``
 
 
@@ -1848,15 +1848,16 @@ class Fragment:
             self.score_sparse(st, bp.to_host(src))
         return self.top_finish(st)
 
-    def top_prepare_parts(self, opt: TopOptions | None = None):
+    def top_prepare_parts(self, opt: TopOptions | None = None, host: bool = False):
         """The scoring pass up to the scorer launch (JAX
         ``core/fragment.py:1951``): ``(TopState, SubRef or None, src
         row or None)``, so the executor can score many fragments in one
-        launch."""
+        launch.  ``host``: for the host scorer, touching no card (the
+        SubRef holds no plane, the src row stays where it is)."""
         opt = opt or TopOptions()
         with self._mu:
             ids, cnts = self._top_candidates_arrays(opt.row_ids)
-        return self._top_score_parts(ids, cnts, opt, bool(opt.row_ids))
+        return self._top_score_parts(ids, cnts, opt, bool(opt.row_ids), host)
 
     def top_finish(self, st: TopState) -> list[Pair]:
         """The final selection of a scored pass (JAX
@@ -1904,13 +1905,16 @@ class Fragment:
         cached: np.ndarray,
         opt: TopOptions,
         row_ids_mode: bool,
+        host: bool = False,
     ):
         """A scoring pass without the scorer launch (JAX
         ``core/fragment.py:2074``): ``(TopState, SubRef or None, src row
         or None)``.  ``ids``/``cached`` are the unfiltered candidates in
         count-descending order; ``row_ids_mode`` returns every scored
         row (n applies only to cache candidates, reference:
-        fragment.go:516)."""
+        fragment.go:516).  ``host``: the slots come from the host plane's
+        slot map (the mirror's layout) and no mirror is read, so a
+        quarantined card is not touched."""
         n = 0 if row_ids_mode else opt.n
         ids, cached, tanimoto, src_count = self._filter_arrays(ids, cached, opt)
         empty = TopState(done_ids=self._EMPTY_I64, done_cnts=self._EMPTY_I64)
@@ -1924,7 +1928,10 @@ class Fragment:
         if not len(ids) or src is None:
             return empty, None, None
         with self._mu:
-            plane, slots = self.device_slots(ids)
+            if host:
+                plane, slots = None, [self._slot_of.get(r, -1) for r in ids]
+            else:
+                plane, slots = self.device_slots(ids)
             slots = np.asarray(slots, dtype=np.int64)
             dense_pos = np.flatnonzero(slots >= 0)
             # Sparse candidates (the low-count tail) are scored on the host
@@ -1948,7 +1955,7 @@ class Fragment:
             src_count=src_count,
             min_threshold=opt.min_threshold,
         )
-        return st, sub, src.to(plane.device).contiguous()
+        return st, sub, src if host else src.to(plane.device).contiguous()
 
     @staticmethod
     def score_sparse(st: TopState, src_words: np.ndarray) -> None:
@@ -1997,10 +2004,11 @@ class Fragment:
         cand_ids: np.ndarray,
         cand_cnts: np.ndarray,
         opt: TopOptions,
+        host: bool = False,
     ):
         """The folded TopN's union scoring pass without the scorer
         launch (JAX ``core/fragment.py:2268``): as
-        ``top_prepare_parts(replace(opt, row_ids=union))``, reusing the
+        ``top_prepare_parts(replace(opt, row_ids=union), host)``, reusing the
         already-listed candidates and resolving counts only for the
         union ids this slice did not list.  ``union_ids`` is unique."""
         with self._mu:
@@ -2012,7 +2020,7 @@ class Fragment:
         all_ids = np.concatenate([cand_ids, foreign[fm]])
         all_cnts = np.concatenate([cand_cnts, f_cnts[fm]])
         order = np.lexsort((all_ids, -all_cnts))
-        return self._top_score_parts(all_ids[order], all_cnts[order], opt, row_ids_mode=True)
+        return self._top_score_parts(all_ids[order], all_cnts[order], opt, True, host)
 
     def _filter_arrays(
         self, ids: np.ndarray, cnts: np.ndarray, opt: TopOptions

@@ -97,6 +97,22 @@ already waits for its result; no site adds a synchronize.  Map legs run on
 the executor's pool inside a copy of the submitting context, so their
 spans join the query's trace.
 
+Device health (JAX ``executor.py:1325-1390``): every launch site of a
+read — the Count, Bitmap and BSI aggregate routes and the TopN scorer —
+first asks the card's breaker (``device/health.py``).  A quarantined card
+answers from the host planes (``exec/hosteval.py``, byte for byte) before
+any batch is built, so those routes launch nothing, and the TopN src tree
+is evaluated on the host; the TopN prep still applies queued writes to
+the mirrors it reads (K7), as the JAX prep does.  A launch that fails
+with a device fault (``health.classify``; any other exception re-raises)
+is retried once when it was a transient ``error``, counted against the
+breaker, and answered from the host; a coalesced waiter fails over on its
+own.  The anchored K5 Count runs only on a healthy card: a half-open
+probe goes through the guarded batch launch.  Writes during a quarantine
+queue on the host as ever, and the first read after the heal applies
+them.  Coordinators prefer a replica whose card is not quarantined
+(``_slices_by_node``).
+
 Replication quorums of the JAX executor are not ported yet.
 """
 
@@ -127,7 +143,9 @@ from pilosa_tpu_torch.core.bitmap import RowBitmap
 from pilosa_tpu_torch.core.cache import Pair
 from pilosa_tpu_torch.core.fragment import Fragment, SubRef, TopOptions, apply_pending_many
 from pilosa_tpu_torch.core.view import VIEW_INVERSE, VIEW_STANDARD
+from pilosa_tpu_torch.device import health as health_mod
 from pilosa_tpu_torch.exec import coalesce as coalesce_mod
+from pilosa_tpu_torch.exec import hosteval as hosteval_mod
 from pilosa_tpu_torch.exec import plan
 from pilosa_tpu_torch.net.client import is_node_failure
 from pilosa_tpu_torch.obs import perf as perf_mod
@@ -136,6 +154,7 @@ from pilosa_tpu_torch.ops import bitplane as bp
 from pilosa_tpu_torch.ops import bsi_ripple, expand_payload, score_planes
 from pilosa_tpu_torch.ops.tree_eval import RowTable
 from pilosa_tpu_torch.pql.parser import TIME_FORMAT, Call, Query
+from pilosa_tpu_torch.testing import faults
 
 # reference: executor.go:33-40
 DEFAULT_FRAME = "general"
@@ -187,6 +206,17 @@ class ExecOptions:
     of another node's query — run it on the local slices only."""
 
     remote: bool = False
+
+
+class _NoLaunch:
+    """A gated leg's answer made without a launch (no slice held a leaf
+    row, or a TopN took its scores from the prep cache): the health gate
+    records neither a success nor a failure for it."""
+
+    __slots__ = ("value",)
+
+    def __init__(self, value):
+        self.value = value
 
 
 @dataclass
@@ -267,7 +297,7 @@ class _TopnEntry:
         """The entry of one ``Executor._topn_folded_build`` result."""
         kind = "empty" if built is None else "two_phase" if built == "two_phase" else "parts"
         parts, storages = [], {}
-        for frag, topt, cand_ids, cand_mask, (st, sub, src, slot) in (
+        for frag, topt, cand_ids, cand_mask, (st, sub, src, slot, _) in (
                 built if kind == "parts" else ()):
             ref = None if sub is None else weakref.ref(sub.plane)
             if src is not None:
@@ -280,7 +310,7 @@ class _TopnEntry:
 
     def query_parts(self) -> list | None:
         """One query's parts — ``(frag, topt, cand_ids, cand_mask, (state,
-        SubRef or None, src, src slot))``, each state a fresh copy — or
+        SubRef or None, src, src slot, frag))``, each state a fresh copy — or
         None when a mirror the entry names was freed (the entry is
         stale)."""
         out = []
@@ -292,7 +322,7 @@ class _TopnEntry:
                     return None
                 sub = SubRef(plane, slots)
             out.append((frag, topt, cand_ids, cand_mask,
-                        (replace(st, counts=None, sparse_cnt=None), sub, src, slot)))
+                        (replace(st, counts=None, sparse_cnt=None), sub, src, slot, frag)))
         return out
 
 
@@ -350,6 +380,7 @@ class Executor:
         ingest=None,
         coalescer=None,
         tracer=None,
+        device_health=None,
     ):
         self.holder = holder
         # Query-path spans (obs/trace.py); the server wires its tracer.
@@ -366,6 +397,17 @@ class Executor:
         self.cluster = cluster if cluster is not None else Cluster()
         self.host = host
         self.client_factory = client_factory
+        # The card's breaker (device/health.py): every launch site of the
+        # query path asks it first, and a failed launch drives it.  The
+        # server wires its own (shared with /debug/health); a bare
+        # executor builds and owns a default one (JAX executor.py:352).
+        self._owns_health = device_health is None
+        self.device_health = device_health or health_mod.DeviceHealth(
+            stats=getattr(holder, "stats", None), device=getattr(holder, "device", None)
+        )
+        # What answers while the card is quarantined or a launch failed:
+        # the host planes, byte for byte (exec/hosteval.py).
+        self.hosteval = hosteval_mod.HostEvaluator(self)
         self._zero_rows: dict[torch.device, torch.Tensor] = {}
         self._zero_mu = threading.Lock()
         # (value, bucket, device) -> a packed BSI predicate row on the device.
@@ -389,6 +431,8 @@ class Executor:
     def close(self) -> None:
         fragment_mod.unregister_close_listener(self._drop_closed_fragment)
         self._pool.shutdown(wait=False, cancel_futures=True)
+        if self._owns_health:
+            self.device_health.close()
         # A closed executor's entries stop counting as resident.
         with self._batch_mu:
             keys = list(self._batch_cache)
@@ -434,7 +478,8 @@ class Executor:
             inverse_slices = list(range(idx.max_inverse_slice() + 1))
             column_label = idx.column_label
             computed_lists = True
-        if self.prefetcher is not None and slices:
+        # No uploads to a quarantined card: the heal stages the mirrors.
+        if self.prefetcher is not None and slices and not self.device_health.denied():
             self._prefetch_query(index, q.calls, slices)
         results = []
         for call in q.calls:
@@ -760,6 +805,44 @@ class Executor:
                 inputs.append(None)
         return inputs, kept
 
+    @staticmethod
+    def _views_row_host(views: list, row_id: int, slice_i: int):
+        """The union of the row over ``views`` in one slice, from the
+        host planes: uint32 words, or None when no view has the row."""
+        acc = None
+        for view in views:
+            frag = view.fragment(slice_i) if view is not None else None
+            row = frag.row_words_host(row_id) if frag is not None else None
+            if row is not None:
+                acc = row if acc is None else (acc | row)
+        return acc
+
+    def _leaf_row_host(self, index: str, c: Call, slice_i: int, target: tuple | None = None):
+        """Host (numpy) variant of one leaf's row in one slice (JAX
+        ``executor.py:907,928``): uint32 words, or None when the row has no
+        bits — a time Range leaf's the union over its views.  ``target`` is
+        the leaf's ``_leaf_targets`` entry, resolved once by a caller that
+        walks many slices."""
+        kind, views, row_id, ctx = target or self._leaf_targets(index, [c])[0]
+        if kind == "pred":
+            return bsi.pred_row(row_id, ctx[2])
+        if kind == "zero":
+            return None
+        return self._views_row_host(views, row_id, slice_i)
+
+    def _eval_tree_slices_host(self, index: str, c: Call, slices: list[int]) -> dict:
+        """HOST (numpy) evaluation of a bitmap tree per slice (JAX
+        ``executor.py:1612``): ``{slice: uint32 words or None}``; reads the
+        host planes only."""
+        expr, leaves = plan.decompose(self._rewrite_bsi(index, c))
+        targets = self._leaf_targets(index, leaves)
+        return {
+            s: plan.eval_expr_np(expr, [self._leaf_row_host(index, leaf, s, t)
+                                        for leaf, t in zip(leaves, targets)],
+                                 bp.WORDS_PER_SLICE)
+            for s in slices
+        }
+
     # ------------------------------------------------------------------
     # BSI rewrite — Range(field > x) / Sum / Min / Max expansion
     # (JAX executor.py:797-905)
@@ -868,7 +951,7 @@ class Executor:
 
         def map_fn(local_slices: list[int]) -> RowBitmap:
             out = RowBitmap(self.holder.device)
-            kept, rows = self._eval_tree_slices(index, rc, expr, leaves, local_slices, "row")
+            kept, rows = self._eval_tree_slices(index, rc, expr, leaves, local_slices)
             for i, s in enumerate(kept):
                 out.set_segment(s, rows[i])
             return out
@@ -923,51 +1006,163 @@ class Executor:
         (``executor.py:1804``): the anchored K5 Count first, then the
         cached batch through the coalescer ("count" partials, summed
         here in int64), else one direct K2 launch with the "total"
-        reduce."""
+        reduce.  All of it runs under the health gate: a quarantined
+        card has the host planes answer, and no batch is built (its
+        build would launch K7 and K6)."""
         if not slices or not leaves:
             return 0
-        anchored = self._try_anchored_count(index, expr, leaves, slices)
-        if anchored is not None:
-            return anchored
-        ent, table = self._cached_batch(index, c, expr, leaves, slices)
-        if table is None:
-            return 0
-        with device_mod.pool().pinned(*ent.pin_keys):
-            if self.coalescer is not None:
-                res = self._coalesce_eval(ent, table, "count")
-                if res is not None:
-                    return int(np.asarray(res).sum(dtype=np.int64))
-            with self._device_span("total"):
-                t0 = time.monotonic()
-                out = self._direct_eval(ent, table, "total")
-                t_disp = time.monotonic()
-                n = int(out.cpu()[0])
-                self._record_direct_launch(table, "total", t0, t_disp, time.monotonic(), "total")
-            return n
+        got: list = []
+
+        def launch(mode: str, retry: bool = False):
+            if not got:
+                if mode == health_mod.MODE_OK and not retry:
+                    # A granted probe must resolve through a fault-checked
+                    # launch.
+                    anchored = self._try_anchored_count(index, expr, leaves, slices)
+                    if anchored is not None:
+                        return anchored
+                got.append(self._cached_batch(index, c, expr, leaves, slices))
+            ent, table = got[0]
+            if table is None:
+                return _NoLaunch(0)
+            with device_mod.pool().pinned(*ent.pin_keys):
+                if self.coalescer is not None and not retry:
+                    res = self._coalesce_eval(ent, table, "count")
+                    if res is not None:
+                        return int(np.asarray(res).sum(dtype=np.int64))
+                with self._device_span("total"):
+                    self._fault_check_launch("direct")
+                    t0 = time.monotonic()
+                    out = self._direct_eval(ent, table, "total")
+                    t_disp = time.monotonic()
+                    n = int(out.cpu()[0])
+                    self._record_direct_launch(table, "total", t0, t_disp, time.monotonic(),
+                                               "total")
+                return n
+
+        return self._launch_guarded(
+            launch, retry_fn=functools.partial(launch, retry=True),
+            host_fn=lambda: self.hosteval.count_total(index, c, self._host_slices(got, slices)))
 
     def _eval_tree_slices(self, index: str, c: Call, expr: tuple, leaves: list[Call],
-                          slices: list[int], reduce: str):
-        """``(kept, results)``: a bitmap tree's reduce over the local
+                          slices: list[int]):
+        """``(kept, rows)``: a bitmap tree's result rows over the local
         slices where some leaf row exists (JAX ``executor.py:1521``) —
         the cached batch through the coalescer, else one direct K2
-        launch; ``results[i]`` is slice ``kept[i]``'s."""
+        launch; ``rows[i]`` is slice ``kept[i]``'s.  From the host, the
+        slices with a non-empty result and their rows on the CPU."""
         if not slices or not leaves:
             return [], None
-        ent, table = self._cached_batch(index, c, expr, leaves, slices)
-        if table is None:
-            return [], None
-        with device_mod.pool().pinned(*ent.pin_keys):
-            if self.coalescer is not None:
-                res = self._coalesce_eval(ent, table, reduce)
-                if res is not None:
-                    return ent.kept, res
-            with self._device_span(reduce):
-                t0 = time.monotonic()
-                out = self._direct_eval(ent, table, reduce)
-                # The result rows stay on the card: nothing waits for the
-                # launch here, so its time is not observed (total_ms 0).
-                self._record_direct_launch(table, reduce, t0, time.monotonic(), t0)
-            return ent.kept, out
+        got: list = []
+
+        def launch(mode: str, retry: bool = False):
+            if not got:
+                got.append(self._cached_batch(index, c, expr, leaves, slices))
+            ent, table = got[0]
+            if table is None:
+                return _NoLaunch(([], None))
+            with device_mod.pool().pinned(*ent.pin_keys):
+                if self.coalescer is not None and not retry:
+                    res = self._coalesce_eval(ent, table, "row")
+                    if res is not None:
+                        return ent.kept, res
+                with self._device_span("row"):
+                    self._fault_check_launch("direct")
+                    t0 = time.monotonic()
+                    out = self._direct_eval(ent, table, "row")
+                    # The result rows stay on the card: nothing waits for
+                    # the launch here, so its time is not observed
+                    # (total_ms 0).
+                    self._record_direct_launch(table, "row", t0, time.monotonic(), t0)
+                return ent.kept, out
+
+        return self._launch_guarded(
+            launch, retry_fn=functools.partial(launch, retry=True),
+            host_fn=lambda: self._host_rows(index, c, self._host_slices(got, slices)))
+
+    @staticmethod
+    def _host_slices(got: list, slices: list[int]) -> list[int]:
+        """The slices a host answer walks: the batch's kept ones when the
+        batch was built before the launch failed, else all of them (the
+        others hold no leaf row, so the answer is the same)."""
+        return got[0][0].kept if got else slices
+
+    def _host_rows(self, index: str, c: Call, slices: list[int]):
+        """The "row" answer of ``_eval_tree_slices`` from the host
+        evaluator: the slices with a non-empty result and their rows as
+        CPU tensors."""
+        rows = {s: r for s, r in self.hosteval.rows(index, c, slices).items() if r is not None}
+        return list(rows), [torch.from_numpy(r.view(np.int32)) for r in rows.values()]
+
+    def _fault_check_launch(self, site: str) -> None:
+        """Chaos hook at a launch site (testing/faults.py), fired once per
+        participating device so a rule can target one device (JAX
+        ``executor.py:1325``).  The exception is annotated with the
+        matched ordinal, letting the health layer narrow the blame to
+        that device's path."""
+        host = self.host or None
+        for i in range(len(self.device_health.device_paths())):
+            try:
+                faults.check("device.launch", host=host, path=site, device=i)
+            except Exception as e:
+                if getattr(e, "fault_device", None) is None:
+                    try:
+                        e.fault_device = i
+                    except Exception:  # noqa: BLE001 — slots-only exceptions
+                        pass
+                raise
+
+    def _launch_guarded(self, device_fn, retry_fn, host_fn):
+        """Run one query leg's card work under the health gate (JAX
+        ``executor.py:1345``).  Admission first: a denied card answers
+        through ``host_fn`` (the host evaluator, byte for byte) and the
+        leg touches no card.  Otherwise ``device_fn(mode)`` runs all of
+        the leg's card work — its preparation (queued writes, uploads,
+        batch tables) as well as its launch — so a failure anywhere in it
+        is classified (``health.classify``): a device fault is retried
+        ONCE through ``retry_fn(mode)`` when it is an ``error`` and not a
+        probe, drives the breaker, and has ``host_fn`` answer; anything
+        else re-raises unchanged, after releasing a granted probe, so
+        that a broken kernel fails its query loudly and never leaves the
+        node on the host.  A result wrapped in :class:`_NoLaunch` made no
+        launch: it resolves neither way (a probe is released)."""
+        health = self.device_health
+        paths = health.device_paths()
+        mode = health.acquire(paths)
+        if mode == health_mod.MODE_DENY:
+            return host_fn()
+        probe = mode == health_mod.MODE_PROBE
+
+        def run(fn):
+            try:
+                return fn(mode), None
+            except Exception as e:
+                kind = health_mod.classify(e)
+                if kind is None:
+                    if probe:
+                        health.cancel_probe(paths)
+                    raise
+                return None, (kind, getattr(e, "fault_device", None))
+
+        res, fault = run(device_fn)
+        if fault is not None and fault[0] == health_mod.KIND_ERROR and not probe \
+                and retry_fn is not None:
+            # One glitch must not start the quarantine clock.
+            self.holder.stats.count("device.launch.retries")
+            res, again = run(retry_fn)
+            if again is not None:
+                fault = (again[0], again[1] if again[1] is not None else fault[1])
+            else:
+                fault = None
+        if fault is not None:
+            health.failure(paths, fault[0], probe=probe, device=fault[1])
+            return host_fn()
+        if isinstance(res, _NoLaunch):
+            if probe:
+                health.cancel_probe(paths)
+            return res.value
+        health.success(paths, probe=probe)
+        return res
 
     def _device_span(self, reduce: str):
         """The ``exec.device`` span of a direct launch (JAX
@@ -1000,6 +1195,10 @@ class Executor:
         The caller's pin lease stays open until the future resolves.  A
         waiter that times out detaches; the launch still serves the
         others."""
+        # Chaos hook: an injected fault here surfaces as a coalesced launch
+        # error would — the waiter's guard classifies it and fails over on
+        # its own, never poisoning the shared launch (JAX executor.py:1450).
+        self._fault_check_launch("coalesce")
         with self.tracer.span("coalesce", reduce=reduce, warm=True) as sp:
             try:
                 fut = self.coalescer.submit(
@@ -1573,12 +1772,26 @@ class Executor:
             # coalescer.
             if not local_slices:
                 return None
-            ent, table = self._cached_batch(index, rc, expr, leaves, local_slices)
-            if table is None:
+            # The health gate as at the Count route (JAX executor.py:2143).
+            got: list = []
+
+            def launch(mode: str, retry: bool = False):
+                if not got:
+                    got.append(self._cached_batch(index, rc, expr, leaves, local_slices))
+                ent, table = got[0]
+                if table is None:
+                    return _NoLaunch(None)
+                with device_mod.pool().pinned(*ent.pin_keys), self._device_span("agg"):
+                    self._fault_check_launch("direct")
+                    return plan.agg_vectors(expr, self._entry_inputs(ent, table)).cpu().numpy()
+
+            res = self._launch_guarded(
+                launch, retry_fn=functools.partial(launch, retry=True),
+                host_fn=lambda: self.hosteval.agg_partials(
+                    index, rc, self._host_slices(got, local_slices)))
+            if res is None:
                 return None
-            with device_mod.pool().pinned(*ent.pin_keys):
-                with self._device_span("agg"):
-                    vecs = plan.agg_vectors(expr, self._entry_inputs(ent, table)).cpu().numpy()
+            vecs = res.values() if isinstance(res, dict) else res
             return self._decode_agg_parts(c, bucket, vecs)
 
         def reduce_fn(prev, v):
@@ -1687,40 +1900,21 @@ class Executor:
         self, index: str, c: Call, slices: list[int], opt: ExecOptions
     ) -> list[Pair]:
         def map_fn(local_slices: list[int]) -> list[Pair]:
-            # Two passes: prepare every local fragment, then score them
-            # all in one launch with one fetch (a round trip per node and
-            # phase, however many slices it owns), then merge.
             local_slices = self._existing_topn_slices(index, c, local_slices)
             if len(c.children) > 1:
                 raise ExecutorError("TopN() can only have one input bitmap")
-            srcs = self._topn_srcs(index, c, local_slices) if c.children else None
-            view, template = self._topn_view(index, c), self._topn_template(c)
-            self_src = self._topn_self_src(index, c)
-            if view is not None:
-                apply_pending_many(view.fragment(s) for s in local_slices)
-            states = []
-            for s in local_slices:
-                prep = self._topn_options_for_slice(view, s, template, srcs)
-                if prep is None:
-                    continue
-                frag, topt = prep
-                states.append((frag, frag.top_prepare_parts(topt)))
-            scored = [self._attach_dev_src(frag, part, self_src) for frag, part in states]
-            self._score_topn_parts(scored)
-            self._score_topn_sparse(scored)
-            parts = []
-            for frag, (st, _, _) in states:
-                ids, cnts, keep, short = frag.top_score_arrays(st)
-                if not short:
-                    ids, cnts = ids[keep], cnts[keep]
-                    if st.n and st.n < len(ids):
-                        order = np.lexsort((ids, -cnts))[: st.n]
-                        ids, cnts = ids[order], cnts[order]
-                parts.append((ids, cnts))
-            merged = merge_counts_by_id(parts)
-            if merged is None:
-                return []
-            return [Pair(int(i), int(cnt)) for i, cnt in zip(*merged)]
+            if not c.children or not local_slices:
+                # Without a src the cached counts answer: no card work.
+                return self._topn_slices_leg(index, c, local_slices, host=False)[0]
+            # With one: its evaluation, the queued writes, the prep and the
+            # scorer under ONE admission to the card.
+            def launch(mode: str):
+                pairs, launched = self._topn_slices_leg(index, c, local_slices, host=False)
+                return pairs if launched else _NoLaunch(pairs)
+
+            return self._launch_guarded(
+                launch, retry_fn=launch,
+                host_fn=lambda: self._topn_slices_leg(index, c, local_slices, host=True)[0])
 
         pairs = self._map_reduce(
             index, slices, c, opt, map_fn,
@@ -1730,46 +1924,97 @@ class Executor:
         )
         return cache_mod.sort_pairs(pairs or [])
 
-    def _score_topn_parts(self, parts) -> None:
+    def _topn_slices_leg(self, index: str, c: Call, local_slices: list[int],
+                         host: bool) -> tuple[list[Pair], bool]:
+        """One TopN map leg over its local slices, and whether its scorer
+        launched on the card: prepare every local fragment, score them all
+        in one launch with one fetch (a round trip per node and phase,
+        however many slices it owns), then merge.  ``host``: the src tree,
+        the prep and the scores come from the host planes, and no card is
+        touched."""
+        srcs = self._topn_srcs(index, c, local_slices, host) if c.children else None
+        view, template = self._topn_view(index, c), self._topn_template(c)
+        self_src = self._topn_self_src(index, c)
+        if view is not None and srcs is not None and not host:
+            apply_pending_many(view.fragment(s) for s in local_slices)
+        states = []
+        for s in local_slices:
+            prep = self._topn_options_for_slice(view, s, template, srcs)
+            if prep is None:
+                continue
+            frag, topt = prep
+            states.append((frag, frag.top_prepare_parts(topt, host)))
+        scored = [self._attach_dev_src(frag, part, self_src) for frag, part in states]
+        launched = self._score_topn_parts(scored, host)
+        self._score_topn_sparse(scored)
+        parts = []
+        for frag, (st, _, _) in states:
+            ids, cnts, keep, short = frag.top_score_arrays(st)
+            if not short:
+                ids, cnts = ids[keep], cnts[keep]
+                if st.n and st.n < len(ids):
+                    order = np.lexsort((ids, -cnts))[: st.n]
+                    ids, cnts = ids[order], cnts[order]
+            parts.append((ids, cnts))
+        merged = merge_counts_by_id(parts)
+        if merged is None:
+            return [], launched
+        return [Pair(int(i), int(cnt)) for i, cnt in zip(*merged)], launched
+
+    def _score_topn_parts(self, parts, host: bool) -> bool:
         """Score the parts — ``(TopState, SubRef or None, src row, src
-        slot or None)`` — of every fragment with a SubRef in ONE launch
-        of the cross-fragment scorer and fetch the scores in one copy,
-        filling each ``TopState.counts`` (JAX ``executor.py:2281``).
-        The candidate and src rows are read in place: a fragment's src
-        is its own mirror's row when ``src slot`` is set, else the row
-        its src tree was evaluated into.  Only the slot lists are
-        ragged; they pad with -1."""
+        slot or None, fragment)`` — of every fragment with a SubRef in ONE
+        launch of the cross-fragment scorer and fetch the scores in one
+        copy, filling each ``TopState.counts`` (JAX ``executor.py:2281``);
+        True when it launched.  The candidate and src rows are read in
+        place: a fragment's src is its own mirror's row when ``src slot``
+        is set, else the row its src tree was evaluated into.  Only the
+        slot lists are ragged; they pad with -1.  ``host``: the host fills
+        the same vectors from the fragments' host rows.  The caller holds
+        the health gate's admission (``_launch_guarded``)."""
         live = [p for p in parts if p[1] is not None]
+        if not live:
+            return False
+        if host:
+            self.hosteval.score_topn_parts(live)
+            return False
+        self._fault_check_launch("topn")
         for lo in range(0, len(live), score_planes.MAX_FRAGMENTS):
-            group = live[lo : lo + score_planes.MAX_FRAGMENTS]
-            t0 = time.monotonic()
-            with self.tracer.span("topn.dispatch", groups=1):
-                slots = np.full((len(group), max(len(p[1].slots) for p in group)), -1, np.int64)
-                for i, (_, sub, _, _) in enumerate(group):
-                    slots[i, : len(sub.slots)] = sub.slots
-                srcs = [src if slot is None else sub.plane[slot] for _, sub, src, slot in group]
-                out = score_planes.score_planes([sub.plane for _, sub, _, _ in group], slots, srcs)
-            t_disp = time.monotonic()
-            with self.tracer.span("topn.fetch", arrays=1):
-                (scores,) = self._shared_fetch([out])
-            for (st, sub, _, _), row in zip(group, scores):
-                st.counts = row[: len(sub.slots)]
-            if perf_mod.enabled():
-                # Logical: each fragment's whole plane snapshot, as the
-                # JAX scorer streams it (executor.py:2367); effective: the
-                # candidate rows and the src row K4 reads, once each.
-                row_bytes = bp.WORDS_PER_SLICE * 4
-                perf_mod.record_launch(
-                    "topn",
-                    reduce="topn",
-                    rows=sum(int(sub.plane.shape[0]) for _, sub, _, _ in group),
-                    n_bytes=sum(perf_mod.plane_bytes(int(sub.plane.shape[0]), bp.WORDS_PER_SLICE)
-                                for _, sub, _, _ in group),
-                    eff_bytes=sum((len(sub.slots) + 1) * row_bytes for _, sub, _, _ in group),
-                    dispatch_ms=(t_disp - t0) * 1e3,
-                    total_ms=(time.monotonic() - t0) * 1e3,
-                    trace_id=perf_mod.current_trace_id(),
-                )
+            self._score_topn_group(live[lo : lo + score_planes.MAX_FRAGMENTS])
+        return True
+
+    def _score_topn_group(self, group: list) -> None:
+        """One K4 launch over at most ``MAX_FRAGMENTS`` parts, and its
+        fetch."""
+        subs = [p[1] for p in group]
+        t0 = time.monotonic()
+        with self.tracer.span("topn.dispatch", groups=1):
+            slots = np.full((len(group), max(len(sub.slots) for sub in subs)), -1, np.int64)
+            for i, sub in enumerate(subs):
+                slots[i, : len(sub.slots)] = sub.slots
+            srcs = [src if slot is None else sub.plane[slot] for _, sub, src, slot, _ in group]
+            out = score_planes.score_planes([sub.plane for sub in subs], slots, srcs)
+        t_disp = time.monotonic()
+        with self.tracer.span("topn.fetch", arrays=1):
+            (scores,) = self._shared_fetch([out])
+        for (st, sub, *_), row in zip(group, scores):
+            st.counts = row[: len(sub.slots)]
+        if perf_mod.enabled():
+            # Logical: each fragment's whole plane snapshot, as the
+            # JAX scorer streams it (executor.py:2367); effective: the
+            # candidate rows and the src row K4 reads, once each.
+            row_bytes = bp.WORDS_PER_SLICE * 4
+            perf_mod.record_launch(
+                "topn",
+                reduce="topn",
+                rows=sum(int(sub.plane.shape[0]) for sub in subs),
+                n_bytes=sum(perf_mod.plane_bytes(int(sub.plane.shape[0]), bp.WORDS_PER_SLICE)
+                            for sub in subs),
+                eff_bytes=sum((len(sub.slots) + 1) * row_bytes for sub in subs),
+                dispatch_ms=(t_disp - t0) * 1e3,
+                total_ms=(time.monotonic() - t0) * 1e3,
+                trace_id=perf_mod.current_trace_id(),
+            )
 
     @staticmethod
     def _score_topn_sparse(parts) -> None:
@@ -1780,8 +2025,8 @@ class Executor:
         live = [p for p in parts if p[0].sparse_pos is not None and len(p[0].sparse_pos)]
         if not live:
             return
-        words = bp.to_host(torch.stack([src for _, _, src, _ in live]))
-        for (st, _, _, _), w in zip(live, words):
+        words = bp.to_host(torch.stack([p[2] for p in live]))
+        for (st, *_), w in zip(live, words):
             Fragment.score_sparse(st, w)
 
     def _topn_self_src(self, index: str, c: Call):
@@ -1803,20 +2048,32 @@ class Executor:
         same fragment and the mirror is still the one the prepare
         captured — a structural write since then may have moved the
         rows.  Otherwise the slot is None and the scorer reads the
-        evaluated src row."""
+        evaluated src row.  The fragment comes last, for the host
+        scorer."""
         st, sub, src = part
         slot = None
-        if sub is not None and self_src is not None:
+        if sub is not None and sub.plane is not None and self_src is not None:
             view, row_id = self_src
             if view is not None and view.fragment(frag.slice) is frag:
                 slot = frag.slot_in(row_id, sub.plane)
-        return st, sub, src, slot
+        return st, sub, src, slot, frag
 
-    def _topn_srcs(self, index: str, c: Call, slices: list[int]) -> dict[int, RowBitmap]:
+    def _topn_srcs(self, index: str, c: Call, slices: list[int],
+                   host: bool) -> dict[int, RowBitmap]:
         """The src tree's row per slice as one-segment RowBitmaps, folded
         on the device like a Bitmap() call; slices without a row are
         absent (an empty src there).  A tanimoto selection needs each
-        row's count: all of them come from one row-popcount launch."""
+        row's count: all of them come from one row-popcount launch.
+        ``host``: the host planes evaluate the tree instead (as the JAX
+        package always does, ``executor.py:1612``), into CPU segments."""
+        if host:
+            return {
+                s: RowBitmap.from_segment(s, torch.from_numpy(r.view(np.int32)),
+                                          hosteval_mod.popcount_words(r),
+                                          device=self.holder.device)
+                for s, r in self._eval_tree_slices_host(index, c.children[0], slices).items()
+                if r is not None
+            }
         expr, leaves = plan.decompose(self._rewrite_bsi(index, c.children[0]))
         inputs, kept = self.leaf_stacks(index, leaves, slices)
         if not kept:
@@ -1879,12 +2136,12 @@ class Executor:
             src = srcs.get(slice_i) or RowBitmap(self.holder.device)
         return frag, replace(template, src=src)
 
-    def _topn_folded_build(self, index: str, c: Call, slices: list[int]):
+    def _topn_folded_build(self, index: str, c: Call, slices: list[int], host: bool = False):
         """The folded TopN's prep (JAX ``executor.py:2611``): None when
         nothing can score, ``"two_phase"`` when the union guard trips,
-        else ``[(frag, topt, cand_ids, cand_mask, (st, sub, src)),
-        ...]``, the union scoring pass of every slice, not yet
-        scored."""
+        else ``[(frag, topt, cand_ids, cand_mask, (st, sub, src, src slot,
+        frag)), ...]``, the union scoring pass of every slice, not yet
+        scored.  ``host``: for the host scorer, touching no card."""
         slices = self._existing_topn_slices(index, c, slices)
         view, template = self._topn_view(index, c), self._topn_template(c)
         # Pass 1 (host only): each slice's candidates without the src —
@@ -1907,7 +2164,7 @@ class Executor:
         if len(union) > max(2 * max_cand, 512):
             return "two_phase"
         if c.children:
-            srcs = self._topn_srcs(index, c, slices)
+            srcs = self._topn_srcs(index, c, slices, host)
             if template.tanimoto_threshold > 0:
                 # The tanimoto window depends on the src count: derive
                 # the candidates (and the union) again with the src.
@@ -1930,10 +2187,12 @@ class Executor:
         if not len(union):
             return None
         self_src = self._topn_self_src(index, c)
-        apply_pending_many(frag for frag, *_ in per)
+        if c.children and not host:
+            # Only a src brings the mirrors in: the scorer reads them.
+            apply_pending_many(frag for frag, *_ in per)
         parts = []
         for frag, topt, cand_ids, cand_cnts in per:
-            part = frag.top_prepare_union_parts(union, cand_ids, cand_cnts, topt)
+            part = frag.top_prepare_union_parts(union, cand_ids, cand_cnts, topt, host)
             st = part[0]
             cand_mask = (
                 np.isin(st.cand_ids, cand_ids, assume_unique=True)
@@ -2124,7 +2383,9 @@ class Executor:
         cache (``_topn_folded_entry``), and the scores are fetched once
         per entry: concurrent queries of one entry wait for one leader's
         launch and fetch (single flight), later ones reuse its scores
-        while the entry holds."""
+        while the entry holds.  With a src tree, the prep and the scorer
+        run under one admission to the card; a denied or failed card has
+        the host prepare and score (``_topn_folded_host``)."""
         n = _uint_arg(c, "n")[0]
         if len(c.children) > 1:
             raise ExecutorError("TopN() can only have one input bitmap")
@@ -2134,23 +2395,77 @@ class Executor:
         # The mirrors the prep finds stay pinned until the scores are
         # fetched.
         with device_mod.pool().pinned():
-            with self.tracer.span("topn.prep", slices=len(slices)) as sp:
-                ent, parts = self._topn_folded_entry(index, c, slices, sp)
-            if ent.kind == "empty":
-                return []
-            if ent.kind == "two_phase":
-                return self._execute_topn_two_phase(index, c, slices, opt, n)
-            with self.tracer.span("topn.score", parts=len(parts)) as sp:
-                self._score_topn_entry(ent, parts, sp)
+            if c.children:
+                def launch(mode: str):
+                    return self._topn_folded_card(index, c, slices)
+
+                kind, parts = self._launch_guarded(
+                    launch, retry_fn=launch,
+                    host_fn=lambda: self._topn_folded_host(index, c, slices))
+            else:
+                # Without a src nothing reaches the card.
+                kind, parts = self._topn_folded_card(index, c, slices).value
+        if kind == "empty":
+            return []
+        if kind == "two_phase":
+            return self._execute_topn_two_phase(index, c, slices, opt, n)
         with self.tracer.span("topn.select", parts=len(parts)):
             return self._topn_folded_select(parts, n)
 
-    def _score_topn_entry(self, ent: _TopnEntry, parts: list, sp) -> None:
+    def _topn_folded_card(self, index: str, c: Call, slices: list[int]):
+        """The folded TopN's prep and scores through the cache and the
+        card: ``(kind, parts)``, wrapped in :class:`_NoLaunch` when the
+        scorer did not launch."""
+        with self.tracer.span("topn.prep", slices=len(slices)) as sp:
+            ent, parts = self._topn_folded_entry(index, c, slices, sp)
+        if ent.kind != "parts":
+            return _NoLaunch((ent.kind, []))
+        with self.tracer.span("topn.score", parts=len(parts)) as sp:
+            launched = self._score_topn_entry(ent, parts, sp)
+        return ("parts", parts) if launched else _NoLaunch(("parts", parts))
+
+    def _topn_folded_host(self, index: str, c: Call, slices: list[int]):
+        """``(kind, parts)`` without the card: from the prep cache where
+        it needs none (an empty or two-phase entry, or memoized scores),
+        else a prep and scores of the host's own, which the cache does
+        not keep (a cached entry's src rows are on the card)."""
+        with self.tracer.span("topn.prep", slices=len(slices)) as sp:
+            hit = None
+            if not c.args.get("field"):
+                hit = self._topn_lookup(index, c, slices, (index, str(c), tuple(slices)), sp)
+            if hit is not None:
+                ent, parts = hit
+                if ent.kind != "parts":
+                    return ent.kind, []
+                with self._batch_mu:
+                    scores = ent.scores
+                if scores is not None:
+                    self._fill_scores(parts, scores, sp)
+                    return "parts", parts
+            built = self._topn_folded_build(index, c, slices, host=True)
+            sp.annotate(prep_cache="host")
+        if built is None or built == "two_phase":
+            return ("empty" if built is None else built), []
+        with self.tracer.span("topn.score", parts=len(built)) as sp:
+            scored = [p[4] for p in built]
+            self._score_topn_parts(scored, host=True)
+            self._score_topn_sparse(scored)
+            sp.annotate(score_cache="host")
+        return "parts", built
+
+    def _fill_scores(self, parts: list, scores: list, sp) -> None:
+        for part, (cnt, sparse) in zip(parts, scores):
+            part[4][0].counts, part[4][0].sparse_cnt = cnt, sparse
+        sp.annotate(score_cache="shared")
+        self.holder.stats.count("exec.topn.scoreShared")
+
+    def _score_topn_entry(self, ent: _TopnEntry, parts: list, sp) -> bool:
         """Fill every part's scores: from the entry's memo, else as the
         leader of one launch and fetch (K4 and the sparse tier on the
         host) that every concurrent query of the entry waits for — on an
         event, never a lock (JAX ``executor.py:2760``).  A leader that
-        fails leaves no scores, and a waiter then scores on its own."""
+        fails leaves no scores, and a waiter then scores on its own.  True
+        when this query launched the scorer."""
         leader = False
         with self._batch_mu:
             scores = ent.scores
@@ -2165,20 +2480,18 @@ class Executor:
             with self._batch_mu:
                 scores = ent.scores
         if scores is not None:
-            for part, (cnt, sparse) in zip(parts, scores):
-                part[4][0].counts, part[4][0].sparse_cnt = cnt, sparse
-            sp.annotate(score_cache="shared")
-            self.holder.stats.count("exec.topn.scoreShared")
-            return
+            self._fill_scores(parts, scores, sp)
+            return False
         try:
             scored = [p[4] for p in parts]
             pin_keys = [self._topn_pool_key(ent.key)] + [p[0]._pool_key for p in parts]
             with device_mod.pool().pinned(*pin_keys):
-                self._score_topn_parts(scored)
+                launched = self._score_topn_parts(scored, host=False)
                 self._score_topn_sparse(scored)
             with self._batch_mu:
                 ent.scores = [(st.counts, st.sparse_cnt) for st, *_ in scored]
             sp.annotate(score_cache="computed")
+            return launched
         finally:
             if leader:
                 ev.set()
@@ -2189,7 +2502,7 @@ class Executor:
         # would have given the slice's own candidates (a subset of the
         # union).
         winner_ids, fulls = [], []
-        for frag, topt, cand_ids, cand_mask, (st, _, _, _) in parts:
+        for frag, topt, cand_ids, cand_mask, (st, *_) in parts:
             ids, cnts, keep, short = frag.top_score_arrays(st)
             fulls.append((ids[keep], cnts[keep]))
             if topt.src is None:
@@ -2395,8 +2708,10 @@ class Executor:
     def _slices_by_node(
         self, nodes: list[Node], index: str, slices: list[int]
     ) -> dict[str, tuple[Node, list[int]]]:
-        """Group slices by their first owner among ``nodes``; cached per
-        (ring, node set, index, slice list) — placement is pure in
+        """Group slices by their first owner among ``nodes`` that is not
+        degraded (its card quarantined), the first owner when all are
+        (JAX ``executor.py:3236``); cached per (ring, replica-health
+        version, node set, index, slice list) — placement is pure in
         those, and hashing ~1000 slices per query costs more host time
         than the query's kernels.  Callers treat the result as
         read-only."""
@@ -2405,6 +2720,7 @@ class Executor:
         key = (
             tuple(self.cluster.hosts()),
             self.cluster.replica_n,
+            self.cluster.health_version,
             tuple(n.host for n in nodes),
             index,
             tuple(slices),
@@ -2420,7 +2736,8 @@ class Executor:
             owners = [o for o in self.cluster.fragment_nodes(index, s) if o.host in hosts]
             if not owners:
                 raise SliceUnavailableError()
-            m.setdefault(owners[0].host, (owners[0], []))[1].append(s)
+            owner = next((o for o in owners if not o.degraded), owners[0])
+            m.setdefault(owner.host, (owner, []))[1].append(s)
         with self._groups_mu:
             self._slice_groups[key] = m
             while len(self._slice_groups) > 8:

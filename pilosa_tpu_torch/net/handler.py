@@ -18,7 +18,7 @@ port covers, with the same paths, status codes and response bodies
     GET    /fragment/nodes     GET /fragment/data       POST /fragment/data
     GET    /fragment/blocks    POST /fragment/import-view
     GET    /fragment/block/data
-    GET    /debug/hbm          GET /debug/ingest
+    GET    /debug/hbm          GET /debug/ingest        GET /debug/health
     GET    /metrics            GET /debug/vars          GET /debug/perf
     GET    /debug/traces       GET /debug/stacks        GET /debug/profile
     GET    /debug/pprof[/goroutine|/profile|/heap]
@@ -75,10 +75,14 @@ the per-site roofline table against the probed stream floor, ``GET
 /debug/profile?seconds=N`` a ``torch.profiler`` trace (CPU and CUDA
 activity) tarred under the data dir, one at a time (409 otherwise),
 ``GET /debug/stacks`` and ``/debug/pprof`` thread stacks, a sampled CPU
-profile and tracemalloc.  ``/metrics`` leaves out the JAX node's
-``exec.programCache.*`` gauges (XLA jit caches: the port builds each
-kernel once) and its admission, device-health and subscription gauges
-(those modules are not ported).
+profile and tracemalloc.  ``GET /debug/health`` answers the node, the
+cluster's node states and the card's breaker (``device``: each path's
+state, the watchdog's trips, the knobs; JAX ``handler.py:1860``), whose
+gauges ``/metrics`` renders at scrape time.  ``/metrics`` leaves out the
+JAX node's ``exec.programCache.*`` gauges (XLA jit caches: the port
+builds each kernel once) and its admission and subscription gauges
+(those modules are not ported); ``/debug/health`` has no ``resilience``
+or ``admission`` keys yet, for the same reason.
 
 Replication, resize and the other debug routes are not ported yet.
 """
@@ -131,8 +135,6 @@ JSON = "application/json"
 METRICS_LEFT_OUT = {
     "pilosa_exec_programCache_": "XLA jit caches; the port builds each kernel once",
     "pilosa_net_admission_": "admission control is not ported",
-    "pilosa_device_health_": "the device-health state machine is not ported",
-    "pilosa_device_watchdogTrips": "the launch watchdog is not ported",
     "pilosa_exec_subscribe_": "standing queries are not ported",
     "pilosa_cluster_replication_": "quorum replication is not ported",
     "pilosa_tenant_": "tenant QoS is not ported",
@@ -297,6 +299,7 @@ class Handler:
             ("GET", r"/fragment/block/data", self.handle_get_fragment_block_data),
             ("GET", r"/debug/hbm", self.handle_get_hbm),
             ("GET", r"/debug/ingest", self.handle_get_ingest),
+            ("GET", r"/debug/health", self.handle_get_health),
             ("GET", r"/debug/vars", self.handle_get_vars),
             ("GET", r"/debug/perf", self.handle_get_perf),
             ("GET", r"/debug/profile", self.handle_get_profile),
@@ -431,6 +434,14 @@ class Handler:
                 snap = self.stats.snapshot()
             except Exception:  # noqa: BLE001 — stats must not fail the scrape
                 snap = {}
+        dh = getattr(self.executor, "device_health", None)
+        if dh is not None:
+            # Scrape-time device-health gauges (device.health.state per
+            # path, device.health.degraded, device.watchdogTrips).
+            try:
+                snap.setdefault("gauges", {}).update(dh.gauges())
+            except Exception:  # noqa: BLE001 — stats must not fail the scrape
+                pass
         try:
             snap.setdefault("gauges", {}).update(perf_mod.registry().gauges())
         except Exception:  # noqa: BLE001 — stats must not fail the scrape
@@ -447,6 +458,20 @@ class Handler:
         except Exception:  # noqa: BLE001 — stats must not fail the scrape
             pass
         return Response(body=body.encode(), content_type=prom.CONTENT_TYPE)
+
+    def handle_get_health(self, req: Request) -> Response:
+        """This node, the cluster's node states and the card's breaker
+        (JAX ``handler.py:1860``): per path healthy/suspect/quarantined,
+        the watchdog's trips and the node-level degraded flag."""
+        out: dict[str, Any] = {"node": getattr(self.executor, "host", "")}
+        cluster = getattr(self.executor, "cluster", None)
+        if cluster is not None:
+            out["nodes"] = [{"host": h, "state": st}
+                            for h, st in sorted(cluster.node_states().items())]
+        dh = getattr(self.executor, "device_health", None)
+        if dh is not None:
+            out["device"] = dh.snapshot()
+        return Response.json(out)
 
     def handle_get_perf(self, req: Request) -> Response:
         """The per-site roofline table (obs/perf.py): launches, logical and

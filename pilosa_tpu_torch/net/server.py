@@ -75,6 +75,19 @@ Observability, with the JAX package's names and defaults
   dir) as the denominator of ``/debug/perf``'s ``floorPct``.  A probe
   that cannot build or launch K11 raises here.
 
+Device health, with the JAX package's names and defaults
+(``pilosa_tpu/net/server.py:62-65``, ``[device]``): one
+``device/health.py`` breaker, shared with the executor and shown at ``GET
+/debug/health`` and on ``/metrics``.  ``quarantine_threshold``
+consecutive launch failures (or one hang) quarantine the card, and the
+node answers from its host planes (``exec/hosteval.py``) until, after
+``quarantine_open_ms``, a half-open probe launch succeeds
+``quarantine_probe_successes`` times; ``launch_watchdog_ms`` bounds a
+cross-device launch.  A quarantine sets the node's ``degraded`` flag in
+its cluster (coordinators prefer a healthy replica), and a heal clears it
+and stages the mirrors again.  A ``PILOSA_FAULTS`` plan
+(``testing/faults.py``) is announced at open.
+
 ``stream_chunk_bytes`` (the JAX package's ``[net] stream-chunk-bytes``, 0
 for its 64 KiB default) is the write size of the streamed bodies: CSV
 exports and fragment archives.
@@ -101,6 +114,7 @@ from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch.cluster import broadcast as bc
 from pilosa_tpu_torch.cluster.topology import Cluster
 from pilosa_tpu_torch.core.holder import Holder
+from pilosa_tpu_torch.device import health as health_mod
 from pilosa_tpu_torch.core.view import is_inverse_view
 from pilosa_tpu_torch.exec import coalesce as coalesce_mod
 from pilosa_tpu_torch.exec import warmup
@@ -112,6 +126,7 @@ from pilosa_tpu_torch.net.handler import Handler, make_http_server
 from pilosa_tpu_torch.obs import perf as perf_mod
 from pilosa_tpu_torch.obs.trace import Tracer
 from pilosa_tpu_torch.ops import bitplane as bp
+from pilosa_tpu_torch.testing import faults
 
 CLUSTER_TYPES = ("static", "http")
 # reference: server.go / config.go defaults
@@ -119,6 +134,10 @@ DEFAULT_POLLING_INTERVAL = 60.0
 DEFAULT_INTERNAL_PORT = 14000
 # Socket timeout of a map leg or a poll to a peer.
 REMOTE_TIMEOUT_S = 60.0
+
+
+def _log(msg: str) -> None:
+    print(msg, file=sys.stderr)
 
 
 class Server:
@@ -155,6 +174,10 @@ class Server:
         slo_objective: float = 0.999,
         floor_probe: bool = True,
         stream_chunk_bytes: int = 0,
+        launch_watchdog_ms: float = health_mod.DEFAULT_WATCHDOG_MS,
+        quarantine_threshold: int = health_mod.DEFAULT_QUARANTINE_THRESHOLD,
+        quarantine_open_ms: float = health_mod.DEFAULT_OPEN_MS,
+        quarantine_probe_successes: int = health_mod.DEFAULT_PROBE_SUCCESSES,
     ):
         if cluster_type == "gossip":
             raise ValueError("cluster type 'gossip' is not supported by this port yet")
@@ -209,6 +232,19 @@ class Server:
             # Root of the tag chain: indexes opened from disk, and all
             # their frames, views and fragments, get tagged children.
             self.holder.stats = stats
+        # The card's breaker (JAX server.py:169-186), shared with the
+        # executor; its quarantines and heals reach
+        # _on_device_health_change.
+        self.device_health = health_mod.DeviceHealth(
+            quarantine_threshold=quarantine_threshold,
+            open_ms=quarantine_open_ms,
+            probe_successes=quarantine_probe_successes,
+            watchdog_ms=launch_watchdog_ms,
+            stats=stats,
+            logger=_log,
+            on_state_change=self._on_device_health_change,
+            device=self.device,
+        )
         self.executor = Executor(
             self.holder,
             max_writes_per_request=max_writes_per_request,
@@ -216,6 +252,7 @@ class Server:
             host=host,
             client_factory=self._client,
             tracer=self.tracer,
+            device_health=self.device_health,
         )
         self.handler = Handler(
             self.holder, self.executor, self.broadcaster,
@@ -245,6 +282,12 @@ class Server:
     # --- lifecycle (reference: server.go:99-198) ---
 
     def open(self) -> None:
+        # A chaos plan (testing/faults.py) is announced loudly: a run under
+        # injected faults must be unmistakable.
+        plan = faults.active()
+        if plan is not None and plan.rules:
+            _log(f"FAULT INJECTION ACTIVE: {len(plan.rules)} rule(s): "
+                 + "; ".join(f"{r.stage}/{r.kind or r.mode}" for r in plan.rules))
         bp.configure_plane_format(mode=self.plane_format)
         # The pool's budget and the WAL manager before any fragment
         # opens: mirrors register at their first upload, and fragments
@@ -358,6 +401,7 @@ class Server:
             self.coalescer.close()
             self.executor.coalescer = self.coalescer = None
         self.holder.close()
+        self.device_health.close()
         # After the holder: each fragment's close made its final commit;
         # now the committer stops, and a later server on this directory
         # attaches afresh.
@@ -377,6 +421,28 @@ class Server:
 
     def __exit__(self, *exc):
         self.close()
+
+    def _on_device_health_change(self, path: str, state: str) -> None:
+        """A quarantine or heal of the card's breaker (JAX
+        ``server.py:883``): the node's degraded flag follows it in the
+        cluster, and the heal of a ``device:`` path stages the mirrors
+        again through the prefetcher's staging lane (``staging_job``);
+        queued writes apply at the first read after it."""
+        try:
+            self.cluster.note_degraded(self.host, self.device_health.degraded())
+        except Exception as e:  # noqa: BLE001 — advisory path
+            _log(f"degraded-flag routing update error: {e}")
+        if state != health_mod.STATE_HEALTHY or not path.startswith("device:"):
+            return
+        try:
+            self.staging_job = self.holder.stage_device_mirrors(
+                device_mod.prefetcher(), tracer=self.tracer
+            )
+            if self.staging_job.total:
+                _log(f"device health: {path} healed — staging "
+                     f"{self.staging_job.total} fragment mirrors")
+        except Exception as e:  # noqa: BLE001 — staging is best-effort
+            _log(f"post-heal staging error: {e}")
 
     # --- background: max-slice polling (JAX server.py:822-847) ---
 

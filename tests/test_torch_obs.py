@@ -341,7 +341,8 @@ def test_metrics_parse_and_leave_out_only_the_documented_families(pair):
     assert unexplained == []
     for fam in ("pilosa_exec_coalesce_launches_total", "pilosa_setBit_total",
                 "pilosa_query_latency_ms", "pilosa_http_latency_ms",
-                "pilosa_exec_launch_launches", "pilosa_ingest_wal_appends_total"):
+                "pilosa_exec_launch_launches", "pilosa_ingest_wal_appends_total",
+                "pilosa_device_health_degraded", "pilosa_device_watchdogTrips"):
         assert fam in fams[t], fam
     # A family both render has one type.  (Which of the prefetcher's
     # hit/miss counters appear depends on its timing, in both packages.)
