@@ -38,7 +38,11 @@ without printing its final line:
    subtrees, MASKW over predicate rows of depth 1, 31 and 62, a full
    256-op table over 64 leaves, count / row / total; for the stream-floor
    read-sum (K11) 1, 7, 1,023 and 2^20 + 7 words and the probe's own size,
-   each all zeros, all ones, all 0xFFFFFFFF and seeded random words;
+   each all zeros, all ones, all 0xFFFFFFFF and seeded random words; for
+   the mesh TopN scorer (K9) 1, 3 and 954 slices of 1, 70 and 8 rows, both
+   reduces, random, all-zero, all-ones and strided src rows; for ``top_k``
+   1 to 100,000 counts (up to three rounds), k of 1 to 1,024 and past n,
+   ties, all equal, all zero, int32 and int64;
 4. time each kernel at the main path's shapes (CUDA events around runs
    of back-to-back calls, median of 21 runs), beside its bound and its
    plain version's time; for the delta-scatter kernel (K7) one, 954 and
@@ -58,7 +62,9 @@ without printing its final line:
    slices, every leaf a row of one of 954 8-row mirrors; K11 at the
    probe's size (at least 8x the L2) with ``torch.sum`` of int32 beside
    it, and the probe's GB/s at that size and at the JAX package's 32 MiB,
-   which the L2 holds;
+   which the L2 holds; K9 at [954, 8, 32768] with a src row a slice, both
+   reduces; ``top_k`` at query_step's 8 counts, k 4, and at 954 x 8, k 10,
+   beside ``torch.sort(stable=True)[:k]``;
 5. serve a 1B-column index — 954 slices x 8 dense rows, seeded random
    words, about 1 GiB on the card — with ``Server(device="cuda")`` and
    answer Count/Bitmap/TopN/SetBit over HTTP, every answer checked
@@ -164,7 +170,7 @@ without printing its final line:
     (off: the scheduler closed, the direct K2 path serves): requests/s,
     p50 / p99, the scheduler's snapshot; coalesced turns launch fewer
     times than they answer and fuse (K3);
-15. print the ``kernels`` JSON line (K1-K8, K11), then the final JSON line
+15. print the ``kernels`` JSON line (K1-K9, K11, ``top_k``), then the final JSON line
     (last of all, after phase 17);
 16. observability, on the phase-5 node right after phase 14 (run before
     phase 6) and on phase 6's cluster: ``/debug/perf``'s stream floor
@@ -220,7 +226,30 @@ without printing its final line:
     memory) classified ``oom``, and a kernel's illegal-address error no
     device fault (built, not raised); and (g) after every other phase no device
     fault was classified and no host answer given anywhere in the
-    process, and the phase-5 node's ``/debug/health`` reads healthy.
+    process, and the phase-5 node's ``/debug/health`` reads healthy;
+19. the multi-device data plane, on the phase-5 node right after phase 16
+    (run before phase 18), with K2, K4, K9 and ``top_k``'s counts set to 0
+    just before and read just after: (a) on a mesh of four members of
+    ``cuda:0`` (``bitplane.set_local_members``) and on a one-member mesh,
+    ``distributed_count``, ``distributed_topn`` and ``query_step`` at
+    phase 5's shapes, each equal to numpy; (b) the phase-5 node's
+    directory copied while it serves (its rank caches flushed first) and
+    reopened with ``Server(mesh_devices=4)``: Count(Intersect), Count,
+    Count(Union), Count(Xor), Bitmap, TopN and TopN(src) equal to the
+    one-member node's answers, each Count launching K2 once a member and
+    the first TopN(src) K4 once a member, a SetBit and a ClearBit between
+    reads, 8 threads at once, ``/debug/perf``'s ``collective`` site; (c)
+    an injected ``collective`` hang tripped by the watchdog and answered
+    right from the per-member partials, the path quarantined; and (d)
+    with two or more cards, the copy reopened by a node on the bare
+    ``cuda``, whose slices spread over every card (the default on such a
+    host), checked as in (b) against the one-card node, then a mesh over
+    the cards and a two-process NCCL Count (otherwise one line says why
+    it did not run); no collective fallback anywhere else in the run.
+
+Every phase but 19 (d) runs on card 0 alone (``bitplane.
+set_local_members``), so that its launch counts are a one-card node's on
+a host with several cards too.
 
 Exits non-zero when ``torch.cuda.is_available()`` is false, and when the
 port's package is not beside this file.
@@ -1940,6 +1969,515 @@ OBS_FAMILIES = (
     "pilosa_exec_launch_floorPct", "pilosa_query_latency_ms", "pilosa_http_latency_ms",
 )
 
+
+# K9 (the mesh TopN scorer) and top_k: phase 3's checks and phase 4's times.
+# Phase 5's shapes: 954 slices x 8 rows, one src row a slice.
+K9_CASES = ((1, 1), (3, 70), (N_SLICES, ROWS))
+TOPK_CASES = ((1, 1), (8, 4), (64, 64), (N_SLICES * ROWS, 10), (2048, 1024), (2049, 1024),
+              (100_000, 5))
+
+
+def check_k9(mt, rng) -> float:
+    """K9 against its plain version on the card, both reduces: 1, 3 and 954
+    slices of 1, 70 (two row tiles) and 8 rows, seeded random planes and
+    src rows, all-zero and all-ones src rows, and src rows read from the
+    plane itself (strided, as query_step passes them); exact equality."""
+    import torch
+
+    worst = 0
+    cases = []
+    for s, r in K9_CASES:
+        plane = torch.from_numpy(rng.integers(0, 2**32, size=(s, r, 32768), dtype=np.uint32)
+                                 .view(np.int32)).cuda()
+        for kind in ("random", "zeros", "ones", "row0"):
+            if kind == "random":
+                src = torch.from_numpy(rng.integers(0, 2**32, size=(s, 32768), dtype=np.uint32)
+                                       .view(np.int32)).cuda()
+            elif kind == "row0":
+                src = plane[:, 0, :]
+            else:
+                src = torch.full((s, 32768), 0 if kind == "zeros" else -1, dtype=torch.int32,
+                                 device="cuda")
+            for reduce in ("partials", "total"):
+                got = mt.mesh_topn(plane, src, reduce)
+                want = mt.plain_mesh_topn(plane, src, reduce)
+                torch.cuda.synchronize()
+                err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+                worst = max(worst, err)
+                cases.append(f"{s}x{r} {kind} {reduce}")
+        del plane, src
+    torch.cuda.empty_cache()
+    log(f"phase 3: mesh_topn (K9) vs plain on {len(cases)} cases ({', '.join(cases[:4])}, ...): "
+        f"max |diff| {worst}")
+    if worst:
+        raise AssertionError(f"phase 3: mesh_topn differs from its plain version by {worst}")
+    return float(worst)
+
+
+def check_top_k(tk, rng) -> float:
+    """top_k against its plain version on the card: 1 to 100,000 counts
+    (one tile, two tiles, three rounds), k of 1 to 1,024 (to 2,048 in
+    one tile), k past the
+    non-zero counts and past n, all equal, all zero, many ties, int32
+    and int64 counts; counts and indices exactly equal."""
+    import torch
+
+    worst = 0
+    n_cases = 0
+    for n, k in TOPK_CASES:
+        for kind in ("random", "ties", "equal", "zeros", "sparse"):
+            if kind == "random":
+                c = rng.integers(0, 2**40, size=n)
+            elif kind == "ties":
+                c = rng.integers(0, 4, size=n)
+            elif kind == "equal":
+                c = np.full(n, 7)
+            elif kind == "zeros":
+                c = np.zeros(n, dtype=np.int64)
+            else:
+                c = np.zeros(n, dtype=np.int64)
+                c[rng.integers(0, n, size=max(1, k // 2))] = rng.integers(1, 9, size=max(1, k // 2))
+            for dtype in (torch.int64, torch.int32):
+                if dtype == torch.int32 and kind == "random":
+                    c32 = (c & 0x7FFFFFFF)
+                    t = torch.from_numpy(c32.astype(np.int64)).to(dtype).cuda()
+                else:
+                    t = torch.from_numpy(c.astype(np.int64)).to(dtype).cuda()
+                for kk in (k, n + 3):
+                    if min(kk, n) > tk.MAX_K and n > tk.TILE:
+                        continue
+                    gv, gi = tk.top_k(t, kk)
+                    wv, wi = tk.plain_top_k(t, kk)
+                    torch.cuda.synchronize()
+                    if gv.shape != wv.shape or not torch.equal(gi, wi):
+                        raise AssertionError(f"phase 3: top_k n={n} k={kk} {kind} {dtype}: "
+                                             f"indices differ")
+                    if len(gv):
+                        worst = max(worst, int((gv - wv).abs().max()))
+                    n_cases += 1
+    log(f"phase 3: top_k vs plain on {n_cases} cases (n 1 to 100,000, k 1 to 1,024, to 2,048 in one tile, and past n; "
+        f"random, ties, all equal, all zero, fewer non-zero than k; int32 and int64): "
+        f"max |diff| {worst}, indices equal")
+    if worst:
+        raise AssertionError(f"phase 3: top_k differs from its plain version by {worst}")
+    return float(worst)
+
+
+def k9_bound_ms(s: int, r: int, reduce: str, hbm: float) -> tuple[float, str]:
+    """Least time for K9 over [s, r, 32768] and [s, 32768] src: each plane
+    and src byte read once, the output written once; 3 int ops a word."""
+    nbytes = (s * r + s) * 32768 * 4 + (s * r * 4 if reduce == "partials" else r * 8)
+    t_bytes = nbytes / hbm
+    t_ops = s * r * 32768 * 3 / SCALAR_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_k9(mt, hbm: float, rng) -> dict:
+    """K9 at phase 5's shape, [954, 8, 32768] with a src row a slice:
+    both reduces back to back, their device time from the profiler, the
+    plain version beside them; torch has no popcount, so no library call
+    computes the function."""
+    import torch
+
+    plane = torch.from_numpy(rng.integers(0, 2**32, size=(N_SLICES, ROWS, 32768),
+                                          dtype=np.uint32).view(np.int32)).cuda()
+    src = torch.from_numpy(rng.integers(0, 2**32, size=(N_SLICES, 32768),
+                                        dtype=np.uint32).view(np.int32)).cuda()
+    out = {}
+    for reduce in ("total", "partials"):
+        ms = time_cuda(lambda: mt.mesh_topn(plane, src, reduce))
+        plain = time_cuda(lambda: mt.plain_mesh_topn(plane, src, reduce), runs=5, per_run=2)
+        dev = device_ms(lambda: mt.mesh_topn(plane, src, reduce), "mesh_topn_kernel")
+        bound, by = k9_bound_ms(N_SLICES, ROWS, reduce, hbm)
+        out[reduce] = {"ms": ms, "device_ms": dev, "plain_ms": plain, "bound_ms": bound,
+                       "bound_by": by, "library_ms": None}
+        log(f"phase 4: mesh_topn (K9) {reduce} [{N_SLICES}, {ROWS}, 32768] + src: {ms:.4f} ms "
+            f"(device {dev} ms; bound {bound:.4f} ms by {by}, {bound / ms:.1%} of it), plain "
+            f"{plain:.4f} ms")
+    del plane, src
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_top_k(tk, hbm: float, rng) -> dict:
+    """top_k at query_step's shape (the per-row totals of phase 5's 8
+    rows, k 4) and at 954 x 8 counts, k 10: back to back, its device
+    time, the plain version's, and torch.sort(stable, descending)[:k] as
+    the library call (torch.topk promises no order among ties)."""
+    import torch
+
+    out = {}
+    for n, k in ((ROWS, 4), (N_SLICES * ROWS, 10)):
+        c = torch.from_numpy(rng.integers(0, 2**30, size=n)).cuda()
+        ms = time_cuda(lambda: tk.top_k(c, k))
+        plain = time_cuda(lambda: tk.plain_top_k(c, k))
+        lib = time_cuda(lambda: torch.sort(c, descending=True, stable=True)[0][:k])
+        dev = device_ms(lambda: tk.top_k(c, k), "top_k_kernel")
+        t_bytes = (n * 8 + k * 16) / hbm
+        t_ops = n * 2 / SCALAR_OPS_PER_S  # each count read and compared once
+        bound = max(t_bytes, t_ops) * 1e3
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        out[f"{n}x{k}"] = {"ms": ms, "device_ms": dev, "plain_ms": plain, "bound_ms": bound,
+                           "bound_by": by, "library_ms": lib}
+        log(f"phase 4: top_k n {n} k {k}: {ms:.4f} ms (device {dev} ms; bound {bound:.6f} ms by "
+            f"{by}: launch-bound), plain {plain:.4f} ms, torch.sort(stable)[:k] {lib:.4f} ms")
+    return out
+
+
+# Phase 19: the multi-device data plane on a mesh of logical members of the
+# one card (every part of the sharded path but the hop between cards), and
+# over the cards themselves where there are two or more.
+MESH_MEMBERS = 4
+MESH_THREADS = 8
+MESH_REPS = 3
+MESH_WATCHDOG_MS = 1000
+MESH_UPDATES = 16
+# The card the members share (a CPU rehearsal sets "cpu").
+MESH_DEVICE = "cuda"
+
+_NCCL_WORKER = """
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+sys.path.insert(0, {repo!r})
+from pilosa_tpu_torch.exec import plan
+from pilosa_tpu_torch.ops import bitplane as bp
+from pilosa_tpu_torch.parallel import mesh as pmesh, multihost
+
+rank = int(__import__("os").environ["JAX_PROCESS_ID"])
+bp.set_local_members([f"cuda:{{rank}}"])
+multihost.initialize()
+assert dist.get_backend() == "nccl" and multihost.is_multihost()
+planes = np.random.default_rng(19).integers(0, 2**32, size=(8, 2, 1, 32768), dtype=np.uint32)
+mine = planes[rank * 4:(rank + 1) * 4]
+batch = pmesh.shard(mine, pmesh.slice_mesh(1), ("slices", None, None, None))
+total = pmesh.distributed_count(("Intersect", ("leaf", 0), ("leaf", 1)), batch)
+want = int(np.bitwise_count(planes[:, 0] & planes[:, 1]).sum())
+assert total == want, (total, want)
+print("NCCL OK", rank, total, flush=True)
+dist.destroy_process_group()
+"""
+
+
+def mesh_functions_and_check(planes, truth_count, pmesh, torch) -> dict:
+    """(a) distributed_count, distributed_topn and query_step on the
+    four-member mesh and on a one-member mesh, at phase 5's shapes, each
+    equal to the numpy oracle."""
+    out = {}
+    n = planes.shape[0]
+    expr = ("Intersect", ("leaf", 0), ("leaf", 1))
+    pad = (-n) % MESH_MEMBERS
+    padded = np.pad(planes, ((0, pad), (0, 0), (0, 0))) if pad else planes
+    want_count = truth_count
+    want_per = np.bitwise_count(planes & planes[:, :1]).sum(axis=(0, 2), dtype=np.int64)
+    want_ids = np.argsort(-want_per, kind="stable")[:5]
+    rng = np.random.default_rng(SEED + 19)
+    flat = rng.choice(ROWS * 32768, size=MESH_UPDATES, replace=False)
+    rows_upd, words_upd = flat // 32768, flat % 32768
+    masks = rng.integers(0, 2**32, size=(padded.shape[0], MESH_UPDATES), dtype=np.uint32)
+    ref = padded[:, :2].copy()
+    for i in range(MESH_UPDATES):
+        if rows_upd[i] < 2:
+            ref[:, rows_upd[i], words_upd[i]] |= masks[:, i]
+    want_step_count = np.bitwise_count(ref[:, 0] & ref[:, 1]).sum(axis=-1, dtype=np.int64)
+    row0 = ref[:, 0]
+    step_per = np.zeros(ROWS, dtype=np.int64)
+    for r in range(ROWS):
+        row = padded[:, r].copy()
+        for i in np.nonzero(rows_upd == r)[0]:
+            row[:, words_upd[i]] |= masks[:, i]
+        step_per[r] = int(np.bitwise_count(row & row0).sum(dtype=np.int64))
+    want_step_ids = np.argsort(-step_per, kind="stable")[:4]
+    for members in (MESH_MEMBERS, 1):
+        mesh = pmesh.slice_mesh(members)
+        t0 = time.perf_counter()
+        leaves = pmesh.shard(padded[:, :2, None, :], mesh, ("slices", None, None, None))
+        got = pmesh.distributed_count(expr, leaves)
+        del leaves
+        plane = pmesh.shard_planes(padded, mesh)
+        src = pmesh.shard(padded[:, 0], mesh, ("slices", None))
+        counts, ids = pmesh.distributed_topn(plane, src, 5)
+        del src
+        _, step_count, top_counts, top_ids = pmesh.query_step(mesh)(
+            plane, rows_upd, words_upd, masks)
+        torch.cuda.synchronize()
+        del plane
+        torch.cuda.empty_cache()
+        res = {"count": got, "topn": [[int(i), int(c)] for i, c in zip(ids, counts)],
+               "step_count": int(step_count.astype(np.int64).sum()),
+               "step_top": [[int(i), int(c)] for i, c in zip(top_ids.cpu().numpy(),
+                                                            top_counts.cpu().numpy())],
+               "seconds": time.perf_counter() - t0}
+        if got != want_count:
+            raise AssertionError(f"phase 19 (a): distributed_count on {members} members {got} "
+                                 f"!= {want_count}")
+        if list(ids) != list(want_ids) or list(counts) != list(want_per[want_ids]):
+            raise AssertionError(f"phase 19 (a): distributed_topn on {members} members differs")
+        if not np.array_equal(step_count.astype(np.int64), want_step_count):
+            raise AssertionError(f"phase 19 (a): query_step's counts on {members} members differ")
+        if list(top_ids.cpu().numpy()) != list(want_step_ids) or \
+                list(top_counts.cpu().numpy()) != list(step_per[want_step_ids]):
+            raise AssertionError(f"phase 19 (a): query_step's top 4 on {members} members differ")
+        out[str(members)] = res
+    if {k: v for k, v in out[str(MESH_MEMBERS)].items() if k != "seconds"} != \
+            {k: v for k, v in out["1"].items() if k != "seconds"}:
+        raise AssertionError("phase 19 (a): the four-member answers differ from one member's")
+    log(f"phase 19 (a): distributed_count {want_count}, distributed_topn top 5 "
+        f"{out['1']['topn']}, query_step (16 scatter-OR targets, Count(Intersect), top 4 "
+        f"{out['1']['step_top']}) on {MESH_MEMBERS} members of cuda:0 and on one, equal to "
+        f"numpy; seconds {out[str(MESH_MEMBERS)]['seconds']:.2f} / {out['1']['seconds']:.2f}")
+    return out
+
+
+MESH_QUERIES = (
+    ("count_intersect", "Count(Intersect(Bitmap(frame=f, rowID=0), Bitmap(frame=f, rowID=1)))"),
+    ("count_bitmap", "Count(Bitmap(frame=f, rowID=0))"),
+    ("count_union3", "Count(Union(Bitmap(frame=f, rowID=0), Bitmap(frame=f, rowID=1), "
+                     "Bitmap(frame=f, rowID=2)))"),
+    ("count_xor", "Count(Xor(Bitmap(frame=f, rowID=1), Bitmap(frame=f, rowID=3)))"),
+    ("bitmap_g", "Bitmap(frame=g, rowID=1)"),
+    ("topn", "TopN(frame=f, n=5)"),
+    ("topn_src", "TopN(Bitmap(frame=f, rowID=0), frame=f, n=5)"),
+)
+
+
+def serve_mesh_and_check(srv, te, sp, want: dict, n_members: int, part: str) -> dict:
+    """A node reopened on ``n_members`` members: every query class of
+    ``MESH_QUERIES`` equal to ``want`` (the one-member node's answers), K2
+    once a member for each Count, K4 once a member for TopN(src); a SetBit
+    and a ClearBit between reads; ``MESH_THREADS`` threads at once, all
+    equal; the ``collective`` site in ``/debug/perf``."""
+    from pilosa_tpu_torch.obs import perf as perf_mod
+
+    out = {}
+    paths = srv.device_health.device_paths()
+    frag = srv.holder.fragment("i", "f", "standard", 5)
+    if paths != [f"device:{i}" for i in range(n_members)] or frag is None:
+        raise AssertionError(f"phase 19 ({part}): paths {paths}, fragment {frag}")
+    out["devices"] = sorted({str(f.device) for f in srv.holder._all_fragments()})
+    perf_mod.registry().configure(enabled=True)
+    h = srv.host
+    per_query = {}
+    for name, pql in MESH_QUERIES:
+        k2, k4 = te.launches, sp.launches
+        status, body = http(h, "POST", "/index/i/query", pql.encode())
+        if status != 200 or body != want[name]:
+            raise AssertionError(f"phase 19 ({part}): {pql}: {status} {str(body)[:300]} != "
+                                 f"{str(want[name])[:300]}")
+        per_query[name] = {"k2": te.launches - k2, "k4": sp.launches - k4}
+    for name in ("count_intersect", "count_bitmap", "count_union3", "count_xor"):
+        if per_query[name]["k2"] != n_members:
+            raise AssertionError(f"phase 19 ({part}): {name} launched K2 "
+                                 f"{per_query[name]['k2']} times, not once a member")
+    if per_query["topn_src"]["k4"] != n_members:
+        raise AssertionError(f"phase 19 ({part}): TopN(src) launched K4 "
+                             f"{per_query['topn_src']['k4']} times, not once a member")
+    out["per_query"] = per_query
+    # A write between two reads.
+    words = srv.holder.fragment("i", "f", "standard", 0).row_words_host(0)
+    w = int(np.argmax(words != 0xFFFFFFFF))
+    col = w * 32 + ((~int(words[w]) & (int(words[w]) + 1)).bit_length() - 1)
+    base = want["count_bitmap"]["results"][0]
+    for pql, ans in ((f"SetBit(frame=f, rowID=0, columnID={col})", [True]),
+                     (MESH_QUERIES[1][1], [base + 1]),
+                     (f"ClearBit(frame=f, rowID=0, columnID={col})", [True]),
+                     (MESH_QUERIES[1][1], [base])):
+        status, body = http(h, "POST", "/index/i/query", pql.encode())
+        if status != 200 or body["results"] != ans:
+            raise AssertionError(f"phase 19 ({part}): {pql}: {status} {body} != {ans}")
+    # MESH_THREADS threads at once.
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(MESH_THREADS) as pool:
+        got = list(pool.map(lambda q: (q[0], http(h, "POST", "/index/i/query", q[1].encode())),
+                            MESH_QUERIES * MESH_REPS))
+    out["storm_s"] = time.perf_counter() - t0
+    for name, (status, body) in got:
+        if status != 200 or body != want[name]:
+            raise AssertionError(f"phase 19 ({part}): storm {name}: {status} {str(body)[:300]}")
+    status, perf = http(h, "GET", "/debug/perf")
+    site = perf.get("sites", {}).get("collective")
+    if status != 200 or not site:
+        raise AssertionError(f"phase 19 ({part}): /debug/perf has no collective site: "
+                             f"{list(perf.get('sites', {}))}")
+    out["collective_site"] = {k: site[k] for k in ("launches", "p50_ms") if k in site}
+    return out
+
+
+def mesh_and_check(kernels: dict, Server, ExpvarStatsClient, srv, data_dir: str, planes,
+                   truth, watch) -> dict:
+    """Phase 19 (see the module docstring): the kernels' counts set to 0
+    just before the mesh is driven and read just after."""
+    import shutil
+
+    import torch
+
+    from pilosa_tpu_torch.exec import plan
+    from pilosa_tpu_torch.ops import bitplane as bp
+    from pilosa_tpu_torch.parallel import mesh as pmesh
+    from pilosa_tpu_torch.testing import faults
+
+    t_start = time.perf_counter()
+    out: dict = {}
+    te, sp = kernels["k2"], kernels["k4"]
+    # The one-member phase-5 node's answers are the reference; its
+    # directory is copied while it serves (as phase 13 copies a node's) and
+    # the copy reopened on the mesh.
+    want = {}
+    for name, pql in MESH_QUERIES:
+        status, body = http(srv.host, "POST", "/index/i/query", pql.encode())
+        if status != 200:
+            raise AssertionError(f"phase 19: {pql} on the phase-5 node: {status} {body}")
+        want[name] = body
+    truth_count = int(np.bitwise_count(truth[:, 0] & truth[:, 1]).sum(dtype=np.int64))
+    if want["count_intersect"]["results"] != [truth_count]:
+        raise AssertionError("phase 19: the phase-5 node's Count differs from numpy")
+    copy_dir = data_dir + "-mesh"
+    t0 = time.perf_counter()
+    # The rank caches to disk first, as the reference's periodic cache
+    # flush would have them (a TopN without a src reads them at open).
+    for frag in srv.holder._all_fragments():
+        frag.flush_cache()
+    shutil.copytree(data_dir, copy_dir)
+    out["copy_s"] = time.perf_counter() - t0
+    for k in kernels.values():
+        k.launches = 0
+    one_card = bp.local_members()
+    n_cards = torch.cuda.device_count()
+    bp.set_local_members([torch.device(MESH_DEVICE, 0)] * MESH_MEMBERS)
+    srv4 = None
+    try:
+        out["functions"] = mesh_functions_and_check(planes, int(np.bitwise_count(
+            planes[:, 0] & planes[:, 1]).sum(dtype=np.int64)), pmesh, torch)
+        # (b) the copy reopened on four members.
+        t0 = time.perf_counter()
+        srv4 = Server(copy_dir, host="127.0.0.1:0", device=MESH_DEVICE, stats=ExpvarStatsClient(),
+                      mesh_devices=MESH_MEMBERS, launch_watchdog_ms=MESH_WATCHDOG_MS,
+                      quarantine_open_ms=600_000)
+        srv4.open()
+        out["open_s"] = time.perf_counter() - t0
+        out["members"] = served = serve_mesh_and_check(srv4, te, sp, want, MESH_MEMBERS, "b")
+        watch.check("19")
+        log(f"phase 19 (b): phase 5's directory copied in {out['copy_s']:.2f}s and reopened on "
+            f"{MESH_MEMBERS} members in {out['open_s']:.2f}s; {len(MESH_QUERIES)} query classes "
+            f"equal to the one-member node's, K2/K4 a query {json.dumps(served['per_query'])}; a "
+            f"SetBit and a ClearBit between reads; {MESH_THREADS} threads x "
+            f"{len(MESH_QUERIES) * MESH_REPS} requests in {served['storm_s']:.2f}s, all equal; "
+            f"/debug/perf collective {json.dumps(served['collective_site'])}")
+        # (c) an injected hang in the collective: tripped, answered right.
+        h = srv4.host
+        faults.install(f"device.launch:path=collective,kind=hang,delay-ms="
+                       f"{MESH_WATCHDOG_MS * 3},times=1")
+        try:
+            t0 = time.perf_counter()
+            status, body = http(h, "POST", "/index/i/query", MESH_QUERIES[0][1].encode())
+            out["trip_s"] = time.perf_counter() - t0
+        finally:
+            faults.clear()
+        if status != 200 or body != want["count_intersect"]:
+            raise AssertionError(f"phase 19 (c): {status} {body}")
+        _, health = http(h, "GET", "/debug/health")
+        dev = health["device"]
+        if dev["watchdogTrips"] != 1 or dev["paths"]["collective"]["state"] != "quarantined":
+            raise AssertionError(f"phase 19 (c): /debug/health {dev}")
+        status, body = http(h, "POST", "/index/i/query", MESH_QUERIES[0][1].encode())
+        if status != 200 or body != want["count_intersect"]:
+            raise AssertionError(f"phase 19 (c): after the trip: {status} {body}")
+        out["collective_fallbacks"] = plan.collective_fallbacks
+        log(f"phase 19 (c): an injected collective hang tripped the {MESH_WATCHDOG_MS} ms "
+            f"watchdog; the Count answered right in {out['trip_s']:.2f}s from the per-member "
+            f"partials, the collective path quarantined, the next Count too "
+            f"({plan.collective_fallbacks} collective fallbacks)")
+        # The tripped body was abandoned, not stopped: it holds the
+        # collective lock until its injected hang ends and its launches
+        # finish. Wait for it, so that none of them counts against (d).
+        with plan.collective_launch():
+            pass
+        srv4.close()
+        srv4 = None
+        # (d) the hop between cards, where there are two or more: the copy
+        # served by a node whose slices spread over every card (the default
+        # on such a host), then the distributed Count over the cards and a
+        # two-process NCCL Count.
+        if n_cards >= 2:
+            watch.rebase(srv)
+            bp.set_local_members(None)
+            bp.configure_mesh_devices(0)
+            t0 = time.perf_counter()
+            srv4 = Server(copy_dir, host="127.0.0.1:0", device=MESH_DEVICE,
+                          stats=ExpvarStatsClient(), launch_watchdog_ms=MESH_WATCHDOG_MS * 10)
+            srv4.open()
+            open_s = time.perf_counter() - t0
+            served = serve_mesh_and_check(srv4, te, sp, want, n_cards, "d")
+            watch.check("19")
+            out["cards_served"] = dict(served, open_s=open_s)
+            log(f"phase 19 (d): the copy reopened over {n_cards} cards ({served['devices']}) "
+                f"in {open_s:.2f}s; {len(MESH_QUERIES)} query classes equal to the one-card "
+                f"node's, K2/K4 a query {json.dumps(served['per_query'])}; a SetBit and a "
+                f"ClearBit between reads; {MESH_THREADS} threads, all equal")
+            srv4.close()
+            srv4 = None
+            out["cards"] = cards_and_check(pmesh, bp, torch, n_cards)
+        else:
+            out["cards"] = None
+            log(f"phase 19 (d): not run: the machine has {n_cards} card, so no mesh over cards "
+                "and no two-process NCCL Count (NCCL refuses two ranks on one card)")
+    finally:
+        if srv4 is not None:
+            srv4.close()
+        bp.set_local_members(one_card)
+        bp.configure_mesh_devices(0)
+        shutil.rmtree(copy_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["launches"] = {k: m.launches for k, m in kernels.items()}
+    watch.rebase(srv)
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"phase 19: launches {json.dumps(out['launches'])}; {out['seconds']:.1f} s")
+    return out
+
+
+def cards_and_check(pmesh, bp, torch, n_cards: int) -> dict:
+    """(d) a mesh over the cards themselves, and a two-process NCCL Count
+    over two of them."""
+    import socket
+
+    out = {}
+    rng = np.random.default_rng(SEED + 190)
+    leaves = rng.integers(0, 2**32, size=(n_cards * 4, 2, 1, 32768), dtype=np.uint32)
+    want = int(np.bitwise_count(leaves[:, 0] & leaves[:, 1]).sum(dtype=np.int64))
+    mesh = pmesh.slice_mesh(n_cards)
+    got = pmesh.distributed_count(("Intersect", ("leaf", 0), ("leaf", 1)),
+                                  pmesh.shard(leaves, mesh, ("slices", None, None, None)))
+    if got != want:
+        raise AssertionError(f"phase 19 (d): the mesh over {n_cards} cards counted {got} != {want}")
+    out["mesh_count"] = got
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        script = os.path.join(tmp, "nccl_worker.py")
+        with open(script, "w") as fh:
+            fh.write(_NCCL_WORKER.format(repo=repo))
+        procs = [subprocess.Popen(
+            [sys.executable, script], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                     JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(r))) for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=180) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    for r, (p, (o, e)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or f"NCCL OK {r}" not in o:
+            raise AssertionError(f"phase 19 (d): NCCL rank {r}: rc {p.returncode} {e[-800:]}")
+    out["nccl"] = [o.strip().split()[-1] for o, _ in outs]
+    log(f"phase 19 (d): a mesh over {n_cards} cards counted {got}, equal to numpy; a "
+        f"two-process NCCL Count agreed on {out['nccl']}")
+    return out
 
 def http_raw(host: str, path: str) -> tuple[int, bytes]:
     try:
@@ -4898,10 +5436,12 @@ HEALTH_QUARANTINE_QUERIES = 3
 
 
 class FallbackWatch:
-    """Every device fault classified and every host answer in this
-    process, counted through ``health.classify`` and the host evaluator's
-    counter: a phase that ends with either count moved was served, in
-    part, by the host."""
+    """Every device fault classified, every host answer and every
+    collective fallback in this process, counted through
+    ``health.classify``, the host evaluator's counter and
+    ``exec/plan.collective_fallbacks``: a phase that ends with one of
+    them moved was served, in part, by the host or the per-member
+    partials."""
 
     def __init__(self):
         from pilosa_tpu_torch.device import health
@@ -4921,7 +5461,7 @@ class FallbackWatch:
 
         health.classify = watched_classify
         hosteval.HostEvaluator._count = watched_count
-        self.mark = (0, 0)
+        self.mark = (0, 0, 0)
         self.node_mark: dict[str, int] = {}
 
     def node_counts(self, srv) -> dict[str, int]:
@@ -4933,9 +5473,11 @@ class FallbackWatch:
         """(g): nothing fell back in ``phase``; with ``srv`` (the phase-5
         node, still open) its counters are unmoved and /debug/health reads
         healthy."""
-        if (self.faults, self.host) != self.mark:
-            raise AssertionError(f"phase {phase}: {self.faults - self.mark[0]} device faults "
-                                 f"classified, {self.host - self.mark[1]} host answers")
+        now = (self.faults, self.host, self.collective())
+        if now != self.mark:
+            raise AssertionError(f"phase {phase}: {now[0] - self.mark[0]} device faults "
+                                 f"classified, {now[1] - self.mark[1]} host answers, "
+                                 f"{now[2] - self.mark[2]} collective fallbacks")
         if srv is None:
             return
         if self.node_counts(srv) != self.node_mark:
@@ -4947,8 +5489,16 @@ class FallbackWatch:
                 p["state"] != "healthy" for p in dev["paths"].values()):
             raise AssertionError(f"phase {phase}: /debug/health {status} {body}")
 
+    @staticmethod
+    def collective() -> int:
+        """Answers a mesh's per-member partials gave after its collective
+        tripped or was quarantined (exec/plan.py), process-wide."""
+        from pilosa_tpu_torch.exec import plan
+
+        return plan.collective_fallbacks
+
     def rebase(self, srv) -> None:
-        self.mark = (self.faults, self.host)
+        self.mark = (self.faults, self.host, self.collective())
         self.node_mark = self.node_counts(srv)
 
 
@@ -5237,6 +5787,7 @@ PHASES = {
     "residency_and_check": "12",
     "durability_and_check": "13",
     "health_and_check": "18",
+    "mesh_and_check": "19",
 }
 
 
@@ -5290,11 +5841,14 @@ def main() -> int:
     from pilosa_tpu_torch.ops import score_planes as sp
     from pilosa_tpu_torch.ops import tree_eval as te
     from pilosa_tpu_torch.ops import stream_sum as ss
+    from pilosa_tpu_torch.ops import mesh_topn as mt
+    from pilosa_tpu_torch.ops import top_k as tk
     from pilosa_tpu_torch.device import floorprobe
     from pilosa_tpu_torch.obs.stats import ExpvarStatsClient
 
     card = card_line()
     print(card, flush=True)
+    bp.set_local_members([torch.device("cuda", 0)])
     phase_s: dict[str, float] = {}
     time_phases(sys.modules[__name__], phase_s)
     name = torch.cuda.get_device_name(0)
@@ -5333,6 +5887,9 @@ def main() -> int:
     k2_err = check_k2(te, it, tplan, rng23)
     k3_err = check_k3(te, it, tplan, bsi, rng23)
     k11_err = check_k11(ss, floorprobe)
+    rng9 = np.random.default_rng(SEED + 9)
+    k9_err = check_k9(mt, rng9)
+    topk_err = check_top_k(tk, rng9)
 
     a = bp.to_device(rng.integers(0, 2**32, size=(N_SLICES, 32768), dtype=np.uint32), "cuda")
     b = bp.to_device(rng.integers(0, 2**32, size=(N_SLICES, 32768), dtype=np.uint32), "cuda")
@@ -5351,6 +5908,8 @@ def main() -> int:
     k5_times = time_k5(ac, bp, tplan, rng56, hbm)
     k23_times = time_k2k3(te, it, tplan, bsi, hbm, np.random.default_rng(SEED + 6))
     k11_times = time_k11(ss, floorprobe, hbm)
+    k9_times = time_k9(mt, hbm, rng9)
+    topk_times = time_top_k(tk, hbm, rng9)
     # From here on, a device fault classified or a host answer anywhere in
     # the process fails the phase it came in (phase 18 excepted).
     watch = FallbackWatch()
@@ -5386,6 +5945,9 @@ def main() -> int:
                                          coalesced.pop("queries"), hbm,
                                          np.random.default_rng(SEED + 16))
             watch.check("16", srv)
+            meshed = mesh_and_check({"k2": te, "k4": sp, "k9": mt, "top_k": tk}, Server,
+                                    ExpvarStatsClient, srv, data_dir, planes, truth, watch)
+            watch.check("19", srv)
             healed = health_and_check(all_kernels, br, convert, srv, truth,
                                       np.random.default_rng(SEED + 18))
             del truth
@@ -5619,6 +6181,43 @@ def main() -> int:
         **{k: k11_times[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms", "probe_gbps", "jax_size_gbps")},
     })
+    k9 = k9_times["total"]  # the reduce the mesh's TopN and query_step launch
+    kernels.append({
+        "name": mt.NAME,
+        "route": "cuda",
+        "source": mt.SOURCE,
+        "replaces": mt.REPLACES,
+        "launches": meshed["launches"]["k9"],
+        "launches_by_phase": {"19": meshed["launches"]["k9"]},
+        "max_abs_err": k9_err,
+        "checked": k9_err == 0.0,
+        "shape": [N_SLICES, ROWS, 32768, "total"],
+        "partials": k9_times["partials"],
+        **{k: k9[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")},
+    })
+    topk = topk_times[f"{ROWS}x4"]  # query_step's shape
+    kernels.append({
+        "name": tk.NAME,
+        "route": "cuda",
+        "source": tk.SOURCE,
+        "replaces": tk.REPLACES,
+        "launches": meshed["launches"]["top_k"],
+        "launches_by_phase": {"19": meshed["launches"]["top_k"]},
+        "max_abs_err": topk_err,
+        "checked": topk_err == 0.0,
+        "shape": [ROWS, 4],
+        f"at_{N_SLICES * ROWS}x10": topk_times[f"{N_SLICES * ROWS}x10"],
+        **{k: topk[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")},
+    })
+    k2_entry = next(k for k in kernels if k["name"] == te.NAME)
+    k2_entry["launches"] += meshed["launches"]["k2"]
+    k2_entry["launches_by_phase"]["19"] = meshed["launches"]["k2"]
+    k4_entry = next(k for k in kernels if k["name"] == sp.NAME)
+    k4_entry["launches"] += meshed["launches"]["k4"]
+    k4_entry["launches_by_phase"]["19"] = meshed["launches"]["k4"]
+    log(f"phase 19 (summary): {json.dumps(meshed)}")
     log(f"phase 16 (summary): {json.dumps({k: v for k, v in observed.items() if k != 'sites'})}; "
         f"cluster trace {json.dumps(clustered['trace'])}")
     log(f"phase 17 (summary): {json.dumps(backed)}")

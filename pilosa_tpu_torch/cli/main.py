@@ -1,6 +1,7 @@
 """CLI entry point (reference: cmd/).
 
     python -m pilosa_tpu_torch.cli server --data-dir D --bind H:P [--device cuda]
+        [--mesh-devices N]
         [--cluster-type static|http --hosts H1:P1,H2:P2 [--internal-hosts ...]
          --replicas N --internal-port P --polling-interval S]
         [--plane-format auto|dense] [--hbm-budget-bytes N] [--prefetch true|false]
@@ -13,7 +14,13 @@
          --slo-ms MS --slo-objective F --floor-probe true|false]
 
 runs one node until SIGINT/SIGTERM.  The device defaults to the CUDA
-card; ``--device cpu`` runs on the CPU.  The last flags name the JAX
+card; ``--device cpu`` runs on the CPU.  On a host with several cards
+the node shards its slices over all of them (slice ``s`` on card ``s mod
+n``); ``--mesh-devices N`` (the JAX package's ``[device] mesh-devices``,
+else ``$PILOSA_DEVICE_MESH_DEVICES``) caps them, 1 forcing one card.  A
+launcher that sets ``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES`` and
+``JAX_PROCESS_ID`` joins the node to a ``torch.distributed`` process
+group before it opens (``parallel/multihost.py``).  The last flags name the JAX
 package's ``[device]``, ``[ingest]`` and ``[exec]`` keys
 (``plane-format``, ``hbm-budget-bytes``, ``prefetch``, ``wal``,
 ``group-commit-ms``, ``group-commit-max``, ``wal-segment-bytes``,
@@ -102,6 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
     srv.add_argument("--data-dir", default=os.path.expanduser("~/.pilosa"))
     srv.add_argument("--bind", default="127.0.0.1:10101")
     srv.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
+    srv.add_argument("--mesh-devices", type=int, default=0,
+                     help="cards the slices shard over (0: all visible, 1: one card)")
     srv.add_argument("--cluster-type", default="static", help="static (default) or http")
     srv.add_argument("--hosts", type=_hosts, default=[], help="H:P,H:P,... of every node")
     srv.add_argument(
@@ -245,10 +254,16 @@ def run_server(args) -> int:
         slo_objective=args.slo_objective,
         floor_probe=args.floor_probe,
         stream_chunk_bytes=args.stream_chunk_bytes,
+        mesh_devices=args.mesh_devices,
     )
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())
+    # Join a multi-host process group when the launcher configured one
+    # (JAX ``cli/ctl.py:203-208``); it waits until every peer connects.
+    from pilosa_tpu_torch.parallel import multihost
+
+    multihost.initialize()
     srv.open()
     print(f"pilosa_tpu_torch listening on http://{srv.host} ({srv.device})", file=sys.stderr)
     try:

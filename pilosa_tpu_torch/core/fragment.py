@@ -416,7 +416,9 @@ class Fragment:
         self.frame = frame
         self.view = view
         self.slice = slice_i
-        self.device = device_mod.resolve(device)
+        # The slice's home member (JAX core/fragment.py:1335): its mirror,
+        # paged sparse rows and zero rows live there.
+        self.device = bp.home_device(slice_i, device_mod.placed(device))
         self.cache_type = cache_type
         self.cache_size = cache_size
         self.max_op_n = max_op_n

@@ -62,6 +62,7 @@ class Frame:
         self.index = index
         self.name = name
         self.device = device_mod.resolve(device)
+        self.placed = device_mod.placed(device)
         self.stats = NopStatsClient()  # re-tagged by its parent
         self._mu = threading.RLock()
         self._views: dict[str, View] = {}
@@ -201,7 +202,7 @@ class Frame:
             self.index,
             self.name,
             name,
-            device=self.device,
+            device=self.placed,
             cache_type=self.cache_type,
             cache_size=self.cache_size,
             row_attr_store=self.row_attr_store,

@@ -6,8 +6,11 @@ holder.go:175-316) and exposes the schema.  The data directory layout
 is the JAX package's, so a directory one of them wrote and closed opens
 in the other with identical planes.
 
-Every fragment's device mirror lives on the holder's device, the CUDA
-card unless the caller asks for the CPU.  Which mirrors are resident is
+Every fragment's device mirror lives on its slice's home member
+(``ops/bitplane.home_device``): on a holder whose device is the CUDA card
+(the default), slice ``s`` of a host with ``n`` participating cards lives
+on card ``s mod n``, as in the JAX package; a CPU holder, or a host with
+one card, keeps every mirror on the holder's device.  Which mirrors are resident is
 the residency pool's business (``device/pool.py``); the holder persists
 that set at close (``.residency.json``, the JAX package's format) and,
 after a restart, stages the mirrors again in the background
@@ -38,6 +41,9 @@ class Holder:
     def __init__(self, path: str, device: torch.device | str | None = None):
         self.path = path
         self.device = device_mod.resolve(device)
+        # What its children place slices by (``device.placed``): a bare
+        # ``cuda`` shards them over the members, ``cuda:N`` pins them.
+        self.placed = device_mod.placed(device)
         self._mu = threading.RLock()
         self._indexes: dict[str, Index] = {}
         self.on_create_slice = None  # wired by the server before open()
@@ -78,7 +84,7 @@ class Holder:
     # --- indexes (reference: holder.go:175-257) ---
 
     def _new_index(self, name: str) -> Index:
-        index = Index(os.path.join(self.path, name), name, device=self.device)
+        index = Index(os.path.join(self.path, name), name, device=self.placed)
         index.on_create_slice = self.on_create_slice
         index.stats = self.stats.with_tags(f"index:{name}")
         return index
@@ -166,17 +172,19 @@ class Holder:
     def _budgeted_fragments(self, budget_bytes: int | None) -> list:
         """Fragments whose mirrors fit ``budget_bytes``, largest planes
         first (their first query's upload hurts most).  None adopts the
-        pool's budget for the holder's device, so staging never floods
-        past what the pool would evict again; an unbounded pool falls
-        back to 8 GiB."""
-        if budget_bytes is None:
-            budget_bytes = device_mod.pool().budget_bytes(self.device) or (8 << 30)
-        spent = 0
+        pool's budget of each fragment's home device (logical members of
+        one card share it), so staging never floods past what the pool
+        would evict again; an unbounded pool falls back to 8 GiB."""
+        spent: dict = {}
         kept = []
         for frag in sorted(self._all_fragments(), key=lambda f: -f.plane_nbytes):
-            if spent + frag.plane_nbytes > budget_bytes:
+            budget = budget_bytes
+            if budget is None:
+                budget = device_mod.pool().budget_bytes(frag.device) or (8 << 30)
+            used = spent.get(frag.device, 0)
+            if used + frag.plane_nbytes > budget:
                 continue
-            spent += frag.plane_nbytes
+            spent[frag.device] = used + frag.plane_nbytes
             kept.append(frag)
         return kept
 

@@ -36,6 +36,7 @@ class Index:
         self.path = path
         self.name = name
         self.device = device_mod.resolve(device)
+        self.placed = device_mod.placed(device)
         self.stats = NopStatsClient()  # re-tagged by its parent
         self._mu = threading.RLock()
         self._frames: dict[str, Frame] = {}
@@ -113,7 +114,7 @@ class Index:
     # --- frames (reference: index.go:336-435) ---
 
     def _new_frame(self, name: str) -> Frame:
-        frame = Frame(os.path.join(self.path, name), self.name, name, device=self.device)
+        frame = Frame(os.path.join(self.path, name), self.name, name, device=self.placed)
         frame.on_create_slice = self.on_create_slice
         frame.stats = self.stats.with_tags(f"frame:{name}")
         return frame

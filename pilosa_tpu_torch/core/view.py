@@ -59,6 +59,7 @@ class View:
         self.frame = frame
         self.name = name
         self.device = device_mod.resolve(device)
+        self.placed = device_mod.placed(device)
         self.stats = NopStatsClient()  # re-tagged by its parent
         self.cache_type = cache_type
         self.cache_size = cache_size
@@ -104,7 +105,7 @@ class View:
             self.frame,
             self.name,
             slice_i,
-            device=self.device,
+            device=self.placed,
             cache_type=self.cache_type,
             cache_size=self.cache_size,
             dense_row_budget=budget,

@@ -52,6 +52,17 @@ def resolve(device: str | torch.device | None = None) -> torch.device:
     raise ValueError(f"unsupported device type: {dev.type!r}")
 
 
+def placed(device: str | torch.device | None = None) -> torch.device:
+    """The device a holder and its children place slices by: ``device``
+    checked as :func:`resolve` checks it, but a CUDA device named without
+    an index (the default) stays bare and stands for every member of slice
+    placement (``ops/bitplane.placement``), while ``cuda:N`` pins every
+    slice to that one card — one node a card on a host."""
+    dev = resolve(device)
+    named = torch.device(DEFAULT_DEVICE if device is None else device)
+    return torch.device("cuda") if dev.type == "cuda" and named.index is None else dev
+
+
 _mu = threading.Lock()
 _pool: PlanePool | None = None
 _prefetcher: Prefetcher | None = None

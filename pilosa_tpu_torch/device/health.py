@@ -38,8 +38,9 @@ misbehaving card degrades the node to the host (numpy) evaluator
   path, and the caller falls back to the per-device launch or the host
   evaluator — the process never wedges.  The hung runner thread is
   abandoned (its eventual completion is discarded and counted) and a
-  fresh runner serves the next collective.  No port launch crosses
-  devices yet: the cross-device Count/TopN will run through it.
+  fresh runner serves the next collective.  The cross-member Count and
+  TopN of a mesh (``exec/executor.py``, ``exec/coalesce.py``,
+  ``parallel/mesh.py``) run through it.
 
 Surfaced at ``GET /debug/health`` (``device`` section) and ``/metrics``
 (``device.health.*`` gauges, ``device.watchdogTrips``); the server sets
@@ -310,9 +311,18 @@ class DeviceHealth:
     # ------------------------------------------------------------------
 
     def device_paths(self) -> list[str]:
-        """One path per participating device: a port node launches on
-        its one card, ``device:<its ordinal>`` (``device:0`` on the
-        CPU)."""
+        """One path per participating device: on a mesh one per member,
+        ``device:<member index>``, as the JAX package names its devices;
+        a node on one device launches there, ``device:<its ordinal>``
+        (``device:0`` on the CPU)."""
+        if self.device is not None:
+            import torch
+
+            from pilosa_tpu_torch.ops import bitplane as bp
+
+            n = len(bp.placement(torch.device(self.device)))
+            if n > 1:
+                return [f"device:{i}" for i in range(n)]
         return [f"device:{self._ordinal}"]
 
     def _path(self, name: str) -> _PathState:
@@ -453,9 +463,10 @@ class DeviceHealth:
         )
         for p, state in events:
             self.stats.count("device.health.quarantines")
+            fallback = "the per-member partials" if p == COLLECTIVE else "host planes"
             self.logger(
                 f"device health: {p} QUARANTINED after {kind!r} failure(s) "
-                "— serving from host planes until a half-open probe heals it"
+                f"— serving from {fallback} until a half-open probe heals it"
             )
             self._notify(p, state)
 

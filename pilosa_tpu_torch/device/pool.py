@@ -8,7 +8,11 @@ cached batches (``"cache"``: each entry's row-address table and the
 scratch rows it owns; the dense rows it names stay the mirrors').  The pool keeps per-device byte accounting against a budget
 (``[device] hbm-budget-bytes``, ``Server(hbm_budget_bytes=...)``) and
 reclaims by LRU eviction of unpinned entries whenever an admission
-would pass it.  Eviction is free of correctness cost because the host
+would pass it.  The budget is per physical device (JAX
+``device/pool.py:31,139``): a fragment admits its bytes on its home
+device (``ops/bitplane.home_device``), so the logical members of one
+card share that card's budget, and ``/debug/hbm`` lists each device.
+Eviction is free of correctness cost because the host
 numpy plane is authoritative: an evicted mirror re-uploads at the next
 read.
 

@@ -57,9 +57,21 @@ counters; a stats client gets the JAX package's ``exec.coalesce.*`` and
 ``exec.interp.*`` counts, and every launch records into the launch
 telemetry (``obs/perf.py``) as ``total``, ``coalesce``, ``interp`` or
 ``fetch``, with the trace id its first waiter had at submit time (the
-dispatcher thread runs outside the queries' contexts).  The JAX
-scheduler's health watchdog and sharded-batch rules are not ported (one
-card, no mesh).
+dispatcher thread runs outside the queries' contexts).
+
+**Sharded batches** (JAX ``coalesce.py:507-550,865,943``).  A batch over a
+mesh (``ops/tree_eval.ShardedTable``: one table a member) queues under
+its member layout, so it groups only with batches of the same layout.
+A drain runs every launch above once a member, over that member's
+tables — one K2 or fused K3 launch a member — and hands each waiter its
+members' parts: "count" partials concatenated in the batch's order,
+"row" results as one device tensor a member.  A "total" drain is the
+collective: its member launches and the cross-member int64 sum run
+under the process-wide collective lock and, with a ``health`` manager,
+under its watchdog and the ``collective`` breaker path
+(``DeviceHealth.run_collective``); a waiter's ``check`` (the executor's
+``collective`` fault check point) runs inside the watched body, and the
+drain records the ``collective`` launch site.
 """
 
 from __future__ import annotations
@@ -77,7 +89,7 @@ from pilosa_tpu_torch.exec import plan
 from pilosa_tpu_torch.obs import perf as perf_mod
 from pilosa_tpu_torch.obs.stats import NopStatsClient
 from pilosa_tpu_torch.ops.bitplane import WORDS_PER_SLICE
-from pilosa_tpu_torch.ops.tree_eval import RowTable
+from pilosa_tpu_torch.ops.tree_eval import RowTable, ShardedTable
 
 DEFAULT_MAX_BATCH = 64
 DEFAULT_MAX_WAIT_US = 0
@@ -131,8 +143,12 @@ class _Item:
     # launch attribution).
     trace_id: str = ""
     # A tree with a BSI node: its launch, ``direct(reduce)`` — the ripple
-    # route over the waiter's cached batch (``Executor._direct_eval``).
+    # route over the waiter's cached batch (``Executor._direct_eval``); a
+    # list of one a member for a sharded batch.
     direct: object = None
+    # A sharded "total": called inside the watched collective body (the
+    # executor's ``collective`` fault check point).
+    check: object = None
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -155,8 +171,12 @@ class CoalesceScheduler:
         fuse: bool = True,
         fuse_max_programs: int = DEFAULT_FUSE_MAX_PROGRAMS,
         stats=None,
+        health=None,
     ):
         self.stats = stats or NopStatsClient()
+        # The node's DeviceHealth: sharded "total" drains run under its
+        # collective watchdog (None: the collective lock alone).
+        self.health = health
         self.max_batch = max(1, int(max_batch))
         self.max_wait_us = max(0, int(max_wait_us))
         self.fuse = bool(fuse) and int(fuse_max_programs) >= 2
@@ -188,20 +208,27 @@ class CoalesceScheduler:
     # producer side
     # ------------------------------------------------------------------
 
-    def submit(self, expr: tuple, reduce: str, batch: RowTable, leaf_keys=None,
-               direct=None) -> Future:
-        """Enqueue one row table for a coalesced launch of ``expr`` with
-        ``reduce``; ``leaf_keys`` (optional) are per-column row identities
-        for union-leaf sharing in fused launches.  A tree with a BSI node
-        comes with ``direct``, its per-key launch (``direct(reduce)`` ->
-        the table's result on the device)."""
+    def submit(self, expr: tuple, reduce: str, batch, leaf_keys=None,
+               direct=None, check=None) -> Future:
+        """Enqueue one row table (or a sharded batch: ``ShardedTable``,
+        whose per-member leaf keys it carries) for a coalesced launch of
+        ``expr`` with ``reduce``; ``leaf_keys`` (optional) are per-column
+        row identities for union-leaf sharing in fused launches.  A tree
+        with a BSI node comes with ``direct``, its per-key launch
+        (``direct(reduce)`` -> the table's result on the device; one a
+        member for a sharded batch).  ``check`` runs inside a sharded
+        "total" drain's watched body."""
         if plan.expr_has_bsi(expr) and direct is None:
             raise ValueError("a tree with a BSI node needs its per-key launch")
-        key = (expr, reduce, tuple(batch.shape[1:]), str(batch.device))
+        if isinstance(batch, ShardedTable):
+            key = (expr, reduce, tuple(batch.shape[1:]), ("mesh",) + batch.layout)
+            leaf_keys = None
+        else:
+            key = (expr, reduce, tuple(batch.shape[1:]), str(batch.device))
         if leaf_keys is not None and len(leaf_keys) != batch.shape[1]:
             leaf_keys = None
         item = _Item(batch=batch, future=Future(), leaf_keys=leaf_keys,
-                     trace_id=perf_mod.current_trace_id(), direct=direct)
+                     trace_id=perf_mod.current_trace_id(), direct=direct, check=check)
         self._enqueue(key, item)
         return item.future
 
@@ -355,6 +382,9 @@ class CoalesceScheduler:
             self._launch_fetch(items)
             return
         expr, reduce, _tail, _device = key
+        if isinstance(_device, tuple):
+            self._launch_sharded(key, items, extra)
+            return
         if items[0].direct is not None:
             self._launch_direct(expr, reduce, items)
             return
@@ -434,6 +464,58 @@ class CoalesceScheduler:
             "launch_ms": round(launch_ms, 3),
         }
         for it in items:
+            it.future.set_result((res, info))
+
+    def _launch_sharded(self, key, items: list, extra=()) -> None:
+        """A drain of sharded batches of one member layout: every launch
+        of the drain once a member over that member's tables, then each
+        waiter's parts combined (see the module docstring)."""
+        expr, reduce, tail, layout = key
+        members = layout[1:]
+        groups = [(key, items)] + list(extra)
+        waiters = [it for _k, its in groups for it in its]
+
+        def sub(it, i):
+            return _Item(batch=it.batch.tables[i], future=Future(),
+                         leaf_keys=it.batch.leaf_keys[i], trace_id=it.trace_id,
+                         direct=None if it.direct is None else it.direct[i])
+
+        def run():
+            parts = [[] for _ in waiters]
+            infos = []
+            for i, (m, dev) in enumerate(members):
+                subs = [[sub(it, i) for it in its] for _k, its in groups]
+                sub_keys = [(k[0], k[1], k[2], f"{dev}#{m}") for k, _its in groups]
+                self._launch(sub_keys[0], subs[0], list(zip(sub_keys[1:], subs[1:])))
+                flat = [s for ss in subs for s in ss]
+                for j, s in enumerate(flat):
+                    res, info = s.future.result(timeout=0)
+                    parts[j].append(res)
+                infos.append(info)
+            return parts, infos
+
+        t0 = time.monotonic()
+        if reduce == "total":
+            def body():
+                for it in waiters:
+                    if it.check is not None:
+                        it.check()
+                return run()
+
+            parts, infos = plan.run_collective(body, self.health)
+            t1 = time.monotonic()
+            self._record("collective", "total", waiters, sum(
+                it.batch.shape[0] for it in items), tail[0], t0, t1, t1)
+        else:
+            parts, infos = run()
+        info = dict(infos[0], members=len(members))
+        for it, ps in zip(waiters, parts):
+            if reduce == "total":
+                res = int(sum(int(p) for p in ps))
+            elif reduce == "count":
+                res = np.concatenate([np.asarray(p) for p in ps])
+            else:
+                res = ps
             it.future.set_result((res, info))
 
     def _launch_direct(self, expr, reduce, items: list) -> None:

@@ -152,7 +152,7 @@ from pilosa_tpu_torch.obs import perf as perf_mod
 from pilosa_tpu_torch.obs import trace
 from pilosa_tpu_torch.ops import bitplane as bp
 from pilosa_tpu_torch.ops import bsi_ripple, expand_payload, score_planes
-from pilosa_tpu_torch.ops.tree_eval import RowTable
+from pilosa_tpu_torch.ops.tree_eval import RowTable, ShardedTable
 from pilosa_tpu_torch.pql.parser import TIME_FORMAT, Call, Query
 from pilosa_tpu_torch.testing import faults
 
@@ -269,6 +269,53 @@ class _BatchEntry:
 
 
 @dataclass
+class _MeshEntry:
+    """A batch over a mesh (JAX ``executor.py:1084-1140``): one cached
+    :class:`_BatchEntry` a member, over the slices homed there (``slice
+    mod n``), each with its table (None where the member keeps no slice).
+    ``kept`` and ``empties`` are in slice order; the batch's launch order
+    is the members' tables in turn, and ``pos_of`` maps a kept slice to
+    its position there.  The port pads nothing: each member's table takes
+    its own slice count, so no pad slice exists to skip."""
+
+    expr: tuple
+    kept: list
+    empties: list
+    parts: list
+    pin_keys: tuple
+    leaf_inputs: tuple
+    pos_of: dict
+
+    @classmethod
+    def of(cls, expr: tuple, parts: list) -> "_MeshEntry":
+        kept, empties, pin_keys, pos_of, n = [], [], {}, {}, 0
+        for _m, ent, table in parts:
+            empties += ent.empties
+            pin_keys.update(dict.fromkeys(ent.pin_keys))
+            if table is None:
+                continue
+            for i, s in enumerate(ent.kept):
+                pos_of[s] = n + i
+            n += len(ent.kept)
+            kept += ent.kept
+        return cls(expr=expr, kept=sorted(kept), empties=sorted(empties), parts=parts,
+                   pin_keys=tuple(pin_keys), leaf_inputs=parts[0][1].leaf_inputs,
+                   pos_of=pos_of)
+
+    def live(self) -> list:
+        """``(member, entry, table)`` of the members that keep a slice, in
+        the batch's launch order."""
+        return [p for p in self.parts if p[2] is not None]
+
+    def table(self) -> ShardedTable | None:
+        live = self.live()
+        if not live:
+            return None
+        return ShardedTable([m for m, _, _ in live], [t for _, _, t in live],
+                            [e.leaf_keys for _, e, _ in live])
+
+
+@dataclass
 class _TopnEntry:
     """A cached folded-TopN prep (JAX ``executor.py:2515-2610``): ``kind``
     is ``"empty"``, ``"two_phase"`` or ``"parts"``; ``parts`` are ``(frag,
@@ -277,9 +324,10 @@ class _TopnEntry:
     and the plane (the fragment's mirror the candidate slots index) held
     by a weak reference, so that an evicted mirror is freed and the entry
     found stale.  ``nbytes`` are the device bytes the entry owns (the
-    evaluated src rows).  ``scores`` memoize each part's fetched scores
-    (dense, sparse) for as long as the entry holds; ``score_event`` is the
-    single flight of the first scoring."""
+    evaluated src rows), ``device_bytes`` the same by device (on a mesh
+    each src row lies on its slice's member).  ``scores`` memoize each
+    part's fetched scores (dense, sparse) for as long as the entry holds;
+    ``score_event`` is the single flight of the first scoring."""
 
     key: tuple
     kind: str
@@ -289,6 +337,7 @@ class _TopnEntry:
     versions: tuple | None
     built_at: float
     nbytes: int = 0
+    device_bytes: dict = field(default_factory=dict)
     scores: list | None = None
     score_event: threading.Event | None = None
 
@@ -302,11 +351,15 @@ class _TopnEntry:
             ref = None if sub is None else weakref.ref(sub.plane)
             if src is not None:
                 st_ = src.untyped_storage()
-                storages[st_.data_ptr()] = st_.nbytes()
+                storages[st_.data_ptr()] = (src.device, st_.nbytes())
             parts.append((frag, topt, cand_ids, cand_mask,
                           (st, ref, None if sub is None else sub.slots, src, slot)))
+        device_bytes: dict = {}
+        for dev, nb in storages.values():
+            device_bytes[dev] = device_bytes.get(dev, 0) + nb
         return cls(key=key, kind=kind, parts=parts, epoch=epoch, mirror_epoch=mepoch,
-                   versions=versions, built_at=time.monotonic(), nbytes=sum(storages.values()))
+                   versions=versions, built_at=time.monotonic(),
+                   nbytes=sum(device_bytes.values()), device_bytes=device_bytes)
 
     def query_parts(self) -> list | None:
         """One query's parts — ``(frag, topt, cand_ids, cand_mask, (state,
@@ -403,7 +456,7 @@ class Executor:
         # executor builds and owns a default one (JAX executor.py:352).
         self._owns_health = device_health is None
         self.device_health = device_health or health_mod.DeviceHealth(
-            stats=getattr(holder, "stats", None), device=getattr(holder, "device", None)
+            stats=getattr(holder, "stats", None), device=getattr(holder, "placed", None)
         )
         # What answers while the card is quarantined or a launch failed:
         # the host planes, byte for byte (exec/hosteval.py).
@@ -686,13 +739,13 @@ class Executor:
                 out.append(leaf)
         return out
 
-    def _stack_rows(self, sources: list[list]) -> tuple[torch.Tensor, list, list]:
+    def _stack_rows(self, sources: list[list], device: torch.device
+                    ) -> tuple[torch.Tensor, list, list]:
         """One row leaf's int32 [n, 32768] stack over the kept slices
         from each slice's row sources: plane rows copied in one stack,
         every compressed row returned as a K6 job writing its stack row
         (or, in a union of several views, a scratch row OR-ed in after
         the launch — ``(stack, i, rows)`` in the second list)."""
-        device = self.holder.device
         zero = self._zero_row(device)
         plain = [len(p) == 1 and p[0][0] == bp.FMT_DENSE for p in sources]
         if any(plain):
@@ -720,7 +773,8 @@ class Executor:
         return out, jobs, unions
 
     def leaf_stacks(
-        self, index: str, leaves: list[Call], slices: list[int]
+        self, index: str, leaves: list[Call], slices: list[int],
+        device: torch.device | None = None,
     ) -> tuple[list, list[int]]:
         """The plan's inputs for every leaf over the slices where at least
         one leaf row exists (elsewhere every tree is empty): ``(inputs,
@@ -730,7 +784,10 @@ class Executor:
         a field the field's one ``bsi_ripple.FieldPlanes`` — its fragments'
         mirrors and the rows of exists, sign and each magnitude bit in
         them, read in place by the ripple kernel; a predicate a
-        ``plan.PredLeaf``; a pad plane None."""
+        ``plan.PredLeaf``; a pad plane None.  ``device`` is where the
+        slices' mirrors live (default the holder's): on a mesh, the caller
+        passes one member's slices and its device."""
+        device = self.holder.device if device is None else device
         targets = [self._resolve_leaf(index, leaf) for leaf in leaves]
         # Every fragment a leaf reads is brought up to date first, in one
         # K7 launch for all of them.
@@ -777,13 +834,13 @@ class Executor:
         field_planes = {
             key: bsi_ripple.FieldPlanes(
                 mirrors[key], np.asarray(slots[key], dtype=np.int64),
-                bsi.pad_depth(len(prows) - 2), self.holder.device,
+                bsi.pad_depth(len(prows) - 2), device,
             )
             for key, (_, prows) in fields.items()
         }
         stacks, jobs, unions = {}, [], []
         for j, srcs in rows.items():
-            stacks[j], leaf_jobs, leaf_unions = self._stack_rows(srcs)
+            stacks[j], leaf_jobs, leaf_unions = self._stack_rows(srcs, device)
             jobs += leaf_jobs
             unions += leaf_unions
         if jobs:
@@ -1026,6 +1083,8 @@ class Executor:
             if table is None:
                 return _NoLaunch(0)
             with device_mod.pool().pinned(*ent.pin_keys):
+                if isinstance(ent, _MeshEntry):
+                    return self._mesh_count(ent, table, retry)
                 if self.coalescer is not None and not retry:
                     res = self._coalesce_eval(ent, table, "count")
                     if res is not None:
@@ -1062,6 +1121,8 @@ class Executor:
             if table is None:
                 return _NoLaunch(([], None))
             with device_mod.pool().pinned(*ent.pin_keys):
+                if isinstance(ent, _MeshEntry):
+                    return ent.kept, self._mesh_rows(ent, table, retry)
                 if self.coalescer is not None and not retry:
                     res = self._coalesce_eval(ent, table, "row")
                     if res is not None:
@@ -1079,6 +1140,76 @@ class Executor:
         return self._launch_guarded(
             launch, retry_fn=functools.partial(launch, retry=True),
             host_fn=lambda: self._host_rows(index, c, self._host_slices(got, slices)))
+
+    def _mesh_count(self, ent: _MeshEntry, table: ShardedTable, retry: bool) -> int:
+        """Count(tree) over a mesh batch (JAX ``executor.py:1804-1935``).
+        Within the partial budget, and while the ``collective`` path is
+        admitted, the cross-member reduce is the collective: through the
+        coalescer, a "total" drain (one K2 or fused K3 launch a member,
+        summed under the collective watchdog); directly, one K2 "total"
+        launch a member and the int64 sum in a body that
+        ``DeviceHealth.run_collective`` watches, with the ``collective``
+        fault check point inside it.  A trip or a quarantine, or a batch
+        past the budget, takes the per-member "count" partials, summed on
+        the host in int64."""
+        health = self.device_health
+        fits = len(ent.kept) <= plan.MAX_ONDEVICE_COUNT_PARTIALS
+        degraded = (health_mod.LaunchWatchdogTimeout, health_mod.CollectiveUnavailable)
+        if self.coalescer is not None and not retry:
+            if fits and health.collective_allowed():
+                try:
+                    res = self._coalesce_eval(ent, table, "total")
+                except degraded:
+                    self._note_collective_fallback()
+                else:
+                    if res is not None:
+                        return int(res)
+            res = self._coalesce_eval(ent, table, "count")
+            if res is not None:
+                return int(np.asarray(res).sum(dtype=np.int64))
+        live = ent.live()
+        with self._device_span("total"):
+            self._fault_check_launch("direct")
+            if fits and health.collective_allowed():
+                def body():
+                    self._fault_check_launch("collective")
+                    t0 = time.monotonic()
+                    n = plan.total_count(live, lambda m: self._direct_eval(m[1], m[2], "total"))
+                    t1 = time.monotonic()
+                    self._record_direct_launch(table, "total", t0, t1, t1, "collective")
+                    return n
+
+                try:
+                    return plan.run_collective(body, health)
+                except degraded:
+                    self._note_collective_fallback()
+            t0 = time.monotonic()
+            outs = [self._direct_eval(pe, t, "count") for _m, pe, t in live]
+            t_disp = time.monotonic()
+            n = int(sum(int(o.cpu().sum(dtype=torch.int64)) for o in outs))
+            self._record_direct_launch(table, "count", t0, t_disp, time.monotonic())
+        return n
+
+    def _note_collective_fallback(self) -> None:
+        self.holder.stats.count("device.collective.fallbacks")
+        plan.note_collective_fallback()
+
+    def _mesh_rows(self, ent: _MeshEntry, table: ShardedTable, retry: bool) -> list:
+        """A mesh batch's result rows, one K2 "row" launch a member
+        (through the coalescer, or directly), merged in slice order:
+        ``rows[i]`` is slice ``ent.kept[i]``'s row, on its member's
+        device."""
+        per = None
+        if self.coalescer is not None and not retry:
+            per = self._coalesce_eval(ent, table, "row")
+        if per is None:
+            with self._device_span("row"):
+                self._fault_check_launch("direct")
+                t0 = time.monotonic()
+                per = [self._direct_eval(pe, t, "row") for _m, pe, t in ent.live()]
+                self._record_direct_launch(table, "row", t0, time.monotonic(), t0)
+        flat = [r for rows in per for r in rows]
+        return [flat[ent.pos_of[s]] for s in ent.kept]
 
     @staticmethod
     def _host_slices(got: list, slices: list[int]) -> list[int]:
@@ -1200,11 +1331,18 @@ class Executor:
         # its own, never poisoning the shared launch (JAX executor.py:1450).
         self._fault_check_launch("coalesce")
         with self.tracer.span("coalesce", reduce=reduce, warm=True) as sp:
+            if isinstance(ent, _MeshEntry):
+                sub = dict(
+                    leaf_keys=None,
+                    direct=[functools.partial(self._direct_eval, pe, t)
+                            for _m, pe, t in ent.live()] if ent.leaf_inputs else None,
+                    check=functools.partial(self._fault_check_launch, "collective"))
+            else:
+                sub = dict(leaf_keys=ent.leaf_keys,
+                           direct=functools.partial(self._direct_eval, ent, table)
+                           if ent.leaf_inputs else None)
             try:
-                fut = self.coalescer.submit(
-                    ent.expr, reduce, table, leaf_keys=ent.leaf_keys,
-                    direct=functools.partial(self._direct_eval, ent, table)
-                    if ent.leaf_inputs else None)
+                fut = self.coalescer.submit(ent.expr, reduce, table, **sub)
             except coalesce_mod.CoalesceClosed:
                 sp.annotate(fallback="closed")
                 return None
@@ -1274,12 +1412,34 @@ class Executor:
         per (index, call, slice list).  A hit costs O(1) while no
         fragment changed and no mirror moved anywhere; otherwise every
         fragment's (serial, version, mirror generation) must still be the
-        entry's.  A build applies every queued write first (one K7)."""
-        with self.tracer.span("plan", slices=len(slices)) as sp:
-            return self._cached_batch_lookup(index, c, expr, leaves, slices, sp)
+        entry's.  A build applies every queued write first (one K7).
 
-    def _cached_batch_lookup(self, index, c, expr, leaves, slices, sp):
-        key = (index, str(c), tuple(slices))
+        On a mesh (more than one member in ``bitplane.placement`` of the
+        holder's device) the batch is a :class:`_MeshEntry` and its table
+        a ``ShardedTable``: the slices group by home member and each group
+        is its own cached entry, built over the mirrors homed there and
+        keyed by the member's place in the layout, so a node whose member
+        layout changed never reuses a table built for the old one."""
+        members = bp.placement(self.holder.placed)
+        with self.tracer.span("plan", slices=len(slices)) as sp:
+            if len(members) < 2:
+                return self._cached_batch_lookup(index, c, expr, leaves, slices, sp,
+                                                 (0, 1, members[0]))
+            sp.annotate(members=len(members))
+            n = len(members)
+            parts = []
+            for m, group in bp.group_by_member(slices, n).items():
+                ent, table = self._cached_batch_lookup(index, c, expr, leaves, group, sp,
+                                                       (m, n, members[m]))
+                parts.append((m, ent, table))
+            ent = _MeshEntry.of(expr, parts)
+            return ent, ent.table()
+
+    def _cached_batch_lookup(self, index, c, expr, leaves, slices, sp, member: tuple):
+        """One member's entry (``member`` = (index, members, device)) over
+        the slices homed there: the whole batch on one device."""
+        device = member[2]
+        key = (index, str(c), tuple(slices), (member[0], member[1], str(device)))
         with self._batch_mu:
             ent = self._batch_cache.get(key)
         if ent is not None:
@@ -1299,7 +1459,7 @@ class Executor:
                 return ent, table
         sp.annotate(batch_cache="miss")
         self.holder.stats.count("exec.batch.build")
-        ent, table = self._cached_batch_build(index, key, expr, leaves, slices)
+        ent, table = self._cached_batch_build(index, key, expr, leaves, slices, device)
         displaced = []
         with self._batch_mu:
             self._batch_cache[key] = ent
@@ -1311,7 +1471,7 @@ class Executor:
         for k in displaced:
             pool.remove(self._batch_pool_key(k))
         if ent.nbytes:
-            pool.admit(self._batch_pool_key(key), {self.holder.device: ent.nbytes},
+            pool.admit(self._batch_pool_key(key), {device: ent.nbytes},
                        functools.partial(self._evict_batch_key, key), category="cache",
                        info={"cache": "batch", "index": index, "query": str(c)})
         return ent, table
@@ -1394,7 +1554,11 @@ class Executor:
         return fields
 
     def _cached_batch_build(self, index: str, key: tuple, expr: tuple, leaves: list[Call],
-                            slices: list[int]) -> tuple[_BatchEntry, RowTable | None]:
+                            slices: list[int], device: torch.device | None = None
+                            ) -> tuple[_BatchEntry, RowTable | None]:
+        """One entry over ``slices``, every mirror it names on ``device``
+        (the holder's by default; on a mesh, the member's)."""
+        device = self.holder.device if device is None else device
         # The epochs before anything is read: a change during the build
         # leaves the entry conservatively stale.  Each fragment's state is
         # read under its lock with the row it names.
@@ -1402,7 +1566,6 @@ class Executor:
         targets = self._leaf_targets(index, leaves)
         apply_pending_many(v.fragment(s) for _, views, _, _ in targets for v in views
                            for s in slices)
-        device = self.holder.device
         fields = self._field_leaves(leaves, targets)
         # Bases: the zero row, the mirrors (held weakly), the predicate rows
         # and the scratch rows (held by the entry).
@@ -1563,7 +1726,7 @@ class Executor:
         FieldPlanes over the mirrors the table holds (its address table
         built once), a predicate's value, None for a pad plane, and a row
         leaf's rows copied out of the table by one K2 launch."""
-        device = self.holder.device
+        device = table.device
         fps = [
             bsi_ripple.FieldPlanes([table.bases[b] if b >= 0 else None for b in base_idx],
                                    slots, bucket, device, addrs=addrs)
@@ -1701,25 +1864,29 @@ class Executor:
                 hp = frag.host_payload(rid) if frag is not None else None
                 if hp is not None and hp[0] != bp.FMT_DENSE:
                     any_compressed = True
-            picked.append((ai, card, frags))
+            picked.append((ai, card, frags, s))
         if not any_compressed:
             return None
-        apply_pending_many(f for _, _, frags in picked for f in frags)
-        anchor_leaf = np.array([ai for ai, _, _ in picked], dtype=np.int32)
+        apply_pending_many(f for _, _, frags, _ in picked for f in frags)
         dev_leaves = [
             [frag.device_leaf(rid) if frag is not None else None
              for frag, (_, rid) in zip(frags, resolved)]
-            for _, _, frags in picked
+            for _, _, frags, _ in picked
         ]
+        # One launch a member on a mesh: a launch reads one member's leaves.
+        members = bp.placement(self.holder.placed)
+        groups = bp.group_by_member(range(len(picked)), len(members), lambda i: picked[i][3])
         t0 = time.monotonic()
-        counts = plan.anchored_count(expr, anchor_leaf, dev_leaves, self.holder.device)
+        outs = [plan.anchored_count(
+            expr, np.array([picked[i][0] for i in idx], dtype=np.int32),
+            [dev_leaves[i] for i in idx], members[m]) for m, idx in groups.items()]
         t_disp = time.monotonic()
-        n = int(counts.sum(dtype=torch.int64))
+        n = int(sum(int(o.sum(dtype=torch.int64)) for o in outs))
         if perf_mod.enabled():
             # Logical: every leaf's dense row in every anchored slice;
             # effective: 4 B a position of the anchors and the encoded
             # leaves read once (JAX executor.py:1792).
-            eff = 4 * sum(card for _, card, _ in picked) + sum(
+            eff = 4 * sum(card for _, card, _, _ in picked) + sum(
                 int(lf[1].numel() * lf[1].element_size())
                 for row in dev_leaves for lf in row if lf is not None
             )
@@ -1783,6 +1950,12 @@ class Executor:
                     return _NoLaunch(None)
                 with device_mod.pool().pinned(*ent.pin_keys), self._device_span("agg"):
                     self._fault_check_launch("direct")
+                    if isinstance(ent, _MeshEntry):
+                        # One K8 launch a member, the per-slice vectors in
+                        # the batch's order.
+                        outs = [plan.agg_vectors(expr, self._entry_inputs(pe, t))
+                                for _m, pe, t in ent.live()]
+                        return np.concatenate([o.cpu().numpy() for o in outs])
                     return plan.agg_vectors(expr, self._entry_inputs(ent, table)).cpu().numpy()
 
             res = self._launch_guarded(
@@ -1979,8 +2152,12 @@ class Executor:
             self.hosteval.score_topn_parts(live)
             return False
         self._fault_check_launch("topn")
-        for lo in range(0, len(live), score_planes.MAX_FRAGMENTS):
-            self._score_topn_group(live[lo : lo + score_planes.MAX_FRAGMENTS])
+        # One K4 launch a member group (JAX executor.py:1976-2016): a
+        # launch reads planes of one member only.
+        n = len(bp.placement(self.holder.placed))
+        for grp in bp.group_by_member(live, n, lambda p: p[4].slice).values():
+            for lo in range(0, len(grp), score_planes.MAX_FRAGMENTS):
+                self._score_topn_group(grp[lo : lo + score_planes.MAX_FRAGMENTS])
         return True
 
     def _score_topn_group(self, group: list) -> None:
@@ -2075,17 +2252,21 @@ class Executor:
                 if r is not None
             }
         expr, leaves = plan.decompose(self._rewrite_bsi(index, c.children[0]))
-        inputs, kept = self.leaf_stacks(index, leaves, slices)
-        if not kept:
-            return {}
-        rows = plan.eval_expr(expr, inputs)
-        counts = [None] * len(kept)
-        if _uint_arg(c, "tanimotoThreshold")[0] > 0:
-            counts = [int(x) for x in bp.row_counts(rows).cpu().numpy()]
-        return {
-            s: RowBitmap.from_segment(s, rows[i], counts[i], device=self.holder.device)
-            for i, s in enumerate(kept)
-        }
+        members = bp.placement(self.holder.placed)
+        out = {}
+        # On a mesh, each member's slices evaluate on its device, where the
+        # fragments' mirrors (and so the scorer's planes) live.
+        for m, group in bp.group_by_member(slices, len(members)).items():
+            inputs, kept = self.leaf_stacks(index, leaves, group, members[m])
+            if not kept:
+                continue
+            rows = plan.eval_expr(expr, inputs)
+            counts = [None] * len(kept)
+            if _uint_arg(c, "tanimotoThreshold")[0] > 0:
+                counts = [int(x) for x in bp.row_counts(rows).cpu().numpy()]
+            for i, s in enumerate(kept):
+                out[s] = RowBitmap.from_segment(s, rows[i], counts[i], device=members[m])
+        return dict(sorted(out.items()))
 
     def _topn_view(self, index: str, c: Call):
         """The view a TopN call reads — its frame's inverse view with
@@ -2366,7 +2547,7 @@ class Executor:
             self._drop_topn_keys(displaced)
             if ent.nbytes:
                 device_mod.pool().admit(
-                    self._topn_pool_key(key), {self.holder.device: ent.nbytes},
+                    self._topn_pool_key(key), ent.device_bytes,
                     functools.partial(self._evict_topn_key, key), category="cache",
                     info={"cache": "topn", "index": index, "query": str(c)})
         return ent, parts

@@ -56,6 +56,7 @@ interface.
 from __future__ import annotations
 
 import functools
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -345,6 +346,63 @@ def recombine_count_limbs(limbs):
     hi, lo = limbs[0], limbs[1]
     total = (hi << 16) + lo
     return int(total) if total.ndim == 0 else total
+
+
+# Partial budget of the on-device cross-slice reduce (JAX
+# ``exec/plan.py:336``): the JAX package's (hi, lo) limbs are exact up to
+# 2^15 slice-row partials, and past it its callers take the per-slice
+# host sum.  The port's kernels sum in 64 bits, so either route is exact;
+# the port keeps the budget where the JAX package changes route, so that
+# both routes stay reachable and are tested.
+MAX_ONDEVICE_COUNT_PARTIALS = 1 << 15
+
+
+def collective_launch():
+    """The process-wide cross-member launch lock (JAX ``exec/plan.py:361``):
+    hold it across the launches AND the fetch of any cross-member sum
+    (``total_count``, the coalescer's sharded "total" drains,
+    ``parallel/mesh``'s distributed reduces), so that two threads never interleave launches of one
+    collective across members.  ``DeviceHealth.run_collective`` takes the
+    same lock on its watchdog's runner thread."""
+    from pilosa_tpu_torch.device import health
+
+    return health._COLLECTIVE_MU
+
+
+def run_collective(fn, health=None):
+    """Run one cross-member launch+fetch serialized with every other
+    collective in the process: given a ``DeviceHealth``, under its
+    watchdog and ``collective`` breaker path (``LaunchWatchdogTimeout`` /
+    ``CollectiveUnavailable`` propagate to the caller, who falls back to
+    the per-member partials); else under the collective lock alone."""
+    if health is not None:
+        return health.run_collective(fn)
+    with collective_launch():
+        return fn()
+
+
+# Answers the per-member partials gave because the collective path tripped
+# or was quarantined, process-wide (``parallel/mesh``'s reduces and the
+# executor's mesh Count): a run checks that none happened outside a phase
+# that injects one.
+collective_fallbacks = 0
+_fallback_mu = threading.Lock()
+
+
+def note_collective_fallback() -> None:
+    global collective_fallbacks
+    with _fallback_mu:
+        collective_fallbacks += 1
+
+
+def total_count(tables, launch) -> int:
+    """Count(tree) over a sharded batch — ``launch(table)``, one "total"
+    launch (int64 ``[1]``) on each member's table, all enqueued before any
+    is fetched, then the cross-member sum in int64 (JAX
+    ``compiled_total_count`` with a mesh, ``exec/plan.py:339``).  The
+    caller holds the collective lock (:func:`run_collective`)."""
+    outs = [launch(t) for t in tables]
+    return int(sum(int(o.cpu()[0]) for o in outs))
 
 
 def tree_eval(expr: tuple, reduce: str, table: RowTable) -> torch.Tensor:

@@ -10,9 +10,10 @@ compile cache to port and no shape grid to warm: :func:`prewarm` builds
 every kernel and makes one launch of each of the query path's kernels at
 the standard shapes — K2's three reduces over the 2-leaf Intersect, K3's
 three reduces over a small fused table, K1 over one row — so that a
-fresh node's first query pays neither a build nor a first launch.  On
-the CPU there is nothing to build, and the launches run the plain
-versions.
+fresh node's first query pays neither a build nor a first launch.  On a
+mesh it warms each member's launches (JAX ``exec/warmup.py:192-220``),
+once a member, on the member's device.  On the CPU there is nothing to
+build, and the launches run the plain versions.
 """
 
 from __future__ import annotations
@@ -34,10 +35,16 @@ _STANDARD_EXPR = ("Intersect", ("leaf", 0), ("leaf", 1))
 
 def prewarm(device=None) -> int:
     """Build every kernel (on CUDA) and launch each query-path kernel once
-    on zero rows of ``device``; returns the launches made."""
-    device = device_mod.resolve(device)
+    on zero rows of every member of ``device``'s placement
+    (``bitplane.placement``: the device alone off a mesh); returns the
+    launches made."""
+    device = device_mod.placed(device)
     if device.type == "cuda":
         _build.build_all()
+    return sum(_prewarm_member(d) for d in bp.placement(device))
+
+
+def _prewarm_member(device: torch.device) -> int:
     rows = torch.zeros(2, bp.WORDS_PER_SLICE, dtype=torch.int32, device=device)
     table = RowTable([rows], np.asarray([[[0, 0], [0, 1]]], dtype=np.int64))
     em = plan.FuseEmitter(2)

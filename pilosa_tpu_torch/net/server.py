@@ -178,6 +178,7 @@ class Server:
         quarantine_threshold: int = health_mod.DEFAULT_QUARANTINE_THRESHOLD,
         quarantine_open_ms: float = health_mod.DEFAULT_OPEN_MS,
         quarantine_probe_successes: int = health_mod.DEFAULT_PROBE_SUCCESSES,
+        mesh_devices: int = 0,
     ):
         if cluster_type == "gossip":
             raise ValueError("cluster type 'gossip' is not supported by this port yet")
@@ -192,6 +193,13 @@ class Server:
             raise ValueError(f"unknown plane-format {plane_format!r}")
         self.device = device_mod.resolve(device)
         self.host = host
+        # [device] mesh-devices (JAX server.py:57): applied at open, before
+        # any fragment is placed; 0 leaves the process-wide setting.  A
+        # node pinned to one card (``cuda:N``) keeps every slice there.
+        self.mesh_devices = int(mesh_devices)
+        if self.mesh_devices > 1 and device_mod.placed(device).index is not None:
+            raise ValueError(f"device {self.device} pins the node to one card; "
+                             f"mesh-devices {self.mesh_devices} needs the bare 'cuda'")
         # The sparse tier's container policy (bitplane.encode_row):
         # process-wide, as in the JAX package, applied at open().
         self.plane_format = plane_format
@@ -226,7 +234,7 @@ class Server:
         self.stats = stats
         self.tracer = Tracer(capacity=trace_ring)
         self.floor_probe = floor_probe
-        self.holder = Holder(data_dir, device=self.device)
+        self.holder = Holder(data_dir, device=device)
         self.holder.on_create_slice = self._on_create_slice
         if stats is not None:
             # Root of the tag chain: indexes opened from disk, and all
@@ -243,7 +251,7 @@ class Server:
             stats=stats,
             logger=_log,
             on_state_change=self._on_device_health_change,
-            device=self.device,
+            device=self.holder.placed,
         )
         self.executor = Executor(
             self.holder,
@@ -289,6 +297,12 @@ class Server:
             _log(f"FAULT INJECTION ACTIVE: {len(plan.rules)} rule(s): "
                  + "; ".join(f"{r.stage}/{r.kind or r.mode}" for r in plan.rules))
         bp.configure_plane_format(mode=self.plane_format)
+        if self.mesh_devices:
+            bp.configure_mesh_devices(self.mesh_devices)
+        members = bp.placement(self.holder.placed)
+        if len(members) > 1:
+            _log(f"data plane: mesh-sharded over {len(members)} devices "
+                 f"({', '.join(str(d) for d in members)})")
         # The pool's budget and the WAL manager before any fragment
         # opens: mirrors register at their first upload, and fragments
         # replay their segments and attach writers as they open.
@@ -326,10 +340,11 @@ class Server:
                 fuse=self.fuse,
                 fuse_max_programs=self.fuse_max_programs,
                 stats=self.stats,
+                health=self.device_health,
             )
         self.executor.coalescer = self.coalescer
         if self.prewarm:
-            warmup.prewarm_async(self.device, logger=lambda m: print(m, file=sys.stderr))
+            warmup.prewarm_async(self.holder.placed, logger=lambda m: print(m, file=sys.stderr))
         self.executor.prefetcher = device_mod.prefetcher() if self.device_prefetch else None
         self.executor.ingest = self.ingest
         self.handler.ingest = self.ingest

@@ -36,6 +36,8 @@ SOURCES = {
     "tree_eval": "tree_eval.cu",
     "interp": "interp.cu",
     "stream_sum": "stream_sum.cu",
+    "mesh_topn": "mesh_topn.cu",
+    "top_k": "top_k.cu",
 }
 
 NVCC_FLAGS = (

@@ -17,6 +17,9 @@ version on the CPU).  Counts come back as Python ints.
 
 from __future__ import annotations
 
+import functools
+import os
+
 import numpy as np
 import torch
 
@@ -177,6 +180,144 @@ def np_group_by(keys: np.ndarray, *arrays: np.ndarray):
     for i, k in enumerate(uniq):
         lo, hi = int(bounds[i]), int(bounds[i + 1])
         yield int(k), tuple(a[lo:hi] for a in sorted_arrays)
+
+
+# ---------------------------------------------------------------------------
+# Slice placement over the local member devices (JAX ops/bitplane.py:198-283).
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=8)
+def _parse_mesh_shape(shape: str) -> int | None:
+    """Device cap from a mesh-shape string ("4", "4x2", ...); None when
+    unset, malformed, or non-positive (a bad value must never silently
+    disable sharding)."""
+    factors = shape.lower().replace("x", " ").split()
+    if not factors:
+        return None
+    try:
+        want = 1
+        for f in factors:
+            want *= int(f)
+    except ValueError:
+        return None
+    return want if want >= 1 else None
+
+
+# [device] mesh-devices override (Server(mesh_devices=...), tests): the
+# process-global device-count cap for slice placement and the slices
+# mesh.  0 = unset (fall through to the envs, default all visible
+# devices); 1 = force the single-device data plane; N caps the mesh.
+_MESH_DEVICES_OVERRIDE = 0
+
+# The local member devices, when a caller sets them (tests and the smoke
+# script; production never does): torch has no counterpart of XLA's forced
+# host-device count, so a list such as ["cpu"] * 8 or ["cuda:0"] * 4 stands
+# in for it.  A device may appear more than once: placement keys on the
+# member's index, so repeated devices are distinct members.  None = every
+# visible CUDA device.
+_LOCAL_MEMBERS: tuple | None = None
+
+
+def configure_mesh_devices(n: int) -> None:
+    """Set (or with 0, clear) the process-wide ``[device] mesh-devices``
+    cap.  Placement is process-global state: in-process multi-server
+    setups (tests) share whatever the last caller set."""
+    global _MESH_DEVICES_OVERRIDE
+    _MESH_DEVICES_OVERRIDE = max(0, int(n))
+
+
+def set_local_members(devices) -> None:
+    """Set (or with None, clear) the process-wide list of local member
+    devices that stands in for the visible CUDA devices."""
+    global _LOCAL_MEMBERS
+    _LOCAL_MEMBERS = None if devices is None else tuple(torch.device(d) for d in devices)
+
+
+def local_members() -> tuple:
+    """Every local member device, before the cap: the list a caller set,
+    else one per visible CUDA device."""
+    if _LOCAL_MEMBERS is not None:
+        return _LOCAL_MEMBERS
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return tuple(torch.device("cuda", i) for i in range(n))
+
+
+def _mesh_devices_cap() -> int | None:
+    """The effective device cap: explicit configure_mesh_devices wins,
+    then ``PILOSA_DEVICE_MESH_DEVICES`` (0 = all visible), then the
+    legacy ``PILOSA_TPU_MESH_SHAPE`` factor product; None = uncapped.
+    Malformed values never silently disable sharding."""
+    if _MESH_DEVICES_OVERRIDE > 0:
+        return _MESH_DEVICES_OVERRIDE
+    raw = os.environ.get("PILOSA_DEVICE_MESH_DEVICES", "")
+    if raw:
+        try:
+            v = int(raw)
+            if v >= 1:
+                return v
+        except ValueError:
+            pass
+    return _parse_mesh_shape(os.environ.get("PILOSA_TPU_MESH_SHAPE", ""))
+
+
+def participating_devices() -> tuple:
+    """The member devices of slice placement under the cap, in member
+    order."""
+    members = local_members()
+    cap = _mesh_devices_cap()
+    return members if cap is None else members[:cap]
+
+
+def mesh_device_count() -> int:
+    """Local members participating in slice placement and the slices
+    mesh: the ``[device] mesh-devices`` cap (env
+    ``PILOSA_DEVICE_MESH_DEVICES``; 0 = all visible, 1 = force
+    single-device), else the legacy ``PILOSA_TPU_MESH_SHAPE`` product,
+    else every local member.  With more than one the mesh-sharded data
+    plane engages by default."""
+    return len(participating_devices())
+
+
+def placement(device: torch.device) -> tuple:
+    """The members that hold the slices of a holder placed by ``device``
+    (``device.placed``): a card named by its index (``cuda:N``) alone —
+    the node is pinned to it; else the participating members when they
+    are of its device type; else ``device`` alone (a CPU holder on a
+    machine with cards), a bare ``cuda`` as the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is not None:
+        return (device,)
+    devs = participating_devices()
+    if devs and all(d.type == device.type for d in devs):
+        return devs
+    if device.type == "cuda":
+        return (torch.device("cuda", torch.cuda.current_device()),)
+    return (device,)
+
+
+def home_member(slice_i: int, n_members: int) -> int:
+    """The member that owns a slice: ``slice mod n`` — the in-host
+    analog of the reference's slice->node placement (reference:
+    cluster.go:202-216)."""
+    return slice_i % n_members
+
+
+def group_by_member(items, n_members: int, slice_of=None) -> dict[int, list]:
+    """``items`` (slices, or anything ``slice_of`` maps to its slice)
+    grouped by their slice's home member, in member order."""
+    groups: dict[int, list] = {}
+    for it in items:
+        s = it if slice_of is None else slice_of(it)
+        groups.setdefault(home_member(s, n_members), []).append(it)
+    return dict(sorted(groups.items()))
+
+
+def home_device(slice_i: int, device: torch.device) -> torch.device:
+    """The device that owns a slice's fragment planes, for a holder placed
+    by ``device``: its home member's (``placement``)."""
+    devs = placement(torch.device(device))
+    return devs[home_member(slice_i, len(devs))]
 
 
 # ---------------------------------------------------------------------------
@@ -534,9 +675,11 @@ def expand_payload(fmt: int, payload: torch.Tensor) -> torch.Tensor:
 def top_k(counts: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k (count, index) by count descending, ties broken by the
     smaller index first — the reference's Pair order (reference:
-    cache.go:316-330).  ``torch.topk`` promises no tie order, so this
-    is a stable descending sort."""
-    kk = min(k, counts.shape[0])
-    vals, idx = torch.sort(counts, descending=True, stable=True)
-    return vals[:kk], idx[:kk]
+    cache.go:316-330): the top_k kernel (``ops/top_k.py``) on CUDA, its
+    plain stable sort on the CPU.  Unlike ``jax.lax.top_k`` the kernel
+    takes ``k`` past 1,024 (``top_k.MAX_K``) only for at most 2,048
+    counts (one tile); it raises past that, and ``k > n`` is clipped to
+    ``n``."""
+    from pilosa_tpu_torch.ops import top_k as top_k_mod
 
+    return top_k_mod.top_k(counts, k)

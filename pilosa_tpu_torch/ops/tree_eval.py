@@ -95,8 +95,9 @@ def _kernel():
 class RowTable:
     """The rows a K2 or K3 launch reads in place: slice ``s``, leaf ``l``
     is row ``index[s, l, 1]`` of ``bases[index[s, l, 0]]``.  ``bases`` are
-    int32 ``[rows, 32768]`` contiguous tensors on one device (mirrors, an
-    owner's scratch rows, a zero row), held by the table so that no row it
+    int32 ``[rows, words]`` contiguous tensors on one device (mirrors, an
+    owner's scratch rows, a zero row: ``words`` is 32,768; the mesh
+    functions' plane stacks may be narrower), held by the table so that no row it
     names is freed while it lives.  ``index`` is int64 ``[S, L, 2]`` on the
     host.  ``addrs`` is the table the kernels read — int64 ``[S, L]`` row
     addresses on the card — computed at first use and kept; ``ident``
@@ -112,19 +113,21 @@ class RowTable:
     table made unchecked is checked in full when a wrapper first takes
     it: an index past its base would be a wild read on the card."""
 
-    __slots__ = ("bases", "index", "addrs", "ident", "checked")
+    __slots__ = ("bases", "index", "addrs", "ident", "checked", "words")
 
     def __init__(self, bases: Sequence[torch.Tensor], index: np.ndarray,
-                 addrs: torch.Tensor | None = None, checked: bool = False):
+                 addrs: torch.Tensor | None = None, checked: bool = False,
+                 words: int = WORDS_PER_SLICE):
         self.bases = list(bases)
         self.index = index
         self.addrs = addrs
         self.ident = id(index)  # unique while the table holds ``index``
         self.checked = checked
+        self.words = int(words)
 
     @property
     def shape(self) -> tuple[int, int, int]:
-        return int(self.index.shape[0]), int(self.index.shape[1]), WORDS_PER_SLICE
+        return int(self.index.shape[0]), int(self.index.shape[1]), self.words
 
     @property
     def device(self) -> torch.device:
@@ -143,9 +146,9 @@ class RowTable:
             raise ValueError("index must be an int64 [S >= 1, L >= 1, 2] array")
         dev = self.device
         for b in self.bases:
-            if b.dtype != torch.int32 or b.dim() != 2 or b.shape[1] != WORDS_PER_SLICE \
+            if b.dtype != torch.int32 or b.dim() != 2 or b.shape[1] != self.words \
                     or not b.is_contiguous():
-                raise ValueError(f"bases must be contiguous int32 [rows, {WORDS_PER_SLICE}]")
+                raise ValueError(f"bases must be contiguous int32 [rows, {self.words}]")
             if b.device != dev:
                 raise ValueError(f"every base must lie on {dev}")
         rows = np.asarray([b.shape[0] for b in self.bases], dtype=np.int64)
@@ -160,7 +163,7 @@ class RowTable:
         """The int64 ``[S, L]`` row addresses on the table's device."""
         if self.addrs is None:
             ptrs = np.asarray([b.data_ptr() for b in self.bases], dtype=np.int64)
-            flat = ptrs[self.index[..., 0]] + self.index[..., 1] * ROW_BYTES
+            flat = ptrs[self.index[..., 0]] + self.index[..., 1] * (self.shape[2] * 4)
             self.addrs = torch.from_numpy(np.ascontiguousarray(flat)).to(self.device)
         return self.addrs
 
@@ -189,7 +192,7 @@ class RowTable:
         if all(t.addrs is not None for t in tables):
             addrs = torch.cat([t.addrs for t in tables])
         return RowTable(bases, np.concatenate(parts), addrs,
-                        checked=all(t.checked for t in tables))
+                        checked=all(t.checked for t in tables), words=tables[0].words)
 
     @staticmethod
     def concat_leaves(tables: Sequence["RowTable"], cols: Sequence[Sequence[int]]) -> "RowTable":
@@ -201,7 +204,30 @@ class RowTable:
         if all(t.addrs is not None for t in tables):
             addrs = torch.cat([t.addrs[:, list(c)] for t, c in zip(tables, cols)], dim=1)
             addrs = addrs.contiguous()
-        return RowTable(bases, index, addrs, checked=all(t.checked for t in tables))
+        return RowTable(bases, index, addrs, checked=all(t.checked for t in tables),
+                        words=tables[0].words)
+
+
+class ShardedTable:
+    """A batch over a mesh: ``tables[i]`` is the K2/K3 row table of
+    member ``members[i]`` (one device a table, its mirrors homed there),
+    and the batch's slice order is the concatenation of the tables;
+    ``leaf_keys[i]`` are table i's per-column row identities.  ``layout``
+    names the members and their devices: batches group in one launch
+    only under the same layout."""
+
+    __slots__ = ("members", "tables", "leaf_keys", "layout")
+
+    def __init__(self, members, tables, leaf_keys=None):
+        self.members = tuple(int(m) for m in members)
+        self.tables = list(tables)
+        self.leaf_keys = list(leaf_keys) if leaf_keys is not None else [None] * len(tables)
+        self.layout = tuple((m, str(t.device)) for m, t in zip(self.members, self.tables))
+
+    @property
+    def shape(self) -> tuple:
+        _, leaves, words = self.tables[0].shape
+        return sum(t.shape[0] for t in self.tables), leaves, words
 
 
 class Program(NamedTuple):
@@ -300,7 +326,7 @@ def plain_tree_eval(table: RowTable, program: Sequence[int], reduce: str) -> tor
                 rows[op] = table.leaf_rows(op)
             stack.append(rows[op])
         elif op == OP_ZERO:
-            stack.append(torch.zeros(n, WORDS_PER_SLICE, dtype=torch.int32, device=table.device))
+            stack.append(torch.zeros(n, table.shape[2], dtype=torch.int32, device=table.device))
         else:
             b, a = stack.pop(), stack.pop()
             stack.append(_fold(op, a, b))

@@ -15,10 +15,10 @@ only ``device.launch`` has a check point so far:
   is the node's identity (so chaos can target one NODE of an in-process
   cluster), ``path`` names the launch site — ``direct`` (the executor's
   own launch), ``coalesce`` (a coalesced launch's waiter), ``topn`` (the
-  cross-fragment scorer), ``collective`` (inside a cross-device launch,
-  where the launch watchdog can observe a hang; no such launch exists
-  until the cross-device Count/TopN is ported) — and the check fires
-  once per participating device with ``device`` = its ordinal, so a
+  cross-fragment scorer), ``collective`` (inside a mesh's cross-member
+  Count, the body the launch watchdog watches, so that a hang there
+  trips it) — and the check fires once per participating device (a
+  mesh member) with ``device`` = its ordinal, so a
   ``device=`` rule can target ONE device;
 * ``rpc.send`` / ``rpc.recv`` — the internal client's send and the
   handler's dispatch in the JAX package; they get their check points

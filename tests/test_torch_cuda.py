@@ -713,3 +713,107 @@ def test_floor_probe_reads_device_memory(cuda, tmp_path):
     l2 = torch.cuda.get_device_properties(cuda).L2_cache_size
     assert fp_["probe_bytes"] >= 8 * l2
     assert 0 < fp_["mean_gbps"] <= 1.05 * 3350
+
+
+# --- K9: the mesh TopN scorer, and top_k --------------------------------------
+
+
+@pytest.mark.parametrize("slices,rows", [(1, 1), (3, 70), (16, 8)])
+def test_mesh_topn_matches_plain(cuda, slices, rows):
+    from pilosa_tpu_torch.ops import mesh_topn as mt
+
+    rng = np.random.default_rng(slices * 100 + rows)
+    plane = tbp.to_device(rng.integers(0, 2**32, size=(slices, rows, tbp.WORDS_PER_SLICE),
+                                       dtype=np.uint32), cuda)
+    src = tbp.to_device(rng.integers(0, 2**32, size=(slices, tbp.WORDS_PER_SLICE),
+                                     dtype=np.uint32), cuda)
+    for s in (src, plane[:, 0, :]):
+        for reduce in mt.REDUCES:
+            before = mt.launches
+            got = mt.mesh_topn(plane, s, reduce)
+            torch.cuda.synchronize()
+            assert mt.launches == before + 1
+            assert torch.equal(got, mt.plain_mesh_topn(plane, s, reduce)), reduce
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (8, 4), (2049, 1024), (100_000, 5), (5, 9),
+                                 (2048, 2048), (1500, 1200)])
+def test_top_k_matches_plain(cuda, n, k):
+    from pilosa_tpu_torch.ops import top_k as tk
+
+    rng = np.random.default_rng(n)
+    for counts in (rng.integers(0, 4, size=n), np.zeros(n, dtype=np.int64)):
+        for dtype in (torch.int32, torch.int64):
+            c = torch.from_numpy(counts).to(dtype).to(cuda)
+            gv, gi = tk.top_k(c, k)
+            wv, wi = tk.plain_top_k(c, k)
+            assert torch.equal(gv, wv) and torch.equal(gi, wi), (n, k, dtype)
+
+
+# --- a node over several cards, and a node pinned to one -----------------------
+
+_MULTI_READS = [
+    "Count(Bitmap(frame=f, rowID=0))",
+    "Count(Intersect(Bitmap(frame=f, rowID=0), Bitmap(frame=f, rowID=1)))",
+    "Count(Union(Bitmap(frame=f, rowID=0), Bitmap(frame=f, rowID=1), Bitmap(frame=f, rowID=2)))",
+    "Bitmap(frame=f, rowID=1)",
+    "Difference(Bitmap(frame=f, rowID=2), Bitmap(frame=f, rowID=0))",
+    "TopN(frame=f, n=3)",
+    "TopN(Bitmap(frame=f, rowID=0), frame=f, n=3)",
+]
+
+
+def _post(host: str, path: str, body: str = "") -> tuple[int, object]:
+    import json
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://{host}{path}", data=body.encode(), method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read() or b"null")
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def test_node_over_cards_and_pinned_node(cuda, tmp_path):
+    """On a host with two or more cards: a node on ``cuda:1`` keeps every
+    fragment on card 1; a node on the bare ``cuda`` spreads its slices over
+    every card (slice s on card s mod n) and answers as the pinned node
+    does, writes between reads included."""
+    from pilosa_tpu_torch.net.server import Server
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip(f"needs two or more cards, the machine has {n_cards}")
+    tbp.set_local_members(None)
+    tbp.configure_mesh_devices(0)
+    rng = np.random.default_rng(29)
+    n_slices = 2 * n_cards + 1
+    writes = " ".join(f"SetBit(frame=f, rowID={int(r)}, columnID={int(c)})" for r, c in zip(
+        rng.integers(0, 4, size=400), rng.integers(0, n_slices << 20, size=400)))
+    answers = {}
+    for name, device in (("pinned", "cuda:1"), ("cards", "cuda")):
+        srv = Server(str(tmp_path / name), host="127.0.0.1:0", device=device, floor_probe=False)
+        srv.open()
+        try:
+            for path in ("/index/i", "/index/i/frame/f"):
+                assert _post(srv.host, path)[0] == 200
+            assert _post(srv.host, "/index/i/query", writes)[0] == 200
+            devices = {f.slice: f.device for f in srv.holder._all_fragments()}
+            if name == "pinned":
+                assert set(devices.values()) == {torch.device("cuda", 1)}
+                assert srv.device_health.device_paths() == ["device:1"]
+            else:
+                assert devices == {s: torch.device("cuda", s % n_cards) for s in devices}
+                assert len(srv.device_health.device_paths()) == n_cards
+            got = [_post(srv.host, "/index/i/query", q) for q in _MULTI_READS]
+            got.append(_post(srv.host, "/index/i/query", "SetBit(frame=f, rowID=0, columnID=7)"))
+            got += [_post(srv.host, "/index/i/query", q) for q in _MULTI_READS[:2]]
+            got.append(_post(srv.host, "/index/i/query", "ClearBit(frame=f, rowID=0, columnID=7)"))
+            got += [_post(srv.host, "/index/i/query", q) for q in _MULTI_READS[:2]]
+            assert all(status == 200 for status, _ in got), got
+            answers[name] = got
+        finally:
+            srv.close()
+    assert answers["cards"] == answers["pinned"]
