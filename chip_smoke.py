@@ -303,6 +303,12 @@ TOPN_N = 10
 TOPN_THRESHOLD = 2000
 TOPN_IDS = (0, 5, 17, 33, 63, 99)
 LOAD_THREADS = 6
+# Phase 20 (on phase 6's cluster): the writes while node 2 is down, at each
+# level; the phase's short breaker window; the resize's second index, cut
+# to 64 slices for time (a depth cut: full slice width, ROWS rows).
+REPLICA_WRITES = 8
+REPLICA_BREAKER_OPEN_MS = 500.0
+RESIZE_SLICES = 64
 # Phase 3: the delta-scatter entry counts held through the one-plane interface.
 K7_NS = (1, 31, 1100, 4096, 8192)
 
@@ -3333,7 +3339,7 @@ def set_bits(truth: np.ndarray, rows: np.ndarray, cols: np.ndarray) -> None:
 
 
 def cluster_and_check(fp, ds, br, sp, te, scatter, convert, Server, InternalClient, planes,
-                      rng) -> dict:
+                      rng, full_sweep: bool = False) -> dict:
     """Phase 6: three nodes, two replicas, import + queries + fallback +
     failover, and the BSI leg (a field created on one node, values to
     every owner, aggregates and comparisons from every node, again with a
@@ -3342,9 +3348,12 @@ def cluster_and_check(fp, ds, br, sp, te, scatter, convert, Server, InternalClie
 
     out: dict = {}
     with tempfile.TemporaryDirectory(prefix="pilosa-torch-cluster-") as data_dir:
+        # Anti-entropy never ticks by itself (phase 20 drives its own),
+        # and an open breaker half-opens after REPLICA_BREAKER_OPEN_MS.
         nodes = [
             Server(f"{data_dir}/n{i}", host="127.0.0.1:0", device="cuda",
-                   cluster_type="http", replicas=2, internal_port=0)
+                   cluster_type="http", replicas=2, internal_port=0,
+                   anti_entropy_interval=1e9, breaker_open_ms=REPLICA_BREAKER_OPEN_MS)
             for i in range(3)
         ]
         opened = []
@@ -3599,9 +3608,382 @@ def cluster_and_check(fp, ds, br, sp, te, scatter, convert, Server, InternalClie
                 f"bsi_ripple launches {out['k8_launches']}, score_planes launches "
                 f"{out['k4_launches']} (one per node leg and round: {legs} legs)")
             out["latencies_ms"] = latencies
+            out["replicas"] = replicas_and_check(ds, te, fp, sp, convert, Server, InternalClient,
+                                                 nodes, opened, data_dir, truth,
+                                                 np.random.default_rng(SEED + 20), full_sweep)
         finally:
             for srv in opened:
                 srv.close()
+    return out
+
+
+def local_count(InternalClient, host: str, pql: str, slices, index: str = "i") -> int:
+    """A Count on ``host`` over its own fragments of ``slices`` only (a
+    remote leg: no fan-out, no version check)."""
+    (got,) = InternalClient(host, timeout=600).execute_query(index, pql, slices=list(slices),
+                                                             remote=True)
+    return got
+
+
+def replicas_and_check(ds, te, fp, sp, convert, Server, InternalClient, nodes, opened,
+                       data_dir: str, truth: np.ndarray, rng, full_sweep: bool = False) -> dict:
+    """Phase 20 on phase 6's cluster, where node 2 is closed: replica
+    agreement.  (a) writes at writeConsistency=one to node 2's slices
+    answer 200 and queue hints for it, the same at quorum fail under W
+    (W = 2 of N = 2) with the hint queued, a Count at readConsistency=all
+    fails, a junk level answers 400; (b) node 2 reopens on its data dir
+    and address, its breaker half-opens, the hints replay (backlog 0), its
+    first read applies them with one K7 launch and counts on K2, every
+    node answers readConsistency=all as the oracle, and both replicas of
+    every touched slice have one checksum; (c) a fragment replica on node
+    0 diverges through its holder (a set and a clear), node 0's next
+    anti-entropy tick merges it (a bit set on either replica of two is
+    kept: the JAX merge) and walks no other slice (their replica versions
+    agree; ``full_sweep`` makes it the tick that walks every block), and
+    each replica's next Count launches K7 once;
+    (d) index i is dropped, a second index r of RESIZE_SLICES slices is
+    loaded, a fourth node opens on the card and a resize to four hosts
+    runs while a client thread sends Counts and quorum SetBits; every
+    answer is right, no write is lost, the new node holds the moved
+    slices' mirrors and counts them on K2, the old owners released them.
+    Each part prints its seconds; the launch counts are this phase's."""
+    from pilosa_tpu_torch import device as device_mod
+    from pilosa_tpu_torch.rebalance import migrate
+    from pilosa_tpu_torch.sync import syncer as syncer_mod
+
+    out: dict = {"seconds": {}}
+    hosts = [srv.host for srv in nodes]
+    # The internal listeners as the ring knows them (node 2 is closed).
+    internal = [nodes[0].cluster.node_by_host(h).internal_host for h in hosts]
+    saved = {m: m.launches for m in (ds, te, fp, sp)}
+    ds.launches = te.launches = fp.launches = sp.launches = 0  # the phase's path starts here
+    n0, n1 = nodes[0], nodes[1]
+    cluster = n0.cluster
+    b1 = "Count(Bitmap(frame=f, rowID=1))"
+
+    def row_count(r: int) -> int:
+        return int(np.bitwise_count(truth[:, r]).sum())
+
+    def all_count(host: str, pql: str, index: str = "i") -> tuple[int, object]:
+        return http(host, "POST", f"/index/{index}/query?readConsistency=all", pql.encode())
+
+    # --- (a) writes while node 2 is down ---
+    t0 = time.perf_counter()
+    owned2 = [sl for sl in range(N_SLICES)
+              if hosts[2] in {o.host for o in cluster.fragment_nodes("i", sl)}]
+    picks = rng.choice(owned2, 2 * REPLICA_WRITES, replace=False)
+    cols = []
+    for sl in picks:  # a bit of row 1 that is clear in the oracle
+        offs = np.flatnonzero(np.unpackbits(truth[sl, 1].view(np.uint8), bitorder="little") == 0)
+        cols.append((int(sl) << 20) + int(rng.choice(offs)))
+    for k, col in enumerate(cols):
+        level = "one" if k < REPLICA_WRITES else "quorum"
+        status, body = http(hosts[0], "POST", f"/index/i/query?writeConsistency={level}",
+                            f"SetBit(frame=f, rowID=1, columnID={col})".encode())
+        want = 200 if level == "one" else 500
+        if status != want or (level == "quorum" and "need 2 at consistency=quorum" not in
+                              str(body.get("error", ""))):
+            raise AssertionError(f"phase 20 (a): SetBit at {level} to a slice of the closed "
+                                 f"node: {status} {body}")
+        truth[col >> 20, 1, (col & 0xFFFFF) >> 5] |= np.uint32(1 << (col & 31))
+    # Read under the replayer's lock: a replay attempt in flight (it
+    # fails while node 2 is down) drains the backlog and requeues it.
+    with n0.replication._replay_mu:
+        status, rep = http(hosts[0], "GET", "/debug/replication")
+        queued = rep["hints"]["targets"].get(hosts[2], {}).get("entries", 0)
+        backlog = sum(s.replication.hints.backlog(hosts[2]) for s in (n0, n1))
+    if status != 200 or queued < REPLICA_WRITES or backlog < 2 * REPLICA_WRITES:
+        raise AssertionError(f"phase 20 (a): hints for {hosts[2]}: /debug/replication shows "
+                             f"{queued}, backlog {backlog} (want >= {2 * REPLICA_WRITES})")
+    status, body = all_count(hosts[0], b1)
+    if status != 500 or "read at consistency=all reached 1 of 2" not in str(body):
+        raise AssertionError(f"phase 20 (a): Count at readConsistency=all: {status} {body}")
+    for path in ("/index/i/query?readConsistency=most", "/index/i/query?writeConsistency=x"):
+        status, body = http(hosts[0], "POST", path, b1.encode())
+        if status != 400:
+            raise AssertionError(f"phase 20 (a): junk level {path}: {status} {body}")
+    out["seconds"]["a"] = time.perf_counter() - t0
+    out["hint_backlog"] = backlog
+    log(f"phase 20 (a): {REPLICA_WRITES} SetBits at one -> 200 and {REPLICA_WRITES} at quorum "
+        f"-> 500 (1 of 2 acks) with {hosts[2]} closed; hint backlog {backlog} entries "
+        f"(/debug/replication on node 0: {queued}); readConsistency=all -> 500; junk -> 400 "
+        f"in {out['seconds']['a']:.3f}s")
+
+    # --- (b) restart and hint replay ---
+    t0 = time.perf_counter()
+    ip = int(internal[2].rpartition(":")[2])
+    n2 = Server(f"{data_dir}/n2", host=hosts[2], device="cuda", cluster_type="http",
+                hosts=hosts, internal_hosts=internal, replicas=2, internal_port=ip,
+                anti_entropy_interval=1e9, breaker_open_ms=REPLICA_BREAKER_OPEN_MS)
+    n2.open()
+    opened.append(n2)
+    nodes[2] = n2
+    # A reopened node learns the slices it holds no replica of from its
+    # peers' max slices (the poll; its loop waits polling_interval).
+    n2.tick_max_slices()
+    if not n2.staging_job.wait(300):
+        raise AssertionError("phase 20 (b): node 2's mirrors did not stage")
+    staged_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    deadline = time.monotonic() + 120
+
+    def drained() -> bool:
+        # Under each replayer's lock: no pass in flight, so an empty
+        # backlog means every hint was applied.
+        for srv in (n0, n1):
+            with srv.replication._replay_mu:
+                if srv.replication.hints.backlog(hosts[2]):
+                    return False
+        return True
+
+    while not drained():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 20 (b): hints not replayed: "
+                                 f"{n0.replication.hints.snapshot()}")
+        time.sleep(0.05)
+    replay_s = time.perf_counter() - t1
+    breaker = n0.resilience.breakers.for_host(hosts[2]).snapshot()
+    k7, k2 = ds.launches, te.launches
+    got = local_count(InternalClient, hosts[2], b1, owned2)
+    want = int(np.bitwise_count(truth[owned2, 1]).sum())
+    out["k7_restart"], out["k2_restart"] = ds.launches - k7, te.launches - k2
+    if got != want or out["k7_restart"] != 1 or out["k2_restart"] != 1:
+        raise AssertionError(f"phase 20 (b): node 2's first read {got} (want {want}): "
+                             f"delta_scatter launches {out['k7_restart']}, tree_eval launches "
+                             f"{out['k2_restart']} (want 1 and 1)")
+    for host in hosts:
+        status, body = all_count(host, b1)
+        if status != 200 or body["results"] != [row_count(1)]:
+            raise AssertionError(f"phase 20 (b): Count at readConsistency=all at {host}: "
+                                 f"{status} {body} (want {row_count(1)})")
+    by_host = {srv.host: srv for srv in nodes}
+    for sl in sorted({c >> 20 for c in cols}):
+        sums = {by_host[o.host].holder.fragment("i", "f", "standard", sl).checksum()
+                for o in cluster.fragment_nodes("i", sl)}
+        if len(sums) != 1:
+            raise AssertionError(f"phase 20 (b): slice {sl}'s replicas disagree")
+    out["seconds"]["b"] = time.perf_counter() - t0
+    out["replay_s"] = replay_s
+    log(f"phase 20 (b): node 2 reopened and staged in {staged_s:.3f}s; node 0's breaker for "
+        f"it half-opened and closed ({breaker}) and {backlog} hints replayed in "
+        f"{replay_s:.3f}s (backlog 0); its first read "
+        f"{got} == oracle with delta_scatter launches {out['k7_restart']}, tree_eval launches "
+        f"{out['k2_restart']}; readConsistency=all from 3 nodes == oracle; the "
+        f"{len({c >> 20 for c in cols})} touched slices' replicas agree; "
+        f"{out['seconds']['b']:.3f}s")
+
+    # --- (c) anti-entropy ---
+    t0 = time.perf_counter()
+    sl = next(s for s in range(N_SLICES) if n0.cluster.owns_fragment(hosts[0], "i", s))
+    peer = next(o.host for o in cluster.fragment_nodes("i", sl) if o.host != hosts[0])
+    row = truth[sl, 2]
+    bits = np.unpackbits(row.view(np.uint8), bitorder="little")
+    c_new = (sl << 20) + int(rng.choice(np.flatnonzero(bits == 0)))
+    c_old = (sl << 20) + int(rng.choice(np.flatnonzero(bits == 1)))
+    frag0 = n0.holder.fragment("i", "f", "standard", sl)
+    if not (frag0.set_bit(2, c_new) and frag0.clear_bit(2, c_old)):
+        raise AssertionError("phase 20 (c): the divergence did not change node 0's replica")
+    if frag0.checksum() == by_host[peer].holder.fragment("i", "f", "standard", sl).checksum():
+        raise AssertionError("phase 20 (c): the replicas did not diverge")
+    # The node's next tick: slices whose replica versions agree are
+    # skipped, and the set and clear moved node 0's version of this one.
+    # ``full_sweep`` makes it the FULL_SYNC_EVERY-th tick, which walks
+    # every owned fragment's blocks.
+    n0._ae_ticks = n0.FULL_SYNC_EVERY - 1 if full_sweep else 0
+    walked = []
+    sync_fragment = syncer_mod.HolderSyncer.sync_fragment
+
+    def counted(self, *args, **kw):
+        walked.append(args[:4])
+        return sync_fragment(self, *args, **kw)
+
+    syncer_mod.HolderSyncer.sync_fragment = counted
+    try:
+        t1 = time.perf_counter()
+        n0.tick_anti_entropy()
+        walk_s = time.perf_counter() - t1
+    finally:
+        syncer_mod.HolderSyncer.sync_fragment = sync_fragment
+    if not full_sweep and {w[3] for w in walked} != {sl}:
+        raise AssertionError(f"phase 20 (c): the tick walked slices {sorted({w[3] for w in walked})}"
+                             f" (want only {sl}, the others' versions agree)")
+    # Two participants: a bit set on either is kept (JAX fragment merge,
+    # votes >= (participants + 1) // 2).
+    truth[sl, 2, (c_new & 0xFFFFF) >> 5] |= np.uint32(1 << (c_new & 31))
+    want = int(np.bitwise_count(truth[sl, 2]).sum())
+    pql = "Count(Bitmap(frame=f, rowID=2))"
+    for host in (hosts[0], peer):
+        if by_host[host].holder.fragment("i", "f", "standard", sl).checksum() != \
+                frag0.checksum():
+            raise AssertionError(f"phase 20 (c): {host}'s replica of slice {sl} still differs")
+        k7 = ds.launches
+        got = local_count(InternalClient, host, pql, [sl])
+        if got != want or ds.launches - k7 != 1:
+            raise AssertionError(f"phase 20 (c): Count of slice {sl} at {host}: {got} (want "
+                                 f"{want}), delta_scatter launches {ds.launches - k7} (want 1)")
+    out["seconds"]["c"] = time.perf_counter() - t0
+    out["anti_entropy_walk_s"] = walk_s
+    out["anti_entropy_fragments"] = len(walked)
+    log(f"phase 20 (c): slice {sl} diverged on node 0 (a set, a clear); one "
+        f"{'full ' if full_sweep else ''}anti-entropy tick of node 0 over {N_SLICES} slices "
+        f"walked {len(walked)} fragments' blocks in {walk_s:.3f}s and merged it; both replicas "
+        f"agree, each one's next Count launched delta_scatter once and answered {want}; "
+        f"{out['seconds']['c']:.3f}s")
+
+    # --- (d) live resize to four nodes ---
+    t0 = time.perf_counter()
+    status, body = http(hosts[0], "DELETE", "/index/i")
+    if status != 200:
+        raise AssertionError(f"phase 20 (d): DELETE /index/i: {status} {body}")
+    for path in ("/index/r", "/index/r/frame/f"):
+        status, body = http(hosts[0], "POST", path)
+        if status != 200:
+            raise AssertionError(f"phase 20 (d): POST {path}: {status} {body}")
+    planes = rng.integers(0, 2**32, size=(RESIZE_SLICES, ROWS, 32768), dtype=np.uint32)
+    load_in_threads(convert, [(srv.holder, "r", "f", "standard", {s: planes[s]})
+                              for srv in nodes for s in range(RESIZE_SLICES)
+                              if srv.host in {o.host for o in cluster.fragment_nodes("r", s)}])
+    for srv in nodes:
+        srv.tick_max_slices()
+    n3 = Server(f"{data_dir}/n3", host="127.0.0.1:0", device="cuda", cluster_type="http",
+                hosts=hosts, internal_hosts=internal, replicas=2, internal_port=0,
+                anti_entropy_interval=1e9, breaker_open_ms=REPLICA_BREAKER_OPEN_MS)
+    n3.open()
+    opened.append(n3)
+    if n3.cluster.node_by_host(n3.host) is not None:
+        raise AssertionError("phase 20 (d): the fourth node placed itself in the ring")
+    copied = {"bytes": 0, "s": 0.0}
+    copy_fn = migrate.Rebalancer._copy_local_slice
+
+    def timed_copy(self, *args):
+        c0 = time.perf_counter()
+        res = copy_fn(self, *args)
+        copied["s"] += time.perf_counter() - c0
+        copied["bytes"] += res["bytes"]
+        return res
+
+    migrate.Rebalancer._copy_local_slice = timed_copy
+    errors: list = []
+    written: list = []
+    reads = [0]
+    stop = threading.Event()
+
+    def client_thread():
+        k = 0
+        while not stop.is_set():
+            col = int(rng_w.integers(0, RESIZE_SLICES << 20))
+            for attempt in range(40):
+                status, body = http(hosts[k % 3], "POST",
+                                    "/index/r/query?writeConsistency=quorum",
+                                    f"SetBit(frame=f, rowID=0, columnID={col})".encode())
+                if status == 200:
+                    break
+                time.sleep(0.05)  # a mixed-epoch window or a flip: retry
+            else:
+                errors.append(f"SetBit {col}: {status} {body}")
+                return
+            written.append(col)
+            truth_r[col >> 20, 0, (col & 0xFFFFF) >> 5] |= np.uint32(1 << (col & 31))
+            want = int(np.bitwise_count(truth_r[:, 0]).sum())
+            for attempt in range(40):
+                status, body = http(hosts[k % 3], "POST", "/index/r/query",
+                                    b"Count(Bitmap(frame=f, rowID=0))")
+                if status == 200:
+                    break
+                time.sleep(0.05)
+            if status != 200 or body["results"] != [want]:
+                errors.append(f"Count at {hosts[k % 3]}: {status} {body} (want {want})")
+                return
+            reads[0] += 1
+            k += 1
+            stop.wait(0.01)  # a client's pace, not a storm: the migration shares the host
+
+    rng_w = np.random.default_rng(SEED + 21)
+    truth_r = planes.copy()
+    old = {s: {o.host for o in cluster.fragment_nodes("r", s)} for s in range(RESIZE_SLICES)}
+    hosts4 = sorted(hosts + [n3.host])
+    th = threading.Thread(target=client_thread, daemon=True)
+    try:
+        th.start()
+        t1 = time.perf_counter()
+        status, body = http(hosts[0], "POST", "/cluster/resize",
+                            json.dumps({"hosts": hosts4}).encode())
+        if status != 200:
+            raise AssertionError(f"phase 20 (d): POST /cluster/resize: {status} {body}")
+        deadline = time.monotonic() + 600
+        while True:
+            status, snap = http(hosts[0], "GET", "/debug/rebalance")
+            err = (snap.get("coordinator") or {}).get("error") or snap.get("lastError")
+            if not snap.get("running") and err:
+                raise AssertionError(f"phase 20 (d): the migration stopped: {err}")
+            if not snap.get("running") and snap.get("transition") is None:
+                break
+            if time.monotonic() > deadline or errors:
+                raise AssertionError(f"phase 20 (d): resize {snap}; client {errors}")
+            time.sleep(0.1)
+        resize_s = time.perf_counter() - t1
+        n_done = len(written)
+        deadline = time.monotonic() + 60
+        while len(written) <= n_done and not errors and time.monotonic() < deadline:
+            time.sleep(0.01)  # one more write and read after the commit
+    finally:
+        stop.set()
+        th.join(timeout=120)
+        migrate.Rebalancer._copy_local_slice = copy_fn
+    if errors or not written:
+        raise AssertionError(f"phase 20 (d): client thread: {errors or 'no writes'}")
+    nodes4 = nodes + [n3]
+    by_host = {srv.host: srv for srv in nodes4}
+    for srv in nodes4:
+        srv.tick_max_slices()
+    for srv in nodes4:
+        if srv.cluster.hosts() != hosts4 or srv.cluster.transition is not None:
+            raise AssertionError(f"phase 20 (d): {srv.host} ring {srv.cluster.hosts()}")
+        for r in range(ROWS):
+            status, body = http(srv.host, "POST", "/index/r/query",
+                                f"Count(Bitmap(frame=f, rowID={r}))".encode())
+            want = int(np.bitwise_count(truth_r[:, r]).sum())
+            if status != 200 or body["results"] != [want]:
+                raise AssertionError(f"phase 20 (d): Count row {r} at {srv.host}: {status} "
+                                     f"{body} (want {want})")
+    new = {s: {o.host for o in n0.cluster.fragment_nodes("r", s)} for s in range(RESIZE_SLICES)}
+    moved = [s for s in range(RESIZE_SLICES) if new[s] != old[s]]
+    into3 = [s for s in moved if n3.host in new[s]]
+    if not into3:
+        raise AssertionError("phase 20 (d): no slice moved onto the fourth node")
+    device_mod.prefetcher().wait_idle(120)
+    view3 = n3.holder.index("r").frame("f").view("standard")
+    unstaged = [s for s in into3 if view3.fragment(s) is None or view3.fragment(s)._mirror is None]
+    if unstaged:
+        raise AssertionError(f"phase 20 (d): moved slices without a mirror on the new node: "
+                             f"{unstaged}")
+    for s in moved:
+        for h in old[s] - new[s]:
+            idx = by_host[h].holder.index("r")
+            if idx is not None and idx.frame("f").view("standard").fragment(s) is not None:
+                raise AssertionError(f"phase 20 (d): {h} kept slice {s} after the move")
+    k2 = te.launches
+    got = local_count(InternalClient, n3.host, "Count(Bitmap(frame=f, rowID=0))", into3, "r")
+    want = int(np.bitwise_count(truth_r[into3, 0]).sum())
+    out["k2_new_node"] = te.launches - k2
+    if got != want or out["k2_new_node"] != 1:
+        raise AssertionError(f"phase 20 (d): the new node's Count {got} (want {want}), "
+                             f"tree_eval launches {out['k2_new_node']} (want 1)")
+    gbps = copied["bytes"] / copied["s"] / 1e9 if copied["s"] else 0.0
+    out["seconds"]["d"] = time.perf_counter() - t0
+    out["resize"] = {"seconds": resize_s, "slices_moved": len(moved), "into_new_node": len(into3),
+                     "bytes_copied": copied["bytes"], "copy_s": copied["s"], "copy_gbps": gbps,
+                     "writes": len(written), "reads": reads[0]}
+    log(f"phase 20 (d): resize 3 -> 4 nodes of index r ({RESIZE_SLICES} slices x {ROWS} rows) "
+        f"in {resize_s:.3f}s: {len(moved)} slices moved ({len(into3)} onto the new node), "
+        f"{copied['bytes']} bytes copied in {copied['s']:.3f}s ({gbps:.3f} GB/s); the client "
+        f"thread's {len(written)} quorum SetBits and {reads[0]} Counts all right; every node's "
+        f"Counts == oracle; the new node holds the moved mirrors, its Count launched tree_eval "
+        f"{out['k2_new_node']}x; the old owners released; {out['seconds']['d']:.3f}s")
+    out["k2_launches"], out["k7_launches"] = te.launches, ds.launches  # the phase's path ends
+    for m, n in saved.items():
+        m.launches += n
+    log(f"phase 20 part seconds: {json.dumps({k: round(v, 3) for k, v in out['seconds'].items()})}")
     return out
 
 
@@ -5788,6 +6170,7 @@ PHASES = {
     "durability_and_check": "13",
     "health_and_check": "18",
     "mesh_and_check": "19",
+    "replicas_and_check": "20",
 }
 
 
@@ -5992,6 +6375,10 @@ def main() -> int:
         watch.check("12")
     durable = durability_and_check(Server, {"k2": te})
     watch.check("13")
+    # Phase 20 runs inside phase 6's function, on its cluster: phase 6's
+    # own seconds exclude it.
+    if "20" in phase_s:
+        phase_s["6"] = round(phase_s["6"] - phase_s["20"], 1)
     log(f"phase seconds (native roaring codec loaded): {json.dumps(phase_s)}")
 
     k7 = k7_times[K7_SHAPES[1]]  # every slice's queue in one launch, as phase 7 flushes
@@ -6027,10 +6414,12 @@ def main() -> int:
             "source": ds.SOURCE,
             "replaces": ds.REPLACES,
             "launches": served["k7_launches"] + clustered["k7_launches"] + valued["k7_launches"]
-            + backed["launches"]["k7"] + healed["launches"].get("k7", 0),
+            + backed["launches"]["k7"] + healed["launches"].get("k7", 0)
+            + clustered["replicas"]["k7_launches"],
             "launches_by_phase": {"5": served["k7_launches"], "6": clustered["k7_launches"],
                                   "7": valued["k7_launches"], "17": backed["launches"]["k7"],
-                                  "18": healed["launches"].get("k7", 0)},
+                                  "18": healed["launches"].get("k7", 0),
+                                  "20": clustered["replicas"]["k7_launches"]},
             "max_abs_err": k7_err,
             "ms": k7["ms"],
             "device_ms": k7["device_ms"],
@@ -6121,7 +6510,8 @@ def main() -> int:
                    "8": timed["k2_launches"],
                    "10": tutorials["totals"]["k2"], "12": resident["launches"]["k2"],
                    "13": durable["launches"]["k2"], "17": backed["launches"]["k2"],
-                   "18": healed["launches"].get("k2", 0)}
+                   "18": healed["launches"].get("k2", 0),
+                   "20": clustered["replicas"]["k2_launches"]}
     for kernel, err, times, by_phase, shape in (
         (te, k2_err, k23_times["tree_eval_count"], k2_by_phase, [N_SLICES, 2, "count"]),
         (it, k3_err, k23_times["interp_count"],

@@ -12,6 +12,13 @@
         [--metrics-service nop|expvar|statsd --metrics-host H:P]
         [--slow-query-ms MS --trace-ring N --latency-buckets-ms 1,5,10
          --slo-ms MS --slo-objective F --floor-probe true|false]
+        [--anti-entropy-interval S --query-timeout-ms MS --broadcast-timeout-ms MS
+         --retry-attempts N --retry-backoff-ms MS --breaker-failure-threshold N
+         --breaker-open-ms MS --write-consistency one|quorum|all
+         --read-consistency one|quorum|all --hint-cap N
+         --hint-replay-throttle-mbps F --rebalance-throttle-mbps F
+         --rebalance-verify-rounds N --rebalance-delta-cap N
+         --rebalance-release-delay-ms MS]
 
 runs one node until SIGINT/SIGTERM.  The device defaults to the CUDA
 card; ``--device cpu`` runs on the CPU.  On a host with several cards
@@ -28,7 +35,13 @@ package's ``[device]``, ``[ingest]`` and ``[exec]`` keys
 ``fuse``, ``fuse-max-programs``), ``[tpu] prewarm``, ``[metrics]
 service`` / ``host`` and the ``[obs]`` keys (``slow-query-ms``,
 ``trace-ring``, ``latency-buckets-ms``, ``slo-ms``, ``slo-objective``,
-``floor-probe``), with their defaults.  ``--metrics-service expvar``
+``floor-probe``), and the ``[net]`` / ``[cluster]`` keys of replica
+agreement (``anti-entropy-interval``, ``query-timeout-ms``,
+``broadcast-timeout-ms``, ``retry-attempts``, ``retry-backoff-ms``,
+``breaker-failure-threshold``, ``breaker-open-ms``,
+``write-consistency``, ``read-consistency``, ``hint-cap``,
+``hint-replay-throttle-mbps`` and the ``rebalance-*`` keys), with their
+defaults.  ``--metrics-service expvar``
 fills ``/debug/vars`` and ``/metrics``; ``statsd`` sends dogstatsd
 datagrams to ``--metrics-host`` (default 127.0.0.1:8125).
 
@@ -49,21 +62,25 @@ with its flags, output and exit codes:
     restore --host H:P -i INDEX -f FRAME [-v VIEW] -d FILE
     check PATH...      inspect PATH...      sort PATH
     bench   --host H:P -i INDEX -f FRAME [-o set-bit|intersect-count|topn] [-n N]
+    resize  --host H:P --hosts H1:P1,H2:P2,... [--wait] | --status | --abort
 
 ``export`` writes every slice's CSV (each from an owner of the slice);
 ``backup`` writes a view as a tar of per-slice fragment archives and
 ``restore`` posts each back; ``check`` and ``inspect`` read data files
-offline; ``sort`` orders a CSV by slice for import.  An error prints
+offline; ``sort`` orders a CSV by slice for import; ``resize`` starts a
+live resize to the complete target host list (``POST /cluster/resize``),
+prints the migration's state (``--status``), aborts it (``--abort``) or
+waits for it (``--wait``, JAX ``cli/ctl.py:768``).  An error prints
 ``error: ...`` and exits 1.  Not ported yet: ``backup --store`` and
-``restore --store`` (they wait for ``tier/*``), ``resize`` (for
-``rebalance/*``), ``warm``, ``config`` and ``generate-config`` (for
-``config.py``).
+``restore --store`` (they wait for ``tier/*``), ``warm``, ``config`` and
+``generate-config`` (for ``config.py``).
 """
 
 from __future__ import annotations
 
 import argparse
 import csv
+import json
 import os
 import random
 import signal
@@ -163,6 +180,32 @@ def build_parser() -> argparse.ArgumentParser:
                      help="measure the stream floor of /debug/perf at open")
     srv.add_argument("--stream-chunk-bytes", type=int, default=0,
                      help="write size of streamed bodies (0: 64 KiB)")
+    # The JAX package's [net] and [cluster] settings of replica agreement.
+    srv.add_argument("--anti-entropy-interval", type=float, default=600.0,
+                     help="seconds between anti-entropy sweeps")
+    srv.add_argument("--query-timeout-ms", type=float, default=60_000.0,
+                     help="a query's default deadline (0: none)")
+    srv.add_argument("--broadcast-timeout-ms", type=float, default=5_000.0,
+                     help="socket timeout of the max-slice poll")
+    srv.add_argument("--retry-attempts", type=int, default=3,
+                     help="tries of an idempotent call to a peer")
+    srv.add_argument("--retry-backoff-ms", type=float, default=100.0)
+    srv.add_argument("--breaker-failure-threshold", type=int, default=5,
+                     help="consecutive failures that open a peer's breaker")
+    srv.add_argument("--breaker-open-ms", type=float, default=10_000.0,
+                     help="time an open breaker waits before its half-open probe")
+    srv.add_argument("--write-consistency", default="quorum",
+                     choices=("one", "quorum", "all"), help="acknowledgements a write needs")
+    srv.add_argument("--read-consistency", default="one",
+                     choices=("one", "quorum", "all"),
+                     help="replicas whose versions a read checks")
+    srv.add_argument("--hint-cap", type=int, default=10_000,
+                     help="bits of hints kept per replica and slice")
+    srv.add_argument("--hint-replay-throttle-mbps", type=float, default=0.0)
+    srv.add_argument("--rebalance-throttle-mbps", type=float, default=0.0)
+    srv.add_argument("--rebalance-verify-rounds", type=int, default=3)
+    srv.add_argument("--rebalance-delta-cap", type=int, default=50_000)
+    srv.add_argument("--rebalance-release-delay-ms", type=float, default=200.0)
     imp = sub.add_parser("import", help="bulk-import CSV bits (row,col[,timestamp])")
     imp.add_argument("--host", default="localhost:10101", help="host:port of a node")
     imp.add_argument("-i", "--index", required=True)
@@ -216,6 +259,14 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--row1", type=int, default=1, help="intersect-count row A")
     sp.add_argument("--row2", type=int, default=2, help="intersect-count row B")
     sp.add_argument("--topn-n", type=int, default=100, help="topn result size")
+    sp = sub.add_parser("resize", help="live cluster resize (--hosts: the complete "
+                        "target host list)")
+    host(sp)
+    sp.add_argument("--hosts", default="", help="comma-separated target host list")
+    sp.add_argument("--abort", action="store_true", help="abort the resize in flight")
+    sp.add_argument("--status", action="store_true",
+                    help="print the /debug/rebalance document and exit")
+    sp.add_argument("--wait", action="store_true", help="wait until the migration ends")
     return p
 
 
@@ -255,6 +306,21 @@ def run_server(args) -> int:
         floor_probe=args.floor_probe,
         stream_chunk_bytes=args.stream_chunk_bytes,
         mesh_devices=args.mesh_devices,
+        anti_entropy_interval=args.anti_entropy_interval,
+        query_timeout_ms=args.query_timeout_ms,
+        broadcast_timeout_ms=args.broadcast_timeout_ms,
+        retry_attempts=args.retry_attempts,
+        retry_backoff_ms=args.retry_backoff_ms,
+        breaker_failure_threshold=args.breaker_failure_threshold,
+        breaker_open_ms=args.breaker_open_ms,
+        write_consistency=args.write_consistency,
+        read_consistency=args.read_consistency,
+        hint_cap=args.hint_cap,
+        hint_replay_throttle_mbps=args.hint_replay_throttle_mbps,
+        rebalance_throttle_mbps=args.rebalance_throttle_mbps,
+        rebalance_verify_rounds=args.rebalance_verify_rounds,
+        rebalance_delta_cap=args.rebalance_delta_cap,
+        rebalance_release_delay_ms=args.rebalance_release_delay_ms,
     )
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
@@ -578,6 +644,49 @@ def _first_result(client, index: str, pql: str):
     return results[0]
 
 
+def run_resize(args) -> int:
+    """A live resize (JAX ``cli/ctl.py:768-812``): ``POST /cluster/resize``
+    with the complete target host list, then, with ``--wait``, poll
+    ``GET /debug/rebalance`` until the migration ends."""
+    client = _client(args.host)
+
+    def status() -> dict:
+        st, data = client._request("GET", "/debug/rebalance")
+        return json.loads(client._check(st, data))
+
+    if args.status:
+        print(json.dumps(status(), indent=2, sort_keys=True))
+        return 0
+    if args.abort:
+        st, data = client._request("POST", "/cluster/resize/abort")
+        client._check(st, data)
+        print("resize aborted", file=sys.stderr)
+        return 0
+    hosts = [h.strip() for h in (args.hosts or "").split(",") if h.strip()]
+    if not hosts:
+        raise CommandError("--hosts required (the complete target host list)")
+    st, data = client._request("POST", "/cluster/resize",
+                               body=json.dumps({"hosts": hosts}).encode())
+    client._check(st, data)
+    print(f"resize to {hosts} started", file=sys.stderr)
+    if not args.wait:
+        print("poll with: pilosa_tpu_torch resize --status", file=sys.stderr)
+        return 0
+    while True:
+        snap = status()
+        if not snap.get("running"):
+            coord = snap.get("coordinator") or {}
+            if coord.get("error") or snap.get("lastError"):
+                raise CommandError(
+                    f"migration stopped: {coord.get('error') or snap['lastError']}")
+            if snap.get("transition") is None:
+                print("resize complete", file=sys.stderr)
+                return 0
+        states = (snap.get("coordinator") or {}).get("sliceStates", {})
+        print(f"migrating: {states}", file=sys.stderr)
+        time.sleep(1.0)
+
+
 COMMANDS = {
     "import": run_import,
     "export": run_export,
@@ -587,6 +696,7 @@ COMMANDS = {
     "inspect": run_inspect,
     "sort": run_sort,
     "bench": run_bench,
+    "resize": run_resize,
 }
 
 

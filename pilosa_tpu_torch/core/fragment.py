@@ -256,6 +256,43 @@ def _notify_close(frag) -> None:
             pass
 
 
+# Write listeners (JAX ``core/fragment.py:154-182``): called as
+# (fragment, set_rows, set_cols, clear_rows, clear_cols, exact) —
+# absolute column ids — after every content change of a point write, an
+# import (``/import``, ``/import-value``) or a block merge, under the
+# fragment's lock.  ``exact`` is True where every bit reported changed
+# (the point writes).  The rebalancer's delta log and the replication
+# versions ride this hook; a WAL replay does not notify (the writes were
+# seen before the crash).  With none registered, a write pays one list
+# check.
+_write_listeners: list = []
+_write_listeners_mu = threading.Lock()
+
+
+def register_write_listener(fn) -> None:
+    with _write_listeners_mu:
+        if fn not in _write_listeners:
+            _write_listeners.append(fn)
+
+
+def unregister_write_listener(fn) -> None:
+    # By equality: a bound method is a new object at each attribute
+    # access, so identity would never find the one registered (the JAX
+    # package's ``is not`` leaks a closed server's listeners).
+    with _write_listeners_mu:
+        _write_listeners[:] = [f for f in _write_listeners if f != fn]
+
+
+def _notify_write(frag, set_rows, set_cols, clear_rows, clear_cols, exact=False) -> None:
+    if frag._replaying:
+        return
+    for fn in list(_write_listeners):
+        try:
+            fn(frag, set_rows, set_cols, clear_rows, clear_cols, exact)
+        except Exception:  # noqa: BLE001 — a listener must not fail a write
+            pass
+
+
 def mirror_epoch() -> int:
     return _mirror_epoch
 
@@ -1164,6 +1201,11 @@ class Fragment:
                 self._maybe_promote(row_id)
             else:
                 self.stats.count("clearBit")  # reference: fragment.go:470
+            if _write_listeners:
+                if add:
+                    _notify_write(self, (row_id,), (column_id,), (), (), exact=True)
+                else:
+                    _notify_write(self, (), (), (row_id,), (column_id,), exact=True)
             return True
 
     def _sparse_write(self, row_id: int, offset: int, add: bool) -> bool:
@@ -1324,6 +1366,8 @@ class Fragment:
             for r in slot_of:
                 self._maybe_promote(r)
             self.stats.count("ImportBit", len(row_ids))  # reference: fragment.go:969
+            if _write_listeners:
+                _notify_write(self, row_ids, column_ids, clear_row_ids, clear_column_ids)
             self.snapshot()
 
     def install_plane(self, plane: np.ndarray) -> None:

@@ -154,6 +154,24 @@ class View:
             self.on_create_slice(self.index, self.name, slice_i)
         return frag
 
+    def remove_fragment(self, slice_i: int) -> bool:
+        """Take one fragment out of service and delete its files (the
+        release of a slice a resize moved away, JAX ``view.py:192``): its
+        mirror leaves the pool at close, its data file, cache and WAL
+        segment leave the disk.  False when the view has no such
+        fragment."""
+        with self._mu:
+            frag = self._fragments.pop(slice_i, None)
+        if frag is None:
+            return False
+        frag.close()
+        for path in (frag.path, frag.cache_path, frag.path + ".wal"):
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+        return True
+
     # --- writes (reference: view.go:262-279) ---
 
     def set_bit(self, row_id: int, column_id: int) -> bool:

@@ -113,7 +113,20 @@ queue on the host as ever, and the first read after the heal applies
 them.  Coordinators prefer a replica whose card is not quarantined
 (``_slices_by_node``).
 
-Replication quorums of the JAX executor are not ported yet.
+Replication (JAX ``executor.py:525-550, 3100-3122, 3200-3470``): with a
+``replication`` (``replicate/quorum.py``, wired by the server) a write goes
+to the slice's write owners — both rings during a resize — through
+``Replication.coordinate_write`` (W-of-N at the request's
+``write_consistency``, hints for the owners it cannot reach, a loud
+failure under W), and a read at ``read_consistency`` quorum or all first
+checks the touched slices' replica versions and repairs any that
+diverged, under a ``replicate.read`` span.  Routing is epoch-guarded (a
+ring that changes under a query fails it with ``MixedEpochError``) and
+covers the new ring's nodes during a resize (``Cluster.route_nodes``);
+the query's deadline (``net/resilience.py``) bounds every wait for a map
+leg, and a read leg to a peer may retry, a write leg never.  With
+``allow_partial`` a read whose slices lost every replica answers over the
+others and lists the lost ones in ``missing_slices``.
 """
 
 from __future__ import annotations
@@ -135,7 +148,7 @@ import torch
 from pilosa_tpu_torch import bsi
 from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch.bsi import ripple
-from pilosa_tpu_torch.cluster.topology import Cluster, Node
+from pilosa_tpu_torch.cluster.topology import Cluster, MixedEpochError, Node
 from pilosa_tpu_torch.core import cache as cache_mod
 from pilosa_tpu_torch.core import timequantum as tq
 from pilosa_tpu_torch.core import fragment as fragment_mod
@@ -147,7 +160,8 @@ from pilosa_tpu_torch.device import health as health_mod
 from pilosa_tpu_torch.exec import coalesce as coalesce_mod
 from pilosa_tpu_torch.exec import hosteval as hosteval_mod
 from pilosa_tpu_torch.exec import plan
-from pilosa_tpu_torch.net.client import is_node_failure
+from pilosa_tpu_torch.net import resilience
+from pilosa_tpu_torch.net.resilience import is_node_failure
 from pilosa_tpu_torch.obs import perf as perf_mod
 from pilosa_tpu_torch.obs import trace
 from pilosa_tpu_torch.ops import bitplane as bp
@@ -203,9 +217,19 @@ class SlicesUnavailableError(ExecutorError):
 @dataclass
 class ExecOptions:
     """reference: executor.go:1302-1304.  ``remote``: this is a map leg
-    of another node's query — run it on the local slices only."""
+    of another node's query — run it on the local slices only.
+    ``write_consistency`` / ``read_consistency``: the request's levels
+    (one, quorum, all), "" for the server's defaults; ignored without a
+    replication."""
 
     remote: bool = False
+    write_consistency: str = ""
+    read_consistency: str = ""
+    # Answer over the surviving slices when every replica of some slice
+    # is down, listing the lost ones in ``missing_slices`` (filled by
+    # _map_reduce, sorted) instead of failing the query.
+    allow_partial: bool = False
+    missing_slices: list[int] = field(default_factory=list)
 
 
 class _NoLaunch:
@@ -434,8 +458,12 @@ class Executor:
         coalescer=None,
         tracer=None,
         device_health=None,
+        replication=None,
     ):
         self.holder = holder
+        # Quorum writes and version-checked reads (replicate/quorum.py);
+        # None writes to every owner and reads from one.
+        self.replication = replication
         # Query-path spans (obs/trace.py); the server wires its tracer.
         self.tracer = tracer or trace.NOP_TRACER
         # The cross-query scheduler (exec/coalesce.py) the Count and Bitmap
@@ -531,11 +559,29 @@ class Executor:
             inverse_slices = list(range(idx.max_inverse_slice() + 1))
             column_label = idx.column_label
             computed_lists = True
+        # Version-checked replica reads: at read consistency quorum or all
+        # the touched slices' replica versions must agree before the
+        # query runs, and a slice that diverged is repaired first (read
+        # your writes at W + R > N).  Level one costs nothing here.
+        if (
+            self.replication is not None
+            and not opt.remote
+            and slices
+            and any(c.name not in WRITE_CALLS for c in q.calls)
+        ):
+            level = self.replication.read_consistency_for(opt)
+            if level != "one":
+                with self.tracer.span("replicate.read", consistency=level) as sp:
+                    repaired = self.replication.ensure_read_consistency(index, slices, level)
+                    sp.annotate(repaired=repaired)
         # No uploads to a quarantined card: the heal stages the mirrors.
         if self.prefetcher is not None and slices and not self.device_health.denied():
             self._prefetch_query(index, q.calls, slices)
         results = []
         for call in q.calls:
+            # A multi-call query whose budget ran out fails before the
+            # next call's fan-out.
+            resilience.check_deadline(f"before call {call.name}")
             call_slices = slices
             if call.supports_inverse() and computed_lists:
                 # Orientation on the node's own slice lists (reference:
@@ -1346,11 +1392,7 @@ class Executor:
             except coalesce_mod.CoalesceClosed:
                 sp.annotate(fallback="closed")
                 return None
-            try:
-                res, info = fut.result(timeout=coalesce_mod.RESULT_TIMEOUT_S)
-            except FuturesTimeoutError:
-                fut.add_done_callback(coalesce_mod.consume_abandoned(self.holder.stats))
-                raise
+            res, info = self._wait_shared(fut, sp, "coalesced launch")
             sp.annotate(**info)
             if info.get("fused"):
                 # This query rode a multi-query interpreter launch: its
@@ -1373,13 +1415,29 @@ class Executor:
             except coalesce_mod.CoalesceClosed:
                 fut = None
             if fut is not None:
-                try:
-                    res, _info = fut.result(timeout=coalesce_mod.RESULT_TIMEOUT_S)
-                except FuturesTimeoutError:
-                    fut.add_done_callback(coalesce_mod.consume_abandoned(self.holder.stats))
-                    raise
+                res, _info = self._wait_shared(fut, None, "shared fetch")
                 return res
         return [a.cpu().numpy() for a in arrays]
+
+    def _wait_shared(self, fut, sp, what: str):
+        """Wait for a shared launch or fetch within the query's deadline
+        (JAX ``executor.py:1471-1495``), else ``RESULT_TIMEOUT_S``.  A
+        waiter that times out detaches: the launch is not cancelled and
+        goes on serving the others, and a late error of it is counted,
+        not left unread.  An expired deadline raises DeadlineExceeded."""
+        timeout = coalesce_mod.RESULT_TIMEOUT_S
+        dl = resilience.current_deadline()
+        if dl is not None:
+            timeout = dl.clamp(timeout)
+        try:
+            return fut.result(timeout=timeout)
+        except FuturesTimeoutError:
+            if sp is not None:
+                sp.annotate(deadline="expired")
+            fut.add_done_callback(coalesce_mod.consume_abandoned(self.holder.stats))
+            if dl is not None and dl.expired:
+                raise resilience.DeadlineExceeded(f"deadline expired waiting for {what}") from None
+            raise
 
     # ------------------------------------------------------------------
     # the batch cache (JAX executor.py:1022-1309)
@@ -2064,7 +2122,7 @@ class Executor:
 
     def _all_slices_local(self, index: str, slices: list[int]) -> bool:
         try:
-            groups = self._slices_by_node(list(self.cluster.nodes), index, slices)
+            groups = self._slices_by_node(self.cluster.route_nodes(), index, slices)
         except SliceUnavailableError:
             return False
         return set(groups) == {self.host}
@@ -2760,11 +2818,18 @@ class Executor:
 
     def _write_one_view(self, index: str, c: Call, f, view: str, row_id: int, col_id: int,
                         write_fn, opt: ExecOptions) -> bool:
-        """One view's write on every owner of its slice: the local write
-        here when this node owns it, the whole call as a remote leg to
-        each other owner unless this is itself a remote leg."""
+        """One view's write on every write owner of its slice (both rings
+        during a resize): the local write here when this node owns it,
+        the whole call as a remote leg to each other owner unless this is
+        itself a remote leg — through the replication's W-of-N
+        coordinator where one is wired."""
         slice_i = col_id // bp.SLICE_WIDTH
-        targets = self.cluster.fragment_nodes(index, slice_i) or [Node(host=self.host)]
+        targets = self.cluster.write_nodes(index, slice_i) or [Node(host=self.host)]
+        if self.replication is not None and not opt.remote:
+            return self.replication.coordinate_write(
+                self, index, c, opt, view,
+                lambda v, r, col: write_fn(f, v, r, col), row_id, col_id, slice_i, targets,
+            )
         ret = False
         for node in targets:
             if node.host == self.host:
@@ -2875,8 +2940,9 @@ class Executor:
 
     def _broadcast_query(self, index: str, q: Query) -> None:
         """The query to every other node as a remote leg, in parallel;
-        the first error wins (reference: executor.go:966-985)."""
-        others = [n for n in self.cluster.nodes if n.host != self.host]
+        the first error wins (reference: executor.go:966-985).  During a
+        resize the new ring's nodes receive it too."""
+        others = [n for n in self.cluster.route_nodes() if n.host != self.host]
         futures = [self._submit(self._exec_remote, n, index, q, None) for n in others]
         for fut in futures:
             fut.result()
@@ -2887,19 +2953,24 @@ class Executor:
     # ------------------------------------------------------------------
 
     def _slices_by_node(
-        self, nodes: list[Node], index: str, slices: list[int]
+        self, nodes: list[Node], index: str, slices: list[int], epoch: int | None = None,
     ) -> dict[str, tuple[Node, list[int]]]:
         """Group slices by their first owner among ``nodes`` that is not
         degraded (its card quarantined), the first owner when all are
-        (JAX ``executor.py:3236``); cached per (ring, replica-health
-        version, node set, index, slice list) — placement is pure in
-        those, and hashing ~1000 slices per query costs more host time
-        than the query's kernels.  Callers treat the result as
+        (JAX ``executor.py:3236``); cached per (routing version — a ring
+        change or a slice's flip during a resize —, replica count,
+        replica-health version, node set, index, slice list): placement
+        is pure in those, and hashing ~1000 slices per query costs more
+        host time than the query's kernels.  ``epoch``, taken when the
+        query started routing, must still be the cluster's, or the query
+        fails with ``MixedEpochError``.  Callers treat the result as
         read-only."""
+        if epoch is not None and self.cluster.epoch != epoch:
+            raise MixedEpochError(epoch, self.cluster.epoch)
         if not self.cluster.nodes:
             return {self.host: (Node(host=self.host), list(slices))}
         key = (
-            tuple(self.cluster.hosts()),
+            self.cluster.routing_version,
             self.cluster.replica_n,
             self.cluster.health_version,
             tuple(n.host for n in nodes),
@@ -2929,12 +3000,15 @@ class Executor:
         """Map ``slices`` over their owners and reduce each answer as it
         lands; a leg that fails for its node (transport error or 5xx)
         has its slices placed again on the remaining owners.  A remote
-        leg (``opt.remote``) maps over this node alone."""
+        leg (``opt.remote``) maps over this node alone.  Every grouping
+        checks the epoch taken here; the waits end with the query's
+        deadline."""
+        epoch0 = self.cluster.epoch
         if opt.remote or not self.cluster.nodes:
             me = self.cluster.node_by_host(self.host) or Node(host=self.host)
             nodes = [me]
         else:
-            nodes = list(self.cluster.nodes)
+            nodes = self.cluster.route_nodes()
         if not slices:
             # Sliceless execution still runs locally once.
             resp = self._map_node(Node(host=self.host), [], index, c, map_fn)
@@ -2943,24 +3017,31 @@ class Executor:
             return reduce_fn(None, resp.result)
 
         inflight: dict = {}
+        missing: list[int] = []
 
         def submit(avail: list[Node], want: list[int]) -> None:
-            for node, node_slices in self._slices_by_node(avail, index, want).values():
+            for node, node_slices in self._slices_by_node(avail, index, want, epoch0).values():
                 fut = self._submit(self._map_node, node, node_slices, index, c, map_fn)
                 inflight[fut] = avail
 
         def failover(resp: _MapResponse, avail: list[Node]) -> None:
-            if not is_node_failure(resp.error):
+            if isinstance(resp.error, resilience.DeadlineExceeded) or not is_node_failure(
+                resp.error
+            ):
                 raise resp.error
             remaining = [n for n in avail if n.host != resp.node.host]
             placeable, lost = self.cluster.split_by_owner(
                 index, resp.slices, {n.host for n in remaining}
             )
             if lost:
-                raise SlicesUnavailableError(lost, cause=resp.error)
-            submit(remaining, placeable)
+                if not opt.allow_partial:
+                    raise SlicesUnavailableError(lost, cause=resp.error)
+                missing.extend(lost)
+                self.holder.stats.count("exec.partial.slicesDropped", len(lost))
+            if placeable:
+                submit(remaining, placeable)
 
-        groups = self._slices_by_node(nodes, index, slices)
+        groups = self._slices_by_node(nodes, index, slices, epoch0)
         if len(groups) == 1:
             # One target (the single-node case): run the leg inline.
             ((node, node_slices),) = groups.values()
@@ -2973,7 +3054,13 @@ class Executor:
 
         result = None
         while inflight:
-            done, _ = wait(list(inflight), return_when=FIRST_COMPLETED)
+            dl = resilience.current_deadline()
+            timeout = None if dl is None else dl.remaining()
+            if timeout is not None and timeout <= 0:
+                raise resilience.DeadlineExceeded("deadline exceeded awaiting map responses")
+            done, _ = wait(list(inflight), timeout=timeout, return_when=FIRST_COMPLETED)
+            if not done:
+                raise resilience.DeadlineExceeded("deadline exceeded awaiting map responses")
             for fut in done:
                 avail = inflight.pop(fut)
                 resp = fut.result()
@@ -2981,11 +3068,16 @@ class Executor:
                     failover(resp, avail)
                     continue
                 result = reduce_fn(result, resp.result)
+        if missing:
+            # A query may map more than once (TopN's two phases).
+            opt.missing_slices[:] = sorted(set(opt.missing_slices) | set(missing))
         return result
 
     def _map_node(self, node: Node, node_slices: list[int], index, c, map_fn) -> _MapResponse:
         resp = _MapResponse(node=node, slices=node_slices)
         try:
+            # An exhausted budget fails the query (504), never the node.
+            resilience.check_deadline("before map")
             if node.host == self.host:
                 # Every mirror and sparse payload the leg finds or uploads
                 # stays pinned until its launches are enqueued and their
@@ -2994,8 +3086,11 @@ class Executor:
                     with device_mod.pool().pinned():
                         resp.result = map_fn(node_slices)
             else:
-                results = self._exec_remote(node, index, Query(calls=[c]), node_slices)
+                results = self._exec_remote(node, index, Query(calls=[c]), node_slices,
+                                            idempotent=True)
                 resp.result = results[0] if results else None
+        except resilience.DeadlineExceeded as e:
+            resp.error = e
         except Exception as e:  # noqa: BLE001 — failover boundary
             resp.error = e
         return resp
@@ -3006,12 +3101,15 @@ class Executor:
         ``executor.py:254``)."""
         return self._pool.submit(contextvars.copy_context().run, fn, *args)
 
-    def _exec_remote(self, node: Node, index: str, q: Query, slices) -> list:
+    def _exec_remote(self, node: Node, index: str, q: Query, slices,
+                     extra_headers: dict | None = None, idempotent: bool = False) -> list:
         """Forward a query to a peer as a remote leg (reference:
         executor.go:1045-1129).  The rpc span's ids travel as
         ``X-Trace-Id`` / ``X-Span-Id``; the peer continues the trace under
         them and sends its spans back, which the client absorbs into this
-        node's trace (JAX ``executor.py:3429``)."""
+        node's trace (JAX ``executor.py:3429``).  ``extra_headers`` ride
+        along (the quorum coordinator's write-version stamp);
+        ``idempotent`` lets a read leg retry."""
         if self.client_factory is None:
             raise ExecutorError(f"no client for remote node {node.host}")
         client = self.client_factory(node)
@@ -3019,10 +3117,14 @@ class Executor:
             "rpc.execute", node=node.host, slices=len(slices) if slices else 0
         ) as sp:
             headers = self.tracer.remote_headers(sp)
+            if extra_headers:
+                headers = {**(headers or {}), **extra_headers}
             if headers:
                 return client.execute_query(index, str(q), slices, remote=True,
-                                            trace_headers=headers, tracer=self.tracer)
-            return client.execute_query(index, str(q), slices, remote=True)
+                                            trace_headers=headers, tracer=self.tracer,
+                                            idempotent=idempotent)
+            return client.execute_query(index, str(q), slices, remote=True,
+                                        idempotent=idempotent)
 
 
 def _uint_arg(c: Call, key: str) -> tuple[int, bool]:

@@ -9,7 +9,10 @@ data file) and applies the rest through ``set_bit``/``clear_bit`` with
 ``frag._replaying`` set, which keeps them out of the op-log and the WAL
 and defers the auto-snapshot: the caller takes one snapshot after the
 replay.  Replay runs under the fragment lock (``Fragment.open`` holds
-it).
+it).  With ``versions`` (the replication's ``VersionStore``, JAX
+``ingest/recovery.py:59-63``) the slice's write version moves forward by
+the writes the replay applied: they were acknowledged before the crash,
+so read repair must not find this replica behind.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from pilosa_tpu_torch.ops import roaring
 SLICE_WIDTH = bp.SLICE_WIDTH
 
 
-def replay(frag, seg) -> dict:
+def replay(frag, seg, versions=None) -> dict:
     """Apply the ops of ``seg`` past the fragment's recovered op count;
     returns the report ``/debug/ingest`` shows as ``lastReplay``."""
     skip = frag._op_n
@@ -46,6 +49,8 @@ def replay(frag, seg) -> dict:
         from pilosa_tpu_torch.core import fragment as fragment_mod
 
         fragment_mod._count("walReplayedOps", applied)
+        if versions is not None:
+            versions.bump_many(frag.index, frag.slice, applied)
     return {
         "fragment": f"{frag.index}/{frag.frame}/{frag.view}/{frag.slice}",
         "walOps": seg.n_ops,

@@ -402,8 +402,11 @@ class IngestManager:
 
     def __init__(self, data_dir: str, *, group_commit_ms: float = 2.0,
                  group_commit_max: int = 128, wal_segment_bytes: int = 4 << 20, logger=None,
-                 stats=None):
+                 stats=None, versions=None):
         self.data_dir = os.path.realpath(data_dir)
+        # The replication's per-slice write versions, moved forward by a
+        # replay (JAX ingest/wal.py:410-418); None outside a server.
+        self.versions = versions
         self.stats = stats if stats is not None else NopStatsClient()
         self.group_commit_ms = float(group_commit_ms)
         self.group_commit_max = int(group_commit_max)
@@ -459,7 +462,7 @@ class IngestManager:
                             f"is not a prefix of the logged ops; {len(seg.frames)} frames "
                             "forfeited)")
             else:
-                report = recovery.replay(frag, seg)
+                report = recovery.replay(frag, seg, self.versions)
                 self._note_replay(frag, report)
                 base = seg.end_op_version
                 if report["replayed"] or report["unchanged"]:

@@ -5,9 +5,22 @@ cluster needs: protobuf queries (the map legs of a fan-out), schema
 calls (BSI fields included), max slices, slice owners, and the
 slice-targeted bulk imports that POST each slice's bits — or each
 slice's field values — to every owner (reference: client.go:39-476;
-JAX ``client.py:422-560``).  Every request carries a socket timeout and is made
-once: a dead peer surfaces as an error at once, for the executor's
-replica failover to act on; no retry loop hides it.
+JAX ``client.py:422-560``).
+
+Resilience (JAX ``client.py:56-316``): a client may carry the server's
+``RetryPolicy`` and ``BreakerRegistry`` (``net/resilience.py``).  Every
+request passes the host's breaker (an open one fails at once), takes its
+socket timeout from the query's remaining deadline and sends that budget
+as ``X-Deadline-Ms``, and hits the ``rpc.send`` check point of
+``testing/faults.py``; a transport failure or a 5xx counts against the
+breaker.  Only idempotent calls (GETs, and the read legs and version
+probes that say so) retry.  A bare client makes each request once.
+
+Imports go to a slice's WRITE owners (both rings during a resize) with
+W-of-N acknowledgement: ``consistency`` one, quorum or all sets W, the
+payload of every owner that cannot be reached is queued as a hint on
+the first owner that took it (``POST /replicate/hint``), and fewer than
+W acknowledgements fail, naming each host.
 
 The data plane of backup, restore, export and block sync (reference:
 client.go:403-1010; JAX ``client.py:214-1000``): CSV export with a
@@ -37,8 +50,10 @@ from typing import Any
 import numpy as np
 
 from pilosa_tpu_torch import stream as stream_mod
-from pilosa_tpu_torch.net import codec, wire
+from pilosa_tpu_torch.net import codec, resilience, wire
+from pilosa_tpu_torch.net.resilience import TRANSPORT_ERRORS, is_node_failure  # noqa: F401
 from pilosa_tpu_torch.ops.bitplane import SLICE_WIDTH, np_group_by
+from pilosa_tpu_torch.testing import faults
 
 PROTOBUF = "application/x-protobuf"
 
@@ -46,9 +61,6 @@ PROTOBUF = "application/x-protobuf"
 # the node's work per fragment (an encode, or a restore's six fsyncs)
 # overlaps across requests, and the tar keeps slice order.
 VIEW_ARCHIVES_IN_FLIGHT = 16
-
-# Failures of the transport itself: the peer is down or unreachable.
-TRANSPORT_ERRORS = (OSError, http.client.HTTPException)
 
 
 class ClientError(RuntimeError):
@@ -62,17 +74,6 @@ class PreconditionFailedError(ClientError):
 
     def __init__(self, message: str = "precondition failed"):
         super().__init__(412, message)
-
-
-def is_node_failure(exc: BaseException) -> bool:
-    """Whether an error from a remote leg indicts the NODE — a transport
-    failure or a 5xx answer, eligible for replica failover — rather
-    than the query, which would fail the same everywhere (JAX:
-    ``net/resilience.py:104``)."""
-    if isinstance(exc, TRANSPORT_ERRORS):
-        return True
-    status = getattr(exc, "status", None)
-    return isinstance(status, int) and status >= 500
 
 
 def _drop(futures) -> None:
@@ -97,12 +98,17 @@ def _err_text(data: bytes) -> str:
 
 class InternalClient:
     """HTTP client pinned to one host ("host:port").  ``device`` is where
-    decoded Bitmap results land (the calling node's device)."""
+    decoded Bitmap results land (the calling node's device); ``retry``
+    and ``breakers`` are the server's shared resilience wiring."""
 
-    def __init__(self, host: str, timeout: float = 30.0, device=None):
+    def __init__(self, host: str, timeout: float = 30.0, device=None,
+                 retry: "resilience.RetryPolicy | None" = None,
+                 breakers: "resilience.BreakerRegistry | None" = None):
         self.host = host
         self.timeout = timeout
         self.device = device
+        self.retry = retry
+        self.breakers = breakers
         # Attempts and first backoff of a streamed GET's opening, and the
         # chunk size of streamed bodies.
         self.stream_retries = 3
@@ -110,7 +116,11 @@ class InternalClient:
         self.chunk_bytes = stream_mod.DEFAULT_CHUNK_BYTES
 
     def _peer(self, host: str) -> "InternalClient":
-        return self if host == self.host else InternalClient(host, self.timeout, self.device)
+        """A client of another node with this one's resilience wiring."""
+        if host == self.host:
+            return self
+        return InternalClient(host, self.timeout, self.device,
+                              retry=self.retry, breakers=self.breakers)
 
     # --- plumbing ---
 
@@ -121,8 +131,9 @@ class InternalClient:
         query: dict[str, Any] | None = None,
         body: bytes = b"",
         headers: dict[str, str] | None = None,
+        idempotent: bool | None = None,
     ) -> tuple[int, bytes]:
-        status, data, _ = self._request_meta(method, path, query, body, headers)
+        status, data, _ = self._request_meta(method, path, query, body, headers, idempotent)
         return status, data
 
     def _request_meta(
@@ -132,18 +143,73 @@ class InternalClient:
         query: dict[str, Any] | None = None,
         body: bytes = b"",
         headers: dict[str, str] | None = None,
+        idempotent: bool | None = None,
     ) -> tuple[int, bytes, dict[str, str]]:
-        """``(status, body, response headers with lower-case names)``."""
+        """``(status, body, response headers with lower-case names)``.
+        ``idempotent`` (default: a GET or HEAD) lets the retry policy
+        repeat the request after a transport failure or a shed."""
+        bare = path
         if query:
             path = f"{path}?{urllib.parse.urlencode(query)}"
-        conn = http.client.HTTPConnection(self.host, timeout=self.timeout)
+        if idempotent is None:
+            idempotent = method in ("GET", "HEAD")
+
+        def attempt():
+            return self._attempt(method, bare, path, body, headers)
+
+        if idempotent and self.retry is not None:
+            return self.retry.call(
+                attempt, retryable=resilience.TRANSPORT_ERRORS + (resilience.ShedError,)
+            )
+        return attempt()
+
+    def _attempt(self, method: str, bare: str, path: str, body, headers):
+        """One request on the wire: the breaker's gate, the deadline's
+        socket timeout and header, the ``rpc.send`` check point, and the
+        outcome recorded against the breaker (a 429 is a healthy node
+        shedding, and does not count)."""
+        timeout, hdrs = self._prepare(method, bare, headers)
+        conn = None
         try:
-            conn.request(method, path, body=body, headers=headers or {})
-            resp = conn.getresponse()
-            data = resp.read()
-            return resp.status, data, {k.lower(): v for k, v in resp.getheaders()}
+            try:
+                faults.check("rpc.send", host=self.host, path=bare)
+                conn = http.client.HTTPConnection(self.host, timeout=timeout)
+                conn.request(method, path, body=body, headers=hdrs)
+                resp = conn.getresponse()
+                data = resp.read()
+            except resilience.TRANSPORT_ERRORS:
+                self._record_breaker(False)
+                raise
+            resp_headers = {k.lower(): v for k, v in resp.getheaders()}
+            self._record_breaker(resp.status < 500)
+            if resp.status == 429:
+                raise _shed_error(self.host, data, resp_headers)
+            return resp.status, data, resp_headers
         finally:
-            conn.close()
+            if conn is not None:
+                conn.close()
+
+    def _prepare(self, method: str, bare: str, headers) -> tuple[float, dict[str, str]]:
+        """Before any socket work: fail an expired deadline and an open
+        breaker, bound the timeout by the remaining budget and send that
+        budget as ``X-Deadline-Ms``."""
+        dl = resilience.current_deadline()
+        if dl is not None and dl.expired:
+            raise resilience.DeadlineExceeded(
+                f"deadline exceeded before {method} {bare} to {self.host}"
+            )
+        if self.breakers is not None:
+            self.breakers.check(self.host)
+        hdrs = dict(headers or {})
+        timeout = self.timeout
+        if dl is not None:
+            timeout = min(timeout, max(dl.remaining(), 0.001))
+            hdrs[resilience.DEADLINE_HEADER] = dl.header_value()
+        return timeout, hdrs
+
+    def _record_breaker(self, ok: bool) -> None:
+        if self.breakers is not None:
+            self.breakers.record(self.host, ok)
 
     def _request_chunked(
         self, method: str, path: str, reader, query: dict[str, Any] | None = None,
@@ -151,7 +217,8 @@ class InternalClient:
     ) -> tuple[int, bytes]:
         """A request whose body streams off ``reader`` with chunked
         transfer encoding, in writes of ``chunk_bytes``; made once (the
-        reader cannot be rewound)."""
+        reader cannot be rewound), through the breaker and deadline."""
+        bare = path
         if query:
             path = f"{path}?{urllib.parse.urlencode(query)}"
 
@@ -162,15 +229,27 @@ class InternalClient:
                     return
                 yield data
 
-        conn = http.client.HTTPConnection(self.host, timeout=self.timeout)
+        timeout, hdrs = self._prepare(method, bare, headers)
+        conn = None
         try:
-            conn.request(method, path, body=chunks(),
-                         headers={**(headers or {}), "Transfer-Encoding": "chunked"},
-                         encode_chunked=True)
-            resp = conn.getresponse()
-            return resp.status, resp.read()
+            try:
+                faults.check("rpc.send", host=self.host, path=bare)
+                conn = http.client.HTTPConnection(self.host, timeout=timeout)
+                conn.request(method, path, body=chunks(),
+                             headers={**hdrs, "Transfer-Encoding": "chunked"},
+                             encode_chunked=True)
+                resp = conn.getresponse()
+                data = resp.read()
+            except resilience.TRANSPORT_ERRORS:
+                self._record_breaker(False)
+                raise
+            self._record_breaker(resp.status < 500)
+            if resp.status == 429:
+                raise _shed_error(self.host, data, {k.lower(): v for k, v in resp.getheaders()})
+            return resp.status, data
         finally:
-            conn.close()
+            if conn is not None:
+                conn.close()
 
     def _open_stream(
         self, method: str, path: str, query: dict[str, Any] | None = None,
@@ -179,13 +258,16 @@ class InternalClient:
         """An error-checked response body stream; its opening (the dial and
         the status line) retries with backoff, the stream itself does not.
         The caller closes it."""
+        bare = path
         if query:
             path = f"{path}?{urllib.parse.urlencode(query)}"
 
         def _open():
-            conn = http.client.HTTPConnection(self.host, timeout=self.timeout)
+            timeout, hdrs = self._prepare(method, bare, headers)
+            faults.check("rpc.send", host=self.host, path=bare)
+            conn = http.client.HTTPConnection(self.host, timeout=timeout)
             try:
-                conn.request(method, path, headers=headers or {})
+                conn.request(method, path, headers=hdrs)
                 resp = conn.getresponse()
             except BaseException:
                 conn.close()
@@ -203,6 +285,12 @@ class InternalClient:
     def _check(self, status: int, data: bytes) -> bytes:
         if status == 412:
             raise PreconditionFailedError(_err_text(data))
+        if status == 429:
+            raise resilience.ShedError(_err_text(data))
+        if status == 504:
+            # The peer's deadline ran out: the coordinator fails the
+            # query too, rather than fail over as from a dead node.
+            raise resilience.DeadlineExceeded(_err_text(data))
         if status >= 400:
             raise ClientError(status, _err_text(data))
         return data
@@ -217,22 +305,29 @@ class InternalClient:
         remote: bool = False,
         trace_headers: dict[str, str] | None = None,
         tracer=None,
+        idempotent: bool = False,
     ) -> list:
         """Run ``query`` on the host.  ``trace_headers`` (the caller's rpc
-        span, ``Tracer.remote_headers``) continue the caller's trace
-        there; the spans the host sends back in ``X-Trace-Spans`` go into
-        ``tracer`` (JAX ``net/client.py:365``)."""
+        span, ``Tracer.remote_headers``, and any other header of the leg,
+        such as the quorum coordinator's write-version stamp) continue
+        the caller's trace there; the spans the host sends back in
+        ``X-Trace-Spans`` go into ``tracer`` (JAX ``net/client.py:365``).
+        ``idempotent`` lets the retry policy repeat a read leg; a write
+        leg is made once."""
         pb = wire.QueryRequest(Query=query, Slices=list(slices or []), Remote=remote)
         headers = {"Content-Type": PROTOBUF, "Accept": PROTOBUF}
         if trace_headers:
             headers.update(trace_headers)
         status, data, resp_headers = self._request_meta(
-            "POST", f"/index/{index}/query", body=pb.encode(), headers=headers
+            "POST", f"/index/{index}/query", body=pb.encode(), headers=headers,
+            idempotent=idempotent,
         )
         if tracer is not None:
             payload = resp_headers.get("x-trace-spans")
             if payload:
                 tracer.absorb(payload)
+        if status in (429, 504):
+            self._check(status, data)
         if status >= 400:
             # A query error comes back as a QueryResponse with Err.
             try:
@@ -244,6 +339,13 @@ class InternalClient:
         if resp.Err:
             raise ClientError(status, resp.Err)
         return [codec.result_from_proto(r, self.device) for r in resp.Results]
+
+    def execute_pql(self, index: str, query: str) -> Any:
+        """One call's result (reference: client.go:258-281)."""
+        results = self.execute_query(index, query)
+        if not results:
+            raise ClientError(200, "empty response")
+        return results[0]
 
     # --- schema (reference: client.go:63-220) ---
 
@@ -285,23 +387,26 @@ class InternalClient:
         status, data = self._request("GET", f"/index/{index}/frame/{frame}/views")
         return json.loads(self._check(status, data))["views"]
 
-    def fragment_nodes(self, index: str, slice_i: int) -> list[dict]:
-        """Owners of a slice, as ``[{"host", "internalHost"}]``."""
-        status, data = self._request(
-            "GET", "/fragment/nodes", query={"index": index, "slice": slice_i}
-        )
+    def fragment_nodes(self, index: str, slice_i: int, write: bool = False) -> list[dict]:
+        """Owners of a slice, as ``[{"host", "internalHost"}]``;
+        ``write=True`` asks for its write owners (both rings during a
+        resize)."""
+        query: dict = {"index": index, "slice": slice_i}
+        if write:
+            query["write"] = "true"
+        status, data = self._request("GET", "/fragment/nodes", query=query)
         return json.loads(self._check(status, data))
 
     # --- import (reference: client.go:314-401) ---
 
     def import_slice(
         self, index: str, frame: str, slice_i: int, rows, cols, timestamps=None,
-        view: str = "", host: str | None = None,
+        view: str = "", host: str | None = None, consistency: str = "quorum",
     ) -> None:
-        """POST one slice's bits to every owner of the slice, or to
-        ``host`` alone.  Every owner must accept them: a failure raises
-        naming each host that failed, after the others have received the
-        bits.  ``view="inverse"`` sends the inverse half of an import:
+        """POST one slice's bits to every write owner of the slice with
+        W-of-N acknowledgement at ``consistency`` (see
+        :meth:`_fanout_write`), or to ``host`` alone, which must accept
+        them.  ``view="inverse"`` sends the inverse half of an import:
         ``slice_i`` is then the inverse slice (``row // SLICE_WIDTH``) and
         the bits are imported into the frame's inverse views only."""
         pb = wire.ImportRequest(
@@ -313,16 +418,31 @@ class InternalClient:
             Timestamps=[] if timestamps is None else np.asarray(timestamps, dtype=np.int64),
         )
         path = "/import?view=inverse" if view == "inverse" else "/import"
-        self._post_to_owners(
-            index, slice_i, path, pb.encode(),
-            {"Content-Type": PROTOBUF, "Accept": PROTOBUF}, protobuf=True, host=host,
-        )
+        payload = pb.encode()
+
+        def post(client) -> None:
+            status, data = client._request(
+                "POST", path, body=payload,
+                headers={"Content-Type": PROTOBUF, "Accept": PROTOBUF},
+            )
+            resp = wire.ImportResponse.decode(client._check(status, data))
+            if resp.Err:
+                raise ClientError(500, resp.Err)
+
+        if host is not None:
+            return self._post_one(host, post)
+        # A hint replays the whole /import body, so only a standard
+        # import is hinted; the inverse half goes to its owners alone.
+        self._fanout_write(index, slice_i, post, consistency,
+                           "import" if view != "inverse" else "", payload, len(pb.RowIDs))
 
     def import_value(
-        self, index: str, frame: str, field: str, slice_i: int, columns, values
+        self, index: str, frame: str, field: str, slice_i: int, columns, values,
+        consistency: str = "quorum",
     ) -> None:
         """POST one slice's field values (``/import-value``) to every
-        owner of the slice, as :meth:`import_slice` does with bits."""
+        write owner of the slice, as :meth:`import_slice` does with
+        bits."""
         payload = json.dumps(
             {
                 "index": index,
@@ -333,31 +453,112 @@ class InternalClient:
                 "values": np.asarray(values, dtype=np.int64).tolist(),
             }
         ).encode()
-        self._post_to_owners(index, slice_i, "/import-value", payload, {}, protobuf=False)
 
-    def _post_to_owners(
-        self, index: str, slice_i: int, path: str, payload: bytes, headers: dict,
-        protobuf: bool, host: str | None = None,
-    ) -> None:
-        nodes = [{"host": host}] if host is not None else self.fragment_nodes(index, slice_i)
+        def post(client) -> None:
+            status, data = client._request("POST", "/import-value", body=payload)
+            client._check(status, data)
+
+        self._fanout_write(index, slice_i, post, consistency, "import-value", payload,
+                           len(np.asarray(columns)))
+
+    def _post_one(self, host: str, post) -> None:
+        try:
+            post(self._peer(host))
+        except TRANSPORT_ERRORS + (ClientError, ValueError) as e:
+            raise ClientError(500, f"import failed on {host}: {e}") from e
+
+    def _fanout_write(self, index: str, slice_i: int, post, consistency: str,
+                      hint_kind: str, payload: bytes, rows: int) -> None:
+        """Every write owner of the slice receives the payload; the
+        acknowledgements count against W = ``required_acks(consistency,
+        N)``; each owner that failed gets the payload queued as a hint on
+        the first owner that took it; fewer than W acknowledgements fail,
+        naming every host that failed (JAX ``client.py:560-630``)."""
+        from pilosa_tpu_torch.replicate.quorum import required_acks, validate_level
+
+        validate_level(consistency)
+        nodes = self.fragment_nodes(index, slice_i, write=True)
         if not nodes:
             raise ClientError(500, f"no nodes for slice {slice_i}")
-        errors = []
+        failures = (ClientError, ValueError, resilience.BreakerOpenError,
+                    resilience.ShedError) + TRANSPORT_ERRORS
+        acked: list[str] = []
+        errs: list[str] = []
+        failed: list[str] = []
         for node in nodes:
-            peer = self._peer(node["host"])
             try:
-                status, data = peer._request("POST", path, body=payload, headers=headers)
-                body = peer._check(status, data)
-                if protobuf:
-                    resp = wire.ImportResponse.decode(body)
-                    if resp.Err:
-                        raise ClientError(500, resp.Err)
-            except TRANSPORT_ERRORS + (ClientError, ValueError) as e:
-                errors.append(f"{node['host']}: {e}")
-        if errors:
-            raise ClientError(500, "import failed on " + "; ".join(errors))
+                post(self._peer(node["host"]))
+                acked.append(node["host"])
+            except failures as e:
+                errs.append(f"{node['host']}: {e}")
+                failed.append(node["host"])
+        hint_errs: list[str] = []
+        if failed and acked and hint_kind:
+            holder = self._peer(acked[0])
+            for host in failed:
+                try:
+                    holder.queue_hint(host, index, slice_i, hint_kind, payload, rows)
+                except failures as e:
+                    hint_errs.append(f"{host}: {e}")
+        need = required_acks(consistency, len(nodes))
+        if len(acked) < need:
+            raise ClientError(
+                500,
+                f"import acknowledged by {len(acked)} of {len(nodes)} "
+                f"replicas (need {need} at consistency={consistency}): " + "; ".join(errs),
+            )
+        if hint_errs:
+            raise ClientError(500, "import acked but hint queue failed: " + "; ".join(hint_errs))
+        if failed and not hint_kind:
+            raise ClientError(500, "import failed on " + "; ".join(errs))
 
-    def import_bits(self, index: str, frame: str, rows, cols, timestamps=None) -> list[int]:
+    # --- replication (JAX client.py:632-711) ---
+
+    def queue_hint(self, target: str, index: str, slice_i: int, kind: str,
+                   payload: bytes, rows: int) -> None:
+        """Queue a write payload on this node as a hint for ``target``
+        (hinted handoff: any live node may hold hints for a dead one)."""
+        body = json.dumps({
+            "target": target, "index": index, "slice": int(slice_i), "kind": kind,
+            "payload": base64.b64encode(payload).decode(), "rows": int(rows),
+        }).encode()
+        status, data = self._request("POST", "/replicate/hint", body=body)
+        self._check(status, data)
+
+    def replicate_versions(self, index: str, slices) -> dict[int, int]:
+        """The node's write versions of ``slices``: a read's staleness
+        probe, one call for many slices (a read, so it may retry)."""
+        body = json.dumps({"index": index, "slices": [int(s) for s in slices]}).encode()
+        status, data = self._request("POST", "/replicate/versions", body=body, idempotent=True)
+        versions = json.loads(self._check(status, data))["versions"]
+        return {int(k): int(v) for k, v in versions.items()}
+
+    def observe_version(self, index: str, slice_i: int, version: int) -> None:
+        """Move the node's slice version forward (max-merge): the mark
+        left after a repair or a replay."""
+        body = json.dumps({"index": index, "slice": int(slice_i), "version": int(version),
+                           "action": "observe"}).encode()
+        status, data = self._request("POST", "/replicate/versions", body=body, idempotent=True)
+        self._check(status, data)
+
+    def import_raw(self, payload: bytes) -> None:
+        """Replay a queued ``/import`` body as it was, on this node."""
+        status, data = self._request(
+            "POST", "/import", body=payload,
+            headers={"Content-Type": PROTOBUF, "Accept": PROTOBUF, "X-Internal-Lane": "1"},
+        )
+        resp = wire.ImportResponse.decode(self._check(status, data))
+        if resp.Err:
+            raise ClientError(500, resp.Err)
+
+    def import_value_raw(self, payload: bytes) -> None:
+        """Replay a queued ``/import-value`` body as it was."""
+        status, data = self._request("POST", "/import-value", body=payload,
+                                     headers={"X-Internal-Lane": "1"})
+        self._check(status, data)
+
+    def import_bits(self, index: str, frame: str, rows, cols, timestamps=None,
+                    consistency: str = "quorum") -> list[int]:
         """Group (row, col[, timestamp]) bits by slice and send each
         slice to all its owners; returns the slices sent."""
         rows = np.asarray(rows, dtype=np.uint64)
@@ -369,11 +570,12 @@ class InternalClient:
             arrays.append(np.asarray(timestamps, dtype=np.int64))
         sent = []
         for s, parts in np_group_by(cols // np.uint64(SLICE_WIDTH), *arrays):
-            self.import_slice(index, frame, s, *parts)
+            self.import_slice(index, frame, s, *parts, consistency=consistency)
             sent.append(s)
         return sent
 
-    def import_values(self, index: str, frame: str, field: str, cols, values) -> list[int]:
+    def import_values(self, index: str, frame: str, field: str, cols, values,
+                      consistency: str = "quorum") -> list[int]:
         """Group (column, value) pairs by slice and send each slice's
         values to all its owners; returns the slices sent."""
         cols = np.asarray(cols, dtype=np.int64)
@@ -382,7 +584,7 @@ class InternalClient:
             raise ValueError("columns and values differ in length")
         sent = []
         for s, (c_s, v_s) in np_group_by(cols // SLICE_WIDTH, cols, values):
-            self.import_value(index, frame, field, s, c_s, v_s)
+            self.import_value(index, frame, field, s, c_s, v_s, consistency=consistency)
             sent.append(s)
         return sent
 
@@ -603,3 +805,21 @@ class InternalClient:
             raise ClientError(404, "frame not found")
         attrs = json.loads(self._check(status, data))["attrs"]
         return {int(k): v for k, v in attrs.items()}
+
+
+def _shed_error(host: str, data: bytes, headers: dict[str, str]) -> resilience.ShedError:
+    """A 429 answer as a ShedError with the server's Retry-After hint:
+    the body's milliseconds where present, else the header's seconds,
+    else 1 s."""
+    retry_after = 1.0
+    try:
+        retry_after = float(headers.get("retry-after", "") or 1.0)
+    except ValueError:
+        pass
+    try:
+        ms = json.loads(data).get("retryAfterMs")
+        if ms is not None:
+            retry_after = float(ms) / 1000.0
+    except (json.JSONDecodeError, AttributeError, TypeError, ValueError):
+        pass
+    return resilience.ShedError(_err_text(data), retry_after_s=retry_after, host=host)

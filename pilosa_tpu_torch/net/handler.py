@@ -81,10 +81,25 @@ state, the watchdog's trips, the knobs; JAX ``handler.py:1860``), whose
 gauges ``/metrics`` renders at scrape time.  ``/metrics`` leaves out the
 JAX node's ``exec.programCache.*`` gauges (XLA jit caches: the port
 builds each kernel once) and its admission and subscription gauges
-(those modules are not ported); ``/debug/health`` has no ``resilience``
-or ``admission`` keys yet, for the same reason.
+(those modules are not ported); ``/debug/health`` has no
+``admission`` key yet, for the same reason.
 
-Replication, resize and the other debug routes are not ported yet.
+Replica agreement (JAX ``handler.py:303-327, 842-960, 1436-1700,
+1821-1872``): a query runs under its deadline (``X-Deadline-Ms``, else
+the server's ``query_timeout_ms``; an exhausted one answers 504), answers
+over the surviving slices with ``allowPartial=true`` (``partial`` and
+``missingSlices`` in JSON, ``X-Missing-Slices`` with protobuf), takes
+``writeConsistency`` / ``readConsistency`` from the URL or the
+``X-Write-Consistency`` / ``X-Read-Consistency`` headers (the header
+wins, junk answers 400), and a remote write leg's ``X-Write-Version``
+stamp is the replica's self-staleness probe.  Every request passes the
+``rpc.recv`` check point of ``testing/faults.py``.  The routes
+``POST /replicate/{versions,hint,replay}``, ``POST
+/rebalance/{delta,release}``, ``POST /cluster/resize``, ``POST
+/cluster/resize/abort``, ``POST /cluster/topology``, ``GET
+/fragment/nodes?write=true``, ``GET /debug/replication`` and ``GET
+/debug/rebalance`` answer as a JAX node's; ``/debug/health`` carries the
+resilience wiring (``queryTimeoutMs``, ``retry``, ``breakers``).
 """
 
 from __future__ import annotations
@@ -122,10 +137,13 @@ from pilosa_tpu_torch.exec import plan as plan_mod
 from pilosa_tpu_torch.exec.executor import ExecOptions, TooManyWritesError
 from pilosa_tpu_torch.ingest import scatter
 from pilosa_tpu_torch.net import codec, wire
+from pilosa_tpu_torch.net import resilience as rz
 from pilosa_tpu_torch.obs import perf as perf_mod
 from pilosa_tpu_torch.obs import prom, trace
 from pilosa_tpu_torch.ops import bitplane as bp
 from pilosa_tpu_torch.pql.parser import parse_string
+from pilosa_tpu_torch.replicate import quorum as replicate_mod
+from pilosa_tpu_torch.testing import faults
 
 PROTOBUF = "application/x-protobuf"
 JSON = "application/json"
@@ -136,7 +154,6 @@ METRICS_LEFT_OUT = {
     "pilosa_exec_programCache_": "XLA jit caches; the port builds each kernel once",
     "pilosa_net_admission_": "admission control is not ported",
     "pilosa_exec_subscribe_": "standing queries are not ported",
-    "pilosa_cluster_replication_": "quorum replication is not ported",
     "pilosa_tenant_": "tenant QoS is not ported",
     "pilosa_exec_pool_": "map legs run on the standard library's thread pool",
 }
@@ -257,6 +274,12 @@ class Handler:
         # The WAL manager (wired by the server), for /debug/ingest; None
         # when the WAL is off.
         self.ingest = None
+        # The server's resilience wiring (deadlines, retry, breakers), its
+        # replication and its rebalancer; None answers as a JAX node
+        # without them.
+        self.resilience = None
+        self.replication = None
+        self.rebalance = None
         routes: list[tuple[str, str, Callable]] = [
             ("GET", r"/schema", self.handle_get_schema),
             ("GET", r"/status", self.handle_get_status),
@@ -297,6 +320,16 @@ class Handler:
             ("GET", r"/fragment/blocks", self.handle_get_fragment_blocks),
             ("POST", r"/fragment/import-view", self.handle_post_import_view),
             ("GET", r"/fragment/block/data", self.handle_get_fragment_block_data),
+            ("POST", r"/cluster/resize", self.handle_post_resize),
+            ("POST", r"/cluster/resize/abort", self.handle_post_resize_abort),
+            ("POST", r"/cluster/topology", self.handle_post_topology),
+            ("POST", r"/rebalance/delta", self.handle_post_rebalance_delta),
+            ("POST", r"/rebalance/release", self.handle_post_rebalance_release),
+            ("POST", r"/replicate/versions", self.handle_post_replicate_versions),
+            ("POST", r"/replicate/hint", self.handle_post_replicate_hint),
+            ("POST", r"/replicate/replay", self.handle_post_replicate_replay),
+            ("GET", r"/debug/replication", self.handle_get_replication),
+            ("GET", r"/debug/rebalance", self.handle_get_rebalance),
             ("GET", r"/debug/hbm", self.handle_get_hbm),
             ("GET", r"/debug/ingest", self.handle_get_ingest),
             ("GET", r"/debug/health", self.handle_get_health),
@@ -315,6 +348,10 @@ class Handler:
         t0 = time.monotonic()
         route = None  # the matched route's template (a bounded label)
         try:
+            # The serving side's check point: an injected error answers
+            # 500, as a node that took the connection but fails inside.
+            faults.check("rpc.recv", host=getattr(self.executor, "host", "") or None,
+                         path=req.path)
             for method, pattern, fn, tmpl in self._routes:
                 m = pattern.match(req.path.rstrip("/") or "/")
                 if m and method == req.method:
@@ -468,6 +505,8 @@ class Handler:
         if cluster is not None:
             out["nodes"] = [{"host": h, "state": st}
                             for h, st in sorted(cluster.node_states().items())]
+        if self.resilience is not None:
+            out.update(self.resilience.snapshot())
         dh = getattr(self.executor, "device_health", None)
         if dh is not None:
             out["device"] = dh.snapshot()
@@ -676,16 +715,156 @@ class Handler:
         return Response.proto(wire.ImportResponse())
 
     def handle_get_fragment_nodes(self, req: Request) -> Response:
-        """Owners of a slice.  ``?write=true`` asks for the write owners,
-        which are the owners while no resize is in flight (resize is not
-        ported)."""
+        """Owners of a slice.  ``?write=true`` asks for the write owners:
+        both rings' during a resize, so that an import's fan-out writes
+        a moving slice on both."""
         index = req.query.get("index", "")
         try:
             slice_i = int(req.query.get("slice", ""))
         except ValueError:
             return Response.error("invalid slice", 400)
-        nodes = self.cluster.fragment_nodes(index, slice_i)
+        if req.query.get("write") == "true":
+            nodes = self.cluster.write_nodes(index, slice_i)
+        else:
+            nodes = self.cluster.fragment_nodes(index, slice_i)
         return Response.json([n.to_dict() for n in nodes])
+
+    # --- resize, topology events and the migration's data plane (JAX
+    # handler.py:1436-1530) ---
+
+    def handle_post_resize(self, req: Request) -> Response:
+        """Start (or resume) a live resize to ``{"hosts": [...]}``, the
+        whole target host list; this node coordinates it, and ``GET
+        /debug/rebalance`` shows its progress."""
+        if self.rebalance is None:
+            return Response.error("rebalance not configured", 501)
+        try:
+            payload = json.loads(req.body or b"{}")
+        except json.JSONDecodeError as e:
+            return Response.error(str(e), 400)
+        hosts = payload.get("hosts")
+        if not isinstance(hosts, list) or not all(isinstance(h, str) and h for h in hosts):
+            return Response.error("hosts must be a non-empty string list", 400)
+        try:
+            return Response.json(self.rebalance.start_resize(hosts))
+        except Exception as e:  # noqa: BLE001 — operator boundary
+            return Response.error(str(e), 409)
+
+    def handle_post_resize_abort(self, req: Request) -> Response:
+        if self.rebalance is None:
+            return Response.error("rebalance not configured", 501)
+        try:
+            return Response.json(self.rebalance.abort())
+        except Exception as e:  # noqa: BLE001 — operator boundary
+            return Response.error(str(e), 409)
+
+    def handle_post_topology(self, req: Request) -> Response:
+        """A topology event (begin, flip, unflip, commit, abort) from the
+        resize's coordinator."""
+        if self.rebalance is None:
+            return Response.error("rebalance not configured", 501)
+        try:
+            return Response.json(self.rebalance.apply_event(json.loads(req.body or b"{}")))
+        except Exception as e:  # noqa: BLE001 — peer boundary
+            return Response.error(str(e), 400)
+
+    def handle_post_rebalance_delta(self, req: Request) -> Response:
+        """Migration control on a source (or a checksum on any node):
+        start or stop the slice's delta log, copy the slice to a target,
+        replay the drained log, or answer per-view checksums."""
+        if self.rebalance is None:
+            return Response.error("rebalance not configured", 501)
+        try:
+            return Response.json(self.rebalance.delta_action(json.loads(req.body or b"{}")))
+        except Exception as e:  # noqa: BLE001 — peer boundary
+            return Response.error(str(e), 400)
+
+    def handle_post_rebalance_release(self, req: Request) -> Response:
+        """Drop a slice moved away (mirrors and files); refused while
+        this node still owns it."""
+        if self.rebalance is None:
+            return Response.error("rebalance not configured", 501)
+        try:
+            payload = json.loads(req.body or b"{}")
+            return Response.json(self.rebalance.release_slice(
+                str(payload.get("index", "")), int(payload.get("slice", 0))))
+        except Exception as e:  # noqa: BLE001 — peer boundary
+            return Response.error(str(e), 409)
+
+    # --- quorum replication: versions, hints, replay (JAX
+    # handler.py:1595-1700) ---
+
+    def handle_post_replicate_versions(self, req: Request) -> Response:
+        """``{"index", "slices"}`` answers the slices' write versions;
+        ``{"action": "observe", "index", "slice", "version"}`` moves one
+        forward (max-merge)."""
+        if self.replication is None:
+            return Response.error("replication not configured", 501)
+        try:
+            payload = json.loads(req.body or b"{}")
+            index = str(payload.get("index", ""))
+            if payload.get("action") == "observe":
+                v = self.replication.versions.observe(
+                    index, int(payload.get("slice", 0)), int(payload.get("version", 0)))
+                return Response.json({"ok": True, "version": v})
+            versions = self.replication.versions.get_many(index, payload.get("slices") or [])
+            return Response.json({"versions": {str(k): v for k, v in versions.items()}})
+        except (TypeError, ValueError, json.JSONDecodeError) as e:
+            return Response.error(str(e), 400)
+
+    def handle_post_replicate_hint(self, req: Request) -> Response:
+        """Queue a write on this node as a hint for an unreachable
+        replica: ``{"target", "index", "slice", "kind": import |
+        import-value | pql, "payload" (base64) | "query", "rows"}``."""
+        if self.replication is None:
+            return Response.error("replication not configured", 501)
+        try:
+            payload = json.loads(req.body or b"{}")
+            target = str(payload.get("target", ""))
+            index = str(payload.get("index", ""))
+            slice_i = int(payload.get("slice", 0))
+            kind = str(payload.get("kind", ""))
+            if not target or not index:
+                return Response.error("target and index required", 400)
+            hints = self.replication.hints
+            if kind == "pql":
+                queued = hints.queue_pql(target, index, slice_i, str(payload.get("query", "")))
+            else:
+                queued = hints.queue_payload(
+                    target, index, slice_i, kind,
+                    base64.b64decode(payload.get("payload", "")), int(payload.get("rows", 1)))
+            if queued:
+                self.replication.stats.count("cluster.replication.hintsQueued")
+            return Response.json({"queued": bool(queued)})
+        except (TypeError, ValueError, json.JSONDecodeError) as e:
+            return Response.error(str(e), 400)
+
+    def handle_post_replicate_replay(self, req: Request) -> Response:
+        """Replay hints now (``{"target"?: host}``), past the breaker;
+        answers the entries replayed per target."""
+        if self.replication is None:
+            return Response.error("replication not configured", 501)
+        try:
+            payload = json.loads(req.body or b"{}")
+            target = str(payload.get("target", "")) or None
+            return Response.json({"replayed": self.replication.replay_now(target)})
+        except (TypeError, ValueError, json.JSONDecodeError) as e:
+            return Response.error(str(e), 400)
+
+    def handle_get_replication(self, req: Request) -> Response:
+        """The consistency defaults, each replica's hint backlog, the
+        local slice versions and the replayer's state."""
+        if self.replication is None:
+            return Response.json({"hints": {}, "note": "replication not configured"})
+        return Response.json(self.replication.snapshot())
+
+    def handle_get_rebalance(self, req: Request) -> Response:
+        """The topology epoch and transition, the coordinator's per-slice
+        states, the delta logs and join candidates."""
+        if self.rebalance is None:
+            return Response.json({"transition": None, "running": False,
+                                  "note": "rebalance not configured"})
+        return Response.json(self.rebalance.snapshot())
 
     def _broadcast(self, msg) -> None:
         if self.broadcaster is not None:
@@ -986,10 +1165,18 @@ class Handler:
             index=index,
             node=getattr(self.executor, "host", ""),
         )
+        # The request's X-Deadline-Ms (a remote leg, or a client's own)
+        # wins over the configured default; every remote leg, retry and
+        # wait under execute() takes its timeout from what is left.
+        if self.resilience is not None:
+            dl = self.resilience.query_deadline(req.header(rz.DEADLINE_HEADER))
+        else:
+            dl = rz.Deadline.from_header(req.header(rz.DEADLINE_HEADER))
         token = root.activate()
         t0 = time.monotonic()
         try:
-            resp = self._handle_post_query(req, index, root)
+            with rz.deadline_scope(dl):
+                resp = self._handle_post_query(req, index, root)
         finally:
             root.deactivate(token)
             record = self.tracer.finish_root(root)
@@ -1045,18 +1232,53 @@ class Handler:
                 q = parse_string(qreq["query"])
         except Exception as e:  # noqa: BLE001 — parser error
             return self._query_error(req, str(e), 400)
+        # Per-request consistency: the header wins over the URL; junk is
+        # a 400, not a silent default.
+        try:
+            write_consistency = _consistency_arg(req, "X-Write-Consistency", "writeConsistency")
+            read_consistency = _consistency_arg(req, "X-Read-Consistency", "readConsistency")
+        except ValueError as e:
+            return self._query_error(req, str(e), 400)
+        opt = ExecOptions(
+            remote=qreq["remote"],
+            allow_partial=(req.query.get("allowPartial") == "true"
+                           or req.header("X-Allow-Partial") in ("1", "true")),
+            write_consistency=write_consistency,
+            read_consistency=read_consistency,
+        )
+        # A remote write leg carries the coordinator's slice version after
+        # its own apply.  Applying the same write here should bring this
+        # replica's version to the stamp; landing short means it missed
+        # earlier writes (cluster.replication.staleSelf).
+        stale_probe = None
+        if qreq["remote"] and self.replication is not None:
+            stamp = req.header(replicate_mod.WRITE_VERSION_HEADER)
+            if stamp:
+                try:
+                    slice_s, _, ver_s = stamp.partition(":")
+                    stale_probe = (int(slice_s), int(ver_s))
+                except (TypeError, ValueError):
+                    pass  # a malformed stamp must not fail the write
         root.annotate(
             cost_class=plan_mod.COST_INTERNAL if qreq["remote"] else plan_mod.cost_class(q.calls)
         )
         try:
+            rz.check_deadline("before execute")
             with self.tracer.span("execute"):
-                results = self.executor.execute(
-                    index, q, qreq["slices"], ExecOptions(remote=qreq["remote"])
-                )
+                results = self.executor.execute(index, q, qreq["slices"], opt)
         except TooManyWritesError as e:
             return self._query_error(req, str(e), 413)
+        except rz.DeadlineExceeded as e:
+            root.annotate(error="DeadlineExceeded")
+            trace_id = getattr(root, "trace_id", "") or "none"
+            return self._query_error(req, f"{e} [trace {trace_id}]", 504)
         except Exception as e:  # noqa: BLE001 — executor boundary
             return self._query_error(req, str(e), 500)
+        if stale_probe is not None:
+            probe_slice, probe_ver = stale_probe
+            if self.replication.versions.get(index, probe_slice) < probe_ver:
+                self.replication.stats.count("cluster.replication.staleSelf")
+                root.annotate(stale_self=True)
 
         column_attr_sets = None
         if qreq["column_attrs"]:
@@ -1072,8 +1294,17 @@ class Handler:
                     if attrs:
                         column_attr_sets.append((cid, attrs))
         if PROTOBUF in req.header("Accept"):
-            return Response.proto(codec.response_to_proto(results, column_attr_sets))
-        return Response.json(codec.response_to_json(results, column_attr_sets))
+            resp = Response.proto(codec.response_to_proto(results, column_attr_sets))
+            if opt.missing_slices:
+                # The protobuf answer has no partial field: the lost
+                # slices travel in a header.
+                resp.headers["X-Missing-Slices"] = ",".join(str(s) for s in opt.missing_slices)
+            return resp
+        payload = codec.response_to_json(results, column_attr_sets)
+        if opt.missing_slices:
+            payload["partial"] = True
+            payload["missingSlices"] = opt.missing_slices
+        return Response.json(payload)
 
     def _query_error(self, req: Request, message: str, status: int) -> Response:
         if PROTOBUF in req.header("Accept"):
@@ -1178,6 +1409,16 @@ class Handler:
                         None if ts is None else [_unix_ns(t) for t in ts],
                         view="inverse", host=host,
                     )
+
+
+def _consistency_arg(req: Request, header: str, param: str) -> str:
+    """A request's consistency level: the header wins over the URL
+    parameter; "" is the server's default; anything else must be a level
+    (ValueError: 400)."""
+    raw = req.header(header) or req.query.get(param, "")
+    if not raw:
+        return ""
+    return replicate_mod.validate_level(raw, param)
 
 
 class _ParseError(ValueError):

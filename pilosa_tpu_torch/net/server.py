@@ -97,10 +97,40 @@ run (``.residency.json``, written at close), then the largest that fit
 the budget, and answers meanwhile (``staging_job``).  ``GET /debug/hbm``
 and ``GET /debug/ingest`` report the pool and the WAL.
 
-The node registers itself in the cluster on open.  Nodes that bind port
-0 learn each other after they are open: ``add_peer(host,
-internal_host)``.  Anti-entropy, replication quorums, resize and the
-other background loops of the JAX server are not ported yet.
+Replica agreement, with the JAX package's names and defaults
+(``pilosa_tpu/net/server.py:46, 74-94``, ``[net]`` and ``[cluster]``):
+
+* ``query_timeout_ms`` — a query's default deadline (``X-Deadline-Ms``
+  overrides it); ``broadcast_timeout_ms`` the socket timeout of the
+  max-slice poll; ``retry_attempts`` / ``retry_backoff_ms`` the retry of
+  idempotent calls to peers; ``breaker_failure_threshold`` /
+  ``breaker_open_ms`` each peer's circuit breaker (``net/resilience.py``,
+  shared by every client the node makes, shown at ``/debug/health``);
+* ``write_consistency`` (``"quorum"``) and ``read_consistency``
+  (``"one"``) — the W of a write and the R of a version-checked read
+  (``replicate/``); ``hint_cap`` bits of hints per replica and slice,
+  replayed when the replica's breaker half-opens, at most
+  ``hint_replay_throttle_mbps`` (0: no limit);
+* ``rebalance_throttle_mbps``, ``rebalance_verify_rounds``,
+  ``rebalance_delta_cap`` and ``rebalance_release_delay_ms`` — the live
+  resize (``rebalance/``, ``POST /cluster/resize``);
+  ``rebalance_on_join`` is kept for the JAX configuration's sake and
+  waits for ``cluster/gossip.py``, which announces joining hosts;
+* ``anti_entropy_interval`` — seconds between anti-entropy sweeps
+  (``sync/syncer.py``): slices whose replica versions agree are skipped,
+  and every ``FULL_SYNC_EVERY``-th sweep walks every block
+  (``tick_anti_entropy``).
+
+``tier_store`` (the JAX node's shared object store) waits for
+``tier/*`` and raises, as ``cluster_type="gossip"`` does.
+
+The node registers itself in the cluster on open, unless a ring is
+configured without it: then it is a joining node, which gets slices only
+through a resize.  Nodes that bind port 0 learn each other after they are
+open: ``add_peer(host, internal_host)``.  At open the rebalancer restores
+a transition persisted mid-resize, and the write listeners of the
+rebalancer's delta log and of the replication's versions are
+registered.
 """
 
 from __future__ import annotations
@@ -118,19 +148,25 @@ from pilosa_tpu_torch.device import health as health_mod
 from pilosa_tpu_torch.core.view import is_inverse_view
 from pilosa_tpu_torch.exec import coalesce as coalesce_mod
 from pilosa_tpu_torch.exec import warmup
+from pilosa_tpu_torch.core import fragment as fragment_mod
 from pilosa_tpu_torch.exec.executor import DEFAULT_MAX_WRITES_PER_REQUEST, Executor
 from pilosa_tpu_torch.ingest import wal
+from pilosa_tpu_torch.net import resilience as rz
 from pilosa_tpu_torch.net import wire
-from pilosa_tpu_torch.net.client import TRANSPORT_ERRORS, ClientError, InternalClient
+from pilosa_tpu_torch.net.client import InternalClient
 from pilosa_tpu_torch.net.handler import Handler, make_http_server
 from pilosa_tpu_torch.obs import perf as perf_mod
 from pilosa_tpu_torch.obs.trace import Tracer
 from pilosa_tpu_torch.ops import bitplane as bp
+from pilosa_tpu_torch.rebalance import Rebalancer
+from pilosa_tpu_torch.replicate import Replication
+from pilosa_tpu_torch.sync.syncer import HolderSyncer
 from pilosa_tpu_torch.testing import faults
 
 CLUSTER_TYPES = ("static", "http")
 # reference: server.go / config.go defaults
 DEFAULT_POLLING_INTERVAL = 60.0
+DEFAULT_ANTI_ENTROPY_INTERVAL = 600.0
 DEFAULT_INTERNAL_PORT = 14000
 # Socket timeout of a map leg or a poll to a peer.
 REMOTE_TIMEOUT_S = 60.0
@@ -179,9 +215,28 @@ class Server:
         quarantine_open_ms: float = health_mod.DEFAULT_OPEN_MS,
         quarantine_probe_successes: int = health_mod.DEFAULT_PROBE_SUCCESSES,
         mesh_devices: int = 0,
+        anti_entropy_interval: float = DEFAULT_ANTI_ENTROPY_INTERVAL,
+        query_timeout_ms: float = 60_000.0,
+        broadcast_timeout_ms: float = 5_000.0,
+        retry_attempts: int = 3,
+        retry_backoff_ms: float = 100.0,
+        breaker_failure_threshold: int = 5,
+        breaker_open_ms: float = 10_000.0,
+        rebalance_throttle_mbps: float = 0.0,
+        rebalance_verify_rounds: int = 3,
+        rebalance_delta_cap: int = 50_000,
+        rebalance_release_delay_ms: float = 200.0,
+        rebalance_on_join: bool = False,
+        write_consistency: str = "quorum",
+        read_consistency: str = "one",
+        hint_cap: int = 10_000,
+        hint_replay_throttle_mbps: float = 0.0,
+        tier_store: str = "",
     ):
         if cluster_type == "gossip":
             raise ValueError("cluster type 'gossip' is not supported by this port yet")
+        if tier_store:
+            raise ValueError("a tier store is not supported by this port yet")
         if cluster_type not in CLUSTER_TYPES:
             raise ValueError(f"unknown cluster type: {cluster_type!r}")
         hosts = list(hosts or [])
@@ -234,6 +289,20 @@ class Server:
         self.stats = stats
         self.tracer = Tracer(capacity=trace_ring)
         self.floor_probe = floor_probe
+        self.stream_chunk_bytes = stream_chunk_bytes
+        self.anti_entropy_interval = anti_entropy_interval
+        self._ae_ticks = 0
+        # Deadlines, retries and per-peer breakers (JAX server.py:197-215),
+        # shared by every client this node makes.
+        self.broadcast_timeout_ms = broadcast_timeout_ms
+        self.resilience = rz.Resilience(
+            retry=rz.RetryPolicy(attempts=retry_attempts, backoff=retry_backoff_ms / 1000.0,
+                                 stats=stats),
+            breakers=rz.BreakerRegistry(failure_threshold=breaker_failure_threshold,
+                                        open_s=breaker_open_ms / 1000.0, stats=stats),
+            query_timeout_ms=query_timeout_ms,
+        )
+        self.logger = _log
         self.holder = Holder(data_dir, device=device)
         self.holder.on_create_slice = self._on_create_slice
         if stats is not None:
@@ -253,6 +322,32 @@ class Server:
             on_state_change=self._on_device_health_change,
             device=self.holder.placed,
         )
+        # The live resize (JAX server.py:251-265): topology events on
+        # every node, slice migration on the node a resize is sent to.
+        self.rebalance_throttle_mbps = rebalance_throttle_mbps
+        self.rebalance_verify_rounds = rebalance_verify_rounds
+        self.rebalance_delta_cap = rebalance_delta_cap
+        self.rebalance_release_delay_ms = rebalance_release_delay_ms
+        self.rebalance_on_join = rebalance_on_join
+        self.rebalance = Rebalancer(self)
+        # Quorum replication (JAX server.py:266-290): slice versions, W-of-N
+        # writes with hints, version-checked reads with read repair; its
+        # repairs ride the rebalancer's delta actions.
+        self.replication = Replication(
+            host=host,
+            cluster=self.cluster,
+            holder=self.holder,
+            client_factory=self._client,
+            rebalancer=self.rebalance,
+            tracer=self.tracer,
+            stats=self.holder.stats,
+            logger=_log,
+            data_dir=data_dir,
+            write_consistency=write_consistency,
+            read_consistency=read_consistency,
+            hint_cap=hint_cap,
+            hint_replay_throttle_mbps=hint_replay_throttle_mbps,
+        )
         self.executor = Executor(
             self.holder,
             max_writes_per_request=max_writes_per_request,
@@ -261,6 +356,7 @@ class Server:
             client_factory=self._client,
             tracer=self.tracer,
             device_health=self.device_health,
+            replication=self.replication,
         )
         self.handler = Handler(
             self.holder, self.executor, self.broadcaster,
@@ -274,18 +370,26 @@ class Server:
         )
         # /debug/profile tars its traces under the data dir.
         self.handler.profile_dir = data_dir
+        self.handler.resilience = self.resilience
+        self.handler.replication = self.replication
+        self.handler.rebalance = self.rebalance
         self._http = None
         self._http_thread: threading.Thread | None = None
         self._closing = threading.Event()
-        self._poll_thread: threading.Thread | None = None
+        self._loops: list[threading.Thread] = []
 
     @property
     def internal_host(self) -> str:
         return self.receiver.bound_host if self.receiver is not None else ""
 
     def _client(self, node) -> InternalClient:
+        """A client of a peer with this node's retry policy and breakers
+        (and, through the deadline's context variable, the current
+        query's remaining budget)."""
         host = node if isinstance(node, str) else node.host
-        return InternalClient(host, timeout=REMOTE_TIMEOUT_S, device=self.device)
+        return InternalClient(host, timeout=REMOTE_TIMEOUT_S, device=self.device,
+                              retry=self.resilience.retry,
+                              breakers=self.resilience.breakers)
 
     # --- lifecycle (reference: server.go:99-198) ---
 
@@ -330,9 +434,19 @@ class Server:
                 wal_segment_bytes=self.ingest_wal_segment_bytes,
                 logger=lambda m: print(m, file=sys.stderr),
                 stats=self.stats,
+                versions=self.replication.versions,
             )
             wal.register_manager(self.ingest)
         self.holder.open()
+        # The delta log records every write to a migrating slice; the
+        # replication's listener moves slice versions and feeds the quorum
+        # coordinator's hint capture (JAX server.py:555-571).
+        fragment_mod.register_write_listener(self.rebalance.delta_log.record)
+        if self.stats is not None:
+            self.replication.stats = self.holder.stats
+            self.replication.versions.stats = self.holder.stats
+            self.replication.hints.stats = self.holder.stats
+        fragment_mod.register_write_listener(self.replication.on_local_write)
         if self.coalesce:
             self.coalescer = coalesce_mod.CoalesceScheduler(
                 max_batch=self.coalesce_max_batch,
@@ -368,17 +482,31 @@ class Server:
         self._http_thread.start()
         if self.receiver is not None:
             self.receiver.start(self)
-        # Self-register (reference: server.go:117-125).  A configured ring
-        # that lacks this host would place slices without it: refuse.
+        # Self-register (reference: server.go:117-125), unless a ring is
+        # configured without this host: a joining node, which takes
+        # slices only through a resize (POST /cluster/resize).
         if self.cluster.nodes and self.cluster.node_by_host(self.host) is None:
-            self.close()
-            raise ValueError(f"host {self.host} is not among the cluster hosts")
-        self.cluster.add_node(self.host, self.internal_host)
+            _log(f"host {self.host} is not in the configured ring "
+                 f"({len(self.cluster.nodes)} nodes); joining — slice "
+                 "ownership arrives via /cluster/resize")
+        else:
+            self.cluster.add_node(self.host, self.internal_host)
         self._sync_broadcast_targets()
-        self._poll_thread = threading.Thread(
-            target=self._poll_loop, daemon=True, name=f"max-slices:{self.host}"
-        )
-        self._poll_thread.start()
+        # A transition persisted mid-resize comes back (both rings and the
+        # flipped slices) before the first query routes.
+        self.rebalance.resume_from_disk()
+        # The node's identity is final now (a ":0" port resolved): the
+        # persisted versions load and the hint replayer starts.
+        self.replication.host = self.host
+        self.replication.open()
+        for name, fn, interval in (
+            ("max-slices", self.tick_max_slices, self.polling_interval),
+            ("anti-entropy", self.tick_anti_entropy, self.anti_entropy_interval),
+        ):
+            t = threading.Thread(target=self._loop, args=(fn, interval), daemon=True,
+                                 name=f"{name}:{self.host}")
+            t.start()
+            self._loops.append(t)
 
     def add_peer(self, host: str, internal_host: str = "") -> None:
         """Add another node to the ring (nodes that bound port 0 learn
@@ -397,9 +525,15 @@ class Server:
 
     def close(self) -> None:
         self._closing.set()
-        if self._poll_thread is not None:
-            self._poll_thread.join(timeout=10)
-            self._poll_thread = None
+        for t in self._loops:
+            t.join(timeout=10)
+        self._loops = []
+        self.rebalance.close()
+        # Stops the hint replayer and persists the slice versions
+        # (.replication.json), so that a clean restart compares.
+        self.replication.close()
+        fragment_mod.unregister_write_listener(self.rebalance.delta_log.record)
+        fragment_mod.unregister_write_listener(self.replication.on_local_write)
         if self.receiver is not None:
             self.receiver.close()
         if self._http is not None:
@@ -459,24 +593,51 @@ class Server:
         except Exception as e:  # noqa: BLE001 — staging is best-effort
             _log(f"post-heal staging error: {e}")
 
-    # --- background: max-slice polling (JAX server.py:822-847) ---
+    # --- background loops (JAX server.py:797-847) ---
 
-    def _poll_loop(self) -> None:
-        while not self._closing.wait(self.polling_interval):
-            self.tick_max_slices()
+    def _loop(self, fn, interval: float) -> None:
+        while not self._closing.wait(interval):
+            try:
+                fn()
+            except Exception as e:  # noqa: BLE001 — a loop must survive
+                _log(f"background loop error: {e}")
+
+    # Every Nth anti-entropy sweep ignores the version-agreement fast path
+    # and walks every block's checksum: the backstop for versions that
+    # agree while the content does not (a crash reset).
+    FULL_SYNC_EVERY = 4
+
+    def tick_anti_entropy(self) -> None:
+        """One anti-entropy sweep over every owned fragment (JAX
+        ``server.py:809-820``): attributes, then each fragment whose
+        replica versions disagree (every ``FULL_SYNC_EVERY``-th sweep:
+        each one) has its blocks compared and merged.  Merged writes
+        queue for the mirrors; the next read applies them (K7)."""
+        self._ae_ticks += 1
+        HolderSyncer(
+            holder=self.holder,
+            host=self.host,
+            cluster=self.cluster,
+            closing=self._closing,
+            client_factory=self._client,
+            replication=self.replication,
+            full=(self._ae_ticks % self.FULL_SYNC_EVERY == 0),
+        ).sync_holder()
 
     def tick_max_slices(self) -> None:
         """Poll every peer's max slices so that slices held only
-        elsewhere are queried too (reference: server.go:238-274).  A peer
-        that does not answer is skipped until the next tick."""
-        for node in list(self.cluster.nodes):
+        elsewhere are queried too (reference: server.go:238-274), with
+        ``broadcast_timeout_ms`` and the node's retry and breakers.  A
+        peer that does not answer is skipped until the next tick."""
+        for node in self.cluster.route_nodes():
             if node.host == self.host:
                 continue
-            client = InternalClient(node.host, timeout=REMOTE_TIMEOUT_S)
+            client = self._client(node.host)
+            client.timeout = self.broadcast_timeout_ms / 1000.0
             try:
                 ms = client.max_slice_by_index()
                 inv = client.max_slice_by_index(inverse=True)
-            except TRANSPORT_ERRORS + (ClientError, ValueError):
+            except Exception:  # noqa: BLE001 — a peer may be down
                 continue
             for index_name, max_slice in ms.items():
                 idx = self.holder.index(index_name)

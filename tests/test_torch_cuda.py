@@ -817,3 +817,77 @@ def test_node_over_cards_and_pinned_node(cuda, tmp_path):
         finally:
             srv.close()
     assert answers["cards"] == answers["pinned"]
+
+
+# --- replica agreement: a hinted write replayed onto a restarted replica ----
+
+
+def test_replayed_hint_is_applied_by_k7_and_counted_by_k2(cuda, tmp_path):
+    """Two nodes on the card, 2 replicas: with node 1 down a write at
+    writeConsistency=one queues a hint on node 0; node 1 restarts and
+    stages its mirrors, the hint replays onto it, and its next read
+    applies the replayed bits with one K7 launch and counts them on K2."""
+    import json
+    import socket
+    import time
+    import urllib.request
+
+    from pilosa_tpu_torch.net.client import InternalClient
+    from pilosa_tpu_torch.net.server import Server
+    from pilosa_tpu_torch.ops import delta_scatter as ds
+    from pilosa_tpu_torch.ops import tree_eval as te
+
+    ports = set()
+    while len(ports) < 2:
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        ports.add(s.getsockname()[1])
+        s.close()
+    hosts = sorted(f"127.0.0.1:{p}" for p in ports)
+
+    def boot(i):
+        srv = Server(str(tmp_path / f"n{i}"), host=hosts[i], hosts=hosts, replicas=2,
+                     device=cuda, floor_probe=False, anti_entropy_interval=3600,
+                     polling_interval=3600, breaker_open_ms=100.0)
+        srv.replication.replay_interval_s = 3600.0
+        srv.open()
+        return srv
+
+    def post(host, path, body):
+        req = urllib.request.Request(f"http://{host}{path}", data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return json.loads(resp.read())
+
+    nodes = [boot(0), boot(1)]
+    try:
+        for s in nodes:
+            s.holder.create_index_if_not_exists("i").create_frame_if_not_exists("f")
+        n_slices = 4
+        for sl in range(n_slices):
+            post(hosts[0], "/index/i/query", f"SetBit(frame=f, rowID=1, columnID={sl << 20})".encode())
+        q = "Count(Bitmap(frame=f, rowID=1))"
+        for s in nodes:
+            s.tick_max_slices()
+            assert post(s.host, "/index/i/query", q.encode())["results"] == [n_slices]
+        nodes[1].close()
+        for sl in range(n_slices):
+            post(hosts[0], "/index/i/query?writeConsistency=one",
+                 f"SetBit(frame=f, rowID=1, columnID={(sl << 20) + 9})".encode())
+        assert nodes[0].replication.hints.backlog(hosts[1]) == n_slices
+        nodes[1] = boot(1)
+        assert nodes[1].staging_job.wait(120)
+        deadline = time.monotonic() + 30
+        while nodes[0].resilience.breakers.state(hosts[1]) == "open" and \
+                nodes[0].resilience.breakers.for_host(hosts[1]).snapshot()["sinceOpenMs"] < 100:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        assert nodes[0].replication.replay_now(hosts[1])[hosts[1]] == n_slices
+        k7, k2 = ds.launches, te.launches
+        got = InternalClient(hosts[1], timeout=60, device=cuda).execute_query(
+            "i", q, slices=list(range(n_slices)), remote=True)
+        assert got == [2 * n_slices]
+        assert ds.launches == k7 + 1
+        assert te.launches > k2
+    finally:
+        for s in nodes:
+            s.close()
