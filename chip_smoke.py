@@ -170,8 +170,9 @@ without printing its final line:
     (off: the scheduler closed, the direct K2 path serves): requests/s,
     p50 / p99, the scheduler's snapshot; coalesced turns launch fewer
     times than they answer and fuse (K3);
-15. print the ``kernels`` JSON line (K1-K9, K11, ``top_k``), then the final JSON line
-    (last of all, after phase 17);
+15. print the ``kernels`` JSON line (K1-K9, K11, ``top_k``; each kernel's
+    ``launches_by_phase`` names the phases that launched it, "21" for K2, K4
+    and K7), then the final JSON line (last of all);
 16. observability, on the phase-5 node right after phase 14 (run before
     phase 6) and on phase 6's cluster: ``/debug/perf``'s stream floor
     (above 0, at most 105% of the data-sheet rate, so the probe read
@@ -245,8 +246,45 @@ without printing its final line:
     ``cuda``, whose slices spread over every card (the default on such a
     host), checked as in (b) against the one-card node, then a mesh over
     the cards and a two-process NCCL Count (otherwise one line says why
-    it did not run); no collective fallback anywhere else in the run.
+    it did not run); no collective fallback anywhere else in the run;
+21. the rest of cluster operations, with K2, K4 and K7's counts set to 0
+    just before each part's main path and read just after: (a) on the
+    phase-5 node after phase 17, four standing queries over its frame f
+    (954 slices x 8 rows, read back from the node's host planes) —
+    Count(Bitmap), Count(Intersect), TopN and TopN(src) — each read by
+    SSE on one client thread and by long-poll on another, through point
+    SetBits, ClearBits and a protobuf ``/import`` of 2^15 bits over 64
+    slices (a depth cut for time) at the notifier's default window: every
+    delivered value equals a pull of the same query and the pull numpy,
+    versions rise, the single-row Count moves by adjust and re-bases from
+    row counts with no launch, the Intersect's registration and each of
+    its slice evaluations (``exec.subscribe.evals`` mode:slice, no host
+    answer) are one K2 launch, the TopNs at most one K4 a batch, and each
+    Count pull one K2; the lag p50 / p99 of ``/debug/subscriptions``;
+    (b) on nodes of their own, a
+    ``LocalFSStore`` holding 32 slices x 8 rows (a depth cut for time)
+    from ``upload_all``: a node with an empty data dir and only
+    ``tier_store`` boots with 32 cold fragments and its first Count
+    hydrates them all through the hydrate lane (seconds and GB/s), one K2;
+    a budget of half the index demotes by LRU and the next Count hydrates
+    again; a SetBit to a cold fragment hydrates it first, and a write to
+    it once revived is applied by one K7; a retention sweep over a YMD
+    frame of 16 slices ages two views to the store and deletes two, and
+    Range counts equal numpy over the views kept; the CLI's ``backup
+    --store`` and ``restore --store`` through ``serve_store``'s HTTP
+    backend; a two-node tier cluster resized to three with slices copied
+    through ``POST /tier/restore``; (c) three ``Server(cluster_type=
+    "gossip")`` nodes with 2 replicas over the same 32 slices: the schema
+    by state sync alone, a late node as a join candidate, Counts from
+    every node on K2, a closed node SUSPECT then DOWN and the Counts
+    failing over, that node restarted staging its peers' hot slices first
+    (the order's head printed), 20% datagram loss with no false DOWN, a
+    card quarantined by ``device.launch`` faults learned by its peers
+    (its own host answers are the quarantine's; FallbackWatch rebases
+    after it) and a Count subscription re-run through K2 after a write
+    another node coordinates.
 
+Phase 21 (b) and (c) run after the phase-5 node closes, before phase 10.
 Every phase but 19 (d) runs on card 0 alone (``bitplane.
 set_local_members``), so that its launch counts are a one-card node's on
 a host with several cards too.
@@ -6155,6 +6193,802 @@ def health_and_check(kernels: dict, br, convert, srv, truth: np.ndarray, rng) ->
 
 # The phase functions of ``main``, by phase number: each one's wall-clock
 # seconds go into the run's ``phase seconds`` line.
+# --- phase 21: standing queries, the cold tier and gossip ---------------------
+
+# (a) the standing queries on the phase-5 node: the three of the slice and a
+# TopN(src), whose re-run is the one that launches K4.
+STANDING = (
+    ("count", "Subscribe(Count(Bitmap(rowID=0, frame=f)))", "Count(Bitmap(rowID=0, frame=f))"),
+    ("intersect", "Subscribe(Count(Intersect(Bitmap(rowID=0, frame=f), Bitmap(rowID=1, frame=f))))",
+     "Count(Intersect(Bitmap(rowID=0, frame=f), Bitmap(rowID=1, frame=f)))"),
+    ("topn", "Subscribe(TopN(frame=f, n=4))", "TopN(frame=f, n=4)"),
+    ("topn_src", "Subscribe(TopN(Bitmap(frame=f, rowID=0), frame=f, n=4))",
+     "TopN(Bitmap(frame=f, rowID=0), frame=f, n=4)"),
+)
+STANDING_POINT_WRITES = 12
+# The /import of (a): its bits over STANDING_IMPORT_SLICES slices drawn from
+# the 954 (a depth cut for time: the notifier runs at its default 5 ms
+# window, the /import arrives as one request a slice, and each notify batch
+# re-runs both TopNs over every slice, ~0.6 s a batch on an H100).
+STANDING_IMPORT_BITS = 1 << 15
+STANDING_IMPORT_SLICES = 64
+# (b) and (c): the index of their nodes, cut to 32 slices for time (a depth
+# cut: full slice width, ROWS rows, phase 5's planes).
+CLUSTER_OPS_SLICES = 32
+RETENTION_SLICES = 16
+RETENTION_BITS = 1 << 12  # per date
+RETENTION_DATES = (datetime(2024, 1, 10, 12), datetime(2024, 3, 10, 12), datetime(2024, 5, 10, 12))
+RETENTION_NOW = datetime(2024, 5, 20)
+RETENTION_AGE_S = 30 * 86400.0
+RETENTION_DELETE_S = 90 * 86400.0
+GOSSIP_INTERVAL = 0.05
+GOSSIP_SUSPECT = 0.5
+GOSSIP_LOSS = 0.20
+GOSSIP_QUARANTINE_OPEN_MS = 300.0
+
+
+def free_port(kind=None) -> int:
+    import socket
+
+    s = socket.socket(socket.AF_INET, kind or socket.SOCK_STREAM)
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def wait_until(pred, timeout: float, what: str, every: float = 0.02) -> float:
+    """Poll ``pred`` until it holds; its seconds, or an AssertionError
+    naming ``what`` at the deadline."""
+    t0 = time.monotonic()
+    while not pred():
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"phase 21: {what} (after {timeout} s)")
+        time.sleep(every)
+    return time.monotonic() - t0
+
+
+class SubscriptionReader:
+    """One subscription's updates as a client receives them: an SSE stream
+    read on one thread, a long-poll loop on another."""
+
+    def __init__(self, host: str, sid: str):
+        self.host, self.sid = host, sid
+        self.sse: list[dict] = []
+        self.polls: list[dict] = []
+        self.errors: list[str] = []
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._read_sse, daemon=True),
+                         threading.Thread(target=self._read_polls, daemon=True)]
+        for t in self._threads:
+            t.start()
+
+    def _read_sse(self) -> None:
+        import http.client
+
+        conn = http.client.HTTPConnection(self.host, timeout=600)
+        try:
+            conn.request("GET", f"/subscribe/{self.sid}/stream?after=0")
+            resp = conn.getresponse()
+            buf = b""
+            while True:
+                size = int(resp.fp.readline().strip() or b"0", 16)  # chunked transfer
+                if size == 0:
+                    return
+                buf += resp.fp.read(size)
+                resp.fp.readline()
+                while b"\n\n" in buf:
+                    frame, buf = buf.split(b"\n\n", 1)
+                    for line in frame.split(b"\n"):
+                        if line.startswith(b"data: "):
+                            self.sse.append(json.loads(line[6:]))
+        except Exception as e:  # noqa: BLE001 — reported by check()
+            self.errors.append(f"sse: {e!r}")
+        finally:
+            conn.close()
+
+    def _read_polls(self) -> None:
+        after = 0
+        while not self._stop.is_set():
+            status, doc = http(self.host, "GET",
+                               f"/subscribe/{self.sid}/poll?after={after}&timeout_ms=500")
+            if status in (404, 410):
+                return
+            if status != 200:
+                self.errors.append(f"poll: {status} {doc}")
+                return
+            if not doc.get("timeout"):
+                self.polls.append(doc)
+                after = doc["version"]
+
+    def latest(self, version: int, timeout: float = 60.0) -> tuple[dict, dict]:
+        """The SSE and poll documents of ``version``, once both arrived."""
+        wait_until(lambda: self.errors or (self.sse and self.sse[-1]["version"] >= version
+                                           and self.polls and self.polls[-1]["version"] >= version),
+                   timeout, f"subscription {self.sid} version {version} delivered")
+        if self.errors:
+            raise AssertionError(f"phase 21 (a): {self.sid}: {self.errors}")
+        for docs in (self.sse, self.polls):
+            versions = [d["version"] for d in docs]
+            if versions != sorted(set(versions)):
+                raise AssertionError(f"phase 21 (a): {self.sid}: versions not rising: {versions}")
+        return self.sse[-1], self.polls[-1]
+
+    def close(self) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=30)
+
+
+def standing_and_check(te, sp, ds, InternalClient, srv, planes, rng) -> dict:
+    """Phase 21 (a) on the phase-5 node after phase 17, frame f (954 slices x
+    8 rows): Count, Count(Intersect), TopN and TopN(src) subscriptions read
+    by SSE and long-poll, through point SetBits and ClearBits on a few
+    slices and a protobuf /import over STANDING_IMPORT_SLICES slices.
+    Every delivered value equals a pull of the same query, and the pull
+    equals numpy over ``planes`` (refreshed here from the node's host
+    planes, which phases 5-17 wrote).  The single-leaf Count moves by
+    adjust and re-bases a slice from its row count (no launch); the
+    Intersect's registration and each of its slice evaluations
+    (``exec.subscribe.evals`` mode:slice, no host answer) are one K2
+    launch; the TopNs re-run with at most one K4 launch a notify batch;
+    each Count pull is one K2 launch.  The rank caches re-sort at every
+    read here (``cache.RECALCULATE_INTERVAL_S`` 0), so that a TopN's
+    candidates are the oracle's at once; the notifier coalesces at its
+    default window, whose lag ``/debug/subscriptions`` reports."""
+    from pilosa_tpu_torch.core import cache as cache_mod
+
+    t0 = time.perf_counter()
+    h = srv.host
+    for s in range(N_SLICES):
+        frag = srv.holder.fragment("i", "f", "standard", s)
+        for r in range(ROWS):
+            row = None if frag is None else frag.row_words_host(r)
+            planes[s, r] = 0 if row is None else row
+    totals = np.zeros((N_SLICES, ROWS), np.int64)
+    src = np.zeros((N_SLICES, ROWS), np.int64)
+    inter = np.zeros(N_SLICES, np.int64)
+
+    def refresh(slices) -> None:
+        p = planes[slices]
+        totals[slices] = np.bitwise_count(p).sum(axis=-1, dtype=np.int64)
+        src[slices] = np.bitwise_count(p & p[:, :1]).sum(axis=-1, dtype=np.int64)
+        inter[slices] = np.bitwise_count(p[:, 0] & p[:, 1]).sum(axis=-1, dtype=np.int64)
+
+    refresh(np.arange(N_SLICES))
+
+    def oracle() -> dict:
+        return {"count": int(totals[:, 0].sum()), "intersect": int(inter.sum()),
+                "topn": topn_oracle(totals, 4), "topn_src": topn_oracle(src, 4)}
+
+    mgr = srv.subscribe
+    saved_interval = cache_mod.RECALCULATE_INTERVAL_S
+    cache_mod.RECALCULATE_INTERVAL_S = 0.0
+    readers: dict[str, SubscriptionReader] = {}
+    out: dict = {"steps": [], "coalesce_ms": mgr.coalesce_s * 1e3}
+    # Each slice evaluation's K2 launches: (compound tree, slices, launches).
+    slice_evals: list[tuple] = []
+    slice_count = mgr._slice_count
+
+    def counted_slice_count(sub, slices):
+        k0 = te.launches
+        res = slice_count(sub, slices)
+        slice_evals.append((sub.fast_row is None, len(slices), te.launches - k0))
+        return res
+
+    mgr._slice_count = counted_slice_count
+    try:
+        te.launches = sp.launches = ds.launches = 0  # the phase's main path starts here
+        subs = {}
+        for name, sub_pql, _ in STANDING:
+            status, body = http(h, "POST", "/subscribe",
+                                json.dumps({"index": "i", "query": sub_pql}).encode())
+            if status != 201 or body["version"] != 1:
+                raise AssertionError(f"phase 21 (a): POST /subscribe {sub_pql}: {status} {body}")
+            subs[name] = body
+            readers[name] = SubscriptionReader(h, body["id"])
+        pulls = 0
+        registration_evals = list(slice_evals)
+        if sorted(registration_evals) != [(False, N_SLICES, 0), (True, N_SLICES, 1)]:
+            raise AssertionError(f"phase 21 (a): registration evaluations {registration_evals} "
+                                 "(want the Count's row counts with no launch and the "
+                                 f"Intersect's one K2 over {N_SLICES} slices)")
+        k2 = te.launches
+        n_evals = len(slice_evals)
+
+        def check(step: str) -> dict:
+            nonlocal pulls
+            want = oracle()
+            got = {}
+            for name, _, pull_pql in STANDING:
+                sub = mgr.get(subs[name]["id"])
+                sse_doc, poll_doc = readers[name].latest(sub.version)
+                status, body = http(h, "POST", "/index/i/query", pull_pql.encode())
+                pulls += pull_pql.startswith("Count")
+                if status != 200:
+                    raise AssertionError(f"phase 21 (a) {step}: {pull_pql}: {status} {body}")
+                pulled = body["results"][0]
+                if not (sse_doc["value"] == poll_doc["value"] == pulled == want[name]):
+                    raise AssertionError(f"phase 21 (a) {step}: {name}: sse {sse_doc} poll "
+                                         f"{poll_doc} pull {pulled} numpy {want[name]}")
+                got[name] = sub.version
+            return got
+
+        versions = check("registration")
+        registration_k4 = sp.launches
+        for step in ("set", "clear", "import"):
+            before = dict(mgr.evals)
+            batches, k4_0, k2_0 = mgr.batches, sp.launches, te.launches
+            evals_0 = len(slice_evals)
+            if step == "import":
+                rows = rng.integers(0, ROWS, STANDING_IMPORT_BITS)
+                sl = rng.choice(N_SLICES, STANDING_IMPORT_SLICES, replace=False)
+                cols = (sl[rng.integers(0, STANDING_IMPORT_SLICES, STANDING_IMPORT_BITS)] << 20) \
+                    | rng.integers(0, 1 << 20, STANDING_IMPORT_BITS)
+                InternalClient(h, timeout=600).import_bits("i", "f", rows, cols)
+                set_bits(planes, rows, cols)
+                touched = np.unique(cols >> 20)
+            else:
+                sl = rng.choice(N_SLICES, 4, replace=False)
+                calls, touched = [], []
+                for k in range(STANDING_POINT_WRITES):
+                    s, r = int(sl[k % 4]), k % 2  # rows 0 and 1: both trees watch them
+                    word = planes[s, r]
+                    bit = int(np.flatnonzero(word != (0xFFFFFFFF if step == "set" else 0))[k])
+                    w = int(word[bit])
+                    off = next(b for b in range(32) if ((w >> b) & 1) == (0 if step == "set" else 1))
+                    col = (s << 20) | (bit << 5) | off
+                    verb = "SetBit" if step == "set" else "ClearBit"
+                    calls.append(f"{verb}(frame=f, rowID={r}, columnID={col})")
+                    planes[s, r, bit] ^= np.uint32(1 << off)
+                    touched.append(s)
+                status, body = http(h, "POST", "/index/i/query", " ".join(calls).encode())
+                if status != 200 or not all(body["results"]):
+                    raise AssertionError(f"phase 21 (a) {step}: {status} {body}")
+                touched = np.unique(touched)
+            refresh(touched)
+            if not mgr.flush(timeout=300):
+                raise AssertionError(f"phase 21 (a) {step}: the notifier did not drain")
+            n_batches = mgr.batches - batches
+            engine = {"k2": te.launches - k2_0, "k4": sp.launches - k4_0}
+            evals = {k: mgr.evals[k] - before[k] for k in before}
+            step_evals = slice_evals[evals_0:]
+            compound = [e for e in step_evals if e[0]]
+            now = check(step)
+            moved = {k: now[k] - versions[k] for k in now}
+            versions = now
+            if not compound or any(e[2] != (1 if e[0] else 0) for e in step_evals):
+                raise AssertionError(f"phase 21 (a) {step}: slice evaluations (compound, "
+                                     f"slices, K2 launches) {step_evals} (want one K2 each of "
+                                     "the Intersect's and none for the Count's)")
+            if engine["k2"] != len(compound) or engine["k4"] > n_batches:
+                raise AssertionError(f"phase 21 (a) {step}: the notifier launched {engine} "
+                                     f"in {n_batches} batches (want {len(compound)} K2, the "
+                                     "Intersect's slice evaluations, and at most one K4 each)")
+            if step != "import" and (evals["adjust"] < 1 or evals["slice"] < 1):
+                raise AssertionError(f"phase 21 (a) {step}: evals {evals} (want adjust for the "
+                                     "single-leaf Count and slice for the Intersect)")
+            if step == "import" and evals["slice"] < 2:
+                raise AssertionError(f"phase 21 (a) import: evals {evals}")
+            if not moved["count"] or not moved["intersect"] or not moved["topn_src"]:
+                raise AssertionError(f"phase 21 (a) {step}: no update: {moved}")
+            out["steps"].append({"step": step, "touched_slices": len(touched), "batches": n_batches,
+                                 "evals": evals, "notifier_launches": engine, "updates": moved,
+                                 "k2_slices": [e[1] for e in compound]})
+        snap = http(h, "GET", "/debug/subscriptions")[1]
+        k2_pulls = te.launches - k2 - sum(e[2] for e in slice_evals[n_evals:])
+        out.update({
+            "lag_ms": snap["lagMs"], "counters": snap["counters"],
+            "k2_launches": te.launches, "k4_launches": sp.launches, "k7_launches": ds.launches,
+            "registration_k4": registration_k4, "count_pulls": pulls,
+            "registration_k2": sum(e[2] for e in registration_evals),
+        })
+        stats = srv.holder.stats.snapshot()["counts"]
+        out["stat_evals"] = {k: int(v) for k, v in stats.items() if k.startswith("exec.subscribe.evals")}
+        if k2_pulls != pulls:
+            raise AssertionError(f"phase 21 (a): tree_eval launched {k2_pulls} times for {pulls} "
+                                 "Count pulls besides the slice evaluations (want one each)")
+        if not any("mode:slice" in k for k in out["stat_evals"]):
+            raise AssertionError(f"phase 21 (a): no exec.subscribe.evals mode:slice: {stats}")
+        for name, body in subs.items():
+            status, resp = http(h, "DELETE", f"/subscribe/{body['id']}")
+            if status != 200:
+                raise AssertionError(f"phase 21 (a): DELETE /subscribe: {status} {resp}")
+        if http(h, "GET", "/debug/subscriptions")[1]["count"] != 0:
+            raise AssertionError("phase 21 (a): subscriptions left after the DELETEs")
+    finally:
+        cache_mod.RECALCULATE_INTERVAL_S = saved_interval
+        mgr._slice_count = slice_count
+        for r in readers.values():
+            r.close()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 21 (a): 4 subscriptions over {N_SLICES} slices x {ROWS} rows read by SSE and "
+        f"long-poll, every delivered value == its pull == numpy at registration and after "
+        f"{STANDING_POINT_WRITES} SetBits, {STANDING_POINT_WRITES} ClearBits and a "
+        f"{STANDING_IMPORT_BITS}-bit /import over {STANDING_IMPORT_SLICES} slices (the notifier's "
+        f"default {out['coalesce_ms']} ms window); steps {json.dumps(out['steps'])}; lag p50 "
+        f"{out['lag_ms']['p50']} ms p99 {out['lag_ms']['p99']} ms over {out['lag_ms']['samples']} "
+        f"batches; tree_eval {out['k2_launches']} ({out['registration_k2']} at registration, one "
+        f"a slice evaluation of the Intersect, one a Count pull: {pulls}), score_planes "
+        f"{out['k4_launches']} ({registration_k4} at registration), "
+        f"delta_scatter {out['k7_launches']}; {out['seconds']:.3f}s")
+    return out
+
+
+def count_rows(host: str, index: str, rows, want_rows) -> None:
+    for r in rows:
+        status, body = http(host, "POST", f"/index/{index}/query",
+                            f"Count(Bitmap(frame=f, rowID={r}))".encode())
+        want = int(np.bitwise_count(want_rows[:, r]).sum())
+        if status != 200 or body["results"] != [want]:
+            raise AssertionError(f"phase 21: Count row {r} at {host}: {status} {body} "
+                                 f"(want {want})")
+
+
+def tier_and_check(te, ds, convert, Server, InternalClient, ExpvarStatsClient, planes,
+                   rng) -> dict:
+    """Phase 21 (b) on nodes of its own: a LocalFSStore in the run's
+    temporary directory holds an index of CLUSTER_OPS_SLICES slices x 8
+    rows uploaded by ``upload_all``; a node with an empty data dir and only
+    ``tier_store`` set cold-boots it and its first Count hydrates every
+    fragment through the hydrate lane and launches K2; a disk budget of half
+    the index demotes by LRU and the next Count hydrates again; a SetBit to
+    a cold fragment hydrates it first and a write to it once revived is
+    applied by one K7; a retention sweep on a YMD frame ages and deletes
+    views; the CLI's backup and restore --store go through ``serve_store``'s
+    HTTP backend; and a two-node tier cluster resizes to three with its
+    slices copied through ``POST /tier/restore``."""
+    from pilosa_tpu_torch.cli.main import main as cli
+    from pilosa_tpu_torch.tier import LocalFSStore, TierManager, fragment_store_key
+    from pilosa_tpu_torch.tier.store import _ServedStore
+
+    t0 = time.perf_counter()
+    n = CLUSTER_OPS_SLICES
+    truth = planes[:n].copy()
+    out: dict = {"seconds": {}}
+    opened: list = []
+
+    def node(path, **kw):
+        srv = Server(path, host="127.0.0.1:0", device="cuda", stats=ExpvarStatsClient(),
+                     anti_entropy_interval=1e9, polling_interval=1e9, tier_sweep_interval_s=1e9,
+                     **kw)
+        srv.open()
+        opened.append(srv)
+        return srv
+
+    def tier_doc(srv) -> dict:
+        return http(srv.host, "GET", "/debug/tier")[1]
+
+    with tempfile.TemporaryDirectory(prefix="pilosa-torch-tier-") as d:
+        try:
+            store_root = f"{d}/store"
+            donor = node(f"{d}/donor")
+            convert.load_planes(donor.holder, "i", "f", "standard", {s: truth[s] for s in range(n)})
+            up = TierManager(donor.holder, LocalFSStore(store_root)).upload_all()
+            store = LocalFSStore(store_root)
+            store_bytes = sum(m.size for m in store.list("fragments/"))
+            donor.close()
+            opened.remove(donor)
+            if up != n:
+                raise AssertionError(f"phase 21 (b): upload_all wrote {up} fragments (want {n})")
+
+            # 2. cold boot: every fragment cold; the first Count hydrates them all.
+            cold = node(f"{d}/cold", tier_store=store_root)
+            doc = tier_doc(cold)
+            if doc["countsByState"] != {"cold": n}:
+                raise AssertionError(f"phase 21 (b): bootstrap {doc['countsByState']}")
+            te.launches = ds.launches = 0  # the phase's main path starts here
+            h0 = time.perf_counter()
+            count_rows(cold.host, "i", [0], truth)
+            hydrate_s = time.perf_counter() - h0
+            k2_first = te.launches
+            doc = tier_doc(cold)
+            hist = {v["history"][-3:] == ["cold", "hydrating", "hot"] for v in doc["fragments"].values()}
+            if doc["countsByState"] != {"hot": n} or hist != {True} or k2_first != 1:
+                raise AssertionError(f"phase 21 (b): after the first Count {doc['countsByState']}, "
+                                     f"tree_eval launches {k2_first} (want 1)")
+            out["hydration"] = {"fragments": n, "bytes": store_bytes, "seconds": hydrate_s,
+                                "gbps": store_bytes / hydrate_s / 1e9}
+            log(f"phase 21 (b): cold boot of {n} fragments ({store_bytes} bytes in the store); the "
+                f"first Count hydrated all {n} through the hydrate lane, uploaded their mirrors and "
+                f"launched tree_eval {k2_first}x in {hydrate_s:.3f}s "
+                f"({out['hydration']['gbps']:.3f} GB/s of archives)")
+
+            # 3. a disk budget of half the index: LRU demotions, then hydration again.
+            local = cold.tier.local_bytes()
+            cold.tier.disk_budget_bytes = local // 2
+            demoted = cold.tier.enforce_disk_budget()
+            doc = tier_doc(cold)
+            if demoted < 1 or doc["countsByState"].get("cold", 0) != demoted:
+                raise AssertionError(f"phase 21 (b): budget {local // 2}: demoted {demoted}, "
+                                     f"{doc['countsByState']}")
+            k2 = te.launches
+            count_rows(cold.host, "i", [1], truth)
+            cold.tier.disk_budget_bytes = 0
+            wait_until(lambda: not cold.tier._enforcing, 60, "the budget sweep ended")
+            out["budget"] = {"local_bytes": local, "budget": local // 2, "demoted": demoted,
+                             "after": doc["countsByState"], "k2": te.launches - k2}
+            log(f"phase 21 (b): a budget of {local // 2} bytes (half of {local}) demoted {demoted} "
+                f"fragments by LRU ({doc['countsByState']}); the next Count over every slice "
+                f"hydrated them again and answered numpy with {te.launches - k2} tree_eval launch")
+
+            # 4. a SetBit to a cold fragment hydrates first; once revived, a
+            # write to it is applied by one K7 at the next read.
+            view = cold.holder.index("i").frame("f").view("standard")
+            s = 5
+            if s not in view.cold_slices() and not cold.tier.demote(view, s):
+                raise AssertionError("phase 21 (b): slice 5 did not demote")
+            key = fragment_store_key("i", "f", "standard", s)
+            cols = []
+            for k in range(2):
+                bit = int(np.flatnonzero(truth[s, 2] != 0xFFFFFFFF)[k])
+                off = next(b for b in range(32) if not (int(truth[s, 2, bit]) >> b) & 1)
+                cols.append((s << 20) | (bit << 5) | off)
+            status, body = http(cold.host, "POST", "/index/i/query",
+                                f"SetBit(frame=f, rowID=2, columnID={cols[0]})".encode())
+            set_bits(truth, np.array([2]), np.array(cols[:1]))
+            if status != 200 or body["results"] != [True] or \
+                    tier_doc(cold)["fragments"][key]["history"][-3:] != ["cold", "hydrating", "hot"]:
+                raise AssertionError(f"phase 21 (b): SetBit to cold slice {s}: {status} {body}")
+            count_rows(cold.host, "i", [2], truth)  # uploads the revived fragment's mirror
+            http(cold.host, "POST", "/index/i/query",
+                 f"SetBit(frame=f, rowID=2, columnID={cols[1]})".encode())
+            set_bits(truth, np.array([2]), np.array(cols[1:]))
+            k7, k2 = ds.launches, te.launches
+            count_rows(cold.host, "i", [2], truth)
+            revive = {"k7": ds.launches - k7, "k2": te.launches - k2}
+            if revive != {"k7": 1, "k2": 1}:
+                raise AssertionError(f"phase 21 (b): the read after the write to the revived "
+                                     f"fragment launched {revive} (want one K7, one K2)")
+            log(f"phase 21 (b): a SetBit to cold slice {s} hydrated it first (cold -> hydrating "
+                f"-> hot) and landed; the next write to it was applied by delta_scatter "
+                f"{revive['k7']}x at the Count after it")
+
+            # 5. retention on a YMD frame of RETENTION_SLICES slices.
+            status, body = http(cold.host, "POST", "/index/i/frame/t",
+                                b'{"options": {"timeQuantum": "YMD"}}')
+            if status != 200:
+                raise AssertionError(f"phase 21 (b): POST frame t: {status} {body}")
+            by_date = []
+            for day in RETENTION_DATES:
+                rows = rng.integers(0, 4, RETENTION_BITS)
+                cols_t = rng.integers(0, RETENTION_SLICES << 20, RETENTION_BITS)
+                ns = np.full(RETENTION_BITS, int(day.replace(tzinfo=timezone.utc).timestamp())
+                             * 1_000_000_000, np.int64)
+                InternalClient(cold.host, timeout=600).import_bits("i", "t", rows, cols_t, ns)
+                by_date.append(set(zip(rows.tolist(), cols_t.tolist())))
+            cold.tier.retention_age_s = RETENTION_AGE_S
+            cold.tier.retention_delete_s = RETENTION_DELETE_S
+            swept = cold.tier.sweep_retention(now=RETENTION_NOW)
+            views = cold.holder.frame("i", "t").views()
+            want_views = {"standard", "standard_2024", "standard_202403", "standard_20240310",
+                          "standard_202405", "standard_20240510"}
+            cold_views = sorted(v for v, obj in views.items() if obj.cold_slices())
+            if (swept != {"aged": 2 * RETENTION_SLICES, "deleted": 2 * RETENTION_SLICES}
+                    or set(views) != want_views
+                    or cold_views != ["standard_202403", "standard_20240310"]
+                    or store.get_meta(fragment_store_key("i", "t", "standard_202403", 0)) is None):
+                raise AssertionError(f"phase 21 (b): retention sweep {swept}, views {sorted(views)}, "
+                                     f"cold {cold_views}")
+            ranges = (("2024-01-01T00:00", "2024-02-01T00:00", ()),  # deleted with its view
+                      ("2024-03-01T00:00", "2024-04-01T00:00", (1,)),  # aged: hydrates
+                      ("2024-05-10T00:00", "2024-05-11T00:00", (2,)),
+                      ("2024-01-01T00:00", "2025-01-01T00:00", (0, 1, 2)))  # the year view
+            k2 = te.launches
+            for start, end, dates in ranges:
+                for r in range(4):
+                    want = len({c for d_ in dates for (rr, c) in by_date[d_] if rr == r})
+                    pql = f'Count(Range(frame=t, rowID={r}, start="{start}", end="{end}"))'
+                    status, body = http(cold.host, "POST", "/index/i/query", pql.encode())
+                    if status != 200 or body["results"] != [want]:
+                        raise AssertionError(f"phase 21 (b): {pql}: {status} {body} (want {want})")
+            out["retention"] = {**swept, "k2": te.launches - k2}
+            log(f"phase 21 (b): retention sweep at {RETENTION_NOW.date()} (age "
+                f"{RETENTION_AGE_S / 86400:.0f} d, delete {RETENTION_DELETE_S / 86400:.0f} d) over "
+                f"{RETENTION_SLICES} slices: {swept}; views left {sorted(views)}, cold {cold_views}; "
+                f"16 Range counts == numpy over the retained views ({te.launches - k2} tree_eval "
+                f"launches)")
+
+            # 6. the CLI's backup --store and restore --store over serve_store's HTTP backend.
+            with _ServedStore(f"{d}/http-store") as url:
+                b0 = time.perf_counter()
+                if cli(["backup", "--host", cold.host, "-i", "i", "--store", url, "-v", ""]) != 0:
+                    raise AssertionError("phase 21 (b): backup --store failed")
+                backup_s = time.perf_counter() - b0
+                dst = node(f"{d}/restored")
+                for path, body in (("/index/i", b""), ("/index/i/frame/f", b""),
+                                   ("/index/i/frame/t", b'{"options": {"timeQuantum": "YMD"}}')):
+                    status, resp = http(dst.host, "POST", path, body)
+                    if status != 200:
+                        raise AssertionError(f"phase 21 (b): {path}: {status} {resp}")
+                r0 = time.perf_counter()
+                if cli(["restore", "--host", dst.host, "-i", "i", "--store", url, "-v", ""]) != 0:
+                    raise AssertionError("phase 21 (b): restore --store failed")
+                restore_s = time.perf_counter() - r0
+            http_bytes = sum(m.size for m in LocalFSStore(f"{d}/http-store").list("fragments/"))
+            count_rows(dst.host, "i", range(ROWS), truth)
+            pql = 'Count(Range(frame=t, rowID=1, start="2024-01-01T00:00", end="2025-01-01T00:00"))'
+            if http(dst.host, "POST", "/index/i/query", pql.encode())[1] != \
+                    http(cold.host, "POST", "/index/i/query", pql.encode())[1]:
+                raise AssertionError("phase 21 (b): the restored year view differs")
+            out["cli"] = {"bytes": http_bytes, "backup_s": backup_s, "restore_s": restore_s}
+            log(f"phase 21 (b): CLI backup --store of {http_bytes} bytes through serve_store's HTTP "
+                f"backend in {backup_s:.3f}s ({http_bytes / backup_s / 1e9:.3f} GB/s), restore "
+                f"--store into an empty node in {restore_s:.3f}s ({http_bytes / restore_s / 1e9:.3f} "
+                f"GB/s); its Counts == numpy")
+            for srv in (cold, dst):
+                srv.close()
+                opened.remove(srv)
+
+            # 7. a two-node tier cluster grows to three through the store.
+            shared = f"{d}/shared"
+            ports = [free_port() for _ in range(3)]
+            ring = sorted(f"127.0.0.1:{p}" for p in ports[:2])
+            cl = [Server(f"{d}/c{k}", host=ring[k], device="cuda", stats=ExpvarStatsClient(),
+                         hosts=ring, tier_store=shared, anti_entropy_interval=1e9,
+                         polling_interval=1e9, tier_sweep_interval_s=1e9) for k in range(2)]
+            for srv in cl:
+                srv.open()
+                opened.append(srv)
+                convert.load_planes(srv.holder, "i", "f", "standard", {
+                    s: truth[s] for s in range(n)
+                    if srv.host in {o.host for o in srv.cluster.fragment_nodes("i", s)}})
+            for srv in cl:
+                srv.tick_max_slices()
+                srv.tier.upload_all()
+            new = node(f"{d}/c2", hosts=ring, tier_store=shared)
+            hosts3 = sorted(ring + [new.host])
+            r0 = time.perf_counter()
+            status, body = http(ring[0], "POST", "/cluster/resize", json.dumps({"hosts": hosts3}).encode())
+            if status != 200:
+                raise AssertionError(f"phase 21 (b): POST /cluster/resize: {status} {body}")
+            snap = {}
+
+            def resized() -> bool:
+                nonlocal snap
+                snap = http(ring[0], "GET", "/debug/rebalance")[1]
+                err = (snap.get("coordinator") or {}).get("error") or snap.get("lastError")
+                if err:
+                    raise AssertionError(f"phase 21 (b): resize stopped: {err}")
+                return not snap.get("running") and snap.get("transition") is None
+
+            wait_until(resized, 300, "the resize ended", 0.1)
+            resize_s = time.perf_counter() - r0
+            from_store = sum(
+                int(v) for srv in cl for k, v in srv.holder.stats.snapshot()["counts"].items()
+                if k.startswith("cluster.rebalance.storeRestores"))
+            copied = sum(
+                int(v) for srv in cl for k, v in srv.holder.stats.snapshot()["counts"].items()
+                if k.startswith("cluster.rebalance.bytesStreamed"))
+            if from_store < 1:
+                raise AssertionError(f"phase 21 (b): no slice copied through the store: {snap}")
+            k2 = te.launches
+            for srv in cl + [new]:
+                srv.tick_max_slices()
+                count_rows(srv.host, "i", range(ROWS), truth)
+            out["resize"] = {"seconds": resize_s, "from_store": from_store,
+                             "bytes_copied": copied, "k2": te.launches - k2}
+            log(f"phase 21 (b): resize of a 2-node tier cluster to 3 in {resize_s:.3f}s: "
+                f"{from_store} fragments copied through POST /tier/restore (fromStore), "
+                f"{copied} bytes in all; every node's 8 Counts == numpy "
+                f"({te.launches - k2} tree_eval launches)")
+        finally:
+            for srv in opened:
+                srv.close()
+    out["k2_launches"], out["k7_launches"] = te.launches, ds.launches
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 21 (b): {out['seconds']:.3f}s")
+    return out
+
+
+def gossip_and_check(te, ds, convert, Server, InternalClient, ExpvarStatsClient, planes,
+                     watch) -> dict:
+    """Phase 21 (c): three ``Server(cluster_type="gossip", device="cuda")``
+    nodes on loopback, 2 replicas, CLUSTER_OPS_SLICES slices: the schema
+    made on node 0's holder reaches the others through gossip's state sync;
+    a late fourth node seeded off node 0 is a join candidate; Counts from
+    every node equal numpy on K2; a closed node goes SUSPECT then DOWN and
+    the Counts fail over; restarted, it stages its peers' hot slices first;
+    under 20% datagram loss (``gossip.send``) membership holds with no false
+    DOWN; a card quarantined by ``device.launch`` faults is learned degraded
+    by its peers, then healthy after the heal; and a Count subscription on
+    node 0 re-runs through K2 after a write node 1 coordinates."""
+    import socket
+
+    from pilosa_tpu_torch.core import holder as holder_mod
+    from pilosa_tpu_torch.testing import faults
+
+    t0 = time.perf_counter()
+    n = CLUSTER_OPS_SLICES
+    truth = planes[:n].copy()
+    out: dict = {}
+    hosts = sorted(f"127.0.0.1:{free_port()}" for _ in range(3))
+    gports = [free_port(socket.SOCK_DGRAM) for _ in range(4)]
+    seed = f"127.0.0.1:{gports[0]}"
+    nodes: dict[str, object] = {}
+
+    def node(path, host, gport, gseed):
+        srv = Server(path, host=host, device="cuda", cluster_type="gossip", hosts=hosts,
+                     replicas=2, gossip_bind=f"127.0.0.1:{gport}", gossip_seed=gseed,
+                     gossip_interval=GOSSIP_INTERVAL, gossip_suspect_after=GOSSIP_SUSPECT,
+                     stats=ExpvarStatsClient(), quarantine_open_ms=GOSSIP_QUARANTINE_OPEN_MS,
+                     subscribe_refresh_ms=1e9, anti_entropy_interval=1e9, polling_interval=1e9)
+        srv.open()
+        return srv
+
+    def counts_everywhere(where: str) -> int:
+        k2 = te.launches
+        for h in sorted(nodes):
+            count_rows(h, "g", [0, 3], truth)
+        return te.launches - k2
+
+    with tempfile.TemporaryDirectory(prefix="pilosa-torch-gossip-") as d:
+        try:
+            for k in range(3):
+                nodes[hosts[k]] = node(f"{d}/n{k}", hosts[k], gports[k], "" if k == 0 else seed)
+            n0, n1, n2 = (nodes[h] for h in hosts)
+            wait_until(lambda: all(len(s.node_set.nodes()) == 3 for s in nodes.values()), 10,
+                       "3-node membership")
+            # 1. schema by state sync alone: made on node 0's holder, no broadcast.
+            n0.holder.create_index_if_not_exists("g").create_frame_if_not_exists("f")
+            sync_s = wait_until(lambda: all(s.holder.frame("g", "f") is not None
+                                            for s in nodes.values()), 10, "schema by state sync")
+            # 2. a late fourth node is a join candidate.
+            late = Server(f"{d}/late", host=f"127.0.0.1:{free_port()}", device="cuda",
+                          cluster_type="gossip", hosts=hosts, gossip_bind=f"127.0.0.1:{gports[3]}",
+                          gossip_seed=seed, gossip_interval=GOSSIP_INTERVAL,
+                          gossip_suspect_after=GOSSIP_SUSPECT, anti_entropy_interval=1e9,
+                          polling_interval=1e9)
+            late.open()
+            try:
+                join_s = wait_until(lambda: late.host in http(n0.host, "GET", "/debug/rebalance")[1]
+                                    ["joinCandidates"], 10, "the late node as a join candidate")
+            finally:
+                late.close()
+            # 3. data on the owners, Counts from every node.
+            load_in_threads(convert, [(s.holder, "g", "f", "standard", {k: truth[k]})
+                                      for s in nodes.values() for k in range(n)
+                                      if s.host in {o.host for o in s.cluster.fragment_nodes("g", k)}])
+            for s in nodes.values():
+                s.tick_max_slices()
+            te.launches = ds.launches = 0  # the phase's main path starts here
+            k2_counts = counts_everywhere("3 nodes")
+            log(f"phase 21 (c): 3 gossip nodes; the schema reached every node by state sync in "
+                f"{sync_s:.3f}s; a late node was node 0's join candidate after {join_s:.3f}s; "
+                f"Counts from every node == numpy with {k2_counts} tree_eval launches")
+            # 4. node 2 closes: SUSPECT, then DOWN, and the Counts fail over.
+            n2.close()
+            del nodes[hosts[2]]
+            seen = set()
+
+            def down() -> bool:
+                seen.add(n0.node_set.member_states().get(hosts[2]))
+                st = {x["Host"]: x["State"] for x in http(n0.host, "GET", "/status")[1]["status"]["Nodes"]}
+                return st.get(hosts[2]) == "DOWN"
+
+            down_s = wait_until(down, 20, "node 2 DOWN on /status", 0.01)
+            if "SUSPECT" not in seen:
+                raise AssertionError(f"phase 21 (c): node 2 went DOWN without SUSPECT: {seen}")
+            k2_failover = counts_everywhere("failover")
+            log(f"phase 21 (c): node 2 closed: SUSPECT, then DOWN on /status after {down_s:.3f}s; "
+                f"Counts from the 2 live nodes == numpy ({k2_failover} tree_eval launches)")
+            # 7. node 2 restarts and stages its peers' hot slices first (the
+            # hot set its open staged by, recorded around the holder's call).
+            hot = n0.holder.hot_slices()
+            staged_by: dict = {}
+            stage_fn = holder_mod.Holder.stage_device_mirrors
+
+            def recorded(self, *args, **kw):
+                staged_by[self.path] = kw.get("hot_slices") or {}
+                return stage_fn(self, *args, **kw)
+
+            holder_mod.Holder.stage_device_mirrors = recorded
+            try:
+                n2 = node(f"{d}/n2", hosts[2], gports[2], seed)
+            finally:
+                holder_mod.Holder.stage_device_mirrors = stage_fn
+            nodes[hosts[2]] = n2
+            announced = staged_by.get(n2.holder.path, {}).get("g", [])
+            mine = {f.slice for f in n2.holder.index("g").frame("f").view("standard").fragments()}
+            want_head = [k for k in announced if k in mine][:8]
+            head = [int(k.rsplit("/", 1)[1]) for k in n2.holder.staging_order[:len(want_head)]]
+            if not want_head or head != want_head:
+                raise AssertionError(f"phase 21 (c): staging head {head}, announced {announced}, "
+                                     f"held {sorted(mine)}")
+            wait_until(lambda: all(len(s.node_set.nodes()) == 3 for s in nodes.values()), 10,
+                       "membership after the restart")
+            log(f"phase 21 (c): node 2 restarted; its peers announced hot slices {announced[:8]}... "
+                f"(node 0's own MRU {hot.get('g', [])[:8]}); its staging order's head {head}")
+            # 5. 20% datagram loss: no false DOWN, membership holds.
+            faults.install(f"gossip.send:prob={GOSSIP_LOSS},seed=42,mode=drop")
+            try:
+                end = time.monotonic() + 6 * GOSSIP_SUSPECT
+                while time.monotonic() < end:
+                    for s in nodes.values():
+                        downs = [m for m, st in s.node_set.member_states().items()
+                                 if st == "DOWN" and m in nodes]
+                        if downs:
+                            raise AssertionError(f"phase 21 (c): false DOWN at {s.host}: {downs}")
+                    time.sleep(0.05)
+                dropped = sum(r.snapshot()["hits"] for r in faults.active().rules)
+            finally:
+                faults.clear()
+            if dropped < 1 or not all(len(s.node_set.nodes()) == 3 for s in nodes.values()):
+                raise AssertionError(f"phase 21 (c): under loss: {dropped} drops, "
+                                     f"{[s.node_set.nodes() for s in nodes.values()]}")
+            log(f"phase 21 (c): {GOSSIP_LOSS:.0%} datagram loss for {6 * GOSSIP_SUSPECT:.1f}s "
+                f"({dropped} datagrams dropped): no false DOWN, membership whole")
+            # 6. node 1's card quarantined by launch faults; its peers learn it.
+            host_before = watch.host
+            faults.install(f"device.launch:host={n1.host},kind=error")
+            try:
+                def quarantined() -> bool:
+                    http(n1.host, "POST", "/index/g/query", b"Count(Bitmap(frame=f, rowID=0))")
+                    return n1.device_health.degraded()
+
+                wait_until(quarantined, 30, "node 1 quarantined", 0.0)
+                learn_s = wait_until(lambda: all(s.cluster.node_by_host(n1.host).degraded
+                                                 for s in (n0, n2)), 10, "peers learned degraded")
+            finally:
+                faults.clear()
+            wait_until(lambda: (http(n1.host, "POST", "/index/g/query",
+                                     b"Count(Bitmap(frame=f, rowID=0))"),
+                                not n1.device_health.degraded())[1], 30, "node 1 healed", 0.1)
+            host_answers = watch.host - host_before
+            heal_s = wait_until(lambda: not any(s.cluster.node_by_host(n1.host).degraded
+                                                for s in (n0, n2)), 10, "peers learned healthy")
+            watch.rebase(n0)
+            log(f"phase 21 (c): node 1's card quarantined by device.launch faults ({host_answers} "
+                f"host answers on node 1, the quarantine's own); its peers learned the degraded "
+                f"flag in {learn_s:.3f}s ({learn_s / GOSSIP_INTERVAL:.1f} gossip intervals) and "
+                f"the heal in {heal_s:.3f}s")
+            # 8. a subscription on node 0 re-runs through K2 after a write another
+            # node coordinates.
+            status, sub = http(n0.host, "POST", "/subscribe", json.dumps(
+                {"index": "g", "query": "Subscribe(Count(Bitmap(rowID=0, frame=f)))"}).encode())
+            want = int(np.bitwise_count(truth[:, 0]).sum())
+            if status != 201 or sub["value"] != want:
+                raise AssertionError(f"phase 21 (c): POST /subscribe: {status} {sub} (want {want})")
+            # A slice of node 0's, written through its other owner: the
+            # coordinator holds a replica itself, so the write's quorum
+            # needs no peer whose breaker the failover opened.
+            s = next(k for k in range(n)
+                     if n0.host in {o.host for o in n0.cluster.fragment_nodes("g", k)})
+            coord = next(o.host for o in n0.cluster.fragment_nodes("g", s) if o.host != n0.host)
+            bit = int(np.flatnonzero(truth[s, 0] != 0xFFFFFFFF)[0])
+            off = next(b for b in range(32) if not (int(truth[s, 0, bit]) >> b) & 1)
+            col = (s << 20) | (bit << 5) | off
+            k2 = te.launches
+            status, body = http(coord, "POST", "/index/g/query",
+                                f"SetBit(frame=f, rowID=0, columnID={col})".encode())
+            set_bits(truth, np.array([0]), np.array([col]))
+            if status != 200 or body["results"] != [True]:
+                raise AssertionError(f"phase 21 (c): SetBit via {coord}: {status} {body}")
+            status, upd = http(n0.host, "GET", f"/subscribe/{sub['id']}/poll?after=1&timeout_ms=30000")
+            n0.subscribe.flush(timeout=30)
+            k2_rerun = te.launches - k2
+            if status != 200 or upd.get("value") != want + 1 or k2_rerun < 1:
+                raise AssertionError(f"phase 21 (c): the subscription's update {status} {upd} "
+                                     f"(want {want + 1}), tree_eval launches {k2_rerun}")
+            http(n0.host, "DELETE", f"/subscribe/{sub['id']}")
+            log(f"phase 21 (c): a Count subscription on node 0 moved to {upd['value']} after a "
+                f"SetBit {coord} coordinated, re-run through the executor with {k2_rerun} "
+                f"tree_eval launches")
+            out.update({"schema_sync_s": sync_s, "join_candidate_s": join_s, "down_s": down_s,
+                        "staging_head": head, "loss_drops": dropped,
+                        "degraded_learned_s": learn_s, "healthy_learned_s": heal_s,
+                        "quarantine_host_answers": host_answers, "k2_counts": k2_counts,
+                        "k2_failover": k2_failover, "k2_subscription": k2_rerun})
+        finally:
+            faults.clear()
+            for srv in nodes.values():
+                srv.close()
+    out["k2_launches"], out["k7_launches"] = te.launches, ds.launches
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 21 (c): {out['seconds']:.3f}s")
+    return out
+
+
 PHASES = {
     "serve_and_check": "5",
     "coalesce_and_check": "14",
@@ -6171,6 +7005,9 @@ PHASES = {
     "health_and_check": "18",
     "mesh_and_check": "19",
     "replicas_and_check": "20",
+    "standing_and_check": "21a",
+    "tier_and_check": "21b",
+    "gossip_and_check": "21c",
 }
 
 
@@ -6349,10 +7186,24 @@ def main() -> int:
             backed = backup_and_check(fp, te, ds, sp, Server, InternalClient, srv,
                                       np.random.default_rng(SEED + 17))
             watch.check("17", srv)
+            standing = standing_and_check(te, sp, ds, InternalClient, srv, planes,
+                                          np.random.default_rng(SEED + 21))
+            watch.check("21a", srv)
+            ops_planes = planes[:CLUSTER_OPS_SLICES].copy()
         finally:
             srv.close()
-    # Phase 10 serves on a node of its own: the memory of phases 5-9 is freed.
+    # Phase 21's cold tier and gossip run on nodes of their own.
     del srv, planes
+    gc.collect()
+    torch.cuda.empty_cache()
+    tiered = tier_and_check(te, ds, convert, Server, InternalClient, ExpvarStatsClient, ops_planes,
+                            np.random.default_rng(SEED + 22))
+    watch.check("21b")
+    gossiped = gossip_and_check(te, ds, convert, Server, InternalClient, ExpvarStatsClient,
+                                ops_planes, watch)
+    watch.check("21c")
+    del ops_planes
+    # Phase 10 serves on a node of its own: the memory of phases 5-9 is freed.
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="pilosa-torch-tutorials-") as data_dir:
@@ -6379,9 +7230,12 @@ def main() -> int:
     # own seconds exclude it.
     if "20" in phase_s:
         phase_s["6"] = round(phase_s["6"] - phase_s["20"], 1)
+    phase_s["21"] = round(sum(phase_s[k] for k in ("21a", "21b", "21c")), 1)
     log(f"phase seconds (native roaring codec loaded): {json.dumps(phase_s)}")
 
     k7 = k7_times[K7_SHAPES[1]]  # every slice's queue in one launch, as phase 7 flushes
+    k2_phase21 = standing["k2_launches"] + tiered["k2_launches"] + gossiped["k2_launches"]
+    k7_phase21 = standing["k7_launches"] + tiered["k7_launches"] + gossiped["k7_launches"]
     kernels = [
         {
             "name": fp.NAME,
@@ -6415,11 +7269,12 @@ def main() -> int:
             "replaces": ds.REPLACES,
             "launches": served["k7_launches"] + clustered["k7_launches"] + valued["k7_launches"]
             + backed["launches"]["k7"] + healed["launches"].get("k7", 0)
-            + clustered["replicas"]["k7_launches"],
+            + clustered["replicas"]["k7_launches"] + k7_phase21,
             "launches_by_phase": {"5": served["k7_launches"], "6": clustered["k7_launches"],
                                   "7": valued["k7_launches"], "17": backed["launches"]["k7"],
                                   "18": healed["launches"].get("k7", 0),
-                                  "20": clustered["replicas"]["k7_launches"]},
+                                  "20": clustered["replicas"]["k7_launches"],
+                                  "21": k7_phase21},
             "max_abs_err": k7_err,
             "ms": k7["ms"],
             "device_ms": k7["device_ms"],
@@ -6469,12 +7324,13 @@ def main() -> int:
         "replaces": sp.REPLACES,
         "launches": served["k4_launches"] + clustered["k4_launches"] + ranked["k4_launches"]
         + tutorials["totals"]["k4"] + resident["launches"]["k4"] + backed["launches"]["k4"]
-        + healed["launches"].get("k4", 0),
+        + healed["launches"].get("k4", 0) + standing["k4_launches"],
         "launches_by_phase": {"5": served["k4_launches"], "6": clustered["k4_launches"],
                               "9": ranked["k4_launches"], "10": tutorials["totals"]["k4"],
                               "12": resident["launches"]["k4"],
                               "17": backed["launches"]["k4"],
-                              "18": healed["launches"].get("k4", 0)},
+                              "18": healed["launches"].get("k4", 0),
+                              "21": standing["k4_launches"]},
         "max_abs_err": k4_err,
         "ms": k4["ms"],
         "device_ms": k4["device_ms"],
@@ -6511,7 +7367,7 @@ def main() -> int:
                    "10": tutorials["totals"]["k2"], "12": resident["launches"]["k2"],
                    "13": durable["launches"]["k2"], "17": backed["launches"]["k2"],
                    "18": healed["launches"].get("k2", 0),
-                   "20": clustered["replicas"]["k2_launches"]}
+                   "20": clustered["replicas"]["k2_launches"], "21": k2_phase21}
     for kernel, err, times, by_phase, shape in (
         (te, k2_err, k23_times["tree_eval_count"], k2_by_phase, [N_SLICES, 2, "count"]),
         (it, k3_err, k23_times["interp_count"],
@@ -6612,6 +7468,7 @@ def main() -> int:
         f"cluster trace {json.dumps(clustered['trace'])}")
     log(f"phase 17 (summary): {json.dumps(backed)}")
     log(f"phase 18 (summary): {json.dumps(healed)}")
+    log(f"phase 21 (summary): {json.dumps({'a': standing, 'b': tiered, 'c': gossiped})}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,
@@ -6624,5 +7481,22 @@ def main() -> int:
     return 0
 
 
+def dump_threads() -> None:
+    """Every live thread's stack to stderr: after a failure, where the
+    server threads it left behind were (a query past its deadline names no
+    culprit by itself)."""
+    import traceback
+
+    names = {t.ident: t.name for t in threading.enumerate()}
+    for ident, frame in sys._current_frames().items():
+        print(f"--- thread {names.get(ident, ident)}", file=sys.stderr)
+        traceback.print_stack(frame, file=sys.stderr)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    except BaseException:
+        dump_threads()
+        raise
+    sys.exit(rc)

@@ -2,8 +2,14 @@
 
     python -m pilosa_tpu_torch.cli server --data-dir D --bind H:P [--device cuda]
         [--mesh-devices N]
-        [--cluster-type static|http --hosts H1:P1,H2:P2 [--internal-hosts ...]
+        [--cluster-type static|http|gossip --hosts H1:P1,H2:P2 [--internal-hosts ...]
          --replicas N --internal-port P --polling-interval S]
+        [--gossip-seed IP:PORT --gossip-bind IP:PORT --gossip-ack-timeout-ms MS
+         --gossip-stream-timeout-ms MS]
+        [--tier-store URL --tier-hydrate-throttle-mbps F --tier-disk-budget-bytes N
+         --tier-retention-age-s S --tier-retention-delete-s S --tier-sweep-interval-s S]
+        [--subscribe true|false --subscribe-max-subscriptions N --subscribe-queue-cap N
+         --subscribe-delta-cap N --subscribe-coalesce-ms MS --subscribe-refresh-ms MS]
         [--plane-format auto|dense] [--hbm-budget-bytes N] [--prefetch true|false]
         [--wal true|false --group-commit-ms MS --group-commit-max N
          --wal-segment-bytes N]
@@ -40,8 +46,11 @@ agreement (``anti-entropy-interval``, ``query-timeout-ms``,
 ``broadcast-timeout-ms``, ``retry-attempts``, ``retry-backoff-ms``,
 ``breaker-failure-threshold``, ``breaker-open-ms``,
 ``write-consistency``, ``read-consistency``, ``hint-cap``,
-``hint-replay-throttle-mbps`` and the ``rebalance-*`` keys), with their
-defaults.  ``--metrics-service expvar``
+``hint-replay-throttle-mbps`` and the ``rebalance-*`` keys), the
+``[tier]``, ``[gossip]`` and ``[subscribe]`` keys (``--tier-*``,
+``--gossip-*`` with ``[cluster] gossip-seed``, ``--subscribe*``), with
+their defaults.  (The configuration file itself waits for the port of
+``config.py``.)  ``--metrics-service expvar``
 fills ``/debug/vars`` and ``/metrics``; ``statsd`` sends dogstatsd
 datagrams to ``--metrics-host`` (default 127.0.0.1:8125).
 
@@ -59,21 +68,27 @@ with its flags, output and exit codes:
 
     export  --host H:P -i INDEX -f FRAME [-v VIEW] [-o FILE]
     backup  --host H:P -i INDEX -f FRAME [-v VIEW] [-o FILE]
+    backup  --host H:P -i INDEX --store URL [-f FRAME] [-v VIEW | -v '']
     restore --host H:P -i INDEX -f FRAME [-v VIEW] -d FILE
+    restore --host H:P -i INDEX --store URL [-f FRAME] [-v VIEW | -v '']
     check PATH...      inspect PATH...      sort PATH
     bench   --host H:P -i INDEX -f FRAME [-o set-bit|intersect-count|topn] [-n N]
     resize  --host H:P --hosts H1:P1,H2:P2,... [--wait] | --status | --abort
 
 ``export`` writes every slice's CSV (each from an owner of the slice);
 ``backup`` writes a view as a tar of per-slice fragment archives and
-``restore`` posts each back; ``check`` and ``inspect`` read data files
+``restore`` posts each back; with ``--store`` (``http://host:port``,
+``file:///path`` or a path; JAX ``cli/ctl.py:557-647``) ``backup``
+uploads ``schema.json`` and every fragment archive of the index (all
+frames unless ``-f``, all views with ``-v ''``) in the cold tier's
+layout, so a node with only ``tier_store`` set cold-boots from it, and
+``restore`` posts every matching archive of the store to the node; ``check`` and ``inspect`` read data files
 offline; ``sort`` orders a CSV by slice for import; ``resize`` starts a
 live resize to the complete target host list (``POST /cluster/resize``),
 prints the migration's state (``--status``), aborts it (``--abort``) or
 waits for it (``--wait``, JAX ``cli/ctl.py:768``).  An error prints
-``error: ...`` and exits 1.  Not ported yet: ``backup --store`` and
-``restore --store`` (they wait for ``tier/*``), ``warm``, ``config`` and
-``generate-config`` (for ``config.py``).
+``error: ...`` and exits 1.  Not ported yet: ``warm``, ``config`` and
+``generate-config`` (they wait for ``config.py``).
 """
 
 from __future__ import annotations
@@ -128,7 +143,8 @@ def build_parser() -> argparse.ArgumentParser:
     srv.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
     srv.add_argument("--mesh-devices", type=int, default=0,
                      help="cards the slices shard over (0: all visible, 1: one card)")
-    srv.add_argument("--cluster-type", default="static", help="static (default) or http")
+    srv.add_argument("--cluster-type", default="static",
+                     help="static (default), http or gossip")
     srv.add_argument("--hosts", type=_hosts, default=[], help="H:P,H:P,... of every node")
     srv.add_argument(
         "--internal-hosts", type=_hosts, default=None,
@@ -206,6 +222,29 @@ def build_parser() -> argparse.ArgumentParser:
     srv.add_argument("--rebalance-verify-rounds", type=int, default=3)
     srv.add_argument("--rebalance-delta-cap", type=int, default=50_000)
     srv.add_argument("--rebalance-release-delay-ms", type=float, default=200.0)
+    srv.add_argument("--rebalance-on-join", type=_bool, default=False,
+                     help="admit hosts gossip announces by a resize")
+    # The JAX package's [cluster] gossip-seed and [gossip] keys.
+    srv.add_argument("--gossip-seed", default="", help="gossip address (IP:PORT) to join through")
+    srv.add_argument("--gossip-bind", default="",
+                     help="UDP listener (default all interfaces on the HTTP port + 1000)")
+    srv.add_argument("--gossip-ack-timeout-ms", type=float, default=250.0)
+    srv.add_argument("--gossip-stream-timeout-ms", type=float, default=10_000.0)
+    # The JAX package's [tier] keys.
+    srv.add_argument("--tier-store", default="",
+                     help="cold-tier object store (http://H:P, file:///path or a path)")
+    srv.add_argument("--tier-hydrate-throttle-mbps", type=float, default=0.0)
+    srv.add_argument("--tier-disk-budget-bytes", type=int, default=0)
+    srv.add_argument("--tier-retention-age-s", type=float, default=0.0)
+    srv.add_argument("--tier-retention-delete-s", type=float, default=0.0)
+    srv.add_argument("--tier-sweep-interval-s", type=float, default=60.0)
+    # The JAX package's [subscribe] keys.
+    srv.add_argument("--subscribe", type=_bool, default=True, help="serve standing queries")
+    srv.add_argument("--subscribe-max-subscriptions", type=int, default=10_000)
+    srv.add_argument("--subscribe-queue-cap", type=int, default=256)
+    srv.add_argument("--subscribe-delta-cap", type=int, default=50_000)
+    srv.add_argument("--subscribe-coalesce-ms", type=float, default=5.0)
+    srv.add_argument("--subscribe-refresh-ms", type=float, default=500.0)
     imp = sub.add_parser("import", help="bulk-import CSV bits (row,col[,timestamp])")
     imp.add_argument("--host", default="localhost:10101", help="host:port of a node")
     imp.add_argument("-i", "--index", required=True)
@@ -229,18 +268,29 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("-f", "--frame", required=True)
     sp.add_argument("-v", "--view", default="standard")
     sp.add_argument("-o", "--output-file", default="", help="default stdout")
-    sp = sub.add_parser("backup", help="backup a view to a tar archive")
+    sp = sub.add_parser("backup", help="backup a view to a tar archive, or the whole index "
+                        "into a tier object store (--store)")
     host(sp)
     sp.add_argument("-i", "--index", required=True)
-    sp.add_argument("-f", "--frame", default="", help="frame to back up")
-    sp.add_argument("-v", "--view", default="standard", help="view to back up")
+    sp.add_argument("-f", "--frame", default="",
+                    help="frame to back up (with --store: default every frame)")
+    sp.add_argument("-v", "--view", default="standard",
+                    help="view to back up; with --store pass '' for every view")
     sp.add_argument("-o", "--output-file", default="", help="default stdout")
-    sp = sub.add_parser("restore", help="restore a view from a tar archive")
+    sp.add_argument("--store", default="", metavar="URL",
+                    help="tier object-store target (http://host:port, file:///path or a "
+                    "path): schema.json and per-fragment tars in the tier's layout")
+    sp = sub.add_parser("restore", help="restore a view from a tar archive, or fragments from "
+                        "a tier object store (--store)")
     host(sp)
     sp.add_argument("-i", "--index", required=True)
-    sp.add_argument("-f", "--frame", default="", help="frame to restore")
-    sp.add_argument("-v", "--view", default="standard", help="view to restore")
+    sp.add_argument("-f", "--frame", default="",
+                    help="frame to restore (with --store: default every frame)")
+    sp.add_argument("-v", "--view", default="standard",
+                    help="view to restore; with --store pass '' for every view")
     sp.add_argument("-d", "--input-file", default="")
+    sp.add_argument("--store", default="", metavar="URL",
+                    help="tier object-store source (see backup --store)")
     sp = sub.add_parser("check", help="offline consistency check of data files")
     sp.add_argument("paths", nargs="+")
     sp = sub.add_parser("inspect", help="dump container stats of a data file")
@@ -321,6 +371,23 @@ def run_server(args) -> int:
         rebalance_verify_rounds=args.rebalance_verify_rounds,
         rebalance_delta_cap=args.rebalance_delta_cap,
         rebalance_release_delay_ms=args.rebalance_release_delay_ms,
+        rebalance_on_join=args.rebalance_on_join,
+        gossip_seed=args.gossip_seed,
+        gossip_bind=args.gossip_bind,
+        gossip_ack_timeout_ms=args.gossip_ack_timeout_ms,
+        gossip_stream_timeout_ms=args.gossip_stream_timeout_ms,
+        tier_store=args.tier_store,
+        tier_hydrate_throttle_mbps=args.tier_hydrate_throttle_mbps,
+        tier_disk_budget_bytes=args.tier_disk_budget_bytes,
+        tier_retention_age_s=args.tier_retention_age_s,
+        tier_retention_delete_s=args.tier_retention_delete_s,
+        tier_sweep_interval_s=args.tier_sweep_interval_s,
+        subscribe_enabled=args.subscribe,
+        subscribe_max_subscriptions=args.subscribe_max_subscriptions,
+        subscribe_queue_cap=args.subscribe_queue_cap,
+        subscribe_delta_cap=args.subscribe_delta_cap,
+        subscribe_coalesce_ms=args.subscribe_coalesce_ms,
+        subscribe_refresh_ms=args.subscribe_refresh_ms,
     )
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
@@ -502,8 +569,10 @@ def run_export(args) -> int:
 
 def run_backup(args) -> int:
     client = _client(args.host)
+    if args.store:
+        return _backup_to_store(client, args)
     if not args.frame:
-        raise CommandError("--frame required")
+        raise CommandError("--frame required (unless backing up --store)")
     w = _out(args)
     try:
         client.backup_to(w, args.index, args.frame, args.view)
@@ -515,12 +584,75 @@ def run_backup(args) -> int:
 
 def run_restore(args) -> int:
     client = _client(args.host)
+    if args.store:
+        return _restore_from_store(client, args)
     if not args.input_file:
-        raise CommandError("--input-file required")
+        raise CommandError("--input-file (or --store) required")
     if not args.frame:
-        raise CommandError("--frame required")
+        raise CommandError("--frame required (unless restoring --store)")
     with open(args.input_file, "rb") as r:
         client.restore_from(r, args.index, args.frame, args.view)
+    return 0
+
+
+def _backup_to_store(client, args) -> int:
+    """``backup --store URL``: the server's schema and every fragment
+    archive of the index into the store, in the tier's layout
+    (``schema.json``, ``fragments/<index>/<frame>/<view>/<slice>.tar``),
+    so that a node with only ``tier_store`` set cold-boots from it."""
+    from pilosa_tpu_torch.tier import fragment_store_key, open_store
+    from pilosa_tpu_torch.tier.manager import SCHEMA_KEY
+
+    store = open_store(args.store)
+    if store is None:
+        raise CommandError("--store must name a store location")
+    schema = client.schema()
+    store.put(SCHEMA_KEY, json.dumps({"indexes": schema}).encode())
+    frames = [args.frame] if args.frame else [
+        f["name"] for idx in schema if idx["name"] == args.index for f in idx.get("frames", [])
+    ]
+    n = 0
+    for frame in frames:
+        for view in [args.view] if args.view else client.frame_views(args.index, frame):
+            max_slices = client.max_slice_by_index(inverse=view.startswith("inverse"))
+            for slice_i in range(max_slices.get(args.index, 0) + 1):
+                payload = client.backup_slice(args.index, frame, view, slice_i)
+                if payload is None:
+                    continue
+                store.put(fragment_store_key(args.index, frame, view, slice_i), payload)
+                n += 1
+    print(f"backed up {n} fragment(s) to {store.url}", file=sys.stderr)
+    return 0
+
+
+def _restore_from_store(client, args) -> int:
+    """``restore --store URL``: post every matching fragment archive of
+    the store to the server, whose restore verifies the archive's
+    checksums before it installs anything."""
+    import io
+
+    from pilosa_tpu_torch.tier import open_store, parse_fragment_store_key
+    from pilosa_tpu_torch.tier.manager import FRAGMENT_PREFIX
+
+    store = open_store(args.store)
+    if store is None:
+        raise CommandError("--store must name a store location")
+    prefix = f"{FRAGMENT_PREFIX}{args.index}/"
+    if args.frame:
+        prefix += f"{args.frame}/"
+        if args.view:
+            prefix += f"{args.view}/"
+    n = 0
+    for meta in store.list(prefix):
+        parsed = parse_fragment_store_key(meta.key)
+        if parsed is None:
+            continue
+        index, frame, view, slice_i = parsed
+        client.restore_slice_from(index, frame, view, slice_i, io.BytesIO(store.get(meta.key)))
+        n += 1
+    if n == 0:
+        raise CommandError(f"store holds no fragments under {prefix!r}")
+    print(f"restored {n} fragment(s) from {store.url}", file=sys.stderr)
     return 0
 
 

@@ -97,6 +97,9 @@ class Node:
     def to_dict(self) -> dict:
         return {"host": self.host, "internalHost": self.internal_host}
 
+    def set_state(self, s: str) -> None:
+        self.state = s
+
 
 @dataclass
 class Transition:
@@ -130,6 +133,9 @@ class Cluster:
         self._routing_version = 0
         self._health_version = 0
         self._transition: Transition | None = None
+        # The membership backend (cluster/gossip.py's GossipNodeSet), set
+        # by the server; None for the static and http types.
+        self.node_set = None
 
     # --- versioned topology ---
 
@@ -278,11 +284,17 @@ class Cluster:
             return n
 
     def node_states(self) -> dict[str, str]:
-        """A static or http cluster has no failure detector: every
-        configured node counts as UP (reference: cluster.go:62-86)."""
+        """Node states from the membership backend: a node is UP while the
+        node set sees it (reference: cluster.go:149-173).  A static or
+        http cluster has no failure detector, and every configured node
+        counts as UP (reference: cluster.go:62-86)."""
+        if self.node_set is not None:
+            up = {n if isinstance(n, str) else n.host for n in self.node_set.nodes()}
+        else:
+            up = {n.host for n in self.nodes}
         out = {}
         for n in self.nodes:
-            n.state = NODE_STATE_UP
+            n.state = NODE_STATE_UP if n.host in up else NODE_STATE_DOWN
             out[n.host] = n.state
         return out
 
@@ -307,10 +319,11 @@ class Cluster:
         return self._health_version
 
     def note_degraded(self, host: str, degraded: bool) -> bool:
-        """Record a node's degraded flag (from its health manager's state
-        changes; the JAX package's gossip piggyback waits for
-        ``cluster/gossip.py``).  True when the flag flipped and the
-        health version bumped; an unknown host is ignored."""
+        """Record a node's degraded flag, from its own health manager's
+        state changes or from a gossip peer's piggybacked flag
+        (``cluster/gossip.py``'s ``on_peer_health``).  True when the flag
+        flipped and the health version bumped; an unknown host is
+        ignored."""
         node = self.node_by_host(host)
         if node is None or node.degraded == bool(degraded):
             return False

@@ -153,6 +153,14 @@ class FragmentError(RuntimeError):
     pass
 
 
+class FragmentRetiredError(FragmentError):
+    """A write reached a fragment that left service (demoted to the cold
+    tier, JAX ``core/fragment.py:216``).  Raised instead of changing the
+    orphaned plane: ``View.set_bit`` / ``clear_bit`` retry through the
+    view, which revives the fragment by hydration, and a second failure
+    propagates.  Bits are never dropped silently."""
+
+
 class ArchiveChecksumError(FragmentError):
     """A fragment tar whose payload does not match the checksum recorded
     in its "checksum" entry: restore rejects it before anything is
@@ -263,8 +271,10 @@ def _notify_close(frag) -> None:
 # fragment's lock.  ``exact`` is True where every bit reported changed
 # (the point writes).  The rebalancer's delta log and the replication
 # versions ride this hook; a WAL replay does not notify (the writes were
-# seen before the crash).  With none registered, a write pays one list
-# check.
+# seen before the crash).  Listeners register module-wide or on one
+# fragment (``Fragment.add_write_listener``, JAX ``:540``); a fragment's
+# own are dropped when it leaves service (close, retire).  With none
+# registered, a write pays two list checks.
 _write_listeners: list = []
 _write_listeners_mu = threading.Lock()
 
@@ -286,7 +296,7 @@ def unregister_write_listener(fn) -> None:
 def _notify_write(frag, set_rows, set_cols, clear_rows, clear_cols, exact=False) -> None:
     if frag._replaying:
         return
-    for fn in list(_write_listeners):
+    for fn in list(_write_listeners) + list(frag._frag_write_listeners):
         try:
             fn(frag, set_rows, set_cols, clear_rows, clear_cols, exact)
         except Exception:  # noqa: BLE001 — a listener must not fail a write
@@ -476,6 +486,10 @@ class Fragment:
         # replaced, evicted or uploaded again.
         self._version = 0
         self._mirror_gen = 0
+        # This fragment's own write listeners, and whether it left service
+        # for good (``retire``): then every write raises.
+        self._frag_write_listeners: list = []
+        self._retired = False
 
         self._mu = threading.RLock()
         self._plane = bp.empty_plane(bp.ROW_BLOCK)
@@ -688,8 +702,58 @@ class Fragment:
             # A fragment leaving service (shutdown, or a view, frame or
             # index deleted) invalidates the epoch-validated read caches.
             bump_write_epoch()
+            # Its own write listeners end with its service life.
+            self._frag_write_listeners.clear()
         # Outside the lock: listeners take their own locks.
         _notify_close(self)
+
+    def add_write_listener(self, fn) -> None:
+        """Register a write listener on this fragment only, with the
+        module-wide hook's signature; dropped when the fragment closes
+        or retires."""
+        with self._mu:
+            if fn not in self._frag_write_listeners:
+                self._frag_write_listeners.append(fn)
+
+    def remove_write_listener(self, fn) -> None:
+        with self._mu:
+            self._frag_write_listeners[:] = [f for f in self._frag_write_listeners if f != fn]
+
+    def write_listener_count(self) -> int:
+        with self._mu:
+            return len(self._frag_write_listeners)
+
+    def retire(self) -> None:
+        """Take the fragment out of service for good: later writes raise
+        ``FragmentRetiredError`` (the view retries them through
+        hydration), then close.  The tier's demotion retires only after
+        the upload was verified (JAX ``core/fragment.py:594``)."""
+        self.mark_retired()
+        self.close()
+
+    def mark_retired(self) -> None:
+        with self._mu:
+            self._retired = True
+            self._frag_write_listeners.clear()
+
+    def mark_retired_if_version(self, version: int) -> bool:
+        """Retire only if no write landed since ``version`` was read: the
+        optimistic token of the tier's demotion.  When it succeeds the
+        uploaded archive is current; a racing write either moved the
+        version first (the demotion aborts) or comes after and raises."""
+        with self._mu:
+            if self._version != version:
+                return False
+            self._retired = True
+            self._frag_write_listeners.clear()
+            return True
+
+    def _check_writable_locked(self) -> None:
+        if self._retired:
+            raise FragmentRetiredError(
+                f"fragment {self.index}/{self.frame}/{self.view}/{self.slice} is retired "
+                "(demoted); re-resolve it through the view"
+            )
 
     @property
     def cache_path(self) -> str:
@@ -1167,6 +1231,7 @@ class Fragment:
 
     def clear_bit(self, row_id: int, column_id: int) -> bool:
         with self._mu:
+            self._check_writable_locked()
             if not self._has_row_locked(row_id):
                 self.pos(row_id, column_id)
                 return False
@@ -1174,6 +1239,7 @@ class Fragment:
 
     def _point_write(self, row_id: int, column_id: int, typ: int) -> bool:
         with self._mu:
+            self._check_writable_locked()
             pos = self.pos(row_id, column_id)
             offset = pos % SLICE_WIDTH
             slot = self._ensure_slot(row_id)
@@ -1201,7 +1267,7 @@ class Fragment:
                 self._maybe_promote(row_id)
             else:
                 self.stats.count("clearBit")  # reference: fragment.go:470
-            if _write_listeners:
+            if _write_listeners or self._frag_write_listeners:
                 if add:
                     _notify_write(self, (row_id,), (column_id,), (), (), exact=True)
                 else:
@@ -1294,6 +1360,7 @@ class Fragment:
         if len(row_ids) == 0 and len(clear_row_ids) == 0:
             return
         with self._mu:
+            self._check_writable_locked()
             rows = np.asarray(row_ids, dtype=np.int64)
             cols = np.asarray(column_ids, dtype=np.int64)
             min_col = self.slice * SLICE_WIDTH
@@ -1366,7 +1433,7 @@ class Fragment:
             for r in slot_of:
                 self._maybe_promote(r)
             self.stats.count("ImportBit", len(row_ids))  # reference: fragment.go:969
-            if _write_listeners:
+            if _write_listeners or self._frag_write_listeners:
                 _notify_write(self, row_ids, column_ids, clear_row_ids, clear_column_ids)
             self.snapshot()
 

@@ -51,6 +51,7 @@ class Holder:
         # ``holder.py:34-39``): index:<n>, frame:<n>, view:<n>, slice:<n>.
         # The server sets its client here before open().
         self.stats = NopStatsClient()
+        self.staging_order: list[str] = []  # set by stage_device_mirrors
 
     # --- lifecycle ---
 
@@ -204,6 +205,29 @@ class Holder:
             warmed += 1
         return warmed
 
+    def hot_slices(self, limit: int = 32) -> dict[str, list[int]]:
+        """This node's hottest resident slices, ``{index: [slice, ...]}``:
+        the most recently used end of the pool's mirror entries (JAX
+        ``core/holder.py:209``).  Gossip carries them to peers
+        (``cluster/gossip.py``'s ``hot_provider``), and a restarting peer
+        stages those slices first."""
+        out: dict[str, dict[int, None]] = {}
+        n = 0
+        for row in reversed(device_mod.pool().snapshot()["fragments"]):  # MRU first
+            if row.get("kind") != "mirror" or "fragment" not in row:
+                continue
+            index = str(row["fragment"]).split("/", 1)[0]
+            s = row.get("slice")
+            if not isinstance(s, int) or self.index(index) is None:
+                continue
+            d = out.setdefault(index, {})
+            if s not in d:
+                d[s] = None
+                n += 1
+                if n >= limit:
+                    break
+        return {idx: list(d) for idx, d in out.items()}
+
     def _residency_path(self) -> str:
         return os.path.join(self.path, ".residency.json")
 
@@ -240,24 +264,42 @@ class Holder:
         except (OSError, ValueError):
             return []
 
-    def stage_device_mirrors(self, prefetcher, budget_bytes: int | None = None, tracer=None):
+    def stage_device_mirrors(
+        self,
+        prefetcher,
+        hot_slices: dict[str, list[int]] | None = None,
+        budget_bytes: int | None = None,
+        tracer=None,
+    ):
         """Stage fragment mirrors in the BACKGROUND and return the
         prefetcher's ``StageJob`` at once: the node serves meanwhile, and
-        a query's own prefetch jumps this backlog.  Order: the previous
-        run's residency table, most recently used first, then every
-        other fragment that fits the budget, largest planes first.  (The
-        JAX package puts the slices its gossip peers report hot first;
-        the port has no gossip.)  With a ``tracer``, a root ``staging``
-        trace spans the whole drain and is finalized, with the job's
-        outcome, when it completes (JAX ``holder.py:319``)."""
+        a query's own prefetch jumps this backlog.  Order (JAX
+        ``core/holder.py:274-320``): the fragments of ``hot_slices``
+        (``{index: [slice, ...]}``, what gossip peers report they are
+        being asked about, in their order), then the previous run's
+        residency table, most recently used first, then every other
+        fragment that fits the budget, largest planes first.  With a
+        ``tracer``, a root ``staging`` trace spans the whole drain and is
+        finalized, with the job's outcome, when it completes."""
         frags = self._budgeted_fragments(budget_bytes)
         by_key = {self.fragment_key(f): f for f in frags}
         prev = [k for k in reversed(self.load_residency()) if k in by_key]
-        ordered = [by_key[k] for k in dict.fromkeys(prev + list(by_key))]
+        hot_keys: list[str] = []
+        for index, slices in (hot_slices or {}).items():
+            by_slice: dict[int, list[str]] = {}
+            for k, f in by_key.items():
+                if f.index == index:
+                    by_slice.setdefault(f.slice, []).append(k)
+            for s in slices:
+                hot_keys += by_slice.get(s, [])
+        order = list(dict.fromkeys(hot_keys + prev + list(by_key)))
+        self.staging_order = order  # which fragments a restart staged first
+        ordered = [by_key[k] for k in order]
         job = prefetcher.stage(ordered)
         if tracer is not None:
             root = tracer.start_trace(
-                "staging", fragments=len(ordered), hot=0, from_residency_table=len(prev)
+                "staging", fragments=len(ordered), hot=len(hot_keys),
+                from_residency_table=len(prev)
             )
 
             def _finish():

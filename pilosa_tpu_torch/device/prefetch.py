@@ -19,10 +19,13 @@ mirror with queued writes is not cold: its queue is applied by the read
 site's batched delta-scatter launch (``fragment.apply_pending_many``),
 never one launch per fragment from a worker.
 
-Two priority lanes share the workers (the JAX package's hydrate lane
-belongs to its cold tier, which the port does not have yet):
+Three priority lanes share the workers:
 
 * **query lane** (:meth:`prefetch`) — the per-query warm; always first.
+* **hydrate lane** (:meth:`run_hydration`) — the cold tier's hydrations
+  (``pilosa_tpu_torch/tier``): the store fetch and archive restore run
+  here, so the worker pool bounds how many run at once, and query-lane
+  warms still go first (JAX ``device/prefetch.py:176-240``).
 * **staging lane** (:meth:`stage`) — re-uploading the residency set
   after a restart (``core/holder.stage_device_mirrors``); a restarted
   node answers while it drains, and a query's prefetch jumps it.
@@ -84,8 +87,10 @@ class Prefetcher:
     def __init__(self, pool=None, max_workers: int = DEFAULT_WORKERS):
         self._pool = pool
         self._max_workers = max_workers
-        # Query prefetches (high) always pop before staging (low).
+        # Query prefetches (high) always pop before hydrations (mid),
+        # which pop before staging (low).
         self._high: deque = deque()
+        self._mid: deque = deque()
         self._low: deque = deque()
         self._cv = threading.Condition(threading.Lock())
         self._threads: list[threading.Thread] = []
@@ -126,7 +131,7 @@ class Prefetcher:
         remaining = [len(cold)]
         rlock = threading.Lock()
         for f in cold:
-            self._submit(("prefetch", f, pool, remaining, rlock, done), low=False)
+            self._submit(("prefetch", f, pool, remaining, rlock, done), "high")
         if wait:
             done.wait()
         return len(cold)
@@ -141,15 +146,27 @@ class Prefetcher:
         if cold:
             pool.count_stage(scheduled=len(cold))
             for f in cold:
-                self._submit(("stage", f, pool, job), low=True)
+                self._submit(("stage", f, pool, job), "low")
         return job
+
+    def run_hydration(self, fn):
+        """Run ``fn()`` on the hydrate lane and block for its result (or
+        raise its exception): the caller's query waits, since the
+        hydration is its critical path."""
+        done = threading.Event()
+        box: dict = {}
+        self._submit(("hydrate", fn, box, done), "mid")
+        done.wait()
+        if "exc" in box:
+            raise box["exc"]
+        return box.get("result")
 
     def wait_idle(self, timeout: float | None = None) -> bool:
         """Block until both lanes are empty and no worker is uploading;
         False when ``timeout`` passed first."""
         end = None if timeout is None else time.monotonic() + timeout
         with self._cv:
-            while self._high or self._low or self._busy:
+            while self._high or self._mid or self._low or self._busy:
                 left = None if end is None else end - time.monotonic()
                 if left is not None and left <= 0:
                     return False
@@ -158,9 +175,9 @@ class Prefetcher:
 
     # ------------------------------------------------------------------
 
-    def _submit(self, item: tuple, low: bool) -> None:
+    def _submit(self, item: tuple, lane: str) -> None:
         with self._cv:
-            (self._low if low else self._high).append(item)
+            {"high": self._high, "mid": self._mid, "low": self._low}[lane].append(item)
             if self._idle == 0 and len(self._threads) < self._max_workers:
                 t = threading.Thread(target=self._worker, daemon=True, name="hbm-prefetch")
                 self._threads.append(t)
@@ -171,11 +188,11 @@ class Prefetcher:
     def _take(self) -> tuple:
         with self._cv:
             self._idle += 1
-            while not self._high and not self._low:
+            while not self._high and not self._mid and not self._low:
                 self._cv.wait()
             self._idle -= 1
             self._busy += 1
-            return (self._high or self._low).popleft()
+            return (self._high or self._mid or self._low).popleft()
 
     def _worker(self) -> None:
         while True:
@@ -183,11 +200,13 @@ class Prefetcher:
             try:
                 if item[0] == "prefetch":
                     self._run_prefetch(*item[1:])
+                elif item[0] == "hydrate":
+                    self._run_hydrate(*item[1:])
                 else:
                     self._run_stage(*item[1:])
             finally:
                 with self._cv:
-                    last = self._busy == 1 and not self._high and not self._low
+                    last = self._busy == 1 and not self._high and not self._mid and not self._low
                 if last:
                     # No upload of ours is in flight: owners the uploads
                     # kept busy can be evicted back to the budget.
@@ -195,6 +214,15 @@ class Prefetcher:
                 with self._cv:
                     self._busy -= 1
                     self._cv.notify_all()
+
+    @staticmethod
+    def _run_hydrate(fn, box: dict, done: threading.Event) -> None:
+        try:
+            box["result"] = fn()
+        except BaseException as e:  # noqa: BLE001 — relayed to the caller
+            box["exc"] = e
+        finally:
+            done.set()
 
     def _run_prefetch(self, frag, pool, remaining, rlock, done) -> None:
         try:

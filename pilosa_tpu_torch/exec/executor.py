@@ -1149,6 +1149,46 @@ class Executor:
             launch, retry_fn=functools.partial(launch, retry=True),
             host_fn=lambda: self.hosteval.count_total(index, c, self._host_slices(got, slices)))
 
+    def count_slices(self, index: str, c: Call, slices: list[int]) -> dict[int, int]:
+        """``{slice: Count(c)}`` over local ``slices``, 0 where no leaf row
+        exists: K2's "count" reduce (int32 ``[S]``) over a batch built for
+        this call and not cached (the standing-query engine asks for a
+        different slice list at every notify batch), one direct launch a
+        member, under the health gate like every Count — a quarantined
+        card has the host evaluator answer.  The subscribe engine's slice
+        and full evaluations read it."""
+        child = self._rewrite_bsi(index, c)
+        expr, leaves = plan.decompose(child)
+        out = dict.fromkeys(slices, 0)
+        if not slices or not leaves:
+            return out
+        got: list = []
+
+        def launch(mode: str, retry: bool = False):
+            if not got:
+                got.append(self._cached_batch(index, child, expr, leaves, slices, cache=False))
+            ent, table = got[0]
+            if table is None:
+                return _NoLaunch(out)
+            with device_mod.pool().pinned(*ent.pin_keys), self._device_span("count"):
+                self._fault_check_launch("direct")
+                t0 = time.monotonic()
+                if isinstance(ent, _MeshEntry):
+                    parts = [self._direct_eval(pe, t, "count") for _m, pe, t in ent.live()]
+                    t_disp = time.monotonic()
+                    flat = np.concatenate([p.cpu().numpy() for p in parts])
+                    counts = [flat[ent.pos_of[s]] for s in ent.kept]
+                else:
+                    res = self._direct_eval(ent, table, "count")
+                    t_disp = time.monotonic()
+                    counts = res.cpu().numpy()
+                self._record_direct_launch(table, "count", t0, t_disp, time.monotonic())
+            return {**out, **{s: int(n) for s, n in zip(ent.kept, counts)}}
+
+        return self._launch_guarded(
+            launch, retry_fn=functools.partial(launch, retry=True),
+            host_fn=lambda: {**out, **self.hosteval.counts(index, c, self._host_slices(got, slices))})
+
     def _eval_tree_slices(self, index: str, c: Call, expr: tuple, leaves: list[Call],
                           slices: list[int]):
         """``(kept, rows)``: a bitmap tree's result rows over the local
@@ -1464,13 +1504,16 @@ class Executor:
             self._batch_mu.release()
 
     def _cached_batch(self, index: str, c: Call, expr: tuple, leaves: list[Call],
-                      slices: list[int]) -> tuple[_BatchEntry, RowTable | None]:
+                      slices: list[int], cache: bool = True
+                      ) -> tuple[_BatchEntry, RowTable | None]:
         """The tree's batch over ``slices`` and a table of it holding its
         rows (None when no slice has a leaf row), cached across queries
         per (index, call, slice list).  A hit costs O(1) while no
         fragment changed and no mirror moved anywhere; otherwise every
         fragment's (serial, version, mirror generation) must still be the
         entry's.  A build applies every queued write first (one K7).
+        With ``cache`` False the batch is built for this call alone and
+        neither read from nor kept in the cache.
 
         On a mesh (more than one member in ``bitplane.placement`` of the
         holder's device) the batch is a :class:`_MeshEntry` and its table
@@ -1482,22 +1525,26 @@ class Executor:
         with self.tracer.span("plan", slices=len(slices)) as sp:
             if len(members) < 2:
                 return self._cached_batch_lookup(index, c, expr, leaves, slices, sp,
-                                                 (0, 1, members[0]))
+                                                 (0, 1, members[0]), cache)
             sp.annotate(members=len(members))
             n = len(members)
             parts = []
             for m, group in bp.group_by_member(slices, n).items():
                 ent, table = self._cached_batch_lookup(index, c, expr, leaves, group, sp,
-                                                       (m, n, members[m]))
+                                                       (m, n, members[m]), cache)
                 parts.append((m, ent, table))
             ent = _MeshEntry.of(expr, parts)
             return ent, ent.table()
 
-    def _cached_batch_lookup(self, index, c, expr, leaves, slices, sp, member: tuple):
+    def _cached_batch_lookup(self, index, c, expr, leaves, slices, sp, member: tuple,
+                             cache: bool = True):
         """One member's entry (``member`` = (index, members, device)) over
         the slices homed there: the whole batch on one device."""
         device = member[2]
         key = (index, str(c), tuple(slices), (member[0], member[1], str(device)))
+        if not cache:
+            sp.annotate(batch_cache="off")
+            return self._cached_batch_build(index, key, expr, leaves, slices, device)
         with self._batch_mu:
             ent = self._batch_cache.get(key)
         if ent is not None:

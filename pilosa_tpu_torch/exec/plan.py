@@ -153,6 +153,25 @@ def decompose(call: Call) -> tuple[tuple, list[Call]]:
     return rec(call), leaves
 
 
+
+def collect_leaf_calls(call: Call) -> list[Call]:
+    """Every Bitmap/Range (and BSI plane) leaf under ``call``, crossing
+    calls that are not bitmap operations (a Count's child, a TopN's src
+    tree) — JAX ``exec/plan.py:91``.  Unlike :func:`decompose` it never
+    raises on an unknown call: it only names the leaves (the standing
+    queries' write index), so it recurses into anything else."""
+    out: list[Call] = []
+
+    def rec(c: Call) -> None:
+        if c.name in LEAF_CALLS:
+            out.append(c)
+            return
+        for ch in c.children:
+            rec(ch)
+
+    rec(call)
+    return out
+
 def canonicalize_call(c: Call) -> Call:
     """Reorder the children of commutative fold calls (Intersect/Union/
     Xor) into a canonical order, bottom up, so semantically identical

@@ -742,6 +742,18 @@ class InternalClient:
                 _drop(pending)
         tr.close()
 
+    def tier_restore(self, index: str, frame: str, view: str, slice_i: int) -> int:
+        """Ask the node to restore one fragment from its own object store
+        (the copy of a resize through a shared store, JAX
+        ``net/client.py:866``).  Returns the bytes restored; a node with
+        no tier answers 501 (``ClientError``), and the caller streams the
+        fragment instead."""
+        payload = json.dumps(
+            {"index": index, "frame": frame, "view": view, "slice": int(slice_i)}
+        ).encode()
+        status, data = self._request("POST", "/tier/restore", body=payload)
+        return int(json.loads(self._check(status, data)).get("bytes", 0))
+
     def restore_frame(self, host: str, index: str, frame: str) -> None:
         """Ask the node to pull a frame from ``host`` (reference:
         client.go:704-738)."""

@@ -5,7 +5,7 @@ port covers, with the same paths, status codes and response bodies
 (reference: handler.go):
 
     GET    /version, /status, /schema, /index, /hosts, /slices/max
-    GET    /state (404 until gossip is ported, as on a JAX node without it)
+    GET    /state (the node's NodeStatus protobuf, gossip's stream fallback)
     GET    /index/<i>          POST /index/<i>          DELETE /index/<i>
     POST   /index/<i>/query    PATCH /index/<i>/time-quantum
     POST   /index/<i>/attr/diff
@@ -18,6 +18,10 @@ port covers, with the same paths, status codes and response bodies
     GET    /fragment/nodes     GET /fragment/data       POST /fragment/data
     GET    /fragment/blocks    POST /fragment/import-view
     GET    /fragment/block/data
+    POST   /tier/restore       GET /debug/tier
+    POST   /subscribe          GET /subscribe/<sid>/stream
+    GET    /subscribe/<sid>/poll                        DELETE /subscribe/<sid>
+    GET    /debug/subscriptions
     GET    /debug/hbm          GET /debug/ingest        GET /debug/health
     GET    /metrics            GET /debug/vars          GET /debug/perf
     GET    /debug/traces       GET /debug/stacks        GET /debug/profile
@@ -80,9 +84,22 @@ cluster's node states and the card's breaker (``device``: each path's
 state, the watchdog's trips, the knobs; JAX ``handler.py:1860``), whose
 gauges ``/metrics`` renders at scrape time.  ``/metrics`` leaves out the
 JAX node's ``exec.programCache.*`` gauges (XLA jit caches: the port
-builds each kernel once) and its admission and subscription gauges
-(those modules are not ported); ``/debug/health`` has no
-``admission`` key yet, for the same reason.
+builds each kernel once) and its admission gauges (``net/admission.py``
+waits for the port of the configuration and admission slice);
+``/debug/health`` has no ``admission`` key yet, for the same reason.
+The standing queries' ``exec.subscribe.*`` families render as on a JAX
+node, with the scrape-time ``exec.subscribe.active`` and
+``exec.subscribe.pendingBits`` gauges.
+
+Standing queries (JAX ``handler.py:1702-1811``): ``POST /subscribe``
+registers ``{"index", "query"}`` and answers 201 with the registration
+snapshot (version 1); ``/subscribe/<sid>/stream`` is SSE (``id:`` the
+version, ``?after=`` resumes), ``/poll`` a long-poll (``?after=``,
+``?timeout_ms=``; 410 once unsubscribed).  The registration takes no
+admission slot: the admission lane waits for ``net/admission.py``.
+The cold tier (JAX ``handler.py:1528-1572``): ``POST /tier/restore``
+restores one fragment from the node's object store (501 without a
+tier), and ``GET /debug/tier`` shows the tier manager's snapshot.
 
 Replica agreement (JAX ``handler.py:303-327, 842-960, 1436-1700,
 1821-1872``): a query runs under its deadline (``X-Deadline-Ms``, else
@@ -134,15 +151,17 @@ from pilosa_tpu_torch.core.fragment import ArchiveChecksumError
 from pilosa_tpu_torch.core.timequantum import parse_time_quantum
 from pilosa_tpu_torch.core.view import is_inverse_view
 from pilosa_tpu_torch.exec import plan as plan_mod
-from pilosa_tpu_torch.exec.executor import ExecOptions, TooManyWritesError
+from pilosa_tpu_torch.exec.executor import ExecOptions, ExecutorError, TooManyWritesError
 from pilosa_tpu_torch.ingest import scatter
 from pilosa_tpu_torch.net import codec, wire
 from pilosa_tpu_torch.net import resilience as rz
 from pilosa_tpu_torch.obs import perf as perf_mod
 from pilosa_tpu_torch.obs import prom, trace
 from pilosa_tpu_torch.ops import bitplane as bp
-from pilosa_tpu_torch.pql.parser import parse_string
+from pilosa_tpu_torch.pql.parser import ParseError, parse_string
 from pilosa_tpu_torch.replicate import quorum as replicate_mod
+from pilosa_tpu_torch.subscribe import registry as subscribe_reg
+from pilosa_tpu_torch.subscribe import sse as sse_mod
 from pilosa_tpu_torch.testing import faults
 
 PROTOBUF = "application/x-protobuf"
@@ -153,7 +172,6 @@ JSON = "application/json"
 METRICS_LEFT_OUT = {
     "pilosa_exec_programCache_": "XLA jit caches; the port builds each kernel once",
     "pilosa_net_admission_": "admission control is not ported",
-    "pilosa_exec_subscribe_": "standing queries are not ported",
     "pilosa_tenant_": "tenant QoS is not ported",
     "pilosa_exec_pool_": "map legs run on the standard library's thread pool",
 }
@@ -280,6 +298,12 @@ class Handler:
         self.resilience = None
         self.replication = None
         self.rebalance = None
+        # The node's cold tier, standing-query manager and NodeStatus
+        # provider (wired by the server); None answers as a JAX node
+        # without them.
+        self.tier = None
+        self.subscribe = None
+        self.state_provider = None
         routes: list[tuple[str, str, Callable]] = [
             ("GET", r"/schema", self.handle_get_schema),
             ("GET", r"/status", self.handle_get_status),
@@ -325,10 +349,17 @@ class Handler:
             ("POST", r"/cluster/topology", self.handle_post_topology),
             ("POST", r"/rebalance/delta", self.handle_post_rebalance_delta),
             ("POST", r"/rebalance/release", self.handle_post_rebalance_release),
+            ("POST", r"/tier/restore", self.handle_post_tier_restore),
             ("POST", r"/replicate/versions", self.handle_post_replicate_versions),
             ("POST", r"/replicate/hint", self.handle_post_replicate_hint),
             ("POST", r"/replicate/replay", self.handle_post_replicate_replay),
+            ("POST", r"/subscribe", self.handle_post_subscribe),
+            ("GET", r"/subscribe/(?P<sid>[^/]+)/stream", self.handle_get_subscribe_stream),
+            ("GET", r"/subscribe/(?P<sid>[^/]+)/poll", self.handle_get_subscribe_poll),
+            ("DELETE", r"/subscribe/(?P<sid>[^/]+)", self.handle_delete_subscribe),
+            ("GET", r"/debug/subscriptions", self.handle_get_subscriptions),
             ("GET", r"/debug/replication", self.handle_get_replication),
+            ("GET", r"/debug/tier", self.handle_get_tier),
             ("GET", r"/debug/rebalance", self.handle_get_rebalance),
             ("GET", r"/debug/hbm", self.handle_get_hbm),
             ("GET", r"/debug/ingest", self.handle_get_ingest),
@@ -400,10 +431,12 @@ class Handler:
         return Response.json({"status": {"Nodes": nodes}})
 
     def handle_get_state(self, req: Request) -> Response:
-        """The node's serialized state, which the gossip transport's
-        stream fallback pulls; gossip is not ported, so the route answers
-        as a JAX node without a state provider."""
-        return Response.error("state provider not configured", 404)
+        """The node's serialized state (a NodeStatus protobuf), which the
+        gossip transport's stream fallback pulls when UDP chunking stalls
+        or the blob is large (JAX ``handler.py:465``)."""
+        if self.state_provider is None:
+            return Response.error("state provider not configured", 404)
+        return Response(body=self.state_provider(), content_type=PROTOBUF)
 
     def handle_get_hosts(self, req: Request) -> Response:
         return Response.json([n.to_dict() for n in self.cluster.nodes])
@@ -477,6 +510,13 @@ class Handler:
             # path, device.health.degraded, device.watchdogTrips).
             try:
                 snap.setdefault("gauges", {}).update(dh.gauges())
+            except Exception:  # noqa: BLE001 — stats must not fail the scrape
+                pass
+        if self.subscribe is not None:
+            # Scrape-time standing-query gauges (active subscriptions,
+            # pending delta bits).
+            try:
+                snap.setdefault("gauges", {}).update(self.subscribe.gauges())
             except Exception:  # noqa: BLE001 — stats must not fail the scrape
                 pass
         try:
@@ -857,6 +897,131 @@ class Handler:
         if self.replication is None:
             return Response.json({"hints": {}, "note": "replication not configured"})
         return Response.json(self.replication.snapshot())
+
+    # --- the cold tier (JAX handler.py:1528-1572) ---
+
+    def handle_post_tier_restore(self, req: Request) -> Response:
+        """The target side of a resize's copy through the store: restore
+        one fragment from this node's object store instead of a peer's
+        stream, and stage its mirror.  501 without a tier, so that the
+        source streams instead."""
+        if self.tier is None:
+            return Response.error("tier not configured", 501)
+        try:
+            payload = json.loads(req.body or b"{}")
+            index = str(payload.get("index", ""))
+            frame = str(payload.get("frame", ""))
+            view = str(payload.get("view", ""))
+            slice_i = int(payload.get("slice", 0))
+            nbytes = self.tier.restore_from_store(index, frame, view, slice_i)
+            if self.prefetcher is not None:
+                frag = self.holder.fragment(index, frame, view, slice_i)
+                if frag is not None:
+                    self.prefetcher.stage([frag])
+            return Response.json({"bytes": nbytes})
+        except Exception as e:  # noqa: BLE001 — peer boundary
+            return Response.error(str(e), 409)
+
+    def handle_get_tier(self, req: Request) -> Response:
+        """Per-fragment tier states with their transition history, counts
+        by state, local bytes against the budget, the retention settings
+        and the store client's health."""
+        if self.tier is None:
+            return Response.json({"fragments": {}, "note": "tier not configured"})
+        return Response.json(self.tier.snapshot())
+
+    # --- standing queries (JAX handler.py:1702-1811) ---
+
+    def handle_post_subscribe(self, req: Request) -> Response:
+        """Register a standing query from JSON ``{"index": ..., "query":
+        "Subscribe(Count(...))"}``; answers 201 with the subscription's id
+        and its registration snapshot (version 1), from which a client
+        streams or long-polls."""
+        if self.subscribe is None:
+            return Response.error("subscribe not configured", 501)
+        try:
+            payload = json.loads(req.body or b"{}")
+        except ValueError as e:
+            return Response.error(f"bad request body: {e}", 400)
+        if not isinstance(payload, dict):
+            return Response.error("bad request body: expected object", 400)
+        index = payload.get("index") or req.query.get("index", "")
+        query = payload.get("query", "")
+        if not index or not query:
+            return Response.error("index and query required", 400)
+        try:
+            sub = self.subscribe.register(index, query)
+        except (subscribe_reg.SubscribeError, ParseError, plan_mod.PlanError, ExecutorError) as e:
+            # The registration compiles and evaluates the query, so the
+            # executor's rejections are the client's errors here.
+            return Response.error(str(e), 400)
+        return Response.json(
+            {
+                "id": sub.id,
+                "index": sub.index,
+                "kind": sub.kind,
+                "version": sub.version,
+                "epoch": sub.epoch,
+                "value": sub.value_json,
+            },
+            status=201,
+        )
+
+    def _subscription_for(self, sid: str):
+        if self.subscribe is None:
+            return None, Response.error("subscribe not configured", 501)
+        sub = self.subscribe.get(sid)
+        if sub is None:
+            return None, Response.error(f"no such subscription: {sid}", 404)
+        return sub, None
+
+    def handle_get_subscribe_stream(self, req: Request, sid: str) -> Response:
+        """SSE: every retained update newer than ``?after=`` (version
+        order, at least once), then live updates as the notifier
+        publishes them, with keepalive comments while idle."""
+        sub, err = self._subscription_for(sid)
+        if err is not None:
+            return err
+        try:
+            after = int(req.query.get("after", "0"))
+        except ValueError:
+            return Response.error("invalid after", 400)
+        gen = sse_mod.event_stream(self.subscribe, sub, after)
+        return Response(body_iter=sse_mod.EventBody(gen), content_type=sse_mod.CONTENT_TYPE)
+
+    def handle_get_subscribe_poll(self, req: Request, sid: str) -> Response:
+        """Long-poll: wait until the subscription moves past ``?after=``
+        or ``?timeout_ms=`` (at most 120 s) passes; a timeout answers 200
+        with ``"timeout": true``, an unsubscribe mid-wait 410."""
+        sub, err = self._subscription_for(sid)
+        if err is not None:
+            return err
+        try:
+            after = int(req.query.get("after", "0"))
+            timeout_ms = float(req.query.get("timeout_ms", "30000"))
+        except ValueError:
+            return Response.error("invalid after/timeout_ms", 400)
+        timeout_ms = max(0.0, min(timeout_ms, 120_000.0))
+        upd = self.subscribe.wait_update(sub, after, timeout=timeout_ms / 1000.0)
+        if upd is None:
+            if sub.closed:
+                return Response.error("subscription closed", 410)
+            return Response.json({"id": sub.id, "version": after, "timeout": True})
+        return Response.json(upd)
+
+    def handle_delete_subscribe(self, req: Request, sid: str) -> Response:
+        if self.subscribe is None:
+            return Response.error("subscribe not configured", 501)
+        if not self.subscribe.unregister(sid):
+            return Response.error(f"no such subscription: {sid}", 404)
+        return Response.json({"unsubscribed": sid})
+
+    def handle_get_subscriptions(self, req: Request) -> Response:
+        """Registry size, pending deltas, notification lag percentiles,
+        lifetime counters and the first page of subscriptions."""
+        if self.subscribe is None:
+            return Response.json({"count": 0, "note": "subscribe not configured"})
+        return Response.json(self.subscribe.snapshot())
 
     def handle_get_rebalance(self, req: Request) -> Response:
         """The topology epoch and transition, the coordinator's per-slice

@@ -9,10 +9,19 @@ device mirror on ``device`` — the CUDA card unless the caller passes
 The cluster settings are those of the JAX package's ``[cluster]``
 section (``pilosa_tpu/cli/ctl.py:45-100``):
 
-* ``cluster_type`` ``"static"`` (a fixed node list, no messages) or
+* ``cluster_type`` ``"static"`` (a fixed node list, no messages),
   ``"http"`` (schema changes and new max slices are POSTed to every
-  peer's internal listener, bound at ``internal_port``); ``"gossip"``
-  is not ported yet and raises;
+  peer's internal listener, bound at ``internal_port``) or ``"gossip"``
+  (``cluster/gossip.py``: a UDP membership that is the node set, the
+  broadcaster and the receiver, as JAX ``cli/ctl.py:83-96`` builds it;
+  ``gossip_seed`` a member's gossip address to join through,
+  ``gossip_bind`` the UDP listener (default all interfaces on the HTTP
+  port + 1000), ``gossip_interval`` / ``gossip_suspect_after`` its
+  timers and ``gossip_ack_timeout_ms`` / ``gossip_stream_timeout_ms``
+  the JAX ``[gossip]`` keys).  Gossip carries the node's schema (its
+  ``local_status``, also served at ``GET /state``), its hot slices, which
+  a restarting peer stages first, and its card's degraded flag; hosts it
+  announces outside the ring are the rebalancer's join candidates;
 * ``hosts``, the nodes' HTTP addresses, and ``internal_hosts``, their
   internal listeners (by default each host's name with
   ``internal_port``);
@@ -114,15 +123,35 @@ Replica agreement, with the JAX package's names and defaults
 * ``rebalance_throttle_mbps``, ``rebalance_verify_rounds``,
   ``rebalance_delta_cap`` and ``rebalance_release_delay_ms`` — the live
   resize (``rebalance/``, ``POST /cluster/resize``);
-  ``rebalance_on_join`` is kept for the JAX configuration's sake and
-  waits for ``cluster/gossip.py``, which announces joining hosts;
+  ``rebalance_on_join`` admits the hosts gossip announces by a resize;
 * ``anti_entropy_interval`` — seconds between anti-entropy sweeps
   (``sync/syncer.py``): slices whose replica versions agree are skipped,
   and every ``FULL_SYNC_EVERY``-th sweep walks every block
   (``tick_anti_entropy``).
 
-``tier_store`` (the JAX node's shared object store) waits for
-``tier/*`` and raises, as ``cluster_type="gossip"`` does.
+The cold tier, with the JAX package's names and defaults
+(``pilosa_tpu/net/server.py:95-100``, ``[tier]``): ``tier_store`` is the
+shared object store (``http://host:port``, ``file:///path`` or a path;
+"" for none); at open the node restores the schema from it and registers
+every stored fragment it lacks as cold, hydrated at its first touch
+(``tier/manager.py``), at most ``tier_hydrate_throttle_mbps``; every
+``tier_sweep_interval_s`` a sweep ages time views past
+``tier_retention_age_s`` to the store, deletes those past
+``tier_retention_delete_s`` and demotes the least recently used
+fragments past ``tier_disk_budget_bytes`` (0: no budget).
+
+Standing queries, with the JAX package's names and defaults
+(``pilosa_tpu/net/server.py:101-106``, ``[subscribe]``):
+``subscribe_enabled``, ``subscribe_max_subscriptions``,
+``subscribe_queue_cap`` (updates kept per subscription),
+``subscribe_delta_cap`` (bits per slice between notifications before a
+full re-run), ``subscribe_coalesce_ms`` and ``subscribe_refresh_ms``
+(``subscribe/engine.py``).
+
+The ``[tier]``, ``[gossip]`` and ``[subscribe]`` sections of the JAX
+configuration file, the subscribe admission lane and ``/debug/health``'s
+``admission`` key wait for the port of ``config.py`` and
+``net/admission.py``.
 
 The node registers itself in the cluster on open, unless a ring is
 configured without it: then it is a joining node, which gets slices only
@@ -137,6 +166,7 @@ from __future__ import annotations
 
 import sys
 import threading
+import time
 
 import torch
 
@@ -163,7 +193,7 @@ from pilosa_tpu_torch.replicate import Replication
 from pilosa_tpu_torch.sync.syncer import HolderSyncer
 from pilosa_tpu_torch.testing import faults
 
-CLUSTER_TYPES = ("static", "http")
+CLUSTER_TYPES = ("static", "http", "gossip")
 # reference: server.go / config.go defaults
 DEFAULT_POLLING_INTERVAL = 60.0
 DEFAULT_ANTI_ENTROPY_INTERVAL = 600.0
@@ -174,6 +204,34 @@ REMOTE_TIMEOUT_S = 60.0
 
 def _log(msg: str) -> None:
     print(msg, file=sys.stderr)
+
+
+def _index_options(meta) -> dict:
+    """An ``IndexMeta``'s set fields as ``create_index`` options."""
+    meta = meta or wire.IndexMeta()
+    opts = {}
+    if meta.ColumnLabel:
+        opts["column_label"] = meta.ColumnLabel
+    if meta.TimeQuantum:
+        opts["time_quantum"] = meta.TimeQuantum
+    return opts
+
+
+def _frame_options(meta) -> dict:
+    """A ``FrameMeta``'s set fields as ``create_frame`` options."""
+    meta = meta or wire.FrameMeta()
+    opts = {}
+    if meta.RowLabel:
+        opts["row_label"] = meta.RowLabel
+    if meta.InverseEnabled:
+        opts["inverse_enabled"] = True
+    if meta.CacheType:
+        opts["cache_type"] = meta.CacheType
+    if meta.CacheSize:
+        opts["cache_size"] = meta.CacheSize
+    if meta.TimeQuantum:
+        opts["time_quantum"] = meta.TimeQuantum
+    return opts
 
 
 class Server:
@@ -232,11 +290,24 @@ class Server:
         hint_cap: int = 10_000,
         hint_replay_throttle_mbps: float = 0.0,
         tier_store: str = "",
+        tier_hydrate_throttle_mbps: float = 0.0,
+        tier_disk_budget_bytes: int = 0,
+        tier_retention_age_s: float = 0.0,
+        tier_retention_delete_s: float = 0.0,
+        tier_sweep_interval_s: float = 60.0,
+        subscribe_enabled: bool = True,
+        subscribe_max_subscriptions: int = 10_000,
+        subscribe_queue_cap: int = 256,
+        subscribe_delta_cap: int = 50_000,
+        subscribe_coalesce_ms: float = 5.0,
+        subscribe_refresh_ms: float = 500.0,
+        gossip_seed: str = "",
+        gossip_bind: str = "",
+        gossip_interval: float = 1.0,
+        gossip_suspect_after: float = 5.0,
+        gossip_ack_timeout_ms: float = 250.0,
+        gossip_stream_timeout_ms: float = 10_000.0,
     ):
-        if cluster_type == "gossip":
-            raise ValueError("cluster type 'gossip' is not supported by this port yet")
-        if tier_store:
-            raise ValueError("a tier store is not supported by this port yet")
         if cluster_type not in CLUSTER_TYPES:
             raise ValueError(f"unknown cluster type: {cluster_type!r}")
         hosts = list(hosts or [])
@@ -284,8 +355,31 @@ class Server:
             self.broadcaster = bc.HTTPBroadcaster(timeout=REMOTE_TIMEOUT_S)
             self.receiver = bc.HTTPBroadcastReceiver(bind_host, internal_port)
         else:
+            # A gossip node set replaces it at open, once the node's HTTP
+            # identity is known.
             self.broadcaster = bc.NopBroadcaster()
             self.receiver = None
+        self.gossip_seed = gossip_seed
+        self.gossip_bind = gossip_bind
+        self.gossip_interval = gossip_interval
+        self.gossip_suspect_after = gossip_suspect_after
+        self.gossip_ack_timeout_ms = gossip_ack_timeout_ms
+        self.gossip_stream_timeout_ms = gossip_stream_timeout_ms
+        self.node_set = None
+        self.tier_store = tier_store
+        self.tier_hydrate_throttle_mbps = tier_hydrate_throttle_mbps
+        self.tier_disk_budget_bytes = tier_disk_budget_bytes
+        self.tier_retention_age_s = tier_retention_age_s
+        self.tier_retention_delete_s = tier_retention_delete_s
+        self.tier_sweep_interval_s = tier_sweep_interval_s
+        self.tier = None
+        self.subscribe_enabled = subscribe_enabled
+        self.subscribe_max_subscriptions = subscribe_max_subscriptions
+        self.subscribe_queue_cap = subscribe_queue_cap
+        self.subscribe_delta_cap = subscribe_delta_cap
+        self.subscribe_coalesce_ms = subscribe_coalesce_ms
+        self.subscribe_refresh_ms = subscribe_refresh_ms
+        self.subscribe = None
         self.stats = stats
         self.tracer = Tracer(capacity=trace_ring)
         self.floor_probe = floor_probe
@@ -438,6 +532,31 @@ class Server:
             )
             wal.register_manager(self.ingest)
         self.holder.open()
+        # The cold tier (JAX server.py:478-510): the store client shares
+        # the node's retry and breakers; the bootstrap restores the schema
+        # and registers the stored fragments this node lacks as cold
+        # before the first query routes.
+        if self.tier_store:
+            from pilosa_tpu_torch.tier import TierManager, open_store
+
+            store = open_store(self.tier_store, stats=self.stats,
+                               retry=self.resilience.retry, breakers=self.resilience.breakers)
+            self.tier = TierManager(
+                holder=self.holder,
+                store=store,
+                prefetcher=device_mod.prefetcher(),
+                stats=self.stats,
+                tracer=self.tracer,
+                logger=_log,
+                hydrate_throttle_mbps=self.tier_hydrate_throttle_mbps,
+                disk_budget_bytes=self.tier_disk_budget_bytes,
+                retention_age_s=self.tier_retention_age_s,
+                retention_delete_s=self.tier_retention_delete_s,
+            )
+            boot = self.tier.bootstrap()
+            _log(f"tier: cold store {store.url} attached ({boot['cold']} cold fragment(s) "
+                 f"registered, {boot['frames']} frame(s) restored from schema)")
+            self.handler.tier = self.tier
         # The delta log records every write to a migrating slice; the
         # replication's listener moves slice versions and feeds the quorum
         # coordinator's hint capture (JAX server.py:555-571).
@@ -463,12 +582,6 @@ class Server:
         self.executor.ingest = self.ingest
         self.handler.ingest = self.ingest
         self.handler.prefetcher = device_mod.prefetcher()
-        # Serving starts now; the mirrors of the previous run (its
-        # .residency.json, then the largest that fit the budget) stream in
-        # behind it, and a query's own prefetch jumps them.
-        self.staging_job = self.holder.stage_device_mirrors(
-            device_mod.prefetcher(), tracer=self.tracer
-        )
         bind_host, _, bind_port = self.host.rpartition(":")
         port = int(bind_port or 0)
         self._http = make_http_server(self.handler, bind_host or "127.0.0.1", port)
@@ -480,6 +593,9 @@ class Server:
             target=self._http.serve_forever, daemon=True, name=f"http:{self.host}"
         )
         self._http_thread.start()
+        # One provider feeds /state and gossip's piggybacked state, so the
+        # digest gossip advertises is that of the blob /state serves.
+        self.handler.state_provider = lambda: self.local_status().encode()
         if self.receiver is not None:
             self.receiver.start(self)
         # Self-register (reference: server.go:117-125), unless a ring is
@@ -492,6 +608,8 @@ class Server:
         else:
             self.cluster.add_node(self.host, self.internal_host)
         self._sync_broadcast_targets()
+        if self.cluster_type == "gossip":
+            self._open_gossip()
         # A transition persisted mid-resize comes back (both rings and the
         # flipped slices) before the first query routes.
         self.rebalance.resume_from_disk()
@@ -499,14 +617,139 @@ class Server:
         # persisted versions load and the hint replayer starts.
         self.replication.host = self.host
         self.replication.open()
-        for name, fn, interval in (
+        # Standing queries (JAX server.py:667-689): the manager registers
+        # its own fragment write and close listeners and runs its
+        # notifier; a full re-run pulls through the executor.
+        if self.subscribe_enabled:
+            from pilosa_tpu_torch.subscribe import SubscriptionManager
+
+            self.subscribe = SubscriptionManager(
+                executor=self.executor,
+                cluster=self.cluster,
+                stats=self.stats,
+                tracer=self.tracer,
+                data_dir=self.data_dir,
+                logger=_log,
+                max_subscriptions=self.subscribe_max_subscriptions,
+                queue_cap=self.subscribe_queue_cap,
+                delta_cap=self.subscribe_delta_cap,
+                coalesce_ms=self.subscribe_coalesce_ms,
+                refresh_interval_ms=self.subscribe_refresh_ms,
+            )
+            self.subscribe.open()
+            self.handler.subscribe = self.subscribe
+        # Serving has started; the mirrors stream in behind it: the slices
+        # gossip peers report hot, then the previous run's .residency.json,
+        # then the largest that fit the budget.  A query's own prefetch
+        # jumps them.
+        self.staging_job = self.holder.stage_device_mirrors(
+            device_mod.prefetcher(), hot_slices=self._gossip_hot_slices(), tracer=self.tracer
+        )
+        loops = [
             ("max-slices", self.tick_max_slices, self.polling_interval),
             ("anti-entropy", self.tick_anti_entropy, self.anti_entropy_interval),
-        ):
+        ]
+        if self.tier is not None:
+            # Retention aging and deletion, then the disk budget's demotions.
+            loops.append(("tier-sweep", self.tier.sweep, self.tier_sweep_interval_s))
+        for name, fn, interval in loops:
             t = threading.Thread(target=self._loop, args=(fn, interval), daemon=True,
                                  name=f"{name}:{self.host}")
             t.start()
             self._loops.append(t)
+
+    def _open_gossip(self) -> None:
+        """Build and open the gossip node set with the node's final HTTP
+        identity (JAX ``cli/ctl.py:83-96``, ``net/server.py:612-640``) and
+        wire it as the cluster's node set, the broadcaster and the
+        receiver.  A node that joins through a seed waits a few gossip
+        intervals for its peers' hot slices, which its staging puts
+        first."""
+        from pilosa_tpu_torch.cluster.gossip import GossipNodeSet
+
+        ns = GossipNodeSet(
+            host=self.host,
+            bind=self.gossip_bind,
+            seed=self.gossip_seed,
+            gossip_interval=self.gossip_interval,
+            suspect_after=self.gossip_suspect_after,
+            state_provider=self.handler.state_provider,
+            state_merger=lambda blob: self.handle_remote_status(wire.NodeStatus.decode(blob)),
+            hot_provider=self.holder.hot_slices,
+            health_provider=self.device_health.degraded,
+            logger=_log,
+            stats=self.stats,
+            ack_timeout=self.gossip_ack_timeout_ms / 1000.0,
+            stream_timeout=self.gossip_stream_timeout_ms / 1000.0,
+        )
+        ns.on_peer_health = self.cluster.note_degraded
+        ns.on_membership_change = self._on_membership_change
+        self.node_set = self.cluster.node_set = ns
+        self.broadcaster = self.handler.broadcaster = ns
+        ns.start(self)
+        ns.open()
+        if self.gossip_seed:
+            deadline = time.monotonic() + min(2.0, 10 * self.gossip_interval)
+            while not ns.remote_hot_slices() and time.monotonic() < deadline:
+                self._closing.wait(self.gossip_interval / 2)
+
+    def _gossip_hot_slices(self) -> dict[str, list[int]]:
+        """The peers' fresh hot-slice announcements (their union) when the
+        node gossips; {} otherwise."""
+        if self.node_set is None:
+            return {}
+        try:
+            return self.node_set.remote_hot_slices()
+        except Exception:  # noqa: BLE001 — the staging order is best-effort
+            return {}
+
+    def _on_membership_change(self, items) -> None:
+        """Gossip membership into node states (JAX ``server.py:933``): the
+        ring itself never changes on liveness (placement moves only by a
+        resize); a host outside the ring is a join candidate."""
+        for host, state in items:
+            node = self.cluster.node_by_host(host)
+            if node is not None:
+                node.set_state(state)
+            else:
+                try:
+                    self.rebalance.note_membership(host, state)
+                except Exception as e:  # noqa: BLE001 — advisory path
+                    _log(f"join-candidate tracking error: {e}")
+
+    def local_status(self) -> wire.NodeStatus:
+        """This node's schema and max slices, the state gossip carries
+        (JAX ``server.py:1010``)."""
+        pb = wire.NodeStatus(Host=self.host, State="UP")
+        for idx in self.holder.indexes().values():
+            pb_idx = wire.Index(
+                Name=idx.name,
+                Meta=wire.IndexMeta(ColumnLabel=idx.column_label, TimeQuantum=idx.time_quantum),
+                MaxSlice=idx.max_slice(),
+            )
+            for f in idx.frames().values():
+                pb_idx.Frames.append(wire.Frame(
+                    Name=f.name,
+                    Meta=wire.FrameMeta(
+                        RowLabel=f.row_label,
+                        InverseEnabled=f.inverse_enabled,
+                        CacheType=f.cache_type,
+                        CacheSize=f.cache_size,
+                        TimeQuantum=f.time_quantum,
+                    ),
+                ))
+            pb.Indexes.append(pb_idx)
+        return pb
+
+    def handle_remote_status(self, status: wire.NodeStatus) -> None:
+        """Merge a peer's schema into this node's: missing indexes and
+        frames are created and remote max slices adopted (reference:
+        server.go:382-412)."""
+        for pb_idx in status.Indexes:
+            idx = self.holder.create_index_if_not_exists(pb_idx.Name, **_index_options(pb_idx.Meta))
+            idx.set_remote_max_slice(pb_idx.MaxSlice)
+            for pb_f in pb_idx.Frames:
+                idx.create_frame_if_not_exists(pb_f.Name, **_frame_options(pb_f.Meta))
 
     def add_peer(self, host: str, internal_host: str = "") -> None:
         """Add another node to the ring (nodes that bound port 0 learn
@@ -525,9 +768,16 @@ class Server:
 
     def close(self) -> None:
         self._closing.set()
+        # Push delivery stops first: the notifier must not evaluate
+        # against a holder that is being torn down.
+        if self.subscribe is not None:
+            self.subscribe.close()
+            self.subscribe = self.handler.subscribe = None
         for t in self._loops:
             t.join(timeout=10)
         self._loops = []
+        if self.node_set is not None:
+            self.node_set.close()
         self.rebalance.close()
         # Stops the hint replayer and persists the slice versions
         # (.replication.json), so that a clean restart compares.
@@ -668,32 +918,14 @@ class Server:
             else:
                 idx.set_remote_max_slice(msg.Slice)
         elif isinstance(msg, wire.CreateIndexMessage):
-            meta = msg.Meta or wire.IndexMeta()
-            opts = {}
-            if meta.ColumnLabel:
-                opts["column_label"] = meta.ColumnLabel
-            if meta.TimeQuantum:
-                opts["time_quantum"] = meta.TimeQuantum
-            self.holder.create_index_if_not_exists(msg.Index, **opts)
+            self.holder.create_index_if_not_exists(msg.Index, **_index_options(msg.Meta))
         elif isinstance(msg, wire.DeleteIndexMessage):
             self.holder.delete_index(msg.Index)
         elif isinstance(msg, wire.CreateFrameMessage):
             idx = self.holder.index(msg.Index)
             if idx is None:
                 raise RuntimeError("index not found")
-            meta = msg.Meta or wire.FrameMeta()
-            opts = {}
-            if meta.RowLabel:
-                opts["row_label"] = meta.RowLabel
-            if meta.InverseEnabled:
-                opts["inverse_enabled"] = True
-            if meta.CacheType:
-                opts["cache_type"] = meta.CacheType
-            if meta.CacheSize:
-                opts["cache_size"] = meta.CacheSize
-            if meta.TimeQuantum:
-                opts["time_quantum"] = meta.TimeQuantum
-            idx.create_frame_if_not_exists(msg.Frame, **opts)
+            idx.create_frame_if_not_exists(msg.Frame, **_frame_options(msg.Meta))
         elif isinstance(msg, wire.DeleteFrameMessage):
             idx = self.holder.index(msg.Index)
             if idx is not None:

@@ -533,6 +533,52 @@ _spec(
 
 
 @dataclass(repr=False)
+class Frame(Message):
+    Name: str = ""
+    Meta: FrameMeta | None = None
+
+
+_spec(Frame, (1, "Name", STR, False, None), (2, "Meta", MSG, False, FrameMeta))
+
+
+@dataclass(repr=False)
+class Index(Message):
+    Name: str = ""
+    Meta: IndexMeta | None = None
+    MaxSlice: int = 0
+    Frames: list = field(default_factory=list)
+    Slices: list = field(default_factory=list)
+
+
+_spec(
+    Index,
+    (1, "Name", STR, False, None),
+    (2, "Meta", MSG, False, IndexMeta),
+    (3, "MaxSlice", U64, False, None),
+    (4, "Frames", MSG, True, Frame),
+    (5, "Slices", U64, True, None),
+)
+
+
+@dataclass(repr=False)
+class NodeStatus(Message):
+    """A node's schema and max slices: the state blob gossip piggybacks
+    and ``GET /state`` serves (reference: internal/private.proto)."""
+
+    Host: str = ""
+    State: str = ""
+    Indexes: list = field(default_factory=list)
+
+
+_spec(
+    NodeStatus,
+    (1, "Host", STR, False, None),
+    (2, "State", STR, False, None),
+    (3, "Indexes", MSG, True, Index),
+)
+
+
+@dataclass(repr=False)
 class MaxSlicesResponse(Message):
     MaxSlices: dict = field(default_factory=dict)
 

@@ -33,12 +33,12 @@ and then drops the transition — the old ring was never invalidated.
 
 The counterpart of ``pilosa_tpu.rebalance.migrate``.  A copied slice
 lands in the target's staged restore (``?stage=true``), which uploads
-its mirrors to the target's card.  Two parts of the JAX module wait for
-modules not ported yet: the copy from a shared object store
-(``_restore_via_store``, and the upload before a release) for
-``tier/*``, and the join candidates of ``note_membership`` /
-``rebalance_on_join`` for ``cluster/gossip.py``; ``joinCandidates`` of
-``GET /debug/rebalance`` stays empty until then.
+its mirrors to the target's card.  With a tier store, a fragment whose
+store copy is checksum-fresh is copied through the store instead
+(``POST /tier/restore`` on the target), and a released fragment uploads
+first when its store copy is stale.  Hosts that gossip announces outside
+the ring are join candidates (``note_membership``), admitted by a resize
+of their own when ``rebalance_on_join`` is set.
 """
 
 from __future__ import annotations
@@ -112,6 +112,7 @@ class Rebalancer:
         self._stop = threading.Event()
         self._state: dict | None = None  # coordinator per-slice state
         self._last_error = ""
+        self._candidates: set[str] = set()  # gossip-announced non-members
         # Test seam: extra pause between slice migrations (lets tests
         # kill the coordinator mid-plan deterministically).
         self.step_delay_s = 0.0
@@ -286,6 +287,39 @@ class Rebalancer:
             raise RebalanceError(
                 f"topology {ev.get('event')} fanout failed: " + "; ".join(errs)
             )
+
+    # -- gossip join candidates (JAX migrate.py:282-318) ---------------
+
+    def note_membership(self, host: str, state: str) -> None:
+        """Track hosts gossip announces outside the serving ring; with
+        ``rebalance_on_join`` the lowest-host ring member starts the
+        resize that admits them."""
+        ring = set(self._cluster.hosts())
+        t = self._cluster.transition
+        if t is not None:
+            ring |= set(t.new_hosts)
+        if state != "UP" or host in ring:
+            self._candidates.discard(host)
+            return
+        if host in self._candidates:
+            return
+        self._candidates.add(host)
+        self._log(f"gossip announced non-member {host} (join candidate)")
+        if (
+            getattr(self._server, "rebalance_on_join", False)
+            and t is None
+            and self._cluster.hosts()
+            and self._host == min(self._cluster.hosts())
+        ):
+            target = sorted(set(self._cluster.hosts()) | self._candidates)
+            threading.Thread(target=self._auto_resize, args=(target,), daemon=True,
+                             name="rebalance-on-join").start()
+
+    def _auto_resize(self, hosts: list[str]) -> None:
+        try:
+            self.start_resize(hosts)
+        except Exception as e:  # noqa: BLE001 — advisory trigger
+            self._log(f"auto resize to {hosts} failed: {e}")
 
     # -- coordinator ---------------------------------------------------
 
@@ -690,15 +724,29 @@ class Rebalancer:
     ) -> dict:
         """SOURCE side of the bulk copy: stream every view's fragment
         tar for the slice straight to the target's staged restore —
-        chunked, throttled, never materialized.  (The JAX node's copy
-        from a shared store, ``_restore_via_store``, waits for
-        ``tier/*``: ``fromStore`` stays 0.)"""
+        chunked, throttled, never materialized.
+
+        With a tier store, a fragment whose store copy carries a
+        checksum-fresh logical checksum is restored by the target from
+        the store (``POST /tier/restore``) and the source sends nothing
+        (``fromStore``).  A stale or missing copy, or a target without a
+        tier (501), falls back to the stream; the delta-log replay rounds
+        close any gap either way (JAX ``migrate.py:717-760``)."""
         if not target:
             raise RebalanceError("copy needs a target host")
+        tier = getattr(self._server, "tier", None)
         client = self._client(target, timeout=600.0)
         views = 0
         nbytes = 0
+        from_store = 0
         for frame, view, frag in list(self._slice_fragments(index, slice_i)):
+            if tier is not None:
+                restored = self._restore_via_store(client, tier, index, frame, view, slice_i, frag)
+                if restored is not None:
+                    views += 1
+                    nbytes += restored
+                    from_store += 1
+                    continue
             reader = _ThrottledChunkReader(
                 frag.tar_chunks(chunk_bytes=self._server.stream_chunk_bytes),
                 bytes_per_sec=bytes_per_sec,
@@ -708,7 +756,23 @@ class Rebalancer:
             )
             views += 1
             nbytes += reader.bytes
-        return {"views": views, "bytes": nbytes, "fromStore": 0}
+        if from_store:
+            self._stats.count("cluster.rebalance.storeRestores", from_store)
+        return {"views": views, "bytes": nbytes, "fromStore": from_store}
+
+    def _restore_via_store(self, client, tier, index: str, frame: str, view: str,
+                           slice_i: int, frag) -> int | None:
+        """One fragment's copy through the store: None sends it by the
+        peer stream instead (store copy stale or missing, target without
+        a tier, or the restore failed)."""
+        try:
+            if tier.store_fresh_meta(frag) is None:
+                return None
+            return client.tier_restore(index, frame, view, slice_i)
+        except Exception as e:  # noqa: BLE001 — fall back to streaming
+            self._log(f"store-riding copy of {index}/{slice_i} {frame}/{view} "
+                      f"fell back to peer stream: {e}")
+            return None
 
     def _replay(self, index: str, slice_i: int, target: str) -> dict:
         """Drain the slice's delta log to the target in application
@@ -735,22 +799,36 @@ class Rebalancer:
     def release_slice(self, index: str, slice_i: int) -> dict:
         """Drop every local fragment of a slice this node no longer
         owns: the mirrors leave the residency pool and the files leave
-        the disk.  (The JAX node's upload to a shared store before a
-        release waits for ``tier/*``: ``uploaded`` stays 0.)"""
+        the disk.  With a tier store, a fragment whose store copy is
+        stale or absent uploads first (``uploaded``), so the store stays
+        a fresh archive of released slices; a failed upload logs and
+        counts but never blocks the release."""
         if self._cluster.is_write_owner(self._host, index, slice_i):
             raise RebalanceError(
                 f"refusing to release {index}/{slice_i}: this node still "
                 "owns it"
             )
+        tier = getattr(self._server, "tier", None)
         released = 0
+        uploaded = 0
         idx = self._holder.index(index)
         if idx is not None:
             for frame in idx.frames().values():
                 for view in frame.views().values():
+                    frag = view._fragment_raw(slice_i) if tier is not None else None
+                    if frag is not None:
+                        try:
+                            if tier.store_fresh_meta(frag) is None:
+                                tier.upload_fragment(frag)
+                                uploaded += 1
+                        except Exception as e:  # noqa: BLE001
+                            self._stats.count("cluster.rebalance.releaseUploadErrors")
+                            self._log(f"release upload of {index}/{slice_i} "
+                                      f"{frame.name}/{view.name} failed: {e}")
                     if view.remove_fragment(slice_i):
                         released += 1
         self._stats.count("cluster.rebalance.fragmentsReleased", released)
-        return {"released": released, "uploaded": 0}
+        return {"released": released, "uploaded": uploaded}
 
     # -- observability --------------------------------------------------
 
@@ -768,9 +846,7 @@ class Rebalancer:
             "running": self.running(),
             "deltaLog": self.delta_log.snapshot(),
             "deltaOverflows": self.delta_log.overflow_counts(),
-            # Hosts gossip announced outside the ring: none until
-            # cluster/gossip.py is ported.
-            "joinCandidates": [],
+            "joinCandidates": sorted(self._candidates),
         }
         if self._last_error:
             out["lastError"] = self._last_error

@@ -7,8 +7,7 @@ grammar, :class:`FaultRule` / :class:`FaultPlan`, :func:`parse`,
 :func:`check`, the lazily read ``PILOSA_FAULTS`` variable, and
 :class:`FaultError` / :class:`FaultOOM` / :class:`FaultSpecError`).  A
 plan is a list of match-and-fire rules checked at four stages by
-:func:`check` calls in the hot paths.  Every stage parses; in this port
-only ``device.launch`` has a check point so far:
+:func:`check` calls in the hot paths, every stage with its check point:
 
 * ``device.launch`` — in the executor, before a kernel launch of the
   query path (``exec/executor.py``'s ``_fault_check_launch``).  ``host``
@@ -20,11 +19,12 @@ only ``device.launch`` has a check point so far:
   trips it) — and the check fires once per participating device (a
   mesh member) with ``device`` = its ordinal, so a
   ``device=`` rule can target ONE device;
-* ``rpc.send`` / ``rpc.recv`` — the internal client's send and the
-  handler's dispatch in the JAX package; they get their check points
-  with the port of its ``net/resilience.py``;
-* ``gossip.send`` — each gossip datagram in the JAX package; it gets its
-  check point with the port of ``cluster/gossip.py``.
+* ``rpc.send`` / ``rpc.recv`` — the internal client's send
+  (``net/client.py``) and the handler's dispatch (``net/handler.py``);
+* ``gossip.send`` — in ``GossipNodeSet._send`` (``cluster/gossip.py``),
+  before each UDP datagram leaves (``host`` = the sending member's
+  identity, ``path`` = the message type, e.g. ``ping``/``ack``): a seeded
+  ``prob`` with ``mode=drop`` is a deterministic lossy network.
 
 The plan comes from the ``PILOSA_FAULTS`` environment variable (read
 lazily on first check) or from :func:`install` (tests, soak runs).

@@ -891,3 +891,114 @@ def test_replayed_hint_is_applied_by_k7_and_counted_by_k2(cuda, tmp_path):
     finally:
         for s in nodes:
             s.close()
+
+
+def test_cold_boot_hydrates_and_counts_on_k2(cuda, tmp_path):
+    """A node with an empty data dir and only a tier store cold-boots an
+    index another node uploaded: its first Count hydrates every fragment
+    and launches K2 once; a write to a fragment revived from the store is
+    applied by one K7 at the next read."""
+    import json
+    import urllib.request
+
+    from pilosa_tpu_torch import convert
+    from pilosa_tpu_torch.net.server import Server
+    from pilosa_tpu_torch.ops import delta_scatter as ds
+    from pilosa_tpu_torch.ops import tree_eval as te
+    from pilosa_tpu_torch.tier import LocalFSStore, TierManager
+
+    rng = np.random.default_rng(18)
+    n_slices = 4
+    planes = rng.integers(0, 2**32, size=(n_slices, 8, tbp.WORDS_PER_SLICE), dtype=np.uint32)
+    store = str(tmp_path / "store")
+
+    def post(host, path, body):
+        req = urllib.request.Request(f"http://{host}{path}", data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return json.loads(resp.read())
+
+    def count(host, row):
+        return post(host, "/index/i/query", f"Count(Bitmap(frame=f, rowID={row}))".encode())
+
+    donor = Server(str(tmp_path / "donor"), device=cuda, floor_probe=False)
+    donor.open()
+    try:
+        convert.load_planes(donor.holder, "i", "f", "standard", dict(enumerate(planes)))
+        assert TierManager(donor.holder, LocalFSStore(store)).upload_all() == n_slices
+    finally:
+        donor.close()
+    cold = Server(str(tmp_path / "cold"), device=cuda, floor_probe=False, tier_store=store)
+    cold.open()
+    try:
+        assert cold.tier.snapshot()["countsByState"] == {"cold": n_slices}
+        k2 = te.launches
+        want = int(np.bitwise_count(planes[:, 3]).sum())
+        assert count(cold.host, 3)["results"] == [want]
+        assert te.launches == k2 + 1
+        assert cold.tier.snapshot()["countsByState"] == {"hot": n_slices}
+        view = cold.holder.index("i").frame("f").view("standard")
+        assert cold.tier.demote(view, 1)
+        word = int(np.flatnonzero(planes[1, 3] != 0xFFFFFFFF)[0])
+        bits = [b for b in range(32) if not (int(planes[1, 3, word]) >> b) & 1][:2]
+        cols = [(1 << 20) | (word << 5) | b for b in bits]
+        assert post(cold.host, "/index/i/query",
+                    f"SetBit(frame=f, rowID=3, columnID={cols[0]})".encode())["results"] == [True]
+        assert count(cold.host, 3)["results"] == [want + 1]  # uploads the revived mirror
+        post(cold.host, "/index/i/query", f"SetBit(frame=f, rowID=3, columnID={cols[1]})".encode())
+        k7, k2 = ds.launches, te.launches
+        assert count(cold.host, 3)["results"] == [want + 2]
+        assert (ds.launches - k7, te.launches - k2) == (1, 1)
+    finally:
+        cold.close()
+
+
+def test_subscription_slice_evaluations_launch_k2(cuda, tmp_path):
+    """A compound Count subscription's registration and each of its slice
+    evaluations are one K2 "count" launch over the slices asked, with no
+    host answer; a single-leaf Count re-bases from row counts with no
+    launch.  Every value equals numpy."""
+    from pilosa_tpu_torch import convert
+    from pilosa_tpu_torch.net.server import Server
+    from pilosa_tpu_torch.ops import tree_eval as te
+    from pilosa_tpu_torch.pql.parser import parse_string
+
+    rng = np.random.default_rng(21)
+    n_slices = 6
+    planes = rng.integers(0, 2**32, size=(n_slices, 4, tbp.WORDS_PER_SLICE), dtype=np.uint32)
+    srv = Server(str(tmp_path / "s"), device=cuda, floor_probe=False)
+    srv.open()
+    try:
+        convert.load_planes(srv.holder, "i", "f", "standard", dict(enumerate(planes)))
+        mgr = srv.subscribe
+        evals = []
+        slice_count = mgr._slice_count
+
+        def counted(sub, slices):
+            k0 = te.launches
+            out = slice_count(sub, slices)
+            evals.append((sub.fast_row is None, list(slices), te.launches - k0))
+            return out
+
+        def host_counts(*a, **k):
+            raise AssertionError("a slice evaluation answered from the host")
+
+        mgr._slice_count = counted
+        srv.executor.hosteval.counts = host_counts
+        single = mgr.register("i", "Subscribe(Count(Bitmap(rowID=0, frame=f)))")
+        inter = mgr.register(
+            "i", "Subscribe(Count(Intersect(Bitmap(rowID=0, frame=f), Bitmap(rowID=1, frame=f))))")
+        assert evals == [(False, list(range(n_slices)), 0), (True, list(range(n_slices)), 1)]
+        word = int(np.flatnonzero(planes[2, 0] != 0xFFFFFFFF)[0])
+        bit = next(b for b in range(32) if not (int(planes[2, 0, word]) >> b) & 1)
+        col = (2 << 20) | (word << 5) | bit
+        for row in (0, 1):
+            srv.executor.execute("i", parse_string(f"SetBit(frame=f, rowID={row}, columnID={col})"))
+            planes[2, row, word] |= np.uint32(1 << bit)
+        assert mgr.flush()
+        compound = [(sl, n) for is_tree, sl, n in evals[2:] if is_tree]
+        assert compound and all(c == ([2], 1) for c in compound), evals
+        assert all(n == 0 for is_tree, _, n in evals[2:] if not is_tree), evals
+        assert single.value == int(np.bitwise_count(planes[:, 0]).sum())
+        assert inter.value == int(np.bitwise_count(planes[:, 0] & planes[:, 1]).sum())
+    finally:
+        srv.close()

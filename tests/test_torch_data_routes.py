@@ -270,8 +270,18 @@ def test_attr_diff_of_the_other_nodes_blocks(servers):
 
 
 def test_state_answers_the_jax_404_until_gossip(servers):
+    # Both nodes serve their NodeStatus (the gossip stream fallback's
+    # blob), equal but for the host; without a provider, both the 404.
     j, t = servers
-    j.handler.state_provider = None
+    a, b = request(j.host, "GET", "/state"), request(t.host, "GET", "/state")
+    assert a[0] == b[0] == 200
+    sa, sb = pb.NodeStatus(), pb.NodeStatus()
+    sa.ParseFromString(a[1])
+    sb.ParseFromString(b[1])
+    assert (sa.Host, sb.Host) == (j.host, t.host)
+    sb.Host = sa.Host
+    assert sb.SerializeToString() == sa.SerializeToString()
+    j.handler.state_provider = t.handler.state_provider = None
     _answers_equal(j, t, "GET", "/state", b"", None)
     assert request(t.host, "GET", "/state")[0] == 404
 
