@@ -109,7 +109,9 @@ without printing its final line:
    values over every slice, which launches nothing, and the first read
    after it, which applies all 954 queues (with and-not entries) in ONE
    delta-scatter launch; one import past a queue's limit on one slice
-   (the counted fallback); the queries again after each;
+   (the counted fallback); the queries again after each (after the
+   second, each comparison at one predicate, the between, the Intersect
+   and the aggregates);
 8. on the phase-5 node, a time-quantum frame (YMD) over 16 slices:
    SetBits with timestamps and a protobuf ``/import`` of 2^16 bits over
    40 days, then Range(start, end) counts inside a month, across the
@@ -163,7 +165,7 @@ without printing its final line:
     serial Count(Intersect(Bitmap(0), Bitmap(1))) — the first request a
     cache miss (after a SetBit), the rest hits, then a SetBit and the
     Count again (a rebuild, the answer one more), one K2 launch a request
-    and no K1; then a storm of 64 client threads x 6 requests drawn from
+    and no K1; then a storm of 64 client threads x 4 requests drawn from
     16 distinct trees over the 8 rows, as Count over every slice and as
     Bitmap (the tree intersected with a row of frame g, over 16 slices),
     every answer against numpy, in turns with coalescing on, off, off, on
@@ -196,11 +198,11 @@ without printing its final line:
     answers and to numpy over the archives' planes decoded on the host,
     K2 and K4 launched (the first Count, which uploads the mirrors, and
     the p50 timed); ``/fragment/blocks`` equal on both nodes for every
-    fragment, then a few hundred bits set and cleared on the source in
-    four fragments make exactly their block differ, the differences read
-    through ``/fragment/block/data`` and pushed with
-    ``/fragment/import-view``, the next Count applying them in one K7
-    launch and equal to the source, the blocks equal again; a restore in
+    fragment, then 150 bits set and cleared on the source in one fragment
+    make exactly its block 0 differ, the differences read through
+    ``/fragment/block/data`` and pushed with ``/fragment/import-view``,
+    the next Count applying them in one K7 launch and equal to the
+    source, the repaired block equal again; a restore in
     place of a fragment with a resident mirror and a cached batch entry
     (the next Count equals numpy of the new contents) and a torn archive
     refused with 422 (no answer changes); one slice's ``/export`` (~4.2M
@@ -282,7 +284,37 @@ without printing its final line:
     card quarantined by ``device.launch`` faults learned by its peers
     (its own host answers are the quarantine's; FallbackWatch rebases
     after it) and a Count subscription re-run through K2 after a write
-    another node coordinates.
+    another node coordinates;
+22. configuration and admission through the CLI, right after phase 19,
+    on phase 19's copy of the phase-5 directory (954 slices x 8 rows, 1B
+    columns; removed when the phase ends): (a) a ``pilosa.toml`` (the
+    copy, a free port, ``[exec] coalesce = false``, ``[metrics] service =
+    "expvar"``, gates 2 / 1 / 1 wide with queues of 2, tenants
+    ``gold:3`` and ``bronze:1:20`` with two API keys and an internal
+    token), ``config -c`` parsing back to the same settings,
+    ``generate-config`` to the defaults, ``server -c --dry-run`` exiting
+    0 and ``warm -c`` (its launches and seconds); (b) ``python -m
+    pilosa_tpu_torch.cli server -c FILE`` as a subprocess on the card,
+    one key set by its ``PILOSA_*`` variable and one by a flag (both
+    checked in ``/debug/health``); 16 threads, half under each tenant's
+    key, send Count(Intersect) and TopN(src) past the gates and a SetBit
+    each, then bronze a burst past its quota: every 200 equals the
+    phase-5 node's answer, every 429 has ``Retry-After`` >= 1 and
+    ``retryAfterMs``, bronze's quota sheds their ``X-Quota-*`` headers;
+    the K2 launches of ``/debug/perf``'s ``total`` site equal the Count
+    200s (a shed launches nothing), K4's ``topn`` launches the TopN prep
+    builds, K7 applies every acknowledged SetBit with no fallback (one
+    whose mirror was off the card rides the next counted upload), the
+    SetBits read back; ``/debug/health``'s five classes with the file's
+    widths, ``/debug/tenants``, ``/metrics`` with the
+    ``pilosa_net_admission_*`` and ``pilosa_tenant_*`` families, an
+    ``X-Internal-Lane`` request charged to a client class without the
+    token and to ``internal`` with it, ``GET /`` and ``/assets/main.js``;
+    SIGTERM closes the node with exit 0 and ``--cpuprofile`` leaves its
+    file; K11 ran at the node's open (its probe file written anew); (c)
+    no host answer and no fault classified, in this process and the
+    node's.  The counts come from the node's ``/debug/perf``,
+    ``/debug/ingest`` and ``/debug/vars``: they live in its process.
 
 Phase 21 (b) and (c) run after the phase-5 node closes, before phase 10.
 Every phase but 19 (d) runs on card 0 alone (``bitplane.
@@ -299,6 +331,7 @@ import contextlib
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2351,7 +2384,10 @@ def serve_mesh_and_check(srv, te, sp, want: dict, n_members: int, part: str) -> 
 def mesh_and_check(kernels: dict, Server, ExpvarStatsClient, srv, data_dir: str, planes,
                    truth, watch) -> dict:
     """Phase 19 (see the module docstring): the kernels' counts set to 0
-    just before the mesh is driven and read just after."""
+    just before the mesh is driven and read just after.  The copy of the
+    phase-5 directory stays for phase 22 (``out["copy_dir"]``, with the
+    phase-5 node's answers in ``out["want"]``); the caller removes it, and
+    it is removed here if the phase fails."""
     import shutil
 
     import torch
@@ -2390,6 +2426,7 @@ def mesh_and_check(kernels: dict, Server, ExpvarStatsClient, srv, data_dir: str,
     n_cards = torch.cuda.device_count()
     bp.set_local_members([torch.device(MESH_DEVICE, 0)] * MESH_MEMBERS)
     srv4 = None
+    keep = False
     try:
         out["functions"] = mesh_functions_and_check(planes, int(np.bitwise_count(
             planes[:, 0] & planes[:, 1]).sum(dtype=np.int64)), pmesh, torch)
@@ -2466,17 +2503,20 @@ def mesh_and_check(kernels: dict, Server, ExpvarStatsClient, srv, data_dir: str,
             out["cards"] = None
             log(f"phase 19 (d): not run: the machine has {n_cards} card, so no mesh over cards "
                 "and no two-process NCCL Count (NCCL refuses two ranks on one card)")
+        keep = True
     finally:
         if srv4 is not None:
             srv4.close()
         bp.set_local_members(one_card)
         bp.configure_mesh_devices(0)
-        shutil.rmtree(copy_dir, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(copy_dir, ignore_errors=True)
         torch.cuda.empty_cache()
     out["launches"] = {k: m.launches for k, m in kernels.items()}
     watch.rebase(srv)
     out["seconds"] = time.perf_counter() - t_start
     log(f"phase 19: launches {json.dumps(out['launches'])}; {out['seconds']:.1f} s")
+    out["copy_dir"], out["want"] = copy_dir, want
     return out
 
 
@@ -2523,12 +2563,22 @@ def cards_and_check(pmesh, bp, torch, n_cards: int) -> dict:
         f"two-process NCCL Count agreed on {out['nccl']}")
     return out
 
-def http_raw(host: str, path: str) -> tuple[int, bytes]:
+def http_request(host: str, method: str, path: str, body: bytes = b"",
+                 headers=None) -> tuple[int, dict, bytes]:
+    """``(status, headers, body bytes)`` of one request."""
+    req = urllib.request.Request(f"http://{host}{path}",
+                                 data=body if method != "GET" else None, method=method,
+                                 headers=headers or {})
     try:
-        with urllib.request.urlopen(f"http://{host}{path}", timeout=600) as resp:
-            return resp.status, resp.read()
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, dict(resp.headers), resp.read()
     except urllib.error.HTTPError as e:
-        return e.code, e.read()
+        return e.code, dict(e.headers), e.read()
+
+
+def http_raw(host: str, path: str) -> tuple[int, bytes]:
+    status, _, data = http_request(host, "GET", path)
+    return status, data
 
 
 def parse_exposition(text: str) -> dict[str, str]:
@@ -2786,14 +2836,17 @@ def observe_and_check(srv, kernels: dict, storm_queries: list, hbm: float, rng) 
 
 
 def http(host: str, method: str, path: str, body: bytes = b"") -> tuple[int, object]:
-    req = urllib.request.Request(
-        f"http://{host}{path}", data=body if method != "GET" else None, method=method
-    )
+    status, _, data = http_request(host, method, path, body)
+    return status, json.loads(data)
+
+
+def http_full(host: str, method: str, path: str, body: bytes = b"", headers=None):
+    """``(status, headers, parsed JSON or raw bytes)`` of one request."""
+    status, hdrs, data = http_request(host, method, path, body, headers)
     try:
-        with urllib.request.urlopen(req, timeout=600) as resp:
-            return resp.status, json.loads(resp.read())
-    except urllib.error.HTTPError as e:
-        return e.code, json.loads(e.read())
+        return status, hdrs, json.loads(data)
+    except ValueError:
+        return status, hdrs, data
 
 
 def topn_oracle(scores: np.ndarray, n: int, totals: np.ndarray | None = None,
@@ -3148,7 +3201,7 @@ def topn_cache_and_check(srv, sp, ds, planes, topns, src_scores) -> dict:
 # the Bitmap requests' slices, the g-frame bits they intersect.
 SERIAL_REPS = 20
 STORM_THREADS = 64
-STORM_REQUESTS = 6
+STORM_REQUESTS = 4  # a depth cut for time (PERF.md §4)
 STORM_SLICES = 16
 STORM_G_BITS = 256
 
@@ -5470,9 +5523,10 @@ def durability_and_check(Server, kernels: dict) -> dict:
 # Client threads of the block-checksum walks (the node serves each request
 # on a thread of its own; the checksum's SHA1 releases the GIL).
 BLOCK_THREADS = 8
-# Fragments the source changes before the repair, and bits set and cleared
-# in each.
-REPAIR_SLICES = 2
+# Fragments the source changes before the repair (one: a depth cut for
+# time, PERF.md §4; each repair reads a dense block's ~4M positions from
+# both nodes), and bits set and cleared in each.
+REPAIR_SLICES = 1
 REPAIR_SETS = 100
 REPAIR_CLEARS = 50
 
@@ -5781,8 +5835,11 @@ def backup_and_check(fp, te, ds, sp, Server, InternalClient, srv, rng) -> dict:
                 if host == dst.host and ds.launches - k7 != 1:
                     raise AssertionError(f"phase 17 (d): the repaired node's Count launched "
                                          f"delta_scatter {ds.launches - k7} times (want 1)")
-            blocks = every_block(InternalClient, hosts, range(N_SLICES))
-            unequal = [s for s in range(N_SLICES) if blocks[(h, s)] != blocks[(dst.host, s)]]
+            # The other slices were equal and nothing wrote to them since:
+            # the walk after the repair reads the repaired ones (a depth cut
+            # for time, PERF.md §4).
+            blocks = every_block(InternalClient, hosts, touched)
+            unequal = [s for s in touched if blocks[(h, s)] != blocks[(dst.host, s)]]
             if unequal:
                 raise AssertionError(f"phase 17 (d): blocks differ after the repair: {unequal}")
             log(f"phase 17 (d): /fragment/blocks equal on both nodes for all {N_SLICES} fragments "
@@ -5792,7 +5849,7 @@ def backup_and_check(fp, te, ds, sp, Server, InternalClient, srv, rng) -> dict:
                 f"their block 0 differ; read through /fragment/block/data on both nodes and {pushed} "
                 f"bits pushed through /fragment/import-view in {out['repair_s']:.3f} s; the next "
                 f"Count applied them "
-                f"with one delta_scatter launch, blocks equal again")
+                f"with one delta_scatter launch, the repaired blocks equal again")
         finally:
             dst.close()
 
@@ -6989,6 +7046,389 @@ def gossip_and_check(te, ds, convert, Server, InternalClient, ExpvarStatsClient,
     return out
 
 
+# Phase 22: configuration and admission through the CLI, on phase 19's copy
+# of the phase-5 directory.  Gates 2 / 1 / 1 wide with queues of 2 a tenant,
+# so that 16 threads go past them; bronze's 20 requests a second go past
+# its quota in the burst.
+ADMIT_THREADS = 16
+ADMIT_REQUESTS = 3  # Count(Intersect) and TopN(src) each, a thread
+ADMIT_BURST = 40  # bronze's requests back to back, past its bucket of 20
+ADMIT_DEVICE = "cuda"
+ADMIT_KEYS = {"gold": "gold-key", "bronze": "bronze-key"}
+ADMIT_TOKEN = "smoke-fleet-token"
+ADMIT_ROW = 7  # the SetBits' row: neither a Count's leaf nor the TopN's src
+ADMIT_WIDTHS = {"point": 2, "heavy": 1, "write": 1, "internal": 64, "subscribe": 4}
+ADMIT_ENV = ("PILOSA_NET_QUERY_TIMEOUT_MS", "45000")  # the file says 30000
+ADMIT_TIMEOUT_S = 300
+
+
+def admission_toml(data_dir: str, host: str) -> str:
+    """The phase's ``pilosa.toml``: the JAX package's keys, the ``[net]``
+    section's gates and tenants included."""
+    return "\n".join([
+        f'data-dir = "{data_dir}"',
+        f'host = "{host}"',
+        "[metrics]",
+        '  service = "expvar"',
+        "[exec]",
+        "  coalesce = false",
+        "[device]",
+        "  mesh-devices = 1",  # one card: one K2 a Count on a host with several
+        "[net]",
+        "  query-timeout-ms = 30000.0",
+        f"  admission-point-concurrency = {ADMIT_WIDTHS['point']}",
+        f"  admission-heavy-concurrency = {ADMIT_WIDTHS['heavy']}",
+        f"  admission-write-concurrency = {ADMIT_WIDTHS['write']}",
+        "  admission-internal-concurrency = 16",
+        "  admission-queue-depth = 2",
+        '  tenants = ["gold:3", "bronze:1:20"]',
+        "  tenant-keys = [" + ", ".join(f'"{k}:{t}"' for t, k in ADMIT_KEYS.items()) + "]",
+        f'  tenant-internal-token = "{ADMIT_TOKEN}"',
+        "",
+    ])
+
+
+def cli_env() -> dict:
+    """This process's environment without ``PILOSA_*`` keys, with this
+    checkout first on the path."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PILOSA_")}
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    return env
+
+
+def run_cli(argv: list, env: dict, timeout: float = ADMIT_TIMEOUT_S):
+    return subprocess.run([sys.executable, "-m", "pilosa_tpu_torch.cli", *argv], env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def cli_files_and_check(path: str, env: dict) -> dict:
+    """(a): ``config -c``, ``generate-config``, ``server --dry-run`` and
+    ``warm`` at once (each a process of its own)."""
+    import dataclasses
+    import re
+
+    from pilosa_tpu_torch import config as config_mod
+
+    argvs = {"config": ["config", "-c", path], "generate": ["generate-config"],
+             "dry_run": ["server", "-c", path, "--device", ADMIT_DEVICE, "--dry-run"],
+             "warm": ["warm", "-c", path, "--device", ADMIT_DEVICE]}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(argvs)) as pool:
+        runs = dict(zip(argvs, pool.map(lambda a: run_cli(a, env), argvs.values())))
+    out: dict = {"s": time.perf_counter() - t0}
+    for name, proc in runs.items():
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 22 (a) {argvs[name]}: exit {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+    want = config_mod.load(path, environ={})
+    if dataclasses.asdict(config_mod.from_toml(runs["config"].stdout)) != dataclasses.asdict(want):
+        raise AssertionError("phase 22 (a): config -c printed other settings than the file's")
+    if runs["generate"].stdout != config_mod.Config().to_toml():
+        raise AssertionError("phase 22 (a): generate-config is not the default text")
+    config_mod.from_toml(runs["generate"].stdout).validate()
+    if "dry-run: config ok" not in runs["dry_run"].stderr:
+        raise AssertionError(f"phase 22 (a): dry-run said {runs['dry_run'].stderr[-500:]!r}")
+    m = re.search(r"warmed (\d+) kernel launches in ([0-9.]+)s", runs["warm"].stderr)
+    if m is None or int(m.group(1)) < 1:
+        raise AssertionError(f"phase 22 (a): warm said {runs['warm'].stderr[-500:]!r}")
+    out["warm_launches"], out["warm_s"] = int(m.group(1)), float(m.group(2))
+    log(f"phase 22 (a): config -c, generate-config, server --dry-run and warm in "
+        f"{out['s']:.2f}s (processes at once); warm: {out['warm_launches']} kernel launches "
+        f"in {out['warm_s']}s")
+    return out
+
+
+def node_counts(h: str) -> dict:
+    """The node's launches by site, delta-scatter counters, residency
+    pool counters and stats counts (they live in its process)."""
+    _, perf = http(h, "GET", "/debug/perf")
+    _, ingest = http(h, "GET", "/debug/ingest")
+    _, vars_ = http(h, "GET", "/debug/vars")
+    _, hbm = http(h, "GET", "/debug/hbm")
+    sites = {k: int(v.get("launches", 0)) for k, v in perf.get("sites", {}).items()}
+    return {"sites": sites, "scatter": ingest["scatter"], "pool": hbm["counters"],
+            "counts": vars_["stats"]["counts"]}
+
+
+def admission_storm(h: str, want: dict, cols: list) -> list:
+    """16 threads, half under each tenant's key: Count(Intersect) and
+    TopN(src) ``ADMIT_REQUESTS`` times each, and one SetBit; every answer
+    as ``(tenant, kind, status, headers, body)``."""
+    count_q, topn_q = want["count_intersect"][0], want["topn_src"][0]
+    barrier = threading.Barrier(ADMIT_THREADS)
+
+    def thread(i: int) -> list:
+        tenant = "gold" if i % 2 == 0 else "bronze"
+        hdrs = {"X-Api-Key": ADMIT_KEYS[tenant]}
+        plan_ = [("count", count_q), ("topn", topn_q)] * ADMIT_REQUESTS
+        plan_.insert(2, ("setbit", f"SetBit(frame=f, rowID={ADMIT_ROW}, columnID={cols[i]})"))
+        barrier.wait(timeout=120)
+        got = []
+        for kind, pql in plan_:
+            status, rh, body = http_full(h, "POST", "/index/i/query", pql.encode(), hdrs)
+            got.append((tenant, kind, status, rh, body))
+        return got
+
+    with ThreadPoolExecutor(ADMIT_THREADS) as pool:
+        return [r for f in [pool.submit(thread, i) for i in range(ADMIT_THREADS)]
+                for r in f.result(timeout=900)]
+
+
+def check_answers(answers: list, want: dict) -> dict:
+    """Every 200 equals the phase-5 node's answer; every 429 carries
+    ``Retry-After`` >= 1 and ``retryAfterMs``, a quota shed its
+    ``X-Quota-*`` headers."""
+    tally: dict = {}
+    for tenant, kind, status, rh, body in answers:
+        key = f"{tenant}.{kind}.{status}"
+        tally[key] = tally.get(key, 0) + 1
+        if status == 200:
+            ok = {"count": want["count_intersect"][1], "topn": want["topn_src"][1],
+                  "setbit": {"results": [True]}, "burst": want["burst"][1]}[kind]
+            if body != ok:
+                raise AssertionError(f"phase 22 (b): {tenant} {kind}: {str(body)[:300]} != "
+                                     f"{str(ok)[:300]}")
+        elif status == 429:
+            if int(rh.get("Retry-After", "0")) < 1 or not body.get("retryAfterMs", 0) > 0:
+                raise AssertionError(f"phase 22 (b): a 429 without Retry-After / retryAfterMs: "
+                                     f"{rh} {body}")
+            if "quota" in body:
+                if (body["quota"]["tenant"] != "bronze" or rh.get("X-Quota-Limit") != "20"
+                        or "X-Quota-Remaining" not in rh):
+                    raise AssertionError(f"phase 22 (b): a quota shed's headers {rh} {body}")
+                tally["quota_sheds"] = tally.get("quota_sheds", 0) + 1
+        else:
+            raise AssertionError(f"phase 22 (b): {tenant} {kind}: status {status} {body}")
+    return tally
+
+
+def config_and_check(srv, copy_dir: str, want: dict, truth: np.ndarray) -> dict:
+    """Phase 22 (see the module docstring) on phase 19's copy of the phase-5
+    directory; ``want`` holds the phase-5 node's answers, ``truth`` the
+    planes with every write so far."""
+    import signal
+
+    from pilosa_tpu_torch.device import floorprobe
+    from pilosa_tpu_torch.net import webui
+
+    t_start = time.perf_counter()
+    out: dict = {}
+    work = tempfile.mkdtemp(prefix="pilosa-torch-config-")
+    h = f"127.0.0.1:{free_port()}"
+    path = os.path.join(work, "pilosa.toml")
+    with open(path, "w") as f:
+        f.write(admission_toml(copy_dir, h))
+    # The node's open probes the stream floor anew (K11), not from the copy's
+    # cache.
+    probe_file = os.path.join(copy_dir, floorprobe.CACHE_FILE)
+    if os.path.exists(probe_file):
+        os.remove(probe_file)
+    env = cli_env()
+    profile = os.path.join(work, "cpu.prof")
+    node_log = open(os.path.join(work, "node.log"), "w")
+    ok = False
+    t0 = time.perf_counter()
+    node = subprocess.Popen(
+        [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "-c", path, "--device",
+         ADMIT_DEVICE, "--admission-internal-concurrency", str(ADMIT_WIDTHS["internal"]),
+         "--cpuprofile", profile, "--cputime", "0"],
+        env=dict(env, **{ADMIT_ENV[0]: ADMIT_ENV[1]}), stdout=node_log, stderr=subprocess.STDOUT)
+    try:
+        out["cli"] = cli_files_and_check(path, env)
+
+        def up() -> bool:
+            if node.poll() is not None:
+                raise AssertionError(f"phase 22 (b): the node exited {node.returncode}")
+            try:
+                return http_raw(h, "/status")[0] == 200
+            except OSError:
+                return False
+
+        wait_until(up, ADMIT_TIMEOUT_S, "phase 22's node did not answer")
+        out["open_s"] = time.perf_counter() - t0
+        # K11's launches at the open, as the node's probe counted them in its
+        # own process (stream_sum.launches around the measurement) and wrote
+        # them into the cache file it made anew.
+        if not os.path.exists(probe_file):
+            raise AssertionError("phase 22 (b): the node's open did not probe the stream floor")
+        with open(probe_file) as f:
+            probed = json.load(f)
+        k11 = sum(int(r["launches"]) for r in probed.values())
+        if k11 != floorprobe.WARMUP_ITERS + floorprobe.TIMED_ITERS:
+            raise AssertionError(f"phase 22 (b): the node's floor probe launched stream_sum "
+                                 f"{k11} times at open (want {floorprobe.WARMUP_ITERS} + "
+                                 f"{floorprobe.TIMED_ITERS}): {probed}")
+        _, health = http(h, "GET", "/debug/health")
+        adm_ = health["admission"]
+        got_widths = {c: adm_[c]["concurrency"] for c in adm_}
+        depths = {c: adm_[c]["queueDepth"] for c in ("point", "heavy", "write")}
+        if got_widths != ADMIT_WIDTHS or set(depths.values()) != {2} or \
+                health["queryTimeoutMs"] != float(ADMIT_ENV[1]):
+            raise AssertionError(f"phase 22 (b): /debug/health admission {adm_}, "
+                                 f"queryTimeoutMs {health['queryTimeoutMs']}")
+        log(f"phase 22 (b): `server -c` answered in {out['open_s']:.2f}s (K11 probed the floor "
+            f"at open: {k11} launches, counted by the node); /debug/health: widths "
+            f"{got_widths} (internal from the flag over the file's 16), queues {depths}, "
+            f"queryTimeoutMs "
+            f"{health['queryTimeoutMs']} (from {ADMIT_ENV[0]} over the file's 30000)")
+
+        # The node stages every mirror in the background after it answers;
+        # the storm starts when it is done, so that each acknowledged SetBit
+        # queues on a resident mirror and reaches the card through K7.
+        def staged() -> bool:
+            st = http(h, "GET", "/debug/hbm")[1]["staging"]
+            if st["errors"]:
+                raise AssertionError(f"phase 22 (b): staging errors {st}")
+            return st["scheduled"] > 0 and st["pending"] == 0
+        out["staged_s"] = wait_until(staged, ADMIT_TIMEOUT_S, "phase 22's node staging",
+                                     every=0.2)
+
+        # The SetBits: row ADMIT_ROW at columns where neither it nor the
+        # TopN's src row (0) is set, one a thread over spread slices, so that
+        # no Count or TopN answer moves.
+        cols = []
+        for i in range(ADMIT_THREADS):
+            s_ = (37 + 59 * i) % N_SLICES
+            free = np.flatnonzero(np.unpackbits(
+                (~(truth[s_, 0] | truth[s_, ADMIT_ROW])).view(np.uint8), bitorder="little"))
+            cols.append((s_ << 20) + int(free[i]))
+        row_q = f"Count(Bitmap(frame=f, rowID={ADMIT_ROW}))"
+        base = int(np.bitwise_count(truth[:, ADMIT_ROW]).sum(dtype=np.int64))
+        burst_q = "Count(Intersect(Bitmap(frame=f, rowID=0), Bitmap(frame=f, rowID=1)))"
+        want = dict(
+            want,
+            count_intersect=(MESH_QUERIES[0][1], want["count_intersect"]),
+            topn_src=(MESH_QUERIES[6][1], want["topn_src"]),
+            burst=(burst_q, {"results": [int(np.bitwise_count(truth[0, 0] & truth[0, 1]).sum())]}),
+        )
+        c0 = node_counts(h)
+        t1 = time.perf_counter()
+        answers = admission_storm(h, want, cols)
+        out["storm_s"] = time.perf_counter() - t1
+        # bronze's burst past its quota: one slice, back to back.
+        bronze = {"X-Api-Key": ADMIT_KEYS["bronze"]}
+        for _ in range(ADMIT_BURST):
+            status, rh, body = http_full(h, "POST", "/index/i/query?slices=0",
+                                         burst_q.encode(), bronze)
+            answers.append(("bronze", "burst", status, rh, body))
+        tally = check_answers(answers, want)
+        set_ok = tally.get("gold.setbit.200", 0) + tally.get("bronze.setbit.200", 0)
+        status, _, body = http_full(h, "POST", "/index/i/query", row_q.encode())
+        if status != 200 or body["results"] != [base + set_ok]:
+            raise AssertionError(f"phase 22 (b): {row_q} after {set_ok} acknowledged SetBits: "
+                                 f"{status} {body} (want {base + set_ok})")
+        c1 = node_counts(h)
+        counts_200 = sum(n for k, n in tally.items()
+                         if k.endswith((".count.200", ".burst.200"))) + 1
+        k2 = sum(c1["sites"].get(s_, 0) - c0["sites"].get(s_, 0) for s_ in ("total", "direct"))
+        k4 = c1["sites"].get("topn", 0) - c0["sites"].get("topn", 0)
+        builds = int(c1["counts"].get("exec.topn.prepBuild", 0)) - int(
+            c0["counts"].get("exec.topn.prepBuild", 0))
+        k7 = c1["scatter"]["launches"] - c0["scatter"]["launches"]
+        applied = c1["scatter"]["updatesApplied"] - c0["scatter"]["updatesApplied"]
+        fallbacks = c1["scatter"]["fallbackInvalidations"] - c0["scatter"]["fallbackInvalidations"]
+        # Every mirror was staged before the storm and the copy fits the
+        # budget: each acknowledged SetBit reaches the card through K7, with
+        # no whole upload and no eviction on the way.
+        uploads, evictions = (c1["pool"][k] - c0["pool"][k]
+                              for k in ("restageUploads", "evictions"))
+        sheds = sum(n for k, n in tally.items() if k.endswith(".429"))
+        if k2 != counts_200:
+            raise AssertionError(f"phase 22 (b): K2 launched {k2} times at the Count's site for "
+                                 f"{counts_200} Count 200s ({sheds} sheds)")
+        if k4 != builds or k4 < 1:
+            raise AssertionError(f"phase 22 (b): K4 launched {k4} times for {builds} TopN prep "
+                                 "builds")
+        if (fallbacks or uploads or evictions or applied != set_ok
+                or (set_ok and not 1 <= k7 <= set_ok)):
+            raise AssertionError(f"phase 22 (b): K7 {k7} launches applied {applied} bits for "
+                                 f"{set_ok} acknowledged SetBits, {fallbacks} fallbacks, "
+                                 f"{uploads} mirror uploads, {evictions} evictions")
+        if not tally.get("quota_sheds") or not any(
+                k.startswith("gold.") and k.endswith(".200") for k in tally):
+            raise AssertionError(f"phase 22 (b): no quota shed or no gold answer: {tally}")
+        out.update(tally=tally, k2=k2, k4=k4, k7=k7, k11=k11, prep_builds=builds,
+                   setbits_applied=set_ok, k7_bits=applied, uploads=uploads,
+                   evictions=evictions, sheds=sheds)
+        log(f"phase 22 (b): the mirrors staged {out['staged_s']:.2f}s after the node answered; "
+            f"{ADMIT_THREADS} threads x ({ADMIT_REQUESTS} Count(Intersect) + "
+            f"{ADMIT_REQUESTS} TopN(src) + 1 SetBit) in {out['storm_s']:.2f}s, then "
+            f"{ADMIT_BURST} bronze Counts back to back: {json.dumps(tally, sort_keys=True)}; "
+            f"every 200 equal to the phase-5 node's answer, every 429 with Retry-After; K2 "
+            f"{k2} = the Count 200s, K4 {k4} = the TopN prep builds, K7 {k7} applied "
+            f"{applied} bits of the {set_ok} acknowledged SetBits (no fallback; {uploads} "
+            f"mirror uploads, {evictions} evictions during the storm)")
+
+        _, _, tenants = http_full(h, "GET", "/debug/tenants")
+        tt = tenants["tenants"]
+        if not (tt["gold"]["admitted"] and tt["bronze"]["shed"] and tt["bronze"]["quotaShed"]):
+            raise AssertionError(f"phase 22 (b): /debug/tenants {tenants}")
+        out["tenants"] = {t: {k: tt[t][k] for k in ("admitted", "shed", "quotaShed")}
+                          for t in ("gold", "bronze")}
+        status, text = http_raw(h, "/metrics")
+        fams = parse_exposition(text.decode())
+        for prefix in ("pilosa_net_admission_", "pilosa_tenant_"):
+            if status != 200 or not any(f.startswith(prefix) for f in fams):
+                raise AssertionError(f"phase 22 (b): /metrics has no {prefix}* family")
+        out["metrics_families"] = sorted(f for f in fams if f.startswith(
+            ("pilosa_net_admission_", "pilosa_tenant_")))
+        # X-Internal-Lane without the token: a client class; with it: internal.
+        lane = {}
+        body = json.dumps({"index": "i", "frame": "f", "field": "absent", "slice": 0,
+                           "columnIDs": [], "values": []}).encode()
+        for name, hdrs in (("no_token", {"X-Internal-Lane": "1"}),
+                           ("token", {"X-Internal-Lane": "1", "X-Internal-Token": ADMIT_TOKEN})):
+            _, before = http(h, "GET", "/debug/health")
+            status, _, _ = http_full(h, "POST", "/import-value", body, hdrs)
+            _, after = http(h, "GET", "/debug/health")
+            lane[name] = {c: after["admission"][c]["admitted"] - before["admission"][c]["admitted"]
+                          for c in ("write", "internal") if c in after["admission"]}
+            if status == 429:
+                raise AssertionError(f"phase 22 (b): /import-value {name} shed")
+        if lane != {"no_token": {"write": 1, "internal": 0}, "token": {"write": 0, "internal": 1}}:
+            raise AssertionError(f"phase 22 (b): X-Internal-Lane charged {lane}")
+        for p_, body_ in (("/", webui.INDEX_HTML), ("/assets/main.js", webui.ASSETS["main.js"][0])):
+            status, data = http_raw(h, p_)
+            if status != 200 or data != body_.encode():
+                raise AssertionError(f"phase 22 (b): GET {p_}: {status}")
+        # (c) the node's own fallback counters and health.
+        counts = node_counts(h)["counts"]
+        moved = {k: v for k, v in counts.items()
+                 if k.startswith(("exec.hostEval.queries", "device.launch.retries")) and v}
+        _, health = http(h, "GET", "/debug/health")
+        dev = health["device"]
+        if moved or dev["degraded"] or any(p["state"] != "healthy" for p in dev["paths"].values()):
+            raise AssertionError(f"phase 22 (c): the node's fallbacks {moved}, health {dev}")
+        log(f"phase 22 (b): /debug/tenants {json.dumps(out['tenants'])}; /metrics parses, "
+            f"{len(out['metrics_families'])} admission and tenant families; X-Internal-Lane "
+            f"{json.dumps(lane)}; GET / and /assets/main.js the console's bytes; (c) no host "
+            "answer and no fault classified on the node")
+        t2 = time.perf_counter()
+        node.send_signal(signal.SIGTERM)
+        rc = node.wait(timeout=ADMIT_TIMEOUT_S)
+        out["close_s"] = time.perf_counter() - t2
+        if rc != 0 or not os.path.getsize(profile):
+            raise AssertionError(f"phase 22 (b): SIGTERM: exit {rc}, profile "
+                                 f"{os.path.exists(profile) and os.path.getsize(profile)} bytes")
+        out["profile_bytes"] = os.path.getsize(profile)
+        log(f"phase 22 (b): SIGTERM closed the node in {out['close_s']:.2f}s with exit 0; "
+            f"--cpuprofile wrote {out['profile_bytes']} bytes")
+        ok = True
+    finally:
+        if node.poll() is None:
+            node.kill()
+            node.wait(timeout=60)
+        node_log.close()
+        if not ok:  # the node's own account of a failure
+            with open(os.path.join(work, "node.log")) as f:
+                print(f.read()[-8000:], file=sys.stderr)
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"phase 22: {out['seconds']:.1f} s")
+    return out
+
+
 PHASES = {
     "serve_and_check": "5",
     "coalesce_and_check": "14",
@@ -7008,6 +7448,7 @@ PHASES = {
     "standing_and_check": "21a",
     "tier_and_check": "21b",
     "gossip_and_check": "21c",
+    "config_and_check": "22",
 }
 
 
@@ -7168,6 +7609,13 @@ def main() -> int:
             meshed = mesh_and_check({"k2": te, "k4": sp, "k9": mt, "top_k": tk}, Server,
                                     ExpvarStatsClient, srv, data_dir, planes, truth, watch)
             watch.check("19", srv)
+            # Phase 22 on phase 19's copy, through the CLI in a process of its own.
+            copy_dir = meshed.pop("copy_dir")
+            try:
+                configured = config_and_check(srv, copy_dir, meshed.pop("want"), truth)
+            finally:
+                shutil.rmtree(copy_dir, ignore_errors=True)
+            watch.check("22", srv)
             healed = health_and_check(all_kernels, br, convert, srv, truth,
                                       np.random.default_rng(SEED + 18))
             del truth
@@ -7269,12 +7717,12 @@ def main() -> int:
             "replaces": ds.REPLACES,
             "launches": served["k7_launches"] + clustered["k7_launches"] + valued["k7_launches"]
             + backed["launches"]["k7"] + healed["launches"].get("k7", 0)
-            + clustered["replicas"]["k7_launches"] + k7_phase21,
+            + clustered["replicas"]["k7_launches"] + k7_phase21 + configured["k7"],
             "launches_by_phase": {"5": served["k7_launches"], "6": clustered["k7_launches"],
                                   "7": valued["k7_launches"], "17": backed["launches"]["k7"],
                                   "18": healed["launches"].get("k7", 0),
                                   "20": clustered["replicas"]["k7_launches"],
-                                  "21": k7_phase21},
+                                  "21": k7_phase21, "22": configured["k7"]},
             "max_abs_err": k7_err,
             "ms": k7["ms"],
             "device_ms": k7["device_ms"],
@@ -7419,8 +7867,8 @@ def main() -> int:
         "route": "cuda",
         "source": ss.SOURCE,
         "replaces": ss.REPLACES,
-        "launches": k11_launches,
-        "launches_by_phase": {"5": k11_launches},
+        "launches": k11_launches + configured["k11"],
+        "launches_by_phase": {"5": k11_launches, "22": configured["k11"]},
         "max_abs_err": k11_err,
         "checked": k11_err == 0.0,
         "shape": [k11_times["probe_bytes"] // 4],
@@ -7463,12 +7911,18 @@ def main() -> int:
     k4_entry = next(k for k in kernels if k["name"] == sp.NAME)
     k4_entry["launches"] += meshed["launches"]["k4"]
     k4_entry["launches_by_phase"]["19"] = meshed["launches"]["k4"]
+    # Phase 22's node ran in a process of its own: its launches are the
+    # counts of its /debug/perf sites and /debug/ingest.
+    for entry, n in ((k2_entry, configured["k2"]), (k4_entry, configured["k4"])):
+        entry["launches"] += n
+        entry["launches_by_phase"]["22"] = n
     log(f"phase 19 (summary): {json.dumps(meshed)}")
     log(f"phase 16 (summary): {json.dumps({k: v for k, v in observed.items() if k != 'sites'})}; "
         f"cluster trace {json.dumps(clustered['trace'])}")
     log(f"phase 17 (summary): {json.dumps(backed)}")
     log(f"phase 18 (summary): {json.dumps(healed)}")
     log(f"phase 21 (summary): {json.dumps({'a': standing, 'b': tiered, 'c': gossiped})}")
+    log(f"phase 22 (summary): {json.dumps(configured)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -1,58 +1,45 @@
 """CLI entry point (reference: cmd/).
 
-    python -m pilosa_tpu_torch.cli server --data-dir D --bind H:P [--device cuda]
-        [--mesh-devices N]
-        [--cluster-type static|http|gossip --hosts H1:P1,H2:P2 [--internal-hosts ...]
-         --replicas N --internal-port P --polling-interval S]
-        [--gossip-seed IP:PORT --gossip-bind IP:PORT --gossip-ack-timeout-ms MS
-         --gossip-stream-timeout-ms MS]
-        [--tier-store URL --tier-hydrate-throttle-mbps F --tier-disk-budget-bytes N
-         --tier-retention-age-s S --tier-retention-delete-s S --tier-sweep-interval-s S]
-        [--subscribe true|false --subscribe-max-subscriptions N --subscribe-queue-cap N
-         --subscribe-delta-cap N --subscribe-coalesce-ms MS --subscribe-refresh-ms MS]
-        [--plane-format auto|dense] [--hbm-budget-bytes N] [--prefetch true|false]
-        [--wal true|false --group-commit-ms MS --group-commit-max N
-         --wal-segment-bytes N]
-        [--coalesce true|false --coalesce-max-batch N --coalesce-max-wait-us US
-         --fuse true|false --fuse-max-programs N] [--prewarm true|false]
-        [--metrics-service nop|expvar|statsd --metrics-host H:P]
-        [--slow-query-ms MS --trace-ring N --latency-buckets-ms 1,5,10
-         --slo-ms MS --slo-objective F --floor-probe true|false]
-        [--anti-entropy-interval S --query-timeout-ms MS --broadcast-timeout-ms MS
-         --retry-attempts N --retry-backoff-ms MS --breaker-failure-threshold N
-         --breaker-open-ms MS --write-consistency one|quorum|all
-         --read-consistency one|quorum|all --hint-cap N
-         --hint-replay-throttle-mbps F --rebalance-throttle-mbps F
-         --rebalance-verify-rounds N --rebalance-delta-cap N
-         --rebalance-release-delay-ms MS]
+    python -m pilosa_tpu_torch.cli server [-c pilosa.toml] [-d DIR] [--bind H:P]
+        [--device cuda|cuda:N|cpu] [--dry-run] [--cpuprofile PATH --cputime S]
+        [--gossip-bind IP:PORT] [--<key> VALUE ...]
+    python -m pilosa_tpu_torch.cli warm [-c pilosa.toml] [--device cuda]
+    python -m pilosa_tpu_torch.cli config [-c pilosa.toml]
+    python -m pilosa_tpu_torch.cli generate-config
 
-runs one node until SIGINT/SIGTERM.  The device defaults to the CUDA
-card; ``--device cpu`` runs on the CPU.  On a host with several cards
-the node shards its slices over all of them (slice ``s`` on card ``s mod
-n``); ``--mesh-devices N`` (the JAX package's ``[device] mesh-devices``,
-else ``$PILOSA_DEVICE_MESH_DEVICES``) caps them, 1 forcing one card.  A
-launcher that sets ``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES`` and
-``JAX_PROCESS_ID`` joins the node to a ``torch.distributed`` process
-group before it opens (``parallel/multihost.py``).  The last flags name the JAX
-package's ``[device]``, ``[ingest]`` and ``[exec]`` keys
-(``plane-format``, ``hbm-budget-bytes``, ``prefetch``, ``wal``,
-``group-commit-ms``, ``group-commit-max``, ``wal-segment-bytes``,
-``coalesce``, ``coalesce-max-batch``, ``coalesce-max-wait-us``,
-``fuse``, ``fuse-max-programs``), ``[tpu] prewarm``, ``[metrics]
-service`` / ``host`` and the ``[obs]`` keys (``slow-query-ms``,
-``trace-ring``, ``latency-buckets-ms``, ``slo-ms``, ``slo-objective``,
-``floor-probe``), and the ``[net]`` / ``[cluster]`` keys of replica
-agreement (``anti-entropy-interval``, ``query-timeout-ms``,
-``broadcast-timeout-ms``, ``retry-attempts``, ``retry-backoff-ms``,
-``breaker-failure-threshold``, ``breaker-open-ms``,
-``write-consistency``, ``read-consistency``, ``hint-cap``,
-``hint-replay-throttle-mbps`` and the ``rebalance-*`` keys), the
-``[tier]``, ``[gossip]`` and ``[subscribe]`` keys (``--tier-*``,
-``--gossip-*`` with ``[cluster] gossip-seed``, ``--subscribe*``), with
-their defaults.  (The configuration file itself waits for the port of
-``config.py``.)  ``--metrics-service expvar``
-fills ``/debug/vars`` and ``/metrics``; ``statsd`` sends dogstatsd
-datagrams to ``--metrics-host`` (default 127.0.0.1:8125).
+``server`` runs one node until SIGINT/SIGTERM, both of which run its
+close path.  Its settings are the JAX package's configuration
+(``config.py``, its own copy here): the TOML file of ``-c``, under the
+``PILOSA_*`` environment, under the flags — ``flag > env > file >
+default`` (JAX ``config.load``) — so every flag but the port's own
+defaults to "not given".  ``-d`` / ``--data-dir`` and ``--bind`` name
+``data-dir`` and ``host``; every other flag is one key of the file, named
+in its help (``SERVER_FLAGS``: ``--hosts`` is ``[cluster] hosts``,
+``--coalesce`` ``[exec] coalesce``, ``--admission-point-concurrency``
+``[net] admission-point-concurrency``, ...).  ``build_server`` hands every
+key to the ``Server``, except ``[tpu] compilation-cache-dir``: the port
+has no compile cache (its kernels build once into ``build/``), so the key
+is read, validated and printed, and has no effect; ``[tpu] prewarm``
+builds every kernel and launches each once at open, and ``[tpu]
+mesh-shape`` caps the data plane's members (``PILOSA_TPU_MESH_SHAPE``).
+The port's own flags: ``--device`` (the card unless ``cpu`` is asked
+for; the file has no device key) and ``--gossip-bind``.  ``--dry-run``
+builds the node and exits 0 before serving; ``--cpuprofile`` writes the
+``/debug/pprof/profile`` sampler's folded stacks of the first
+``--cputime`` seconds (0: until shutdown) at close.  On a host with
+several cards the node shards its slices over all of them (slice ``s`` on
+card ``s mod n``); ``[device] mesh-devices`` caps them, 1 forcing one
+card.  A launcher that sets ``JAX_COORDINATOR_ADDRESS``,
+``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID`` joins the node to a
+``torch.distributed`` process group before it opens
+(``parallel/multihost.py``).
+
+``warm`` builds every kernel and launches each query-path kernel once
+(``exec/warmup.prewarm``) and prints the launches and the seconds; the
+builds stay in ``build/torch_kernels/`` for every later process.
+``config`` validates a file (with the environment) and prints it,
+``generate-config`` prints the defaults: both byte for byte the JAX
+CLI's text.  A configuration error prints ``error: ...`` and exits 1.
 
     python -m pilosa_tpu_torch.cli import --host H:P -i INDEX -f FRAME FILE.csv ...
 
@@ -87,8 +74,7 @@ offline; ``sort`` orders a CSV by slice for import; ``resize`` starts a
 live resize to the complete target host list (``POST /cluster/resize``),
 prints the migration's state (``--status``), aborts it (``--abort``) or
 waits for it (``--wait``, JAX ``cli/ctl.py:768``).  An error prints
-``error: ...`` and exits 1.  Not ported yet: ``warm``, ``config`` and
-``generate-config`` (they wait for ``config.py``).
+``error: ...`` and exits 1.
 """
 
 from __future__ import annotations
@@ -107,6 +93,7 @@ from datetime import datetime, timezone
 import numpy as np
 
 from pilosa_tpu_torch import __version__
+from pilosa_tpu_torch import config as config_mod
 from pilosa_tpu_torch.ops import roaring
 from pilosa_tpu_torch.ops.bitplane import SLICE_WIDTH
 from pilosa_tpu_torch.pql.parser import TIME_FORMAT
@@ -133,118 +120,153 @@ def _floats(value: str) -> list[float]:
     return [float(v) for v in value.split(",") if v.strip()]
 
 
+# The server's flags: each overrides one key of the configuration file
+# (flag > env > file > default, ``config.load``), so each defaults to None.
+SERVER_FLAGS = (
+    (("-d", "--data-dir"), "data_dir", str, "data directory"),
+    (("--bind",), "host", str, "host:port to bind"),
+    (("--mesh-devices",), "device.mesh_devices", int,
+     "cards the slices shard over (0: all visible, 1: one card)"),
+    (("--cluster-type",), "cluster.type", str, "static, http or gossip"),
+    (("--hosts",), "cluster.hosts", _hosts, "H:P,H:P,... of every node"),
+    (("--internal-hosts",), "cluster.internal_hosts", _hosts,
+     "internal listeners of the hosts, in order (default: each host with --internal-port)"),
+    (("--replicas",), "cluster.replicas", int, "owners of each slice"),
+    (("--internal-port",), "cluster.internal_port", int, "the internal listener's port"),
+    (("--polling-interval",), "cluster.polling_interval", float,
+     "seconds between polls of the peers' max slices"),
+    (("--long-query-time",), "cluster.long_query_time", float,
+     "log the text of queries slower than this many seconds (0: off)"),
+    (("--max-writes-per-request",), "max_writes_per_request", int, "writes at most a request"),
+    (("--log-path",), "log_path", str, "append the log to this file (default stderr)"),
+    (("--plane-format",), "device.plane_format", str, "the sparse tier's policy: auto or dense"),
+    (("--hbm-budget-bytes",), "device.hbm_budget_bytes", int,
+     "device-memory budget of the residency pool (0: $PILOSA_DEVICE_HBM_BUDGET_BYTES, "
+     "else 0.8 of the card)"),
+    (("--prefetch",), "device.prefetch", _bool, "upload a query's cold mirrors in the background"),
+    (("--wal",), "ingest.wal", _bool, "answer writes after their WAL fsync"),
+    (("--group-commit-ms",), "ingest.group_commit_ms", float, "the WAL's group-commit window"),
+    (("--group-commit-max",), "ingest.group_commit_max", int, "ops that commit a group early"),
+    (("--wal-segment-bytes",), "ingest.wal_segment_bytes", int, "WAL size that rolls a snapshot"),
+    (("--coalesce",), "exec.coalesce", _bool,
+     "give concurrent Count/Bitmap queries one launch"),
+    (("--coalesce-max-batch",), "exec.coalesce_max_batch", int,
+     "queries at most in one coalesced launch"),
+    (("--coalesce-max-wait-us",), "exec.coalesce_max_wait_us", int,
+     "wait at most this long for company before a launch"),
+    (("--fuse",), "exec.fuse", _bool, "run a mix of distinct trees in one interpreter launch"),
+    (("--fuse-max-programs",), "exec.fuse_max_programs", int,
+     "distinct trees at most in one interpreter launch"),
+    (("--prewarm",), "tpu.prewarm", _bool, "build every kernel and launch each once at open"),
+    (("--metrics-service",), "metrics.service", str, "stats client: nop, expvar or statsd"),
+    (("--metrics-host",), "metrics.host", str, "statsd host:port"),
+    (("--slow-query-ms",), "obs.slow_query_ms", float,
+     "log one structured line per query slower than this (0: off)"),
+    (("--trace-ring",), "obs.trace_ring", int, "finished query traces kept for /debug/traces"),
+    (("--latency-buckets-ms",), "obs.latency_buckets_ms", _floats,
+     "upper bounds of the /metrics latency histograms, ms"),
+    (("--slo-ms",), "obs.slo_ms", float, "query-latency SLO; > 0 adds the SLO burn gauges"),
+    (("--slo-objective",), "obs.slo_objective", float, "share of queries under the SLO"),
+    (("--floor-probe",), "obs.floor_probe", _bool,
+     "measure the stream floor of /debug/perf at open"),
+    (("--stream-chunk-bytes",), "net.stream_chunk_bytes", int,
+     "write size of streamed bodies (0: 64 KiB)"),
+    (("--anti-entropy-interval",), "anti_entropy_interval", float,
+     "seconds between anti-entropy sweeps"),
+    (("--query-timeout-ms",), "net.query_timeout_ms", float, "a query's default deadline (0: none)"),
+    (("--broadcast-timeout-ms",), "net.broadcast_timeout_ms", float,
+     "socket timeout of the max-slice poll"),
+    (("--retry-attempts",), "net.retry_attempts", int, "tries of an idempotent call to a peer"),
+    (("--retry-backoff-ms",), "net.retry_backoff_ms", float, "the first retry's backoff"),
+    (("--breaker-failure-threshold",), "net.breaker_failure_threshold", int,
+     "consecutive failures that open a peer's breaker"),
+    (("--breaker-open-ms",), "net.breaker_open_ms", float,
+     "time an open breaker waits before its half-open probe"),
+    (("--admission",), "net.admission", _bool, "gate requests by cost class (429 when shed)"),
+    (("--admission-point-concurrency",), "net.admission_point_concurrency", int,
+     "Count/Bitmap queries served at once"),
+    (("--admission-heavy-concurrency",), "net.admission_heavy_concurrency", int,
+     "TopN/Sum/Min/Max/Range queries served at once"),
+    (("--admission-write-concurrency",), "net.admission_write_concurrency", int,
+     "writes and imports served at once"),
+    (("--admission-internal-concurrency",), "net.admission_internal_concurrency", int,
+     "peers' map legs and repairs served at once"),
+    (("--admission-subscribe-concurrency",), "net.admission_subscribe_concurrency", int,
+     "standing-query evaluations at once"),
+    (("--admission-queue-depth",), "net.admission_queue_depth", int,
+     "requests a tenant may queue in a client class"),
+    (("--tenants",), "net.tenants", _hosts, "name:weight[:qps[:bytes_per_s]],..."),
+    (("--tenant-keys",), "net.tenant_keys", _hosts, "apikey:tenant,..."),
+    (("--tenant-default",), "net.tenant_default", str, "the tenant of untagged requests"),
+    (("--tenant-internal-token",), "net.tenant_internal_token", str,
+     "the token that proves the internal lane"),
+    (("--write-consistency",), "cluster.write_consistency", str,
+     "acknowledgements a write needs: one, quorum or all"),
+    (("--read-consistency",), "cluster.read_consistency", str,
+     "replicas whose versions a read checks: one, quorum or all"),
+    (("--hint-cap",), "cluster.hint_cap", int, "bits of hints kept per replica and slice"),
+    (("--hint-replay-throttle-mbps",), "cluster.hint_replay_throttle_mbps", float,
+     "the hint replay's rate (0: no limit)"),
+    (("--rebalance-throttle-mbps",), "cluster.rebalance_throttle_mbps", float,
+     "a resize's copy rate (0: no limit)"),
+    (("--rebalance-verify-rounds",), "cluster.rebalance_verify_rounds", int,
+     "checksum rounds of a slice's copy"),
+    (("--rebalance-delta-cap",), "cluster.rebalance_delta_cap", int,
+     "bits a migrating slice's delta log holds"),
+    (("--rebalance-release-delay-ms",), "cluster.rebalance_release_delay_ms", float,
+     "wait before a moved slice's source drops it"),
+    (("--rebalance-on-join",), "cluster.rebalance_on_join", _bool,
+     "admit the hosts gossip announces by a resize"),
+    (("--gossip-seed",), "cluster.gossip_seed", str, "gossip address (IP:PORT) to join through"),
+    (("--gossip-ack-timeout-ms",), "gossip.ack_timeout_ms", float, "the first ACK wait"),
+    (("--gossip-stream-timeout-ms",), "gossip.stream_timeout_ms", float,
+     "timeout of the state stream over HTTP"),
+    (("--tier-store",), "tier.store", str,
+     "cold-tier object store (http://H:P, file:///path or a path)"),
+    (("--tier-hydrate-throttle-mbps",), "tier.hydrate_throttle_mbps", float,
+     "hydration's read rate (0: no limit)"),
+    (("--tier-disk-budget-bytes",), "tier.disk_budget_bytes", int,
+     "local bytes of hot fragments (0: no budget)"),
+    (("--tier-retention-age-s",), "tier.retention_age_s", float,
+     "age a time view to the store this long past its quantum (0: never)"),
+    (("--tier-retention-delete-s",), "tier.retention_delete_s", float,
+     "delete a time view this long past its quantum (0: never)"),
+    (("--tier-sweep-interval-s",), "tier.sweep_interval_s", float, "seconds between sweeps"),
+    (("--subscribe",), "subscribe.enabled", _bool, "serve standing queries"),
+    (("--subscribe-max-subscriptions",), "subscribe.max_subscriptions", int,
+     "standing queries at most"),
+    (("--subscribe-queue-cap",), "subscribe.queue_cap", int, "updates kept per subscription"),
+    (("--subscribe-delta-cap",), "subscribe.delta_cap", int,
+     "bits per slice between notifications before a full re-run"),
+    (("--subscribe-coalesce-ms",), "subscribe.coalesce_ms", float, "the notify window"),
+    (("--subscribe-refresh-ms",), "subscribe.refresh_interval_ms", float,
+     "a cluster subscription's re-pull interval"),
+)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pilosa_tpu_torch")
     p.add_argument("--version", action="version", version=__version__)
     sub = p.add_subparsers(dest="cmd", required=True)
     srv = sub.add_parser("server", help="run a node")
-    srv.add_argument("--data-dir", default=os.path.expanduser("~/.pilosa"))
-    srv.add_argument("--bind", default="127.0.0.1:10101")
+    srv.add_argument("-c", "--config", default="", help="TOML config file")
     srv.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
-    srv.add_argument("--mesh-devices", type=int, default=0,
-                     help="cards the slices shard over (0: all visible, 1: one card)")
-    srv.add_argument("--cluster-type", default="static",
-                     help="static (default), http or gossip")
-    srv.add_argument("--hosts", type=_hosts, default=[], help="H:P,H:P,... of every node")
-    srv.add_argument(
-        "--internal-hosts", type=_hosts, default=None,
-        help="internal listeners of the hosts, in order (default: each host with "
-        "--internal-port)",
-    )
-    srv.add_argument("--replicas", type=int, default=1)
-    srv.add_argument("--internal-port", type=int, default=14000)
-    srv.add_argument("--polling-interval", type=float, default=60.0)
-    srv.add_argument("--plane-format", default="auto", choices=("auto", "dense"),
-                     help="the sparse tier's container policy")
-    srv.add_argument("--hbm-budget-bytes", type=int, default=0,
-                     help="device-memory budget of the residency pool (0: "
-                     "$PILOSA_DEVICE_HBM_BUDGET_BYTES, else 0.8 of the card)")
-    srv.add_argument("--prefetch", type=_bool, default=True,
-                     help="upload a query's cold mirrors in the background")
-    srv.add_argument("--wal", type=_bool, default=True,
-                     help="answer writes after their WAL fsync")
-    srv.add_argument("--group-commit-ms", type=float, default=2.0)
-    srv.add_argument("--group-commit-max", type=int, default=128)
-    srv.add_argument("--wal-segment-bytes", type=int, default=4 << 20)
-    # The JAX package's [exec] settings and [tpu] prewarm.
-    srv.add_argument("--coalesce", type=_bool, default=True,
-                     help="give concurrent Count/Bitmap queries one launch")
-    srv.add_argument("--coalesce-max-batch", type=int, default=64,
-                     help="queries at most in one coalesced launch")
-    srv.add_argument("--coalesce-max-wait-us", type=int, default=0,
-                     help="wait at most this long for company before a launch")
-    srv.add_argument("--fuse", type=_bool, default=True,
-                     help="run a mix of distinct trees in one interpreter launch")
-    srv.add_argument("--fuse-max-programs", type=int, default=16,
-                     help="distinct trees at most in one interpreter launch")
-    srv.add_argument("--prewarm", type=_bool, default=False,
-                     help="build every kernel and launch each once at open")
-    # The JAX package's [metrics] and [obs] settings.
-    srv.add_argument("--metrics-service", default="nop", choices=("nop", "expvar", "statsd"),
-                     help="stats client: nop (default), expvar, statsd")
-    srv.add_argument("--metrics-host", default="", help="statsd host:port")
-    srv.add_argument("--slow-query-ms", type=float, default=0.0,
-                     help="log one structured line per query slower than this (0: off)")
-    srv.add_argument("--trace-ring", type=int, default=64,
-                     help="finished query traces kept for /debug/traces")
-    srv.add_argument("--latency-buckets-ms", type=_floats, default=None,
-                     help="upper bounds of the /metrics latency histograms, ms")
-    srv.add_argument("--slo-ms", type=float, default=0.0,
-                     help="query-latency SLO; > 0 adds the SLO burn gauges")
-    srv.add_argument("--slo-objective", type=float, default=0.999)
-    srv.add_argument("--floor-probe", type=_bool, default=True,
-                     help="measure the stream floor of /debug/perf at open")
-    srv.add_argument("--stream-chunk-bytes", type=int, default=0,
-                     help="write size of streamed bodies (0: 64 KiB)")
-    # The JAX package's [net] and [cluster] settings of replica agreement.
-    srv.add_argument("--anti-entropy-interval", type=float, default=600.0,
-                     help="seconds between anti-entropy sweeps")
-    srv.add_argument("--query-timeout-ms", type=float, default=60_000.0,
-                     help="a query's default deadline (0: none)")
-    srv.add_argument("--broadcast-timeout-ms", type=float, default=5_000.0,
-                     help="socket timeout of the max-slice poll")
-    srv.add_argument("--retry-attempts", type=int, default=3,
-                     help="tries of an idempotent call to a peer")
-    srv.add_argument("--retry-backoff-ms", type=float, default=100.0)
-    srv.add_argument("--breaker-failure-threshold", type=int, default=5,
-                     help="consecutive failures that open a peer's breaker")
-    srv.add_argument("--breaker-open-ms", type=float, default=10_000.0,
-                     help="time an open breaker waits before its half-open probe")
-    srv.add_argument("--write-consistency", default="quorum",
-                     choices=("one", "quorum", "all"), help="acknowledgements a write needs")
-    srv.add_argument("--read-consistency", default="one",
-                     choices=("one", "quorum", "all"),
-                     help="replicas whose versions a read checks")
-    srv.add_argument("--hint-cap", type=int, default=10_000,
-                     help="bits of hints kept per replica and slice")
-    srv.add_argument("--hint-replay-throttle-mbps", type=float, default=0.0)
-    srv.add_argument("--rebalance-throttle-mbps", type=float, default=0.0)
-    srv.add_argument("--rebalance-verify-rounds", type=int, default=3)
-    srv.add_argument("--rebalance-delta-cap", type=int, default=50_000)
-    srv.add_argument("--rebalance-release-delay-ms", type=float, default=200.0)
-    srv.add_argument("--rebalance-on-join", type=_bool, default=False,
-                     help="admit hosts gossip announces by a resize")
-    # The JAX package's [cluster] gossip-seed and [gossip] keys.
-    srv.add_argument("--gossip-seed", default="", help="gossip address (IP:PORT) to join through")
+    srv.add_argument("--dry-run", action="store_true", help="stop before serving")
+    srv.add_argument("--cpuprofile", default="", metavar="PATH",
+                     help="write a folded-stack CPU profile of the first --cputime "
+                     "seconds to PATH")
+    srv.add_argument("--cputime", type=int, default=30, metavar="SECONDS",
+                     help="with --cpuprofile: sampling duration (0 = until shutdown)")
     srv.add_argument("--gossip-bind", default="",
                      help="UDP listener (default all interfaces on the HTTP port + 1000)")
-    srv.add_argument("--gossip-ack-timeout-ms", type=float, default=250.0)
-    srv.add_argument("--gossip-stream-timeout-ms", type=float, default=10_000.0)
-    # The JAX package's [tier] keys.
-    srv.add_argument("--tier-store", default="",
-                     help="cold-tier object store (http://H:P, file:///path or a path)")
-    srv.add_argument("--tier-hydrate-throttle-mbps", type=float, default=0.0)
-    srv.add_argument("--tier-disk-budget-bytes", type=int, default=0)
-    srv.add_argument("--tier-retention-age-s", type=float, default=0.0)
-    srv.add_argument("--tier-retention-delete-s", type=float, default=0.0)
-    srv.add_argument("--tier-sweep-interval-s", type=float, default=60.0)
-    # The JAX package's [subscribe] keys.
-    srv.add_argument("--subscribe", type=_bool, default=True, help="serve standing queries")
-    srv.add_argument("--subscribe-max-subscriptions", type=int, default=10_000)
-    srv.add_argument("--subscribe-queue-cap", type=int, default=256)
-    srv.add_argument("--subscribe-delta-cap", type=int, default=50_000)
-    srv.add_argument("--subscribe-coalesce-ms", type=float, default=5.0)
-    srv.add_argument("--subscribe-refresh-ms", type=float, default=500.0)
+    for flags, key, typ, text in SERVER_FLAGS:
+        srv.add_argument(*flags, type=typ, default=None, help=f"{text} [{key}]")
+    warm = sub.add_parser("warm", help="build every kernel and launch each once")
+    warm.add_argument("-c", "--config", default="", help="TOML config file")
+    warm.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
+    cfg = sub.add_parser("config", help="validate and print a config file")
+    cfg.add_argument("-c", "--config", default="", help="TOML config file")
+    sub.add_parser("generate-config", help="print the default config")
     imp = sub.add_parser("import", help="bulk-import CSV bits (row,col[,timestamp])")
     imp.add_argument("--host", default="localhost:10101", help="host:port of a node")
     imp.add_argument("-i", "--index", required=True)
@@ -320,78 +342,138 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def run_server(args) -> int:
-    from pilosa_tpu_torch.net.server import Server
+def build_server(cfg: config_mod.Config, device="cuda", **extra):
+    """A ``config.Config`` as the port's ``Server`` (JAX ``cli/ctl.py:46-
+    178``): every key of the file reaches a keyword, except ``[tpu]
+    compilation-cache-dir``, which has no counterpart in the port (its
+    kernels build once into ``build/``) and is not passed.  ``device``
+    and ``extra`` (``gossip_bind``) are the port's own flags; the file
+    has no device key."""
+    from pilosa_tpu_torch.net import server as server_mod
     from pilosa_tpu_torch.obs.stats import new_stats_client
 
-    srv = Server(
-        args.data_dir,
-        host=args.bind,
-        device=args.device,
-        cluster_type=args.cluster_type,
-        hosts=args.hosts,
-        internal_hosts=args.internal_hosts,
-        replicas=args.replicas,
-        internal_port=args.internal_port,
-        polling_interval=args.polling_interval,
-        plane_format=args.plane_format,
-        hbm_budget_bytes=args.hbm_budget_bytes,
-        device_prefetch=args.prefetch,
-        ingest_wal=args.wal,
-        ingest_group_commit_ms=args.group_commit_ms,
-        ingest_group_commit_max=args.group_commit_max,
-        ingest_wal_segment_bytes=args.wal_segment_bytes,
-        coalesce=args.coalesce,
-        coalesce_max_batch=args.coalesce_max_batch,
-        coalesce_max_wait_us=args.coalesce_max_wait_us,
-        fuse=args.fuse,
-        fuse_max_programs=args.fuse_max_programs,
-        prewarm=args.prewarm,
-        stats=new_stats_client(args.metrics_service, args.metrics_host),
-        slow_query_ms=args.slow_query_ms,
-        trace_ring=args.trace_ring,
-        latency_buckets_ms=args.latency_buckets_ms,
-        slo_ms=args.slo_ms,
-        slo_objective=args.slo_objective,
-        floor_probe=args.floor_probe,
-        stream_chunk_bytes=args.stream_chunk_bytes,
-        mesh_devices=args.mesh_devices,
-        anti_entropy_interval=args.anti_entropy_interval,
-        query_timeout_ms=args.query_timeout_ms,
-        broadcast_timeout_ms=args.broadcast_timeout_ms,
-        retry_attempts=args.retry_attempts,
-        retry_backoff_ms=args.retry_backoff_ms,
-        breaker_failure_threshold=args.breaker_failure_threshold,
-        breaker_open_ms=args.breaker_open_ms,
-        write_consistency=args.write_consistency,
-        read_consistency=args.read_consistency,
-        hint_cap=args.hint_cap,
-        hint_replay_throttle_mbps=args.hint_replay_throttle_mbps,
-        rebalance_throttle_mbps=args.rebalance_throttle_mbps,
-        rebalance_verify_rounds=args.rebalance_verify_rounds,
-        rebalance_delta_cap=args.rebalance_delta_cap,
-        rebalance_release_delay_ms=args.rebalance_release_delay_ms,
-        rebalance_on_join=args.rebalance_on_join,
-        gossip_seed=args.gossip_seed,
-        gossip_bind=args.gossip_bind,
-        gossip_ack_timeout_ms=args.gossip_ack_timeout_ms,
-        gossip_stream_timeout_ms=args.gossip_stream_timeout_ms,
-        tier_store=args.tier_store,
-        tier_hydrate_throttle_mbps=args.tier_hydrate_throttle_mbps,
-        tier_disk_budget_bytes=args.tier_disk_budget_bytes,
-        tier_retention_age_s=args.tier_retention_age_s,
-        tier_retention_delete_s=args.tier_retention_delete_s,
-        tier_sweep_interval_s=args.tier_sweep_interval_s,
-        subscribe_enabled=args.subscribe,
-        subscribe_max_subscriptions=args.subscribe_max_subscriptions,
-        subscribe_queue_cap=args.subscribe_queue_cap,
-        subscribe_delta_cap=args.subscribe_delta_cap,
-        subscribe_coalesce_ms=args.subscribe_coalesce_ms,
-        subscribe_refresh_ms=args.subscribe_refresh_ms,
+    if cfg.tpu.mesh_shape:
+        os.environ["PILOSA_TPU_MESH_SHAPE"] = cfg.tpu.mesh_shape
+    # The log: log-path, else stderr (reference: server/server.go:125-133).
+    if cfg.log_path:
+        log_file = open(os.path.expanduser(cfg.log_path), "a", buffering=1)
+
+        def logger(msg: str) -> None:
+            log_file.write(msg.rstrip() + "\n")
+    else:
+
+        def logger(msg: str) -> None:
+            print(msg, file=sys.stderr)
+
+    hosts = list(cfg.cluster.hosts)
+    internal_hosts = list(cfg.cluster.internal_hosts) or None
+    if internal_hosts is not None and len(internal_hosts) != len(hosts):
+        raise config_mod.ConfigError(
+            "cluster internal-hosts must name one listener per host, in the hosts' order")
+    return server_mod.Server(
+        data_dir=os.path.expanduser(cfg.data_dir),
+        host=cfg.host,
+        device=device,
+        max_writes_per_request=cfg.max_writes_per_request,
+        cluster_type=cfg.cluster.type,
+        hosts=hosts,
+        internal_hosts=internal_hosts,
+        replicas=cfg.cluster.replicas,
+        internal_port=cfg.cluster.internal_port,
+        polling_interval=cfg.cluster.polling_interval,
+        long_query_time=cfg.cluster.long_query_time,
+        gossip_seed=cfg.cluster.gossip_seed,
+        rebalance_throttle_mbps=cfg.cluster.rebalance_throttle_mbps,
+        rebalance_verify_rounds=cfg.cluster.rebalance_verify_rounds,
+        rebalance_delta_cap=cfg.cluster.rebalance_delta_cap,
+        rebalance_release_delay_ms=cfg.cluster.rebalance_release_delay_ms,
+        rebalance_on_join=cfg.cluster.rebalance_on_join,
+        write_consistency=cfg.cluster.write_consistency,
+        read_consistency=cfg.cluster.read_consistency,
+        hint_cap=cfg.cluster.hint_cap,
+        hint_replay_throttle_mbps=cfg.cluster.hint_replay_throttle_mbps,
+        anti_entropy_interval=cfg.anti_entropy_interval,
+        logger=logger,
+        stats=new_stats_client(cfg.metrics.service, cfg.metrics.host),
+        slow_query_ms=cfg.obs.slow_query_ms,
+        trace_ring=cfg.obs.trace_ring,
+        latency_buckets_ms=(cfg.obs.latency_buckets_ms or None),
+        slo_ms=cfg.obs.slo_ms,
+        slo_objective=cfg.obs.slo_objective,
+        floor_probe=cfg.obs.floor_probe,
+        stream_chunk_bytes=cfg.net.stream_chunk_bytes,
+        query_timeout_ms=cfg.net.query_timeout_ms,
+        broadcast_timeout_ms=cfg.net.broadcast_timeout_ms,
+        retry_attempts=cfg.net.retry_attempts,
+        retry_backoff_ms=cfg.net.retry_backoff_ms,
+        breaker_failure_threshold=cfg.net.breaker_failure_threshold,
+        breaker_open_ms=cfg.net.breaker_open_ms,
+        admission=cfg.net.admission,
+        admission_point_concurrency=cfg.net.admission_point_concurrency,
+        admission_heavy_concurrency=cfg.net.admission_heavy_concurrency,
+        admission_write_concurrency=cfg.net.admission_write_concurrency,
+        admission_internal_concurrency=cfg.net.admission_internal_concurrency,
+        admission_queue_depth=cfg.net.admission_queue_depth,
+        admission_subscribe_concurrency=cfg.net.admission_subscribe_concurrency,
+        tenants=cfg.net.tenants,
+        tenant_keys=cfg.net.tenant_keys,
+        tenant_default=cfg.net.tenant_default,
+        tenant_internal_token=cfg.net.tenant_internal_token,
+        gossip_ack_timeout_ms=cfg.gossip.ack_timeout_ms,
+        gossip_stream_timeout_ms=cfg.gossip.stream_timeout_ms,
+        mesh_devices=cfg.device.mesh_devices,
+        hbm_budget_bytes=cfg.device.hbm_budget_bytes,
+        device_prefetch=cfg.device.prefetch,
+        device_stage=cfg.device.stage,
+        stage_throttle_ms=cfg.device.stage_throttle_ms,
+        launch_watchdog_ms=cfg.device.launch_watchdog_ms,
+        quarantine_threshold=cfg.device.quarantine_threshold,
+        quarantine_open_ms=cfg.device.quarantine_open_ms,
+        quarantine_probe_successes=cfg.device.quarantine_probe_successes,
+        plane_format=cfg.device.plane_format,
+        plane_sparse_max_bytes=cfg.device.plane_sparse_max_bytes,
+        plane_rle_max_bytes=cfg.device.plane_rle_max_bytes,
+        tier_store=cfg.tier.store,
+        tier_hydrate_throttle_mbps=cfg.tier.hydrate_throttle_mbps,
+        tier_disk_budget_bytes=cfg.tier.disk_budget_bytes,
+        tier_retention_age_s=cfg.tier.retention_age_s,
+        tier_retention_delete_s=cfg.tier.retention_delete_s,
+        tier_sweep_interval_s=cfg.tier.sweep_interval_s,
+        subscribe_enabled=cfg.subscribe.enabled,
+        subscribe_max_subscriptions=cfg.subscribe.max_subscriptions,
+        subscribe_queue_cap=cfg.subscribe.queue_cap,
+        subscribe_delta_cap=cfg.subscribe.delta_cap,
+        subscribe_coalesce_ms=cfg.subscribe.coalesce_ms,
+        subscribe_refresh_ms=cfg.subscribe.refresh_interval_ms,
+        ingest_wal=cfg.ingest.wal,
+        ingest_group_commit_ms=cfg.ingest.group_commit_ms,
+        ingest_group_commit_max=cfg.ingest.group_commit_max,
+        ingest_scatter=cfg.ingest.scatter,
+        ingest_wal_segment_bytes=cfg.ingest.wal_segment_bytes,
+        coalesce=cfg.exec.coalesce,
+        coalesce_max_batch=cfg.exec.coalesce_max_batch,
+        coalesce_max_wait_us=cfg.exec.coalesce_max_wait_us,
+        fuse=cfg.exec.fuse,
+        fuse_max_programs=cfg.exec.fuse_max_programs,
+        prewarm=cfg.tpu.prewarm,
+        **extra,
     )
-    stop = threading.Event()
-    for sig in (signal.SIGINT, signal.SIGTERM):
-        signal.signal(sig, lambda *_: stop.set())
+
+
+def load_config(args) -> config_mod.Config:
+    """The ``server`` command's configuration: its flags over the
+    ``PILOSA_*`` environment over the file (``-c``) over the defaults."""
+    overrides = {key: getattr(args, flags[-1].lstrip("-").replace("-", "_"))
+                 for flags, key, _, _ in SERVER_FLAGS}
+    return config_mod.load(args.config or None, overrides=overrides)
+
+
+def run_server(args) -> int:
+    cfg = load_config(args)
+    srv = build_server(cfg, device=args.device, gossip_bind=args.gossip_bind)
+    if args.dry_run:
+        print("dry-run: config ok", file=sys.stderr)
+        return 0
     # Join a multi-host process group when the launcher configured one
     # (JAX ``cli/ctl.py:203-208``); it waits until every peer connects.
     from pilosa_tpu_torch.parallel import multihost
@@ -399,10 +481,91 @@ def run_server(args) -> int:
     multihost.initialize()
     srv.open()
     print(f"pilosa_tpu_torch listening on http://{srv.host} ({srv.device})", file=sys.stderr)
+    stop_profile = _start_cpu_profile(args.cpuprofile, args.cputime)
+    # SIGINT and SIGTERM run the close path (listeners, caches, the WAL's
+    # last commit, the profile's file) instead of killing the process.
+    stop = threading.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda *_: stop.set())
     try:
         stop.wait()
     finally:
+        # A second signal during the close kills the process instead.
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            signal.signal(sig, signal.SIG_DFL)
+        stop_profile()
         srv.close()
+    return 0
+
+
+def _start_cpu_profile(path: str, seconds: int):
+    """``--cpuprofile`` / ``--cputime`` (reference: server/server.go:56-57;
+    JAX ``cli/ctl.py:238-295``): the ``/debug/pprof/profile`` sampler on a
+    daemon thread, its folded stacks written to ``path`` when sampling
+    ends (after ``seconds``, or at shutdown for 0).  Returns the call that
+    stops it and writes the file (a no-op without ``path``)."""
+    if not path:
+        return lambda: None
+    from pilosa_tpu_torch.net import handler as handler_mod
+
+    stop = threading.Event()
+    counts: dict[str, int] = {}  # filled in place by the sampler
+
+    def write() -> None:
+        with open(path, "w") as f:
+            f.write(handler_mod._fold_counts(dict(counts)))
+        print(f"cpu profile written to {path}", file=sys.stderr)
+
+    def run() -> None:
+        if seconds > 0:
+            handler_mod._sample_cpu_counts(seconds, stop=stop, counts=counts)
+        else:
+            while not stop.is_set():
+                handler_mod._sample_cpu_counts(3600, stop=stop, counts=counts)
+        write()
+
+    t = threading.Thread(target=run, daemon=True, name="cpuprofile")
+    t.start()
+
+    def finish() -> None:
+        stop.set()
+        t.join(timeout=30)
+        if t.is_alive():
+            print("warning: cpu profiler did not stop; writing snapshot", file=sys.stderr)
+            try:
+                write()
+            except OSError as e:  # never abort the close path
+                print(f"warning: cpu profile write failed: {e}", file=sys.stderr)
+
+    return finish
+
+
+def run_warm(args) -> int:
+    """Build every kernel and launch each query-path kernel once
+    (``exec/warmup.prewarm``), then print how many launches and how long.
+    The counterpart of the JAX ``warm``, which filled an XLA compile
+    cache: the port's kernels build once into ``build/torch_kernels/``,
+    which every later process on the checkout reuses."""
+    from pilosa_tpu_torch.exec import warmup
+
+    cfg = config_mod.load(args.config or None)
+    if cfg.tpu.mesh_shape:
+        os.environ["PILOSA_TPU_MESH_SHAPE"] = cfg.tpu.mesh_shape
+    t0 = time.monotonic()
+    n = warmup.prewarm(args.device)
+    print(f"warmed {n} kernel launches in {time.monotonic() - t0:.1f}s", file=sys.stderr)
+    return 0
+
+
+def run_config(args) -> int:
+    """Validate a configuration (file, environment) and print it."""
+    sys.stdout.write(config_mod.load(args.config or None).to_toml())
+    return 0
+
+
+def run_generate_config(args) -> int:
+    """Print the default configuration."""
+    sys.stdout.write(config_mod.Config().to_toml())
     return 0
 
 
@@ -820,6 +983,10 @@ def run_resize(args) -> int:
 
 
 COMMANDS = {
+    "server": run_server,
+    "warm": run_warm,
+    "config": run_config,
+    "generate-config": run_generate_config,
     "import": run_import,
     "export": run_export,
     "backup": run_backup,
@@ -834,13 +1001,11 @@ COMMANDS = {
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.cmd == "server":
-        return run_server(args)
     from pilosa_tpu_torch.net.client import ClientError
 
     try:
-        return COMMANDS[args.cmd](args)
-    except (CommandError, ClientError, OSError) as e:
+        return COMMANDS[args.cmd](args) or 0
+    except (CommandError, config_mod.ConfigError, ClientError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
     except KeyboardInterrupt:

@@ -136,6 +136,9 @@ class Cluster:
         # The membership backend (cluster/gossip.py's GossipNodeSet), set
         # by the server; None for the static and http types.
         self.node_set = None
+        # Seconds past which a query is logged as slow ([cluster]
+        # long-query-time; 0: never), read by the handler.
+        self.long_query_time = 0.0
 
     # --- versioned topology ---
 

@@ -953,9 +953,10 @@ class Fragment:
 
     def _queue_locked(self, chunks: list[np.ndarray]) -> None:
         """Queue code chunks for the resident mirror; a queue that would
-        pass its limit drops the mirror instead (the next read uploads
-        the host plane, which already holds every write).  Without a
-        mirror there is nothing to queue."""
+        pass its limit, or any queue while ``scatter.ENABLED`` is off,
+        drops the mirror instead (the next read uploads the host plane,
+        which already holds every write).  Without a mirror there is
+        nothing to queue."""
         n = sum(len(c) for c in chunks)
         if n:
             # A queued delta is a change a cached row table must not
@@ -964,7 +965,7 @@ class Fragment:
         if self._mirror is None or n == 0:
             return
         limit = min(self._MAX_DEVICE_PENDING, scatter.pending_limit(self._mirror.shape[0]))
-        if self._pending_n + n > limit:
+        if not scatter.ENABLED or self._pending_n + n > limit:
             scatter.note_fallback()
             self._invalidate_device()
             return

@@ -270,6 +270,7 @@ class Holder:
         hot_slices: dict[str, list[int]] | None = None,
         budget_bytes: int | None = None,
         tracer=None,
+        throttle_s: float = 0.0,
     ):
         """Stage fragment mirrors in the BACKGROUND and return the
         prefetcher's ``StageJob`` at once: the node serves meanwhile, and
@@ -280,7 +281,8 @@ class Holder:
         residency table, most recently used first, then every other
         fragment that fits the budget, largest planes first.  With a
         ``tracer``, a root ``staging`` trace spans the whole drain and is
-        finalized, with the job's outcome, when it completes."""
+        finalized, with the job's outcome, when it completes.
+        ``throttle_s`` sleeps before each upload of the job."""
         frags = self._budgeted_fragments(budget_bytes)
         by_key = {self.fragment_key(f): f for f in frags}
         prev = [k for k in reversed(self.load_residency()) if k in by_key]
@@ -295,7 +297,7 @@ class Holder:
         order = list(dict.fromkeys(hot_keys + prev + list(by_key)))
         self.staging_order = order  # which fragments a restart staged first
         ordered = [by_key[k] for k in order]
-        job = prefetcher.stage(ordered)
+        job = prefetcher.stage(ordered, throttle_s=throttle_s)
         if tracer is not None:
             root = tracer.start_trace(
                 "staging", fragments=len(ordered), hot=len(hot_keys),

@@ -22,7 +22,11 @@ Three things differ:
 * the timed passes run between two CUDA events, with no synchronize
   inside the loop, and a failure to build or launch K11, or a wrong sum,
   RAISES: a floor of 0 would leave every ``floorPct`` unset.  Only the
-  cache file's own errors are tolerated (a miss next boot).
+  cache file's own errors are tolerated (a miss next boot);
+* the result, and so the cache file, also holds ``launches``: the K11
+  launches the measurement made (``stream_sum.launches`` read around it;
+  0 on the CPU, whose plain version launches nothing), which is how a
+  node's process shows another process what its open launched.
 """
 
 from __future__ import annotations
@@ -160,9 +164,12 @@ def measure_device(dev: torch.device, n_bytes: int) -> float:
 
 
 def _measure(device: torch.device, key: str) -> dict:
+    from pilosa_tpu_torch.ops import stream_sum as ss
+
     n_bytes = probe_bytes(device)
     words = max(1, n_bytes // 4)
     gbps: dict[str, float] = {}
+    launches0 = ss.launches
     for dev in _devices(device):
         g = measure_device(dev, words * 4)
         gbps[str(dev.index if dev.index is not None else len(gbps))] = round(g, 3)
@@ -174,6 +181,7 @@ def _measure(device: torch.device, key: str) -> dict:
         "iters": TIMED_ITERS,
         "gbps": gbps,
         "mean_gbps": round(mean, 3),
+        "launches": ss.launches - launches0,
     }
 
 
@@ -188,7 +196,7 @@ def probe(
     ``device``'s type (CUDA unless ``device`` is the CPU).
 
     Returns ``{"key", "probe_bytes", "iters", "gbps": {dev_id: g},
-    "mean_gbps"}``.  Emits the ``device.streamFloorGbps`` gauge
+    "mean_gbps", "launches"}``.  Emits the ``device.streamFloorGbps`` gauge
     (aggregate + per-device) when a stats client is passed."""
     dev = torch.device("cuda" if device is None else device)
     key = backend_key(dev)

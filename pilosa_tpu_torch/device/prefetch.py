@@ -136,17 +136,19 @@ class Prefetcher:
             done.wait()
         return len(cold)
 
-    def stage(self, frags) -> StageJob:
+    def stage(self, frags, throttle_s: float = 0.0) -> StageJob:
         """Schedule staging-lane uploads for every cold fragment of
         ``frags``, in the order given, and return the job's progress
-        handle.  Query prefetches jump this backlog."""
+        handle.  Query prefetches jump this backlog; ``throttle_s``
+        sleeps before each upload, so that bulk staging leaves the
+        host-to-card link to the queries."""
         pool = self.pool()
         cold = [f for f in frags if f is not None and self._is_cold(f)]
         job = StageJob(len(cold))
         if cold:
             pool.count_stage(scheduled=len(cold))
             for f in cold:
-                self._submit(("stage", f, pool, job), "low")
+                self._submit(("stage", f, pool, job, throttle_s), "low")
         return job
 
     def run_hydration(self, fn):
@@ -236,13 +238,15 @@ class Prefetcher:
                 if remaining[0] == 0:
                     done.set()
 
-    def _run_stage(self, frag, pool, job: StageJob) -> None:
+    def _run_stage(self, frag, pool, job: StageJob, throttle_s: float) -> None:
         try:
             if not self._is_cold(frag):
                 # A query (or its prefetch) got here first.
                 pool.count_stage(done=1)
                 job._finish_one(skipped=True)
                 return
+            if throttle_s > 0:
+                time.sleep(throttle_s)
             frag.stage_mirror()
             pool.count_stage(done=1, nbytes=frag.plane_nbytes)
             job._finish_one(staged=True)

@@ -230,6 +230,12 @@ class ExecOptions:
     # _map_reduce, sorted) instead of failing the query.
     allow_partial: bool = False
     missing_slices: list[int] = field(default_factory=list)
+    # The tenant that sent the query (net/admission.py's registry, set
+    # by the handler): forwarded as X-Tenant on every remote leg, so a
+    # fan-out is charged to its origin on every node it touches (JAX
+    # executor.py:141-147).  A field, not a context variable: map legs
+    # run on pool threads.
+    tenant: str = ""
 
 
 class _NoLaunch:
@@ -540,10 +546,12 @@ class Executor:
             and q.write_call_n() > self.max_writes_per_request
         ):
             raise TooManyWritesError()
-        # The cost-class mix the executor saw (JAX executor.py:517).
-        self.holder.stats.count_with_custom_tags(
-            "exec.class", 1, [f"class:{plan.cost_class(q.calls)}"]
-        )
+        # The cost-class mix the executor saw (JAX executor.py:511-523),
+        # tagged with the tenant where QoS resolved one.
+        class_tags = [f"class:{plan.cost_class(q.calls)}"]
+        if opt.tenant:
+            class_tags.append(f"tenant:{opt.tenant}")
+        self.holder.stats.count_with_custom_tags("exec.class", 1, class_tags)
         # Bulk attribute-insert path (reference: executor.go:119-122).
         if q.calls and all(c.name == "SetRowAttrs" for c in q.calls):
             return self._execute_bulk_set_row_attrs(index, q.calls, opt)
@@ -2882,7 +2890,7 @@ class Executor:
             if node.host == self.host:
                 ret = write_fn(f, view, row_id, col_id) or ret
             elif not opt.remote:
-                res = self._exec_remote(node, index, Query(calls=[c]), None)
+                res = self._exec_remote(node, index, Query(calls=[c]), None, opt=opt)
                 ret = bool(res and res[0]) or ret
         return ret
 
@@ -3058,7 +3066,7 @@ class Executor:
             nodes = self.cluster.route_nodes()
         if not slices:
             # Sliceless execution still runs locally once.
-            resp = self._map_node(Node(host=self.host), [], index, c, map_fn)
+            resp = self._map_node(Node(host=self.host), [], index, c, map_fn, opt)
             if resp.error is not None:
                 raise resp.error
             return reduce_fn(None, resp.result)
@@ -3068,7 +3076,7 @@ class Executor:
 
         def submit(avail: list[Node], want: list[int]) -> None:
             for node, node_slices in self._slices_by_node(avail, index, want, epoch0).values():
-                fut = self._submit(self._map_node, node, node_slices, index, c, map_fn)
+                fut = self._submit(self._map_node, node, node_slices, index, c, map_fn, opt)
                 inflight[fut] = avail
 
         def failover(resp: _MapResponse, avail: list[Node]) -> None:
@@ -3092,7 +3100,7 @@ class Executor:
         if len(groups) == 1:
             # One target (the single-node case): run the leg inline.
             ((node, node_slices),) = groups.values()
-            resp = self._map_node(node, node_slices, index, c, map_fn)
+            resp = self._map_node(node, node_slices, index, c, map_fn, opt)
             if resp.error is None:
                 return reduce_fn(None, resp.result)
             failover(resp, nodes)
@@ -3120,7 +3128,8 @@ class Executor:
             opt.missing_slices[:] = sorted(set(opt.missing_slices) | set(missing))
         return result
 
-    def _map_node(self, node: Node, node_slices: list[int], index, c, map_fn) -> _MapResponse:
+    def _map_node(self, node: Node, node_slices: list[int], index, c, map_fn,
+                  opt: ExecOptions | None = None) -> _MapResponse:
         resp = _MapResponse(node=node, slices=node_slices)
         try:
             # An exhausted budget fails the query (504), never the node.
@@ -3134,7 +3143,7 @@ class Executor:
                         resp.result = map_fn(node_slices)
             else:
                 results = self._exec_remote(node, index, Query(calls=[c]), node_slices,
-                                            idempotent=True)
+                                            idempotent=True, opt=opt)
                 resp.result = results[0] if results else None
         except resilience.DeadlineExceeded as e:
             resp.error = e
@@ -3149,14 +3158,16 @@ class Executor:
         return self._pool.submit(contextvars.copy_context().run, fn, *args)
 
     def _exec_remote(self, node: Node, index: str, q: Query, slices,
-                     extra_headers: dict | None = None, idempotent: bool = False) -> list:
+                     extra_headers: dict | None = None, idempotent: bool = False,
+                     opt: ExecOptions | None = None) -> list:
         """Forward a query to a peer as a remote leg (reference:
         executor.go:1045-1129).  The rpc span's ids travel as
         ``X-Trace-Id`` / ``X-Span-Id``; the peer continues the trace under
         them and sends its spans back, which the client absorbs into this
         node's trace (JAX ``executor.py:3429``).  ``extra_headers`` ride
         along (the quorum coordinator's write-version stamp);
-        ``idempotent`` lets a read leg retry."""
+        ``idempotent`` lets a read leg retry; ``opt.tenant`` travels as
+        ``X-Tenant`` (JAX ``executor.py:3452``)."""
         if self.client_factory is None:
             raise ExecutorError(f"no client for remote node {node.host}")
         client = self.client_factory(node)
@@ -3166,6 +3177,8 @@ class Executor:
             headers = self.tracer.remote_headers(sp)
             if extra_headers:
                 headers = {**(headers or {}), **extra_headers}
+            if opt is not None and opt.tenant:
+                headers = {**(headers or {}), "X-Tenant": opt.tenant}
             if headers:
                 return client.execute_query(index, str(q), slices, remote=True,
                                             trace_headers=headers, tracer=self.tracer,

@@ -41,6 +41,12 @@ UPLOAD_FIXED_BYTES = 360_000
 MAX_PENDING = 1 << 22
 _ROW_NBYTES = 32768 * 4
 
+# Point writes and small imports queue their bits for K7 (the JAX
+# package's ``[ingest] scatter``); set by Server.open, process-wide.  Off,
+# every write drops the resident mirror and the next read uploads the
+# host plane again.
+ENABLED = True
+
 _mu = threading.Lock()
 launches = 0
 updates_applied = 0

@@ -99,16 +99,22 @@ def _err_text(data: bytes) -> str:
 class InternalClient:
     """HTTP client pinned to one host ("host:port").  ``device`` is where
     decoded Bitmap results land (the calling node's device); ``retry``
-    and ``breakers`` are the server's shared resilience wiring."""
+    and ``breakers`` are the server's shared resilience wiring;
+    ``internal_token`` (the cluster's ``tenant-internal-token``) goes out
+    as ``X-Internal-Token`` on every request, so map legs, imports and
+    repairs keep the internal admission lane where a node requires the
+    token (JAX ``net/client.py:55-66``)."""
 
     def __init__(self, host: str, timeout: float = 30.0, device=None,
                  retry: "resilience.RetryPolicy | None" = None,
-                 breakers: "resilience.BreakerRegistry | None" = None):
+                 breakers: "resilience.BreakerRegistry | None" = None,
+                 internal_token: str = ""):
         self.host = host
         self.timeout = timeout
         self.device = device
         self.retry = retry
         self.breakers = breakers
+        self.internal_token = internal_token
         # Attempts and first backoff of a streamed GET's opening, and the
         # chunk size of streamed bodies.
         self.stream_retries = 3
@@ -120,7 +126,8 @@ class InternalClient:
         if host == self.host:
             return self
         return InternalClient(host, self.timeout, self.device,
-                              retry=self.retry, breakers=self.breakers)
+                              retry=self.retry, breakers=self.breakers,
+                              internal_token=self.internal_token)
 
     # --- plumbing ---
 
@@ -192,7 +199,7 @@ class InternalClient:
     def _prepare(self, method: str, bare: str, headers) -> tuple[float, dict[str, str]]:
         """Before any socket work: fail an expired deadline and an open
         breaker, bound the timeout by the remaining budget and send that
-        budget as ``X-Deadline-Ms``."""
+        budget as ``X-Deadline-Ms``, with the internal-lane token."""
         dl = resilience.current_deadline()
         if dl is not None and dl.expired:
             raise resilience.DeadlineExceeded(
@@ -201,6 +208,8 @@ class InternalClient:
         if self.breakers is not None:
             self.breakers.check(self.host)
         hdrs = dict(headers or {})
+        if self.internal_token:
+            hdrs.setdefault("X-Internal-Token", self.internal_token)
         timeout = self.timeout
         if dl is not None:
             timeout = min(timeout, max(dl.remaining(), 0.001))

@@ -23,6 +23,7 @@ port covers, with the same paths, status codes and response bodies
     GET    /subscribe/<sid>/poll                        DELETE /subscribe/<sid>
     GET    /debug/subscriptions
     GET    /debug/hbm          GET /debug/ingest        GET /debug/health
+    GET    /debug/tenants      GET /                    GET /assets/<file>
     GET    /metrics            GET /debug/vars          GET /debug/perf
     GET    /debug/traces       GET /debug/stacks        GET /debug/profile
     GET    /debug/pprof[/goroutine|/profile|/heap]
@@ -55,10 +56,24 @@ slice this node owns.  Bodies stream both ways: a chunked or
 length-bounded request body reaches a ``stream_body`` route as a reader,
 and an iterator response goes out with ``Transfer-Encoding: chunked`` in
 writes of ``stream_chunk_bytes`` (64 KiB), counted as
-``stream.bytesReceived`` / ``stream.bytesSent``.  The JAX node admits
-``/fragment/data`` and ``/fragment/import-view`` on its internal
-admission lane; admission (``net/admission.py``) is not ported, so the
-port serves them directly.
+``stream.bytesReceived`` / ``stream.bytesSent``.
+
+Admission and tenant QoS (``net/admission.py``; JAX ``handler.py:927-1010,
+1110-1195, 1873-1903``): a query is classified from its parsed plan
+(``point``, ``heavy``, ``write``; a remote leg ``internal`` when its
+``Remote`` flag comes with the cluster's ``X-Internal-Token``, where one
+is configured) and charged to a tenant (``X-Api-Key``, a configured
+``X-Tenant``, or the forwarded ``X-Tenant`` of a verified leg); an
+``admission`` span between ``parse`` and ``execute`` takes a slot or
+answers 429 with ``Retry-After`` (whole seconds, at least 1), the JSON
+body's ``retryAfterMs`` and, for a quota, ``X-Quota-Limit`` /
+``X-Quota-Remaining`` — before any launch.  ``/import`` and
+``/import-value`` take the ``write`` lane; ``/fragment/data``,
+``/fragment/import-view``, the repair, replication, rebalance and tier
+control routes the ``internal`` lane, and ``POST /subscribe`` the
+``subscribe`` lane (``admitted``).  ``GET /debug/tenants`` is the
+per-tenant table.  ``GET /`` and ``GET /assets/<file>`` serve the web
+console (``net/webui.py``).
 
 Index and frame creation and deletion are broadcast to
 the cluster; a field's creation and deletion go to every peer as the
@@ -80,14 +95,13 @@ the per-site roofline table against the probed stream floor, ``GET
 activity) tarred under the data dir, one at a time (409 otherwise),
 ``GET /debug/stacks`` and ``/debug/pprof`` thread stacks, a sampled CPU
 profile and tracemalloc.  ``GET /debug/health`` answers the node, the
-cluster's node states and the card's breaker (``device``: each path's
-state, the watchdog's trips, the knobs; JAX ``handler.py:1860``), whose
-gauges ``/metrics`` renders at scrape time.  ``/metrics`` leaves out the
-JAX node's ``exec.programCache.*`` gauges (XLA jit caches: the port
-builds each kernel once) and its admission gauges (``net/admission.py``
-waits for the port of the configuration and admission slice);
-``/debug/health`` has no ``admission`` key yet, for the same reason.
-The standing queries' ``exec.subscribe.*`` families render as on a JAX
+cluster's node states, the admission gates (``admission``: each class's
+width, queue bound, occupancy, EWMA service time, admitted and shed) and
+the card's breaker (``device``: each path's state, the watchdog's trips,
+the knobs; JAX ``handler.py:1860``), whose gauges ``/metrics`` renders
+at scrape time with the admission and tenant gauges.  ``/metrics`` leaves
+out the JAX node's ``exec.programCache.*`` gauges (XLA jit caches: the
+port builds each kernel once).  The standing queries' ``exec.subscribe.*`` families render as on a JAX
 node, with the scrape-time ``exec.subscribe.active`` and
 ``exec.subscribe.pendingBits`` gauges.
 
@@ -95,8 +109,8 @@ Standing queries (JAX ``handler.py:1702-1811``): ``POST /subscribe``
 registers ``{"index", "query"}`` and answers 201 with the registration
 snapshot (version 1); ``/subscribe/<sid>/stream`` is SSE (``id:`` the
 version, ``?after=`` resumes), ``/poll`` a long-poll (``?after=``,
-``?timeout_ms=``; 410 once unsubscribed).  The registration takes no
-admission slot: the admission lane waits for ``net/admission.py``.
+``?timeout_ms=``; 410 once unsubscribed).  The registration takes a
+slot of the ``subscribe`` admission lane, as does each notify batch.
 The cold tier (JAX ``handler.py:1528-1572``): ``POST /tier/restore``
 restores one fragment from the node's object store (501 without a
 tier), and ``GET /debug/tier`` shows the tier manager's snapshot.
@@ -122,7 +136,9 @@ resilience wiring (``queryTimeoutMs``, ``retry``, ``breakers``).
 from __future__ import annotations
 
 import base64
+import functools
 import io
+import math
 import json
 import os
 import re
@@ -153,7 +169,8 @@ from pilosa_tpu_torch.core.view import is_inverse_view
 from pilosa_tpu_torch.exec import plan as plan_mod
 from pilosa_tpu_torch.exec.executor import ExecOptions, ExecutorError, TooManyWritesError
 from pilosa_tpu_torch.ingest import scatter
-from pilosa_tpu_torch.net import codec, wire
+from pilosa_tpu_torch.net import admission as adm
+from pilosa_tpu_torch.net import codec, webui, wire
 from pilosa_tpu_torch.net import resilience as rz
 from pilosa_tpu_torch.obs import perf as perf_mod
 from pilosa_tpu_torch.obs import prom, trace
@@ -171,8 +188,6 @@ JSON = "application/json"
 # name prefix, and why.
 METRICS_LEFT_OUT = {
     "pilosa_exec_programCache_": "XLA jit caches; the port builds each kernel once",
-    "pilosa_net_admission_": "admission control is not ported",
-    "pilosa_tenant_": "tenant QoS is not ported",
     "pilosa_exec_pool_": "map legs run on the standard library's thread pool",
 }
 
@@ -209,6 +224,33 @@ def stream_body(fn):
     read the body first."""
     fn.streams_body = True
     return fn
+
+
+def admitted(cls: str, requires: str = ""):
+    """Run a non-query route under ``Handler._admit`` of admission class
+    ``cls`` (JAX ``handler.py:1165-1195``): a shed answers 429 before the
+    route touches anything, and the slot is released when the route
+    returns.  ``requires`` names a handler attribute (``rebalance``,
+    ``replication``, ``tier``, ``subscribe``) whose absence answers 501
+    first, without a slot, as on a JAX node."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def route(self, req, **kw):
+            if requires and getattr(self, requires) is None:
+                return Response.error(f"{requires} not configured", 501)
+            ticket, shed = self._admit(cls, req)
+            if shed is not None:
+                return shed
+            try:
+                return fn(self, req, **kw)
+            finally:
+                if ticket is not None:
+                    ticket.release()
+
+        return route
+
+    return wrap
 
 
 def _route_template(pattern: str) -> str:
@@ -267,7 +309,8 @@ class Handler:
 
     def __init__(self, holder, executor, broadcaster=None, stats=None, tracer=None,
                  slow_query_ms: float = 0.0, latency_buckets_ms=None, slo_ms: float = 0.0,
-                 slo_objective: float = 0.999, logger=None, stream_chunk_bytes: int = 0):
+                 slo_objective: float = 0.999, logger=None, stream_chunk_bytes: int = 0,
+                 admission=None, tenants=None):
         self.holder = holder
         self.executor = executor
         self.broadcaster = broadcaster
@@ -304,7 +347,16 @@ class Handler:
         self.tier = None
         self.subscribe = None
         self.state_provider = None
+        # Admission control (net/admission.py): the per-class gates in
+        # front of the executor; None admits everything (a bare handler).
+        # The tenant registry resolves API keys, checks the internal
+        # lane's token and backs GET /debug/tenants; None charges every
+        # request to no tenant and leaves the internal lane open.
+        self.admission = admission
+        self.tenants = tenants
         routes: list[tuple[str, str, Callable]] = [
+            ("GET", r"/", self.handle_webui),
+            ("GET", r"/assets/(?P<file>[^/]+)", self.handle_webui_asset),
             ("GET", r"/schema", self.handle_get_schema),
             ("GET", r"/status", self.handle_get_status),
             ("GET", r"/state", self.handle_get_state),
@@ -364,6 +416,7 @@ class Handler:
             ("GET", r"/debug/hbm", self.handle_get_hbm),
             ("GET", r"/debug/ingest", self.handle_get_ingest),
             ("GET", r"/debug/health", self.handle_get_health),
+            ("GET", r"/debug/tenants", self.handle_get_tenants),
             ("GET", r"/debug/vars", self.handle_get_vars),
             ("GET", r"/debug/perf", self.handle_get_perf),
             ("GET", r"/debug/profile", self.handle_get_profile),
@@ -397,10 +450,29 @@ class Handler:
             self.logger(f"handler error {req.method} {req.path}: {e}\n" + traceback.format_exc())
             resp = Response.error(str(e), 500)
         try:
-            self._observe_stats(req, (time.monotonic() - t0) * 1e3, route)
+            elapsed = time.monotonic() - t0
+            self._observe_stats(req, elapsed * 1e3, route)
+            self._observe_slow_query(req, elapsed)
         except Exception:  # noqa: BLE001 — metrics never drop a response
             pass
         return resp
+
+    def _observe_slow_query(self, req: Request, elapsed: float) -> None:
+        """The plain-text slow-query log of ``[cluster] long-query-time``
+        (JAX ``handler.py:404-422``; reference: handler.go:158-163):
+        a query route slower than it logs its query text."""
+        lqt = float(getattr(self.cluster, "long_query_time", 0.0) or 0.0)
+        if lqt <= 0 or elapsed <= lqt or req.method != "POST" or not re.match(
+                r"^/index/[^/]+/query$", req.path):
+            return
+        if req.header("Content-Type") == PROTOBUF:
+            try:
+                query_text = _decode(wire.QueryRequest, req.body).Query
+            except Exception:  # noqa: BLE001 — logging only
+                query_text = "<unparseable protobuf>"
+        else:
+            query_text = req.body[:512].decode(errors="replace")
+        self.logger(f"slow query {elapsed:.3f}s: {query_text[:512]}")
 
     def _observe_stats(self, req: Request, ms: float, route: str | None) -> None:
         if self.stats is not None:
@@ -408,6 +480,18 @@ class Handler:
             self.stats.histogram(f"http.{req.method}.{req.path.split('?')[0]}", ms)
         if route is not None:
             self.latency.observe_http(req.method, route, ms)
+
+    # --- the web console (JAX handler.py:428-440) ---
+
+    def handle_webui(self, req: Request) -> Response:
+        return Response(body=webui.INDEX_HTML.encode(), content_type="text/html")
+
+    def handle_webui_asset(self, req: Request, file: str) -> Response:
+        asset = webui.ASSETS.get(file)
+        if asset is None:
+            return Response.error("not found", 404)
+        body, ctype = asset
+        return Response(body=body.encode(), content_type=ctype)
 
     # --- introspection ---
 
@@ -465,7 +549,7 @@ class Handler:
         """The WAL's group-commit state (per-fragment segment sizes,
         buffered ops, last fsync and group size, appends and fsyncs),
         its replays, and the delta-scatter counters."""
-        doc = {"scatter": scatter.counters(), "scatterEnabled": True}
+        doc = {"scatter": scatter.counters(), "scatterEnabled": bool(scatter.ENABLED)}
         if self.ingest is None:
             doc["wal"] = {"walEnabled": False, "note": "ingest WAL not configured"}
         else:
@@ -504,6 +588,13 @@ class Handler:
                 snap = self.stats.snapshot()
             except Exception:  # noqa: BLE001 — stats must not fail the scrape
                 snap = {}
+        if self.admission is not None:
+            # Scrape-time admission gauges (active, queued, concurrency and
+            # EWMA per class; per-tenant queue depth and quota headroom).
+            try:
+                snap.setdefault("gauges", {}).update(self.admission.gauges())
+            except Exception:  # noqa: BLE001 — stats must not fail the scrape
+                pass
         dh = getattr(self.executor, "device_health", None)
         if dh is not None:
             # Scrape-time device-health gauges (device.health.state per
@@ -537,9 +628,10 @@ class Handler:
         return Response(body=body.encode(), content_type=prom.CONTENT_TYPE)
 
     def handle_get_health(self, req: Request) -> Response:
-        """This node, the cluster's node states and the card's breaker
-        (JAX ``handler.py:1860``): per path healthy/suspect/quarantined,
-        the watchdog's trips and the node-level degraded flag."""
+        """This node, the cluster's node states, the resilience wiring,
+        the admission gates and the card's breaker (JAX
+        ``handler.py:1860``): per path healthy/suspect/quarantined, the
+        watchdog's trips and the node-level degraded flag."""
         out: dict[str, Any] = {"node": getattr(self.executor, "host", "")}
         cluster = getattr(self.executor, "cluster", None)
         if cluster is not None:
@@ -547,9 +639,32 @@ class Handler:
                             for h, st in sorted(cluster.node_states().items())]
         if self.resilience is not None:
             out.update(self.resilience.snapshot())
+        if self.admission is not None:
+            # Per-class gates: widths, queue bounds, occupancy, EWMA
+            # service time, admitted and shed totals.
+            out["admission"] = self.admission.snapshot()
         dh = getattr(self.executor, "device_health", None)
         if dh is not None:
             out["device"] = dh.snapshot()
+        return Response.json(out)
+
+    def handle_get_tenants(self, req: Request) -> Response:
+        """The per-tenant QoS table (JAX ``handler.py:1885-1903``): weight,
+        admitted, shed and quota-shed counts, the queue-wait EWMA and the
+        quotas' headroom per tenant, and each class's queue split by
+        tenant while any is backlogged."""
+        if self.tenants is None:
+            return Response.json({"tenants": {}})
+        out: dict = {
+            "defaultTenant": self.tenants.default_tenant,
+            "tenants": self.tenants.snapshot(),
+        }
+        if self.admission is not None:
+            queued = {cls: snap["queuedByTenant"]
+                      for cls, snap in self.admission.snapshot().items()
+                      if snap.get("queuedByTenant")}
+            if queued:
+                out["queuedByClass"] = queued
         return Response.json(out)
 
     def handle_get_perf(self, req: Request) -> Response:
@@ -687,6 +802,7 @@ class Handler:
         return Response.stream(frag.tar_chunks(chunk_bytes=self.stream_chunk_bytes),
                                "application/octet-stream", chunk_bytes=self.stream_chunk_bytes)
 
+    @admitted(adm.CLASS_INTERNAL)
     @stream_body
     def handle_post_fragment_data(self, req: Request) -> Response:
         """Restore one fragment from the archive in the body, read as it
@@ -728,6 +844,7 @@ class Handler:
         rows, cols = frag.block_arrays(pb.Block)
         return Response.proto(wire.BlockDataResponse(RowIDs=rows, ColumnIDs=cols))
 
+    @admitted(adm.CLASS_INTERNAL)
     def handle_post_import_view(self, req: Request) -> Response:
         """Sets and clears in one view of one slice — the repair push of
         block sync for any view, time and inverse views included."""
@@ -798,32 +915,29 @@ class Handler:
         except Exception as e:  # noqa: BLE001 — operator boundary
             return Response.error(str(e), 409)
 
+    @admitted(adm.CLASS_INTERNAL, requires="rebalance")
     def handle_post_topology(self, req: Request) -> Response:
         """A topology event (begin, flip, unflip, commit, abort) from the
         resize's coordinator."""
-        if self.rebalance is None:
-            return Response.error("rebalance not configured", 501)
         try:
             return Response.json(self.rebalance.apply_event(json.loads(req.body or b"{}")))
         except Exception as e:  # noqa: BLE001 — peer boundary
             return Response.error(str(e), 400)
 
+    @admitted(adm.CLASS_INTERNAL, requires="rebalance")
     def handle_post_rebalance_delta(self, req: Request) -> Response:
         """Migration control on a source (or a checksum on any node):
         start or stop the slice's delta log, copy the slice to a target,
         replay the drained log, or answer per-view checksums."""
-        if self.rebalance is None:
-            return Response.error("rebalance not configured", 501)
         try:
             return Response.json(self.rebalance.delta_action(json.loads(req.body or b"{}")))
         except Exception as e:  # noqa: BLE001 — peer boundary
             return Response.error(str(e), 400)
 
+    @admitted(adm.CLASS_INTERNAL, requires="rebalance")
     def handle_post_rebalance_release(self, req: Request) -> Response:
         """Drop a slice moved away (mirrors and files); refused while
         this node still owns it."""
-        if self.rebalance is None:
-            return Response.error("rebalance not configured", 501)
         try:
             payload = json.loads(req.body or b"{}")
             return Response.json(self.rebalance.release_slice(
@@ -834,12 +948,11 @@ class Handler:
     # --- quorum replication: versions, hints, replay (JAX
     # handler.py:1595-1700) ---
 
+    @admitted(adm.CLASS_INTERNAL, requires="replication")
     def handle_post_replicate_versions(self, req: Request) -> Response:
         """``{"index", "slices"}`` answers the slices' write versions;
         ``{"action": "observe", "index", "slice", "version"}`` moves one
         forward (max-merge)."""
-        if self.replication is None:
-            return Response.error("replication not configured", 501)
         try:
             payload = json.loads(req.body or b"{}")
             index = str(payload.get("index", ""))
@@ -852,12 +965,11 @@ class Handler:
         except (TypeError, ValueError, json.JSONDecodeError) as e:
             return Response.error(str(e), 400)
 
+    @admitted(adm.CLASS_INTERNAL, requires="replication")
     def handle_post_replicate_hint(self, req: Request) -> Response:
         """Queue a write on this node as a hint for an unreachable
         replica: ``{"target", "index", "slice", "kind": import |
         import-value | pql, "payload" (base64) | "query", "rows"}``."""
-        if self.replication is None:
-            return Response.error("replication not configured", 501)
         try:
             payload = json.loads(req.body or b"{}")
             target = str(payload.get("target", ""))
@@ -879,11 +991,10 @@ class Handler:
         except (TypeError, ValueError, json.JSONDecodeError) as e:
             return Response.error(str(e), 400)
 
+    @admitted(adm.CLASS_INTERNAL, requires="replication")
     def handle_post_replicate_replay(self, req: Request) -> Response:
         """Replay hints now (``{"target"?: host}``), past the breaker;
         answers the entries replayed per target."""
-        if self.replication is None:
-            return Response.error("replication not configured", 501)
         try:
             payload = json.loads(req.body or b"{}")
             target = str(payload.get("target", "")) or None
@@ -900,13 +1011,12 @@ class Handler:
 
     # --- the cold tier (JAX handler.py:1528-1572) ---
 
+    @admitted(adm.CLASS_INTERNAL, requires="tier")
     def handle_post_tier_restore(self, req: Request) -> Response:
         """The target side of a resize's copy through the store: restore
         one fragment from this node's object store instead of a peer's
         stream, and stage its mirror.  501 without a tier, so that the
         source streams instead."""
-        if self.tier is None:
-            return Response.error("tier not configured", 501)
         try:
             payload = json.loads(req.body or b"{}")
             index = str(payload.get("index", ""))
@@ -932,13 +1042,12 @@ class Handler:
 
     # --- standing queries (JAX handler.py:1702-1811) ---
 
+    @admitted(adm.CLASS_SUBSCRIBE, requires="subscribe")
     def handle_post_subscribe(self, req: Request) -> Response:
         """Register a standing query from JSON ``{"index": ..., "query":
         "Subscribe(Count(...))"}``; answers 201 with the subscription's id
         and its registration snapshot (version 1), from which a client
         streams or long-polls."""
-        if self.subscribe is None:
-            return Response.error("subscribe not configured", 501)
         try:
             payload = json.loads(req.body or b"{}")
         except ValueError as e:
@@ -1284,6 +1393,7 @@ class Handler:
         if errs:
             raise RuntimeError("field fanout: " + "; ".join(errs))
 
+    @admitted(adm.CLASS_WRITE)
     def handle_post_import_value(self, req: Request) -> Response:
         """Columnar integer import (JAX handler.py:769-815):
         ``{"index","frame","field","slice","columnIDs":[],"values":[]}``
@@ -1349,6 +1459,7 @@ class Handler:
                 self.latency.observe_query(
                     str(root.tags.get("cost_class") or "unclassified"),
                     (time.monotonic() - t0) * 1e3,
+                    tenant=str(root.tags.get("tenant") or ""),
                 )
             except Exception:  # noqa: BLE001 — metrics never drop a response
                 pass
@@ -1404,12 +1515,19 @@ class Handler:
             read_consistency = _consistency_arg(req, "X-Read-Consistency", "readConsistency")
         except ValueError as e:
             return self._query_error(req, str(e), 400)
+        # The Remote flag earns the internal lane only with the cluster's
+        # token, where one is configured: a client spoofing it is charged
+        # and classified as any client.  A verified leg is charged to the
+        # origin tenant its coordinator forwards in X-Tenant.
+        internal = qreq["remote"] and self._internal_ok(req)
+        tenant = self._resolve_tenant(req, internal)
         opt = ExecOptions(
             remote=qreq["remote"],
             allow_partial=(req.query.get("allowPartial") == "true"
                            or req.header("X-Allow-Partial") in ("1", "true")),
             write_consistency=write_consistency,
             read_consistency=read_consistency,
+            tenant=tenant,
         )
         # A remote write leg carries the coordinator's slice version after
         # its own apply.  Applying the same write here should bring this
@@ -1424,9 +1542,25 @@ class Handler:
                     stale_probe = (int(slice_s), int(ver_s))
                 except (TypeError, ValueError):
                     pass  # a malformed stamp must not fail the write
-        root.annotate(
-            cost_class=plan_mod.COST_INTERNAL if qreq["remote"] else plan_mod.cost_class(q.calls)
-        )
+        # The admission gate (JAX handler.py:965-1010): the class from the
+        # parsed plan (a verified remote leg rides the internal lane), then
+        # admit or answer 429 before the executor, the coalescer or the
+        # card see the query.  The class also keys the latency histograms,
+        # with or without gates.
+        cls = adm.CLASS_INTERNAL if internal else plan_mod.cost_class(q.calls)
+        root.annotate(cost_class=cls)
+        if tenant:
+            root.annotate(tenant=tenant)
+        ticket = None
+        if self.admission is not None:
+            try:
+                with self.tracer.span("admission", cost_class=cls) as sp:
+                    ticket = self.admission.acquire(cls, tenant=tenant,
+                                                    nbytes=len(req.body or b""))
+                    sp.annotate(wait_ms=round(ticket.wait_ms, 3))
+            except rz.ShedError as e:
+                root.annotate(shed=True)
+                return self._shed_response(req, e)
         try:
             rz.check_deadline("before execute")
             with self.tracer.span("execute"):
@@ -1439,6 +1573,9 @@ class Handler:
             return self._query_error(req, f"{e} [trace {trace_id}]", 504)
         except Exception as e:  # noqa: BLE001 — executor boundary
             return self._query_error(req, str(e), 500)
+        finally:
+            if ticket is not None:
+                ticket.release()
         if stale_probe is not None:
             probe_slice, probe_ver = stale_probe
             if self.replication.versions.get(index, probe_slice) < probe_ver:
@@ -1475,6 +1612,69 @@ class Handler:
         if PROTOBUF in req.header("Accept"):
             return Response.proto(wire.QueryResponse(Err=message), status=status)
         return Response.error(message, status)
+
+    # --- admission and tenants (JAX handler.py:1110-1195) ---
+
+    def _internal_ok(self, req: Request) -> bool:
+        """May this request claim the internal lane?  Open without a
+        registry or a token; with a token, only for its holders."""
+        if self.tenants is None:
+            return True
+        return self.tenants.internal_ok(req.header("X-Internal-Token"))
+
+    def _resolve_tenant(self, req: Request, internal: bool = False) -> str:
+        """The tenant a request is charged to: a client's by X-Api-Key (a
+        bare X-Tenant only for configured tenants); a verified internal
+        request's the forwarded X-Tenant, the origin's."""
+        if self.tenants is None:
+            return ""
+        if internal:
+            return req.header("X-Tenant") or self.tenants.default_tenant
+        return self.tenants.resolve(req.header("X-Api-Key"), req.header("X-Tenant"))
+
+    def _shed_response(self, req: Request, e: rz.ShedError) -> Response:
+        """429 with ``Retry-After`` in whole seconds (at least 1) and the
+        precise ``retryAfterMs`` in the JSON body; a quota shed adds
+        ``X-Quota-Limit`` / ``X-Quota-Remaining`` and the body's
+        ``quota``."""
+        if PROTOBUF in req.header("Accept"):
+            resp = Response.proto(wire.QueryResponse(Err=str(e)), status=429)
+        else:
+            body = {"error": str(e), "retryAfterMs": round(e.retry_after_s * 1000.0, 1)}
+            if isinstance(e, adm.QuotaError):
+                body["quota"] = {
+                    "tenant": e.tenant,
+                    "kind": e.quota_kind,
+                    "limit": e.quota_limit,
+                    "remaining": round(e.quota_remaining, 3),
+                }
+            resp = Response.json(body, status=429)
+        resp.headers["Retry-After"] = str(max(1, math.ceil(e.retry_after_s)))
+        if isinstance(e, adm.QuotaError):
+            resp.headers["X-Quota-Limit"] = f"{e.quota_limit:g}"
+            resp.headers["X-Quota-Remaining"] = f"{max(0.0, e.quota_remaining):g}"
+        return resp
+
+    def _admit(self, cls: str, req: Request):
+        """Admission of a non-query route: ``(ticket, None)`` or ``(None,
+        429 response)``.  The deadline is the request's header alone (these
+        routes run outside the query's deadline scope).  ``X-Internal-Lane``
+        moves the request to the internal lane, with the token where one is
+        configured: hint replays push queued ``/import`` bodies through the
+        client route and must not be shed as a client storm."""
+        if self.admission is None:
+            return None, None
+        internal = False
+        if req.header("X-Internal-Lane") in ("1", "true") and self._internal_ok(req):
+            cls = adm.CLASS_INTERNAL
+            internal = True
+        tenant = self._resolve_tenant(req, internal)
+        dl = rz.Deadline.from_header(req.header(rz.DEADLINE_HEADER))
+        try:
+            return self.admission.acquire(cls, deadline=dl, tenant=tenant,
+                                          nbytes=len(req.body or b"")), None
+        except rz.ShedError as e:
+            return None, self._shed_response(req, e)
 
     def _read_query_request(self, req: Request) -> dict:
         """reference: handler.go:863-944 — a QueryRequest protobuf, or a
@@ -1518,6 +1718,7 @@ class Handler:
 
     # --- import (reference: handler.go:969-1046) ---
 
+    @admitted(adm.CLASS_WRITE)
     def handle_post_import(self, req: Request) -> Response:
         view = req.query.get("view", "")
         if view not in ("", "inverse"):
@@ -1638,14 +1839,17 @@ def _fuse_batch_stats(record: dict) -> dict | None:
     return out
 
 
-def _sample_cpu_profile(seconds: float, hz: float = 100.0) -> str:
-    """Sample every other thread's stack at ``hz`` for ``seconds`` and
-    fold identical stacks into "frame1;frame2;... count" lines, most
-    sampled first (the flamegraph-collapsed form)."""
-    counts: dict[str, int] = {}
+def _sample_cpu_counts(seconds: float, hz: float = 100.0, stop: threading.Event | None = None,
+                       counts: dict[str, int] | None = None) -> dict[str, int]:
+    """Sample every other thread's stack at ``hz`` for up to ``seconds``
+    (``stop`` ends it early), adding each folded stack's samples to
+    ``counts`` in place, so that another thread can read it meanwhile
+    (the CLI's ``--cpuprofile``)."""
+    if counts is None:
+        counts = {}
     me = threading.get_ident()
     deadline = time.monotonic() + seconds
-    while time.monotonic() < deadline:
+    while time.monotonic() < deadline and not (stop is not None and stop.is_set()):
         for tid, frame in sys._current_frames().items():
             if tid == me:
                 continue
@@ -1658,8 +1862,20 @@ def _sample_cpu_profile(seconds: float, hz: float = 100.0) -> str:
             stack = ";".join(reversed(parts)) or "<idle>"
             counts[stack] = counts.get(stack, 0) + 1
         time.sleep(1.0 / hz)
+    return counts
+
+
+def _fold_counts(counts: dict[str, int]) -> str:
+    """One ``frame1;frame2;... count`` line a stack, most sampled first
+    (the flamegraph-collapsed form)."""
     lines = [f"{st} {n}" for st, n in sorted(counts.items(), key=lambda kv: -kv[1])]
     return "\n".join(lines) + ("\n" if lines else "")
+
+
+def _sample_cpu_profile(seconds: float, hz: float = 100.0) -> str:
+    """Sample every other thread's stack at ``hz`` for ``seconds`` and
+    fold identical stacks, most sampled first."""
+    return _fold_counts(_sample_cpu_counts(seconds, hz))
 
 
 def _decode(cls, body: bytes):

@@ -148,10 +148,29 @@ Standing queries, with the JAX package's names and defaults
 full re-run), ``subscribe_coalesce_ms`` and ``subscribe_refresh_ms``
 (``subscribe/engine.py``).
 
-The ``[tier]``, ``[gossip]`` and ``[subscribe]`` sections of the JAX
-configuration file, the subscribe admission lane and ``/debug/health``'s
-``admission`` key wait for the port of ``config.py`` and
-``net/admission.py``.
+Admission and tenant QoS, with the JAX package's names and defaults
+(``pilosa_tpu/net/server.py:80-116``, ``[net]``): ``admission`` turns on
+the per-class gates of ``net/admission.py`` (``point``, ``heavy``,
+``write``, ``internal``, ``subscribe``), each
+``admission_<class>_concurrency`` wide with a bounded queue of
+``admission_queue_depth`` a tenant (the internal lane's as deep as it is
+wide).  A request the node cannot serve within its deadline answers
+429 with ``Retry-After`` before the executor, the coalescer or the card
+see it.  ``tenants`` (``"name:weight[:qps[:bytes_per_s]]"``),
+``tenant_keys`` (``"apikey:tenant"``), ``tenant_default`` and
+``tenant_internal_token`` configure the ``TenantRegistry``, built even
+with admission off; the token rides every ``InternalClient`` the node
+makes, and the standing-query notifier takes a ``subscribe`` slot a
+batch.
+
+The rest of the JAX ``Server``'s knobs: ``logger`` (``log-path``,
+stderr by default), ``long_query_time`` (``[cluster] long-query-time``:
+seconds past which a query's text is logged; 0 never), ``device_stage`` / ``stage_throttle_ms`` (the
+background staging at open and after a heal, and its sleep between
+uploads), ``plane_sparse_max_bytes`` / ``plane_rle_max_bytes`` (the
+sparse tier's per-row caps) and ``ingest_scatter`` (off: a write drops
+the mirror instead of queuing its bits for K7).  ``cli/main.py``'s
+``build_server`` maps a ``config.Config`` onto these keywords.
 
 The node registers itself in the cluster on open, unless a ring is
 configured without it: then it is a joining node, which gets slices only
@@ -180,7 +199,8 @@ from pilosa_tpu_torch.exec import coalesce as coalesce_mod
 from pilosa_tpu_torch.exec import warmup
 from pilosa_tpu_torch.core import fragment as fragment_mod
 from pilosa_tpu_torch.exec.executor import DEFAULT_MAX_WRITES_PER_REQUEST, Executor
-from pilosa_tpu_torch.ingest import wal
+from pilosa_tpu_torch.ingest import scatter, wal
+from pilosa_tpu_torch.net import admission as adm
 from pilosa_tpu_torch.net import resilience as rz
 from pilosa_tpu_torch.net import wire
 from pilosa_tpu_torch.net.client import InternalClient
@@ -307,6 +327,24 @@ class Server:
         gossip_suspect_after: float = 5.0,
         gossip_ack_timeout_ms: float = 250.0,
         gossip_stream_timeout_ms: float = 10_000.0,
+        logger=None,
+        long_query_time: float = 0.0,
+        device_stage: bool = True,
+        stage_throttle_ms: float = 0.0,
+        plane_sparse_max_bytes: int = 65536,
+        plane_rle_max_bytes: int = 65536,
+        ingest_scatter: bool = True,
+        admission: bool = True,
+        admission_point_concurrency: int = 32,
+        admission_heavy_concurrency: int = 8,
+        admission_write_concurrency: int = 16,
+        admission_internal_concurrency: int = 128,
+        admission_queue_depth: int = 64,
+        admission_subscribe_concurrency: int = 4,
+        tenants=None,
+        tenant_keys=None,
+        tenant_default: str = "default",
+        tenant_internal_token: str = "",
     ):
         if cluster_type not in CLUSTER_TYPES:
             raise ValueError(f"unknown cluster type: {cluster_type!r}")
@@ -319,6 +357,7 @@ class Server:
             raise ValueError(f"unknown plane-format {plane_format!r}")
         self.device = device_mod.resolve(device)
         self.host = host
+        self.logger = logger or _log
         # [device] mesh-devices (JAX server.py:57): applied at open, before
         # any fragment is placed; 0 leaves the process-wide setting.  A
         # node pinned to one card (``cuda:N``) keeps every slice there.
@@ -329,9 +368,14 @@ class Server:
         # The sparse tier's container policy (bitplane.encode_row):
         # process-wide, as in the JAX package, applied at open().
         self.plane_format = plane_format
+        self.plane_sparse_max_bytes = plane_sparse_max_bytes
+        self.plane_rle_max_bytes = plane_rle_max_bytes
         self.hbm_budget_bytes = hbm_budget_bytes
         self.device_prefetch = device_prefetch
+        self.device_stage = device_stage
+        self.stage_throttle_ms = stage_throttle_ms
         self.staging_job = None
+        self.ingest_scatter = ingest_scatter
         self.ingest_wal = ingest_wal
         self.ingest_group_commit_ms = ingest_group_commit_ms
         self.ingest_group_commit_max = ingest_group_commit_max
@@ -348,6 +392,7 @@ class Server:
         self.cluster_type = cluster_type
         self.polling_interval = polling_interval
         self.cluster = Cluster(replica_n=replicas)
+        self.cluster.long_query_time = long_query_time
         for h, ih in zip(hosts, internal_hosts):
             self.cluster.add_node(h, ih)
         if cluster_type == "http":
@@ -396,7 +441,30 @@ class Server:
                                         open_s=breaker_open_ms / 1000.0, stats=stats),
             query_timeout_ms=query_timeout_ms,
         )
-        self.logger = _log
+        # Tenant QoS (JAX server.py:216-250): API-key resolution, WFQ
+        # weights and quota buckets, built even with admission off so
+        # that the internal lane's token check and /debug/tenants work;
+        # the controller's gates answer 429 before the executor, the
+        # coalescer or the card see a request.
+        self.tenants = adm.TenantRegistry(
+            tenants=tenants,
+            keys=tenant_keys,
+            default_tenant=tenant_default,
+            internal_token=tenant_internal_token,
+            stats=stats,
+        )
+        self.admission = None
+        if admission:
+            self.admission = adm.AdmissionController(
+                point_concurrency=admission_point_concurrency,
+                heavy_concurrency=admission_heavy_concurrency,
+                write_concurrency=admission_write_concurrency,
+                internal_concurrency=admission_internal_concurrency,
+                subscribe_concurrency=admission_subscribe_concurrency,
+                queue_depth=admission_queue_depth,
+                stats=stats,
+                tenants=self.tenants,
+            )
         self.holder = Holder(data_dir, device=device)
         self.holder.on_create_slice = self._on_create_slice
         if stats is not None:
@@ -412,7 +480,7 @@ class Server:
             probe_successes=quarantine_probe_successes,
             watchdog_ms=launch_watchdog_ms,
             stats=stats,
-            logger=_log,
+            logger=self.logger,
             on_state_change=self._on_device_health_change,
             device=self.holder.placed,
         )
@@ -435,7 +503,7 @@ class Server:
             rebalancer=self.rebalance,
             tracer=self.tracer,
             stats=self.holder.stats,
-            logger=_log,
+            logger=self.logger,
             data_dir=data_dir,
             write_consistency=write_consistency,
             read_consistency=read_consistency,
@@ -461,6 +529,9 @@ class Server:
             slo_ms=slo_ms,
             slo_objective=slo_objective,
             stream_chunk_bytes=stream_chunk_bytes,
+            logger=self.logger,
+            admission=self.admission,
+            tenants=self.tenants,
         )
         # /debug/profile tars its traces under the data dir.
         self.handler.profile_dir = data_dir
@@ -477,13 +548,14 @@ class Server:
         return self.receiver.bound_host if self.receiver is not None else ""
 
     def _client(self, node) -> InternalClient:
-        """A client of a peer with this node's retry policy and breakers
-        (and, through the deadline's context variable, the current
-        query's remaining budget)."""
+        """A client of a peer with this node's retry policy, breakers and
+        internal-lane token (and, through the deadline's context
+        variable, the current query's remaining budget)."""
         host = node if isinstance(node, str) else node.host
         return InternalClient(host, timeout=REMOTE_TIMEOUT_S, device=self.device,
                               retry=self.resilience.retry,
-                              breakers=self.resilience.breakers)
+                              breakers=self.resilience.breakers,
+                              internal_token=self.tenants.internal_token)
 
     # --- lifecycle (reference: server.go:99-198) ---
 
@@ -492,14 +564,19 @@ class Server:
         # injected faults must be unmistakable.
         plan = faults.active()
         if plan is not None and plan.rules:
-            _log(f"FAULT INJECTION ACTIVE: {len(plan.rules)} rule(s): "
+            self.logger(f"FAULT INJECTION ACTIVE: {len(plan.rules)} rule(s): "
                  + "; ".join(f"{r.stage}/{r.kind or r.mode}" for r in plan.rules))
-        bp.configure_plane_format(mode=self.plane_format)
+        bp.configure_plane_format(mode=self.plane_format,
+                                  sparse_max_bytes=self.plane_sparse_max_bytes,
+                                  rle_max_bytes=self.plane_rle_max_bytes)
+        # Process-wide, as in the JAX package: off, a write drops the
+        # mirror instead of queuing its bits for K7.
+        scatter.ENABLED = bool(self.ingest_scatter)
         if self.mesh_devices:
             bp.configure_mesh_devices(self.mesh_devices)
         members = bp.placement(self.holder.placed)
         if len(members) > 1:
-            _log(f"data plane: mesh-sharded over {len(members)} devices "
+            self.logger(f"data plane: mesh-sharded over {len(members)} devices "
                  f"({', '.join(str(d) for d in members)})")
         # The pool's budget and the WAL manager before any fragment
         # opens: mirrors register at their first upload, and fragments
@@ -516,7 +593,7 @@ class Server:
             fp = floorprobe.probe(
                 artifact_dir=self.data_dir,
                 stats=self.stats,
-                logger=lambda m: print(m, file=sys.stderr),
+                logger=self.logger,
                 device=self.device,
             )
             perf_mod.registry().set_floor(fp["mean_gbps"])
@@ -526,7 +603,7 @@ class Server:
                 group_commit_ms=self.ingest_group_commit_ms,
                 group_commit_max=self.ingest_group_commit_max,
                 wal_segment_bytes=self.ingest_wal_segment_bytes,
-                logger=lambda m: print(m, file=sys.stderr),
+                logger=self.logger,
                 stats=self.stats,
                 versions=self.replication.versions,
             )
@@ -547,14 +624,14 @@ class Server:
                 prefetcher=device_mod.prefetcher(),
                 stats=self.stats,
                 tracer=self.tracer,
-                logger=_log,
+                logger=self.logger,
                 hydrate_throttle_mbps=self.tier_hydrate_throttle_mbps,
                 disk_budget_bytes=self.tier_disk_budget_bytes,
                 retention_age_s=self.tier_retention_age_s,
                 retention_delete_s=self.tier_retention_delete_s,
             )
             boot = self.tier.bootstrap()
-            _log(f"tier: cold store {store.url} attached ({boot['cold']} cold fragment(s) "
+            self.logger(f"tier: cold store {store.url} attached ({boot['cold']} cold fragment(s) "
                  f"registered, {boot['frames']} frame(s) restored from schema)")
             self.handler.tier = self.tier
         # The delta log records every write to a migrating slice; the
@@ -577,7 +654,7 @@ class Server:
             )
         self.executor.coalescer = self.coalescer
         if self.prewarm:
-            warmup.prewarm_async(self.holder.placed, logger=lambda m: print(m, file=sys.stderr))
+            warmup.prewarm_async(self.holder.placed, logger=self.logger)
         self.executor.prefetcher = device_mod.prefetcher() if self.device_prefetch else None
         self.executor.ingest = self.ingest
         self.handler.ingest = self.ingest
@@ -602,7 +679,7 @@ class Server:
         # configured without this host: a joining node, which takes
         # slices only through a resize (POST /cluster/resize).
         if self.cluster.nodes and self.cluster.node_by_host(self.host) is None:
-            _log(f"host {self.host} is not in the configured ring "
+            self.logger(f"host {self.host} is not in the configured ring "
                  f"({len(self.cluster.nodes)} nodes); joining — slice "
                  "ownership arrives via /cluster/resize")
         else:
@@ -628,8 +705,9 @@ class Server:
                 cluster=self.cluster,
                 stats=self.stats,
                 tracer=self.tracer,
+                admission=self.admission,
                 data_dir=self.data_dir,
-                logger=_log,
+                logger=self.logger,
                 max_subscriptions=self.subscribe_max_subscriptions,
                 queue_cap=self.subscribe_queue_cap,
                 delta_cap=self.subscribe_delta_cap,
@@ -642,9 +720,11 @@ class Server:
         # gossip peers report hot, then the previous run's .residency.json,
         # then the largest that fit the budget.  A query's own prefetch
         # jumps them.
-        self.staging_job = self.holder.stage_device_mirrors(
-            device_mod.prefetcher(), hot_slices=self._gossip_hot_slices(), tracer=self.tracer
-        )
+        if self.device_stage:
+            self.staging_job = self.holder.stage_device_mirrors(
+                device_mod.prefetcher(), hot_slices=self._gossip_hot_slices(),
+                throttle_s=self.stage_throttle_ms / 1000.0, tracer=self.tracer,
+            )
         loops = [
             ("max-slices", self.tick_max_slices, self.polling_interval),
             ("anti-entropy", self.tick_anti_entropy, self.anti_entropy_interval),
@@ -677,7 +757,7 @@ class Server:
             state_merger=lambda blob: self.handle_remote_status(wire.NodeStatus.decode(blob)),
             hot_provider=self.holder.hot_slices,
             health_provider=self.device_health.degraded,
-            logger=_log,
+            logger=self.logger,
             stats=self.stats,
             ack_timeout=self.gossip_ack_timeout_ms / 1000.0,
             stream_timeout=self.gossip_stream_timeout_ms / 1000.0,
@@ -715,7 +795,7 @@ class Server:
                 try:
                     self.rebalance.note_membership(host, state)
                 except Exception as e:  # noqa: BLE001 — advisory path
-                    _log(f"join-candidate tracking error: {e}")
+                    self.logger(f"join-candidate tracking error: {e}")
 
     def local_status(self) -> wire.NodeStatus:
         """This node's schema and max slices, the state gossip carries
@@ -830,18 +910,20 @@ class Server:
         try:
             self.cluster.note_degraded(self.host, self.device_health.degraded())
         except Exception as e:  # noqa: BLE001 — advisory path
-            _log(f"degraded-flag routing update error: {e}")
-        if state != health_mod.STATE_HEALTHY or not path.startswith("device:"):
+            self.logger(f"degraded-flag routing update error: {e}")
+        if (state != health_mod.STATE_HEALTHY or not path.startswith("device:")
+                or not self.device_stage):
             return
         try:
             self.staging_job = self.holder.stage_device_mirrors(
-                device_mod.prefetcher(), tracer=self.tracer
+                device_mod.prefetcher(), throttle_s=self.stage_throttle_ms / 1000.0,
+                tracer=self.tracer,
             )
             if self.staging_job.total:
-                _log(f"device health: {path} healed — staging "
+                self.logger(f"device health: {path} healed — staging "
                      f"{self.staging_job.total} fragment mirrors")
         except Exception as e:  # noqa: BLE001 — staging is best-effort
-            _log(f"post-heal staging error: {e}")
+            self.logger(f"post-heal staging error: {e}")
 
     # --- background loops (JAX server.py:797-847) ---
 
@@ -850,7 +932,7 @@ class Server:
             try:
                 fn()
             except Exception as e:  # noqa: BLE001 — a loop must survive
-                _log(f"background loop error: {e}")
+                self.logger(f"background loop error: {e}")
 
     # Every Nth anti-entropy sweep ignores the version-agreement fast path
     # and walks every block's checksum: the backstop for versions that

@@ -256,7 +256,7 @@ class Replication:
                 try:
                     res = executor._exec_remote(
                         node, index, Query(calls=[c]), None,
-                        extra_headers=headers,
+                        extra_headers=headers, opt=opt,
                     )
                     acks += 1
                     if res and res[0]:

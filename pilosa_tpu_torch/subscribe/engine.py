@@ -67,17 +67,12 @@ from collections import deque
 
 from pilosa_tpu_torch.exec import plan
 from pilosa_tpu_torch.exec.executor import DEFAULT_FRAME
+from pilosa_tpu_torch.net import admission as adm
 from pilosa_tpu_torch.net import codec
 from pilosa_tpu_torch.obs import trace
 from pilosa_tpu_torch.obs.stats import NopStatsClient
 from pilosa_tpu_torch.pql.parser import Query, parse_string
 from pilosa_tpu_torch.subscribe import registry as reg
-
-# The admission class of notification batches (the JAX package's
-# ``net.admission.CLASS_SUBSCRIBE``).  The port's admission controller
-# waits for the port of ``net/admission.py``; until then a Server passes
-# none, and any object with ``acquire(cls) -> ticket`` may stand in.
-CLASS_SUBSCRIBE = "subscribe"
 
 # Snapshot caps: /debug/subscriptions lists at most this many entries.
 _SNAPSHOT_SUBS = 100
@@ -581,7 +576,7 @@ class SubscriptionManager:
         try:
             if self.admission is not None:
                 with self.tracer.span("admission", parent=root):
-                    ticket = self.admission.acquire(CLASS_SUBSCRIBE)
+                    ticket = self.admission.acquire(adm.CLASS_SUBSCRIBE)
             with self.tracer.span("subscribe.eval", parent=root) as sp:
                 n_updates = 0
                 for sid, p in batch.items():

@@ -704,8 +704,9 @@ def test_stream_sum_rejects_misaligned(cuda):
 
 
 def test_floor_probe_reads_device_memory(cuda, tmp_path):
-    """The probe's buffer is at least 8x the L2 and its floor lies under
-    the card's data-sheet memory rate (3.35 TB/s on an H100 SXM)."""
+    """The probe's buffer is at least 8x the L2, its floor lies under the
+    card's data-sheet memory rate (3.35 TB/s on an H100 SXM), and it
+    reports the K11 launches it made."""
     from pilosa_tpu_torch.device import floorprobe
 
     floorprobe.reset_cache()
@@ -713,6 +714,8 @@ def test_floor_probe_reads_device_memory(cuda, tmp_path):
     l2 = torch.cuda.get_device_properties(cuda).L2_cache_size
     assert fp_["probe_bytes"] >= 8 * l2
     assert 0 < fp_["mean_gbps"] <= 1.05 * 3350
+    assert fp_["launches"] == len(fp_["gbps"]) * (floorprobe.WARMUP_ITERS
+                                                  + floorprobe.TIMED_ITERS)
 
 
 # --- K9: the mesh TopN scorer, and top_k --------------------------------------
@@ -1002,3 +1005,100 @@ def test_subscription_slice_evaluations_launch_k2(cuda, tmp_path):
         assert inter.value == int(np.bitwise_count(planes[:, 0] & planes[:, 1]).sum())
     finally:
         srv.close()
+
+
+# --- admission: a shed Count launches nothing -------------------------------
+
+
+def test_cli_node_sheds_a_concurrent_count_before_k2(cuda, tmp_path):
+    """A node started by the CLI from a file (``python -m
+    pilosa_tpu_torch.cli server -c FILE``: ``cli.main``) with a one-slot
+    point gate and no queue: Count(Intersect)s sent at once are admitted
+    one at a time and the rest shed as 429 with ``Retry-After``; the K2
+    launches of its ``/debug/perf`` (the node's process) rise by the
+    admitted ones only."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    import threading
+    import time
+    import urllib.error
+    import urllib.request
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    host = f"127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    path = tmp_path / "pilosa.toml"
+    path.write_text(f'data-dir = "{tmp_path / "data"}"\nhost = "{host}"\n'
+                    "[exec]\ncoalesce = false\n[device]\nmesh-devices = 1\n"
+                    "[obs]\nfloor-probe = false\n"
+                    "[net]\nadmission-point-concurrency = 1\nadmission-queue-depth = 0\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PILOSA_")}
+    env["PYTHONPATH"] = root
+    node = subprocess.Popen([sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "-c",
+                             str(path)], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT)
+
+    def req(method, p, body=b""):
+        r = urllib.request.Request(f"http://{host}{p}", data=body or None, method=method)
+        try:
+            with urllib.request.urlopen(r, timeout=60) as resp:
+                return resp.status, dict(resp.headers), json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            return e.code, dict(e.headers), json.loads(e.read())
+
+    def k2():
+        sites = req("GET", "/debug/perf")[2]["sites"]
+        return sum(sites.get(name, {}).get("launches", 0) for name in ("total", "direct"))
+
+    try:
+        deadline = time.monotonic() + 180
+        while True:
+            assert node.poll() is None, node.stdout.read().decode()[-4000:]
+            try:
+                if req("GET", "/status")[0] == 200:
+                    break
+            except OSError:
+                pass
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        assert req("POST", "/index/i")[0] == 200 and req("POST", "/index/i/frame/f")[0] == 200
+        bits = " ".join(f"SetBit(frame=f, rowID={r}, columnID={(sl << 20) + c})"
+                        for sl in range(16) for r in (0, 1) for c in (3, 70, 1 << 19))
+        assert req("POST", "/index/i/query", bits.encode())[0] == 200
+        q = b"Count(Intersect(Bitmap(frame=f, rowID=0), Bitmap(frame=f, rowID=1)))"
+        assert req("POST", "/index/i/query", q)[2]["results"] == [48]
+        got = []
+        for _ in range(20):  # until two requests met at the gate
+            before = k2()
+            barrier = threading.Barrier(16)
+            answers = []
+
+            def one():
+                barrier.wait(timeout=60)
+                answers.append(req("POST", "/index/i/query", q))
+
+            threads = [threading.Thread(target=one) for _ in range(16)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            ok = [a for a in answers if a[0] == 200]
+            shed = [a for a in answers if a[0] == 429]
+            assert len(ok) + len(shed) == 16
+            assert all(a[2]["results"] == [48] for a in ok)
+            assert all(int(h["Retry-After"]) >= 1 and b["retryAfterMs"] > 0 for _, h, b in shed)
+            assert k2() - before == len(ok)
+            got.append((len(ok), len(shed)))
+            if shed:
+                break
+        assert got[-1][1] >= 1, got
+        health = req("GET", "/debug/health")[2]["admission"]["point"]
+        assert health["concurrency"] == 1 and health["queueDepth"] == 0 and health["shed"] >= 1
+    finally:
+        node.terminate()
+        assert node.wait(timeout=120) == 0

@@ -2,7 +2,8 @@
 
 * No module under ``pilosa_tpu_torch/`` imports ``jax``, ``pilosa_tpu``
   or ``google.protobuf`` (AST scan, and a fresh interpreter that imports
-  every module and finds none of them in ``sys.modules``).
+  every module and finds none of them in ``sys.modules``); the
+  configuration, admission and console modules also used alone.
 * Entry points default to CUDA and raise when it is absent — no silent
   CPU path.
 * Every kernel wrapper raises, rather than computing, for a tensor on a
@@ -78,6 +79,33 @@ def test_fresh_interpreter_loads_no_forbidden_module():
     proc = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120
     )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("mod,use", [
+    ("pilosa_tpu_torch.config",
+     "c = m.from_toml('[net]\\ntenants = [\\'gold:3\\']\\n'); c.validate(); print(c.to_toml()[:9])"),
+    ("pilosa_tpu_torch.net.admission",
+     "r = m.TenantRegistry(['gold:3:1']); m.AdmissionController(tenants=r).acquire('point', tenant='gold').release()"),
+    ("pilosa_tpu_torch.net.webui", "assert m.ASSETS['main.js'][0] and m.INDEX_HTML"),
+])
+def test_configuration_and_admission_modules_stand_alone(mod, use):
+    """``config.py``, ``net/admission.py`` and ``net/webui.py`` are the
+    port's own copies: imported alone and used (a file validated with the
+    port's ``Tenant``, a gate taken, the console read), they load nothing
+    of the JAX package."""
+    code = (
+        "import importlib, sys\n"
+        f"m = importlib.import_module({mod!r})\n"
+        f"{use}\n"
+        f"bad = [x for x in sys.modules if any(x == f or x.startswith(f + '.') for f in {FORBIDDEN!r})]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(PKG)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                          timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 

@@ -280,6 +280,7 @@ def test_probe_measures_and_caches(tmp_path, monkeypatch):
     assert fp["probe_bytes"] == floorprobe.CPU_PROBE_BYTES
     assert fp["iters"] == floorprobe.TIMED_ITERS
     assert fp["mean_gbps"] > 0 and list(fp["gbps"]) == ["0"]
+    assert fp["launches"] == 0  # the CPU's plain version launches nothing
     assert len(calls) == 1
     gauges = stats.snapshot()["gauges"]
     assert gauges["device.streamFloorGbps"] == pytest.approx(fp["mean_gbps"])

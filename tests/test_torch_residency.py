@@ -311,9 +311,15 @@ def test_cli_flags_name_the_jax_keys(monkeypatch):
 
     cli = importlib.import_module("pilosa_tpu_torch.cli.main")
 
+    # Every flag overrides a key of the configuration, so none has a
+    # default of its own: the JAX defaults come from config.py.
     args = cli.build_parser().parse_args(["server"])
     assert (args.hbm_budget_bytes, args.prefetch, args.wal, args.group_commit_ms,
-            args.group_commit_max, args.wal_segment_bytes, args.plane_format) == (
+            args.group_commit_max, args.wal_segment_bytes, args.plane_format) == (None,) * 7
+    cfg = cli.load_config(args)
+    assert (cfg.device.hbm_budget_bytes, cfg.device.prefetch, cfg.ingest.wal,
+            cfg.ingest.group_commit_ms, cfg.ingest.group_commit_max,
+            cfg.ingest.wal_segment_bytes, cfg.device.plane_format) == (
         0, True, True, 2.0, 128, 4 << 20, "auto")
     seen = {}
 

@@ -663,7 +663,7 @@ class TestCoreHooks:
         staged = []
 
         class Recorder:
-            def stage(self, frags):
+            def stage(self, frags, throttle_s=0.0):
                 staged.extend(f.slice for f in frags)
 
                 class Job:
